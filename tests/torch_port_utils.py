@@ -1,0 +1,106 @@
+"""Helpers shared by the tests that hold srhmm_tpu_torch against srhmm_tpu.
+
+Models are made once as numpy leaves from a seed and handed to both
+packages, so both compute on the same numbers.  JAX is imported only by the
+helpers that build JAX models, so the CUDA tests can use this module on a
+machine without JAX.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from srhmm_tpu_torch.models import gmm_hmm_from_numpy, init_left_right_trans
+
+
+def rand_stream(rng, S, M, D, cov="diag", scale=2.0) -> dict:
+    """Numpy leaves of one random GMM stream (positive-definite covariances)."""
+    means = rng.normal(size=(S, M, D)) * scale
+    w = rng.uniform(0.3, 0.7, size=(S, M))
+    w /= w.sum(-1, keepdims=True)
+    if cov == "full":
+        a = rng.normal(size=(S, M, D, D)) * 0.3
+        c = a @ np.swapaxes(a, -1, -2) + np.eye(D)
+        inv_cov, det = np.linalg.inv(c), np.linalg.det(c)
+    else:
+        var = rng.uniform(0.5, 1.5, size=(S, M, D))
+        inv_cov, det = 1.0 / var, np.prod(var, -1)
+    return {"weights": w, "means": means, "inv_cov": inv_cov, "det": det,
+            "log_det": None, "cov_type": cov}
+
+
+def rand_word(seed, S, mixes_dims, cov="diag", delta=1, scale=2.0):
+    """(trans, [stream dicts]) of one random left-right word model."""
+    rng = np.random.default_rng(seed)
+    trans = init_left_right_trans(S, delta).numpy()
+    return trans, [rand_stream(rng, S, M, D, cov, scale) for M, D in mixes_dims]
+
+
+def jax_model(trans, streams, word=""):
+    import jax.numpy as jnp
+
+    import srhmm_tpu.models as jm
+
+    return jm.GmmHmm(
+        trans=jnp.asarray(trans),
+        streams=tuple(
+            jm.GmmStream(
+                weights=jnp.asarray(s["weights"]),
+                means=jnp.asarray(s["means"]),
+                inv_cov=jnp.asarray(s["inv_cov"]),
+                det=jnp.asarray(s["det"]),
+                cov_type=s["cov_type"],
+                log_det=None if s.get("log_det") is None else jnp.asarray(s["log_det"]),
+            )
+            for s in streams
+        ),
+        word=word,
+    )
+
+
+def both_models(trans, streams, word=""):
+    """The same word as a JAX GmmHmm and as a srhmm_tpu_torch GmmHmm."""
+    return jax_model(trans, streams, word), gmm_hmm_from_numpy(trans, streams, word)
+
+
+def leaves_jax(model) -> list[np.ndarray]:
+    out = [np.asarray(model.trans)]
+    for s in model.streams:
+        out += [np.asarray(s.weights), np.asarray(s.means), np.asarray(s.inv_cov),
+                np.asarray(s.det), np.asarray(s.log_abs_det())]
+    return out
+
+
+def leaves_torch(model) -> list[np.ndarray]:
+    out = [model.trans.numpy()]
+    for s in model.streams:
+        out += [s.weights.numpy(), s.means.numpy(), s.inv_cov.numpy(),
+                s.det.numpy(), s.log_abs_det().numpy()]
+    return out
+
+
+def assert_same_leaves(jax_model_, torch_model_, rtol=0.0):
+    a, b = leaves_jax(jax_model_), leaves_torch(torch_model_)
+    assert len(a) == len(b)
+    for x, y in zip(a, b):
+        assert x.shape == y.shape and x.dtype == y.dtype, (x.shape, y.shape, x.dtype, y.dtype)
+        np.testing.assert_allclose(y, x, rtol=rtol, atol=0)
+
+
+def sample_utterance(rng, trans, streams, T) -> list[np.ndarray]:
+    """One utterance of T frames per stream, sampled from a left-right HMM
+    (start in state 0) with the given numpy stream leaves."""
+    S = trans.shape[0]
+    states = [0]
+    for _ in range(T - 1):
+        states.append(int(rng.choice(S, p=trans[states[-1]])))
+    out = []
+    for s in streams:
+        frames = []
+        for st in states:
+            m = int(rng.choice(s["weights"].shape[1], p=s["weights"][st]))
+            mu, k = s["means"][st, m], s["inv_cov"][st, m]
+            cov = np.linalg.inv(k) if s["cov_type"] == "full" else np.diag(1.0 / k)
+            frames.append(rng.multivariate_normal(mu, cov))
+        out.append(np.asarray(frames))
+    return out
