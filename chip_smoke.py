@@ -7,20 +7,41 @@ Needs one CUDA card, nvcc, and this repository beside the script; it exits
 non-zero without them.  It imports nothing of JAX.  Phases, one JSON line
 each (any failure raises, so the exit code is non-zero):
 
-  0 device   card, CUDA, nvcc and power limit; TF32 switched off
-  1 build    nvcc builds srhmm_tpu_torch/csrc/*.cu into build/srhmm_tpu_torch/
-  2 kernel   vocab_scores kernel vs its plain PyTorch version on the same CUDA
-             tensors (diag/full, total/final, sum/max, two streams, a
-             heterogeneous vocabulary, odd B and T, a zero-length utterance,
-             a 200-word vocabulary): max|k-p|/max(|p|,1) <= 1e-5, equal
-             finite masks, identical argmax over words
-  3 main     the recognizer end to end at full width on generated data:
-             .hmm/.perfil files -> read_vocabulary -> stack_models ->
-             astype(float32) -> cuda; load_batch -> score_batch -> rank ->
-             RecognitionReport / isolated_accuracy, for W=13 S=6 M=1 D=9 full
-             covariance (the reference fixtures' shape) and W=10 S=8 M=4 D=13
-             diagonal; then the recognize CLI (--numerics fast) on 13 files
-  4 timing   kernel and plain version at both main-path shapes, CUDA events
+  0 device    card, CUDA, nvcc and power limit; TF32 switched off
+  1 build     one nvcc per srhmm_tpu_torch/csrc/*.cu, all started together,
+              linked into build/srhmm_tpu_torch/
+  2 kernel    every kernel vs its plain PyTorch version on the same CUDA
+              tensors.  vocab_scores (diag/full, total/final, sum/max, two
+              streams, a heterogeneous vocabulary, odd B and T, a zero-length
+              utterance, a 200-word vocabulary): max|k-p|/max(|p|,1) <= 1e-5,
+              equal finite masks, identical argmax over words.  kernel_em:
+              emit_forward and backward_stats (diag/full x band 1, 2, dense x
+              one stream D=9/M=3 or two streams D=9/M=3 + D=3/M=2, B=37,
+              T=95, a zero-length and a length-1 row): log_b / log_alpha
+              max|k-p|/max(|p|,1) <= 1e-5 with equal masks of values above
+              NEG_INF/2; every summed statistic (xi, den_trans, den_mix,
+              and each stream's first moments, second moments and
+              occupancies apart) max|k-p| <= 1e-4 max|p|; two kernel runs
+              of one E-step bitwise equal
+  3 main      the recognizer end to end at full width on generated data:
+              .hmm/.perfil files -> read_vocabulary -> stack_models ->
+              astype(float32) -> cuda; load_batch -> score_batch -> rank ->
+              RecognitionReport / isolated_accuracy, for W=13 S=6 M=1 D=9 full
+              covariance (the reference fixtures' shape) and W=10 S=8 M=4 D=13
+              diagonal; then the recognize CLI (--numerics fast) on 13 files
+    train     Baum-Welch training at full width on generated data: .perfil
+              files -> load_batch -> create_initial_model (LBG) ->
+              astype(float32) -> cuda -> train_fast, for em_diag_S8_M3_D9
+              (B=2048, T=500, the JAX package's EM headline shape) and
+              em_full_S6_M1_D9 (B=2048 of 103-213 frames, the reference
+              fixtures' model shape); then, from the trained model,
+              em_train_scan(5) through the kernels vs fused=False on the card
+    train_cli the train CLI (--numerics fast --scan-iters 8) on a 4-word
+              vocabulary, its .hmm files read back and 64 held-out utterances
+              scored through the vocab_scores kernel: accuracy >= 0.9
+  4 timing    every kernel and its plain version at the main-path shapes, and
+              one whole EM iteration through the kernels vs fused=False;
+              CUDA events, median of 20 after warm-up
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 card's name and power limit as nvidia-smi reports them.
@@ -41,6 +62,10 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 BOUND = 1e-5  # kernel vs plain: max |k - p| / max(|p|, 1) over finite scores
+# summed E-step statistics, kernel vs plain: max |k - p| <= 1e-4 max |p|
+# (fp32 sums over up to ~1e6 frames, taken in another order)
+STAT_BOUND = 1e-4
+NEG_INF = -1e30  # the kernels' log-domain floor
 FRAME_S = 0.01  # seconds of audio per frame
 
 
@@ -122,6 +147,58 @@ def torch_vocab(words):
     return stack_models([gmm_hmm_from_numpy(t, s, f"w{i}") for i, (t, s) in enumerate(words)])
 
 
+def make_dataset(seed, B, S, M, D, t_range, full=False):
+    """B utterances from bench.py:49-63 make_dataset's wandering left-right
+    process (per-state means x5, unit noise, the S-1 state boundaries drawn
+    uniformly), with M Gaussians per state around the state mean (x4) so
+    that every mixture of an M-mixture model has a component to find, and
+    correlated noise for full covariance; lengths drawn from t_range."""
+    rng = np.random.default_rng(seed)
+    state_means = rng.normal(size=(S, D)) * 5.0
+    mix_means = state_means[:, None, :] + rng.normal(size=(S, M, D)) * 4.0
+    chol = np.eye(D) + (np.tril(rng.normal(size=(S, D, D)), -1) * 0.4 if full else 0.0)
+    utts = []
+    for _ in range(B):
+        T = int(rng.integers(*t_range))
+        bounds = np.sort(rng.choice(np.arange(1, T), S - 1, replace=False))
+        ids = np.zeros(T, dtype=int)
+        for k, b in enumerate(bounds):
+            ids[b:] = k + 1
+        mix = rng.integers(0, M, size=T)
+        z = rng.normal(size=(T, D))
+        noise = np.einsum("tde,te->td", chol[ids], z) if full else z
+        utts.append(mix_means[ids, mix] + noise)
+    return utts
+
+
+def em_case(torch, cov, band, mixes_dims, lens, S=6, seed=0):
+    """One E-step's CUDA inputs from a seed: (feats, packed, origins, trans,
+    lengths) for emit_forward / backward_stats.  band=None gives a dense
+    random transition matrix, else a left-right one of that band."""
+    from srhmm_tpu_torch.models import gmm_hmm_from_numpy
+    from srhmm_tpu_torch.ops.kernels.fused_em import pack_lane_constants
+
+    rng = np.random.default_rng(seed)
+    if band is None:
+        trans = rng.uniform(0.1, 1.0, size=(S, S))
+    else:
+        trans = np.zeros((S, S))
+        for i in range(S):
+            trans[i, i : i + band + 1] = rng.uniform(0.2, 1.0, size=min(band + 1, S - i))
+    trans /= trans.sum(-1, keepdims=True)
+    streams = [rand_stream(rng, S, M, D, cov) for M, D in mixes_dims]
+    model = gmm_hmm_from_numpy(trans, streams).astype(torch.float32).to("cuda")
+    T, B = max(lens), len(lens)
+    feats = tuple(
+        torch.as_tensor(rng.normal(size=(T, D, B)) * 3, dtype=torch.float32, device="cuda")
+        for _, D in mixes_dims
+    )
+    origins = tuple(s.means.mean(dim=(0, 1)) for s in model.streams)
+    packed = tuple(pack_lane_constants(s, torch.float32, origin=o) for s, o in zip(model.streams, origins))
+    lengths = torch.as_tensor(lens, dtype=torch.int32, device="cuda")
+    return feats, packed, origins, model.trans, lengths
+
+
 # ---------------------------------------------------------------------------
 # comparison
 # ---------------------------------------------------------------------------
@@ -141,6 +218,32 @@ def compare(k, p, what: str) -> dict:
     if not (k.argmax(1) == p.argmax(1)).all():
         raise AssertionError(f"{what}: argmax over words differs")
     return {"rel_err": rel, "max_abs_err": float(diff.max()) if fp.any() else 0.0}
+
+
+def compare_lattice(k, p, what: str) -> dict:
+    """(T, S, B) log-domain lattices: equal masks of values above
+    NEG_INF/2, and max |k - p| / max(|p|, 1) <= BOUND over them."""
+    k, p = k.double().cpu().numpy(), p.double().cpu().numpy()
+    mk, mp = k > NEG_INF / 2, p > NEG_INF / 2
+    if not (mk == mp).all():
+        raise AssertionError(f"{what}: masks above NEG_INF/2 differ at {int((mk != mp).sum())} entries")
+    diff = np.abs(k[mp] - p[mp])
+    rel = float(np.max(diff / np.maximum(np.abs(p[mp]), 1.0))) if mp.any() else 0.0
+    if not rel <= BOUND:
+        raise AssertionError(f"{what}: kernel vs plain relative error {rel} > {BOUND}")
+    return {"rel_err": rel, "max_abs_err": float(diff.max()) if mp.any() else 0.0}
+
+
+def compare_stat(k, p, what: str) -> dict:
+    """A summed statistic: max |k - p| <= STAT_BOUND * max |p|."""
+    k, p = k.double().cpu().numpy(), p.double().cpu().numpy()
+    if not np.isfinite(k).all():
+        raise AssertionError(f"{what}: kernel statistic not finite")
+    diff = float(np.abs(k - p).max())
+    scale = float(np.abs(p).max())
+    if not diff <= STAT_BOUND * scale:
+        raise AssertionError(f"{what}: kernel vs plain {diff} > {STAT_BOUND} x {scale}")
+    return {"rel_err": diff / scale if scale else 0.0, "max_abs_err": diff}
 
 
 def kernel_vs_plain(vocab, batch, mode, semiring, final_states=None) -> dict:
@@ -245,6 +348,66 @@ def phase_kernel(torch) -> float:
         emit({"phase": "kernel", "config": "vocab200_S8_M4_D13", "mode": "total",
               "semiring": semiring, "B": len(lens), "T": max(lens), **res})
     return worst_abs
+
+
+def phase_kernel_em(torch) -> dict:
+    """emit_forward and backward_stats vs their plain twins on the same CUDA
+    tensors; the twins' lattices feed both backward passes.  Returns the
+    worst absolute error per kernel."""
+    from srhmm_tpu_torch.ops.kernels import fused_em as fe
+
+    rng = np.random.default_rng(2025)
+    lens = [int(n) for n in rng.integers(2, 95, size=34)] + [95, 0, 1]  # B=37, T=95
+    worst = {"emit_forward": 0.0, "backward_stats": 0.0}
+    saved = fe.emit_forward.launches, fe.backward_stats.launches
+    for cov in ("diag", "full"):
+        for band in (1, 2, None):
+            for mixes_dims in ([(3, 9)], [(3, 9), (2, 3)]):
+                feats, packed, origins, trans, lengths = em_case(torch, cov, band, mixes_dims, lens)
+                args = (feats, packed, origins, trans, lengths)
+                lb_k, la_k = fe.emit_forward(*args, band)
+                lb_p, la_p = fe.emit_forward_plain(*args, band)
+                lb_k2, la_k2 = fe.emit_forward(*args, band)
+                log_z = la_p[-1, -1]
+                valid = torch.isfinite(log_z) & (log_z > NEG_INF / 2) & (lengths > 0)
+                safe_z = torch.where(valid, log_z, 0.0)
+                vmask = valid.to(torch.float32)
+                rest = (feats, lb_p, la_p, packed, origins, trans, lengths, safe_z, vmask, band)
+                st_k = fe.backward_stats(*rest)
+                st_p = fe.backward_stats_plain(*rest)
+                st_k2 = fe.backward_stats(*rest)
+                torch.cuda.synchronize()
+                name = f"{cov}_band{band}_P{len(mixes_dims)}"
+                res = {"log_b": compare_lattice(lb_k, lb_p, f"{name} log_b"),
+                       "log_alpha": compare_lattice(la_k, la_p, f"{name} log_alpha")}
+                # each moment block is its own statistic: its first moments,
+                # second moments and occupancy column have different scales
+                def parts(st):
+                    out = [st[0], st[1], st[2]]
+                    for mom, (_, D) in zip(st[3], mixes_dims):
+                        out += [mom[:, :D], mom[:, D:-1], mom[:, -1]]
+                    return out
+
+                kst, pst = parts(st_k), parts(st_p)
+                names = ["xi", "den_trans", "den_mix"] + [
+                    f"mom{q}_{part}" for q in range(len(mixes_dims)) for part in ("x", "xx", "w")
+                ]
+                for n, a, b in zip(names, kst, pst):
+                    res[n] = compare_stat(a, b, f"{name} {n}")
+                again = parts(st_k2)
+                bitwise = (torch.equal(lb_k, lb_k2) and torch.equal(la_k, la_k2)
+                           and all(torch.equal(a, b) for a, b in zip(kst, again)))
+                if not bitwise:
+                    raise AssertionError(f"{name}: two kernel runs of one E-step differ")
+                worst["emit_forward"] = max(worst["emit_forward"], res["log_b"]["max_abs_err"],
+                                            res["log_alpha"]["max_abs_err"])
+                worst["backward_stats"] = max(worst["backward_stats"],
+                                              *(res[n]["max_abs_err"] for n in names))
+                emit({"phase": "kernel_em", "config": name, "B": len(lens), "T": max(lens),
+                      "valid": int(vmask.sum()), "bitwise_repeat": bitwise,
+                      **{k: v["rel_err"] for k, v in res.items()}})
+    fe.emit_forward.launches, fe.backward_stats.launches = saved  # comparison launches
+    return worst
 
 
 def write_fixture(root: Path, words, n_utts=64, B=2048, t_range=(400, 501), seed=7):
@@ -365,6 +528,146 @@ def phase_cli(main_diag: dict) -> None:
           "report_lines": len((root / "report13.txt").read_text().splitlines())})
 
 
+def write_utterances(root: Path, name: str, utts) -> Path:
+    """One .perfil per utterance and a list file naming them."""
+    from srhmm_tpu_torch.io import write_perfil
+
+    d = root / name
+    d.mkdir()
+    for i, u in enumerate(utts):
+        write_perfil(d / f"{i:05d}.perfil", u)
+    lst = root / f"{name}.txt"
+    lst.write_text("".join(f"{name}/{i:05d}.perfil\n" for i in range(len(utts))))
+    return lst
+
+
+def phase_train(torch, name, cov, S, M, D, t_range, tmp: Path, B=2048) -> dict:
+    """The training main path at full width: .perfil files -> load_batch ->
+    create_initial_model (LBG) -> astype(float32) -> cuda -> train_fast;
+    then, from the trained model, em_train_scan(5) through the kernels vs
+    fused=False on the card."""
+    from srhmm_tpu_torch.init.lbg import create_initial_model
+    from srhmm_tpu_torch.io import load_batch
+    from srhmm_tpu_torch.io.dataset import UtteranceBatch
+    from srhmm_tpu_torch.ops.kernels import fused_em as fe
+    from srhmm_tpu_torch.ops.kernels.common import trans_band
+    from srhmm_tpu_torch.train.em import em_train_scan, train_fast
+
+    seed = {"diag": 21, "full": 22}[cov]
+    lst = write_utterances(tmp, name, make_dataset(seed, B, S, M, D, t_range, full=cov == "full"))
+    t0 = time.perf_counter()
+    host = load_batch(lst, relative_to=tmp, dtype=torch.float64)
+    t_load = time.perf_counter() - t0
+    utts = [host.features[i, : int(host.lengths[i])].numpy() for i in range(B)]
+    t0 = time.perf_counter()
+    init = create_initial_model([utts], S, [M], word=name, cov_type=cov)
+    t_init = time.perf_counter() - t0
+    model = init.astype(torch.float32).to("cuda")
+    batch = UtteranceBatch(host.features.to("cuda", torch.float32), host.lengths.to("cuda"))
+
+    fe.emit_forward.launches = fe.backward_stats.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = train_fast(model, batch, max_iterations=20)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"emit_forward": fe.emit_forward.launches, "backward_stats": fe.backward_stats.launches}
+    for k, n in launches.items():
+        if n < res.iterations:
+            raise AssertionError(f"{name}: {k} launched {n} times for {res.iterations} iterations")
+    hist = np.asarray(res.log_prob_history)
+    drops = (hist[1:] - hist[:-1]) / np.abs(hist[:-1])
+    if (drops < -1e-5).any():
+        raise AssertionError(f"{name}: log-probability decreased: {hist.tolist()}")
+    if res.exemplar_count != B:
+        raise AssertionError(f"{name}: num_valid {res.exemplar_count} != {B}")
+    means = res.model.streams[0].means
+    if not bool(torch.isfinite(means).all()):
+        raise AssertionError(f"{name}: trained means are not finite")
+
+    # five more iterations from the trained model, through the kernels and
+    # through fused=False.  Not from the LBG start: there EM first drives
+    # some mixtures to the 1e-5 weight floor, and the means of such a
+    # mixture, fed by about a frame of occupancy, differ by ~1% after five
+    # iterations between any two fp32 summation orders (and between fp32 and
+    # fp64); near the trained model EM contracts
+    band = trans_band(model.trans.cpu().numpy())
+    trained = res.model
+    fin_k, lps_k, nvs_k = em_train_scan(trained, batch, 5, batch.features.permute(1, 2, 0).contiguous(),
+                                        fused=True, band=band)
+    fin_p, lps_p, nvs_p = em_train_scan(trained, batch, 5, fused=False)
+    lps_k, lps_p = lps_k.double().cpu().numpy(), lps_p.double().cpu().numpy()
+    lp_rel = float(np.max(np.abs(lps_k - lps_p) / np.abs(lps_p)))
+    if not lp_rel <= 1e-4:
+        raise AssertionError(f"{name}: kernel vs plain log probs {lps_k} vs {lps_p}")
+    if not (nvs_k.cpu().numpy() == B).all() or not (nvs_p.cpu().numpy() == B).all():
+        raise AssertionError(f"{name}: num_valid != {B} in em_train_scan")
+    mk = fin_k.streams[0].means.double().cpu().numpy()
+    mp = fin_p.streams[0].means.double().cpu().numpy()
+    np.testing.assert_allclose(mk, mp, rtol=1e-3, atol=1e-3 * np.abs(mp).max())
+    frames = int(host.lengths.sum())
+    out = {
+        "phase": "train", "config": name, "cov": cov, "S": S, "M": M, "D": D, "B": B,
+        "T": int(host.lengths.max()), "frames": frames, "iterations": res.iterations,
+        "launches": launches, "history": hist.tolist(), "mean_log_prob": res.mean_log_prob,
+        "num_valid": res.exemplar_count, "scan5_lps_rel_vs_plain": lp_rel,
+        "scan5_means_max_abs_vs_plain": float(np.abs(mk - mp).max()),
+        "load_s": t_load, "lbg_init_s": t_init, "train_fast_wall_s": wall,
+    }
+    emit(out)
+    return {"res": out, "model": model, "batch": batch, "launches": launches}
+
+
+def phase_train_cli(torch, tmp: Path) -> None:
+    """The train CLI (--numerics fast --scan-iters 8) on the card for a
+    4-word vocabulary (S=6, M=2, D=9 diagonal, 32 utterances per word), then
+    the four .hmm files read back and 64 held-out utterances scored through
+    the vocab_scores kernel."""
+    from srhmm_tpu_torch.decode.scorer import score_batch
+    from srhmm_tpu_torch.eval.metrics import isolated_accuracy
+    from srhmm_tpu_torch.io import pack_utterances, read_hmm, write_perfil
+    from srhmm_tpu_torch.models import stack_models
+    from srhmm_tpu_torch.ops.kernels.scoring import vocab_scores
+
+    root = tmp / "train_cli"
+    root.mkdir()
+    words = rand_words(31, 4, 6, [(2, 9)], "diag", dur=150 / 6)
+    rng = np.random.default_rng(32)
+    names = [f"cmd{i}" for i in range(len(words))]
+    procs = []
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    for (trans, streams), n in zip(words, names):
+        utts = [sample(rng, trans, streams, int(rng.integers(100, 200)))[0] for _ in range(32)]
+        for i, u in enumerate(utts):
+            write_perfil(root / f"{n}_{i:02d}.perfil", u)
+        (root / f"list_{n}.txt").write_text("".join(f"{n}_{i:02d}.perfil\n" for i in range(32)))
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "srhmm_tpu_torch.cli.train", "--cov", "diag", "--numerics", "fast",
+             "--scan-iters", "8", n, "6", "1", "2", f"list_{n}.txt", f"{n}.hmm"],
+            cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        ))
+    for n, proc in zip(names, procs):
+        out, err = proc.communicate(timeout=600)
+        if proc.returncode != 0:
+            raise RuntimeError(f"train CLI failed for {n}:\n{out[-2000:]}\n{err[-4000:]}")
+    held, spoken = [], []
+    for i in range(64):
+        w = i % len(words)
+        held.append(sample(rng, *words[w], int(rng.integers(100, 200)))[0])
+        spoken.append(names[w])
+    vocab = stack_models([read_hmm(root / f"{n}.hmm") for n in names]).astype(torch.float32).to("cuda")
+    batch = pack_utterances(held, pad_multiple=1, dtype=torch.float32, device="cuda")
+    vocab_scores.launches = 0
+    scores = score_batch(vocab, batch, mode="final").cpu().numpy()
+    if vocab_scores.launches < 1:
+        raise AssertionError("train_cli: scoring did not launch the vocab_scores kernel")
+    acc = isolated_accuracy(spoken, [vocab.word[j] for j in scores.argmax(1)])
+    if not acc >= 0.9:
+        raise AssertionError(f"train_cli: accuracy {acc} < 0.9")
+    emit({"phase": "train_cli", "words": len(names), "train_utts_per_word": 32,
+          "held_out": len(held), "accuracy": acc})
+
+
 def median_ms(torch, fn, warmup=3, reps=20) -> float:
     for _ in range(warmup):
         fn()
@@ -385,24 +688,71 @@ def phase_timing(torch, main: dict, smi: str) -> dict:
 
     args, kw = pack_batch(main["vocab"], main["batch"])
     saved = vocab_scores.launches
-    # plain, kernel, kernel, plain: a drift across the window shows up as a
-    # difference between the two readings of one version
-    plain_a = median_ms(torch, lambda: vocab_scores_plain(*args, **kw))
-    kern_a = median_ms(torch, lambda: vocab_scores(*args, **kw))
-    kern_b = median_ms(torch, lambda: vocab_scores(*args, **kw))
-    plain_b = median_ms(torch, lambda: vocab_scores_plain(*args, **kw))
+    t = timed_pair(torch, lambda: vocab_scores_plain(*args, **kw), lambda: vocab_scores(*args, **kw),
+                   plain_warmup=3)
     vocab_scores.launches = saved  # timing launches are not main-path launches
     audio_s = main["res"]["frames"] * FRAME_S
-    kern, plain = min(kern_a, kern_b), min(plain_a, plain_b)
-    res = {
+    emit({
         "phase": "timing", "config": main["res"]["config"], "reps": 20,
-        "kernel_ms": [kern_a, kern_b], "plain_ms": [plain_a, plain_b],
-        "kernel_audio_s_per_s": audio_s / (kern / 1e3),
-        "plain_audio_s_per_s": audio_s / (plain / 1e3),
+        "kernel_ms": t["kernel_ms"], "plain_ms": t["plain_ms"],
+        "kernel_audio_s_per_s": audio_s / (t["ms"] / 1e3),
+        "plain_audio_s_per_s": audio_s / (t["best_plain_ms"] / 1e3),
         "audio_s": audio_s, "card": smi,
+    })
+    return {"ms": t["ms"], "plain_ms": t["best_plain_ms"]}
+
+
+def timed_pair(torch, plain, kernel, plain_warmup=1) -> dict:
+    """CUDA-event medians of 20 in the order plain, kernel, kernel, plain:
+    a drift across the window shows up as a difference between the two
+    readings of one version."""
+    plain_a = median_ms(torch, plain, warmup=plain_warmup)
+    kern_a = median_ms(torch, kernel)
+    kern_b = median_ms(torch, kernel)
+    plain_b = median_ms(torch, plain, warmup=plain_warmup)
+    return {"kernel_ms": [kern_a, kern_b], "plain_ms": [plain_a, plain_b],
+            "ms": min(kern_a, kern_b), "best_plain_ms": min(plain_a, plain_b)}
+
+
+def phase_timing_em(torch, train: dict, smi: str) -> dict:
+    """emit_forward, backward_stats and one whole EM iteration (kernel path
+    vs fused=False) at a train shape, on the trained phase's initial model."""
+    from srhmm_tpu_torch.ops.kernels import fused_em as fe
+    from srhmm_tpu_torch.ops.kernels.common import trans_band
+    from srhmm_tpu_torch.train.em import em_step
+
+    model, batch = train["model"], train["batch"]
+    band = trans_band(model.trans.cpu().numpy())
+    feats_tdb = batch.features.permute(1, 2, 0).contiguous()
+    origins = (model.streams[0].means.mean(dim=(0, 1)),)
+    packed = (fe.pack_lane_constants(model.streams[0], torch.float32, origin=origins[0]),)
+    k1 = ((feats_tdb,), packed, origins, model.trans, batch.lengths, band)
+    lb, la = fe.emit_forward(*k1)
+    log_z = la[-1, -1]
+    valid = torch.isfinite(log_z) & (log_z > NEG_INF / 2) & (batch.lengths > 0)
+    k2 = ((feats_tdb,), lb, la, packed, origins, model.trans, batch.lengths,
+          torch.where(valid, log_z, 0.0), valid.to(torch.float32), band)
+    saved = fe.emit_forward.launches, fe.backward_stats.launches
+    out = {
+        "emit_forward": timed_pair(torch, lambda: fe.emit_forward_plain(*k1), lambda: fe.emit_forward(*k1)),
+        "backward_stats": timed_pair(torch, lambda: fe.backward_stats_plain(*k2), lambda: fe.backward_stats(*k2)),
+        "em_iteration": timed_pair(
+            torch, lambda: em_step(model, batch, fused=False),
+            lambda: em_step(model, batch, fused=True, feats_tdb=feats_tdb, band=band)),
+    }
+    occ = {k: fe.occupancy(w, *k1) for k, w in (("emit_forward", 0), ("backward_stats", 1))}
+    fe.emit_forward.launches, fe.backward_stats.launches = saved  # timing launches
+    audio_s = train["res"]["frames"] * FRAME_S
+    it = out["em_iteration"]
+    res = {
+        "phase": "timing_em", "config": train["res"]["config"], "reps": 20, **out,
+        "em_audio_s_per_s": audio_s / (it["ms"] / 1e3),
+        "plain_em_audio_s_per_s": audio_s / (it["best_plain_ms"] / 1e3),
+        "audio_s": audio_s, "occupancy": occ, "sms": torch.cuda.get_device_properties(0).multi_processor_count,
+        "card": smi,
     }
     emit(res)
-    return {"ms": kern, "plain_ms": plain}
+    return res
 
 
 def main() -> int:
@@ -413,6 +763,7 @@ def main() -> int:
     info = phase_device(torch)
     phase_build()
     worst_abs = phase_kernel(torch)
+    worst_em = phase_kernel_em(torch)
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     try:
         full_words = rand_words(11, 13, 6, [(1, 9)], "full", dur=450 / 6)
@@ -423,20 +774,50 @@ def main() -> int:
         worst_abs = max(worst_abs, main_full["res"]["kernel_vs_plain_abs"],
                         main_diag["res"]["kernel_vs_plain_abs"])
         phase_cli(main_diag)
+        train_diag = phase_train(torch, "em_diag_S8_M3_D9", "diag", 8, 3, 9, (500, 501), tmp)
+        train_full = phase_train(torch, "em_full_S6_M1_D9", "full", 6, 1, 9, (103, 214), tmp)
+        phase_train_cli(torch, tmp)
         t_full = phase_timing(torch, main_full, info["nvidia_smi"])
         phase_timing(torch, main_diag, info["nvidia_smi"])
+        em_diag = phase_timing_em(torch, train_diag, info["nvidia_smi"])
+        phase_timing_em(torch, train_full, info["nvidia_smi"])
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    emit({"kernels": [{
-        "name": "vocab_scores",
-        "route": "cuda",
-        "source": "srhmm_tpu_torch/csrc/vocab_scores.cu",
-        "replaces": "srhmm_tpu/ops/pallas/scoring_pallas.py:301",
-        "launches": launches,
-        "max_abs_err": worst_abs,
-        "ms": t_full["ms"],
-        "plain_ms": t_full["plain_ms"],
-    }]})
+    fused_src = "srhmm_tpu_torch/csrc/fused_em.cu"
+    em_launches = {k: train_diag["launches"][k] + train_full["launches"][k]
+                   for k in ("emit_forward", "backward_stats")}
+    emit({"kernels": [
+        {
+            "name": "vocab_scores",
+            "route": "cuda",
+            "source": "srhmm_tpu_torch/csrc/vocab_scores.cu",
+            "replaces": "srhmm_tpu/ops/pallas/scoring_pallas.py:301",
+            "launches": launches,
+            "max_abs_err": worst_abs,
+            "ms": t_full["ms"],
+            "plain_ms": t_full["plain_ms"],
+        },
+        {
+            "name": "emit_forward",
+            "route": "cuda",
+            "source": fused_src,
+            "replaces": "srhmm_tpu/ops/pallas/fused_em_pallas.py:350 (and :946, multi-stream)",
+            "launches": em_launches["emit_forward"],
+            "max_abs_err": worst_em["emit_forward"],
+            "ms": em_diag["emit_forward"]["ms"],
+            "plain_ms": em_diag["emit_forward"]["best_plain_ms"],
+        },
+        {
+            "name": "backward_stats",
+            "route": "cuda",
+            "source": fused_src,
+            "replaces": "srhmm_tpu/ops/pallas/fused_em_pallas.py:612 (and :1034, multi-stream)",
+            "launches": em_launches["backward_stats"],
+            "max_abs_err": worst_em["backward_stats"],
+            "ms": em_diag["backward_stats"]["ms"],
+            "plain_ms": em_diag["backward_stats"]["best_plain_ms"],
+        },
+    ]})
     print(info["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -43,13 +43,13 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "emission.cuh"
+
 namespace {
 
-constexpr int kMaxStreams = 6;
+using namespace srhmm;
+
 constexpr int kMaxThreads = 128;
-constexpr float kNegInf = -1e30f;
-constexpr float kTiny = 1e-38f;
-constexpr float kLogGausClamp = 46.051701859880914f;  // log(1e20)
 
 struct Params {
   const float* feats[kMaxStreams];  // per stream: (T, D_p, B)
@@ -65,78 +65,8 @@ struct Params {
   int T, B, S, band;
 };
 
-// Record layouts (floats, every record 16-byte aligned):
-//   diagonal: [mu*k (DMAX), -k/2 (DMAX), bias, 0, 0, 0]           2*DMAX + 4
-//   full:     [L^T rows (D x DMAX), -L^T mu (DMAX), bias, log w, 0, 0]
-//                                                                D*DMAX + DMAX + 4
-// one record per (state, mixture), state-major.
-template <int DMAX, bool FULL>
-__host__ __device__ constexpr int record_stride(int D) {
-  return FULL ? D * DMAX + DMAX + 4 : 2 * DMAX + 4;
-}
-
-// online logsumexp over mixtures: max seeded at NEG_INF
-__device__ __forceinline__ void lse_push(float q, float& m, float& e) {
-  if (q > m) {
-    e = e * expf(m - q) + 1.f;
-    m = q;
-  } else {
-    e += expf(q - m);
-  }
-}
-
-template <int DMAX>
-__device__ __forceinline__ float diag_state_log_b(const float* rec, int M, const float (&x)[DMAX],
-                                                  const float (&x2)[DMAX]) {
-  float m = kNegInf, e = 0.f;
-  for (int mix = 0; mix < M; ++mix, rec += 2 * DMAX + 4) {
-    const float4* lin = reinterpret_cast<const float4*>(rec);
-    const float4* quad = reinterpret_cast<const float4*>(rec + DMAX);
-    float acc = rec[2 * DMAX];
-#pragma unroll
-    for (int i = 0; i < DMAX / 4; ++i) {
-      const float4 l = lin[i];
-      const float4 q = quad[i];
-      acc = fmaf(l.x, x[4 * i + 0], acc);
-      acc = fmaf(l.y, x[4 * i + 1], acc);
-      acc = fmaf(l.z, x[4 * i + 2], acc);
-      acc = fmaf(l.w, x[4 * i + 3], acc);
-      acc = fmaf(q.x, x2[4 * i + 0], acc);
-      acc = fmaf(q.y, x2[4 * i + 1], acc);
-      acc = fmaf(q.z, x2[4 * i + 2], acc);
-      acc = fmaf(q.w, x2[4 * i + 3], acc);
-    }
-    lse_push(acc, m, e);
-  }
-  return logf(fmaxf(e, kTiny)) + m;
-}
-
-template <int DMAX>
-__device__ __forceinline__ float full_state_log_b(const float* rec, int M, int D,
-                                                  const float (&x)[DMAX]) {
-  const int stride = record_stride<DMAX, true>(D);
-  float m = kNegInf, e = 0.f;
-  for (int mix = 0; mix < M; ++mix, rec += stride) {
-    const float* bg = rec + D * DMAX;
-    float quad = 0.f;
-    for (int d = 0; d < D; ++d) {
-      const float4* row = reinterpret_cast<const float4*>(rec + d * DMAX);
-      float z = bg[d];
-#pragma unroll
-      for (int i = 0; i < DMAX / 4; ++i) {
-        const float4 r = row[i];
-        z = fmaf(r.x, x[4 * i + 0], z);
-        z = fmaf(r.y, x[4 * i + 1], z);
-        z = fmaf(r.z, x[4 * i + 2], z);
-        z = fmaf(r.w, x[4 * i + 3], z);
-      }
-      quad = fmaf(z, z, quad);
-    }
-    const float q = fminf(fmaf(-0.5f, quad, bg[DMAX]), kLogGausClamp) + bg[DMAX + 1];
-    lse_push(q, m, e);
-  }
-  return logf(fmaxf(e, kTiny)) + m;
-}
+// The records of a word block follow csrc/emission.cuh (log w folded into
+// the diagonal bias), then the (band+1, S) log-transition diagonals.
 
 template <int DMAX, bool FULL, bool VITERBI>
 __global__ void __launch_bounds__(kMaxThreads) vocab_scores_kernel(const Params p) {

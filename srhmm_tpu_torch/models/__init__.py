@@ -4,9 +4,12 @@ from .gmm_hmm import (
     FULL,
     GmmHmm,
     GmmStream,
+    denormalize_model,
+    denormalize_stream,
     init_left_right_trans,
     pad_stack_models,
     stack_models,
+    validate_model,
 )
 
 __all__ = [
@@ -14,9 +17,12 @@ __all__ = [
     "FULL",
     "GmmHmm",
     "GmmStream",
+    "denormalize_model",
+    "denormalize_stream",
     "gmm_hmm_from_numpy",
     "gmm_hmm_to_numpy",
     "init_left_right_trans",
     "pad_stack_models",
     "stack_models",
+    "validate_model",
 ]

@@ -265,3 +265,63 @@ def init_left_right_trans(
     width = np.minimum(delta + 1, states_number - np.arange(states_number))
     trans = np.where(allowed, 1.0 / width[:, None], 0.0)
     return torch.as_tensor(trans, dtype=dtype, device=device)
+
+
+def validate_model(model: GmmHmm, atol: float = 1e-3) -> list[str]:
+    """Stochasticity sanity checks mirroring the reference's printf warnings
+    (row sums T1:1926, mixture-coefficient sums T1:1997-1998).  Returns a
+    list of human-readable violations (empty = OK)."""
+    problems = []
+    row_sums = model.trans.detach().cpu().numpy().sum(axis=-1)
+    bad = np.abs(row_sums - 1.0) > atol
+    if bad.any():
+        problems.append(f"transition row sums off: {row_sums[bad]}")
+    for si, s in enumerate(model.streams):
+        w_sums = s.weights.detach().cpu().numpy().sum(axis=-1)
+        badw = np.abs(w_sums - 1.0) > atol
+        if badw.any():
+            problems.append(f"stream {si} mixture weight sums off: {w_sums[badw]}")
+    return problems
+
+
+def denormalize_stream(stream: GmmStream, mean, std) -> GmmStream:
+    """Map a stream trained on y = (x - mean)/std back to raw feature space
+    (the exact inverse affine transform):
+
+        mu_x = std * mu_y + mean
+        Sigma_x^{-1} = S^{-1} Sigma_y^{-1} S^{-1}      (S = diag(std))
+        log|Sigma_x| = log|Sigma_y| + 2 sum log std
+
+    With features.frontend.global_cmvn_stats this makes the fast trainer's
+    normalized-space EM export raw-space .hmm models."""
+    dtype, device = stream.means.dtype, stream.means.device
+    m = torch.as_tensor(mean, dtype=dtype, device=device)
+    s = torch.as_tensor(std, dtype=dtype, device=device)
+    means = stream.means * s + m
+    if stream.cov_type == FULL:
+        inv_cov = stream.inv_cov / (s[:, None] * s[None, :])
+    else:
+        inv_cov = stream.inv_cov / (s * s)
+    # log-space determinant update avoids overflowing the linear det
+    log_std = torch.log(torch.as_tensor(std, dtype=torch.float64, device=device))
+    log_det = stream.log_abs_det() + 2.0 * torch.sum(log_std.to(dtype))
+    return GmmStream(
+        weights=stream.weights,
+        means=means,
+        inv_cov=inv_cov,
+        det=torch.exp(log_det),
+        cov_type=stream.cov_type,
+        log_det=log_det,
+    )
+
+
+def denormalize_model(model: GmmHmm, stats) -> GmmHmm:
+    """denormalize_stream over every stream; stats: list of (mean, std) per
+    stream (or a single pair for single-stream models)."""
+    if not isinstance(stats, list):
+        stats = [stats]
+    return GmmHmm(
+        trans=model.trans,
+        streams=[denormalize_stream(st, m, s) for st, (m, s) in zip(model.streams, stats)],
+        word=model.word,
+    )

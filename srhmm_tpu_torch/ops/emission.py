@@ -99,6 +99,20 @@ def log_state_emission(frames, streams) -> torch.Tensor:
     return total
 
 
+def log_mixture_posteriors(frames: torch.Tensor, stream: GmmStream):
+    """(log b per state, per-mixture posterior) — the quantities the
+    trainer's ``calc_symbol_probab`` produces (T1:1791-1811): posteriors are
+    the weighted mixture likelihoods normalized within each state.
+
+    frames (*F, D) -> (log_b (*F, S), post (*F, S, M)), post in linear
+    domain; a state with zero total likelihood gets zero posteriors."""
+    lg = log_gauss(frames, stream) + torch.log(stream.weights.to(frames.dtype))
+    log_b = torch.logsumexp(lg, dim=-1)
+    post = torch.exp(lg - log_b[..., None])
+    post = torch.where(torch.isfinite(log_b)[..., None], post, torch.zeros_like(post))
+    return log_b, post
+
+
 # ---------------------------------------------------------------------------
 # parity path (float64 probability domain, reference-exact semantics)
 # ---------------------------------------------------------------------------

@@ -11,13 +11,14 @@
 
 The JAX ``lax.scan`` is a Python loop over time here, and its ``vmap`` over
 words or utterances is a leading batch axis: every function accepts extra
-leading axes before (T, S).  The backward passes belong to training and are
-not ported yet.
+leading axes before (T, S).
 """
 
 from __future__ import annotations
 
 import torch
+
+from ..models.gmm_hmm import BETA_INF_CLAMP
 
 # ---------------------------------------------------------------------------
 # log path
@@ -49,6 +50,60 @@ def log_forward(
             new = torch.where(t < length, new, carry)
         carry = new
     return carry
+
+
+def log_forward_full(
+    log_b: torch.Tensor, log_trans: torch.Tensor, length: torch.Tensor | None = None
+) -> torch.Tensor:
+    """Like log_forward but returns the whole (..., T, S) log-alpha lattice
+    (needed by EM).  Rows at t >= length repeat the last valid row."""
+    T, S = log_b.shape[-2:]
+    start = torch.full((S,), -torch.inf, dtype=log_b.dtype, device=log_b.device)
+    start[0] = 0.0
+    carry = start + log_b[..., 0, :]
+    if length is not None:
+        length = torch.as_tensor(length, device=log_b.device)[..., None]
+    rows = [carry]
+    for t in range(1, T):
+        new = torch.logsumexp(carry[..., :, None] + log_trans, dim=-2) + log_b[..., t, :]
+        if length is not None:
+            new = torch.where(t < length, new, carry)
+        carry = new
+        rows.append(carry)
+    return torch.stack(rows, dim=-2)
+
+
+def log_backward_full(
+    log_b: torch.Tensor,
+    log_trans: torch.Tensor,
+    length: torch.Tensor | None = None,
+    final_state_only: bool = True,
+) -> torch.Tensor:
+    """Log-space backward recursion, (..., T, S) log-beta lattice.
+
+    final_state_only=True matches the reference's initialization
+    beta[S-1][T-1] = 1, else 0 (T1:1511-1513) — the model must end in the
+    final state.  With padding, the "last frame" is length-1: positions
+    t >= length hold the initial condition and the recursion starts there.
+    """
+    T, S = log_b.shape[-2:]
+    if final_state_only:
+        beta_T = torch.full((S,), -torch.inf, dtype=log_b.dtype, device=log_b.device)
+        beta_T[S - 1] = 0.0
+    else:
+        beta_T = torch.zeros((S,), dtype=log_b.dtype, device=log_b.device)
+    if length is None:
+        length = T
+    last = torch.as_tensor(length, device=log_b.device)[..., None] - 1
+    carry = beta_T.expand(log_b.shape[:-2] + (S,))
+    rows = [carry]
+    for t in range(T - 2, -1, -1):  # computing beta[t] from beta[t+1]
+        new = torch.logsumexp(log_trans + (log_b[..., t + 1, :] + carry)[..., None, :], dim=-1)
+        # t >= last: stay at the initial condition until the recursion
+        # "begins" at the last valid frame
+        carry = torch.where(t < last, new, beta_T)
+        rows.append(carry)
+    return torch.stack(rows[::-1], dim=-2)
 
 
 def score_total(log_alpha_final: torch.Tensor) -> torch.Tensor:
@@ -90,6 +145,27 @@ def scaled_forward_parity(b: torch.Tensor, trans: torch.Tensor):
         alphas.append(a)
         cs.append(c)
     return torch.stack(alphas, dim=-2), torch.stack(cs, dim=-1)
+
+
+def scaled_backward_parity(b: torch.Tensor, trans: torch.Tensor, scaling: torch.Tensor):
+    """The reference's scaled backward recursion (T1:1493-1543), float64,
+    final-state initialization and the isinf -> 1e200 clamp (T1:1540).
+
+    b: (..., T, S); trans: (..., S, S); scaling: (..., T) from the forward
+    pass.  Returns beta: (..., T, S) scaled with the forward factors."""
+    b = b.to(torch.float64)
+    trans = trans.to(torch.float64)
+    T, S = b.shape[-2:]
+    unit = torch.zeros((S,), dtype=torch.float64, device=b.device)
+    unit[S - 1] = 1.0
+    beta = unit * scaling[..., T - 1, None]
+    betas = [beta]
+    for t in range(T - 2, -1, -1):  # computing beta[t] from beta[t+1]
+        new = torch.matmul(trans, (beta * b[..., t + 1, :])[..., None])[..., 0]
+        new = new * scaling[..., t, None]
+        beta = torch.where(torch.isinf(new), BETA_INF_CLAMP, new)
+        betas.append(beta)
+    return torch.stack(betas[::-1], dim=-2)
 
 
 def parity_score_total(scaling: torch.Tensor) -> torch.Tensor:

@@ -1,10 +1,11 @@
 """Build and load the package's CUDA kernels.
 
-Every ``srhmm_tpu_torch/csrc/*.cu`` source is compiled by ``nvcc`` for
-``sm_90a`` into one shared library with a plain C interface, loaded with
-``ctypes``.  The library goes into ``build/srhmm_tpu_torch/<hash>/`` under
-the repository root, keyed by a hash of the sources and flags, and is built
-at first use.  There is no fallback: without ``nvcc`` the build raises.
+Every ``srhmm_tpu_torch/csrc/*.cu`` source is compiled by its own ``nvcc``
+process for ``sm_90a`` (all started together), and the objects are linked
+into one shared library with a plain C interface, loaded with ``ctypes``.
+The library goes into ``build/srhmm_tpu_torch/<hash>/`` under the repository
+root, keyed by a hash of the sources and flags, and is built at first use.
+There is no fallback: without ``nvcc`` the build raises.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ BUILD_ROOT = PACKAGE_DIR.parent / "build" / "srhmm_tpu_torch"
 CUDA_ROOT = Path("/usr/local/cuda")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 LIB_NAME = "libsrhmm_tpu_torch.so"
 
@@ -61,8 +62,9 @@ def _source_hash(srcs: list[Path]) -> str:
 
 
 def build_library() -> tuple[Path, float]:
-    """Compile the kernels if no library for the current sources exists.
-    Returns (library path, seconds spent compiling; 0.0 when cached)."""
+    """Compile the kernels if no library for the current sources exists:
+    one nvcc per source, in parallel, then one link.  Returns (library
+    path, seconds spent compiling and linking; 0.0 when cached)."""
     srcs = _sources()
     out_dir = BUILD_ROOT / _source_hash(srcs)
     lib = out_dir / LIB_NAME
@@ -70,19 +72,35 @@ def build_library() -> tuple[Path, float]:
         return lib, 0.0
     nvcc = find_nvcc()
     out_dir.mkdir(parents=True, exist_ok=True)
-    # compile to a private name, then rename: a concurrent build never sees
-    # a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, srcs)]
+    # objects and the library go to private names first, then the library is
+    # renamed: a concurrent build never sees a half-written library
+    work = Path(tempfile.mkdtemp(dir=out_dir))
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if res.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
-    os.replace(tmp, lib)
-    return lib, seconds
+    try:
+        jobs = []
+        for src in srcs:
+            obj = work / f"{src.stem}.o"
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            jobs.append((obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                               stderr=subprocess.PIPE, text=True)))
+        failed = []
+        for (obj, proc), src in zip(jobs, srcs):
+            out, err = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"{src.name} ({proc.returncode}):\n{out}\n{err}")
+        if failed:
+            raise RuntimeError("nvcc failed for " + "\n".join(failed))
+        tmp = work / LIB_NAME
+        res = subprocess.run(
+            [nvcc, "-shared", "-o", str(tmp), *(str(obj) for obj, _ in jobs)],
+            capture_output=True, text=True,
+        )
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
+        os.replace(tmp, lib)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return lib, time.perf_counter() - t0
 
 
 @functools.cache

@@ -23,15 +23,20 @@ import math
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from ...models.gmm_hmm import DIAG, FULL, GmmHmm
-from .common import _TINY, LOG_GAUS_CLAMP, NEG_INF, trans_band
+from .common import (
+    _TINY,
+    LOG_GAUS_CLAMP,
+    NEG_INF,
+    SMEM_LIMIT,
+    dmax_for,
+    mixture_records,
+    trans_band,
+)
 
 MAX_STREAMS = 6
 _THREADS = 128  # utterances per block; csrc/vocab_scores.cu kMaxThreads
-_DMAX_BOUNDS = (4, 8, 12, 16, 32, 64)  # template bounds on D compiled in the .cu
-_SMEM_LIMIT = 232448  # bytes of shared memory a Hopper block may use
 
 
 def pack_vocab_constants(vocab: GmmHmm, dtype=torch.float32, stream: int = 0, device=None):
@@ -216,22 +221,12 @@ def vocab_scores_plain(
 
 def _kernel_constants(a_s, bias_gs, biass, logws, diag, ds, ms, W, S, band, full, dmax):
     """Re-lay the packed constants into one (W, C) block per word: per
-    stream, one record per (state, mixture) in the .cu's layout, then the
-    (band+1, S) diagonals; C is padded to a multiple of 4 floats."""
+    stream, the mixture records of csrc/emission.cuh, then the (band+1, S)
+    diagonals; C is padded to a multiple of 4 floats."""
     parts, offs, off = [], [], 0
     for a, bg, bi, lw, D, M in zip(a_s, bias_gs, biass, logws, ds, ms):
-        bias = bi.reshape(M, W, S).permute(1, 2, 0)[..., None]  # (W, S, M, 1)
-        if full:
-            lt = a.reshape(M, D, W, S, D).permute(2, 3, 0, 1, 4)  # (W, S, M, d, e)
-            lt = F.pad(lt, (0, dmax - D)).reshape(W, S, M, D * dmax)
-            zmu = F.pad(bg.reshape(M, D, W, S).permute(2, 3, 0, 1), (0, dmax - D))
-            logw = lw.reshape(M, W, S).permute(1, 2, 0)[..., None]
-            rec = torch.cat([lt, zmu, bias, logw, torch.zeros_like(bias).expand(-1, -1, -1, 2)], -1)
-        else:
-            lin = F.pad(a[..., :D].reshape(M, W, S, D).permute(1, 2, 0, 3), (0, dmax - D))
-            quad = F.pad(a[..., D:].reshape(M, W, S, D).permute(1, 2, 0, 3), (0, dmax - D))
-            rec = torch.cat([lin, quad, bias, torch.zeros_like(bias).expand(-1, -1, -1, 3)], -1)
-        rec = rec.reshape(W, -1)
+        # the diagonal path folds log w into bias: its record stores 0
+        rec = mixture_records(a, bg, bi, lw if full else None, D, M, W, S, full, dmax)
         parts.append(rec)
         offs.append(off)
         off += rec.shape[1]
@@ -283,19 +278,16 @@ def _vocab_scores_cuda(featss, a_s, bias_gs, biass, logws, diag, lengths, s_word
         raise ValueError(f"vocab_scores: at most 65535 words per launch, got {W}")
     if any(f.shape[0] != T or f.shape[2] != B for f in featss) or lengths.shape != (B,):
         raise ValueError("vocab_scores: streams disagree on (T, B)")
-    fits = [b for b in _DMAX_BOUNDS if b >= max(ds)]
-    if not fits:
-        raise ValueError(f"vocab_scores: feature dim {max(ds)} exceeds {_DMAX_BOUNDS[-1]}")
-    dmax = fits[0]
+    dmax = dmax_for(ds, "vocab_scores")
     consts, offs, diag_off = _kernel_constants(
         a_s, bias_gs, biass, logws, diag, ds, ms, W, S, band, full, dmax
     )
     C = consts.shape[1]
     smem = 4 * (C + 2 * S * _THREADS)
-    if smem > _SMEM_LIMIT:
+    if smem > SMEM_LIMIT:
         raise ValueError(
             f"vocab_scores: one word needs {smem} bytes of shared memory, "
-            f"above the {_SMEM_LIMIT}-byte budget of a block"
+            f"above the {SMEM_LIMIT}-byte budget of a block"
         )
     featss = [f.contiguous() for f in featss]
     lens = lengths.to(torch.int32).contiguous()

@@ -1,13 +1,15 @@
-"""The CUDA scoring kernel against its plain PyTorch version, on the card.
+"""The CUDA kernels against their plain PyTorch versions, on the card.
 
 Every test here is marked ``cuda`` and skips without a CUDA device.  The
 file imports no JAX, so it also runs on a machine that has only PyTorch:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
-Bound: max |kernel - plain| / max(|plain|, 1) <= 1e-5 over finite scores,
-equal finite masks (the bound of the JAX package's compiled-vs-interpret
-gate); both run fp32, in another summation order.
+Bounds: scores, log_b and log-alpha max |kernel - plain| / max(|plain|, 1)
+<= 1e-5 over finite values (above NEG_INF/2 for the lattices), equal masks
+(the bound of the JAX package's compiled-vs-interpret gate); summed E-step
+statistics max |kernel - plain| <= 1e-4 max |plain| (fp32 sums taken in
+another order).  Both run fp32.
 """
 
 import numpy as np
@@ -15,8 +17,11 @@ import pytest
 import torch
 
 import srhmm_tpu_torch.models as tm
-from srhmm_tpu_torch.io.dataset import pack_utterances
+from srhmm_tpu_torch.io.dataset import UtteranceBatch, pack_utterances
+from srhmm_tpu_torch.ops.kernels import fused_em as fe
 from srhmm_tpu_torch.ops.kernels import scoring
+from srhmm_tpu_torch.ops.kernels.common import NEG_INF
+from srhmm_tpu_torch.train import em
 from torch_port_utils import rand_word
 
 pytestmark = pytest.mark.cuda
@@ -97,3 +102,161 @@ def test_kernel_rejects_what_it_does_not_take(cuda_device):
     wide = _vocab("diag", 2, 4, ((1, 65),)).to(cuda_device)
     with pytest.raises(ValueError, match="exceeds"):
         scoring.score_batch_fused(wide, _batch(cuda_device, [65], [10]))
+
+
+def _em_inputs(device, cov, band, mixes_dims, lens, S=6, seed=3):
+    """(feats, packed, origins, trans, lengths) of one E-step on `device`;
+    band=None gives a dense random transition matrix."""
+    rng = np.random.default_rng(seed)
+    if band is None:
+        trans = rng.uniform(0.1, 1.0, size=(S, S))
+    else:
+        trans = np.zeros((S, S))
+        for i in range(S):
+            trans[i, i : i + band + 1] = rng.uniform(0.2, 1.0, size=min(band + 1, S - i))
+    trans /= trans.sum(-1, keepdims=True)
+    _, streams = rand_word(seed, S, list(mixes_dims), cov, scale=3.0)
+    model = tm.gmm_hmm_from_numpy(trans, streams).astype(torch.float32).to(device)
+    T, B = max(lens), len(lens)
+    feats = tuple(
+        torch.as_tensor(rng.normal(size=(T, D, B)) * 3, dtype=torch.float32, device=device)
+        for _, D in mixes_dims
+    )
+    origins = tuple(s.means.mean(dim=(0, 1)) for s in model.streams)
+    packed = tuple(fe.pack_lane_constants(s, origin=o) for s, o in zip(model.streams, origins))
+    return feats, packed, origins, model.trans, torch.as_tensor(lens, dtype=torch.int32, device=device)
+
+
+def _lattice_close(got, want):
+    got, want = got.double().cpu().numpy(), want.double().cpu().numpy()
+    mask = want > NEG_INF / 2
+    assert ((got > NEG_INF / 2) == mask).all()
+    rel = np.max(np.abs(got[mask] - want[mask]) / np.maximum(np.abs(want[mask]), 1.0))
+    assert rel <= 1e-5, rel
+
+
+def _stat_close(got, want):
+    got, want = got.double().cpu().numpy(), want.double().cpu().numpy()
+    assert np.abs(got - want).max() <= 1e-4 * np.abs(want).max()
+
+
+_LENS = [int(n) for n in np.random.default_rng(5).integers(2, 95, size=34)] + [95, 0, 1]
+
+
+@pytest.mark.parametrize("mixes_dims", [((3, 9),), ((3, 9), (2, 3))])
+@pytest.mark.parametrize("band", [1, 2, None])
+@pytest.mark.parametrize("cov", ["diag", "full"])
+def test_em_kernels_match_plain(cuda_device, cov, band, mixes_dims):
+    feats, packed, origins, trans, lengths = _em_inputs(cuda_device, cov, band, mixes_dims, _LENS)
+    args = (feats, packed, origins, trans, lengths, band)
+    counts = fe.emit_forward.launches, fe.backward_stats.launches
+    lb_k, la_k = fe.emit_forward(*args)
+    lb_p, la_p = fe.emit_forward_plain(*args)
+    _lattice_close(lb_k, lb_p)
+    _lattice_close(la_k, la_p)
+    log_z = la_p[-1, -1]
+    valid = torch.isfinite(log_z) & (log_z > NEG_INF / 2) & (lengths > 0)
+    rest = (feats, lb_p, la_p, packed, origins, trans, lengths, torch.where(valid, log_z, 0.0),
+            valid.float(), band)
+    got, want = fe.backward_stats(*rest), fe.backward_stats_plain(*rest)
+    torch.cuda.synchronize()
+    assert (fe.emit_forward.launches, fe.backward_stats.launches) == (counts[0] + 1, counts[1] + 1)
+    for a, b in zip(_stat_parts(got, mixes_dims), _stat_parts(want, mixes_dims)):
+        assert a.shape == b.shape
+        _stat_close(a, b)
+
+
+def test_em_kernels_take_non_contiguous_inputs(cuda_device):
+    """Strided views give the same lattices and statistics as contiguous
+    copies: each wrapper holds its contiguous copies until the launch."""
+    feats, packed, origins, trans, lengths = _em_inputs(cuda_device, "diag", 1, ((3, 9),), _LENS)
+
+    def strided(x):  # same values, every other element of a doubled buffer
+        return torch.stack([x, torch.zeros_like(x)], dim=-1)[..., 0]
+
+    lb, la = fe.emit_forward(feats, packed, origins, trans, lengths, 1)
+    lb_s, la_s = fe.emit_forward(tuple(map(strided, feats)), packed, origins, trans, lengths, 1)
+    log_z = la[-1, -1]
+    valid = torch.isfinite(log_z) & (log_z > NEG_INF / 2) & (lengths > 0)
+    safe_z, vmask = torch.where(valid, log_z, 0.0), valid.float()
+    want = fe.backward_stats(feats, lb, la, packed, origins, trans, lengths, safe_z, vmask, 1)
+    got = fe.backward_stats(tuple(map(strided, feats)), strided(lb), strided(la), packed, origins,
+                            trans, lengths, strided(safe_z), strided(vmask), 1)
+    torch.cuda.synchronize()
+    assert not strided(lb).is_contiguous()
+    assert torch.equal(lb, lb_s) and torch.equal(la, la_s)
+    for a, b in zip(_stat_parts(got, ((3, 9),)), _stat_parts(want, ((3, 9),))):
+        assert torch.equal(a, b)
+
+
+def _stat_parts(stats, mixes_dims):
+    """xi, den_trans, den_mix, then per stream its first moments, second
+    moments and occupancies apart (each has its own scale)."""
+    out = list(stats[:3])
+    for mom, (_, D) in zip(stats[3], mixes_dims):
+        out += [mom[:, :D], mom[:, D:-1], mom[:, -1]]
+    return out
+
+
+def _train_batch(device, S=5, D=4, B=33, seed=7, cov="diag"):
+    rng = np.random.default_rng(seed)
+    utts = [rng.normal(size=(int(rng.integers(20, 60)), D)) + np.arange(D) for _ in range(B)]
+    batch = pack_utterances(utts, pad_multiple=1, dtype=torch.float32, device=device)
+    trans, streams = rand_word(seed, S, [(2, D)], cov)
+    return tm.gmm_hmm_from_numpy(trans, streams).astype(torch.float32).to(device), batch
+
+
+def test_em_step_launches_the_kernels_and_repeats_bitwise(cuda_device):
+    model, batch = _train_batch(cuda_device)
+    assert em._fused_lane_eligible(model, batch)
+    counts = fe.emit_forward.launches, fe.backward_stats.launches
+    m1, lp1, nv1 = em.em_step(model, batch)
+    m2, lp2, nv2 = em.em_step(model, batch)
+    torch.cuda.synchronize()
+    assert (fe.emit_forward.launches, fe.backward_stats.launches) == (counts[0] + 2, counts[1] + 2)
+    assert torch.equal(lp1, lp2) and torch.equal(nv1, nv2)
+    for a, b in zip(m1.buffers(), m2.buffers()):
+        assert torch.equal(a, b)
+    # the kernels' step agrees with the plain path on the card
+    m_p, lp_p, _ = em.em_step(model, batch, fused=False)
+    np.testing.assert_allclose(float(lp1), float(lp_p), rtol=1e-5)
+    np.testing.assert_allclose(m1.streams[0].means.cpu().numpy(), m_p.streams[0].means.cpu().numpy(),
+                               rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("cov", ["diag", "full"])
+def test_em_iterations_never_sync_the_host(cuda_device, cov):
+    """em_train_scan keeps its log probs on the device: no operation of an
+    iteration (packing, kernels, reductions, m_step) waits for the card."""
+    model, batch = _train_batch(cuda_device, seed=9, cov=cov)
+    use_fused, feats_tdb, band = em._fused_setup(model, batch)
+    assert use_fused
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, lps, nvs = em.em_train_scan(model, batch, 3, feats_tdb, fused=True, band=band)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert lps.shape == (3,) and bool(torch.isfinite(lps).all())
+
+
+def test_cuda_batch_never_reaches_a_twin(cuda_device, monkeypatch):
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA batch reached a plain twin")
+
+    monkeypatch.setattr(fe, "emit_forward_plain", refuse)
+    monkeypatch.setattr(fe, "backward_stats_plain", refuse)
+    model, batch = _train_batch(cuda_device, seed=8)
+    counts = fe.emit_forward.launches, fe.backward_stats.launches
+    res = em.train_fast(model, batch, max_iterations=4, chunk=2)
+    torch.cuda.synchronize()
+    assert fe.emit_forward.launches - counts[0] >= res.iterations
+    assert fe.backward_stats.launches - counts[1] >= res.iterations
+    # a float64 CUDA batch is not eligible and a forced launch refuses it
+    b64 = UtteranceBatch(batch.features.double(), batch.lengths)
+    assert not em._fused_lane_eligible(model, b64)
+    packed = (fe.pack_lane_constants(model.streams[0]),)
+    origins = (model.streams[0].means.mean(dim=(0, 1)),)
+    with pytest.raises(ValueError, match="float32"):
+        fe.emit_forward((b64.features.permute(1, 2, 0).contiguous(),), packed, origins,
+                        model.trans, batch.lengths, 1)

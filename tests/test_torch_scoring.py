@@ -214,7 +214,7 @@ def test_kernel_constant_layout_reproduces_plain(cov, mixes_dims, semiring, delt
     a_s, bg_s, bi_s, lw_s = (tuple(pk[i] for pk in packs) for i in range(4))
     band = packs[0][5]
     ds, ms, full = scoring._stream_shapes(feats, a_s)
-    dmax = next(b for b in scoring._DMAX_BOUNDS if b >= max(ds))
+    dmax = scoring.dmax_for(ds, "vocab_scores")
     consts, offs, diag_off = scoring._kernel_constants(
         a_s, bg_s, bi_s, lw_s, packs[0][4], ds, ms, W, S, band, full, dmax
     )
