@@ -39,9 +39,28 @@ each (any failure raises, so the exit code is non-zero):
     train_cli the train CLI (--numerics fast --scan-iters 8) on a 4-word
               vocabulary, its .hmm files read back and 64 held-out utterances
               scored through the vocab_scores kernel: accuracy >= 0.9
+    kernel_decode
+              the word-loop decode kernel (word_loop_decode / _k2 / _kn,
+              K = 1, 2, 3) vs its twin: diag/full x unigram, bigram S=8,
+              bigram S=6 (padded to 8 states) x one stream D=9/M=3 or two
+              D=9/M=3 + D=3/M=2, heterogeneous final states, a duplicated
+              word (exact ties decided by the tie-breaks), B=37, T=95
+              with a zero-length and a length-1 row, and W=200 bigram at a
+              short T: final max|k-p|/max(|p|,1) <= 1e-5 with equal masks,
+              pointer mismatches <= 1e-4 of all pointers, identical
+              hypotheses (word ids, spans) through the same backtrace,
+              two kernel runs bitwise equal
+  3 decode    continuous decoding at full width: W=200 S=8 M=4 D=13 diag
+              (.hmm files), B=128 strings of 4-8 words (.perfil files), a
+              bigram LM file: the decode CLI (--batch --n-best 2 --lm
+              --ref) with WER <= 5 %; decode_continuous_batch at K=1
+              unigram, K=2 and K=3 bigram vs the twin, K=1 vs the block
+              engine; W=13 S=6 M=1 D=9 full covariance, B=1024, bigram;
+              then the align CLI on 16 utterances
   4 timing    every kernel and its plain version at the main-path shapes, and
               one whole EM iteration through the kernels vs fused=False;
-              CUDA events, median of 20 after warm-up
+              CUDA events, median of 20 after warm-up (the decode twin:
+              median of 3); each kernel's bound from its inputs
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 card's name and power limit as nvidia-smi reports them.
@@ -67,10 +86,42 @@ BOUND = 1e-5  # kernel vs plain: max |k - p| / max(|p|, 1) over finite scores
 STAT_BOUND = 1e-4
 NEG_INF = -1e30  # the kernels' log-domain floor
 FRAME_S = 0.01  # seconds of audio per frame
+# the least time the card could take (NVIDIA H100 SXM data sheet):
+# the bytes a kernel must move over 3.35 TB/s, or its fp32 operations over
+# 67 TFLOP/s outside the tensor cores, whichever is larger
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
 
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def bound(nbytes: float, ops: float) -> dict:
+    """bound_ms / bound_by of a kernel that must move nbytes (each input read
+    once, each output written once) and do ops fp32 operations (a multiply-
+    add counts two; exp, log, max and compare one each)."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_bytes": nbytes, "bound_ops": ops}
+
+
+def mixture_ops(D: int, M: int, full: bool) -> int:
+    """fp32 operations of one state's emission: per mixture the lifted dot
+    product (diagonal: 2D multiply-adds) or the Cholesky z and its square
+    (full: D*D + D multiply-adds), then ~8 for the running logsumexp."""
+    return M * ((2 * D * D + 2 * D) if full else 4 * D) + 8 * M
+
+
+def valid_frames(lengths, T: int) -> int:
+    """Frames a kernel steps: min(max(length, 1), T) per row (frame 0 is
+    always taken)."""
+    return int(sum(min(max(int(n), 1), T) for n in lengths))
+
+
+def numel_bytes(*tensors) -> int:
+    return sum(4 * t.numel() for t in tensors if t is not None)
 
 
 def sh(cmd: list[str]) -> str:
@@ -692,14 +743,23 @@ def phase_timing(torch, main: dict, smi: str) -> dict:
                    plain_warmup=3)
     vocab_scores.launches = saved  # timing launches are not main-path launches
     audio_s = main["res"]["frames"] * FRAME_S
+    # bound: features of the stepped frames, the constants, the (W*S, B)
+    # output; per stepped frame and row the emission and the banded step
+    feats, a, bias_g, bias, logw, diag, lengths = args
+    T, D, B = feats.shape
+    N = a.shape[1]
+    full = main["res"]["cov"] == "full"
+    frames = valid_frames(lengths.tolist(), T)
+    bnd = bound(4 * frames * D + numel_bytes(a, bias_g, bias, logw, diag, lengths) + 4 * N * B,
+                frames * N * (mixture_ops(D, main["res"]["M"], full) + 4 * (kw["band"] + 1) + 4))
     emit({
         "phase": "timing", "config": main["res"]["config"], "reps": 20,
         "kernel_ms": t["kernel_ms"], "plain_ms": t["plain_ms"],
         "kernel_audio_s_per_s": audio_s / (t["ms"] / 1e3),
         "plain_audio_s_per_s": audio_s / (t["best_plain_ms"] / 1e3),
-        "audio_s": audio_s, "card": smi,
+        "audio_s": audio_s, **bnd, "card": smi,
     })
-    return {"ms": t["ms"], "plain_ms": t["best_plain_ms"]}
+    return {"ms": t["ms"], "plain_ms": t["best_plain_ms"], **bnd}
 
 
 def timed_pair(torch, plain, kernel, plain_warmup=1) -> dict:
@@ -744,6 +804,24 @@ def phase_timing_em(torch, train: dict, smi: str) -> dict:
     fe.emit_forward.launches, fe.backward_stats.launches = saved  # timing launches
     audio_s = train["res"]["frames"] * FRAME_S
     it = out["em_iteration"]
+    # bounds: K1 reads the stepped frames' features and the constants and
+    # writes log_b and log_alpha (T, S, B); K2 reads them back with the
+    # features and writes xi, den_trans, den_mix and the moment partials.
+    # Per stepped frame and state: K1 the emission and the banded forward
+    # step; K2 the emission again, the mixture posteriors' moment
+    # multiply-adds (2 (L+1) per mixture, L = 2D or D + D^2) and the banded
+    # backward step with xi
+    T, D, B = feats_tdb.shape
+    S, M, full = model.num_states, model.mixture_numbers[0], model.streams[0].cov_type == "full"
+    frames = valid_frames(batch.lengths.tolist(), T)
+    L1 = (D + D * D if full else 2 * D) + 1
+    nb = (band if band is not None else S - 1) + 1
+    consts = numel_bytes(*packed[0], model.trans)
+    out["emit_forward"].update(bound(4 * frames * D + consts + 4 * 2 * T * S * B,
+                                     frames * S * (mixture_ops(D, M, full) + 4 * nb + 4)))
+    out["backward_stats"].update(bound(
+        4 * frames * D + consts + 4 * 2 * T * S * B + 4 * (nb + 2) * S * B + 4 * M * S * L1,
+        frames * S * (mixture_ops(D, M, full) + 2 * M * L1 + 8 * nb + 8)))
     res = {
         "phase": "timing_em", "config": train["res"]["config"], "reps": 20, **out,
         "em_audio_s_per_s": audio_s / (it["ms"] / 1e3),
@@ -755,6 +833,414 @@ def phase_timing_em(torch, train: dict, smi: str) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# continuous decoding: the word-loop kernel (csrc/word_loop_decode.cu)
+# ---------------------------------------------------------------------------
+
+DECODE_WRAPPERS = {1: "word_loop_decode", 2: "word_loop_decode_k2", 3: "word_loop_decode_kn"}
+POINTER_BOUND = 1e-4  # kernel vs twin pointer mismatches, a share of all pointers
+
+
+def skip_trans(S: int) -> np.ndarray:
+    """Left-right transitions with a skip over one state (band 2)."""
+    t = np.zeros((S, S))
+    for s in range(S):
+        nxt = [x for x in (s, s + 1, s + 2) if x < S]
+        t[s, nxt] = np.array([0.5, 0.3, 0.2])[: len(nxt)]
+    return t / t.sum(-1, keepdims=True)
+
+
+def decode_counts() -> dict:
+    from srhmm_tpu_torch.ops.kernels import decode as kd
+
+    return {name: getattr(kd, name).launches for name in DECODE_WRAPPERS.values()}
+
+
+def set_decode_counts(counts: dict) -> None:
+    from srhmm_tpu_torch.ops.kernels import decode as kd
+
+    for name, n in counts.items():
+        getattr(kd, name).launches = n
+
+
+def on_decode_twin(fn):
+    """fn() with the decode wrappers routed to the plain twin: then
+    decode_continuous_batch runs the same backtrace and dedupe on the
+    twin's lattice.  The wrappers are restored before returning."""
+    from srhmm_tpu_torch.ops.kernels import decode as kd
+
+    kernels = kd.word_loop_decode, kd.word_loop_decode_k2, kd.word_loop_decode_kn
+    kd.word_loop_decode = lambda *a, **k: kd.word_loop_decode_plain(*a, n_best=1, **k)
+    kd.word_loop_decode_k2 = lambda *a, **k: kd.word_loop_decode_plain(*a, n_best=2, **k)
+    kd.word_loop_decode_kn = lambda *a, **k: kd.word_loop_decode_plain(*a, **k)
+    out = fn()
+    kd.word_loop_decode, kd.word_loop_decode_k2, kd.word_loop_decode_kn = kernels
+    return out
+
+
+def compare_hyps(got, want, n_best: int, what: str) -> float:
+    """Two decode_continuous_batch results: identical word ids and spans for
+    every utterance and rank, scores within BOUND relative.  Returns the
+    worst relative score error."""
+    worst = 0.0
+    if len(got) != len(want):
+        raise AssertionError(f"{what}: {len(got)} vs {len(want)} utterances")
+    for b, (g, w) in enumerate(zip(got, want)):
+        g, w = ([g], [w]) if n_best == 1 else (g, w)
+        if [h[1:] for h in g] != [h[1:] for h in w]:
+            raise AssertionError(f"{what}: utterance {b} hypotheses differ: {g} vs {w}")
+        for hg, hw in zip(g, w):
+            if hg[0] != hw[0]:
+                worst = max(worst, abs(hg[0] - hw[0]) / max(abs(hw[0]), 1.0))
+    if not worst <= BOUND:
+        raise AssertionError(f"{what}: hypothesis scores differ by {worst} > {BOUND}")
+    return worst
+
+
+def decode_operands(vocab, batches, graph_kw):
+    """(args, kwargs) of the decode wrappers for one batch, exactly as
+    decode_continuous_batch builds them."""
+    from srhmm_tpu_torch.decode import continuous as dc
+
+    graph = dc.compose_word_loop_blocks(vocab, **graph_kw)
+    (feats, a, bias, bias_g, logw, diag, band, arc_col, entry_col, exit_col, lengths,
+     s_eff) = dc._fused_operands(vocab, graph, batches)
+    return ((feats, a, bias, diag, arc_col, entry_col, lengths, s_eff, band),
+            {"exit_col": exit_col, "bias_g": bias_g, "logw": logw})
+
+
+def decode_kernel(args, kw, K):
+    from srhmm_tpu_torch.ops.kernels import decode as kd
+
+    if K == 1:
+        return kd.word_loop_decode(*args, **kw)
+    if K == 2:
+        return kd.word_loop_decode_k2(*args, **kw)
+    return kd.word_loop_decode_kn(*args, n_best=K, **kw)
+
+
+def phase_kernel_decode(torch) -> dict:
+    """The word-loop kernel vs its plain twin on the same CUDA tensors, at
+    K = 1, 2, 3: diag and full covariance; unigram, bigram at S=8 and
+    bigram at S=6 (padded to 8 states); one stream D=9/M=3 or two streams
+    D=9/M=3 + D=3/M=2; heterogeneous word lengths (final states through
+    exit_col); a duplicated word (exact ties); B=37, T=95 with a zero-length
+    and a length-1 row; one W=200 bigram case at a short T.  Returns the
+    worst absolute error per wrapper."""
+    from srhmm_tpu_torch.decode import continuous as dc
+    from srhmm_tpu_torch.io.dataset import pack_utterances
+    from srhmm_tpu_torch.models import gmm_hmm_from_numpy, pad_stack_models, stack_models
+    from srhmm_tpu_torch.ops.kernels import decode as kd
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(2026)
+    lens37 = [int(n) for n in rng.integers(2, 95, size=34)] + [95, 0, 1]
+    worst = {name: 0.0 for name in DECODE_WRAPPERS.values()}
+    saved = decode_counts()
+    # variant: "hetero" = words of S and S-2 states (final states through
+    # exit_col); "dup" = word 3 a copy of word 1 with the same arcs in and
+    # out (uniform unigram, or the bigram's row and column), so their tokens
+    # tie bitwise in both implementations and the lowest-row / lowest-plane
+    # tie-breaks alone decide pointers and word ids
+    configs = []
+    for cov in ("diag", "full"):
+        for S, bigram in ((8, False), (8, True), (6, True)):
+            for md in ([(3, 9)], [(3, 9), (2, 3)]):
+                configs.append((cov, 5, S, bigram, md, None, lens37))
+        for bigram in (False, True):
+            configs.append((cov, 5, 8, bigram, [(3, 9)], "hetero", lens37))
+            configs.append((cov, 5, 8, bigram, [(3, 9)], "dup", lens37))
+    configs.append(("diag", 200, 8, True, [(4, 13)], None, [60, 0, 1] + [int(n) for n in rng.integers(2, 60, 34)]))
+    for ci, (cov, W, S, bigram, md, variant, lens) in enumerate(configs):
+        wrng = np.random.default_rng(100 + ci)
+        sizes = [S - 2 * (i % 2) if variant == "hetero" else S for i in range(W)]
+        leaves = [(left_right_trans(n, 2.0) if i % 2 == 0 else skip_trans(n),
+                   [rand_stream(wrng, n, M, D, cov) for M, D in md]) for i, n in enumerate(sizes)]
+        if variant == "dup":
+            leaves[3] = leaves[1]
+        words = [gmm_hmm_from_numpy(t, st, f"w{i}") for i, (t, st) in enumerate(leaves)]
+        vocab, fs = pad_stack_models(words) if variant == "hetero" else (stack_models(words), None)
+        vocab = vocab.astype(torch.float32).to(dev)
+        batches = tuple(pack_utterances([wrng.normal(size=(n, D)) * 3 for n in lens], pad_multiple=1,
+                                        dtype=torch.float32, device=dev) for _, D in md)
+        batch = batches[0] if len(batches) == 1 else batches
+        graph_kw = {"final_states": fs}
+        if bigram:
+            lm = np.log(wrng.dirichlet(np.ones(W), size=W))
+            if variant == "dup":  # the copy's arcs in and out too: the two are interchangeable
+                lm[:, 3] = lm[:, 1]
+                lm[3] = lm[1]
+            graph_kw["lm_logprobs"] = lm
+        args, kw = decode_operands(vocab, batches, graph_kw)
+        for K in (1, 2, 3):
+            fk, bk = decode_kernel(args, kw, K)
+            fk2, bk2 = decode_kernel(args, kw, K)
+            fp, bp = kd.word_loop_decode_plain(*args, n_best=K, **kw)
+            torch.cuda.synchronize()
+            name = f"{cov}_W{W}_S{S}_{'bigram' if bigram else 'unigram'}_P{len(md)}" + \
+                (f"_{variant}" if variant else "") + f"_K{K}"
+            res = compare_lattice(fk, fp, f"{name} final")
+            mism = int((bk != bp).sum())
+            if not mism <= POINTER_BOUND * bk.numel():
+                raise AssertionError(f"{name}: {mism} of {bk.numel()} pointers differ from the twin")
+            bitwise = bool(torch.equal(fk, fk2) and torch.equal(bk, bk2))
+            if not bitwise:
+                raise AssertionError(f"{name}: two kernel runs differ")
+            hk = dc.decode_continuous_batch(vocab, batch, n_best=K, **graph_kw)
+            hp = on_decode_twin(lambda: dc.decode_continuous_batch(vocab, batch, n_best=K, **graph_kw))
+            hyp_rel = compare_hyps(hk, hp, K, name)
+            worst[DECODE_WRAPPERS[K]] = max(worst[DECODE_WRAPPERS[K]], res["max_abs_err"])
+            emit({"phase": "kernel_decode", "config": name, "B": len(lens), "T": max(lens),
+                  "s_eff": args[7], "final_rel_err": res["rel_err"], "pointer_mismatches": mism,
+                  "pointers": bk.numel(), "hyp_score_rel_err": hyp_rel, "bitwise_repeat": bitwise})
+    set_decode_counts(saved)  # comparison launches are not main-path launches
+    return worst
+
+
+def write_decode_fixture(root: Path, words, n_utts, words_per_utt, frames_per_word, seed):
+    """.hmm vocabulary (absolute paths in models.txt), n_utts .perfil
+    utterances, each a string of words sampled from the word models, a
+    reference transcript file and a bigram LM text file with Dirichlet
+    rows (suite.py:206).  Returns (names, refs, utterances, lm)."""
+    from srhmm_tpu_torch.io import write_hmm, write_perfil
+    from srhmm_tpu_torch.models import gmm_hmm_from_numpy
+
+    root.mkdir()
+    rng = np.random.default_rng(seed)
+    W = len(words)
+    names = [f"word{i:03d}" for i in range(W)]
+    for (t, st), n in zip(words, names):
+        write_hmm(root / f"{n}.hmm", gmm_hmm_from_numpy(t, st, n))
+    (root / "models.txt").write_text("".join(f"{root / n}.hmm\n" for n in names))
+    refs, utts = [], []
+    for i in range(n_utts):
+        seq = [int(w) for w in rng.integers(0, W, size=int(rng.integers(*words_per_utt)))]
+        frames = np.concatenate([sample(rng, *words[w], int(rng.integers(*frames_per_word)))[0] for w in seq])
+        write_perfil(root / f"u{i:04d}.perfil", frames)
+        refs.append([names[w] for w in seq])
+        utts.append(frames)
+    (root / "inputs.txt").write_text("".join(f"{root}/u{i:04d}.perfil\n" for i in range(n_utts)))
+    (root / "ref.txt").write_text("".join(" ".join(r) + "\n" for r in refs))
+    lm = np.log(rng.dirichlet(np.ones(W), size=W))
+    (root / "lm.txt").write_text("".join(f"{names[u]} {names[v]} {float(lm[u, v])!r}\n"
+                                         for u in range(W) for v in range(W)))
+    return names, refs, utts, lm
+
+
+def wer_of(results, refs, names, n_best) -> float:
+    from srhmm_tpu_torch.eval.metrics import WerCounts, edit_alignment
+
+    total = WerCounts()
+    for r, ref in zip(results, refs):
+        best = r if n_best == 1 else r[0]
+        total = total + edit_alignment(ref, [names[w] for w in best[1]])
+    return total.wer
+
+
+def phase_decode(torch, tmp: Path) -> dict:
+    """Continuous decoding end to end on the card.  Main shape: the JAX
+    package's config-3 vocabulary (suite.py:279-311), W=200 words, S=8,
+    M=4, D=13 diagonal, from a seed, as .hmm files; B=128 utterances of
+    4-8 words (T <= 1000) as .perfil files, a bigram LM file, a reference
+    file.  The decode CLI (--batch --n-best 2 --lm --ref) in-process: WER
+    <= 5 %.  decode_continuous_batch on the same batch at K=1 unigram, K=2
+    bigram, K=3 bigram against the twin on the card; K=1 against the
+    per-utterance block engine for 4 utterances.  Second shape: the
+    reference fixtures' model (W=13, S=6, M=1, D=9 full covariance) with a
+    bigram LM, B=1024 (padded to 8 states).  Then the align CLI on 16
+    utterances with their true transcripts."""
+    from srhmm_tpu_torch.cli import align as align_cli
+    from srhmm_tpu_torch.cli import decode as decode_cli
+    from srhmm_tpu_torch.decode import continuous as dc
+    from srhmm_tpu_torch.io import pack_utterances, read_vocabulary
+    from srhmm_tpu_torch.models import stack_models
+
+    out = {}
+    set_decode_counts({name: 0 for name in DECODE_WRAPPERS.values()})
+    # --- the main shape: files -> CLI -------------------------------------
+    words = rand_words(40, 200, 8, [(4, 13)], "diag", dur=3.0)
+    root = tmp / "decode_w200"
+    names, refs, utts, lm = write_decode_fixture(root, words, 128, (4, 9), (60, 125), seed=41)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rc = decode_cli.main([str(root / "models.txt"), str(root / "inputs.txt"), str(root / "out.txt"),
+                          "--batch", "--n-best", "2", "--lm", str(root / "lm.txt"),
+                          "--ref", str(root / "ref.txt")])
+    cli_wall = time.perf_counter() - t0
+    text = (root / "out.txt").read_text()
+    wer_line = [l for l in text.splitlines() if l.startswith("WER:")]
+    if rc != 0 or not wer_line:
+        raise AssertionError(f"decode CLI exit {rc}, no WER line")
+    cli_wer = float(wer_line[0].split()[1].rstrip("%"))
+    if not cli_wer <= 5.0:
+        raise AssertionError(f"decode CLI WER {cli_wer}% > 5%")
+    if decode_counts()["word_loop_decode_k2"] < 1:
+        raise AssertionError("the decode CLI did not launch the 2-best kernel")
+    # --- the library on the same batch, kernel vs twin ---------------------
+    vocab = stack_models(read_vocabulary(root / "models.txt")).astype(torch.float32).to("cuda")
+    batch = pack_utterances(utts, pad_multiple=1, dtype=torch.float32, device="cuda")
+    rng = np.random.default_rng(42)
+    uni = np.log(rng.dirichlet(np.ones(len(names))))
+    runs = {}
+    for K, lm_k in ((1, uni), (2, lm), (3, lm)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = dc.decode_continuous_batch(vocab, batch, lm_logprobs=lm_k, n_best=K)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        want = on_decode_twin(lambda: dc.decode_continuous_batch(vocab, batch, lm_logprobs=lm_k, n_best=K))
+        rel = compare_hyps(got, want, K, f"W200 K={K}")
+        runs[K] = {"wer": wer_of(got, refs, names, K), "hyp_score_rel_err_vs_twin": rel,
+                   "decode_continuous_batch_wall_s": wall}
+        if K == 1:
+            for b in range(4):
+                L = int(batch.lengths[b])
+                ref = dc.decode_continuous(vocab, batch.features[b, :L], lm_logprobs=uni, n_best=1)[0]
+                if ref[1:] != got[b][1:] or not abs(ref[0] - got[b][0]) <= 2e-5 * abs(ref[0]):
+                    raise AssertionError(f"W200 K=1 utterance {b}: batch {got[b]} vs block engine {ref}")
+        if not runs[K]["wer"] <= 0.05:
+            raise AssertionError(f"W200 K={K}: WER {runs[K]['wer']} > 5%")
+    frames = int(batch.lengths.sum())
+    out["w200"] = {"W": 200, "S": 8, "M": 4, "D": 13, "B": batch.batch_size, "T": batch.max_frames,
+                   "frames": frames, "cli_wer_percent": cli_wer, "cli_wall_s": cli_wall, "runs": runs}
+    emit({"phase": "decode", "config": "W200_S8_M4_D13_diag", **out["w200"]})
+    # --- the second shape: the reference fixtures' full-covariance model ---
+    words13 = rand_words(43, 13, 6, [(1, 9)], "full")
+    rng13 = np.random.default_rng(44)
+    refs13, utts13 = [], []
+    for _ in range(1024):
+        seq = [int(w) for w in rng13.integers(0, 13, size=int(rng13.integers(3, 7)))]
+        utts13.append(np.concatenate([sample(rng13, *words13[w], int(rng13.integers(20, 40)))[0] for w in seq]))
+        refs13.append([f"w{w}" for w in seq])
+    vocab13 = torch_vocab(words13).astype(torch.float32).to("cuda")
+    batch13 = pack_utterances(utts13, pad_multiple=1, dtype=torch.float32, device="cuda")
+    lm13 = np.log(rng13.dirichlet(np.ones(13), size=13))
+    runs13 = {}
+    for K in (1, 2):
+        got = dc.decode_continuous_batch(vocab13, batch13, lm_logprobs=lm13, n_best=K)
+        want = on_decode_twin(lambda: dc.decode_continuous_batch(vocab13, batch13, lm_logprobs=lm13, n_best=K))
+        runs13[K] = {"wer": wer_of(got, refs13, list(vocab13.word), K),
+                     "hyp_score_rel_err_vs_twin": compare_hyps(got, want, K, f"W13 full K={K}")}
+        if not runs13[K]["wer"] <= 0.05:
+            raise AssertionError(f"W13 full K={K}: WER {runs13[K]['wer']} > 5%")
+    out["w13"] = {"W": 13, "S": 6, "s_eff": 8, "M": 1, "D": 9, "B": batch13.batch_size,
+                  "T": batch13.max_frames, "frames": int(batch13.lengths.sum()), "runs": runs13}
+    emit({"phase": "decode", "config": "W13_S6_M1_D9_full_bigram", **out["w13"]})
+    # --- forced alignment of 16 utterances with their true transcripts ----
+    (root / "trans.txt").write_text("".join(f"{root}/u{i:04d}.perfil {' '.join(refs[i])}\n" for i in range(16)))
+    t0 = time.perf_counter()
+    rc = align_cli.main([str(root / "models.txt"), str(root / "trans.txt"), str(root / "align.txt")])
+    align_wall = time.perf_counter() - t0
+    units = [l.split("\t")[1] for l in (root / "align.txt").read_text().splitlines()]
+    if rc != 0 or units != [u for r in refs[:16] for u in r]:
+        raise AssertionError(f"align CLI exit {rc}; units differ from the transcripts")
+    emit({"phase": "align", "utterances": 16, "units": len(units), "exit": rc, "wall_s": align_wall})
+    out["launches"] = decode_counts()
+    for name, n in out["launches"].items():
+        if n < 1:
+            raise AssertionError(f"the decode main path launched {name} 0 times")
+    out["batch"], out["vocab"], out["uni"], out["lm"] = batch, vocab, uni, lm
+    return out
+
+
+def decode_bound(args, kw, K) -> dict:
+    """The bound of one decode launch: the stepped frames' features, the
+    packed constants and the outputs (final (K, N, B), every frame's
+    pointers (T, K, N, B)); per stepped frame and row the emission, the
+    (band+1) K within-word candidates and K cross-word ones, and for a
+    bigram 2 K W W per frame for the destinations' merges."""
+    feats, a, bias, diag, arc_col, entry_col, lengths, s_word, band = args
+    featss = feats if isinstance(feats, tuple) else (feats,)
+    a_s = a if isinstance(a, tuple) else (a,)
+    T, _, B = featss[0].shape
+    N = a_s[0].shape[1]
+    W = N // s_word
+    bigram = tuple(arc_col.shape) == (W, W)
+    frames = valid_frames(lengths.tolist(), T)
+    full = kw["bias_g"] is not None
+    em = 0
+    for f, a_p in zip(featss, a_s):
+        D = f.shape[1]
+        em += mixture_ops(D, a_p.shape[0] // D if full else a_p.shape[0], full)
+    consts = numel_bytes(*a_s, *(bias if isinstance(bias, tuple) else (bias,)), diag, arc_col,
+                         entry_col, kw["exit_col"], lengths)
+    if full:
+        consts += numel_bytes(*kw["bias_g"], *kw["logw"]) if isinstance(kw["bias_g"], tuple) \
+            else numel_bytes(kw["bias_g"], kw["logw"])
+    nbytes = 4 * frames * sum(f.shape[1] for f in featss) + consts + 4 * K * N * B + 4 * T * K * N * B
+    ops = frames * (N * (em + 2 * (band + 1) * K + 2 * K) + (2 * K * W * W if bigram else 0))
+    return bound(nbytes, ops)
+
+
+def profile_window(torch, fn) -> dict:
+    """One call of fn under torch.profiler: its host wall (profiler on),
+    the device time summed over the device's own events (kernels, copies),
+    the word-loop kernel's share, device-to-host copies, the number of
+    device events, and the idle share 1 - device busy / wall."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    busy = kernel = d2h = 0.0
+    ops = 0
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:  # a host op's entry repeats its device time
+            continue
+        dt = getattr(ev, "self_device_time_total", None)
+        dt = ev.self_cuda_time_total if dt is None else dt
+        busy += dt
+        ops += ev.count
+        if "word_loop_decode_kernel" in ev.key:
+            kernel += dt
+        if "DtoH" in ev.key or "Device -> Pageable" in ev.key or "DeviceToHost" in ev.key:
+            d2h += dt
+    return {"profiled_wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3, "kernel_device_ms": kernel / 1e3,
+            "d2h_device_ms": d2h / 1e3, "device_ops": ops, "idle_share": 1.0 - busy / wall_us}
+
+
+def phase_timing_decode(torch, dec: dict, smi: str) -> dict:
+    """The decode kernel vs its twin at the main shape, for K=1 unigram,
+    K=2 bigram, K=3 bigram: CUDA events, kernel median of 20 after warm-up,
+    twin median of 3, in the order twin, kernel, kernel, twin; decode
+    audio-s/s; one whole decode_continuous_batch on the host clock, then
+    one under torch.profiler (device busy and idle shares)."""
+    from srhmm_tpu_torch.decode import continuous as dc
+    from srhmm_tpu_torch.ops.kernels import decode as kd
+
+    vocab, batch = dec["vocab"], dec["batch"]
+    saved = decode_counts()
+    audio_s = int(batch.lengths.sum()) * FRAME_S
+    out = {}
+    for K, lm_k, tag in ((1, dec["uni"], "unigram"), (2, dec["lm"], "bigram"), (3, dec["lm"], "bigram")):
+        args, kw = decode_operands(vocab, (batch,), {"lm_logprobs": lm_k})
+        plain_a = median_ms(torch, lambda: kd.word_loop_decode_plain(*args, n_best=K, **kw), warmup=0, reps=3)
+        kern_a = median_ms(torch, lambda: decode_kernel(args, kw, K))
+        kern_b = median_ms(torch, lambda: decode_kernel(args, kw, K))
+        plain_b = median_ms(torch, lambda: kd.word_loop_decode_plain(*args, n_best=K, **kw), warmup=0, reps=3)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dc.decode_continuous_batch(vocab, batch, lm_logprobs=lm_k, n_best=K)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        prof = profile_window(torch, lambda: dc.decode_continuous_batch(vocab, batch, lm_logprobs=lm_k, n_best=K))
+        ms = min(kern_a, kern_b)
+        res = {"kernel_ms": [kern_a, kern_b], "plain_ms": [plain_a, plain_b], "ms": ms,
+               "best_plain_ms": min(plain_a, plain_b), "decode_audio_s_per_s": audio_s / (ms / 1e3),
+               "decode_continuous_batch_wall_s": wall, "decode_continuous_batch_profile": prof,
+               **decode_bound(args, kw, K)}
+        out[K] = res
+        emit({"phase": "timing_decode", "config": f"W200_S8_M4_D13_diag_K{K}_{tag}", "B": batch.batch_size,
+              "T": batch.max_frames, "audio_s": audio_s, "kernel_reps": 20, "plain_reps": 3, **res,
+              "card": smi})
+    set_decode_counts(saved)  # timing launches are not main-path launches
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -764,6 +1250,7 @@ def main() -> int:
     phase_build()
     worst_abs = phase_kernel(torch)
     worst_em = phase_kernel_em(torch)
+    worst_dec = phase_kernel_decode(torch)
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     try:
         full_words = rand_words(11, 13, 6, [(1, 9)], "full", dur=450 / 6)
@@ -777,15 +1264,25 @@ def main() -> int:
         train_diag = phase_train(torch, "em_diag_S8_M3_D9", "diag", 8, 3, 9, (500, 501), tmp)
         train_full = phase_train(torch, "em_full_S6_M1_D9", "full", 6, 1, 9, (103, 214), tmp)
         phase_train_cli(torch, tmp)
+        dec = phase_decode(torch, tmp)
         t_full = phase_timing(torch, main_full, info["nvidia_smi"])
         phase_timing(torch, main_diag, info["nvidia_smi"])
         em_diag = phase_timing_em(torch, train_diag, info["nvidia_smi"])
         phase_timing_em(torch, train_full, info["nvidia_smi"])
+        t_dec = phase_timing_decode(torch, dec, info["nvidia_smi"])
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     fused_src = "srhmm_tpu_torch/csrc/fused_em.cu"
     em_launches = {k: train_diag["launches"][k] + train_full["launches"][k]
                    for k in ("emit_forward", "backward_stats")}
+    # no single PyTorch call computes any of these functions: library_ms is null
+    bkeys = ("bound_ms", "bound_by")
+    decode_src = "srhmm_tpu_torch/csrc/word_loop_decode.cu"
+    decode_rows = [
+        ("word_loop_decode", 1, "srhmm_tpu/ops/pallas/decode_pallas.py:352"),
+        ("word_loop_decode_k2", 2, "srhmm_tpu/ops/pallas/decode_pallas.py:718"),
+        ("word_loop_decode_kn", 3, "srhmm_tpu/ops/pallas/decode_pallas.py:1050"),
+    ]
     emit({"kernels": [
         {
             "name": "vocab_scores",
@@ -796,6 +1293,8 @@ def main() -> int:
             "max_abs_err": worst_abs,
             "ms": t_full["ms"],
             "plain_ms": t_full["plain_ms"],
+            **{k: t_full[k] for k in bkeys},
+            "library_ms": None,
         },
         {
             "name": "emit_forward",
@@ -806,6 +1305,8 @@ def main() -> int:
             "max_abs_err": worst_em["emit_forward"],
             "ms": em_diag["emit_forward"]["ms"],
             "plain_ms": em_diag["emit_forward"]["best_plain_ms"],
+            **{k: em_diag["emit_forward"][k] for k in bkeys},
+            "library_ms": None,
         },
         {
             "name": "backward_stats",
@@ -816,7 +1317,23 @@ def main() -> int:
             "max_abs_err": worst_em["backward_stats"],
             "ms": em_diag["backward_stats"]["ms"],
             "plain_ms": em_diag["backward_stats"]["best_plain_ms"],
+            **{k: em_diag["backward_stats"][k] for k in bkeys},
+            "library_ms": None,
         },
+    ] + [
+        {
+            "name": name,
+            "route": "cuda",
+            "source": decode_src,
+            "replaces": where,
+            "launches": dec["launches"][name],
+            "max_abs_err": worst_dec[name],
+            "ms": t_dec[K]["ms"],
+            "plain_ms": t_dec[K]["best_plain_ms"],
+            **{k: t_dec[K][k] for k in bkeys},
+            "library_ms": None,
+        }
+        for name, K, where in decode_rows
     ]})
     print(info["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

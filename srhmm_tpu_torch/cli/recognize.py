@@ -18,9 +18,11 @@ Optional leading flags (before the positionals):
     --numerics parity|fast  parity = float64 probability-domain semantics on
                             the CPU with the reference's NaN-freezing
                             bubble-sort ranking (reproduces the golden
-                            report); fast = float64 log-space path on the
-                            GPU when torch sees one (else the CPU) with the
-                            sane NaN-last ranking
+                            report); fast = float64 log-space path on
+                            --device with the sane NaN-last ranking
+    --device cuda|cpu       where --numerics fast runs (default cuda); without
+                            a CUDA device, cuda exits non-zero instead of
+                            falling back to the CPU
 """
 
 from __future__ import annotations
@@ -29,11 +31,14 @@ import argparse
 import sys
 import time
 
+from .device import add_device_argument, resolve_device
+
 
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(add_help=True)
     ap.add_argument("--mode", choices=["total", "final"], default=None)
     ap.add_argument("--numerics", choices=["parity", "fast"], default="parity")
+    add_device_argument(ap)
     ap.add_argument("rest", nargs=argparse.REMAINDER)
     ns = ap.parse_args(argv)
     rest = ns.rest
@@ -55,10 +60,12 @@ def main(argv: list[str] | None = None) -> int:
     from ..models import pad_stack_models, stack_models
 
     # parity is the reference-exact mode: IEEE float64 on the CPU
-    if ns.numerics == "parity" or not torch.cuda.is_available():
+    if ns.numerics == "parity":
         device = torch.device("cpu")
     else:
-        device = torch.device("cuda")
+        device = resolve_device(ns.device, "recognize")
+        if device is None:
+            return 2
 
     models_number = int(rest[0])
     model_lists = rest[1 : 1 + models_number]

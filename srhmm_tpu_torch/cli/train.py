@@ -18,9 +18,10 @@ Optional leading flags:
     --size-t-width N  .hmm size_t width (default 4, matching the fixtures)
     --numerics parity|fast
                       parity = float64 reference-exact EM on the CPU
-                      (default); fast = log-space batched float32 EM on the
-                      GPU when torch sees one (else the CPU), through the
-                      fused E-step kernels
+                      (default); fast = log-space batched float32 EM on
+                      --device, through the fused E-step kernels on a card
+    --device cuda|cpu (fast) where EM runs (default cuda); without a CUDA
+                      device, cuda exits non-zero instead of falling back
     --scan-iters N    (fast) run exactly N EM iterations (em_train_scan, no
                       host sync inside), skipping the convergence rule
     --cmvn global     (fast) train in globally mean/variance-normalized
@@ -41,6 +42,8 @@ import argparse
 import sys
 import time
 
+from .device import add_device_argument, resolve_device
+
 USAGE = (
     "Usage: train word states_number param_number mix_number1 ... "
     "mix_numberN input_file1 ... input_fileN output_file [initial_model]"
@@ -57,6 +60,7 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--scan-iters", type=int, default=None)
     ap.add_argument("--cmvn", choices=["off", "global"], default="off")
     ap.add_argument("--stream-shards", type=int, default=None)
+    add_device_argument(ap)
     ap.add_argument("rest", nargs=argparse.REMAINDER)
     ns = ap.parse_args(argv)
     for flag, value in (("--checkpoint-dir", ns.checkpoint_dir), ("--stream-shards", ns.stream_shards)):
@@ -98,7 +102,9 @@ def main(argv: list[str] | None = None) -> int:
     if ns.numerics == "fast":
         from ..io.dataset import UtteranceBatch, load_batch
 
-        device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+        device = resolve_device(ns.device, "train")
+        if device is None:
+            return 2
         # one pass over the files into padded float64 batches; the LBG init
         # takes per-utterance views of the same arrays
         batches_f64 = tuple(load_batch(df, dtype=torch.float64) for df in data_files)

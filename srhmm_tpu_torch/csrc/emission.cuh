@@ -21,9 +21,13 @@ constexpr float kLogGausClamp = 46.051701859880914f;  // log(1e20)
 //                                                                D*DMAX + DMAX + 4
 // where the inverse covariance is K = L L^T.  vocab_scores folds log w into
 // the diagonal bias and stores 0 in its slot (adding 0.0f is exact).
+__host__ __device__ constexpr int record_stride(int dmax, int D, bool full) {
+  return full ? D * dmax + dmax + 4 : 2 * dmax + 4;
+}
+
 template <int DMAX, bool FULL>
 __host__ __device__ constexpr int record_stride(int D) {
-  return FULL ? D * DMAX + DMAX + 4 : 2 * DMAX + 4;
+  return record_stride(DMAX, D, FULL);
 }
 
 // online logsumexp over mixtures: max seeded at NEG_INF

@@ -1,3 +1,10 @@
+from .continuous import (
+    compose_sequence,
+    compose_word_loop,
+    compose_word_loop_blocks,
+    decode_continuous,
+    decode_continuous_batch,
+)
 from .scorer import (
     FINAL,
     TOTAL,
@@ -12,6 +19,11 @@ from .scorer import (
 __all__ = [
     "FINAL",
     "TOTAL",
+    "compose_sequence",
+    "compose_word_loop",
+    "compose_word_loop_blocks",
+    "decode_continuous",
+    "decode_continuous_batch",
     "rank",
     "rank_c_parity",
     "score_batch",

@@ -260,3 +260,119 @@ def test_cuda_batch_never_reaches_a_twin(cuda_device, monkeypatch):
     with pytest.raises(ValueError, match="float32"):
         fe.emit_forward((b64.features.permute(1, 2, 0).contiguous(),), packed, origins,
                         model.trans, batch.lengths, 1)
+
+
+# ---------------------------------------------------------------------------
+# the word-loop decode kernel (csrc/word_loop_decode.cu)
+# ---------------------------------------------------------------------------
+
+from srhmm_tpu_torch.decode import continuous as dc  # noqa: E402
+from srhmm_tpu_torch.ops.kernels import decode as kd  # noqa: E402
+
+_DECODE_LENS = [int(n) for n in np.random.default_rng(6).integers(2, 95, size=34)] + [95, 0, 1]
+_WRAPPERS = {1: "word_loop_decode", 2: "word_loop_decode_k2", 3: "word_loop_decode_kn"}
+
+
+def _decode_case(device, cov, S, bigram, mixes_dims, variant=None, W=5, lens=_DECODE_LENS, seed=4):
+    """(vocab, batch, graph kwargs) of one decode on `device`.  variant
+    "hetero": word lengths S and S-2, padded (pad_stack_models) with their
+    final states; "dup": word 3 a copy of word 1 with the same arcs (the
+    bigram's row and column; the unigram is uniform), so tokens tie
+    bitwise."""
+    rng = np.random.default_rng(seed)
+    sizes = [S - 2 * (i % 2) if variant == "hetero" else S for i in range(W)]
+    words = [tm.gmm_hmm_from_numpy(*rand_word(seed * 50 + (1 if variant == "dup" and i == 3 else i), s,
+                                              list(mixes_dims), cov, 1 + i % 2))
+             for i, s in enumerate(sizes)]
+    vocab, fs = tm.pad_stack_models(words) if variant == "hetero" else (tm.stack_models(words), None)
+    kw = {"final_states": fs}
+    if bigram:
+        lm = np.log(rng.dirichlet(np.ones(W), size=W))
+        if variant == "dup":  # arcs in and out too: the two words are interchangeable
+            lm[:, 3] = lm[:, 1]
+            lm[3] = lm[1]
+        kw["lm_logprobs"] = lm
+    batch = _batch(device, [D for _, D in mixes_dims], lens, seed=seed)
+    return vocab.astype(torch.float32).to(device), batch, kw
+
+
+def _twins(monkeypatch):
+    monkeypatch.setattr(kd, "word_loop_decode", lambda *a, **k: kd.word_loop_decode_plain(*a, n_best=1, **k))
+    monkeypatch.setattr(kd, "word_loop_decode_k2", lambda *a, **k: kd.word_loop_decode_plain(*a, n_best=2, **k))
+    monkeypatch.setattr(kd, "word_loop_decode_kn", lambda *a, **k: kd.word_loop_decode_plain(*a, **k))
+
+
+def _decode_operands(vocab, batch, kw):
+    batches = batch if isinstance(batch, tuple) else (batch,)
+    graph = dc.compose_word_loop_blocks(vocab, **kw)
+    (feats, a, bias, bias_g, logw, diag, band, arc_col, entry_col, exit_col, lengths,
+     s_eff) = dc._fused_operands(vocab, graph, batches)
+    return (feats, a, bias, diag, arc_col, entry_col, lengths, s_eff, band), dict(
+        exit_col=exit_col, bias_g=bias_g, logw=logw)
+
+
+@pytest.mark.parametrize("n_best", [1, 2, 3])
+@pytest.mark.parametrize("cov,S,bigram,mixes_dims,variant", [
+    ("diag", 8, False, ((3, 9),), None),
+    ("diag", 6, True, ((3, 9), (2, 3)), None),
+    ("full", 8, True, ((3, 9),), None),
+    ("full", 6, False, ((3, 9), (2, 3)), "hetero"),
+    ("diag", 8, True, ((3, 9),), "hetero"),
+    ("diag", 8, False, ((3, 9),), "dup"),
+    ("diag", 8, True, ((3, 9),), "dup"),
+])
+def test_decode_kernel_matches_plain(cuda_device, monkeypatch, cov, S, bigram, mixes_dims, variant, n_best):
+    vocab, batch, kw = _decode_case(cuda_device, cov, S, bigram, mixes_dims, variant)
+    args, opt = _decode_operands(vocab, batch, kw)
+    wrapper = getattr(kd, _WRAPPERS[n_best])
+    extra = {"n_best": n_best} if n_best > 2 else {}
+    before = wrapper.launches
+    fk, bk = wrapper(*args, **opt, **extra)
+    fk2, bk2 = wrapper(*args, **opt, **extra)
+    fp, bpp = kd.word_loop_decode_plain(*args, n_best=n_best, **opt)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 2
+    assert torch.equal(fk, fk2) and torch.equal(bk, bk2)  # two runs bitwise equal
+    _lattice_close(fk, fp)
+    assert bk.shape == bpp.shape and bk.dtype == bpp.dtype
+    assert int((bk != bpp).sum()) <= 1e-4 * bk.numel()
+    # hypotheses through the same backtrace: kernel pointers vs twin pointers
+    got = dc.decode_continuous_batch(vocab, batch, n_best=n_best, **kw)
+    _twins(monkeypatch)
+    want = dc.decode_continuous_batch(vocab, batch, n_best=n_best, **kw)
+    for g, w in zip(got, want):
+        g, w = ([g], [w]) if n_best == 1 else (g, w)
+        assert [h[1:] for h in g] == [h[1:] for h in w]
+        for hg, hw in zip(g, w):
+            assert hg[0] == hw[0] or abs(hg[0] - hw[0]) <= 1e-5 * max(abs(hw[0]), 1.0)
+
+
+def test_decode_batch_launches_the_kernel_and_never_the_twin(cuda_device, monkeypatch):
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA batch reached the plain twin")
+
+    monkeypatch.setattr(kd, "word_loop_decode_plain", refuse)
+    vocab, batch, kw = _decode_case(cuda_device, "diag", 6, True, ((3, 9),))
+    for n_best, name in _WRAPPERS.items():
+        before = getattr(kd, name).launches
+        out = dc.decode_continuous_batch(vocab, batch, n_best=n_best, **kw)
+        torch.cuda.synchronize()
+        assert getattr(kd, name).launches == before + 1
+        assert len(out) == len(_DECODE_LENS)
+    # float64 features are cast to float32 for the kernel; a float64 operand is refused
+    args, opt = _decode_operands(vocab, batch, kw)
+    with pytest.raises(ValueError, match="float32"):
+        kd.word_loop_decode(args[0].double(), *args[1:], **opt)
+
+
+def test_decode_kernel_takes_the_main_width(cuda_device):
+    """W=200, S=8, M=4, D=13 bigram at K=3 (the JAX package's config-3
+    vocabulary), a short T: kernel vs twin."""
+    vocab, batch, kw = _decode_case(cuda_device, "diag", 8, True, ((4, 13),), W=200,
+                                    lens=[40, 0, 1, 33, 17])
+    args, opt = _decode_operands(vocab, batch, kw)
+    fk, bk = kd.word_loop_decode_kn(*args, n_best=3, **opt)
+    fp, bpp = kd.word_loop_decode_plain(*args, n_best=3, **opt)
+    torch.cuda.synchronize()
+    _lattice_close(fk, fp)
+    assert int((bk != bpp).sum()) <= 1e-4 * bk.numel()

@@ -69,7 +69,9 @@ def test_cli_report_matches_jax(tmp_path, monkeypatch, capsys, cov, shapes, mode
     flags = ["--numerics", numerics] + (["--mode", mode] if mode else [])
     assert j_cli.main(flags + args + ["jax.txt"]) == 0
     out_j = capsys.readouterr().out
-    assert t_cli.main(flags + args + ["torch.txt"]) == 0
+    # the port runs --numerics fast on --device (default cuda): the CPU here
+    device = ["--device", "cpu"] if numerics == "fast" else []
+    assert t_cli.main(flags + device + args + ["torch.txt"]) == 0
     out_t = capsys.readouterr().out
     assert _report("torch.txt") == _report("jax.txt")
     order = [[l.split(" :")[0] for l in out.splitlines() if " :  " in l] for out in (out_j, out_t)]
@@ -102,6 +104,8 @@ def test_port_imports_no_jax():
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'srhmm_tpu')]\n"
         "assert not bad, bad\n"
         "assert 'srhmm_tpu_torch.cli.recognize' in names and 'srhmm_tpu_torch.ops.kernels.scoring' in names\n"
+        "assert {'srhmm_tpu_torch.decode.continuous', 'srhmm_tpu_torch.ops.kernels.decode',\n"
+        "        'srhmm_tpu_torch.cli.decode', 'srhmm_tpu_torch.cli.align'} <= set(names)\n"
         "print(len(names))\n"
     )
     env = dict(os.environ, PYTHONPATH=str(REPO))

@@ -76,7 +76,7 @@ def test_fast_cli_matches_jax(tmp_path, monkeypatch, cmvn, offset):
     monkeypatch.chdir(tmp_path)
     flags = ["--cov", "diag", "--numerics", "fast", "--scan-iters", "4", "--cmvn", cmvn]
     assert j_cli.main(flags + _args(mixes_dims, lists, "jax.hmm")) == 0
-    assert t_cli.main(flags + _args(mixes_dims, lists, "torch.hmm")) == 0
+    assert t_cli.main(flags + ["--device", "cpu"] + _args(mixes_dims, lists, "torch.hmm")) == 0
     mj, mt = jio.read_hmm("jax.hmm"), tio.read_hmm("torch.hmm")
     np.testing.assert_allclose(mt.trans.numpy(), np.asarray(mj.trans), rtol=1e-4, atol=1e-6)
     for sj, st in zip(mj.streams, mt.streams):
