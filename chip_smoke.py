@@ -57,10 +57,33 @@ each (any failure raises, so the exit code is non-zero):
               unigram, K=2 and K=3 bigram vs the twin, K=1 vs the block
               engine; W=13 S=6 M=1 D=9 full covariance, B=1024, bigram;
               then the align CLI on 16 utterances
+    kernel_composed
+              the composed-lattice kernels of embedded / tied training
+              (bank_emission, composed_forward, composed_backward_stats,
+              bank_moments_lattice / bank_moments) vs their twins: diag/full,
+              S = 2, 3, 4, L = 1-12, one or two streams, a repeated unit,
+              the emb_c4 / tied_c5 bank widths, B=37, T=95 with a
+              zero-length and a length-1 row; log_b / log_alpha within
+              BOUND, statistics and moments within STAT_BOUND, two runs and
+              the two gamma layouts bitwise equal
+  3 embedded  emb_c4 (suite config 4: 40 units, S=3, M=32, D=13, B=512,
+              T <= 512, L=12) and tied_c5 (config 5: 700 triphones over
+    tied      2000 senones, M=16, D=39, B=1024, T <= 304, L=10) from a
+              seed: 3 EM iterations through the kernels vs 3 with
+              fused=False (log-prob histories rtol 2e-4; each kernel
+              iteration vs a plain one from the same model, means and
+              trans within 2e-3 of their scale above the weight floor), then
+              train_embedded / train_tied on the same utterances
+    train_embedded_cli
+              the train_embedded CLI (LBG flat start, --scan-iters 8) on 8
+              units, its models decoding 32 held-out strings through the
+              decode CLI (WER <= 5 %), then --tied on triphone clones
   4 timing    every kernel and its plain version at the main-path shapes, and
               one whole EM iteration through the kernels vs fused=False;
-              CUDA events, median of 20 after warm-up (the decode twin:
-              median of 3); each kernel's bound from its inputs
+              CUDA events, median of 20 after warm-up (the decode and
+              composed twins: median of 3); each kernel's bound from its
+              inputs; timing_composed adds torch.profiler over one
+              embedded / tied EM iteration
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 card's name and power limit as nvidia-smi reports them.
@@ -1172,11 +1195,12 @@ def decode_bound(args, kw, K) -> dict:
     return bound(nbytes, ops)
 
 
-def profile_window(torch, fn) -> dict:
+def profile_window(torch, fn, kernel_keys=("word_loop_decode_kernel",)) -> dict:
     """One call of fn under torch.profiler: its host wall (profiler on),
     the device time summed over the device's own events (kernels, copies),
-    the word-loop kernel's share, device-to-host copies, the number of
-    device events, and the idle share 1 - device busy / wall."""
+    the share of the kernels whose names contain one of kernel_keys,
+    device-to-host copies, the number of device events, and the idle share
+    1 - device busy / wall."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1195,7 +1219,7 @@ def profile_window(torch, fn) -> dict:
         dt = ev.self_cuda_time_total if dt is None else dt
         busy += dt
         ops += ev.count
-        if "word_loop_decode_kernel" in ev.key:
+        if any(k in ev.key for k in kernel_keys):
             kernel += dt
         if "DtoH" in ev.key or "Device -> Pageable" in ev.key or "DeviceToHost" in ev.key:
             d2h += dt
@@ -1241,6 +1265,544 @@ def phase_timing_decode(torch, dec: dict, smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# embedded and tied training: the composed-lattice kernels (csrc/composed.cu)
+# ---------------------------------------------------------------------------
+
+COMPOSED_SRC = "srhmm_tpu_torch/csrc/composed.cu"
+COMPOSED_KERNEL_NAMES = ("bank_emission_kernel", "composed_forward_kernel", "composed_backward_stats_kernel",
+                         "bank_moments_kernel", "segment_rows_kernel")  # csrc/composed.cu
+COMPOSED_ROWS = [  # (wrapper, the TPU kernel it replaces)
+    ("bank_emission", "srhmm_tpu/ops/pallas/composed_pallas.py:218"),
+    ("composed_forward", "srhmm_tpu/ops/pallas/composed_pallas.py:348"),
+    ("composed_backward_stats", "srhmm_tpu/ops/pallas/composed_pallas.py:474"),
+    ("bank_moments_lattice", "srhmm_tpu/ops/pallas/composed_pallas.py:707"),
+    ("bank_moments", "srhmm_tpu/ops/pallas/composed_pallas.py:792"),
+]
+# (cov, S, L, [(M, D) per stream]); the last two carry the emb_c4 and
+# tied_c5 bank widths at B=37, T=95
+COMPOSED_CASES = [
+    ("diag", 2, 1, [(3, 9)]),
+    ("diag", 3, 3, [(3, 9), (2, 9)]),
+    ("full", 3, 5, [(2, 6)]),
+    ("diag", 4, 5, [(4, 13)]),
+    ("full", 2, 3, [(3, 4), (2, 4)]),
+    ("diag", 3, 12, [(32, 13)]),
+    ("diag", 3, 10, [(16, 39)]),
+]
+
+
+def composed_counts() -> dict:
+    from srhmm_tpu_torch.ops.kernels import composed as kc
+
+    return kc.launch_counts()
+
+
+def set_composed_counts(counts: dict) -> None:
+    from srhmm_tpu_torch.ops.kernels import composed as kc
+
+    kc.set_launch_counts(counts)
+
+
+def composed_inputs(torch, models, transcripts, feats, lengths):
+    """The four kernels' inputs of one batch, as the fused E-step builds
+    them: (ids, banks, diag_row, diag_col, full)."""
+    from srhmm_tpu_torch.train import embedded as emb
+
+    full = models.streams[0].cov_type == "full"
+    D = feats.shape[-1]
+    S = models.num_states
+    banks = tuple(emb._pack_bank(st, D, full) for st in models.streams)
+    pos_logt = models.log_trans().to(torch.float32)[transcripts.long()]
+    diag_row, diag_col = emb._composed_diagonals(pos_logt, max(S - 1, 1))
+    banks = banks if len(banks) > 1 else banks[0]
+    return emb._positions(transcripts, S), banks, diag_row, diag_col, full
+
+
+def composed_check(torch, ids, banks, feats, lengths, diag_row, diag_col, full, what) -> dict:
+    """Each composed kernel vs its twin on the same CUDA tensors, twice
+    (bitwise repeat), both gamma layouts of the moments (bitwise equal).
+    Lattice-kernel inputs come from the twins.  Returns the worst absolute
+    error per wrapper and the relative errors."""
+    from srhmm_tpu_torch.ops.kernels import composed as kc
+
+    D = feats.shape[-1]
+    lb_k, lb_k2 = kc.bank_emission(ids, banks, feats, full), kc.bank_emission(ids, banks, feats, full)
+    lb_p = kc.bank_emission_plain(ids, banks, feats, full)
+    la_k, la_k2 = kc.composed_forward(lb_p, diag_col, lengths), kc.composed_forward(lb_p, diag_col, lengths)
+    la_p = kc.composed_forward_plain(lb_p, diag_col, lengths)
+    log_z = la_p[-1, -1]
+    valid = torch.isfinite(log_z) & (log_z > NEG_INF / 2) & (lengths > 0)
+    rest = (lb_p, la_p, diag_row, lengths, torch.where(valid, log_z, 0.0), valid.to(torch.float32))
+    st_k, st_k2 = kc.composed_backward_stats(*rest), kc.composed_backward_stats(*rest)
+    st_p = kc.composed_backward_stats_plain(*rest)
+    gamma = st_p[0]
+    m_k = kc.bank_moments_lattice(ids, banks, feats, gamma, lengths, full)
+    m_k2 = kc.bank_moments_lattice(ids, banks, feats, gamma, lengths, full)
+    m_b = kc.bank_moments(ids, banks, feats, gamma.permute(2, 1, 0).contiguous(), lengths, full)
+    m_p = kc.bank_moments_lattice_plain(ids, banks, feats, gamma, lengths, full)
+    torch.cuda.synchronize()
+    as_t = lambda m: m if isinstance(m, tuple) else (m,)
+    res = {"log_b": compare_lattice(lb_k, lb_p, f"{what} log_b"),
+           "log_alpha": compare_lattice(la_k, la_p, f"{what} log_alpha")}
+    for n, a, b in zip(("gamma", "xi", "den_trans", "den_mix"), st_k, st_p):
+        res[n] = compare_stat(a, b, f"{what} {n}")
+    for q, (a, b) in enumerate(zip(as_t(m_k), as_t(m_p))):
+        for part, sl in (("x", slice(0, D)), ("xx", slice(D, -1)), ("w", slice(-1, None))):
+            res[f"mom{q}_{part}"] = compare_stat(a[..., sl], b[..., sl], f"{what} mom{q}_{part}")
+    bitwise = (torch.equal(lb_k, lb_k2) and torch.equal(la_k, la_k2)
+               and all(torch.equal(a, b) for a, b in zip(st_k, st_k2))
+               and all(torch.equal(a, b) and torch.equal(a, c) for a, b, c in zip(as_t(m_k), as_t(m_k2), as_t(m_b))))
+    if not bitwise:
+        raise AssertionError(f"{what}: two kernel runs (or the two gamma layouts) differ")
+    mom_abs = max(v["max_abs_err"] for k, v in res.items() if k.startswith("mom"))
+    worst = {"bank_emission": res["log_b"]["max_abs_err"], "composed_forward": res["log_alpha"]["max_abs_err"],
+             "composed_backward_stats": max(res[n]["max_abs_err"] for n in ("gamma", "xi", "den_trans", "den_mix")),
+             "bank_moments_lattice": mom_abs, "bank_moments": mom_abs}
+    return {"worst": worst, "rel": {k: v["rel_err"] for k, v in res.items()}}
+
+
+def phase_kernel_composed(torch) -> dict:
+    """The four composed kernels vs their twins on CUDA tensors at B=37,
+    T=95 with a zero-length and a length-1 row: diag/full, S = 2, 3, 4
+    (band 1, 2, 3), L = 1, 3, 5, 10, 12, one or two streams, utterance 0
+    repeating one unit, the emb_c4 and tied_c5 bank widths.  Returns the
+    worst absolute error per wrapper."""
+    from srhmm_tpu_torch.models import gmm_hmm_from_numpy, stack_models
+
+    dev = torch.device("cuda")
+    saved = composed_counts()
+    worst = {name: 0.0 for name, _ in COMPOSED_ROWS}
+    for ci, (cov, S, L, md) in enumerate(COMPOSED_CASES):
+        rng = np.random.default_rng(300 + ci)
+        lens = [int(n) for n in rng.integers(2, 95, size=34)] + [95, 0, 1]
+        P = 6
+        units = [(left_right_trans(S, 3.0) if i % 2 else skip_trans(S), [rand_stream(rng, S, M, D, cov) for M, D in md])
+                 for i in range(P)]
+        models = stack_models([gmm_hmm_from_numpy(t, st, f"u{i}") for i, (t, st) in enumerate(units)])
+        models = models.astype(torch.float32).to(dev)
+        trs = rng.integers(0, P, size=(len(lens), L))
+        trs[0] = 1
+        transcripts = torch.as_tensor(trs, device=dev)
+        feats = torch.as_tensor(rng.normal(size=(len(lens), max(lens), md[0][1])) * 3, dtype=torch.float32,
+                                device=dev)
+        lengths = torch.as_tensor(lens, dtype=torch.int32, device=dev)
+        ids, banks, diag_row, diag_col, full = composed_inputs(torch, models, transcripts, feats, lengths)
+        name = f"{cov}_S{S}_L{L}_" + "_".join(f"M{M}D{D}" for M, D in md)
+        out = composed_check(torch, ids, banks, feats, lengths, diag_row, diag_col, full, name)
+        for k, v in out["worst"].items():
+            worst[k] = max(worst[k], v)
+        emit({"phase": "kernel_composed", "config": name, "B": len(lens), "T": max(lens), "LS": L * S,
+              "bitwise_repeat": True, "gamma_layouts_bitwise_equal": True, **out["rel"]})
+    set_composed_counts(saved)  # comparison launches are not main-path launches
+    return worst
+
+
+def composed_dataset(rng, W, MU, K, rows, B, t_range):
+    """B utterances sampled from composed chains: utterance b walks its
+    rows[b] (parameter-row ids of its L*S composed states) left to right,
+    the row boundaries drawn uniformly, each frame from a mixture of its
+    row (weights W, means MU, inverse variances K, diagonal).  Returns
+    (list of (T_b, D) arrays)."""
+    utts = []
+    R = rows.shape[1]
+    D = MU.shape[-1]
+    cum = np.cumsum(W, axis=-1)
+    for b in range(B):
+        T = int(rng.integers(*t_range))
+        bounds = np.sort(rng.choice(np.arange(1, T), R - 1, replace=False))
+        seg = np.zeros(T, dtype=int)
+        seg[bounds] = 1
+        r = rows[b][np.cumsum(seg)]
+        mix = np.minimum((rng.uniform(size=(T, 1)) > cum[r]).sum(1), W.shape[-1] - 1)
+        utts.append(MU[r, mix] + rng.normal(size=(T, D)) / np.sqrt(K[r, mix]))
+    return utts
+
+
+def pad_batch(torch, utts, trs):
+    """(transcripts, feats (B, T, D) zero-padded float32, lengths) on the card."""
+    B, T, D = len(utts), max(len(u) for u in utts), utts[0].shape[1]
+    feats = np.zeros((B, T, D), np.float32)
+    for i, u in enumerate(utts):
+        feats[i, : len(u)] = u
+    dev = "cuda"
+    return (torch.as_tensor(trs, dtype=torch.int32, device=dev), torch.as_tensor(feats, device=dev),
+            torch.as_tensor([len(u) for u in utts], dtype=torch.int32, device=dev))
+
+
+def above_floor(weights) -> np.ndarray:
+    """Mixtures whose weight is above the EM floor region (1e-3)."""
+    return weights.double().cpu().numpy() > 1e-3
+
+
+def param_close(name, what, a, b, mask) -> float:
+    """max |a - b| <= 2e-3 max |b| over the mask (the STAT_BOUND form at
+    the trajectory tolerance); returns the difference."""
+    a, b = a.double().cpu().numpy()[mask], b.double().cpu().numpy()[mask]
+    diff, scale = float(np.abs(a - b).max()), float(np.abs(b).max())
+    if not diff <= 2e-3 * scale:
+        raise AssertionError(f"{name} {what}: kernel vs plain {diff} > 2e-3 x {scale}")
+    return diff
+
+
+def em_comparison(torch, name, step, start, params) -> dict:
+    """Three EM iterations through the kernels (the second with
+    gamma_lattice=False, kernel #13) and three with fused=False on the card
+    from the same start.  step(model, fused, gamma_lattice) -> (new model,
+    log prob, num valid); params(model) -> (weights, means, trans).
+
+    Checked: the two free-running log-prob histories within rtol 2e-4; each
+    kernel iteration against one plain iteration from the same model, means
+    and trans within 2e-3 of their scale over the mixtures above the weight
+    floor (1e-3) before and after.  Reported only: the free-running final
+    parameters' divergence, since EM on mixtures with a few frames each
+    (tied_c5: ~9 frames a mixture in 39 dimensions) is chaotic, and fp32
+    summation orders put single mixtures on different paths within two
+    iterations (PERF.md)."""
+    m, lps_k, steps = start, [], []
+    for it in range(3):
+        new, lp, _ = step(m, True, it != 1)
+        ref, lp_ref, _ = step(m, False, True)
+        (w0, _, _), (w1, mu1, tr1), (w2, mu2, tr2) = params(m), params(new), params(ref)
+        mask = above_floor(w0) & above_floor(w1) & above_floor(w2)
+        lp_rel = abs(float(lp) - float(lp_ref)) / abs(float(lp_ref))
+        if not lp_rel <= 2e-4:
+            raise AssertionError(f"{name} iteration {it}: kernel vs plain log prob {float(lp)} vs {float(lp_ref)}")
+        steps.append({"lp_rel": lp_rel, "mixtures_compared": int(mask.sum()),
+                      "means_max_abs": param_close(name, f"iteration {it} means", mu1, mu2, mask),
+                      "trans_max_abs": param_close(name, f"iteration {it} trans", tr1, tr2,
+                                                   np.ones(tuple(tr2.shape), bool))})
+        lps_k.append(lp)
+        m = new
+    fin_k = m
+    m, lps_p = start, []
+    for _ in range(3):
+        m, lp, _ = step(m, False, True)
+        lps_p.append(lp)
+    lk = torch.stack(lps_k).double().cpu().numpy()
+    lp = torch.stack(lps_p).double().cpu().numpy()
+    lp_rel = float(np.max(np.abs(lk - lp) / np.abs(lp)))
+    if not lp_rel <= 2e-4:
+        raise AssertionError(f"{name}: kernel vs plain log-prob histories {lk} vs {lp}")
+    (wk, muk, trk), (wp, mup, trp) = params(fin_k), params(m)
+    mask = above_floor(wk) & above_floor(wp)
+    dmu = np.abs(muk.double().cpu().numpy() - mup.double().cpu().numpy()).max(-1)[mask]
+    scale = float(mup.double().abs().max())
+    return {"history_kernels": lk.tolist(), "history_plain": lp.tolist(), "lps_rel_vs_plain": lp_rel,
+            "steps": steps, "free_running_means_max_abs": float(dmu.max()),
+            "free_running_mixtures_beyond_2e-3_of_scale": int((dmu > 2e-3 * scale).sum()),
+            "free_running_mixtures": int(mask.sum()), "means_scale": scale,
+            "free_running_trans_max_abs": float((trk - trp).abs().max())}
+
+
+def phase_embedded(torch) -> dict:
+    """Embedded training at suite config 4's full width (emb_c4): P=40
+    units, S=3, M=32, D=13 diagonal, B=512 utterances of L=12 units,
+    T <= 512, models and data from a seed: em_comparison of
+    embedded_em_step, then train_embedded on the same utterances (3
+    iterations, its own buckets) against the kernel history."""
+    from srhmm_tpu_torch.models import gmm_hmm_from_numpy, stack_models
+    from srhmm_tpu_torch.train import embedded as emb
+
+    P, S, M, D, B, L = 40, 3, 32, 13, 512, 12
+    rng = np.random.default_rng(44)
+    units = [(left_right_trans(S, 4.0), [rand_stream(rng, S, M, D, "diag")]) for _ in range(P)]
+    models = stack_models([gmm_hmm_from_numpy(t, st, f"ph{i:02d}") for i, (t, st) in enumerate(units)])
+    W = np.stack([st[0]["weights"] for _, st in units]).reshape(P * S, M)
+    MU = np.stack([st[0]["means"] for _, st in units]).reshape(P * S, M, D)
+    K = np.stack([st[0]["inv_cov"] for _, st in units]).reshape(P * S, M, D)
+    trs = rng.integers(0, P, size=(B, L))
+    rows = (trs[:, :, None] * S + np.arange(S)).reshape(B, L * S)
+    t0 = time.perf_counter()
+    utts = composed_dataset(rng, W, MU, K, rows, B, (400, 513))
+    t_data = time.perf_counter() - t0
+    transcripts, feats, lengths = pad_batch(torch, utts, trs)
+    start = models.astype(torch.float32).to("cuda")
+    if not emb._embedded_fused_eligible(start, transcripts, feats):
+        raise AssertionError("emb_c4: the batch is not eligible for the composed kernels")
+
+    def step(m, fused, gamma_lattice):
+        return emb.embedded_em_step(m, transcripts, feats, lengths, fused=fused, gamma_lattice=gamma_lattice)
+
+    def params(m):
+        return m.streams[0].weights, m.streams[0].means, m.trans
+
+    before = composed_counts()
+    cmp = em_comparison(torch, "emb_c4", step, start, params)
+    mid = composed_counts()
+    res = emb.train_embedded(start, utts, trs.tolist(), max_iterations=3, chunk=3, threshold=-1.0)
+    after = composed_counts()
+    launches = {k: after[k] - before[k] for k in after}
+    if any(mid[k] - before[k] != n for k, n in (("bank_emission", 3), ("bank_moments", 1))):
+        raise AssertionError(f"emb_c4: the kernel iterations launched {mid} (from {before})")
+    np.testing.assert_allclose(res.log_prob_history, cmp["history_kernels"], rtol=2e-4,
+                               err_msg="emb_c4 train_embedded")
+    if res.exemplar_count != B or res.iterations != 3:
+        raise AssertionError(f"emb_c4: train_embedded ran {res.iterations} iterations on {res.exemplar_count}")
+    frames = int(lengths.sum())
+    out = {"phase": "embedded", "config": "emb_c4_P40_S3_M32_D13_diag", "P": P, "S": S, "M": M, "D": D,
+           "B": B, "L": L, "T": int(feats.shape[1]), "frames": frames, "launches": launches,
+           "train_embedded_history": res.log_prob_history, **cmp, "data_s": t_data}
+    emit(out)
+    return {"res": out, "models": start, "batch": (transcripts, feats, lengths), "launches": launches}
+
+
+def phase_tied(torch) -> dict:
+    """Tied-state training at suite config 5's full width (tied_c5): 700
+    triphone units of S=3 sharing N=2000 senones of M=16, D=39 diagonal,
+    B=1024 utterances of L=10 units, T <= 304, var_floor 0.1, from a seed:
+    em_comparison of tied_em_step, then train_tied (3 iterations)."""
+    from srhmm_tpu_torch.models import tied_hmm_set_from_numpy
+    from srhmm_tpu_torch.train import tied as tt
+
+    P, S, N, M, D, B, L, vf = 700, 3, 2000, 16, 39, 1024, 10, 0.1
+    rng = np.random.default_rng(45)
+    senones = rand_stream(rng, N, M, D, "diag")  # (N, M, ...) leaves: senones as the "state" axis
+    sm = np.zeros((P, S), np.int64)
+    pools = np.array_split(np.arange(N), S)
+    for s, pool in enumerate(pools):  # every senone used, the rest drawn from the state's pool
+        perm = rng.permutation(P)
+        sm[perm[: len(pool)], s] = pool
+        sm[perm[len(pool):], s] = rng.choice(pool, size=P - len(pool))
+    trans = np.stack([left_right_trans(S, 3.0) for _ in range(P)])
+    tied0 = tied_hmm_set_from_numpy(senones, trans, sm, tuple(f"t{i:03d}" for i in range(P)))
+    trs = rng.integers(0, P, size=(B, L))
+    rows = sm[trs].reshape(B, L * S)
+    t0 = time.perf_counter()
+    utts = composed_dataset(rng, senones["weights"], senones["means"], senones["inv_cov"], rows, B, (250, 305))
+    t_data = time.perf_counter() - t0
+    transcripts, feats, lengths = pad_batch(torch, utts, trs)
+    start = tied0.astype(torch.float32).to("cuda")
+    if not tt._tied_fused_eligible(start, transcripts, feats):
+        raise AssertionError("tied_c5: the batch is not eligible for the composed kernels")
+
+    def step(t, fused, gamma_lattice):
+        return tt.tied_em_step(t, transcripts, feats, lengths, var_floor=vf, fused=fused,
+                               gamma_lattice=gamma_lattice)
+
+    def params(t):
+        return t.senones.weights, t.senones.means, t.trans
+
+    before = composed_counts()
+    cmp = em_comparison(torch, "tied_c5", step, start, params)
+    mid = composed_counts()
+    res = tt.train_tied(start, utts, trs.tolist(), max_iterations=3, chunk=3, threshold=-1.0, var_floor=vf)
+    after = composed_counts()
+    launches = {k: after[k] - before[k] for k in after}
+    if any(mid[k] - before[k] != n for k, n in (("bank_emission", 3), ("bank_moments", 1))):
+        raise AssertionError(f"tied_c5: the kernel iterations launched {mid} (from {before})")
+    np.testing.assert_allclose(res.log_prob_history, cmp["history_kernels"], rtol=2e-4,
+                               err_msg="tied_c5 train_tied")
+    if res.exemplar_count != B or res.iterations != 3:
+        raise AssertionError(f"tied_c5: train_tied ran {res.iterations} iterations on {res.exemplar_count}")
+    frames = int(lengths.sum())
+    out = {"phase": "tied", "config": "tied_c5_P700_S3_N2000_M16_D39_diag", "P": P, "S": S, "N": N, "M": M,
+           "D": D, "B": B, "L": L, "T": int(feats.shape[1]), "frames": frames, "var_floor": vf,
+           "launches": launches, "train_tied_history": res.log_prob_history, **cmp, "data_s": t_data}
+    emit(out)
+    return {"res": out, "tied": start, "batch": (transcripts, feats, lengths), "launches": launches}
+
+
+def triphone_names(seq, names) -> list[str]:
+    """`l-c+r` names of a unit string, sil at the edges."""
+    out = []
+    for k, u in enumerate(seq):
+        left = names[seq[k - 1]] if k > 0 else "sil"
+        right = names[seq[k + 1]] if k + 1 < len(seq) else "sil"
+        out.append(f"{left}-{names[u]}+{right}")
+    return out
+
+
+def phase_train_embedded_cli(torch, tmp: Path) -> dict:
+    """The train_embedded CLI on the card: 8 units (S=3, M=2, D=13 diag)
+    from a seed, 160 training strings of 3-5 units as .perfil files, the
+    LBG flat start, --scan-iters 8; the decode CLI (--batch) on 32
+    held-out strings with the trained .hmm files: WER <= 5 %.  Then --tied
+    on triphone-named clones of the trained units (--init): exit 0, fewer
+    senones than units x S, and a log-prob history that does not decrease
+    (fp32 slack 1e-4 relative)."""
+    from srhmm_tpu_torch.cli import decode as decode_cli
+    from srhmm_tpu_torch.cli import train_embedded as te_cli
+    from srhmm_tpu_torch.io import write_perfil
+    from srhmm_tpu_torch.train import tied as tied_mod
+
+    root = tmp / "train_embedded_cli"
+    root.mkdir()
+    words = rand_words(51, 8, 3, [(2, 13)], "diag", dur=4.0)
+    names = [f"p{i}" for i in range(len(words))]
+    rng = np.random.default_rng(52)
+
+    def strings(n, tag):
+        seqs, lines = [], []
+        for i in range(n):
+            seq = [int(u) for u in rng.integers(0, len(words), size=int(rng.integers(3, 6)))]
+            frames = np.concatenate([sample(rng, *words[u], int(rng.integers(20, 36)))[0] for u in seq])
+            write_perfil(root / f"{tag}{i:03d}.perfil", frames)
+            seqs.append(seq)
+            lines.append(f"{root}/{tag}{i:03d}.perfil")
+        return seqs, lines
+
+    train_seqs, train_files = strings(160, "tr")
+    (root / "trans.txt").write_text("".join(f"{f} {' '.join(names[u] for u in s)}\n"
+                                            for f, s in zip(train_files, train_seqs)))
+    t0 = time.perf_counter()
+    rc = te_cli.main([str(root / "trans.txt"), str(root / "mono"), "--states", "3", "--mix", "2",
+                      "--scan-iters", "8", "--device", "cuda"])
+    mono_wall = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"train_embedded CLI exit {rc}")
+    summary = json.loads((root / "mono" / "summary.json").read_text())
+    held_seqs, held_files = strings(32, "he")
+    (root / "models.txt").write_text("".join(f"{root}/mono/{n}.hmm\n" for n in names))
+    (root / "inputs.txt").write_text("".join(f"{f}\n" for f in held_files))
+    (root / "ref.txt").write_text("".join(" ".join(names[u] for u in s) + "\n" for s in held_seqs))
+    rc = decode_cli.main([str(root / "models.txt"), str(root / "inputs.txt"), str(root / "out.txt"),
+                          "--batch", "--ref", str(root / "ref.txt")])
+    wer_line = [l for l in (root / "out.txt").read_text().splitlines() if l.startswith("WER:")]
+    if rc != 0 or not wer_line:
+        raise AssertionError(f"decode CLI exit {rc}, no WER line")
+    wer = float(wer_line[0].split()[1].rstrip("%"))
+    if not wer <= 5.0:
+        raise AssertionError(f"train_embedded CLI models: held-out WER {wer}% > 5%")
+
+    # --tied on triphone-named clones of the trained monophones
+    tri_seqs = [triphone_names(s, names) for s in train_seqs]
+    tris = sorted({t for s in tri_seqs for t in s})
+    init = root / "tri_init"
+    init.mkdir()
+    for t in tris:
+        shutil.copyfile(root / "mono" / f"{t.split('-')[1].split('+')[0]}.hmm", init / f"{t}.hmm")
+    (root / "trans_tri.txt").write_text("".join(f"{f} {' '.join(s)}\n" for f, s in zip(train_files, tri_seqs)))
+    results = []
+    train_tied = tied_mod.train_tied
+
+    def recording(*a, **k):  # the CLI's TrainResult, for its history
+        results.append(train_tied(*a, **k))
+        return results[-1]
+
+    tied_mod.train_tied = recording
+    try:
+        t0 = time.perf_counter()
+        rc = te_cli.main([str(root / "trans_tri.txt"), str(root / "tied"), "--tied", "--init", str(init),
+                          "--scan-iters", "8", "--device", "cuda"])
+        tied_wall = time.perf_counter() - t0
+    finally:
+        tied_mod.train_tied = train_tied
+    if rc != 0 or len(results) != 1:
+        raise AssertionError(f"train_embedded --tied exit {rc}")
+    tsum = json.loads((root / "tied" / "summary.json").read_text())
+    if not tsum["n_senones"] < len(tris) * 3:
+        raise AssertionError(f"--tied: {tsum['n_senones']} senones for {len(tris)} units x 3 states")
+    hist = np.asarray(results[0].log_prob_history)
+    drops = (hist[1:] - hist[:-1]) / np.abs(hist[:-1])
+    if (drops < -1e-4).any():
+        raise AssertionError(f"--tied: log-probability decreased: {hist.tolist()}")
+    if sorted(json.loads((root / "tied" / "senone_map.json").read_text())) != tris:
+        raise AssertionError("--tied: senone_map.json does not name every unit")
+    out = {"phase": "train_embedded_cli", "units": len(names), "train_strings": len(train_seqs),
+           "held_out": len(held_seqs), "iterations": summary["iterations"], "wer_percent": wer,
+           "mono_wall_s": mono_wall, "triphones": len(tris), "n_senones": tsum["n_senones"],
+           "tied_history": hist.tolist(), "tied_wall_s": tied_wall}
+    emit(out)
+    return out
+
+
+def composed_bounds(ids, banks, feats, lengths, diag, full) -> dict:
+    """The bound of each composed kernel on one batch (see bound()):
+    inputs read once, outputs written once; operations of the frames the
+    kernels step (emission: every frame of the padded T, as the kernel
+    computes them; lattices and moments: t < length)."""
+    banks = banks if isinstance(banks, tuple) else (banks,)
+    B, T, D = feats.shape
+    LS = ids.shape[1]
+    nd = diag.shape[0]
+    lens = lengths.tolist()
+    stepped = valid_frames(lens, T)
+    used = int(sum(min(int(n), T) for n in lens))
+    lat = 4 * T * LS * B
+    em_ops = sum(mixture_ops(D, bk.shape[1], full) for bk in banks)
+    Cm = (D + D * D + 1) if full else (2 * D + 1)
+    mom_out = sum(4 * bk.shape[0] * bk.shape[1] * Cm for bk in banks)
+    mom_ops = sum(bk.shape[1] * (2 * Cm + 6) for bk in banks)
+    return {
+        "bank_emission": bound(numel_bytes(ids, *banks, feats) + lat, T * B * LS * em_ops),
+        "composed_forward": bound(2 * lat + numel_bytes(diag, lengths), stepped * LS * (5 * nd + 4)),
+        "composed_backward_stats": bound(4 * lat + numel_bytes(diag, lengths) + 4 * (nd + 4) * LS * B,
+                                         stepped * LS * (9 * nd + 10)),
+        "bank_moments": bound(numel_bytes(ids, *banks, lengths) + 4 * used * (D + LS) + mom_out,
+                              used * LS * (em_ops + mom_ops) + B * LS * sum(bk.shape[1] * Cm for bk in banks)),
+    }
+
+
+def phase_timing_composed(torch, emb: dict, tied: dict, smi: str) -> dict:
+    """Each composed kernel and its twin at emb_c4 and tied_c5 (CUDA
+    events: kernels median of 20, twins median of 3, in the order twin,
+    kernel, kernel, twin), the kernels vs twins on those full-width inputs,
+    one whole EM iteration through the kernels vs fused=False, and one
+    kernel iteration under torch.profiler (device busy and idle shares)."""
+    from srhmm_tpu_torch.ops.kernels import composed as kc
+    from srhmm_tpu_torch.train import embedded as embm
+    from srhmm_tpu_torch.train import tied as tt
+
+    saved = composed_counts()
+    out = {}
+    for cell, src in (("emb_c4", emb), ("tied_c5", tied)):
+        transcripts, feats, lengths = src["batch"]
+        if cell == "emb_c4":
+            models = src["models"]
+            ids, banks, diag_row, diag_col, full = composed_inputs(torch, models, transcripts, feats, lengths)
+            step = lambda fused: embm.embedded_em_step(models, transcripts, feats, lengths, fused=fused)
+        else:
+            td = src["tied"]
+            full = False
+            ids = tt._senone_ids(td, transcripts)
+            banks = embm._pack_bank(td.senones, feats.shape[-1], full)
+            diag_row, diag_col = embm._composed_diagonals(
+                td.log_trans().to(torch.float32)[transcripts.long()], max(td.num_states - 1, 1))
+            step = lambda fused: tt.tied_em_step(td, transcripts, feats, lengths, var_floor=0.1, fused=fused)
+        check = composed_check(torch, ids, banks, feats, lengths, diag_row, diag_col, full, f"{cell} full width")
+        lb = kc.bank_emission(ids, banks, feats, full)
+        la = kc.composed_forward(lb, diag_col, lengths)
+        log_z = la[-1, -1]
+        valid = torch.isfinite(log_z) & (log_z > NEG_INF / 2) & (lengths > 0)
+        bw = (lb, la, diag_row, lengths, torch.where(valid, log_z, 0.0), valid.to(torch.float32))
+        gamma = kc.composed_backward_stats(*bw)[0]
+        gamma_bst = gamma.permute(2, 1, 0).contiguous()
+        calls = {
+            "bank_emission": (lambda: kc.bank_emission_plain(ids, banks, feats, full),
+                              lambda: kc.bank_emission(ids, banks, feats, full)),
+            "composed_forward": (lambda: kc.composed_forward_plain(lb, diag_col, lengths),
+                                 lambda: kc.composed_forward(lb, diag_col, lengths)),
+            "composed_backward_stats": (lambda: kc.composed_backward_stats_plain(*bw),
+                                        lambda: kc.composed_backward_stats(*bw)),
+            "bank_moments_lattice": (lambda: kc.bank_moments_lattice_plain(ids, banks, feats, gamma, lengths, full),
+                                     lambda: kc.bank_moments_lattice(ids, banks, feats, gamma, lengths, full)),
+            "bank_moments": (lambda: kc.bank_moments_plain(ids, banks, feats, gamma_bst, lengths, full),
+                             lambda: kc.bank_moments(ids, banks, feats, gamma_bst, lengths, full)),
+        }
+        bnd = composed_bounds(ids, banks, feats, lengths, diag_row, full)
+        bnd["bank_moments_lattice"] = bnd["bank_moments"]
+        rows = {}
+        for name, (plain, kernel) in calls.items():
+            plain_a = median_ms(torch, plain, warmup=1, reps=3)
+            kern_a = median_ms(torch, kernel)
+            kern_b = median_ms(torch, kernel)
+            plain_b = median_ms(torch, plain, warmup=1, reps=3)
+            rows[name] = {"kernel_ms": [kern_a, kern_b], "plain_ms": [plain_a, plain_b], "ms": min(kern_a, kern_b),
+                          "best_plain_ms": min(plain_a, plain_b), **bnd[name]}
+        it = timed_pair(torch, lambda: step(False), lambda: step(True))
+        prof = profile_window(torch, lambda: step(True), kernel_keys=COMPOSED_KERNEL_NAMES)
+        audio_s = int(lengths.sum()) * FRAME_S
+        out[cell] = {"kernels": rows, "em_iteration": it, "worst_abs": check["worst"],
+                     "em_audio_s_per_s": audio_s / (it["ms"] / 1e3),
+                     "plain_em_audio_s_per_s": audio_s / (it["best_plain_ms"] / 1e3), "profile": prof}
+        emit({"phase": "timing_composed", "config": cell, "B": int(feats.shape[0]), "T": int(feats.shape[1]),
+              "LS": int(ids.shape[1]), "audio_s": audio_s, "kernel_reps": 20, "plain_reps": 3,
+              "full_width_vs_twin_rel": check["rel"], **out[cell], "card": smi})
+    set_composed_counts(saved)  # timing launches are not main-path launches
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1251,6 +1813,7 @@ def main() -> int:
     worst_abs = phase_kernel(torch)
     worst_em = phase_kernel_em(torch)
     worst_dec = phase_kernel_decode(torch)
+    worst_comp = phase_kernel_composed(torch)
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     try:
         full_words = rand_words(11, 13, 6, [(1, 9)], "full", dur=450 / 6)
@@ -1265,11 +1828,22 @@ def main() -> int:
         train_full = phase_train(torch, "em_full_S6_M1_D9", "full", 6, 1, 9, (103, 214), tmp)
         phase_train_cli(torch, tmp)
         dec = phase_decode(torch, tmp)
+        # the composed path: embedded and tied training at full width, then
+        # the train_embedded CLI; launches counted over the three phases
+        set_composed_counts({name: 0 for name, _ in COMPOSED_ROWS})
+        emb = phase_embedded(torch)
+        tied = phase_tied(torch)
+        phase_train_embedded_cli(torch, tmp)
+        comp_launches = composed_counts()
+        for name, _ in COMPOSED_ROWS:
+            if comp_launches[name] < 1:
+                raise AssertionError(f"the embedded / tied main path launched {name} 0 times")
         t_full = phase_timing(torch, main_full, info["nvidia_smi"])
         phase_timing(torch, main_diag, info["nvidia_smi"])
         em_diag = phase_timing_em(torch, train_diag, info["nvidia_smi"])
         phase_timing_em(torch, train_full, info["nvidia_smi"])
         t_dec = phase_timing_decode(torch, dec, info["nvidia_smi"])
+        t_comp = phase_timing_composed(torch, emb, tied, info["nvidia_smi"])
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     fused_src = "srhmm_tpu_torch/csrc/fused_em.cu"
@@ -1334,6 +1908,21 @@ def main() -> int:
             "library_ms": None,
         }
         for name, K, where in decode_rows
+    ] + [
+        {
+            "name": name,
+            "route": "cuda",
+            "source": COMPOSED_SRC,
+            "replaces": where,
+            "launches": comp_launches[name],
+            "max_abs_err": max(worst_comp[name], t_comp["emb_c4"]["worst_abs"][name],
+                               t_comp["tied_c5"]["worst_abs"][name]),
+            "ms": t_comp["emb_c4"]["kernels"][name]["ms"],
+            "plain_ms": t_comp["emb_c4"]["kernels"][name]["best_plain_ms"],
+            **{k: t_comp["emb_c4"]["kernels"][name][k] for k in bkeys},
+            "library_ms": None,
+        }
+        for name, where in COMPOSED_ROWS
     ]})
     print(info["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -376,3 +376,129 @@ def test_decode_kernel_takes_the_main_width(cuda_device):
     torch.cuda.synchronize()
     _lattice_close(fk, fp)
     assert int((bk != bpp).sum()) <= 1e-4 * bk.numel()
+
+
+# ---------------------------------------------------------------------------
+# the composed-lattice kernels of embedded / tied training (csrc/composed.cu)
+# ---------------------------------------------------------------------------
+
+from srhmm_tpu_torch.ops.kernels import composed as kc  # noqa: E402
+from srhmm_tpu_torch.train import embedded as emb  # noqa: E402
+from srhmm_tpu_torch.train import tied as tied_mod  # noqa: E402
+
+_COMPOSED_LENS = [int(n) for n in np.random.default_rng(7).integers(2, 95, size=34)] + [95, 0, 1]
+
+
+def _composed_units(cov, S, mixes_dims, P=5, seed=11):
+    words = [tm.gmm_hmm_from_numpy(*rand_word(seed + i, S, list(mixes_dims), cov, max(S - 1, 1), scale=3.0))
+             for i in range(P)]
+    return tm.stack_models(words).astype(torch.float32)
+
+
+def _composed_case(device, cov, S, L, mixes_dims, lens=_COMPOSED_LENS, seed=12):
+    """The four kernels' inputs for a batch of transcripts of L units
+    (utterance 0 repeats one unit), on `device`."""
+    rng = np.random.default_rng(seed)
+    models = _composed_units(cov, S, mixes_dims).to(device)
+    P, B, T, D = models.trans.shape[0], len(lens), max(lens), mixes_dims[0][1]
+    trs = rng.integers(0, P, size=(B, L))
+    trs[0] = 2
+    transcripts = torch.as_tensor(trs, device=device)
+    feats = torch.as_tensor(rng.normal(size=(B, T, D)) * 3, dtype=torch.float32, device=device)
+    lengths = torch.as_tensor(lens, dtype=torch.int32, device=device)
+    full = cov == "full"
+    banks = tuple(emb._pack_bank(st, D, full) for st in models.streams)
+    ids = emb._positions(transcripts, S)
+    pos_logt = models.log_trans()[transcripts.long()]
+    diag_row, diag_col = emb._composed_diagonals(pos_logt, max(S - 1, 1))
+    return models, transcripts, ids, banks, feats, lengths, diag_row, diag_col, full
+
+
+_COMPOSED_CASES = [
+    ("diag", 2, 1, ((3, 9),)),
+    ("diag", 3, 3, ((3, 9), (2, 9))),
+    ("full", 3, 5, ((2, 6),)),
+    ("diag", 4, 5, ((4, 13),)),
+    ("full", 2, 3, ((3, 4), (2, 4))),
+]
+
+
+@pytest.mark.parametrize("cov,S,L,mixes_dims", _COMPOSED_CASES)
+def test_composed_kernels_match_plain(cuda_device, cov, S, L, mixes_dims):
+    _, _, ids, banks, feats, lengths, diag_row, diag_col, full = _composed_case(
+        cuda_device, cov, S, L, mixes_dims)
+    counts = kc.launch_counts()
+    lb_k = kc.bank_emission(ids, banks, feats, full)
+    lb_p = kc.bank_emission_plain(ids, banks, feats, full)
+    _lattice_close(lb_k, lb_p)
+    la_k = kc.composed_forward(lb_p, diag_col, lengths)
+    la_p = kc.composed_forward_plain(lb_p, diag_col, lengths)
+    _lattice_close(la_k, la_p)
+    log_z = la_p[-1, -1]
+    valid = torch.isfinite(log_z) & (log_z > NEG_INF / 2) & (lengths > 0)
+    rest = (lb_p, la_p, diag_row, lengths, torch.where(valid, log_z, 0.0), valid.float())
+    st_k, st_k2 = kc.composed_backward_stats(*rest), kc.composed_backward_stats(*rest)
+    st_p = kc.composed_backward_stats_plain(*rest)
+    for a, b, c in zip(st_k, st_p, st_k2):
+        _stat_close(a, b)
+        assert torch.equal(a, c)
+    gamma = st_p[0]
+    m_lat = kc.bank_moments_lattice(ids, banks, feats, gamma, lengths, full)
+    m_lat2 = kc.bank_moments_lattice(ids, banks, feats, gamma, lengths, full)
+    m_bst = kc.bank_moments(ids, banks, feats, gamma.permute(2, 1, 0).contiguous(), lengths, full)
+    m_p = kc.bank_moments_lattice_plain(ids, banks, feats, gamma, lengths, full)
+    torch.cuda.synchronize()
+    D = feats.shape[-1]
+    for a, b, a2, c in zip(m_lat, m_p, m_lat2, m_bst):
+        assert torch.equal(a, a2) and torch.equal(a, c)  # bitwise: repeat and both gamma layouts
+        for part in (slice(0, D), slice(D, -1), slice(-1, None)):
+            _stat_close(a[..., part], b[..., part])
+    after = kc.launch_counts()
+    assert after == {"bank_emission": counts["bank_emission"] + 1,
+                     "composed_forward": counts["composed_forward"] + 1,
+                     "composed_backward_stats": counts["composed_backward_stats"] + 2,
+                     "bank_moments_lattice": counts["bank_moments_lattice"] + 2,
+                     "bank_moments": counts["bank_moments"] + 1}
+
+
+def test_fused_embedded_e_step_repeats_bitwise_and_matches_plain(cuda_device):
+    models, transcripts, _, _, feats, lengths, *_ = _composed_case(cuda_device, "diag", 3, 4, ((3, 9),))
+    assert emb._embedded_fused_eligible(models, transcripts, feats)
+    a = emb.batch_stats_fused(models, transcripts, feats, lengths)
+    b = emb.batch_stats_fused(models, transcripts, feats, lengths)
+    p = emb.batch_stats(models, transcripts, feats, lengths)
+    torch.cuda.synchronize()
+    for x, y, z in ((a.num_trans, b.num_trans, p.num_trans), (a.den_mix, b.den_mix, p.den_mix),
+                    (a.streams[0].x, b.streams[0].x, p.streams[0].x),
+                    (a.streams[0].xx, b.streams[0].xx, p.streams[0].xx)):
+        assert torch.equal(x, y)
+        np.testing.assert_allclose(x.cpu().numpy(), z.cpu().numpy(), rtol=5e-4,
+                                   atol=5e-4 * float(z.abs().max()))
+    assert torch.equal(a.log_prob, b.log_prob)
+
+
+def test_tied_em_step_takes_the_kernels(cuda_device, monkeypatch):
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA batch reached a plain twin")
+
+    models, transcripts, _, _, feats, lengths, *_ = _composed_case(cuda_device, "diag", 3, 3, ((2, 9),))
+    sm = (np.arange(5 * 3).reshape(5, 3) % 8).astype(np.int32)
+    tied = tm.tie_from_models(models, sm).astype(torch.float32)
+    for name in ("bank_emission_plain", "composed_forward_plain", "composed_backward_stats_plain",
+                 "bank_moments_plain", "bank_moments_lattice_plain"):
+        monkeypatch.setattr(kc, name, refuse)
+    counts = kc.launch_counts()
+    t1, lp1, nv1 = tied_mod.tied_em_step(tied, transcripts, feats, lengths)
+    t2, lp2, nv2 = tied_mod.tied_em_step(tied, transcripts, feats, lengths, gamma_lattice=False)
+    torch.cuda.synchronize()
+    after = kc.launch_counts()
+    assert all(after[k] > counts[k] for k in counts)
+    assert torch.equal(lp1, lp2) and torch.equal(t1.senones.means, t2.senones.means)
+    tp, lpp, _ = tied_mod.tied_em_step(tied, transcripts, feats, lengths, fused=False)
+    np.testing.assert_allclose(float(lp1), float(lpp), rtol=1e-5)
+    np.testing.assert_allclose(t1.trans.cpu().numpy(), tp.trans.cpu().numpy(), rtol=1e-3, atol=1e-5)
+    # a float64 CUDA batch is not eligible; a forced launch refuses it
+    assert not tied_mod._tied_fused_eligible(tied, transcripts, feats.double())
+    with pytest.raises(ValueError, match="float32"):
+        kc.bank_emission(emb._positions(transcripts, 3), emb._pack_bank(tied.senones, 9, False),
+                         feats.double())

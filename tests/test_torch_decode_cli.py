@@ -20,6 +20,7 @@ import srhmm_tpu_torch.cli.align as t_align
 import srhmm_tpu_torch.cli.decode as t_decode
 import srhmm_tpu_torch.cli.recognize as t_recognize
 import srhmm_tpu_torch.cli.train as t_train
+import srhmm_tpu_torch.cli.train_embedded as t_train_embedded
 import srhmm_tpu_torch.io as tio
 from srhmm_tpu_torch.cli.train_embedded import read_transcripts
 from srhmm_tpu_torch.models import gmm_hmm_from_numpy
@@ -100,6 +101,7 @@ _REFUSALS = {
                                      "words.txt", "out.txt"]),
     "train": (t_train.main, ["--numerics", "fast", "--device", "cuda", "w", "4", "1", "2", "train.txt",
                              "out.txt"]),
+    "train_embedded": (t_train_embedded.main, ["trans.txt", "out.txt"]),
 }
 
 
