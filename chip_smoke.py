@@ -78,12 +78,30 @@ each (any failure raises, so the exit code is non-zero):
               the train_embedded CLI (LBG flat start, --scan-iters 8) on 8
               units, its models decoding 32 held-out strings through the
               decode CLI (WER <= 5 %), then --tied on triphone clones
+    train_p2  train_fast on two streams (D=9/M=3 + D=3/M=2) at em_diag's
+              B=2048, T=500: 5 iterations through the E-step kernels at P=2
+    kernel_mfcc
+              the MFCC kernel vs its twin over seven configurations
+              (default, n_mels 40, hann, W=512/shift 128, include_energy,
+              W=1024 with 128 mels, W=551/shift 220 at 22,050 Hz) on one batch of noise, a 300-sample (clamped) and a
+              silent waveform, and synthesized speech (also 16-bit) at the
+              default configuration: max|k-p| <= 1e-3 on the MFCC, two
+              launches bitwise equal
+    features_cli
+              the features CLI on 64 WAV files of 2-9 s of synthesized
+              speech at 30 dB SNR, every .perfil vs the twin within 1e-3
+    pipeline  run_pipeline at bench.py:571-579's shape (3-word utterances,
+              40 train / 16 test, 5 + 5 EM iterations, n_best=2) at clean,
+              10 dB and 0 dB: WER <= 0.10 / 0.10 / 0.5; the pipeline CLI at
+              its defaults: WER <= 0.10; the MFCC, composed and 2-best
+              decode kernels each launched
   4 timing    every kernel and its plain version at the main-path shapes, and
               one whole EM iteration through the kernels vs fused=False;
-              CUDA events, median of 20 after warm-up (the decode and
-              composed twins: median of 3); each kernel's bound from its
-              inputs; timing_composed adds torch.profiler over one
-              embedded / tied EM iteration
+              CUDA events, median of 20 after warm-up (the decode, composed,
+              P=2 E-step and MFCC twins: median of 3); each kernel's bound
+              from its inputs; timing_composed adds torch.profiler over one
+              embedded / tied EM iteration; timing_mfcc is the cell
+              mfcc_b256_10s (256 waveforms of 10 s in one launch)
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 card's name and power limit as nvidia-smi reports them.
@@ -1304,6 +1322,30 @@ def set_composed_counts(counts: dict) -> None:
     kc.set_launch_counts(counts)
 
 
+class ClusteringStatsLaunches:
+    """While installed, counts the composed-kernel launches made inside
+    pipeline._bucketed_embedded_stats (the tree-clustering statistics of
+    the pipeline and of train_embedded --tied, which import it at call
+    time)."""
+
+    def __enter__(self):
+        import srhmm_tpu_torch.pipeline as pl
+
+        self.module, self.orig, self.launches = pl, pl._bucketed_embedded_stats, 0
+
+        def counted(*args, **kwargs):
+            before = sum(composed_counts().values())
+            out = self.orig(*args, **kwargs)
+            self.launches += sum(composed_counts().values()) - before
+            return out
+
+        pl._bucketed_embedded_stats = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.module._bucketed_embedded_stats = self.orig
+
+
 def composed_inputs(torch, models, transcripts, feats, lengths):
     """The four kernels' inputs of one batch, as the fused E-step builds
     them: (ids, banks, diag_row, diag_col, full)."""
@@ -1683,13 +1725,16 @@ def phase_train_embedded_cli(torch, tmp: Path) -> dict:
     tied_mod.train_tied = recording
     try:
         t0 = time.perf_counter()
-        rc = te_cli.main([str(root / "trans_tri.txt"), str(root / "tied"), "--tied", "--init", str(init),
-                          "--scan-iters", "8", "--device", "cuda"])
+        with ClusteringStatsLaunches() as stats_launches:
+            rc = te_cli.main([str(root / "trans_tri.txt"), str(root / "tied"), "--tied", "--init", str(init),
+                              "--scan-iters", "8", "--device", "cuda"])
         tied_wall = time.perf_counter() - t0
     finally:
         tied_mod.train_tied = train_tied
     if rc != 0 or len(results) != 1:
         raise AssertionError(f"train_embedded --tied exit {rc}")
+    if stats_launches.launches < 1:
+        raise AssertionError("--tied: the clustering statistics launched no composed kernel")
     tsum = json.loads((root / "tied" / "summary.json").read_text())
     if not tsum["n_senones"] < len(tris) * 3:
         raise AssertionError(f"--tied: {tsum['n_senones']} senones for {len(tris)} units x 3 states")
@@ -1702,7 +1747,8 @@ def phase_train_embedded_cli(torch, tmp: Path) -> dict:
     out = {"phase": "train_embedded_cli", "units": len(names), "train_strings": len(train_seqs),
            "held_out": len(held_seqs), "iterations": summary["iterations"], "wer_percent": wer,
            "mono_wall_s": mono_wall, "triphones": len(tris), "n_senones": tsum["n_senones"],
-           "tied_history": hist.tolist(), "tied_wall_s": tied_wall}
+           "tied_history": hist.tolist(), "tied_wall_s": tied_wall,
+           "clustering_stats_launches": stats_launches.launches}
     emit(out)
     return out
 
@@ -1803,6 +1849,384 @@ def phase_timing_composed(torch, emb: dict, tied: dict, smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# two-stream training (TPU kernels #4 / #5: the E-step kernels at P = 2)
+# ---------------------------------------------------------------------------
+
+
+def phase_train_p2(torch, train_diag: dict) -> dict:
+    """train_fast on two streams at em_diag's shape: stream 1 the em_diag
+    features (D=9, M=3), stream 2 D=3, M=2 features from the same
+    wandering process (B=2048, T=500), from em_diag's initial stream 1 and
+    a random stream 2; 5 iterations through the E-step kernels at P=2."""
+    from srhmm_tpu_torch.io.dataset import UtteranceBatch
+    from srhmm_tpu_torch.models import GmmHmm, gmm_hmm_from_numpy
+    from srhmm_tpu_torch.ops.kernels import fused_em as fe
+    from srhmm_tpu_torch.train.em import train_fast
+
+    batch1 = train_diag["batch"]
+    B, T = batch1.features.shape[:2]
+    S = train_diag["model"].num_states
+    utts = make_dataset(24, B, S, 2, 3, (T, T + 1))
+    feats2 = torch.as_tensor(np.stack(utts), dtype=torch.float32, device="cuda")
+    batch2 = UtteranceBatch(feats2, batch1.lengths)
+    rng = np.random.default_rng(25)
+    stream2 = gmm_hmm_from_numpy(left_right_trans(S, 2.0), [rand_stream(rng, S, 2, 3, "diag")]).streams[0]
+    init = train_diag["model"]
+    model = GmmHmm(trans=init.trans, streams=[init.streams[0], stream2.astype(torch.float32).to("cuda")],
+                   word="em_diag_p2")
+    batch = (batch1, batch2)
+    fe.emit_forward.launches = fe.backward_stats.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = train_fast(model, batch, max_iterations=5, threshold=-1.0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"emit_forward": fe.emit_forward.launches, "backward_stats": fe.backward_stats.launches}
+    for k, n in launches.items():
+        if n < res.iterations:
+            raise AssertionError(f"em_diag_p2: {k} launched {n} times for {res.iterations} iterations")
+    hist = np.asarray(res.log_prob_history)
+    if (np.diff(hist) / np.abs(hist[:-1]) < -1e-5).any():
+        raise AssertionError(f"em_diag_p2: log-probability decreased: {hist.tolist()}")
+    if not all(bool(torch.isfinite(s.means).all()) for s in res.model.streams):
+        raise AssertionError("em_diag_p2: trained means are not finite")
+    out = {"phase": "train_p2", "config": "em_diag_p2", "streams": [[3, 9], [2, 3]], "S": S, "B": B, "T": T,
+           "iterations": res.iterations, "launches": launches, "history": hist.tolist(),
+           "train_fast_wall_s": wall}
+    emit(out)
+    return {"model": model, "batch": batch, "launches": launches, "frames": int(batch1.lengths.sum())}
+
+
+def phase_timing_em_p2(torch, p2: dict, smi: str) -> dict:
+    """emit_forward and backward_stats at P=2 (em_diag_p2): CUDA events,
+    kernels median of 20, twins median of 3, in the order twin, kernel,
+    kernel, twin; bounds as phase_timing_em's, summed over the streams."""
+    from srhmm_tpu_torch.ops.kernels import fused_em as fe
+    from srhmm_tpu_torch.ops.kernels.common import trans_band
+
+    model, batch = p2["model"], p2["batch"]
+    band = trans_band(model.trans.cpu().numpy())
+    feats = tuple(b.features.permute(1, 2, 0).contiguous() for b in batch)
+    lengths = batch[0].lengths
+    origins = tuple(s.means.mean(dim=(0, 1)) for s in model.streams)
+    packed = tuple(fe.pack_lane_constants(s, torch.float32, origin=o) for s, o in zip(model.streams, origins))
+    k1 = (feats, packed, origins, model.trans, lengths, band)
+    lb, la = fe.emit_forward(*k1)
+    log_z = la[-1, -1]
+    valid = torch.isfinite(log_z) & (log_z > NEG_INF / 2) & (lengths > 0)
+    k2 = (feats, lb, la, packed, origins, model.trans, lengths, torch.where(valid, log_z, 0.0),
+          valid.to(torch.float32), band)
+    saved = fe.emit_forward.launches, fe.backward_stats.launches
+    out = {}
+    for name, plain, kernel in (("emit_forward", lambda: fe.emit_forward_plain(*k1), lambda: fe.emit_forward(*k1)),
+                                ("backward_stats", lambda: fe.backward_stats_plain(*k2),
+                                 lambda: fe.backward_stats(*k2))):
+        plain_a = median_ms(torch, plain, warmup=1, reps=3)
+        kern_a, kern_b = median_ms(torch, kernel), median_ms(torch, kernel)
+        plain_b = median_ms(torch, plain, warmup=1, reps=3)
+        out[name] = {"kernel_ms": [kern_a, kern_b], "plain_ms": [plain_a, plain_b], "ms": min(kern_a, kern_b),
+                     "best_plain_ms": min(plain_a, plain_b)}
+    fe.emit_forward.launches, fe.backward_stats.launches = saved  # timing launches
+    T, _, B = feats[0].shape
+    S = model.num_states
+    frames = valid_frames(lengths.tolist(), T)
+    nb = (band if band is not None else S - 1) + 1
+    dims = [(s.dim, s.num_mixtures) for s in model.streams]
+    sum_d = sum(D for D, _ in dims)
+    consts = sum(numel_bytes(*pk) for pk in packed) + numel_bytes(model.trans)
+    em_ops = sum(mixture_ops(D, M, False) for D, M in dims)
+    mom = sum(M * (2 * D + 1) for D, M in dims)
+    out["emit_forward"].update(bound(4 * frames * sum_d + consts + 4 * 2 * T * S * B,
+                                     frames * S * (em_ops + 4 * nb + 4)))
+    out["backward_stats"].update(bound(
+        4 * frames * sum_d + consts + 4 * 2 * T * S * B + 4 * (nb + 2) * S * B + 4 * S * mom,
+        frames * S * (em_ops + 2 * mom + 8 * nb + 8)))
+    emit({"phase": "timing_em", "config": "em_diag_p2", "P": 2, "kernel_reps": 20, "plain_reps": 3, **out,
+          "audio_s": p2["frames"] * FRAME_S, "card": smi})
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the MFCC frontend (csrc/mfcc.cu) and the end-to-end pipeline
+# ---------------------------------------------------------------------------
+
+MFCC_SRC = "srhmm_tpu_torch/csrc/mfcc.cu"
+# kernel vs twin: max |k - p| on the MFCC, the JAX package's own
+# compiled-vs-interpret gate for this kernel (bench.py:547-549)
+MFCC_BOUND = 1e-3
+PIPELINE_STAGES = ("synthesize", "mfcc", "lbg_init", "monophone_em", "tree_cluster", "tied_em",
+                   "materialize", "decode", "wer")
+PIPELINE_KERNELS = ("mfcc", "bank_emission", "composed_forward", "composed_backward_stats",
+                    "bank_moments_lattice", "word_loop_decode_k2")
+
+
+def mfcc_configs() -> dict:
+    from srhmm_tpu_torch.features.frontend import FrontendConfig
+
+    return {
+        "default": FrontendConfig(),
+        "mels40": FrontendConfig(n_mels=40, n_mfcc=20),
+        "hann": FrontendConfig(window="hann"),
+        "w512_s128": FrontendConfig(frame_length=512, frame_shift=128),
+        "energy": FrontendConfig(include_energy=True),
+        "w1024_mels128": FrontendConfig(frame_length=1024, frame_shift=256, n_mels=128, n_mfcc=40),
+        # W not a multiple of 4 (the DFT's remainder loop), another sample rate
+        "w551_22k": FrontendConfig(sample_rate=22_050, frame_length=551, frame_shift=220),
+    }
+
+
+def mfcc_compare(k, p, what: str) -> dict:
+    """Kernel vs twin MFCC rows: equal shapes, finite, max |k - p| <=
+    MFCC_BOUND; also reports max |k - p| / max(|p|, 1)."""
+    k, p = k.double().cpu().numpy(), p.double().cpu().numpy()
+    if k.shape != p.shape:
+        raise AssertionError(f"{what}: kernel shape {k.shape} != twin shape {p.shape}")
+    if not np.isfinite(k).all():
+        raise AssertionError(f"{what}: kernel MFCC not finite")
+    diff = np.abs(k - p)
+    worst = float(diff.max())
+    if not worst <= MFCC_BOUND:
+        raise AssertionError(f"{what}: kernel vs twin max abs error {worst} > {MFCC_BOUND}")
+    return {"max_abs_err": worst, "rel_err": float((diff / np.maximum(np.abs(p), 1.0)).max())}
+
+
+def mfcc_ops(n_frames: int, n_samples: int, cfg) -> float:
+    """fp32 operations the waveform -> MFCC function needs (a multiply-add
+    counts two), with the DFT taken as a real-input FFT, 2.5 W log2 W a
+    frame, not as the dense products the kernel runs (mfcc_dense_dft_ops):
+    pre-emphasis (2 a sample), the window (W), the FFT, the power (3 K),
+    the mel product over the filterbank's nonzeros (2 nnz), the log floor
+    (2 n_mels), the DCT (2 n_mels n_mfcc), the energy sum."""
+    from srhmm_tpu_torch.features.frontend import mel_filterbank
+
+    W, K = cfg.frame_length, cfg.frame_length // 2 + 1
+    nnz = int(np.count_nonzero(mel_filterbank(cfg)))
+    per = W + 2.5 * W * np.log2(W) + 3 * K + 2 * nnz + 2 * cfg.n_mels + 2 * cfg.n_mels * cfg.n_mfcc
+    if cfg.include_energy:
+        per += K + 2
+    return float(n_frames * per + 2 * n_samples)
+
+
+def mfcc_dense_dft_ops(n_frames: int, cfg) -> int:
+    """The fp32 operations of the kernel's own DFT: two dense (W, K)
+    products a frame, 4 W K."""
+    W, K = cfg.frame_length, cfg.frame_length // 2 + 1
+    return n_frames * 4 * W * K
+
+
+def write_wav(path: Path, x: np.ndarray, sr: int) -> None:
+    """16-bit PCM mono WAV of a waveform in [-1, 1]."""
+    import wave
+
+    pcm = np.clip(np.round(x * 32767.0), -32768, 32767).astype("<i2")
+    with wave.open(str(path), "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(sr)
+        w.writeframes(pcm.tobytes())
+
+
+def phase_kernel_mfcc(torch) -> float:
+    """The MFCC kernel vs its twin on the same CUDA tensors over seven
+    configurations (W=551 runs the DFT's remainder loop), one launch each
+    for a batch of white noise of 5000 samples (29 frames, no tile
+    multiple), a 300-sample waveform (one
+    clamped frame), a silent one and 2 s of quiet noise; the default
+    configuration (the pipeline's and the CLI's) adds two synthesized
+    utterances, the second quantized to 16 bits.  Speech is left out of
+    the others: there the narrower bands (128 mels) or the lower window
+    sidelobes (hann) leave the weakest mel bands of noise-free synthetic
+    speech with less power than the float32 rounding of the DFT sums, so
+    any two summation orders (kernel and twin alike) differ there, by
+    2e-3 to 2e-2 in the MFCC (measured on the H100).  Two launches
+    bitwise equal.  Returns the worst absolute error."""
+    from srhmm_tpu_torch.ops.kernels import mfcc as km
+    from srhmm_tpu_torch.pipeline import PipelineConfig, synthesize_dataset
+
+    rng = np.random.default_rng(2026)
+    speech = synthesize_dataset(PipelineConfig(seed=7), 2, 0)[0]
+    quantized = np.round(speech[1] / np.abs(speech[1]).max() * 0.9 * 32767.0) / 32768.0
+    waves = [rng.normal(size=5000), rng.normal(size=300), np.zeros(4000), 0.1 * rng.normal(size=32000)]
+    saved = km.mfcc_fused.launches
+    worst = 0.0
+    for name, cfg in mfcc_configs().items():
+        batch = waves + [speech[0], quantized] if name == "default" else waves
+        samples, offsets = km.pack_waves(batch, "cuda")
+        k = km.mfcc_fused(samples, offsets, cfg)
+        k2 = km.mfcc_fused(samples, offsets, cfg)
+        p = km.mfcc_plain(samples, offsets, cfg)
+        torch.cuda.synchronize()
+        res = mfcc_compare(k, p, f"kernel_mfcc {name}")
+        if not torch.equal(k, k2):
+            raise AssertionError(f"kernel_mfcc {name}: two launches differ")
+        worst = max(worst, res["max_abs_err"])
+        emit({"phase": "kernel_mfcc", "config": name, "waves": len(batch), "frames": int(k.shape[0]),
+              "bitwise_repeat": True, **res})
+    km.mfcc_fused.launches = saved  # comparison launches
+    return worst
+
+
+def phase_features_cli(torch, tmp: Path) -> float:
+    """The features CLI on the card: 64 WAV files of 2-9 s of synthesized
+    speech at 30 dB SNR (16-bit), every .perfil read back and held against
+    the twin on the waveforms as the CLI read them.  The noise floor is a
+    recording's: noise-free synthetic speech leaves its weakest mel bands
+    near the float32 rounding of the DFT sums, where any two summation
+    orders differ by up to ~6e-4 (a float32 emulation of the kernel's sums
+    on the CPU; ~5e-5 at 30 dB).  Returns the worst absolute error."""
+    import contextlib
+    import io
+
+    from srhmm_tpu_torch.cli import features as features_cli
+    from srhmm_tpu_torch.features.frontend import FrontendConfig
+    from srhmm_tpu_torch.io import read_perfil
+    from srhmm_tpu_torch.ops.kernels import mfcc as km
+    from srhmm_tpu_torch.pipeline import PipelineConfig, synthesize_dataset
+
+    root = tmp / "features_cli"
+    root.mkdir()
+    waves = synthesize_dataset(PipelineConfig(min_words=6, max_words=24, snr_db=30.0, seed=5), 64, 0)[0]
+    peak = max(float(np.abs(w).max()) for w in waves)
+    names = [f"s{i:02d}" for i in range(len(waves))]
+    for n, w in zip(names, waves):
+        write_wav(root / f"{n}.wav", w / peak * 0.9, 16000)
+    (root / "wavs.txt").write_text("".join(f"{root}/{n}.wav\n" for n in names))
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = features_cli.main([str(root / "wavs.txt"), str(root / "out"), "--device", "cuda"])
+    wall = time.perf_counter() - t0
+    if rc != 0 or len(buf.getvalue().splitlines()) != len(names):
+        raise AssertionError(f"features CLI exit {rc}:\n{buf.getvalue()[-2000:]}")
+    xs = [features_cli.read_wav(root / f"{n}.wav")[0] for n in names]
+    cfg = FrontendConfig()
+    samples, offsets = km.pack_waves(xs, "cuda")
+    twin = km.split_frames(km.mfcc_plain(samples, offsets, cfg), offsets, cfg)
+    got = torch.cat([torch.as_tensor(read_perfil(root / "out" / f"{n}.perfil")) for n in names])
+    res = mfcc_compare(got, torch.cat(twin), "features_cli")
+    secs = [len(x) / cfg.sample_rate for x in xs]
+    emit({"phase": "features_cli", "files": len(names), "seconds_min": min(secs), "seconds_max": max(secs),
+          "audio_s": sum(secs), "frames": int(got.shape[0]), "cli_wall_s": wall, **res})
+    return res["max_abs_err"]
+
+
+def pipeline_counts() -> dict:
+    from srhmm_tpu_torch.ops.kernels import mfcc as km
+
+    comp, dec = composed_counts(), decode_counts()
+    return {"mfcc": km.mfcc_fused.launches, **comp, **dec}
+
+
+def set_pipeline_counts(counts: dict) -> None:
+    from srhmm_tpu_torch.ops.kernels import mfcc as km
+
+    km.mfcc_fused.launches = counts["mfcc"]
+    set_composed_counts({k: counts[k] for k in composed_counts()})
+    set_decode_counts({k: counts[k] for k in decode_counts()})
+
+
+def phase_pipeline(torch) -> dict:
+    """run_pipeline on the card at bench.py:571-579's shape (3-word
+    utterances, n_train=40, n_test=16, 5 + 5 EM iterations, n_best=2,
+    pad_multiple=128) at clean, 10 dB and 0 dB: WER <= 0.10, 0.10, 0.5;
+    then the pipeline CLI with its defaults (48 / 16 / 8 / 8, clean): WER
+    <= 0.10.  Launches are counted over the phase: the MFCC kernel, the
+    four composed kernels and the 2-best decode kernel must each run."""
+    import contextlib
+    import dataclasses
+    import io
+
+    from srhmm_tpu_torch.cli import pipeline as pipeline_cli
+    from srhmm_tpu_torch.pipeline import PipelineConfig, run_pipeline
+
+    set_pipeline_counts({k: 0 for k in pipeline_counts()})
+    base = PipelineConfig(min_words=3, max_words=3)
+    out = {}
+    for label, snr, gate in (("clean", None, 0.10), ("10db", 10.0, 0.10), ("0db", 0.0, 0.5)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with ClusteringStatsLaunches() as stats_launches:
+            res = run_pipeline(dataclasses.replace(base, snr_db=snr), n_train=40, n_test=16, max_iterations=5,
+                               tied_iterations=5, n_best=2, pad_multiple=128, device="cuda")
+        wall = time.perf_counter() - t0
+        if stats_launches.launches < 1:
+            raise AssertionError(f"pipeline {label}: the clustering statistics launched no composed kernel")
+        if not res.wer.wer <= gate:
+            raise AssertionError(f"pipeline {label}: WER {res.wer.wer} > {gate} ({res.hyps} vs {res.refs})")
+        if not (np.isfinite(res.mono_log_prob) and np.isfinite(res.tied_log_prob)):
+            raise AssertionError(f"pipeline {label}: log probabilities not finite")
+        if not 3 <= res.n_senones < res.n_units * 3 or set(res.stage_seconds) != set(PIPELINE_STAGES):
+            raise AssertionError(f"pipeline {label}: {res.n_senones} senones, stages {res.stage_seconds}")
+        out[label] = {"wer": res.wer.wer, "ref_words": res.wer.num_ref_words, "n_senones": res.n_senones,
+                      "n_units": res.n_units, "mono_iterations": res.mono_iterations,
+                      "tied_iterations": res.tied_iterations, "mono_log_prob": res.mono_log_prob,
+                      "tied_log_prob": res.tied_log_prob, "stage_seconds": res.stage_seconds, "wall_s": wall,
+                      "clustering_stats_launches": stats_launches.launches}
+        emit({"phase": "pipeline", "config": f"pipe_c3_{label}", "n_train": 40, "n_test": 16, **out[label]})
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = pipeline_cli.main(["--device", "cuda", "--quiet"])
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"pipeline CLI exit {rc}:\n{buf.getvalue()[-2000:]}")
+    summary = json.loads(buf.getvalue().strip().splitlines()[-1])
+    if not summary["wer"] <= 0.10:
+        raise AssertionError(f"pipeline CLI: WER {summary['wer']} > 0.10")
+    emit({"phase": "pipeline_cli", "args": "defaults (48/16/8/8, clean)", "summary": summary, "wall_s": wall})
+    counts = pipeline_counts()
+    launches = {k: counts[k] for k in PIPELINE_KERNELS}
+    for k, n in launches.items():
+        if n < 1:
+            raise AssertionError(f"the pipeline launched {k} 0 times")
+    emit({"phase": "pipeline_launches", **launches})
+    return {"runs": out, "cli": summary, "launches": launches}
+
+
+def phase_timing_mfcc(torch, smi: str) -> dict:
+    """Cell mfcc_b256_10s: 256 waveforms of 10 s at 16 kHz (default
+    FrontendConfig: 998 frames each, 255,488 in all, 2,560 audio-s) in one
+    launch.  CUDA events: kernel median of 20, twin median of 3, in the
+    order twin, kernel, kernel, twin; the kernel vs the twin on these
+    inputs; the bound from the samples read, the constants read and the
+    MFCCs written against mfcc_ops (an FFT's count), and beside it the
+    dense DFT the kernel runs, at the card's fp32 peak."""
+    from srhmm_tpu_torch.features.frontend import FrontendConfig
+    from srhmm_tpu_torch.ops.kernels import mfcc as km
+
+    cfg = FrontendConfig()
+    n_waves, n = 256, 10 * cfg.sample_rate
+    rng = np.random.default_rng(31)
+    samples = torch.as_tensor((0.1 * rng.standard_normal(n_waves * n)).astype(np.float32), device="cuda")
+    offsets = np.arange(n_waves + 1, dtype=np.int64) * n
+    saved = km.mfcc_fused.launches
+    check = mfcc_compare(km.mfcc_fused(samples, offsets, cfg), km.mfcc_plain(samples, offsets, cfg),
+                         "mfcc_b256_10s")
+    plain = lambda: km.mfcc_plain(samples, offsets, cfg)
+    kernel = lambda: km.mfcc_fused(samples, offsets, cfg)
+    plain_a = median_ms(torch, plain, warmup=1, reps=3)
+    kern_a, kern_b = median_ms(torch, kernel), median_ms(torch, kernel)
+    plain_b = median_ms(torch, plain, warmup=1, reps=3)
+    km.mfcc_fused.launches = saved  # timing launches
+    frames = int(km.frame_offsets(offsets, cfg)[-1])
+    W, K = cfg.frame_length, cfg.frame_length // 2 + 1
+    consts = 4 * (2 * W * K + K * cfg.n_mels + cfg.n_mels * cfg.n_mfcc)
+    bnd = bound(4 * samples.numel() + 8 * 3 * (n_waves + 1) + consts + 4 * frames * cfg.n_mfcc,
+                mfcc_ops(frames, samples.numel(), cfg))
+    ms = min(kern_a, kern_b)
+    audio_s = n_waves * n / cfg.sample_rate
+    dense_ms = mfcc_dense_dft_ops(frames, cfg) / FP32_OPS_PER_S * 1e3
+    res = {"kernel_ms": [kern_a, kern_b], "plain_ms": [plain_a, plain_b], "ms": ms,
+           "best_plain_ms": min(plain_a, plain_b), "frontend_audio_s_per_s": audio_s / (ms / 1e3),
+           "plain_audio_s_per_s": audio_s / (min(plain_a, plain_b) / 1e3), **bnd,
+           "share_of_bound": bnd["bound_ms"] / ms, "dense_dft_ms_at_peak": dense_ms}
+    emit({"phase": "timing_mfcc", "config": "mfcc_b256_10s", "waves": n_waves, "frames": frames,
+          "audio_s": audio_s, "kernel_reps": 20, "plain_reps": 3, "full_width_vs_twin": check, **res,
+          "card": smi})
+    return {**res, "max_abs_err": check["max_abs_err"]}
+
+
 def main() -> int:
     import torch
 
@@ -1814,6 +2238,7 @@ def main() -> int:
     worst_em = phase_kernel_em(torch)
     worst_dec = phase_kernel_decode(torch)
     worst_comp = phase_kernel_composed(torch)
+    worst_mfcc = phase_kernel_mfcc(torch)
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     try:
         full_words = rand_words(11, 13, 6, [(1, 9)], "full", dur=450 / 6)
@@ -1826,6 +2251,7 @@ def main() -> int:
         phase_cli(main_diag)
         train_diag = phase_train(torch, "em_diag_S8_M3_D9", "diag", 8, 3, 9, (500, 501), tmp)
         train_full = phase_train(torch, "em_full_S6_M1_D9", "full", 6, 1, 9, (103, 214), tmp)
+        train_p2 = phase_train_p2(torch, train_diag)
         phase_train_cli(torch, tmp)
         dec = phase_decode(torch, tmp)
         # the composed path: embedded and tied training at full width, then
@@ -1838,18 +2264,25 @@ def main() -> int:
         for name, _ in COMPOSED_ROWS:
             if comp_launches[name] < 1:
                 raise AssertionError(f"the embedded / tied main path launched {name} 0 times")
+        # the frontend and the end-to-end pipeline; launches counted over
+        # the pipeline phase (phase_pipeline)
+        worst_mfcc = max(worst_mfcc, phase_features_cli(torch, tmp))
+        pipe = phase_pipeline(torch)
         t_full = phase_timing(torch, main_full, info["nvidia_smi"])
         phase_timing(torch, main_diag, info["nvidia_smi"])
         em_diag = phase_timing_em(torch, train_diag, info["nvidia_smi"])
         phase_timing_em(torch, train_full, info["nvidia_smi"])
+        em_p2 = phase_timing_em_p2(torch, train_p2, info["nvidia_smi"])
         t_dec = phase_timing_decode(torch, dec, info["nvidia_smi"])
         t_comp = phase_timing_composed(torch, emb, tied, info["nvidia_smi"])
+        t_mfcc = phase_timing_mfcc(torch, info["nvidia_smi"])
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     fused_src = "srhmm_tpu_torch/csrc/fused_em.cu"
     em_launches = {k: train_diag["launches"][k] + train_full["launches"][k]
                    for k in ("emit_forward", "backward_stats")}
-    # no single PyTorch call computes any of these functions: library_ms is null
+    # no single PyTorch call computes any of these functions (waveform ->
+    # MFCC included): library_ms is null
     bkeys = ("bound_ms", "bound_by")
     decode_src = "srhmm_tpu_torch/csrc/word_loop_decode.cu"
     decode_rows = [
@@ -1881,6 +2314,11 @@ def main() -> int:
             "plain_ms": em_diag["emit_forward"]["best_plain_ms"],
             **{k: em_diag["emit_forward"][k] for k in bkeys},
             "library_ms": None,
+            # P = 2 (TPU kernel #4): em_diag_p2
+            "launches_p2": train_p2["launches"]["emit_forward"],
+            "ms_p2": em_p2["emit_forward"]["ms"],
+            "plain_ms_p2": em_p2["emit_forward"]["best_plain_ms"],
+            **{f"{k}_p2": em_p2["emit_forward"][k] for k in bkeys},
         },
         {
             "name": "backward_stats",
@@ -1893,6 +2331,11 @@ def main() -> int:
             "plain_ms": em_diag["backward_stats"]["best_plain_ms"],
             **{k: em_diag["backward_stats"][k] for k in bkeys},
             "library_ms": None,
+            # P = 2 (TPU kernel #5): em_diag_p2
+            "launches_p2": train_p2["launches"]["backward_stats"],
+            "ms_p2": em_p2["backward_stats"]["ms"],
+            "plain_ms_p2": em_p2["backward_stats"]["best_plain_ms"],
+            **{f"{k}_p2": em_p2["backward_stats"][k] for k in bkeys},
         },
     ] + [
         {
@@ -1923,6 +2366,19 @@ def main() -> int:
             "library_ms": None,
         }
         for name, where in COMPOSED_ROWS
+    ] + [
+        {
+            "name": "mfcc",
+            "route": "cuda",
+            "source": MFCC_SRC,
+            "replaces": "srhmm_tpu/features/pallas_mfcc.py:39",
+            "launches": pipe["launches"]["mfcc"],
+            "max_abs_err": max(worst_mfcc, t_mfcc["max_abs_err"]),
+            "ms": t_mfcc["ms"],
+            "plain_ms": t_mfcc["best_plain_ms"],
+            **{k: t_mfcc[k] for k in bkeys},
+            "library_ms": None,
+        },
     ]})
     print(info["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,6 +4,7 @@ from .gmm_hmm import (
     FULL,
     GmmHmm,
     GmmStream,
+    concat_models,
     denormalize_model,
     denormalize_stream,
     init_left_right_trans,
@@ -19,6 +20,7 @@ __all__ = [
     "GmmHmm",
     "GmmStream",
     "TiedHmmSet",
+    "concat_models",
     "denormalize_model",
     "denormalize_stream",
     "gmm_hmm_from_numpy",

@@ -144,6 +144,44 @@ class GmmHmm(nn.Module):
         )
 
 
+def concat_models(units: GmmHmm, ids: Sequence[int], word: str = "") -> GmmHmm:
+    """Left-to-right concatenation of stacked unit models into ONE GmmHmm.
+
+    units: a stacked (P, S, ...) inventory (e.g. materialized tied
+    triphones); ids: the unit sequence.  The result has L*S states:
+    block-diagonal transitions with a chain arc from unit k's exit state
+    into unit k+1's entry carrying the exit state's self-loop mass (the
+    decode/continuous.compose_sequence convention), so a word built here
+    decodes as the forced-alignment graph of its unit sequence does.  The
+    result lives on the units' device, in their dtype."""
+    idx = torch.as_tensor(np.asarray(ids, np.int64), device=units.trans.device)
+    L = len(idx)
+    S = units.trans.shape[-1]
+    t = units.trans[idx]  # (L, S, S)
+    trans = torch.zeros((L * S, L * S), dtype=t.dtype, device=t.device)
+    for k in range(L):
+        trans[k * S : (k + 1) * S, k * S : (k + 1) * S] = t[k]
+        if k + 1 < L:
+            trans[k * S + S - 1, (k + 1) * S] = t[k, S - 1, S - 1]
+
+    def gather(a):
+        a = a[idx]  # (L, S, M, ...)
+        return a.reshape(L * S, *a.shape[2:])
+
+    streams = [
+        GmmStream(
+            weights=gather(st.weights),
+            means=gather(st.means),
+            inv_cov=gather(st.inv_cov),
+            det=gather(st.det),
+            cov_type=st.cov_type,
+            log_det=gather(st.log_det),
+        )
+        for st in units.streams
+    ]
+    return GmmHmm(trans=trans, streams=streams, word=word)
+
+
 def stack_models(models: Sequence[GmmHmm]) -> GmmHmm:
     """Stack per-word models into a single GmmHmm with a leading vocab axis.
 

@@ -502,3 +502,99 @@ def test_tied_em_step_takes_the_kernels(cuda_device, monkeypatch):
     with pytest.raises(ValueError, match="float32"):
         kc.bank_emission(emb._positions(transcripts, 3), emb._pack_bank(tied.senones, 9, False),
                          feats.double())
+
+
+# ---------------------------------------------------------------------------
+# the MFCC frontend (csrc/mfcc.cu) and the pipeline's clustering statistics
+# ---------------------------------------------------------------------------
+
+import dataclasses  # noqa: E402
+
+from srhmm_tpu_torch.features.frontend import FrontendConfig  # noqa: E402
+from srhmm_tpu_torch.ops.kernels import mfcc as km  # noqa: E402
+
+_MFCC_CONFIGS = {
+    "default": FrontendConfig(),
+    "mels40": FrontendConfig(n_mels=40, n_mfcc=20),
+    "hann": FrontendConfig(window="hann"),
+    "w512_s128": FrontendConfig(frame_length=512, frame_shift=128),
+    "energy": FrontendConfig(include_energy=True),
+    "w1024_mels128": FrontendConfig(frame_length=1024, frame_shift=256, n_mels=128, n_mfcc=40),
+    # W not a multiple of 4 (the kernel's remainder loop), another sample rate
+    "w551_22k": FrontendConfig(sample_rate=22_050, frame_length=551, frame_shift=220),
+}
+
+
+def _mfcc_waves(seed=3):
+    """Waveforms of different lengths: 29 frames (no tile multiple), one
+    clamped 300-sample frame, a silent one, 2 s of speech-band noise."""
+    rng = np.random.default_rng(seed)
+    return [rng.normal(size=5000), rng.normal(size=300), np.zeros(4000), rng.normal(size=32000) * 0.1]
+
+
+@pytest.mark.parametrize("name", sorted(_MFCC_CONFIGS))
+def test_mfcc_kernel_matches_plain(cuda_device, name):
+    """max |kernel - twin| <= 1e-3 on the MFCC (the JAX package's
+    compiled-vs-interpret gate for this kernel, bench.py:547-549); two
+    launches bitwise equal; one launch for the whole batch."""
+    cfg = _MFCC_CONFIGS[name]
+    samples, offsets = km.pack_waves(_mfcc_waves(), cuda_device)
+    before = km.mfcc_fused.launches
+    got = km.mfcc_fused(samples, offsets, cfg)
+    again = km.mfcc_fused(samples, offsets, cfg)
+    want = km.mfcc_plain(samples, offsets, cfg)
+    torch.cuda.synchronize()
+    assert km.mfcc_fused.launches == before + 2
+    assert got.shape == want.shape == (int(km.frame_offsets(offsets, cfg)[-1]), cfg.n_mfcc)
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, again)
+    assert float((got - want).abs().max()) <= 1e-3
+
+
+def test_mfcc_kernel_refuses_what_it_does_not_take(cuda_device):
+    samples, offsets = km.pack_waves(_mfcc_waves(), cuda_device)
+    with pytest.raises(ValueError, match="float32"):
+        km.mfcc_fused(samples.double(), offsets, FrontendConfig())
+    with pytest.raises(ValueError):
+        km.mfcc_fused(samples, offsets, dataclasses.replace(FrontendConfig(), frame_length=2048))
+
+
+def test_pipeline_mfcc_features_take_the_kernel(cuda_device, monkeypatch):
+    from srhmm_tpu_torch.pipeline import mfcc_features
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA batch reached the plain twin")
+
+    waves = [w.astype(np.float32) for w in _mfcc_waves()]
+    want = mfcc_features(waves, FrontendConfig(), device="cpu")
+    monkeypatch.setattr(km, "mfcc_plain", refuse)
+    before = km.mfcc_fused.launches
+    got = mfcc_features(waves, FrontendConfig(), device=cuda_device)
+    assert km.mfcc_fused.launches == before + 1
+    for g, w in zip(got, want):
+        assert g.dtype == np.float32 and g.shape == w.shape
+        assert np.abs(g - w).max() <= 1e-3
+
+
+def test_bucketed_stats_take_the_composed_kernels(cuda_device):
+    """_bucketed_embedded_stats runs batch_stats_fused on eligible CUDA
+    buckets; it agrees with the plain batch_stats within 5e-4 of each
+    statistic's scale."""
+    from srhmm_tpu_torch.pipeline import _bucketed_embedded_stats
+
+    models = _composed_units("diag", 3, ((2, 9),)).to(cuda_device)
+    rng = np.random.default_rng(4)
+    utts = [rng.normal(size=(int(n), 9)) * 3 for n in rng.integers(20, 90, size=12)]
+    trs = [rng.integers(0, 5, size=int(L)).tolist() for L in rng.integers(1, 4, size=12)]
+    counts = kc.launch_counts()
+    got = _bucketed_embedded_stats(models, utts, trs)
+    after = kc.launch_counts()
+    assert all(after[k] > counts[k] for k in ("bank_emission", "composed_forward", "composed_backward_stats"))
+    want = _bucketed_embedded_stats(models, utts, trs, fused=False)
+    torch.cuda.synchronize()
+    for a, b in ((got.num_trans, want.num_trans), (got.den_trans, want.den_trans),
+                 (got.den_mix, want.den_mix), (got.streams[0].w, want.streams[0].w),
+                 (got.streams[0].x, want.streams[0].x), (got.streams[0].xx, want.streams[0].xx)):
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), rtol=5e-4,
+                                   atol=5e-4 * float(b.abs().max()))
+    np.testing.assert_allclose(float(got.log_prob), float(want.log_prob), rtol=1e-5)

@@ -18,6 +18,8 @@ import srhmm_tpu.cli.align as j_align
 import srhmm_tpu.cli.decode as j_decode
 import srhmm_tpu_torch.cli.align as t_align
 import srhmm_tpu_torch.cli.decode as t_decode
+import srhmm_tpu_torch.cli.features as t_features
+import srhmm_tpu_torch.cli.pipeline as t_pipeline
 import srhmm_tpu_torch.cli.recognize as t_recognize
 import srhmm_tpu_torch.cli.train as t_train
 import srhmm_tpu_torch.cli.train_embedded as t_train_embedded
@@ -102,6 +104,8 @@ _REFUSALS = {
     "train": (t_train.main, ["--numerics", "fast", "--device", "cuda", "w", "4", "1", "2", "train.txt",
                              "out.txt"]),
     "train_embedded": (t_train_embedded.main, ["trans.txt", "out.txt"]),
+    "features": (t_features.main, ["inputs.txt", "out.txt"]),
+    "pipeline": (t_pipeline.main, ["--json", "out.txt"]),
 }
 
 
