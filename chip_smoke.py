@@ -95,13 +95,37 @@ each (any failure raises, so the exit code is non-zero):
               10 dB and 0 dB: WER <= 0.10 / 0.10 / 0.5; the pipeline CLI at
               its defaults: WER <= 0.10; the MFCC, composed and 2-best
               decode kernels each launched
+    kernel_lattice
+              the lattice kernels (csrc/lattice.cu: forward_lattice /
+              backward_lattice and their blocked wrappers, log_forward_batch
+              shared and per row, viterbi_batch) vs their twins: S = 3, 6,
+              8, 16, 64 x delta 1, delta 2, dense, B=37, T=95 with a
+              zero-length and a length-1 row, k_block 1, 5, 19 (bitwise the
+              unblocked kernel), a duplicated-state tie for Viterbi: within
+              BOUND, equal masks and backpointers, two launches bitwise equal
+    kernel_emission
+              emission_log_b / emission_stats (csrc/emission_em.cu) vs their
+              twins: D = 3, 9, 13, 39 x M = 1, 3, 16, N=4133 (off every
+              tile), a zero-weight mixture, -inf log b rows: log b within
+              BOUND, moments within STAT_BOUND, two launches bitwise equal
+    lane_em   the slice at full width (em_diag, the model phase train
+              trained): e_step_fused and e_step_lane_major(lattices=
+              "pallas") vs e_step within STAT_BOUND, the lattice kernels vs
+              the plain scans within BOUND, 3 EM iterations through
+              e_step_fused vs e_step (rtol 2e-4), log_forward_batch at
+              em_diag and per row at diag10 (20,480 rows) vs its twin and vs
+              the vocab_scores kernel (1e-4), viterbi_batch (pointer
+              mismatches <= 1e-4); each of the eight kernels launched
   4 timing    every kernel and its plain version at the main-path shapes, and
               one whole EM iteration through the kernels vs fused=False;
               CUDA events, median of 20 after warm-up (the decode, composed,
               P=2 E-step and MFCC twins: median of 3); each kernel's bound
               from its inputs; timing_composed adds torch.profiler over one
               embedded / tied EM iteration; timing_mfcc is the cell
-              mfcc_b256_10s (256 waveforms of 10 s in one launch)
+              mfcc_b256_10s (256 waveforms of 10 s in one launch);
+              timing_lane times #15-#22 at em_diag (#15 also at diag10) and
+              one E-step through e_step_fused, e_step_lane_major("pallas")
+              and e_step_fused_lane, with torch.profiler's idle share
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 card's name and power limit as nvidia-smi reports them.
@@ -707,7 +731,7 @@ def phase_train(torch, name, cov, S, M, D, t_range, tmp: Path, B=2048) -> dict:
         "load_s": t_load, "lbg_init_s": t_init, "train_fast_wall_s": wall,
     }
     emit(out)
-    return {"res": out, "model": model, "batch": batch, "launches": launches}
+    return {"res": out, "model": model, "trained": trained, "batch": batch, "launches": launches}
 
 
 def phase_train_cli(torch, tmp: Path) -> None:
@@ -2227,6 +2251,473 @@ def phase_timing_mfcc(torch, smi: str) -> dict:
     return {**res, "max_abs_err": check["max_abs_err"]}
 
 
+# ---------------------------------------------------------------------------
+# the lattice, Viterbi and fused-emission kernels (csrc/lattice.cu,
+# csrc/emission_em.cu; TPU kernels #15-#22)
+# ---------------------------------------------------------------------------
+
+LATTICE_SRC = "srhmm_tpu_torch/csrc/lattice.cu"
+EMISSION_SRC = "srhmm_tpu_torch/csrc/emission_em.cu"
+LANE_ROWS = [  # (wrapper, its module under ops/kernels, the TPU kernel it replaces, source)
+    ("log_forward_batch", "forward", "srhmm_tpu/ops/pallas/forward_pallas.py:70", LATTICE_SRC),
+    ("viterbi_batch", "forward", "srhmm_tpu/ops/pallas/forward_pallas.py:137", LATTICE_SRC),
+    ("forward_lattice", "lattice", "srhmm_tpu/ops/pallas/lattice_pallas.py:102", LATTICE_SRC),
+    ("backward_lattice", "lattice", "srhmm_tpu/ops/pallas/lattice_pallas.py:134", LATTICE_SRC),
+    ("backward_lattice_blocked", "lattice", "srhmm_tpu/ops/pallas/lattice_pallas.py:253", LATTICE_SRC),
+    ("forward_lattice_blocked", "lattice", "srhmm_tpu/ops/pallas/lattice_pallas.py:302", LATTICE_SRC),
+    ("emission_log_b", "emission", "srhmm_tpu/ops/pallas/emission_pallas.py:72", EMISSION_SRC),
+    ("emission_stats", "emission", "srhmm_tpu/ops/pallas/emission_pallas.py:142", EMISSION_SRC),
+]
+LANE_KERNEL_NAMES = ("lattice_forward_kernel", "lattice_backward_kernel", "viterbi_kernel",
+                     "emission_log_b_kernel", "emission_stats_kernel", "sum_blocks_kernel")
+
+
+def lane_wrapper(name: str):
+    import importlib
+
+    module = next(m for n, m, _, _ in LANE_ROWS if n == name)
+    return getattr(importlib.import_module(f"srhmm_tpu_torch.ops.kernels.{module}"), name)
+
+
+def lane_counts() -> dict:
+    return {name: lane_wrapper(name).launches for name, *_ in LANE_ROWS}
+
+
+def set_lane_counts(counts: dict) -> None:
+    for name, n in counts.items():
+        lane_wrapper(name).launches = n
+
+
+def lattice_trans(rng, S: int, kind: str) -> np.ndarray:
+    """(S, S) float32 log transitions, -inf off the band: left-right with
+    delta 1 or 2, or dense."""
+    if kind == "dense":
+        t = rng.uniform(0.1, 1.0, size=(S, S))
+    else:
+        band = {"delta1": 1, "delta2": 2}[kind]
+        t = np.zeros((S, S))
+        for i in range(S):
+            t[i, i : i + band + 1] = rng.uniform(0.2, 1.0, size=min(band + 1, S - i))
+    t /= t.sum(-1, keepdims=True)
+    with np.errstate(divide="ignore"):
+        return np.log(t).astype(np.float32)
+
+
+def compare_clamped(k, p, what: str) -> dict:
+    """compare_lattice, and the -1e30 floor: the entries at or below
+    NEG_INF/2 (outside compare_lattice's mask) equal bit for bit.  Kernel
+    and twin put a carry on the floor by the same single operations, so a
+    kernel that lets a carry fall through the floor shows only here."""
+    below = p <= NEG_INF / 2
+    if not k[below].equal(p[below]):
+        raise AssertionError(f"{what}: entries on the -1e30 floor differ between kernel and twin")
+    return compare_lattice(k, p, what)
+
+
+def pointer_mismatch(k, p, what: str) -> float:
+    """Share of backpointers that differ; raises above POINTER_BOUND."""
+    share = float((k != p).float().mean())
+    if not share <= POINTER_BOUND:
+        raise AssertionError(f"{what}: {share} of the backpointers differ (> {POINTER_BOUND})")
+    return share
+
+
+def phase_kernel_lattice(torch) -> dict:
+    """#15-#20 vs their twins on the same CUDA tensors: S in 3, 6, 8, 16, 64
+    (the largest the kernels take) x delta 1, delta 2, dense transitions;
+    B=37, T=95 with a zero-length and a length-1 row, seven -inf entries
+    of log b and one state made impossible from frame 5; the blocked wrappers at k_block 1, 5, 19 (bitwise the
+    unblocked kernels); #15 with shared and per-row transitions; #16 with
+    equal backpointers, and a configuration of two duplicated states whose
+    candidates tie exactly.  Lattices and scores within BOUND with equal
+    masks and equal entries on the floor (compare_clamped); two launches
+    bitwise equal.  Returns the worst absolute error
+    per wrapper."""
+    from srhmm_tpu_torch.ops.kernels import forward as kf
+    from srhmm_tpu_torch.ops.kernels import lattice as kl
+
+    saved = lane_counts()
+    worst = {name: 0.0 for name, *_ in LANE_ROWS[:6]}
+    rng = np.random.default_rng(2027)
+    lens = [int(n) for n in rng.integers(2, 95, size=34)] + [95, 0, 1]
+    T, B = max(lens), len(lens)
+    lengths = torch.as_tensor(lens, dtype=torch.int32, device="cuda")
+    cuda = lambda x: torch.as_tensor(x, device="cuda")
+    for S in (3, 6, 8, 16, 64):
+        for kind in ("delta1", "delta2", "dense"):
+            lb_np = (rng.normal(size=(T, S, B)) * 2).astype(np.float32)
+            lb_np[rng.integers(0, T, 7), rng.integers(0, S, 7), rng.integers(0, B, 7)] = -np.inf
+            # state 0 of the full-length row impossible from frame 5: its
+            # carry sits on the -1e30 floor while log b is -inf, the one
+            # input where a carry without the floor would fall to -inf
+            lb_np[5:, 0, lens.index(T)] = -np.inf
+            lb, lt = cuda(lb_np), cuda(lattice_trans(rng, S, kind))
+            res = {}
+            for name, fn, plain in (("forward_lattice", kl.forward_lattice, kl.forward_lattice_plain),
+                                    ("backward_lattice", kl.backward_lattice, kl.backward_lattice_plain)):
+                k, k2, p = fn(lb, lt, lengths), fn(lb, lt, lengths), plain(lb, lt, lengths)
+                blocked = getattr(kl, f"{name}_blocked")
+                for kb in (1, 5, 19):
+                    if not torch.equal(blocked(lb, lt, lengths, k_block=kb), k):
+                        raise AssertionError(f"{name}_blocked k_block={kb} S={S} {kind}: differs from {name}")
+                if not torch.equal(k, k2):
+                    raise AssertionError(f"{name} S={S} {kind}: two launches differ")
+                res[name] = compare_clamped(k, p, f"{name} S={S} {kind}")
+                res[f"{name}_blocked"] = res[name]
+            lb_bts = lb.permute(2, 0, 1).contiguous()
+            rows = cuda(np.stack([lattice_trans(rng, S, ("delta1", "delta2", "dense")[b % 3]) for b in range(B)]))
+            for tag, trans in (("shared", lt), ("per_row", rows)):
+                k, k2 = kf.log_forward_batch(lb_bts, trans, lengths), kf.log_forward_batch(lb_bts, trans, lengths)
+                if not torch.equal(k, k2):
+                    raise AssertionError(f"log_forward_batch {tag} S={S} {kind}: two launches differ")
+                r = compare_clamped(k, kf.log_forward_batch_plain(lb_bts, trans, lengths),
+                                    f"log_forward_batch {tag} S={S} {kind}")
+                res["log_forward_batch"] = max(res.get("log_forward_batch", r), r, key=lambda x: x["max_abs_err"])
+            sc, bp = kf.viterbi_batch(lb_bts, lt, lengths)
+            sc2, bp2 = kf.viterbi_batch(lb_bts, lt, lengths)
+            sc_p, bp_p = kf.viterbi_batch_plain(lb_bts, lt, lengths)
+            torch.cuda.synchronize()
+            if not (torch.equal(sc, sc2) and torch.equal(bp, bp2)):
+                raise AssertionError(f"viterbi_batch S={S} {kind}: two launches differ")
+            if not torch.equal(bp, bp_p):
+                raise AssertionError(f"viterbi_batch S={S} {kind}: backpointers differ from the twin")
+            res["viterbi_batch"] = compare_clamped(sc, sc_p, f"viterbi_batch S={S} {kind}")
+            for name, r in res.items():
+                worst[name] = max(worst[name], r["max_abs_err"])
+            emit({"phase": "kernel_lattice", "S": S, "trans": kind, "B": B, "T": T, "bitwise_repeat": True,
+                  "bptr_equal": True, **{k: v["rel_err"] for k, v in res.items()}})
+    # duplicated states 2 and 3: every candidate from them ties exactly
+    S = 6
+    p = rng.uniform(0.1, 1.0, size=(S, S))
+    p[3, :] = p[2, :]
+    p[:, 3] = p[:, 2]
+    lt = cuda(np.log(p / p.sum(-1, keepdims=True)).astype(np.float32))
+    lb = cuda((rng.normal(size=(B, T, S)) * 2).astype(np.float32))
+    lb[..., 3] = lb[..., 2]
+    sc, bp = kf.viterbi_batch(lb, lt, lengths)
+    sc_p, bp_p = kf.viterbi_batch_plain(lb, lt, lengths)
+    torch.cuda.synchronize()
+    live = torch.arange(T, device="cuda")[None, :] < lengths[:, None].long()
+    live[:, 0] = False  # row 0 and rows past a length are the identity
+    if not torch.equal(bp, bp_p) or bool((bp[live] == 3).any()):
+        raise AssertionError("viterbi_batch tie: backpointers differ from the twin or take the higher source")
+    r = compare_lattice(sc, sc_p, "viterbi_batch tie")
+    worst["viterbi_batch"] = max(worst["viterbi_batch"], r["max_abs_err"])
+    emit({"phase": "kernel_lattice", "config": "viterbi_tie_S6", "bptr_equal": True,
+          "ties_to_lowest": True, "viterbi_batch": r["rel_err"]})
+    set_lane_counts(saved)  # comparison launches
+    return worst
+
+
+def emission_stream(torch, seed, S, M, D, zero_weight=True):
+    """A random diagonal GmmStream (float32, cuda) with one zero-weight
+    mixture."""
+    from srhmm_tpu_torch.models import gmm_hmm_from_numpy
+
+    rng = np.random.default_rng(seed)
+    st = rand_stream(rng, S, M, D, "diag")
+    if zero_weight:
+        st["weights"][1, 0] = 0.0
+    return gmm_hmm_from_numpy(left_right_trans(S, 2.0), [st]).astype(torch.float32).to("cuda").streams[0]
+
+
+def phase_kernel_emission(torch) -> dict:
+    """#21 / #22 vs their twins: D in 3, 9, 13, 39 x M in 1, 3, 16, S=8,
+    N=4133 frames (off every tile: 128 a chunk, 2048 a block), a
+    zero-weight mixture, 40 log b rows at -inf for the moments: log b
+    within BOUND, each moment block within STAT_BOUND (kernel and twin
+    each reading the log b of its own emission), two launches bitwise
+    equal.  Returns the worst absolute error per wrapper."""
+    from srhmm_tpu_torch.ops.kernels import emission as ke
+
+    saved = lane_counts()
+    worst = {"emission_log_b": 0.0, "emission_stats": 0.0}
+    rng = np.random.default_rng(2028)
+    S, N = 8, 4133
+    for D in (3, 9, 13, 39):
+        for M in (1, 3, 16):
+            stream = emission_stream(torch, 100 * D + M, S, M, D)
+            frames = torch.as_tensor(rng.normal(size=(N, D)) * 3, dtype=torch.float32, device="cuda")
+            gamma = torch.as_tensor(rng.uniform(size=(N, S)), dtype=torch.float32, device="cuda")
+            a, b = ke.pack_constants(stream)
+            lb, lb2 = ke.emission_log_b(frames, a, b), ke.emission_log_b(frames, a, b)
+            lb_p = ke.emission_log_b_plain(frames, a, b)
+            r_lb = compare_lattice(lb, lb_p, f"emission_log_b D={D} M={M}")
+            # each moments call reads the log b of its own emission, as in
+            # the E-step: exp(min(q_m - log b, 0)) cancels two fp32 values of
+            # size |q| (~400 at D=39), so a log b summed in another order
+            # biases every posterior by a few ulps of |q| (1.6e-4 of the
+            # moments' scale at D=39, M=1 on the H100)
+            lb, lb_p = lb.clone(), lb_p.clone()
+            lb[1000:1040] = lb_p[1000:1040] = -torch.inf
+            st, st2 = ke.emission_stats(frames, gamma, lb, a, b), ke.emission_stats(frames, gamma, lb, a, b)
+            st_p = ke.emission_stats_plain(frames, gamma, lb_p, a, b)
+            torch.cuda.synchronize()
+            if not (torch.equal(lb2, ke.emission_log_b(frames, a, b)) and torch.equal(st, st2)):
+                raise AssertionError(f"emission D={D} M={M}: two launches differ")
+            parts = {part: compare_stat(st[..., sl], st_p[..., sl], f"emission_stats D={D} M={M} {part}")
+                     for part, sl in (("x", slice(0, D)), ("xx", slice(D, 2 * D)), ("w", slice(2 * D, None)))}
+            worst["emission_log_b"] = max(worst["emission_log_b"], r_lb["max_abs_err"])
+            worst["emission_stats"] = max(worst["emission_stats"], *(v["max_abs_err"] for v in parts.values()))
+            emit({"phase": "kernel_emission", "D": D, "M": M, "S": S, "N": N, "bitwise_repeat": True,
+                  "log_b": r_lb["rel_err"], **{f"mom_{k}": v["rel_err"] for k, v in parts.items()}})
+    set_lane_counts(saved)  # comparison launches
+    return worst
+
+
+def stat_fields(st) -> dict:
+    s0 = st.streams[0]
+    return {"num_trans": st.num_trans, "den_trans": st.den_trans, "den_mix": st.den_mix,
+            "w": s0.w, "x": s0.x, "xx": s0.xx}
+
+
+def vocab_rows(torch, vocab, batch):
+    """The (utterance, word) rows of vocabulary scoring for
+    log_forward_batch's per-row form: log b (B*W, T, S) through the
+    emission kernel (#21) word by word, per-row log transitions
+    (B*W, S, S) and lengths (B*W,), rows ordered (utterance, word)."""
+    from srhmm_tpu_torch.models import GmmStream
+    from srhmm_tpu_torch.ops.kernels import emission as ke
+
+    B, T, D = batch.features.shape
+    W, S = len(vocab.word), vocab.num_states
+    s = vocab.streams[0]
+    flat = batch.features.reshape(B * T, D)
+    per_word = []
+    for w in range(W):
+        sw = GmmStream(weights=s.weights[w], means=s.means[w], inv_cov=s.inv_cov[w], det=s.det[w],
+                       cov_type=s.cov_type, log_det=s.log_det[w])
+        per_word.append(ke.emission_log_b(flat, *ke.pack_constants(sw)).reshape(B, T, S))
+    log_b = torch.stack(per_word, dim=1).reshape(B * W, T, S)
+    lt = vocab.log_trans().to(torch.float32)[None].expand(B, W, S, S).reshape(B * W, S, S).contiguous()
+    return log_b, lt, batch.lengths.repeat_interleave(W)
+
+
+def readout_vs_vocab_scores(torch, la_final, vocab, batch, what: str) -> dict:
+    """log_forward_batch's final-state and total readouts against the
+    vocab_scores kernel's (#1) scores for the same pairs: max |a - b| /
+    max(|b|, 1) <= 1e-4 over finite scores."""
+    from srhmm_tpu_torch.ops.kernels.scoring import score_batch_fused
+
+    B, W = batch.batch_size, len(vocab.word)
+    out = {}
+    for mode, ours in (("final", la_final[:, -1]), ("total", torch.logsumexp(la_final, dim=-1))):
+        ref = score_batch_fused(vocab, batch, mode=mode).double().cpu().numpy()
+        got = ours.reshape(B, W).double().cpu().numpy()
+        fin = np.isfinite(ref) & (ref > NEG_INF / 2)
+        if not ((got > NEG_INF / 2) == fin).all():
+            raise AssertionError(f"{what} {mode}: finite masks differ from vocab_scores")
+        rel = float(np.max(np.abs(got[fin] - ref[fin]) / np.maximum(np.abs(ref[fin]), 1.0)))
+        if not rel <= 1e-4:
+            raise AssertionError(f"{what} {mode}: log_forward_batch vs vocab_scores {rel} > 1e-4")
+        out[mode] = rel
+    return out
+
+
+def phase_lane_em(torch, train_diag: dict, main_diag: dict) -> dict:
+    """The slice at full width: em_diag (B=2048, T=500, S=8, M=3, D=9) from
+    the model phase_train trained.  e_step_fused (#21, #22) and
+    e_step_lane_major(lattices="pallas") (#20, #19) statistics vs the plain
+    e_step within STAT_BOUND; the lattice kernels (#17, #18; bitwise the
+    blocked ones) vs the plain (T, S, B) scans within BOUND; 3 EM
+    iterations through e_step_fused + m_step vs through e_step (histories
+    rtol 2e-4); #15 at em_diag (shared transitions) and at diag10 (W=10
+    words x B=2048 utterances = 20,480 rows, per-row transitions) vs its
+    twin, its readouts vs the vocab_scores kernel (#1) within 1e-4; #16 at
+    em_diag vs its twin (scores within BOUND, backpointer mismatches <=
+    POINTER_BOUND).  Launches are counted over the phase: each of the eight
+    kernels must run."""
+    from srhmm_tpu_torch.models import stack_models
+    from srhmm_tpu_torch.ops.kernels import emission as ke
+    from srhmm_tpu_torch.ops.kernels import forward as kf
+    from srhmm_tpu_torch.ops.kernels import lattice as kl
+    from srhmm_tpu_torch.train import em
+
+    model, batch = train_diag["trained"], train_diag["batch"]
+    B, T, D = batch.features.shape
+    S, lengths = model.num_states, batch.lengths
+    set_lane_counts({name: 0 for name, *_ in LANE_ROWS})
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st_f = em.e_step_fused(model, batch)
+    st_l = em.e_step_lane_major(model, batch, lattices="pallas")
+    st_p = em.e_step(model, batch)
+    worst = {name: 0.0 for name, *_ in LANE_ROWS}
+    res = {}
+    for tag, st in (("e_step_fused", st_f), ("e_step_lane_major", st_l)):
+        ours, ref = stat_fields(st), stat_fields(st_p)
+        res[tag] = {k: compare_stat(ours[k], ref[k], f"{tag} {k}")["rel_err"] for k in ours}
+        lp_rel = abs(float(st.log_prob) - float(st_p.log_prob)) / abs(float(st_p.log_prob))
+        if not lp_rel <= 1e-5 or float(st.num_valid) != float(st_p.num_valid):
+            raise AssertionError(f"{tag}: log prob {float(st.log_prob)} vs {float(st_p.log_prob)}")
+        res[tag]["log_prob"] = lp_rel
+    # the lattice kernels on the em_diag emissions vs the plain scans
+    a, bias = ke.pack_constants(model.streams[0])
+    log_b = ke.emission_log_b(batch.features.reshape(B * T, D), a, bias).reshape(B, T, S)
+    lb_tsb = log_b.permute(1, 2, 0).contiguous()
+    lt = model.log_trans().to(torch.float32)
+    la, lbw = kl.forward_lattice(lb_tsb, lt, lengths), kl.backward_lattice(lb_tsb, lt, lengths)
+    k_block = next(k for k in (16, 8, 4, 2, 1) if T % k == 0)
+    if not (torch.equal(la, kl.forward_lattice_blocked(lb_tsb, lt, lengths, k_block=k_block))
+            and torch.equal(lbw, kl.backward_lattice_blocked(lb_tsb, lt, lengths, k_block=k_block))):
+        raise AssertionError("lane_em: the blocked lattices differ from the unblocked")
+    for name, got, scan in (("forward_lattice", la, em._log_forward_lattice_tb(lb_tsb, lt, lengths)),
+                            ("backward_lattice", lbw, em._log_backward_lattice_tb(lb_tsb, lt, lengths))):
+        r = compare_lattice(got, scan, f"lane_em {name} vs scan")
+        res[f"{name}_vs_scan"] = r["rel_err"]
+        worst[name] = worst[f"{name}_blocked"] = r["max_abs_err"]
+    # three EM iterations through e_step_fused vs through e_step
+    m_f = m_p = model
+    hist_f, hist_p = [], []
+    for _ in range(3):
+        sf, sp = em.e_step_fused(m_f, batch), em.e_step(m_p, batch)
+        hist_f.append(float(sf.log_prob))
+        hist_p.append(float(sp.log_prob))
+        m_f, m_p = em.m_step(m_f, sf), em.m_step(m_p, sp)
+    hist_rel = float(np.max(np.abs(np.subtract(hist_f, hist_p)) / np.abs(hist_p)))
+    if not hist_rel <= 2e-4:
+        raise AssertionError(f"lane_em: EM histories {hist_f} vs {hist_p}")
+    # #15 at em_diag (shared) and diag10 (per row), #16 at em_diag
+    lf = kf.log_forward_batch(log_b, lt, lengths)
+    r15 = compare_lattice(lf, kf.log_forward_batch_plain(log_b, lt, lengths), "log_forward_batch em_diag")
+    x15 = readout_vs_vocab_scores(torch, lf, stack_models([model]), batch, "log_forward_batch em_diag")
+    vocab, vb = main_diag["vocab"], main_diag["batch"]
+    rows_lb, rows_lt, rows_len = vocab_rows(torch, vocab, vb)
+    lf10 = kf.log_forward_batch(rows_lb, rows_lt, rows_len)
+    r15_10 = compare_lattice(lf10, kf.log_forward_batch_plain(rows_lb, rows_lt, rows_len), "log_forward_batch diag10")
+    x15_10 = readout_vs_vocab_scores(torch, lf10, vocab, vb, "log_forward_batch diag10")
+    sc, bp = kf.viterbi_batch(log_b, lt, lengths)
+    sc_p, bp_p = kf.viterbi_batch_plain(log_b, lt, lengths)
+    r16 = compare_lattice(sc, sc_p, "viterbi_batch em_diag")
+    mismatch = pointer_mismatch(bp, bp_p, "viterbi_batch em_diag")
+    path_diff = int((kf.backtrace(bp, lengths, S - 1) != kf.backtrace(bp_p, lengths, S - 1)).sum())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = lane_counts()
+    for name, n in launches.items():
+        if n < 1:
+            raise AssertionError(f"the lane_em main path launched {name} 0 times")
+    worst["log_forward_batch"] = max(r15["max_abs_err"], r15_10["max_abs_err"])
+    worst["viterbi_batch"] = r16["max_abs_err"]
+    gamma = (torch.exp(torch.clamp(la + lbw - torch.where(lengths > 0, la[-1, -1], 0.0), max=0.0))
+             * (torch.arange(T, device="cuda")[:, None] < lengths[None, :])[:, None, :])
+    gamma = gamma.permute(2, 0, 1).reshape(B * T, S).contiguous()
+    out = {"phase": "lane_em", "config": "em_diag_S8_M3_D9", "B": B, "T": T, "k_block": k_block,
+           "vs_e_step": res, "em3_history_fused": hist_f, "em3_history_plain": hist_p,
+           "em3_history_rel": hist_rel, "log_forward_batch_em_diag": r15["rel_err"],
+           "log_forward_batch_em_diag_vs_vocab_scores": x15, "log_forward_batch_diag10_rows": int(rows_lb.shape[0]),
+           "log_forward_batch_diag10": r15_10["rel_err"], "log_forward_batch_diag10_vs_vocab_scores": x15_10,
+           "viterbi_batch": r16["rel_err"], "viterbi_bptr_mismatch_share": mismatch,
+           "viterbi_path_positions_differing": path_diff, "launches": launches, "wall_s": wall}
+    emit(out)
+    return {"launches": launches, "worst": worst, "model": model, "batch": batch, "log_b": log_b,
+            "lb_tsb": lb_tsb, "lt": lt, "a": a, "bias": bias, "gamma": gamma, "rows": (rows_lb, rows_lt, rows_len)}
+
+
+def lane_bounds(lane: dict) -> dict:
+    """The bound of each #15-#22 call timed at em_diag (see bound()):
+    inputs read once, outputs written once; operations of the frames the
+    recursions step (a logsumexp candidate ~5 operations, a max-plus one
+    3) and of every frame for the emission and moments."""
+    log_b, lt, lengths, a = lane["log_b"], lane["lt"], lane["batch"].lengths, lane["a"]
+    B, T, S = log_b.shape
+    M, D = a.shape[0], a.shape[1] // 2
+    N = B * T
+    stepped = valid_frames(lengths.tolist(), T)
+    lat = 4 * T * S * B
+    small = numel_bytes(lt, lengths)
+    consts = numel_bytes(lane["a"], lane["bias"])
+    rows_lb, rows_lt, rows_len = lane["rows"]
+    R, T10, S10 = rows_lb.shape
+    em_ops = mixture_ops(D, M, False)
+    return {
+        "log_forward_batch": bound(lat + small + 4 * B * S, stepped * S * (5 * S + 4)),
+        "log_forward_batch_diag10": bound(numel_bytes(rows_lb, rows_lt, rows_len) + 4 * R * S10,
+                                          valid_frames(rows_len.tolist(), T10) * S10 * (5 * S10 + 4)),
+        "viterbi_batch": bound(2 * lat + small + 4 * B * S, stepped * S * (3 * S + 2)),
+        "forward_lattice": bound(2 * lat + small, stepped * S * (5 * S + 4)),
+        "backward_lattice": bound(2 * lat + small, stepped * S * (5 * S + 4)),
+        "emission_log_b": bound(4 * N * D + consts + 4 * N * S, N * S * em_ops),
+        "emission_stats": bound(4 * N * (D + 2 * S) + consts + 4 * S * M * (2 * D + 1),
+                                N * S * (em_ops + M * (2 * (2 * D + 1) + 4))),
+    }
+
+
+def phase_timing_lane(torch, lane: dict, smi: str) -> dict:
+    """Each of #15-#22 and its twin at em_diag (#15 also per row at diag10):
+    CUDA events, kernels median of 20, twins median of 3, in the order twin,
+    kernel, kernel, twin; each bound from its inputs.  Then one E-step at
+    em_diag through e_step_fused, e_step_lane_major(lattices="pallas") and
+    e_step_fused_lane (#2-#5, the yardstick), each on the host clock
+    (median of 3 after a warm-up) and once under torch.profiler (device
+    busy and idle shares)."""
+    from srhmm_tpu_torch.ops.kernels import emission as ke
+    from srhmm_tpu_torch.ops.kernels import forward as kf
+    from srhmm_tpu_torch.ops.kernels import lattice as kl
+    from srhmm_tpu_torch.ops.kernels.common import trans_band
+    from srhmm_tpu_torch.train import em
+
+    saved = lane_counts()
+    model, batch = lane["model"], lane["batch"]
+    log_b, lb_tsb, lt, a, bias = lane["log_b"], lane["lb_tsb"], lane["lt"], lane["a"], lane["bias"]
+    lengths = batch.lengths
+    B, T, D = batch.features.shape
+    frames = batch.features.reshape(B * T, D)
+    lb_flat = log_b.reshape(B * T, -1)
+    rows = lane["rows"]
+    calls = {
+        "log_forward_batch": (kf.log_forward_batch_plain, kf.log_forward_batch, (log_b, lt, lengths)),
+        "log_forward_batch_diag10": (kf.log_forward_batch_plain, kf.log_forward_batch, rows),
+        "viterbi_batch": (kf.viterbi_batch_plain, kf.viterbi_batch, (log_b, lt, lengths)),
+        "forward_lattice": (kl.forward_lattice_plain, kl.forward_lattice, (lb_tsb, lt, lengths)),
+        "backward_lattice": (kl.backward_lattice_plain, kl.backward_lattice, (lb_tsb, lt, lengths)),
+        "forward_lattice_blocked": (kl.forward_lattice_plain, lambda *x: kl.forward_lattice_blocked(*x, k_block=4),
+                                    (lb_tsb, lt, lengths)),
+        "backward_lattice_blocked": (kl.backward_lattice_plain, lambda *x: kl.backward_lattice_blocked(*x, k_block=4),
+                                     (lb_tsb, lt, lengths)),
+        "emission_log_b": (ke.emission_log_b_plain, ke.emission_log_b, (frames, a, bias)),
+        "emission_stats": (ke.emission_stats_plain, ke.emission_stats, (frames, lane["gamma"], lb_flat, a, bias)),
+    }
+    bnd = lane_bounds(lane)
+    bnd["forward_lattice_blocked"], bnd["backward_lattice_blocked"] = bnd["forward_lattice"], bnd["backward_lattice"]
+    out = {}
+    for name, (plain, kernel, args) in calls.items():
+        plain_a = median_ms(torch, lambda: plain(*args), warmup=1, reps=3)
+        kern_a, kern_b = median_ms(torch, lambda: kernel(*args)), median_ms(torch, lambda: kernel(*args))
+        plain_b = median_ms(torch, lambda: plain(*args), warmup=1, reps=3)
+        ms = min(kern_a, kern_b)
+        out[name] = {"kernel_ms": [kern_a, kern_b], "plain_ms": [plain_a, plain_b], "ms": ms,
+                     "best_plain_ms": min(plain_a, plain_b), **bnd[name], "share_of_bound": bnd[name]["bound_ms"] / ms}
+    band = trans_band(model.trans.cpu().numpy())
+    feats_tdb = batch.features.permute(1, 2, 0).contiguous()
+    steps = {
+        "e_step_fused": lambda: em.e_step_fused(model, batch),
+        "e_step_lane_major_pallas": lambda: em.e_step_lane_major(model, batch, lattices="pallas"),
+        "e_step_fused_lane": lambda: em.e_step_fused_lane(model, batch, feats_tdb, band),
+    }
+    e_steps = {}
+    for name, fn in steps.items():
+        fn()
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        e_steps[name] = {"wall_ms": float(np.median(walls)), "walls_ms": walls,
+                         "profile": profile_window(torch, fn, kernel_keys=LANE_KERNEL_NAMES + (
+                             "emit_forward_kernel", "backward_stats_kernel"))}
+    set_lane_counts(saved)  # timing launches are not main-path launches
+    audio_s = int(lengths.sum()) * FRAME_S
+    res = {"phase": "timing_lane", "config": "em_diag_S8_M3_D9", "B": B, "T": T, "kernel_reps": 20, "plain_reps": 3,
+           "kernels": out, "e_step": e_steps,
+           "e_step_audio_s_per_s": {k: audio_s / (v["wall_ms"] / 1e3) for k, v in e_steps.items()},
+           "audio_s": audio_s, "card": smi}
+    emit(res)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2239,6 +2730,8 @@ def main() -> int:
     worst_dec = phase_kernel_decode(torch)
     worst_comp = phase_kernel_composed(torch)
     worst_mfcc = phase_kernel_mfcc(torch)
+    worst_lat = phase_kernel_lattice(torch)
+    worst_lat.update(phase_kernel_emission(torch))
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     try:
         full_words = rand_words(11, 13, 6, [(1, 9)], "full", dur=450 / 6)
@@ -2268,6 +2761,9 @@ def main() -> int:
         # the pipeline phase (phase_pipeline)
         worst_mfcc = max(worst_mfcc, phase_features_cli(torch, tmp))
         pipe = phase_pipeline(torch)
+        # the lattice / Viterbi / fused-emission path at em_diag and diag10;
+        # launches counted over the phase (phase_lane_em)
+        lane = phase_lane_em(torch, train_diag, main_diag)
         t_full = phase_timing(torch, main_full, info["nvidia_smi"])
         phase_timing(torch, main_diag, info["nvidia_smi"])
         em_diag = phase_timing_em(torch, train_diag, info["nvidia_smi"])
@@ -2276,6 +2772,7 @@ def main() -> int:
         t_dec = phase_timing_decode(torch, dec, info["nvidia_smi"])
         t_comp = phase_timing_composed(torch, emb, tied, info["nvidia_smi"])
         t_mfcc = phase_timing_mfcc(torch, info["nvidia_smi"])
+        t_lane = phase_timing_lane(torch, lane, info["nvidia_smi"])
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     fused_src = "srhmm_tpu_torch/csrc/fused_em.cu"
@@ -2379,6 +2876,24 @@ def main() -> int:
             **{k: t_mfcc[k] for k in bkeys},
             "library_ms": None,
         },
+    ] + [
+        {
+            "name": name,
+            "route": "cuda",
+            "source": src,
+            "replaces": where,
+            "launches": lane["launches"][name],
+            "max_abs_err": max(worst_lat[name], lane["worst"][name]),
+            "ms": t_lane[name]["ms"],
+            "plain_ms": t_lane[name]["best_plain_ms"],
+            **{k: t_lane[name][k] for k in bkeys},
+            "library_ms": None,
+            # #15 with per-row transitions at diag10 (20,480 rows)
+            **({f"{k}_diag10": t_lane["log_forward_batch_diag10"][v] for k, v in
+                (("ms", "ms"), ("plain_ms", "best_plain_ms"), ("bound_ms", "bound_ms"), ("bound_by", "bound_by"))}
+               if name == "log_forward_batch" else {}),
+        }
+        for name, _, where, src in LANE_ROWS
     ]})
     print(info["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -32,6 +32,11 @@ Optional leading flags:
     --checkpoint-dir D, --stream-shards N
                       not ported yet: the CLI exits with an error
 
+With --numerics fast the CLI writes the JAX CLI's two JSONL events to
+stderr (utils/logging.py EventLog): {"event": "train_fast", "seconds",
+"word"} around the EM run and {"event": "converged", "iterations",
+"mean_log_prob"} after it.
+
 The reference's warm-start bug (argv[argc] off-by-one, T1:204, which made the
 documented initial_model argument unusable) is fixed, not replicated.
 """
@@ -161,33 +166,37 @@ def main(argv: list[str] | None = None) -> int:
     if ns.numerics == "fast":
         from ..train.em import _fused_setup, em_train_scan, train_fast
         from ..train.em_parity import TrainResult
+        from ..utils import EventLog
 
+        log = EventLog()
         batch = batches[0] if len(batches) == 1 else batches
         if cmvn_stats is not None:
             # the initial model is in raw feature space; map it into the
             # normalized space of the batch (the inverse affine)
             model = denormalize_model(model, [(-m / s, 1.0 / s) for (m, s) in cmvn_stats])
         fast_model = model.astype(torch.float32).to(device)
-        if ns.scan_iters:
-            use_fused, feats_tdb, band = _fused_setup(fast_model, batch)
-            final, lps, nvs = em_train_scan(
-                fast_model, batch, ns.scan_iters, feats_tdb, fused=use_fused, band=band,
-                abs_floors=cmvn_abs_floors, zero_det_thresholds=cmvn_zd,
-            )
-            lps_h = lps.cpu().numpy().astype(np.float64) + cmvn_offset
-            nv = int(nvs.cpu().numpy()[-1])
-            res = TrainResult(
-                model=final,
-                iterations=ns.scan_iters,
-                mean_log_prob=float(lps_h[-1]) / max(nv, 1),
-                exemplar_count=nv,
-                log_prob_history=[float(x) for x in lps_h],
-            )
-        else:
-            res = train_fast(
-                fast_model, batch, threshold=ns.threshold, log_prob_offset=cmvn_offset,
-                abs_floors=cmvn_abs_floors, zero_det_thresholds=cmvn_zd,
-            )
+        with log.span("train_fast", word=word):
+            if ns.scan_iters:
+                use_fused, feats_tdb, band = _fused_setup(fast_model, batch)
+                final, lps, nvs = em_train_scan(
+                    fast_model, batch, ns.scan_iters, feats_tdb, fused=use_fused, band=band,
+                    abs_floors=cmvn_abs_floors, zero_det_thresholds=cmvn_zd,
+                )
+                lps_h = lps.cpu().numpy().astype(np.float64) + cmvn_offset
+                nv = int(nvs.cpu().numpy()[-1])
+                res = TrainResult(
+                    model=final,
+                    iterations=ns.scan_iters,
+                    mean_log_prob=float(lps_h[-1]) / max(nv, 1),
+                    exemplar_count=nv,
+                    log_prob_history=[float(x) for x in lps_h],
+                )
+            else:
+                res = train_fast(
+                    fast_model, batch, threshold=ns.threshold, log_prob_offset=cmvn_offset,
+                    abs_floors=cmvn_abs_floors, zero_det_thresholds=cmvn_zd,
+                )
+        log.emit("converged", iterations=res.iterations, mean_log_prob=res.mean_log_prob)
         if cmvn_stats is not None:
             # back to raw feature space (exact inverse affine); reported
             # probabilities already carry the Jacobian offset

@@ -17,6 +17,8 @@ from .forward_backward import (
     score_final_state,
     score_total,
 )
+from .kernels.emission import log_state_emission_fused
+from .kernels.forward import backtrace, log_forward_batch
 from .viterbi import viterbi, viterbi_batch
 
 __all__ = [
@@ -37,4 +39,7 @@ __all__ = [
     "score_total",
     "viterbi",
     "viterbi_batch",
+    "backtrace",
+    "log_forward_batch",
+    "log_state_emission_fused",
 ]

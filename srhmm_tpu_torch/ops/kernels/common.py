@@ -34,6 +34,41 @@ DMAX_BOUNDS = (4, 8, 12, 16, 32, 64)  # template bounds on D compiled in the .cu
 SMEM_LIMIT = 232448  # bytes of shared memory a Hopper block may use
 
 
+def on_cpu(name: str, t: torch.Tensor) -> bool:
+    """True for a CPU tensor (a wrapper runs its plain twin), False for a
+    CUDA one (it launches its kernel); any other device raises."""
+    kind = t.device.type
+    if kind == "cpu":
+        return True
+    if kind != "cuda":
+        raise ValueError(f"{name}: no implementation for device {t.device}")
+    return False
+
+
+def device_args(dev: torch.device) -> tuple[int, int]:
+    """(device index, current stream handle) of a launch on dev."""
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    return index, torch.cuda.current_stream(dev).cuda_stream
+
+
+def check_launch(name: str, err: int) -> None:
+    """Raise if a launcher returned a CUDA error code."""
+    if err != 0:
+        from .build import load_library
+
+        msg = load_library().srhmm_cuda_error_string(err).decode()
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err} ({msg})")
+
+
+def require_float32(name: str, dev: torch.device, tensors, float_tensors) -> None:
+    """Every tensor on dev, every float tensor float32: what a CUDA kernel
+    takes."""
+    if any(t.device != dev for t in tensors):
+        raise ValueError(f"{name}: every tensor must be on the same CUDA device")
+    if any(t.dtype != torch.float32 for t in float_tensors):
+        raise ValueError(f"{name}: the CUDA kernel takes float32 tensors only")
+
+
 def dmax_for(dims, name: str) -> int:
     """The smallest compiled bound DMAX >= every feature dim; the error
     names the calling kernel."""

@@ -41,7 +41,18 @@ import functools
 import torch
 
 from ...models.gmm_hmm import DIAG, FULL
-from .common import _TINY, DMAX_BOUNDS, LOG_GAUS_CLAMP, NEG_INF, SMEM_LIMIT, dmax_for
+from .common import (
+    _TINY,
+    DMAX_BOUNDS,
+    LOG_GAUS_CLAMP,
+    NEG_INF,
+    SMEM_LIMIT,
+    check_launch,
+    device_args,
+    dmax_for,
+    on_cpu,
+    require_float32,
+)
 from .fused_em import _lse_terms, _shift_down, _shift_up
 
 MAX_STREAMS = 6
@@ -322,40 +333,13 @@ def _kernel_library() -> ctypes.CDLL:
     return lib
 
 
-def _on_cpu(name: str, t: torch.Tensor) -> bool:
-    kind = t.device.type
-    if kind == "cpu":
-        return True
-    if kind != "cuda":
-        raise ValueError(f"{name}: no implementation for device {t.device}")
-    return False
-
-
-def _device_args(dev: torch.device):
-    index = dev.index if dev.index is not None else torch.cuda.current_device()
-    return index, torch.cuda.current_stream(dev).cuda_stream
-
-
-def _check(name: str, err: int) -> None:
-    if err != 0:
-        msg = _kernel_library().srhmm_cuda_error_string(err).decode()
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err} ({msg})")
-
-
-def _require(name, dev, tensors, float_tensors):
-    if any(t.device != dev for t in tensors):
-        raise ValueError(f"{name}: every tensor must be on the features' CUDA device")
-    if any(t.dtype != torch.float32 for t in float_tensors):
-        raise ValueError(f"{name}: the CUDA kernel takes float32 tensors only")
-
-
 class _BankLaunch:
     """Checked arguments of a bank kernel (emission or moments)."""
 
     def __init__(self, name, ids, bank, feats, full, lengths=None):
         banks = _as_tuple(bank)
         dev = feats.device
-        _require(name, dev, [ids, *banks, feats] + ([lengths] if lengths is not None else []),
+        require_float32(name, dev, [ids, *banks, feats] + ([lengths] if lengths is not None else []),
                  [*banks, feats])
         if feats.dim() != 3 or ids.dim() != 2 or ids.shape[0] != feats.shape[0]:
             raise ValueError(f"{name}: ids (B, LS) and features (B, T, D) disagree on B")
@@ -405,14 +389,14 @@ def bank_emission(ids, bank, feats, full: bool = False):
     one in ``bank_emission.launches``; CPU tensors run bank_emission_plain.
     The ids are not range-checked on the host (that would wait for the
     card): on the card an id outside [0, NB) gives NaN rows."""
-    if _on_cpu("bank_emission", feats):
+    if on_cpu("bank_emission", feats):
         return bank_emission_plain(ids, bank, feats, full)
     ln = _BankLaunch("bank_emission", ids, bank, feats, full)
     ln.fit(0)
     log_b = torch.empty((ln.T, ln.LS, ln.B), dtype=torch.float32, device=ln.dev)
-    _check(ln.name, _kernel_library().srhmm_bank_emission(
+    check_launch(ln.name, _kernel_library().srhmm_bank_emission(
         *ln.head(), log_b.data_ptr(), ln.B, ln.T, ln.D, ln.LS, int(full), ln.dmax,
-        *_device_args(ln.dev)))
+        *device_args(ln.dev)))
     bank_emission.launches += 1
     return log_b
 
@@ -435,7 +419,7 @@ def _check_lattice(name, log_b, diag, lengths, extra=()):
         raise ValueError(f"{name}: diagonals (band+1, LS, B) and lengths (B,) must fit log_b (T, LS, B)")
     if not 1 <= nd <= MAX_BAND + 1:
         raise ValueError(f"{name}: 1 to {MAX_BAND + 1} diagonals, got {nd}")
-    _require(name, log_b.device, [log_b, diag, lengths, *extra], [log_b, diag, *extra])
+    require_float32(name, log_b.device, [log_b, diag, lengths, *extra], [log_b, diag, *extra])
     return T, LS, B, nd
 
 
@@ -445,16 +429,16 @@ def composed_forward(log_b, diag_col, lengths):
 
     CUDA tensors launch the hand-written kernel and count one in
     ``composed_forward.launches``; CPU tensors run composed_forward_plain."""
-    if _on_cpu("composed_forward", log_b):
+    if on_cpu("composed_forward", log_b):
         return composed_forward_plain(log_b, diag_col, lengths)
     T, LS, B, nd = _check_lattice("composed_forward", log_b, diag_col, lengths)
     log_b, diag_col = log_b.contiguous(), diag_col.contiguous()
     lens = lengths.to(torch.int32).contiguous()
     la = torch.empty_like(log_b)
     U = _lattice_block("composed_forward", LS)
-    _check("composed_forward", _kernel_library().srhmm_composed_forward(
+    check_launch("composed_forward", _kernel_library().srhmm_composed_forward(
         log_b.data_ptr(), diag_col.data_ptr(), lens.data_ptr(), la.data_ptr(),
-        T, LS, B, nd, U, *_device_args(log_b.device)))
+        T, LS, B, nd, U, *device_args(log_b.device)))
     composed_forward.launches += 1
     return la
 
@@ -470,7 +454,7 @@ def composed_backward_stats(log_b, log_alpha, diag_row, lengths, safe_z, vmask):
 
     CUDA tensors launch the hand-written kernel and count one in
     ``composed_backward_stats.launches``; CPU tensors run the twin."""
-    if _on_cpu("composed_backward_stats", log_b):
+    if on_cpu("composed_backward_stats", log_b):
         return composed_backward_stats_plain(log_b, log_alpha, diag_row, lengths, safe_z, vmask)
     name = "composed_backward_stats"
     T, LS, B, nd = _check_lattice(name, log_b, diag_row, lengths, (log_alpha, safe_z, vmask))
@@ -486,10 +470,10 @@ def composed_backward_stats(log_b, log_alpha, diag_row, lengths, safe_z, vmask):
     den_trans = torch.empty((LS, B), **f32)
     den_mix = torch.empty((LS, B), **f32)
     U = _lattice_block(name, LS)
-    _check(name, _kernel_library().srhmm_composed_backward_stats(
+    check_launch(name, _kernel_library().srhmm_composed_backward_stats(
         log_b.data_ptr(), log_alpha.data_ptr(), diag_row.data_ptr(), lens.data_ptr(),
         safe_z.data_ptr(), vmask.data_ptr(), gamma.data_ptr(), xi.data_ptr(),
-        den_trans.data_ptr(), den_mix.data_ptr(), T, LS, B, nd, U, *_device_args(log_b.device)))
+        den_trans.data_ptr(), den_mix.data_ptr(), T, LS, B, nd, U, *device_args(log_b.device)))
     composed_backward_stats.launches += 1
     return gamma, xi, den_trans, den_mix
 
@@ -501,7 +485,7 @@ def _bank_moments_cuda(name, ids, bank, feats, gamma, strides_tjb, lengths, full
     """Both passes of the moments kernel; gamma element (t, j, b) at
     t * st + j * sj + b * sb."""
     ln = _BankLaunch(name, ids, bank, feats, full, lengths)
-    _require(name, ln.dev, [gamma], [gamma])
+    require_float32(name, ln.dev, [gamma], [gamma])
     ln.fit(1)
     B, LS, NB = ln.B, ln.LS, ln.NB
     lens = lengths.to(torch.int32).contiguous()
@@ -517,11 +501,11 @@ def _bank_moments_cuda(name, ids, bank, feats, gamma, strides_tjb, lengths, full
     P = len(ln.banks)
     ptrs = ctypes.c_void_p * P
     st, sj, sb = strides_tjb
-    _check(name, _kernel_library().srhmm_bank_moments(
+    check_launch(name, _kernel_library().srhmm_bank_moments(
         *ln.head(), gamma.data_ptr(), st, sj, sb, lens.data_ptr(),
         ptrs(*[t.data_ptr() for t in mom_pos]), order.data_ptr(), offsets.data_ptr(),
         ptrs(*[t.data_ptr() for t in mom]), B, ln.T, ln.D, LS, int(full), ln.dmax,
-        *_device_args(ln.dev)))
+        *device_args(ln.dev)))
     return tuple(mom) if isinstance(bank, (tuple, list)) else mom[0]
 
 
@@ -535,7 +519,7 @@ def bank_moments_lattice(ids, bank, feats, gamma_tsb, lengths, full: bool = Fals
     row) moment rows, then their sum per bank row in the stable order of the
     ids: no atomics, two runs bitwise equal) and count one in
     ``bank_moments_lattice.launches``; CPU tensors run the twin."""
-    if _on_cpu("bank_moments_lattice", feats):
+    if on_cpu("bank_moments_lattice", feats):
         return bank_moments_lattice_plain(ids, bank, feats, gamma_tsb, lengths, full)
     T, LS, B = gamma_tsb.shape
     if (B, T) != tuple(feats.shape[:2]) or LS != ids.shape[1]:
@@ -556,7 +540,7 @@ def bank_moments(ids, bank, feats, gamma_bst, lengths, full: bool = False):
     CUDA tensors launch the same kernel with transposed gamma strides and
     count one in ``bank_moments.launches``; CPU tensors run
     bank_moments_plain."""
-    if _on_cpu("bank_moments", feats):
+    if on_cpu("bank_moments", feats):
         return bank_moments_plain(ids, bank, feats, gamma_bst, lengths, full)
     B, LS, T = gamma_bst.shape
     if (B, T) != tuple(feats.shape[:2]) or LS != ids.shape[1]:

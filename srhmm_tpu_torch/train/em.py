@@ -11,6 +11,13 @@ Two E-step implementations behind the ``em_step`` dispatcher:
   every statistic as batched tensor code over an explicit utterance axis —
   any dtype and device, the float64 reference for the tests.
 
+Two more E-steps, which ``em_step`` does not route to (nor does the JAX
+package's, whose TPU measurements superseded them by the fused kernels):
+``e_step_fused`` (one diagonal stream: emission and GMM moments through
+ops/kernels/emission.py, TPU kernels #21 / #22) and ``e_step_lane_major``
+((T, S, B) lattices; ``lattices="pallas"`` runs ops/kernels/lattice.py,
+kernels #20 / #19).
+
 ``em_train_scan`` runs N iterations as a Python loop that keeps the log
 probs on the device (no host sync inside); ``train_fast`` applies the
 reference's per-iteration convergence rule (T1:306-346) through the chunked
@@ -21,8 +28,8 @@ sum gamma x x^T) and the M-step recovers the reference's residual-about-
 PRE-update-means covariance (T1:1744-1750) through the moment identity
 sum g (x-mu0)(x-mu0)^T = XX - mu0 a^T - a mu0^T + w mu0 mu0^T.
 
-Not ported yet: the sharded variants (data- and time-parallel), the
-superseded ``e_step_fused`` / ``e_step_lane_major`` and ``bf16_stats``.
+Not ported yet: the sharded variants (data- and time-parallel) and
+``bf16_stats``.
 """
 
 from __future__ import annotations
@@ -441,6 +448,173 @@ def e_step_fused_lane_multi(model: GmmHmm, batches, band: int | None = None) -> 
     batches: tuple of UtteranceBatch, one per stream (equal lengths); all
     streams share the covariance type."""
     return _e_step_fused(model, tuple(batches), None, band)
+
+
+def e_step_fused(model: GmmHmm, batch: UtteranceBatch) -> SuffStats:
+    """Batched E-step with the fused emission / moment kernels (single
+    diagonal-covariance stream): log b through ``emission_log_b`` (TPU
+    kernel #21) over every frame of the (B, T) batch, per-utterance lattices
+    and xi in plain torch (``log_forward_full`` / ``log_backward_full``, as
+    the JAX package leaves them to XLA), then the GMM moments through
+    ``emission_stats`` (#22), which never builds a (B, T, S, M) tensor.
+    The kernels run in float32 (CUDA float32 launches them, CPU tensors run
+    their twins); the lattices and xi in the features' dtype."""
+    stream = model.streams[0]
+    if len(model.streams) != 1 or stream.cov_type != DIAG:
+        raise ValueError("e_step_fused: single diagonal-covariance stream only")
+    from ..ops.kernels.emission import emission_log_b, emission_stats, pack_constants
+
+    feats, lengths = batch.features, batch.lengths
+    B, T, D = feats.shape
+    S = model.num_states
+    dtype = feats.dtype
+    log_trans = model.log_trans().to(dtype)
+    a, bias = pack_constants(stream, torch.float32)
+    flat = feats.reshape(B * T, D).to(torch.float32)
+    log_b = emission_log_b(flat, a, bias).reshape(B, T, S).to(dtype)
+
+    la = log_forward_full(log_b, log_trans, lengths)  # (B, T, S)
+    lbw = log_backward_full(log_b, log_trans, lengths)
+    log_z = la[:, -1, S - 1]
+    valid = torch.isfinite(log_z) & (lengths > 0)
+    vmask = valid.to(dtype)
+    safe_z = torch.where(valid, log_z, 0.0)
+    t_idx = torch.arange(T, device=lengths.device)
+    frame_mask = (t_idx[None, :] < lengths[:, None]).to(dtype)  # (B, T)
+    gamma = (
+        torch.exp(torch.clamp(la + lbw - safe_z[:, None, None], max=0.0))
+        * frame_mask[..., None]
+        * vmask[:, None, None]
+    )
+    xi_mask = (t_idx[None, :-1] < (lengths - 1)[:, None]).to(dtype) * vmask[:, None]  # (B, T-1)
+    log_xi = (
+        la[:, :-1, :, None]
+        + log_trans
+        + (log_b[:, 1:] + lbw[:, 1:])[:, :, None, :]
+        - safe_z[:, None, None, None]
+    )
+    xi = torch.exp(torch.clamp(log_xi, max=0.0)) * xi_mask[..., None, None]
+
+    smk = emission_stats(
+        flat, gamma.reshape(B * T, S).to(torch.float32), log_b.reshape(B * T, S).to(torch.float32), a, bias
+    ).to(dtype)  # (S, M, 2D+1)
+    x, xx, w = smk[..., :D], smk[..., D : 2 * D], smk[..., 2 * D]
+    return SuffStats(
+        num_trans=xi.sum((0, 1)),
+        den_trans=(gamma[:, :-1] * xi_mask[..., None]).sum((0, 1)),
+        den_mix=gamma.sum((0, 1)),
+        streams=(StreamStats(w=w, x=x, xx=xx),),
+        log_prob=torch.sum(torch.where(valid, log_z, 0.0)),
+        num_valid=vmask.sum(),
+    )
+
+
+def _log_forward_lattice_tb(log_b_tsb, log_trans, lengths):
+    """Forward lattice with (S, B) carries: (T, S, B) log b -> (T, S, B)
+    log-alpha, -inf for impossible paths (rows at t >= length repeat the
+    last valid row)."""
+    T, S, B = log_b_tsb.shape
+    start = torch.full((S, 1), -torch.inf, dtype=log_b_tsb.dtype, device=log_b_tsb.device)
+    start[0] = 0.0
+    carry = log_b_tsb[0] + start
+    rows = [carry]
+    for t in range(1, T):
+        cand = carry[:, None, :] + log_trans[:, :, None]  # (from, to, B)
+        new = torch.logsumexp(cand, dim=0) + log_b_tsb[t]
+        carry = torch.where(t < lengths[None, :], new, carry)
+        rows.append(carry)
+    return torch.stack(rows)
+
+
+def _log_backward_lattice_tb(log_b_tsb, log_trans, lengths):
+    """Backward lattice with (S, B) carries, final-state initialization at
+    each utterance's last valid frame."""
+    T, S, B = log_b_tsb.shape
+    beta_t = torch.full((S, 1), -torch.inf, dtype=log_b_tsb.dtype, device=log_b_tsb.device)
+    beta_t[S - 1] = 0.0
+    beta_t = beta_t.expand(S, B)
+    last = lengths - 1
+    carry = beta_t
+    rows = [carry]
+    for t in range(T - 2, -1, -1):
+        cand = log_trans[:, :, None] + (log_b_tsb[t + 1] + carry)[None, :, :]
+        new = torch.logsumexp(cand, dim=1)
+        carry = torch.where(t < last[None, :], new, beta_t)
+        rows.append(carry)
+    return torch.stack(rows[::-1])
+
+
+def e_step_lane_major(model: GmmHmm, batch: UtteranceBatch, lattices: str = "scan") -> SuffStats:
+    """Batched E-step with (T, S, B) lattices (the batch on the minor axis).
+
+    lattices="scan": the plain torch recursions ``_log_forward_lattice_tb``
+    / ``_log_backward_lattice_tb`` in the features' dtype (-inf for
+    impossible paths); lattices="pallas" (the JAX package's name, kept so
+    one call serves both packages): the hand-written lattice kernels of
+    ops/kernels/lattice.py (``forward_lattice_blocked`` /
+    ``backward_lattice_blocked``, TPU kernels #20 / #19; their twins on CPU
+    tensors) in float32 with the -1e30 clamp, k_block the first of 16, 8, 4,
+    2, 1 that divides T.  Emission (``log_mixture_posteriors``), xi and the
+    GMM moments are plain torch, as the JAX package leaves them to XLA."""
+    feats, lengths = batch.features, batch.lengths  # (B, T, D)
+    B, T, D = feats.shape
+    S = model.num_states
+    dtype = feats.dtype
+    log_trans = model.log_trans().to(dtype)
+
+    flat = feats.reshape(B * T, D)
+    log_b = None
+    posts = []
+    for stream in model.streams:
+        lb_s, post_s = log_mixture_posteriors(flat, stream)  # (B*T, S), (B*T, S, M)
+        posts.append(post_s)
+        lb_s = lb_s.reshape(B, T, S)
+        log_b = lb_s if log_b is None else log_b + lb_s
+
+    lb_tsb = log_b.permute(1, 2, 0)  # (T, S, B)
+    if lattices == "pallas":
+        from ..ops.kernels.lattice import backward_lattice_blocked, forward_lattice_blocked
+
+        k = next(k for k in (16, 8, 4, 2, 1) if T % k == 0)
+        lb32, lt32 = lb_tsb.to(torch.float32), log_trans.to(torch.float32)
+        la = forward_lattice_blocked(lb32, lt32, lengths, k_block=k).to(dtype)
+        lbw = backward_lattice_blocked(lb32, lt32, lengths, k_block=k).to(dtype)
+    elif lattices == "scan":
+        la = _log_forward_lattice_tb(lb_tsb, log_trans, lengths)
+        lbw = _log_backward_lattice_tb(lb_tsb, log_trans, lengths)
+    else:
+        raise ValueError(f"e_step_lane_major: lattices must be 'scan' or 'pallas', got {lattices!r}")
+
+    log_z = la[-1, S - 1]  # (B,)
+    # the kernels clamp -inf to -1e30: an unreachable final state is a large
+    # negative finite value there, not -inf
+    valid = torch.isfinite(log_z) & (log_z > -1e29) & (lengths > 0)
+    safe_z = torch.where(valid, log_z, 0.0)
+    vmask = valid.to(dtype)
+
+    t_idx = torch.arange(T, device=lengths.device)
+    frame_mask = (t_idx[:, None] < lengths[None, :]).to(dtype)  # (T, B)
+    gamma_tsb = (
+        torch.exp(torch.clamp(la + lbw - safe_z, max=0.0)) * frame_mask[:, None, :] * vmask
+    )  # (T, S, B)
+    xi_mask = (t_idx[:-1, None] < (lengths - 1)[None, :]).to(dtype)  # (T-1, B)
+    log_xi = la[:-1, :, None, :] + log_trans[None, :, :, None] + (lb_tsb[1:] + lbw[1:])[:, None] - safe_z
+    xi = torch.exp(torch.clamp(log_xi, max=0.0)) * (xi_mask * vmask)[:, None, None, :]  # (T-1, S, S, B)
+
+    gamma_bts = gamma_tsb.permute(2, 0, 1)  # (B, T, S)
+    stream_stats = []
+    for stream, post in zip(model.streams, posts):
+        gm = gamma_bts.reshape(B * T, S)[..., None] * post  # (B*T, S, M)
+        w, x, xx = gmm_moment_stats(gm, flat, stream.cov_type)
+        stream_stats.append(StreamStats(w=w, x=x, xx=xx))
+    return SuffStats(
+        num_trans=xi.sum((0, 3)),
+        den_trans=(gamma_tsb[:-1] * xi_mask[:, None, :]).sum((0, 2)),
+        den_mix=gamma_tsb.sum((0, 2)),
+        streams=tuple(stream_stats),
+        log_prob=torch.sum(torch.where(valid, log_z, 0.0)),
+        num_valid=vmask.sum(),
+    )
 
 
 def _fused_lane_eligible(model: GmmHmm, batch) -> bool:

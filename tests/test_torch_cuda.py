@@ -598,3 +598,172 @@ def test_bucketed_stats_take_the_composed_kernels(cuda_device):
         np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), rtol=5e-4,
                                    atol=5e-4 * float(b.abs().max()))
     np.testing.assert_allclose(float(got.log_prob), float(want.log_prob), rtol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# csrc/lattice.cu (TPU kernels #15-#20) and csrc/emission_em.cu (#21, #22)
+# ---------------------------------------------------------------------------
+
+
+def _lattice_inputs(device, S, kind, lens=_LENS, seed=12):
+    """(T, S, B) log b with a few -inf entries, (S, S) log transitions,
+    int32 lengths, on `device`."""
+    from torch_port_utils import log_trans_np
+
+    rng = np.random.default_rng(seed)
+    T, B = max(lens), len(lens)
+    lb = (rng.normal(size=(T, S, B)) * 2).astype(np.float32)
+    lb[rng.integers(0, T, 7), rng.integers(0, S, 7), rng.integers(0, B, 7)] = -np.inf
+    lb[5:, 0, lens.index(T)] = -np.inf  # a state impossible from frame 5: carries on the floor
+    lt = log_trans_np(S, kind, seed)
+    as_t = lambda x: torch.as_tensor(x, device=device)
+    return as_t(lb), as_t(lt), torch.as_tensor(lens, dtype=torch.int32, device=device)
+
+
+@pytest.mark.parametrize("kind", ["delta1", "delta2", "dense"])
+@pytest.mark.parametrize("S", [3, 6, 8, 16, 64])
+def test_lattice_kernels_match_plain(cuda_device, S, kind):
+    """forward / backward lattices (and their blocked wrappers, k_block 5
+    and 19 of T = 95) against the twins: 1e-5 with equal masks, the entries
+    on the -1e30 floor bitwise equal; the blocked wrappers bitwise equal to the unblocked;
+    each wrapper counts its own launches."""
+    from srhmm_tpu_torch.ops.kernels import lattice as kl
+
+    lb, lt, lens = _lattice_inputs(cuda_device, S, kind)
+    fns = (kl.forward_lattice, kl.backward_lattice, kl.forward_lattice_blocked, kl.backward_lattice_blocked)
+    before = [f.launches for f in fns]
+    fwd, bwd = kl.forward_lattice(lb, lt, lens), kl.backward_lattice(lb, lt, lens)
+    fwd_b = kl.forward_lattice_blocked(lb, lt, lens, k_block=5)
+    bwd_b = kl.backward_lattice_blocked(lb, lt, lens, k_block=19)
+    torch.cuda.synchronize()
+    assert [f.launches for f in fns] == [n + 1 for n in before]
+    for got, want in ((fwd, kl.forward_lattice_plain(lb, lt, lens)), (bwd, kl.backward_lattice_plain(lb, lt, lens))):
+        _lattice_close(got, want)
+        # the -1e30 floor, outside the mask above: equal bit for bit
+        below = want <= NEG_INF / 2
+        assert torch.equal(got[below], want[below])
+    assert torch.equal(fwd, fwd_b) and torch.equal(bwd, bwd_b)
+
+
+@pytest.mark.parametrize("S", [3, 8, 64])
+def test_forward_batch_and_viterbi_match_plain(cuda_device, S):
+    """log_forward_batch (shared and per-row transitions) and viterbi_batch
+    on (B, T, S) log b against the twins: scores 1e-5 with equal masks,
+    backpointers equal."""
+    from srhmm_tpu_torch.ops.kernels import forward as kf
+    from torch_port_utils import log_trans_np
+
+    lb_tsb, lt, lens = _lattice_inputs(cuda_device, S, "delta1", seed=13)
+    lb = lb_tsb.permute(2, 0, 1).contiguous()
+    B = lb.shape[0]
+    per_row = torch.as_tensor(
+        np.stack([log_trans_np(S, ("delta1", "delta2", "dense")[b % 3], b) for b in range(B)]), device=cuda_device)
+    counts = kf.log_forward_batch.launches, kf.viterbi_batch.launches
+    for trans in (lt, per_row):
+        _lattice_close(kf.log_forward_batch(lb, trans, lens), kf.log_forward_batch_plain(lb, trans, lens))
+    scores, bptr = kf.viterbi_batch(lb, lt, lens)
+    scores_p, bptr_p = kf.viterbi_batch_plain(lb, lt, lens)
+    torch.cuda.synchronize()
+    assert (kf.log_forward_batch.launches, kf.viterbi_batch.launches) == (counts[0] + 2, counts[1] + 1)
+    _lattice_close(scores, scores_p)
+    assert torch.equal(bptr, bptr_p)
+    assert torch.equal(kf.backtrace(bptr, lens, S - 1), kf.backtrace(bptr_p, lens, S - 1))
+
+
+def test_viterbi_kernel_ties_go_to_the_lowest_source(cuda_device):
+    from srhmm_tpu_torch.ops.kernels import forward as kf
+
+    S = 6
+    rng = np.random.default_rng(14)
+    p = rng.uniform(0.1, 1.0, size=(S, S))
+    p[3, :] = p[2, :]
+    p[:, 3] = p[:, 2]
+    lt = torch.as_tensor(np.log(p / p.sum(-1, keepdims=True)), dtype=torch.float32, device=cuda_device)
+    lb = torch.as_tensor(rng.normal(size=(len(_LENS), 95, S)), dtype=torch.float32, device=cuda_device)
+    lb[..., 3] = lb[..., 2]
+    lens = torch.as_tensor(_LENS, dtype=torch.int32, device=cuda_device)
+    _, bptr = kf.viterbi_batch(lb, lt, lens)
+    _, bptr_p = kf.viterbi_batch_plain(lb, lt, lens)
+    assert torch.equal(bptr, bptr_p)
+    live = torch.arange(95, device=cuda_device)[None, :] < lens[:, None].long()
+    live[:, 0] = False  # row 0 and rows past a length are the identity
+    assert not bool((bptr[live] == 3).any())
+
+
+@pytest.mark.parametrize("D,M", [(3, 1), (9, 3), (13, 16), (39, 1), (39, 3)])
+def test_emission_kernels_match_plain(cuda_device, D, M):
+    """emission_log_b (1e-5 relative) and emission_stats (1e-4 of each
+    moment block's scale; two launches bitwise equal) against the twins on
+    N off every tile, a zero-weight mixture and -inf log b rows.  Each
+    moments call reads the log b of its own emission: exp(min(q - log b,
+    0)) cancels two values of size |q|, so another summation order's log b
+    biases the posteriors by ulps of |q| (~1.6e-4 of the scale at D=39,
+    M=1)."""
+    from srhmm_tpu_torch.ops.kernels import emission as ke
+
+    S, N = 8, 4133
+    trans, streams = rand_word(15, S, [(M, D)], "diag", scale=3.0)
+    streams[0]["weights"][2, 0] = 0.0
+    stream = tm.gmm_hmm_from_numpy(trans, streams).astype(torch.float32).to(cuda_device).streams[0]
+    rng = np.random.default_rng(16)
+    frames = torch.as_tensor(rng.normal(size=(N, D)) * 3, dtype=torch.float32, device=cuda_device)
+    gamma = torch.as_tensor(rng.uniform(size=(N, S)), dtype=torch.float32, device=cuda_device)
+    a, b = ke.pack_constants(stream, torch.float32)
+    counts = ke.emission_log_b.launches, ke.emission_stats.launches
+    lb, lb_p = ke.emission_log_b(frames, a, b), ke.emission_log_b_plain(frames, a, b)
+    _lattice_close(lb, lb_p)
+    lb, lb_p = lb.clone(), lb_p.clone()
+    lb[100:140] = lb_p[100:140] = -torch.inf
+    got, again = ke.emission_stats(frames, gamma, lb, a, b), ke.emission_stats(frames, gamma, lb, a, b)
+    want = ke.emission_stats_plain(frames, gamma, lb_p, a, b)
+    torch.cuda.synchronize()
+    assert (ke.emission_log_b.launches, ke.emission_stats.launches) == (counts[0] + 1, counts[1] + 2)
+    assert torch.equal(got, again)
+    for part in (slice(0, D), slice(D, 2 * D), slice(2 * D, 2 * D + 1)):
+        _stat_close(got[..., part], want[..., part])
+
+
+def test_new_kernels_refuse_what_they_do_not_take(cuda_device):
+    from srhmm_tpu_torch.ops.kernels import emission as ke
+    from srhmm_tpu_torch.ops.kernels import forward as kf
+    from srhmm_tpu_torch.ops.kernels import lattice as kl
+
+    lb, lt, lens = _lattice_inputs(cuda_device, 4, "delta1")
+    with pytest.raises(ValueError, match="float32"):
+        kl.forward_lattice(lb.double(), lt, lens)
+    wide, wide_t, _ = _lattice_inputs(cuda_device, 65, "dense")
+    with pytest.raises(ValueError, match="states"):
+        kl.backward_lattice(wide, wide_t, lens)
+    with pytest.raises(ValueError, match="float32"):
+        kf.viterbi_batch(lb.permute(2, 0, 1).double(), lt, lens)
+    frames = torch.zeros((10, 70), device=cuda_device)
+    with pytest.raises(ValueError, match="exceeds"):
+        ke.emission_log_b(frames, torch.zeros((1, 140, 2), device=cuda_device), torch.zeros((1, 1, 2), device=cuda_device))
+
+
+def test_lane_e_steps_take_the_kernels(cuda_device, monkeypatch):
+    """e_step_fused (#21, #22) and e_step_lane_major(lattices="pallas")
+    (#20, #19) launch their kernels on a CUDA batch, never a twin, and agree
+    with the plain e_step within 1e-4 of each statistic's scale."""
+    from srhmm_tpu_torch.ops.kernels import emission as ke
+    from srhmm_tpu_torch.ops.kernels import lattice as kl
+
+    model, batch = _train_batch(cuda_device, seed=17)
+    want = em.e_step(model, batch)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA batch reached a plain twin")
+
+    for mod, name in ((ke, "emission_log_b_plain"), (ke, "emission_stats_plain"),
+                      (kl, "forward_lattice_plain"), (kl, "backward_lattice_plain")):
+        monkeypatch.setattr(mod, name, refuse)
+    counts = [f.launches for f in (ke.emission_log_b, ke.emission_stats, kl.forward_lattice_blocked,
+                                   kl.backward_lattice_blocked)]
+    for got in (em.e_step_fused(model, batch), em.e_step_lane_major(model, batch, lattices="pallas")):
+        for a, b in ((got.num_trans, want.num_trans), (got.den_trans, want.den_trans), (got.den_mix, want.den_mix),
+                     (got.streams[0].w, want.streams[0].w), (got.streams[0].x, want.streams[0].x),
+                     (got.streams[0].xx, want.streams[0].xx)):
+            _stat_close(a, b)
+        np.testing.assert_allclose(float(got.log_prob), float(want.log_prob), rtol=1e-5)
+    assert [f.launches for f in (ke.emission_log_b, ke.emission_stats, kl.forward_lattice_blocked,
+                                 kl.backward_lattice_blocked)] == [n + 1 for n in counts]

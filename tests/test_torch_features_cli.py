@@ -83,6 +83,25 @@ def test_features_cli_matches_jax(tmp_path, monkeypatch, capsys, fused, tol):
     assert tio.read_perfil("torch/short.perfil").shape[0] == 1
 
 
+def test_fused_default_stays_within_the_float64_gap(tmp_path, monkeypatch, capsys):
+    """The port's float32 features (--device cpu --fused, the MFCC kernel's
+    twin; the card runs the kernel by default) against the JAX CLI's
+    float64 default: within 2e-5 absolute on these WAVs (7.3e-6 measured,
+    the figure cli/features.py states)."""
+    names = _wavs(tmp_path)
+    monkeypatch.chdir(tmp_path)
+    assert j_features.main(["wavs.txt", "jax"]) == 0
+    assert t_features.main(["wavs.txt", "torch", "--fused", "--device", "cpu"]) == 0
+    capsys.readouterr()
+    gap = 0.0
+    for n in names:
+        stem = n.replace(".wav", ".perfil")
+        got, want = tio.read_perfil(f"torch/{stem}"), tio.read_perfil(f"jax/{stem}")
+        assert got.shape == want.shape
+        gap = max(gap, float(np.abs(got - want).max()))
+    assert 0.0 < gap <= 2e-5, gap
+
+
 def test_features_cli_options(tmp_path, monkeypatch, capsys):
     """Non-default widths run the same frontend (float64, 1e-9)."""
     _wavs(tmp_path)

@@ -90,6 +90,35 @@ def test_fast_cli_matches_jax(tmp_path, monkeypatch, cmvn, offset):
     np.testing.assert_allclose(lp_t, lp_j, rtol=1e-4)
 
 
+def _events(err):
+    """{event name: its keys but the time} of the JSONL lines on stderr."""
+    import json
+
+    out = {}
+    for line in err.splitlines():
+        if line.startswith("{"):
+            rec = json.loads(line)
+            out[rec["event"]] = sorted(k for k in rec if k != "t")
+    return out
+
+
+@pytest.mark.parametrize("scan_iters", [None, "3"])
+def test_fast_cli_writes_the_jax_events(tmp_path, monkeypatch, capsys, scan_iters):
+    """--numerics fast: the port writes the JAX CLI's JSONL events to stderr,
+    a train_fast span (seconds, word) and converged (iterations,
+    mean_log_prob), with the same keys."""
+    lists = _fixture(tmp_path, "diag", [(1, 3)], n=4)
+    monkeypatch.chdir(tmp_path)
+    flags = ["--cov", "diag", "--numerics", "fast"] + (["--scan-iters", scan_iters] if scan_iters else [])
+    assert j_cli.main(flags + _args([(1, 3)], lists, "jax.hmm")) == 0
+    j_events = _events(capsys.readouterr().err)
+    assert t_cli.main(flags + ["--device", "cpu"] + _args([(1, 3)], lists, "torch.hmm")) == 0
+    t_events = _events(capsys.readouterr().err)
+    assert j_events == {"train_fast": ["event", "seconds", "word"],
+                        "converged": ["event", "iterations", "mean_log_prob"]}
+    assert t_events == j_events
+
+
 def test_cli_usage_errors_and_flags_not_ported(tmp_path, monkeypatch, capsys):
     assert t_cli.main([]) == 1
     assert "Usage: train" in capsys.readouterr().err

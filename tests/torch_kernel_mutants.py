@@ -1,0 +1,67 @@
+"""Mutation check of csrc/lattice.cu and csrc/emission_em.cu (needs a CUDA
+card and nvcc; not a tier-1 test):
+
+    python tests/torch_kernel_mutants.py [mutant ...]
+
+Each mutant is a copy of the tree in a temporary directory with one
+deliberate fault in a kernel source; the chip_smoke.py phase that should
+catch it (kernel_lattice or kernel_emission) runs there, after the build.
+Prints one JSON line per mutant: caught (the phase raised) or survived.
+With no arguments every mutant runs.
+"""
+
+import json
+import shutil
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+LAT, EM = "srhmm_tpu_torch/csrc/lattice.cu", "srhmm_tpu_torch/csrc/emission_em.cu"
+MUTANTS = [
+    ("forward_length_mask", LAT, "    } else if (t < len) {\n      const float* prev = row + ((t + 1) & 1) * nt + q.base;\n      float m",
+     "    } else if (t <= len) {\n      const float* prev = row + ((t + 1) & 1) * nt + q.base;\n      float m", "kernel_lattice"),
+    ("backward_stepping_rule", LAT, "if (t + 1 < len) {", "if (t < len) {", "kernel_lattice"),
+    ("viterbi_tie_to_highest", LAT, "if (c > best) {", "if (c >= best) {", "kernel_lattice"),
+    ("per_row_shared_matrix", LAT, "p.lt[(size_t)b0 * SS + i]", "p.lt[(size_t)b0 * SS + i % SS]", "kernel_lattice"),
+    ("forward_no_carry_clamp", LAT, "carry = fmaxf(m + logf(e) + lb, kNegInf);", "carry = m + logf(e) + lb;", "kernel_lattice"),
+    ("emission_drops_last_mixture", EM, "diag_state_log_b<DMAX>(rec_sh + s * M * stride, M, x, x2)",
+     "diag_state_log_b<DMAX>(rec_sh + s * M * stride, M - (M > 1), x, x2)", "kernel_emission"),
+    ("stats_chunk_drops_last_frame", EM, "const int nf = (int)min((long long)kFrames, n1 - c0);",
+     "const int nf = (int)min((long long)kFrames, n1 - c0) - 1;", "kernel_emission"),
+    ("stats_sum_skips_last_range", EM, "for (int r = 0; r < ranges; ++r)", "for (int r = 0; r + 1 < ranges; ++r)", "kernel_emission"),
+    ("stats_ignores_neg_inf_log_b", EM, "(on && lb > kNegInf) ? p.gamma", "(on) ? p.gamma", "kernel_emission"),
+]
+DRIVER = """
+import sys, torch
+import chip_smoke as cs
+cs.phase_device(torch); cs.phase_build()
+try:
+    getattr(cs, "phase_" + sys.argv[1])(torch)
+    print("MUTANT SURVIVED")
+except AssertionError as e:
+    print("MUTANT CAUGHT:", str(e)[:300])
+"""
+
+
+def main(names) -> None:
+    only = set(names)
+    for name, src, old, new, phase in MUTANTS:
+        if only and name not in only:
+            continue
+        d = Path(tempfile.mkdtemp(prefix=f"mut_{name}_")) / "tree"
+        shutil.copytree(ROOT, d, ignore=shutil.ignore_patterns(".git", "build", "scratch", "chiprun_out", "__pycache__"))
+        f = d / src
+        text = f.read_text()
+        assert text.count(old) >= 1, name
+        f.write_text(text.replace(old, new))
+        r = subprocess.run([sys.executable, "-c", DRIVER, phase], cwd=d, capture_output=True, text=True, timeout=600)
+        last = [l for l in r.stdout.splitlines() if l.startswith("MUTANT")]
+        print(json.dumps({"mutant": name, "phase": phase, "rc": r.returncode,
+                          "result": last[-1] if last else r.stderr[-600:]}), flush=True)
+        shutil.rmtree(d.parent, ignore_errors=True)
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

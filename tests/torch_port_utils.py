@@ -104,3 +104,30 @@ def sample_utterance(rng, trans, streams, T) -> list[np.ndarray]:
             frames.append(rng.multivariate_normal(mu, cov))
         out.append(np.asarray(frames))
     return out
+
+
+def log_trans_np(S, kind, seed=0) -> np.ndarray:
+    """(S, S) float32 log transitions: left-right of band 1 ("delta1") or 2
+    ("delta2"), or "dense"; -inf off the band."""
+    rng = np.random.default_rng(seed)
+    if kind == "dense":
+        t = rng.uniform(0.1, 1.0, size=(S, S))
+    else:
+        band = {"delta1": 1, "delta2": 2}[kind]
+        t = np.zeros((S, S))
+        for i in range(S):
+            t[i, i : i + band + 1] = rng.uniform(0.2, 1.0, size=min(band + 1, S - i))
+    t /= t.sum(-1, keepdims=True)
+    with np.errstate(divide="ignore"):
+        return np.log(t).astype(np.float32)
+
+
+def assert_log_close(got, want, bound=1e-5, neg_inf=-1e30):
+    """Log-domain values: equal masks of values above neg_inf/2, and
+    max |got - want| / max(|want|, 1) <= bound over them."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    assert got.shape == want.shape, (got.shape, want.shape)
+    mask = want > neg_inf / 2
+    assert ((got > neg_inf / 2) == mask).all()
+    rel = np.abs(got[mask] - want[mask]) / np.maximum(np.abs(want[mask]), 1.0)
+    assert rel.max(initial=0.0) <= bound, rel.max()
