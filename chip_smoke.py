@@ -65,7 +65,9 @@ each (any failure raises, so the exit code is non-zero):
               the emb_c4 / tied_c5 bank widths, B=37, T=95 with a
               zero-length and a length-1 row; log_b / log_alpha within
               BOUND, statistics and moments within STAT_BOUND, two runs and
-              the two gamma layouts bitwise equal
+              the two gamma layouts bitwise equal; the moments also on
+              hand-made gammas with all-zero 32-frame tiles beside tiles
+              whose one non-zero frame is the first or the last
   3 embedded  emb_c4 (suite config 4: 40 units, S=3, M=32, D=13, B=512,
               T <= 512, L=12) and tied_c5 (config 5: 700 triphones over
     tied      2000 senones, M=16, D=39, B=1024, T <= 304, L=10) from a
@@ -121,7 +123,9 @@ each (any failure raises, so the exit code is non-zero):
               CUDA events, median of 20 after warm-up (the decode, composed,
               P=2 E-step and MFCC twins: median of 3); each kernel's bound
               from its inputs; timing_composed adds torch.profiler over one
-              embedded / tied EM iteration; timing_mfcc is the cell
+              embedded / tied EM iteration (its idle share), the share of
+              moments tiles skipped and the moments' dense bound
+              (dense_bound_ms); timing_mfcc is the cell
               mfcc_b256_10s (256 waveforms of 10 s in one launch);
               timing_lane times #15-#22 at em_diag (#15 also at diag10) and
               one E-step through e_step_fused, e_step_lane_major("pallas")
@@ -1313,7 +1317,7 @@ def phase_timing_decode(torch, dec: dict, smi: str) -> dict:
 
 COMPOSED_SRC = "srhmm_tpu_torch/csrc/composed.cu"
 COMPOSED_KERNEL_NAMES = ("bank_emission_kernel", "composed_forward_kernel", "composed_backward_stats_kernel",
-                         "bank_moments_kernel", "segment_rows_kernel")  # csrc/composed.cu
+                         "chunk_table_kernel", "bank_moments_kernel", "sum_chunks_kernel")  # csrc/composed.cu
 COMPOSED_ROWS = [  # (wrapper, the TPU kernel it replaces)
     ("bank_emission", "srhmm_tpu/ops/pallas/composed_pallas.py:218"),
     ("composed_forward", "srhmm_tpu/ops/pallas/composed_pallas.py:348"),
@@ -1331,6 +1335,11 @@ COMPOSED_CASES = [
     ("full", 2, 3, [(3, 4), (2, 4)]),
     ("diag", 3, 12, [(32, 13)]),
     ("diag", 3, 10, [(16, 39)]),
+    # the emission ring at 2 and 1 rows, the moments batch at 2 and 1 tiles
+    ("diag", 3, 4, [(32, 64)] * 6),
+    ("diag", 3, 4, [(64, 39)] * 6),
+    ("full", 3, 4, [(82, 16)]),
+    ("diag", 3, 4, [(200, 39)]),
 ]
 
 
@@ -1428,17 +1437,53 @@ def composed_check(torch, ids, banks, feats, lengths, diag_row, diag_col, full, 
     return {"worst": worst, "rel": {k: v["rel_err"] for k, v in res.items()}}
 
 
+MOMENT_TILE = 32  # frames of a moments tile (csrc/composed.cu kTile)
+
+
+def sparse_moments_check(torch, ids, banks, feats, lengths, full, what) -> dict:
+    """The moments kernel vs its twin on sparse_gammas: twice (bitwise
+    repeat) and in both gamma layouts (bitwise equal); max |k - p| <=
+    STAT_BOUND max |p| per part.  Returns the worst absolute error."""
+    from srhmm_tpu_torch.ops.kernels import composed as kc
+
+    D = feats.shape[-1]
+    as_t = lambda m: m if isinstance(m, tuple) else (m,)
+    worst = 0.0
+    if str(ROOT / "tests") not in sys.path:
+        sys.path.insert(0, str(ROOT / "tests"))
+    from torch_port_utils import sparse_gammas
+
+    for tag, gamma in sparse_gammas(ids, lengths, feats.shape[1], seed=ids.shape[1]).items():
+        m_k = as_t(kc.bank_moments_lattice(ids, banks, feats, gamma, lengths, full))
+        m_k2 = as_t(kc.bank_moments_lattice(ids, banks, feats, gamma, lengths, full))
+        m_b = as_t(kc.bank_moments(ids, banks, feats, gamma.permute(2, 1, 0).contiguous(), lengths, full))
+        m_p = as_t(kc.bank_moments_lattice_plain(ids, banks, feats, gamma, lengths, full))
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) and torch.equal(a, c) for a, b, c in zip(m_k, m_k2, m_b)):
+            raise AssertionError(f"{what} {tag}: two moments runs (or the two gamma layouts) differ")
+        for q, (a, b) in enumerate(zip(m_k, m_p)):
+            for part, sl in (("x", slice(0, D)), ("xx", slice(D, -1)), ("w", slice(-1, None))):
+                worst = max(worst, compare_stat(a[..., sl], b[..., sl], f"{what} {tag} mom{q}_{part}")["max_abs_err"])
+    return worst
+
+
 def phase_kernel_composed(torch) -> dict:
     """The four composed kernels vs their twins on CUDA tensors at B=37,
     T=95 with a zero-length and a length-1 row: diag/full, S = 2, 3, 4
     (band 1, 2, 3), L = 1, 3, 5, 10, 12, one or two streams, utterance 0
-    repeating one unit, the emb_c4 and tied_c5 bank widths.  Returns the
-    worst absolute error per wrapper."""
+    repeating one unit, the emb_c4 and tied_c5 bank widths; the moments
+    also on hand-made sparse gammas (sparse_moments_check: all-zero
+    32-frame tiles beside tiles whose one non-zero frame is the first or
+    the last); every depth of the emission's record ring (3, 2, 1 rows)
+    and of the moments batch (4, 2, 1 tiles).  Returns the worst absolute
+    error per wrapper."""
     from srhmm_tpu_torch.models import gmm_hmm_from_numpy, stack_models
+    from srhmm_tpu_torch.ops.kernels import composed as kc
 
     dev = torch.device("cuda")
     saved = composed_counts()
     worst = {name: 0.0 for name, _ in COMPOSED_ROWS}
+    depths = set()
     for ci, (cov, S, L, md) in enumerate(COMPOSED_CASES):
         rng = np.random.default_rng(300 + ci)
         lens = [int(n) for n in rng.integers(2, 95, size=34)] + [95, 0, 1]
@@ -1456,11 +1501,23 @@ def phase_kernel_composed(torch) -> dict:
         ids, banks, diag_row, diag_col, full = composed_inputs(torch, models, transcripts, feats, lengths)
         name = f"{cov}_S{S}_L{L}_" + "_".join(f"M{M}D{D}" for M, D in md)
         out = composed_check(torch, ids, banks, feats, lengths, diag_row, diag_col, full, name)
+        sparse = sparse_moments_check(torch, ids, banks, feats, lengths, full, name)
         for k, v in out["worst"].items():
             worst[k] = max(worst[k], v)
+        for k in ("bank_moments_lattice", "bank_moments"):
+            worst[k] = max(worst[k], sparse)
+        mixes, D = [M for M, _ in md], md[0][1]
+        ring = kc.emission_ring(mixes, [kc.record_stride(D, full)] * len(mixes))
+        slots = kc.moments_slots(mixes, D, full)
+        depths |= {("ring", ring), ("slots", slots)}
         emit({"phase": "kernel_composed", "config": name, "B": len(lens), "T": max(lens), "LS": L * S,
-              "bitwise_repeat": True, "gamma_layouts_bitwise_equal": True, **out["rel"]})
+              "emission_ring": ring, "moments_slots": slots,
+              "bitwise_repeat": True, "gamma_layouts_bitwise_equal": True, **out["rel"],
+              "zero_tile_gammas_max_abs": sparse})
     set_composed_counts(saved)  # comparison launches are not main-path launches
+    want = {("ring", 3), ("ring", 2), ("ring", 1), ("slots", 4), ("slots", 2), ("slots", 1)}
+    if depths != want:
+        raise AssertionError(f"kernel_composed reached the buffer depths {sorted(depths)}, not {sorted(want)}")
     return worst
 
 
@@ -1511,49 +1568,81 @@ def param_close(name, what, a, b, mask) -> float:
     return diff
 
 
-def em_comparison(torch, name, step, start, params) -> dict:
+def repaired_like(stream, like):
+    """stream's weights and means after the M-step's treat_zero_det
+    re-seed (train/em.py _repair_degenerate: a mixture whose log det falls
+    below log 1e-20 takes its state's largest-determinant mixture's mean
+    and covariance) with the mask and donors of `like`; both are updates
+    without the re-seed, with leading state axes (..., M)."""
+    from srhmm_tpu_torch.train.em import _repair_degenerate
+
+    M = stream.weights.shape[-1]
+    cov = stream.inv_cov.shape[stream.weights.dim():]
+    w, mu, _, _ = _repair_degenerate(stream.weights.reshape(-1, M), stream.means.reshape(-1, M, stream.dim),
+                                     stream.inv_cov.reshape(-1, M, *cov), like.log_det.reshape(-1, M),
+                                     stream.cov_type)
+    return w.reshape(stream.weights.shape), mu.reshape(stream.means.shape)
+
+
+def em_comparison(torch, name, stats, update, unrepaired, start, params) -> dict:
     """Three EM iterations through the kernels (the second with
     gamma_lattice=False, kernel #13) and three with fused=False on the card
-    from the same start.  step(model, fused, gamma_lattice) -> (new model,
-    log prob, num valid); params(model) -> (weights, means, trans).
+    from the same start.  stats(model, fused, gamma_lattice) -> (E-step
+    statistics, log prob); update(model, statistics) -> the M-step's model;
+    unrepaired(model, statistics) -> its emission stream without the
+    treat_zero_det re-seed; params(model) -> (emission stream, trans).
 
     Checked: the two free-running log-prob histories within rtol 2e-4; each
     kernel iteration against one plain iteration from the same model, means
-    and trans within 2e-3 of their scale over the mixtures above the weight
-    floor (1e-3) before and after.  Reported only: the free-running final
-    parameters' divergence, since EM on mixtures with a few frames each
-    (tied_c5: ~9 frames a mixture in 39 dimensions) is chaotic, and fp32
-    summation orders put single mixtures on different paths within two
-    iterations (PERF.md)."""
+    and trans within 2e-3 of their scale over every mixture above the
+    weight floor (1e-3) before and after.  The re-seed is a threshold on a
+    mixture's log det: a mixture on it is re-seeded on one side only,
+    whatever the summation order (PERF.md: tied_c5's senone 1363 at
+    iteration 1), so the kernel side's means are compared after the plain
+    side's re-seed (its mask and donors, repaired_like) applied to the
+    kernel statistics' update; the states whose own masks differ are only
+    reported.  Reported only: the free-running final parameters'
+    divergence, since EM on mixtures with a few frames each (tied_c5: ~9
+    frames a mixture in 39 dimensions) is chaotic, and fp32 summation
+    orders put single mixtures on different paths within two iterations
+    (PERF.md)."""
+    from srhmm_tpu_torch.train.em import _LOG_ZERO_DET
+
     m, lps_k, steps = start, [], []
     for it in range(3):
-        new, lp, _ = step(m, True, it != 1)
-        ref, lp_ref, _ = step(m, False, True)
-        (w0, _, _), (w1, mu1, tr1), (w2, mu2, tr2) = params(m), params(new), params(ref)
-        mask = above_floor(w0) & above_floor(w1) & above_floor(w2)
+        sk, lp = stats(m, True, it != 1)
+        sp, lp_ref = stats(m, False, True)
+        new = update(m, sk)
+        (s0, _), (_, tr1), (s2, tr2) = params(m), params(new), params(update(m, sp))
+        uk, up = unrepaired(m, sk), unrepaired(m, sp)
+        w1, mu1 = (a.reshape(b.shape) for a, b in zip(repaired_like(uk, up), (s2.weights, s2.means)))
+        floor = above_floor(s0.weights) & above_floor(w1) & above_floor(s2.weights)
+        flipped = ((uk.log_det < _LOG_ZERO_DET) != (up.log_det < _LOG_ZERO_DET)).any(-1)
         lp_rel = abs(float(lp) - float(lp_ref)) / abs(float(lp_ref))
         if not lp_rel <= 2e-4:
             raise AssertionError(f"{name} iteration {it}: kernel vs plain log prob {float(lp)} vs {float(lp_ref)}")
-        steps.append({"lp_rel": lp_rel, "mixtures_compared": int(mask.sum()),
-                      "means_max_abs": param_close(name, f"iteration {it} means", mu1, mu2, mask),
+        steps.append({"lp_rel": lp_rel, "mixtures_compared": int(floor.sum()),
+                      "means_max_abs": param_close(name, f"iteration {it} means", mu1, s2.means, floor),
                       "trans_max_abs": param_close(name, f"iteration {it} trans", tr1, tr2,
-                                                   np.ones(tuple(tr2.shape), bool))})
+                                                   np.ones(tuple(tr2.shape), bool)),
+                      "reseed_flipped_states": torch.flatten(flipped).nonzero().flatten().tolist()})
         lps_k.append(lp)
         m = new
     fin_k = m
     m, lps_p = start, []
     for _ in range(3):
-        m, lp, _ = step(m, False, True)
+        sp, lp = stats(m, False, True)
+        m = update(m, sp)
         lps_p.append(lp)
     lk = torch.stack(lps_k).double().cpu().numpy()
     lp = torch.stack(lps_p).double().cpu().numpy()
     lp_rel = float(np.max(np.abs(lk - lp) / np.abs(lp)))
     if not lp_rel <= 2e-4:
         raise AssertionError(f"{name}: kernel vs plain log-prob histories {lk} vs {lp}")
-    (wk, muk, trk), (wp, mup, trp) = params(fin_k), params(m)
-    mask = above_floor(wk) & above_floor(wp)
-    dmu = np.abs(muk.double().cpu().numpy() - mup.double().cpu().numpy()).max(-1)[mask]
-    scale = float(mup.double().abs().max())
+    (sk, trk), (sp, trp) = params(fin_k), params(m)
+    mask = above_floor(sk.weights) & above_floor(sp.weights)
+    dmu = np.abs(sk.means.double().cpu().numpy() - sp.means.double().cpu().numpy()).max(-1)[mask]
+    scale = float(sp.means.double().abs().max())
     return {"history_kernels": lk.tolist(), "history_plain": lp.tolist(), "lps_rel_vs_plain": lp_rel,
             "steps": steps, "free_running_means_max_abs": float(dmu.max()),
             "free_running_mixtures_beyond_2e-3_of_scale": int((dmu > 2e-3 * scale).sum()),
@@ -1565,10 +1654,11 @@ def phase_embedded(torch) -> dict:
     """Embedded training at suite config 4's full width (emb_c4): P=40
     units, S=3, M=32, D=13 diagonal, B=512 utterances of L=12 units,
     T <= 512, models and data from a seed: em_comparison of
-    embedded_em_step, then train_embedded on the same utterances (3
+    embedded_em_step's E-step and M-step, then train_embedded on the same utterances (3
     iterations, its own buckets) against the kernel history."""
     from srhmm_tpu_torch.models import gmm_hmm_from_numpy, stack_models
     from srhmm_tpu_torch.train import embedded as emb
+    from srhmm_tpu_torch.train.em import update_stream
 
     P, S, M, D, B, L = 40, 3, 32, 13, 512, 12
     rng = np.random.default_rng(44)
@@ -1587,14 +1677,26 @@ def phase_embedded(torch) -> dict:
     if not emb._embedded_fused_eligible(start, transcripts, feats):
         raise AssertionError("emb_c4: the batch is not eligible for the composed kernels")
 
-    def step(m, fused, gamma_lattice):
-        return emb.embedded_em_step(m, transcripts, feats, lengths, fused=fused, gamma_lattice=gamma_lattice)
+    def stats(m, fused, gamma_lattice):
+        if fused:
+            st = emb.batch_stats_fused(m, transcripts, feats, lengths, gamma_lattice=gamma_lattice)
+        else:
+            st = emb.batch_stats(m, transcripts, feats, lengths)
+        return st, st.log_prob
+
+    def update(m, st):
+        return emb._unit_m_step(m, st, 0.0)
+
+    def unrepaired(m, st):  # _unit_m_step's stream update, units folded into states
+        folded = emb._unstack_stats_axis(st)
+        stream = emb._reshape_stream(m.streams[0], (P * S,), 2)
+        return update_stream(stream, folded.streams[0], folded.den_mix, 0.0, zero_det_threshold=-np.inf)
 
     def params(m):
-        return m.streams[0].weights, m.streams[0].means, m.trans
+        return m.streams[0], m.trans
 
     before = composed_counts()
-    cmp = em_comparison(torch, "emb_c4", step, start, params)
+    cmp = em_comparison(torch, "emb_c4", stats, update, unrepaired, start, params)
     mid = composed_counts()
     res = emb.train_embedded(start, utts, trs.tolist(), max_iterations=3, chunk=3, threshold=-1.0)
     after = composed_counts()
@@ -1613,44 +1715,67 @@ def phase_embedded(torch) -> dict:
     return {"res": out, "models": start, "batch": (transcripts, feats, lengths), "launches": launches}
 
 
-def phase_tied(torch) -> dict:
-    """Tied-state training at suite config 5's full width (tied_c5): 700
-    triphone units of S=3 sharing N=2000 senones of M=16, D=39 diagonal,
-    B=1024 utterances of L=10 units, T <= 304, var_floor 0.1, from a seed:
-    em_comparison of tied_em_step, then train_tied (3 iterations)."""
-    from srhmm_tpu_torch.models import tied_hmm_set_from_numpy
-    from srhmm_tpu_torch.train import tied as tt
+TIED_C5 = (700, 3, 2000, 16, 39, 1024, 10)  # P units, S, N senones, M, D, B utterances, L units each
+TIED_C5_VAR_FLOOR = 0.1
 
-    P, S, N, M, D, B, L, vf = 700, 3, 2000, 16, 39, 1024, 10, 0.1
+
+def tied_c5_inputs(B: int):
+    """tied_c5's senones (numpy leaves, the senones on the "state" axis),
+    unit transitions, state map (P, S), transcripts (B, L) and B utterances
+    (250-304 frames), drawn from seed 45 in this order."""
+    P, S, N, M, D, _, L = TIED_C5
     rng = np.random.default_rng(45)
-    senones = rand_stream(rng, N, M, D, "diag")  # (N, M, ...) leaves: senones as the "state" axis
+    senones = rand_stream(rng, N, M, D, "diag")
     sm = np.zeros((P, S), np.int64)
-    pools = np.array_split(np.arange(N), S)
-    for s, pool in enumerate(pools):  # every senone used, the rest drawn from the state's pool
+    for s, pool in enumerate(np.array_split(np.arange(N), S)):  # every senone used, the rest from the pool
         perm = rng.permutation(P)
         sm[perm[: len(pool)], s] = pool
         sm[perm[len(pool):], s] = rng.choice(pool, size=P - len(pool))
     trans = np.stack([left_right_trans(S, 3.0) for _ in range(P)])
-    tied0 = tied_hmm_set_from_numpy(senones, trans, sm, tuple(f"t{i:03d}" for i in range(P)))
     trs = rng.integers(0, P, size=(B, L))
     rows = sm[trs].reshape(B, L * S)
-    t0 = time.perf_counter()
     utts = composed_dataset(rng, senones["weights"], senones["means"], senones["inv_cov"], rows, B, (250, 305))
+    return senones, trans, sm, trs, utts
+
+
+def phase_tied(torch) -> dict:
+    """Tied-state training at suite config 5's full width (tied_c5): 700
+    triphone units of S=3 sharing N=2000 senones of M=16, D=39 diagonal,
+    B=1024 utterances of L=10 units, T <= 304, var_floor 0.1, from a seed:
+    em_comparison of tied_em_step's E-step and M-step, then train_tied (3
+    iterations)."""
+    from srhmm_tpu_torch.models import tied_hmm_set_from_numpy
+    from srhmm_tpu_torch.train import tied as tt
+    from srhmm_tpu_torch.train.em import update_stream
+
+    P, S, N, M, D, B, L, vf = *TIED_C5, TIED_C5_VAR_FLOOR
+    t0 = time.perf_counter()
+    senones, trans, sm, trs, utts = tied_c5_inputs(B)
     t_data = time.perf_counter() - t0
+    tied0 = tied_hmm_set_from_numpy(senones, trans, sm, tuple(f"t{i:03d}" for i in range(P)))
     transcripts, feats, lengths = pad_batch(torch, utts, trs)
     start = tied0.astype(torch.float32).to("cuda")
     if not tt._tied_fused_eligible(start, transcripts, feats):
         raise AssertionError("tied_c5: the batch is not eligible for the composed kernels")
 
-    def step(t, fused, gamma_lattice):
-        return tt.tied_em_step(t, transcripts, feats, lengths, var_floor=vf, fused=fused,
-                               gamma_lattice=gamma_lattice)
+    def stats(t, fused, gamma_lattice):
+        if fused:
+            st = tt.tied_batch_stats_fused(t, transcripts, feats, lengths, gamma_lattice=gamma_lattice)
+        else:
+            st = tt.tied_batch_stats(t, transcripts, feats, lengths)
+        return st, st[4]
+
+    def update(t, st):
+        return tt._apply_tied_update(t, st, vf)
+
+    def unrepaired(t, st):
+        return update_stream(t.senones, st[0], st[1], vf, zero_det_threshold=-np.inf)
 
     def params(t):
-        return t.senones.weights, t.senones.means, t.trans
+        return t.senones, t.trans
 
     before = composed_counts()
-    cmp = em_comparison(torch, "tied_c5", step, start, params)
+    cmp = em_comparison(torch, "tied_c5", stats, update, unrepaired, start, params)
     mid = composed_counts()
     res = tt.train_tied(start, utts, trs.tolist(), max_iterations=3, chunk=3, threshold=-1.0, var_floor=vf)
     after = composed_counts()
@@ -1777,11 +1902,44 @@ def phase_train_embedded_cli(torch, tmp: Path) -> dict:
     return out
 
 
-def composed_bounds(ids, banks, feats, lengths, diag, full) -> dict:
+TF32_TC_OPS_PER_S = 495e12  # dense TF32 tensor-core rate (NVIDIA H100 SXM data sheet)
+
+
+def moment_tiles(torch, gamma, lengths) -> dict:
+    """The moments kernel's 32-frame tiles of one gamma (T, LS, B): tiles
+    that hold frames t < length, and those whose gamma are all exactly 0
+    there (skipped by the kernel's warp vote)."""
+    T, LS, B = gamma.shape
+    n_t = -(-T // MOMENT_TILE)
+    on = torch.arange(n_t * MOMENT_TILE, device=gamma.device)[:, None] < lengths[None, :]  # (T', B)
+    g = torch.zeros((n_t * MOMENT_TILE, LS, B), dtype=gamma.dtype, device=gamma.device)
+    g[:T] = gamma
+    nz = ((g != 0) & on[:, None, :]).reshape(n_t, MOMENT_TILE, LS, B).any(1)  # (n_t, LS, B)
+    valid = on.reshape(n_t, MOMENT_TILE, B).any(1)[:, None, :].expand(n_t, LS, B)
+    total, kept = int(valid.sum()), int((nz & valid).sum())
+    return {"tiles": total, "tiles_skipped": total - kept,
+            "tiles_skipped_share": (total - kept) / total if total else 0.0}
+
+
+def record_bytes(banks, D: int, full: bool) -> int:
+    """Bytes of the bank records that a function of D features reads:
+    2D + 4 floats a diagonal record, (D + 1) D + 4 a full one (the packed
+    stride pads the records to the compiled bound DMAX with zeros)."""
+    per = (D + 1) * D + 4 if full else 2 * D + 4
+    return sum(4 * bk.shape[0] * bk.shape[1] * per for bk in banks)
+
+
+def composed_bounds(torch, ids, banks, feats, lengths, diag, full, gamma) -> dict:
     """The bound of each composed kernel on one batch (see bound()):
-    inputs read once, outputs written once; operations of the frames the
-    kernels step (emission: every frame of the padded T, as the kernel
-    computes them; lattices and moments: t < length)."""
+    inputs read once (the records without their padding, record_bytes),
+    outputs written once; operations of the frames the
+    kernels must step (emission: every frame of the padded T, as its output
+    holds them; lattices: t < length).  The moments count the emission,
+    posteriors and contraction of the (t, j, b) entries with gamma != 0 and
+    t < length only (a zero gamma adds nothing), the contraction's
+    multiply-adds at the TF32 tensor-core rate and the rest at the fp32
+    rate, the larger of the three times; dense_bound_ms is the dense count
+    (every t < length, every multiply-add at the fp32 rate)."""
     banks = banks if isinstance(banks, tuple) else (banks,)
     B, T, D = feats.shape
     LS = ids.shape[1]
@@ -1794,13 +1952,25 @@ def composed_bounds(ids, banks, feats, lengths, diag, full) -> dict:
     Cm = (D + D * D + 1) if full else (2 * D + 1)
     mom_out = sum(4 * bk.shape[0] * bk.shape[1] * Cm for bk in banks)
     mom_ops = sum(bk.shape[1] * (2 * Cm + 6) for bk in banks)
+    rec = record_bytes(banks, D, full)
+    mom_bytes = numel_bytes(ids, lengths) + rec + 4 * used * (D + LS) + mom_out
+    dense = bound(mom_bytes, used * LS * (em_ops + mom_ops) + B * LS * sum(bk.shape[1] * Cm for bk in banks))
+    on = torch.arange(T, device=gamma.device)[:, None, None] < lengths[None, None, :]
+    nz = int(((gamma != 0) & on).sum())
+    fp32_ops = nz * (em_ops + sum(6 * bk.shape[1] for bk in banks))
+    tc_ops = nz * sum(2 * bk.shape[1] * Cm for bk in banks)
+    times = {"bytes": mom_bytes / HBM_BYTES_PER_S * 1e3, "operations": max(fp32_ops / FP32_OPS_PER_S,
+                                                                           tc_ops / TF32_TC_OPS_PER_S) * 1e3}
+    by = max(times, key=times.get)
+    moments = {"bound_ms": times[by], "bound_by": by, "bound_bytes": mom_bytes, "bound_ops": fp32_ops,
+               "bound_tensor_core_ops": tc_ops, "nonzero_gamma_entries": nz,
+               "dense_bound_ms": dense["bound_ms"], "dense_bound_by": dense["bound_by"]}
     return {
-        "bank_emission": bound(numel_bytes(ids, *banks, feats) + lat, T * B * LS * em_ops),
+        "bank_emission": bound(numel_bytes(ids, feats) + rec + lat, T * B * LS * em_ops),
         "composed_forward": bound(2 * lat + numel_bytes(diag, lengths), stepped * LS * (5 * nd + 4)),
         "composed_backward_stats": bound(4 * lat + numel_bytes(diag, lengths) + 4 * (nd + 4) * LS * B,
                                          stepped * LS * (9 * nd + 10)),
-        "bank_moments": bound(numel_bytes(ids, *banks, lengths) + 4 * used * (D + LS) + mom_out,
-                              used * LS * (em_ops + mom_ops) + B * LS * sum(bk.shape[1] * Cm for bk in banks)),
+        "bank_moments": moments,
     }
 
 
@@ -1809,7 +1979,13 @@ def phase_timing_composed(torch, emb: dict, tied: dict, smi: str) -> dict:
     events: kernels median of 20, twins median of 3, in the order twin,
     kernel, kernel, twin), the kernels vs twins on those full-width inputs,
     one whole EM iteration through the kernels vs fused=False, and one
-    kernel iteration under torch.profiler (device busy and idle shares)."""
+    kernel iteration under torch.profiler (device busy and idle shares).
+    Also printed: each kernel's share of its bound (above 1 fails), the
+    moments' 32-frame tiles and the share skipped (gamma all 0), the
+    moments' dense bound beside the new one, and the moments'
+    split: the device time of its kernels in one call (torch.profiler), its
+    time on an all-zero gamma (scan, set-up, pass 2) and on a gamma with no
+    zero tile."""
     from srhmm_tpu_torch.ops.kernels import composed as kc
     from srhmm_tpu_torch.train import embedded as embm
     from srhmm_tpu_torch.train import tied as tt
@@ -1850,20 +2026,43 @@ def phase_timing_composed(torch, emb: dict, tied: dict, smi: str) -> dict:
             "bank_moments": (lambda: kc.bank_moments_plain(ids, banks, feats, gamma_bst, lengths, full),
                              lambda: kc.bank_moments(ids, banks, feats, gamma_bst, lengths, full)),
         }
-        bnd = composed_bounds(ids, banks, feats, lengths, diag_row, full)
+        bnd = composed_bounds(torch, ids, banks, feats, lengths, diag_row, full, gamma)
         bnd["bank_moments_lattice"] = bnd["bank_moments"]
+        tiles = moment_tiles(torch, gamma, lengths)
         rows = {}
         for name, (plain, kernel) in calls.items():
             plain_a = median_ms(torch, plain, warmup=1, reps=3)
             kern_a = median_ms(torch, kernel)
             kern_b = median_ms(torch, kernel)
             plain_b = median_ms(torch, plain, warmup=1, reps=3)
-            rows[name] = {"kernel_ms": [kern_a, kern_b], "plain_ms": [plain_a, plain_b], "ms": min(kern_a, kern_b),
-                          "best_plain_ms": min(plain_a, plain_b), **bnd[name]}
+            ms = min(kern_a, kern_b)
+            rows[name] = {"kernel_ms": [kern_a, kern_b], "plain_ms": [plain_a, plain_b], "ms": ms,
+                          "best_plain_ms": min(plain_a, plain_b), **bnd[name], "share_of_bound": bnd[name]["bound_ms"] / ms}
+            if rows[name]["share_of_bound"] > 1.0:
+                raise AssertionError(f"{cell} {name}: {ms} ms is below its bound {bnd[name]['bound_ms']} ms")
+        # the moments' split, read off its inputs: gamma all 0 (every tile
+        # skipped: the scan, the chunk set-up and pass 2) and gamma 1/LS on
+        # every frame t < length (no tile skipped)
+        on = (torch.arange(gamma.shape[0], device=gamma.device)[:, None, None] < lengths[None, None, :])
+        dense = on.expand_as(gamma).to(torch.float32) / gamma.shape[1]
+        zero = torch.zeros_like(gamma)
+        z_ms = median_ms(torch, lambda: kc.bank_moments_lattice(ids, banks, feats, zero, lengths, full))
+        d_ms = median_ms(torch, lambda: kc.bank_moments_lattice(ids, banks, feats, dense, lengths, full))
+        kept = tiles["tiles"] - tiles["tiles_skipped"]
+        # one call under the profiler: the device time of its three kernels
+        # (pass 0, 1, 2) against the wall of the call (host work of the wrapper)
+        one = profile_window(torch, lambda: kc.bank_moments_lattice(ids, banks, feats, gamma, lengths, full),
+                             kernel_keys=("chunk_table_kernel", "bank_moments_kernel", "sum_chunks_kernel"))
+        split = {"device_ms": one["kernel_device_ms"], "device_busy_ms": one["device_busy_ms"],
+                 "profiled_wall_ms": one["profiled_wall_ms"],
+                 "zero_gamma_ms": z_ms, "dense_gamma_ms": d_ms, "dense_tiles": tiles["tiles"], "kept_tiles": kept,
+                 "us_per_computed_tile": (d_ms - z_ms) / tiles["tiles"] * 1e3,
+                 "scan_setup_share": z_ms / rows["bank_moments_lattice"]["ms"]}
         it = timed_pair(torch, lambda: step(False), lambda: step(True))
         prof = profile_window(torch, lambda: step(True), kernel_keys=COMPOSED_KERNEL_NAMES)
         audio_s = int(lengths.sum()) * FRAME_S
-        out[cell] = {"kernels": rows, "em_iteration": it, "worst_abs": check["worst"],
+        out[cell] = {"kernels": rows, "em_iteration": it, "em_iteration_idle_share": prof["idle_share"],
+                     "moment_tiles": tiles, "moments_split": split, "worst_abs": check["worst"],
                      "em_audio_s_per_s": audio_s / (it["ms"] / 1e3),
                      "plain_em_audio_s_per_s": audio_s / (it["best_plain_ms"] / 1e3), "profile": prof}
         emit({"phase": "timing_composed", "config": cell, "B": int(feats.shape[0]), "T": int(feats.shape[1]),

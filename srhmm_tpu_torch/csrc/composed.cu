@@ -6,7 +6,7 @@
 //   bank_emission_kernel           <- :218 bank_emission_pallas
 //   composed_forward_kernel        <- :348 composed_forward_pallas
 //   composed_backward_stats_kernel <- :474 composed_backward_stats_pallas
-//   bank_moments_kernel + segment_rows_kernel
+//   bank_moments_kernel + sum_chunks_kernel
 //                                  <- :707 bank_moments_lattice_pallas (gamma
 //                                     (T, LS, B)) and :792 bank_moments_pallas
 //                                     (gamma (B, LS, T)): one kernel, the
@@ -33,42 +33,57 @@
 // and vmask, per-diagonal xi sums (row form, t < length-1), den_trans and
 // den_mix (LS, B); every exponent clamped at 0 (the TPU kernel's
 // min(., 0)).
-// bank_moments: per (utterance, row) the gamma-weighted moments
-// sum_t gamma[t, j, b] post_m(t) [x; x^2 or vec(x x^T); 1] with the
-// posteriors recomputed from the staged records and each stream's OWN
-// mixture logsumexp (0 where it is <= NEG_INF/2); then the rows of all
-// (utterance, row) pairs that share a bank row are summed in the order of a
-// stable sort of the ids.
+// bank_moments: per bank row the gamma-weighted moments
+// sum_t gamma[t, j, b] post_m(t) [x; x^2 or vec(x x^T); 1] over the
+// (utterance b, row j) pairs that map to it, with the posteriors recomputed
+// from the records and each stream's OWN mixture logsumexp (0 where it is
+// <= NEG_INF/2).
 //
 // What bounds it on the H100, and what the design does about it.
 // * The TPU kept the whole parameter bank resident in 48 MB of VMEM; a
 //   Hopper block has 227 KB of shared memory, and the bank is 0.4 MB
 //   (40 units x 3 states x 32 mixtures, D=13) to 10.1 MB (2000 senones x
-//   16 mixtures, D=39).  So the emission and moment kernels put FRAMES on
-//   threads (time was the TPU's lane axis too) and walk the utterance's
-//   rows, staging one row's mixture records at a time in shared memory from
-//   device memory / L2 (4.6-8.4 KB a row).  The emission is fp32 fmaf on
-//   the CUDA cores (no TF32): ~16 GFLOP (emb_c4) to ~24 GFLOP (tied_c5) a
-//   pass, so both are bounded by operations; the records are read once per
-//   (128-frame chunk, row), from L2.
+//   16 mixtures, D=39).  Records keep the packed layout of emission.cuh
+//   (stride from the DMAX bound), but every loop runs to D rounded up to 4
+//   (the padded entries are zero, so the result is bitwise that of a loop
+//   to DMAX) and the register arrays are sized by the bound just above it:
+//   40 floats at D=39 instead of 64.  Emission arithmetic stays fp32 fmaf
+//   on the CUDA cores, never TF32.
+// * bank_emission (bounded by fp32 operations, ~16-24 GFLOP a pass): frames
+//   on threads (two a thread for D <= 16, one above), one block per (frame
+//   chunk, utterance) walking its LS rows.  A row's records (4.6-8.4 KB)
+//   come from L2 into a ring of up to three shared-memory buffers by
+//   cp.async, two rows ahead of the row being computed: one barrier a row,
+//   and the copies overlap the arithmetic.  Each FMA chain is serial (the
+//   order of emission.cuh is kept, so log_b is bitwise its diag_mix_q's), so
+//   a thread runs two mixtures' chains side by side for each of its frames,
+//   and the logsumexp step takes one expf and no branch (lse_add).
+// * bank_moments (bounded by the emission of the frames whose gamma is not
+//   zero, and the contraction): one block per (chunk of up to 16
+//   (utterance, row) pairs that map to one bank row, stream), the pairs
+//   taken in the stable sort order of the ids, the row's records staged
+//   once.  Warps scan the pairs in tiles of 32 frames (one frame a lane)
+//   and a warp vote drops every tile whose gamma are all exactly 0.0f
+//   (a left-to-right chain occupies a row for a few frames of hundreds;
+//   adding 0 * post * x to a sum changes no bit, x finite); the kept tiles
+//   queue up, and each batch of one tile a warp computes the emission and
+//   posteriors per frame (fp32; a diagonal q's linear and quadratic
+//   halves in two chains, as the twin sums them) into shared memory, then
+//   the contraction W^T [x; x^2 or x x^T; 1] on the tensor cores with
+//   mma.sync m16n8k8 in 3xTF32 (hi = cvt.rna.tf32, lo = the rest rounded
+//   the same way; lo*hi + hi*lo + hi*hi into fp32), the accumulators in
+//   shared memory.
+//   The weights enter the split times 2^48 (exact), so a subnormal gamma
+//   keeps its bits.  Pass 1 writes one partial row per chunk; pass 2
+//   (sum_chunks_kernel) sums each bank row's partials in chunk order.  No
+//   atomics: every sum is taken in a fixed order, so two runs, and the two
+//   gamma layouts, are bitwise equal.
 // * The lattice kernels are the fused_em.cu recursion structure without
 //   the emission: one thread per (row, utterance), the whole time loop in
 //   the kernel, one value per thread exchanged through a double-buffered
 //   shared row each frame.  They move 2-4 (T, LS, B) float lattices and do
 //   ~10 operations per element: bound by bytes, and in practice by the
 //   serial chain of T frames per thread.
-// * The moments scatter.  The TPU's sequential grid made its read-modify-
-//   write into bank rows race-free; Hopper blocks run in parallel, and fp32
-//   atomics would sum in a different order on every run.  So pass 1 writes
-//   per-(utterance, row) moment rows (64 MB at emb_c4, 155 MB at tied_c5),
-//   each summed over frames in ascending order inside one block (frames on
-//   threads, then columns on threads over a shared-memory tile of posterior
-//   weights and features), and pass 2 reduces them per bank row in a fixed
-//   order (the stable sort of the ids), one thread per (bank row, column):
-//   two runs are bitwise equal.
-// Later work: several utterances per block sharing staged records, tensor
-// cores for the moment contraction at fp32 accuracy, fusing emission into
-// the forward pass.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -79,10 +94,21 @@ namespace {
 
 using namespace srhmm;
 
-constexpr int kFrames = 128;                // frames (threads) per bank-kernel block
+constexpr int kFrames = 128;                // threads of a bank-emission block
+constexpr int kTile = 32;                   // frames of a moments tile: one a lane
+constexpr int kChunk = 16;                  // (utterance, row) pairs a moments block (<= 32: one a lane)
+constexpr int kMaxSlots = 4;                // tiles a moments batch (= warps a block)
+constexpr int kScan = 4;                    // candidate tiles a warp checks a scan step
+constexpr int kMaxRing = 3;                 // record buffers of a bank-emission block
 constexpr int kMaxBand = 15;                // diagonals - 1 of the composed chain
 constexpr int kMaxLatticeThreads = 1024;    // LS * U threads per lattice block
 constexpr int kReduceThreads = 256;
+constexpr int kTableThreads = 1024;
+// the moments' posterior weights enter the tensor cores times 2^48 (exact):
+// a subnormal weight then keeps all its bits through the TF32 split, and
+// the partials are scaled back by 2^-48 when written
+constexpr float kWeightScale = 0x1p48f;
+constexpr float kWeightUnscale = 0x1p-48f;
 
 struct BankParams {
   const int* ids;                     // (B, LS) bank row of every composed row
@@ -101,11 +127,13 @@ struct MomParams {
   const float* gamma;                 // gamma[t * g_st + j * g_sj + b * g_sb]
   long long g_st, g_sj, g_sb;
   const int* lengths;                 // (B,)
-  float* mom_pos[kMaxStreams];        // per stream: (B * LS, M_p * Cm)
-  int acc_offs[kMaxStreams];          // offset of stream p's accumulators in shared memory
-  int acc_floats;                     // sum_p M_p * Cm
-  int max_mix;
-  int xstride;                        // shared-memory row of one frame's features (odd)
+  const long long* order;             // (B * LS,) stable sort of the flattened ids
+  const int* offsets;                 // (NB + 1,) first position of each bank row in order
+  const int* chunk_cum;               // (NB + 1,) first chunk of each bank row
+  float* partial[kMaxStreams];        // per stream: (n_chunks, M_p * Cm), one row a chunk
+  float* mom[kMaxStreams];            // per stream: (NB, M_p * Cm)
+  int cols[kMaxStreams];              // M_p * Cm
+  int slots;                          // tiles a batch = warps a block (<= kMaxSlots)
 };
 
 struct LatticeParams {
@@ -123,66 +151,249 @@ struct LatticeParams {
   int T, LS, B, nd, U;     // U utterances per block: LS * U threads
 };
 
-// Stage the records of bank row `row` of every stream into shared memory.
-// Records are whole float4s (the strides are multiples of 4 floats).
-__device__ __forceinline__ void stage_records(const BankParams& p, int row, float* rec_sh) {
+// frames a bank-emission thread takes: two where the features fit in few
+// registers (D <= 16), else one
+__host__ __device__ constexpr int emission_frames(int rb) { return rb <= 16 ? 2 : 1; }
+
+// float4 groups the emission loops run over: D rounded up to 4
+__host__ __device__ __forceinline__ int groups_of(int D) { return (D + 3) / 4; }
+
+// the DMAX of a record of `stride` floats (emission.cuh record_stride)
+__device__ __forceinline__ int record_dmax(int stride, int D, bool full) {
+  return full ? (stride - 4) / (D + 1) : (stride - 4) / 2;
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// x (F frames, RB registers each) of utterance b from frame t0 on, every
+// `step` frames; entries e >= D and frames past T are 0
+template <int RB, int F>
+__device__ __forceinline__ void load_frames(const BankParams& p, int b, int t0, int step, float (&x)[F][RB],
+                                            float (&x2)[F][RB]) {
+#pragma unroll
+  for (int f = 0; f < F; ++f) {
+    const int t = t0 + f * step;
+    const float* src = p.feats + ((size_t)b * p.T + t) * p.D;
+#pragma unroll
+    for (int e = 0; e < RB; ++e) {
+      x[f][e] = (t < p.T && e < p.D) ? __ldg(src + e) : 0.f;
+      x2[f][e] = x[f][e] * x[f][e];
+    }
+  }
+}
+
+// Weighted diagonal mixture log-likelihoods of F frames against G
+// consecutive records (stride floats apart) [mu*k (h) | -k/2 (h) | bias |
+// log w | 0 | 0], over the first d4 float4 groups only; the G x F
+// chains are independent.  TWO = false: emission.cuh diag_mix_q's
+// operations in its order (one chain).  TWO = true: the linear half (from
+// the bias) and the quadratic half in two chains, added at the end, as the
+// plain twin's two products: at |q| ~ 1000 (D=64) one chain of 2D terms
+// rounds the posteriors ~3x further from float64 than the twin does.
+template <int RB, int F, int G, bool TWO>
+__device__ __forceinline__ void diag_q(const float* rec, int stride, int h, int d4, const float (&x)[F][RB],
+                                       const float (&x2)[F][RB], float (&q)[G][F]) {
+  float acc[G][F], acs[G][F];
+#pragma unroll
+  for (int g = 0; g < G; ++g)
+#pragma unroll
+    for (int f = 0; f < F; ++f) {
+      acc[g][f] = rec[g * stride + 2 * h];
+      acs[g][f] = 0.f;
+    }
+#pragma unroll
+  for (int i = 0; i < RB / 4; ++i) {
+    if (i < d4) {
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        const float4 l = reinterpret_cast<const float4*>(rec + g * stride)[i];
+        const float4 s = reinterpret_cast<const float4*>(rec + g * stride + h)[i];
+#pragma unroll
+        for (int f = 0; f < F; ++f) {
+          float& a2 = TWO ? acs[g][f] : acc[g][f];
+          acc[g][f] = fmaf(l.x, x[f][4 * i + 0], acc[g][f]);
+          acc[g][f] = fmaf(l.y, x[f][4 * i + 1], acc[g][f]);
+          acc[g][f] = fmaf(l.z, x[f][4 * i + 2], acc[g][f]);
+          acc[g][f] = fmaf(l.w, x[f][4 * i + 3], acc[g][f]);
+          a2 = fmaf(s.x, x2[f][4 * i + 0], a2);
+          a2 = fmaf(s.y, x2[f][4 * i + 1], a2);
+          a2 = fmaf(s.z, x2[f][4 * i + 2], a2);
+          a2 = fmaf(s.w, x2[f][4 * i + 3], a2);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int g = 0; g < G; ++g)
+#pragma unroll
+    for (int f = 0; f < F; ++f) q[g][f] = (TWO ? acc[g][f] + acs[g][f] : acc[g][f]) + rec[g * stride + 2 * h + 1];
+}
+
+// Full-covariance mixture log-likelihoods through the Cholesky factor
+// (emission.cuh full_mix_q's operations) of F frames against G records:
+// rows d of L^T at d * h, then [-L^T mu (h) | bias | log w | 0 | 0].
+template <int RB, int F, int G>
+__device__ __forceinline__ void full_q(const float* rec, int stride, int D, int h, int d4,
+                                       const float (&x)[F][RB], float (&q)[G][F]) {
+  float quad[G][F];
+#pragma unroll
+  for (int g = 0; g < G; ++g)
+#pragma unroll
+    for (int f = 0; f < F; ++f) quad[g][f] = 0.f;
+  for (int d = 0; d < D; ++d) {
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      const float4* row = reinterpret_cast<const float4*>(rec + g * stride + d * h);
+      float z[F];
+#pragma unroll
+      for (int f = 0; f < F; ++f) z[f] = rec[g * stride + D * h + d];
+#pragma unroll
+      for (int i = 0; i < RB / 4; ++i) {
+        if (i < d4) {
+          const float4 r = row[i];
+#pragma unroll
+          for (int f = 0; f < F; ++f) {
+            z[f] = fmaf(r.x, x[f][4 * i + 0], z[f]);
+            z[f] = fmaf(r.y, x[f][4 * i + 1], z[f]);
+            z[f] = fmaf(r.z, x[f][4 * i + 2], z[f]);
+            z[f] = fmaf(r.w, x[f][4 * i + 3], z[f]);
+          }
+        }
+      }
+#pragma unroll
+      for (int f = 0; f < F; ++f) quad[g][f] = fmaf(z[f], z[f], quad[g][f]);
+    }
+  }
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    const float* bg = rec + g * stride + D * h;
+#pragma unroll
+    for (int f = 0; f < F; ++f) q[g][f] = fminf(fmaf(-0.5f, quad[g][f], bg[h]), kLogGausClamp) + bg[h + 1];
+  }
+}
+
+template <int RB, int F, int G, bool FULL, bool TWO>
+__device__ __forceinline__ void mix_q(const float* rec, int stride, int D, int h, int d4, const float (&x)[F][RB],
+                                      const float (&x2)[F][RB], float (&q)[G][F]) {
+  if constexpr (FULL) {
+    full_q<RB, F, G>(rec, stride, D, h, d4, x, q);
+  } else {
+    diag_q<RB, F, G, TWO>(rec, stride, h, d4, x, x2, q);
+  }
+}
+
+// emission.cuh lse_push without its branch: the exponent of the smaller
+// term is -|q - m| in both cases (m - q == -(q - m) in IEEE arithmetic), so
+// one expf serves both and the running (m, e) are bitwise those of lse_push
+__device__ __forceinline__ void lse_add(float q, float& m, float& e) {
+  const float ex = expf(-fabsf(q - m));
+  const bool up = q > m;
+  e = up ? e * ex + 1.f : e + ex;
+  m = up ? q : m;
+}
+
+// Start the copies of bank row `row`'s records (every stream) into dst;
+// nothing for a row outside the bank.  Records are whole float4s.
+__device__ __forceinline__ void copy_records_async(const BankParams& p, int row, float* dst) {
+  if (row < 0 || row >= p.NB) return;
   for (int q = 0; q < p.n_streams; ++q) {
     const int n4 = p.mixes[q] * p.strides[q] / 4;
-    const float4* src =
-        reinterpret_cast<const float4*>(p.banks[q] + (size_t)row * p.mixes[q] * p.strides[q]);
-    float4* dst = reinterpret_cast<float4*>(rec_sh + p.rec_offs[q]);
-    for (int i = threadIdx.x; i < n4; i += blockDim.x) dst[i] = src[i];
+    const float* src = p.banks[q] + (size_t)row * p.mixes[q] * p.strides[q];
+    float* d = dst + p.rec_offs[q];
+    for (int i = threadIdx.x; i < n4; i += blockDim.x) cp_async16(d + 4 * i, src + 4 * i);
   }
 }
 
-template <int DMAX>
-__device__ __forceinline__ void load_x(const BankParams& p, int b, int t, bool on, float (&x)[DMAX]) {
-  const float* f = p.feats + ((size_t)b * p.T + t) * p.D;
-#pragma unroll
-  for (int e = 0; e < DMAX; ++e) x[e] = (on && e < p.D) ? __ldg(f + e) : 0.f;
-}
-
-template <int DMAX, bool FULL>
-__device__ __forceinline__ float mix_q(const float* rec, int D, const float (&x)[DMAX],
-                                       const float (&x2)[DMAX]) {
-  if constexpr (FULL) {
-    return full_mix_q<DMAX>(rec, D, x);
-  } else {
-    return diag_mix_q<DMAX>(rec, x, x2);
-  }
-}
-
-// grid (ceil(T / kFrames), B), kFrames threads: thread k takes frame
-// blockIdx.x * kFrames + k of utterance blockIdx.y and walks the LS rows.
-template <int DMAX, bool FULL>
-__global__ void __launch_bounds__(kFrames) bank_emission_kernel(const BankParams p, float* log_b) {
+// grid (ceil(T / (kFrames * F)), B), kFrames threads: thread k takes frames
+// blockIdx.x * kFrames * F + k + f * kFrames of utterance blockIdx.y and
+// walks the LS rows; the records of rows j+1 .. j+nbuf-1 are in flight in
+// the ring while row j computes (nbuf = 1: copy, wait, compute).  The
+// mixtures go two at a time (G independent FMA chains a frame), pushed into
+// the logsumexp in mixture order: log_b is bitwise that of one mixture at a
+// time.
+template <int RB, bool FULL>
+__global__ void __launch_bounds__(kFrames) bank_emission_kernel(const BankParams p, float* log_b, int nbuf) {
+  constexpr int F = emission_frames(RB), G = 2;
   extern __shared__ float4 smem4[];
-  float* rec_sh = reinterpret_cast<float*>(smem4);
+  float* ring = reinterpret_cast<float*>(smem4);
   const int b = blockIdx.y;
-  const int t = blockIdx.x * kFrames + threadIdx.x;
-  const bool on = t < p.T;
-  float x[DMAX], x2[DMAX];
-  load_x<DMAX>(p, b, t, on, x);
-#pragma unroll
-  for (int e = 0; e < DMAX; ++e) x2[e] = x[e] * x[e];
+  const int t0 = blockIdx.x * kFrames * F + threadIdx.x;
+  const int D = p.D, d4 = groups_of(D);
+  const int* ids = p.ids + (size_t)b * p.LS;
+  float x[F][RB], x2[F][RB];
+  load_frames<RB, F>(p, b, t0, kFrames, x, x2);
+  for (int r = 0; r + 1 < nbuf; ++r) {  // exactly nbuf - 1 groups in flight
+    if (r < p.LS) copy_records_async(p, ids[r], ring + (size_t)r * p.rec_floats);
+    cp_async_commit();
+  }
   for (int j = 0; j < p.LS; ++j) {
-    const int row = p.ids[(size_t)b * p.LS + j];
+    const float* buf = ring + (size_t)(j % nbuf) * p.rec_floats;
+    if (nbuf == 1) {
+      __syncthreads();  // the previous row's records are no longer read
+      copy_records_async(p, ids[j], ring);
+      cp_async_commit();
+    }
+    if (nbuf >= 3) {
+      cp_async_wait<1>();  // row j's group is complete; row j+1's may still fly
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // row j visible to all; row j-1's buffer free
+    if (nbuf > 1) {
+      const int r = j + nbuf - 1;
+      if (r < p.LS) copy_records_async(p, ids[r], ring + (size_t)(r % nbuf) * p.rec_floats);
+      cp_async_commit();
+    }
+    const int row = ids[j];
     const bool ok = row >= 0 && row < p.NB;
-    __syncthreads();  // the previous row's records are no longer read
-    if (ok) stage_records(p, row, rec_sh);
-    __syncthreads();
-    if (!on) continue;
-    float lb = 0.f;
+    float lb[F];
     for (int q = 0; q < p.n_streams; ++q) {
       const int M = p.mixes[q], stride = p.strides[q];
-      const float* rec = rec_sh + p.rec_offs[q];
-      float m = kNegInf, e = 0.f;
-      for (int mix = 0; mix < M; ++mix) lse_push(mix_q<DMAX, FULL>(rec + mix * stride, p.D, x, x2), m, e);
-      const float v = lse_value(m, e);
-      lb = (q == 0) ? v : lb + v;
+      const int h = record_dmax(stride, D, FULL);
+      const float* rec = buf + p.rec_offs[q];
+      float m[F], e[F];
+#pragma unroll
+      for (int f = 0; f < F; ++f) {
+        m[f] = kNegInf;
+        e[f] = 0.f;
+      }
+      int mix = 0;
+      for (; mix + G <= M; mix += G) {  // G independent chains, pushed in mixture order
+        float qv[G][F];
+        mix_q<RB, F, G, FULL, false>(rec + mix * stride, stride, D, h, d4, x, x2, qv);
+#pragma unroll
+        for (int g = 0; g < G; ++g)
+#pragma unroll
+          for (int f = 0; f < F; ++f) lse_add(qv[g][f], m[f], e[f]);
+      }
+      for (; mix < M; ++mix) {
+        float qv[1][F];
+        mix_q<RB, F, 1, FULL, false>(rec + mix * stride, stride, D, h, d4, x, x2, qv);
+#pragma unroll
+        for (int f = 0; f < F; ++f) lse_add(qv[0][f], m[f], e[f]);
+      }
+#pragma unroll
+      for (int f = 0; f < F; ++f) {
+        const float v = lse_value(m[f], e[f]);
+        lb[f] = (q == 0) ? v : lb[f] + v;
+      }
     }
-    // an id outside the bank poisons its row instead of reading stray memory
-    log_b[((size_t)t * p.LS + j) * p.B + b] = ok ? fmaxf(lb, kNegInf) : __int_as_float(0x7fc00000);
+#pragma unroll
+    for (int f = 0; f < F; ++f) {
+      const int t = t0 + f * kFrames;
+      // an id outside the bank poisons its row instead of reading stray memory
+      if (t < p.T) log_b[((size_t)t * p.LS + j) * p.B + b] = ok ? fmaxf(lb[f], kNegInf) : __int_as_float(0x7fc00000);
+    }
   }
 }
 
@@ -289,119 +500,396 @@ __global__ void __launch_bounds__(kMaxLatticeThreads)
   }
 }
 
-// Pass 1 of the moments: grid (LS, B), kFrames threads; block (j, b) writes
-// the moment rows of composed row j of utterance b.  Shared memory: the
-// row's records | posterior weights gm (max_mix, kFrames + 1) | features
-// (kFrames, xstride) | accumulators (sum_p M_p * Cm).
-template <int DMAX, bool FULL>
-__global__ void __launch_bounds__(kFrames) bank_moments_kernel(const BankParams p, const MomParams m) {
-  extern __shared__ float4 smem4[];
-  float* rec_sh = reinterpret_cast<float*>(smem4);
-  float* gm_sh = rec_sh + p.rec_floats;
-  float* xs_sh = gm_sh + (size_t)m.max_mix * (kFrames + 1);
-  float* acc_sh = xs_sh + (size_t)kFrames * m.xstride;
-  const int j = blockIdx.x, b = blockIdx.y, k = threadIdx.x;
-  const int D = p.D;
-  const int Cm = FULL ? D + D * D + 1 : 2 * D + 1;
-  const int row = p.ids[(size_t)b * p.LS + j];
-  const bool ok = row >= 0 && row < p.NB;
-  if (ok) stage_records(p, row, rec_sh);
-  for (int i = k; i < m.acc_floats; i += kFrames) acc_sh[i] = 0.f;
-  __syncthreads();
-  // frames t >= length carry gamma = 0 (the backward kernel's mask): skipped
-  const int len = ok ? min(m.lengths[b], p.T) : 0;
-  for (int t0 = 0; t0 < len; t0 += kFrames) {
-    const int t = t0 + k, nf = min(kFrames, len - t0);
-    const bool on = t < len;
-    float x[DMAX], x2[DMAX];
-    load_x<DMAX>(p, b, t, on, x);
-#pragma unroll
-    for (int e = 0; e < DMAX; ++e) x2[e] = x[e] * x[e];
-#pragma unroll
-    for (int e = 0; e < DMAX; ++e)
-      if (e < D) xs_sh[k * m.xstride + e] = x[e];
-    const float g = on ? m.gamma[t * m.g_st + j * m.g_sj + b * m.g_sb] : 0.f;
-    for (int q = 0; q < p.n_streams; ++q) {
-      const int M = p.mixes[q], stride = p.strides[q];
-      const float* rec = rec_sh + p.rec_offs[q];
-      float mx = kNegInf, ex = 0.f;
-      for (int mix = 0; mix < M; ++mix) {
-        const float qv = mix_q<DMAX, FULL>(rec + mix * stride, D, x, x2);
-        gm_sh[mix * (kFrames + 1) + k] = qv;
-        lse_push(qv, mx, ex);
-      }
-      const float lbp = lse_value(mx, ex);  // this stream's own log b
-      for (int mix = 0; mix < M; ++mix) {
-        float* gq = gm_sh + mix * (kFrames + 1) + k;
-        const float post = (lbp > 0.5f * kNegInf) ? expf(fminf(*gq - lbp, 0.f)) : 0.f;
-        *gq = on ? g * post : 0.f;
-      }
-      __syncthreads();
-      // columns on threads: each accumulator is owned by one thread and sums
-      // the chunk's frames in ascending order
-      float* acc = acc_sh + m.acc_offs[q];
-      for (int col = k; col < M * Cm; col += kFrames) {
-        const int mix = col / Cm, c = col - mix * Cm;
-        const float* gr = gm_sh + mix * (kFrames + 1);
-        float a = acc[col];
-        if (c == Cm - 1) {
-          for (int kk = 0; kk < nf; ++kk) a += gr[kk];
-        } else if (c < D) {
-          for (int kk = 0; kk < nf; ++kk) a = fmaf(gr[kk], xs_sh[kk * m.xstride + c], a);
-        } else if (!FULL) {
-          const int e = c - D;
-          for (int kk = 0; kk < nf; ++kk) {
-            const float v = xs_sh[kk * m.xstride + e];
-            a = fmaf(gr[kk], v * v, a);
-          }
-        } else {
-          const int r = c - D, d = r / D, e = r - d * D;  // block d of the lift holds x * x[d]
-          for (int kk = 0; kk < nf; ++kk)
-            a = fmaf(gr[kk], xs_sh[kk * m.xstride + e] * xs_sh[kk * m.xstride + d], a);
-        }
-        acc[col] = a;
-      }
-      __syncthreads();
-    }
-  }
-  const float nan = __int_as_float(0x7fc00000);
-  for (int q = 0; q < p.n_streams; ++q) {
-    const int n = p.mixes[q] * Cm;
-    float* out = m.mom_pos[q] + ((size_t)b * p.LS + j) * n;
-    for (int col = k; col < n; col += kFrames) out[col] = ok ? acc_sh[m.acc_offs[q] + col] : nan;
+// ---------------------------------------------------------------------------
+// bank moments
+// ---------------------------------------------------------------------------
+
+// v = hi + lo with hi and lo both tf32 (round to nearest, ties away)
+__device__ __forceinline__ void split_tf32(float v, unsigned& hi, unsigned& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(v));
+  const float rest = v - __uint_as_float(hi);
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(rest));
+}
+
+// c += a b for one m16n8k8 tile: a (16 x 8, row-major) and b (8 x 8) in the
+// mma.sync fragment layout, c in fp32
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const unsigned (&a)[4], unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "
+      "{%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Shared memory of one moments block, in floats then ints (the wrapper's
+// ops/kernels/composed.py moments_smem_bytes mirrors it):
+//   records M * stride | posterior weights w (M, ks) | features x (D, ks) |
+//   accumulators (M, Cm) | queued gamma (qcap, 32) |
+//   ints: queued pair (qcap) | queued tile (qcap) | vote masks (2, slots) |
+//   pair b, j, length (3 kChunk) | first tile of each pair (kChunk + 1)
+// with qcap = (kScan + 1) * slots (fewer than slots left over, and up to
+// kScan * slots found a step)
+// with ks = 32 * slots + 4 (a padded row: the fragment loads hit 32 banks).
+struct MomLayout {
+  float *rec, *w, *x, *acc, *gq;
+  int *qpair, *qtile, *vote, *pb, *pj, *plen, *pfirst;
+  int ks, qcap;
+};
+
+__host__ __device__ inline size_t moments_floats(int M, int stride, int D, int Cm, int slots) {
+  const int ks = kTile * slots + 4;
+  return (size_t)M * stride + (size_t)(M + D) * ks + (size_t)M * Cm + (size_t)(kScan + 1) * slots * kTile;
+}
+
+__host__ __device__ inline size_t moments_ints(int slots) {
+  return (size_t)(2 * (kScan + 1) + 2) * slots + 4 * (size_t)kChunk + 1;
+}
+
+__device__ __forceinline__ MomLayout moments_layout(float* base, int M, int stride, int D, int Cm, int slots) {
+  MomLayout L;
+  L.ks = kTile * slots + 4;
+  L.qcap = (kScan + 1) * slots;
+  L.rec = base;
+  L.w = L.rec + (size_t)M * stride;
+  L.x = L.w + (size_t)M * L.ks;
+  L.acc = L.x + (size_t)D * L.ks;
+  L.gq = L.acc + (size_t)M * Cm;
+  L.qpair = reinterpret_cast<int*>(L.gq + (size_t)L.qcap * kTile);
+  L.qtile = L.qpair + L.qcap;
+  L.vote = L.qtile + L.qcap;
+  L.pb = L.vote + 2 * slots;
+  L.pj = L.pb + kChunk;
+  L.plen = L.pj + kChunk;
+  L.pfirst = L.plen + kChunk;
+  return L;
+}
+
+// One column of the moment lift [x; x^2 or vec(x x^T); 1] as a product of
+// at most two staged feature rows: mode 0 zero (padding), 1 x[ia], 2
+// x[ia] * x[ib], 3 one.  Column D + d*D + e of the full lift is x[e] x[d].
+struct LiftCol {
+  int mode, ia, ib;
+};
+
+template <bool FULL>
+__device__ __forceinline__ LiftCol lift_col(int n, int D, int Cm) {
+  if (n < D) return {1, n, 0};
+  if (n == Cm - 1) return {3, 0, 0};
+  if (n >= Cm) return {0, 0, 0};
+  if constexpr (FULL) {
+    const int r = n - D, d = r / D;
+    return {2, r - d * D, d};
+  } else {
+    return {2, n - D, n - D};
   }
 }
 
-// Pass 2: out[r, col] = sum over k in [offsets[r], offsets[r+1]) of
-// rows[order[k], col], in that order.  grid (NB, ceil(cols / kReduceThreads)).
-__global__ void __launch_bounds__(kReduceThreads)
-    segment_rows_kernel(const float* rows, const int* order, const int* offsets, float* out, int cols) {
-  const int r = blockIdx.x;
+__device__ __forceinline__ float lift_value(const LiftCol& c, const float* x, int ks, int k) {
+  if (c.mode == 1) return x[c.ia * ks + k];
+  if (c.mode == 2) return x[c.ia * ks + k] * x[c.ib * ks + k];
+  return c.mode == 3 ? 1.f : 0.f;
+}
+
+// One batch of nb queued tiles (queue entries head .. head+nb-1): thread
+// k = 32 s + lane takes frame 32 * tile + lane of entry s, computes its
+// mixture log-likelihoods and posteriors (fp32, this stream's own
+// logsumexp) into w[:, k] = gamma * post * 2^48 and its features into x[:, k];
+// then the warps add W^T lift over the batch's frames into the
+// accumulators on the tensor cores (3xTF32), each accumulator owned by one
+// warp and summed over the frames in mma order.  Ends on a barrier.
+template <int RB, bool FULL>
+__device__ void moments_batch(const BankParams& p, const MomLayout& L, int M, int stride, int Cm, int head,
+                              int nb) {
+  const float* rec = L.rec;
+  const int D = p.D, d4 = groups_of(D), h = record_dmax(stride, D, FULL);
+  const int k = threadIdx.x, s = k >> 5, lane = k & 31, warp = s;
+  const int slots = blockDim.x >> 5;
+  __syncthreads();  // the queue entries are written
+  if (s < nb) {
+    const int e = (head + s) % L.qcap;
+    const int pi = L.qpair[e];
+    const int t = L.qtile[e] * kTile + lane;
+    const bool on = t < L.plen[pi];
+    const float g = L.gq[e * kTile + lane];
+    float x[1][RB], x2[1][RB];
+    load_frames<RB, 1>(p, L.pb[pi], on ? t : p.T, 0, x, x2);
+#pragma unroll
+    for (int i = 0; i < RB; ++i)
+      if (i < D) L.x[i * L.ks + k] = x[0][i];
+    float mx = kNegInf, ex = 0.f;
+    int mix = 0;
+    for (; mix + 2 <= M; mix += 2) {  // two independent chains, pushed in order
+      float qv[2][1];
+      mix_q<RB, 1, 2, FULL, true>(rec + mix * stride, stride, D, h, d4, x, x2, qv);
+      L.w[mix * L.ks + k] = qv[0][0];
+      L.w[(mix + 1) * L.ks + k] = qv[1][0];
+      lse_add(qv[0][0], mx, ex);
+      lse_add(qv[1][0], mx, ex);
+    }
+    if (mix < M) {
+      float qv[1][1];
+      mix_q<RB, 1, 1, FULL, true>(rec + mix * stride, stride, D, h, d4, x, x2, qv);
+      L.w[mix * L.ks + k] = qv[0][0];
+      lse_add(qv[0][0], mx, ex);
+    }
+    const float lbp = lse_value(mx, ex);  // this stream's own log b
+    for (mix = 0; mix < M; ++mix) {
+      float* wq = L.w + mix * L.ks + k;
+      const float post = (lbp > 0.5f * kNegInf) ? expf(fminf(*wq - lbp, 0.f)) : 0.f;
+      *wq = on ? (g * post) * kWeightScale : 0.f;
+    }
+  }
+  __syncthreads();
+  // the contraction: units of (16 mixtures) x (2 x 8 columns), one warp each
+  const int gid = lane >> 2, tig = lane & 3;
+  const int mt_n = (M + 15) / 16, nt_n = (Cm + 7) / 8, ng_n = (nt_n + 1) / 2;
+  const int ksteps = nb * (kTile / 8);
+  for (int un = warp; un < mt_n * ng_n; un += slots) {
+    const int mt = un / ng_n, nt0 = (un - mt * ng_n) * 2;
+    const int m0 = mt * 16 + gid, m1 = m0 + 8;
+    float c[2][4];
+    LiftCol col[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int n0 = (nt0 + hh) * 8 + 2 * tig;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int m = (i < 2) ? m0 : m1, n = n0 + (i & 1);
+        c[hh][i] = (m < M && n < Cm) ? L.acc[m * Cm + n] : 0.f;
+      }
+      col[hh] = lift_col<FULL>((nt0 + hh) * 8 + gid, D, Cm);
+    }
+    const bool two = nt0 + 1 < nt_n;
+    for (int kk = 0; kk < ksteps; ++kk) {
+      const int k0 = kk * 8 + tig, k1 = k0 + 4;
+      unsigned ahi[4], alo[4];
+      split_tf32(m0 < M ? L.w[m0 * L.ks + k0] : 0.f, ahi[0], alo[0]);
+      split_tf32(m1 < M ? L.w[m1 * L.ks + k0] : 0.f, ahi[1], alo[1]);
+      split_tf32(m0 < M ? L.w[m0 * L.ks + k1] : 0.f, ahi[2], alo[2]);
+      split_tf32(m1 < M ? L.w[m1 * L.ks + k1] : 0.f, ahi[3], alo[3]);
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        if (hh == 1 && !two) break;
+        unsigned b0h, b0l, b1h, b1l;
+        split_tf32(lift_value(col[hh], L.x, L.ks, k0), b0h, b0l);
+        split_tf32(lift_value(col[hh], L.x, L.ks, k1), b1h, b1l);
+        mma_tf32(c[hh], alo, b0h, b1h);
+        mma_tf32(c[hh], ahi, b0l, b1l);
+        mma_tf32(c[hh], ahi, b0h, b1h);
+      }
+    }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int n0 = (nt0 + hh) * 8 + 2 * tig;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int m = (i < 2) ? m0 : m1, n = n0 + (i & 1);
+        if (m < M && n < Cm) L.acc[m * Cm + n] = c[hh][i];
+      }
+    }
+  }
+  __syncthreads();  // w, x and the processed queue entries are free again
+}
+
+// Pass 0, one block: the chunk table from the ids sorted stably (sorted,
+// n entries; an id below 0 counts to bank row 0, one at or above NB to row
+// NB-1).  offsets[r] = the first position of row r (offsets[NB] = n);
+// chunk_cum[r] = the first chunk of row r, ceil(count / kChunk) chunks a row
+// (chunk_cum[NB] = the number of chunks).
+__global__ void __launch_bounds__(kTableThreads)
+    chunk_table_kernel(const int* sorted, int n, int NB, int* offsets, int* chunk_cum) {
+  __shared__ int part[kTableThreads];
+  const int tid = threadIdx.x;
+  // rows (row of position i-1, row of position i] start at position i
+  for (int i = tid; i <= n; i += kTableThreads) {
+    const int prev = i > 0 ? min(max(sorted[i - 1], 0), NB - 1) : -1;
+    const int cur = i < n ? min(max(sorted[i], 0), NB - 1) : NB;
+    for (int r = prev + 1; r <= cur; ++r) offsets[r] = i;
+  }
+  __syncthreads();
+  const int per = (NB + kTableThreads - 1) / kTableThreads;
+  const int r0 = min(NB, tid * per), r1 = min(NB, r0 + per);
+  int local = 0;
+  for (int r = r0; r < r1; ++r) local += (offsets[r + 1] - offsets[r] + kChunk - 1) / kChunk;
+  part[tid] = local;
+  __syncthreads();
+  for (int o = 1; o < kTableThreads; o <<= 1) {  // inclusive scan
+    const int v = tid >= o ? part[tid - o] : 0;
+    __syncthreads();
+    part[tid] += v;
+    __syncthreads();
+  }
+  int run = part[tid] - local;
+  for (int r = r0; r < r1; ++r) {
+    chunk_cum[r] = run;
+    run += (offsets[r + 1] - offsets[r] + kChunk - 1) / kChunk;
+  }
+  if (tid == kTableThreads - 1) chunk_cum[NB] = part[tid];
+}
+
+// Pass 1: grid (n_chunks, P), 32 * slots threads.  Block (g, q) takes chunk
+// g: up to kChunk (utterance, row) pairs of one bank row r, consecutive in
+// the stable sort of the ids, and stream q; it writes the chunk's moments
+// partial[q][g] (NaN when a pair's id is outside [0, NB)).
+template <int RB, bool FULL>
+__global__ void __launch_bounds__(kTile * kMaxSlots) bank_moments_kernel(const BankParams p, const MomParams m) {
+  extern __shared__ float4 smem4[];
+  const int g = blockIdx.x, q = blockIdx.y;
+  if (g >= m.chunk_cum[p.NB]) return;  // past the last chunk
+  int lo = 0, hi = p.NB;               // chunk_cum[lo] <= g < chunk_cum[hi]
+  while (hi - lo > 1) {
+    const int mid = (lo + hi) >> 1;
+    if (m.chunk_cum[mid] <= g) lo = mid; else hi = mid;
+  }
+  const int r = lo;
+  const int s0 = m.offsets[r] + (g - m.chunk_cum[r]) * kChunk;
+  const int np = min(kChunk, m.offsets[r + 1] - s0);
+  const int M = p.mixes[q], stride = p.strides[q], D = p.D;
+  const int Cm = FULL ? D + D * D + 1 : 2 * D + 1;
+  const int slots = m.slots;
+  const MomLayout L = moments_layout(reinterpret_cast<float*>(smem4), M, stride, D, Cm, slots);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+
+  // the row's records, once for every pair; zeroed accumulators
+  {
+    const int n4 = M * stride / 4;
+    const float4* src = reinterpret_cast<const float4*>(p.banks[q] + (size_t)r * M * stride);
+    float4* dst = reinterpret_cast<float4*>(L.rec);
+    for (int i = tid; i < n4; i += blockDim.x) dst[i] = src[i];
+  }
+  for (int i = tid; i < M * Cm; i += blockDim.x) L.acc[i] = 0.f;
+  // the pairs, and the first tile of each (a prefix sum over warp 0)
+  bool bad = false;
+  if (warp == 0) {
+    int tiles = 0;
+    if (lane < np) {
+      const int pair = (int)m.order[s0 + lane];
+      const int b = pair / p.LS;
+      bad = p.ids[pair] != r;  // an id outside the bank sorts into row 0 or NB-1
+      const int len = min(max(m.lengths[b], 0), p.T);
+      L.pb[lane] = b;
+      L.pj[lane] = pair - b * p.LS;
+      L.plen[lane] = len;
+      tiles = (len + kTile - 1) / kTile;
+    }
+    int incl = tiles;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int v = __shfl_up_sync(~0u, incl, o);
+      if (lane >= o) incl += v;
+    }
+    if (lane < np) L.pfirst[lane + 1] = incl;
+    if (lane == 0) L.pfirst[0] = 0;
+  }
+  bad = __syncthreads_or(bad);
+  const int ctot = bad ? 0 : L.pfirst[np];
+
+  // scan the candidate tiles, kScan a warp a step (their loads in flight
+  // together); queue the non-zero ones in candidate order
+  int head = 0, count = 0, step = 0;
+  for (int base = 0; base < ctot; base += slots * kScan, ++step) {
+    float gv[kScan];
+    int pi[kScan], u[kScan];
+    unsigned mask = 0;
+#pragma unroll
+    for (int v = 0; v < kScan; ++v) {
+      const int c = base + warp * kScan + v;
+      gv[v] = 0.f;
+      pi[v] = 0;
+      u[v] = 0;
+      if (c < ctot) {  // uniform over the warp
+        const unsigned le = __ballot_sync(~0u, lane < np && L.pfirst[lane] <= c);
+        pi[v] = 31 - __clz(le);
+        u[v] = c - L.pfirst[pi[v]];
+        const int t = u[v] * kTile + lane;
+        if (t < L.plen[pi[v]]) gv[v] = m.gamma[t * m.g_st + L.pj[pi[v]] * m.g_sj + L.pb[pi[v]] * m.g_sb];
+      }
+    }
+#pragma unroll
+    for (int v = 0; v < kScan; ++v) mask |= __any_sync(~0u, gv[v] != 0.f) ? 1u << v : 0u;
+    int* vote = L.vote + (step & 1) * slots;
+    if (lane == 0) vote[warp] = (int)mask;
+    __syncthreads();
+    int rank = 0, added = 0;
+    for (int w = 0; w < slots; ++w) {
+      const int n = __popc(vote[w]);
+      rank += (w < warp) ? n : 0;
+      added += n;
+    }
+#pragma unroll
+    for (int v = 0; v < kScan; ++v) {
+      if (mask & (1u << v)) {
+        const int e = (head + count + rank) % L.qcap;
+        L.gq[e * kTile + lane] = gv[v];
+        if (lane == 0) {
+          L.qpair[e] = pi[v];
+          L.qtile[e] = u[v];
+        }
+        ++rank;
+      }
+    }
+    count += added;
+    while (count >= slots) {
+      moments_batch<RB, FULL>(p, L, M, stride, Cm, head, slots);
+      head = (head + slots) % L.qcap;
+      count -= slots;
+    }
+  }
+  if (count > 0) moments_batch<RB, FULL>(p, L, M, stride, Cm, head, count);
+
+  const float nan = __int_as_float(0x7fc00000);
+  const int cols = M * Cm;
+  float* out = m.partial[q] + (size_t)g * cols;
+  for (int i = tid; i < cols; i += blockDim.x) out[i] = bad ? nan : L.acc[i] * kWeightUnscale;
+}
+
+// Pass 2: mom[q][r, col] = sum of partial[q][g, col] over bank row r's
+// chunks g in [chunk_cum[r], chunk_cum[r+1]), in that order (0 for a row
+// no pair maps to).  grid (NB, ceil(max cols / kReduceThreads), P).
+__global__ void __launch_bounds__(kReduceThreads) sum_chunks_kernel(const MomParams m) {
+  const int r = blockIdx.x, q = blockIdx.z;
+  const int cols = m.cols[q];
   const int col = blockIdx.y * kReduceThreads + threadIdx.x;
   if (col >= cols) return;
   float a = 0.f;
-  for (int k = offsets[r]; k < offsets[r + 1]; ++k) a += rows[(size_t)order[k] * cols + col];
-  out[(size_t)r * cols + col] = a;
+  for (int g = m.chunk_cum[r]; g < m.chunk_cum[r + 1]; ++g) a += m.partial[q][(size_t)g * cols + col];
+  m.mom[q][(size_t)r * cols + col] = a;
 }
 
-using EmitFn = void (*)(BankParams, float*);
+using EmitFn = void (*)(BankParams, float*, int);
 using MomFn = void (*)(BankParams, MomParams);
 
-template <int DMAX, bool FULL>
+template <int RB, bool FULL>
 void pick(int which, void** fn) {
   if (which == 0) {
-    *fn = reinterpret_cast<void*>(static_cast<EmitFn>(bank_emission_kernel<DMAX, FULL>));
+    *fn = reinterpret_cast<void*>(static_cast<EmitFn>(bank_emission_kernel<RB, FULL>));
   } else {
-    *fn = reinterpret_cast<void*>(static_cast<MomFn>(bank_moments_kernel<DMAX, FULL>));
+    *fn = reinterpret_cast<void*>(static_cast<MomFn>(bank_moments_kernel<RB, FULL>));
   }
 }
 
-// which: 0 = emission, 1 = moments; nullptr for a bound that is not
-// compiled (full covariance: D <= 16)
-void* bank_kernel_for(int which, int dmax, int full) {
+// The register bound of a bank kernel: the smallest compiled bound >= D
+// rounded up to 4 (diagonal 8, 16, 24, 32, 40, 48, 64; full 4, 8, 12, 16);
+// 0 when there is none.
+int register_bound(int D, bool full) {
+  static const int kDiag[] = {8, 16, 24, 32, 40, 48, 64};
+  static const int kFull[] = {4, 8, 12, 16};
+  const int need = 4 * groups_of(D);
+  if (full) {
+    for (int rb : kFull)
+      if (rb >= need) return rb;
+    return 0;
+  }
+  for (int rb : kDiag)
+    if (rb >= need) return rb;
+  return 0;
+}
+
+// which: 0 = emission, 1 = moments; nullptr for a bound that is not compiled
+void* bank_kernel_for(int which, int rb, bool full) {
   void* fn = nullptr;
   if (full) {
-    switch (dmax) {
+    switch (rb) {
       case 4: pick<4, true>(which, &fn); break;
       case 8: pick<8, true>(which, &fn); break;
       case 12: pick<12, true>(which, &fn); break;
@@ -410,12 +898,13 @@ void* bank_kernel_for(int which, int dmax, int full) {
     }
     return fn;
   }
-  switch (dmax) {
-    case 4: pick<4, false>(which, &fn); break;
+  switch (rb) {
     case 8: pick<8, false>(which, &fn); break;
-    case 12: pick<12, false>(which, &fn); break;
     case 16: pick<16, false>(which, &fn); break;
+    case 24: pick<24, false>(which, &fn); break;
     case 32: pick<32, false>(which, &fn); break;
+    case 40: pick<40, false>(which, &fn); break;
+    case 48: pick<48, false>(which, &fn); break;
     case 64: pick<64, false>(which, &fn); break;
     default: break;
   }
@@ -481,25 +970,30 @@ int lattice_launch(bool backward, const LatticeParams& p, int device, void* stre
 extern "C" {
 
 // Every launcher runs on `stream` and returns cudaGetLastError() (0 = ok).
-// Host arrays (banks, mixes, strides, mom_pos, mom) hold n_streams entries;
+// Host arrays (banks, mixes, strides, partial, mom) hold n_streams entries;
 // the pointers they hold and every other pointer are device pointers.
 
+// nbuf: record buffers in the ring, 1 to 3 (shared memory nbuf * the
+// records of one bank row of every stream)
 int srhmm_bank_emission(const void* ids, const void* const* banks, const int* mixes,
                         const int* strides, int n_streams, int NB, const void* feats, void* log_b,
-                        int B, int T, int D, int LS, int full, int dmax, int device, void* stream) {
+                        int B, int T, int D, int LS, int full, int nbuf, int device, void* stream) {
   BankParams p;
   int bad = fill_bank(p, ids, banks, mixes, strides, n_streams, NB, feats, B, T, D, LS);
   if (bad) return bad;
-  void* fn = bank_kernel_for(0, dmax, full);
+  if (nbuf < 1 || nbuf > kMaxRing) return (int)cudaErrorInvalidValue;
+  const int rb = register_bound(D, full != 0);
+  void* fn = bank_kernel_for(0, rb, full != 0);
   if (fn == nullptr) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const size_t smem = sizeof(float) * (size_t)p.rec_floats;
+  const size_t smem = sizeof(float) * (size_t)nbuf * p.rec_floats;
   err = allow_smem(fn, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((T + kFrames - 1) / kFrames, B);
+  const int per_block = kFrames * emission_frames(rb);
+  const dim3 grid((T + per_block - 1) / per_block, B);
   reinterpret_cast<EmitFn>(fn)<<<grid, kFrames, smem, static_cast<cudaStream_t>(stream)>>>(
-      p, static_cast<float*>(log_b));
+      p, static_cast<float*>(log_b), nbuf);
   return (int)cudaGetLastError();
 }
 
@@ -541,57 +1035,66 @@ int srhmm_composed_backward_stats(const void* log_b, const void* la, const void*
   return lattice_launch(true, p, device, stream);
 }
 
-// Both passes of the moments: pass 1 writes mom_pos[p] (B * LS, M_p * Cm),
-// pass 2 sums its rows into mom[p] (NB, M_p * Cm) over the stable order of
-// the flattened ids (order (B * LS,), offsets (NB + 1,), int32).
+// The moments.  sorted (B * LS,) int32 and order (B * LS,) int64 are the
+// flattened ids sorted stably and the sort's permutation; table (2 (NB + 1),)
+// int32 is workspace for the chunk table; partial[q] holds n_chunks rows of
+// M_q * Cm floats, n_chunks >= ceil(B LS / kChunk) + min(NB, B LS).  Pass 0
+// builds the chunk table, pass 1 writes the chunks' partials, pass 2 sums
+// them into mom[q] (NB, M_q * Cm).
 int srhmm_bank_moments(const void* ids, const void* const* banks, const int* mixes,
                        const int* strides, int n_streams, int NB, const void* feats,
                        const void* gamma, long long g_st, long long g_sj, long long g_sb,
-                       const void* lengths, void* const* mom_pos, const void* order,
-                       const void* offsets, void* const* mom, int B, int T, int D, int LS, int full,
-                       int dmax, int device, void* stream) {
+                       const void* lengths, const void* sorted, const void* order, void* table,
+                       void* const* partial, int n_chunks, int slots,
+                       void* const* mom, int B, int T, int D, int LS, int full, int device,
+                       void* stream) {
   BankParams p;
   int bad = fill_bank(p, ids, banks, mixes, strides, n_streams, NB, feats, B, T, D, LS);
   if (bad) return bad;
+  if (slots < 1 || slots > kMaxSlots || n_chunks < 1) {
+    return (int)cudaErrorInvalidValue;
+  }
   MomParams m{};
   m.gamma = static_cast<const float*>(gamma);
   m.g_st = g_st;
   m.g_sj = g_sj;
   m.g_sb = g_sb;
   m.lengths = static_cast<const int*>(lengths);
+  m.order = static_cast<const long long*>(order);
+  int* offsets = static_cast<int*>(table);
+  int* chunk_cum = offsets + NB + 1;
+  m.offsets = offsets;
+  m.chunk_cum = chunk_cum;
+  m.slots = slots;
   const int Cm = full ? D + D * D + 1 : 2 * D + 1;
-  int off = 0, max_mix = 1;
+  size_t floats = 0;
+  int max_cols = 0;
   for (int q = 0; q < n_streams; ++q) {
-    m.mom_pos[q] = static_cast<float*>(mom_pos[q]);
-    m.acc_offs[q] = off;
-    off += mixes[q] * Cm;
-    max_mix = mixes[q] > max_mix ? mixes[q] : max_mix;
+    m.partial[q] = static_cast<float*>(partial[q]);
+    m.mom[q] = static_cast<float*>(mom[q]);
+    m.cols[q] = mixes[q] * Cm;
+    max_cols = m.cols[q] > max_cols ? m.cols[q] : max_cols;
+    const size_t f = moments_floats(mixes[q], strides[q], D, Cm, slots);
+    floats = f > floats ? f : floats;
   }
-  m.acc_floats = off;
-  m.max_mix = max_mix;
-  m.xstride = D | 1;
-  void* fn = bank_kernel_for(1, dmax, full);
+  void* fn = bank_kernel_for(1, register_bound(D, full != 0), full != 0);
   if (fn == nullptr) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const size_t smem = sizeof(float) * ((size_t)p.rec_floats + (size_t)max_mix * (kFrames + 1) +
-                                       (size_t)kFrames * m.xstride + (size_t)m.acc_floats);
+  const size_t smem = sizeof(float) * floats + sizeof(int) * moments_ints(slots);
   err = allow_smem(fn, smem);
   if (err != cudaSuccess) return (int)err;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  reinterpret_cast<MomFn>(fn)<<<dim3(LS, B), kFrames, smem, s>>>(p, m);
+  chunk_table_kernel<<<1, kTableThreads, 0, s>>>(static_cast<const int*>(sorted), B * LS, NB, offsets,
+                                                 chunk_cum);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  for (int q = 0; q < n_streams; ++q) {
-    const int cols = mixes[q] * Cm;
-    const dim3 grid(NB, (cols + kReduceThreads - 1) / kReduceThreads);
-    segment_rows_kernel<<<grid, kReduceThreads, 0, s>>>(
-        static_cast<const float*>(mom_pos[q]), static_cast<const int*>(order),
-        static_cast<const int*>(offsets), static_cast<float*>(mom[q]), cols);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  return 0;
+  reinterpret_cast<MomFn>(fn)<<<dim3(n_chunks, n_streams), kTile * slots, smem, s>>>(p, m);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(NB, (max_cols + kReduceThreads - 1) / kReduceThreads, n_streams);
+  sum_chunks_kernel<<<grid, kReduceThreads, 0, s>>>(m);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -57,7 +57,11 @@ from .fused_em import _lse_terms, _shift_down, _shift_up
 
 MAX_STREAMS = 6
 MAX_BAND = 15  # csrc/composed.cu kMaxBand: diagonals - 1 of the composed chain
-FRAMES_PER_BLOCK = 128  # csrc/composed.cu kFrames
+TILE = 32  # csrc/composed.cu kTile: frames of a moments tile
+SCAN = 4  # csrc/composed.cu kScan: candidate tiles a warp checks a scan step
+PAIRS_PER_CHUNK = 16  # csrc/composed.cu kChunk: (utterance, row) pairs a moments block
+MOMENTS_SLOTS = (4, 2, 1)  # tiles a moments batch = warps a block, largest that fits first
+EMISSION_RING = (3, 2, 1)  # record buffers of a bank-emission block, deepest that fits first
 _MAX_LATTICE_THREADS = 1024
 _FULL_DMAX_LIMIT = 16  # full-covariance bounds compiled in csrc/composed.cu
 _MAX_GRID_Y = 65535
@@ -82,14 +86,44 @@ def moment_cols(D: int, full: bool) -> int:
     return D + D * D + 1 if full else 2 * D + 1
 
 
+def _moments_bytes(mixes, strides, D: int, full: bool, slots: int) -> int:
+    """csrc/composed.cu moments_floats / moments_ints: one moments block of
+    the widest stream (a block takes one stream) at `slots` tiles a batch."""
+    Cm = moment_cols(D, full)
+    ks = TILE * slots + 4
+    qcap = (SCAN + 1) * slots
+    floats = max(M * st + (M + D) * ks + M * Cm for M, st in zip(mixes, strides)) + qcap * TILE
+    return 4 * floats + 4 * (2 * qcap + 2 * slots + 4 * PAIRS_PER_CHUNK + 1)
+
+
+def moments_slots(mixes, D: int, full: bool) -> int:
+    """Tiles a moments batch (warps a block): the largest of MOMENTS_SLOTS
+    whose block fits SMEM_LIMIT, else the smallest (and the launch refuses)."""
+    strides = [record_stride(D, full)] * len(mixes)
+    for slots in MOMENTS_SLOTS:
+        if _moments_bytes(mixes, strides, D, full, slots) <= SMEM_LIMIT:
+            return slots
+    return MOMENTS_SLOTS[-1]
+
+
 def moments_smem_bytes(mixes, D: int, full: bool) -> int:
     """Dynamic shared memory of one moments block (csrc/composed.cu
-    bank_moments_kernel): one row's records of every stream, the posterior
-    weights (max M, kFrames + 1), the features (kFrames, D | 1) and the
-    accumulators; the emission block needs the records only."""
-    rec = sum(mixes) * record_stride(D, full)
-    acc = sum(mixes) * moment_cols(D, full)
-    return 4 * (rec + max(mixes) * (FRAMES_PER_BLOCK + 1) + FRAMES_PER_BLOCK * (D | 1) + acc)
+    bank_moments_kernel) at moments_slots: one bank row's records of the
+    widest stream, its posterior weights and the features of a batch of
+    tiles, its accumulators, the tile queue and the chunk's pairs."""
+    strides = [record_stride(D, full)] * len(mixes)
+    return _moments_bytes(mixes, strides, D, full, moments_slots(mixes, D, full))
+
+
+def emission_ring(mixes, strides) -> int:
+    """Record buffers of a bank-emission block: the deepest of
+    EMISSION_RING whose ring (that many bank rows' records of every stream)
+    fits SMEM_LIMIT, else the shallowest (and the launch refuses)."""
+    row = 4 * sum(m * s for m, s in zip(mixes, strides))
+    for nbuf in EMISSION_RING:
+        if nbuf * row <= SMEM_LIMIT:
+            return nbuf
+    return EMISSION_RING[-1]
 
 
 def fused_eligible(feats, cov_types, dims, mixes, S: int, LS: int, B: int) -> bool:
@@ -98,7 +132,8 @@ def fused_eligible(feats, cov_types, dims, mixes, S: int, LS: int, B: int) -> bo
     covariance type over 1 to MAX_STREAMS streams that share the feature
     dim; D within the compiled bounds (64 diagonal, 16 full); the chain's
     band (max(S-1, 1)) within MAX_BAND; LS rows within one lattice block;
-    B within the grid; the moments block within the shared-memory budget.
+    B within the grid; the moments and emission blocks within the
+    shared-memory budget.
     Left-right transitions are the caller's check."""
     if feats.device.type != "cuda" or feats.dtype != torch.float32:
         return False
@@ -112,7 +147,8 @@ def fused_eligible(feats, cov_types, dims, mixes, S: int, LS: int, B: int) -> bo
         return False
     if max(S - 1, 1) > MAX_BAND or LS > _MAX_LATTICE_THREADS or B > _MAX_GRID_Y:
         return False
-    return moments_smem_bytes(mixes, D, full) <= SMEM_LIMIT
+    one_row = 4 * sum(mixes) * record_stride(D, full)  # the emission ring at its shallowest
+    return moments_smem_bytes(mixes, D, full) <= SMEM_LIMIT and one_row <= SMEM_LIMIT
 
 
 def segment_sum(values: torch.Tensor, ids: torch.Tensor, n: int) -> torch.Tensor:
@@ -328,7 +364,8 @@ def _kernel_library() -> ctypes.CDLL:
     lib.srhmm_composed_backward_stats.argtypes = [c_ptr] * 10 + [c_int] * 6 + [c_ptr]
     lib.srhmm_bank_moments.restype = c_int
     lib.srhmm_bank_moments.argtypes = (
-        bank_head + [c_ptr, c_ll, c_ll, c_ll, c_ptr, p_ptr, c_ptr, c_ptr, p_ptr] + [c_int] * 7 + [c_ptr]
+        bank_head + [c_ptr, c_ll, c_ll, c_ll] + [c_ptr] * 4 + [p_ptr] + [c_int] * 2 + [p_ptr] + [c_int] * 6
+        + [c_ptr]
     )
     return lib
 
@@ -367,10 +404,14 @@ class _BankLaunch:
         ]
 
     def smem_bytes(self, which: int) -> int:
-        """Dynamic shared memory of one block: 0 = emission, 1 = moments."""
+        """Dynamic shared memory of one block: 0 = emission (its ring of
+        emission_ring buffers), 1 = moments."""
         if which == 0:
-            return 4 * sum(m * s for m, s in zip(self.mixes, self.strides))
-        return moments_smem_bytes(self.mixes, self.D, self.full)
+            return emission_ring(self.mixes, self.strides) * 4 * sum(m * s for m, s in zip(self.mixes, self.strides))
+        return _moments_bytes(self.mixes, self.strides, self.D, self.full, self.slots())
+
+    def slots(self) -> int:
+        return moments_slots(self.mixes, self.D, self.full)
 
     def fit(self, which: int) -> None:
         if self.smem_bytes(which) > SMEM_LIMIT:
@@ -395,8 +436,8 @@ def bank_emission(ids, bank, feats, full: bool = False):
     ln.fit(0)
     log_b = torch.empty((ln.T, ln.LS, ln.B), dtype=torch.float32, device=ln.dev)
     check_launch(ln.name, _kernel_library().srhmm_bank_emission(
-        *ln.head(), log_b.data_ptr(), ln.B, ln.T, ln.D, ln.LS, int(full), ln.dmax,
-        *device_args(ln.dev)))
+        *ln.head(), log_b.data_ptr(), ln.B, ln.T, ln.D, ln.LS, int(full),
+        emission_ring(ln.mixes, ln.strides), *device_args(ln.dev)))
     bank_emission.launches += 1
     return log_b
 
@@ -491,21 +532,22 @@ def _bank_moments_cuda(name, ids, bank, feats, gamma, strides_tjb, lengths, full
     lens = lengths.to(torch.int32).contiguous()
     Cm = moment_cols(ln.D, full)
     f32 = dict(dtype=torch.float32, device=ln.dev)
-    mom_pos = [torch.empty((B * LS, M * Cm), **f32) for M in ln.mixes]
+    # the fixed summation order: a stable sort of the flattened ids, cut
+    # on the card into chunks of at most PAIRS_PER_CHUNK pairs of one bank
+    # row (pass 0: the chunk table, in `table`)
+    sorted_ids, order = torch.sort(ln.ids.reshape(-1), stable=True)
+    table = torch.empty(2 * (NB + 1), dtype=torch.int32, device=ln.dev)
+    # at most ceil(pairs / chunk) full chunks plus one partial chunk a row
+    n_chunks = -(-B * LS // PAIRS_PER_CHUNK) + min(NB, B * LS)
+    partial = [torch.empty((n_chunks, M * Cm), **f32) for M in ln.mixes]
     mom = [torch.empty((NB, M, Cm), **f32) for M in ln.mixes]
-    # the fixed summation order of pass 2: a stable sort of the flattened ids
-    flat = ln.ids.reshape(-1).long()
-    order = torch.argsort(flat, stable=True).to(torch.int32)
-    counts = torch.bincount(flat.clamp(0, NB - 1), minlength=NB)[:NB]
-    offsets = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)]).to(torch.int32)
     P = len(ln.banks)
     ptrs = ctypes.c_void_p * P
     st, sj, sb = strides_tjb
     check_launch(name, _kernel_library().srhmm_bank_moments(
-        *ln.head(), gamma.data_ptr(), st, sj, sb, lens.data_ptr(),
-        ptrs(*[t.data_ptr() for t in mom_pos]), order.data_ptr(), offsets.data_ptr(),
-        ptrs(*[t.data_ptr() for t in mom]), B, ln.T, ln.D, LS, int(full), ln.dmax,
-        *device_args(ln.dev)))
+        *ln.head(), gamma.data_ptr(), st, sj, sb, lens.data_ptr(), sorted_ids.data_ptr(), order.data_ptr(),
+        table.data_ptr(), ptrs(*[t.data_ptr() for t in partial]), n_chunks, ln.slots(),
+        ptrs(*[t.data_ptr() for t in mom]), B, ln.T, ln.D, LS, int(full), *device_args(ln.dev)))
     return tuple(mom) if isinstance(bank, (tuple, list)) else mom[0]
 
 
@@ -515,9 +557,11 @@ def bank_moments_lattice(ids, bank, feats, gamma_tsb, lengths, full: bool = Fals
     bank_moments_lattice_plain).  Frames t >= lengths[b] are skipped (their
     gamma is 0).
 
-    CUDA tensors launch the hand-written kernel's two passes (per-(utterance,
-    row) moment rows, then their sum per bank row in the stable order of the
-    ids: no atomics, two runs bitwise equal) and count one in
+    CUDA tensors launch the hand-written kernel's two passes (one partial row
+    per chunk of the (utterance, row) pairs of a bank row, taken in the
+    stable order of the ids, tiles of 32 frames whose gamma are all 0.0
+    skipped; then each bank row's partials summed in chunk order: no
+    atomics, two runs bitwise equal) and count one in
     ``bank_moments_lattice.launches``; CPU tensors run the twin."""
     if on_cpu("bank_moments_lattice", feats):
         return bank_moments_lattice_plain(ids, bank, feats, gamma_tsb, lengths, full)

@@ -15,6 +15,8 @@ sums over frames taken in another order: the TPU kernels sum per 8-frame
 block, the twins frame by frame).
 """
 
+import types
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -27,7 +29,7 @@ from srhmm_tpu_torch.models import stack_models
 from srhmm_tpu_torch.ops.kernels import composed as kc
 from srhmm_tpu_torch.ops.kernels.common import NEG_INF
 from srhmm_tpu_torch.train import embedded as te
-from torch_port_utils import both_models, rand_word
+from torch_port_utils import BANK_DEPTH_CASES, both_models, rand_word
 
 B, T, P = 8, 24, 5
 LENS = [T, 0, 1, 17, 9, T - 1, 2, 13]
@@ -181,3 +183,83 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     assert not kc.fused_eligible(torch.zeros((2, 7, 5)), ["diag"], [5], [2], 3, 9, 2)  # a CPU tensor
     with pytest.raises(ValueError, match="no implementation"):
         kc.composed_forward(torch.zeros((3, 2, 2), device="meta"), torch.zeros((2, 2, 2)), torch.zeros(2))
+
+
+# ---------------------------------------------------------------------------
+# the kernels' shared-memory plans: every batch shape that rode the composed
+# kernels before their redesign still does
+# ---------------------------------------------------------------------------
+
+
+def _cuda_feats(B, T, D):
+    """What fused_eligible reads of a CUDA float32 feature tensor (no card
+    needed to decide)."""
+    return types.SimpleNamespace(device=torch.device("cuda"), dtype=torch.float32, shape=(B, T, D))
+
+
+# (mixes per stream, D, full, S, LS, B): emb_c4, tied_c5, pipe_c3, the
+# chip_smoke.py COMPOSED_CASES, diagonal D=64 M=32 P=6, full D=16
+ELIGIBLE_SHAPES = {
+    "emb_c4": ([32], 13, False, 3, 36, 512),
+    "tied_c5": ([16], 39, False, 3, 30, 1024),
+    "pipe_c3": ([2], 13, False, 3, 27, 40),
+    "case_diag_S2_L1": ([3], 9, False, 2, 2, 37),
+    "case_diag_S3_L3_2streams": ([3, 2], 9, False, 3, 9, 37),
+    "case_full_S3_L5": ([2], 6, True, 3, 15, 37),
+    "case_diag_S4_L5": ([4], 13, False, 4, 20, 37),
+    "case_full_S2_L3_2streams": ([3, 2], 4, True, 2, 6, 37),
+    "case_diag_S3_L12_M32": ([32], 13, False, 3, 36, 37),
+    "case_diag_S3_L10_M16_D39": ([16], 39, False, 3, 30, 37),
+    "diag_D64_M32_P6": ([32] * 6, 64, False, 3, 30, 64),
+    "full_D16_M16": ([16], 16, True, 3, 30, 64),
+    "full_D16_M82": ([82], 16, True, 3, 30, 64),
+}
+
+
+@pytest.mark.parametrize("name", sorted(ELIGIBLE_SHAPES))
+def test_main_path_shapes_stay_eligible(name):
+    mixes, D, full, S, LS, B = ELIGIBLE_SHAPES[name]
+    cov = ["full" if full else "diag"] * len(mixes)
+    assert kc.fused_eligible(_cuda_feats(B, 100, D), cov, [D] * len(mixes), mixes, S, LS, B)
+    assert kc.moments_smem_bytes(mixes, D, full) <= kc.SMEM_LIMIT
+    strides = [kc.record_stride(D, full)] * len(mixes)
+    assert kc.emission_ring(mixes, strides) * 4 * sum(m * s for m, s in zip(mixes, strides)) <= kc.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("cov,mixes_dims,nbuf,slots", BANK_DEPTH_CASES)
+def test_bank_depth_cases_pick_their_depths(cov, mixes_dims, nbuf, slots):
+    """The shapes tests/test_torch_cuda.py and chip_smoke.py use for the
+    emission ring's and the moments batch's shallower depths are eligible
+    and pick those depths."""
+    mixes = [m for m, _ in mixes_dims]
+    D, full = mixes_dims[0][1], cov == "full"
+    assert kc.fused_eligible(_cuda_feats(19, 95, D), [cov] * len(mixes), [D] * len(mixes), mixes, 3, 12, 19)
+    assert kc.emission_ring(mixes, [kc.record_stride(D, full)] * len(mixes)) == nbuf
+    assert kc.moments_slots(mixes, D, full) == slots
+
+
+def _moments_smem_before_redesign(mixes, D, full):
+    """One moments block of csrc/composed.cu before its redesign: every
+    stream's records and accumulators, posterior weights (max M, 129),
+    features (128, D | 1)."""
+    rec = sum(mixes) * kc.record_stride(D, full)
+    acc = sum(mixes) * kc.moment_cols(D, full)
+    return 4 * (rec + max(mixes) * 129 + 128 * (D | 1) + acc)
+
+
+def test_no_shape_eligible_before_the_redesign_is_refused_now():
+    """Over P = 1-6 streams of M = 1-96 mixtures (one M, and M, M-1, ...
+    per stream), D = 1-64 diagonal and 1-16 full: the redesigned blocks
+    fit wherever the old one did, and the emission's ring falls back to
+    the old single buffer where a deeper one does not fit."""
+    for full, dims in ((False, range(1, 65)), (True, range(1, 17))):
+        for D in dims:
+            stride = kc.record_stride(D, full)
+            for P in range(1, 7):
+                for M in range(1, 97):
+                    for mixes in ([M] * P, [max(1, M - q) for q in range(P)]):
+                        if _moments_smem_before_redesign(mixes, D, full) > kc.SMEM_LIMIT:
+                            continue
+                        assert kc.moments_smem_bytes(mixes, D, full) <= kc.SMEM_LIMIT, (mixes, D, full)
+                        ring = kc.emission_ring(mixes, [stride] * P)
+                        assert ring * 4 * sum(mixes) * stride <= kc.SMEM_LIMIT, (mixes, D, full)

@@ -22,7 +22,7 @@ from srhmm_tpu_torch.ops.kernels import fused_em as fe
 from srhmm_tpu_torch.ops.kernels import scoring
 from srhmm_tpu_torch.ops.kernels.common import NEG_INF
 from srhmm_tpu_torch.train import em
-from torch_port_utils import rand_word
+from torch_port_utils import BANK_DEPTH_CASES, rand_word, sparse_gammas
 
 pytestmark = pytest.mark.cuda
 
@@ -502,6 +502,106 @@ def test_tied_em_step_takes_the_kernels(cuda_device, monkeypatch):
     with pytest.raises(ValueError, match="float32"):
         kc.bank_emission(emb._positions(transcripts, 3), emb._pack_bank(tied.senones, 9, False),
                          feats.double())
+
+
+# the redesigned bank kernels: every register bound, M off the mma tiles,
+# six streams of different M, lengths off the 32-frame tile, sparse gammas
+# (torch_port_utils.sparse_gammas: zero tiles beside single-frame edge tiles, one
+# term a bank row, subnormal values)
+_BANK_LENS = [0, 1, 31, 32, 33, 64, 95] + [int(n) for n in np.random.default_rng(9).integers(2, 95, size=12)]
+_BANK_CASES = [
+    ("diag", ((1, 13),)),
+    ("diag", ((3, 13),)),
+    ("diag", ((16, 13),)),
+    ("diag", ((17, 13),)),
+    ("diag", ((32, 13),)),
+    ("diag", ((3, 9),)),
+    ("diag", ((4, 39),)),
+    ("diag", ((2, 64),)),
+    ("full", ((3, 4),)),
+    ("full", ((2, 16),)),
+    ("diag", ((1, 13), (3, 13), (16, 13), (17, 13), (32, 13), (2, 13))),
+]
+
+
+def _moments_all(ids, banks, feats, gamma, lengths, full):
+    """Kernel twice and in the (B, LS, T) layout, and the twin, as tuples."""
+    as_t = lambda m: m if isinstance(m, tuple) else (m,)
+    k = as_t(kc.bank_moments_lattice(ids, banks, feats, gamma, lengths, full))
+    k2 = as_t(kc.bank_moments_lattice(ids, banks, feats, gamma, lengths, full))
+    kb = as_t(kc.bank_moments(ids, banks, feats, gamma.permute(2, 1, 0).contiguous(), lengths, full))
+    p = as_t(kc.bank_moments_lattice_plain(ids, banks, feats, gamma, lengths, full))
+    torch.cuda.synchronize()
+    return k, k2, kb, p
+
+
+def _check_bank_kernels(device, cov, mixes_dims):
+    """bank_emission and the moments vs their twins: log_b within 1e-5,
+    moments within 1e-4 of scale per part, on the lattice's own gamma and
+    on sparse / subnormal ones; two runs and the two layouts bitwise equal."""
+    _, _, ids, banks, feats, lengths, diag_row, diag_col, full = _composed_case(
+        device, cov, 3, 4, mixes_dims, lens=_BANK_LENS)
+    banks = banks if len(banks) > 1 else banks[0]
+    lb_k = kc.bank_emission(ids, banks, feats, full)
+    lb_p = kc.bank_emission_plain(ids, banks, feats, full)
+    _lattice_close(lb_k, lb_p)
+    assert torch.equal(lb_k, kc.bank_emission(ids, banks, feats, full))
+    la = kc.composed_forward_plain(lb_p, diag_col, lengths)
+    log_z = la[-1, -1]
+    valid = torch.isfinite(log_z) & (log_z > NEG_INF / 2) & (lengths > 0)
+    gamma = kc.composed_backward_stats_plain(lb_p, la, diag_row, lengths, torch.where(valid, log_z, 0.0),
+                                             valid.float())[0]
+    D = feats.shape[-1]
+    gammas = {"lattice": gamma, **sparse_gammas(ids, lengths, feats.shape[1], seed=3)}
+    for tag, g in gammas.items():
+        k, k2, kb, p = _moments_all(ids, banks, feats, g, lengths, full)
+        for a, a2, b, want in zip(k, k2, kb, p):
+            assert torch.equal(a, a2) and torch.equal(a, b), tag
+            for part in (slice(0, D), slice(D, -1), slice(-1, None)):
+                _stat_close(a[..., part], want[..., part])
+        if tag == "subnormal":  # not flushed: as the twin's, to 1e-4 of their scale
+            assert all(float(a[..., -1].abs().max()) > 0 for a in k)
+
+
+@pytest.mark.parametrize("cov,mixes_dims", _BANK_CASES)
+def test_bank_kernels_match_plain_at_every_bound(cuda_device, cov, mixes_dims):
+    _check_bank_kernels(cuda_device, cov, mixes_dims)
+
+
+@pytest.mark.parametrize("cov,mixes_dims,nbuf,slots", BANK_DEPTH_CASES)
+def test_bank_kernels_match_plain_at_every_buffer_depth(cuda_device, cov, mixes_dims, nbuf, slots):
+    """_check_bank_kernels where the emission's ring holds nbuf < 3 rows'
+    records and a moments batch takes slots < 4 tiles (their own copy,
+    wait and barrier branches)."""
+    mixes, D = [m for m, _ in mixes_dims], mixes_dims[0][1]
+    assert kc.emission_ring(mixes, [kc.record_stride(D, cov == "full")] * len(mixes)) == nbuf
+    assert kc.moments_slots(mixes, D, cov == "full") == slots
+    _check_bank_kernels(cuda_device, cov, mixes_dims)
+
+
+def test_bank_kernels_poison_out_of_range_ids(cuda_device):
+    """An id outside [0, NB) gives NaN log_b rows and a NaN moment row (the
+    first or last bank row, where the stable sort puts it); every other
+    bank row stays finite and equal to the twin's."""
+    _, _, ids, banks, feats, lengths, diag_row, diag_col, full = _composed_case(
+        cuda_device, "diag", 3, 4, ((3, 9),), lens=_BANK_LENS)
+    bank = banks[0]
+    NB = bank.shape[0]
+    bad = ids.clone()
+    bad[3, 5] = NB
+    bad[4, 0] = -1
+    lb = kc.bank_emission(bad, bank, feats, full)
+    torch.cuda.synchronize()
+    assert torch.isnan(lb[:, 5, 3]).all() and torch.isnan(lb[:, 0, 4]).all()
+    assert int(torch.isnan(lb).sum()) == 2 * lb.shape[0]
+    g = sparse_gammas(ids, lengths, feats.shape[1], seed=3)["edges"]
+    mom = kc.bank_moments_lattice(bad, bank, feats, g, lengths, full)
+    torch.cuda.synchronize()
+    rows_nan = torch.isnan(mom).flatten(1).any(1).cpu().numpy()
+    assert rows_nan[0] and rows_nan[NB - 1] and not rows_nan[1:NB - 1].any()
+    want = kc.bank_moments_lattice_plain(bad.clamp(0, NB - 1), bank, feats, g, lengths, full)
+    ok = torch.as_tensor(~rows_nan, device=mom.device)
+    _stat_close(mom[ok], want[ok])
 
 
 # ---------------------------------------------------------------------------

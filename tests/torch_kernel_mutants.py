@@ -1,11 +1,12 @@
-"""Mutation check of csrc/lattice.cu and csrc/emission_em.cu (needs a CUDA
-card and nvcc; not a tier-1 test):
+"""Mutation check of csrc/lattice.cu, csrc/emission_em.cu and csrc/composed.cu
+(needs a CUDA card and nvcc; not a tier-1 test):
 
     python tests/torch_kernel_mutants.py [mutant ...]
 
 Each mutant is a copy of the tree in a temporary directory with one
 deliberate fault in a kernel source; the chip_smoke.py phase that should
-catch it (kernel_lattice or kernel_emission) runs there, after the build.
+catch it (kernel_lattice, kernel_emission or kernel_composed) runs there,
+after the build.
 Prints one JSON line per mutant: caught (the phase raised) or survived.
 With no arguments every mutant runs.
 """
@@ -19,6 +20,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 LAT, EM = "srhmm_tpu_torch/csrc/lattice.cu", "srhmm_tpu_torch/csrc/emission_em.cu"
+COMP = "srhmm_tpu_torch/csrc/composed.cu"
 MUTANTS = [
     ("forward_length_mask", LAT, "    } else if (t < len) {\n      const float* prev = row + ((t + 1) & 1) * nt + q.base;\n      float m",
      "    } else if (t <= len) {\n      const float* prev = row + ((t + 1) & 1) * nt + q.base;\n      float m", "kernel_lattice"),
@@ -32,6 +34,15 @@ MUTANTS = [
      "const int nf = (int)min((long long)kFrames, n1 - c0) - 1;", "kernel_emission"),
     ("stats_sum_skips_last_range", EM, "for (int r = 0; r < ranges; ++r)", "for (int r = 0; r + 1 < ranges; ++r)", "kernel_emission"),
     ("stats_ignores_neg_inf_log_b", EM, "(on && lb > kNegInf) ? p.gamma", "(on) ? p.gamma", "kernel_emission"),
+    ("moments_vote_skips_single_frame_tile", COMP, "__any_sync(~0u, gv[v] != 0.f)",
+     "(__popc(__ballot_sync(~0u, gv[v] != 0.f)) > 1)", "kernel_composed"),
+    ("moments_3xtf32_drops_lo_hi", COMP, "        mma_tf32(c[hh], alo, b0h, b1h);\n", "", "kernel_composed"),
+    ("emission_groups_floor", COMP, "int groups_of(int D) { return (D + 3) / 4; }",
+     "int groups_of(int D) { return D / 4; }", "kernel_composed"),
+    ("sum_chunks_skips_last_partial", COMP, "g < m.chunk_cum[r + 1]; ++g)", "g + 1 < m.chunk_cum[r + 1]; ++g)",
+     "kernel_composed"),
+    ("emission_ring_reads_previous_row", COMP, "ring + (size_t)(j % nbuf) * p.rec_floats;",
+     "ring + (size_t)((j + nbuf - 1) % nbuf) * p.rec_floats;", "kernel_composed"),
 ]
 DRIVER = """
 import sys, torch

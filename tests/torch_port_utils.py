@@ -9,6 +9,7 @@ machine without JAX.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from srhmm_tpu_torch.models import gmm_hmm_from_numpy, init_left_right_trans
 
@@ -131,3 +132,51 @@ def assert_log_close(got, want, bound=1e-5, neg_inf=-1e30):
     assert ((got > neg_inf / 2) == mask).all()
     rel = np.abs(got[mask] - want[mask]) / np.maximum(np.abs(want[mask]), 1.0)
     assert rel.max(initial=0.0) <= bound, rel.max()
+
+
+def sparse_gammas(ids, lengths, T: int, seed: int) -> dict:
+    """Hand-made gammas (T, LS, B) for the moments' zero-tile skipping.
+    "edges": every (utterance, row) pair with frames keeps one non-zero
+    frame, the first or the last of one 32-frame tile (or its last valid
+    frame), so all-zero tiles sit next to tiles with one non-zero frame at
+    an edge; frame `length` also carries a value (masked: t >= length).
+    "single": one frame of one pair for each bank row, so each bank row's
+    moments are one term (a posterior weight's rounding shows in full);
+    "subnormal": "single" at 1e-40 scale (not zero: computed, not flushed).
+    Shared by chip_smoke.py and tests/test_torch_cuda.py."""
+    from srhmm_tpu_torch.ops.kernels.composed import TILE
+
+    rng = np.random.default_rng(seed)
+    B, LS = ids.shape
+    lens = [int(n) for n in lengths.tolist()]
+    ids_h = ids.cpu().numpy()
+    edges = np.zeros((T, LS, B), np.float32)
+    single = np.zeros((T, LS, B), np.float32)
+    seen = set()
+    for b in range(B):
+        n = lens[b]
+        for j in range(LS):
+            if n < T:
+                edges[n, j, b] = 0.5  # past the length: never counted
+            if n < 1:
+                continue
+            u = int(rng.integers(0, -(-n // TILE)))
+            t = min(u * TILE + (TILE - 1 if (b + j) % 2 else 0), n - 1)
+            edges[t, j, b] = rng.uniform(0.05, 1.0)
+            if int(ids_h[b, j]) not in seen:
+                seen.add(int(ids_h[b, j]))
+                single[t, j, b] = rng.uniform(0.05, 1.0)
+    dev = ids.device
+    return {"edges": torch.as_tensor(edges, device=dev), "single": torch.as_tensor(single, device=dev),
+            "subnormal": torch.as_tensor(single * np.float32(1e-40), device=dev)}
+
+
+# Bank-kernel shapes that reach the shallower buffer depths of
+# csrc/composed.cu: (cov, ((M, D) per stream), the emission's ring depth
+# (emission_ring), the moments' tiles a batch (moments_slots))
+BANK_DEPTH_CASES = [
+    ("diag", ((32, 64),) * 6, 2, 4),
+    ("diag", ((64, 39),) * 6, 1, 4),
+    ("full", ((82, 16),), 2, 2),
+    ("diag", ((200, 39),), 2, 1),
+]

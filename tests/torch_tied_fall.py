@@ -37,20 +37,10 @@ import chip_smoke as cs  # noqa: E402
 
 
 def build(B: int):
-    """tied_c5's senones, transitions, state map, transcripts and utterances
-    (chip_smoke.py::phase_tied's draws, in its order, with B utterances)."""
-    P, S, N, M, D, L = 700, 3, 2000, 16, 39, 10
-    rng = np.random.default_rng(45)
-    senones = cs.rand_stream(rng, N, M, D, "diag")
-    sm = np.zeros((P, S), np.int64)
-    for s, pool in enumerate(np.array_split(np.arange(N), S)):
-        perm = rng.permutation(P)
-        sm[perm[: len(pool)], s] = pool
-        sm[perm[len(pool):], s] = rng.choice(pool, size=P - len(pool))
-    trans = np.stack([cs.left_right_trans(S, 3.0) for _ in range(P)])
-    trs = rng.integers(0, P, size=(B, L))
-    rows = sm[trs].reshape(B, L * S)
-    utts = cs.composed_dataset(rng, senones["weights"], senones["means"], senones["inv_cov"], rows, B, (250, 305))
+    """tied_c5's senones, transitions, state map, transcripts and padded
+    features (chip_smoke.py::tied_c5_inputs, with B utterances)."""
+    senones, trans, sm, trs, utts = cs.tied_c5_inputs(B)
+    D = senones["means"].shape[-1]
     feats = np.zeros((B, max(len(u) for u in utts), D), np.float32)
     for i, u in enumerate(utts):
         feats[i, : len(u)] = u
