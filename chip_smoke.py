@@ -160,6 +160,7 @@ FRAME_S = 0.01  # seconds of audio per frame
 # 67 TFLOP/s outside the tensor cores, whichever is larger
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+TF32_TC_OPS_PER_S = 495e12  # dense TF32 tensor-core rate (NVIDIA H100 SXM data sheet)
 
 
 def emit(obj) -> None:
@@ -291,10 +292,12 @@ def make_dataset(seed, B, S, M, D, t_range, full=False):
     return utts
 
 
-def em_case(torch, cov, band, mixes_dims, lens, S=6, seed=0):
+def em_case(torch, cov, band, mixes_dims, lens, S=6, seed=0, shared_gaussians=False):
     """One E-step's CUDA inputs from a seed: (feats, packed, origins, trans,
     lengths) for emit_forward / backward_stats.  band=None gives a dense
-    random transition matrix, else a left-right one of that band."""
+    random transition matrix, else a left-right one of that band.
+    shared_gaussians: every mixture of a state gets mixture 0's Gaussian,
+    so the posteriors are the mixture weights (none near 0 or 1)."""
     from srhmm_tpu_torch.models import gmm_hmm_from_numpy
     from srhmm_tpu_torch.ops.kernels.fused_em import pack_lane_constants
 
@@ -307,6 +310,10 @@ def em_case(torch, cov, band, mixes_dims, lens, S=6, seed=0):
             trans[i, i : i + band + 1] = rng.uniform(0.2, 1.0, size=min(band + 1, S - i))
     trans /= trans.sum(-1, keepdims=True)
     streams = [rand_stream(rng, S, M, D, cov) for M, D in mixes_dims]
+    if shared_gaussians:
+        for st in streams:
+            for key in ("means", "inv_cov", "det"):
+                st[key] = np.repeat(st[key][:, :1], st[key].shape[1], axis=1)
     model = gmm_hmm_from_numpy(trans, streams).astype(torch.float32).to("cuda")
     T, B = max(lens), len(lens)
     feats = tuple(
@@ -470,9 +477,37 @@ def phase_kernel(torch) -> float:
     return worst_abs
 
 
+# backward_stats cases beyond the diag/full x band x P = 1, 2 grid:
+# (cov, band, [(M, D) per stream], S); D=39 diagonal, full D=16, six
+# streams, full D=16 M=16 (its accumulators only fit in the partials:
+# backward_block's acc_global) and dense S=10 (transition slots past the
+# registers' kXiRegs)
+EM_EXTRA_CASES = [
+    ("diag", 1, [(3, 39)], 6),
+    ("full", 1, [(2, 16)], 6),
+    ("diag", 2, [(3, 9), (2, 3), (2, 5), (1, 7), (3, 4), (2, 6)], 6),
+    ("full", 1, [(16, 16)], 6),
+    ("diag", None, [(3, 9)], 10),
+]
+
+
+def port_utils():
+    """tests/torch_port_utils.py: the test inputs shared with
+    tests/test_torch_cuda.py (no JAX)."""
+    if str(ROOT / "tests") not in sys.path:
+        sys.path.insert(0, str(ROOT / "tests"))
+    import torch_port_utils
+
+    return torch_port_utils
+
+
 def phase_kernel_em(torch) -> dict:
     """emit_forward and backward_stats vs their plain twins on the same CUDA
-    tensors; the twins' lattices feed both backward passes.  Returns the
+    tensors; the twins' lattices feed both backward passes: diag/full x
+    band 1, 2, dense x P = 1, 2 at random lengths, then EM_EXTRA_CASES at
+    lengths on the backward-stats tile edges (em_lengths).  Fails unless a
+    partial tile (T % TT != 0), skipped gamma columns (frames past a
+    length) and accumulators in the partials were reached.  Returns the
     worst absolute error per kernel."""
     from srhmm_tpu_torch.ops.kernels import fused_em as fe
 
@@ -480,53 +515,72 @@ def phase_kernel_em(torch) -> dict:
     lens = [int(n) for n in rng.integers(2, 95, size=34)] + [95, 0, 1]  # B=37, T=95
     worst = {"emit_forward": 0.0, "backward_stats": 0.0}
     saved = fe.emit_forward.launches, fe.backward_stats.launches
-    for cov in ("diag", "full"):
-        for band in (1, 2, None):
-            for mixes_dims in ([(3, 9)], [(3, 9), (2, 3)]):
-                feats, packed, origins, trans, lengths = em_case(torch, cov, band, mixes_dims, lens)
-                args = (feats, packed, origins, trans, lengths)
-                lb_k, la_k = fe.emit_forward(*args, band)
-                lb_p, la_p = fe.emit_forward_plain(*args, band)
-                lb_k2, la_k2 = fe.emit_forward(*args, band)
-                log_z = la_p[-1, -1]
-                valid = torch.isfinite(log_z) & (log_z > NEG_INF / 2) & (lengths > 0)
-                safe_z = torch.where(valid, log_z, 0.0)
-                vmask = valid.to(torch.float32)
-                rest = (feats, lb_p, la_p, packed, origins, trans, lengths, safe_z, vmask, band)
-                st_k = fe.backward_stats(*rest)
-                st_p = fe.backward_stats_plain(*rest)
-                st_k2 = fe.backward_stats(*rest)
-                torch.cuda.synchronize()
-                name = f"{cov}_band{band}_P{len(mixes_dims)}"
-                res = {"log_b": compare_lattice(lb_k, lb_p, f"{name} log_b"),
-                       "log_alpha": compare_lattice(la_k, la_p, f"{name} log_alpha")}
-                # each moment block is its own statistic: its first moments,
-                # second moments and occupancy column have different scales
-                def parts(st):
-                    out = [st[0], st[1], st[2]]
-                    for mom, (_, D) in zip(st[3], mixes_dims):
-                        out += [mom[:, :D], mom[:, D:-1], mom[:, -1]]
-                    return out
+    cases = [(cov, band, md, lens, 6) for cov in ("diag", "full") for band in (1, 2, None)
+             for md in ([(3, 9)], [(3, 9), (2, 3)])]
+    edges = port_utils().em_tile_lengths
+    cases += [(cov, band, md, edges(np.random.default_rng(30 + i), 95, fe.BACKWARD_TILES[0]), S)
+              for i, (cov, band, md, S) in enumerate(EM_EXTRA_CASES)]
+    # moments of one or two frames, the posteriors the mixture weights: the
+    # contraction's rounding is neither averaged away over many terms nor
+    # hidden by posteriors of exactly 1
+    cases += [("diag", 1, [(2, 9)], [2, 3], 2)]
+    reached = set()
+    for cov, band, mixes_dims, lens, S in cases:
+        feats, packed, origins, trans, lengths = em_case(torch, cov, band, mixes_dims, lens, S=S,
+                                                         shared_gaussians=len(lens) == 2)
+        args = (feats, packed, origins, trans, lengths)
+        lb_k, la_k = fe.emit_forward(*args, band)
+        lb_p, la_p = fe.emit_forward_plain(*args, band)
+        lb_k2, la_k2 = fe.emit_forward(*args, band)
+        log_z = la_p[-1, -1]
+        valid = torch.isfinite(log_z) & (log_z > NEG_INF / 2) & (lengths > 0)
+        safe_z = torch.where(valid, log_z, 0.0)
+        vmask = valid.to(torch.float32)
+        rest = (feats, lb_p, la_p, packed, origins, trans, lengths, safe_z, vmask, band)
+        st_k = fe.backward_stats(*rest)
+        st_p = fe.backward_stats_plain(*rest)
+        st_k2 = fe.backward_stats(*rest)
+        torch.cuda.synchronize()
+        occ = fe.occupancy(1, *args, band)
+        T = max(lens)
+        skipped = sum(T - min(n, T) if v else T for n, v in zip(lens, valid.tolist()))
+        reached |= {"partial_tile"} if T % occ["tile_frames"] else set()
+        reached |= {"skipped_columns"} if skipped else set()
+        reached |= {"acc_in_partials"} if not occ["acc_in_shared_memory"] else set()
+        reached |= {"slots_past_registers"} if band is None and S > fe.XI_REGS else set()
+        name = f"{cov}_S{S}_band{band}_" + "_".join(f"M{M}D{D}" for M, D in mixes_dims)
+        res = {"log_b": compare_lattice(lb_k, lb_p, f"{name} log_b"),
+               "log_alpha": compare_lattice(la_k, la_p, f"{name} log_alpha")}
+        # each moment block is its own statistic: its first moments,
+        # second moments and occupancy column have different scales
+        def parts(st):
+            out = [st[0], st[1], st[2]]
+            for mom, (_, D) in zip(st[3], mixes_dims):
+                out += [mom[:, :D], mom[:, D:-1], mom[:, -1]]
+            return out
 
-                kst, pst = parts(st_k), parts(st_p)
-                names = ["xi", "den_trans", "den_mix"] + [
-                    f"mom{q}_{part}" for q in range(len(mixes_dims)) for part in ("x", "xx", "w")
-                ]
-                for n, a, b in zip(names, kst, pst):
-                    res[n] = compare_stat(a, b, f"{name} {n}")
-                again = parts(st_k2)
-                bitwise = (torch.equal(lb_k, lb_k2) and torch.equal(la_k, la_k2)
-                           and all(torch.equal(a, b) for a, b in zip(kst, again)))
-                if not bitwise:
-                    raise AssertionError(f"{name}: two kernel runs of one E-step differ")
-                worst["emit_forward"] = max(worst["emit_forward"], res["log_b"]["max_abs_err"],
-                                            res["log_alpha"]["max_abs_err"])
-                worst["backward_stats"] = max(worst["backward_stats"],
-                                              *(res[n]["max_abs_err"] for n in names))
-                emit({"phase": "kernel_em", "config": name, "B": len(lens), "T": max(lens),
-                      "valid": int(vmask.sum()), "bitwise_repeat": bitwise,
-                      **{k: v["rel_err"] for k, v in res.items()}})
+        kst, pst = parts(st_k), parts(st_p)
+        names = ["xi", "den_trans", "den_mix"] + [
+            f"mom{q}_{part}" for q in range(len(mixes_dims)) for part in ("x", "xx", "w")
+        ]
+        for n, a, b in zip(names, kst, pst):
+            res[n] = compare_stat(a, b, f"{name} {n}")
+        again = parts(st_k2)
+        bitwise = (torch.equal(lb_k, lb_k2) and torch.equal(la_k, la_k2)
+                   and all(torch.equal(a, b) for a, b in zip(kst, again)))
+        if not bitwise:
+            raise AssertionError(f"{name}: two kernel runs of one E-step differ")
+        worst["emit_forward"] = max(worst["emit_forward"], res["log_b"]["max_abs_err"],
+                                    res["log_alpha"]["max_abs_err"])
+        worst["backward_stats"] = max(worst["backward_stats"],
+                                      *(res[n]["max_abs_err"] for n in names))
+        emit({"phase": "kernel_em", "config": name, "B": len(lens), "T": T,
+              "valid": int(vmask.sum()), "bitwise_repeat": bitwise, "block": occ,
+              "skipped_columns": skipped, **{k: v["rel_err"] for k, v in res.items()}})
     fe.emit_forward.launches, fe.backward_stats.launches = saved  # comparison launches
+    want = {"partial_tile", "skipped_columns", "acc_in_partials", "slots_past_registers"}
+    if reached != want:
+        raise AssertionError(f"kernel_em reached {sorted(reached)}, not {sorted(want)}")
     return worst
 
 
@@ -843,6 +897,53 @@ def timed_pair(torch, plain, kernel, plain_warmup=1) -> dict:
             "ms": min(kern_a, kern_b), "best_plain_ms": min(plain_a, plain_b)}
 
 
+def em_bounds(out: dict, T: int, dims, full: bool, packed, trans, lengths, valid, band) -> None:
+    """Adds each E-step kernel's bound (see bound()) and share of it to
+    out["emit_forward"] / out["backward_stats"]; raises if a kernel's time
+    is below its bound.  K1 reads the stepped frames' features and the
+    constants and writes log_b and log_alpha (T, S, B); K2 reads them back
+    with the features and writes xi, den_trans, den_mix and the moments.
+    Per stepped frame and state: K1 the emission and the banded forward
+    step; K2 the banded backward step with xi, and the emission again with
+    the posteriors' moment multiply-adds (2 (L+1) per mixture, L = 2D or
+    D + D^2).  K2's bound counts the emission and moments of the columns
+    with a gamma that is not zero only (frames t < length of valid
+    utterances: the kernel skips the others, which add nothing), the
+    contraction's multiply-adds at the TF32 tensor-core rate, the rest at
+    the fp32 rate, the larger of the three times; dense_bound_ms counts
+    every stepped frame at the fp32 rate, as before the kernel skipped."""
+    B = lengths.shape[0]
+    S = trans.shape[-1]
+    lens = lengths.tolist()
+    frames = valid_frames(lens, T)
+    kept = int(sum(min(int(n), T) for n, v in zip(lens, valid.tolist()) if v))
+    nb = (band if band is not None else S - 1) + 1
+    sum_d = sum(D for D, _ in dims)
+    consts = sum(numel_bytes(*pk) for pk in packed) + numel_bytes(trans)
+    em_ops = sum(mixture_ops(D, M, full) for D, M in dims)
+    mom = sum(M * ((D + D * D if full else 2 * D) + 1) for D, M in dims)
+    lattices = 4 * 2 * T * S * B
+    out["emit_forward"].update(bound(4 * frames * sum_d + consts + lattices, frames * S * (em_ops + 4 * nb + 4)))
+    k2_bytes = 4 * frames * sum_d + consts + lattices + 4 * (nb + 2) * S * B + 4 * S * mom
+    dense = bound(k2_bytes, frames * S * (em_ops + 2 * mom + 8 * nb + 8))
+    fp32_ops = frames * S * (8 * nb + 8) + kept * S * (em_ops + sum(6 * M for _, M in dims))
+    tc_ops = kept * S * 2 * mom
+    times = {"bytes": k2_bytes / HBM_BYTES_PER_S * 1e3,
+             "operations": max(fp32_ops / FP32_OPS_PER_S, tc_ops / TF32_TC_OPS_PER_S) * 1e3}
+    by = max(times, key=times.get)
+    out["backward_stats"].update({"bound_ms": times[by], "bound_by": by, "bound_bytes": k2_bytes,
+                                  "bound_ops": fp32_ops, "bound_tensor_core_ops": tc_ops,
+                                  "nonzero_gamma_columns": kept, "stepped_columns": frames,
+                                  "skipped_column_share": 1.0 - kept / (T * B),
+                                  "dense_bound_ms": dense["bound_ms"], "dense_bound_by": dense["bound_by"]})
+    for name in ("emit_forward", "backward_stats"):
+        row = out[name]
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        row["us_per_frame"] = row["ms"] / T * 1e3
+        if row["share_of_bound"] > 1.0:
+            raise AssertionError(f"{name}: {row['ms']} ms is below its bound {row['bound_ms']} ms")
+
+
 def phase_timing_em(torch, train: dict, smi: str) -> dict:
     """emit_forward, backward_stats and one whole EM iteration (kernel path
     vs fused=False) at a train shape, on the trained phase's initial model."""
@@ -873,24 +974,8 @@ def phase_timing_em(torch, train: dict, smi: str) -> dict:
     fe.emit_forward.launches, fe.backward_stats.launches = saved  # timing launches
     audio_s = train["res"]["frames"] * FRAME_S
     it = out["em_iteration"]
-    # bounds: K1 reads the stepped frames' features and the constants and
-    # writes log_b and log_alpha (T, S, B); K2 reads them back with the
-    # features and writes xi, den_trans, den_mix and the moment partials.
-    # Per stepped frame and state: K1 the emission and the banded forward
-    # step; K2 the emission again, the mixture posteriors' moment
-    # multiply-adds (2 (L+1) per mixture, L = 2D or D + D^2) and the banded
-    # backward step with xi
-    T, D, B = feats_tdb.shape
-    S, M, full = model.num_states, model.mixture_numbers[0], model.streams[0].cov_type == "full"
-    frames = valid_frames(batch.lengths.tolist(), T)
-    L1 = (D + D * D if full else 2 * D) + 1
-    nb = (band if band is not None else S - 1) + 1
-    consts = numel_bytes(*packed[0], model.trans)
-    out["emit_forward"].update(bound(4 * frames * D + consts + 4 * 2 * T * S * B,
-                                     frames * S * (mixture_ops(D, M, full) + 4 * nb + 4)))
-    out["backward_stats"].update(bound(
-        4 * frames * D + consts + 4 * 2 * T * S * B + 4 * (nb + 2) * S * B + 4 * M * S * L1,
-        frames * S * (mixture_ops(D, M, full) + 2 * M * L1 + 8 * nb + 8)))
+    D, M, full = feats_tdb.shape[1], model.mixture_numbers[0], model.streams[0].cov_type == "full"
+    em_bounds(out, feats_tdb.shape[0], [(D, M)], full, packed, model.trans, batch.lengths, valid, band)
     res = {
         "phase": "timing_em", "config": train["res"]["config"], "reps": 20, **out,
         "em_audio_s_per_s": audio_s / (it["ms"] / 1e3),
@@ -1449,9 +1534,7 @@ def sparse_moments_check(torch, ids, banks, feats, lengths, full, what) -> dict:
     D = feats.shape[-1]
     as_t = lambda m: m if isinstance(m, tuple) else (m,)
     worst = 0.0
-    if str(ROOT / "tests") not in sys.path:
-        sys.path.insert(0, str(ROOT / "tests"))
-    from torch_port_utils import sparse_gammas
+    sparse_gammas = port_utils().sparse_gammas
 
     for tag, gamma in sparse_gammas(ids, lengths, feats.shape[1], seed=ids.shape[1]).items():
         m_k = as_t(kc.bank_moments_lattice(ids, banks, feats, gamma, lengths, full))
@@ -1464,6 +1547,46 @@ def sparse_moments_check(torch, ids, banks, feats, lengths, full, what) -> dict:
         for q, (a, b) in enumerate(zip(m_k, m_p)):
             for part, sl in (("x", slice(0, D)), ("xx", slice(D, -1)), ("w", slice(-1, None))):
                 worst = max(worst, compare_stat(a[..., sl], b[..., sl], f"{what} {tag} mom{q}_{part}")["max_abs_err"])
+    return worst
+
+
+def backward_check(torch) -> float:
+    """composed_backward_stats vs its twin over torch_port_utils'
+    BACKWARD_CASES (gamma, xi,
+    den_trans, den_mix within STAT_BOUND, two runs bitwise equal); fails
+    unless every launch shape in question was reached.  Returns the worst
+    absolute error."""
+    from srhmm_tpu_torch.ops.kernels import composed as kc
+
+    utils = port_utils()
+    worst, reached = 0.0, set()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for LS, nd, T, B in utils.BACKWARD_CASES:
+        args = utils.backward_lattice_case(torch.device("cuda"), 700 + LS, LS, nd, T, B)
+        st_k, st_k2 = kc.composed_backward_stats(*args), kc.composed_backward_stats(*args)
+        st_p = kc.composed_backward_stats_plain(*args)
+        torch.cuda.synchronize()
+        what = f"backward LS{LS} nd{nd} T{T} B{B}"
+        rel = {}
+        for n, a, b, c in zip(("gamma", "xi", "den_trans", "den_mix"), st_k, st_p, st_k2):
+            r = compare_stat(a, b, f"{what} {n}")
+            rel[n] = r["rel_err"]
+            worst = max(worst, r["max_abs_err"])
+            if not torch.equal(a, c):
+                raise AssertionError(f"{what}: two runs of {n} differ")
+        blk = kc.backward_block(LS, B, nd, sms)
+        reached |= {("rows_per_lane", blk["rows_per_lane"])}
+        reached |= {"warps_per_utterance"} if blk["warps"] > 1 else set()
+        reached |= {"ragged_block"} if blk["utts"] > 1 and B % blk["utts"] else set()
+        reached |= {"partial_tile"} if T % blk["tile"] else set()
+        reached |= {"one_partial_tile"} if T < blk["tile"] else set()
+        reached |= {"wide_band"} if nd > 4 else set()
+        emit({"phase": "kernel_composed", "config": what, "block": blk,
+              "valid": int(args[-1].sum()), "bitwise_repeat": True, **rel})
+    want = {("rows_per_lane", 1), ("rows_per_lane", 2), ("rows_per_lane", 4), "warps_per_utterance",
+            "ragged_block", "partial_tile", "one_partial_tile", "wide_band"}
+    if reached != want:
+        raise AssertionError(f"backward_check reached {sorted(reached, key=str)}, not {sorted(want, key=str)}")
     return worst
 
 
@@ -1514,6 +1637,7 @@ def phase_kernel_composed(torch) -> dict:
               "emission_ring": ring, "moments_slots": slots,
               "bitwise_repeat": True, "gamma_layouts_bitwise_equal": True, **out["rel"],
               "zero_tile_gammas_max_abs": sparse})
+    worst["composed_backward_stats"] = max(worst["composed_backward_stats"], backward_check(torch))
     set_composed_counts(saved)  # comparison launches are not main-path launches
     want = {("ring", 3), ("ring", 2), ("ring", 1), ("slots", 4), ("slots", 2), ("slots", 1)}
     if depths != want:
@@ -1902,7 +2026,6 @@ def phase_train_embedded_cli(torch, tmp: Path) -> dict:
     return out
 
 
-TF32_TC_OPS_PER_S = 495e12  # dense TF32 tensor-core rate (NVIDIA H100 SXM data sheet)
 
 
 def moment_tiles(torch, gamma, lengths) -> dict:
@@ -2037,7 +2160,8 @@ def phase_timing_composed(torch, emb: dict, tied: dict, smi: str) -> dict:
             plain_b = median_ms(torch, plain, warmup=1, reps=3)
             ms = min(kern_a, kern_b)
             rows[name] = {"kernel_ms": [kern_a, kern_b], "plain_ms": [plain_a, plain_b], "ms": ms,
-                          "best_plain_ms": min(plain_a, plain_b), **bnd[name], "share_of_bound": bnd[name]["bound_ms"] / ms}
+                          "best_plain_ms": min(plain_a, plain_b), **bnd[name], "share_of_bound": bnd[name]["bound_ms"] / ms,
+                          "us_per_frame": ms / gamma.shape[0] * 1e3}
             if rows[name]["share_of_bound"] > 1.0:
                 raise AssertionError(f"{cell} {name}: {ms} ms is below its bound {bnd[name]['bound_ms']} ms")
         # the moments' split, read off its inputs: gamma all 0 (every tile
@@ -2151,20 +2275,8 @@ def phase_timing_em_p2(torch, p2: dict, smi: str) -> dict:
         out[name] = {"kernel_ms": [kern_a, kern_b], "plain_ms": [plain_a, plain_b], "ms": min(kern_a, kern_b),
                      "best_plain_ms": min(plain_a, plain_b)}
     fe.emit_forward.launches, fe.backward_stats.launches = saved  # timing launches
-    T, _, B = feats[0].shape
-    S = model.num_states
-    frames = valid_frames(lengths.tolist(), T)
-    nb = (band if band is not None else S - 1) + 1
-    dims = [(s.dim, s.num_mixtures) for s in model.streams]
-    sum_d = sum(D for D, _ in dims)
-    consts = sum(numel_bytes(*pk) for pk in packed) + numel_bytes(model.trans)
-    em_ops = sum(mixture_ops(D, M, False) for D, M in dims)
-    mom = sum(M * (2 * D + 1) for D, M in dims)
-    out["emit_forward"].update(bound(4 * frames * sum_d + consts + 4 * 2 * T * S * B,
-                                     frames * S * (em_ops + 4 * nb + 4)))
-    out["backward_stats"].update(bound(
-        4 * frames * sum_d + consts + 4 * 2 * T * S * B + 4 * (nb + 2) * S * B + 4 * S * mom,
-        frames * S * (em_ops + 2 * mom + 8 * nb + 8)))
+    em_bounds(out, feats[0].shape[0], [(s.dim, s.num_mixtures) for s in model.streams], False, packed,
+              model.trans, lengths, valid, band)
     emit({"phase": "timing_em", "config": "em_diag_p2", "P": 2, "kernel_reps": 20, "plain_reps": 3, **out,
           "audio_s": p2["frames"] * FRAME_S, "card": smi})
     return out
@@ -3060,6 +3172,10 @@ def main() -> int:
             "plain_ms": t_comp["emb_c4"]["kernels"][name]["best_plain_ms"],
             **{k: t_comp["emb_c4"]["kernels"][name][k] for k in bkeys},
             "library_ms": None,
+            # the same kernel at tied_c5
+            "ms_tied_c5": t_comp["tied_c5"]["kernels"][name]["ms"],
+            "plain_ms_tied_c5": t_comp["tied_c5"]["kernels"][name]["best_plain_ms"],
+            **{f"{k}_tied_c5": t_comp["tied_c5"]["kernels"][name][k] for k in bkeys},
         }
         for name, where in COMPOSED_ROWS
     ] + [

@@ -78,17 +78,24 @@
 //   (sum_chunks_kernel) sums each bank row's partials in chunk order.  No
 //   atomics: every sum is taken in a fixed order, so two runs, and the two
 //   gamma layouts, are bitwise equal.
-// * The lattice kernels are the fused_em.cu recursion structure without
-//   the emission: one thread per (row, utterance), the whole time loop in
-//   the kernel, one value per thread exchanged through a double-buffered
-//   shared row each frame.  They move 2-4 (T, LS, B) float lattices and do
-//   ~10 operations per element: bound by bytes, and in practice by the
-//   serial chain of T frames per thread.
+// * composed_forward: the fused_em.cu recursion structure without the
+//   emission: one thread per (row, utterance), the whole time loop in the
+//   kernel, one value per thread exchanged through a double-buffered shared
+//   row each frame.  It moves 2 (T, LS, B) float lattices and does ~10
+//   operations per element: bound by bytes, in practice by the serial chain
+//   of T frames per thread.
+// * composed_backward_stats (bound by bytes: 4 lattices; in practice by the
+//   serial chain of T frames of log-sum-exp per row): a warp per utterance
+//   with the rows on lanes, the neighbours by shuffles, so the chain has no
+//   block barrier and reads no device memory; the lattices come into shared
+//   memory a tile of 16 frames ahead (cp.async), and warps of their own add
+//   the statistics of the tile before (see the kernel).
 
 #include <cuda_runtime.h>
 #include <math.h>
 
 #include "emission.cuh"
+#include "tile_mma.cuh"
 
 namespace {
 
@@ -101,14 +108,10 @@ constexpr int kMaxSlots = 4;                // tiles a moments batch (= warps a 
 constexpr int kScan = 4;                    // candidate tiles a warp checks a scan step
 constexpr int kMaxRing = 3;                 // record buffers of a bank-emission block
 constexpr int kMaxBand = 15;                // diagonals - 1 of the composed chain
-constexpr int kMaxLatticeThreads = 1024;    // LS * U threads per lattice block
+constexpr int kMaxLatticeThreads = 1024;    // LS * U threads per forward block
+constexpr int kBackwardThreads = 512;       // threads of a backward-stats block, at most
 constexpr int kReduceThreads = 256;
 constexpr int kTableThreads = 1024;
-// the moments' posterior weights enter the tensor cores times 2^48 (exact):
-// a subnormal weight then keeps all its bits through the TF32 split, and
-// the partials are scaled back by 2^-48 when written
-constexpr float kWeightScale = 0x1p48f;
-constexpr float kWeightUnscale = 0x1p-48f;
 
 struct BankParams {
   const int* ids;                     // (B, LS) bank row of every composed row
@@ -148,7 +151,8 @@ struct LatticeParams {
   float* xi;               // (nd, LS, B) (backward)
   float* den_trans;        // (LS, B) (backward)
   float* den_mix;          // (LS, B) (backward)
-  int T, LS, B, nd, U;     // U utterances per block: LS * U threads
+  int T, LS, B, nd, U;     // U utterances per block
+  int W, TT;               // backward: warps an utterance, frames a tile
 };
 
 // frames a bank-emission thread takes: two where the features fit in few
@@ -161,18 +165,6 @@ __host__ __device__ __forceinline__ int groups_of(int D) { return (D + 3) / 4; }
 // the DMAX of a record of `stride` floats (emission.cuh record_stride)
 __device__ __forceinline__ int record_dmax(int stride, int D, bool full) {
   return full ? (stride - 4) / (D + 1) : (stride - 4) / 2;
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // x (F frames, RB registers each) of utterance b from frame t0 on, every
@@ -310,7 +302,7 @@ __device__ __forceinline__ void copy_records_async(const BankParams& p, int row,
     const int n4 = p.mixes[q] * p.strides[q] / 4;
     const float* src = p.banks[q] + (size_t)row * p.mixes[q] * p.strides[q];
     float* d = dst + p.rec_offs[q];
-    for (int i = threadIdx.x; i < n4; i += blockDim.x) cp_async16(d + 4 * i, src + 4 * i);
+    for (int i = threadIdx.x; i < n4; i += blockDim.x) cp_async16(d + 4 * i, src + 4 * i, true);
   }
 }
 
@@ -435,91 +427,282 @@ __global__ void __launch_bounds__(kMaxLatticeThreads) composed_forward_kernel(co
   }
 }
 
-__global__ void __launch_bounds__(kMaxLatticeThreads)
-    composed_backward_stats_kernel(const LatticeParams p) {
-  extern __shared__ float sh[];
-  const int LS = p.LS, U = p.U, nt = LS * U, tid = threadIdx.x;
-  const int j = tid / U, u = tid - j * U;
-  const int b = blockIdx.x * U + u;
-  const bool live = b < p.B;
-  float drow[kMaxBand + 1], xi[kMaxBand + 1];
-#pragma unroll
-  for (int d = 0; d <= kMaxBand; ++d) {
-    drow[d] = (live && d < p.nd) ? p.diag[((size_t)d * LS + j) * p.B + b] : kNegInf;
-    xi[d] = 0.f;
+// Shared memory of one backward-stats block, in floats (the wrapper's
+// ops/kernels/composed.py backward_smem_bytes mirrors it), for tiles of TT
+// frames: log-alpha in three ring slots and log_b of the next frames in
+// two, each (TT, LS, U) as the copies land (U consecutive floats along B a
+// row; gamma takes log-alpha's place), a tile's pitch AP = LS U rounded up
+// to 4; then the recursion's inner terms and log-beta in two slots each,
+// (TT, U, LP) with the row pitch LP = 32 R W + 4 (the rows of a lane
+// adjacent, so a lane moves its R rows as one vector; + 4 spreads the
+// utterances over the banks).
+__host__ __device__ inline int backward_pitch(int R, int W) { return 32 * R * W + 4; }
+
+__host__ __device__ inline int backward_tile_pitch(int LS, int U) { return (LS * U + 3) / 4 * 4; }
+
+__host__ __device__ inline size_t backward_floats(int R, int W, int U, int TT, int LS) {
+  return 5 * (size_t)TT * backward_tile_pitch(LS, U) + 4 * (size_t)TT * U * backward_pitch(R, W);
+}
+
+template <int R>
+__device__ __forceinline__ void load_rows(const float* src, float (&v)[R]) {
+  if constexpr (R == 4) {
+    const float4 a = *reinterpret_cast<const float4*>(src);
+    v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
+  } else if constexpr (R == 2) {
+    const float2 a = *reinterpret_cast<const float2*>(src);
+    v[0] = a.x, v[1] = a.y;
+  } else {
+    v[0] = src[0];
   }
+}
+
+template <int R>
+__device__ __forceinline__ void store_rows(float* dst, const float (&v)[R]) {
+  if constexpr (R == 4) {
+    *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+  } else if constexpr (R == 2) {
+    *reinterpret_cast<float2*>(dst) = make_float2(v[0], v[1]);
+  } else {
+    dst[0] = v[0];
+  }
+}
+
+__device__ __forceinline__ void named_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// Two kinds of warp, W per utterance each (W > 1 when LS > 128), U
+// utterances a block; lane l of warp w of an utterance holds rows j0 =
+// (32 w + l) R .. j0 + R - 1 in registers, with their NDB >= nd row-form
+// diagonals (NDB = 2, 3, 4, 8 or 16, so that the loops over the diagonals
+// unroll without a branch).  The block walks tiles of TT frames down in
+// time, one tile apart: while the recursion warps run tile k (and start
+// the copies of tile k+1 by cp.async), the statistics warps run tile k-1;
+// one barrier closes each step.
+// * Recursion: per frame a lane reads its rows' log_b[t+1] from the tile
+//   (a frame ahead), forms inner = log_b[t+1] + beta[t+1] and stores it;
+//   the neighbours j + d (d < nd) of its rows come from the lanes above by
+//   __shfl_down_sync (row j0 + q lives in lane l + q / R, register q % R,
+//   so NDB - 1 shuffles serve every row of the lane; a row in the next warp
+//   is read from the tile after a barrier of the recursion warps, W > 1
+//   only); the log-sum-exp gives log-beta[t], stored in the tile.  A term
+//   outside the chain enters the max as NEG_INF and the sum as 0.0f, which
+//   change no bit.  Nothing else is on this serial chain.
+// * Statistics: per frame a lane reads log-alpha, log-beta and the
+//   neighbours' inner terms from the tile and adds xi, gamma, den_trans
+//   and den_mix of its rows in time order (frames independent but for
+//   those sums), gamma in log-alpha's place; then the tile's gamma goes
+//   out, U consecutive floats along B a row (16-byte stores where U and B
+//   are multiples of 4).
+// The arithmetic is that of a kernel with one thread a row, in its
+// order, so every output is bitwise that kernel's.
+template <int R, int NDB>
+__global__ void __launch_bounds__(kBackwardThreads) composed_backward_stats_kernel(const LatticeParams p) {
+  extern __shared__ float4 smem4[];
+  float* sh = reinterpret_cast<float*>(smem4);
+  const int LS = p.LS, U = p.U, W = p.W, TT = p.TT, nd = p.nd, T = p.T;
+  const int LP = backward_pitch(R, W), AP = backward_tile_pitch(LS, U);
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int role_threads = 32 * W * U;
+  const bool stats = tid >= role_threads;  // else a recursion thread
+  const int wid = (tid - (stats ? role_threads : 0)) >> 5;
+  const int u = wid / W, w = wid - u * W;
+  const int b0 = blockIdx.x * U, b = b0 + u;
+  const bool live = b < p.B;
+  const int j0 = (w * 32 + lane) * R;
+  const size_t tile = (size_t)TT * AP;        // floats of one (TT, LS, U) slot
+  const size_t rec = (size_t)TT * U * LP;     // floats of one (TT, U, LP) slot
+  float* la_slots = sh;                       // 3 slots; slot k % 3 holds tile k
+  float* lb_slots = sh + 3 * tile;            // 2 slots; slot k & 1 holds tile k
+  float* inner_slots = sh + 5 * tile;         // 2 slots
+  float* beta_slots = inner_slots + 2 * rec;  // 2 slots
+  float drow[R][NDB];
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int d = 0; d < NDB; ++d)
+      drow[r][d] = (live && d < nd && j0 + r < LS) ? p.diag[((size_t)d * LS + j0 + r) * p.B + b] : kNegInf;
   const int len = live ? p.lengths[b] : 0;
   const float z = live ? p.safe_z[b] : 0.f;
   const bool valid = live && p.vmask[b] > 0.f;
-  const float beta_init = (j == LS - 1) ? 0.f : kNegInf;  // the unpadded final row
-  float beta = beta_init;  // log-beta at t+1 until this frame's update
-  float dt = 0.f, dm = 0.f;
-  for (int t = p.T - 1; t >= 0; --t) {
-    const size_t o = ((size_t)t * LS + j) * p.B + b;
-    const float la_t = live ? p.la[o] : kNegInf;
-    // log_b[t+1]: at t = T-1 every use is masked (t < length-1 is impossible)
-    const float lbn = (live && t + 1 < p.T) ? p.log_b[o + (size_t)LS * p.B] : kNegInf;
-    const float inner = fmaxf(lbn + beta, kNegInf);
-    float* ib = sh + (t & 1) * nt;
-    ib[tid] = inner;
+  const int n_tiles = (T + TT - 1) / TT;
+  // tile k holds frames [max(T - (k+1) TT, 0), T - k TT): their log-alpha
+  // and log_b of the frames after them
+  auto stage = [&](int k) {  // recursion threads only
+    const int hi = T - k * TT, lo = max(hi - TT, 0);
+    stage_rows_async(la_slots + (k % 3) * tile, AP, U, p.la, lo, hi - lo, LS, T, p.B, b0, U, 0, role_threads);
+    stage_rows_async(lb_slots + (k & 1) * tile, AP, U, p.log_b, lo + 1, hi - lo, LS, T, p.B, b0, U, 0,
+                     role_threads);
+    cp_async_commit();
+  };
+  if (!stats) {
+    stage(0);
+    cp_async_wait<0>();
+  }
+  __syncthreads();
+
+  if (!stats) {
+    // ---- the recursion: tiles 0 .. n_tiles-1, one a step ----
+    float beta[R], beta_init[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      beta_init[r] = (j0 + r == LS - 1) ? 0.f : kNegInf;  // the unpadded final row
+      beta[r] = beta_init[r];  // log-beta at t+1 until this frame's update
+    }
+    for (int k = 0; k <= n_tiles; ++k) {
+      // tile k+1 goes into the slots of tiles k-2 (log-alpha, written out
+      // last step) and k-1 (log_b, read by last step's recursion)
+      if (k + 1 < n_tiles) stage(k + 1);
+      if (k < n_tiles) {
+        const int t_hi = T - k * TT, t_lo = max(t_hi - TT, 0);
+        const float* lb_tile = lb_slots + (k & 1) * tile;
+        float* inner_tile = inner_slots + (k & 1) * rec;
+        float* beta_tile = beta_slots + (k & 1) * rec;
+        // log_b[t+1, j] = lb_tile[tt * AP + j * U + u], read a frame ahead
+        // (rows past LS read row LS-1: never used)
+        int lb_off[R];
+#pragma unroll
+        for (int r = 0; r < R; ++r) lb_off[r] = min(j0 + r, LS - 1) * U + u;
+        float lbn[R];
+#pragma unroll
+        for (int r = 0; r < R; ++r) lbn[r] = lb_tile[(size_t)(t_hi - 1 - t_lo) * AP + lb_off[r]];
+        for (int t = t_hi - 1; t >= t_lo; --t) {
+          const int tt = t - t_lo;
+          float* in_row = inner_tile + ((size_t)tt * U + u) * LP;
+          // log_b[t+1]: at t = T-1 every use is masked (t < length-1 is impossible)
+          const bool next = live && t + 1 < T;
+          float inner[R];
+#pragma unroll
+          for (int r = 0; r < R; ++r) inner[r] = fmaxf((next ? lbn[r] : kNegInf) + beta[r], kNegInf);
+          if (t > t_lo) {
+#pragma unroll
+            for (int r = 0; r < R; ++r) lbn[r] = lb_tile[(size_t)(tt - 1) * AP + lb_off[r]];
+          }
+          store_rows<R>(in_row + j0, inner);
+          if (W > 1) named_barrier(1, role_threads);
+          // v[q] = inner of row j0 + q: row j0 + q lives in lane + q / R,
+          // register q % R (a row in the next warp is read from the tile)
+          float v[R + NDB - 1];
+#pragma unroll
+          for (int q = 0; q < R; ++q) v[q] = inner[q];
+#pragma unroll
+          for (int q = R; q < R + NDB - 1; ++q) {
+            float x = __shfl_down_sync(~0u, inner[q % R], q / R);
+            if (W > 1 && lane + q / R >= 32 && j0 + q < LS) x = in_row[j0 + q];
+            v[q] = x;
+          }
+          const bool stepping = len - 1 > t;  // t < length-1; else the init row
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            const int j = j0 + r;
+            // destinations j + d past the last row (or d >= nd) add
+            // exp(min(-2e30, 0)) = 0 and are left out: a NEG_INF term in
+            // the max and a 0.0f in the sum change no bit
+            float m = kNegInf;
+#pragma unroll
+            for (int d = 0; d < NDB; ++d) m = fmaxf(m, (d < nd && j + d < LS) ? v[r + d] + drow[r][d] : kNegInf);
+            float e = 0.f;
+#pragma unroll
+            for (int d = 0; d < NDB; ++d) {
+              const float x = expf(v[r + d] + drow[r][d] - m);
+              e += (d < nd && j + d < LS) ? x : 0.f;
+            }
+            beta[r] = stepping ? fmaxf(logf(fmaxf(e, kTiny)) + m, kNegInf) : beta_init[r];
+          }
+          store_rows<R>(beta_tile + ((size_t)tt * U + u) * LP + j0, beta);
+        }
+      }
+      cp_async_wait<0>();
+      __syncthreads();
+    }
+    return;
+  }
+
+  // ---- the statistics: tiles -1 .. n_tiles-1, one a step behind ----
+  float xi[R][NDB], dt[R], dm[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    dt[r] = 0.f;
+    dm[r] = 0.f;
+#pragma unroll
+    for (int d = 0; d < NDB; ++d) xi[r][d] = 0.f;
+  }
+  const int st = tid - role_threads;
+  for (int k = 0; k <= n_tiles; ++k) {
+    if (k >= 1) {
+      const int t_hi = T - (k - 1) * TT, t_lo = max(t_hi - TT, 0);
+      float* la_tile = la_slots + ((k - 1) % 3) * tile;
+      const float* inner_tile = inner_slots + ((k - 1) & 1) * rec;
+      const float* beta_tile = beta_slots + ((k - 1) & 1) * rec;
+#pragma unroll 2
+      for (int t = t_hi - 1; t >= t_lo; --t) {
+        const int tt = t - t_lo;
+        float* la_row = la_tile + (size_t)tt * AP + u;  // log-alpha[t, j] = la_row[j * U]
+        const float* in_row = inner_tile + ((size_t)tt * U + u) * LP;
+        float beta[R];
+        load_rows<R>(beta_tile + ((size_t)tt * U + u) * LP + j0, beta);
+        const bool stepping = len - 1 > t;
+        const bool m_xi = stepping && valid;
+        const bool on = valid && t < len;
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const int j = min(j0 + r, LS - 1);  // rows past LS: computed, never stored
+          const float la_t = live ? la_row[j * U] : kNegInf;
+          // a term left out adds 0.0f: no bit of the sum changes
+#pragma unroll
+          for (int d = 0; d < NDB; ++d) {
+            const float x = expf(fminf(la_t + drow[r][d] + in_row[min(j + d, LS - 1)] - z, 0.f));
+            xi[r][d] += (m_xi && d < nd && j0 + r + d < LS) ? x : 0.f;
+          }
+          const float g = on ? expf(fminf(la_t + beta[r] - z, 0.f)) : 0.f;
+          dm[r] += g;
+          dt[r] += m_xi ? g : 0.f;
+          if (j0 + r < LS) la_row[j * U] = g;  // gamma takes log-alpha's place in the tile
+        }
+      }
+      named_barrier(2, role_threads);  // the tile's gamma is complete
+      // gamma out: rows (t, j) of U consecutive floats along B, as they sit
+      // in the tile (16 bytes a store where U and B are multiples of 4)
+      const int vw = (U % 4 == 0 && p.B % 4 == 0) ? 4 : 1, G = U / vw;
+      const int step = role_threads / G, g = st % G;
+      const bool ok = b0 + g * vw < p.B;
+      const int n = t_hi - t_lo;
+      int j = st / G, tt = 0;
+      while (j >= LS) j -= LS, ++tt;
+      while (tt < n) {
+        if (ok) {
+          const float* src = la_tile + (size_t)tt * AP + j * U + g * vw;
+          float* dst = p.gamma + ((size_t)(t_lo + tt) * LS + j) * p.B + b0 + g * vw;
+          if (vw == 4) {
+            *reinterpret_cast<float4*>(dst) = *reinterpret_cast<const float4*>(src);
+          } else {
+            *dst = *src;
+          }
+        }
+        j += step;
+        while (j >= LS) j -= LS, ++tt;
+      }
+    }
     __syncthreads();
-    const bool stepping = len - 1 > t;  // t < length-1; else the init row
-    const bool m_xi = stepping && valid;
-    // destinations j + d past the last row add exp(min(-2e30, 0)) = 0: skipped
-    if (m_xi) {
-#pragma unroll
-      for (int d = 0; d <= kMaxBand; ++d)
-        if (d < p.nd && j + d < LS) xi[d] += expf(fminf(la_t + drow[d] + ib[(j + d) * U + u] - z, 0.f));
-    }
-    if (stepping) {
-      float m = kNegInf;
-#pragma unroll
-      for (int d = 0; d <= kMaxBand; ++d)
-        if (d < p.nd && j + d < LS) m = fmaxf(m, ib[(j + d) * U + u] + drow[d]);
-      float e = 0.f;
-#pragma unroll
-      for (int d = 0; d <= kMaxBand; ++d)
-        if (d < p.nd && j + d < LS) e += expf(ib[(j + d) * U + u] + drow[d] - m);
-      beta = fmaxf(logf(fmaxf(e, kTiny)) + m, kNegInf);
-    } else {
-      beta = beta_init;
-    }
-    if (live) {
-      const float g = (valid && t < len) ? expf(fminf(la_t + beta - z, 0.f)) : 0.f;
-      p.gamma[o] = g;
-      dm += g;
-      if (m_xi) dt += g;
-    }
   }
   if (live) {
 #pragma unroll
-    for (int d = 0; d <= kMaxBand; ++d)
-      if (d < p.nd) p.xi[((size_t)d * LS + j) * p.B + b] = xi[d];
-    p.den_trans[(size_t)j * p.B + b] = dt;
-    p.den_mix[(size_t)j * p.B + b] = dm;
+    for (int r = 0; r < R; ++r) {
+      const int j = j0 + r;
+      if (j >= LS) continue;
+#pragma unroll
+      for (int d = 0; d < NDB; ++d)
+        if (d < nd) p.xi[((size_t)d * LS + j) * p.B + b] = xi[r][d];
+      p.den_trans[(size_t)j * p.B + b] = dt[r];
+      p.den_mix[(size_t)j * p.B + b] = dm[r];
+    }
   }
 }
 
 // ---------------------------------------------------------------------------
 // bank moments
 // ---------------------------------------------------------------------------
-
-// v = hi + lo with hi and lo both tf32 (round to nearest, ties away)
-__device__ __forceinline__ void split_tf32(float v, unsigned& hi, unsigned& lo) {
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(v));
-  const float rest = v - __uint_as_float(hi);
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(rest));
-}
-
-// c += a b for one m16n8k8 tile: a (16 x 8, row-major) and b (8 x 8) in the
-// mma.sync fragment layout, c in fp32
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const unsigned (&a)[4], unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "
-      "{%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // Shared memory of one moments block, in floats then ints (the wrapper's
 // ops/kernels/composed.py moments_smem_bytes mirrors it):
@@ -562,32 +745,6 @@ __device__ __forceinline__ MomLayout moments_layout(float* base, int M, int stri
   L.plen = L.pj + kChunk;
   L.pfirst = L.plen + kChunk;
   return L;
-}
-
-// One column of the moment lift [x; x^2 or vec(x x^T); 1] as a product of
-// at most two staged feature rows: mode 0 zero (padding), 1 x[ia], 2
-// x[ia] * x[ib], 3 one.  Column D + d*D + e of the full lift is x[e] x[d].
-struct LiftCol {
-  int mode, ia, ib;
-};
-
-template <bool FULL>
-__device__ __forceinline__ LiftCol lift_col(int n, int D, int Cm) {
-  if (n < D) return {1, n, 0};
-  if (n == Cm - 1) return {3, 0, 0};
-  if (n >= Cm) return {0, 0, 0};
-  if constexpr (FULL) {
-    const int r = n - D, d = r / D;
-    return {2, r - d * D, d};
-  } else {
-    return {2, n - D, n - D};
-  }
-}
-
-__device__ __forceinline__ float lift_value(const LiftCol& c, const float* x, int ks, int k) {
-  if (c.mode == 1) return x[c.ia * ks + k];
-  if (c.mode == 2) return x[c.ia * ks + k] * x[c.ib * ks + k];
-  return c.mode == 3 ? 1.f : 0.f;
 }
 
 // One batch of nb queued tiles (queue entries head .. head+nb-1): thread
@@ -641,53 +798,7 @@ __device__ void moments_batch(const BankParams& p, const MomLayout& L, int M, in
   }
   __syncthreads();
   // the contraction: units of (16 mixtures) x (2 x 8 columns), one warp each
-  const int gid = lane >> 2, tig = lane & 3;
-  const int mt_n = (M + 15) / 16, nt_n = (Cm + 7) / 8, ng_n = (nt_n + 1) / 2;
-  const int ksteps = nb * (kTile / 8);
-  for (int un = warp; un < mt_n * ng_n; un += slots) {
-    const int mt = un / ng_n, nt0 = (un - mt * ng_n) * 2;
-    const int m0 = mt * 16 + gid, m1 = m0 + 8;
-    float c[2][4];
-    LiftCol col[2];
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const int n0 = (nt0 + hh) * 8 + 2 * tig;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int m = (i < 2) ? m0 : m1, n = n0 + (i & 1);
-        c[hh][i] = (m < M && n < Cm) ? L.acc[m * Cm + n] : 0.f;
-      }
-      col[hh] = lift_col<FULL>((nt0 + hh) * 8 + gid, D, Cm);
-    }
-    const bool two = nt0 + 1 < nt_n;
-    for (int kk = 0; kk < ksteps; ++kk) {
-      const int k0 = kk * 8 + tig, k1 = k0 + 4;
-      unsigned ahi[4], alo[4];
-      split_tf32(m0 < M ? L.w[m0 * L.ks + k0] : 0.f, ahi[0], alo[0]);
-      split_tf32(m1 < M ? L.w[m1 * L.ks + k0] : 0.f, ahi[1], alo[1]);
-      split_tf32(m0 < M ? L.w[m0 * L.ks + k1] : 0.f, ahi[2], alo[2]);
-      split_tf32(m1 < M ? L.w[m1 * L.ks + k1] : 0.f, ahi[3], alo[3]);
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        if (hh == 1 && !two) break;
-        unsigned b0h, b0l, b1h, b1l;
-        split_tf32(lift_value(col[hh], L.x, L.ks, k0), b0h, b0l);
-        split_tf32(lift_value(col[hh], L.x, L.ks, k1), b1h, b1l);
-        mma_tf32(c[hh], alo, b0h, b1h);
-        mma_tf32(c[hh], ahi, b0l, b1l);
-        mma_tf32(c[hh], ahi, b0h, b1h);
-      }
-    }
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const int n0 = (nt0 + hh) * 8 + 2 * tig;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int m = (i < 2) ? m0 : m1, n = n0 + (i & 1);
-        if (m < M && n < Cm) L.acc[m * Cm + n] = c[hh][i];
-      }
-    }
-  }
+  contract_3xtf32<FULL>(L.acc, M, Cm, L.w, L.x, L.ks, D, nb * (kTile / 8), warp, slots);
   __syncthreads();  // w, x and the processed queue entries are free again
 }
 
@@ -944,7 +1055,7 @@ cudaError_t allow_smem(const void* fn, size_t smem) {
   return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-int lattice_launch(bool backward, const LatticeParams& p, int device, void* stream) {
+int forward_launch(const LatticeParams& p, int device, void* stream) {
   if (p.T < 1 || p.LS < 1 || p.B < 1 || p.U < 1 || p.nd < 1 || p.nd > kMaxBand + 1 ||
       p.LS * p.U > kMaxLatticeThreads) {
     return (int)cudaErrorInvalidValue;
@@ -952,16 +1063,54 @@ int lattice_launch(bool backward, const LatticeParams& p, int device, void* stre
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const size_t smem = sizeof(float) * 2 * (size_t)p.LS * p.U;
-  const void* fn = backward ? reinterpret_cast<const void*>(composed_backward_stats_kernel)
-                            : reinterpret_cast<const void*>(composed_forward_kernel);
-  err = allow_smem(fn, smem);
+  err = allow_smem(reinterpret_cast<const void*>(composed_forward_kernel), smem);
   if (err != cudaSuccess) return (int)err;
   const int blocks = (p.B + p.U - 1) / p.U;
-  if (backward) {
-    composed_backward_stats_kernel<<<blocks, p.LS * p.U, smem, static_cast<cudaStream_t>(stream)>>>(p);
-  } else {
-    composed_forward_kernel<<<blocks, p.LS * p.U, smem, static_cast<cudaStream_t>(stream)>>>(p);
+  composed_forward_kernel<<<blocks, p.LS * p.U, smem, static_cast<cudaStream_t>(stream)>>>(p);
+  return (int)cudaGetLastError();
+}
+
+using LatticeFn = void (*)(LatticeParams);
+
+// the backward-stats instantiation for R rows a lane and nd diagonals: the
+// smallest compiled NDB >= nd (2, 3, 4, 8, 16); nullptr for an R that is
+// not compiled
+template <int R>
+LatticeFn backward_for_rows(int nd) {
+  if (nd <= 2) return composed_backward_stats_kernel<R, 2>;
+  if (nd <= 3) return composed_backward_stats_kernel<R, 3>;
+  if (nd <= 4) return composed_backward_stats_kernel<R, 4>;
+  if (nd <= 8) return composed_backward_stats_kernel<R, 8>;
+  return composed_backward_stats_kernel<R, 16>;
+}
+
+LatticeFn backward_kernel_for(int R, int nd) {
+  switch (R) {
+    case 1: return backward_for_rows<1>(nd);
+    case 2: return backward_for_rows<2>(nd);
+    case 4: return backward_for_rows<4>(nd);
+    default: return nullptr;
   }
+}
+
+int backward_launch(const LatticeParams& p, int R, int device, void* stream) {
+  const LatticeFn fn = backward_kernel_for(R, p.nd);
+  if (fn == nullptr || p.T < 1 || p.LS < 1 || p.B < 1 || p.U < 1 || p.W < 1 || p.TT < 1 || p.nd < 1 ||
+      p.nd > kMaxBand + 1 || 32 * R * p.W < p.LS || 64 * p.W * p.U > kBackwardThreads) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const size_t smem = sizeof(float) * backward_floats(R, p.W, p.U, p.TT, p.LS);
+  err = allow_smem(reinterpret_cast<const void*>(fn), smem);
+  if (err != cudaSuccess) return (int)err;
+  // the largest shared-memory carveout, so that as many blocks fit an SM as
+  // the shared memory allows
+  err = cudaFuncSetAttribute(reinterpret_cast<const void*>(fn), cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return (int)err;
+  const int blocks = (p.B + p.U - 1) / p.U;
+  fn<<<blocks, 64 * p.W * p.U, smem, static_cast<cudaStream_t>(stream)>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -1009,13 +1158,17 @@ int srhmm_composed_forward(const void* log_b, const void* diag_col, const void* 
   p.B = B;
   p.nd = nd;
   p.U = U;
-  return lattice_launch(false, p, device, stream);
+  return forward_launch(p, device, stream);
 }
 
+// R rows a lane (1, 2 or 4), W warps an utterance of each kind (32 R W >=
+// LS), U utterances a block (64 W U <= 512 threads), TT frames a tile;
+// shared memory backward_floats(R, W, U, TT) floats
 int srhmm_composed_backward_stats(const void* log_b, const void* la, const void* diag_row,
                                   const void* lengths, const void* safe_z, const void* vmask,
                                   void* gamma, void* xi, void* den_trans, void* den_mix, int T,
-                                  int LS, int B, int nd, int U, int device, void* stream) {
+                                  int LS, int B, int nd, int R, int W, int U, int TT, int device,
+                                  void* stream) {
   LatticeParams p{};
   p.log_b = static_cast<const float*>(log_b);
   p.la = static_cast<const float*>(la);
@@ -1032,7 +1185,9 @@ int srhmm_composed_backward_stats(const void* log_b, const void* la, const void*
   p.B = B;
   p.nd = nd;
   p.U = U;
-  return lattice_launch(true, p, device, stream);
+  p.W = W;
+  p.TT = TT;
+  return backward_launch(p, R, device, stream);
 }
 
 // The moments.  sorted (B * LS,) int32 and order (B * LS,) int64 are the

@@ -32,39 +32,46 @@
 //
 // Design.  The TPU grid walked time blocks in order and carried the
 // recursion in VMEM scratch; here the whole time loop runs inside the
-// kernel, one launch per pass, and K2 reads log_b[t+1] straight from device
-// memory.  A block holds U utterances x S states, one thread per (state,
-// utterance) (thread s * U + u): each thread computes its own state's
-// emission, so emission work is spread over S times more threads than one
-// thread per utterance would give, and the band recursion exchanges one
-// value per thread through a double-buffered shared-memory row (one
-// __syncthreads per frame).  Per-thread accumulators (xi slots, moments)
-// live in shared-memory columns (index k * blockDim + tid: conflict-free,
-// no thread writes another's column).  The cross-utterance moment
-// reduction has no atomics: each block sums its U columns in a fixed order
-// into its own partial, and the caller sums the partials over blocks, so
-// two runs of an E-step are bitwise equal.  Every product is an fp32 fmaf.
+// kernel, one launch per pass.  A block holds U utterances x S states, one
+// thread per (state, utterance) (thread s * U + u) for the recursion, which
+// exchanges one value per thread through a double-buffered shared-memory
+// row (one barrier per frame).  K1 computes each thread's own state's
+// emission inline.  K2 stages tiles of TT frames (log-alpha, log_b[t+1],
+// the features) into shared memory by cp.async a tile ahead, so its frame
+// loop reads no device memory, and splits each tile's work between two
+// kinds of thread one tile apart (see backward_stats_kernel): the
+// recursion (gamma into shared memory; xi, den_trans, den_mix in
+// registers, summed in time order) and, on statistics warps in parallel
+// over the tile's (frame, utterance) columns whose gamma are not all
+// 0.0f, the emission (fp32 FMAs in emission.cuh's order, never TF32) and
+// posteriors, and the moment contraction W (S M x columns) . [y; y^2 or
+// vec(y y^T); 1] on the tensor cores in 3xTF32 (tile_mma.cuh).  No atomics:
+// each block sums its columns in a fixed order into its own partial, and
+// the caller sums the partials over blocks, so two runs of an E-step are
+// bitwise equal.
 //
 // What bounds it on the H100.  Parallelism: B * S threads (16 k at the
-// B=2048, S=8 EM headline), i.e. ~4 warps per SM, so each thread's serial
-// chain over T frames (per frame: M * 2D FMAs or M * D^2 for the emission,
-// band+1 exps, in K2 also M * (L+1) shared-memory moment updates) sets the
-// time, not the FMA rate or the bandwidth.  K1 writes 2 T S B floats
-// (65 MB at the headline) and K2 reads them back once, well under a
-// millisecond of HBM time.  Later work: spread the mixtures over more
-// threads, tensor-core emission at fp32 precision, CUDA-graph capture of
+// B=2048, S=8 EM headline), i.e. ~4 warps per SM, so each recursion's
+// serial chain over T frames sets K1's time and the floor of K2's, not the
+// FMA rate or the bandwidth; K2's statistics warps (12 a block at em_diag)
+// keep up with its chain.  K1 writes 2 T S B floats (65 MB at the headline)
+// and K2 reads them back once, well under a millisecond of HBM time.
+// Later work: spread K1's mixtures over more threads, CUDA-graph capture of
 // whole EM iterations.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
 #include "emission.cuh"
+#include "tile_mma.cuh"
 
 namespace {
 
 using namespace srhmm;
 
-constexpr int kMaxThreads = 256;  // S * U threads per block
+constexpr int kMaxThreads = 256;  // S * U threads per block (emit-forward), S * U at most
+constexpr int kXiRegs = 8;        // backward-stats xi slots a thread keeps in registers
+constexpr int kMaxBackwardThreads = 512;  // recursion threads (<= 256) + statistics warps
 
 struct EmParams {
   const float* feats[kMaxStreams];  // per stream: (T, D_p, B)
@@ -90,6 +97,10 @@ struct EmParams {
   int max_mix;          // max_p M_p
   int T, B, S, band;    // band < 0: dense transitions
   int U;                // utterances per block
+  int TT;               // frames a staged tile (K2)
+  int stat_warps;       // K2: statistics warps a block
+  int acc_global;       // K2: the moment accumulators in the block's row of mom, not shared memory
+  int sum_dims, max_dim;  // sum_p D_p, max_p D_p
 };
 
 // Transition slots: a banded model has band+1 (slot k = diagonal k), a
@@ -175,156 +186,340 @@ __global__ void __launch_bounds__(kMaxThreads) emit_forward_kernel(const EmParam
   }
 }
 
-template <int DMAX, bool FULL>
-__global__ void __launch_bounds__(kMaxThreads) backward_stats_kernel(const EmParams p) {
+// Shared memory of one backward-stats block, in floats then ints (the
+// wrapper's ops/kernels/fused_em.py backward_smem_bytes mirrors it):
+//   constants C | a ring of three tiles of TT frames, each log-alpha
+//   (TT, S, U), log_b of the next frames (TT, S, U) and every stream's
+//   features (TT, D_p, U) | two gamma tiles (TT, S, U) | two exchange rows
+//   (2, S U) | xi sums of the slots past kXiRegs (nslots - kXiRegs, S U) |
+//   posterior weights (S max M, KS) | features (max D, KS) |
+//   accumulators (S sum_p M_p (L_p + 1)), unless they are kept in the
+//   block's own row of the moment partials (acc_global) | ints: the kept
+//   columns (TT U) and the statistics warps' counts of them (stat_warps)
+// with KS = TT U rounded up to 8, + 4 past 8 columns (the fragment loads
+// then hit 32 banks).
+__host__ __device__ inline int backward_ks(int TT, int U) {
+  const int c = TT * U;
+  return (c + 7) / 8 * 8 + (c > 8 ? 4 : 0);
+}
+
+__host__ __device__ inline size_t backward_floats(const EmParams& p, int TT) {
+  const size_t nt = (size_t)p.S * p.U;
+  const int nslots = p.band >= 0 ? p.band + 1 : p.S;
+  const size_t ks = backward_ks(TT, p.U);
+  return (size_t)p.C + 3 * (size_t)TT * p.U * (2 * p.S + p.sum_dims) + 2 * (size_t)TT * nt + 2 * nt +
+         (size_t)(nslots > kXiRegs ? nslots - kXiRegs : 0) * nt + ((size_t)p.S * p.max_mix + p.max_dim) * ks +
+         (p.acc_global ? 0 : (size_t)p.S * p.mom_thread);
+}
+
+__host__ __device__ inline size_t backward_ints(int TT, int U, int stat_warps) {
+  return (size_t)TT * U + stat_warps;
+}
+
+__device__ __forceinline__ void named_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// Two kinds of thread, one tile of TT frames apart (the block walks the
+// tiles down in time; one barrier closes each step):
+// * recursion threads, one per (state, utterance) (thread s * U + u, S U
+//   rounded up to whole warps), run tile k and start the copies of tile
+//   k+1 (cp.async), so no frame loop reads device memory: log-alpha,
+//   log_b[t+1] and the xi sources la[t, i] come from the staged tile; the
+//   band step goes through the double-buffered exchange row (a barrier of
+//   the recursion threads a frame); the sources, destinations and log
+//   transitions of the first NSL slots (NSL = 2 for a band of 0 or 1, else
+//   kXiRegs) sit in registers, and a slot outside the model enters the max
+//   as NEG_INF and the sum as 0.0f, which change no bit; xi, den_trans and
+//   den_mix stay in registers (slots past NSL in shared columns), summed in
+//   time order; gamma goes to the tile's gamma (TT, S, U);
+// * statistics warps (p.stat_warps) run tile k-1: they list the columns
+//   (frame, utterance) with a gamma that is not exactly 0.0f (ballots, in
+//   column order; the others add nothing, x finite); a thread a (kept
+//   column, state) computes the state's mixture log-likelihoods
+//   (emission.cuh, fp32 FMAs in its order, two mixtures side by side), the
+//   posteriors against the stream's own logsumexp and the weights
+//   W[(m S + s), col] = gamma * post * 2^48; then the warps add W lift over
+//   the kept columns into the accumulators (contract_3xtf32: mma.sync in
+//   3xTF32, the states folded onto the rows since every state of a column
+//   sees the same features).  The block's accumulators, scaled back by
+//   2^-48, are its moment partial.
+template <int DMAX, bool FULL, int NSL>
+__global__ void __launch_bounds__(kMaxBackwardThreads) backward_stats_kernel(const EmParams p) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  const int S = p.S, U = p.U, nt = S * U, tid = threadIdx.x;
-  const int s = tid / U, u = tid - s * U;
-  const int b = blockIdx.x * U + u;
-  const bool live = b < p.B;
+  const int S = p.S, U = p.U, nt = S * U, tid = threadIdx.x, TT = p.TT, T = p.T;
+  const int n_rec = (nt + 31) / 32 * 32, n_stat = blockDim.x - n_rec;
+  const bool stats = tid >= n_rec;
+  const int ks = backward_ks(TT, U);
+  const int b0 = blockIdx.x * U;
   const bool banded = p.band >= 0;
   const int nslots = banded ? p.band + 1 : S;
-  stage_constants(p, smem4, tid, nt);
-  float* inner_sh = smem + p.C;            // two (S, U) rows: frame t writes row t & 1
-  float* q_sh = inner_sh + 2 * nt;         // (max_mix, S*U) per-mixture q of this frame
-  float* xi_sh = q_sh + p.max_mix * nt;    // (nslots, S*U) xi accumulators
-  float* mom_sh = xi_sh + nslots * nt;     // (mom_thread, S*U) moment accumulators
-  for (int k = 0; k < nslots; ++k) xi_sh[k * nt + tid] = 0.f;
-  for (int k = 0; k < p.mom_thread; ++k) mom_sh[k * nt + tid] = 0.f;
+  stage_constants(p, smem4, tid, blockDim.x);
+  const size_t frame_tile = (size_t)TT * U * (2 * S + p.sum_dims);  // floats of one tile
+  float* ring = smem + p.C;
+  float* gam = ring + 3 * frame_tile;                  // two (TT, S, U) tiles
+  float* inner_sh = gam + 2 * (size_t)TT * nt;         // two (S, U) rows: frame t writes row t & 1
+  float* xi_sh = inner_sh + 2 * nt;                    // (nslots - NSL, S*U)
+  float* w_sh = xi_sh + (size_t)(nslots > kXiRegs ? nslots - kXiRegs : 0) * nt;  // (S max M, ks)
+  float* x_sh = w_sh + (size_t)S * p.max_mix * ks;     // (max D, ks)
+  float* acc_sh = x_sh + (size_t)p.max_dim * ks;       // (S sum_p M_p (L_p + 1))
+  // this block's moment partial: per stream an (M*S, L+1) block with row
+  // m*S + s, each entry summed over the block's kept columns in order
+  float* out = p.mom + (size_t)blockIdx.x * S * p.mom_thread;
+  float* acc = p.acc_global ? out : acc_sh;
+  int* cols = reinterpret_cast<int*>(acc_sh + (p.acc_global ? 0 : (size_t)S * p.mom_thread));
+  int* warp_kept = cols + TT * U;  // (stat_warps) kept columns of each statistics warp
+  const int n_tiles = (T + TT - 1) / TT;
+  // tile k (ring slot k % 3) holds frames [max(T - (k+1) TT, 0), T - k TT):
+  // their log-alpha and features, and log_b of the frames after them
+  auto stage = [&](int k) {  // recursion threads only
+    const int hi = T - k * TT, lo = max(hi - TT, 0), n = hi - lo, cnt = n_rec / U * U;
+    float* buf = ring + (k % 3) * frame_tile;
+    stage_rows_async(buf, nt, U, p.la, lo, n, S, T, p.B, b0, U, 0, cnt);
+    stage_rows_async(buf + (size_t)TT * nt, nt, U, p.log_b, lo + 1, n, S, T, p.B, b0, U, 0, cnt);
+    float* f = buf + 2 * (size_t)TT * nt;
+    for (int q = 0; q < p.n_streams; ++q) {
+      stage_rows_async(f, p.dims[q] * U, U, p.feats[q], lo, n, p.dims[q], T, p.B, b0, U, 0, cnt);
+      f += (size_t)TT * p.dims[q] * U;
+    }
+    cp_async_commit();
+  };
+  if (stats) {
+    for (int k = tid - n_rec; k < S * p.mom_thread; k += n_stat) acc[k] = 0.f;
+  } else {
+    for (int k = tid; k < (nslots - NSL) * nt; k += n_rec) xi_sh[k] = 0.f;
+    stage(0);
+    cp_async_wait<0>();
+  }
   __syncthreads();
-  const float* lt = smem + p.lt_off;
-  const int len = live ? p.lengths[b] : 0;
-  const float z = live ? p.safe_z[b] : 0.f;
-  const bool valid = live && p.vmask[b] > 0.f;
-  const float beta_init = (s == S - 1) ? 0.f : kNegInf;
 
-  float beta = beta_init;  // log-beta at t+1 until this frame's update
-  float dt = 0.f, dm = 0.f;
-  for (int t = p.T - 1; t >= 0; --t) {
-    const float* la_row = p.la + (size_t)t * S * p.B + b;  // la[t, i, b] = la_row[i * B]
-    const float la_t = live ? la_row[(size_t)s * p.B] : kNegInf;
-    // log_b[t+1]: masked everywhere at t = T-1 (t < length-1 is impossible)
-    const float lbn =
-        (live && t + 1 < p.T) ? p.log_b[((size_t)(t + 1) * S + s) * p.B + b] : kNegInf;
-    const float inner = fmaxf(lbn + beta, kNegInf);
-    float* ib = inner_sh + (t & 1) * nt;
-    ib[tid] = inner;
-    __syncthreads();
-
-    const bool stepping = len - 1 > t;  // t < length-1; else the init row
-    if (stepping && valid) {            // exact xi, destination j = s
-      const float lnz = inner - z;
-      for (int k = 0; k < nslots; ++k) {
-        const int i = slot_src(banded, s, k);
-        if (i >= 0) {
-          const float term = la_row[(size_t)i * p.B] + lt[i * S + s] + lnz;
-          xi_sh[k * nt + tid] += expf(fminf(term, 0.f));
+  if (!stats) {
+    // ---- the recursion: tiles 0 .. n_tiles-1, one a step ----
+    const int s = tid / U, u = tid - s * U;
+    const bool th = tid < nt;  // a (state, utterance) thread
+    const int b = b0 + u;
+    const bool live = th && b < p.B;
+    const float* lt = smem + p.lt_off;
+    const int len = live ? p.lengths[b] : 0;
+    const float z = live ? p.safe_z[b] : 0.f;
+    const bool valid = live && p.vmask[b] > 0.f;
+    const float beta_init = (s == S - 1) ? 0.f : kNegInf;
+    float beta = beta_init;  // log-beta at t+1 until this frame's update
+    float dt = 0.f, dm = 0.f;
+    // the first NSL slots' sources i and destinations j of state s and
+    // their log transitions, in registers (a slot outside the model: index
+    // clamped, ok flag off)
+    float xi[NSL], lt_in[NSL], lt_out[NSL];
+    int src[NSL], dst[NSL];
+    unsigned src_ok = 0, dst_ok = 0;
+#pragma unroll
+    for (int k2 = 0; k2 < NSL; ++k2) {
+      xi[k2] = 0.f;
+      const int i = slot_src(banded, s, k2), j = slot_dst(banded, s, k2);
+      const bool in = th && k2 < nslots && i >= 0, out = th && k2 < nslots && j < S;
+      src[k2] = in ? i : 0;
+      dst[k2] = out ? j : 0;
+      lt_in[k2] = in ? lt[i * S + s] : 0.f;
+      lt_out[k2] = out ? lt[s * S + j] : 0.f;
+      src_ok |= in ? 1u << k2 : 0u;
+      dst_ok |= out ? 1u << k2 : 0u;
+    }
+    for (int k = 0; k <= n_tiles; ++k) {
+      // tile k+1 goes into the slot of tile k-2, done with last step
+      if (k + 1 < n_tiles) stage(k + 1);
+      if (k < n_tiles) {
+        const int t_hi = T - k * TT, t_lo = max(t_hi - TT, 0);
+        const float* buf = ring + (k % 3) * frame_tile;
+        float* g_tile = gam + (size_t)(k & 1) * TT * nt;
+        for (int t = t_hi - 1; t >= t_lo; --t) {
+          const int tt = t - t_lo;
+          const float* la_row = buf + (size_t)tt * nt + u;  // la[t, i, b] = la_row[i * U]
+          float inner = kNegInf, la_t = kNegInf;
+          float la_src[NSL];
+          if (th) {
+            la_t = live ? la_row[s * U] : kNegInf;
+            // log_b[t+1]: masked everywhere at t = T-1 (t < length-1 is impossible)
+            const float lbn = (live && t + 1 < T) ? buf[(size_t)(TT + tt) * nt + tid] : kNegInf;
+            inner = fmaxf(lbn + beta, kNegInf);
+            inner_sh[(t & 1) * nt + tid] = inner;
+#pragma unroll
+            for (int k2 = 0; k2 < NSL; ++k2) la_src[k2] = la_row[src[k2] * U];
+          }
+          named_barrier(1, n_rec);
+          if (!th) continue;
+          const float* ib = inner_sh + (t & 1) * nt;
+          const bool stepping = len - 1 > t;  // t < length-1; else the init row
+          const bool m_xi = stepping && valid;
+          // exact xi, destination j = s (off the recursion's chain)
+          const float lnz = inner - z;
+          if (m_xi) {
+#pragma unroll
+            for (int k2 = 0; k2 < NSL; ++k2)
+              if (src_ok >> k2 & 1u) xi[k2] += expf(fminf(la_src[k2] + lt_in[k2] + lnz, 0.f));
+            for (int k2 = NSL; k2 < nslots; ++k2) {
+              const int i = slot_src(banded, s, k2);
+              if (i >= 0) xi_sh[(k2 - NSL) * nt + tid] += expf(fminf(la_row[i * U] + lt[i * S + s] + lnz, 0.f));
+            }
+          }
+          // backward step, source i = s; a slot outside the model is left
+          // out: a NEG_INF term in the max and a 0.0f in the sum change no bit
+          float nb[NSL];
+#pragma unroll
+          for (int k2 = 0; k2 < NSL; ++k2) nb[k2] = ib[dst[k2] * U + u];
+          float m = kNegInf;
+#pragma unroll
+          for (int k2 = 0; k2 < NSL; ++k2) m = fmaxf(m, (dst_ok >> k2 & 1u) ? lt_out[k2] + nb[k2] : kNegInf);
+          for (int k2 = NSL; k2 < nslots; ++k2) {
+            const int j = slot_dst(banded, s, k2);
+            if (j < S) m = fmaxf(m, lt[s * S + j] + ib[j * U + u]);
+          }
+          float e = 0.f;
+#pragma unroll
+          for (int k2 = 0; k2 < NSL; ++k2) {
+            const float x = expf(lt_out[k2] + nb[k2] - m);
+            e += (dst_ok >> k2 & 1u) ? x : 0.f;
+          }
+          for (int k2 = NSL; k2 < nslots; ++k2) {
+            const int j = slot_dst(banded, s, k2);
+            if (j < S) e += expf(lt[s * S + j] + ib[j * U + u] - m);
+          }
+          beta = stepping ? fmaxf(logf(fmaxf(e, kTiny)) + m, kNegInf) : beta_init;
+          const bool on = valid && t < len;
+          const float gamma = on ? expf(fminf(la_t + beta - z, 0.f)) : 0.f;
+          dm += gamma;
+          dt += (on && stepping) ? gamma : 0.f;
+          g_tile[(size_t)tt * nt + tid] = gamma;
         }
       }
+      cp_async_wait<0>();
+      __syncthreads();
     }
-    if (stepping) {  // backward step, source i = s
-      float m = kNegInf;
-      for (int k = 0; k < nslots; ++k) {
-        const int j = slot_dst(banded, s, k);
-        if (j < S) m = fmaxf(m, lt[s * S + j] + ib[j * U + u]);
-      }
-      float e = 0.f;
-      for (int k = 0; k < nslots; ++k) {
-        const int j = slot_dst(banded, s, k);
-        if (j < S) e += expf(lt[s * S + j] + ib[j * U + u] - m);
-      }
-      beta = fmaxf(logf(fmaxf(e, kTiny)) + m, kNegInf);
-    } else {
-      beta = beta_init;
+    if (live) {
+#pragma unroll
+      for (int k2 = 0; k2 < NSL; ++k2)
+        if (k2 < nslots) p.xi[((size_t)k2 * S + s) * p.B + b] = xi[k2];
+      for (int k2 = NSL; k2 < nslots; ++k2)
+        p.xi[((size_t)k2 * S + s) * p.B + b] = xi_sh[(k2 - NSL) * nt + tid];
+      p.den_trans[(size_t)s * p.B + b] = dt;
+      p.den_mix[(size_t)s * p.B + b] = dm;
     }
+    return;
+  }
 
-    if (valid && t < len) {
-      const float gamma = expf(fminf(la_t + beta - z, 0.f));
-      dm += gamma;
-      if (stepping) dt += gamma;
+  // ---- the statistics: tiles -1 .. n_tiles-1, one a step behind ----
+  const int st = tid - n_rec, swarp = st >> 5;
+  for (int k = 0; k <= n_tiles; ++k) {
+    if (k >= 1) {
+      const int t_hi = T - (k - 1) * TT, t_lo = max(t_hi - TT, 0), n = t_hi - t_lo;
+      const float* buf = ring + ((k - 1) % 3) * frame_tile;
+      const float* g_tile = gam + (size_t)((k - 1) & 1) * TT * nt;
+      // the kept columns c = tt * U + u, in column order: a thread a column,
+      // ballots a warp, the warps' counts summed in warp order
+      const int ncol = n * U;
+      int count = 0;
+      for (int c0 = 0; c0 < ncol; c0 += n_stat) {
+        const int c = c0 + st;
+        int nonzero = 0;
+        if (c < ncol) {
+          const float* g = g_tile + (size_t)(c / U) * nt + c % U;
+          for (int s2 = 0; s2 < S; ++s2) nonzero += g[s2 * U] != 0.f;
+        }
+        const bool keep = nonzero > 0;
+        const unsigned vote = __ballot_sync(~0u, keep);
+        if ((st & 31) == 0) warp_kept[swarp] = __popc(vote);
+        named_barrier(2, n_stat);
+        int before = count;
+        for (int w2 = 0; w2 < (n_stat >> 5); ++w2) {
+          before += (w2 < swarp) ? warp_kept[w2] : 0;
+          count += warp_kept[w2];
+        }
+        if (keep) cols[before + __popc(vote & ((1u << (st & 31)) - 1))] = c;
+        named_barrier(2, n_stat);
+      }
+      const int nk = count, k8 = (nk + 7) / 8 * 8;
+      const float* fq = buf + 2 * (size_t)TT * nt;  // stream q's features (TT, D_q, U)
       for (int q = 0; q < p.n_streams; ++q) {
         const int D = p.dims[q], M = p.mixes[q];
         const int L1 = FULL ? D + D * D + 1 : 2 * D + 1;
-        float x[DMAX], x2[DMAX];
-        load_frame<DMAX>(p.feats[q] + (size_t)t * D * p.B + b, smem + p.origin_offs[q], D, p.B, x);
-#pragma unroll
-        for (int e = 0; e < DMAX; ++e) x2[e] = x[e] * x[e];
         const int stride = record_stride<DMAX, FULL>(D);
-        const float* rec = smem + p.offs[q] + s * M * stride;
-        float mx = kNegInf, ex = 0.f;
-        for (int mix = 0; mix < M; ++mix) {
-          float qv;
-          if constexpr (FULL) {
-            qv = full_mix_q<DMAX>(rec + mix * stride, D, x);
-          } else {
-            qv = diag_mix_q<DMAX>(rec + mix * stride, x, x2);
+        float origin[DMAX];
+#pragma unroll
+        for (int e = 0; e < DMAX; ++e) origin[e] = (e < D) ? smem[p.origin_offs[q] + e] : 0.f;
+        // a thread an item (kept column kc, state s2), the columns fastest
+        for (int it = st; it < k8 * S; it += n_stat) {
+          const int s2 = it / k8, kc = it - s2 * k8;
+          if (kc >= nk) {  // padding to whole k-steps of 8 columns
+            for (int mix = 0; mix < M; ++mix) w_sh[(mix * S + s2) * ks + kc] = 0.f;
+            if (s2 == 0)
+              for (int e = 0; e < D; ++e) x_sh[e * ks + kc] = 0.f;
+            continue;
           }
-          q_sh[mix * nt + tid] = qv;
-          lse_push(qv, mx, ex);
-        }
-        const float lbp = lse_value(mx, ex);  // this stream's own log b
-        float* acc = mom_sh + (size_t)p.mom_offs[q] * nt + tid;
-        for (int mix = 0; mix < M; ++mix, acc += (size_t)L1 * nt) {
-          const float post =
-              (lbp > 0.5f * kNegInf) ? expf(fminf(q_sh[mix * nt + tid] - lbp, 0.f)) : 0.f;
-          const float gm = gamma * post;
+          const int c = cols[kc], tt = c / U, uu = c - tt * U;
+          float x[DMAX], x2[DMAX];
+#pragma unroll
+          for (int e = 0; e < DMAX; ++e) x[e] = (e < D) ? fq[(tt * D + e) * U + uu] - origin[e] : 0.f;
 #pragma unroll
           for (int e = 0; e < DMAX; ++e) {
-            if (e < D) acc[e * nt] = fmaf(gm, x[e], acc[e * nt]);
+            x2[e] = x[e] * x[e];
+            if (s2 == 0 && e < D) x_sh[e * ks + kc] = x[e];
           }
-          if constexpr (FULL) {
-#pragma unroll
-            for (int d = 0; d < DMAX; ++d) {
-#pragma unroll
-              for (int e = 0; e < DMAX; ++e) {
-                if (d < D && e < D) {
-                  float* a = acc + (size_t)(D + d * D + e) * nt;
-                  *a = fmaf(gm, x[e] * x[d], *a);
-                }
-              }
+          const float* rec = smem + p.offs[q] + s2 * M * stride;
+          float mx = kNegInf, ex = 0.f;
+          // two mixtures' FMA chains side by side, pushed in mixture order
+          int mix = 0;
+          for (; mix + 2 <= M; mix += 2) {
+            float qa, qb;
+            if constexpr (FULL) {
+              qa = full_mix_q<DMAX>(rec + mix * stride, D, x);
+              qb = full_mix_q<DMAX>(rec + (mix + 1) * stride, D, x);
+            } else {
+              qa = diag_mix_q<DMAX>(rec + mix * stride, x, x2);
+              qb = diag_mix_q<DMAX>(rec + (mix + 1) * stride, x, x2);
             }
-          } else {
-#pragma unroll
-            for (int e = 0; e < DMAX; ++e) {
-              if (e < D) acc[(D + e) * nt] = fmaf(gm, x2[e], acc[(D + e) * nt]);
-            }
+            w_sh[(mix * S + s2) * ks + kc] = qa;
+            w_sh[((mix + 1) * S + s2) * ks + kc] = qb;
+            lse_push(qa, mx, ex);
+            lse_push(qb, mx, ex);
           }
-          acc[(L1 - 1) * nt] += gm;
+          if (mix < M) {
+            float qv;
+            if constexpr (FULL) {
+              qv = full_mix_q<DMAX>(rec + mix * stride, D, x);
+            } else {
+              qv = diag_mix_q<DMAX>(rec + mix * stride, x, x2);
+            }
+            w_sh[(mix * S + s2) * ks + kc] = qv;
+            lse_push(qv, mx, ex);
+          }
+          const float lbp = lse_value(mx, ex);  // this stream's own log b
+          const float g = g_tile[(size_t)tt * nt + s2 * U + uu];
+          for (mix = 0; mix < M; ++mix) {
+            float* wq = w_sh + (mix * S + s2) * ks + kc;
+            const float post = (lbp > 0.5f * kNegInf) ? expf(fminf(*wq - lbp, 0.f)) : 0.f;
+            *wq = (g * post) * kWeightScale;
+          }
         }
+        named_barrier(2, n_stat);
+        contract_3xtf32<FULL>(acc + (size_t)S * p.mom_offs[q], S * M, L1, w_sh, x_sh, ks, D, k8 / 8, swarp,
+                              n_stat >> 5);
+        named_barrier(2, n_stat);  // the weights and features are free again
+        fq += (size_t)TT * D * U;
       }
     }
+    __syncthreads();
   }
-
-  if (live) {
-    for (int k = 0; k < nslots; ++k) p.xi[((size_t)k * S + s) * p.B + b] = xi_sh[k * nt + tid];
-    p.den_trans[(size_t)s * p.B + b] = dt;
-    p.den_mix[(size_t)s * p.B + b] = dm;
-  }
-  __syncthreads();
-  // this block's moment partial: per stream an (M*S, L+1) block with row
-  // m*S + s, each entry the sum over the block's U utterances in order
-  float* out = p.mom + (size_t)blockIdx.x * S * p.mom_thread;
-  for (int q = 0; q < p.n_streams; ++q) {
-    const int D = p.dims[q], M = p.mixes[q];
-    const int L1 = FULL ? D + D * D + 1 : 2 * D + 1;
-    for (int r = tid; r < M * S * L1; r += nt) {
-      const int row = r / L1, l = r - row * L1;
-      const int mix = row / S, s2 = row - mix * S;
-      const float* col = mom_sh + (size_t)(p.mom_offs[q] + mix * L1 + l) * nt + s2 * U;
-      float acc = 0.f;
-      for (int k = 0; k < U; ++k) acc += col[k];
-      out[(size_t)S * p.mom_offs[q] + r] = acc;
-    }
-  }
+  for (int i = st; i < S * p.mom_thread; i += n_stat) out[i] = acc[i] * kWeightUnscale;
 }
 
 using KernelFn = void (*)(EmParams);
 
-// which: 0 = emit-forward, 1 = backward-stats
+// which: 0 = emit-forward, 1 = backward-stats with up to 2 transition slots
+// (band 0 or 1) in registers, 2 = backward-stats with up to kXiRegs
 template <int DMAX, bool FULL>
 KernelFn pick(int which) {
-  return which == 0 ? emit_forward_kernel<DMAX, FULL> : backward_stats_kernel<DMAX, FULL>;
+  if (which == 0) return emit_forward_kernel<DMAX, FULL>;
+  return which == 1 ? backward_stats_kernel<DMAX, FULL, 2> : backward_stats_kernel<DMAX, FULL, kXiRegs>;
 }
 
 // nullptr for a bound that is not compiled: full covariance carries D^2
@@ -352,10 +547,15 @@ KernelFn kernel_for(int which, int dmax, int full) {
 }
 
 size_t smem_bytes(int which, const EmParams& p) {
-  const size_t nt = (size_t)p.S * p.U;
-  const size_t nslots = p.band >= 0 ? (size_t)p.band + 1 : (size_t)p.S;
-  if (which == 0) return sizeof(float) * ((size_t)p.C + 2 * nt);
-  return sizeof(float) * ((size_t)p.C + (2 + p.max_mix + nslots + p.mom_thread) * nt);
+  if (which == 0) return sizeof(float) * ((size_t)p.C + 2 * (size_t)p.S * p.U);
+  return sizeof(float) * backward_floats(p, p.TT) + sizeof(int) * backward_ints(p.TT, p.U, p.stat_warps);
+}
+
+// threads of a block: S * U, for backward-stats rounded up to whole warps
+// (the contraction takes whole warps)
+int block_threads(int which, const EmParams& p) {
+  const int nt = p.S * p.U;
+  return which == 0 ? nt : (nt + 31) / 32 * 32 + 32 * p.stat_warps;
 }
 
 int fill_params(EmParams& p, const void* const* feats, const int* dims, const int* mixes,
@@ -366,7 +566,7 @@ int fill_params(EmParams& p, const void* const* feats, const int* dims, const in
     return (int)cudaErrorInvalidValue;
   }
   p = EmParams{};
-  int mom = 0, max_mix = 1;
+  int mom = 0, max_mix = 1, sum_dims = 0, max_dim = 1;
   for (int i = 0; i < n_streams; ++i) {
     const int D = dims[i], M = mixes[i];
     if (D < 1 || M < 1) return (int)cudaErrorInvalidValue;
@@ -378,6 +578,8 @@ int fill_params(EmParams& p, const void* const* feats, const int* dims, const in
     p.mom_offs[i] = mom;
     mom += M * ((full ? D + D * D : 2 * D) + 1);
     max_mix = M > max_mix ? M : max_mix;
+    sum_dims += D;
+    max_dim = D > max_dim ? D : max_dim;
   }
   p.n_streams = n_streams;
   p.consts = static_cast<const float*>(consts);
@@ -391,21 +593,34 @@ int fill_params(EmParams& p, const void* const* feats, const int* dims, const in
   p.S = S;
   p.band = band;
   p.U = U;
+  p.TT = 1;
+  p.sum_dims = sum_dims;
+  p.max_dim = max_dim;
   return 0;
 }
 
+// the kernel_for variant of a launch: 0 emit-forward, 1 or 2 backward-stats
+// by its transition slots (band + 1, or S dense)
+int variant_of(int which, const EmParams& p) {
+  const int nslots = p.band >= 0 ? p.band + 1 : p.S;
+  return which == 0 ? 0 : (nslots <= 2 ? 1 : 2);
+}
+
+cudaError_t allow_smem(KernelFn kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
 int run(int which, const EmParams& p, int dmax, int full, int device, void* stream) {
-  const KernelFn kernel = kernel_for(which, dmax, full);
+  const KernelFn kernel = kernel_for(variant_of(which, p), dmax, full);
   if (kernel == nullptr) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const size_t smem = smem_bytes(which, p);
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
+  err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
   const int blocks = (p.B + p.U - 1) / p.U;
-  kernel<<<blocks, p.S * p.U, smem, static_cast<cudaStream_t>(stream)>>>(p);
+  kernel<<<blocks, block_threads(which, p), smem, static_cast<cudaStream_t>(stream)>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -416,7 +631,11 @@ extern "C" {
 // Both launchers run on `stream` and return cudaGetLastError() (0 = ok).
 // feats/dims/mixes/offs/origin_offs are host arrays of n_streams entries;
 // the pointers they hold and every other pointer are device pointers.
-// band < 0 selects dense transitions.  U = utterances per block (S*U threads).
+// band < 0 selects dense transitions.  U = utterances per block (S*U threads,
+// for backward-stats rounded up to whole warps, plus stat_warps statistics
+// warps); TT = frames a backward-stats tile stages and acc_global = its
+// moment accumulators in mom rather than shared memory (shared memory
+// backward_floats + backward_ints).
 int srhmm_emit_forward(const void* const* feats, const int* dims, const int* mixes,
                        const int* offs, const int* origin_offs, int n_streams, const void* consts,
                        int C, int lt_off, const void* lengths, void* log_b, void* la, int T, int B,
@@ -435,11 +654,16 @@ int srhmm_backward_stats(const void* const* feats, const int* dims, const int* m
                          const void* consts, int C, int lt_off, const void* lengths,
                          const void* safe_z, const void* vmask, const void* log_b, const void* la,
                          void* xi, void* den_trans, void* den_mix, void* mom, int T, int B, int S,
-                         int band, int full, int dmax, int U, int device, void* stream) {
+                         int band, int full, int dmax, int U, int TT, int stat_warps, int acc_global,
+                         int device, void* stream) {
   EmParams p;
   const int bad = fill_params(p, feats, dims, mixes, offs, origin_offs, n_streams, consts, C,
                               lt_off, lengths, T, B, S, band, full, U);
   if (bad) return bad;
+  p.TT = TT;
+  p.stat_warps = stat_warps;
+  p.acc_global = acc_global;
+  if (TT < 1 || stat_warps < 1 || block_threads(1, p) > kMaxBackwardThreads) return (int)cudaErrorInvalidValue;
   p.safe_z = static_cast<const float*>(safe_z);
   p.vmask = static_cast<const float*>(vmask);
   p.log_b = const_cast<float*>(static_cast<const float*>(log_b));
@@ -453,15 +677,13 @@ int srhmm_backward_stats(const void* const* feats, const int* dims, const int* m
 
 // Resident blocks per SM for a launch of `threads` threads and `smem`
 // bytes of dynamic shared memory (which: 0 = emit-forward, 1 = backward-
-// stats); written to *blocks.  Returns a CUDA error code (0 = ok).
+// stats with up to 2 transition slots, 2 = with more); written to *blocks.
+// Returns a CUDA error code (0 = ok).
 int srhmm_em_occupancy(int which, int dmax, int full, int threads, int smem, int* blocks) {
   const KernelFn kernel = kernel_for(which, dmax, full);
   if (kernel == nullptr) return (int)cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    const cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
-  }
+  const cudaError_t err = allow_smem(kernel, (size_t)smem);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, threads, (size_t)smem);
 }
 

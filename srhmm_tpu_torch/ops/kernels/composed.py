@@ -63,6 +63,9 @@ PAIRS_PER_CHUNK = 16  # csrc/composed.cu kChunk: (utterance, row) pairs a moment
 MOMENTS_SLOTS = (4, 2, 1)  # tiles a moments batch = warps a block, largest that fits first
 EMISSION_RING = (3, 2, 1)  # record buffers of a bank-emission block, deepest that fits first
 _MAX_LATTICE_THREADS = 1024
+ROWS_PER_LANE = (1, 2, 4)  # composed rows a backward-stats lane holds (csrc/composed.cu instantiations)
+BACKWARD_TILES = (16, 8, 4, 2, 1)  # frames a backward-stats tile stages, largest that fits first
+_BACKWARD_WARPS = 8  # csrc/composed.cu kBackwardThreads / 64: recursion warps a block
 _FULL_DMAX_LIMIT = 16  # full-covariance bounds compiled in csrc/composed.cu
 _MAX_GRID_Y = 65535
 _ELEMS_PER_CHUNK = 1 << 24  # per-mixture elements the twins hold at once
@@ -361,7 +364,7 @@ def _kernel_library() -> ctypes.CDLL:
     lib.srhmm_composed_forward.restype = c_int
     lib.srhmm_composed_forward.argtypes = [c_ptr] * 4 + [c_int] * 6 + [c_ptr]
     lib.srhmm_composed_backward_stats.restype = c_int
-    lib.srhmm_composed_backward_stats.argtypes = [c_ptr] * 10 + [c_int] * 6 + [c_ptr]
+    lib.srhmm_composed_backward_stats.argtypes = [c_ptr] * 10 + [c_int] * 9 + [c_ptr]
     lib.srhmm_bank_moments.restype = c_int
     lib.srhmm_bank_moments.argtypes = (
         bank_head + [c_ptr, c_ll, c_ll, c_ll] + [c_ptr] * 4 + [p_ptr] + [c_int] * 2 + [p_ptr] + [c_int] * 6
@@ -487,13 +490,49 @@ def composed_forward(log_b, diag_col, lengths):
 composed_forward.launches = 0
 
 
+def backward_block(LS: int, B: int, nd: int, sms: int = 132) -> dict:
+    """The launch shape of the backward-stats kernel (csrc/composed.cu):
+    R rows a lane (the fewest of 1, 2, 4 that hold LS in one warp, else 4),
+    W warps an utterance of each kind (recursion, statistics), U utterances
+    a block (at most 8 recursion warps a block, halved while fewer than 3/4
+    of the `sms` SMs would get a block), TT frames a staged tile (the
+    largest of BACKWARD_TILES that fits)."""
+    if LS > _MAX_LATTICE_THREADS:
+        raise ValueError(f"composed_backward_stats: at most {_MAX_LATTICE_THREADS} composed rows, got {LS}")
+    if not 1 <= nd <= MAX_BAND + 1:
+        raise ValueError(f"composed_backward_stats: 1 to {MAX_BAND + 1} diagonals, got {nd}")
+    R = next((r for r in ROWS_PER_LANE if 32 * r >= LS), ROWS_PER_LANE[-1])
+    W = -(-LS // (32 * R))
+    U = max(1, _BACKWARD_WARPS // W)
+    while U > 1 and -(-B // U) < 3 * sms // 4:
+        U //= 2
+    TT = next((tt for tt in BACKWARD_TILES if backward_smem_bytes(R, W, U, tt, LS) <= SMEM_LIMIT), None)
+    if TT is None:
+        raise ValueError(f"composed_backward_stats: no tile of LS={LS} rows fits {SMEM_LIMIT} bytes")
+    return {"rows_per_lane": R, "warps": W, "utts": U, "tile": TT}
+
+
+def backward_smem_bytes(R: int, W: int, U: int, TT: int, LS: int) -> int:
+    """csrc/composed.cu backward_floats: log-alpha in three slots and log_b
+    in two, (TT, LS, U) with a tile pitch of LS U rounded up to 4; the inner
+    terms and log-beta in two slots each, (TT, U, 32 R W + 4)."""
+    ap = -(-LS * U // 4) * 4
+    return 4 * (5 * TT * ap + 4 * TT * U * (32 * R * W + 4))
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def composed_backward_stats(log_b, log_alpha, diag_row, lengths, safe_z, vmask):
     """Banded log-backward + lattice statistics: (gamma (T, LS, B), xi
     (band+1, LS, B), den_trans (LS, B), den_mix (LS, B)) (see
     composed_backward_stats_plain).  The per-utterance sums are taken by one
-    thread each, in time order: two runs are bitwise equal.
+    lane each, in time order: two runs are bitwise equal.
 
-    CUDA tensors launch the hand-written kernel and count one in
+    CUDA tensors launch the hand-written kernel (a warp per utterance, the
+    lattices staged a tile of frames ahead; backward_block) and count one in
     ``composed_backward_stats.launches``; CPU tensors run the twin."""
     if on_cpu("composed_backward_stats", log_b):
         return composed_backward_stats_plain(log_b, log_alpha, diag_row, lengths, safe_z, vmask)
@@ -510,11 +549,13 @@ def composed_backward_stats(log_b, log_alpha, diag_row, lengths, safe_z, vmask):
     xi = torch.empty((nd, LS, B), **f32)
     den_trans = torch.empty((LS, B), **f32)
     den_mix = torch.empty((LS, B), **f32)
-    U = _lattice_block(name, LS)
+    index, stream = device_args(log_b.device)
+    blk = backward_block(LS, B, nd, _sm_count(index))
     check_launch(name, _kernel_library().srhmm_composed_backward_stats(
         log_b.data_ptr(), log_alpha.data_ptr(), diag_row.data_ptr(), lens.data_ptr(),
         safe_z.data_ptr(), vmask.data_ptr(), gamma.data_ptr(), xi.data_ptr(),
-        den_trans.data_ptr(), den_mix.data_ptr(), T, LS, B, nd, U, *device_args(log_b.device)))
+        den_trans.data_ptr(), den_mix.data_ptr(), T, LS, B, nd,
+        blk["rows_per_lane"], blk["warps"], blk["utts"], blk["tile"], index, stream))
     composed_backward_stats.launches += 1
     return gamma, xi, den_trans, den_mix
 

@@ -49,6 +49,10 @@ from .common import (
 
 MAX_STREAMS = 6
 UTTS_PER_BLOCK = 16  # utterances per block; a block runs S * U threads
+BACKWARD_TILES = (16, 8, 4, 2, 1)  # frames a backward-stats tile stages, largest that fits first
+BACKWARD_UTTS = 16  # utterances a backward-stats block at most
+BACKWARD_THREADS = 512  # csrc/fused_em.cu kMaxBackwardThreads: recursion threads + statistics warps
+XI_REGS = 8  # csrc/fused_em.cu kXiRegs: xi slots a backward-stats thread keeps in registers
 _MAX_THREADS = 256  # csrc/fused_em.cu kMaxThreads
 _FULL_DMAX_LIMIT = 16  # full-covariance bounds compiled in csrc/fused_em.cu
 
@@ -345,11 +349,12 @@ def _kernel_library() -> ctypes.CDLL:
     c_int, c_ptr, p_int = ctypes.c_int, ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)
     head = [ctypes.POINTER(c_ptr), p_int, p_int, p_int, p_int, c_int,  # feats, dims, mixes, offs, origin_offs, P
             c_ptr, c_int, c_int, c_ptr]  # consts, C, lt_off, lengths
-    tail = [c_int, c_int, c_int, c_int, c_int, c_int, c_int, c_int, c_ptr]  # T B S band full dmax U device stream
+    shape = [c_int] * 7  # T B S band full dmax U
     lib.srhmm_emit_forward.restype = c_int
-    lib.srhmm_emit_forward.argtypes = head + [c_ptr, c_ptr] + tail  # log_b, la
+    lib.srhmm_emit_forward.argtypes = head + [c_ptr, c_ptr] + shape + [c_int, c_ptr]  # log_b, la; device, stream
     lib.srhmm_backward_stats.restype = c_int
-    lib.srhmm_backward_stats.argtypes = head + [c_ptr] * 8 + tail  # safe_z .. mom
+    # safe_z .. mom; the shape; TT, stat_warps, acc_global, device; stream
+    lib.srhmm_backward_stats.argtypes = head + [c_ptr] * 8 + shape + [c_int] * 4 + [c_ptr]
     lib.srhmm_em_occupancy.restype = c_int
     lib.srhmm_em_occupancy.argtypes = [c_int, c_int, c_int, c_int, c_int, p_int]
     return lib
@@ -383,6 +388,7 @@ class _Launch:
             raise ValueError(f"{name}: full covariance takes D <= {_FULL_DMAX_LIMIT}, got {max(ds)}")
         self.name, self.dev, self.ds, self.full = name, dev, ds, full
         self.T, self.B, self.S, self.band = T, B, S, band
+        self.nslots = band + 1 if band is not None else S
         self.feats = [f.contiguous() for f in feats]
         self.lengths = lengths.to(torch.int32).contiguous()
         self.consts, self.offs, self.origin_offs, self.lt_off = self._constants(packed, origins, trans)
@@ -421,28 +427,35 @@ class _Launch:
         if self.S > _MAX_THREADS:
             raise ValueError(f"{self.name}: at most {_MAX_THREADS} states, got {self.S}")
         U = max(1, min(UTTS_PER_BLOCK, _MAX_THREADS // self.S))
-        mom = sum(M * ((D + D * D if self.full else 2 * D) + 1) for D, M in zip(self.ds, self.ms))
-        return U, mom
+        return U, moment_floats(self.ds, self.ms, self.full)
 
-    def smem_bytes(self, which: int, U: int, mom: int) -> int:
+    def smem_bytes(self, which: int, U: int, TT: int = 1, stat_warps: int = 0, acc_global: bool = False) -> int:
         """csrc/fused_em.cu smem_bytes: the dynamic shared memory of a block."""
-        nt = self.S * U
         if which == 0:
-            return 4 * (self.consts.numel() + 2 * nt)
-        nslots = self.band + 1 if self.band is not None else self.S
-        return 4 * (self.consts.numel() + (2 + max(self.ms) + nslots + mom) * nt)
+            return 4 * (self.consts.numel() + 2 * self.S * U)
+        return backward_smem_bytes(self.consts.numel(), self.S, self.ds, self.ms, self.nslots, self.full, U, TT,
+                                   stat_warps, acc_global)
 
-    def block(self, which: int) -> int:
-        """Utterances per block that fit the shared-memory budget."""
-        U, mom = self.threads()
-        while U > 1 and self.smem_bytes(which, U, mom) > SMEM_LIMIT:
+    def block(self, which: int) -> tuple[int, int, int, bool]:
+        """(utterances per block U, frames a backward-stats tile TT,
+        statistics warps, acc_global); emit-forward takes (U, 1, 0, False)."""
+        if which == 1:
+            return backward_block(self.consts.numel(), self.S, self.ds, self.ms, self.nslots, self.full, self.name)
+        U, _ = self.threads()
+        while U > 1 and self.smem_bytes(which, U) > SMEM_LIMIT:
             U //= 2
-        if self.smem_bytes(which, U, mom) > SMEM_LIMIT:
+        if self.smem_bytes(which, U) > SMEM_LIMIT:
             raise ValueError(
-                f"{self.name}: {self.smem_bytes(which, U, mom)} bytes of shared memory per "
+                f"{self.name}: {self.smem_bytes(which, U)} bytes of shared memory per "
                 f"block, above the {SMEM_LIMIT}-byte budget"
             )
-        return U
+        return U, 1, 0, False
+
+    def block_threads(self, which: int, U: int, stat_warps: int = 0) -> int:
+        """csrc/fused_em.cu block_threads: S * U, for backward-stats rounded
+        up to whole warps, plus the statistics warps."""
+        nt = self.S * U
+        return nt if which == 0 else -(-nt // 32) * 32 + 32 * stat_warps
 
     def head(self):
         P = len(self.feats)
@@ -453,18 +466,65 @@ class _Launch:
             self.consts.data_ptr(), self.consts.numel(), self.lt_off, self.lengths.data_ptr(),
         ]
 
-    def tail(self, U: int):
+    def shape(self, U: int):
+        return [self.T, self.B, self.S, -1 if self.band is None else self.band, int(self.full), self.dmax, U]
+
+    def where(self):
         dev = self.dev
-        return [
-            self.T, self.B, self.S, -1 if self.band is None else self.band, int(self.full),
-            self.dmax, U, dev.index if dev.index is not None else torch.cuda.current_device(),
-            torch.cuda.current_stream(dev).cuda_stream,
-        ]
+        return [dev.index if dev.index is not None else torch.cuda.current_device(),
+                torch.cuda.current_stream(dev).cuda_stream]
 
     def check(self, err: int):
         if err != 0:
             msg = _kernel_library().srhmm_cuda_error_string(err).decode()
             raise RuntimeError(f"{self.name} kernel launch failed: CUDA error {err} ({msg})")
+
+
+def moment_floats(ds, ms, full: bool) -> int:
+    """Moment floats of one state over the streams: sum_p M_p (L_p + 1)."""
+    return sum(M * ((D + D * D if full else 2 * D) + 1) for D, M in zip(ds, ms))
+
+
+def backward_smem_bytes(C: int, S: int, ds, ms, nslots: int, full: bool, U: int, TT: int, stat_warps: int,
+                        acc_global: bool = False) -> int:
+    """csrc/fused_em.cu backward_floats + backward_ints: the dynamic shared
+    memory of a backward-stats block of U utterances at TT frames a tile
+    with stat_warps statistics warps, for C floats of constants (the
+    records, origins and log transitions); acc_global: the moment
+    accumulators in the block's row of the partials instead of shared
+    memory."""
+    nt, cols = S * U, TT * U
+    ks = -(-cols // 8) * 8 + (4 if cols > 8 else 0)
+    floats = (C + 3 * TT * U * (2 * S + sum(ds)) + 2 * TT * nt + 2 * nt + max(nslots - XI_REGS, 0) * nt
+              + (S * max(ms) + max(ds)) * ks + (0 if acc_global else S * moment_floats(ds, ms, full)))
+    return 4 * floats + 4 * (cols + stat_warps)
+
+
+def backward_block(C: int, S: int, ds, ms, nslots: int, full: bool,
+                   name: str = "backward_stats") -> tuple[int, int, int, bool]:
+    """(utterances per block U, frames a tile TT, statistics warps,
+    acc_global) of the backward-stats kernel: U = min(16, 128 // S) (at
+    most four warps of recursion threads), statistics warps filling the
+    block to 512 threads, TT the largest of BACKWARD_TILES whose block fits
+    SMEM_LIMIT, with the moment accumulators in shared memory or, where
+    only that way it fits, in the block's row of the partials; U halves
+    until a tile fits."""
+    if S > _MAX_THREADS:
+        raise ValueError(f"{name}: at most {_MAX_THREADS} states, got {S}")
+    U = max(1, min(BACKWARD_UTTS, 128 // S))
+    while True:
+        n_rec = -(-S * U // 32) * 32
+        warps = max(2, (BACKWARD_THREADS - n_rec) // 32)
+        for TT in BACKWARD_TILES:
+            for acc_global in (False, True):
+                if backward_smem_bytes(C, S, ds, ms, nslots, full, U, TT, warps, acc_global) <= SMEM_LIMIT:
+                    return U, TT, warps, acc_global
+        if U == 1:
+            raise ValueError(
+                f"{name}: {backward_smem_bytes(C, S, ds, ms, nslots, full, 1, 1, warps, True)} bytes of shared "
+                f"memory per block, above the {SMEM_LIMIT}-byte budget"
+            )
+        U //= 2
 
 
 def _on_cpu(name, feats) -> bool:
@@ -486,12 +546,12 @@ def emit_forward(feats, packed, origins, trans, lengths, band):
     if _on_cpu("emit_forward", feats):
         return emit_forward_plain(feats, packed, origins, trans, lengths, band)
     ln = _Launch("emit_forward", feats, packed, origins, trans, lengths, band)
-    U = ln.block(0)
+    U, _, _, _ = ln.block(0)
     f32 = dict(dtype=torch.float32, device=ln.dev)
     log_b = torch.empty((ln.T, ln.S, ln.B), **f32)
     la = torch.empty((ln.T, ln.S, ln.B), **f32)
     lib = _kernel_library()
-    ln.check(lib.srhmm_emit_forward(*ln.head(), log_b.data_ptr(), la.data_ptr(), *ln.tail(U)))
+    ln.check(lib.srhmm_emit_forward(*ln.head(), log_b.data_ptr(), la.data_ptr(), *ln.shape(U), *ln.where()))
     emit_forward.launches += 1
     return log_b, la
 
@@ -523,11 +583,10 @@ def backward_stats(feats, log_b, log_alpha, packed, origins, trans, lengths, saf
     # before then could be handed to the next allocation while still unread
     safe_z, vmask = safe_z.contiguous(), vmask.contiguous()
     log_b, log_alpha = log_b.contiguous(), log_alpha.contiguous()
-    U = ln.block(1)
+    U, TT, stat_warps, acc_global = ln.block(1)
     _, mom_thread = ln.threads()
     f32 = dict(dtype=torch.float32, device=ln.dev)
-    nslots = ln.band + 1 if ln.band is not None else S
-    xi = torch.empty((nslots, S, B), **f32)
+    xi = torch.empty((ln.nslots, S, B), **f32)
     den_trans = torch.empty((S, B), **f32)
     den_mix = torch.empty((S, B), **f32)
     blocks = -(-B // U)
@@ -536,7 +595,8 @@ def backward_stats(feats, log_b, log_alpha, packed, origins, trans, lengths, saf
     ln.check(lib.srhmm_backward_stats(
         *ln.head(), safe_z.data_ptr(), vmask.data_ptr(),
         log_b.data_ptr(), log_alpha.data_ptr(), xi.data_ptr(),
-        den_trans.data_ptr(), den_mix.data_ptr(), partial.data_ptr(), *ln.tail(U),
+        den_trans.data_ptr(), den_mix.data_ptr(), partial.data_ptr(), *ln.shape(U),
+        TT, stat_warps, int(acc_global), *ln.where(),
     ))
     backward_stats.launches += 1
     mom = partial.sum(0)
@@ -556,13 +616,15 @@ def occupancy(which: int, feats, packed, origins, trans, lengths, band) -> dict:
     emit-forward, 1 = backward-stats), from the CUDA occupancy calculator
     for the block shape the wrappers choose."""
     ln = _Launch("occupancy", feats, packed, origins, trans, lengths, band)
-    U = ln.block(which)
-    _, mom = ln.threads()
-    threads = ln.S * U
-    smem = ln.smem_bytes(which, U, mom)
+    U, TT, stat_warps, acc_global = ln.block(which)
+    threads = ln.block_threads(which, U, stat_warps)
+    smem = ln.smem_bytes(which, U, TT, stat_warps, acc_global)
     blocks = ctypes.c_int(0)
+    variant = 0 if which == 0 else (1 if ln.nslots <= 2 else 2)  # csrc/fused_em.cu variant_of
     ln.check(_kernel_library().srhmm_em_occupancy(
-        which, ln.dmax, int(ln.full), threads, smem, ctypes.byref(blocks)))
-    return {"utts_per_block": U, "threads": threads, "smem_bytes": smem,
-            "blocks_per_sm": blocks.value, "grid": -(-ln.B // U),
+        variant, ln.dmax, int(ln.full), threads, smem, ctypes.byref(blocks)))
+    return {"utts_per_block": U, "tile_frames": TT if which == 1 else None,
+            "stat_warps": stat_warps if which == 1 else None,
+            "acc_in_shared_memory": not acc_global if which == 1 else None, "threads": threads,
+            "smem_bytes": smem, "blocks_per_sm": blocks.value, "grid": -(-ln.B // U),
             "warps_per_block": -(-threads // 32)}

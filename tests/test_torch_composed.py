@@ -263,3 +263,42 @@ def test_no_shape_eligible_before_the_redesign_is_refused_now():
                         assert kc.moments_smem_bytes(mixes, D, full) <= kc.SMEM_LIMIT, (mixes, D, full)
                         ring = kc.emission_ring(mixes, [stride] * P)
                         assert ring * 4 * sum(mixes) * stride <= kc.SMEM_LIMIT, (mixes, D, full)
+
+
+# composed_backward_stats' launch shape (backward_block): (LS, B, nd) ->
+# (rows a lane, warps an utterance, utterances a block, frames a tile) on
+# 132 SMs, for emb_c4, tied_c5, pipe_c3 and the widest chains
+BACKWARD_BLOCKS = {
+    "emb_c4": ((36, 512, 3), (2, 1, 4, 16)),
+    "tied_c5": ((30, 1024, 3), (1, 1, 8, 16)),
+    "pipe_c3": ((27, 40, 3), (1, 1, 1, 16)),
+    "LS64": ((64, 2048, 2), (2, 1, 8, 8)),
+    "LS128_band15": ((128, 300, 16), (4, 1, 2, 16)),
+    "LS1024_band15": ((1024, 64, 16), (4, 8, 1, 4)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(BACKWARD_BLOCKS))
+def test_backward_block_of_the_main_path_shapes(name):
+    (LS, B, nd), want = BACKWARD_BLOCKS[name]
+    blk = kc.backward_block(LS, B, nd, sms=132)
+    assert (blk["rows_per_lane"], blk["warps"], blk["utts"], blk["tile"]) == want
+
+
+def test_no_chain_the_lattice_kernels_took_before_is_refused_now():
+    """Every (LS, band) that _lattice_block and fused_eligible accepted
+    before the warp-per-utterance kernel (LS up to 1024 rows, 1 to 16
+    diagonals) gets a launch shape: 32 R W >= LS rows, at most 512 threads
+    (recursion and statistics warps), a ring that fits the shared memory,
+    at any B."""
+    for LS in range(1, 1025):
+        for nd in (1, 2, 3, 4, 5, 8, 16):
+            for B in (1, 37, 512, 4096):
+                blk = kc.backward_block(LS, B, nd, sms=132)
+                R, W, U, TT = blk["rows_per_lane"], blk["warps"], blk["utts"], blk["tile"]
+                assert R in kc.ROWS_PER_LANE and 32 * R * W >= LS and 64 * W * U <= 512
+                assert kc.backward_smem_bytes(R, W, U, TT, LS) <= kc.SMEM_LIMIT and TT >= 1
+    with pytest.raises(ValueError, match="1024"):
+        kc.backward_block(1025, 8, 3)
+    with pytest.raises(ValueError, match="diagonals"):
+        kc.backward_block(30, 8, 17)

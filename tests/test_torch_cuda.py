@@ -22,7 +22,14 @@ from srhmm_tpu_torch.ops.kernels import fused_em as fe
 from srhmm_tpu_torch.ops.kernels import scoring
 from srhmm_tpu_torch.ops.kernels.common import NEG_INF
 from srhmm_tpu_torch.train import em
-from torch_port_utils import BANK_DEPTH_CASES, rand_word, sparse_gammas
+from torch_port_utils import (
+    BACKWARD_CASES,
+    BANK_DEPTH_CASES,
+    backward_lattice_case,
+    em_tile_lengths,
+    rand_word,
+    sparse_gammas,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -104,9 +111,10 @@ def test_kernel_rejects_what_it_does_not_take(cuda_device):
         scoring.score_batch_fused(wide, _batch(cuda_device, [65], [10]))
 
 
-def _em_inputs(device, cov, band, mixes_dims, lens, S=6, seed=3):
+def _em_inputs(device, cov, band, mixes_dims, lens, S=6, seed=3, shared_gaussians=False):
     """(feats, packed, origins, trans, lengths) of one E-step on `device`;
-    band=None gives a dense random transition matrix."""
+    band=None gives a dense random transition matrix; shared_gaussians gives
+    every mixture of a state mixture 0's Gaussian (posteriors = weights)."""
     rng = np.random.default_rng(seed)
     if band is None:
         trans = rng.uniform(0.1, 1.0, size=(S, S))
@@ -116,6 +124,10 @@ def _em_inputs(device, cov, band, mixes_dims, lens, S=6, seed=3):
             trans[i, i : i + band + 1] = rng.uniform(0.2, 1.0, size=min(band + 1, S - i))
     trans /= trans.sum(-1, keepdims=True)
     _, streams = rand_word(seed, S, list(mixes_dims), cov, scale=3.0)
+    if shared_gaussians:
+        for st in streams:
+            for key in ("means", "inv_cov", "det"):
+                st[key] = np.repeat(st[key][:, :1], st[key].shape[1], axis=1)
     model = tm.gmm_hmm_from_numpy(trans, streams).astype(torch.float32).to(device)
     T, B = max(lens), len(lens)
     feats = tuple(
@@ -602,6 +614,80 @@ def test_bank_kernels_poison_out_of_range_ids(cuda_device):
     want = kc.bank_moments_lattice_plain(bad.clamp(0, NB - 1), bank, feats, g, lengths, full)
     ok = torch.as_tensor(~rows_nan, device=mom.device)
     _stat_close(mom[ok], want[ok])
+
+
+# the redesigned backward-statistics kernels: composed_backward_stats at
+# every launch shape (rows per lane 1 / 2 / 4, an utterance over 2 and 8
+# warps, band 1 to 15, T around the 16-frame tile, B off the block's
+# utterances) and backward_stats at lengths on its tile edges
+
+
+@pytest.mark.parametrize("LS,nd,T,B", BACKWARD_CASES)
+def test_composed_backward_stats_matches_plain_at_every_launch_shape(cuda_device, LS, nd, T, B):
+    args = backward_lattice_case(cuda_device, 700 + LS, LS, nd, T, B)
+    counts = kc.launch_counts()["composed_backward_stats"]
+    got, again = kc.composed_backward_stats(*args), kc.composed_backward_stats(*args)
+    want = kc.composed_backward_stats_plain(*args)
+    torch.cuda.synchronize()
+    assert kc.launch_counts()["composed_backward_stats"] == counts + 2
+    for a, b, c in zip(got, want, again):
+        assert a.shape == b.shape
+        _stat_close(a, b)
+        assert torch.equal(a, c)  # bitwise repeat
+
+
+_EM_TILE_CASES = [
+    ("diag", 1, ((3, 9),), 6),
+    ("diag", 2, ((3, 9),), 6),
+    ("diag", None, ((3, 9),), 6),
+    ("diag", 1, ((3, 39),), 6),
+    ("full", 1, ((2, 16),), 6),
+    ("diag", 2, ((3, 9), (2, 3)), 6),
+    ("diag", 2, ((3, 9), (2, 3), (2, 5), (1, 7), (3, 4), (2, 6)), 6),
+    ("full", 1, ((16, 16),), 6),  # accumulators in the partials (acc_global)
+    ("diag", None, ((3, 9),), 10),  # transition slots past the registers
+]
+
+
+@pytest.mark.parametrize("cov,band,mixes_dims,S", _EM_TILE_CASES)
+def test_backward_stats_matches_plain_on_tile_edges(cuda_device, cov, band, mixes_dims, S):
+    """Lengths whose last frame opens or closes a tile (a tile whose only
+    non-zero gamma column is its first frame), 0 and 1, T = 95 off the
+    16-frame tile; the E-step statistics within 1e-4 of scale, two runs
+    bitwise equal."""
+    lens = em_tile_lengths(np.random.default_rng(31), 95, fe.BACKWARD_TILES[0])
+    feats, packed, origins, trans, lengths = _em_inputs(cuda_device, cov, band, mixes_dims, lens, S=S)
+    lb, la = fe.emit_forward_plain(feats, packed, origins, trans, lengths, band)
+    log_z = la[-1, -1]
+    valid = torch.isfinite(log_z) & (log_z > NEG_INF / 2) & (lengths > 0)
+    rest = (feats, lb, la, packed, origins, trans, lengths, torch.where(valid, log_z, 0.0), valid.float(), band)
+    got, again = fe.backward_stats(*rest), fe.backward_stats(*rest)
+    want = fe.backward_stats_plain(*rest)
+    torch.cuda.synchronize()
+    for a, b, c in zip(_stat_parts(got, mixes_dims), _stat_parts(want, mixes_dims), _stat_parts(again, mixes_dims)):
+        assert a.shape == b.shape
+        _stat_close(a, b)
+        assert torch.equal(a, c)
+    acc_global = fe.occupancy(1, feats, packed, origins, trans, lengths, band)["acc_in_shared_memory"] is False
+    assert acc_global == (mixes_dims == ((16, 16),))
+
+
+def test_backward_stats_matches_plain_on_few_frames(cuda_device):
+    """Two utterances of 2 and 3 frames through S=2 states of M=2 mixtures
+    sharing one Gaussian: each moment holds one or two terms with the
+    mixture weights as posteriors, so the contraction's 3xTF32 rounding is
+    not averaged away (dropping a term of the split shows here)."""
+    feats, packed, origins, trans, lengths = _em_inputs(cuda_device, "diag", 1, ((2, 9),), [2, 3], S=2,
+                                                        shared_gaussians=True)
+    lb, la = fe.emit_forward_plain(feats, packed, origins, trans, lengths, 1)
+    log_z = la[-1, -1]
+    valid = torch.isfinite(log_z) & (log_z > NEG_INF / 2) & (lengths > 0)
+    assert bool(valid.all())
+    rest = (feats, lb, la, packed, origins, trans, lengths, torch.where(valid, log_z, 0.0), valid.float(), 1)
+    got, want = fe.backward_stats(*rest), fe.backward_stats_plain(*rest)
+    torch.cuda.synchronize()
+    for a, b in zip(_stat_parts(got, ((2, 9),)), _stat_parts(want, ((2, 9),))):
+        _stat_close(a, b)
 
 
 # ---------------------------------------------------------------------------

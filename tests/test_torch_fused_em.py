@@ -307,3 +307,63 @@ def test_em_step_dispatch_on_cpu():
     assert float(nv) == 2.0
     with pytest.raises(NotImplementedError, match="bf16"):
         t_em.em_step(tm_, bt, bf16_stats=True)
+
+
+def _consts_floats(S, ds, ms, full):
+    """Floats of _Launch's constant block: per stream its records (stride
+    from the compiled bound), per stream its origin, the (S, S) log
+    transitions, each part padded to 4."""
+    from srhmm_tpu_torch.ops.kernels.common import dmax_for
+
+    r4 = lambda n: -(-n // 4) * 4
+    dmax = dmax_for(ds, "test")
+    stride = lambda D: D * dmax + dmax + 4 if full else 2 * dmax + 4
+    return sum(r4(S * M * stride(D)) for D, M in zip(ds, ms)) + sum(r4(D) for D in ds) + r4(S * S)
+
+
+# backward_stats' launch shape (backward_block) at the main-path shapes:
+# (S, [(M, D) per stream], full, nslots) -> (U, TT, statistics warps,
+# accumulators in the partials)
+EM_BLOCKS = {
+    "em_diag": ((8, [(3, 9)], False, 2), (16, 16, 12, False)),
+    "em_full": ((6, [(1, 9)], True, 2), (16, 16, 13, False)),
+    "em_diag_p2": ((8, [(3, 9), (2, 3)], False, 2), (16, 16, 12, False)),
+    "full_D16_M16": ((6, [(16, 16)], True, 2), (16, 8, 13, True)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(EM_BLOCKS))
+def test_backward_block_of_the_main_path_shapes(name):
+    (S, md, full, nslots), want = EM_BLOCKS[name]
+    ms, ds = [m for m, _ in md], [d for _, d in md]
+    got = fe.backward_block(_consts_floats(S, ds, ms, full), S, ds, ms, nslots, full)
+    assert got == want
+    U, TT, warps, acc_global = got
+    assert -(-S * U // 32) * 32 + 32 * warps <= fe.BACKWARD_THREADS
+    assert fe.backward_smem_bytes(_consts_floats(S, ds, ms, full), S, ds, ms, nslots, full, U, TT, warps,
+                                  acc_global) <= fe.SMEM_LIMIT
+
+
+def _smem_before_redesign(C, S, ds, ms, nslots, full, U):
+    """One backward-stats block before its redesign: the constants, then per
+    thread two exchange slots, max M q values, nslots xi sums and the
+    moment accumulators."""
+    return 4 * (C + (2 + max(ms) + nslots + fe.moment_floats(ds, ms, full)) * S * U)
+
+
+def test_no_shape_taken_before_the_redesign_is_refused_now():
+    """Over S = 1-16 states, P = 1, 2, 3, 6 streams of M = 1-64 mixtures,
+    D = 1-64 diagonal and 1-16 full, band 1, 2 and dense: wherever the old
+    block fitted at one utterance, the new one fits too."""
+    for full, dims in ((False, range(1, 65)), (True, range(1, 17))):
+        for D in dims:
+            for S in range(1, 17):
+                for P in (1, 2, 3, 6):
+                    for M in (1, 2, 3, 4, 8, 16, 32, 64):
+                        ds, ms = [D] * P, [M] * P
+                        C = _consts_floats(S, ds, ms, full)
+                        for nslots in sorted({min(2, S), min(3, S), S}):
+                            if _smem_before_redesign(C, S, ds, ms, nslots, full, 1) > fe.SMEM_LIMIT:
+                                continue
+                            U, TT, w, g = fe.backward_block(C, S, ds, ms, nslots, full)
+                            assert fe.backward_smem_bytes(C, S, ds, ms, nslots, full, U, TT, w, g) <= fe.SMEM_LIMIT

@@ -1,12 +1,13 @@
-"""Mutation check of csrc/lattice.cu, csrc/emission_em.cu and csrc/composed.cu
+"""Mutation check of csrc/lattice.cu, csrc/emission_em.cu, csrc/composed.cu,
+csrc/fused_em.cu and csrc/tile_mma.cuh
 (needs a CUDA card and nvcc; not a tier-1 test):
 
     python tests/torch_kernel_mutants.py [mutant ...]
 
 Each mutant is a copy of the tree in a temporary directory with one
 deliberate fault in a kernel source; the chip_smoke.py phase that should
-catch it (kernel_lattice, kernel_emission or kernel_composed) runs there,
-after the build.
+catch it (kernel_lattice, kernel_emission, kernel_composed or kernel_em)
+runs there, after the build.
 Prints one JSON line per mutant: caught (the phase raised) or survived.
 With no arguments every mutant runs.
 """
@@ -21,6 +22,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 LAT, EM = "srhmm_tpu_torch/csrc/lattice.cu", "srhmm_tpu_torch/csrc/emission_em.cu"
 COMP = "srhmm_tpu_torch/csrc/composed.cu"
+FEM, TILE = "srhmm_tpu_torch/csrc/fused_em.cu", "srhmm_tpu_torch/csrc/tile_mma.cuh"
 MUTANTS = [
     ("forward_length_mask", LAT, "    } else if (t < len) {\n      const float* prev = row + ((t + 1) & 1) * nt + q.base;\n      float m",
      "    } else if (t <= len) {\n      const float* prev = row + ((t + 1) & 1) * nt + q.base;\n      float m", "kernel_lattice"),
@@ -36,13 +38,28 @@ MUTANTS = [
     ("stats_ignores_neg_inf_log_b", EM, "(on && lb > kNegInf) ? p.gamma", "(on) ? p.gamma", "kernel_emission"),
     ("moments_vote_skips_single_frame_tile", COMP, "__any_sync(~0u, gv[v] != 0.f)",
      "(__popc(__ballot_sync(~0u, gv[v] != 0.f)) > 1)", "kernel_composed"),
-    ("moments_3xtf32_drops_lo_hi", COMP, "        mma_tf32(c[hh], alo, b0h, b1h);\n", "", "kernel_composed"),
+    ("moments_3xtf32_drops_lo_hi", TILE, "        mma_tf32(c[hh], alo, b0h, b1h);\n", "", "kernel_composed"),
     ("emission_groups_floor", COMP, "int groups_of(int D) { return (D + 3) / 4; }",
      "int groups_of(int D) { return D / 4; }", "kernel_composed"),
     ("sum_chunks_skips_last_partial", COMP, "g < m.chunk_cum[r + 1]; ++g)", "g + 1 < m.chunk_cum[r + 1]; ++g)",
      "kernel_composed"),
     ("emission_ring_reads_previous_row", COMP, "ring + (size_t)(j % nbuf) * p.rec_floats;",
      "ring + (size_t)((j + nbuf - 1) % nbuf) * p.rec_floats;", "kernel_composed"),
+    ("backward_ring_reads_previous_tile", COMP, "      float* la_tile = la_slots + ((k - 1) % 3) * tile;",
+     "      float* la_tile = la_slots + (k % 3) * tile;", "kernel_composed"),
+    ("backward_drops_first_frame_of_tile", COMP,
+     "        for (int t = t_hi - 1; t >= t_lo; --t) {\n          const int tt = t - t_lo;\n          float* in_row",
+     "        for (int t = t_hi - 1; t > t_lo; --t) {\n          const int tt = t - t_lo;\n          float* in_row",
+     "kernel_composed"),
+    ("backward_shuffle_off_by_one_row", COMP, "__shfl_down_sync(~0u, inner[q % R], q / R)",
+     "__shfl_down_sync(~0u, inner[(q + 1) % R], (q + 1) / R)", "kernel_composed"),
+    ("em_ring_reads_previous_tile", FEM, "        const float* buf = ring + (k % 3) * frame_tile;",
+     "        const float* buf = ring + ((k + 2) % 3) * frame_tile;", "kernel_em"),
+    ("em_drops_first_frame_of_tile", FEM, "        for (int t = t_hi - 1; t >= t_lo; --t) {\n          const int tt",
+     "        for (int t = t_hi - 1; t > t_lo; --t) {\n          const int tt", "kernel_em"),
+    ("em_3xtf32_drops_lo_hi", TILE, "        mma_tf32(c[hh], alo, b0h, b1h);\n", "", "kernel_em"),
+    ("em_vote_skips_single_nonzero_column", FEM, "const bool keep = nonzero > 0;", "const bool keep = nonzero > 1;",
+     "kernel_em"),
 ]
 DRIVER = """
 import sys, torch

@@ -180,3 +180,61 @@ BANK_DEPTH_CASES = [
     ("full", ((82, 16),), 2, 2),
     ("diag", ((200, 39),), 2, 1),
 ]
+
+
+NEG_INF = -1e30
+
+
+# composed_backward_stats on its own (LS, nd, T, B): rows per lane 1, 2, 4,
+# an utterance over 2 and 8 warps (LS 160, 1024), band 1 (nd 2) and up to
+# 15 (nd 16), T one below, at and one above the 16-frame tile and 95, B
+# off the multiples of the block's utterances (2, 4, 8 on 132 SMs)
+BACKWARD_CASES = [
+    (36, 3, 95, 37),
+    (20, 3, 15, 517),
+    (30, 3, 16, 1031),
+    (12, 2, 17, 203),
+    (48, 6, 40, 300),
+    (90, 3, 95, 37),
+    (160, 3, 100, 37),
+    (1024, 16, 83, 5),
+]
+
+
+def backward_lattice_case(device, seed, LS, nd, T, B):
+    """composed_backward_stats' inputs from a seed: random log_b (T, LS, B),
+    per-utterance chains of nd diagonals (row and column forms), lengths
+    T, 0, 1, the first tile's length and random ones, log-alpha from the
+    forward twin."""
+    from srhmm_tpu_torch.ops.kernels import composed as kc
+
+    rng = np.random.default_rng(seed)
+    TT = kc.BACKWARD_TILES[0]
+    lens = ([T, 0, 1, min(TT, T)] + [int(n) for n in rng.integers(2, T + 1, size=B)])[:B]
+    p = rng.uniform(0.05, 1.0, size=(LS, nd, B))
+    i = np.arange(LS)[:, None]
+    p[(i + np.arange(nd)[None, :]) >= LS] = 0.0
+    p /= p.sum(1, keepdims=True)
+    with np.errstate(divide="ignore"):
+        row = np.maximum(np.log(p), NEG_INF).transpose(1, 0, 2)  # (nd, LS, B): a[i, i+d]
+    col = np.full_like(row, NEG_INF)
+    for d in range(nd):
+        col[d, d:] = row[d, : LS - d]  # a[j-d, j]
+    log_b = torch.as_tensor(rng.normal(size=(T, LS, B)) * 3 - 10, dtype=torch.float32, device=device)
+    diag_row = torch.as_tensor(row, dtype=torch.float32, device=device)
+    diag_col = torch.as_tensor(col, dtype=torch.float32, device=device)
+    lengths = torch.as_tensor(lens, dtype=torch.int32, device=device)
+    la = kc.composed_forward_plain(log_b, diag_col, lengths)
+    log_z = la[-1, -1]
+    valid = torch.isfinite(log_z) & (log_z > NEG_INF / 2) & (lengths > 0)
+    return log_b, la, diag_row, lengths, torch.where(valid, log_z, 0.0), valid.to(torch.float32)
+
+
+def em_tile_lengths(rng, T: int, TT: int) -> list[int]:
+    """B=37 lengths up to T: random ones, T, 0, 1, and lengths whose last
+    frame is the first frame of a backward-stats tile (the utterance's only
+    non-zero gamma column there) or the last frame of one (tiles of TT
+    frames counted down from T)."""
+    edges = sorted({T - TT + 1, T - 2 * TT + 1, T - TT, T - 2 * TT, TT + 1, TT, TT - 1} & set(range(2, T)))
+    lens = [int(n) for n in rng.integers(2, T, size=37 - 3 - len(edges))] + edges + [T, 0, 1]
+    return lens
