@@ -41,12 +41,15 @@ each (any failure raises, so the exit code is non-zero):
               scored through the vocab_scores kernel: accuracy >= 0.9
     kernel_decode
               the word-loop decode kernel (word_loop_decode / _k2 / _kn,
-              K = 1, 2, 3) vs its twin: diag/full x unigram, bigram S=8,
+              K = 1, 2, 3, 4) vs its twin: diag/full x unigram, bigram S=8,
               bigram S=6 (padded to 8 states) x one stream D=9/M=3 or two
-              D=9/M=3 + D=3/M=2, heterogeneous final states, a duplicated
-              word (exact ties decided by the tie-breaks), B=37, T=95
-              with a zero-length and a length-1 row, and W=200 bigram at a
-              short T: final max|k-p|/max(|p|,1) <= 1e-5 with equal masks,
+              D=9/M=3 + D=3/M=2, heterogeneous final states, duplicated
+              words (exact ties decided by the tie-breaks, also across the
+              lanes of the bigram merge and the warps of the unigram
+              argmax), entry states without a self-loop, B=37, T=95 with a
+              zero-length and a length-1 row, and W=45, W=200 and W=400
+              (arcs above shared memory) at a short T: final
+              max|k-p|/max(|p|,1) <= 1e-5 with equal masks,
               pointer mismatches <= 1e-4 of all pointers, identical
               hypotheses (word ids, spans) through the same backtrace,
               two kernel runs bitwise equal
@@ -67,7 +70,12 @@ each (any failure raises, so the exit code is non-zero):
               BOUND, statistics and moments within STAT_BOUND, two runs and
               the two gamma layouts bitwise equal; the moments also on
               hand-made gammas with all-zero 32-frame tiles beside tiles
-              whose one non-zero frame is the first or the last
+              whose one non-zero frame is the first or the last;
+              composed_forward and composed_backward_stats alone at the
+              launch shapes of torch_port_utils.LATTICE_CASES (failing
+              unless each kernel's rows per lane, warps per utterance,
+              ragged blocks, partial and short tiles and wide bands were
+              reached)
   3 embedded  emb_c4 (suite config 4: 40 units, S=3, M=32, D=13, B=512,
               T <= 512, L=12) and tied_c5 (config 5: 700 triphones over
     tied      2000 senones, M=16, D=39, B=1024, T <= 304, L=10) from a
@@ -1073,66 +1081,107 @@ def decode_kernel(args, kw, K):
     return kd.word_loop_decode_kn(*args, n_best=K, **kw)
 
 
-def phase_kernel_decode(torch) -> dict:
-    """The word-loop kernel vs its plain twin on the same CUDA tensors, at
-    K = 1, 2, 3: diag and full covariance; unigram, bigram at S=8 and
-    bigram at S=6 (padded to 8 states); one stream D=9/M=3 or two streams
-    D=9/M=3 + D=3/M=2; heterogeneous word lengths (final states through
-    exit_col); a duplicated word (exact ties); B=37, T=95 with a zero-length
-    and a length-1 row; one W=200 bigram case at a short T.  Returns the
-    worst absolute error per wrapper."""
-    from srhmm_tpu_torch.decode import continuous as dc
-    from srhmm_tpu_torch.io.dataset import pack_utterances
-    from srhmm_tpu_torch.models import gmm_hmm_from_numpy, pad_stack_models, stack_models
-    from srhmm_tpu_torch.ops.kernels import decode as kd
-
-    dev = torch.device("cuda")
-    rng = np.random.default_rng(2026)
+def kernel_decode_configs(rng) -> list:
+    """(cov, W, S, bigram, [(M, D) per stream], variant, lengths, Ks) of
+    kernel_decode.  variant: "hetero" = words of S and S-2 states (final
+    states through exit_col); ("dup", a, c) = word c a copy of word a with
+    the same arcs in and out (uniform unigram, or the bigram's row and
+    column), so their tokens tie bitwise in both implementations and the
+    lowest-row / lowest-plane tie-breaks alone decide pointers and word
+    ids; "noloop" = no self-loop at the words' first states, words 0-19
+    unreachable by the bigram."""
     lens37 = [int(n) for n in rng.integers(2, 95, size=34)] + [95, 0, 1]
-    worst = {name: 0.0 for name in DECODE_WRAPPERS.values()}
-    saved = decode_counts()
-    # variant: "hetero" = words of S and S-2 states (final states through
-    # exit_col); "dup" = word 3 a copy of word 1 with the same arcs in and
-    # out (uniform unigram, or the bigram's row and column), so their tokens
-    # tie bitwise in both implementations and the lowest-row / lowest-plane
-    # tie-breaks alone decide pointers and word ids
     configs = []
     for cov in ("diag", "full"):
         for S, bigram in ((8, False), (8, True), (6, True)):
             for md in ([(3, 9)], [(3, 9), (2, 3)]):
-                configs.append((cov, 5, S, bigram, md, None, lens37))
+                configs.append((cov, 5, S, bigram, md, None, lens37, (1, 2, 3)))
         for bigram in (False, True):
-            configs.append((cov, 5, 8, bigram, [(3, 9)], "hetero", lens37))
-            configs.append((cov, 5, 8, bigram, [(3, 9)], "dup", lens37))
-    configs.append(("diag", 200, 8, True, [(4, 13)], None, [60, 0, 1] + [int(n) for n in rng.integers(2, 60, 34)]))
-    for ci, (cov, W, S, bigram, md, variant, lens) in enumerate(configs):
+            configs.append((cov, 5, 8, bigram, [(3, 9)], "hetero", lens37, (1, 2, 3)))
+            configs.append((cov, 5, 8, bigram, [(3, 9)], ("dup", 1, 3), lens37, (1, 2, 3, 4)))
+    configs.append(("diag", 200, 8, True, [(4, 13)], None, [60, 0, 1] + [int(n) for n in rng.integers(2, 60, 34)],
+                    (1, 2, 3)))
+    # W off the multiples of 32, with a copy whose ties the bigram merge
+    # settles across two lanes of one destination's group (sources 2 and 33
+    # of G = 8 lanes) and the unigram argmax across two warps; a bigram whose
+    # (W, W) arcs (640 KB) exceed a block's shared memory
+    for bigram in (False, True):
+        configs.append(("diag", 45, 8, bigram, [(3, 9)], ("dup", 2, 33), lens37, (1, 2, 3, 4)))
+    # no self-loop at the entry states, and words 0-19 that no word may
+    # follow (zero bigram columns): while every exit token is NEG_INF (the
+    # first frames) an entry row's own candidates fall below NEG_INF, so the
+    # bigram's NEG_INF-level cross candidates, tie-breaks and all, reach the
+    # pointers (the 2-best runner-up rule, the K-best order)
+    configs.append(("diag", 45, 8, True, [(3, 9)], "noloop", lens37, (1, 2, 3, 4)))
+    configs.append(("diag", 400, 8, True, [(2, 9)], None, [40, 0, 1] + [int(n) for n in rng.integers(2, 40, 34)],
+                    (1, 2, 3)))
+    return configs
+
+
+def kernel_decode_cases(torch):
+    """The kernel_decode configurations on the card, one at a time: (name,
+    args, kw, Ks, (vocab, batch, graph keywords, lengths)) with the decode
+    wrappers' operands."""
+    from srhmm_tpu_torch.io.dataset import pack_utterances
+    from srhmm_tpu_torch.models import gmm_hmm_from_numpy, pad_stack_models, stack_models
+
+    dev = torch.device("cuda")
+    configs = kernel_decode_configs(np.random.default_rng(2026))
+    for ci, (cov, W, S, bigram, md, variant, lens, Ks) in enumerate(configs):
         wrng = np.random.default_rng(100 + ci)
         sizes = [S - 2 * (i % 2) if variant == "hetero" else S for i in range(W)]
         leaves = [(left_right_trans(n, 2.0) if i % 2 == 0 else skip_trans(n),
                    [rand_stream(wrng, n, M, D, cov) for M, D in md]) for i, n in enumerate(sizes)]
-        if variant == "dup":
-            leaves[3] = leaves[1]
+        if variant == "noloop":
+            leaves = [(port_utils().entry_without_loop(t), st) for t, st in leaves]
+        dup = variant[1:] if isinstance(variant, tuple) else None
+        if dup:
+            leaves[dup[1]] = leaves[dup[0]]
         words = [gmm_hmm_from_numpy(t, st, f"w{i}") for i, (t, st) in enumerate(leaves)]
         vocab, fs = pad_stack_models(words) if variant == "hetero" else (stack_models(words), None)
         vocab = vocab.astype(torch.float32).to(dev)
         batches = tuple(pack_utterances([wrng.normal(size=(n, D)) * 3 for n in lens], pad_multiple=1,
                                         dtype=torch.float32, device=dev) for _, D in md)
-        batch = batches[0] if len(batches) == 1 else batches
         graph_kw = {"final_states": fs}
         if bigram:
             lm = np.log(wrng.dirichlet(np.ones(W), size=W))
-            if variant == "dup":  # the copy's arcs in and out too: the two are interchangeable
-                lm[:, 3] = lm[:, 1]
-                lm[3] = lm[1]
+            if dup:  # the copy's arcs in and out too: the two are interchangeable
+                lm[:, dup[1]] = lm[:, dup[0]]
+                lm[dup[1]] = lm[dup[0]]
+            if variant == "noloop":
+                lm[:, :20] = -np.inf
             graph_kw["lm_logprobs"] = lm
         args, kw = decode_operands(vocab, batches, graph_kw)
-        for K in (1, 2, 3):
+        tag = ("_dup" if dup == (1, 3) else f"_dup{dup[0]}_{dup[1]}") if dup else (f"_{variant}" if variant else "")
+        name = f"{cov}_W{W}_S{S}_{'bigram' if bigram else 'unigram'}_P{len(md)}" + tag
+        yield name, args, kw, Ks, (vocab, batches[0] if len(batches) == 1 else batches, graph_kw, lens)
+
+
+def decode_wrapper(K: int) -> str:
+    return DECODE_WRAPPERS[min(K, 3)]
+
+
+def phase_kernel_decode(torch) -> dict:
+    """The word-loop kernel vs its plain twin on the same CUDA tensors over
+    kernel_decode_configs, at K = 1, 2, 3 (and 4): diag and full
+    covariance; unigram, bigram at S=8 and bigram at S=6 (padded to 8
+    states); one stream D=9/M=3 or two streams D=9/M=3 + D=3/M=2;
+    heterogeneous word lengths (final states through exit_col); duplicated
+    words (exact ties); B=37, T=95 with a zero-length and a length-1 row;
+    W=45, W=200 and W=400 (arcs above shared memory) at a short T.  Returns
+    the worst absolute error per wrapper."""
+    from srhmm_tpu_torch.decode import continuous as dc
+    from srhmm_tpu_torch.ops.kernels import decode as kd
+
+    worst = {name: 0.0 for name in DECODE_WRAPPERS.values()}
+    saved = decode_counts()
+    for name0, args, kw, Ks, (vocab, batch, graph_kw, lens) in kernel_decode_cases(torch):
+        for K in Ks:
             fk, bk = decode_kernel(args, kw, K)
             fk2, bk2 = decode_kernel(args, kw, K)
             fp, bp = kd.word_loop_decode_plain(*args, n_best=K, **kw)
             torch.cuda.synchronize()
-            name = f"{cov}_W{W}_S{S}_{'bigram' if bigram else 'unigram'}_P{len(md)}" + \
-                (f"_{variant}" if variant else "") + f"_K{K}"
+            name = f"{name0}_K{K}"
             res = compare_lattice(fk, fp, f"{name} final")
             mism = int((bk != bp).sum())
             if not mism <= POINTER_BOUND * bk.numel():
@@ -1143,7 +1192,7 @@ def phase_kernel_decode(torch) -> dict:
             hk = dc.decode_continuous_batch(vocab, batch, n_best=K, **graph_kw)
             hp = on_decode_twin(lambda: dc.decode_continuous_batch(vocab, batch, n_best=K, **graph_kw))
             hyp_rel = compare_hyps(hk, hp, K, name)
-            worst[DECODE_WRAPPERS[K]] = max(worst[DECODE_WRAPPERS[K]], res["max_abs_err"])
+            worst[decode_wrapper(K)] = max(worst[decode_wrapper(K)], res["max_abs_err"])
             emit({"phase": "kernel_decode", "config": name, "B": len(lens), "T": max(lens),
                   "s_eff": args[7], "final_rel_err": res["rel_err"], "pointer_mismatches": mism,
                   "pointers": bk.numel(), "hyp_score_rel_err": hyp_rel, "bitwise_repeat": bitwise})
@@ -1550,9 +1599,49 @@ def sparse_moments_check(torch, ids, banks, feats, lengths, full, what) -> dict:
     return worst
 
 
+def forward_check(torch) -> float:
+    """composed_forward vs its twin over torch_port_utils' LATTICE_CASES
+    (log-alpha within BOUND with equal masks, two runs bitwise equal); fails
+    unless every launch shape in question was reached: 1, 2 and 4 rows a
+    lane, 2+ warps an utterance, a ragged block, a partial tile, T shorter
+    than a tile, 16 diagonals, rows of length 0 and 1.  Returns the worst
+    absolute error."""
+    from srhmm_tpu_torch.ops.kernels import composed as kc
+
+    utils = port_utils()
+    worst, reached = 0.0, set()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for LS, nd, T, B in utils.LATTICE_CASES:
+        args = utils.forward_lattice_case(torch.device("cuda"), 900 + LS, LS, nd, T, B)
+        la_k, la_k2 = kc.composed_forward(*args), kc.composed_forward(*args)
+        la_p = kc.composed_forward_plain(*args)
+        torch.cuda.synchronize()
+        what = f"forward LS{LS} nd{nd} T{T} B{B}"
+        res = compare_lattice(la_k, la_p, what)
+        worst = max(worst, res["max_abs_err"])
+        if not torch.equal(la_k, la_k2):
+            raise AssertionError(f"{what}: two runs differ")
+        blk = kc.forward_block(LS, B, nd, sms)
+        lens = set(args[-1].tolist())
+        reached |= {("rows_per_lane", blk["rows_per_lane"])}
+        reached |= {"warps_per_utterance"} if blk["warps"] > 1 else set()
+        reached |= {"ragged_block"} if blk["utts"] > 1 and B % blk["utts"] else set()
+        reached |= {"partial_tile"} if T > blk["tile"] and T % blk["tile"] else set()
+        reached |= {"one_partial_tile"} if T < blk["tile"] else set()
+        reached |= {"16_diagonals"} if nd == 16 else set()
+        reached |= {f"length_{n}" for n in (0, 1) if n in lens}
+        emit({"phase": "kernel_composed", "config": what, "block": blk, "rel_err": res["rel_err"],
+              "bitwise_repeat": True})
+    want = {("rows_per_lane", 1), ("rows_per_lane", 2), ("rows_per_lane", 4), "warps_per_utterance",
+            "ragged_block", "partial_tile", "one_partial_tile", "16_diagonals", "length_0", "length_1"}
+    if reached != want:
+        raise AssertionError(f"forward_check reached {sorted(reached, key=str)}, not {sorted(want, key=str)}")
+    return worst
+
+
 def backward_check(torch) -> float:
     """composed_backward_stats vs its twin over torch_port_utils'
-    BACKWARD_CASES (gamma, xi,
+    LATTICE_CASES (gamma, xi,
     den_trans, den_mix within STAT_BOUND, two runs bitwise equal); fails
     unless every launch shape in question was reached.  Returns the worst
     absolute error."""
@@ -1561,7 +1650,7 @@ def backward_check(torch) -> float:
     utils = port_utils()
     worst, reached = 0.0, set()
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    for LS, nd, T, B in utils.BACKWARD_CASES:
+    for LS, nd, T, B in utils.LATTICE_CASES:
         args = utils.backward_lattice_case(torch.device("cuda"), 700 + LS, LS, nd, T, B)
         st_k, st_k2 = kc.composed_backward_stats(*args), kc.composed_backward_stats(*args)
         st_p = kc.composed_backward_stats_plain(*args)
@@ -1637,6 +1726,7 @@ def phase_kernel_composed(torch) -> dict:
               "emission_ring": ring, "moments_slots": slots,
               "bitwise_repeat": True, "gamma_layouts_bitwise_equal": True, **out["rel"],
               "zero_tile_gammas_max_abs": sparse})
+    worst["composed_forward"] = max(worst["composed_forward"], forward_check(torch))
     worst["composed_backward_stats"] = max(worst["composed_backward_stats"], backward_check(torch))
     set_composed_counts(saved)  # comparison launches are not main-path launches
     want = {("ring", 3), ("ring", 2), ("ring", 1), ("slots", 4), ("slots", 2), ("slots", 1)}

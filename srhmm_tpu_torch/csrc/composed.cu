@@ -78,12 +78,14 @@
 //   (sum_chunks_kernel) sums each bank row's partials in chunk order.  No
 //   atomics: every sum is taken in a fixed order, so two runs, and the two
 //   gamma layouts, are bitwise equal.
-// * composed_forward: the fused_em.cu recursion structure without the
-//   emission: one thread per (row, utterance), the whole time loop in the
-//   kernel, one value per thread exchanged through a double-buffered shared
-//   row each frame.  It moves 2 (T, LS, B) float lattices and does ~10
-//   operations per element: bound by bytes, in practice by the serial chain
-//   of T frames per thread.
+// * composed_forward (bound by bytes: 2 lattices and ~10 operations an
+//   element; in practice by the serial chain of T frames of log-sum-exp per
+//   row): #11's structure, with store warps in place of the statistics
+//   warps.  A warp per utterance with the rows on lanes and the sources by
+//   shuffles, so the chain has no block barrier and reads no device memory;
+//   log_b comes into shared memory a tile of frames ahead (cp.async) and
+//   log-alpha leaves it a tile behind, both moved by warps of their own
+//   (see the kernel).
 // * composed_backward_stats (bound by bytes: 4 lattices; in practice by the
 //   serial chain of T frames of log-sum-exp per row): a warp per utterance
 //   with the rows on lanes, the neighbours by shuffles, so the chain has no
@@ -108,7 +110,7 @@ constexpr int kMaxSlots = 4;                // tiles a moments batch (= warps a 
 constexpr int kScan = 4;                    // candidate tiles a warp checks a scan step
 constexpr int kMaxRing = 3;                 // record buffers of a bank-emission block
 constexpr int kMaxBand = 15;                // diagonals - 1 of the composed chain
-constexpr int kMaxLatticeThreads = 1024;    // LS * U threads per forward block
+constexpr int kForwardThreads = 512;       // threads of a forward block, at most
 constexpr int kBackwardThreads = 512;       // threads of a backward-stats block, at most
 constexpr int kReduceThreads = 256;
 constexpr int kTableThreads = 1024;
@@ -152,7 +154,7 @@ struct LatticeParams {
   float* den_trans;        // (LS, B) (backward)
   float* den_mix;          // (LS, B) (backward)
   int T, LS, B, nd, U;     // U utterances per block
-  int W, TT;               // backward: warps an utterance, frames a tile
+  int W, TT;               // warps an utterance, frames a tile
 };
 
 // frames a bank-emission thread takes: two where the features fit in few
@@ -389,44 +391,6 @@ __global__ void __launch_bounds__(kFrames) bank_emission_kernel(const BankParams
   }
 }
 
-// One thread per (row j, utterance b): thread j * U + u, b = blockIdx.x * U + u.
-__global__ void __launch_bounds__(kMaxLatticeThreads) composed_forward_kernel(const LatticeParams p) {
-  extern __shared__ float sh[];
-  const int LS = p.LS, U = p.U, nt = LS * U, tid = threadIdx.x;
-  const int j = tid / U, u = tid - j * U;
-  const int b = blockIdx.x * U + u;
-  const bool live = b < p.B;
-  float dcol[kMaxBand + 1];
-#pragma unroll
-  for (int d = 0; d <= kMaxBand; ++d)
-    dcol[d] = (live && d < p.nd) ? p.diag[((size_t)d * LS + j) * p.B + b] : kNegInf;
-  const int len = live ? p.lengths[b] : 0;
-  float carry = kNegInf;
-  for (int t = 0; t < p.T; ++t) {
-    const size_t o = ((size_t)t * LS + j) * p.B + b;
-    const float lb = live ? p.log_b[o] : kNegInf;
-    const float* prev = sh + ((t + 1) & 1) * nt;
-    if (t == 0) {
-      carry = fmaxf((j == 0 ? 0.f : kNegInf) + lb, kNegInf);
-    } else if (t < len) {
-      // sources j - d below row 0 only add exp(-2e30 - m) = 0: skipped
-      float m = kNegInf;
-#pragma unroll
-      for (int d = 0; d <= kMaxBand; ++d)
-        if (d < p.nd && j - d >= 0) m = fmaxf(m, prev[(j - d) * U + u] + dcol[d]);
-      float e = 0.f;
-#pragma unroll
-      for (int d = 0; d <= kMaxBand; ++d)
-        if (d < p.nd && j - d >= 0) e += expf(prev[(j - d) * U + u] + dcol[d] - m);
-      const float upd = fmaxf(logf(fmaxf(e, kTiny)) + m, kNegInf);
-      carry = fmaxf(upd + lb, kNegInf);
-    }
-    sh[(t & 1) * nt + tid] = carry;
-    if (live) p.la_out[o] = carry;
-    __syncthreads();
-  }
-}
-
 // Shared memory of one backward-stats block, in floats (the wrapper's
 // ops/kernels/composed.py backward_smem_bytes mirrors it), for tiles of TT
 // frames: log-alpha in three ring slots and log_b of the next frames in
@@ -438,10 +402,19 @@ __global__ void __launch_bounds__(kMaxLatticeThreads) composed_forward_kernel(co
 // utterances over the banks).
 __host__ __device__ inline int backward_pitch(int R, int W) { return 32 * R * W + 4; }
 
-__host__ __device__ inline int backward_tile_pitch(int LS, int U) { return (LS * U + 3) / 4 * 4; }
+__host__ __device__ inline int tile_pitch(int LS, int U) { return (LS * U + 3) / 4 * 4; }
+
+// Shared memory of one forward block, in floats (ops/kernels/composed.py
+// forward_smem_bytes mirrors it): log_b in two slots and log-alpha in two,
+// each (TT, LS, U) with the tile pitch of the backward's slots.
+__host__ __device__ inline size_t forward_floats(int U, int TT, int LS) { return 4 * (size_t)TT * tile_pitch(LS, U); }
 
 __host__ __device__ inline size_t backward_floats(int R, int W, int U, int TT, int LS) {
-  return 5 * (size_t)TT * backward_tile_pitch(LS, U) + 4 * (size_t)TT * U * backward_pitch(R, W);
+  return 5 * (size_t)TT * tile_pitch(LS, U) + 4 * (size_t)TT * U * backward_pitch(R, W);
+}
+
+__device__ __forceinline__ void named_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 template <int R>
@@ -468,8 +441,138 @@ __device__ __forceinline__ void store_rows(float* dst, const float (&v)[R]) {
   }
 }
 
-__device__ __forceinline__ void named_barrier(int id, int threads) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+// Two kinds of warp, W per utterance each (W > 1 when LS > 128), U
+// utterances a block.  Recursion warps: lane l of warp w of an utterance
+// holds rows j0 = (32 w + l) R .. j0 + R - 1 in registers, with their NDB
+// >= nd column-form diagonals (NDB = 2, 3, 4, 8 or 16, so that the loops
+// over the diagonals unroll without a branch).  The block walks tiles of TT
+// frames up in time: while the recursion warps run tile k out of shared
+// memory, the store warps write log-alpha of tile k-1 out (U consecutive
+// floats along B a row, 16-byte stores where U and B are multiples of 4)
+// and start the 16-byte cp.async copies of tile k+1's log_b; one barrier
+// closes a tile.
+// Per frame a recursion lane takes its rows' log_b from the tile (read a
+// frame ahead) and the sources j - d (0 < d < nd) of its rows from the
+// lanes below by __shfl_up_sync: row j0 - s lives in lane l - ceil(s / R),
+// register (-s) mod R, so NDB - 1 shuffles serve every row of the lane; a
+// row in the previous warp is read from the log-alpha tile after a barrier
+// of the recursion warps (W > 1 only).  Nothing else is on the serial
+// chain.  A source off the chain (j - d < 0, or d >= nd) enters the max as
+// -inf and the sum as expf(-inf) = 0.0f, which change no bit of a sum that
+// skips it: log-alpha is bitwise that of a kernel with one thread a row
+// summing over d ascending.  Frame 0 starts in row 0 even for a
+// zero-length row; frames t >= length repeat the carry.
+template <int R, int NDB>
+__global__ void __launch_bounds__(kForwardThreads) composed_forward_kernel(const LatticeParams p) {
+  extern __shared__ float4 smem4[];
+  float* sh = reinterpret_cast<float*>(smem4);
+  const int LS = p.LS, U = p.U, W = p.W, TT = p.TT, nd = p.nd, T = p.T;
+  const int AP = tile_pitch(LS, U), tid = threadIdx.x;
+  const int role_threads = 32 * W * U;
+  const int b0 = blockIdx.x * U;
+  const size_t tile = (size_t)TT * AP;  // floats of one (TT, LS, U) slot
+  float* lb_slots = sh;                 // 2 slots; slot k & 1 holds tile k
+  float* la_slots = sh + 2 * tile;      // 2 slots
+  const int n_tiles = (T + TT - 1) / TT;
+  if (tid >= role_threads) {
+    // ---- the store warps ----
+    const int st = tid - role_threads;
+    auto stage = [&](int k) {  // log_b of frames [k TT, k TT + TT)
+      stage_rows_async(lb_slots + (k & 1) * tile, AP, U, p.log_b, k * TT, min(TT, T - k * TT), LS, T, p.B, b0, U,
+                       role_threads, role_threads);
+      cp_async_commit();
+    };
+    stage(0);
+    cp_async_wait<0>();
+    __syncthreads();
+    for (int k = 0; k < n_tiles; ++k) {
+      // tile k+1 goes into the slot of tile k-1, read before the last barrier
+      if (k + 1 < n_tiles) stage(k + 1);
+      if (k >= 1)
+        store_rows_from_tile(p.la_out, la_slots + ((k - 1) & 1) * tile, AP, (k - 1) * TT, TT, LS, p.B, b0, U, st,
+                             role_threads);
+      cp_async_wait<0>();
+      __syncthreads();
+    }
+    const int k = n_tiles - 1;
+    store_rows_from_tile(p.la_out, la_slots + (k & 1) * tile, AP, k * TT, T - k * TT, LS, p.B, b0, U, st, role_threads);
+    return;
+  }
+  // ---- the recursion warps ----
+  const int lane = tid & 31, wid = tid >> 5;
+  const int u = wid / W, w = wid - u * W, b = b0 + u;
+  const bool live = b < p.B;
+  const int j0 = (w * 32 + lane) * R;
+  float dcol[R][NDB];
+  int lim[R];  // the sources d < lim[r] of row j0 + r are on its chain
+  int off[R];  // row j0 + r in a tile (rows past LS read row LS - 1: never stored)
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    lim[r] = min(nd, j0 + r + 1);
+    off[r] = min(j0 + r, LS - 1) * U + u;
+#pragma unroll
+    for (int d = 0; d < NDB; ++d)
+      dcol[r][d] = (live && d < nd && j0 + r < LS) ? p.diag[((size_t)d * LS + j0 + r) * p.B + b] : kNegInf;
+  }
+  const int len = live ? p.lengths[b] : 0;
+  __syncthreads();
+  float carry[R];
+  for (int k = 0; k < n_tiles; ++k) {
+    const int t_lo = k * TT, t_hi = min(T, t_lo + TT);
+    const float* lb_tile = lb_slots + (k & 1) * tile;
+    float* la_tile = la_slots + (k & 1) * tile;
+    float lbn[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) lbn[r] = lb_tile[off[r]];
+    for (int t = t_lo; t < t_hi; ++t) {
+      const int tt = t - t_lo;
+      float lb[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        lb[r] = lbn[r];
+        if (t + 1 < t_hi) lbn[r] = lb_tile[(size_t)(tt + 1) * AP + off[r]];
+      }
+      if (t == 0) {
+#pragma unroll
+        for (int r = 0; r < R; ++r) carry[r] = fmaxf((j0 + r == 0 ? 0.f : kNegInf) + lb[r], kNegInf);
+      } else if (t < len) {
+        // nb[s] = log-alpha[t-1] of row j0 - s (s >= 1); a row in the
+        // previous warp comes from the tile of frame t-1
+        const float* prev_row = (tt > 0) ? la_tile + (size_t)(tt - 1) * AP
+                                         : la_slots + ((k - 1) & 1) * tile + (size_t)(TT - 1) * AP;
+        float nb[NDB];
+#pragma unroll
+        for (int s = 1; s < NDB; ++s) {
+          const int o = (s + R - 1) / R;
+          float x = __shfl_up_sync(~0u, carry[(R - s % R) % R], o);
+          if (W > 1 && lane < o && j0 - s >= 0) x = prev_row[(j0 - s) * U + u];
+          nb[s] = x;
+        }
+        float next[R];
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          float v[NDB];
+#pragma unroll
+          for (int d = 0; d < NDB; ++d) v[d] = (d < lim[r]) ? (d <= r ? carry[r - d] : nb[d - r]) + dcol[r][d] : -INFINITY;
+          float m = kNegInf;
+#pragma unroll
+          for (int d = 0; d < NDB; ++d) m = fmaxf(m, v[d]);
+          float e = 0.f;
+#pragma unroll
+          for (int d = 0; d < NDB; ++d) e += expf(v[d] - m);
+          const float upd = fmaxf(logf(fmaxf(e, kTiny)) + m, kNegInf);
+          next[r] = fmaxf(upd + lb[r], kNegInf);
+        }
+#pragma unroll
+        for (int r = 0; r < R; ++r) carry[r] = next[r];
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+        if (j0 + r < LS) la_tile[(size_t)tt * AP + (j0 + r) * U + u] = carry[r];
+      if (W > 1) named_barrier(1, role_threads);  // the rows of frame t, for the next warp's sources
+    }
+    __syncthreads();
+  }
 }
 
 // Two kinds of warp, W per utterance each (W > 1 when LS > 128), U
@@ -502,7 +605,7 @@ __global__ void __launch_bounds__(kBackwardThreads) composed_backward_stats_kern
   extern __shared__ float4 smem4[];
   float* sh = reinterpret_cast<float*>(smem4);
   const int LS = p.LS, U = p.U, W = p.W, TT = p.TT, nd = p.nd, T = p.T;
-  const int LP = backward_pitch(R, W), AP = backward_tile_pitch(LS, U);
+  const int LP = backward_pitch(R, W), AP = tile_pitch(LS, U);
   const int tid = threadIdx.x, lane = tid & 31;
   const int role_threads = 32 * W * U;
   const bool stats = tid >= role_threads;  // else a recursion thread
@@ -662,27 +765,8 @@ __global__ void __launch_bounds__(kBackwardThreads) composed_backward_stats_kern
         }
       }
       named_barrier(2, role_threads);  // the tile's gamma is complete
-      // gamma out: rows (t, j) of U consecutive floats along B, as they sit
-      // in the tile (16 bytes a store where U and B are multiples of 4)
-      const int vw = (U % 4 == 0 && p.B % 4 == 0) ? 4 : 1, G = U / vw;
-      const int step = role_threads / G, g = st % G;
-      const bool ok = b0 + g * vw < p.B;
-      const int n = t_hi - t_lo;
-      int j = st / G, tt = 0;
-      while (j >= LS) j -= LS, ++tt;
-      while (tt < n) {
-        if (ok) {
-          const float* src = la_tile + (size_t)tt * AP + j * U + g * vw;
-          float* dst = p.gamma + ((size_t)(t_lo + tt) * LS + j) * p.B + b0 + g * vw;
-          if (vw == 4) {
-            *reinterpret_cast<float4*>(dst) = *reinterpret_cast<const float4*>(src);
-          } else {
-            *dst = *src;
-          }
-        }
-        j += step;
-        while (j >= LS) j -= LS, ++tt;
-      }
+      // gamma out, as it sits in the tile
+      store_rows_from_tile(p.gamma, la_tile, AP, t_lo, t_hi - t_lo, LS, p.B, b0, U, st, role_threads);
     }
     __syncthreads();
   }
@@ -1055,46 +1139,47 @@ cudaError_t allow_smem(const void* fn, size_t smem) {
   return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-int forward_launch(const LatticeParams& p, int device, void* stream) {
-  if (p.T < 1 || p.LS < 1 || p.B < 1 || p.U < 1 || p.nd < 1 || p.nd > kMaxBand + 1 ||
-      p.LS * p.U > kMaxLatticeThreads) {
-    return (int)cudaErrorInvalidValue;
-  }
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  const size_t smem = sizeof(float) * 2 * (size_t)p.LS * p.U;
-  err = allow_smem(reinterpret_cast<const void*>(composed_forward_kernel), smem);
-  if (err != cudaSuccess) return (int)err;
-  const int blocks = (p.B + p.U - 1) / p.U;
-  composed_forward_kernel<<<blocks, p.LS * p.U, smem, static_cast<cudaStream_t>(stream)>>>(p);
-  return (int)cudaGetLastError();
-}
-
 using LatticeFn = void (*)(LatticeParams);
 
-// the backward-stats instantiation for R rows a lane and nd diagonals: the
-// smallest compiled NDB >= nd (2, 3, 4, 8, 16); nullptr for an R that is
-// not compiled
-template <int R>
-LatticeFn backward_for_rows(int nd) {
-  if (nd <= 2) return composed_backward_stats_kernel<R, 2>;
-  if (nd <= 3) return composed_backward_stats_kernel<R, 3>;
-  if (nd <= 4) return composed_backward_stats_kernel<R, 4>;
-  if (nd <= 8) return composed_backward_stats_kernel<R, 8>;
-  return composed_backward_stats_kernel<R, 16>;
+// the lattice kernel for R rows a lane and nd diagonals: the smallest
+// compiled NDB >= nd (2, 3, 4, 8, 16); nullptr for an R that is not compiled
+template <int R, bool FORWARD>
+LatticeFn lattice_for_rows(int nd) {
+  if (nd <= 2) return FORWARD ? composed_forward_kernel<R, 2> : composed_backward_stats_kernel<R, 2>;
+  if (nd <= 3) return FORWARD ? composed_forward_kernel<R, 3> : composed_backward_stats_kernel<R, 3>;
+  if (nd <= 4) return FORWARD ? composed_forward_kernel<R, 4> : composed_backward_stats_kernel<R, 4>;
+  if (nd <= 8) return FORWARD ? composed_forward_kernel<R, 8> : composed_backward_stats_kernel<R, 8>;
+  return FORWARD ? composed_forward_kernel<R, 16> : composed_backward_stats_kernel<R, 16>;
 }
 
-LatticeFn backward_kernel_for(int R, int nd) {
+template <bool FORWARD>
+LatticeFn lattice_kernel_for(int R, int nd) {
   switch (R) {
-    case 1: return backward_for_rows<1>(nd);
-    case 2: return backward_for_rows<2>(nd);
-    case 4: return backward_for_rows<4>(nd);
+    case 1: return lattice_for_rows<1, FORWARD>(nd);
+    case 2: return lattice_for_rows<2, FORWARD>(nd);
+    case 4: return lattice_for_rows<4, FORWARD>(nd);
     default: return nullptr;
   }
 }
 
+int forward_launch(const LatticeParams& p, int R, int device, void* stream) {
+  const LatticeFn fn = lattice_kernel_for<true>(R, p.nd);
+  if (fn == nullptr || p.T < 1 || p.LS < 1 || p.B < 1 || p.U < 1 || p.W < 1 || p.TT < 1 || p.nd < 1 ||
+      p.nd > kMaxBand + 1 || 32 * R * p.W < p.LS || 64 * p.W * p.U > kForwardThreads) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const size_t smem = sizeof(float) * forward_floats(p.U, p.TT, p.LS);
+  err = allow_smem(reinterpret_cast<const void*>(fn), smem);
+  if (err != cudaSuccess) return (int)err;
+  const int blocks = (p.B + p.U - 1) / p.U;
+  fn<<<blocks, 64 * p.W * p.U, smem, static_cast<cudaStream_t>(stream)>>>(p);
+  return (int)cudaGetLastError();
+}
+
 int backward_launch(const LatticeParams& p, int R, int device, void* stream) {
-  const LatticeFn fn = backward_kernel_for(R, p.nd);
+  const LatticeFn fn = lattice_kernel_for<false>(R, p.nd);
   if (fn == nullptr || p.T < 1 || p.LS < 1 || p.B < 1 || p.U < 1 || p.W < 1 || p.TT < 1 || p.nd < 1 ||
       p.nd > kMaxBand + 1 || 32 * R * p.W < p.LS || 64 * p.W * p.U > kBackwardThreads) {
     return (int)cudaErrorInvalidValue;
@@ -1146,8 +1231,11 @@ int srhmm_bank_emission(const void* ids, const void* const* banks, const int* mi
   return (int)cudaGetLastError();
 }
 
+// R rows a lane (1, 2 or 4), W warps an utterance of each kind (32 R W >=
+// LS), U utterances a block (64 W U <= 512 threads), TT frames a tile;
+// shared memory forward_floats(U, TT, LS) floats
 int srhmm_composed_forward(const void* log_b, const void* diag_col, const void* lengths, void* la,
-                           int T, int LS, int B, int nd, int U, int device, void* stream) {
+                           int T, int LS, int B, int nd, int R, int W, int U, int TT, int device, void* stream) {
   LatticeParams p{};
   p.log_b = static_cast<const float*>(log_b);
   p.diag = static_cast<const float*>(diag_col);
@@ -1158,7 +1246,9 @@ int srhmm_composed_forward(const void* log_b, const void* diag_col, const void* 
   p.B = B;
   p.nd = nd;
   p.U = U;
-  return forward_launch(p, device, stream);
+  p.W = W;
+  p.TT = TT;
+  return forward_launch(p, R, device, stream);
 }
 
 // R rows a lane (1, 2 or 4), W warps an utterance of each kind (32 R W >=

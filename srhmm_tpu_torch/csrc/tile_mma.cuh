@@ -74,6 +74,31 @@ __device__ __forceinline__ void stage_rows_async(float* dst, int s_t, int s_x, c
   }
 }
 
+// The way back: float dst[(t0 + tt) * X * B + x * B + b0 + u] = tile[tt *
+// s_t + x * U + u] for tt < n, x < X, u < U with b0 + u < B, rows of U
+// consecutive floats as they sit in the tile (16-byte stores where U and B
+// are multiples of 4).  The storing threads are i in [0, count) (U / 4 or U
+// divides count).
+__device__ __forceinline__ void store_rows_from_tile(float* dst, const float* tile, int s_t, int t0, int n, int X,
+                                                     int B, int b0, int U, int i, int count) {
+  const int w = (U % 4 == 0 && B % 4 == 0) ? 4 : 1, G = U / w;
+  const int step = count / G, g = i % G;
+  if (b0 + g * w >= B) return;
+  int x = i / G, tt = 0;
+  while (x >= X) x -= X, ++tt;
+  while (tt < n) {
+    const float* s = tile + (size_t)tt * s_t + x * U + g * w;
+    float* d = dst + ((size_t)(t0 + tt) * X + x) * B + b0 + g * w;
+    if (w == 4) {
+      *reinterpret_cast<float4*>(d) = *reinterpret_cast<const float4*>(s);
+    } else {
+      *d = *s;
+    }
+    x += step;
+    while (x >= X) x -= X, ++tt;
+  }
+}
+
 // ---------------------------------------------------------------------------
 // 3xTF32 contraction
 // ---------------------------------------------------------------------------

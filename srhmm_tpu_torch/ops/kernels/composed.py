@@ -63,9 +63,11 @@ PAIRS_PER_CHUNK = 16  # csrc/composed.cu kChunk: (utterance, row) pairs a moment
 MOMENTS_SLOTS = (4, 2, 1)  # tiles a moments batch = warps a block, largest that fits first
 EMISSION_RING = (3, 2, 1)  # record buffers of a bank-emission block, deepest that fits first
 _MAX_LATTICE_THREADS = 1024
-ROWS_PER_LANE = (1, 2, 4)  # composed rows a backward-stats lane holds (csrc/composed.cu instantiations)
+ROWS_PER_LANE = (1, 2, 4)  # composed rows a lattice lane holds (csrc/composed.cu instantiations)
+FORWARD_TILES = (32, 16, 8, 4, 2, 1)  # frames a forward tile stages, largest that fits first
 BACKWARD_TILES = (16, 8, 4, 2, 1)  # frames a backward-stats tile stages, largest that fits first
-_BACKWARD_WARPS = 8  # csrc/composed.cu kBackwardThreads / 64: recursion warps a block
+# recursion warps a block: csrc/composed.cu kForwardThreads / 64 and kBackwardThreads / 64
+_LATTICE_WARPS = 8
 _FULL_DMAX_LIMIT = 16  # full-covariance bounds compiled in csrc/composed.cu
 _MAX_GRID_Y = 65535
 _ELEMS_PER_CHUNK = 1 << 24  # per-mixture elements the twins hold at once
@@ -362,7 +364,7 @@ def _kernel_library() -> ctypes.CDLL:
     lib.srhmm_bank_emission.restype = c_int
     lib.srhmm_bank_emission.argtypes = bank_head + [c_ptr] + [c_int] * 7 + [c_ptr]
     lib.srhmm_composed_forward.restype = c_int
-    lib.srhmm_composed_forward.argtypes = [c_ptr] * 4 + [c_int] * 6 + [c_ptr]
+    lib.srhmm_composed_forward.argtypes = [c_ptr] * 4 + [c_int] * 9 + [c_ptr]
     lib.srhmm_composed_backward_stats.restype = c_int
     lib.srhmm_composed_backward_stats.argtypes = [c_ptr] * 10 + [c_int] * 9 + [c_ptr]
     lib.srhmm_bank_moments.restype = c_int
@@ -448,14 +450,6 @@ def bank_emission(ids, bank, feats, full: bool = False):
 bank_emission.launches = 0
 
 
-def _lattice_block(name: str, LS: int) -> int:
-    """Utterances per lattice block: LS * U threads, at most 256 when
-    LS allows, never above the compiled 1024."""
-    if LS > _MAX_LATTICE_THREADS:
-        raise ValueError(f"{name}: at most {_MAX_LATTICE_THREADS} composed rows, got {LS}")
-    return max(1, min(32, 256 // LS))
-
-
 def _check_lattice(name, log_b, diag, lengths, extra=()):
     T, LS, B = log_b.shape
     nd = diag.shape[0]
@@ -471,7 +465,8 @@ def composed_forward(log_b, diag_col, lengths):
     """Banded log-forward over per-utterance composed chains: log-alpha
     (T, LS, B) (see composed_forward_plain).
 
-    CUDA tensors launch the hand-written kernel and count one in
+    CUDA tensors launch the hand-written kernel (a warp per utterance, log_b
+    staged a tile of frames ahead; forward_block) and count one in
     ``composed_forward.launches``; CPU tensors run composed_forward_plain."""
     if on_cpu("composed_forward", log_b):
         return composed_forward_plain(log_b, diag_col, lengths)
@@ -479,10 +474,11 @@ def composed_forward(log_b, diag_col, lengths):
     log_b, diag_col = log_b.contiguous(), diag_col.contiguous()
     lens = lengths.to(torch.int32).contiguous()
     la = torch.empty_like(log_b)
-    U = _lattice_block("composed_forward", LS)
+    index, stream = device_args(log_b.device)
+    blk = forward_block(LS, B, nd, _sm_count(index))
     check_launch("composed_forward", _kernel_library().srhmm_composed_forward(
-        log_b.data_ptr(), diag_col.data_ptr(), lens.data_ptr(), la.data_ptr(),
-        T, LS, B, nd, U, *device_args(log_b.device)))
+        log_b.data_ptr(), diag_col.data_ptr(), lens.data_ptr(), la.data_ptr(), T, LS, B, nd,
+        blk["rows_per_lane"], blk["warps"], blk["utts"], blk["tile"], index, stream))
     composed_forward.launches += 1
     return la
 
@@ -490,26 +486,49 @@ def composed_forward(log_b, diag_col, lengths):
 composed_forward.launches = 0
 
 
-def backward_block(LS: int, B: int, nd: int, sms: int = 132) -> dict:
-    """The launch shape of the backward-stats kernel (csrc/composed.cu):
-    R rows a lane (the fewest of 1, 2, 4 that hold LS in one warp, else 4),
-    W warps an utterance of each kind (recursion, statistics), U utterances
-    a block (at most 8 recursion warps a block, halved while fewer than 3/4
-    of the `sms` SMs would get a block), TT frames a staged tile (the
-    largest of BACKWARD_TILES that fits)."""
+def _lattice_shape(name: str, LS: int, B: int, nd: int, sms: int, tiles, smem_bytes) -> dict:
+    """R rows a lane (the fewest of 1, 2, 4 that hold LS in one warp, else
+    4), W warps an utterance, U utterances a block (at most _LATTICE_WARPS
+    recursion warps a block, halved while fewer than 3/4 of the `sms` SMs
+    would get a block), TT frames a staged tile (the largest of `tiles`
+    whose block takes at most SMEM_LIMIT bytes, smem_bytes(R, W, U, TT,
+    LS))."""
     if LS > _MAX_LATTICE_THREADS:
-        raise ValueError(f"composed_backward_stats: at most {_MAX_LATTICE_THREADS} composed rows, got {LS}")
+        raise ValueError(f"{name}: at most {_MAX_LATTICE_THREADS} composed rows, got {LS}")
     if not 1 <= nd <= MAX_BAND + 1:
-        raise ValueError(f"composed_backward_stats: 1 to {MAX_BAND + 1} diagonals, got {nd}")
+        raise ValueError(f"{name}: 1 to {MAX_BAND + 1} diagonals, got {nd}")
     R = next((r for r in ROWS_PER_LANE if 32 * r >= LS), ROWS_PER_LANE[-1])
     W = -(-LS // (32 * R))
-    U = max(1, _BACKWARD_WARPS // W)
+    U = max(1, _LATTICE_WARPS // W)
     while U > 1 and -(-B // U) < 3 * sms // 4:
         U //= 2
-    TT = next((tt for tt in BACKWARD_TILES if backward_smem_bytes(R, W, U, tt, LS) <= SMEM_LIMIT), None)
+    TT = next((tt for tt in tiles if smem_bytes(R, W, U, tt, LS) <= SMEM_LIMIT), None)
     if TT is None:
-        raise ValueError(f"composed_backward_stats: no tile of LS={LS} rows fits {SMEM_LIMIT} bytes")
+        raise ValueError(f"{name}: no tile of LS={LS} rows fits {SMEM_LIMIT} bytes")
     return {"rows_per_lane": R, "warps": W, "utts": U, "tile": TT}
+
+
+def forward_block(LS: int, B: int, nd: int, sms: int = 132) -> dict:
+    """The launch shape of the forward kernel (csrc/composed.cu,
+    _lattice_shape): W warps an utterance of each kind (recursion, store),
+    U utterances a block (64 W U <= 512 threads), TT the largest of
+    FORWARD_TILES that fits."""
+    return _lattice_shape("composed_forward", LS, B, nd, sms, FORWARD_TILES,
+                          lambda R, W, U, TT, LS: forward_smem_bytes(U, TT, LS))
+
+
+def forward_smem_bytes(U: int, TT: int, LS: int) -> int:
+    """csrc/composed.cu forward_floats: log_b and log-alpha in two slots
+    each, (TT, LS, U) with a tile pitch of LS U rounded up to 4."""
+    return 4 * 4 * TT * (-(-LS * U // 4) * 4)
+
+
+def backward_block(LS: int, B: int, nd: int, sms: int = 132) -> dict:
+    """The launch shape of the backward-stats kernel (csrc/composed.cu,
+    _lattice_shape): W warps an utterance of each kind (recursion,
+    statistics), U utterances a block (64 W U <= 512 threads), TT the
+    largest of BACKWARD_TILES that fits."""
+    return _lattice_shape("composed_backward_stats", LS, B, nd, sms, BACKWARD_TILES, backward_smem_bytes)
 
 
 def backward_smem_bytes(R: int, W: int, U: int, TT: int, LS: int) -> int:

@@ -48,7 +48,7 @@ from .scoring import _as_tuple, _plain_stream_log_b, _stream_shapes
 MAX_STREAMS = 6
 K_MAX = 4  # csrc/word_loop_decode.cu kMaxK
 _MAX_THREADS = 512  # csrc/word_loop_decode.cu kMaxThreads
-_FRAMES_MAX = 8  # csrc/word_loop_decode.cu kFramesMax: emission chunk
+_FRAMES_MAX = 16  # csrc/word_loop_decode.cu kFramesMax: emission chunk
 _RED_WORDS = 128  # csrc/word_loop_decode.cu kRedWords
 
 
@@ -58,10 +58,10 @@ def _r4(x: int) -> int:
 
 def smem_bytes(N: int, W: int, K: int, P: int, dmax: int, bigram: bool, frames: int) -> int:
     """csrc/word_loop_decode.cu smem_floats, in bytes: the double-buffered
-    (K, N) carry, a chunk of per-frame log b, the chunk's features (x and
-    x^2 per stream), the reduction scratch, and for a bigram the per-word
-    exit tokens and cross-word candidates."""
-    words = _r4(2 * K * N) + _r4(frames * N) + frames * P * 2 * dmax + _RED_WORDS
+    (K, N) carry, a chunk of per-frame log b, the chunk's features (x per
+    stream), the reduction scratch, and for a bigram the per-word exit
+    tokens and cross-word candidates."""
+    words = _r4(2 * K * N) + _r4(frames * N) + frames * P * dmax + _RED_WORDS
     if bigram:
         words += 3 * K * W
     return 4 * words
@@ -70,11 +70,21 @@ def smem_bytes(N: int, W: int, K: int, P: int, dmax: int, bigram: bool, frames: 
 def frames_per_chunk(N: int, W: int, K: int, P: int, dmax: int, bigram: bool) -> int:
     """Frames whose emissions the kernel computes together (each mixture
     record is read once per chunk): the most that fit shared memory, up to
-    8; 0 if not even one does."""
+    16; 0 if not even one does."""
     for f in range(_FRAMES_MAX, 0, -1):
         if smem_bytes(N, W, K, P, dmax, bigram, f) <= SMEM_LIMIT:
             return f
     return 0
+
+
+def merge_groups(W: int, threads: int) -> int:
+    """Threads a bigram destination takes in the kernel's merge (its
+    sources split between them): the largest power of two up to 32 with
+    groups * W <= threads, else 1."""
+    g = 1
+    while g < 32 and 2 * g * W <= threads:
+        g *= 2
+    return g
 
 
 def fits(N: int, W: int, K: int, dims, bigram: bool) -> bool:
@@ -357,12 +367,29 @@ def _kernel_library() -> ctypes.CDLL:
     lib.srhmm_word_loop_decode.argtypes = [
         ctypes.POINTER(c_ptr), ctypes.POINTER(ctypes.c_longlong),  # feats, strides (t, d, b) per stream
         p_int, p_int, p_int, c_int, c_int,  # dims, mixes, offs, n_streams, dmax
-        c_ptr, c_ptr, c_ptr, c_ptr, c_ptr, c_ptr, c_ptr,  # consts, diag, arc, entry, exit, exit_row, lengths
+        c_ptr, c_ptr, c_ptr, c_ptr, c_ptr, c_ptr, c_ptr, c_ptr,  # consts, diag, arc, entry, exit, exit_row,
+                                                                 # arc_range, lengths
         c_ptr, c_ptr,  # final, bp
         c_int, c_int, c_int, c_int, c_int, c_int,  # T, B, N, S, band, bigram
-        c_int, c_int, c_int, c_int, c_int, c_ptr,  # K, full, frames, threads, device, stream
+        c_int, c_int, c_int, c_int, c_int, c_int, c_ptr,  # K, full, frames, threads, groups, device, stream
     ]
     return lib
+
+
+def decode_records(rec, N: int, M: int, dmax: int, full: bool) -> torch.Tensor:
+    """One stream's csrc/emission.cuh records (mixture_records, (1, N * M *
+    stride)) in the order the kernel reads them, flat: full covariance as
+    they are, row-major (row, mixture); diagonal row-minor, so that the
+    rows of a warp read neighbouring words: the float4 groups of the x and
+    x² halves as (M, dmax / 4, 2, N, 4), then bias and log w as (M, 2, N),
+    padded to a multiple of 4 floats."""
+    if full:
+        return rec.reshape(-1)
+    r = rec.reshape(N, M, 2 * dmax + 4)
+    halves = r[..., : 2 * dmax].reshape(N, M, 2, dmax // 4, 4).permute(1, 3, 2, 0, 4)
+    scalars = r[..., 2 * dmax : 2 * dmax + 2].permute(1, 2, 0)
+    pad = torch.zeros((-2 * M * N) % 4, dtype=rec.dtype, device=rec.device)
+    return torch.cat([halves.reshape(-1), scalars.reshape(-1), pad])
 
 
 def _on_cpu(name: str, feats_tdb) -> bool:
@@ -418,7 +445,8 @@ def _launch(name, feats_tdb, a, bias, diag, arc_col, entry_col, lengths, s_word,
         )
     recs, offs, off = [], [], 0
     for a_p, bg, bi, lw, D, M in zip(a_s, bias_gs, bias_s, logws, ds, ms):
-        rec = mixture_records(a_p, bg, bi, lw if full else None, D, M, 1, N, full, dmax).reshape(-1)
+        rec = decode_records(mixture_records(a_p, bg, bi, lw if full else None, D, M, 1, N, full, dmax),
+                             N, M, dmax, full)
         recs.append(rec)
         offs.append(off)
         off += rec.numel()
@@ -427,6 +455,9 @@ def _launch(name, feats_tdb, a, bias, diag, arc_col, entry_col, lengths, s_word,
     diag_c, arc_c = diag.contiguous(), arc_col.contiguous()
     entry_c, exit_c = entry_col.contiguous(), exit_col.contiguous()
     exit_row = _exit_rows(exit_c, s_word).contiguous()
+    # the bigram arcs' min and max, the merge's bound on what can enter a top
+    # K (a unigram reads nothing there)
+    arc_range = torch.stack([arc_c.amin(), arc_c.amax()]) if bigram else arc_c
     lens = lengths.to(torch.int32).contiguous()
     final = torch.empty((B, K, N), dtype=torch.float32, device=dev)
     bp = torch.empty((B, T, N, K), dtype=torch.int32, device=dev)
@@ -439,9 +470,9 @@ def _launch(name, feats_tdb, a, bias, diag, arc_col, entry_col, lengths, s_word,
         (ctypes.c_longlong * (3 * P))(*strides),
         ints(*ds), ints(*ms), ints(*offs), P, dmax,
         consts.data_ptr(), diag_c.data_ptr(), arc_c.data_ptr(), entry_c.data_ptr(),
-        exit_c.data_ptr(), exit_row.data_ptr(), lens.data_ptr(),
+        exit_c.data_ptr(), exit_row.data_ptr(), arc_range.data_ptr(), lens.data_ptr(),
         final.data_ptr(), bp.data_ptr(),
-        T, B, N, s_word, band, int(bigram), K, int(full), frames, threads,
+        T, B, N, s_word, band, int(bigram), K, int(full), frames, threads, merge_groups(W, threads) if bigram else 1,
         dev.index if dev.index is not None else torch.cuda.current_device(),
         torch.cuda.current_stream(dev).cuda_stream,
     )

@@ -285,9 +285,58 @@ def test_backward_block_of_the_main_path_shapes(name):
     assert (blk["rows_per_lane"], blk["warps"], blk["utts"], blk["tile"]) == want
 
 
+# composed_forward's launch shape (forward_block): (LS, B, nd) -> (rows a
+# lane, warps an utterance, utterances a block, frames a tile) on 132 SMs
+FORWARD_BLOCKS = {
+    "emb_c4": ((36, 512, 3), (2, 1, 4, 32)),
+    "tied_c5": ((30, 1024, 3), (1, 1, 8, 32)),
+    "pipe_c3": ((27, 40, 3), (1, 1, 1, 32)),
+    "LS64": ((64, 2048, 2), (2, 1, 8, 16)),
+    "LS128_band15": ((128, 300, 16), (4, 1, 2, 32)),
+    "LS1024_band15": ((1024, 64, 16), (4, 8, 1, 8)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(FORWARD_BLOCKS))
+def test_forward_block_of_the_main_path_shapes(name):
+    (LS, B, nd), want = FORWARD_BLOCKS[name]
+    blk = kc.forward_block(LS, B, nd, sms=132)
+    assert (blk["rows_per_lane"], blk["warps"], blk["utts"], blk["tile"]) == want
+
+
+def test_forward_smem_bytes_mirrors_the_kernel():
+    """forward_smem_bytes = csrc/composed.cu forward_floats(U, TT, LS) * 4:
+    four (TT, LS, U) slots with the pitch LS U rounded up to 4; the largest
+    tile that fits is taken."""
+    for LS, U, TT in ((36, 4, 32), (30, 8, 32), (27, 1, 32), (5, 3, 7), (1024, 1, 8)):
+        assert kc.forward_smem_bytes(U, TT, LS) == 4 * 4 * TT * (-(-LS * U // 4) * 4)
+    blk = kc.forward_block(1024, 64, 16, sms=132)
+    assert kc.forward_smem_bytes(blk["utts"], blk["tile"], 1024) <= kc.SMEM_LIMIT
+    assert kc.forward_smem_bytes(blk["utts"], 2 * blk["tile"], 1024) > kc.SMEM_LIMIT
+
+
+def test_no_chain_the_forward_took_before_is_refused_now():
+    """Every (LS, band) that the thread-per-row forward accepted (LS up to
+    1024 rows, 1 to 16 diagonals) gets a launch shape: 32 R W >= LS rows,
+    at most 512 threads, four tiles that fit the shared memory, at any B;
+    at least 3/4 of the SMs get a block where B allows."""
+    for LS in range(1, 1025):
+        for nd in (1, 2, 3, 4, 5, 8, 16):
+            for B in (1, 37, 512, 4096):
+                blk = kc.forward_block(LS, B, nd, sms=132)
+                R, W, U, TT = blk["rows_per_lane"], blk["warps"], blk["utts"], blk["tile"]
+                assert R in kc.ROWS_PER_LANE and 32 * R * W >= LS and 64 * W * U <= 512
+                assert kc.forward_smem_bytes(U, TT, LS) <= kc.SMEM_LIMIT and TT in kc.FORWARD_TILES
+                assert U == 1 or -(-B // U) >= 99
+    with pytest.raises(ValueError, match="1024"):
+        kc.forward_block(1025, 8, 3)
+    with pytest.raises(ValueError, match="diagonals"):
+        kc.forward_block(30, 8, 17)
+
+
 def test_no_chain_the_lattice_kernels_took_before_is_refused_now():
-    """Every (LS, band) that _lattice_block and fused_eligible accepted
-    before the warp-per-utterance kernel (LS up to 1024 rows, 1 to 16
+    """Every (LS, band) that fused_eligible accepted before the
+    warp-per-utterance kernel (LS up to 1024 rows, 1 to 16
     diagonals) gets a launch shape: 32 R W >= LS rows, at most 512 threads
     (recursion and statistics warps), a ring that fits the shared memory,
     at any B."""

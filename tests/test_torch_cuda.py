@@ -23,10 +23,12 @@ from srhmm_tpu_torch.ops.kernels import scoring
 from srhmm_tpu_torch.ops.kernels.common import NEG_INF
 from srhmm_tpu_torch.train import em
 from torch_port_utils import (
-    BACKWARD_CASES,
     BANK_DEPTH_CASES,
+    LATTICE_CASES,
     backward_lattice_case,
     em_tile_lengths,
+    entry_without_loop,
+    forward_lattice_case,
     rand_word,
     sparse_gammas,
 )
@@ -282,27 +284,33 @@ from srhmm_tpu_torch.decode import continuous as dc  # noqa: E402
 from srhmm_tpu_torch.ops.kernels import decode as kd  # noqa: E402
 
 _DECODE_LENS = [int(n) for n in np.random.default_rng(6).integers(2, 95, size=34)] + [95, 0, 1]
-_WRAPPERS = {1: "word_loop_decode", 2: "word_loop_decode_k2", 3: "word_loop_decode_kn"}
+_WRAPPERS = {1: "word_loop_decode", 2: "word_loop_decode_k2", 3: "word_loop_decode_kn", 4: "word_loop_decode_kn"}
 
 
-def _decode_case(device, cov, S, bigram, mixes_dims, variant=None, W=5, lens=_DECODE_LENS, seed=4):
+def _decode_case(device, cov, S, bigram, mixes_dims, variant=None, W=5, lens=_DECODE_LENS, seed=4, dup=(1, 3)):
     """(vocab, batch, graph kwargs) of one decode on `device`.  variant
     "hetero": word lengths S and S-2, padded (pad_stack_models) with their
-    final states; "dup": word 3 a copy of word 1 with the same arcs (the
-    bigram's row and column; the unigram is uniform), so tokens tie
-    bitwise."""
+    final states; "dup": word dup[1] a copy of word dup[0] with the same
+    arcs (the bigram's row and column; the unigram is uniform), so tokens
+    tie bitwise; "noloop": no self-loop at the words' first states and
+    words 0-19 unreachable by a bigram."""
     rng = np.random.default_rng(seed)
+    a, c = dup
     sizes = [S - 2 * (i % 2) if variant == "hetero" else S for i in range(W)]
-    words = [tm.gmm_hmm_from_numpy(*rand_word(seed * 50 + (1 if variant == "dup" and i == 3 else i), s,
-                                              list(mixes_dims), cov, 1 + i % 2))
-             for i, s in enumerate(sizes)]
+    leaves = [rand_word(seed * 50 + (a if variant == "dup" and i == c else i), s, list(mixes_dims), cov,
+                        1 + (a if variant == "dup" and i == c else i) % 2) for i, s in enumerate(sizes)]
+    if variant == "noloop":  # no self-loop at the entry states
+        leaves = [(entry_without_loop(t), st) for t, st in leaves]
+    words = [tm.gmm_hmm_from_numpy(t, st) for t, st in leaves]
     vocab, fs = tm.pad_stack_models(words) if variant == "hetero" else (tm.stack_models(words), None)
     kw = {"final_states": fs}
     if bigram:
         lm = np.log(rng.dirichlet(np.ones(W), size=W))
         if variant == "dup":  # arcs in and out too: the two words are interchangeable
-            lm[:, 3] = lm[:, 1]
-            lm[3] = lm[1]
+            lm[:, c] = lm[:, a]
+            lm[c] = lm[a]
+        if variant == "noloop":  # words 0-19 unreachable by the bigram
+            lm[:, :20] = -np.inf
         kw["lm_logprobs"] = lm
     batch = _batch(device, [D for _, D in mixes_dims], lens, seed=seed)
     return vocab.astype(torch.float32).to(device), batch, kw
@@ -323,7 +331,7 @@ def _decode_operands(vocab, batch, kw):
         exit_col=exit_col, bias_g=bias_g, logw=logw)
 
 
-@pytest.mark.parametrize("n_best", [1, 2, 3])
+@pytest.mark.parametrize("n_best", [1, 2, 3, 4])
 @pytest.mark.parametrize("cov,S,bigram,mixes_dims,variant", [
     ("diag", 8, False, ((3, 9),), None),
     ("diag", 6, True, ((3, 9), (2, 3)), None),
@@ -375,6 +383,30 @@ def test_decode_batch_launches_the_kernel_and_never_the_twin(cuda_device, monkey
     args, opt = _decode_operands(vocab, batch, kw)
     with pytest.raises(ValueError, match="float32"):
         kd.word_loop_decode(args[0].double(), *args[1:], **opt)
+
+
+@pytest.mark.parametrize("n_best", [1, 2, 3, 4])
+@pytest.mark.parametrize("W,bigram,variant", [(45, False, "dup"), (45, True, "dup"), (45, True, "noloop"),
+                                               (400, True, None)])
+def test_decode_kernel_matches_plain_at_wide_vocabularies(cuda_device, W, bigram, variant, n_best):
+    """W off the multiples of 32 with word 33 a copy of word 2 (their ties
+    settled across two lanes of one destination's merge group, or across
+    two warps of the unigram argmax); entry states without a self-loop and
+    unreachable words (NEG_INF-level cross candidates reach the pointers);
+    a bigram whose (W, W) arcs exceed a block's shared memory: kernel vs
+    twin, two runs bitwise equal."""
+    vocab, batch, kw = _decode_case(cuda_device, "diag", 8, bigram, ((2, 9),), variant, W=W,
+                                    lens=[40, 0, 1, 33, 17, 2, 39], dup=(2, 33))
+    args, opt = _decode_operands(vocab, batch, kw)
+    wrapper = getattr(kd, _WRAPPERS[n_best])
+    extra = {"n_best": n_best} if n_best > 2 else {}
+    fk, bk = wrapper(*args, **opt, **extra)
+    fk2, bk2 = wrapper(*args, **opt, **extra)
+    fp, bpp = kd.word_loop_decode_plain(*args, n_best=n_best, **opt)
+    torch.cuda.synchronize()
+    assert torch.equal(fk, fk2) and torch.equal(bk, bk2)
+    _lattice_close(fk, fp)
+    assert int((bk != bpp).sum()) <= 1e-4 * bk.numel()
 
 
 def test_decode_kernel_takes_the_main_width(cuda_device):
@@ -616,13 +648,26 @@ def test_bank_kernels_poison_out_of_range_ids(cuda_device):
     _stat_close(mom[ok], want[ok])
 
 
-# the redesigned backward-statistics kernels: composed_backward_stats at
-# every launch shape (rows per lane 1 / 2 / 4, an utterance over 2 and 8
-# warps, band 1 to 15, T around the 16-frame tile, B off the block's
-# utterances) and backward_stats at lengths on its tile edges
+# the redesigned lattice kernels: composed_forward and
+# composed_backward_stats at every launch shape (rows per lane 1 / 2 / 4, an
+# utterance over 2 and 8 warps, band 1 to 15, T around and below the tiles,
+# B off the block's utterances) and backward_stats at lengths on its tile
+# edges
 
 
-@pytest.mark.parametrize("LS,nd,T,B", BACKWARD_CASES)
+@pytest.mark.parametrize("LS,nd,T,B", LATTICE_CASES)
+def test_composed_forward_matches_plain_at_every_launch_shape(cuda_device, LS, nd, T, B):
+    args = forward_lattice_case(cuda_device, 900 + LS, LS, nd, T, B)
+    counts = kc.launch_counts()["composed_forward"]
+    got, again = kc.composed_forward(*args), kc.composed_forward(*args)
+    want = kc.composed_forward_plain(*args)
+    torch.cuda.synchronize()
+    assert kc.launch_counts()["composed_forward"] == counts + 2
+    _lattice_close(got, want)
+    assert torch.equal(got, again)  # bitwise repeat
+
+
+@pytest.mark.parametrize("LS,nd,T,B", LATTICE_CASES)
 def test_composed_backward_stats_matches_plain_at_every_launch_shape(cuda_device, LS, nd, T, B):
     args = backward_lattice_case(cuda_device, 700 + LS, LS, nd, T, B)
     counts = kc.launch_counts()["composed_backward_stats"]

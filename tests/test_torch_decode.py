@@ -301,7 +301,7 @@ def test_twin_k2_and_kn_agree_on_the_top_two():
 def test_kernel_fits_and_refuses():
     # the main shape fits; a very wide K-best vocabulary does not
     assert kd.fits(200 * 8, 200, 3, [13], bigram=True)
-    assert kd.frames_per_chunk(200 * 8, 200, 3, 1, 16, True) == 8
+    assert kd.frames_per_chunk(200 * 8, 200, 3, 1, 16, True) == 16  # the emission chunk: up to 16 frames
     assert not kd.fits(8000 * 8, 8000, 1, [13], bigram=False)
     assert not kd.fits(16, 2, kd.K_MAX + 1, [13], bigram=False)
     assert not kd.fits(16, 2, 1, [80], bigram=False)

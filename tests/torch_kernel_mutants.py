@@ -1,13 +1,13 @@
 """Mutation check of csrc/lattice.cu, csrc/emission_em.cu, csrc/composed.cu,
-csrc/fused_em.cu and csrc/tile_mma.cuh
+csrc/fused_em.cu, csrc/tile_mma.cuh and csrc/word_loop_decode.cu
 (needs a CUDA card and nvcc; not a tier-1 test):
 
     python tests/torch_kernel_mutants.py [mutant ...]
 
 Each mutant is a copy of the tree in a temporary directory with one
 deliberate fault in a kernel source; the chip_smoke.py phase that should
-catch it (kernel_lattice, kernel_emission, kernel_composed or kernel_em)
-runs there, after the build.
+catch it (kernel_lattice, kernel_emission, kernel_composed, kernel_em or
+kernel_decode) runs there, after the build.
 Prints one JSON line per mutant: caught (the phase raised) or survived.
 With no arguments every mutant runs.
 """
@@ -23,6 +23,7 @@ ROOT = Path(__file__).resolve().parents[1]
 LAT, EM = "srhmm_tpu_torch/csrc/lattice.cu", "srhmm_tpu_torch/csrc/emission_em.cu"
 COMP = "srhmm_tpu_torch/csrc/composed.cu"
 FEM, TILE = "srhmm_tpu_torch/csrc/fused_em.cu", "srhmm_tpu_torch/csrc/tile_mma.cuh"
+DEC = "srhmm_tpu_torch/csrc/word_loop_decode.cu"
 MUTANTS = [
     ("forward_length_mask", LAT, "    } else if (t < len) {\n      const float* prev = row + ((t + 1) & 1) * nt + q.base;\n      float m",
      "    } else if (t <= len) {\n      const float* prev = row + ((t + 1) & 1) * nt + q.base;\n      float m", "kernel_lattice"),
@@ -60,6 +61,23 @@ MUTANTS = [
     ("em_3xtf32_drops_lo_hi", TILE, "        mma_tf32(c[hh], alo, b0h, b1h);\n", "", "kernel_em"),
     ("em_vote_skips_single_nonzero_column", FEM, "const bool keep = nonzero > 0;", "const bool keep = nonzero > 1;",
      "kernel_em"),
+    ("forward_shuffle_off_by_one_row", COMP, "__shfl_up_sync(~0u, carry[(R - s % R) % R], o)",
+     "__shfl_up_sync(~0u, carry[(R - (s + 1) % R) % R], (s + R) / R)", "kernel_composed"),
+    ("forward_staging_reads_previous_tile", COMP, "    const float* lb_tile = lb_slots + (k & 1) * tile;",
+     "    const float* lb_tile = lb_slots + ((k + 1) & 1) * tile;", "kernel_composed"),
+    ("forward_off_chain_term_sums_one", COMP, "          for (int d = 0; d < NDB; ++d) e += expf(v[d] - m);",
+     "          for (int d = 0; d < NDB; ++d) e += (v[d] == -INFINITY) ? 1.f : expf(v[d] - m);", "kernel_composed"),
+    ("decode_merge_ties_to_higher_source", DEC, "    if (better(v, i, vals[k], ids[k])) {",
+     "    if (v > vals[k] || (v == vals[k] && i > ids[k])) {", "kernel_decode"),
+    ("decode_k2_runner_up_seed_dropped", DEC,
+     "      if (better(kNegInf, ub, s1x, asr)) {\n        s1x = kNegInf;\n        asr = ub;\n      }\n", "",
+     "kernel_decode"),
+    ("decode_kn_insertion_unstable", DEC, "              slot_insert<K>(lv, li, c, u * K + kk);",
+     "              {\n                float cv = c;\n                int ci = u * K + kk;\n"
+     "                for (int q = 0; q < K; ++q)\n                  if (cv >= lv[q]) {\n"
+     "                    const float tv = lv[q];\n                    const int ti = li[q];\n"
+     "                    lv[q] = cv;\n                    li[q] = ci;\n                    cv = tv;\n"
+     "                    ci = ti;\n                  }\n              }", "kernel_decode"),
 ]
 DRIVER = """
 import sys, torch

@@ -1,16 +1,23 @@
-"""Where the time of the backward-statistics kernels goes, by ablation (needs
-a CUDA card and nvcc; not a tier-1 test):
+"""Where the time of the hand-written kernels goes, by ablation (needs a
+CUDA card and nvcc; not a tier-1 test):
 
-    python tests/torch_kernel_variants.py [variant ...]
+    python tests/torch_kernel_variants.py [--tree DIR] [variant ...]
 
-Each variant is a copy of the tree in a temporary directory with parts of
-csrc/composed.cu's composed_backward_stats_kernel or csrc/fused_em.cu's
-backward_stats_kernel cut out (its results are then wrong: only the time
-is read); `python tests/torch_backward_compare.py time` runs there after
-the build.  Prints one JSON line per variant with the three kernel times
+Each variant is a copy of a tree (this checkout, or DIR: another checkout
+unpacked with git archive) in a temporary directory with parts of one
+kernel cut out (its results are then wrong: only the time is read) or with
+clock64 counters that print "CYC" lines.  After the build, a timing script
+of this checkout runs with the copy's package on PYTHONPATH:
+tests/torch_backward_compare.py time for csrc/composed.cu's
+composed_backward_stats_kernel and csrc/fused_em.cu's backward_stats_kernel
 (composed_backward_stats at emb_c4 / tied_c5 lattice shapes, backward_stats
-at em_diag's).  With no arguments every variant runs, "base" (no cut)
-first and last.
+at em_diag's), tests/torch_forward_decode_compare.py time for the
+composed_forward and word-loop decode kernels (emb_c4 / tied_c5, dec_w200
+K = 1, 2, 3).  The "parent_" variants cut the composed_forward and decode
+kernels of 03f5319 (run them with --tree on a checkout of that commit).
+Prints one JSON line per variant with the kernel times and the last CYC
+lines.  With no variant named every variant that applies runs, "base" (no
+cut) first and last.
 """
 
 import json
@@ -23,7 +30,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 COMP, FEM = "srhmm_tpu_torch/csrc/composed.cu", "srhmm_tpu_torch/csrc/fused_em.cu"
-COMP_PY, FEM_PY = "srhmm_tpu_torch/ops/kernels/composed.py", "srhmm_tpu_torch/ops/kernels/fused_em.py"
+DEC, DEC_PY = "srhmm_tpu_torch/csrc/word_loop_decode.cu", "srhmm_tpu_torch/ops/kernels/decode.py"
+COMP_PY = "srhmm_tpu_torch/ops/kernels/composed.py"
 C_STATS = ("    if (k >= 1) {\n      const int t_hi = T - (k - 1) * TT, t_lo = max(t_hi - TT, 0);\n      float* la_tile",
            "    if (false) {\n      const int t_hi = T - (k - 1) * TT, t_lo = max(t_hi - TT, 0);\n      float* la_tile")
 C_REC = ("        for (int t = t_hi - 1; t >= t_lo; --t) {\n          const int tt = t - t_lo;\n          float* in_row",
@@ -73,6 +81,136 @@ E_CYCLES = (
 )
 
 
+# the 03f5319 composed_forward_kernel: per-frame cycles of thread 20 U of
+# block 0 (row 20 of utterance 0): the load of log_b (until it is ready),
+# the log-sum-exp, the stores (shared row and log-alpha), the barrier
+PF_CYCLES = (
+    ("#include <math.h>\n", "#include <math.h>\n#include <cstdio>\n"),
+    ("  float carry = kNegInf;\n  for (int t = 0; t < p.T; ++t) {\n    const size_t o = ((size_t)t * LS + j) * p.B + b;\n"
+     "    const float lb = live ? p.log_b[o] : kNegInf;\n",
+     "  float carry = kNegInf;\n  long long cy_load = 0, cy_lse = 0, cy_store = 0, cy_bar = 0;\n"
+     "  for (int t = 0; t < p.T; ++t) {\n    const size_t o = ((size_t)t * LS + j) * p.B + b;\n"
+     "    long long c0 = clock64();\n    float lb = live ? p.log_b[o] : kNegInf;\n"
+     "    asm volatile(\"mov.b32 %0, %0;\" : \"+f\"(lb));\n    cy_load += clock64() - c0;\n    c0 = clock64();\n"),
+    ("      carry = fmaxf(upd + lb, kNegInf);\n    }\n    sh[(t & 1) * nt + tid] = carry;\n"
+     "    if (live) p.la_out[o] = carry;\n    __syncthreads();\n  }\n}\n",
+     "      carry = fmaxf(upd + lb, kNegInf);\n    }\n    asm volatile(\"mov.b32 %0, %0;\" : \"+f\"(carry));\n"
+     "    cy_lse += clock64() - c0;\n    c0 = clock64();\n    sh[(t & 1) * nt + tid] = carry;\n"
+     "    if (live) p.la_out[o] = carry;\n    cy_store += clock64() - c0;\n    c0 = clock64();\n"
+     "    __syncthreads();\n    cy_bar += clock64() - c0;\n  }\n"
+     "  if (blockIdx.x == 0 && tid == 20 * U) printf(\"CYC forward LS %d load %lld lse %lld store %lld barrier %lld "
+     "frames %d\\n\", LS, cy_load, cy_lse, cy_store, cy_bar, p.T);\n}\n"),
+)
+# the 03f5319 word_loop_decode_kernel: cycles of threads 0 and nt - 32 of
+# block 0 over the whole utterance: the chunk's features, its emission (each
+# with its barrier), the cross-word phase (bigram: the exit phase with its
+# barrier, the merge, the wait at its barrier), the within-word candidates
+# with the pointer writes, the barrier closing the frame
+PD_CYCLES = (
+    ("#include <climits>\n", "#include <climits>\n#include <cstdio>\n"),
+    ("__device__ __forceinline__ void bigram_cross(const DecodeParams& p, const float* prev, float* ew,\n"
+     "                                             float* xvw, int* xbpw) {\n  const int N = p.N, S = p.S, W = p.W, nt = blockDim.x;\n",
+     "__device__ __forceinline__ void bigram_cross(const DecodeParams& p, const float* prev, float* ew,\n"
+     "                                             float* xvw, int* xbpw, long long* cy) {\n"
+     "  const int N = p.N, S = p.S, W = p.W, nt = blockDim.x;\n  const long long ce = clock64();\n"),
+    ("    ew[i] = e;\n  }\n  __syncthreads();\n", "    ew[i] = e;\n  }\n  __syncthreads();\n  const long long cm = clock64();\n  cy[3] += cm - ce;\n"),
+    ("        xbpw[k * W + v] = lc[k];\n      }\n    }\n  }\n  __syncthreads();\n}\n",
+     "        xbpw[k * W + v] = lc[k];\n      }\n    }\n  }\n  const long long cb = clock64();\n  __syncthreads();\n"
+     "  cy[4] += cb - cm;\n  cy[5] += clock64() - cb;\n}\n"),
+    ("                                            float* ew, float* xvw, int* xbpw) {\n",
+     "                                            float* ew, float* xvw, int* xbpw, long long* cy) {\n"),
+    ("  if (p.bigram) {\n    bigram_cross<K>(p, prev, ew, xvw, xbpw);\n  } else {\n    unigram_cross<K>(p, prev, red, round, xv, xbp);\n  }\n",
+     "  long long c0 = clock64();\n  if (p.bigram) {\n    bigram_cross<K>(p, prev, ew, xvw, xbpw, cy);\n  } else {\n"
+     "    unigram_cross<K>(p, prev, red, round, xv, xbp);\n  }\n  cy[0] += clock64() - c0;\n  c0 = clock64();\n"),
+    ("        bpt[r * K + k] = bp;\n      }\n    }\n  }\n  __syncthreads();\n}\n",
+     "        bpt[r * K + k] = bp;\n      }\n    }\n  }\n  cy[1] += clock64() - c0;\n  c0 = clock64();\n  __syncthreads();\n"
+     "  cy[2] += clock64() - c0;\n}\n"),
+    ("  int round = 0;\n  for (int t0 = 0; t0 < tend; t0 += F) {\n    const int nf = min(F, tend - t0);\n",
+     "  int round = 0;\n  long long cy[8] = {0, 0, 0, 0, 0, 0, 0, 0};\n  int n_chunks = 0;\n"
+     "  for (int t0 = 0; t0 < tend; t0 += F) {\n    const int nf = min(F, tend - t0);\n    long long cc = clock64();\n    ++n_chunks;\n"),
+    ("    __syncthreads();\n    for (int r = tid; r < N; r += nt) {\n      float lbv[kFramesMax];\n",
+     "    __syncthreads();\n    cy[6] += clock64() - cc;\n    cc = clock64();\n    for (int r = tid; r < N; r += nt) {\n      float lbv[kFramesMax];\n"),
+    ("        if (f < nf) lbs[f * N + r] = lbv[f];\n    }\n    __syncthreads();\n",
+     "        if (f < nf) lbs[f * N + r] = lbv[f];\n    }\n    __syncthreads();\n    cy[7] += clock64() - cc;\n"),
+    ("lbs + f * N, bpt, red, round, ew, xvw,\n                     xbpw);\n",
+     "lbs + f * N, bpt, red, round, ew, xvw,\n                     xbpw, cy);\n"),
+    ("  // frames past the length: identity pointers, the carry kept\n",
+     "  if (blockIdx.x == 0 && (tid == 0 || tid == nt - 32))\n"
+     "    printf(\"CYC decode K%d bigram %d tid %d frames %d chunks %d features %lld emission %lld cross %lld exits %lld \"\n"
+     "           \"merge %lld merge_wait %lld within_pointers %lld frame_barrier %lld\\n\", K, p.bigram, tid, tend, n_chunks,\n"
+     "           cy[6], cy[7], cy[0], cy[3], cy[4], cy[5], cy[1], cy[2]);\n"
+     "  // frames past the length: identity pointers, the carry kept\n"),
+)
+
+# composed_forward_kernel: cycles of lane 10 of recursion warp 0 of block 0
+# (rows 20, 21 at R = 2): per tile the recursion (of it, the neighbours
+# until they are ready and the log-sum-exp until it is), then the barrier
+# closing the tile (its wait on the store warps)
+F_CYCLES = (
+    ("#include <math.h>\n", "#include <math.h>\n#include <cstdio>\n"),
+    ("  float carry[R];\n  for (int k = 0; k < n_tiles; ++k) {\n",
+     "  float carry[R];\n  long long cy_rec = 0, cy_bar = 0, cy_nb = 0, cy_lse = 0;\n"
+     "  for (int k = 0; k < n_tiles; ++k) {\n    long long c0 = clock64();\n"),
+    ("        float nb[NDB];\n#pragma unroll\n        for (int s = 1; s < NDB; ++s) {\n",
+     "        long long c1 = clock64();\n        float nb[NDB];\n#pragma unroll\n        for (int s = 1; s < NDB; ++s) {\n"),
+    ("          nb[s] = x;\n        }\n        float next[R];\n",
+     "          nb[s] = x;\n        }\n#pragma unroll\n        for (int s = 1; s < NDB; ++s) asm volatile(\"mov.b32 %0, %0;\" : \"+f\"(nb[s]));\n"
+     "        cy_nb += clock64() - c1;\n        c1 = clock64();\n        float next[R];\n"),
+    ("#pragma unroll\n        for (int r = 0; r < R; ++r) carry[r] = next[r];\n      }\n",
+     "#pragma unroll\n        for (int r = 0; r < R; ++r) carry[r] = next[r];\n#pragma unroll\n"
+     "        for (int r = 0; r < R; ++r) asm volatile(\"mov.b32 %0, %0;\" : \"+f\"(carry[r]));\n"
+     "        cy_lse += clock64() - c1;\n      }\n"),
+    ("      if (W > 1) named_barrier(1, role_threads);  // the rows of frame t, for the next warp's sources\n"
+     "    }\n    __syncthreads();\n  }\n}\n",
+     "      if (W > 1) named_barrier(1, role_threads);  // the rows of frame t, for the next warp's sources\n"
+     "    }\n    cy_rec += clock64() - c0;\n    c0 = clock64();\n    __syncthreads();\n    cy_bar += clock64() - c0;\n  }\n"
+     "  if (blockIdx.x == 0 && tid == 10) printf(\"CYC forward LS %d frames %d recursion %lld neighbours %lld lse %lld \"\n"
+     "                                         \"barrier %lld\\n\", LS, T, cy_rec, cy_nb, cy_lse, cy_bar);\n}\n"),
+)
+# word_loop_decode_kernel: cycles of threads 0 and nt - 32 of block 0 over
+# the whole utterance, the phases of PD_CYCLES (bigram "exits": the exit
+# tokens, the top K sources and the list of sources that can enter a top K,
+# with their two barriers)
+D_CYCLES = (
+    ("#include <climits>\n", "#include <climits>\n#include <cstdio>\n"),
+    ("__device__ __forceinline__ void bigram_cross(const DecodeParams& p, const float* prev, float* ew, float* red,\n"
+     "                                             int* survivors, float* xvw, int* xbpw) {\n"
+     "  const int N = p.N, S = p.S, W = p.W, nt = blockDim.x, G = p.groups;\n",
+     "__device__ __forceinline__ void bigram_cross(const DecodeParams& p, const float* prev, float* ew, float* red,\n"
+     "                                             int* survivors, float* xvw, int* xbpw, long long* cy) {\n"
+     "  const int N = p.N, S = p.S, W = p.W, nt = blockDim.x, G = p.groups;\n  const long long ce = clock64();\n"),
+    ("    if (lane == 0) survivors[W] = n;\n  }\n  __syncthreads();\n",
+     "    if (lane == 0) survivors[W] = n;\n  }\n  __syncthreads();\n  const long long cm = clock64();\n  cy[3] += cm - ce;\n"),
+    ("        xbpw[k * W + v] = __ldg(p.exit_row + li[k] / K) * K + li[k] % K;\n      }\n    }\n  }\n  __syncthreads();\n}\n",
+     "        xbpw[k * W + v] = __ldg(p.exit_row + li[k] / K) * K + li[k] % K;\n      }\n    }\n  }\n"
+     "  const long long cb = clock64();\n  __syncthreads();\n  cy[4] += cb - cm;\n  cy[5] += clock64() - cb;\n}\n"),
+    ("                                            float* ew, float* xvw, int* xbpw) {\n  const int N = p.N, nt = blockDim.x;\n",
+     "                                            float* ew, float* xvw, int* xbpw, long long* cy) {\n"
+     "  const int N = p.N, nt = blockDim.x;\n"),
+    ("  if (p.bigram) {\n    bigram_cross<K>(p, prev, ew, red, reinterpret_cast<int*>(cur), xvw, xbpw);\n  } else {\n"
+     "    unigram_cross<K>(p, prev, red, round, xv, xbp);\n  }\n",
+     "  long long c0 = clock64();\n  if (p.bigram) {\n    bigram_cross<K>(p, prev, ew, red, reinterpret_cast<int*>(cur), xvw, xbpw, cy);\n"
+     "  } else {\n    unigram_cross<K>(p, prev, red, round, xv, xbp);\n  }\n  cy[0] += clock64() - c0;\n  c0 = clock64();\n"),
+    ("          bpt[r * K + k] = nbp[i][k];\n        }\n      }\n    }\n  }\n  __syncthreads();\n}\n",
+     "          bpt[r * K + k] = nbp[i][k];\n        }\n      }\n    }\n  }\n  cy[1] += clock64() - c0;\n  c0 = clock64();\n"
+     "  __syncthreads();\n  cy[2] += clock64() - c0;\n}\n"),
+    ("  int round = 0;\n  for (int t0 = 0; t0 < tend; t0 += F) {\n    const int nf = min(F, tend - t0);\n",
+     "  int round = 0;\n  long long cy[8] = {0, 0, 0, 0, 0, 0, 0, 0};\n  int n_chunks = 0;\n"
+     "  for (int t0 = 0; t0 < tend; t0 += F) {\n    const int nf = min(F, tend - t0);\n    long long cc = clock64();\n    ++n_chunks;\n"),
+    ("      xs[i] = x;\n    }\n    __syncthreads();\n", "      xs[i] = x;\n    }\n    __syncthreads();\n    cy[6] += clock64() - cc;\n    cc = clock64();\n"),
+    ("            lbs[f * N + r] = (q == 0) ? s : lbs[f * N + r] + s;\n          }\n        }\n      }\n    }\n    __syncthreads();\n",
+     "            lbs[f * N + r] = (q == 0) ? s : lbs[f * N + r] + s;\n          }\n        }\n      }\n    }\n    __syncthreads();\n"
+     "    cy[7] += clock64() - cc;\n"),
+    ("lbs + f * N, bpt, red, round, ew, xvw,\n                     xbpw);\n", "lbs + f * N, bpt, red, round, ew, xvw,\n                     xbpw, cy);\n"),
+    ("  // frames past the length: identity pointers, the carry kept\n",
+     "  if (blockIdx.x == 0 && (tid == 0 || tid == nt - 32))\n"
+     "    printf(\"CYC decode K%d bigram %d tid %d frames %d chunks %d features %lld emission %lld cross %lld exits %lld \"\n"
+     "           \"merge %lld merge_wait %lld within_pointers %lld frame_barrier %lld\\n\", K, p.bigram, tid, tend, n_chunks,\n"
+     "           cy[6], cy[7], cy[0], cy[3], cy[4], cy[5], cy[1], cy[2]);\n"
+     "  // frames past the length: identity pointers, the carry kept\n"),
+)
+
+
 def cut(src, *edits):
     """A variant of src with each (old, new) edit applied."""
     return src, tuple(e[0] for e in edits), tuple(e[1] for e in edits)
@@ -96,24 +234,46 @@ VARIANTS = [
     ("composed_cycles", *cut(COMP, *C_CYCLES)),
     ("em_cycles", *cut(FEM, *E_CYCLES)),
     # launch shapes other than the wrappers' choice
-    ("em_4_utterances", FEM_PY, "BACKWARD_UTTS = 8 ", "BACKWARD_UTTS = 4 "),
-    ("em_16_utterances", FEM_PY, "BACKWARD_UTTS = 8 ", "BACKWARD_UTTS = 16 "),
-    ("em_320_threads", FEM_PY, "warps = max(2, (_MAX_THREADS - n_rec) // 32)", "warps = max(2, (320 - n_rec) // 32)"),
-    ("em_4_utterances_320_threads", FEM_PY, ("BACKWARD_UTTS = 8 ", "warps = max(2, (_MAX_THREADS - n_rec) // 32)"),
-     ("BACKWARD_UTTS = 4 ", "warps = max(2, (320 - n_rec) // 32)")),
-    ("em_16_utterances_512_threads", (FEM_PY, FEM_PY, FEM),
-     ("BACKWARD_UTTS = 8 ", "warps = max(2, (_MAX_THREADS - n_rec) // 32)", "kMaxBackwardThreads = 320;"),
-     ("BACKWARD_UTTS = 16 ", "warps = max(2, (512 - n_rec) // 32)", "kMaxBackwardThreads = 512;")),
-    ("composed_2_utterances", COMP_PY, "    U = max(1, _BACKWARD_WARPS // W)", "    U = max(1, 2 // W)"),
+    ("composed_2_utterances", COMP_PY, "    U = max(1, _LATTICE_WARPS // W)", "    U = max(1, 2 // W)"),
     ("composed_8_frame_tiles", COMP_PY, "BACKWARD_TILES = (16, 8, 4, 2, 1)", "BACKWARD_TILES = (8, 4, 2, 1)"),
     ("em_no_contraction", FEM, "        contract_3xtf32<FULL>(acc + (size_t)S * p.mom_offs[q]",
      "        if (false) contract_3xtf32<FULL>(acc + (size_t)S * p.mom_offs[q]"),
+    # composed_forward_kernel and word_loop_decode_kernel
+    ("forward_cycles", *cut(COMP, *F_CYCLES)),
+    ("forward_no_lse", COMP, "      } else if (t < len) {\n        // nb[s] = log-alpha[t-1]",
+     "      } else if (false) {\n        // nb[s] = log-alpha[t-1]"),
+    ("decode_cycles", *cut(DEC, *D_CYCLES)),
+    ("decode_no_emission", DEC, "        stream_log_b<FULL>(p, q, r, xs, nf, mx, ev);\n", ""),
+    ("decode_8_frames", (DEC, DEC_PY), ("constexpr int kFramesMax = 16;", "_FRAMES_MAX = 16 "),
+     ("constexpr int kFramesMax = 8;", "_FRAMES_MAX = 8 ")),
+    ("decode_no_pointers", DEC, "          bpt[r * K + k] = nbp[i][k];\n", ""),
+    ("decode_1_row_a_step", DEC, "constexpr int kRowBlock = 2;", "constexpr int kRowBlock = 1;"),
+    ("decode_4_rows_a_step", DEC, "constexpr int kRowBlock = 2;", "constexpr int kRowBlock = 4;"),
+    # 03f5319's composed_forward_kernel and word_loop_decode_kernel
+    ("parent_forward_cycles", *cut(COMP, *PF_CYCLES)),
+    ("parent_forward_no_lse", COMP, "    } else if (t < len) {\n      // sources j - d below row 0",
+     "    } else if (false) {\n      // sources j - d below row 0"),
+    ("parent_forward_no_barrier", COMP, "    if (live) p.la_out[o] = carry;\n    __syncthreads();\n",
+     "    if (live) p.la_out[o] = carry;\n"),
+    ("parent_forward_no_store", COMP, "    if (live) p.la_out[o] = carry;\n", "    if (live && t < 0) p.la_out[o] = carry;\n"),
+    ("parent_decode_cycles", *cut(DEC, *PD_CYCLES)),
+    ("parent_decode_no_emission", DEC, "      for (int q = 0; q < P; ++q) stream_log_b<FULL>(p, q, r, xs, nf, lbv);\n", ""),
+    ("parent_decode_no_pointers", *cut(DEC, ("      bpt[r] = bp;\n", ""), ("        bpt[r * K + k] = bp;\n", ""))),
 ]
+FORWARD_DECODE = ("forward_", "decode_", "parent_forward", "parent_decode")
 
 
-def main(names) -> None:
-    chosen = [v for v in VARIANTS if not names or v[0] in names]
-    if not names:
+def timing_script(name: str) -> str:
+    return "torch_forward_decode_compare.py" if name.startswith(FORWARD_DECODE) else "torch_backward_compare.py"
+
+
+def main(argv) -> None:
+    global ROOT
+    here = ROOT  # this checkout: its timing scripts run against every copy
+    if argv[:1] == ["--tree"]:
+        ROOT, argv = Path(argv[1]).resolve(), argv[2:]
+    chosen = [v for v in VARIANTS if not argv or v[0] in argv]
+    if not argv:
         chosen.append(VARIANTS[0])
     for name, src, old, new in chosen:
         d = Path(tempfile.mkdtemp(prefix=f"var_{name}_")) / "tree"
@@ -124,17 +284,18 @@ def main(names) -> None:
             if o:
                 f = d / path
                 text = f.read_text()
-                assert text.count(o) == 1, name
+                assert text.count(o) == 1, (name, o[:60])
                 f.write_text(text.replace(o, n))
-        r = subprocess.run([sys.executable, "tests/torch_backward_compare.py", "time"], cwd=d, capture_output=True,
+        script = here / "tests" / timing_script(name)
+        r = subprocess.run([sys.executable, str(script), "time"], cwd=d, capture_output=True,
                            text=True, timeout=900, env={**os.environ, "PYTHONPATH": str(d)})
         lines = [l for l in r.stdout.splitlines() if l.startswith("{")]
         out = json.loads(lines[-1]) if lines else {"error": r.stderr[-600:]}
         kinds = {}
         for line in r.stdout.splitlines():
             if line.startswith("CYC"):
-                kinds.setdefault(" ".join(line.split()[:3]), []).append(line)
-        cycles = [line for lines in kinds.values() for line in lines[-4:]]
+                kinds.setdefault(" ".join(line.split()[:5]), []).append(line)
+        cycles = [line for lines in kinds.values() for line in lines[-2:]]
         print(json.dumps({"variant": name, **out, **({"cycles": cycles} if cycles else {})}), flush=True)
         shutil.rmtree(d.parent, ignore_errors=True)
 

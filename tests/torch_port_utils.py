@@ -107,6 +107,16 @@ def sample_utterance(rng, trans, streams, T) -> list[np.ndarray]:
     return out
 
 
+def entry_without_loop(trans) -> np.ndarray:
+    """trans with state 0's self-loop removed (its row renormalized): the
+    decode tests' words whose entry rows hold no within-word candidate
+    while every exit token is NEG_INF."""
+    t = np.array(trans, dtype=np.float64)
+    t[0, 0] = 0.0
+    t[0] /= t[0].sum()
+    return t
+
+
 def log_trans_np(S, kind, seed=0) -> np.ndarray:
     """(S, S) float32 log transitions: left-right of band 1 ("delta1") or 2
     ("delta2"), or "dense"; -inf off the band."""
@@ -185,11 +195,13 @@ BANK_DEPTH_CASES = [
 NEG_INF = -1e30
 
 
-# composed_backward_stats on its own (LS, nd, T, B): rows per lane 1, 2, 4,
-# an utterance over 2 and 8 warps (LS 160, 1024), band 1 (nd 2) and up to
-# 15 (nd 16), T one below, at and one above the 16-frame tile and 95, B
-# off the multiples of the block's utterances (2, 4, 8 on 132 SMs)
-BACKWARD_CASES = [
+# composed_forward and composed_backward_stats on their own (LS, nd, T, B):
+# rows per lane 1, 2, 4, an utterance over 2 and 8 warps (LS 160, 1024),
+# band 1 (nd 2) and up to 15 (nd 16), T one below, at and one above the
+# backward's 16-frame tile and 95 (shorter than the forward's 32-frame tile
+# and across it), B off the multiples of the block's utterances (2, 4, 8 on
+# 132 SMs)
+LATTICE_CASES = [
     (36, 3, 95, 37),
     (20, 3, 15, 517),
     (30, 3, 16, 1031),
@@ -201,11 +213,11 @@ BACKWARD_CASES = [
 ]
 
 
-def backward_lattice_case(device, seed, LS, nd, T, B):
-    """composed_backward_stats' inputs from a seed: random log_b (T, LS, B),
-    per-utterance chains of nd diagonals (row and column forms), lengths
-    T, 0, 1, the first tile's length and random ones, log-alpha from the
-    forward twin."""
+def lattice_case(device, seed, LS, nd, T, B):
+    """(log_b (T, LS, B), diag_row, diag_col (nd, LS, B), lengths (B,)) from a
+    seed: random log_b, per-utterance chains of nd diagonals in row and
+    column form, lengths T, 0, 1, the backward's first tile's length and
+    random ones."""
     from srhmm_tpu_torch.ops.kernels import composed as kc
 
     rng = np.random.default_rng(seed)
@@ -224,6 +236,21 @@ def backward_lattice_case(device, seed, LS, nd, T, B):
     diag_row = torch.as_tensor(row, dtype=torch.float32, device=device)
     diag_col = torch.as_tensor(col, dtype=torch.float32, device=device)
     lengths = torch.as_tensor(lens, dtype=torch.int32, device=device)
+    return log_b, diag_row, diag_col, lengths
+
+
+def forward_lattice_case(device, seed, LS, nd, T, B):
+    """composed_forward's inputs (log_b, diag_col, lengths) from lattice_case."""
+    log_b, _, diag_col, lengths = lattice_case(device, seed, LS, nd, T, B)
+    return log_b, diag_col, lengths
+
+
+def backward_lattice_case(device, seed, LS, nd, T, B):
+    """composed_backward_stats' inputs from lattice_case, log-alpha from the
+    forward twin."""
+    from srhmm_tpu_torch.ops.kernels import composed as kc
+
+    log_b, diag_row, diag_col, lengths = lattice_case(device, seed, LS, nd, T, B)
     la = kc.composed_forward_plain(log_b, diag_col, lengths)
     log_z = la[-1, -1]
     valid = torch.isfinite(log_z) & (log_z > NEG_INF / 2) & (lengths > 0)
