@@ -22,7 +22,12 @@ each (any failure raises, so the exit code is non-zero):
               NEG_INF/2; every summed statistic (xi, den_trans, den_mix,
               and each stream's first moments, second moments and
               occupancies apart) max|k-p| <= 1e-4 max|p|; two kernel runs
-              of one E-step bitwise equal
+              of one E-step bitwise equal; then emit_forward alone at the
+              launch shapes of torch_port_utils.EMIT_CHECK_CASES (band 0,
+              8 slots, bands past the unrolled slots, dense and banded
+              utterances across warps, the constants in device memory, a
+              ragged last block, T shorter than a tile), failing unless
+              every shape of EMIT_SHAPES was reached
   3 main      the recognizer end to end at full width on generated data:
               .hmm/.perfil files -> read_vocabulary -> stack_models ->
               astype(float32) -> cuda; load_batch -> score_batch -> rank ->
@@ -91,10 +96,13 @@ each (any failure raises, so the exit code is non-zero):
     train_p2  train_fast on two streams (D=9/M=3 + D=3/M=2) at em_diag's
               B=2048, T=500: 5 iterations through the E-step kernels at P=2
     kernel_mfcc
-              the MFCC kernel vs its twin over seven configurations
-              (default, n_mels 40, hann, W=512/shift 128, include_energy,
-              W=1024 with 128 mels, W=551/shift 220 at 22,050 Hz) on one batch of noise, a 300-sample (clamped) and a
-              silent waveform, and synthesized speech (also 16-bit) at the
+              the MFCC kernel vs its twin over ten configurations (default,
+              n_mels 40, hann, W=512/shift 128, include_energy, W=1024 with
+              128 mels, W=551/shift 220 at 22,050 Hz, a prime W=397, W=480,
+              an odd W=405 with include_energy: every FFT stage, radix 8,
+              4, 2, 5, 3 and the generic odd-prime one, must be reached) on
+              one batch of noise, a 300-sample (clamped) and a silent
+              waveform, and synthesized speech (also 16-bit) at the
               default configuration: max|k-p| <= 1e-3 on the MFCC, two
               launches bitwise equal
     features_cli
@@ -133,8 +141,12 @@ each (any failure raises, so the exit code is non-zero):
               from its inputs; timing_composed adds torch.profiler over one
               embedded / tied EM iteration (its idle share), the share of
               moments tiles skipped and the moments' dense bound
-              (dense_bound_ms); timing_mfcc is the cell
-              mfcc_b256_10s (256 waveforms of 10 s in one launch);
+              (dense_bound_ms); timing_em and timing_mfcc add each
+              kernel's own device time (torch.profiler) beside the CUDA
+              events around its call, timing_em the fused iteration's
+              device busy time and idle share; timing_mfcc is the cell
+              mfcc_b256_10s (256 waveforms of 10 s in one launch), with the
+              same function as torch.fft.rfft and two matmuls beside it;
               timing_lane times #15-#22 at em_diag (#15 also at diag10) and
               one E-step through e_step_fused, e_step_lane_major("pallas")
               and e_step_fused_lane, with torch.profiler's idle share
@@ -509,20 +521,14 @@ def port_utils():
     return torch_port_utils
 
 
-def phase_kernel_em(torch) -> dict:
-    """emit_forward and backward_stats vs their plain twins on the same CUDA
-    tensors; the twins' lattices feed both backward passes: diag/full x
-    band 1, 2, dense x P = 1, 2 at random lengths, then EM_EXTRA_CASES at
-    lengths on the backward-stats tile edges (em_lengths).  Fails unless a
-    partial tile (T % TT != 0), skipped gamma columns (frames past a
-    length) and accumulators in the partials were reached.  Returns the
-    worst absolute error per kernel."""
-    from srhmm_tpu_torch.ops.kernels import fused_em as fe
-
+def kernel_em_cases(fe) -> list:
+    """phase_kernel_em's E-steps, (cov, band, [(M, D) per stream], lengths,
+    S): diag/full x band 1, 2, dense x P = 1, 2 at random lengths (B=37,
+    T=95, rows of length 0 and 1), then EM_EXTRA_CASES at lengths on the
+    backward-stats tile edges, then two utterances of 2 and 3 frames (their
+    mixtures share one Gaussian: em_case's shared_gaussians)."""
     rng = np.random.default_rng(2025)
     lens = [int(n) for n in rng.integers(2, 95, size=34)] + [95, 0, 1]  # B=37, T=95
-    worst = {"emit_forward": 0.0, "backward_stats": 0.0}
-    saved = fe.emit_forward.launches, fe.backward_stats.launches
     cases = [(cov, band, md, lens, 6) for cov in ("diag", "full") for band in (1, 2, None)
              for md in ([(3, 9)], [(3, 9), (2, 3)])]
     edges = port_utils().em_tile_lengths
@@ -532,8 +538,40 @@ def phase_kernel_em(torch) -> dict:
     # contraction's rounding is neither averaged away over many terms nor
     # hidden by posteriors of exactly 1
     cases += [("diag", 1, [(2, 9)], [2, 3], 2)]
-    reached = set()
-    for cov, band, mixes_dims, lens, S in cases:
+    return cases
+
+
+def emit_case_name(cov, band, mixes_dims, S, B, T) -> str:
+    return f"{cov}_S{S}_band{band}_" + "_".join(f"M{M}D{D}" for M, D in mixes_dims) + f"_B{B}_T{T}"
+
+
+def emit_cases(fe) -> dict:
+    """Every emit_forward input of kernel_em and of its emit check, by name:
+    (cov, band, [(M, D) per stream], lengths, S, shared_gaussians)."""
+    out = {}
+    for cov, band, md, lens, S in kernel_em_cases(fe):
+        out["kernel_em_" + emit_case_name(cov, band, md, S, len(lens), max(lens))] = (cov, band, md, lens, S,
+                                                                                     len(lens) == 2)
+    pu = port_utils()
+    for i, (cov, band, md, S, B, T) in enumerate(pu.EMIT_CHECK_CASES):
+        out["emit_check_" + emit_case_name(cov, band, md, S, B, T)] = (cov, band, md, pu.emit_check_lengths(i, B, T),
+                                                                      S, False)
+    return out
+
+
+def phase_kernel_em(torch) -> dict:
+    """emit_forward and backward_stats vs their plain twins on the same CUDA
+    tensors (kernel_em_cases); the twins' lattices feed both backward
+    passes.  Fails unless a partial tile (T % TT != 0), skipped gamma
+    columns (frames past a length) and accumulators in the partials were
+    reached.  Then emit_check.  Returns the worst absolute error per
+    kernel."""
+    from srhmm_tpu_torch.ops.kernels import fused_em as fe
+
+    worst = {"emit_forward": 0.0, "backward_stats": 0.0}
+    saved = fe.emit_forward.launches, fe.backward_stats.launches
+    reached, emit_seen = set(), set()
+    for cov, band, mixes_dims, lens, S in kernel_em_cases(fe):
         feats, packed, origins, trans, lengths = em_case(torch, cov, band, mixes_dims, lens, S=S,
                                                          shared_gaussians=len(lens) == 2)
         args = (feats, packed, origins, trans, lengths)
@@ -550,6 +588,7 @@ def phase_kernel_em(torch) -> dict:
         st_k2 = fe.backward_stats(*rest)
         torch.cuda.synchronize()
         occ = fe.occupancy(1, *args, band)
+        emit_seen |= emit_reached(fe, args, band, lens)
         T = max(lens)
         skipped = sum(T - min(n, T) if v else T for n, v in zip(lens, valid.tolist()))
         reached |= {"partial_tile"} if T % occ["tile_frames"] else set()
@@ -585,10 +624,63 @@ def phase_kernel_em(torch) -> dict:
         emit({"phase": "kernel_em", "config": name, "B": len(lens), "T": T,
               "valid": int(vmask.sum()), "bitwise_repeat": bitwise, "block": occ,
               "skipped_columns": skipped, **{k: v["rel_err"] for k, v in res.items()}})
-    fe.emit_forward.launches, fe.backward_stats.launches = saved  # comparison launches
     want = {"partial_tile", "skipped_columns", "acc_in_partials", "slots_past_registers"}
     if reached != want:
         raise AssertionError(f"kernel_em reached {sorted(reached)}, not {sorted(want)}")
+    worst["emit_forward"] = max(worst["emit_forward"], emit_check(torch, fe, emit_seen))
+    fe.emit_forward.launches, fe.backward_stats.launches = saved  # comparison launches
+    return worst
+
+
+# the emit-forward launch shapes emit_check must see reached
+EMIT_SHAPES = {"slots_2", "slots_4", "slots_8", "slots_generic", "band_0", "band_1", "band_2", "dense",
+               "s_not_dividing_32", "utterance_across_warps", "ragged_block", "partial_tile", "short_tile",
+               "streams_6", "length_0", "length_1", "consts_global"}
+
+
+def emit_reached(fe, args, band, lens) -> set:
+    """The launch shapes of EMIT_SHAPES one emit_forward call reaches, from
+    the shape the wrapper chooses (fe.occupancy)."""
+    occ = fe.occupancy(0, *args, band)
+    S, B, T, P = args[3].shape[-1], len(lens), max(lens), len(args[0])
+    out = {f"slots_{occ['slots'] or 'generic'}", "dense" if band is None else f"band_{band}"}
+    out |= {"s_not_dividing_32"} if S <= 32 and 32 % S else set()
+    out |= {"utterance_across_warps"} if occ["warps_per_utt"] > 1 else set()
+    out |= {"ragged_block"} if B % occ["utts"] else set()
+    out |= {"short_tile"} if T < occ["tile"] else ({"partial_tile"} if T % occ["tile"] else set())
+    out |= {"streams_6"} if P == 6 else set()
+    out |= {f"length_{n}" for n in (0, 1) if n in lens}
+    out |= {"consts_global"} if occ["consts_global"] else set()
+    return out & EMIT_SHAPES
+
+
+def emit_check(torch, fe, seen: set) -> float:
+    """emit_forward alone at tests/torch_port_utils.EMIT_CHECK_CASES vs its
+    twin (log_b and log-alpha within BOUND, equal masks), two launches
+    bitwise equal; fails unless these and the kernel_em launches (seen)
+    reached every launch shape of EMIT_SHAPES.  Returns the worst absolute
+    error."""
+    pu = port_utils()
+    worst = 0.0
+    for i, (cov, band, mixes_dims, S, B, T) in enumerate(pu.EMIT_CHECK_CASES):
+        lens = pu.emit_check_lengths(i, B, T)
+        args = em_case(torch, cov, band, mixes_dims, lens, S=S)
+        lb_k, la_k = fe.emit_forward(*args, band)
+        lb_k2, la_k2 = fe.emit_forward(*args, band)
+        lb_p, la_p = fe.emit_forward_plain(*args, band)
+        torch.cuda.synchronize()
+        name = emit_case_name(cov, band, mixes_dims, S, B, T)
+        res = {"log_b": compare_lattice(lb_k, lb_p, f"emit_check {name} log_b"),
+               "log_alpha": compare_lattice(la_k, la_p, f"emit_check {name} log_alpha")}
+        if not (torch.equal(lb_k, lb_k2) and torch.equal(la_k, la_k2)):
+            raise AssertionError(f"emit_check {name}: two launches differ")
+        got = emit_reached(fe, args, band, lens)
+        seen |= got
+        worst = max(worst, res["log_b"]["max_abs_err"], res["log_alpha"]["max_abs_err"])
+        emit({"phase": "kernel_em", "check": "emit", "config": name, "reached": sorted(got),
+              "bitwise_repeat": True, **{k: v["rel_err"] for k, v in res.items()}})
+    if seen != EMIT_SHAPES:
+        raise AssertionError(f"emit_check reached {sorted(seen)}, not {sorted(EMIT_SHAPES)}")
     return worst
 
 
@@ -954,7 +1046,10 @@ def em_bounds(out: dict, T: int, dims, full: bool, packed, trans, lengths, valid
 
 def phase_timing_em(torch, train: dict, smi: str) -> dict:
     """emit_forward, backward_stats and one whole EM iteration (kernel path
-    vs fused=False) at a train shape, on the trained phase's initial model."""
+    vs fused=False) at a train shape, on the trained phase's initial model:
+    CUDA events around each call (the wrapper's host work included), each
+    kernel's own device time and the fused iteration's device busy time and
+    idle share under torch.profiler."""
     from srhmm_tpu_torch.ops.kernels import fused_em as fe
     from srhmm_tpu_torch.ops.kernels.common import trans_band
     from srhmm_tpu_torch.train.em import em_step
@@ -978,6 +1073,11 @@ def phase_timing_em(torch, train: dict, smi: str) -> dict:
             torch, lambda: em_step(model, batch, fused=False),
             lambda: em_step(model, batch, fused=True, feats_tdb=feats_tdb, band=band)),
     }
+    for name, fn in (("emit_forward", lambda: fe.emit_forward(*k1)), ("backward_stats", lambda: fe.backward_stats(*k2))):
+        out[name]["kernel_device_ms"] = kernel_device_ms(torch, fn, f"{name}_kernel")
+    out["em_iteration"]["profile"] = profile_window(
+        torch, lambda: em_step(model, batch, fused=True, feats_tdb=feats_tdb, band=band),
+        kernel_keys=("emit_forward_kernel", "backward_stats_kernel"))
     occ = {k: fe.occupancy(w, *k1) for k, w in (("emit_forward", 0), ("backward_stats", 1))}
     fe.emit_forward.launches, fe.backward_stats.launches = saved  # timing launches
     audio_s = train["res"]["frames"] * FRAME_S
@@ -1405,6 +1505,29 @@ def profile_window(torch, fn, kernel_keys=("word_loop_decode_kernel",)) -> dict:
             d2h += dt
     return {"profiled_wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3, "kernel_device_ms": kernel / 1e3,
             "d2h_device_ms": d2h / 1e3, "device_ops": ops, "idle_share": 1.0 - busy / wall_us}
+
+
+def kernel_device_ms(torch, fn, key: str, calls: int = 5):
+    """A kernel's own device time per launch: torch.profiler over `calls`
+    calls of fn, the device time of the kernels whose names contain key
+    over the number of their launches the profiler saw (a window may lose
+    some); None if it saw none."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total = count = 0
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CUDA and key in ev.key:
+            dt = getattr(ev, "self_device_time_total", None)
+            total += ev.self_cuda_time_total if dt is None else dt
+            count += ev.count
+    return total / count / 1e3 if count else None
 
 
 def phase_timing_decode(torch, dec: dict, smi: str) -> dict:
@@ -2363,7 +2486,8 @@ def phase_timing_em_p2(torch, p2: dict, smi: str) -> dict:
         kern_a, kern_b = median_ms(torch, kernel), median_ms(torch, kernel)
         plain_b = median_ms(torch, plain, warmup=1, reps=3)
         out[name] = {"kernel_ms": [kern_a, kern_b], "plain_ms": [plain_a, plain_b], "ms": min(kern_a, kern_b),
-                     "best_plain_ms": min(plain_a, plain_b)}
+                     "best_plain_ms": min(plain_a, plain_b),
+                     "kernel_device_ms": kernel_device_ms(torch, kernel, f"{name}_kernel")}
     fe.emit_forward.launches, fe.backward_stats.launches = saved  # timing launches
     em_bounds(out, feats[0].shape[0], [(s.dim, s.num_mixtures) for s in model.streams], False, packed,
               model.trans, lengths, valid, band)
@@ -2396,9 +2520,31 @@ def mfcc_configs() -> dict:
         "w512_s128": FrontendConfig(frame_length=512, frame_shift=128),
         "energy": FrontendConfig(include_energy=True),
         "w1024_mels128": FrontendConfig(frame_length=1024, frame_shift=256, n_mels=128, n_mfcc=40),
-        # W not a multiple of 4 (the DFT's remainder loop), another sample rate
+        # W = 19 x 29: two generic odd-prime FFT stages; another sample rate
         "w551_22k": FrontendConfig(sample_rate=22_050, frame_length=551, frame_shift=220),
+        # a prime W: one generic stage, a dense DFT of that length
+        "w397_prime": FrontendConfig(frame_length=397),
+        # W/2 = 240 = 8 x 2 x 5 x 3: the radix-2 and radix-3 butterflies
+        "w480_radix3": FrontendConfig(frame_length=480),
+        # an odd W = 405 = 5 x 3^4 (no real split step), with the frame energy
+        "w405_energy": FrontendConfig(frame_length=405, include_energy=True),
     }
+
+
+def mfcc_check_inputs() -> dict:
+    """phase_kernel_mfcc's batches, name -> (config, waveforms): white noise
+    of 5000 samples (29 frames, no tile multiple), a 300-sample waveform
+    (one clamped frame), a silent one and 2 s of quiet noise; the default
+    configuration (the pipeline's and the CLI's) adds two synthesized
+    utterances, the second quantized to 16 bits."""
+    from srhmm_tpu_torch.pipeline import PipelineConfig, synthesize_dataset
+
+    rng = np.random.default_rng(2026)
+    speech = synthesize_dataset(PipelineConfig(seed=7), 2, 0)[0]
+    quantized = np.round(speech[1] / np.abs(speech[1]).max() * 0.9 * 32767.0) / 32768.0
+    waves = [rng.normal(size=5000), rng.normal(size=300), np.zeros(4000), 0.1 * rng.normal(size=32000)]
+    return {name: (cfg, waves + [speech[0], quantized] if name == "default" else waves)
+            for name, cfg in mfcc_configs().items()}
 
 
 def mfcc_compare(k, p, what: str) -> dict:
@@ -2419,8 +2565,7 @@ def mfcc_compare(k, p, what: str) -> dict:
 def mfcc_ops(n_frames: int, n_samples: int, cfg) -> float:
     """fp32 operations the waveform -> MFCC function needs (a multiply-add
     counts two), with the DFT taken as a real-input FFT, 2.5 W log2 W a
-    frame, not as the dense products the kernel runs (mfcc_dense_dft_ops):
-    pre-emphasis (2 a sample), the window (W), the FFT, the power (3 K),
+    frame: pre-emphasis (2 a sample), the window (W), the FFT, the power (3 K),
     the mel product over the filterbank's nonzeros (2 nnz), the log floor
     (2 n_mels), the DCT (2 n_mels n_mfcc), the energy sum."""
     from srhmm_tpu_torch.features.frontend import mel_filterbank
@@ -2433,11 +2578,22 @@ def mfcc_ops(n_frames: int, n_samples: int, cfg) -> float:
     return float(n_frames * per + 2 * n_samples)
 
 
-def mfcc_dense_dft_ops(n_frames: int, cfg) -> int:
-    """The fp32 operations of the kernel's own DFT: two dense (W, K)
-    products a frame, 4 W K."""
-    W, K = cfg.frame_length, cfg.frame_length // 2 + 1
-    return n_frames * 4 * W * K
+def mfcc_rfft_matmul(torch, samples, offsets, cfg):
+    """The MFCC function composed of library calls on the card, a yardstick
+    used nowhere in the port: pre-emphasis, framing by unfold (for
+    waveforms of one length that are whole frames long: no index clamps),
+    the window, torch.fft.rfft, the power, and two matrix products."""
+    from srhmm_tpu_torch.features.frontend import _window, dct_matrix, mel_filterbank
+
+    dev = samples.device
+    x = samples.view(-1, int(offsets[1] - offsets[0]))
+    y = torch.cat([x[:, :1], x[:, 1:] - cfg.preemphasis * x[:, :-1]], dim=1)
+    frames = y.unfold(1, cfg.frame_length, cfg.frame_shift)
+    spec = torch.fft.rfft(frames * torch.as_tensor(_window(cfg), dtype=torch.float32, device=dev), dim=-1)
+    power = spec.real * spec.real + spec.imag * spec.imag
+    mel = torch.as_tensor(mel_filterbank(cfg), dtype=torch.float32, device=dev)
+    dct = torch.as_tensor(dct_matrix(cfg), dtype=torch.float32, device=dev)
+    return (torch.log(torch.clamp(power @ mel, min=cfg.log_floor)) @ dct).reshape(-1, cfg.n_mfcc)
 
 
 def write_wav(path: Path, x: np.ndarray, sr: int) -> None:
@@ -2453,30 +2609,23 @@ def write_wav(path: Path, x: np.ndarray, sr: int) -> None:
 
 
 def phase_kernel_mfcc(torch) -> float:
-    """The MFCC kernel vs its twin on the same CUDA tensors over seven
-    configurations (W=551 runs the DFT's remainder loop), one launch each
-    for a batch of white noise of 5000 samples (29 frames, no tile
-    multiple), a 300-sample waveform (one
-    clamped frame), a silent one and 2 s of quiet noise; the default
-    configuration (the pipeline's and the CLI's) adds two synthesized
-    utterances, the second quantized to 16 bits.  Speech is left out of
-    the others: there the narrower bands (128 mels) or the lower window
-    sidelobes (hann) leave the weakest mel bands of noise-free synthetic
-    speech with less power than the float32 rounding of the DFT sums, so
-    any two summation orders (kernel and twin alike) differ there, by
-    2e-3 to 2e-2 in the MFCC (measured on the H100).  Two launches
-    bitwise equal.  Returns the worst absolute error."""
+    """The MFCC kernel vs its twin on the same CUDA tensors over every
+    mfcc_configs() entry, one launch each for mfcc_check_inputs()'s batch.
+    Speech is left out of the configurations other than the default: there
+    the narrower bands (128 mels) or the lower window sidelobes (hann) leave
+    the weakest mel bands of noise-free synthetic speech with less power
+    than the float32 rounding of the DFT sums, so any two summation orders
+    (kernel and twin alike) differ there, by 2e-3 to 2e-2 in the MFCC
+    (measured on the H100).  Two launches bitwise equal.  Fails unless the
+    configurations reach every FFT stage of the kernel (radix 8, 4, 2, 5,
+    3, the generic odd-prime stage) and both the real split step (even W)
+    and the odd-W path.  Returns the worst absolute error."""
     from srhmm_tpu_torch.ops.kernels import mfcc as km
-    from srhmm_tpu_torch.pipeline import PipelineConfig, synthesize_dataset
 
-    rng = np.random.default_rng(2026)
-    speech = synthesize_dataset(PipelineConfig(seed=7), 2, 0)[0]
-    quantized = np.round(speech[1] / np.abs(speech[1]).max() * 0.9 * 32767.0) / 32768.0
-    waves = [rng.normal(size=5000), rng.normal(size=300), np.zeros(4000), 0.1 * rng.normal(size=32000)]
     saved = km.mfcc_fused.launches
     worst = 0.0
-    for name, cfg in mfcc_configs().items():
-        batch = waves + [speech[0], quantized] if name == "default" else waves
+    reached = set()
+    for name, (cfg, batch) in mfcc_check_inputs().items():
         samples, offsets = km.pack_waves(batch, "cuda")
         k = km.mfcc_fused(samples, offsets, cfg)
         k2 = km.mfcc_fused(samples, offsets, cfg)
@@ -2486,9 +2635,14 @@ def phase_kernel_mfcc(torch) -> float:
         if not torch.equal(k, k2):
             raise AssertionError(f"kernel_mfcc {name}: two launches differ")
         worst = max(worst, res["max_abs_err"])
+        _, split, radices = km.fft_plan(cfg.frame_length)
+        reached |= {r if r in km.BUTTERFLIES else "generic" for r in radices} | {"split" if split else "odd"}
         emit({"phase": "kernel_mfcc", "config": name, "waves": len(batch), "frames": int(k.shape[0]),
-              "bitwise_repeat": True, **res})
+              "fft_radices": list(radices), "bitwise_repeat": True, **res})
     km.mfcc_fused.launches = saved  # comparison launches
+    want = {*km.BUTTERFLIES, "generic", "split", "odd"}
+    if reached != want:
+        raise AssertionError(f"kernel_mfcc reached {sorted(map(str, reached))}, not {sorted(map(str, want))}")
     return worst
 
 
@@ -2615,8 +2769,10 @@ def phase_timing_mfcc(torch, smi: str) -> dict:
     launch.  CUDA events: kernel median of 20, twin median of 3, in the
     order twin, kernel, kernel, twin; the kernel vs the twin on these
     inputs; the bound from the samples read, the constants read and the
-    MFCCs written against mfcc_ops (an FFT's count), and beside it the
-    dense DFT the kernel runs, at the card's fp32 peak."""
+    MFCCs written against mfcc_ops (an FFT's count); beside it, for
+    reference, the same function composed of torch.fft.rfft and two matrix
+    products (mfcc_rfft_matmul, CUDA-event median of 20; no one PyTorch
+    call computes it, so library_ms stays null)."""
     from srhmm_tpu_torch.features.frontend import FrontendConfig
     from srhmm_tpu_torch.ops.kernels import mfcc as km
 
@@ -2633,19 +2789,22 @@ def phase_timing_mfcc(torch, smi: str) -> dict:
     plain_a = median_ms(torch, plain, warmup=1, reps=3)
     kern_a, kern_b = median_ms(torch, kernel), median_ms(torch, kernel)
     plain_b = median_ms(torch, plain, warmup=1, reps=3)
+    device_ms = kernel_device_ms(torch, kernel, "mfcc_kernel")
     km.mfcc_fused.launches = saved  # timing launches
+    composed = lambda: mfcc_rfft_matmul(torch, samples, offsets, cfg)
+    composed_err = float((composed() - km.mfcc_plain(samples, offsets, cfg)).abs().max())
+    composed_ms = median_ms(torch, composed)
     frames = int(km.frame_offsets(offsets, cfg)[-1])
-    W, K = cfg.frame_length, cfg.frame_length // 2 + 1
-    consts = 4 * (2 * W * K + K * cfg.n_mels + cfg.n_mels * cfg.n_mfcc)
-    bnd = bound(4 * samples.numel() + 8 * 3 * (n_waves + 1) + consts + 4 * frames * cfg.n_mfcc,
+    table, ranges, _ = km._constants(cfg, samples.device)
+    bnd = bound(4 * samples.numel() + 8 * 3 * (n_waves + 1) + numel_bytes(table, ranges) + 4 * frames * cfg.n_mfcc,
                 mfcc_ops(frames, samples.numel(), cfg))
     ms = min(kern_a, kern_b)
     audio_s = n_waves * n / cfg.sample_rate
-    dense_ms = mfcc_dense_dft_ops(frames, cfg) / FP32_OPS_PER_S * 1e3
     res = {"kernel_ms": [kern_a, kern_b], "plain_ms": [plain_a, plain_b], "ms": ms,
            "best_plain_ms": min(plain_a, plain_b), "frontend_audio_s_per_s": audio_s / (ms / 1e3),
            "plain_audio_s_per_s": audio_s / (min(plain_a, plain_b) / 1e3), **bnd,
-           "share_of_bound": bnd["bound_ms"] / ms, "dense_dft_ms_at_peak": dense_ms}
+           "share_of_bound": bnd["bound_ms"] / ms, "kernel_device_ms": device_ms, "rfft_matmul_ms": composed_ms,
+           "rfft_matmul_vs_twin": composed_err, "fft_radices": list(km.fft_plan(cfg.frame_length)[2])}
     emit({"phase": "timing_mfcc", "config": "mfcc_b256_10s", "waves": n_waves, "frames": frames,
           "audio_s": audio_s, "kernel_reps": 20, "plain_reps": 3, "full_width_vs_twin": check, **res,
           "card": smi})
@@ -3212,8 +3371,11 @@ def main() -> int:
             "plain_ms": em_diag["emit_forward"]["best_plain_ms"],
             **{k: em_diag["emit_forward"][k] for k in bkeys},
             "library_ms": None,
+            # the kernel's own device time (torch.profiler); ms includes the wrapper's host work
+            "kernel_device_ms": em_diag["emit_forward"]["kernel_device_ms"],
             # P = 2 (TPU kernel #4): em_diag_p2
             "launches_p2": train_p2["launches"]["emit_forward"],
+            "kernel_device_ms_p2": em_p2["emit_forward"]["kernel_device_ms"],
             "ms_p2": em_p2["emit_forward"]["ms"],
             "plain_ms_p2": em_p2["emit_forward"]["best_plain_ms"],
             **{f"{k}_p2": em_p2["emit_forward"][k] for k in bkeys},
@@ -3280,6 +3442,9 @@ def main() -> int:
             "plain_ms": t_mfcc["best_plain_ms"],
             **{k: t_mfcc[k] for k in bkeys},
             "library_ms": None,
+            "kernel_device_ms": t_mfcc["kernel_device_ms"],
+            # the same function as torch.fft.rfft and two matmuls (a yardstick)
+            "rfft_matmul_ms": t_mfcc["rfft_matmul_ms"],
         },
     ] + [
         {

@@ -32,31 +32,36 @@
 //
 // Design.  The TPU grid walked time blocks in order and carried the
 // recursion in VMEM scratch; here the whole time loop runs inside the
-// kernel, one launch per pass.  A block holds U utterances x S states, one
-// thread per (state, utterance) (thread s * U + u) for the recursion, which
-// exchanges one value per thread through a double-buffered shared-memory
-// row (one barrier per frame).  K1 computes each thread's own state's
-// emission inline.  K2 stages tiles of TT frames (log-alpha, log_b[t+1],
-// the features) into shared memory by cp.async a tile ahead, so its frame
-// loop reads no device memory, and splits each tile's work between two
-// kinds of thread one tile apart (see backward_stats_kernel): the
-// recursion (gamma into shared memory; xi, den_trans, den_mix in
-// registers, summed in time order) and, on statistics warps in parallel
-// over the tile's (frame, utterance) columns whose gamma are not all
-// 0.0f, the emission (fp32 FMAs in emission.cuh's order, never TF32) and
-// posteriors, and the moment contraction W (S M x columns) . [y; y^2 or
-// vec(y y^T); 1] on the tensor cores in 3xTF32 (tile_mma.cuh).  No atomics:
-// each block sums its columns in a fixed order into its own partial, and
-// the caller sums the partials over blocks, so two runs of an E-step are
-// bitwise equal.
+// kernel, one launch per pass, and each block splits a pass between kinds
+// of warp one tile of frames apart, so that only the recursion's own step
+// is on its serial chain.  K1 (see emit_forward_kernel): emission warps
+// compute a tile's log_b (two columns a thread, two mixtures side by side)
+// while recursion warps run the previous tile (a lane a (state,
+// utterance), the band's sources by warp shuffles, a branch-free
+// log-sum-exp unrolled to 2, 4 or 8 slots) and memory warps stage the
+// features of the tile after by cp.async and write the tile before out.
+// K2 stages tiles of TT frames (log-alpha, log_b[t+1], the features) into
+// shared memory by cp.async a tile ahead,
+// so its frame loop reads no device memory, and splits each tile's work
+// between two kinds of thread one tile apart (see backward_stats_kernel):
+// the recursion, one thread per (state, utterance) exchanging one value
+// through a double-buffered shared-memory row (gamma into shared memory;
+// xi, den_trans, den_mix in registers, summed in time order) and, on
+// statistics warps in parallel over the tile's (frame, utterance) columns
+// whose gamma are not all 0.0f, the emission (fp32 FMAs in emission.cuh's
+// order, never TF32) and posteriors, and the moment contraction W (S M x
+// columns) . [y; y^2 or vec(y y^T); 1] on the tensor cores in 3xTF32
+// (tile_mma.cuh).  No atomics: each block sums its columns in a fixed
+// order into its own partial, and the caller sums the partials over
+// blocks, so two runs of an E-step are bitwise equal.
 //
-// What bounds it on the H100.  Parallelism: B * S threads (16 k at the
-// B=2048, S=8 EM headline), i.e. ~4 warps per SM, so each recursion's
-// serial chain over T frames sets K1's time and the floor of K2's, not the
-// FMA rate or the bandwidth; K2's statistics warps (12 a block at em_diag)
-// keep up with its chain.  K1 writes 2 T S B floats (65 MB at the headline)
-// and K2 reads them back once, well under a millisecond of HBM time.
-// Later work: spread K1's mixtures over more threads, CUDA-graph capture of
+// What bounds it on the H100.  Parallelism: B * S (state, utterance)
+// chains (16 k at the B=2048, S=8 EM headline), each a serial recursion
+// over T frames, so the chain's latency a frame sets K1's floor and K2's,
+// not the FMA rate or the bandwidth; K1's emission warps (15 a block at
+// em_diag) and K2's statistics warps (12) keep pace beside it.  K1 writes
+// 2 T S B floats (65 MB at the headline) and K2 reads them back once, well
+// under a millisecond of HBM time.  Later work: CUDA-graph capture of
 // whole EM iterations.
 
 #include <cuda_runtime.h>
@@ -69,9 +74,14 @@ namespace {
 
 using namespace srhmm;
 
-constexpr int kMaxThreads = 256;  // S * U threads per block (emit-forward), S * U at most
+constexpr int kMaxStates = 256;  // S, and S * U of a block at most
 constexpr int kXiRegs = 8;        // backward-stats xi slots a thread keeps in registers
 constexpr int kMaxBackwardThreads = 512;  // recursion threads (<= 256) + statistics warps
+constexpr int kEmitThreads = 672;  // emit-forward: recursion + emission + memory warps
+// emit-forward: the feature columns an emission thread takes side by side
+// (their x in registers)
+template <int DMAX>
+constexpr int kEmitCols = DMAX <= 16 ? 2 : 1;
 
 struct EmParams {
   const float* feats[kMaxStreams];  // per stream: (T, D_p, B)
@@ -97,7 +107,9 @@ struct EmParams {
   int max_mix;          // max_p M_p
   int T, B, S, band;    // band < 0: dense transitions
   int U;                // utterances per block
-  int TT;               // frames a staged tile (K2)
+  int TT;               // frames a staged tile
+  int rec_warps, em_warps;  // K1: recursion and emission warps (the rest of the block stores)
+  int consts_global;    // K1: the constants read from device memory, not shared memory
   int stat_warps;       // K2: statistics warps a block
   int acc_global;       // K2: the moment accumulators in the block's row of mom, not shared memory
   int sum_dims, max_dim;  // sum_p D_p, max_p D_p
@@ -109,78 +121,255 @@ struct EmParams {
 __device__ __forceinline__ int slot_src(bool banded, int j, int k) { return banded ? j - k : k; }
 __device__ __forceinline__ int slot_dst(bool banded, int i, int k) { return banded ? i + k : k; }
 
-template <int DMAX>
-__device__ __forceinline__ void load_frame(const float* f, const float* o, int D, int B,
-                                           float (&x)[DMAX]) {
-#pragma unroll
-  for (int e = 0; e < DMAX; ++e) x[e] = (e < D) ? __ldg(f + (size_t)e * B) - o[e] : 0.f;
-}
-
 __device__ __forceinline__ void stage_constants(const EmParams& p, float4* smem4, int tid, int nt) {
   const float4* src = reinterpret_cast<const float4*>(p.consts);
   for (int i = tid; i < p.C / 4; i += nt) smem4[i] = src[i];
 }
 
-template <int DMAX, bool FULL>
-__global__ void __launch_bounds__(kMaxThreads) emit_forward_kernel(const EmParams p) {
+// Shared memory of one emit-forward block, in floats (the wrapper's
+// ops/kernels/fused_em.py emit_smem_bytes mirrors it): the constants C
+// (unless consts_global: then they are read from device memory) | the
+// features, two slots of (TT, sum_p D_p, U) | log_b, two slots of (TT, S,
+// U) | log-alpha, two slots of (TT, S, U); slot k & 1 holds tile k.
+__host__ __device__ inline size_t emit_floats(const EmParams& p) {
+  return (p.consts_global ? 0 : (size_t)p.C) + 2 * (size_t)p.TT * p.U * (p.sum_dims + 2 * p.S);
+}
+
+__device__ __forceinline__ void named_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// Three kinds of warp, one tile of TT frames apart; the block walks the
+// tiles up in time and one barrier closes each step (two more open the
+// first):
+// * emission warps (p.em_warps) compute log_b of tile k+1 while the
+//   recursion runs tile k: a warp takes one state and 32 NC of the tile's
+//   columns (frame, utterance), a thread NC = kEmitCols of them side by side
+//   (their features in registers, each record read once for the NC: the
+//   records broadcast across the warp); each stream's features from the
+//   tile the memory warps staged a step earlier, the state's mixture
+//   logsumexp by emission.cuh's state_log_b_cols (fp32 FMAs in its order,
+//   two mixtures of the NC columns side by side), summed over the
+//   streams and clamped at NEG_INF; log_b goes to the tile for the
+//   recursion and out to device memory (runs of U floats along B), for
+//   every frame < T;
+// * recursion warps (p.rec_warps) run tile k: lane l holds (state s,
+//   utterance u): 32 / S utterances of S consecutive lanes a warp for S <=
+//   32, else W = ceil(S / 32) warps an utterance with state 32 w + l.  The
+//   sources s - kk of a band step (NSL > 0 slots, unrolled) come from the
+//   lanes below by __shfl_up_sync; a source in the previous warp of the
+//   utterance from the log-alpha tile after a named barrier of the
+//   recursion warps (W > 1 only).  A slot off the chain (s - kk < 0, or
+//   kk > band) enters the max as -inf and the sum as expf(-inf) = 0.0f,
+//   which change no bit of a sum that skips it.  Dense transitions and
+//   bands past the compiled slot counts (NSL = 0) take every source from
+//   the tile after a barrier of the recursion warps each frame, in the
+//   slot order of the one-thread-a-state loop.  Frame 0 starts in state 0
+//   and always sets the carry, even for a zero-length row; frames t >=
+//   length repeat the carry; log-alpha goes to the tile;
+// * memory warps stage tile k+2's features by 16-byte cp.async and write
+//   log-alpha of tile k-1 out, runs of U floats along B.
+// Nothing but the band step and the tile's log_b read is on the serial
+// chain: log_b and log-alpha are bitwise those of one thread per (state,
+// utterance) computing its emission and step in that order.
+template <int DMAX, bool FULL, int NSL>
+__global__ void __launch_bounds__(kEmitThreads) emit_forward_kernel(const EmParams p) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  const int S = p.S, U = p.U, nt = S * U, tid = threadIdx.x;
-  const int s = tid / U, u = tid - s * U;
-  const int b = blockIdx.x * U + u;
-  const bool live = b < p.B;
-  stage_constants(p, smem4, tid, nt);
-  float* alpha = smem + p.C;  // two (S, U) rows: frame t writes row t & 1
+  const int S = p.S, U = p.U, TT = p.TT, T = p.T, tid = threadIdx.x;
+  const int n_rec = 32 * p.rec_warps, n_em = 32 * p.em_warps;
+  const int b0 = blockIdx.x * U;
+  if (!p.consts_global) stage_constants(p, smem4, tid, blockDim.x);
+  const float* cst = p.consts_global ? p.consts : smem;
+  const size_t x_tile = (size_t)TT * p.sum_dims * U, s_tile = (size_t)TT * S * U;
+  float* xs = smem + (p.consts_global ? 0 : p.C);  // features
+  float* lbs = xs + 2 * x_tile;                    // log_b
+  float* las = lbs + 2 * s_tile;                   // log-alpha
+  const int n_tiles = (T + TT - 1) / TT;
   __syncthreads();
-  const float* lt = smem + p.lt_off;
+
+  // the features of tile k into slot k & 1 (the memory warps' copies)
+  auto stage = [&](int k) {
+    const int t0 = k * TT;
+    float* f = xs + (k & 1) * x_tile;
+    for (int q = 0; q < p.n_streams; ++q) {
+      stage_rows_async(f, p.dims[q] * U, U, p.feats[q], t0, min(TT, T - t0), p.dims[q], T, p.B, b0, U, n_rec + n_em,
+                       blockDim.x - n_rec - n_em);
+      f += (size_t)TT * p.dims[q] * U;
+    }
+    cp_async_commit();
+  };
+
+  if (tid >= n_rec + n_em) {
+    // ---- the memory warps ----
+    const int i = tid - n_rec - n_em, n_mem = blockDim.x - n_rec - n_em;
+    stage(0);
+    if (n_tiles > 1) {
+      stage(1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // tile 0's features are in
+    cp_async_wait<0>();
+    __syncthreads();  // tile 0's log_b and tile 1's features are in
+    for (int k = 0; k < n_tiles; ++k) {
+      // tile k+2 goes into the slot of tile k, read last step
+      if (k + 2 < n_tiles) stage(k + 2);
+      if (k >= 1) store_rows_from_tile(p.la, las + ((k - 1) & 1) * s_tile, S * U, (k - 1) * TT, TT, S, p.B, b0, U, i, n_mem);
+      cp_async_wait<0>();
+      __syncthreads();
+    }
+    const int k = n_tiles - 1;
+    store_rows_from_tile(p.la, las + (k & 1) * s_tile, S * U, k * TT, T - k * TT, S, p.B, b0, U, i, n_mem);
+    return;
+  }
+
+  if (tid >= n_rec) {
+    // ---- the emission warps ----
+    const int e = tid - n_rec;
+    // a warp task: one state's columns g 32 NC + lane + 32 j (j < NC) of
+    // tile k, a thread its NC columns side by side
+    constexpr int NC = kEmitCols<DMAX>;
+    const int lane = e & 31, lg_u = 31 - __clz(U);  // U is a power of 2
+    auto emit_tile = [&](int k) {
+      const int t0 = k * TT, n = min(TT, T - t0), ncol = n * U;
+      const int groups = (ncol + 32 * NC - 1) / (32 * NC);
+      const float* f = xs + (k & 1) * x_tile;
+      float* lbt = lbs + (k & 1) * s_tile;
+      // task w + r n_w of the warp is (state s, group g), stepped without a division
+      int s = 0, g = e >> 5;
+      while (g >= groups) g -= groups, ++s;
+      for (; s < S; g += n_em >> 5) {
+        while (g >= groups && s < S) g -= groups, ++s;
+        if (s >= S) break;
+        const int c0 = g * 32 * NC + lane;
+        int tt[NC], u[NC];
+#pragma unroll
+        for (int j = 0; j < NC; ++j) {
+          const int c = min(c0 + 32 * j, ncol - 1);  // a column past the tile repeats the last, not stored
+          tt[j] = c >> lg_u;
+          u[j] = c & (U - 1);
+        }
+        float lb[NC];
+        const float* fq = f;
+        for (int q = 0; q < p.n_streams; ++q) {
+          const int D = p.dims[q], M = p.mixes[q];
+          const float* o = cst + p.origin_offs[q];
+          float x[NC][DMAX];
+#pragma unroll
+          for (int j = 0; j < NC; ++j)
+#pragma unroll
+            for (int d = 0; d < DMAX; ++d) x[j][d] = (d < D) ? fq[(tt[j] * D + d) * U + u[j]] - o[d] : 0.f;
+          const float* rec = cst + p.offs[q] + s * M * record_stride<DMAX, FULL>(D);
+          float v[NC];
+          state_log_b_cols<DMAX, FULL, NC>(rec, M, D, x, v);
+#pragma unroll
+          for (int j = 0; j < NC; ++j) lb[j] = (q == 0) ? v[j] : lb[j] + v[j];
+          fq += (size_t)TT * D * U;
+        }
+#pragma unroll
+        for (int j = 0; j < NC; ++j) {
+          if (c0 + 32 * j >= ncol) continue;
+          const float l = fmaxf(lb[j], kNegInf);
+          lbt[((size_t)tt[j] * S + s) * U + u[j]] = l;
+          if (b0 + u[j] < p.B) p.log_b[((size_t)(t0 + tt[j]) * S + s) * p.B + b0 + u[j]] = l;
+        }
+      }
+    };
+    __syncthreads();  // tile 0's features are in
+    emit_tile(0);
+    __syncthreads();
+    for (int k = 0; k < n_tiles; ++k) {
+      if (k + 1 < n_tiles) emit_tile(k + 1);
+      __syncthreads();
+    }
+    return;
+  }
+
+  // ---- the recursion warps ----
+  const int lane = tid & 31, wid = tid >> 5, W = (S + 31) >> 5;
+  int u, s;
+  bool th;  // the lane holds a (state, utterance) of the block
+  if (S <= 32) {
+    const int G = 32 / S, ul = lane / S;
+    u = wid * G + ul;
+    s = lane - ul * S;
+    th = ul < G && u < U;
+  } else {
+    u = wid / W;
+    s = (wid - u * W) * 32 + lane;
+    th = s < S && u < U;
+  }
+  const int uc = min(u, U - 1), sc = min(s, S - 1);  // where a lane without one reads
+  const int b = b0 + u;
+  const bool live = th && b < p.B;
+  const int len = live ? p.lengths[b] : 0;
+  const float* lt = cst + p.lt_off;
   const bool banded = p.band >= 0;
   const int nslots = banded ? p.band + 1 : S;
-  const int len = live ? p.lengths[b] : 0;
-
-  float carry = kNegInf;
-  for (int t = 0; t < p.T; ++t) {
-    float lb = 0.f;
-    if (live) {
-      for (int q = 0; q < p.n_streams; ++q) {
-        const int D = p.dims[q], M = p.mixes[q];
-        float x[DMAX];
-        load_frame<DMAX>(p.feats[q] + (size_t)t * D * p.B + b, smem + p.origin_offs[q], D, p.B, x);
-        const float* rec = smem + p.offs[q] + s * M * record_stride<DMAX, FULL>(D);
-        float v;
-        if constexpr (FULL) {
-          v = full_state_log_b<DMAX>(rec, M, D, x);
-        } else {
-          float x2[DMAX];
+  // slot kk: source s - kk and its log transition, in registers
+  float lt_in[NSL > 0 ? NSL : 1];
+  unsigned ok = 0;
 #pragma unroll
-          for (int e = 0; e < DMAX; ++e) x2[e] = x[e] * x[e];
-          v = diag_state_log_b<DMAX>(rec, M, x, x2);
+  for (int kk = 0; kk < NSL; ++kk) {
+    const bool on = th && kk < nslots && s - kk >= 0;
+    lt_in[kk] = on ? lt[(s - kk) * S + s] : 0.f;
+    ok |= on ? 1u << kk : 0u;
+  }
+  __syncthreads();  // tile 0's features are in
+  __syncthreads();  // tile 0's log_b is in
+  float carry = kNegInf;
+  for (int k = 0; k < n_tiles; ++k) {
+    const int t_lo = k * TT, t_hi = min(T, t_lo + TT);
+    const float* lbt = lbs + (k & 1) * s_tile;
+    float* lat = las + (k & 1) * s_tile;
+    const int off = sc * U + uc;
+    float lbn = lbt[off];
+    for (int t = t_lo; t < t_hi; ++t) {
+      const int tt = t - t_lo;
+      const float lb = lbn;
+      if (t + 1 < t_hi) lbn = lbt[(size_t)(tt + 1) * S * U + off];
+      // log-alpha of frame t-1, (S, U): this tile's row tt-1 or the last row of the previous tile
+      const float* prev = (tt > 0) ? lat + (size_t)(tt - 1) * S * U : las + ((k + 1) & 1) * s_tile + (size_t)(TT - 1) * S * U;
+      if constexpr (NSL > 0) {
+        float v[NSL];
+        v[0] = (ok & 1u) ? carry + lt_in[0] : -INFINITY;
+#pragma unroll
+        for (int kk = 1; kk < NSL; ++kk) {
+          float x = __shfl_up_sync(~0u, carry, kk);
+          if (W > 1 && lane < kk && s - kk >= 0) x = prev[(s - kk) * U + uc];
+          v[kk] = (ok >> kk & 1u) ? x + lt_in[kk] : -INFINITY;
         }
-        lb = (q == 0) ? v : lb + v;
+        float m = kNegInf;
+#pragma unroll
+        for (int kk = 0; kk < NSL; ++kk) m = fmaxf(m, v[kk]);
+        float e = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < NSL; ++kk) e += expf(v[kk] - m);
+        const float upd = fmaxf(logf(fmaxf(e, kTiny)) + m, kNegInf);
+        const float next = fmaxf(upd + lb, kNegInf);
+        carry = (t == 0) ? fmaxf((s == 0 ? 0.f : kNegInf) + lb, kNegInf) : (t < len ? next : carry);
+      } else {
+        if (t == 0) {
+          carry = fmaxf((s == 0 ? 0.f : kNegInf) + lb, kNegInf);
+        } else if (t < len) {
+          float m = kNegInf;
+          for (int kk = 0; kk < nslots; ++kk) {
+            const int i = slot_src(banded, s, kk);
+            if (i >= 0) m = fmaxf(m, prev[i * U + u] + lt[i * S + s]);
+          }
+          float e = 0.f;
+          for (int kk = 0; kk < nslots; ++kk) {
+            const int i = slot_src(banded, s, kk);
+            if (i >= 0) e += expf(prev[i * U + u] + lt[i * S + s] - m);
+          }
+          const float upd = fmaxf(logf(fmaxf(e, kTiny)) + m, kNegInf);
+          carry = fmaxf(upd + lb, kNegInf);
+        }
       }
-      lb = fmaxf(lb, kNegInf);
-    }
-    const float* prev = alpha + ((t + 1) & 1) * nt;
-    if (t == 0) {
-      carry = fmaxf((s == 0 ? 0.f : kNegInf) + lb, kNegInf);
-    } else if (t < len) {
-      float m = kNegInf;
-      for (int k = 0; k < nslots; ++k) {
-        const int i = slot_src(banded, s, k);
-        if (i >= 0) m = fmaxf(m, prev[i * U + u] + lt[i * S + s]);
-      }
-      float e = 0.f;
-      for (int k = 0; k < nslots; ++k) {
-        const int i = slot_src(banded, s, k);
-        if (i >= 0) e += expf(prev[i * U + u] + lt[i * S + s] - m);
-      }
-      const float upd = fmaxf(logf(fmaxf(e, kTiny)) + m, kNegInf);
-      carry = fmaxf(upd + lb, kNegInf);
-    }
-    alpha[(t & 1) * nt + tid] = carry;
-    if (live) {
-      const size_t o = ((size_t)t * S + s) * p.B + b;
-      p.log_b[o] = lb;
-      p.la[o] = carry;
+      if (th) lat[(size_t)tt * S * U + s * U + u] = carry;
+      if (NSL == 0 || W > 1) named_barrier(1, n_rec);  // frame t's log-alpha, for the next frame's sources
     }
     __syncthreads();
   }
@@ -214,10 +403,6 @@ __host__ __device__ inline size_t backward_floats(const EmParams& p, int TT) {
 
 __host__ __device__ inline size_t backward_ints(int TT, int U, int stat_warps) {
   return (size_t)TT * U + stat_warps;
-}
-
-__device__ __forceinline__ void named_barrier(int id, int threads) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 // Two kinds of thread, one tile of TT frames apart (the block walks the
@@ -514,55 +699,64 @@ __global__ void __launch_bounds__(kMaxBackwardThreads) backward_stats_kernel(con
 
 using KernelFn = void (*)(EmParams);
 
-// which: 0 = emit-forward, 1 = backward-stats with up to 2 transition slots
-// (band 0 or 1) in registers, 2 = backward-stats with up to kXiRegs
+// variant: 0-3 emit-forward with NSL = 0 (the generic loop), 2, 4, 8
+// transition slots unrolled; 4 backward-stats with up to 2 transition slots
+// (band 0 or 1) in registers, 5 with up to kXiRegs
 template <int DMAX, bool FULL>
-KernelFn pick(int which) {
-  if (which == 0) return emit_forward_kernel<DMAX, FULL>;
-  return which == 1 ? backward_stats_kernel<DMAX, FULL, 2> : backward_stats_kernel<DMAX, FULL, kXiRegs>;
+KernelFn pick(int variant) {
+  switch (variant) {
+    case 0: return emit_forward_kernel<DMAX, FULL, 0>;
+    case 1: return emit_forward_kernel<DMAX, FULL, 2>;
+    case 2: return emit_forward_kernel<DMAX, FULL, 4>;
+    case 3: return emit_forward_kernel<DMAX, FULL, 8>;
+    case 4: return backward_stats_kernel<DMAX, FULL, 2>;
+    case 5: return backward_stats_kernel<DMAX, FULL, kXiRegs>;
+    default: return nullptr;
+  }
 }
 
 // nullptr for a bound that is not compiled: full covariance carries D^2
 // moments per mixture, and bounds above 16 would not fit a block's shared
 // memory
-KernelFn kernel_for(int which, int dmax, int full) {
+KernelFn kernel_for(int variant, int dmax, int full) {
   if (full) {
     switch (dmax) {
-      case 4: return pick<4, true>(which);
-      case 8: return pick<8, true>(which);
-      case 12: return pick<12, true>(which);
-      case 16: return pick<16, true>(which);
+      case 4: return pick<4, true>(variant);
+      case 8: return pick<8, true>(variant);
+      case 12: return pick<12, true>(variant);
+      case 16: return pick<16, true>(variant);
       default: return nullptr;
     }
   }
   switch (dmax) {
-    case 4: return pick<4, false>(which);
-    case 8: return pick<8, false>(which);
-    case 12: return pick<12, false>(which);
-    case 16: return pick<16, false>(which);
-    case 32: return pick<32, false>(which);
-    case 64: return pick<64, false>(which);
+    case 4: return pick<4, false>(variant);
+    case 8: return pick<8, false>(variant);
+    case 12: return pick<12, false>(variant);
+    case 16: return pick<16, false>(variant);
+    case 32: return pick<32, false>(variant);
+    case 64: return pick<64, false>(variant);
     default: return nullptr;
   }
 }
 
 size_t smem_bytes(int which, const EmParams& p) {
-  if (which == 0) return sizeof(float) * ((size_t)p.C + 2 * (size_t)p.S * p.U);
+  if (which == 0) return sizeof(float) * emit_floats(p);
   return sizeof(float) * backward_floats(p, p.TT) + sizeof(int) * backward_ints(p.TT, p.U, p.stat_warps);
 }
 
-// threads of a block: S * U, for backward-stats rounded up to whole warps
-// (the contraction takes whole warps)
+// threads of a block: emit-forward its recursion, emission and memory
+// warps (kEmitThreads); backward-stats S * U rounded up to whole warps (the
+// contraction takes whole warps) and its statistics warps
 int block_threads(int which, const EmParams& p) {
-  const int nt = p.S * p.U;
-  return which == 0 ? nt : (nt + 31) / 32 * 32 + 32 * p.stat_warps;
+  if (which == 0) return kEmitThreads;
+  return (p.S * p.U + 31) / 32 * 32 + 32 * p.stat_warps;
 }
 
 int fill_params(EmParams& p, const void* const* feats, const int* dims, const int* mixes,
                 const int* offs, const int* origin_offs, int n_streams, const void* consts, int C,
                 int lt_off, const void* lengths, int T, int B, int S, int band, int full, int U) {
   if (n_streams < 1 || n_streams > kMaxStreams || C % 4 != 0 || T < 1 || B < 1 || S < 1 ||
-      U < 1 || S * U > kMaxThreads || band >= S) {
+      U < 1 || S > kMaxStates || S * U > kMaxStates || band >= S) {
     return (int)cudaErrorInvalidValue;
   }
   p = EmParams{};
@@ -599,11 +793,23 @@ int fill_params(EmParams& p, const void* const* feats, const int* dims, const in
   return 0;
 }
 
-// the kernel_for variant of a launch: 0 emit-forward, 1 or 2 backward-stats
-// by its transition slots (band + 1, or S dense)
-int variant_of(int which, const EmParams& p) {
+// the kernel_for variant of a backward-stats launch, by its transition
+// slots (band + 1, or S dense)
+int backward_variant(const EmParams& p) {
   const int nslots = p.band >= 0 ? p.band + 1 : p.S;
-  return which == 0 ? 0 : (nslots <= 2 ? 1 : 2);
+  return nslots <= 2 ? 4 : 5;
+}
+
+// the kernel_for variant of an emit-forward launch unrolled to nsl slots
+// (0 = the generic loop); -1 for a count that is not compiled
+int emit_variant(int nsl) {
+  switch (nsl) {
+    case 0: return 0;
+    case 2: return 1;
+    case 4: return 2;
+    case 8: return 3;
+    default: return -1;
+  }
 }
 
 cudaError_t allow_smem(KernelFn kernel, size_t smem) {
@@ -611,8 +817,8 @@ cudaError_t allow_smem(KernelFn kernel, size_t smem) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-int run(int which, const EmParams& p, int dmax, int full, int device, void* stream) {
-  const KernelFn kernel = kernel_for(variant_of(which, p), dmax, full);
+int run(int which, int variant, const EmParams& p, int dmax, int full, int device, void* stream) {
+  const KernelFn kernel = kernel_for(variant, dmax, full);
   if (kernel == nullptr) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
@@ -631,22 +837,40 @@ extern "C" {
 // Both launchers run on `stream` and return cudaGetLastError() (0 = ok).
 // feats/dims/mixes/offs/origin_offs are host arrays of n_streams entries;
 // the pointers they hold and every other pointer are device pointers.
-// band < 0 selects dense transitions.  U = utterances per block (S*U threads,
-// for backward-stats rounded up to whole warps, plus stat_warps statistics
-// warps); TT = frames a backward-stats tile stages and acc_global = its
-// moment accumulators in mom rather than shared memory (shared memory
+// band < 0 selects dense transitions.  U = utterances per block.
+// Emit-forward: kEmitThreads threads, rec_warps recursion warps, em_warps
+// emission warps and the rest memory warps; TT frames a tile, the constants
+// in device memory (consts_global) or shared memory, nsl transition slots
+// unrolled (2, 4, 8; 0 = the generic loop); shared memory emit_floats.
+// Backward-stats: S*U threads rounded up to whole warps plus stat_warps
+// statistics warps; TT = frames a tile stages and acc_global = its moment
+// accumulators in mom rather than shared memory (shared memory
 // backward_floats + backward_ints).
 int srhmm_emit_forward(const void* const* feats, const int* dims, const int* mixes,
                        const int* offs, const int* origin_offs, int n_streams, const void* consts,
                        int C, int lt_off, const void* lengths, void* log_b, void* la, int T, int B,
-                       int S, int band, int full, int dmax, int U, int device, void* stream) {
+                       int S, int band, int full, int dmax, int U, int TT, int rec_warps, int em_warps,
+                       int consts_global, int nsl, int device, void* stream) {
   EmParams p;
   const int bad = fill_params(p, feats, dims, mixes, offs, origin_offs, n_streams, consts, C,
                               lt_off, lengths, T, B, S, band, full, U);
   if (bad) return bad;
+  // the recursion warps hold the block's U utterances: 32 / S of them a
+  // warp for S <= 32, else ceil(S / 32) warps each; U divides a warp (the
+  // staging and store helpers take whole runs of U floats)
+  const int need = S <= 32 ? (U + 32 / S - 1) / (32 / S) : U * ((S + 31) / 32);
+  const int variant = emit_variant(nsl);
+  if (32 % U != 0 || TT < 1 || rec_warps != need || em_warps < 1 || 32 * (rec_warps + em_warps) >= kEmitThreads ||
+      variant < 0 || (nsl > 0 && (band < 0 || band >= nsl))) {
+    return (int)cudaErrorInvalidValue;
+  }
+  p.TT = TT;
+  p.rec_warps = rec_warps;
+  p.em_warps = em_warps;
+  p.consts_global = consts_global;
   p.log_b = static_cast<float*>(log_b);
   p.la = static_cast<float*>(la);
-  return run(0, p, dmax, full, device, stream);
+  return run(0, variant, p, dmax, full, device, stream);
 }
 
 int srhmm_backward_stats(const void* const* feats, const int* dims, const int* mixes,
@@ -672,15 +896,16 @@ int srhmm_backward_stats(const void* const* feats, const int* dims, const int* m
   p.den_trans = static_cast<float*>(den_trans);
   p.den_mix = static_cast<float*>(den_mix);
   p.mom = static_cast<float*>(mom);
-  return run(1, p, dmax, full, device, stream);
+  return run(1, backward_variant(p), p, dmax, full, device, stream);
 }
 
 // Resident blocks per SM for a launch of `threads` threads and `smem`
-// bytes of dynamic shared memory (which: 0 = emit-forward, 1 = backward-
-// stats with up to 2 transition slots, 2 = with more); written to *blocks.
-// Returns a CUDA error code (0 = ok).
-int srhmm_em_occupancy(int which, int dmax, int full, int threads, int smem, int* blocks) {
-  const KernelFn kernel = kernel_for(which, dmax, full);
+// bytes of dynamic shared memory of kernel_for variant `variant` (0-3
+// emit-forward unrolled to 0 (generic), 2, 4, 8 slots; 4, 5 backward-stats
+// with 2 or kXiRegs slots in registers); written to *blocks.  Returns a
+// CUDA error code (0 = ok).
+int srhmm_em_occupancy(int variant, int dmax, int full, int threads, int smem, int* blocks) {
+  const KernelFn kernel = kernel_for(variant, dmax, full);
   if (kernel == nullptr) return (int)cudaErrorInvalidValue;
   const cudaError_t err = allow_smem(kernel, (size_t)smem);
   if (err != cudaSuccess) return (int)err;

@@ -241,17 +241,6 @@ __device__ __forceinline__ void fold_tail(float& a, const float4& l, const float
   }
 }
 
-// csrc/emission.cuh lse_push with selects in place of its branch, which the
-// lanes take different ways: the same operations on the same values (the
-// sum e is 0 or >= 1 before every push, so a denormal term rounds away
-// whether or not the compiler fuses its add into expf's last multiply)
-__device__ __forceinline__ void lse_push_select(float q, float& m, float& e) {
-  const bool up = q > m;
-  const float t = expf(up ? m - q : q - m);
-  e = up ? fmaf(e, t, 1.f) : e + t;
-  m = up ? q : m;
-}
-
 // One stream's mixture log-likelihoods of `row` for the nf frames of a
 // chunk, folded into each frame's online logsumexp (mx, ev) in mixture
 // order.  xs holds the chunk's features: frame f, stream q at (f * P + q) *

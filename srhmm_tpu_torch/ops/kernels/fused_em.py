@@ -48,12 +48,18 @@ from .common import (
 )
 
 MAX_STREAMS = 6
-UTTS_PER_BLOCK = 16  # utterances per block; a block runs S * U threads
+MAX_STATES = 256  # csrc/fused_em.cu kMaxStates
+EMIT_THREADS = 672  # csrc/fused_em.cu kEmitThreads: an emit-forward block's recursion, emission and memory warps
+EMIT_REC_WARPS = 8  # recursion warps an emit-forward block at most
+EMIT_MEMORY_WARPS = 2  # an emit-forward block's warps staging the features and writing log-alpha out
+EMIT_UTTS = (16, 8, 4, 2, 1)  # utterances an emit-forward block, the largest that fits first
+EMIT_TILES = (32, 16, 8, 4, 2, 1)  # frames an emit-forward tile, the largest that fits first
+EMIT_SLOTS = (2, 4, 8)  # transition slots the emit-forward recursion unrolls (0: the generic loop)
+EMIT_BUSY = 0.75  # share of the SMs an emit-forward grid fills where B allows
 BACKWARD_TILES = (16, 8, 4, 2, 1)  # frames a backward-stats tile stages, largest that fits first
 BACKWARD_UTTS = 16  # utterances a backward-stats block at most
 BACKWARD_THREADS = 512  # csrc/fused_em.cu kMaxBackwardThreads: recursion threads + statistics warps
 XI_REGS = 8  # csrc/fused_em.cu kXiRegs: xi slots a backward-stats thread keeps in registers
-_MAX_THREADS = 256  # csrc/fused_em.cu kMaxThreads
 _FULL_DMAX_LIMIT = 16  # full-covariance bounds compiled in csrc/fused_em.cu
 
 
@@ -351,7 +357,8 @@ def _kernel_library() -> ctypes.CDLL:
             c_ptr, c_int, c_int, c_ptr]  # consts, C, lt_off, lengths
     shape = [c_int] * 7  # T B S band full dmax U
     lib.srhmm_emit_forward.restype = c_int
-    lib.srhmm_emit_forward.argtypes = head + [c_ptr, c_ptr] + shape + [c_int, c_ptr]  # log_b, la; device, stream
+    # log_b, la; the shape; TT, rec_warps, em_warps, consts_global, nsl, device; stream
+    lib.srhmm_emit_forward.argtypes = head + [c_ptr, c_ptr] + shape + [c_int] * 6 + [c_ptr]
     lib.srhmm_backward_stats.restype = c_int
     # safe_z .. mom; the shape; TT, stat_warps, acc_global, device; stream
     lib.srhmm_backward_stats.argtypes = head + [c_ptr] * 8 + shape + [c_int] * 4 + [c_ptr]
@@ -382,6 +389,8 @@ class _Launch:
             raise ValueError(f"{name}: streams disagree on (T, B)")
         if band is not None and not 0 <= band < S:
             raise ValueError(f"{name}: band {band} outside [0, {S})")
+        if S > MAX_STATES:
+            raise ValueError(f"{name}: at most {MAX_STATES} states, got {S}")
         self.ms = tuple(ms // S for ms in mss)
         self.dmax = dmax_for(ds, name)
         if full and self.dmax > _FULL_DMAX_LIMIT:
@@ -422,40 +431,16 @@ class _Launch:
         lt_off = put(_lt_log(trans))
         return torch.cat(parts).contiguous(), offs, origin_offs, lt_off
 
-    def threads(self) -> tuple[int, int]:
-        """(utterances per block U, moment floats per thread)."""
-        if self.S > _MAX_THREADS:
-            raise ValueError(f"{self.name}: at most {_MAX_THREADS} states, got {self.S}")
-        U = max(1, min(UTTS_PER_BLOCK, _MAX_THREADS // self.S))
-        return U, moment_floats(self.ds, self.ms, self.full)
+    def moment_floats(self) -> int:
+        return moment_floats(self.ds, self.ms, self.full)
 
-    def smem_bytes(self, which: int, U: int, TT: int = 1, stat_warps: int = 0, acc_global: bool = False) -> int:
-        """csrc/fused_em.cu smem_bytes: the dynamic shared memory of a block."""
-        if which == 0:
-            return 4 * (self.consts.numel() + 2 * self.S * U)
-        return backward_smem_bytes(self.consts.numel(), self.S, self.ds, self.ms, self.nslots, self.full, U, TT,
-                                   stat_warps, acc_global)
-
-    def block(self, which: int) -> tuple[int, int, int, bool]:
-        """(utterances per block U, frames a backward-stats tile TT,
-        statistics warps, acc_global); emit-forward takes (U, 1, 0, False)."""
+    def block(self, which: int) -> dict:
+        """The launch shape: emit_block's for emit-forward (which=0),
+        backward_block's (U, TT, statistics warps, acc_global) for
+        backward-stats."""
         if which == 1:
             return backward_block(self.consts.numel(), self.S, self.ds, self.ms, self.nslots, self.full, self.name)
-        U, _ = self.threads()
-        while U > 1 and self.smem_bytes(which, U) > SMEM_LIMIT:
-            U //= 2
-        if self.smem_bytes(which, U) > SMEM_LIMIT:
-            raise ValueError(
-                f"{self.name}: {self.smem_bytes(which, U)} bytes of shared memory per "
-                f"block, above the {SMEM_LIMIT}-byte budget"
-            )
-        return U, 1, 0, False
-
-    def block_threads(self, which: int, U: int, stat_warps: int = 0) -> int:
-        """csrc/fused_em.cu block_threads: S * U, for backward-stats rounded
-        up to whole warps, plus the statistics warps."""
-        nt = self.S * U
-        return nt if which == 0 else -(-nt // 32) * 32 + 32 * stat_warps
+        return emit_block(self.S, self.B, self.consts.numel(), self.ds, _sm_count(self.dev), self.name)
 
     def head(self):
         P = len(self.feats)
@@ -500,6 +485,57 @@ def backward_smem_bytes(C: int, S: int, ds, ms, nslots: int, full: bool, U: int,
     return 4 * floats + 4 * (cols + stat_warps)
 
 
+def emit_slots(S: int, band) -> int:
+    """The transition slots the emit-forward recursion unrolls: the
+    smallest of EMIT_SLOTS >= band + 1, or 0 (the generic loop over every
+    slot) for a wider band or dense transitions (band None)."""
+    if band is None:
+        return 0
+    return next((n for n in EMIT_SLOTS if n >= band + 1), 0)
+
+
+def emit_smem_bytes(C: int, S: int, sum_d: int, U: int, TT: int, consts_global: bool = False) -> int:
+    """csrc/fused_em.cu emit_floats: the constants (C floats, unless read
+    from device memory), two slots each of the features (TT, sum_p D_p, U),
+    log_b and log-alpha (TT, S, U)."""
+    return 4 * ((0 if consts_global else C) + 2 * TT * U * (sum_d + 2 * S))
+
+
+def emit_block(S: int, B: int, C: int, ds, sms: int, name: str = "emit_forward") -> dict:
+    """The emit-forward launch shape on a card of `sms` SMs, for C floats of
+    constants and feature dims ds.  Utterances a block U: the largest of
+    EMIT_UTTS whose recursion fits EMIT_REC_WARPS warps (32 // S utterances
+    a warp for S <= 32, else ceil(S / 32) warps an utterance) and whose grid
+    of ceil(B / U) blocks fills EMIT_BUSY of the SMs (1 where B is too small
+    for that); the tile the largest of EMIT_TILES that fits SMEM_LIMIT with
+    the constants in shared memory, halving U until one does, else the
+    constants stay in device memory at that U; EMIT_MEMORY_WARPS memory
+    warps and the rest of EMIT_THREADS emission warps."""
+    if S > MAX_STATES:
+        raise ValueError(f"{name}: at most {MAX_STATES} states, got {S}")
+    W = -(-S // 32)  # warps an utterance's states span
+    G = 32 // S if S <= 32 else 0  # utterances a recursion warp holds
+    cap = EMIT_REC_WARPS * G if S <= 32 else max(1, EMIT_REC_WARPS // W)
+    utts = [U for U in EMIT_UTTS if U <= cap]
+    busy = next((U for U in utts if -(-B // U) >= EMIT_BUSY * sms), 1)
+    sum_d = sum(ds)
+    shape = next(((U, TT, False) for U in utts if U <= busy for TT in EMIT_TILES
+                  if emit_smem_bytes(C, S, sum_d, U, TT) <= SMEM_LIMIT), None)
+    if shape is None:
+        TT = next(tt for tt in EMIT_TILES if emit_smem_bytes(C, S, sum_d, busy, tt, True) <= SMEM_LIMIT)
+        shape = (busy, TT, True)
+    U, TT, consts_global = shape
+    rec = -(-U // G) if S <= 32 else U * W
+    return {"utts": U, "tile": TT, "rec_warps": rec, "em_warps": EMIT_THREADS // 32 - rec - EMIT_MEMORY_WARPS,
+            "memory_warps": EMIT_MEMORY_WARPS, "warps_per_utt": W, "consts_global": consts_global,
+            "threads": EMIT_THREADS, "smem_bytes": emit_smem_bytes(C, S, sum_d, U, TT, consts_global)}
+
+
+@functools.cache
+def _sm_count(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
 def backward_block(C: int, S: int, ds, ms, nslots: int, full: bool,
                    name: str = "backward_stats") -> tuple[int, int, int, bool]:
     """(utterances per block U, frames a tile TT, statistics warps,
@@ -509,8 +545,8 @@ def backward_block(C: int, S: int, ds, ms, nslots: int, full: bool,
     SMEM_LIMIT, with the moment accumulators in shared memory or, where
     only that way it fits, in the block's row of the partials; U halves
     until a tile fits."""
-    if S > _MAX_THREADS:
-        raise ValueError(f"{name}: at most {_MAX_THREADS} states, got {S}")
+    if S > MAX_STATES:
+        raise ValueError(f"{name}: at most {MAX_STATES} states, got {S}")
     U = max(1, min(BACKWARD_UTTS, 128 // S))
     while True:
         n_rec = -(-S * U // 32) * 32
@@ -546,12 +582,14 @@ def emit_forward(feats, packed, origins, trans, lengths, band):
     if _on_cpu("emit_forward", feats):
         return emit_forward_plain(feats, packed, origins, trans, lengths, band)
     ln = _Launch("emit_forward", feats, packed, origins, trans, lengths, band)
-    U, _, _, _ = ln.block(0)
+    shape = ln.block(0)
     f32 = dict(dtype=torch.float32, device=ln.dev)
     log_b = torch.empty((ln.T, ln.S, ln.B), **f32)
     la = torch.empty((ln.T, ln.S, ln.B), **f32)
     lib = _kernel_library()
-    ln.check(lib.srhmm_emit_forward(*ln.head(), log_b.data_ptr(), la.data_ptr(), *ln.shape(U), *ln.where()))
+    ln.check(lib.srhmm_emit_forward(
+        *ln.head(), log_b.data_ptr(), la.data_ptr(), *ln.shape(shape["utts"]), shape["tile"],
+        shape["rec_warps"], shape["em_warps"], int(shape["consts_global"]), emit_slots(ln.S, ln.band), *ln.where()))
     emit_forward.launches += 1
     return log_b, la
 
@@ -584,7 +622,7 @@ def backward_stats(feats, log_b, log_alpha, packed, origins, trans, lengths, saf
     safe_z, vmask = safe_z.contiguous(), vmask.contiguous()
     log_b, log_alpha = log_b.contiguous(), log_alpha.contiguous()
     U, TT, stat_warps, acc_global = ln.block(1)
-    _, mom_thread = ln.threads()
+    mom_thread = ln.moment_floats()
     f32 = dict(dtype=torch.float32, device=ln.dev)
     xi = torch.empty((ln.nslots, S, B), **f32)
     den_trans = torch.empty((S, B), **f32)
@@ -614,17 +652,21 @@ backward_stats.launches = 0
 def occupancy(which: int, feats, packed, origins, trans, lengths, band) -> dict:
     """Resident blocks and warps per SM of one launch (which: 0 =
     emit-forward, 1 = backward-stats), from the CUDA occupancy calculator
-    for the block shape the wrappers choose."""
+    for the block shape the wrappers choose, with that shape."""
     ln = _Launch("occupancy", feats, packed, origins, trans, lengths, band)
-    U, TT, stat_warps, acc_global = ln.block(which)
-    threads = ln.block_threads(which, U, stat_warps)
-    smem = ln.smem_bytes(which, U, TT, stat_warps, acc_global)
+    if which == 0:
+        shape = ln.block(0)
+        U, threads, smem = shape["utts"], shape["threads"], shape["smem_bytes"]
+        variant = {0: 0, 2: 1, 4: 2, 8: 3}[emit_slots(ln.S, ln.band)]  # csrc/fused_em.cu emit_variant
+        out = {**shape, "slots": emit_slots(ln.S, ln.band)}
+    else:
+        U, TT, stat_warps, acc_global = ln.block(1)
+        threads = -(-ln.S * U // 32) * 32 + 32 * stat_warps
+        smem = backward_smem_bytes(ln.consts.numel(), ln.S, ln.ds, ln.ms, ln.nslots, ln.full, U, TT, stat_warps,
+                                   acc_global)
+        variant = 4 if ln.nslots <= 2 else 5  # csrc/fused_em.cu backward_variant
+        out = {"tile_frames": TT, "stat_warps": stat_warps, "acc_in_shared_memory": not acc_global}
     blocks = ctypes.c_int(0)
-    variant = 0 if which == 0 else (1 if ln.nslots <= 2 else 2)  # csrc/fused_em.cu variant_of
-    ln.check(_kernel_library().srhmm_em_occupancy(
-        variant, ln.dmax, int(ln.full), threads, smem, ctypes.byref(blocks)))
-    return {"utts_per_block": U, "tile_frames": TT if which == 1 else None,
-            "stat_warps": stat_warps if which == 1 else None,
-            "acc_in_shared_memory": not acc_global if which == 1 else None, "threads": threads,
-            "smem_bytes": smem, "blocks_per_sm": blocks.value, "grid": -(-ln.B // U),
-            "warps_per_block": -(-threads // 32)}
+    ln.check(_kernel_library().srhmm_em_occupancy(variant, ln.dmax, int(ln.full), threads, smem, ctypes.byref(blocks)))
+    return {**out, "utts_per_block": U, "threads": threads, "smem_bytes": smem, "blocks_per_sm": blocks.value,
+            "grid": -(-ln.B // U), "warps_per_block": -(-threads // 32)}

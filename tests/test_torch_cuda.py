@@ -24,9 +24,11 @@ from srhmm_tpu_torch.ops.kernels.common import NEG_INF
 from srhmm_tpu_torch.train import em
 from torch_port_utils import (
     BANK_DEPTH_CASES,
+    EMIT_CHECK_CASES,
     LATTICE_CASES,
     backward_lattice_case,
     em_tile_lengths,
+    emit_check_lengths,
     entry_without_loop,
     forward_lattice_case,
     rand_word,
@@ -717,6 +719,27 @@ def test_backward_stats_matches_plain_on_tile_edges(cuda_device, cov, band, mixe
     assert acc_global == (mixes_dims == ((16, 16),))
 
 
+@pytest.mark.parametrize("i", range(len(EMIT_CHECK_CASES)))
+def test_emit_forward_matches_plain_at_every_launch_shape(cuda_device, i):
+    """emit_forward alone at the launch shapes of EMIT_CHECK_CASES (band 0,
+    8 slots, a band past the unrolled slots, dense and banded utterances
+    across warps, the constants in device memory, a ragged last block, T
+    shorter than a tile): log_b and log-alpha within 1e-5, one launch, two
+    launches bitwise equal."""
+    cov, band, mixes_dims, S, B, T = EMIT_CHECK_CASES[i]
+    lens = emit_check_lengths(i, B, T)
+    args = _em_inputs(cuda_device, cov, band, mixes_dims, lens, S=S)
+    before = fe.emit_forward.launches
+    lb_k, la_k = fe.emit_forward(*args, band)
+    lb_k2, la_k2 = fe.emit_forward(*args, band)
+    lb_p, la_p = fe.emit_forward_plain(*args, band)
+    torch.cuda.synchronize()
+    assert fe.emit_forward.launches == before + 2
+    _lattice_close(lb_k, lb_p)
+    _lattice_close(la_k, la_p)
+    assert torch.equal(lb_k, lb_k2) and torch.equal(la_k, la_k2)
+
+
 def test_backward_stats_matches_plain_on_few_frames(cuda_device):
     """Two utterances of 2 and 3 frames through S=2 states of M=2 mixtures
     sharing one Gaussian: each moment holds one or two terms with the
@@ -751,8 +774,11 @@ _MFCC_CONFIGS = {
     "w512_s128": FrontendConfig(frame_length=512, frame_shift=128),
     "energy": FrontendConfig(include_energy=True),
     "w1024_mels128": FrontendConfig(frame_length=1024, frame_shift=256, n_mels=128, n_mfcc=40),
-    # W not a multiple of 4 (the kernel's remainder loop), another sample rate
+    # W = 19 x 29: two generic odd-prime FFT stages; another sample rate
     "w551_22k": FrontendConfig(sample_rate=22_050, frame_length=551, frame_shift=220),
+    "w397_prime": FrontendConfig(frame_length=397),  # one generic stage
+    "w480_radix3": FrontendConfig(frame_length=480),  # 240 = 8 x 2 x 5 x 3
+    "w405_energy": FrontendConfig(frame_length=405, include_energy=True),  # odd: no split step
 }
 
 

@@ -150,6 +150,113 @@ def test_wrapper_on_cpu_runs_the_twin_and_checks_bounds():
             km.mfcc_fused(samples, offsets, dataclasses.replace(cfg, **bad))
     with pytest.raises(ValueError):  # an empty waveform
         km.mfcc_fused(samples, np.asarray([0, 1000, 1000, 1401]), cfg)
-    threads, smem = km.launch_shape(tf.FrontendConfig(frame_length=1024, n_mels=128))
-    assert threads == 192 and smem <= km.SMEM_LIMIT
-    assert km.launch_shape(cfg) == (224, 4 * 32 * (400 + 201 + 26 + 1))
+    big = tf.FrontendConfig(frame_length=1024, n_mels=128)
+    threads, smem, frames = km.launch_shape(big)
+    weights = 4 * len(km.mel_ranges(big)[1])
+    assert (threads, frames) == (256, 4) and smem == 4 * 4 * (4 * 512 + 128 + 1) + weights <= km.BLOCK_SMEM
+    # W=400: two buffers of the FFT's 200 points, 26 mels and the energy a
+    # frame, and the filters' nonzero weights
+    assert km.launch_shape(cfg) == (256, 4 * 16 * (4 * 200 + 26 + 1) + 4 * len(km.mel_ranges(cfg)[1]), 16)
+    # the largest frame, an odd W: one frame a block would still fit
+    assert km.launch_shape(tf.FrontendConfig(frame_length=1023, n_mels=128))[1] <= km.SMEM_LIMIT
+
+
+def _is_prime(n):
+    return n > 1 and all(n % d for d in range(2, int(n**0.5) + 1))
+
+
+def test_fft_plan_factors_every_frame_length():
+    """Every W the kernel takes, 1-1024: the radices multiply to N (W/2 with
+    the split step for an even W, W for an odd one), in the kernel's order
+    (8s, then at most one 4 or 2, then 5s, 3s, then the other primes
+    ascending), within the kernel's MAX_STAGES."""
+    seen = set()
+    for W in range(1, km.MAX_FRAME_LENGTH + 1):
+        N, split, radices = km.fft_plan(W)
+        assert (N, split) == ((W // 2, True) if W % 2 == 0 else (W, False))
+        assert int(np.prod(radices)) == N and len(radices) <= km.MAX_STAGES
+        assert all(r in km.BUTTERFLIES or _is_prime(r) for r in radices)
+        rank = [{8: 0, 4: 1, 2: 1, 5: 2, 3: 3}.get(r, 4) for r in radices]
+        assert rank == sorted(rank) and rank.count(1) <= 1
+        generic = [r for r in radices if r not in km.BUTTERFLIES]
+        assert generic == sorted(generic)
+        seen |= {r if r in km.BUTTERFLIES else "generic" for r in radices}
+    assert seen == {8, 4, 2, 5, 3, "generic"}
+    assert km.fft_plan(400)[2] == (8, 5, 5) and km.fft_plan(551)[2] == (19, 29) and km.fft_plan(397)[2] == (397,)
+
+
+def _run_plan(x, W):
+    """The kernel's FFT in numpy float64, stage by stage in its order, with
+    the factors read from fft_layout's table at the offsets the kernel
+    reads: Stockham stages, then the real split step."""
+    N, split, stages, table, split_off = km.fft_layout(W)
+    z = x[0::2] + 1j * x[1::2] if split else x.astype(complex)
+    for R, p, off in stages:
+        m = N // R
+        i = np.arange(m)
+        k = i % p
+        j = (i - k) * R + k
+        u = np.stack([z[i + r * m] for r in range(R)])
+        y = np.empty(N, complex)
+        if R in km.BUTTERFLIES:
+            roots = table[off : off + R]
+            u[1:] = u[1:] * table[off + R : off + R + (R - 1) * p].reshape(R - 1, p)[:, k]
+            for q in range(R):
+                y[j + q * p] = sum(u[r] * roots[(r * q) % R] for r in range(R))
+        else:
+            roots = table[off : off + p * R]
+            for q in range(R):
+                y[j + q * p] = sum(u[a] * roots[(a * (k + q * p)) % (p * R)] for a in range(R))
+        z = y
+    if not split:
+        return z[: W // 2 + 1]
+    kk = np.arange(N + 1)
+    a, b = z[kk % N], np.conj(z[(N - kk) % N])
+    return (a + b) / 2 + table[split_off : split_off + N + 1] * (a - b) / 2j
+
+
+@pytest.mark.parametrize("W", [1, 2, 397, 400, 480, 512, 551, 1024])
+def test_fft_plan_run_in_numpy_is_rfft(W):
+    x = _wave(W, W)
+    np.testing.assert_allclose(_run_plan(x, W), np.fft.rfft(x), rtol=0, atol=1e-12)
+
+
+@pytest.mark.parametrize("name", ["default", "mels40", "w512_s128", "rect_fmax", "w551_22k"])
+def test_mel_ranges_reproduce_the_dense_filterbank_product(name):
+    """The kernel's per-filter nonzero ranges hold every nonzero weight of
+    the float32 filterbank, and its sums over them (ascending bins) equal
+    the sums over every bin exactly, for non-negative powers."""
+    cfg = CONFIGS[name]
+    fb = tf.mel_filterbank(cfg).astype(np.float32)
+    ranges, weights = km.mel_ranges(cfg)
+    dense = np.zeros_like(fb)
+    at = 0
+    for m, (lo, hi) in enumerate(ranges):
+        dense[lo:hi, m] = weights[at : at + hi - lo]
+        at += hi - lo
+        assert hi == lo or (fb[lo, m] != 0 and fb[hi - 1, m] != 0)
+    np.testing.assert_array_equal(dense, fb)
+    power = np.abs(_wave(5, fb.shape[0])).astype(np.float32) ** 2
+    for m, (lo, hi) in enumerate(ranges):
+        full = ranged = np.float32(0.0)
+        for k in range(fb.shape[0]):
+            full = np.float32(full + power[k] * fb[k, m])
+        for k in range(lo, hi):
+            ranged = np.float32(ranged + power[k] * fb[k, m])
+        assert full == ranged
+
+
+def test_kernel_constants_are_the_float64_layout_rounded_once():
+    cfg = CONFIGS["w551_22k"]
+    table, ranges, off = km._constants(cfg, torch.device("cpu"))
+    _, _, stages, cplx, _ = km.fft_layout(cfg.frame_length)
+    t = table.numpy()
+    np.testing.assert_array_equal(t[: 2 * len(cplx) : 2], cplx.real.astype(np.float32))
+    np.testing.assert_array_equal(t[1 : 2 * len(cplx) : 2], cplx.imag.astype(np.float32))
+    assert off["stages"] == tuple((R, p, 2 * o) for R, p, o in stages)
+    np.testing.assert_array_equal(t[off["window"] : off["window"] + cfg.frame_length],
+                                  tf._window(cfg).astype(np.float32))
+    np.testing.assert_array_equal(t[off["dct"] :], tf.dct_matrix(cfg).astype(np.float32).reshape(-1))
+    fb = tf.mel_filterbank(cfg).astype(np.float32)
+    for m, (lo, hi, at) in enumerate(ranges.numpy()):
+        np.testing.assert_array_equal(t[at : at + hi - lo], fb[lo:hi, m])

@@ -367,3 +367,87 @@ def test_no_shape_taken_before_the_redesign_is_refused_now():
                                 continue
                             U, TT, w, g = fe.backward_block(C, S, ds, ms, nslots, full)
                             assert fe.backward_smem_bytes(C, S, ds, ms, nslots, full, U, TT, w, g) <= fe.SMEM_LIMIT
+
+
+# emit_forward's launch shape (emit_block) on a card of 132 SMs: (S, [(M, D)
+# per stream], full, B) -> (utterances a block, frames a tile, recursion
+# warps, emission warps, warps an utterance, constants in device memory)
+EMIT_BLOCKS = {
+    "em_diag": ((8, [(3, 9)], False, 2048), (16, 32, 4, 15, 1, False)),
+    "em_full": ((6, [(1, 9)], True, 2048), (16, 32, 4, 15, 1, False)),
+    "em_diag_p2": ((8, [(3, 9), (2, 3)], False, 2048), (16, 32, 4, 15, 1, False)),
+    "ragged_B1001": ((8, [(3, 9)], False, 1001), (8, 32, 2, 17, 1, False)),
+    "small_B37": ((6, [(3, 9)], False, 37), (1, 32, 1, 18, 1, False)),
+    "S40_two_warps": ((40, [(2, 9)], False, 37), (1, 32, 2, 17, 2, False)),
+    "S200_seven_warps": ((200, [(1, 3)], False, 9), (1, 16, 7, 12, 7, False)),
+    "S240_constants_past_shared_memory": ((240, [(1, 3)], False, 5), (1, 32, 8, 11, 8, True)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(EMIT_BLOCKS))
+def test_emit_block_of_the_main_path_shapes(name):
+    (S, md, full, B), want = EMIT_BLOCKS[name]
+    ms, ds = [m for m, _ in md], [d for _, d in md]
+    C = _consts_floats(S, ds, ms, full)
+    got = fe.emit_block(S, B, C, ds, 132)
+    assert (got["utts"], got["tile"], got["rec_warps"], got["em_warps"], got["warps_per_utt"],
+            got["consts_global"]) == want
+    assert 32 * (got["rec_warps"] + got["em_warps"] + got["memory_warps"]) == got["threads"] == fe.EMIT_THREADS
+    # the shared-memory mirror of csrc/fused_em.cu emit_floats: constants,
+    # then two slots each of the features, log_b and log-alpha tiles
+    U, TT = got["utts"], got["tile"]
+    floats = (0 if got["consts_global"] else C) + 2 * TT * U * sum(ds) + 2 * 2 * TT * S * U
+    assert got["smem_bytes"] == fe.emit_smem_bytes(C, S, sum(ds), U, TT, got["consts_global"]) == 4 * floats
+    assert got["smem_bytes"] <= fe.SMEM_LIMIT
+
+
+def test_emit_slots_unroll_the_narrow_bands():
+    assert [fe.emit_slots(8, b) for b in (0, 1, 2, 3, 4, 7, 8)] == [2, 2, 4, 4, 8, 8, 0]
+    assert fe.emit_slots(8, None) == 0
+
+
+def _emit_accepted_before_redesign(C, S):
+    """The emit-forward block rule of cd9fbaf: S <= 256 states, U =
+    max(1, min(16, 256 // S)) utterances of S threads each, halved while
+    4 (C + 2 S U) bytes exceed SMEM_LIMIT; refused if one utterance does
+    not fit."""
+    if S > 256:
+        return False
+    U = max(1, min(16, 256 // S))
+    while U > 1 and 4 * (C + 2 * S * U) > fe.SMEM_LIMIT:
+        U //= 2
+    return 4 * (C + 2 * S * U) <= fe.SMEM_LIMIT
+
+
+def _emit_shape_is_launchable(shape, S, B):
+    """What csrc/fused_em.cu srhmm_emit_forward takes."""
+    U, rec = shape["utts"], shape["rec_warps"]
+    need = -(-U // (32 // S)) if S <= 32 else U * -(-S // 32)
+    return (32 % U == 0 and S * U <= fe.MAX_STATES and rec == need and rec <= fe.EMIT_REC_WARPS
+            and shape["em_warps"] >= 1 and shape["memory_warps"] >= 1
+            and shape["smem_bytes"] <= fe.SMEM_LIMIT and shape["tile"] >= 1)
+
+
+def test_no_emit_shape_taken_before_the_redesign_is_refused_now():
+    """Over S = 1-256 states, P = 1, 2, 6 streams of M = 1-64 mixtures, D =
+    1-64 diagonal and 1-16 full, B = 1, 37, 2048 on 132 SMs: wherever the
+    cd9fbaf block fitted, the new one fits and launches; likewise at the
+    largest constant blocks the old rule took, one float below its limit."""
+    for full, dims in ((False, (1, 3, 9, 13, 39, 64)), (True, (1, 4, 9, 16))):
+        for D in dims:
+            for S in list(range(1, 34)) + [40, 63, 64, 65, 96, 128, 129, 200, 241, 256]:
+                for P in (1, 2, 6):
+                    for M in (1, 2, 3, 8, 16, 32, 64):
+                        ds, ms = [D] * P, [M] * P
+                        C = _consts_floats(S, ds, ms, full)
+                        if not _emit_accepted_before_redesign(C, S):
+                            continue
+                        for B in (1, 37, 2048):
+                            assert _emit_shape_is_launchable(fe.emit_block(S, B, C, ds, 132), S, B)
+    for S in (1, 6, 8, 32, 33, 64, 200, 240):
+        C = (fe.SMEM_LIMIT // 4 - 2 * S) // 4 * 4
+        assert _emit_accepted_before_redesign(C, S)
+        for ds in ([1], [64] * 6):
+            for B in (1, 2048):
+                shape = fe.emit_block(S, B, C, ds, 132)
+                assert _emit_shape_is_launchable(shape, S, B) and shape["consts_global"]

@@ -1,13 +1,14 @@
 """Mutation check of csrc/lattice.cu, csrc/emission_em.cu, csrc/composed.cu,
-csrc/fused_em.cu, csrc/tile_mma.cuh and csrc/word_loop_decode.cu
+csrc/fused_em.cu, csrc/tile_mma.cuh, csrc/word_loop_decode.cu and
+csrc/mfcc.cu
 (needs a CUDA card and nvcc; not a tier-1 test):
 
     python tests/torch_kernel_mutants.py [mutant ...]
 
 Each mutant is a copy of the tree in a temporary directory with one
 deliberate fault in a kernel source; the chip_smoke.py phase that should
-catch it (kernel_lattice, kernel_emission, kernel_composed, kernel_em or
-kernel_decode) runs there, after the build.
+catch it (kernel_lattice, kernel_emission, kernel_composed, kernel_em,
+kernel_decode or kernel_mfcc) runs there, after the build.
 Prints one JSON line per mutant: caught (the phase raised) or survived.
 With no arguments every mutant runs.
 """
@@ -78,6 +79,26 @@ MUTANTS = [
      "                    const float tv = lv[q];\n                    const int ti = li[q];\n"
      "                    lv[q] = cv;\n                    li[q] = ci;\n                    cv = tv;\n"
      "                    ci = ti;\n                  }\n              }", "kernel_decode"),
+]
+MFCC = "srhmm_tpu_torch/csrc/mfcc.cu"
+MUTANTS += [
+    ("emit_shuffle_off_by_one_state", FEM, "float x = __shfl_up_sync(~0u, carry, kk);",
+     "float x = __shfl_up_sync(~0u, carry, kk + 1);", "kernel_em"),
+    ("emit_staging_reads_previous_tile", FEM, "      const float* f = xs + (k & 1) * x_tile;\n      float* lbt",
+     "      const float* f = xs + ((k + 1) & 1) * x_tile;\n      float* lbt", "kernel_em"),
+    ("emit_off_chain_term_sums_one", FEM, "        for (int kk = 0; kk < NSL; ++kk) e += expf(v[kk] - m);",
+     "        for (int kk = 0; kk < NSL; ++kk) e += (v[kk] == -INFINITY) ? 1.f : expf(v[kk] - m);", "kernel_em"),
+    ("emit_drops_last_frame_of_partial_tile", FEM, "const int t0 = k * TT, n = min(TT, T - t0), ncol = n * U;",
+     "const int t0 = k * TT, n = min(TT, T - t0) - (T - t0 < TT), ncol = n * U;", "kernel_em"),
+    ("emit_past_length_takes_the_step", FEM, "(t < len ? next : carry)", "next", "kernel_em"),
+    ("mfcc_twiddle_conjugated", MFCC, "      const float2 w = __ldg(tw + (r - 1) * p + k);",
+     "      const float2 w0 = __ldg(tw + (r - 1) * p + k), w = make_float2(w0.x, -w0.y);", "kernel_mfcc"),
+    ("mfcc_split_drops_nyquist", MFCC, "    pw[(size_t)f * 2 * N + k] = __fadd_rn(",
+     "    pw[(size_t)f * 2 * N + k] = (p.split && k == N) ? 0.f : __fadd_rn(", "kernel_mfcc"),
+    ("mfcc_generic_stage_wrong_stride", MFCC, "const float2 v = x[i + a * m], w",
+     "const float2 v = x[i + a * (m + 1)], w", "kernel_mfcc"),
+    ("mfcc_mel_range_one_bin_short", MFCC, "for (int k = k_lo; k < k_hi; ++k) acc",
+     "for (int k = k_lo; k < k_hi - 1; ++k) acc", "kernel_mfcc"),
 ]
 DRIVER = """
 import sys, torch

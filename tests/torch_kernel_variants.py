@@ -32,6 +32,8 @@ ROOT = Path(__file__).resolve().parents[1]
 COMP, FEM = "srhmm_tpu_torch/csrc/composed.cu", "srhmm_tpu_torch/csrc/fused_em.cu"
 DEC, DEC_PY = "srhmm_tpu_torch/csrc/word_loop_decode.cu", "srhmm_tpu_torch/ops/kernels/decode.py"
 COMP_PY = "srhmm_tpu_torch/ops/kernels/composed.py"
+MFCC = "srhmm_tpu_torch/csrc/mfcc.cu"
+FEM_PY, MFCC_PY = "srhmm_tpu_torch/ops/kernels/fused_em.py", "srhmm_tpu_torch/ops/kernels/mfcc.py"
 C_STATS = ("    if (k >= 1) {\n      const int t_hi = T - (k - 1) * TT, t_lo = max(t_hi - TT, 0);\n      float* la_tile",
            "    if (false) {\n      const int t_hi = T - (k - 1) * TT, t_lo = max(t_hi - TT, 0);\n      float* la_tile")
 C_REC = ("        for (int t = t_hi - 1; t >= t_lo; --t) {\n          const int tt = t - t_lo;\n          float* in_row",
@@ -210,6 +212,109 @@ D_CYCLES = (
      "  // frames past the length: identity pointers, the carry kept\n"),
 )
 
+# the cd9fbaf emit_forward_kernel: per-frame cycles of thread U of block 0
+# (state 1 of utterance 0): the feature loads (until they have landed), the
+# emission (its own state's mixtures, summed over the streams), the band
+# step, the two global stores (their issue) and the block barrier
+PE_CYCLES = (
+    ("#include <math.h>\n", "#include <math.h>\n#include <cstdio>\n"),
+    ("  float carry = kNegInf;\n  for (int t = 0; t < p.T; ++t) {\n    float lb = 0.f;\n    if (live) {\n"
+     "      for (int q = 0; q < p.n_streams; ++q) {\n        const int D = p.dims[q], M = p.mixes[q];\n"
+     "        float x[DMAX];\n        load_frame<DMAX>(p.feats[q] + (size_t)t * D * p.B + b, smem + p.origin_offs[q], D, p.B, x);\n",
+     "  float carry = kNegInf;\n  long long cy_load = 0, cy_em = 0, cy_step = 0, cy_store = 0, cy_bar = 0;\n"
+     "  for (int t = 0; t < p.T; ++t) {\n    long long c0 = clock64();\n    float lb = 0.f;\n    if (live) {\n"
+     "      for (int q = 0; q < p.n_streams; ++q) {\n        const int D = p.dims[q], M = p.mixes[q];\n"
+     "        float x[DMAX];\n        const long long c1 = clock64();\n"
+     "        load_frame<DMAX>(p.feats[q] + (size_t)t * D * p.B + b, smem + p.origin_offs[q], D, p.B, x);\n"
+     "#pragma unroll\n        for (int e = 0; e < DMAX; ++e) asm volatile(\"mov.b32 %0, %0;\" : \"+f\"(x[e]));\n"
+     "        cy_load += clock64() - c1;\n"),
+    ("      lb = fmaxf(lb, kNegInf);\n    }\n    const float* prev",
+     "      lb = fmaxf(lb, kNegInf);\n    }\n    asm volatile(\"mov.b32 %0, %0;\" : \"+f\"(lb));\n"
+     "    cy_em += clock64() - c0;\n    c0 = clock64();\n    const float* prev"),
+    ("      carry = fmaxf(upd + lb, kNegInf);\n    }\n    alpha[(t & 1) * nt + tid] = carry;\n",
+     "      carry = fmaxf(upd + lb, kNegInf);\n    }\n    asm volatile(\"mov.b32 %0, %0;\" : \"+f\"(carry));\n"
+     "    cy_step += clock64() - c0;\n    c0 = clock64();\n    alpha[(t & 1) * nt + tid] = carry;\n"),
+    ("      p.la[o] = carry;\n    }\n    __syncthreads();\n  }\n}\n",
+     "      p.la[o] = carry;\n    }\n    cy_store += clock64() - c0;\n    c0 = clock64();\n    __syncthreads();\n"
+     "    cy_bar += clock64() - c0;\n  }\n  if (blockIdx.x == 0 && tid == U)\n"
+     "    printf(\"CYC emit P%d T%d S%d U %d load %lld emission %lld step %lld store %lld barrier %lld frames %d\\n\",\n"
+     "           p.n_streams, p.T, S, U, cy_load, cy_em - cy_load, cy_step, cy_store, cy_bar, p.T);\n}\n"),
+)
+# the cd9fbaf mfcc_kernel: cycles of thread 0 of blocks 0 and 5000 between
+# its barriers: framing, the dense DFT with the power, the energy with the
+# mel product and log floor, the DCT with the store
+PM_CYCLES = (
+    ("#include <stdint.h>\n", "#include <stdint.h>\n#include <cstdio>\n"),
+    ("  // 1. pre-emphasis and framing into shared memory;",
+     "  const long long c_start = clock64();\n  // 1. pre-emphasis and framing into shared memory;"),
+    ("  __syncthreads();\n\n  // 2. windowed DFT", "  __syncthreads();\n  const long long c_frame = clock64();\n\n  // 2. windowed DFT"),
+    ("  __syncthreads();\n\n  // 3. the log frame energy", "  __syncthreads();\n  const long long c_dft = clock64();\n\n  // 3. the log frame energy"),
+    ("  __syncthreads();\n\n  // 5. DCT and the store", "  __syncthreads();\n  const long long c_mel = clock64();\n\n  // 5. DCT and the store"),
+    ("    p.out[(row0 + f) * p.n_mfcc + c] = acc;\n  }\n}\n",
+     "    p.out[(row0 + f) * p.n_mfcc + c] = acc;\n  }\n  __syncthreads();\n  const long long c_end = clock64();\n"
+     "  if ((blockIdx.x == 0 || blockIdx.x == 5000) && tid == 0)\n"
+     "    printf(\"CYC mfcc block %d framing %lld dft %lld mel %lld dct_store %lld threads %d\\n\", (int)blockIdx.x,\n"
+     "           c_frame - c_start, c_dft - c_frame, c_mel - c_dft, c_end - c_mel, nt);\n}\n"),
+)
+
+# the redesigned emit_forward_kernel: block 0's emission thread 0 (the
+# prologue's emission, per step the emission of the next tile and the wait
+# at the step's barrier), memory thread 0 (per step the staging, the stores,
+# the wait for the copies, the wait at the barrier) and recursion lane 1
+# (state 1 of utterance 0: the wait for the prologue, per tile the frames,
+# the wait at the barrier)
+EN_CYCLES = (
+    ("#include <math.h>\n", "#include <math.h>\n#include <cstdio>\n"),
+    ("    __syncthreads();  // tile 0's features are in\n    emit_tile(0);\n    __syncthreads();\n"
+     "    for (int k = 0; k < n_tiles; ++k) {\n      if (k + 1 < n_tiles) emit_tile(k + 1);\n      __syncthreads();\n    }\n"
+     "    return;\n",
+     "    __syncthreads();  // tile 0's features are in\n    long long cy_pro = clock64(), cy_em = 0, cy_bar = 0;\n"
+     "    emit_tile(0);\n    cy_pro = clock64() - cy_pro;\n    __syncthreads();\n"
+     "    for (int k = 0; k < n_tiles; ++k) {\n      long long c0 = clock64();\n      if (k + 1 < n_tiles) emit_tile(k + 1);\n"
+     "      cy_em += clock64() - c0;\n      c0 = clock64();\n      __syncthreads();\n      cy_bar += clock64() - c0;\n    }\n"
+     "    if (blockIdx.x == 0 && e == 0)\n      printf(\"CYC emitnew em P%d T%d S%d tiles %d prologue %lld emission %lld wait %lld\\n\",\n"
+     "             p.n_streams, T, S, n_tiles, cy_pro, cy_em, cy_bar);\n    return;\n"),
+    ("    for (int k = 0; k < n_tiles; ++k) {\n      // tile k+2 goes into the slot of tile k, read last step\n"
+     "      if (k + 2 < n_tiles) stage(k + 2);\n"
+     "      if (k >= 1) store_rows_from_tile(p.la, las + ((k - 1) & 1) * s_tile, S * U, (k - 1) * TT, TT, S, p.B, b0, U, i, n_mem);\n"
+     "      cp_async_wait<0>();\n      __syncthreads();\n    }\n",
+     "    long long cy_st = 0, cy_out = 0, cy_cp = 0, cy_bar = 0;\n    for (int k = 0; k < n_tiles; ++k) {\n"
+     "      long long c0 = clock64();\n      if (k + 2 < n_tiles) stage(k + 2);\n      cy_st += clock64() - c0;\n      c0 = clock64();\n"
+     "      if (k >= 1) store_rows_from_tile(p.la, las + ((k - 1) & 1) * s_tile, S * U, (k - 1) * TT, TT, S, p.B, b0, U, i, n_mem);\n"
+     "      cy_out += clock64() - c0;\n      c0 = clock64();\n      cp_async_wait<0>();\n      cy_cp += clock64() - c0;\n"
+     "      c0 = clock64();\n      __syncthreads();\n      cy_bar += clock64() - c0;\n    }\n"
+     "    if (blockIdx.x == 0 && i == 0)\n      printf(\"CYC emitnew mem P%d T%d S%d tiles %d stage %lld store %lld copies %lld wait %lld\\n\",\n"
+     "             p.n_streams, T, S, n_tiles, cy_st, cy_out, cy_cp, cy_bar);\n"),
+    ("  __syncthreads();  // tile 0's features are in\n  __syncthreads();  // tile 0's log_b is in\n  float carry = kNegInf;\n"
+     "  for (int k = 0; k < n_tiles; ++k) {\n",
+     "  long long cy_pw = clock64();\n  __syncthreads();  // tile 0's features are in\n  __syncthreads();  // tile 0's log_b is in\n"
+     "  cy_pw = clock64() - cy_pw;\n  long long cy_rec = 0, cy_rbar = 0;\n  float carry = kNegInf;\n"
+     "  for (int k = 0; k < n_tiles; ++k) {\n    long long c0 = clock64();\n"),
+    ("      if (NSL == 0 || W > 1) named_barrier(1, n_rec);  // frame t's log-alpha, for the next frame's sources\n    }\n"
+     "    __syncthreads();\n  }\n}\n",
+     "      if (NSL == 0 || W > 1) named_barrier(1, n_rec);  // frame t's log-alpha, for the next frame's sources\n    }\n"
+     "    cy_rec += clock64() - c0;\n    c0 = clock64();\n    __syncthreads();\n    cy_rbar += clock64() - c0;\n  }\n"
+     "  if (blockIdx.x == 0 && tid == 1)\n    printf(\"CYC emitnew rec P%d T%d S%d tiles %d prologue_wait %lld recursion %lld wait %lld\\n\",\n"
+     "           p.n_streams, T, S, n_tiles, cy_pw, cy_rec, cy_rbar);\n}\n"),
+)
+# the FFT mfcc_kernel: thread 0 of blocks 0 and 5000 between its barriers:
+# framing, the FFT's stages, the power (split step), the energy with the mel
+# product and log floor, the DCT with the store
+MN_CYCLES = (
+    ("#include <stdint.h>\n", "#include <stdint.h>\n#include <cstdio>\n"),
+    ("  float* b0 = reinterpret_cast<float*>(buf[0]);\n",
+     "  const long long c_start = clock64();\n  float* b0 = reinterpret_cast<float*>(buf[0]);\n"),
+    ("  __syncthreads();\n\n  // 2. the FFT's stages", "  __syncthreads();\n  const long long c_frame = clock64();\n\n  // 2. the FFT's stages"),
+    ("  // 3. the power of bins", "  const long long c_fft = clock64();\n  // 3. the power of bins"),
+    ("  __syncthreads();\n\n  // 4. the log frame energy", "  __syncthreads();\n  const long long c_power = clock64();\n\n  // 4. the log frame energy"),
+    ("  __syncthreads();\n\n  // 5. DCT and the store", "  __syncthreads();\n  const long long c_mel = clock64();\n\n  // 5. DCT and the store"),
+    ("    p.out[(row0 + f) * p.n_mfcc + c] = acc;\n  }\n}\n",
+     "    p.out[(row0 + f) * p.n_mfcc + c] = acc;\n  }\n  __syncthreads();\n  const long long c_end = clock64();\n"
+     "  if ((blockIdx.x == 0 || blockIdx.x == 5000) && tid == 0)\n"
+     "    printf(\"CYC mfccfft block %d frames %d framing %lld fft %lld power %lld mel %lld dct_store %lld\\n\", (int)blockIdx.x,\n"
+     "           FB, c_frame - c_start, c_fft - c_frame, c_power - c_fft, c_mel - c_power, c_end - c_mel);\n}\n"),
+)
+
 
 def cut(src, *edits):
     """A variant of src with each (old, new) edit applied."""
@@ -259,11 +364,66 @@ VARIANTS = [
     ("parent_decode_cycles", *cut(DEC, *PD_CYCLES)),
     ("parent_decode_no_emission", DEC, "      for (int q = 0; q < P; ++q) stream_log_b<FULL>(p, q, r, xs, nf, lbv);\n", ""),
     ("parent_decode_no_pointers", *cut(DEC, ("      bpt[r] = bp;\n", ""), ("        bpt[r * K + k] = bp;\n", ""))),
+    # emit_forward and the MFCC kernel as of cd9fbaf (step 0 of their
+    # redesign): base, clock64 counters, the emission cut, the two global
+    # stores cut, the dense DFT cut
+    ("emit_mfcc_base", FEM, "", ""),
+    ("parent_emit_cycles", *cut(FEM, *PE_CYCLES)),
+    ("parent_emit_no_emission", *cut(FEM, ("          v = full_state_log_b<DMAX>(rec, M, D, x);", "          v = x[0];"),
+                                     ("          v = diag_state_log_b<DMAX>(rec, M, x, x2);", "          v = x2[0];"))),
+    ("parent_emit_no_stores", FEM, "      p.log_b[o] = lb;\n      p.la[o] = carry;\n", ""),
+    ("parent_mfcc_cycles", *cut(MFCC, *PM_CYCLES)),
+    ("parent_mfcc_no_dft", *cut(MFCC, ("      for (; n + 4 <= p.W; n += 4) {", "      for (; n + 4 <= 0; n += 4) {"),
+                                ("      for (; n < p.W; ++n) dft_row(", "      for (; n < 0; ++n) dft_row("))),
+    # the redesigned emit_forward_kernel and mfcc_kernel: counters, and the
+    # emission, the recursion, the log-alpha stores, the framing or the
+    # FFT's stages cut
+    ("emit_cycles", *cut(FEM, *EN_CYCLES)),
+    ("emit_no_emission", FEM, "        for (int q = 0; q < p.n_streams; ++q) {\n          const int D = p.dims[q], M = p.mixes[q];\n"
+     "          const float* o = cst", "        for (int q = 0; q < 0; ++q) {\n          const int D = p.dims[q], M = p.mixes[q];\n"
+     "          const float* o = cst"),
+    ("emit_no_recursion", FEM, "    for (int t = t_lo; t < t_hi; ++t) {\n      const int tt = t - t_lo;\n      const float lb = lbn;",
+     "    for (int t = t_lo; t < t_lo; ++t) {\n      const int tt = t - t_lo;\n      const float lb = lbn;"),
+    ("emit_no_stores", FEM, "      if (k >= 1) store_rows_from_tile(p.la, las", "      if (false) store_rows_from_tile(p.la, las"),
+    ("mfcc_cycles", *cut(MFCC, *MN_CYCLES)),
+    ("mfcc_no_framing", MFCC, "  for (int i = tid; i < FB * p.W; i += nt) {", "  for (int i = tid; i < 0; i += nt) {"),
+    ("mfcc_no_stages", MFCC, "  for (int s = 0; s < p.n_stages; ++s) {", "  for (int s = 0; s < 0; ++s) {"),
+    # launch shapes other than the wrappers' choice
+    ("emit_16_frame_tiles", FEM_PY, "EMIT_TILES = (32, 16, 8, 4, 2, 1)", "EMIT_TILES = (16, 8, 4, 2, 1)"),
+    ("emit_8_utterances", FEM_PY, "EMIT_UTTS = (16, 8, 4, 2, 1)", "EMIT_UTTS = (8, 4, 2, 1)"),
+    ("mfcc_32_frames", *cut(MFCC_PY, ("FRAMES_PER_BLOCK = (16, 8, 4, 2, 1)", "FRAMES_PER_BLOCK = (32, 16, 8, 4, 2, 1)"),
+                            ("BLOCK_SMEM = 56 * 1024", "BLOCK_SMEM = 112 * 1024"))),
+    ("mfcc_4_frames", MFCC_PY, "FRAMES_PER_BLOCK = (16, 8, 4, 2, 1)", "FRAMES_PER_BLOCK = (4, 2, 1)"),
+]
+
+
+def joined(name, *parts):
+    """A variant applying the edits of several (of different kernels) to one
+    copy of the tree."""
+    srcs, olds, news = [], [], []
+    for part in parts:
+        _, src, old, new = next(v for v in VARIANTS if v[0] == part)
+        o, n = (old, new) if isinstance(old, tuple) else ((old,), (new,))
+        srcs += list(src) if isinstance(src, tuple) else [src] * len(o)
+        olds += o
+        news += n
+    return name, tuple(srcs), tuple(olds), tuple(news)
+
+
+VARIANTS += [
+    joined("emit_mfcc_cycles", "emit_cycles", "mfcc_cycles"),
+    joined("emit_no_emission_mfcc_no_framing", "emit_no_emission", "mfcc_no_framing"),
+    joined("emit_no_recursion_mfcc_no_stages", "emit_no_recursion", "mfcc_no_stages"),
+    joined("emit_16_frame_tiles_mfcc_32_frames", "emit_16_frame_tiles", "mfcc_32_frames"),
+    joined("emit_8_utterances_mfcc_4_frames", "emit_8_utterances", "mfcc_4_frames"),
 ]
 FORWARD_DECODE = ("forward_", "decode_", "parent_forward", "parent_decode")
+EMIT_MFCC = ("emit_", "mfcc_", "parent_emit", "parent_mfcc")
 
 
 def timing_script(name: str) -> str:
+    if name.startswith(EMIT_MFCC):
+        return "torch_emit_mfcc_compare.py"
     return "torch_forward_decode_compare.py" if name.startswith(FORWARD_DECODE) else "torch_backward_compare.py"
 
 

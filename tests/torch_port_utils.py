@@ -265,3 +265,25 @@ def em_tile_lengths(rng, T: int, TT: int) -> list[int]:
     edges = sorted({T - TT + 1, T - 2 * TT + 1, T - TT, T - 2 * TT, TT + 1, TT, TT - 1} & set(range(2, T)))
     lens = [int(n) for n in rng.integers(2, T, size=37 - 3 - len(edges))] + edges + [T, 0, 1]
     return lens
+
+
+# emit_forward alone at launch shapes the kernel_em cases do not reach
+# (chip_smoke.py's emit check and tests/test_torch_cuda.py): (cov, band,
+# [(M, D) per stream], S, B, T), lengths from emit_check_lengths
+EMIT_CHECK_CASES = [
+    ("diag", 0, [(2, 9)], 5, 37, 95),  # band 0, S not dividing 32
+    ("diag", 5, [(2, 9)], 12, 37, 95),  # 8 transition slots
+    ("diag", 12, [(2, 5)], 24, 37, 95),  # a band past the compiled slot counts
+    ("diag", 1, [(2, 9)], 40, 37, 95),  # an utterance across two warps
+    ("full", None, [(1, 4)], 64, 37, 40),  # dense transitions across two warps
+    ("diag", 2, [(1, 3)], 200, 9, 40),  # seven warps an utterance
+    ("diag", 1, [(1, 3)], 240, 5, 20),  # constants past shared memory
+    ("diag", 1, [(3, 9)], 8, 1001, 40),  # a ragged last block
+    ("diag", 1, [(3, 9), (2, 3)], 8, 37, 7),  # T shorter than a tile
+]
+
+
+def emit_check_lengths(i: int, B: int, T: int) -> list[int]:
+    """B lengths of EMIT_CHECK_CASES[i]: drawn in [2, T), then T, 0 and 1."""
+    rng = np.random.default_rng(60 + i)
+    return [int(n) for n in rng.integers(2, T, size=B - 3)] + [T, 0, 1]
