@@ -14,7 +14,13 @@ each (any failure raises, so the exit code is non-zero):
               tensors.  vocab_scores (diag/full, total/final, sum/max, two
               streams, a heterogeneous vocabulary, odd B and T, a zero-length
               utterance, a 200-word vocabulary): max|k-p|/max(|p|,1) <= 1e-5,
-              equal finite masks, identical argmax over words.  kernel_em:
+              equal finite masks, identical argmax over words; then its final
+              log-alpha alone at torch_port_utils.VOCAB_CHECK_CASES (2 / 4 /
+              8 slots and the generic loop, two and six streams, pairs across
+              two and eight warps, constants in device memory, ragged word
+              and utterance blocks, T below a tile) within BOUND with equal
+              masks, two launches bitwise equal, failing unless every shape
+              of VOCAB_SHAPES was reached.  kernel_em:
               emit_forward and backward_stats (diag/full x band 1, 2, dense x
               one stream D=9/M=3 or two streams D=9/M=3 + D=3/M=2, B=37,
               T=95, a zero-length and a length-1 row): log_b / log_alpha
@@ -125,7 +131,13 @@ each (any failure raises, so the exit code is non-zero):
               emission_log_b / emission_stats (csrc/emission_em.cu) vs their
               twins: D = 3, 9, 13, 39 x M = 1, 3, 16, N=4133 (off every
               tile), a zero-weight mixture, -inf log b rows: log b within
-              BOUND, moments within STAT_BOUND, two launches bitwise equal
+              BOUND, moments within STAT_BOUND, two launches bitwise equal;
+              log b alone also at D = 1 and 64 and at
+              torch_port_utils.EMISSION_EXTRA_CASES, failing unless every
+              shape of EMISSION_SHAPES was reached (a ragged last tile,
+              blocks walking several tiles, records in device memory, fewer
+              threads a block, log b stored straight out, both column
+              counts)
     lane_em   the slice at full width (em_diag, the model phase train
               trained): e_step_fused and e_step_lane_major(lattices=
               "pallas") vs e_step within STAT_BOUND, the lattice kernels vs
@@ -141,9 +153,10 @@ each (any failure raises, so the exit code is non-zero):
               from its inputs; timing_composed adds torch.profiler over one
               embedded / tied EM iteration (its idle share), the share of
               moments tiles skipped and the moments' dense bound
-              (dense_bound_ms); timing_em and timing_mfcc add each
-              kernel's own device time (torch.profiler) beside the CUDA
-              events around its call, timing_em the fused iteration's
+              (dense_bound_ms); timing, timing_em, timing_mfcc and
+              timing_lane add each redesigned kernel's own device time
+              (torch.profiler) beside the CUDA events around its call,
+              timing_em the fused iteration's
               device busy time and idle share; timing_mfcc is the cell
               mfcc_b256_10s (256 waveforms of 10 s in one launch), with the
               same function as torch.fft.rfft and two matmuls beside it;
@@ -476,10 +489,14 @@ def phase_kernel(torch) -> float:
         rand_words(3, 1, S, [(M, 6)], "diag")[0] for S, M in ((4, 2), (6, 1), (6, 3), (4, 2)))]
     hv, hfs = pad_stack_models(hetero)
     configs.append(("heterogeneous_S4664", hv, (6,), hfs))
+    from srhmm_tpu_torch.ops.kernels.scoring import pack_batch
+
+    seen = set()
     for name, vocab, dims, fs in configs:
         vocab = vocab.astype(torch.float32).to(dev)
         batch = batch_for(dims, odd_lens)
         batch = batch[0] if len(batch) == 1 else batch
+        seen |= vocab_reached(*pack_batch(vocab, batch)) | ({"heterogeneous"} if fs is not None else set())
         for mode in ("total", "final"):
             for semiring in ("sum", "max"):
                 res = kernel_vs_plain(vocab, batch, mode, semiring, fs)
@@ -494,7 +511,72 @@ def phase_kernel(torch) -> float:
         worst_abs = max(worst_abs, res["max_abs_err"])
         emit({"phase": "kernel", "config": "vocab200_S8_M4_D13", "mode": "total",
               "semiring": semiring, "B": len(lens), "T": max(lens), **res})
-    return worst_abs
+    return max(worst_abs, vocab_check(torch, seen))
+
+
+# the vocab_scores launch shapes vocab_check must see reached
+VOCAB_SHAPES = {"slots_2", "slots_4", "slots_8", "slots_generic", "streams_2", "streams_6", "consts_global",
+                "pair_across_warps", "states_max", "words_per_block", "ragged_words", "ragged_block",
+                "partial_tile", "short_tile", "length_0", "length_1", "heterogeneous"}
+
+
+def vocab_reached(args, kw) -> set:
+    """The launch shapes of VOCAB_SHAPES one vocab_scores call reaches, from
+    the shape the wrapper chooses (scoring._VocabLaunch)."""
+    from srhmm_tpu_torch.ops.kernels import scoring as ks
+
+    ln = ks._VocabLaunch(*(a if isinstance(a, tuple) else (a,) for a in args[:5]), *args[5:], **kw)
+    sh, lens = ln.shape, ln.lengths.tolist()
+    out = {f"slots_{ks.vocab_slots(ln.band) or 'generic'}", f"streams_{len(ln.feats)}"}
+    out |= {"consts_global"} if sh["consts_global"] else set()
+    out |= {"pair_across_warps"} if ln.S > 32 else set()
+    out |= {"states_max"} if ln.S == ks.MAX_STATES else set()
+    out |= {"words_per_block"} if sh["words"] > 1 else set()
+    out |= {"ragged_words"} if ln.W % sh["words"] else set()
+    out |= {"ragged_block"} if ln.B % sh["utts"] else set()
+    out |= {"short_tile"} if ln.T < sh["tile"] else ({"partial_tile"} if ln.T % sh["tile"] else set())
+    out |= {f"length_{n}" for n in (0, 1) if n in lens}
+    return out & VOCAB_SHAPES
+
+
+def vocab_check_inputs(torch) -> dict:
+    """vocab_scores' (args, kw) at every case of
+    torch_port_utils.VOCAB_CHECK_CASES, by name, on the card."""
+    from srhmm_tpu_torch.ops.kernels.scoring import pack_batch
+
+    pu = port_utils()
+    out = {}
+    for i, (cov, S, W, mixes_dims, band, B, T) in enumerate(pu.VOCAB_CHECK_CASES):
+        name = f"{cov}_S{S}_W{W}_band{band}_" + "_".join(f"M{M}D{D}" for M, D in mixes_dims) + f"_B{B}_T{T}"
+        out[name] = pack_batch(*pu.vocab_check_case(i, "cuda"))
+    return out
+
+
+def vocab_check(torch, seen: set) -> float:
+    """vocab_scores alone at VOCAB_CHECK_CASES vs its twin, both semirings:
+    final log-alpha within BOUND with equal masks above NEG_INF/2, two
+    launches bitwise equal; fails unless these and the kernel phase's
+    earlier calls (seen) reached every launch shape of VOCAB_SHAPES.
+    Returns the worst absolute error."""
+    from srhmm_tpu_torch.ops.kernels.scoring import vocab_scores, vocab_scores_plain
+
+    worst = 0.0
+    for name, (args, kw) in vocab_check_inputs(torch).items():
+        got = vocab_reached(args, kw)
+        seen |= got
+        for semiring in ("sum", "max"):
+            la, again = vocab_scores(*args, **kw, semiring=semiring), vocab_scores(*args, **kw, semiring=semiring)
+            la_p = vocab_scores_plain(*args, **kw, semiring=semiring)
+            torch.cuda.synchronize()
+            res = compare_lattice(la, la_p, f"vocab_check {name} {semiring}")
+            if not torch.equal(la, again):
+                raise AssertionError(f"vocab_check {name} {semiring}: two launches differ")
+            worst = max(worst, res["max_abs_err"])
+            emit({"phase": "kernel", "check": "vocab", "config": name, "semiring": semiring,
+                  "reached": sorted(got), "bitwise_repeat": True, "log_alpha": res["rel_err"]})
+    if seen != VOCAB_SHAPES:
+        raise AssertionError(f"vocab_check reached {sorted(seen)}, not {sorted(VOCAB_SHAPES)}")
+    return worst
 
 
 # backward_stats cases beyond the diag/full x band x P = 1, 2 grid:
@@ -964,6 +1046,9 @@ def phase_timing(torch, main: dict, smi: str) -> dict:
     saved = vocab_scores.launches
     t = timed_pair(torch, lambda: vocab_scores_plain(*args, **kw), lambda: vocab_scores(*args, **kw),
                    plain_warmup=3)
+    # the kernel's own device time; the CUDA events around the call include
+    # the wrapper's host work (the constants' re-layout)
+    t["kernel_device_ms"] = kernel_device_ms(torch, lambda: vocab_scores(*args, **kw), "vocab_scores_kernel")
     vocab_scores.launches = saved  # timing launches are not main-path launches
     audio_s = main["res"]["frames"] * FRAME_S
     # bound: features of the stepped frames, the constants, the (W*S, B)
@@ -977,12 +1062,12 @@ def phase_timing(torch, main: dict, smi: str) -> dict:
                 frames * N * (mixture_ops(D, main["res"]["M"], full) + 4 * (kw["band"] + 1) + 4))
     emit({
         "phase": "timing", "config": main["res"]["config"], "reps": 20,
-        "kernel_ms": t["kernel_ms"], "plain_ms": t["plain_ms"],
+        "kernel_ms": t["kernel_ms"], "plain_ms": t["plain_ms"], "kernel_device_ms": t["kernel_device_ms"],
         "kernel_audio_s_per_s": audio_s / (t["ms"] / 1e3),
         "plain_audio_s_per_s": audio_s / (t["best_plain_ms"] / 1e3),
         "audio_s": audio_s, **bnd, "card": smi,
     })
-    return {"ms": t["ms"], "plain_ms": t["best_plain_ms"], **bnd}
+    return {"ms": t["ms"], "plain_ms": t["best_plain_ms"], "kernel_device_ms": t["kernel_device_ms"], **bnd}
 
 
 def timed_pair(torch, plain, kernel, plain_warmup=1) -> dict:
@@ -2981,17 +3066,34 @@ def emission_stream(torch, seed, S, M, D, zero_weight=True):
     return gmm_hmm_from_numpy(left_right_trans(S, 2.0), [st]).astype(torch.float32).to("cuda").streams[0]
 
 
-def phase_kernel_emission(torch) -> dict:
-    """#21 / #22 vs their twins: D in 3, 9, 13, 39 x M in 1, 3, 16, S=8,
-    N=4133 frames (off every tile: 128 a chunk, 2048 a block), a
-    zero-weight mixture, 40 log b rows at -inf for the moments: log b
-    within BOUND, each moment block within STAT_BOUND (kernel and twin
-    each reading the log b of its own emission), two launches bitwise
-    equal.  Returns the worst absolute error per wrapper."""
+# the emission_log_b launch shapes phase_kernel_emission must see reached
+EMISSION_SHAPES = {"ragged_tile", "walks_tiles", "recs_global", "threads_below_256", "direct_stores", "cols_1",
+                   "cols_2", "dims_1", "dims_64", "mixtures_16"}
+
+
+def emission_reached(N, D, S, M) -> set:
+    """The launch shapes of EMISSION_SHAPES one emission_log_b call
+    reaches, from the wrapper's shape (emission_block) and grid."""
     from srhmm_tpu_torch.ops.kernels import emission as ke
 
-    saved = lane_counts()
-    worst = {"emission_log_b": 0.0, "emission_stats": 0.0}
+    sh = ke.emission_block(N, D, S, M)
+    out = {f"cols_{sh['tile_frames'] // sh['threads']}", f"dims_{D}", f"mixtures_{M}"}
+    out |= {"ragged_tile"} if N % sh["tile_frames"] else set()
+    out |= {"walks_tiles"} if sh["tiles"] > ke.emission_grid(N, D, S, M, "cuda") else set()
+    out |= {"recs_global"} if sh["recs_global"] else set()
+    out |= {"threads_below_256"} if sh["threads"] < 256 else set()
+    out |= {"direct_stores"} if sh["direct"] else set()
+    return out & EMISSION_SHAPES
+
+
+def emission_check_inputs(torch) -> dict:
+    """kernel_emission's inputs by name, on the card: (frames, a, b,
+    gamma) at D = 3, 9, 13, 39 x M = 1, 3, 16 (S=8, N=4133, the moments'
+    grid), then (frames, a, b, None) at D = 1 and 64 and at
+    torch_port_utils.EMISSION_EXTRA_CASES."""
+    from srhmm_tpu_torch.ops.kernels import emission as ke
+
+    out = {}
     rng = np.random.default_rng(2028)
     S, N = 8, 4133
     for D in (3, 9, 13, 39):
@@ -2999,28 +3101,61 @@ def phase_kernel_emission(torch) -> dict:
             stream = emission_stream(torch, 100 * D + M, S, M, D)
             frames = torch.as_tensor(rng.normal(size=(N, D)) * 3, dtype=torch.float32, device="cuda")
             gamma = torch.as_tensor(rng.uniform(size=(N, S)), dtype=torch.float32, device="cuda")
-            a, b = ke.pack_constants(stream)
-            lb, lb2 = ke.emission_log_b(frames, a, b), ke.emission_log_b(frames, a, b)
-            lb_p = ke.emission_log_b_plain(frames, a, b)
-            r_lb = compare_lattice(lb, lb_p, f"emission_log_b D={D} M={M}")
+            out[f"N{N}_S{S}_M{M}_D{D}"] = (frames, *ke.pack_constants(stream), gamma)
+    rng = np.random.default_rng(2030)
+    extra = [(N, S, M, D) for D in (1, 64) for M in (1, 3, 16)] + port_utils().EMISSION_EXTRA_CASES
+    for n, s, M, D in extra:
+        stream = emission_stream(torch, 100 * D + M + 7 * s, s, M, D)
+        frames = torch.as_tensor(rng.normal(size=(n, D)) * 3, dtype=torch.float32, device="cuda")
+        out[f"N{n}_S{s}_M{M}_D{D}"] = (frames, *ke.pack_constants(stream), None)
+    return out
+
+
+def phase_kernel_emission(torch) -> dict:
+    """#21 / #22 vs their twins: D in 3, 9, 13, 39 x M in 1, 3, 16, S=8,
+    N=4133 frames (off every tile), a zero-weight mixture, 40 log b rows at
+    -inf for the moments: log b within BOUND, each moment block within
+    STAT_BOUND (kernel and twin each reading the log b of its own
+    emission), two launches bitwise equal.  #21 alone also at D = 1 and 64
+    and at EMISSION_EXTRA_CASES (emission_check_inputs), failing unless
+    every shape of EMISSION_SHAPES was reached.  Returns the worst absolute
+    error per wrapper."""
+    from srhmm_tpu_torch.ops.kernels import emission as ke
+
+    saved = lane_counts()
+    worst = {"emission_log_b": 0.0, "emission_stats": 0.0}
+    seen = set()
+    for name, (frames, a, b, gamma) in emission_check_inputs(torch).items():
+        (N, D), (M, _, S) = frames.shape, a.shape
+        seen |= emission_reached(N, D, S, M)
+        lb, lb2 = ke.emission_log_b(frames, a, b), ke.emission_log_b(frames, a, b)
+        lb_p = ke.emission_log_b_plain(frames, a, b)
+        r_lb = compare_lattice(lb, lb_p, f"emission_log_b {name}")
+        worst["emission_log_b"] = max(worst["emission_log_b"], r_lb["max_abs_err"])
+        row = {"phase": "kernel_emission", "config": name, "D": D, "M": M, "S": S, "N": N, "log_b": r_lb["rel_err"]}
+        if gamma is not None:
             # each moments call reads the log b of its own emission, as in
             # the E-step: exp(min(q_m - log b, 0)) cancels two fp32 values of
             # size |q| (~400 at D=39), so a log b summed in another order
             # biases every posterior by a few ulps of |q| (1.6e-4 of the
             # moments' scale at D=39, M=1 on the H100)
-            lb, lb_p = lb.clone(), lb_p.clone()
-            lb[1000:1040] = lb_p[1000:1040] = -torch.inf
-            st, st2 = ke.emission_stats(frames, gamma, lb, a, b), ke.emission_stats(frames, gamma, lb, a, b)
-            st_p = ke.emission_stats_plain(frames, gamma, lb_p, a, b)
+            lbs, lbs_p = lb.clone(), lb_p.clone()
+            lbs[1000:1040] = lbs_p[1000:1040] = -torch.inf
+            st, st2 = ke.emission_stats(frames, gamma, lbs, a, b), ke.emission_stats(frames, gamma, lbs, a, b)
+            st_p = ke.emission_stats_plain(frames, gamma, lbs_p, a, b)
             torch.cuda.synchronize()
-            if not (torch.equal(lb2, ke.emission_log_b(frames, a, b)) and torch.equal(st, st2)):
-                raise AssertionError(f"emission D={D} M={M}: two launches differ")
-            parts = {part: compare_stat(st[..., sl], st_p[..., sl], f"emission_stats D={D} M={M} {part}")
+            if not torch.equal(st, st2):
+                raise AssertionError(f"emission_stats {name}: two launches differ")
+            parts = {part: compare_stat(st[..., sl], st_p[..., sl], f"emission_stats {name} {part}")
                      for part, sl in (("x", slice(0, D)), ("xx", slice(D, 2 * D)), ("w", slice(2 * D, None)))}
-            worst["emission_log_b"] = max(worst["emission_log_b"], r_lb["max_abs_err"])
             worst["emission_stats"] = max(worst["emission_stats"], *(v["max_abs_err"] for v in parts.values()))
-            emit({"phase": "kernel_emission", "D": D, "M": M, "S": S, "N": N, "bitwise_repeat": True,
-                  "log_b": r_lb["rel_err"], **{f"mom_{k}": v["rel_err"] for k, v in parts.items()}})
+            row.update({f"mom_{k}": v["rel_err"] for k, v in parts.items()})
+        torch.cuda.synchronize()
+        if not torch.equal(lb, lb2):
+            raise AssertionError(f"emission_log_b {name}: two launches differ")
+        emit({**row, "bitwise_repeat": True})
+    if seen != EMISSION_SHAPES:
+        raise AssertionError(f"kernel_emission reached {sorted(seen)}, not {sorted(EMISSION_SHAPES)}")
     set_lane_counts(saved)  # comparison launches
     return worst
 
@@ -3248,6 +3383,9 @@ def phase_timing_lane(torch, lane: dict, smi: str) -> dict:
         ms = min(kern_a, kern_b)
         out[name] = {"kernel_ms": [kern_a, kern_b], "plain_ms": [plain_a, plain_b], "ms": ms,
                      "best_plain_ms": min(plain_a, plain_b), **bnd[name], "share_of_bound": bnd[name]["bound_ms"] / ms}
+    # #21's own device time (redesigned); ms includes the wrapper's host work (the records' re-layout)
+    out["emission_log_b"]["kernel_device_ms"] = kernel_device_ms(
+        torch, lambda: ke.emission_log_b(frames, a, bias), "emission_log_b_kernel")
     band = trans_band(model.trans.cpu().numpy())
     feats_tdb = batch.features.permute(1, 2, 0).contiguous()
     steps = {
@@ -3325,7 +3463,7 @@ def main() -> int:
         # launches counted over the phase (phase_lane_em)
         lane = phase_lane_em(torch, train_diag, main_diag)
         t_full = phase_timing(torch, main_full, info["nvidia_smi"])
-        phase_timing(torch, main_diag, info["nvidia_smi"])
+        t_diag = phase_timing(torch, main_diag, info["nvidia_smi"])
         em_diag = phase_timing_em(torch, train_diag, info["nvidia_smi"])
         phase_timing_em(torch, train_full, info["nvidia_smi"])
         em_p2 = phase_timing_em_p2(torch, train_p2, info["nvidia_smi"])
@@ -3359,6 +3497,10 @@ def main() -> int:
             "plain_ms": t_full["plain_ms"],
             **{k: t_full[k] for k in bkeys},
             "library_ms": None,
+            # the kernel's own device time (torch.profiler); ms includes the wrapper's host work
+            "kernel_device_ms": t_full["kernel_device_ms"],
+            # the same kernel at diag10 (W=10, S=8, M=4, D=13 diagonal)
+            **{f"{k}_diag10": t_diag[k] for k in ("ms", "plain_ms", "kernel_device_ms", *bkeys)},
         },
         {
             "name": "emit_forward",
@@ -3462,6 +3604,8 @@ def main() -> int:
             **({f"{k}_diag10": t_lane["log_forward_batch_diag10"][v] for k, v in
                 (("ms", "ms"), ("plain_ms", "best_plain_ms"), ("bound_ms", "bound_ms"), ("bound_by", "bound_by"))}
                if name == "log_forward_batch" else {}),
+            # #21's own device time (torch.profiler); ms includes the wrapper's host work
+            **({"kernel_device_ms": t_lane[name]["kernel_device_ms"]} if name == "emission_log_b" else {}),
         }
         for name, _, where, src in LANE_ROWS
     ]})

@@ -1,6 +1,6 @@
-// GMM emission arithmetic shared by the Hopper kernels (vocab_scores.cu,
-// fused_em.cu): the packed per-mixture record layout and the per-mixture /
-// per-state log-likelihoods.  All arithmetic is fp32 fmaf on the CUDA cores,
+// GMM emission arithmetic shared by the Hopper kernels of csrc/: the packed
+// per-mixture record layout, the per-mixture / per-state log-likelihoods,
+// and the slot update of the forward recursions' band step.  All arithmetic is fp32 fmaf on the CUDA cores,
 // never TF32 or tensor cores.
 #pragma once
 
@@ -116,6 +116,32 @@ __device__ __forceinline__ void lse_push_select(float q, float& m, float& e) {
   const float t = expf(up ? m - q : q - m);
   e = up ? fmaf(e, t, 1.f) : e + t;
   m = up ? q : m;
+}
+
+// The band step's update over NSL transition slots v[kk] (a source's
+// log-alpha plus its log transition, -inf for a slot off the chain): the
+// forward recursion's log-sum-exp (max seeded at NEG_INF, the 1e-38 guard,
+// the NEG_INF clamp), or the Viterbi recursion's max.  A -inf slot changes
+// no bit of either: it leaves the max alone and adds expf(-inf) = 0.0f to
+// the sum, so a step unrolled to NSL slots equals the loop over the band's
+// own slots in ascending order.
+template <int NSL>
+__device__ __forceinline__ float slots_lse(const float (&v)[NSL]) {
+  float m = kNegInf;
+#pragma unroll
+  for (int kk = 0; kk < NSL; ++kk) m = fmaxf(m, v[kk]);
+  float e = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < NSL; ++kk) e += expf(v[kk] - m);
+  return fmaxf(logf(fmaxf(e, kTiny)) + m, kNegInf);
+}
+
+template <int NSL>
+__device__ __forceinline__ float slots_max(const float (&v)[NSL]) {
+  float m = kNegInf;
+#pragma unroll
+  for (int kk = 0; kk < NSL; ++kk) m = fmaxf(m, v[kk]);
+  return m;
 }
 
 // diag_mix_q of NC feature columns: each column's fmaf chain exactly

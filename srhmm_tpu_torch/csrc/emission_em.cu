@@ -18,10 +18,17 @@
 // The log b the moments read is the caller's (the emission kernel's, in
 // the E-step), not recomputed.
 //
-// Design.  Emission: one thread per frame, 128 frames a block, the S * M
-// records of the model staged in shared memory once per block and read as
-// float4 broadcasts; the mixtures of a state fold through the online
-// logsumexp of emission.cuh.  Moments: a block takes one state and a range
+// Design.  Emission: a grid of about as many blocks as fit on the card at
+// once, each staging the S * M records in shared memory once (or reading
+// them from device memory, through L1, when they do not fit beside the
+// tiles) and walking the tiles of TF = threads * NC frames j = blockIdx.x,
+// + gridDim.x, ...: tile j+1's frames come into the other of two slots by
+// 16-byte cp.async while tile j is computed; a thread takes NC frames side
+// by side (their x in registers) and every state, each record read once for
+// the NC frames as a warp-wide broadcast (emission.cuh state_log_b_cols:
+// diag_state_log_b's fmaf order, so log b is bitwise that of one thread a
+// frame), into a (TF, S) tile in shared memory, which goes out as
+// coalesced 16-byte stores.  Moments: a block takes one state and a range
 // of kFramesPerBlock frames (block index s + S * range, so the S blocks of
 // a range run together and share its frames through L2); per chunk of 128
 // frames, frames on threads recompute q_m and write the weights g into a
@@ -33,17 +40,21 @@
 //
 // What bounds it on the H100.  At the em_diag shape (N = 1,024,000 frames,
 // D=9, S=8, M=3) the emission reads 36.9 MB of frames and writes 32.8 MB of
-// log b (~0.021 ms of HBM time) for ~0.9 GFLOP; the moments read frames,
-// gamma and log b (102 MB, ~0.031 ms) for ~1.4 GFLOP: both are bounded by
-// bytes on paper.  The moments kernel reads the frames once per state (S
-// blocks of a range, mostly from L2).  Later work: a warp per frame tile
-// with the records in registers, the moment contraction on tensor cores at
-// fp32 accuracy.
+// log b (~0.021 ms of HBM time) for ~0.9 GFLOP (~0.014 ms of the fp32
+// rate): bytes on paper, and with the frames and log b moved in whole
+// 16-byte runs the kernel is the FMA chains' and the copies' latency over
+// ~4 blocks an SM.  The moments read frames, gamma and log b (102 MB,
+// ~0.031 ms) for ~1.4 GFLOP; that kernel reads the frames once per state (S
+// blocks of a range, mostly from L2).  Later work: the moments kernel's
+// redesign (TPU kernel #22), its contraction on tensor cores at fp32
+// accuracy.
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 #include "emission.cuh"
+#include "tile_mma.cuh"
 
 namespace {
 
@@ -71,21 +82,100 @@ __device__ __forceinline__ void stage(const float* src, int n_floats, float* dst
   for (int i = threadIdx.x; i < n_floats / 4; i += blockDim.x) d4[i] = s4[i];
 }
 
-// grid ceil(N / kFrames); thread k takes frame blockIdx.x * kFrames + k.
+constexpr int kEmitThreads = 256;  // emission: threads a block at most
+// emission: the frames a thread takes side by side (their x in registers)
 template <int DMAX>
-__global__ void __launch_bounds__(kFrames)
-    emission_log_b_kernel(const float* frames, const float* recs, float* log_b, long long N, int D,
-                          int S, int M) {
+constexpr int kEmitCols = DMAX <= 16 ? 2 : 1;
+
+struct EmitParams {
+  const float* frames;  // (N, D), 16-byte aligned
+  const float* recs;    // (S * M, 2 DMAX + 4) records, state-major
+  float* log_b;         // (N, S)
+  long long N;
+  int D, S, M;
+  int recs_global;      // the records read from device memory, not shared memory
+  int direct;           // log b stored straight to device memory, not through a shared tile
+};
+
+// Shared memory of an emission block of `threads` threads, in floats (the
+// wrapper's ops/kernels/emission.py emission_smem_bytes mirrors it): the
+// records (unless recs_global) | the frames, two slots of (TF, D) | log b
+// (TF, S) (unless direct), with TF = threads * NC.
+__host__ __device__ inline size_t emit_floats(int dmax, int cols, int threads, int D, int S, int M,
+                                              int recs_global, int direct) {
+  const size_t tf = (size_t)threads * cols;
+  return (recs_global ? 0 : (size_t)S * M * (2 * dmax + 4)) + 2 * tf * D + (direct ? 0 : tf * S);
+}
+
+// tile j's frames [j TF, min(N, (j+1) TF)) into a slot: 16-byte copies, the
+// last floats of a ragged tile 4 bytes each
+__device__ __forceinline__ void stage_frames(const EmitParams& p, long long j, int tf, float* dst) {
+  const long long n0 = j * tf;
+  const int count = (int)min((long long)tf, p.N - n0) * p.D;
+  const float* src = p.frames + n0 * p.D;
+  const int n4 = count >> 2;
+  for (int i = threadIdx.x; i < n4; i += blockDim.x) cp_async16(dst + 4 * i, src + 4 * i);
+  for (int i = 4 * n4 + threadIdx.x; i < count; i += blockDim.x) cp_async4(dst + i, src + i, true);
+  cp_async_commit();
+}
+
+// A block walks the tiles j = blockIdx.x, + gridDim.x, ...: tile j+1's
+// frames are staged while tile j is computed, and one barrier each closes
+// the staging and the log b tile.
+template <int DMAX>
+__global__ void __launch_bounds__(kEmitThreads) emission_log_b_kernel(const __grid_constant__ EmitParams p) {
+  constexpr int NC = kEmitCols<DMAX>;
   extern __shared__ float4 smem4[];
-  float* rec_sh = reinterpret_cast<float*>(smem4);
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int tid = threadIdx.x, nt = blockDim.x, tf = nt * NC, D = p.D, S = p.S, M = p.M;
   const int stride = record_stride<DMAX, false>(D);
-  stage(recs, S * M * stride, rec_sh);
-  __syncthreads();
-  const long long n = (long long)blockIdx.x * kFrames + threadIdx.x;
-  if (n >= N) return;
-  float x[DMAX], x2[DMAX];
-  load_frame<DMAX>(frames, n, D, true, x, x2);
-  for (int s = 0; s < S; ++s) log_b[n * S + s] = diag_state_log_b<DMAX>(rec_sh + s * M * stride, M, x, x2);
+  const float* recs = p.recs;
+  float* xs = smem;
+  if (!p.recs_global) {
+    stage(p.recs, S * M * stride, smem);
+    recs = smem;
+    xs = smem + S * M * stride;
+  }
+  float* lbt = xs + 2 * (size_t)tf * D;
+  const long long n_tiles = (p.N + tf - 1) / tf;
+  long long j = blockIdx.x;
+  if (j < n_tiles) stage_frames(p, j, tf, xs);
+  for (int slot = 0; j < n_tiles; j += gridDim.x, slot ^= 1) {
+    if (j + gridDim.x < n_tiles) {
+      stage_frames(p, j + gridDim.x, tf, xs + (slot ^ 1) * (size_t)tf * D);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // tile j's frames are in; the last tile's log b is out
+    const long long n0 = j * tf;
+    const int nf = (int)min((long long)tf, p.N - n0);
+    const float* xt = xs + slot * (size_t)tf * D;
+    float x[NC][DMAX];
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int f = min(tid + c * nt, nf - 1);  // a frame past the tile repeats the last, not stored
+#pragma unroll
+      for (int d = 0; d < DMAX; ++d) x[c][d] = (d < D) ? xt[f * D + d] : 0.f;
+    }
+    // a (TF, S) tile too wide for shared memory (direct) goes out as it is
+    // computed, S floats apart
+    float* lbo = p.direct ? p.log_b + n0 * S : lbt;
+    for (int s = 0; s < S; ++s) {
+      float v[NC];
+      state_log_b_cols<DMAX, false, NC>(recs + s * M * stride, M, D, x, v);
+#pragma unroll
+      for (int c = 0; c < NC; ++c)
+        if (tid + c * nt < nf) lbo[(size_t)(tid + c * nt) * S + s] = v[c];
+    }
+    __syncthreads();  // the tile's log b is complete
+    if (p.direct) continue;
+    // out: nf S consecutive floats, 16 bytes a store (n0 S is a multiple of 4)
+    float* dst = p.log_b + n0 * S;
+    const int count = nf * S, n4 = count >> 2;
+    for (int i = tid; i < n4; i += nt) reinterpret_cast<float4*>(dst)[i] = reinterpret_cast<const float4*>(lbt)[i];
+    for (int i = 4 * n4 + tid; i < count; i += nt) dst[i] = lbt[i];
+  }
 }
 
 struct StatsParams {
@@ -168,25 +258,31 @@ __global__ void __launch_bounds__(kReduceThreads)
   out[i] = a;
 }
 
-using EmitFn = void (*)(const float*, const float*, float*, long long, int, int, int);
+using EmitFn = void (*)(EmitParams);
 using StatsFn = void (*)(StatsParams);
 
-// which: 0 = emission, 1 = moments; nullptr for a bound that is not compiled
-void* kernel_for(int which, int dmax) {
+// nullptr for a bound that is not compiled
+EmitFn emission_kernel_for(int dmax) {
   switch (dmax) {
-#define SRHMM_CASE(B)                                                                           \
-  case B:                                                                                       \
-    return which == 0 ? reinterpret_cast<void*>(static_cast<EmitFn>(emission_log_b_kernel<B>)) \
-                      : reinterpret_cast<void*>(static_cast<StatsFn>(emission_stats_kernel<B>));
-    SRHMM_CASE(4)
-    SRHMM_CASE(8)
-    SRHMM_CASE(12)
-    SRHMM_CASE(16)
-    SRHMM_CASE(32)
-    SRHMM_CASE(64)
-#undef SRHMM_CASE
-    default:
-      return nullptr;
+    case 4: return emission_log_b_kernel<4>;
+    case 8: return emission_log_b_kernel<8>;
+    case 12: return emission_log_b_kernel<12>;
+    case 16: return emission_log_b_kernel<16>;
+    case 32: return emission_log_b_kernel<32>;
+    case 64: return emission_log_b_kernel<64>;
+    default: return nullptr;
+  }
+}
+
+StatsFn stats_kernel_for(int dmax) {
+  switch (dmax) {
+    case 4: return emission_stats_kernel<4>;
+    case 8: return emission_stats_kernel<8>;
+    case 12: return emission_stats_kernel<12>;
+    case 16: return emission_stats_kernel<16>;
+    case 32: return emission_stats_kernel<32>;
+    case 64: return emission_stats_kernel<64>;
+    default: return nullptr;
   }
 }
 
@@ -194,6 +290,20 @@ cudaError_t prepare(const void* fn, size_t smem, int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess || smem <= 48 * 1024) return err;
   return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+// The emission's grid: at most the blocks of `threads` threads and smem
+// bytes that fit on the card at once, and no more than the tiles.
+cudaError_t emission_grid(EmitFn fn, long long N, int cols, int threads, size_t smem, int device, long long* blocks) {
+  cudaError_t err = prepare(reinterpret_cast<const void*>(fn), smem, device);
+  int sms = 0, per_sm = 0;
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, threads, smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const long long tiles = (N + (long long)threads * cols - 1) / ((long long)threads * cols);
+  *blocks = tiles < (long long)sms * per_sm ? tiles : (long long)sms * per_sm;
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -204,18 +314,39 @@ extern "C" {
 // frames (N, D), records (S * M, 2 * dmax + 4) float32 (state-major),
 // device pointers.
 
+// The emission: `threads` threads a block (a multiple of 32 up to 256; the
+// wrapper's ops/kernels/emission.py emission_block picks it), the records
+// in device memory (recs_global) or shared memory, log b through a shared
+// tile or straight out (direct), the grid of emission_grid; frames and log
+// b 16-byte aligned.
 int srhmm_emission_log_b(const void* frames, const void* recs, void* log_b, long long N, int D,
-                         int S, int M, int dmax, int device, void* stream) {
-  void* fn = kernel_for(0, dmax);
-  if (fn == nullptr || N < 1 || D < 1 || D > dmax || S < 1 || M < 1) return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * (size_t)S * M * (2 * dmax + 4);
-  cudaError_t err = prepare(fn, smem, device);
+                         int S, int M, int dmax, int threads, int recs_global, int direct, int device,
+                         void* stream) {
+  const EmitFn fn = emission_kernel_for(dmax);
+  if (fn == nullptr || N < 1 || D < 1 || D > dmax || S < 1 || M < 1 || threads < 32 || threads > kEmitThreads ||
+      threads % 32 != 0 || reinterpret_cast<uintptr_t>(frames) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(log_b) % 16 != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int cols = dmax <= 16 ? 2 : 1;  // kEmitCols
+  const size_t smem = sizeof(float) * emit_floats(dmax, cols, threads, D, S, M, recs_global, direct);
+  long long blocks = 0;
+  const cudaError_t err = emission_grid(fn, N, cols, threads, smem, device, &blocks);
   if (err != cudaSuccess) return (int)err;
-  const long long blocks = (N + kFrames - 1) / kFrames;
-  reinterpret_cast<EmitFn>(fn)<<<(unsigned)blocks, kFrames, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(frames), static_cast<const float*>(recs), static_cast<float*>(log_b), N,
-      D, S, M);
+  EmitParams p{static_cast<const float*>(frames), static_cast<const float*>(recs), static_cast<float*>(log_b),
+               N, D, S, M, recs_global, direct};
+  fn<<<(unsigned)blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(p);
   return (int)cudaGetLastError();
+}
+
+// The grid srhmm_emission_log_b launches for these arguments, into *blocks.
+int srhmm_emission_log_b_grid(long long N, int D, int S, int M, int dmax, int threads, int recs_global, int direct,
+                              int device, long long* blocks) {
+  const EmitFn fn = emission_kernel_for(dmax);
+  if (fn == nullptr || threads < 32 || threads > kEmitThreads) return (int)cudaErrorInvalidValue;
+  const int cols = dmax <= 16 ? 2 : 1;
+  const size_t smem = sizeof(float) * emit_floats(dmax, cols, threads, D, S, M, recs_global, direct);
+  return (int)emission_grid(fn, N, cols, threads, smem, device, blocks);
 }
 
 // gamma, log_b (N, S); partial: scratch of ceil(N / frames_per_block) *
@@ -224,7 +355,7 @@ int srhmm_emission_log_b(const void* frames, const void* recs, void* log_b, long
 int srhmm_emission_stats(const void* frames, const void* gamma, const void* log_b, const void* recs,
                          void* partial, void* out, long long N, int D, int S, int M, int dmax,
                          int device, void* stream) {
-  void* fn = kernel_for(1, dmax);
+  const StatsFn fn = stats_kernel_for(dmax);
   if (fn == nullptr || N < 1 || D < 1 || D > dmax || S < 1 || M < 1) return (int)cudaErrorInvalidValue;
   StatsParams p{};
   p.frames = static_cast<const float*>(frames);
@@ -240,11 +371,11 @@ int srhmm_emission_stats(const void* frames, const void* gamma, const void* log_
   const int Cm = 2 * D + 1;
   const size_t smem = sizeof(float) * ((size_t)M * (2 * dmax + 4) + (size_t)M * (kFrames + 1) +
                                        (size_t)kFrames * p.xstride + (size_t)M * Cm);
-  cudaError_t err = prepare(fn, smem, device);
+  cudaError_t err = prepare(reinterpret_cast<const void*>(fn), smem, device);
   if (err != cudaSuccess) return (int)err;
   const long long ranges = (N + kFramesPerBlock - 1) / kFramesPerBlock;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  reinterpret_cast<StatsFn>(fn)<<<(unsigned)(ranges * S), kFrames, smem, s>>>(p);
+  fn<<<(unsigned)(ranges * S), kFrames, smem, s>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int n = S * M * Cm;

@@ -341,14 +341,7 @@ __global__ void __launch_bounds__(kEmitThreads) emit_forward_kernel(const EmPara
           if (W > 1 && lane < kk && s - kk >= 0) x = prev[(s - kk) * U + uc];
           v[kk] = (ok >> kk & 1u) ? x + lt_in[kk] : -INFINITY;
         }
-        float m = kNegInf;
-#pragma unroll
-        for (int kk = 0; kk < NSL; ++kk) m = fmaxf(m, v[kk]);
-        float e = 0.f;
-#pragma unroll
-        for (int kk = 0; kk < NSL; ++kk) e += expf(v[kk] - m);
-        const float upd = fmaxf(logf(fmaxf(e, kTiny)) + m, kNegInf);
-        const float next = fmaxf(upd + lb, kNegInf);
+        const float next = fmaxf(slots_lse<NSL>(v) + lb, kNegInf);
         carry = (t == 0) ? fmaxf((s == 0 ? 0.f : kNegInf) + lb, kNegInf) : (t < len ? next : carry);
       } else {
         if (t == 0) {

@@ -92,6 +92,30 @@ def score_batch_log(
     return _read_scores(la, mode, final_states)
 
 
+def _on_card_float32(vocab: GmmHmm, batches) -> bool:
+    """CUDA float32 features and float32 vocabulary tensors: what the
+    scoring kernel's wrapper computes on."""
+    vocab_tensors = [vocab.trans] + [t for st in vocab.streams for t in st.buffers()]
+    return all(b.features.is_cuda and b.features.dtype == torch.float32 for b in batches) and all(
+        t.dtype == torch.float32 for t in vocab_tensors
+    )
+
+
+def _kernel_takes(vocab: GmmHmm, batches) -> bool:
+    """The static shape rule of the scoring kernel: one feature batch per
+    stream, homogeneous diag or full covariance, and the shapes its wrapper
+    launches (``ops.kernels.scoring.fits``: streams, feature dims,
+    states)."""
+    from ..ops.kernels.scoring import fits
+
+    return (
+        len(vocab.streams) == len(batches)
+        and len({st.cov_type for st in vocab.streams}) == 1
+        and vocab.streams[0].cov_type in (DIAG, FULL)
+        and fits(len(vocab.streams), vocab.coef_numbers, vocab.num_states)
+    )
+
+
 def score_batch(
     vocab: GmmHmm,
     batch,
@@ -103,10 +127,12 @@ def score_batch(
 
     The hand-written scoring kernel (``ops.kernels.scoring.score_batch_fused``,
     one kernel for ALL utterances x ALL words) runs when the features are
-    CUDA tensors, everything is float32, the covariance is homogeneous diag
-    or full and there is one feature batch per stream; ``score_batch_log``
-    otherwise.  Heterogeneous padded vocabularies pass ``final_states``;
-    multi-stream vocabularies pass ``batch`` as a per-stream tuple.
+    CUDA tensors and everything is float32 (``_on_card_float32``) and the
+    kernel takes the shapes (``_kernel_takes``: homogeneous diag or full
+    covariance, one feature batch per stream, ``ops.kernels.scoring.fits``);
+    ``score_batch_log`` otherwise, decided before any launch.  Heterogeneous
+    padded vocabularies pass ``final_states``; multi-stream vocabularies pass
+    ``batch`` as a per-stream tuple.
 
     impl: None = auto; "fused" forces ``score_batch_fused`` (on CPU tensors
     it runs the kernel's plain PyTorch version); "plain" forces
@@ -115,15 +141,10 @@ def score_batch(
     if impl not in (None, "fused", "plain"):
         raise ValueError(f"score_batch: unknown impl {impl!r}")
     batches = batch if isinstance(batch, tuple) else (batch,)
-    vocab_tensors = [vocab.trans] + [t for st in vocab.streams for t in st.buffers()]
-    eligible = (
-        len(vocab.streams) == len(batches)
-        and len({st.cov_type for st in vocab.streams}) == 1
-        and vocab.streams[0].cov_type in (DIAG, FULL)
-        and all(b.features.is_cuda and b.features.dtype == torch.float32 for b in batches)
-        and all(t.dtype == torch.float32 for t in vocab_tensors)
-    )
-    use_fused = eligible if impl is None else impl == "fused"
+    if impl is None:
+        use_fused = _on_card_float32(vocab, batches) and _kernel_takes(vocab, batches)
+    else:
+        use_fused = impl == "fused"
     if use_fused:
         from ..ops.kernels.scoring import score_batch_fused
 

@@ -43,6 +43,7 @@ from .common import (
 )
 
 FRAMES_PER_CHUNK = 128  # csrc/emission_em.cu kFrames
+EMISSION_THREADS = (256, 128, 64, 32)  # an emission block's threads (csrc/emission_em.cu kEmitThreads first)
 
 
 def pack_constants(stream: GmmStream, dtype=torch.float32):
@@ -111,7 +112,9 @@ def _kernel_library() -> ctypes.CDLL:
     lib = load_library()
     c_int, c_ll, c_ptr = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
     lib.srhmm_emission_log_b.restype = c_int
-    lib.srhmm_emission_log_b.argtypes = [c_ptr] * 3 + [c_ll] + [c_int] * 5 + [c_ptr]
+    lib.srhmm_emission_log_b.argtypes = [c_ptr] * 3 + [c_ll] + [c_int] * 8 + [c_ptr]
+    lib.srhmm_emission_log_b_grid.restype = c_int
+    lib.srhmm_emission_log_b_grid.argtypes = [c_ll] + [c_int] * 8 + [ctypes.POINTER(c_ll)]
     lib.srhmm_emission_stats.restype = c_int
     lib.srhmm_emission_stats.argtypes = [c_ptr] * 6 + [c_ll] + [c_int] * 5 + [c_ptr]
     lib.srhmm_emission_frames_per_block.restype = c_int
@@ -146,6 +149,52 @@ class _EmissionLaunch:
                              f"{SMEM_LIMIT}-byte budget")
 
 
+def emission_cols(dmax: int) -> int:
+    """Frames an emission thread takes side by side (csrc/emission_em.cu
+    kEmitCols)."""
+    return 2 if dmax <= 16 else 1
+
+
+def emission_smem_bytes(dmax: int, threads: int, D: int, S: int, M: int, recs_global: bool = False,
+                        direct: bool = False) -> int:
+    """csrc/emission_em.cu emit_floats: the records (unless read from device
+    memory), two slots of (TF, D) frames and the (TF, S) log b tile (unless
+    log b goes straight out), TF = threads * emission_cols(dmax)."""
+    tf = threads * emission_cols(dmax)
+    return 4 * ((0 if recs_global else S * M * (2 * dmax + 4)) + 2 * tf * D + (0 if direct else tf * S))
+
+
+def emission_block(N: int, D: int, S: int, M: int, name: str = "emission_log_b") -> dict:
+    """The emission launch shape: the most threads of EMISSION_THREADS whose
+    block fits SMEM_LIMIT with the records in shared memory, else with the
+    records in device memory; where no (TF, S) log b tile fits beside the
+    frames (thousands of states), log b goes straight out, the same way;
+    frames a tile and the tiles of N frames.  Every D <= 64 is taken."""
+    dmax = dmax_for([D], name)
+    for direct in (False, True):
+        for recs_global in (False, True):
+            for threads in EMISSION_THREADS:
+                smem = emission_smem_bytes(dmax, threads, D, S, M, recs_global, direct)
+                if smem <= SMEM_LIMIT:
+                    tf = threads * emission_cols(dmax)
+                    return {"threads": threads, "tile_frames": tf, "tiles": -(-N // tf),
+                            "recs_global": recs_global, "direct": direct, "smem_bytes": smem, "dmax": dmax}
+    raise AssertionError("unreachable: two (256, 64) frame tiles fit shared memory")
+
+
+def emission_grid(N: int, D: int, S: int, M: int, device) -> int:
+    """The blocks emission_log_b launches for N frames on a CUDA device:
+    at most the blocks of emission_block's shape that fit on the card at
+    once (the CUDA occupancy calculator), and no more than its tiles."""
+    shape = emission_block(N, D, S, M)
+    blocks = ctypes.c_longlong(0)
+    dev = torch.device(device)
+    check_launch("emission_log_b", _kernel_library().srhmm_emission_log_b_grid(
+        N, D, S, M, shape["dmax"], shape["threads"], int(shape["recs_global"]), int(shape["direct"]),
+        device_args(dev)[0], ctypes.byref(blocks)))
+    return blocks.value
+
+
 def emission_log_b(frames, a, b):
     """frames (N, D) + packed constants (pack_constants) -> (N, S)
     emission log-likelihoods float32 (see emission_log_b_plain).
@@ -155,11 +204,13 @@ def emission_log_b(frames, a, b):
     if on_cpu("emission_log_b", frames):
         return emission_log_b_plain(frames, a, b)
     ln = _EmissionLaunch("emission_log_b", frames, a, b)
-    ln.fit(ln.recs.numel())
+    shape = emission_block(ln.N, ln.D, ln.S, ln.M)
+    # the kernel copies frames 16 bytes at a time: a view off that alignment is copied
+    fr = ln.frames if ln.frames.data_ptr() % 16 == 0 else ln.frames.clone()
     out = torch.empty((ln.N, ln.S), dtype=torch.float32, device=ln.dev)
     check_launch(ln.name, _kernel_library().srhmm_emission_log_b(
-        ln.frames.data_ptr(), ln.recs.data_ptr(), out.data_ptr(), ln.N, ln.D, ln.S, ln.M, ln.dmax,
-        *device_args(ln.dev)))
+        fr.data_ptr(), ln.recs.data_ptr(), out.data_ptr(), ln.N, ln.D, ln.S, ln.M, ln.dmax, shape["threads"],
+        int(shape["recs_global"]), int(shape["direct"]), *device_args(ln.dev)))
     emission_log_b.launches += 1
     return out
 

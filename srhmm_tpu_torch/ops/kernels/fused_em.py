@@ -11,6 +11,11 @@ Counterpart of ``srhmm_tpu/ops/pallas/fused_em_pallas.py``.  Three layers:
   ``.launches``; on CPU tensors they run ``emit_forward_plain`` /
   ``backward_stats_plain``, the same functions in eager PyTorch.  Nothing
   falls back from one to the other.
+* ``fits`` — the static rule of which E-steps the kernels take (streams,
+  states, band, feature dims, full covariance's compiled bound of 16, a
+  backward-stats block within shared memory): every refusal of the two
+  wrappers', so ``train.em`` routes any other model to the plain E-step
+  before a launch.
 * the shapes, in the JAX layouts: features (T, D_p, B) per stream;
   ``log_b`` and ``log_alpha`` (T, S, B); xi (nslots, S, B) per utterance
   with nslots = band+1 (slot d holds xi[j-d -> j] at j) for a banded
@@ -40,6 +45,7 @@ import torch
 from ...models.gmm_hmm import FULL, GmmStream
 from .common import (
     _TINY,
+    DMAX_BOUNDS,
     LOG_GAUS_CLAMP,
     NEG_INF,
     SMEM_LIMIT,
@@ -367,6 +373,59 @@ def _kernel_library() -> ctypes.CDLL:
     return lib
 
 
+def constant_floats(ds, ms, full: bool, S: int, dmax: int) -> int:
+    """Floats of a launch's constant block (_Launch._constants): per stream
+    its S M records (csrc/emission.cuh strides at the bound dmax), per
+    stream its origin, the (S, S) log transitions, each part padded to 4."""
+    r4 = lambda x: -(-x // 4) * 4  # noqa: E731
+    stride = lambda D: D * dmax + dmax + 4 if full else 2 * dmax + 4  # noqa: E731
+    return sum(r4(S * M * stride(D)) for D, M in zip(ds, ms)) + sum(r4(D) for D in ds) + r4(S * S)
+
+
+def _launch_refusal(ds, full: bool, S: int, band) -> str | None:
+    """The refusals _Launch makes for both kernels: 1 to MAX_STREAMS
+    streams, a band inside the model, at most MAX_STATES states, dims
+    within the compiled bound of 64 (16 for full covariance)."""
+    if not 1 <= len(ds) <= MAX_STREAMS:
+        return f"1 to {MAX_STREAMS} streams, one pack and origin each"
+    if band is not None and not 0 <= band < S:
+        return f"band {band} outside [0, {S})"
+    if S > MAX_STATES:
+        return f"at most {MAX_STATES} states, got {S}"
+    if max(ds) > DMAX_BOUNDS[-1]:
+        return f"feature dim {max(ds)} exceeds {DMAX_BOUNDS[-1]}"
+    if full and dmax_for(ds, "fused E-step") > _FULL_DMAX_LIMIT:
+        return f"full covariance takes D <= {_FULL_DMAX_LIMIT}, got {max(ds)}"
+    return None
+
+
+def refusal(ds, ms, full: bool, S: int, band) -> str | None:
+    """Why the E-step kernels do not take streams of feature dims ds and
+    mixtures ms (full or diagonal covariance) over S states with this band
+    (None = dense), or None where both do: _Launch's refusals, then a
+    backward-stats block of one utterance and one frame past shared memory
+    (backward_block's last try).  Emit-forward takes every shape _Launch
+    passes (emit_block keeps the constants in device memory when they do
+    not fit).  The wrappers raise with this reason, and ``fits`` is its
+    negation."""
+    why = _launch_refusal(ds, full, S, band)
+    if why is not None:
+        return why
+    nslots = band + 1 if band is not None else S
+    dmax = dmax_for(ds, "fused E-step")
+    least = _backward_least_smem(constant_floats(ds, ms, full, S, dmax), S, ds, ms, nslots, full)
+    if least > SMEM_LIMIT:
+        return f"{least} bytes of shared memory per block, above the {SMEM_LIMIT}-byte budget"
+    return None
+
+
+def fits(ds, ms, full: bool, S: int, band) -> bool:
+    """The static routing rule of the fused E-step: True where emit_forward
+    and backward_stats both launch their kernels for float32 tensors of
+    these shapes (see ``refusal``)."""
+    return refusal(ds, ms, full, S, band) is None
+
+
 class _Launch:
     """Checked, packed arguments of one kernel launch on CUDA tensors."""
 
@@ -387,14 +446,11 @@ class _Launch:
             raise ValueError(f"{name}: constants do not fit {S} states")
         if any(f.shape[0] != T or f.shape[2] != B for f in feats) or lengths.shape != (B,):
             raise ValueError(f"{name}: streams disagree on (T, B)")
-        if band is not None and not 0 <= band < S:
-            raise ValueError(f"{name}: band {band} outside [0, {S})")
-        if S > MAX_STATES:
-            raise ValueError(f"{name}: at most {MAX_STATES} states, got {S}")
+        why = _launch_refusal(ds, full, S, band)
+        if why is not None:
+            raise ValueError(f"{name}: {why}")
         self.ms = tuple(ms // S for ms in mss)
         self.dmax = dmax_for(ds, name)
-        if full and self.dmax > _FULL_DMAX_LIMIT:
-            raise ValueError(f"{name}: full covariance takes D <= {_FULL_DMAX_LIMIT}, got {max(ds)}")
         self.name, self.dev, self.ds, self.full = name, dev, ds, full
         self.T, self.B, self.S, self.band = T, B, S, band
         self.nslots = band + 1 if band is not None else S
@@ -549,18 +605,29 @@ def backward_block(C: int, S: int, ds, ms, nslots: int, full: bool,
         raise ValueError(f"{name}: at most {MAX_STATES} states, got {S}")
     U = max(1, min(BACKWARD_UTTS, 128 // S))
     while True:
-        n_rec = -(-S * U // 32) * 32
-        warps = max(2, (BACKWARD_THREADS - n_rec) // 32)
+        warps = _backward_stat_warps(S, U)
         for TT in BACKWARD_TILES:
             for acc_global in (False, True):
                 if backward_smem_bytes(C, S, ds, ms, nslots, full, U, TT, warps, acc_global) <= SMEM_LIMIT:
                     return U, TT, warps, acc_global
         if U == 1:
             raise ValueError(
-                f"{name}: {backward_smem_bytes(C, S, ds, ms, nslots, full, 1, 1, warps, True)} bytes of shared "
+                f"{name}: {_backward_least_smem(C, S, ds, ms, nslots, full)} bytes of shared "
                 f"memory per block, above the {SMEM_LIMIT}-byte budget"
             )
         U //= 2
+
+
+def _backward_stat_warps(S: int, U: int) -> int:
+    """Statistics warps filling a backward-stats block of U utterances to
+    BACKWARD_THREADS (at least 2)."""
+    return max(2, (BACKWARD_THREADS - -(-S * U // 32) * 32) // 32)
+
+
+def _backward_least_smem(C: int, S: int, ds, ms, nslots: int, full: bool) -> int:
+    """The shared memory of backward_block's last try: one utterance, one
+    frame a tile, the accumulators in the partials."""
+    return backward_smem_bytes(C, S, ds, ms, nslots, full, 1, 1, _backward_stat_warps(S, 1), True)
 
 
 def _on_cpu(name, feats) -> bool:

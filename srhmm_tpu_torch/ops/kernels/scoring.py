@@ -8,9 +8,14 @@ Counterpart of ``srhmm_tpu/ops/pallas/scoring_pallas.py``.  Three layers:
   the JAX package's, so both packages can be compared on the same arrays.
 * ``vocab_scores`` — (T, D, B) features + packed constants -> (W*S, B) final
   log-alpha.  On CUDA tensors it launches the hand-written kernel
-  ``csrc/vocab_scores.cu``; on CPU tensors it runs ``vocab_scores_plain``,
-  the same function in eager PyTorch.  ``vocab_scores.launches`` counts
-  kernel launches.
+  ``csrc/vocab_scores.cu`` at the launch shape ``vocab_block`` picks; on
+  CPU tensors it runs ``vocab_scores_plain``, the same function in eager
+  PyTorch.  ``vocab_scores.launches`` counts kernel launches.
+* ``fits`` — the static rule of which vocabularies the kernel takes (at
+  most MAX_STREAMS streams, feature dims within the compiled bound of 64,
+  at most MAX_STATES states): every refusal of the wrapper's, so
+  ``decode.scorer.score_batch`` routes any other vocabulary to the plain
+  path before a launch, never by catching an error.
 * ``score_batch_fused`` — (B, W) scores from an utterance batch: the
   counterpart of ``score_batch_fused_lane``.
 """
@@ -27,16 +32,25 @@ import torch
 from ...models.gmm_hmm import DIAG, FULL, GmmHmm
 from .common import (
     _TINY,
+    DMAX_BOUNDS,
     LOG_GAUS_CLAMP,
     NEG_INF,
     SMEM_LIMIT,
+    check_launch,
+    device_args,
     dmax_for,
     mixture_records,
     trans_band,
 )
 
 MAX_STREAMS = 6
-_THREADS = 128  # utterances per block; csrc/vocab_scores.cu kMaxThreads
+MAX_STATES = 256  # csrc/vocab_scores.cu kMaxStates
+VOCAB_THREADS = 640  # csrc/vocab_scores.cu kThreads: a block's recursion, emission and memory warps
+VOCAB_REC_WARPS = 8  # recursion warps a block at most
+VOCAB_MEMORY_WARPS = 1  # a block's warps staging the features
+VOCAB_UTTS = (32, 16, 8, 4, 2, 1)  # utterances a block (a power of 2 up to a warp)
+VOCAB_TILES = (32, 16, 8, 4, 2, 1)  # frames a tile, the largest that fits first
+VOCAB_SLOTS = (2, 4, 8)  # transition slots the recursion unrolls (0: the generic loop)
 
 
 def pack_vocab_constants(vocab: GmmHmm, dtype=torch.float32, stream: int = 0, device=None):
@@ -239,6 +253,79 @@ def _kernel_constants(a_s, bias_gs, biass, logws, diag, ds, ms, W, S, band, full
     return consts, offs, diag_off
 
 
+def refusal(n_streams: int, dims, S: int) -> str | None:
+    """Why the kernel does not take a vocabulary of n_streams streams of
+    feature dims `dims` with S states, or None where it does (any W, B, T,
+    band, mixture count; constants that do not fit shared memory are read
+    from device memory).  The CUDA wrapper raises with this reason, and
+    ``fits`` is its negation."""
+    if not 1 <= n_streams <= MAX_STREAMS:
+        return f"1 to {MAX_STREAMS} streams, got {n_streams}"
+    if max(dims) > DMAX_BOUNDS[-1]:
+        return f"feature dim {max(dims)} exceeds {DMAX_BOUNDS[-1]}"
+    if S > MAX_STATES:
+        return f"at most {MAX_STATES} states, got {S}"
+    return None
+
+
+def fits(n_streams: int, dims, S: int) -> bool:
+    """The static routing rule: True where the CUDA wrapper launches the
+    kernel for float32 tensors of these shapes (see ``refusal``)."""
+    return refusal(n_streams, dims, S) is None
+
+
+def vocab_slots(band: int) -> int:
+    """The transition slots the recursion unrolls: the smallest of
+    VOCAB_SLOTS >= band + 1, or 0 (the generic loop) for a wider band."""
+    return next((n for n in VOCAB_SLOTS if n >= band + 1), 0)
+
+
+def vocab_smem_bytes(C: int, S: int, sum_d: int, U: int, WB: int, TT: int, consts_global: bool = False) -> int:
+    """csrc/vocab_scores.cu vocab_floats: the WB words' constant blocks of C
+    floats (unless read from device memory), two slots each of the features
+    (TT, sum_p D_p, U) and of log b (TT, WB, S, U), two log-alpha rows (S,
+    WB U) and the block's frame count."""
+    P = U * WB
+    return 4 * ((0 if consts_global else WB * C) + 2 * TT * U * sum_d + 2 * TT * S * P + 2 * S * P + 4)
+
+
+def vocab_block(S: int, W: int, B: int, C: int, sum_d: int) -> dict:
+    """The launch shape for W words of S states and C constant floats each,
+    B utterances and features of sum_d dims over the streams.  A block's
+    pairs (word, utterance) are at most what VOCAB_REC_WARPS recursion warps
+    hold (32 // S pairs a warp for S <= 32, else ceil(S / 32) warps a pair);
+    of the U in VOCAB_UTTS and WB = that cap // U words, the one with the
+    most live pairs a block on average (B W over the blocks' slots), the
+    larger U on a tie; the tile the largest of VOCAB_TILES whose block fits
+    SMEM_LIMIT with the constants in shared memory, else with them in device
+    memory; VOCAB_MEMORY_WARPS memory warps and the rest of VOCAB_THREADS
+    emission warps (S <= MAX_STATES: ``refusal``)."""
+    Wn = -(-S // 32)  # warps a pair's states span
+    G = 32 // S if S <= 32 else 0  # pairs a recursion warp holds
+    cap = VOCAB_REC_WARPS * G if S <= 32 else max(1, VOCAB_REC_WARPS // Wn)
+    best = None
+    for U in VOCAB_UTTS:
+        if U > cap:
+            continue
+        WB = min(W, cap // U)
+        live = B * W / (-(-B // U) * -(-W // WB))  # live pairs a block on average
+        if best is None or live > best[0]:
+            best = (live, U, WB)
+    _, U, WB = best
+    shape = next(((TT, False) for TT in VOCAB_TILES if vocab_smem_bytes(C, S, sum_d, U, WB, TT) <= SMEM_LIMIT),
+                 None)
+    if shape is None:
+        shape = next((TT, True) for TT in VOCAB_TILES
+                     if vocab_smem_bytes(C, S, sum_d, U, WB, TT, True) <= SMEM_LIMIT)
+    TT, consts_global = shape
+    rec = -(-U * WB // G) if S <= 32 else U * WB * Wn
+    return {"utts": U, "words": WB, "tile": TT, "rec_warps": rec,
+            "em_warps": VOCAB_THREADS // 32 - rec - VOCAB_MEMORY_WARPS, "memory_warps": VOCAB_MEMORY_WARPS,
+            "warps_per_pair": Wn, "consts_global": consts_global, "threads": VOCAB_THREADS,
+            "blocks": -(-B // U) * -(-W // WB),
+            "smem_bytes": vocab_smem_bytes(C, S, sum_d, U, WB, TT, consts_global)}
+
+
 @functools.cache
 def _kernel_library() -> ctypes.CDLL:
     """The built kernel library with the launcher's C signature declared."""
@@ -252,60 +339,63 @@ def _kernel_library() -> ctypes.CDLL:
         ctypes.POINTER(c_int), c_int,  # feats, dims, mixes, offs, n_streams
         c_ptr, c_int, c_int, c_ptr, c_ptr,  # consts, C, diag_off, lengths, out
         c_int, c_int, c_int, c_int, c_int,  # T, B, W, S, band
-        c_int, c_int, c_int, c_int, c_int,  # full, viterbi, dmax, threads, device
-        c_ptr,  # stream
+        c_int, c_int, c_int,  # full, viterbi, dmax
+        c_int, c_int, c_int, c_int, c_int, c_int, c_int,  # U, WB, TT, rec_warps, em_warps, consts_global, nsl
+        c_int, c_ptr,  # device, stream
     ]
     return lib
 
 
-def _vocab_scores_cuda(featss, a_s, bias_gs, biass, logws, diag, lengths, s_word, band, semiring):
-    dev = featss[0].device
-    tensors = [*featss, *a_s, *bias_gs, *biass, *logws, diag]
-    if any(t.device != dev for t in [*tensors, lengths]):
-        raise ValueError("vocab_scores: every tensor must be on the features' CUDA device")
-    if any(t.dtype != torch.float32 for t in tensors):
-        raise ValueError("vocab_scores: the CUDA kernel takes float32 tensors only")
-    P = len(featss)
-    if P > MAX_STREAMS:
-        raise ValueError(f"vocab_scores: at most {MAX_STREAMS} streams, got {P}")
-    ds, ms, full = _stream_shapes(featss, a_s)
-    T, _, B = featss[0].shape
-    N = a_s[0].shape[1]
-    if N % s_word:
-        raise ValueError("vocab_scores: rows are not a whole number of words")
-    S, W = s_word, N // s_word
-    if W > 65535:
-        raise ValueError(f"vocab_scores: at most 65535 words per launch, got {W}")
-    if any(f.shape[0] != T or f.shape[2] != B for f in featss) or lengths.shape != (B,):
-        raise ValueError("vocab_scores: streams disagree on (T, B)")
-    dmax = dmax_for(ds, "vocab_scores")
-    consts, offs, diag_off = _kernel_constants(
-        a_s, bias_gs, biass, logws, diag, ds, ms, W, S, band, full, dmax
-    )
-    C = consts.shape[1]
-    smem = 4 * (C + 2 * S * _THREADS)
-    if smem > SMEM_LIMIT:
-        raise ValueError(
-            f"vocab_scores: one word needs {smem} bytes of shared memory, "
-            f"above the {SMEM_LIMIT}-byte budget of a block"
-        )
-    featss = [f.contiguous() for f in featss]
-    lens = lengths.to(torch.int32).contiguous()
-    out = torch.empty((N, B), dtype=torch.float32, device=dev)
+class _VocabLaunch:
+    """Checked, packed arguments of one vocab_scores launch: every refusal
+    of the CUDA wrapper, and the launch shape (no CUDA call, so the checks
+    also run on tensors of any device)."""
 
-    lib = _kernel_library()
+    def __init__(self, featss, a_s, bias_gs, biass, logws, diag, lengths, s_word, band):
+        dev = featss[0].device
+        tensors = [*featss, *a_s, *bias_gs, *biass, *logws, diag]
+        if any(t.device != dev for t in [*tensors, lengths]):
+            raise ValueError("vocab_scores: every tensor must be on the features' CUDA device")
+        if any(t.dtype != torch.float32 for t in tensors):
+            raise ValueError("vocab_scores: the CUDA kernel takes float32 tensors only")
+        P, S = len(featss), s_word
+        ds = tuple(f.shape[1] for f in featss)
+        why = refusal(P, ds, S)
+        if why is not None:
+            raise ValueError(f"vocab_scores: {why}")
+        ds, ms, full = _stream_shapes(featss, a_s)
+        T, _, B = featss[0].shape
+        N = a_s[0].shape[1]
+        if N % S:
+            raise ValueError("vocab_scores: rows are not a whole number of words")
+        if any(f.shape[0] != T or f.shape[2] != B for f in featss) or lengths.shape != (B,):
+            raise ValueError("vocab_scores: streams disagree on (T, B)")
+        W = N // S
+        self.dmax = dmax_for(ds, "vocab_scores")
+        self.consts, self.offs, self.diag_off = _kernel_constants(
+            a_s, bias_gs, biass, logws, diag, ds, ms, W, S, band, full, self.dmax
+        )
+        self.shape = vocab_block(S, W, B, self.consts.shape[1], sum(ds))
+        self.dev, self.ds, self.ms, self.full = dev, ds, ms, full
+        self.T, self.B, self.W, self.S, self.N, self.band = T, B, W, S, N, band
+        self.feats = [f.contiguous() for f in featss]
+        self.lengths = lengths.to(torch.int32).contiguous()
+
+
+def _vocab_scores_cuda(featss, a_s, bias_gs, biass, logws, diag, lengths, s_word, band, semiring):
+    ln = _VocabLaunch(featss, a_s, bias_gs, biass, logws, diag, lengths, s_word, band)
+    sh = ln.shape
+    out = torch.empty((ln.N, ln.B), dtype=torch.float32, device=ln.dev)
+    P = len(ln.feats)
     ints = ctypes.c_int * P
-    err = lib.srhmm_vocab_scores(
-        (ctypes.c_void_p * P)(*[f.data_ptr() for f in featss]),
-        ints(*ds), ints(*ms), ints(*offs), P,
-        consts.data_ptr(), C, diag_off, lens.data_ptr(), out.data_ptr(),
-        T, B, W, S, band, int(full), int(semiring == "max"), dmax, _THREADS,
-        dev.index if dev.index is not None else torch.cuda.current_device(),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    if err != 0:
-        msg = lib.srhmm_cuda_error_string(err).decode()
-        raise RuntimeError(f"vocab_scores kernel launch failed: CUDA error {err} ({msg})")
+    check_launch("vocab_scores", _kernel_library().srhmm_vocab_scores(
+        (ctypes.c_void_p * P)(*[f.data_ptr() for f in ln.feats]),
+        ints(*ln.ds), ints(*ln.ms), ints(*ln.offs), P,
+        ln.consts.data_ptr(), ln.consts.shape[1], ln.diag_off, ln.lengths.data_ptr(), out.data_ptr(),
+        ln.T, ln.B, ln.W, ln.S, band, int(ln.full), int(semiring == "max"), ln.dmax,
+        sh["utts"], sh["words"], sh["tile"], sh["rec_warps"], sh["em_warps"], int(sh["consts_global"]),
+        vocab_slots(band), *device_args(ln.dev),
+    ))
     vocab_scores.launches += 1
     return out
 

@@ -617,28 +617,51 @@ def e_step_lane_major(model: GmmHmm, batch: UtteranceBatch, lattices: str = "sca
     )
 
 
-def _fused_lane_eligible(model: GmmHmm, batch) -> bool:
+_MODEL_BAND = object()  # _fused_lane_eligible's default: the band of the model's transitions
+
+
+def _fused_lane_eligible(model: GmmHmm, batch, band=_MODEL_BAND) -> bool:
     """Static facts only: the fused kernels take homogeneous diagonal or
-    full covariance (one batch per stream), float32 features, and CUDA
-    tensors."""
+    full covariance (one batch per stream), float32 features, CUDA tensors,
+    and the model's shapes at its transition band (ops/kernels/fused_em.py
+    ``fits``: streams, states, band, feature dims, the full-covariance bound,
+    shared memory).  band: trans_band of the model (None = dense), by
+    default computed here from model.trans (a host sync)."""
+    batches = _as_batches(batch)
+    if not _on_card_float32(batches):
+        return False
+    if band is _MODEL_BAND:
+        band = trans_band(model.trans.detach().cpu().numpy())
+    return _kernels_take(model, batches, band)
+
+
+def _on_card_float32(batches) -> bool:
+    """Float32 features on a CUDA device: what the fused kernels compute on."""
+    return all(b.features.dtype == torch.float32 and b.features.device.type == "cuda" for b in batches)
+
+
+def _kernels_take(model: GmmHmm, batches, band) -> bool:
+    """The fused kernels' static shape rule: homogeneous diagonal or full
+    covariance, one batch per stream, and ops/kernels/fused_em.py ``fits``
+    at the transition band (None = dense)."""
+    from ..ops.kernels.fused_em import fits
+
     cov = model.streams[0].cov_type
     if cov not in (DIAG, FULL) or any(s.cov_type != cov for s in model.streams):
         return False
-    batches = _as_batches(batch)
     if len(batches) != len(model.streams):
         return False
-    return all(
-        b.features.dtype == torch.float32 and b.features.device.type == "cuda" for b in batches
-    )
+    return fits(model.coef_numbers, model.mixture_numbers, cov == FULL, model.num_states, band)
 
 
 def _fused_setup(model: GmmHmm, batch):
     """(use_fused, feats_tdb, band) for a loop of E-steps, decided once on
-    the host: eligibility, the static transition band of the model (EM
-    preserves its zeros) and the single-stream (T, D, B) feature transpose."""
-    if not _fused_lane_eligible(model, batch):
-        return False, None, None
+    the host: the static transition band of the model (EM preserves its
+    zeros), eligibility at that band and the single-stream (T, D, B) feature
+    transpose."""
     band = trans_band(model.trans.detach().cpu().numpy())
+    if not _fused_lane_eligible(model, batch, band):
+        return False, None, None
     feats_tdb = None if isinstance(batch, tuple) else batch.features.permute(1, 2, 0).contiguous()
     return True, feats_tdb, band
 
@@ -663,16 +686,17 @@ def em_step(
     last two as device scalars.
 
     fused: None auto-selects the fused kernels when eligible
-    (_fused_lane_eligible: CUDA float32, homogeneous diag/full); True forces
-    them (the plain twins on CPU tensors); False forces the plain e_step.
-    feats_tdb / band: precomputed (T, D, B) feature transpose and static
-    transition band for the fused path; band=None computes it on the host
-    from model.trans (a device sync: loops pass it)."""
+    (_fused_lane_eligible: CUDA float32, homogeneous diag/full, shapes the
+    kernels take); True forces them (the plain twins on CPU tensors); False
+    forces the plain e_step.  feats_tdb / band: precomputed (T, D, B)
+    feature transpose and static transition band for the fused path;
+    band=None computes it on the host from model.trans (a device sync:
+    loops pass it)."""
     if bf16_stats:
         raise NotImplementedError("em_step: bf16_stats is not ported to srhmm_tpu_torch")
-    use_fused = _fused_lane_eligible(model, batch) if fused is None else fused
-    if use_fused and band is None:
+    if band is None and fused is not False:
         band = trans_band(model.trans.detach().cpu().numpy())
+    use_fused = _fused_lane_eligible(model, batch, band) if fused is None else fused
     stats = _e_step_any(model, batch, use_fused, feats_tdb, band)
     new_model = m_step(model, stats, var_floor=var_floor)
     return new_model, stats.log_prob, stats.num_valid

@@ -1024,3 +1024,120 @@ def test_lane_e_steps_take_the_kernels(cuda_device, monkeypatch):
         np.testing.assert_allclose(float(got.log_prob), float(want.log_prob), rtol=1e-5)
     assert [f.launches for f in (ke.emission_log_b, ke.emission_stats, kl.forward_lattice_blocked,
                                  kl.backward_lattice_blocked)] == [n + 1 for n in counts]
+
+
+# ---------------------------------------------------------------------------
+# the vocabulary-scoring kernel's launch shapes and routing
+# (csrc/vocab_scores.cu), the emission log-b kernel (csrc/emission_em.cu)
+# and the isolated-word EM routing
+# ---------------------------------------------------------------------------
+
+from torch_port_utils import EMISSION_EXTRA_CASES, VOCAB_CHECK_CASES, vocab_check_case  # noqa: E402
+
+
+@pytest.mark.parametrize("i", range(len(VOCAB_CHECK_CASES)))
+def test_vocab_scores_matches_plain_at_every_launch_shape(cuda_device, i):
+    """vocab_scores' final log-alpha at each of VOCAB_CHECK_CASES (2 / 4 / 8
+    slots and the generic loop, two and six streams, pairs across two and
+    eight warps, constants in device memory, ragged word and utterance
+    blocks, T below a tile; rows of length 0 and 1) against the twin, both
+    semirings; two launches bitwise equal."""
+    args, kw = scoring.pack_batch(*vocab_check_case(i, cuda_device))
+    for semiring in ("sum", "max"):
+        launches = scoring.vocab_scores.launches
+        got = scoring.vocab_scores(*args, **kw, semiring=semiring)
+        again = scoring.vocab_scores(*args, **kw, semiring=semiring)
+        want = scoring.vocab_scores_plain(*args, **kw, semiring=semiring)
+        torch.cuda.synchronize()
+        assert scoring.vocab_scores.launches == launches + 2
+        _lattice_close(got, want)
+        assert torch.equal(got, again)
+
+
+def test_score_batch_scores_full_d39_through_the_kernel(cuda_device):
+    """A full-covariance D=39, S=6, M=4 vocabulary: its constants (246 KB a
+    word) exceed a block's shared memory, which the scoring kernel before
+    its redesign refused inside score_batch; now the kernel reads them from
+    device memory and score_batch (auto) matches score_batch_log."""
+    from srhmm_tpu_torch.decode.scorer import score_batch, score_batch_log
+
+    vocab = _vocab("full", 3, 6, ((4, 39),)).to(cuda_device)
+    batch = _batch(cuda_device, [39], [0, 1, 40, 77, 120, 3, 95])
+    for mode in ("total", "final"):
+        launches = scoring.vocab_scores.launches
+        got = score_batch(vocab, batch, mode=mode).cpu().numpy()
+        assert scoring.vocab_scores.launches == launches + 1
+        want = score_batch_log(vocab, batch, mode=mode).cpu().numpy()
+        fin = np.isfinite(want)
+        assert (np.isfinite(got) == fin).all()
+        np.testing.assert_allclose(got[fin], want[fin], rtol=1e-4, atol=1e-5 * np.abs(want[fin]).max())
+        assert (got.argmax(1) == want.argmax(1)).all()
+
+
+def test_score_batch_routes_refused_shapes_to_the_plain_path(cuda_device):
+    """Vocabularies the kernel refuses (feature dims past 64, more than 256
+    states) go to score_batch_log on the card without a launch."""
+    from srhmm_tpu_torch.decode.scorer import score_batch, score_batch_log
+
+    for vocab, dims in ((_vocab("diag", 2, 4, ((1, 65),)), [65]), (_vocab("diag", 1, 257, ((1, 3),)), [3])):
+        vocab = vocab.to(cuda_device)
+        batch = _batch(cuda_device, dims, [0, 1, 30])
+        launches = scoring.vocab_scores.launches
+        got = score_batch(vocab, batch)
+        assert scoring.vocab_scores.launches == launches
+        assert torch.equal(got, score_batch_log(vocab, batch))
+
+
+_EMISSION_LOG_B_CASES = [(4133, 8, M, D) for D in (1, 9, 39, 64) for M in (1, 3, 16)] + EMISSION_EXTRA_CASES
+
+
+@pytest.mark.parametrize("N,S,M,D", _EMISSION_LOG_B_CASES)
+def test_emission_log_b_matches_plain(cuda_device, N, S, M, D):
+    """emission_log_b against its twin at a ragged N (off every tile), D = 1
+    / 9 / 39 / 64 x M = 1 / 3 / 16, and at EMISSION_EXTRA_CASES (blocks
+    walking several tiles, records past shared memory, fewer threads a
+    block): within 1e-5 relative, equal masks, two launches bitwise equal,
+    and a frame view off 16-byte alignment taken too."""
+    from srhmm_tpu_torch.ops.kernels import emission as ke
+
+    trans, streams = rand_word(100 * D + M + S, S, [(M, D)], "diag", scale=3.0)
+    stream = tm.gmm_hmm_from_numpy(trans, streams).astype(torch.float32).to(cuda_device).streams[0]
+    rng = np.random.default_rng(17)
+    frames = torch.as_tensor(rng.normal(size=(N + 1, D)) * 3, dtype=torch.float32, device=cuda_device)
+    a, b = ke.pack_constants(stream, torch.float32)
+    launches = ke.emission_log_b.launches
+    got, again = ke.emission_log_b(frames[:N], a, b), ke.emission_log_b(frames[:N], a, b)
+    _lattice_close(got, ke.emission_log_b_plain(frames[:N], a, b))
+    assert torch.equal(got, again)
+    shifted = frames.reshape(-1)[1 : 1 + N * D].reshape(N, D)  # a view 4 bytes off
+    _lattice_close(ke.emission_log_b(shifted, a, b), ke.emission_log_b_plain(shifted, a, b))
+    torch.cuda.synchronize()
+    assert ke.emission_log_b.launches == launches + 3
+
+
+def test_train_fast_full_d39_takes_the_plain_route(cuda_device):
+    """Full covariance at D=39 is past the fused E-step kernels' bound (16):
+    em_step (auto), train_fast and em_train_scan take the plain e_step on
+    the card instead of raising, and train_fast equals the chunked driver
+    over em_train_scan(fused=False)."""
+    from srhmm_tpu_torch.train.driver import chunked_convergence_train
+
+    rng = np.random.default_rng(21)
+    utts = [rng.normal(size=(int(rng.integers(80, 120)), 39)) + np.arange(39) * 0.1 for _ in range(64)]
+    batch = pack_utterances(utts, pad_multiple=1, dtype=torch.float32, device=cuda_device)
+    trans, streams = rand_word(21, 3, [(1, 39)], "full")
+    model = tm.gmm_hmm_from_numpy(trans, streams).astype(torch.float32).to(cuda_device)
+    assert not em._fused_lane_eligible(model, batch)
+    counts = fe.emit_forward.launches, fe.backward_stats.launches
+    m_auto, lp_auto, _ = em.em_step(model, batch)
+    m_plain, lp_plain, _ = em.em_step(model, batch, fused=False)
+    assert torch.equal(lp_auto, lp_plain)
+    res = em.train_fast(model, batch, max_iterations=3, chunk=2)
+    want = chunked_convergence_train(
+        model, lambda m, k: em.em_train_scan(m, batch, k, fused=False), threshold=1.0e-3, max_iterations=3, chunk=2)
+    torch.cuda.synchronize()
+    assert (fe.emit_forward.launches, fe.backward_stats.launches) == counts
+    assert np.isfinite(res.log_prob_history).all()
+    assert res.iterations == want[1] and res.log_prob_history == want[2]
+    for x, y in zip(res.model.buffers(), want[0].buffers()):
+        assert torch.equal(x, y)

@@ -8,7 +8,9 @@ Pallas kernels in interpret mode on the same packed arrays: log b within
 tests/test_pallas_kernels.py:33-39 and :215-217); log_state_emission_fused
 against JAX's and against the plain log_state_emission; an all -inf log b
 gives all-zero moments (mirrors :220-238); a zero-weight mixture; N off
-every tile of the CUDA kernels (128 frames a chunk, 2048 a block).
+every tile of the CUDA kernels (128 frames a chunk, 2048 a block); the
+emission kernel's launch shapes (emission_block) for every shape the
+7ca66a2 kernel took.
 """
 
 import jax.numpy as jnp
@@ -120,3 +122,28 @@ def test_cpu_tensors_run_the_twins():
     assert (ke.emission_log_b.launches, ke.emission_stats.launches) == before
     with pytest.raises(ValueError, match="no implementation"):
         ke.emission_log_b(torch.empty((16, 5), device="meta"), a, b)
+
+
+def test_emission_block_takes_every_shape_it_took_at_7ca66a2():
+    """emission_block gives a launch shape within a block's shared memory to
+    every (D, S, M) the 7ca66a2 kernel took (its S M records of 2 DMAX + 4
+    floats in shared memory, D <= 64) and to more: fewer threads where the
+    tiles do not fit, the records in device memory where they do not fit
+    beside a tile, log b straight out where its tile does not fit; its bytes
+    mirror csrc/emission_em.cu emit_floats."""
+    for D in (1, 3, 9, 13, 16, 17, 39, 64):
+        dmax = next(b for b in (4, 8, 12, 16, 32, 64) if b >= D)
+        for S in (1, 8, 64, 200, 256, 1024):
+            for M in (1, 3, 16, 64):
+                sh = ke.emission_block(4133, D, S, M)
+                assert sh["smem_bytes"] <= ke.SMEM_LIMIT
+                tf = sh["threads"] * (2 if dmax <= 16 else 1)
+                recs = 0 if sh["recs_global"] else S * M * (2 * dmax + 4)
+                assert sh["smem_bytes"] == 4 * (recs + 2 * tf * D + (0 if sh["direct"] else tf * S))
+                assert sh["tile_frames"] == tf and sh["tiles"] == -(-4133 // tf)
+                # the records in shared memory wherever they fit beside 32 threads' tiles
+                tf32 = 32 * (2 if dmax <= 16 else 1)
+                fits32 = 4 * (S * M * (2 * dmax + 4) + tf32 * (2 * D + S)) <= ke.SMEM_LIMIT
+                assert sh["recs_global"] != fits32 or sh["direct"]
+    with pytest.raises(ValueError, match="exceeds"):
+        ke.emission_block(10, 65, 8, 3)

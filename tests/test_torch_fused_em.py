@@ -8,9 +8,12 @@ max(|x|, 1) with equal masks above NEG_INF/2, statistics rtol 2e-3 and atol
 2e-4 * max, the bounds tests/test_pallas_kernels.py holds the Pallas kernels
 to); e_step_fused_lane(_multi) against JAX's e_step with padded, zero-length
 and length-1 rows and odd B / T; padding invariance; exact dense xi; the
-kernel's constant block read back the way csrc/fused_em.cu reads it; and the
-dispatch on CPU tensors.  The CUDA kernels are held against the twins on the
-card by tests/test_torch_cuda.py and chip_smoke.py.
+kernel's constant block read back the way csrc/fused_em.cu reads it; the
+dispatch on CPU tensors; the routing rule ``fits`` against the wrappers' own
+checks run on meta tensors over a sweep of (P, S, D, M, covariance, band),
+and the EM routing of refused models to the plain e_step.  The CUDA kernels
+are held against the twins on the card by tests/test_torch_cuda.py and
+chip_smoke.py.
 """
 
 import jax.numpy as jnp
@@ -23,6 +26,7 @@ import srhmm_tpu.train.em as j_em
 import srhmm_tpu_torch.train.em as t_em
 from srhmm_tpu.io.dataset import pack_utterances as j_pack
 from srhmm_tpu_torch.io.dataset import UtteranceBatch, pack_utterances
+from srhmm_tpu_torch.models import gmm_hmm_from_numpy
 from srhmm_tpu_torch.ops.kernels import fused_em as fe
 from srhmm_tpu_torch.ops.kernels.common import LOG_GAUS_CLAMP, NEG_INF
 from torch_port_utils import both_models, rand_word
@@ -451,3 +455,78 @@ def test_no_emit_shape_taken_before_the_redesign_is_refused_now():
             for B in (1, 2048):
                 shape = fe.emit_block(S, B, C, ds, 132)
                 assert _emit_shape_is_launchable(shape, S, B) and shape["consts_global"]
+
+
+def _meta_refusal(ds, ms, full, S, band):
+    """What the CUDA wrappers' own checks say of these shapes, on meta
+    tensors (shapes without data): _Launch's checks and constants, then the
+    launch shapes emit_block and backward_block choose.  The error's text,
+    or None where both kernels would launch (the E-step runs both)."""
+    m = dict(device="meta", dtype=torch.float32)
+    T, B = 4, 3
+    feats = tuple(torch.empty((T, D, B), **m) for D in ds)
+    packed = tuple(
+        (torch.empty((M * S * D, D) if full else (M * S, 2 * D), **m),
+         torch.empty((M * S * D, 1) if full else (1, 1), **m),
+         torch.empty((M * S, 1), **m), torch.empty((M * S, 1), **m))
+        for D, M in zip(ds, ms)
+    )
+    origins = tuple(torch.empty(D, **m) for D in ds)
+    lengths = torch.empty(B, dtype=torch.int32, device="meta")
+    try:
+        ln = fe._Launch("fits", feats, packed, origins, torch.empty((S, S), **m), lengths, band)
+        assert ln.consts.numel() == fe.constant_floats(ln.ds, ln.ms, full, S, ln.dmax)
+        fe.emit_block(S, B, ln.consts.numel(), ln.ds, 132)
+        ln.block(1)
+    except ValueError as e:
+        return str(e)
+    return None
+
+
+@pytest.mark.parametrize("full", [False, True])
+def test_fits_mirrors_the_wrappers_refusals(full):
+    """fused_em.fits (and so the EM routing) accepts exactly the (P, S, D,
+    M, band) the two wrappers launch: streams past 6, states past 256, a
+    band outside the model, dims past 64 (16 for full covariance) and
+    backward-stats blocks past shared memory are refused by both."""
+    seen = {True: 0, False: 0}
+    for P in (1, 2, 6, 7):
+        for S in (1, 5, 8, 40, 256, 257):
+            for D in (1, 9, 16, 17, 39, 64, 65):
+                for M in (1, 4, 16):
+                    for band in (0, 1, None):
+                        ds, ms = (D,) * P, (M,) * P
+                        why = _meta_refusal(ds, ms, full, S, band)
+                        ok = fe.fits(ds, ms, full, S, band)
+                        assert ok == (why is None), (P, S, D, M, band, why)
+                        assert ok or why.endswith(fe.refusal(ds, ms, full, S, band))
+                        if why is not None and "shared memory" in why:  # backward-stats' refusal alone
+                            assert fe._launch_refusal(ds, full, S, band) is None
+                        seen[ok] += 1
+    assert seen[True] and seen[False]
+
+
+def test_em_routes_refused_shapes_to_the_plain_e_step(monkeypatch):
+    """Where the kernels refuse a model (full covariance past D=16 here),
+    em_step (auto) and train_fast's setup take the plain e_step even for
+    features the kernels compute on (the device rule stubbed true on this
+    host); where they take it, the fused E-step runs."""
+    monkeypatch.setattr(t_em, "_on_card_float32", lambda batches: True)
+    rng = np.random.default_rng(4)
+    for D, full_ok in ((17, False), (9, True)):
+        model = gmm_hmm_from_numpy(*rand_word(30 + D, 3, [(1, D)], "full")).astype(torch.float32)
+        utts = [rng.normal(size=(n, D)) + 0.1 * np.arange(D) for n in (40, 33, 51)]
+        batch = pack_utterances(utts, pad_multiple=1, dtype=torch.float32)
+        assert t_em._fused_lane_eligible(model, batch) is full_ok
+        assert t_em._fused_setup(model, batch)[0] is full_ok
+        calls = []
+        real = t_em._e_step_fused
+        monkeypatch.setattr(t_em, "_e_step_fused", lambda *a: calls.append(1) or real(*a))
+        _, lp_auto, _ = t_em.em_step(model, batch)
+        _, lp_plain, _ = t_em.em_step(model, batch, fused=False)
+        assert calls == ([1] if full_ok else [])
+        if full_ok:
+            np.testing.assert_allclose(float(lp_auto), float(lp_plain), rtol=1e-5)
+        else:
+            assert float(lp_auto) == float(lp_plain)
+        monkeypatch.setattr(t_em, "_e_step_fused", real)

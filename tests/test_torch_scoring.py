@@ -7,7 +7,11 @@ full and multi-stream rtol 1e-4, atol 1e-5 * max|ref|, equal finite masks,
 the tolerances tests/test_pallas_kernels.py holds the Pallas kernel to);
 the max semiring against Viterbi; the kernel's per-word constant layout,
 read back the way csrc/vocab_scores.cu reads it; the build's missing-nvcc
-error.  The CUDA kernel is held against the plain version on the card by
+error; the routing rule ``fits`` against the 7ca66a2 kernel's acceptance
+rule (written out) and against the CUDA wrapper's own checks run on meta
+tensors, vocab_block's launch shapes, score_batch's static routing of
+refused shapes to score_batch_log and that path against JAX.  The CUDA
+kernel is held against the plain version on the card by
 tests/test_torch_cuda.py.
 """
 
@@ -249,3 +253,118 @@ def test_score_batch_dispatch_on_cpu():
     )
     with pytest.raises(ValueError, match="impl"):
         score_batch(tv, tb, impl="xla")
+
+
+def _fits_at_7ca66a2(P, ds, ms, full, S, W, band):
+    """The scoring kernel's acceptance rule at 7ca66a2, written out: at most
+    6 streams, at most 65535 words (the grid's y extent), feature dims
+    within the compiled bound of 64, and one word's constants plus two
+    (S, 128) columns of log-alpha and log b in a block's shared memory
+    (232,448 bytes): per stream S M records of 2 DMAX + 4 floats (diagonal)
+    or D DMAX + DMAX + 4 (full), then the (band+1, S) diagonals, padded to
+    4 floats."""
+    if P > 6 or W > 65535 or max(ds) > 64:
+        return False
+    dmax = next(b for b in (4, 8, 12, 16, 32, 64) if b >= max(ds))
+    C = sum(S * M * (D * dmax + dmax + 4 if full else 2 * dmax + 4) for D, M in zip(ds, ms)) + (band + 1) * S
+    C = -(-C // 4) * 4
+    return 4 * (C + 2 * S * 128) <= 232448
+
+
+def _meta_vocab_launch(P, D, M, full, S, W, band, B=37, T=95):
+    """scoring._VocabLaunch on meta tensors (shapes without data) of a
+    vocabulary of W words: the CUDA wrapper's every check and its launch
+    shape, or the ValueError it raises."""
+    m = dict(device="meta", dtype=torch.float32)
+    N = W * S
+    a = torch.empty((M * D, N, D) if full else (M, N, 2 * D), **m)
+    bg = torch.empty((M * D, N, 1) if full else (1, 1, 1), **m)
+    bias = torch.empty((M, N, 1), **m)
+    logw = torch.empty((M, N, 1) if full else (1, 1, 1), **m)
+    feats = tuple(torch.empty((T, D, B), **m) for _ in range(P))
+    return scoring._VocabLaunch(feats, (a,) * P, (bg,) * P, (bias,) * P, (logw,) * P,
+                                torch.empty((band + 1, N, 1), **m), torch.empty(B, dtype=torch.int32, device="meta"),
+                                S, band)
+
+
+@pytest.mark.parametrize("full", [False, True])
+def test_fits_takes_every_shape_it_took_at_7ca66a2_and_mirrors_the_wrapper(full):
+    """scoring.fits (and so score_batch's routing) takes every (P, S, D, M,
+    W, band) the 7ca66a2 rule took, and exactly what the CUDA wrapper
+    launches (its checks run on meta tensors); every shape it takes gets a
+    launch shape within a block's shared memory and warps."""
+    seen = {True: 0, False: 0}
+    for P in (1, 2, 6, 7):
+        for S in (1, 6, 40, 215, 216, 257):
+            for D in (1, 9, 39, 64, 65):
+                for M in (1, 4, 16):
+                    for W in (1, 13, 65536):
+                        for band in (0, 1, 9):
+                            if band >= S:
+                                continue
+                            ok = scoring.fits(P, (D,) * P, S)
+                            assert ok or not _fits_at_7ca66a2(P, (D,) * P, (M,) * P, full, S, W, band)
+                            try:
+                                sh = _meta_vocab_launch(P, D, M, full, S, W, band).shape
+                            except ValueError as e:
+                                assert not ok and str(e).endswith(scoring.refusal(P, (D,) * P, S))
+                                seen[False] += 1
+                                continue
+                            assert ok, (P, S, D, M, W, band)
+                            assert sh["smem_bytes"] <= scoring.SMEM_LIMIT and sh["em_warps"] >= 1
+                            assert 32 * (sh["rec_warps"] + sh["em_warps"] + sh["memory_warps"]) == sh["threads"]
+                            seen[True] += 1
+    assert seen[True] and seen[False]
+
+
+def test_vocab_block_shapes():
+    """vocab_block: the most live (word, utterance) pairs a block (a larger
+    U on a tie), the recursion's warps, the largest tile that fits, the
+    constants in device memory only where they fit beside no tile; the
+    unrolled slot counts; the shared-memory mirror of the kernel's
+    layout."""
+    sh = scoring.vocab_block(6, 13, 2048, 756, 9)  # full13: 8 utterances x 5 words, 40 pairs on 8 warps
+    assert (sh["utts"], sh["words"], sh["rec_warps"], sh["em_warps"], sh["tile"], sh["consts_global"]) \
+        == (8, 5, 8, 11, 32, False)
+    sh = scoring.vocab_block(8, 10, 2048, 1168, 13)  # diag10: 32 utterances of one word
+    assert (sh["utts"], sh["words"], sh["rec_warps"], sh["blocks"]) == (32, 1, 8, 640)
+    sh = scoring.vocab_block(256, 2, 9, 3840, 3)  # a pair across eight warps
+    assert (sh["utts"], sh["words"], sh["rec_warps"], sh["warps_per_pair"]) == (1, 1, 8, 8)
+    sh = scoring.vocab_block(6, 3, 37, 61548, 39)  # full D=39, M=4: 246 KB of constants a word
+    assert sh["consts_global"] and sh["smem_bytes"] <= scoring.SMEM_LIMIT
+    assert [scoring.vocab_slots(b) for b in (0, 1, 2, 3, 7, 8, 30)] == [2, 2, 4, 4, 8, 0, 0]
+    assert scoring.vocab_smem_bytes(756, 6, 9, 8, 5, 32) == 4 * (5 * 756 + 2 * 32 * 8 * 9 + 2 * 32 * 6 * 40
+                                                                + 2 * 6 * 40 + 4)
+
+
+def test_score_batch_routes_by_the_static_rule(monkeypatch):
+    """With features the kernel computes on (the device rule stubbed true on
+    this host), score_batch takes the kernel for a shape fits accepts and
+    score_batch_log, without a launch, for one it refuses (a feature dim
+    past 64, more than 256 states)."""
+    from srhmm_tpu_torch.decode import scorer
+
+    monkeypatch.setattr(scorer, "_on_card_float32", lambda vocab, batches: True)
+    calls = []
+    monkeypatch.setattr(scoring, "score_batch_fused", lambda *a, **k: calls.append("kernel") or "kernel")
+    rng = np.random.default_rng(6)
+    for (S, D), want in (((4, 5), "kernel"), ((4, 65), "plain"), ((257, 3), "plain")):
+        _, tv = _vocabs("diag", W=2, S=S, mixes_dims=((1, D),))
+        _, tb = _batches([rng.normal(size=(n, D)) for n in (9, 14)])
+        got = score_batch(tv, tb)
+        if want == "kernel":
+            assert got == "kernel" and calls == ["kernel"]
+        else:
+            np.testing.assert_array_equal(got.numpy(), score_batch_log(tv, tb).numpy())
+        calls.clear()
+
+
+def test_score_batch_of_a_refused_shape_matches_jax():
+    """A vocabulary the kernel refuses (D=65) takes score_batch_log, which
+    matches JAX's score_batch_log."""
+    jv, tv = _vocabs("diag", W=3, S=4, mixes_dims=((2, 65),), scale=1.0)
+    rng = np.random.default_rng(9)
+    jb, tb = _batches([rng.normal(size=(12 + 5 * i, 65)) for i in range(4)])
+    assert not scoring.fits(1, (65,), 4)
+    for mode in ("total", "final"):
+        _close(score_batch(tv, tb, mode=mode).numpy(), np.asarray(j_score_batch_log(jv, jb, mode=mode)), 1e-5)

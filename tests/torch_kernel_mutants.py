@@ -1,14 +1,14 @@
 """Mutation check of csrc/lattice.cu, csrc/emission_em.cu, csrc/composed.cu,
-csrc/fused_em.cu, csrc/tile_mma.cuh, csrc/word_loop_decode.cu and
-csrc/mfcc.cu
+csrc/fused_em.cu, csrc/tile_mma.cuh, csrc/emission.cuh,
+csrc/word_loop_decode.cu, csrc/mfcc.cu and csrc/vocab_scores.cu
 (needs a CUDA card and nvcc; not a tier-1 test):
 
     python tests/torch_kernel_mutants.py [mutant ...]
 
 Each mutant is a copy of the tree in a temporary directory with one
 deliberate fault in a kernel source; the chip_smoke.py phase that should
-catch it (kernel_lattice, kernel_emission, kernel_composed, kernel_em,
-kernel_decode or kernel_mfcc) runs there, after the build.
+catch it (kernel, kernel_lattice, kernel_emission, kernel_composed,
+kernel_em, kernel_decode or kernel_mfcc) runs there, after the build.
 Prints one JSON line per mutant: caught (the phase raised) or survived.
 With no arguments every mutant runs.
 """
@@ -25,6 +25,7 @@ LAT, EM = "srhmm_tpu_torch/csrc/lattice.cu", "srhmm_tpu_torch/csrc/emission_em.c
 COMP = "srhmm_tpu_torch/csrc/composed.cu"
 FEM, TILE = "srhmm_tpu_torch/csrc/fused_em.cu", "srhmm_tpu_torch/csrc/tile_mma.cuh"
 DEC = "srhmm_tpu_torch/csrc/word_loop_decode.cu"
+EMC, VOC = "srhmm_tpu_torch/csrc/emission.cuh", "srhmm_tpu_torch/csrc/vocab_scores.cu"
 MUTANTS = [
     ("forward_length_mask", LAT, "    } else if (t < len) {\n      const float* prev = row + ((t + 1) & 1) * nt + q.base;\n      float m",
      "    } else if (t <= len) {\n      const float* prev = row + ((t + 1) & 1) * nt + q.base;\n      float m", "kernel_lattice"),
@@ -32,8 +33,8 @@ MUTANTS = [
     ("viterbi_tie_to_highest", LAT, "if (c > best) {", "if (c >= best) {", "kernel_lattice"),
     ("per_row_shared_matrix", LAT, "p.lt[(size_t)b0 * SS + i]", "p.lt[(size_t)b0 * SS + i % SS]", "kernel_lattice"),
     ("forward_no_carry_clamp", LAT, "carry = fmaxf(m + logf(e) + lb, kNegInf);", "carry = m + logf(e) + lb;", "kernel_lattice"),
-    ("emission_drops_last_mixture", EM, "diag_state_log_b<DMAX>(rec_sh + s * M * stride, M, x, x2)",
-     "diag_state_log_b<DMAX>(rec_sh + s * M * stride, M - (M > 1), x, x2)", "kernel_emission"),
+    ("emission_drops_last_mixture", EM, "state_log_b_cols<DMAX, false, NC>(recs + s * M * stride, M, D, x, v);",
+     "state_log_b_cols<DMAX, false, NC>(recs + s * M * stride, M - (M > 1), D, x, v);", "kernel_emission"),
     ("stats_chunk_drops_last_frame", EM, "const int nf = (int)min((long long)kFrames, n1 - c0);",
      "const int nf = (int)min((long long)kFrames, n1 - c0) - 1;", "kernel_emission"),
     ("stats_sum_skips_last_range", EM, "for (int r = 0; r < ranges; ++r)", "for (int r = 0; r + 1 < ranges; ++r)", "kernel_emission"),
@@ -86,8 +87,8 @@ MUTANTS += [
      "float x = __shfl_up_sync(~0u, carry, kk + 1);", "kernel_em"),
     ("emit_staging_reads_previous_tile", FEM, "      const float* f = xs + (k & 1) * x_tile;\n      float* lbt",
      "      const float* f = xs + ((k + 1) & 1) * x_tile;\n      float* lbt", "kernel_em"),
-    ("emit_off_chain_term_sums_one", FEM, "        for (int kk = 0; kk < NSL; ++kk) e += expf(v[kk] - m);",
-     "        for (int kk = 0; kk < NSL; ++kk) e += (v[kk] == -INFINITY) ? 1.f : expf(v[kk] - m);", "kernel_em"),
+    ("emit_off_chain_term_sums_one", EMC, "  for (int kk = 0; kk < NSL; ++kk) e += expf(v[kk] - m);",
+     "  for (int kk = 0; kk < NSL; ++kk) e += (v[kk] == -INFINITY) ? 1.f : expf(v[kk] - m);", "kernel_em"),
     ("emit_drops_last_frame_of_partial_tile", FEM, "const int t0 = k * TT, n = min(TT, T - t0), ncol = n * U;",
      "const int t0 = k * TT, n = min(TT, T - t0) - (T - t0 < TT), ncol = n * U;", "kernel_em"),
     ("emit_past_length_takes_the_step", FEM, "(t < len ? next : carry)", "next", "kernel_em"),
@@ -99,6 +100,19 @@ MUTANTS += [
      "const float2 v = x[i + a * (m + 1)], w", "kernel_mfcc"),
     ("mfcc_mel_range_one_bin_short", MFCC, "for (int k = k_lo; k < k_hi; ++k) acc",
      "for (int k = k_lo; k < k_hi - 1; ++k) acc", "kernel_mfcc"),
+]
+MUTANTS += [
+    ("vocab_shuffle_off_by_one_state", VOC, "float x = __shfl_up_sync(~0u, carry, kk);",
+     "float x = __shfl_up_sync(~0u, carry, kk + 1);", "kernel"),
+    ("vocab_staging_reads_previous_tile", VOC, "emission_tile<DMAX, FULL>(p, cst, xs + ((k + 1) & 1) * x_tile,",
+     "emission_tile<DMAX, FULL>(p, cst, xs + (k & 1) * x_tile,", "kernel"),
+    ("vocab_viterbi_sums", VOC, "upd = slots_max<NSL>(v);", "upd = slots_lse<NSL>(v);", "kernel"),
+    ("vocab_drops_last_frame_of_ragged_utterance", VOC, "(t < len ? next : carry)", "(t + 1 < len ? next : carry)",
+     "kernel"),
+    ("emission_tail_tile_dropped", EM, "const long long n_tiles = (p.N + tf - 1) / tf;",
+     "const long long n_tiles = p.N / tf;", "kernel_emission"),
+    ("emission_store_offset_by_one_state", EM, "lbo[(size_t)(tid + c * nt) * S + s] = v[c];",
+     "lbo[(size_t)(tid + c * nt) * S + (s + 1) % S] = v[c];", "kernel_emission"),
 ]
 DRIVER = """
 import sys, torch

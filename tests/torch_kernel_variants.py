@@ -33,6 +33,70 @@ COMP, FEM = "srhmm_tpu_torch/csrc/composed.cu", "srhmm_tpu_torch/csrc/fused_em.c
 DEC, DEC_PY = "srhmm_tpu_torch/csrc/word_loop_decode.cu", "srhmm_tpu_torch/ops/kernels/decode.py"
 COMP_PY = "srhmm_tpu_torch/ops/kernels/composed.py"
 MFCC = "srhmm_tpu_torch/csrc/mfcc.cu"
+VOC, EMI = "srhmm_tpu_torch/csrc/vocab_scores.cu", "srhmm_tpu_torch/csrc/emission_em.cu"
+SCO_PY = "srhmm_tpu_torch/ops/kernels/scoring.py"
+EMC = "srhmm_tpu_torch/csrc/emission.cuh"
+EMI_PY = "srhmm_tpu_torch/ops/kernels/emission.py"
+# emission.cuh's full_mix_q_cols with two rows' z chains side by side (a
+# helper full_row_z computing one row's chain), the squares summed in row
+# order: bitwise the one-row loop's
+FULL_ROW_Z = """// z_d = row d of L^T . x - (L^T mu)_d for NC columns, full_mix_q's fmaf
+// chain
+template <int DMAX, int NC>
+__device__ __forceinline__ void full_row_z(const float* rec, const float* bg, int d, const float (&x)[NC][DMAX],
+                                           float (&z)[NC]) {
+  const float4* row = reinterpret_cast<const float4*>(rec + d * DMAX);
+#pragma unroll
+  for (int c = 0; c < NC; ++c) z[c] = bg[d];
+#pragma unroll
+  for (int i = 0; i < DMAX / 4; ++i) {
+    const float4 r = row[i];
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      z[c] = fmaf(r.x, x[c][4 * i + 0], z[c]);
+      z[c] = fmaf(r.y, x[c][4 * i + 1], z[c]);
+      z[c] = fmaf(r.z, x[c][4 * i + 2], z[c]);
+      z[c] = fmaf(r.w, x[c][4 * i + 3], z[c]);
+    }
+  }
+}
+
+// full_mix_q of NC feature columns"""
+FULL_SINGLE = """  for (int d = 0; d < D; ++d) {
+    const float4* row = reinterpret_cast<const float4*>(rec + d * DMAX);
+    float z[NC];
+#pragma unroll
+    for (int c = 0; c < NC; ++c) z[c] = bg[d];
+#pragma unroll
+    for (int i = 0; i < DMAX / 4; ++i) {
+      const float4 r = row[i];
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        z[c] = fmaf(r.x, x[c][4 * i + 0], z[c]);
+        z[c] = fmaf(r.y, x[c][4 * i + 1], z[c]);
+        z[c] = fmaf(r.z, x[c][4 * i + 2], z[c]);
+        z[c] = fmaf(r.w, x[c][4 * i + 3], z[c]);
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < NC; ++c) quad[c] = fmaf(z[c], z[c], quad[c]);
+  }"""
+FULL_PAIRS = """  int d = 0;
+  for (; d + 2 <= D; d += 2) {
+    float z0[NC], z1[NC];
+    full_row_z<DMAX, NC>(rec, bg, d, x, z0);
+    full_row_z<DMAX, NC>(rec, bg, d + 1, x, z1);
+#pragma unroll
+    for (int c = 0; c < NC; ++c) quad[c] = fmaf(z0[c], z0[c], quad[c]);
+#pragma unroll
+    for (int c = 0; c < NC; ++c) quad[c] = fmaf(z1[c], z1[c], quad[c]);
+  }
+  if (d < D) {
+    float z[NC];
+    full_row_z<DMAX, NC>(rec, bg, d, x, z);
+#pragma unroll
+    for (int c = 0; c < NC; ++c) quad[c] = fmaf(z[c], z[c], quad[c]);
+  }"""
 FEM_PY, MFCC_PY = "srhmm_tpu_torch/ops/kernels/fused_em.py", "srhmm_tpu_torch/ops/kernels/mfcc.py"
 C_STATS = ("    if (k >= 1) {\n      const int t_hi = T - (k - 1) * TT, t_lo = max(t_hi - TT, 0);\n      float* la_tile",
            "    if (false) {\n      const int t_hi = T - (k - 1) * TT, t_lo = max(t_hi - TT, 0);\n      float* la_tile")
@@ -316,6 +380,109 @@ MN_CYCLES = (
 )
 
 
+# 7ca66a2's vocab_scores_kernel (step 0 of its redesign): thread 0 of block
+# (0, 0) over its frames, the feature loads (waited for), the emission
+# with its log b stores to shared memory, the band step (log-alpha read
+# from and written to shared memory)
+PV_CYCLES = (
+    ("#include <math.h>\n", "#include <math.h>\n#include <cstdio>\n"),
+    ("  const int t_end = min(max(p.lengths[b], 1), p.T);\n",
+     "  const int t_end = min(max(p.lengths[b], 1), p.T);\n  long long cy_load = 0, cy_em = 0, cy_step = 0;\n"),
+    ("      float x[DMAX];\n#pragma unroll\n      for (int e = 0; e < DMAX; ++e) x[e] = (e < D) ? __ldg(f + (size_t)e * p.B) : 0.f;\n",
+     "      const long long c0 = clock64();\n      float x[DMAX];\n#pragma unroll\n"
+     "      for (int e = 0; e < DMAX; ++e) x[e] = (e < D) ? __ldg(f + (size_t)e * p.B) : 0.f;\n"
+     "      float sink = 0.f;\n#pragma unroll\n"
+     "      for (int e = 0; e < DMAX; ++e) asm volatile(\"add.f32 %0, %0, %1;\" : \"+f\"(sink) : \"f\"(x[e]));\n"
+     "      const long long c1 = clock64();\n"),
+    ("      }\n    }\n    if (t == 0) {",
+     "      }\n      cy_load += c1 - c0;\n      cy_em += clock64() - c1;\n    }\n    if (t == 0) {"),
+    ("    for (int j = S - 1; j >= 0; --j) {\n      const int dj",
+     "    const long long c2 = clock64();\n    for (int j = S - 1; j >= 0; --j) {\n      const int dj"),
+    ("      alpha[j * nt + tid] = fmaxf(upd + lb[j * nt + tid], kNegInf);\n    }\n  }\n",
+     "      alpha[j * nt + tid] = fmaxf(upd + lb[j * nt + tid], kNegInf);\n    }\n    cy_step += clock64() - c2;\n  }\n"
+     "  if (blockIdx.x == 0 && blockIdx.y == 0 && tid == 0)\n"
+     "    printf(\"CYC vocab frames %d load %lld emission %lld step %lld\\n\", t_end, cy_load, cy_em, cy_step);\n"),
+)
+# 7ca66a2's emission_log_b_kernel: frames 0 and N/2, the frame load
+# (waited for), then the emission with its log b stores
+PE21_CYCLES = (
+    ("#include <math.h>\n", "#include <math.h>\n#include <cstdio>\n"),
+    ("  float x[DMAX], x2[DMAX];\n  load_frame<DMAX>(frames, n, D, true, x, x2);\n"
+     "  for (int s = 0; s < S; ++s) log_b[n * S + s] = diag_state_log_b<DMAX>(rec_sh + s * M * stride, M, x, x2);\n",
+     "  const long long c0 = clock64();\n  float x[DMAX], x2[DMAX];\n  load_frame<DMAX>(frames, n, D, true, x, x2);\n"
+     "  float sink = 0.f;\n#pragma unroll\n"
+     "  for (int e = 0; e < DMAX; ++e) asm volatile(\"add.f32 %0, %0, %1;\" : \"+f\"(sink) : \"f\"(x[e]));\n"
+     "  const long long c1 = clock64();\n"
+     "  for (int s = 0; s < S; ++s) log_b[n * S + s] = diag_state_log_b<DMAX>(rec_sh + s * M * stride, M, x, x2);\n"
+     "  const long long c2 = clock64();\n"
+     "  if (n == 0 || n == N / 2) printf(\"CYC emission21 frame %lld load %lld emission_and_stores %lld\\n\", n, c1 - c0, c2 - c1);\n"),
+)
+# the redesigned vocab_scores_kernel: thread 0 of block 0 (its first
+# recursion lane) and its first emission thread, each over its tiles: the
+# recursion's frame loop and its wait at the tile's barrier; the emission's
+# tile and its wait
+VN_CYCLES = (
+    ("#include <math.h>\n", "#include <math.h>\n#include <cstdio>\n"),
+    ("    const int e = tid - n_rec;\n    __syncthreads();  // tile 0's features are in\n",
+     "    const int e = tid - n_rec;\n    long long cy_em = 0, cy_wait = 0;\n    __syncthreads();  // tile 0's features are in\n"),
+    ("      if (k + 1 < n_tiles)\n        emission_tile<DMAX, FULL>(p, cst, xs + ((k + 1) & 1) * x_tile, lbs + ((k + 1) & 1) * s_tile,\n"
+     "                                  min(TT, T - (k + 1) * TT), nw, e, n_em);\n      __syncthreads();\n    }\n    return;",
+     "      const long long c0 = clock64();\n"
+     "      if (k + 1 < n_tiles)\n        emission_tile<DMAX, FULL>(p, cst, xs + ((k + 1) & 1) * x_tile, lbs + ((k + 1) & 1) * s_tile,\n"
+     "                                  min(TT, T - (k + 1) * TT), nw, e, n_em);\n      const long long c1 = clock64();\n"
+     "      __syncthreads();\n      cy_em += c1 - c0;\n      cy_wait += clock64() - c1;\n    }\n"
+     "    if (blockIdx.x == 0 && e == 0) printf(\"CYC vocabnew emission %lld wait %lld tiles %d\\n\", cy_em, cy_wait, n_tiles);\n"
+     "    return;"),
+    ("  float carry = kNegInf;\n  for (int k = 0; k < n_tiles; ++k) {\n    const int t_lo = k * TT, t_hi = min(T, t_lo + TT);\n",
+     "  float carry = kNegInf;\n  long long cy_rec = 0, cy_rwait = 0;\n  for (int k = 0; k < n_tiles; ++k) {\n"
+     "    const long long c0 = clock64();\n    const int t_lo = k * TT, t_hi = min(T, t_lo + TT);\n"),
+    ("        named_barrier(1, n_rec);\n      }\n    }\n    __syncthreads();\n  }\n",
+     "        named_barrier(1, n_rec);\n      }\n    }\n    const long long c1 = clock64();\n    __syncthreads();\n"
+     "    cy_rec += c1 - c0;\n    cy_rwait += clock64() - c1;\n  }\n"
+     "  if (blockIdx.x == 0 && tid == 0) printf(\"CYC vocabnew recursion %lld wait %lld frames %d\\n\", cy_rec, cy_rwait, T);\n"),
+)
+PE21_STORE = "  for (int s = 0; s < S; ++s) log_b[n * S + s] = diag_state_log_b<DMAX>(rec_sh + s * M * stride, M, x, x2);\n"
+
+# vocab_scores.cu and scoring.py with the utterances in launch order longest first
+LONGEST_FIRST = [
+    (VOC, ('  const int* lengths;   // (B,)\n  float* out;           // (W*S, B)\n  int T, B, W, S, band;\n  int U, WB, TT;        // utterances and words a block, frames a tile\n  int u_blocks;         // ceil(B / U): block x = word block * u_blocks + utterance block',
+           '  const int* lengths;   // (B,)\n  const int* order;     // (B,) the utterances in launch order (longest first)\n  float* out;           // (W*S, B)\n  int T, B, W, S, band;\n  int U, WB, TT;        // utterances and words a block, frames a tile\n  int w_blocks;         // ceil(W / WB): block x = utterance block * w_blocks + word block')),
+    (VOC, ("// two slots of (TT, WB, S, U) | log-alpha, two rows of (S, WB U) | the\n// block's frame count (one int, padded to 4); slot k & 1 holds tile k.\n__host__ __device__ inline size_t vocab_floats(const Params& p) {\n  const size_t P = (size_t)p.U * p.WB;\n  return (p.consts_global ? 0 : (size_t)p.WB * p.C) + 2 * (size_t)p.TT * p.U * p.sum_dims +\n         2 * (size_t)p.TT * p.S * P + 2 * (size_t)p.S * P + 4;\n}",
+           "// two slots of (TT, WB, S, U) | log-alpha, two rows of (S, WB U) | ints:\n// the block's U utterances and its frame count (U + 1, padded to 4 past U);\n// slot k & 1 holds tile k.\n__host__ __device__ inline size_t vocab_floats(const Params& p) {\n  const size_t P = (size_t)p.U * p.WB;\n  return (p.consts_global ? 0 : (size_t)p.WB * p.C) + 2 * (size_t)p.TT * p.U * p.sum_dims +\n         2 * (size_t)p.TT * p.S * P + 2 * (size_t)p.S * P + p.U + 4;\n}")),
+    (VOC, ('__device__ __forceinline__ void named_barrier(int id, int threads) {\n  asm volatile("bar.sync %0, %1;\\n" ::"r"(id), "r"(threads) : "memory");\n}\n',
+           '__device__ __forceinline__ void named_barrier(int id, int threads) {\n  asm volatile("bar.sync %0, %1;\\n" ::"r"(id), "r"(threads) : "memory");\n}\n\n// Copies the features of frames t0 .. t0 + n of the block\'s utterances\n// ids[0 .. U) (an id of -1: none) from a (T, X, B) tensor into shared\n// memory: float (t0 + tt, x, ids[u]) goes to dst[tt * s_t + x * s_x + u],\n// 0.0f where there is no utterance or frame.  The utterances are not\n// consecutive along B, so a copy moves 4 bytes; the copying threads are\n// threadIdx.x in [first, first + count) (U divides count), a thread one\n// utterance.\n__device__ __forceinline__ void stage_gather_async(float* dst, int s_t, int s_x, const float* src, int t0, int n,\n                                                   int X, int T, const int* ids, int U, int first, int count, int B) {\n  const int i = threadIdx.x - first;\n  if (i < 0 || i >= count) return;\n  const int u = i % U, step = count / U, b = ids[u];\n  int x = i / U, tt = 0;\n  while (x >= X) x -= X, ++tt;\n  while (tt < n) {\n    const int t = t0 + tt;\n    const bool ok = b >= 0 && t < T;\n    cp_async4(dst + tt * s_t + x * s_x + u, ok ? src + ((size_t)t * X + x) * B + b : src, ok);\n    x += step;\n    while (x >= X) x -= X, ++tt;\n  }\n}\n')),
+    (VOC, ('  float* rows = lbs + 2 * s_tile;                                 // log-alpha rows\n  int* t_blk = reinterpret_cast<int*>(rows + 2 * row);',
+           "  float* rows = lbs + 2 * s_tile;                                 // log-alpha rows\n  int* ids = reinterpret_cast<int*>(rows + 2 * row);              // the block's utterances\n  int* t_blk = ids + U;")),
+    (VOC, ('  const int ub = blockIdx.x % p.u_blocks, w0 = blockIdx.x / p.u_blocks * p.WB;\n  const int b0 = ub * U, nw = min(p.WB, p.W - w0);',
+           '  const int w0 = blockIdx.x % p.w_blocks * p.WB, b0 = blockIdx.x / p.w_blocks * U;\n  const int nw = min(p.WB, p.W - w0);')),
+    (VOC, ("  if (tid == 0) {  // the block's frames: its longest utterance (frame 0 always)\n    int m = 1;\n    for (int u = 0; u < U && b0 + u < p.B; ++u) m = max(m, min(max(p.lengths[b0 + u], 1), p.T));\n    *t_blk = m;\n  }",
+           "  if (tid < U) ids[tid] = b0 + tid < p.B ? p.order[b0 + tid] : -1;\n  if (tid == 0) {  // the block's frames: its longest utterance (frame 0 always)\n    int m = 1;\n    for (int u = 0; u < U && b0 + u < p.B; ++u) m = max(m, min(max(p.lengths[p.order[b0 + u]], 1), p.T));\n    *t_blk = m;\n  }")),
+    (VOC, ('        stage_rows_async(f, p.dims[q] * U, U, p.feats[q], t0, min(TT, T - t0), p.dims[q], p.T, p.B, b0, U,\n                         n_rec + n_em, n_mem);',
+           '        stage_gather_async(f, p.dims[q] * U, U, p.feats[q], t0, min(TT, T - t0), p.dims[q], p.T, ids, U,\n                           n_rec + n_em, n_mem, p.B);')),
+    (VOC, ('  const int lg_u = 31 - __clz(U), wl = prc >> lg_u, u = prc & (U - 1), b = b0 + u;\n  const bool th = slot && wl < nw;  // ... of a word of the vocabulary\n  const bool live = th && b < p.B;',
+           '  const int lg_u = 31 - __clz(U), wl = prc >> lg_u, u = prc & (U - 1), b = ids[u];\n  const bool th = slot && wl < nw;  // ... of a word of the vocabulary\n  const bool live = th && b >= 0;')),
+    (VOC, ('  p.lengths = static_cast<const int*>(lengths);\n  p.out = static_cast<float*>(out);',
+           '  p.lengths = static_cast<const int*>(lengths);\n  p.order = static_cast<const int*>(order);\n  p.out = static_cast<float*>(out);')),
+    (VOC, ('  p.u_blocks = (B + U - 1) / U;',
+           '  p.w_blocks = (W + WB - 1) / WB;')),
+    (VOC, ('                       int diag_off, const void* lengths, void* out, int T, int B, int W, int S,',
+           '                       int diag_off, const void* lengths, const void* order, void* out, int T, int B, int W, int S,')),
+    (SCO_PY, ('    WB U) and the block\'s frame count."""\n    P = U * WB\n    return 4 * ((0 if consts_global else WB * C) + 2 * TT * U * sum_d + 2 * TT * S * P + 2 * S * P + 4)',
+              '    WB U), the block\'s U utterances and its frame count."""\n    P = U * WB\n    return 4 * ((0 if consts_global else WB * C) + 2 * TT * U * sum_d + 2 * TT * S * P + 2 * S * P + U + 4)')),
+    (SCO_PY, ('        c_ptr, c_int, c_int, c_ptr, c_ptr,  # consts, C, diag_off, lengths, out',
+              '        c_ptr, c_int, c_int, c_ptr, c_ptr, c_ptr,  # consts, C, diag_off, lengths, order, out')),
+    (SCO_PY, ('        self.lengths = lengths.to(torch.int32).contiguous()\n',
+              "        self.lengths = lengths.to(torch.int32).contiguous()\n        # the utterances longest first: a block's utterances end together,\n        # and the longest blocks start first\n        self.order = torch.argsort(self.lengths, descending=True, stable=True).to(torch.int32)\n")),
+    (SCO_PY, ('        ln.consts.data_ptr(), ln.consts.shape[1], ln.diag_off, ln.lengths.data_ptr(), out.data_ptr(),',
+              '        ln.consts.data_ptr(), ln.consts.shape[1], ln.diag_off, ln.lengths.data_ptr(), ln.order.data_ptr(),\n        out.data_ptr(),')),
+]
+
+
+def cut_lists(edits):
+    """cut() over edits of several files: [(src, (old, new)), ...]; an edit
+    of a file already edited by an earlier one applies to its result."""
+    return tuple(e[0] for e in edits), tuple(e[1][0] for e in edits), tuple(e[1][1] for e in edits)
+
 def cut(src, *edits):
     """A variant of src with each (old, new) edit applied."""
     return src, tuple(e[0] for e in edits), tuple(e[1] for e in edits)
@@ -394,6 +561,25 @@ VARIANTS = [
     ("mfcc_32_frames", *cut(MFCC_PY, ("FRAMES_PER_BLOCK = (16, 8, 4, 2, 1)", "FRAMES_PER_BLOCK = (32, 16, 8, 4, 2, 1)"),
                             ("BLOCK_SMEM = 56 * 1024", "BLOCK_SMEM = 112 * 1024"))),
     ("mfcc_4_frames", MFCC_PY, "FRAMES_PER_BLOCK = (16, 8, 4, 2, 1)", "FRAMES_PER_BLOCK = (4, 2, 1)"),
+    # vocab_scores_kernel and emission_log_b_kernel as of 7ca66a2 (step 0 of
+    # their redesign): clock64 counters; the emission, the feature loads or
+    # the band step cut; #21's log b stores, its emission or its frame
+    # loads cut
+    ("parent_vocab_cycles", *cut(VOC, *PV_CYCLES)),
+    ("parent_vocab_no_emission", *cut(VOC, ("full_state_log_b<DMAX>(rec + s * M * stride, M, D, x);", "x[0];"),
+                                      ("diag_state_log_b<DMAX>(rec + s * M * stride, M, x, x2);", "x2[0];"))),
+    ("parent_vocab_no_feature_loads", VOC, "x[e] = (e < D) ? __ldg(f + (size_t)e * p.B) : 0.f;",
+     "x[e] = (e < D) ? 0.01f * (float)(e + t) : 0.f;"),
+    ("parent_vocab_no_step", VOC, "    for (int j = S - 1; j >= 0; --j) {\n      const int dj",
+     "    for (int j = S - 1; j >= S; --j) {\n      const int dj"),
+    ("parent_emission_cycles", *cut(EMI, *PE21_CYCLES)),
+    ("parent_emission_no_stores", EMI, PE21_STORE,
+     "  for (int s = 0; s < S; ++s) {\n    const float v = diag_state_log_b<DMAX>(rec_sh + s * M * stride, M, x, x2);\n"
+     "    if (v == 1.2345f) log_b[n * S + s] = v;\n  }\n"),
+    ("parent_emission_no_emission", EMI, PE21_STORE, "  for (int s = 0; s < S; ++s) log_b[n * S + s] = x2[0] + (float)s;\n"),
+    ("parent_emission_no_loads", EMI, "  load_frame<DMAX>(frames, n, D, true, x, x2);\n  for (int s = 0; s < S;",
+     "#pragma unroll\n  for (int e = 0; e < DMAX; ++e) x[e] = (e < D) ? 0.01f * (float)(e + (int)n) : 0.f, x2[e] = x[e] * x[e];\n"
+     "  for (int s = 0; s < S;"),
 ]
 
 
@@ -416,12 +602,65 @@ VARIANTS += [
     joined("emit_no_recursion_mfcc_no_stages", "emit_no_recursion", "mfcc_no_stages"),
     joined("emit_16_frame_tiles_mfcc_32_frames", "emit_16_frame_tiles", "mfcc_32_frames"),
     joined("emit_8_utterances_mfcc_4_frames", "emit_8_utterances", "mfcc_4_frames"),
+    ("scoring_emission_base", VOC, "", ""),
+    # the redesigned vocab_scores_kernel: counters; the emission or the
+    # recursion cut; the emission inlined, four columns a thread; other
+    # launch shapes (fewer recursion warps, two memory warps)
+    ("vocab_cycles", *cut(VOC, *VN_CYCLES)),
+    ("vocab_no_emission", VOC, "state_log_b_cols<DMAX, FULL, NC>(cw + p.offs[q] + s * M * record_stride<DMAX, FULL>(D), M, D, x, v);",
+     "for (int j = 0; j < NC; ++j) v[j] = x[j][0];"),
+    ("vocab_no_recursion", VOC, "    for (int t = t_lo; t < t_hi; ++t) {\n      const float lb = lbn;",
+     "    for (int t = t_lo; t < t_lo; ++t) {\n      const float lb = lbn;"),
+    ("vocab_noinline_emission", VOC, "__device__ __forceinline__ void emission_tile(", "__device__ __noinline__ void emission_tile("),
+    ("vocab_4_columns", VOC, "constexpr int kCols = DMAX <= 16 ? 2 : 1;", "constexpr int kCols = DMAX <= 16 ? 4 : 1;"),
+    ("vocab_4_recursion_warps", SCO_PY, "VOCAB_REC_WARPS = 8 ", "VOCAB_REC_WARPS = 4 "),
+    ("vocab_2_memory_warps", SCO_PY, "VOCAB_MEMORY_WARPS = 1 ", "VOCAB_MEMORY_WARPS = 2 "),
+    # the utterances ordered longest first (the wrapper's argsort, the
+    # kernel gathering a block's utterances by 4-byte cp.async), and the
+    # gather alone (the launch order the batch's)
+    ("vocab_longest_first", *cut_lists(LONGEST_FIRST)),
+    ("vocab_gather_unsorted", *cut_lists(LONGEST_FIRST + [(SCO_PY, (
+        "torch.argsort(self.lengths, descending=True, stable=True).to(torch.int32)",
+        "torch.arange(self.lengths.shape[0], dtype=torch.int32, device=self.lengths.device)"))])),
+    ("vocab_6_recursion_warps", SCO_PY, "VOCAB_REC_WARPS = 8 ", "VOCAB_REC_WARPS = 6 "),
+    ("vocab_12_recursion_warps", SCO_PY, "VOCAB_REC_WARPS = 8 ", "VOCAB_REC_WARPS = 12 "),
+    # full covariance's rows of L^T two at a time (a second z chain side by
+    # side, the squares summed in row order): vocab_scores, and emit_forward
+    # (emit_ prefix)
+    ("vocab_full_row_pairs", *cut(EMC, ("// full_mix_q of NC feature columns", FULL_ROW_Z), (FULL_SINGLE, FULL_PAIRS))),
+    ("emit_full_row_pairs", *cut(EMC, ("// full_mix_q of NC feature columns", FULL_ROW_Z), (FULL_SINGLE, FULL_PAIRS))),
+    # 672 threads a block (21 warps, 6 on a scheduler: 80 registers a thread
+    # against 96 at 640, the emission spilling); 4 columns a thread at DMAX
+    # <= 12
+    ("vocab_672_threads", (VOC, SCO_PY), ("constexpr int kThreads = 640;", "VOCAB_THREADS = 640 "),
+     ("constexpr int kThreads = 672;", "VOCAB_THREADS = 672 ")),
+    ("vocab_4_columns_at_12", VOC, "constexpr int kCols = DMAX <= 16 ? 2 : 1;",
+     "constexpr int kCols = DMAX <= 12 ? 4 : DMAX <= 16 ? 2 : 1;"),
+    # #21 with 128 threads a block (more, smaller blocks a SM)
+    ("emission_21_128_threads", EMI_PY, "EMISSION_THREADS = (256, 128, 64, 32)", "EMISSION_THREADS = (128, 64, 32)"),
+    ("vocab_448_threads_2_blocks", (VOC, VOC, SCO_PY, SCO_PY),
+     ("constexpr int kThreads = 640;", "__launch_bounds__(kThreads) vocab_scores_kernel", "VOCAB_THREADS = 640 ",
+      "VOCAB_REC_WARPS = 8 "),
+     ("constexpr int kThreads = 448;", "__launch_bounds__(kThreads, 2) vocab_scores_kernel", "VOCAB_THREADS = 448 ",
+      "VOCAB_REC_WARPS = 4 ")),
+    joined("parent_vocab_emission_cycles", "parent_vocab_cycles", "parent_emission_cycles"),
+    joined("parent_vocab_no_emission_emission_no_stores", "parent_vocab_no_emission", "parent_emission_no_stores"),
+    joined("parent_vocab_no_feature_loads_emission_no_emission", "parent_vocab_no_feature_loads",
+           "parent_emission_no_emission"),
+    joined("parent_vocab_no_step_emission_no_loads", "parent_vocab_no_step", "parent_emission_no_loads"),
 ]
+VARIANTS += [
+    joined("vocab_noinline_4_columns", "vocab_noinline_emission", "vocab_4_columns"),
+    joined("vocab_noinline_448_threads", "vocab_noinline_emission", "vocab_448_threads_2_blocks"),
+]
+SCORING_EMISSION = ("scoring_emission_", "vocab_", "emission_", "parent_vocab", "parent_emission")
 FORWARD_DECODE = ("forward_", "decode_", "parent_forward", "parent_decode")
 EMIT_MFCC = ("emit_", "mfcc_", "parent_emit", "parent_mfcc")
 
 
 def timing_script(name: str) -> str:
+    if name.startswith(SCORING_EMISSION):
+        return "torch_scoring_emission_compare.py"
     if name.startswith(EMIT_MFCC):
         return "torch_emit_mfcc_compare.py"
     return "torch_forward_decode_compare.py" if name.startswith(FORWARD_DECODE) else "torch_backward_compare.py"

@@ -287,3 +287,60 @@ def emit_check_lengths(i: int, B: int, T: int) -> list[int]:
     """B lengths of EMIT_CHECK_CASES[i]: drawn in [2, T), then T, 0 and 1."""
     rng = np.random.default_rng(60 + i)
     return [int(n) for n in rng.integers(2, T, size=B - 3)] + [T, 0, 1]
+
+
+# vocab_scores launch shapes, (cov, S, W, [(M, D) per stream], band, B, T):
+# the unrolled slot counts 2 / 4 / 8 and the generic loop, several words a
+# block and a ragged last word block, two and six streams, pairs across two
+# and across eight warps (the most states), constants past shared memory,
+# a ragged last utterance block, T shorter than a tile; every case has rows
+# of length 0 and 1 and runs both semirings
+VOCAB_CHECK_CASES = [
+    ("diag", 5, 6, [(2, 6)], 1, 37, 95),  # 2 slots, S not dividing 32, several words a block
+    ("full", 6, 13, [(1, 9)], 1, 64, 95),  # full13's word shape: a ragged last word block
+    ("full", 6, 5, [(3, 9), (2, 3)], 1, 37, 95),  # two streams
+    ("diag", 5, 4, [(2, 9), (1, 3), (2, 5), (1, 7), (3, 4), (2, 6)], 1, 37, 95),  # six streams
+    ("diag", 12, 3, [(2, 9)], 3, 37, 95),  # 4 slots
+    ("diag", 12, 3, [(2, 9)], 5, 37, 95),  # 8 slots
+    ("diag", 24, 3, [(2, 5)], 12, 37, 95),  # a band past the unrolled slots: the generic loop
+    ("diag", 40, 3, [(2, 5)], 1, 37, 95),  # a pair across two warps
+    ("diag", 256, 2, [(1, 3)], 2, 9, 30),  # the most states: a pair across eight warps
+    ("full", 6, 3, [(4, 39)], 1, 37, 95),  # constants past shared memory
+    ("diag", 8, 13, [(3, 9)], 1, 1001, 40),  # a ragged last utterance block
+    ("diag", 8, 5, [(3, 9), (2, 3)], 1, 37, 7),  # T shorter than a tile
+]
+
+
+def vocab_check_lengths(i: int, B: int, T: int) -> list[int]:
+    """B lengths of VOCAB_CHECK_CASES[i]: drawn in [2, T), then T, 0 and 1."""
+    rng = np.random.default_rng(80 + i)
+    return [int(n) for n in rng.integers(2, T, size=B - 3)] + [T, 0, 1]
+
+
+def vocab_check_case(i: int, device):
+    """VOCAB_CHECK_CASES[i] as (float32 vocabulary on device, feature
+    batch or per-stream tuple of batches): words from rand_word(100 i + w),
+    features normal * 2 from a seed."""
+    from srhmm_tpu_torch.io.dataset import pack_utterances
+    from srhmm_tpu_torch.models import stack_models
+
+    cov, S, W, mixes_dims, band, B, T = VOCAB_CHECK_CASES[i]
+    words = [gmm_hmm_from_numpy(*rand_word(100 * i + w, S, mixes_dims, cov, band)) for w in range(W)]
+    vocab = stack_models(words).astype(torch.float32).to(device)
+    lens = vocab_check_lengths(i, B, T)
+    rng = np.random.default_rng(90 + i)
+    batch = tuple(pack_utterances([rng.normal(size=(n, D)) * 2 for n in lens], pad_multiple=1,
+                                  dtype=torch.float32, device=device) for _, D in mixes_dims)
+    return vocab, batch[0] if len(batch) == 1 else batch
+
+
+# emission_log_b shapes beyond chip_smoke.py's D x M grid, (N, S, M, D):
+# enough tiles that a block walks several, the records past shared memory,
+# fewer threads a block (the records and tiles fill shared memory), a log b
+# tile too wide for shared memory (stored straight out)
+EMISSION_EXTRA_CASES = [
+    (600001, 8, 3, 9),
+    (4133, 64, 16, 64),
+    (4133, 200, 1, 64),
+    (4133, 2048, 1, 3),
+]
