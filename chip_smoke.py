@@ -1592,27 +1592,31 @@ def profile_window(torch, fn, kernel_keys=("word_loop_decode_kernel",)) -> dict:
             "d2h_device_ms": d2h / 1e3, "device_ops": ops, "idle_share": 1.0 - busy / wall_us}
 
 
-def kernel_device_ms(torch, fn, key: str, calls: int = 5):
+def kernel_device_ms(torch, fn, key: str, calls: int = 5, windows: int = 3):
     """A kernel's own device time per launch: torch.profiler over `calls`
     calls of fn, the device time of the kernels whose names contain key
     over the number of their launches the profiler saw (a window may lose
-    some); None if it saw none."""
+    some, late in a long process all of them: then up to `windows` windows
+    are tried); None if none saw one."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
+    for _ in range(windows):
         torch.cuda.synchronize()
-    total = count = 0
-    for ev in prof.key_averages():
-        if ev.device_type == DeviceType.CUDA and key in ev.key:
-            dt = getattr(ev, "self_device_time_total", None)
-            total += ev.self_cuda_time_total if dt is None else dt
-            count += ev.count
-    return total / count / 1e3 if count else None
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        total = count = 0
+        for ev in prof.key_averages():
+            if ev.device_type == DeviceType.CUDA and key in ev.key:
+                dt = getattr(ev, "self_device_time_total", None)
+                total += ev.self_cuda_time_total if dt is None else dt
+                count += ev.count
+        if count:
+            return total / count / 1e3
+    return None
 
 
 def phase_timing_decode(torch, dec: dict, smi: str) -> dict:
@@ -2967,27 +2971,20 @@ def pointer_mismatch(k, p, what: str) -> float:
     return share
 
 
-def phase_kernel_lattice(torch) -> dict:
-    """#15-#20 vs their twins on the same CUDA tensors: S in 3, 6, 8, 16, 64
-    (the largest the kernels take) x delta 1, delta 2, dense transitions;
-    B=37, T=95 with a zero-length and a length-1 row, seven -inf entries
-    of log b and one state made impossible from frame 5; the blocked wrappers at k_block 1, 5, 19 (bitwise the
-    unblocked kernels); #15 with shared and per-row transitions; #16 with
-    equal backpointers, and a configuration of two duplicated states whose
-    candidates tie exactly.  Lattices and scores within BOUND with equal
-    masks and equal entries on the floor (compare_clamped); two launches
-    bitwise equal.  Returns the worst absolute error
-    per wrapper."""
-    from srhmm_tpu_torch.ops.kernels import forward as kf
-    from srhmm_tpu_torch.ops.kernels import lattice as kl
-
-    saved = lane_counts()
-    worst = {name: 0.0 for name, *_ in LANE_ROWS[:6]}
+def lattice_check_inputs(torch) -> dict:
+    """kernel_lattice's inputs by name, on the card: "S{S}_{kind}" ->
+    (log b (T, S, B), log transitions (S, S), per-row transitions (B, S, S),
+    lengths) for S in 3, 6, 8, 16, 64 x delta 1, delta 2, dense (B=37,
+    T=95 with a zero-length and a length-1 row, seven -inf entries of log b
+    and one state made impossible from frame 5); "viterbi_tie_S6" -> ((B, T,
+    S) log b with two duplicated states, their transitions, None,
+    lengths)."""
     rng = np.random.default_rng(2027)
     lens = [int(n) for n in rng.integers(2, 95, size=34)] + [95, 0, 1]
     T, B = max(lens), len(lens)
     lengths = torch.as_tensor(lens, dtype=torch.int32, device="cuda")
     cuda = lambda x: torch.as_tensor(x, device="cuda")
+    out = {}
     for S in (3, 6, 8, 16, 64):
         for kind in ("delta1", "delta2", "dense"):
             lb_np = (rng.normal(size=(T, S, B)) * 2).astype(np.float32)
@@ -2997,40 +2994,8 @@ def phase_kernel_lattice(torch) -> dict:
             # input where a carry without the floor would fall to -inf
             lb_np[5:, 0, lens.index(T)] = -np.inf
             lb, lt = cuda(lb_np), cuda(lattice_trans(rng, S, kind))
-            res = {}
-            for name, fn, plain in (("forward_lattice", kl.forward_lattice, kl.forward_lattice_plain),
-                                    ("backward_lattice", kl.backward_lattice, kl.backward_lattice_plain)):
-                k, k2, p = fn(lb, lt, lengths), fn(lb, lt, lengths), plain(lb, lt, lengths)
-                blocked = getattr(kl, f"{name}_blocked")
-                for kb in (1, 5, 19):
-                    if not torch.equal(blocked(lb, lt, lengths, k_block=kb), k):
-                        raise AssertionError(f"{name}_blocked k_block={kb} S={S} {kind}: differs from {name}")
-                if not torch.equal(k, k2):
-                    raise AssertionError(f"{name} S={S} {kind}: two launches differ")
-                res[name] = compare_clamped(k, p, f"{name} S={S} {kind}")
-                res[f"{name}_blocked"] = res[name]
-            lb_bts = lb.permute(2, 0, 1).contiguous()
             rows = cuda(np.stack([lattice_trans(rng, S, ("delta1", "delta2", "dense")[b % 3]) for b in range(B)]))
-            for tag, trans in (("shared", lt), ("per_row", rows)):
-                k, k2 = kf.log_forward_batch(lb_bts, trans, lengths), kf.log_forward_batch(lb_bts, trans, lengths)
-                if not torch.equal(k, k2):
-                    raise AssertionError(f"log_forward_batch {tag} S={S} {kind}: two launches differ")
-                r = compare_clamped(k, kf.log_forward_batch_plain(lb_bts, trans, lengths),
-                                    f"log_forward_batch {tag} S={S} {kind}")
-                res["log_forward_batch"] = max(res.get("log_forward_batch", r), r, key=lambda x: x["max_abs_err"])
-            sc, bp = kf.viterbi_batch(lb_bts, lt, lengths)
-            sc2, bp2 = kf.viterbi_batch(lb_bts, lt, lengths)
-            sc_p, bp_p = kf.viterbi_batch_plain(lb_bts, lt, lengths)
-            torch.cuda.synchronize()
-            if not (torch.equal(sc, sc2) and torch.equal(bp, bp2)):
-                raise AssertionError(f"viterbi_batch S={S} {kind}: two launches differ")
-            if not torch.equal(bp, bp_p):
-                raise AssertionError(f"viterbi_batch S={S} {kind}: backpointers differ from the twin")
-            res["viterbi_batch"] = compare_clamped(sc, sc_p, f"viterbi_batch S={S} {kind}")
-            for name, r in res.items():
-                worst[name] = max(worst[name], r["max_abs_err"])
-            emit({"phase": "kernel_lattice", "S": S, "trans": kind, "B": B, "T": T, "bitwise_repeat": True,
-                  "bptr_equal": True, **{k: v["rel_err"] for k, v in res.items()}})
+            out[f"S{S}_{kind}"] = (lb, lt, rows, lengths)
     # duplicated states 2 and 3: every candidate from them ties exactly
     S = 6
     p = rng.uniform(0.1, 1.0, size=(S, S))
@@ -3039,6 +3004,113 @@ def phase_kernel_lattice(torch) -> dict:
     lt = cuda(np.log(p / p.sum(-1, keepdims=True)).astype(np.float32))
     lb = cuda((rng.normal(size=(B, T, S)) * 2).astype(np.float32))
     lb[..., 3] = lb[..., 2]
+    out["viterbi_tie_S6"] = (lb, lt, None, lengths)
+    pu = port_utils()
+    rng = np.random.default_rng(2031)
+    for i, (S, kind, B, T) in enumerate(pu.FORWARD_CHECK_CASES):
+        lb_np = (rng.normal(size=(T, S, B)) * 2).astype(np.float32)
+        lb_np[rng.integers(0, T, 7), rng.integers(0, S, 7), rng.integers(0, B, 7)] = -np.inf
+        lt = cuda(lattice_trans(rng, S, kind))
+        rows = cuda(np.stack([lattice_trans(rng, S, ("delta1", "delta2", "dense")[b % 3]) for b in range(B)]))
+        lens_i = torch.as_tensor(pu.forward_check_lengths(i, B, T), dtype=torch.int32, device="cuda")
+        out[f"S{S}_{kind}_B{B}_T{T}"] = (cuda(lb_np), lt, rows, lens_i)
+    return out
+
+
+# the forward kernel's launch shapes phase_kernel_lattice must see reached
+LATTICE_SHAPES = {"slots_4", "slots_8", "slots_16", "slots_32", "slots_64", "idle_lanes", "ragged_block",
+                  "ragged_tile", "walks_tiles", "short_tile", "copies_16_tsb", "copies_4_tsb", "copies_16_bts",
+                  "copies_4_bts", "per_row", "stops_early"}
+
+
+def forward_reached(torch, S, B, T, lens) -> set:
+    """The launch shapes of LATTICE_SHAPES that forward_lattice ((T, S, B),
+    the lattice) and log_forward_batch ((B, T, S), the last row, shared and
+    per-row transitions) reach on these lengths, from the wrappers'
+    forward_block: the slot count, idle lanes (fewer than 32 lanes of
+    utterances a warp), a ragged last block, a block's frames off, above or
+    below a tile (a last-row block stops at its longest utterance), 16- or
+    4-byte copies."""
+    from srhmm_tpu_torch.ops.kernels import lattice as kl
+    from srhmm_tpu_torch.ops.kernels.common import sm_count
+
+    out = set()
+    for layout, per_row in (("tsb", False), ("bts", False), ("bts", True)):
+        sh = kl.forward_block(S, B, layout, per_row, sm_count(torch.cuda.current_device()))
+        U, TT = sh["utts"], sh["tile"]
+        out |= {f"slots_{sh['slots']}", f"copies_{16 if kl.forward_copies_16(S, T, B, sh, layout) else 4}_{layout}"}
+        out |= {"per_row"} if per_row else set()
+        out |= {"idle_lanes"} if sh["states_per_lane"] == 1 and sh["utts_per_warp"] * S < 32 else set()
+        out |= {"ragged_block"} if B % U else set()
+        frames = [T] if layout == "tsb" else [max(1, min(max(lens[b0 : b0 + U]), T)) for b0 in range(0, B, U)]
+        out |= {"ragged_tile"} if any(f % TT for f in frames) else set()
+        out |= {"walks_tiles"} if any(f > TT for f in frames) else set()
+        out |= {"short_tile"} if any(f < TT for f in frames) else set()
+        out |= {"stops_early"} if layout == "bts" and any(f < T for f in frames) else set()
+    return out & LATTICE_SHAPES
+
+
+def phase_kernel_lattice(torch) -> dict:
+    """#15-#20 vs their twins on the same CUDA tensors (lattice_check_inputs):
+    S in 3, 6, 8, 16, 64 (the largest the kernels take) x delta 1, delta 2,
+    dense transitions, then the forward kernel's launch shapes of
+    torch_port_utils.FORWARD_CHECK_CASES; the blocked wrappers at k_block
+    1, 5, 19 where they divide T (bitwise the unblocked kernels); #15 with
+    shared and per-row transitions; #16 with equal backpointers, and a
+    configuration of two duplicated states whose candidates tie exactly.
+    Lattices and scores within BOUND with equal masks and equal entries on
+    the floor (compare_clamped); two launches bitwise equal.  Fails unless
+    every shape of LATTICE_SHAPES was reached.  Returns the worst absolute
+    error per wrapper."""
+    from srhmm_tpu_torch.ops.kernels import forward as kf
+    from srhmm_tpu_torch.ops.kernels import lattice as kl
+
+    saved = lane_counts()
+    worst = {name: 0.0 for name, *_ in LANE_ROWS[:6]}
+    inputs = lattice_check_inputs(torch)
+    seen = set()
+    for tag, (lb, lt, rows, lengths) in inputs.items():
+        if rows is None:
+            continue
+        (T, S, B), kind = lb.shape, tag.split("_")[1]
+        seen |= forward_reached(torch, S, B, T, lengths.tolist())
+        res = {}
+        for name, fn, plain in (("forward_lattice", kl.forward_lattice, kl.forward_lattice_plain),
+                                ("backward_lattice", kl.backward_lattice, kl.backward_lattice_plain)):
+            k, k2, p = fn(lb, lt, lengths), fn(lb, lt, lengths), plain(lb, lt, lengths)
+            blocked = getattr(kl, f"{name}_blocked")
+            for kb in (kb for kb in (1, 5, 19) if T % kb == 0):
+                if not torch.equal(blocked(lb, lt, lengths, k_block=kb), k):
+                    raise AssertionError(f"{name}_blocked k_block={kb} S={S} {kind}: differs from {name}")
+            if not torch.equal(k, k2):
+                raise AssertionError(f"{name} S={S} {kind}: two launches differ")
+            res[name] = compare_clamped(k, p, f"{name} S={S} {kind}")
+            res[f"{name}_blocked"] = res[name]
+        lb_bts = lb.permute(2, 0, 1).contiguous()
+        for rtag, trans in (("shared", lt), ("per_row", rows)):
+            k, k2 = kf.log_forward_batch(lb_bts, trans, lengths), kf.log_forward_batch(lb_bts, trans, lengths)
+            if not torch.equal(k, k2):
+                raise AssertionError(f"log_forward_batch {rtag} S={S} {kind}: two launches differ")
+            r = compare_clamped(k, kf.log_forward_batch_plain(lb_bts, trans, lengths),
+                                f"log_forward_batch {rtag} S={S} {kind}")
+            res["log_forward_batch"] = max(res.get("log_forward_batch", r), r, key=lambda x: x["max_abs_err"])
+        sc, bp = kf.viterbi_batch(lb_bts, lt, lengths)
+        sc2, bp2 = kf.viterbi_batch(lb_bts, lt, lengths)
+        sc_p, bp_p = kf.viterbi_batch_plain(lb_bts, lt, lengths)
+        torch.cuda.synchronize()
+        if not (torch.equal(sc, sc2) and torch.equal(bp, bp2)):
+            raise AssertionError(f"viterbi_batch S={S} {kind}: two launches differ")
+        if not torch.equal(bp, bp_p):
+            raise AssertionError(f"viterbi_batch S={S} {kind}: backpointers differ from the twin")
+        res["viterbi_batch"] = compare_clamped(sc, sc_p, f"viterbi_batch S={S} {kind}")
+        for name, r in res.items():
+            worst[name] = max(worst[name], r["max_abs_err"])
+        emit({"phase": "kernel_lattice", "S": S, "trans": kind, "B": B, "T": T, "bitwise_repeat": True,
+              "bptr_equal": True, **{k: v["rel_err"] for k, v in res.items()}})
+    if seen != LATTICE_SHAPES:
+        raise AssertionError(f"kernel_lattice reached {sorted(seen)}, not {sorted(LATTICE_SHAPES)}")
+    lb, lt, _, lengths = inputs["viterbi_tie_S6"]
+    B, T, S = lb.shape
     sc, bp = kf.viterbi_batch(lb, lt, lengths)
     sc_p, bp_p = kf.viterbi_batch_plain(lb, lt, lengths)
     torch.cuda.synchronize()
@@ -3090,7 +3162,9 @@ def emission_check_inputs(torch) -> dict:
     """kernel_emission's inputs by name, on the card: (frames, a, b,
     gamma) at D = 3, 9, 13, 39 x M = 1, 3, 16 (S=8, N=4133, the moments'
     grid), then (frames, a, b, None) at D = 1 and 64 and at
-    torch_port_utils.EMISSION_EXTRA_CASES."""
+    torch_port_utils.EMISSION_EXTRA_CASES, then (frames, a, b, gamma) at
+    torch_port_utils.STATS_CHECK_CASES and with one frame's posterior a
+    state (each moment a single product, TF32 rounding in plain sight)."""
     from srhmm_tpu_torch.ops.kernels import emission as ke
 
     out = {}
@@ -3108,7 +3182,45 @@ def emission_check_inputs(torch) -> dict:
         stream = emission_stream(torch, 100 * D + M + 7 * s, s, M, D)
         frames = torch.as_tensor(rng.normal(size=(n, D)) * 3, dtype=torch.float32, device="cuda")
         out[f"N{n}_S{s}_M{M}_D{D}"] = (frames, *ke.pack_constants(stream), None)
+    rng = np.random.default_rng(2032)
+    for n, s, M, D in port_utils().STATS_CHECK_CASES:
+        stream = emission_stream(torch, 100 * D + M + 11 * s, s, M, D)
+        frames = torch.as_tensor(rng.normal(size=(n, D)) * 3, dtype=torch.float32, device="cuda")
+        gamma = torch.as_tensor(rng.uniform(size=(n, s)), dtype=torch.float32, device="cuda")
+        out[f"stats_N{n}_S{s}_M{M}_D{D}"] = (frames, *ke.pack_constants(stream), gamma)
+    # one frame's posterior a state (frame 7 + 61 s), M = 1 (so every weight
+    # is the posterior itself) and features of 1 <= |x| <= 2: each moment is
+    # one product, which a TF32 contraction rounds by up to 2^-11 of it
+    N, S = 4133, 64
+    frames = rng.uniform(1.0, 2.0, size=(N, 9)) * rng.choice([-1.0, 1.0], size=(N, 9))
+    gamma = np.zeros((N, S))
+    gamma[7 + 61 * np.arange(S), np.arange(S)] = rng.uniform(0.75, 1.0, size=S)
+    out[f"stats_peaked_N{N}_S{S}_M1_D9"] = (
+        torch.as_tensor(frames, dtype=torch.float32, device="cuda"),
+        *ke.pack_constants(emission_stream(torch, 977, S, 1, 9, zero_weight=False)),
+        torch.as_tensor(gamma, dtype=torch.float32, device="cuda"))
     return out
+
+
+# the emission_stats launch shapes phase_kernel_emission must see reached
+STATS_SHAPES = {"one_group", "split_states", "ragged_group", "recs_shared", "recs_global", "ragged_tile",
+                "walks_tiles", "one_tile", "tile_128", "tile_64"}
+
+
+def stats_reached(N, D, S, M) -> set:
+    """The launch shapes of STATS_SHAPES one emission_stats call reaches,
+    from the wrapper's shape (stats_block) and grid (stats_grid)."""
+    from srhmm_tpu_torch.ops.kernels import emission as ke
+
+    sh = ke.stats_block(N, D, S, M)
+    R = ke.stats_grid(N, D, S, M, "cuda")
+    out = {"one_group" if sh["groups"] == 1 else "split_states", f"tile_{sh['tile_frames']}",
+           "recs_global" if sh["recs_global"] else "recs_shared"}
+    out |= {"ragged_group"} if S % sh["states"] else set()
+    out |= {"ragged_tile"} if N % sh["tile_frames"] else set()
+    out |= {"walks_tiles"} if sh["tiles"] > R else set()
+    out |= {"one_tile"} if sh["tiles"] == 1 else set()
+    return out & STATS_SHAPES
 
 
 def phase_kernel_emission(torch) -> dict:
@@ -3118,16 +3230,20 @@ def phase_kernel_emission(torch) -> dict:
     STAT_BOUND (kernel and twin each reading the log b of its own
     emission), two launches bitwise equal.  #21 alone also at D = 1 and 64
     and at EMISSION_EXTRA_CASES (emission_check_inputs), failing unless
-    every shape of EMISSION_SHAPES was reached.  Returns the worst absolute
-    error per wrapper."""
+    every shape of EMISSION_SHAPES was reached; #22 also at
+    STATS_CHECK_CASES, failing unless every shape of STATS_SHAPES was
+    reached, and with one frame's posterior a state, where a single-pass
+    TF32 contraction is off by up to 2^-11 (4.9e-4) of a moment.  Returns
+    the worst absolute error per wrapper."""
     from srhmm_tpu_torch.ops.kernels import emission as ke
 
     saved = lane_counts()
     worst = {"emission_log_b": 0.0, "emission_stats": 0.0}
-    seen = set()
+    seen, seen_stats = set(), set()
     for name, (frames, a, b, gamma) in emission_check_inputs(torch).items():
         (N, D), (M, _, S) = frames.shape, a.shape
         seen |= emission_reached(N, D, S, M)
+        seen_stats |= stats_reached(N, D, S, M) if gamma is not None else set()
         lb, lb2 = ke.emission_log_b(frames, a, b), ke.emission_log_b(frames, a, b)
         lb_p = ke.emission_log_b_plain(frames, a, b)
         r_lb = compare_lattice(lb, lb_p, f"emission_log_b {name}")
@@ -3156,6 +3272,8 @@ def phase_kernel_emission(torch) -> dict:
         emit({**row, "bitwise_repeat": True})
     if seen != EMISSION_SHAPES:
         raise AssertionError(f"kernel_emission reached {sorted(seen)}, not {sorted(EMISSION_SHAPES)}")
+    if seen_stats != STATS_SHAPES:
+        raise AssertionError(f"kernel_emission reached {sorted(seen_stats)} of the moments, not {sorted(STATS_SHAPES)}")
     set_lane_counts(saved)  # comparison launches
     return worst
 
@@ -3341,11 +3459,12 @@ def lane_bounds(lane: dict) -> dict:
 def phase_timing_lane(torch, lane: dict, smi: str) -> dict:
     """Each of #15-#22 and its twin at em_diag (#15 also per row at diag10):
     CUDA events, kernels median of 20, twins median of 3, in the order twin,
-    kernel, kernel, twin; each bound from its inputs.  Then one E-step at
-    em_diag through e_step_fused, e_step_lane_major(lattices="pallas") and
-    e_step_fused_lane (#2-#5, the yardstick), each on the host clock
-    (median of 3 after a warm-up) and once under torch.profiler (device
-    busy and idle shares)."""
+    kernel, kernel, twin; each bound from its inputs; the redesigned
+    kernels' own device time under torch.profiler (#15, #17, #20, #21, #22:
+    kernel_device_ms).  Then one E-step at em_diag through e_step_fused,
+    e_step_lane_major(lattices="pallas") and e_step_fused_lane (#2-#5, the
+    yardstick), each on the host clock (median of 3 after a warm-up) and
+    once under torch.profiler (device busy and idle shares)."""
     from srhmm_tpu_torch.ops.kernels import emission as ke
     from srhmm_tpu_torch.ops.kernels import forward as kf
     from srhmm_tpu_torch.ops.kernels import lattice as kl
@@ -3383,9 +3502,16 @@ def phase_timing_lane(torch, lane: dict, smi: str) -> dict:
         ms = min(kern_a, kern_b)
         out[name] = {"kernel_ms": [kern_a, kern_b], "plain_ms": [plain_a, plain_b], "ms": ms,
                      "best_plain_ms": min(plain_a, plain_b), **bnd[name], "share_of_bound": bnd[name]["bound_ms"] / ms}
-    # #21's own device time (redesigned); ms includes the wrapper's host work (the records' re-layout)
-    out["emission_log_b"]["kernel_device_ms"] = kernel_device_ms(
-        torch, lambda: ke.emission_log_b(frames, a, bias), "emission_log_b_kernel")
+    # the redesigned kernels' own device time (torch.profiler; the moments' two
+    # kernels summed); ms includes the wrapper's host work
+    device_keys = {"emission_log_b": ("emission_log_b_kernel",),
+                   "emission_stats": ("emission_stats_kernel", "sum_blocks_kernel"),
+                   **{name: ("lattice_forward_kernel",) for name in (
+                       "log_forward_batch", "log_forward_batch_diag10", "forward_lattice", "forward_lattice_blocked")}}
+    for name, keys in device_keys.items():
+        _, kernel, args = calls[name]
+        per = [kernel_device_ms(torch, lambda: kernel(*args), key) for key in keys]
+        out[name]["kernel_device_ms"] = None if None in per else sum(per)
     band = trans_band(model.trans.cpu().numpy())
     feats_tdb = batch.features.permute(1, 2, 0).contiguous()
     steps = {
@@ -3604,8 +3730,10 @@ def main() -> int:
             **({f"{k}_diag10": t_lane["log_forward_batch_diag10"][v] for k, v in
                 (("ms", "ms"), ("plain_ms", "best_plain_ms"), ("bound_ms", "bound_ms"), ("bound_by", "bound_by"))}
                if name == "log_forward_batch" else {}),
-            # #21's own device time (torch.profiler); ms includes the wrapper's host work
-            **({"kernel_device_ms": t_lane[name]["kernel_device_ms"]} if name == "emission_log_b" else {}),
+            # the redesigned kernels' own device time (torch.profiler); ms includes the wrapper's host work
+            **({"kernel_device_ms": t_lane[name]["kernel_device_ms"]} if "kernel_device_ms" in t_lane[name] else {}),
+            **({"kernel_device_ms_diag10": t_lane["log_forward_batch_diag10"]["kernel_device_ms"]}
+               if name == "log_forward_batch" else {}),
         }
         for name, _, where, src in LANE_ROWS
     ]})

@@ -28,26 +28,31 @@
 // the NC frames as a warp-wide broadcast (emission.cuh state_log_b_cols:
 // diag_state_log_b's fmaf order, so log b is bitwise that of one thread a
 // frame), into a (TF, S) tile in shared memory, which goes out as
-// coalesced 16-byte stores.  Moments: a block takes one state and a range
-// of kFramesPerBlock frames (block index s + S * range, so the S blocks of
-// a range run together and share its frames through L2); per chunk of 128
-// frames, frames on threads recompute q_m and write the weights g into a
-// shared tile beside the frames, then columns on threads (m, c) sum the
-// chunk's frames in ascending order into the block's accumulators.  Each
-// block writes its own partial row, and a second pass sums the rows of a
-// state over the ranges in range order: no atomics, so two runs are bitwise
-// equal.  All arithmetic is fp32 fmaf on the CUDA cores (no TF32).
-//
+// coalesced 16-byte stores.  Moments: a grid of about as many resident
+// blocks as fit walks tiles of TF frames (j = r, r + R, ...) with all the
+// states, or a group of SG states where the states' accumulators and
+// weights do not fit (the frames then read once a group); tile j+1's
+// frames, posteriors and log b come in by 16-byte cp.async while tile j is
+// computed.  Frames on threads form q_m (diag_mix_q, as the emission) and
+// the weights g of each (state, mixture) into a (SG M, TF) tile beside the
+// features (D, TF); then the warps contract them, acc (SG M, 2D+1) +=
+// W [x; x^2; 1]^T, on the tensor cores in 3xTF32 (tile_mma.cuh
+// contract_3xtf32, the weights scaled by 2^48: subnormal posteriors keep
+// their bits), each accumulator owned by one warp and summed in mma order.
+// Each block writes its own partial row, and a second pass sums the rows of
+// each output in a fixed order (a warp an output, a lane the rows r = lane
+// mod 32 ascending, then a butterfly): no atomics, so two runs are bitwise
+// equal.  The records sit in shared memory or, where they do not fit, are
+// read from device memory.  The emission's arithmetic is fp32 fmaf on the
+// CUDA cores; the moments' products are 3xTF32, their sums fp32.
+
 // What bounds it on the H100.  At the em_diag shape (N = 1,024,000 frames,
 // D=9, S=8, M=3) the emission reads 36.9 MB of frames and writes 32.8 MB of
 // log b (~0.021 ms of HBM time) for ~0.9 GFLOP (~0.014 ms of the fp32
 // rate): bytes on paper, and with the frames and log b moved in whole
 // 16-byte runs the kernel is the FMA chains' and the copies' latency over
 // ~4 blocks an SM.  The moments read frames, gamma and log b (102 MB,
-// ~0.031 ms) for ~1.4 GFLOP; that kernel reads the frames once per state (S
-// blocks of a range, mostly from L2).  Later work: the moments kernel's
-// redesign (TPU kernel #22), its contraction on tensor cores at fp32
-// accuracy.
+// ~0.031 ms) for ~1.4 GFLOP, once each with all the states in one group.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -60,21 +65,8 @@ namespace {
 
 using namespace srhmm;
 
-constexpr int kFrames = 128;            // threads a block; frames a chunk
-constexpr int kChunksPerBlock = 16;     // moments: chunks a block walks
-constexpr int kFramesPerBlock = kFrames * kChunksPerBlock;
-constexpr int kReduceThreads = 256;
-
-template <int DMAX>
-__device__ __forceinline__ void load_frame(const float* frames, long long n, int D, bool on,
-                                           float (&x)[DMAX], float (&x2)[DMAX]) {
-  const float* f = frames + n * D;
-#pragma unroll
-  for (int e = 0; e < DMAX; ++e) {
-    x[e] = (on && e < D) ? __ldg(f + e) : 0.f;
-    x2[e] = x[e] * x[e];
-  }
-}
+constexpr int kStatsThreads = 256;      // moments: threads a block
+constexpr int kReduceThreads = 256;     // the partial sums: 8 outputs a block, a warp each
 
 __device__ __forceinline__ void stage(const float* src, int n_floats, float* dst) {
   const float4* s4 = reinterpret_cast<const float4*>(src);
@@ -179,83 +171,146 @@ __global__ void __launch_bounds__(kEmitThreads) emission_log_b_kernel(const __gr
 }
 
 struct StatsParams {
-  const float* frames;  // (N, D)
-  const float* gamma;   // (N, S)
-  const float* log_b;   // (N, S)
-  const float* recs;    // (S * M, stride) records, state-major
-  float* partial;       // (ranges, S, M * Cm)
+  const float* frames;  // (N, D), 16-byte aligned
+  const float* gamma;   // (N, S), 16-byte aligned
+  const float* log_b;   // (N, S), 16-byte aligned
+  const float* recs;    // (S * M, 2 DMAX + 4) records, state-major
+  float* partial;       // (R, S M Cm): block (group, r) writes row r's columns of its states
   long long N;
-  int D, S, M, xstride;
+  int D, S, M;
+  int SG, groups;       // states a block, and the groups of SG states
+  int TF;               // frames a tile (a multiple of 8 dividing kStatsThreads)
+  int R;                // blocks a group: block (group, r) walks tiles r, r + R, ...
+  int recs_global;      // the records read from device memory, not shared memory
 };
 
-// grid S * ranges, kFrames threads: block (s, range) = blockIdx.x % S,
-// blockIdx.x / S.  Shared memory: the state's M records | weights g
-// (M, kFrames + 1) | frames (kFrames, xstride) | accumulators (M * Cm).
-template <int DMAX>
-__global__ void __launch_bounds__(kFrames) emission_stats_kernel(const StatsParams p) {
-  extern __shared__ float4 smem4[];
-  const int stride = record_stride<DMAX, false>(p.D);
-  const int S = p.S, M = p.M, D = p.D, Cm = 2 * D + 1, k = threadIdx.x;
-  float* rec_sh = reinterpret_cast<float*>(smem4);
-  float* g_sh = rec_sh + M * stride;
-  float* xs_sh = g_sh + M * (kFrames + 1);
-  float* acc_sh = xs_sh + kFrames * p.xstride;
-  const int s = blockIdx.x % S;
-  const long long range = blockIdx.x / S;
-  stage(p.recs + (size_t)s * M * stride, M * stride, rec_sh);
-  for (int i = k; i < M * Cm; i += kFrames) acc_sh[i] = 0.f;
-  __syncthreads();
-  const long long n0 = range * kFramesPerBlock;
-  const long long n1 = min(p.N, n0 + kFramesPerBlock);
-  for (long long c0 = n0; c0 < n1; c0 += kFrames) {
-    const long long n = c0 + k;
-    const bool on = n < n1;
-    const int nf = (int)min((long long)kFrames, n1 - c0);
-    float x[DMAX], x2[DMAX];
-    load_frame<DMAX>(p.frames, n, D, on, x, x2);
-#pragma unroll
-    for (int e = 0; e < DMAX; ++e)
-      if (e < D) xs_sh[k * p.xstride + e] = x[e];
-    const float lb = on ? p.log_b[n * S + s] : kNegInf;
-    const float g = (on && lb > kNegInf) ? p.gamma[n * S + s] : 0.f;
-    for (int mix = 0; mix < M; ++mix) {
-      const float q = diag_mix_q<DMAX>(rec_sh + mix * stride, x, x2);
-      g_sh[mix * (kFrames + 1) + k] = on ? g * expf(fminf(q - lb, 0.f)) : 0.f;
-    }
-    __syncthreads();
-    // columns on threads: each accumulator is owned by one thread and sums
-    // the chunk's frames in ascending order
-    for (int col = k; col < M * Cm; col += kFrames) {
-      const int mix = col / Cm, c = col - mix * Cm;
-      const float* gr = g_sh + mix * (kFrames + 1);
-      float a = acc_sh[col];
-      if (c == Cm - 1) {
-        for (int kk = 0; kk < nf; ++kk) a += gr[kk];
-      } else if (c < D) {
-        for (int kk = 0; kk < nf; ++kk) a = fmaf(gr[kk], xs_sh[kk * p.xstride + c], a);
-      } else {
-        const int e = c - D;
-        for (int kk = 0; kk < nf; ++kk) {
-          const float v = xs_sh[kk * p.xstride + e];
-          a = fmaf(gr[kk], v * v, a);
-        }
-      }
-      acc_sh[col] = a;
-    }
-    __syncthreads();
-  }
-  float* out = p.partial + ((size_t)range * S + s) * M * Cm;
-  for (int col = k; col < M * Cm; col += kFrames) out[col] = acc_sh[col];
+// Shared memory of a moments block, in floats (ops/kernels/emission.py
+// stats_smem_bytes mirrors it): the group's records (unless recs_global) |
+// two slots each of frames (TF, D), posteriors (TF, SG) and log b (TF, SG)
+// | the weights (SG M, TF + 4) | the features (D, TF + 4) | the
+// accumulators (SG M, 2D+1).
+__host__ __device__ inline size_t stats_floats(int dmax, int D, int SG, int M, int TF, int recs_global) {
+  const size_t ks = TF + 4, rows = (size_t)SG * M;
+  return (recs_global ? 0 : rows * (2 * dmax + 4)) + 2 * (size_t)TF * D + 4 * (size_t)TF * SG + rows * ks + D * ks +
+         rows * (2 * D + 1);
 }
 
-// out[i] = sum over r of partial[r * n + i], r ascending.
+// count consecutive floats from src into dst: 16-byte copies (both
+// addresses 16-byte aligned), the last count % 4 floats 4 bytes each
+__device__ __forceinline__ void stage_run(float* dst, const float* src, int count) {
+  const int n4 = count >> 2;
+  for (int i = threadIdx.x; i < n4; i += blockDim.x) cp_async16(dst + 4 * i, src + 4 * i);
+  for (int i = 4 * n4 + threadIdx.x; i < count; i += blockDim.x) cp_async4(dst + i, src + i, true);
+}
+
+// tile j's frames, and its posteriors and log b of states [s0, s0 + sg), into
+// a slot: (nf, D) and (nf, SG) row-major; one group (SG = S) copies whole
+// runs, several copy 4 bytes a float
+__device__ __forceinline__ void stage_stats_tile(const StatsParams& p, long long j, int s0, int sg, float* xs,
+                                                 float* gs, float* ls) {
+  const long long n0 = j * p.TF;
+  const int nf = (int)min((long long)p.TF, p.N - n0);
+  stage_run(xs, p.frames + n0 * p.D, nf * p.D);
+  if (p.groups == 1) {
+    stage_run(gs, p.gamma + n0 * p.S, nf * p.S);
+    stage_run(ls, p.log_b + n0 * p.S, nf * p.S);
+  } else {
+    for (int i = threadIdx.x; i < nf * sg; i += blockDim.x) {
+      const int k = i / sg, sl = i - k * sg;
+      const size_t o = (size_t)(n0 + k) * p.S + s0 + sl;
+      cp_async4(gs + k * p.SG + sl, p.gamma + o, true);
+      cp_async4(ls + k * p.SG + sl, p.log_b + o, true);
+    }
+  }
+  cp_async_commit();
+}
+
+// grid groups * R, kStatsThreads threads: block (group, r) = (blockIdx.x %
+// groups, blockIdx.x / groups) takes states [group SG, + SG) and tiles r,
+// r + R, ...  Per tile: frames on threads (frame k = tid % TF, states tid /
+// TF + i kStatsThreads / TF) write the weights g of each (state, mixture),
+// scaled by 2^48, and (first row of threads) the frame's features into
+// (D, TF + 4); a barrier; the contraction by all the warps; the next
+// tile's barrier.
+template <int DMAX>
+__global__ void __launch_bounds__(kStatsThreads) emission_stats_kernel(const __grid_constant__ StatsParams p) {
+  extern __shared__ float4 smem4[];
+  float* sh = reinterpret_cast<float*>(smem4);
+  const int stride = record_stride<DMAX, false>(p.D);
+  const int D = p.D, M = p.M, Cm = 2 * D + 1, TF = p.TF, ks = TF + 4, tid = threadIdx.x;
+  const int group = blockIdx.x % p.groups, r = blockIdx.x / p.groups;
+  const int s0 = group * p.SG, sg = min(p.SG, p.S - s0), rows = sg * M;
+  const float* recs = p.recs + (size_t)s0 * M * stride;
+  float* xs = sh;
+  if (!p.recs_global) {
+    stage(recs, rows * stride, sh);
+    recs = sh;
+    xs = sh + (size_t)p.SG * M * stride;
+  }
+  float* gs = xs + 2 * (size_t)TF * D;       // two slots of (TF, SG)
+  float* ls = gs + 2 * (size_t)TF * p.SG;    // two slots of (TF, SG)
+  float* w_sh = ls + 2 * (size_t)TF * p.SG;  // (SG M, ks)
+  float* x_sh = w_sh + (size_t)p.SG * M * ks;  // (D, ks)
+  float* acc = x_sh + (size_t)D * ks;        // (SG M, Cm)
+  const int warp = tid >> 5, nwarps = blockDim.x >> 5;
+  for (int i = tid; i < rows * Cm; i += blockDim.x) acc[i] = 0.f;
+  const long long n_tiles = (p.N + TF - 1) / TF;
+  const int k = tid % TF, lanes_f = blockDim.x / TF;  // this thread's frame; threads a frame
+  long long j = r;
+  if (j < n_tiles) stage_stats_tile(p, j, s0, sg, xs, gs, ls);
+  for (int slot = 0; j < n_tiles; j += p.R, slot ^= 1) {
+    if (j + p.R < n_tiles) {
+      stage_stats_tile(p, j + p.R, s0, sg, xs + (slot ^ 1) * (size_t)TF * D, gs + (slot ^ 1) * (size_t)TF * p.SG,
+                       ls + (slot ^ 1) * (size_t)TF * p.SG);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // tile j is in; the last tile's contraction is done
+    const int nf = (int)min((long long)TF, p.N - j * TF);
+    const bool on = k < nf;
+    const float* xt = xs + slot * (size_t)TF * D;
+    const float* gt = gs + slot * (size_t)TF * p.SG;
+    const float* lt = ls + slot * (size_t)TF * p.SG;
+    float x[DMAX], x2[DMAX];
+#pragma unroll
+    for (int e = 0; e < DMAX; ++e) {
+      x[e] = (on && e < D) ? xt[k * D + e] : 0.f;
+      x2[e] = x[e] * x[e];
+    }
+    if (tid < TF) {
+#pragma unroll
+      for (int e = 0; e < DMAX; ++e)
+        if (e < D) x_sh[e * ks + k] = x[e];
+    }
+    for (int sl = tid / TF; sl < sg; sl += lanes_f) {
+      const float lb = on ? lt[k * p.SG + sl] : kNegInf;
+      const float g = (on && lb > kNegInf) ? gt[k * p.SG + sl] : 0.f;
+      for (int mix = 0; mix < M; ++mix) {
+        const float q = diag_mix_q<DMAX>(recs + (sl * M + mix) * stride, x, x2);
+        w_sh[(sl * M + mix) * ks + k] = on ? (g * expf(fminf(q - lb, 0.f))) * kWeightScale : 0.f;
+      }
+    }
+    __syncthreads();  // the tile's weights and features are complete
+    contract_3xtf32<false>(acc, rows, Cm, w_sh, x_sh, ks, D, (nf + 7) / 8, warp, nwarps);
+  }
+  __syncthreads();
+  float* out = p.partial + (size_t)r * p.S * M * Cm + (size_t)s0 * M * Cm;
+  for (int i = tid; i < rows * Cm; i += blockDim.x) out[i] = acc[i] * kWeightUnscale;
+}
+
+// out[i] = sum over r of partial[r * n + i] in a fixed order: a warp an
+// output, lane l summing the rows r = l, l + 32, ... ascending, then a
+// butterfly over the lanes.
 __global__ void __launch_bounds__(kReduceThreads)
     sum_blocks_kernel(const float* partial, float* out, int ranges, int n) {
-  const int i = blockIdx.x * kReduceThreads + threadIdx.x;
+  const int i = blockIdx.x * (kReduceThreads / 32) + (threadIdx.x >> 5), lane = threadIdx.x & 31;
   if (i >= n) return;
   float a = 0.f;
-  for (int r = 0; r < ranges; ++r) a += partial[(size_t)r * n + i];
-  out[i] = a;
+  for (int r = lane; r < ranges; r += 32) a += partial[(size_t)r * n + i];
+#pragma unroll
+  for (int o = 16; o >= 1; o >>= 1) a += __shfl_xor_sync(~0u, a, o);
+  if (lane == 0) out[i] = a;
 }
 
 using EmitFn = void (*)(EmitParams);
@@ -349,41 +404,46 @@ int srhmm_emission_log_b_grid(long long N, int D, int S, int M, int dmax, int th
   return (int)emission_grid(fn, N, cols, threads, smem, device, blocks);
 }
 
-// gamma, log_b (N, S); partial: scratch of ceil(N / frames_per_block) *
-// S * M * (2D+1) floats, frames_per_block from
-// srhmm_emission_frames_per_block(); out (S, M, 2D+1).
+// The moments: gamma, log_b (N, S) and frames 16-byte aligned; SG states a
+// block in groups = ceil(S / SG), TF frames a tile, the records in device
+// memory (recs_global) or shared memory, R blocks a group (ops/kernels/
+// emission.py stats_block and stats_grid pick them); partial: scratch of R
+// * S * M * (2D+1) floats; out (S, M, 2D+1).
 int srhmm_emission_stats(const void* frames, const void* gamma, const void* log_b, const void* recs,
-                         void* partial, void* out, long long N, int D, int S, int M, int dmax,
-                         int device, void* stream) {
+                         void* partial, void* out, long long N, int D, int S, int M, int dmax, int SG, int TF,
+                         int R, int recs_global, int device, void* stream) {
   const StatsFn fn = stats_kernel_for(dmax);
-  if (fn == nullptr || N < 1 || D < 1 || D > dmax || S < 1 || M < 1) return (int)cudaErrorInvalidValue;
-  StatsParams p{};
-  p.frames = static_cast<const float*>(frames);
-  p.gamma = static_cast<const float*>(gamma);
-  p.log_b = static_cast<const float*>(log_b);
-  p.recs = static_cast<const float*>(recs);
-  p.partial = static_cast<float*>(partial);
-  p.N = N;
-  p.D = D;
-  p.S = S;
-  p.M = M;
-  p.xstride = D | 1;
-  const int Cm = 2 * D + 1;
-  const size_t smem = sizeof(float) * ((size_t)M * (2 * dmax + 4) + (size_t)M * (kFrames + 1) +
-                                       (size_t)kFrames * p.xstride + (size_t)M * Cm);
+  if (fn == nullptr || N < 1 || D < 1 || D > dmax || S < 1 || M < 1 || SG < 1 || SG > S || R < 1 || TF < 8 ||
+      TF % 8 != 0 || kStatsThreads % TF != 0 || reinterpret_cast<uintptr_t>(frames) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(gamma) % 16 != 0 || reinterpret_cast<uintptr_t>(log_b) % 16 != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const size_t smem = sizeof(float) * stats_floats(dmax, D, SG, M, TF, recs_global);
   cudaError_t err = prepare(reinterpret_cast<const void*>(fn), smem, device);
   if (err != cudaSuccess) return (int)err;
-  const long long ranges = (N + kFramesPerBlock - 1) / kFramesPerBlock;
+  const int groups = (S + SG - 1) / SG;
+  StatsParams p{static_cast<const float*>(frames), static_cast<const float*>(gamma),
+                static_cast<const float*>(log_b), static_cast<const float*>(recs), static_cast<float*>(partial),
+                N, D, S, M, SG, groups, TF, R, recs_global};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  fn<<<(unsigned)(ranges * S), kFrames, smem, s>>>(p);
+  fn<<<(unsigned)((long long)groups * R), kStatsThreads, smem, s>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const int n = S * M * Cm;
-  sum_blocks_kernel<<<(n + kReduceThreads - 1) / kReduceThreads, kReduceThreads, 0, s>>>(
-      static_cast<const float*>(partial), static_cast<float*>(out), (int)ranges, n);
+  const int n = S * M * (2 * D + 1), per = kReduceThreads / 32;
+  sum_blocks_kernel<<<(n + per - 1) / per, kReduceThreads, 0, s>>>(static_cast<const float*>(partial),
+                                                                   static_cast<float*>(out), R, n);
   return (int)cudaGetLastError();
 }
 
-int srhmm_emission_frames_per_block() { return kFramesPerBlock; }
+// The moments blocks of these arguments one SM holds at once (the CUDA
+// occupancy calculator), into *per_sm.
+int srhmm_emission_stats_occupancy(int D, int M, int dmax, int SG, int TF, int recs_global, int device, int* per_sm) {
+  const StatsFn fn = stats_kernel_for(dmax);
+  if (fn == nullptr) return (int)cudaErrorInvalidValue;
+  const size_t smem = sizeof(float) * stats_floats(dmax, D, SG, M, TF, recs_global);
+  cudaError_t err = prepare(reinterpret_cast<const void*>(fn), smem, device);
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, fn, kStatsThreads, smem);
+  return (int)err;
+}
 
 }  // extern "C"

@@ -4,6 +4,7 @@ the per-mixture record layout of ``csrc/emission.cuh``."""
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -43,6 +44,18 @@ def on_cpu(name: str, t: torch.Tensor) -> bool:
     if kind != "cuda":
         raise ValueError(f"{name}: no implementation for device {t.device}")
     return False
+
+
+@functools.cache
+def sm_count(index: int) -> int:
+    """The streaming multiprocessors of CUDA device `index`."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def aligned16(t: torch.Tensor) -> torch.Tensor:
+    """t, or a copy of it where its data is off 16-byte alignment (a view):
+    the kernels copy 16 bytes at a time."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def device_args(dev: torch.device) -> tuple[int, int]:
@@ -91,15 +104,19 @@ def mixture_records(a, bias_g, bias, logw, D: int, M: int, W: int, S: int, full:
     (full only); bias and logw (M, W*S, 1).  logw=None stores 0 (the
     mixture log-weight already folded into bias)."""
     bias = bias.reshape(M, W, S).permute(1, 2, 0)[..., None]  # (W, S, M, 1)
-    zeros = torch.zeros_like(bias)
-    logw = zeros if logw is None else logw.reshape(M, W, S).permute(1, 2, 0)[..., None]
+    logw = None if logw is None else logw.reshape(M, W, S).permute(1, 2, 0)[..., None]
     if full:
+        zeros = torch.zeros_like(bias)
         lt = a.reshape(M, D, W, S, D).permute(2, 3, 0, 1, 4)  # (W, S, M, d, e)
         lt = F.pad(lt, (0, dmax - D)).reshape(W, S, M, D * dmax)
         zmu = F.pad(bias_g.reshape(M, D, W, S).permute(2, 3, 0, 1), (0, dmax - D))
-        rec = torch.cat([lt, zmu, bias, logw, zeros, zeros], -1)
-    else:
-        lin = F.pad(a[..., :D].reshape(M, W, S, D).permute(1, 2, 0, 3), (0, dmax - D))
-        quad = F.pad(a[..., D:].reshape(M, W, S, D).permute(1, 2, 0, 3), (0, dmax - D))
-        rec = torch.cat([lin, quad, bias, logw, zeros, zeros], -1)
+        rec = torch.cat([lt, zmu, bias, zeros if logw is None else logw, zeros, zeros], -1)
+    else:  # filled in place: a few device operations a call
+        at = a.reshape(M, W, S, 2 * D).permute(1, 2, 0, 3)  # (W, S, M, 2D)
+        rec = a.new_zeros((W, S, M, 2 * dmax + 4))
+        rec[..., :D] = at[..., :D]
+        rec[..., dmax : dmax + D] = at[..., D:]
+        rec[..., 2 * dmax : 2 * dmax + 1] = bias
+        if logw is not None:
+            rec[..., 2 * dmax + 1 : 2 * dmax + 2] = logw
     return rec.reshape(W, -1)

@@ -52,6 +52,7 @@ from .common import (
     dmax_for,
     on_cpu,
     require_float32,
+    sm_count,
 )
 from .fused_em import _lse_terms, _shift_down, _shift_up
 
@@ -475,7 +476,7 @@ def composed_forward(log_b, diag_col, lengths):
     lens = lengths.to(torch.int32).contiguous()
     la = torch.empty_like(log_b)
     index, stream = device_args(log_b.device)
-    blk = forward_block(LS, B, nd, _sm_count(index))
+    blk = forward_block(LS, B, nd, sm_count(index))
     check_launch("composed_forward", _kernel_library().srhmm_composed_forward(
         log_b.data_ptr(), diag_col.data_ptr(), lens.data_ptr(), la.data_ptr(), T, LS, B, nd,
         blk["rows_per_lane"], blk["warps"], blk["utts"], blk["tile"], index, stream))
@@ -539,11 +540,6 @@ def backward_smem_bytes(R: int, W: int, U: int, TT: int, LS: int) -> int:
     return 4 * (5 * TT * ap + 4 * TT * U * (32 * R * W + 4))
 
 
-@functools.cache
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def composed_backward_stats(log_b, log_alpha, diag_row, lengths, safe_z, vmask):
     """Banded log-backward + lattice statistics: (gamma (T, LS, B), xi
     (band+1, LS, B), den_trans (LS, B), den_mix (LS, B)) (see
@@ -569,7 +565,7 @@ def composed_backward_stats(log_b, log_alpha, diag_row, lengths, safe_z, vmask):
     den_trans = torch.empty((LS, B), **f32)
     den_mix = torch.empty((LS, B), **f32)
     index, stream = device_args(log_b.device)
-    blk = backward_block(LS, B, nd, _sm_count(index))
+    blk = backward_block(LS, B, nd, sm_count(index))
     check_launch(name, _kernel_library().srhmm_composed_backward_stats(
         log_b.data_ptr(), log_alpha.data_ptr(), diag_row.data_ptr(), lens.data_ptr(),
         safe_z.data_ptr(), vmask.data_ptr(), gamma.data_ptr(), xi.data_ptr(),

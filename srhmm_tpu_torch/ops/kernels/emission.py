@@ -34,16 +34,18 @@ from ...models.gmm_hmm import DIAG, GmmStream
 from .common import (
     NEG_INF,
     SMEM_LIMIT,
+    aligned16,
     check_launch,
     device_args,
     dmax_for,
     mixture_records,
     on_cpu,
     require_float32,
+    sm_count,
 )
 
-FRAMES_PER_CHUNK = 128  # csrc/emission_em.cu kFrames
 EMISSION_THREADS = (256, 128, 64, 32)  # an emission block's threads (csrc/emission_em.cu kEmitThreads first)
+STATS_TILES = (128, 64, 32, 16, 8)  # frames a moments tile, largest first (each divides csrc/emission_em.cu kStatsThreads)
 
 
 def pack_constants(stream: GmmStream, dtype=torch.float32):
@@ -116,9 +118,9 @@ def _kernel_library() -> ctypes.CDLL:
     lib.srhmm_emission_log_b_grid.restype = c_int
     lib.srhmm_emission_log_b_grid.argtypes = [c_ll] + [c_int] * 8 + [ctypes.POINTER(c_ll)]
     lib.srhmm_emission_stats.restype = c_int
-    lib.srhmm_emission_stats.argtypes = [c_ptr] * 6 + [c_ll] + [c_int] * 5 + [c_ptr]
-    lib.srhmm_emission_frames_per_block.restype = c_int
-    lib.srhmm_emission_frames_per_block.argtypes = []
+    lib.srhmm_emission_stats.argtypes = [c_ptr] * 6 + [c_ll] + [c_int] * 9 + [c_ptr]
+    lib.srhmm_emission_stats_occupancy.restype = c_int
+    lib.srhmm_emission_stats_occupancy.argtypes = [c_int] * 7 + [ctypes.POINTER(c_int)]
     return lib
 
 
@@ -139,14 +141,9 @@ class _EmissionLaunch:
             raise ValueError(f"{name}: no frames")
         self.name = name
         self.dmax = dmax_for([self.D], name)
-        self.frames = frames.contiguous()
+        self.frames = aligned16(frames.contiguous())
         self.recs = mixture_records(a.permute(0, 2, 1), None, b.reshape(self.M, self.S, 1), None,
-                                    self.D, self.M, 1, self.S, False, self.dmax).reshape(-1).contiguous()
-
-    def fit(self, floats: int) -> None:
-        if 4 * floats > SMEM_LIMIT:
-            raise ValueError(f"{self.name}: {4 * floats} bytes of shared memory per block, above the "
-                             f"{SMEM_LIMIT}-byte budget")
+                                    self.D, self.M, 1, self.S, False, self.dmax).reshape(-1)
 
 
 def emission_cols(dmax: int) -> int:
@@ -205,11 +202,9 @@ def emission_log_b(frames, a, b):
         return emission_log_b_plain(frames, a, b)
     ln = _EmissionLaunch("emission_log_b", frames, a, b)
     shape = emission_block(ln.N, ln.D, ln.S, ln.M)
-    # the kernel copies frames 16 bytes at a time: a view off that alignment is copied
-    fr = ln.frames if ln.frames.data_ptr() % 16 == 0 else ln.frames.clone()
     out = torch.empty((ln.N, ln.S), dtype=torch.float32, device=ln.dev)
     check_launch(ln.name, _kernel_library().srhmm_emission_log_b(
-        fr.data_ptr(), ln.recs.data_ptr(), out.data_ptr(), ln.N, ln.D, ln.S, ln.M, ln.dmax, shape["threads"],
+        ln.frames.data_ptr(), ln.recs.data_ptr(), out.data_ptr(), ln.N, ln.D, ln.S, ln.M, ln.dmax, shape["threads"],
         int(shape["recs_global"]), int(shape["direct"]), *device_args(ln.dev)))
     emission_log_b.launches += 1
     return out
@@ -218,32 +213,96 @@ def emission_log_b(frames, a, b):
 emission_log_b.launches = 0
 
 
+def stats_smem_bytes(dmax: int, D: int, SG: int, M: int, TF: int, recs_global: bool) -> int:
+    """csrc/emission_em.cu stats_floats: the group's records (unless read
+    from device memory), two slots each of frames (TF, D), posteriors and
+    log b (TF, SG), the weights (SG M, TF + 4), the features (D, TF + 4)
+    and the accumulators (SG M, 2D + 1)."""
+    ks, rows = TF + 4, SG * M
+    return 4 * ((0 if recs_global else rows * (2 * dmax + 4)) + 2 * TF * D + 4 * TF * SG + rows * ks + D * ks
+                + rows * (2 * D + 1))
+
+
+def stats_block(N: int, D: int, S: int, M: int, name: str = "emission_stats") -> dict:
+    """The moments' launch shape (_stats_shape) and its tiles of N frames."""
+    sh = _stats_shape(D, S, M, name)
+    return {**sh, "tiles": -(-N // sh["tile_frames"])}
+
+
+@functools.cache
+def _stats_shape(D: int, S: int, M: int, name: str) -> dict:
+    """The moments' launch shape: the largest tile of STATS_TILES frames
+    whose block holds all S states, the records in shared memory, else in
+    device memory; where no block holds all the states, tiles of 128 frames
+    (the largest that holds one) with the records in device memory and as
+    many states a block (a group) as fit, each group reading the frames
+    once.  Raises ValueError only where no block of one state and 8 frames
+    fits."""
+    dmax = dmax_for([D], name)
+
+    def most_states(TF, rg):  # the bytes grow with SG
+        return next((sg for sg in range(S, 0, -1) if stats_smem_bytes(dmax, D, sg, M, TF, rg) <= SMEM_LIMIT), 0)
+
+    shape = next(((tf, rg, S) for tf in STATS_TILES for rg in (False, True) if most_states(tf, rg) == S), None)
+    if shape is None:
+        tf = next((tf for tf in STATS_TILES if most_states(tf, True) >= 1), None)
+        if tf is None:
+            raise ValueError(f"{name}: no block of one state's {M} mixtures at D={D} fits the "
+                             f"{SMEM_LIMIT}-byte shared-memory budget")
+        shape = (tf, True, most_states(tf, True))
+    TF, rg, SG = shape
+    return {"tile_frames": TF, "states": SG, "groups": -(-S // SG), "recs_global": rg, "dmax": dmax,
+            "smem_bytes": stats_smem_bytes(dmax, D, SG, M, TF, rg)}
+
+
+@functools.cache
+def _stats_per_sm(D: int, M: int, dmax: int, SG: int, TF: int, recs_global: bool, index: int) -> int:
+    per_sm = ctypes.c_int(0)
+    check_launch("emission_stats", _kernel_library().srhmm_emission_stats_occupancy(
+        D, M, dmax, SG, TF, int(recs_global), index, ctypes.byref(per_sm)))
+    return per_sm.value
+
+
+def stats_grid(N: int, D: int, S: int, M: int, device) -> int:
+    """R, the blocks of each group of states emission_stats launches for N
+    frames on a CUDA device: the blocks of stats_block's shape that fit on
+    the card at once (the CUDA occupancy calculator), shared among the
+    groups, at least 1 and no more than the tiles."""
+    sh = stats_block(N, D, S, M)
+    index = device_args(torch.device(device))[0]
+    per_sm = _stats_per_sm(D, M, sh["dmax"], sh["states"], sh["tile_frames"], sh["recs_global"], index)
+    if per_sm < 1:
+        raise RuntimeError(f"emission_stats: no block of {sh['smem_bytes']} bytes fits an SM")
+    resident = sm_count(index) * per_sm
+    return max(1, min(sh["tiles"], resident // sh["groups"]))
+
+
 def emission_stats(frames, gamma, log_b, a, b):
     """Fused diagonal-GMM sufficient statistics: (S, M, 2D+1) moments
     [sum g x, sum g x^2, sum g] (see emission_stats_plain), without any
     (N, S, M) tensor in device memory.
 
-    CUDA float32 tensors launch csrc/emission_em.cu's moments kernel (per
-    block partial sums, then their sum in block order: two runs bitwise
-    equal) and count one in ``emission_stats.launches``; CPU tensors run the
-    twin."""
+    CUDA float32 tensors launch csrc/emission_em.cu's moments kernel
+    (resident blocks walking tiles of frames with all the states, or a
+    group of them: stats_block, stats_grid; per block partial sums, then
+    their sum in a fixed order: two runs bitwise equal) and count one in
+    ``emission_stats.launches``; CPU tensors run the twin."""
     if on_cpu("emission_stats", frames):
         return emission_stats_plain(frames, gamma, log_b, a, b)
     ln = _EmissionLaunch("emission_stats", frames, a, b, extra=(gamma, log_b))
     if tuple(gamma.shape) != (ln.N, ln.S) or tuple(log_b.shape) != (ln.N, ln.S):
         raise ValueError(f"emission_stats: gamma and log b must be (N, S) = {(ln.N, ln.S)}")
-    gamma, log_b = gamma.contiguous(), log_b.contiguous()
+    gamma, log_b = aligned16(gamma.contiguous()), aligned16(log_b.contiguous())
+    sh = stats_block(ln.N, ln.D, ln.S, ln.M)
+    R = stats_grid(ln.N, ln.D, ln.S, ln.M, ln.dev)
     Cm = 2 * ln.D + 1
-    ln.fit(ln.M * (2 * ln.dmax + 4) + ln.M * (FRAMES_PER_CHUNK + 1) + FRAMES_PER_CHUNK * (ln.D | 1)
-           + ln.M * Cm)
-    lib = _kernel_library()
-    ranges = -(-ln.N // lib.srhmm_emission_frames_per_block())
     f32 = dict(dtype=torch.float32, device=ln.dev)
-    partial = torch.empty(ranges * ln.S * ln.M * Cm, **f32)
+    partial = torch.empty(R * ln.S * ln.M * Cm, **f32)
     out = torch.empty((ln.S, ln.M, Cm), **f32)
-    check_launch(ln.name, lib.srhmm_emission_stats(
+    check_launch(ln.name, _kernel_library().srhmm_emission_stats(
         ln.frames.data_ptr(), gamma.data_ptr(), log_b.data_ptr(), ln.recs.data_ptr(), partial.data_ptr(),
-        out.data_ptr(), ln.N, ln.D, ln.S, ln.M, ln.dmax, *device_args(ln.dev)))
+        out.data_ptr(), ln.N, ln.D, ln.S, ln.M, ln.dmax, sh["states"], sh["tile_frames"], R, int(sh["recs_global"]),
+        *device_args(ln.dev)))
     emission_stats.launches += 1
     return out
 

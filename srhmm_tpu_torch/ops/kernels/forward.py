@@ -26,7 +26,7 @@ from __future__ import annotations
 import torch
 
 from .common import NEG_INF, check_launch, on_cpu
-from .lattice import LatticeLaunch, _clamped, _start, forward_recursion, kernel_library
+from .lattice import LatticeLaunch, _clamped, _start, forward_launch, forward_recursion, kernel_library
 
 
 def log_forward_batch_plain(log_b, log_trans, lengths):
@@ -74,9 +74,7 @@ def log_forward_batch(log_b, log_trans, lengths):
     tensors run the twin."""
     if on_cpu("log_forward_batch", log_b):
         return log_forward_batch_plain(log_b, log_trans, lengths)
-    ln = LatticeLaunch("log_forward_batch", log_b, log_trans, lengths, "bts", per_row_ok=True)
-    out = ln.empty((ln.B, ln.S))
-    check_launch(ln.name, kernel_library().srhmm_lattice_forward(*ln.head(), out.data_ptr(), 1, *ln.tail()))
+    out = forward_launch(LatticeLaunch("log_forward_batch", log_b, log_trans, lengths, "bts", per_row_ok=True), "bts")
     log_forward_batch.launches += 1
     return out
 

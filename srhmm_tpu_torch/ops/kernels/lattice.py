@@ -29,10 +29,12 @@ import functools
 
 import torch
 
-from .common import NEG_INF, check_launch, device_args, on_cpu, require_float32
+from .common import NEG_INF, SMEM_LIMIT, aligned16, check_launch, device_args, on_cpu, require_float32, sm_count
 
 MAX_STATES = 64  # csrc/lattice.cu kMaxStates
-THREADS_PER_BLOCK = 128  # a block holds max(1, 128 // S) utterances
+THREADS_PER_BLOCK = 128  # backward / Viterbi: a block holds max(1, 128 // S) utterances
+FORWARD_REC_WARPS = 4  # csrc/lattice.cu kFwdRecWarps: a forward block's recursion warps (and one memory warp)
+FORWARD_TILES = (32, 16, 8, 4, 2, 1)  # frames a forward tile, largest first
 
 
 # ---------------------------------------------------------------------------
@@ -107,10 +109,11 @@ def kernel_library() -> ctypes.CDLL:
 
     lib = load_library()
     c_int, c_ll, c_ptr = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
+    lib.srhmm_lattice_forward.restype = c_int
+    # log_b lt per_row lengths out, layout T S B G U TT vec device, stream
+    lib.srhmm_lattice_forward.argtypes = [c_ptr, c_ptr, c_int, c_ptr, c_ptr] + [c_int] * 9 + [c_ptr]
     head = [c_ptr, c_ll, c_ll, c_ll, c_ptr, c_int, c_ptr]  # log_b st ss sb lt per_row lengths
     tail = [c_int] * 6 + [c_ptr]  # T S B U state_minor device, stream
-    lib.srhmm_lattice_forward.restype = c_int
-    lib.srhmm_lattice_forward.argtypes = head + [c_ptr, c_int] + tail  # out, last_only
     lib.srhmm_lattice_backward.restype = c_int
     lib.srhmm_lattice_backward.argtypes = head + [c_ptr] + tail  # out
     lib.srhmm_viterbi.restype = c_int
@@ -158,11 +161,67 @@ class LatticeLaunch:
         return torch.empty(shape, dtype=dtype, device=self.dev)
 
 
-def _forward_cuda(name, log_b_tsb, log_trans, lengths):
-    ln = LatticeLaunch(name, log_b_tsb, log_trans, lengths, "tsb")
-    out = ln.empty((ln.T, ln.S, ln.B))
-    check_launch(name, kernel_library().srhmm_lattice_forward(*ln.head(), out.data_ptr(), 0, *ln.tail()))
+def forward_smem_bytes(S: int, U: int, TT: int, layout: str, per_row: bool) -> int:
+    """csrc/lattice.cu forward_floats: log b in two slots, (TT, S, U) for
+    "tsb" or U runs of TT S floats at a pitch rounded up to 4, + 4, for
+    "bts"; the lattice out in two (TT, S, U) slots ("tsb"); the transitions
+    past 32 states, one matrix or the block's U."""
+    tile = TT * S * U if layout == "tsb" else U * (-(-TT * S // 4) * 4 + 4)
+    out = 2 * TT * S * U if layout == "tsb" else 0
+    trans = (U if per_row else 1) * S * S if S > 32 else 0
+    return 4 * (2 * tile + out + trans)
+
+
+def forward_block(S: int, B: int, layout: str, per_row: bool = False, sms: int = 132) -> dict:
+    """The launch shape of csrc/lattice.cu's forward kernel: R states a lane
+    (2 past 32 states), G = 32 // S utterances a warp (1 past 32 states), U
+    = 4 G a block of four recursion warps and a memory warp, NS compiled
+    transition slots (4, 8, 16, 32 or 64 >= S); TT the largest of
+    FORWARD_TILES whose blocks all fit on the card at once by shared memory
+    and threads (else the largest that fits a block), and the blocks."""
+    if not 1 <= S <= MAX_STATES:
+        raise ValueError(f"forward kernel: 1 to {MAX_STATES} states, got {S}")
+    R = 2 if S > 32 else 1
+    G = 1 if R == 2 else 32 // S
+    U = G * FORWARD_REC_WARPS
+    blocks = -(-B // U)
+    threads = 32 * (FORWARD_REC_WARPS + 1)
+    fits = [tt for tt in FORWARD_TILES if forward_smem_bytes(S, U, tt, layout, per_row) <= SMEM_LIMIT]
+
+    def resident(tt):  # blocks an SM holds: 2048 threads, 228 KB with 1 KB reserved a block
+        return min(2048 // threads, 233472 // (forward_smem_bytes(S, U, tt, layout, per_row) + 1024))
+
+    TT = next((tt for tt in fits if resident(tt) * sms >= blocks), fits[0])
+    return {"states_per_lane": R, "utts_per_warp": G, "utts": U, "slots": next(n for n in (4, 8, 16, 32, 64) if n >= S),
+            "tile": TT, "blocks": blocks, "smem_bytes": forward_smem_bytes(S, U, TT, layout, per_row)}
+
+
+def forward_copies_16(S: int, T: int, B: int, blk: dict, layout: str) -> bool:
+    """Whether the forward kernel moves log b (and the lattice) 16 bytes at
+    a time: rows of U utterances along B ("tsb") where U and B are
+    multiples of 4, runs of TT S floats an utterance ("bts") where T S and
+    TT S are."""
+    if layout == "tsb":
+        return blk["utts"] % 4 == 0 and B % 4 == 0
+    return T * S % 4 == 0 and blk["tile"] * S % 4 == 0
+
+
+def forward_launch(ln: "LatticeLaunch", layout: str):
+    """Launch csrc/lattice.cu's forward kernel on checked operands: the (T,
+    S, B) lattice for layout "tsb", the final carries (B, S) for "bts"."""
+    index, stream = device_args(ln.dev)
+    blk = forward_block(ln.S, ln.B, layout, bool(ln.per_row), sm_count(index))
+    out = ln.empty((ln.T, ln.S, ln.B) if layout == "tsb" else (ln.B, ln.S))
+    vec = forward_copies_16(ln.S, ln.T, ln.B, blk, layout)
+    log_b = aligned16(ln.log_b) if vec else ln.log_b
+    check_launch(ln.name, kernel_library().srhmm_lattice_forward(
+        log_b.data_ptr(), ln.log_trans.data_ptr(), ln.per_row, ln.lengths.data_ptr(), out.data_ptr(),
+        int(layout == "bts"), ln.T, ln.S, ln.B, blk["utts_per_warp"], blk["utts"], blk["tile"], int(vec), index, stream))
     return out
+
+
+def _forward_cuda(name, log_b_tsb, log_trans, lengths):
+    return forward_launch(LatticeLaunch(name, log_b_tsb, log_trans, lengths, "tsb"), "tsb")
 
 
 def _backward_cuda(name, log_b_tsb, log_trans, lengths):

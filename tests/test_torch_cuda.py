@@ -1141,3 +1141,93 @@ def test_train_fast_full_d39_takes_the_plain_route(cuda_device):
     assert res.iterations == want[1] and res.log_prob_history == want[2]
     for x, y in zip(res.model.buffers(), want[0].buffers()):
         assert torch.equal(x, y)
+
+
+# ---------------------------------------------------------------------------
+# the redesigned lattice forward kernel (csrc/lattice.cu) and moments kernel
+# (csrc/emission_em.cu) at their launch shapes
+# ---------------------------------------------------------------------------
+
+from torch_port_utils import FORWARD_CHECK_CASES, STATS_CHECK_CASES, forward_check_lengths, log_trans_np  # noqa: E402
+
+
+@pytest.mark.parametrize("i", range(len(FORWARD_CHECK_CASES)))
+def test_forward_kernel_matches_plain_at_every_launch_shape(cuda_device, i):
+    """The forward kernel at FORWARD_CHECK_CASES (one state, T below a tile
+    with a ragged last block and 4-byte copies, idle lanes, two states a
+    lane, ten tiles, 16 slots): the (T, S, B) lattice and the (B, T, S) last
+    row with shared and per-row transitions against the twins, the -1e30
+    floor bitwise; two launches bitwise equal; the blocked wrapper bitwise
+    the unblocked."""
+    from srhmm_tpu_torch.ops.kernels import forward as kf
+    from srhmm_tpu_torch.ops.kernels import lattice as kl
+
+    S, kind, B, T = FORWARD_CHECK_CASES[i]
+    rng = np.random.default_rng(300 + i)
+    lb = torch.as_tensor((rng.normal(size=(T, S, B)) * 2).astype(np.float32), device=cuda_device)
+    lt = torch.as_tensor(log_trans_np(S, kind, i), device=cuda_device)
+    rows = torch.as_tensor(np.stack([log_trans_np(S, ("delta1", "delta2", "dense")[b % 3], b) for b in range(B)]),
+                           device=cuda_device)
+    lens = torch.as_tensor(forward_check_lengths(i, B, T), dtype=torch.int32, device=cuda_device)
+    la, again = kl.forward_lattice(lb, lt, lens), kl.forward_lattice(lb, lt, lens)
+    want = kl.forward_lattice_plain(lb, lt, lens)
+    _lattice_close(la, want)
+    below = want <= NEG_INF / 2
+    assert torch.equal(la[below], want[below]) and torch.equal(la, again)
+    assert torch.equal(kl.forward_lattice_blocked(lb, lt, lens, k_block=1), la)
+    lb_bts = lb.permute(2, 0, 1).contiguous()
+    for trans in (lt, rows):
+        got, again = kf.log_forward_batch(lb_bts, trans, lens), kf.log_forward_batch(lb_bts, trans, lens)
+        _lattice_close(got, kf.log_forward_batch_plain(lb_bts, trans, lens))
+        assert torch.equal(got, again)
+    # the last row is the lattice's last row where the transitions are shared
+    assert torch.equal(kf.log_forward_batch(lb_bts, lt, lens), la[-1].T)
+
+
+@pytest.mark.parametrize("N,S,M,D", STATS_CHECK_CASES)
+def test_emission_stats_matches_plain_at_every_launch_shape(cuda_device, N, S, M, D):
+    """emission_stats at STATS_CHECK_CASES (states split into groups with
+    the records in device memory, 64-frame tiles, blocks walking several
+    tiles, one tile of five frames) against the twin, each side reading the
+    log b of its own emission, within 1e-4 of each moment block's scale;
+    two launches bitwise equal."""
+    from srhmm_tpu_torch.ops.kernels import emission as ke
+
+    trans, streams = rand_word(40 + S, S, [(M, D)], "diag", scale=3.0)
+    stream = tm.gmm_hmm_from_numpy(trans, streams).astype(torch.float32).to(cuda_device).streams[0]
+    rng = np.random.default_rng(41)
+    frames = torch.as_tensor(rng.normal(size=(N, D)) * 3, dtype=torch.float32, device=cuda_device)
+    gamma = torch.as_tensor(rng.uniform(size=(N, S)), dtype=torch.float32, device=cuda_device)
+    a, b = ke.pack_constants(stream, torch.float32)
+    lb, lb_p = ke.emission_log_b(frames, a, b), ke.emission_log_b_plain(frames, a, b)
+    lb[:3], lb_p[:3] = -torch.inf, -torch.inf
+    got, again = ke.emission_stats(frames, gamma, lb, a, b), ke.emission_stats(frames, gamma, lb, a, b)
+    want = ke.emission_stats_plain(frames, gamma, lb_p, a, b)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    for part in (slice(0, D), slice(D, 2 * D), slice(2 * D, 2 * D + 1)):
+        _stat_close(got[..., part], want[..., part])
+
+
+def test_emission_stats_single_frame_posteriors(cuda_device):
+    """emission_stats where each state's posterior sits on one frame (S =
+    64, M = 1, so each weight is the posterior, and 1 <= |x| <= 2): every
+    moment is one product, which a single TF32 pass would round by up to
+    2^-11 of it; the kernel stays within 1e-4 of each moment block's
+    scale."""
+    from srhmm_tpu_torch.ops.kernels import emission as ke
+
+    N, S, D = 4133, 64, 9
+    trans, streams = rand_word(77, S, [(1, D)], "diag", scale=3.0)
+    stream = tm.gmm_hmm_from_numpy(trans, streams).astype(torch.float32).to(cuda_device).streams[0]
+    rng = np.random.default_rng(43)
+    x = rng.uniform(1.0, 2.0, size=(N, D)) * rng.choice([-1.0, 1.0], size=(N, D))
+    g = np.zeros((N, S))
+    g[7 + 61 * np.arange(S), np.arange(S)] = rng.uniform(0.75, 1.0, size=S)
+    frames = torch.as_tensor(x, dtype=torch.float32, device=cuda_device)
+    gamma = torch.as_tensor(g, dtype=torch.float32, device=cuda_device)
+    a, b = ke.pack_constants(stream, torch.float32)
+    got = ke.emission_stats(frames, gamma, ke.emission_log_b(frames, a, b), a, b)
+    want = ke.emission_stats_plain(frames, gamma, ke.emission_log_b_plain(frames, a, b), a, b)
+    for part in (slice(0, D), slice(D, 2 * D), slice(2 * D, 2 * D + 1)):
+        _stat_close(got[..., part], want[..., part])

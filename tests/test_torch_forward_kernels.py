@@ -68,6 +68,20 @@ def test_log_forward_batch_per_row_matches_pallas():
         np.testing.assert_array_equal(got[b : b + 1], one)
 
 
+@pytest.mark.parametrize("S", [33, 64])
+def test_log_forward_batch_per_row_matches_pallas_past_32_states(S):
+    """Per-row transitions past 32 states (two states a lane of the CUDA
+    kernel, the block's matrices in shared memory): the twin against the
+    Pallas kernel."""
+    T, B = 40, 5
+    lb = _log_b(B, T, S, seed=S)
+    lt = np.stack([log_trans_np(S, ("delta1", "delta2", "dense")[b % 3], seed=b) for b in range(B)])
+    lens = np.asarray([40, 17, 1, 0, 33], np.int32)
+    got = kf.log_forward_batch(_t(lb), _t(lt), _t(lens)).numpy()
+    want = np.asarray(jf.log_forward_batch_pallas(_j(lb), _j(lt), _j(lens), interpret=True))
+    assert_log_close(got, want)
+
+
 def test_log_forward_batch_matches_the_jax_scan():
     """The twin against srhmm_tpu's float64 log_forward (mirrors
     tests/test_pallas_kernels.py::test_forward_kernel_matches_scan)."""

@@ -8,9 +8,11 @@ NEG_INF/2, padded tails included (rows past a length repeat the last valid
 row forward and hold the final-state initialization backward), log b with
 -inf entries (clamped at -1e30 by both), lengths 0 and 1.  The twins also
 hold the JAX scans (log_forward_full / log_backward_full, float64) to 1e-4,
-as tests/test_pallas_kernels.py holds the Pallas kernels.  The CUDA kernel
-is held against the twins on the card (tests/test_torch_cuda.py,
-chip_smoke.py).
+as tests/test_pallas_kernels.py holds the Pallas kernels; the forward twin
+also at S = 33 and 64, where the CUDA kernel holds two states a lane.  The
+forward kernel's launch shape (forward_block) is held to every shape the
+6fe1112 kernel took.  The CUDA kernels are held against the twins on the
+card (tests/test_torch_cuda.py, chip_smoke.py).
 """
 
 import jax.numpy as jnp
@@ -127,3 +129,44 @@ def test_cpu_tensors_run_the_twins_and_other_devices_raise():
     for f in fns:
         with pytest.raises(ValueError, match="no implementation"):
             f(meta, torch.from_numpy(lt), torch.from_numpy(lens))
+
+
+@pytest.mark.parametrize("S,kind", [(33, "dense"), (64, "delta2")])
+def test_forward_lattice_matches_pallas_past_32_states(S, kind):
+    """Past 32 states a lane of the CUDA forward kernel holds two states:
+    the twin there against the Pallas kernel, T = 40 off the kernel's
+    32-frame tiles."""
+    lb, lens = inputs(T=40, S=S, lens=(40, 33, 9, 2, 1, 0), seed=14)
+    lt = log_trans_np(S, kind, seed=6)
+    assert_log_close(_port(kl.forward_lattice, lb, lt, lens), _jax(jl.forward_lattice_pallas, lb, lt, lens))
+
+
+def test_forward_block_takes_every_shape_it_took_at_6fe1112():
+    """The 6fe1112 forward kernel took every 1 <= S <= 64, T >= 1, B >= 1 in
+    both layouts and with per-row transitions (a block of max(1, 128 // S)
+    utterances, one thread a (state, utterance), within shared memory at
+    every S).  forward_block gives each a launch shape the csrc/lattice.cu
+    launcher takes: G = 32 // S utterances a warp (1 past 32 states, two
+    states a lane), U = 4 G a block, NS >= S compiled slots, a tile whose
+    shared memory (forward_floats) fits, the blocks covering B; the
+    wrappers' checks pass on meta tensors."""
+    for S in range(1, 65):
+        for layout in ("tsb", "bts"):
+            for per_row in (False, True):
+                for B in (1, 37, 2048, 20480):
+                    sh = kl.forward_block(S, B, layout, per_row)
+                    R, G, U, TT = sh["states_per_lane"], sh["utts_per_warp"], sh["utts"], sh["tile"]
+                    assert (R, G) == ((2, 1) if S > 32 else (1, 32 // S)) and U == 4 * G and G * S <= 32 * R
+                    assert sh["slots"] >= S and sh["slots"] in (4, 8, 16, 32, 64) and sh["blocks"] * U >= B
+                    assert TT in kl.FORWARD_TILES
+                    tile = TT * S * U if layout == "tsb" else U * (-(-TT * S // 4) * 4 + 4)
+                    want = 4 * (2 * tile + (2 * TT * S * U if layout == "tsb" else 0)
+                                + ((U if per_row else 1) * S * S if S > 32 else 0))
+                    assert sh["smem_bytes"] == want <= kl.SMEM_LIMIT
+    meta = dict(device="meta", dtype=torch.float32)
+    for S in (1, 33, 64):
+        ln = kl.LatticeLaunch("log_forward_batch", torch.empty((37, 95, S), **meta), torch.empty((37, S, S), **meta),
+                              torch.empty((37,), device="meta", dtype=torch.int32), "bts", per_row_ok=True)
+        assert (ln.B, ln.T, ln.S, ln.per_row) == (37, 95, S, 1)
+    with pytest.raises(ValueError, match="states"):
+        kl.forward_block(65, 8, "tsb")

@@ -9,8 +9,9 @@ Each mutant is a copy of the tree in a temporary directory with one
 deliberate fault in a kernel source; the chip_smoke.py phase that should
 catch it (kernel, kernel_lattice, kernel_emission, kernel_composed,
 kernel_em, kernel_decode or kernel_mfcc) runs there, after the build.
-Prints one JSON line per mutant: caught (the phase raised) or survived.
-With no arguments every mutant runs.
+Prints one JSON line per mutant: caught (the phase raised) or survived,
+and the largest moment error over its scale (``mom_*``) the phase's rows
+reported before it ended.  With no arguments every mutant runs.
 """
 
 import json
@@ -27,18 +28,19 @@ FEM, TILE = "srhmm_tpu_torch/csrc/fused_em.cu", "srhmm_tpu_torch/csrc/tile_mma.c
 DEC = "srhmm_tpu_torch/csrc/word_loop_decode.cu"
 EMC, VOC = "srhmm_tpu_torch/csrc/emission.cuh", "srhmm_tpu_torch/csrc/vocab_scores.cu"
 MUTANTS = [
-    ("forward_length_mask", LAT, "    } else if (t < len) {\n      const float* prev = row + ((t + 1) & 1) * nt + q.base;\n      float m",
-     "    } else if (t <= len) {\n      const float* prev = row + ((t + 1) & 1) * nt + q.base;\n      float m", "kernel_lattice"),
+    ("forward_length_mask", LAT, "(t < len ? next[r] : carry[r])", "(t <= len ? next[r] : carry[r])", "kernel_lattice"),
     ("backward_stepping_rule", LAT, "if (t + 1 < len) {", "if (t < len) {", "kernel_lattice"),
     ("viterbi_tie_to_highest", LAT, "if (c > best) {", "if (c >= best) {", "kernel_lattice"),
     ("per_row_shared_matrix", LAT, "p.lt[(size_t)b0 * SS + i]", "p.lt[(size_t)b0 * SS + i % SS]", "kernel_lattice"),
-    ("forward_no_carry_clamp", LAT, "carry = fmaxf(m + logf(e) + lb, kNegInf);", "carry = m + logf(e) + lb;", "kernel_lattice"),
+    ("forward_no_carry_clamp", LAT, "  return fmaxf(m + logf(e) + lb, kNegInf);", "  return m + logf(e) + lb;", "kernel_lattice"),
     ("emission_drops_last_mixture", EM, "state_log_b_cols<DMAX, false, NC>(recs + s * M * stride, M, D, x, v);",
      "state_log_b_cols<DMAX, false, NC>(recs + s * M * stride, M - (M > 1), D, x, v);", "kernel_emission"),
-    ("stats_chunk_drops_last_frame", EM, "const int nf = (int)min((long long)kFrames, n1 - c0);",
-     "const int nf = (int)min((long long)kFrames, n1 - c0) - 1;", "kernel_emission"),
-    ("stats_sum_skips_last_range", EM, "for (int r = 0; r < ranges; ++r)", "for (int r = 0; r + 1 < ranges; ++r)", "kernel_emission"),
-    ("stats_ignores_neg_inf_log_b", EM, "(on && lb > kNegInf) ? p.gamma", "(on) ? p.gamma", "kernel_emission"),
+    ("stats_tile_drops_last_frame", EM, "const int nf = (int)min((long long)TF, p.N - j * TF);",
+     "const int nf = (int)min((long long)TF, p.N - j * TF) - 1;", "kernel_emission"),
+    ("stats_sum_skips_last_block", EM, "for (int r = lane; r < ranges; r += 32)", "for (int r = lane; r + 1 < ranges; r += 32)",
+     "kernel_emission"),
+    ("stats_ignores_neg_inf_log_b", EM, "(on && lb > kNegInf) ? gt[k * p.SG + sl]", "(on) ? gt[k * p.SG + sl]",
+     "kernel_emission"),
     ("moments_vote_skips_single_frame_tile", COMP, "__any_sync(~0u, gv[v] != 0.f)",
      "(__popc(__ballot_sync(~0u, gv[v] != 0.f)) > 1)", "kernel_composed"),
     ("moments_3xtf32_drops_lo_hi", TILE, "        mma_tf32(c[hh], alo, b0h, b1h);\n", "", "kernel_composed"),
@@ -114,6 +116,30 @@ MUTANTS += [
     ("emission_store_offset_by_one_state", EM, "lbo[(size_t)(tid + c * nt) * S + s] = v[c];",
      "lbo[(size_t)(tid + c * nt) * S + (s + 1) % S] = v[c];", "kernel_emission"),
 ]
+MUTANTS += [
+    # the redesigned lattice forward kernel and emission_stats kernel
+    ("lattice_fwd_shuffle_off_by_one_state", LAT, "__shfl_sync(~0u, carry, (src0 + i) & 31)",
+     "__shfl_sync(~0u, carry, (src0 + i + 1) & 31)", "kernel_lattice"),
+    ("lattice_fwd_wide_shuffle_off_by_one_state", LAT, "x[i] = __shfl_sync(~0u, carry[i >> 5], i & 31);",
+     "x[i] = __shfl_sync(~0u, carry[i >> 5], (i + 1) & 31);", "kernel_lattice"),
+    ("lattice_fwd_staging_reads_previous_tile", LAT, "const float* lbt = lb_slots + (k & 1) * tile;",
+     "const float* lbt = lb_slots + ((k + 1) & 1) * tile;", "kernel_lattice"),
+    ("lattice_fwd_drops_last_frame", LAT, "const int t_lo = k * TT, t_hi = min(t_blk, t_lo + TT);",
+     "const int t_lo = k * TT, t_hi = min(t_blk - 1, t_lo + TT);", "kernel_lattice"),
+    ("lattice_fwd_last_tile_store_short", LAT, "k * TT, t_blk - k * TT, S, p.B, b0, U, p.vec, i, count);",
+     "k * TT, t_blk - k * TT - 1, S, p.B, b0, U, p.vec, i, count);", "kernel_lattice"),
+    ("lattice_fwd_per_row_first_matrix", LAT, "(p.per_row ? (size_t)min(b, p.B - 1) * S * S : 0)",
+     "(p.per_row ? (size_t)0 : 0)", "kernel_lattice"),
+    ("stats_tail_tile_dropped", EM, "const long long n_tiles = (p.N + TF - 1) / TF;",
+     "const long long n_tiles = p.N / TF;", "kernel_emission"),
+    ("stats_group_offset_by_one_state", EM, "const float* recs = p.recs + (size_t)s0 * M * stride;",
+     "const float* recs = p.recs + (size_t)(s0 > 0 ? s0 - 1 : 0) * M * stride;", "kernel_emission"),
+    # the moments' 3xTF32 contraction without one correction product, and
+    # as a single TF32 pass
+    ("stats_3xtf32_drops_lo_hi", TILE, "        mma_tf32(c[hh], alo, b0h, b1h);\n", "", "kernel_emission"),
+    ("stats_single_pass_tf32", TILE,
+     "        mma_tf32(c[hh], alo, b0h, b1h);\n        mma_tf32(c[hh], ahi, b0l, b1l);\n", "", "kernel_emission"),
+]
 DRIVER = """
 import sys, torch
 import chip_smoke as cs
@@ -139,8 +165,11 @@ def main(names) -> None:
         f.write_text(text.replace(old, new))
         r = subprocess.run([sys.executable, "-c", DRIVER, phase], cwd=d, capture_output=True, text=True, timeout=600)
         last = [l for l in r.stdout.splitlines() if l.startswith("MUTANT")]
+        rows = [json.loads(l) for l in r.stdout.splitlines() if l.startswith("{")]
+        mom = [v for row in rows for k, v in row.items() if k.startswith("mom") and isinstance(v, float)]
         print(json.dumps({"mutant": name, "phase": phase, "rc": r.returncode,
-                          "result": last[-1] if last else r.stderr[-600:]}), flush=True)
+                          "result": last[-1] if last else r.stderr[-600:],
+                          "max_mom_rel_err": max(mom, default=None)}), flush=True)
         shutil.rmtree(d.parent, ignore_errors=True)
 
 

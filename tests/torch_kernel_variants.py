@@ -13,8 +13,11 @@ composed_backward_stats_kernel and csrc/fused_em.cu's backward_stats_kernel
 (composed_backward_stats at emb_c4 / tied_c5 lattice shapes, backward_stats
 at em_diag's), tests/torch_forward_decode_compare.py time for the
 composed_forward and word-loop decode kernels (emb_c4 / tied_c5, dec_w200
-K = 1, 2, 3).  The "parent_" variants cut the composed_forward and decode
-kernels of 03f5319 (run them with --tree on a checkout of that commit).
+K = 1, 2, 3), and the other compare scripts' `time` for the kernels they
+compare (tests/torch_lattice_stats_compare.py for csrc/lattice.cu's
+forward kernel and csrc/emission_em.cu's moments).  The "parent_"
+variants cut a kernel as it was before its redesign (run them with --tree
+on a checkout of that commit).
 Prints one JSON line per variant with the kernel times and the last CYC
 lines.  With no variant named every variant that applies runs, "base" (no
 cut) first and last.
@@ -34,6 +37,7 @@ DEC, DEC_PY = "srhmm_tpu_torch/csrc/word_loop_decode.cu", "srhmm_tpu_torch/ops/k
 COMP_PY = "srhmm_tpu_torch/ops/kernels/composed.py"
 MFCC = "srhmm_tpu_torch/csrc/mfcc.cu"
 VOC, EMI = "srhmm_tpu_torch/csrc/vocab_scores.cu", "srhmm_tpu_torch/csrc/emission_em.cu"
+LAT = "srhmm_tpu_torch/csrc/lattice.cu"
 SCO_PY = "srhmm_tpu_torch/ops/kernels/scoring.py"
 EMC = "srhmm_tpu_torch/csrc/emission.cuh"
 EMI_PY = "srhmm_tpu_torch/ops/kernels/emission.py"
@@ -443,6 +447,51 @@ VN_CYCLES = (
 )
 PE21_STORE = "  for (int s = 0; s < S; ++s) log_b[n * S + s] = diag_state_log_b<DMAX>(rec_sh + s * M * stride, M, x, x2);\n"
 
+# 6fe1112's lattice_forward_kernel (step 0 of its redesign): thread 0 of
+# block 0 per launch, the log b load (waited for), the recursion, the stores
+# (shared row and lattice), the barrier closing the frame; "mode" is
+# last_only, state_minor, per_row
+PL_CYCLES = (
+    ("#include <math.h>\n", "#include <math.h>\n#include <cstdio>\n"),
+    ("  float* row = sh;            // 2 * nt: the carries of frames t-1 and t\n",
+     "  float* row = sh;            // 2 * nt: the carries of frames t-1 and t\n"
+     "  long long cy_load = 0, cy_rec = 0, cy_store = 0, cy_bar = 0;\n"),
+    ("    const float lb = live ? fmaxf(p.log_b[ot], kNegInf) : kNegInf;\n    if (t == 0) {",
+     "    long long c0 = clock64();\n    float lb = live ? fmaxf(p.log_b[ot], kNegInf) : kNegInf;\n"
+     "    asm volatile(\"mov.b32 %0, %0;\" : \"+f\"(lb));\n    cy_load += clock64() - c0;\n    c0 = clock64();\n"
+     "    if (t == 0) {"),
+    ("      carry = fmaxf(m + logf(e) + lb, kNegInf);\n    }\n    row[(t & 1) * nt + threadIdx.x] = carry;\n"
+     "    if (live && !p.last_only) p.out[ot] = carry;\n    __syncthreads();\n  }\n",
+     "      carry = fmaxf(m + logf(e) + lb, kNegInf);\n    }\n    asm volatile(\"mov.b32 %0, %0;\" : \"+f\"(carry));\n"
+     "    cy_rec += clock64() - c0;\n    c0 = clock64();\n    row[(t & 1) * nt + threadIdx.x] = carry;\n"
+     "    if (live && !p.last_only) p.out[ot] = carry;\n    cy_store += clock64() - c0;\n    c0 = clock64();\n"
+     "    __syncthreads();\n    cy_bar += clock64() - c0;\n  }\n"
+     "  if (blockIdx.x == 0 && threadIdx.x == 0)\n"
+     "    printf(\"CYC lattice_fwd mode %d%d%d S %d T %d load %lld recursion %lld store %lld barrier %lld\\n\", p.last_only,\n"
+     "           p.state_minor, p.per_row, S, p.T, cy_load, cy_rec, cy_store, cy_bar);\n"),
+)
+PL_STORE = "    if (live && !p.last_only) p.out[ot] = carry;\n    __syncthreads();\n"
+# 6fe1112's emission_stats_kernel: threads 0 and 64 of block 0 (state 0,
+# frames 0-2047) over its 16 chunks: the weights (frame load, q, g), the
+# barrier after them, the column pass (thread 64 owns no column at M=3,
+# D=9), the barrier closing the chunk
+PS_CYCLES = (
+    ("#include <math.h>\n", "#include <math.h>\n#include <cstdio>\n"),
+    ("  const long long n1 = min(p.N, n0 + kFramesPerBlock);\n",
+     "  const long long n1 = min(p.N, n0 + kFramesPerBlock);\n"
+     "  long long cy_w = 0, cy_b1 = 0, cy_col = 0, cy_b2 = 0;\n  int n_chunks = 0;\n"),
+    ("    const long long n = c0 + k;\n    const bool on = n < n1;\n",
+     "    long long cc = clock64();\n    ++n_chunks;\n    const long long n = c0 + k;\n    const bool on = n < n1;\n"),
+    ("      g_sh[mix * (kFrames + 1) + k] = on ? g * expf(fminf(q - lb, 0.f)) : 0.f;\n    }\n    __syncthreads();\n",
+     "      g_sh[mix * (kFrames + 1) + k] = on ? g * expf(fminf(q - lb, 0.f)) : 0.f;\n    }\n"
+     "    cy_w += clock64() - cc;\n    cc = clock64();\n    __syncthreads();\n    cy_b1 += clock64() - cc;\n    cc = clock64();\n"),
+    ("      acc_sh[col] = a;\n    }\n    __syncthreads();\n  }\n",
+     "      acc_sh[col] = a;\n    }\n    cy_col += clock64() - cc;\n    cc = clock64();\n    __syncthreads();\n"
+     "    cy_b2 += clock64() - cc;\n  }\n  if (blockIdx.x == 0 && (k == 0 || k == 64))\n"
+     "    printf(\"CYC stats tid %d chunks %d D %d M %d weights %lld barrier1 %lld columns %lld barrier2 %lld\\n\", k,\n"
+     "           n_chunks, D, M, cy_w, cy_b1, cy_col, cy_b2);\n"),
+)
+
 # vocab_scores.cu and scoring.py with the utterances in launch order longest first
 LONGEST_FIRST = [
     (VOC, ('  const int* lengths;   // (B,)\n  float* out;           // (W*S, B)\n  int T, B, W, S, band;\n  int U, WB, TT;        // utterances and words a block, frames a tile\n  int u_blocks;         // ceil(B / U): block x = word block * u_blocks + utterance block',
@@ -650,15 +699,174 @@ VARIANTS += [
     joined("parent_vocab_no_step_emission_no_loads", "parent_vocab_no_step", "parent_emission_no_loads"),
 ]
 VARIANTS += [
+    ("lattice_stats_base", LAT, "", ""),
+    # lattice_forward_kernel and emission_stats_kernel as of 6fe1112 (step 0
+    # of their redesign): clock64 counters; the log b load, the per-frame
+    # barrier or the lattice stores cut; the moments' weights (q and the
+    # exp) or their column pass cut
+    ("parent_lattice_fwd_cycles", *cut(LAT, *PL_CYCLES)),
+    ("parent_lattice_fwd_no_load", LAT, "    const float lb = live ? fmaxf(p.log_b[ot], kNegInf) : kNegInf;\n    if (t == 0) {",
+     "    const float lb = live ? -0.25f * (float)(t & 7) : kNegInf;\n    if (t == 0) {"),
+    ("parent_lattice_fwd_no_barrier", LAT, PL_STORE, "    if (live && !p.last_only) p.out[ot] = carry;\n"),
+    ("parent_lattice_fwd_no_store", LAT, PL_STORE,
+     "    if (live && !p.last_only && t < 0) p.out[ot] = carry;\n    __syncthreads();\n"),
+    ("parent_stats_cycles", *cut(EMI, *PS_CYCLES)),
+    ("parent_stats_no_weights", EMI, "      const float q = diag_mix_q<DMAX>(rec_sh + mix * stride, x, x2);\n"
+     "      g_sh[mix * (kFrames + 1) + k] = on ? g * expf(fminf(q - lb, 0.f)) : 0.f;",
+     "      g_sh[mix * (kFrames + 1) + k] = on ? g : 0.f;"),
+    ("parent_stats_no_columns", EMI, "    for (int col = k; col < M * Cm; col += kFrames) {",
+     "    for (int col = k; col < 0; col += kFrames) {"),
+]
+# the redesigned lattice_forward_kernel: thread 0 of block 0 (its first
+# recursion lane) per launch, the recursion over each tile and its wait at
+# the tile's barrier; "mode" is layout, per_row
+LN_CYCLES = (
+    ("#include <math.h>\n", "#include <math.h>\n#include <cstdio>\n"),
+    ("  __syncthreads();  // tile 0 (and the transitions) are in\n  for (int k = 0; k < n_tiles; ++k) {\n",
+     "  __syncthreads();  // tile 0 (and the transitions) are in\n  long long cy_rec = 0, cy_bar = 0;\n"
+     "  for (int k = 0; k < n_tiles; ++k) {\n    long long c0 = clock64();\n"),
+    ("        if (!layout && wr[r]) ot[(size_t)tt * S * U + j[r] * U + u] = carry[r];\n      }\n    }\n    __syncthreads();\n  }\n",
+     "        if (!layout && wr[r]) ot[(size_t)tt * S * U + j[r] * U + u] = carry[r];\n      }\n    }\n"
+     "    asm volatile(\"mov.b32 %0, %0;\" : \"+f\"(carry[0]));\n    cy_rec += clock64() - c0;\n    c0 = clock64();\n"
+     "    __syncthreads();\n    cy_bar += clock64() - c0;\n  }\n"
+     "  if (blockIdx.x == 0 && tid == 0)\n    printf(\"CYC latfwd_new mode %d%d S %d frames %d recursion %lld barrier %lld\\n\", layout, p.per_row, S,\n"
+     "           t_blk, cy_rec, cy_bar);\n"),
+)
+# the redesigned emission_stats_kernel: threads 0 (warp 0, a contraction
+# unit) and 160 (warp 5, none at em_diag) of block 0 over its tiles: the
+# next tile's copies and the wait at the first barrier, the weights, the
+# second barrier, the contraction
+SN_CYCLES = (
+    ("#include <math.h>\n", "#include <math.h>\n#include <cstdio>\n"),
+    ("  for (int slot = 0; j < n_tiles; j += p.R, slot ^= 1) {\n    if (j + p.R < n_tiles) {",
+     "  long long cy_wait = 0, cy_w = 0, cy_b2 = 0, cy_mma = 0;\n  int n_t = 0;\n"
+     "  for (int slot = 0; j < n_tiles; j += p.R, slot ^= 1) {\n    long long c0 = clock64();\n    ++n_t;\n"
+     "    if (j + p.R < n_tiles) {"),
+    ("    __syncthreads();  // tile j is in; the last tile's contraction is done\n",
+     "    __syncthreads();  // tile j is in; the last tile's contraction is done\n    cy_wait += clock64() - c0;\n    c0 = clock64();\n"),
+    ("    __syncthreads();  // the tile's weights and features are complete\n"
+     "    contract_3xtf32<false>(acc, rows, Cm, w_sh, x_sh, ks, D, (nf + 7) / 8, warp, nwarps);\n  }\n",
+     "    cy_w += clock64() - c0;\n    c0 = clock64();\n    __syncthreads();  // the tile's weights and features are complete\n"
+     "    cy_b2 += clock64() - c0;\n    c0 = clock64();\n"
+     "    contract_3xtf32<false>(acc, rows, Cm, w_sh, x_sh, ks, D, (nf + 7) / 8, warp, nwarps);\n"
+     "    cy_mma += clock64() - c0;\n  }\n  if (blockIdx.x == 0 && (tid == 0 || tid == 160))\n"
+     "    printf(\"CYC stats_new tid %d D %d tiles %d wait %lld weights %lld barrier %lld contraction %lld\\n\", tid, D, n_t,\n"
+     "           cy_wait, cy_w, cy_b2, cy_mma);\n"),
+)
+VARIANTS += [
+    ("lattice_fwd_cycles", *cut(LAT, *LN_CYCLES)),
+    ("stats_cycles", *cut(EMI, *SN_CYCLES)),
+    ("lattice_fwd_no_store", LAT, "      if (!layout && k >= 1)\n        store_forward_tile(",
+     "      if (!layout && k < 0)\n        store_forward_tile("),
+    ("stats_no_contraction", EMI, "    contract_3xtf32<false>(acc, rows, Cm, w_sh, x_sh, ks, D, (nf + 7) / 8, warp, nwarps);\n",
+     "    if (nf < 0) contract_3xtf32<false>(acc, rows, Cm, w_sh, x_sh, ks, D, (nf + 7) / 8, warp, nwarps);\n"),
+    ("stats_no_weights", EMI, "        const float q = diag_mix_q<DMAX>(recs + (sl * M + mix) * stride, x, x2);\n"
+     "        w_sh[(sl * M + mix) * ks + k] = on ? (g * expf(fminf(q - lb, 0.f))) * kWeightScale : 0.f;",
+     "        w_sh[(sl * M + mix) * ks + k] = on ? g * kWeightScale : 0.f;"),
+]
+STATS_ONE_MIXTURE = """      for (int mix = 0; mix < M; ++mix) {
+        const float q = diag_mix_q<DMAX>(recs + (sl * M + mix) * stride, x, x2);
+        w_sh[(sl * M + mix) * ks + k] = on ? (g * expf(fminf(q - lb, 0.f))) * kWeightScale : 0.f;
+      }
+"""
+STATS_MIXTURE_PAIRS = """      int mix = 0;
+      for (; mix + 2 <= M; mix += 2) {
+        const float qa = diag_mix_q<DMAX>(recs + (sl * M + mix) * stride, x, x2);
+        const float qb = diag_mix_q<DMAX>(recs + (sl * M + mix + 1) * stride, x, x2);
+        w_sh[(sl * M + mix) * ks + k] = on ? (g * expf(fminf(qa - lb, 0.f))) * kWeightScale : 0.f;
+        w_sh[(sl * M + mix + 1) * ks + k] = on ? (g * expf(fminf(qb - lb, 0.f))) * kWeightScale : 0.f;
+      }
+      if (mix < M) {
+        const float q = diag_mix_q<DMAX>(recs + (sl * M + mix) * stride, x, x2);
+        w_sh[(sl * M + mix) * ks + k] = on ? (g * expf(fminf(q - lb, 0.f))) * kWeightScale : 0.f;
+      }
+"""
+VARIANTS += [
+    # the redesigned moments kernel's other shapes: two mixtures' q chains
+    # side by side, 64-frame tiles, 128-thread blocks; the forward kernel
+    # held to 40 registers (10 blocks an SM)
+    ("stats_mixture_pairs", EMI, STATS_ONE_MIXTURE, STATS_MIXTURE_PAIRS),
+    ("stats_tiles_64", EMI_PY, "STATS_TILES = (128, 64, 32, 16, 8)", "STATS_TILES = (64, 32, 16, 8)"),
+    ("stats_128_threads", EMI, "constexpr int kStatsThreads = 256;", "constexpr int kStatsThreads = 128;"),
+    ("lattice_fwd_10_blocks", LAT, "__global__ void __launch_bounds__(kFwdThreads) lattice_forward_kernel(",
+     "__global__ void __launch_bounds__(kFwdThreads, 10) lattice_forward_kernel("),
+]
+VARIANTS += [joined("stats_tiles_64_lattice_fwd_10_blocks", "stats_tiles_64", "lattice_fwd_10_blocks")]
+# the forward kernel's memory warp without a division a copy where the
+# block's row of U utterances splits evenly over its threads (a thread keeps
+# its column and steps the rows), and with four memory warps (one beside
+# each recursion warp)
+FWD_STAGE_ROWS = ("""    const int per = U / w, total = n * S * per;
+    for (int c = i; c < total; c += count) {
+      const int row = c / per, v = c - row * per, b = b0 + v * w;  // row = tt S + s
+      const bool ok = b < B;""", """    const int per = U / w, total = n * S * per;
+    if (count % per == 0) {
+      const int v = i % per, b = b0 + v * w;
+      const bool ok = b < B;
+      for (int row = i / per; row < n * S; row += count / per) {
+        const float* s = ok ? src + ((size_t)t0 * S + row) * B + b : src;
+        float* d = dst + (size_t)row * U + v * w;
+        if (vec) {
+          cp_async16(d, s, ok);
+        } else {
+          cp_async4(d, s, ok);
+        }
+      }
+      return;
+    }
+    for (int c = i; c < total; c += count) {
+      const int row = c / per, v = c - row * per, b = b0 + v * w;  // row = tt S + s
+      const bool ok = b < B;""")
+FWD_STORE_ROWS = ("""  const int w = vec ? 4 : 1, per = U / w, total = n * S * per;
+  for (int c = i; c < total; c += count) {
+    const int row = c / per, v = c - row * per, b = b0 + v * w;
+    if (b >= B) continue;""", """  const int w = vec ? 4 : 1, per = U / w, total = n * S * per;
+  if (count % per == 0) {
+    const int v = i % per, b = b0 + v * w;
+    if (b >= B) return;
+    for (int row = i / per; row < n * S; row += count / per) {
+      float* d = dst + ((size_t)t0 * S + row) * B + b;
+      const float* s = tile + (size_t)row * U + v * w;
+      if (vec) {
+        *reinterpret_cast<float4*>(d) = *reinterpret_cast<const float4*>(s);
+      } else {
+        *d = *s;
+      }
+    }
+    return;
+  }
+  for (int c = i; c < total; c += count) {
+    const int row = c / per, v = c - row * per, b = b0 + v * w;
+    if (b >= B) continue;""")
+VARIANTS += [
+    ("lattice_fwd_rows_without_division", *cut(LAT, FWD_STAGE_ROWS, FWD_STORE_ROWS)),
+    ("lattice_fwd_4_memory_warps", LAT, "constexpr int kFwdThreads = 32 * (kFwdRecWarps + 1);  // and one memory warp",
+     "constexpr int kFwdThreads = 32 * (kFwdRecWarps + 4);  // and one memory warp"),
+    ("stats_tiles_256", EMI_PY, "STATS_TILES = (128, 64, 32, 16, 8)", "STATS_TILES = (256, 128, 64, 32, 16, 8)"),
+]
+VARIANTS += [joined("lattice_fwd_4_memory_warps_stats_tiles_256", "lattice_fwd_4_memory_warps", "stats_tiles_256")]
+VARIANTS += [
+    joined("lattice_stats_cycles", "lattice_fwd_cycles", "stats_cycles"),
+    joined("lattice_no_store_stats_no_contraction", "lattice_fwd_no_store", "stats_no_contraction"),
+]
+VARIANTS += [
+    joined("parent_lattice_stats_cycles", "parent_lattice_fwd_cycles", "parent_stats_cycles"),
+    joined("parent_lattice_no_load_stats_no_weights", "parent_lattice_fwd_no_load", "parent_stats_no_weights"),
+    joined("parent_lattice_no_barrier_stats_no_columns", "parent_lattice_fwd_no_barrier", "parent_stats_no_columns"),
+]
+VARIANTS += [
     joined("vocab_noinline_4_columns", "vocab_noinline_emission", "vocab_4_columns"),
     joined("vocab_noinline_448_threads", "vocab_noinline_emission", "vocab_448_threads_2_blocks"),
 ]
 SCORING_EMISSION = ("scoring_emission_", "vocab_", "emission_", "parent_vocab", "parent_emission")
 FORWARD_DECODE = ("forward_", "decode_", "parent_forward", "parent_decode")
 EMIT_MFCC = ("emit_", "mfcc_", "parent_emit", "parent_mfcc")
+LATTICE_STATS = ("lattice_", "stats_", "parent_lattice", "parent_stats")
 
 
 def timing_script(name: str) -> str:
+    if name.startswith(LATTICE_STATS):
+        return "torch_lattice_stats_compare.py"
     if name.startswith(SCORING_EMISSION):
         return "torch_scoring_emission_compare.py"
     if name.startswith(EMIT_MFCC):

@@ -344,3 +344,41 @@ EMISSION_EXTRA_CASES = [
     (4133, 200, 1, 64),
     (4133, 2048, 1, 3),
 ]
+
+
+# csrc/lattice.cu's forward kernel at launch shapes the kernel_lattice grid
+# (S = 3, 6, 8, 16, 64 at B = 37, T = 95) does not reach, (S, transitions,
+# B, T): one state (32 utterances a warp), T shorter than a tile with a
+# ragged last block and 4-byte copies, idle lanes (20 states a warp),
+# two states a lane (S = 33, 40) walking ten tiles with 16-byte copies,
+# em_diag's S = 8, 16 slots with a ragged last tile; lengths from
+# forward_check_lengths
+FORWARD_CHECK_CASES = [
+    (1, "dense", 37, 95),
+    (5, "delta1", 1001, 7),
+    (20, "delta2", 37, 95),
+    (33, "dense", 37, 95),
+    (40, "delta1", 64, 300),
+    (8, "delta1", 2048, 64),
+    (12, "delta2", 400, 130),
+]
+
+
+def forward_check_lengths(i: int, B: int, T: int) -> list[int]:
+    """B lengths of FORWARD_CHECK_CASES[i]: drawn in [2, T), then T, 0 and
+    1 (every row of length T where B < 4)."""
+    rng = np.random.default_rng(120 + i)
+    return [int(n) for n in rng.integers(2, max(T, 3), size=B - 3)] + [T, 0, 1]
+
+
+# emission_stats shapes beyond chip_smoke.py's D x M grid (S = 8, N =
+# 4133), (N, S, M, D): states split into groups with the records in device
+# memory (S = 64, M = 16, D = 39; S = 300), 64-frame tiles (D = 64, M = 16),
+# enough tiles that a block walks several, one tile of five frames
+STATS_CHECK_CASES = [
+    (4133, 64, 16, 39),
+    (4133, 300, 1, 3),
+    (4133, 8, 16, 64),
+    (100003, 8, 3, 9),
+    (5, 8, 3, 9),
+]
