@@ -126,7 +126,13 @@ each (any failure raises, so the exit code is non-zero):
               8, 16, 64 x delta 1, delta 2, dense, B=37, T=95 with a
               zero-length and a length-1 row, k_block 1, 5, 19 (bitwise the
               unblocked kernel), a duplicated-state tie for Viterbi: within
-              BOUND, equal masks and backpointers, two launches bitwise equal
+              BOUND, equal masks and backpointers, two launches bitwise
+              equal; then the three kernels at
+              torch_port_utils.FORWARD_CHECK_CASES, failing unless every
+              shape of LATTICE_SHAPES (forward), BACKWARD_SHAPES and
+              VITERBI_SHAPES was reached (4 / 8 / 16 / 32 / 64 slots, idle
+              lanes, a ragged block, tiles walked and ragged, a tile edge,
+              16- and 4-byte copies, T = 1)
     kernel_emission
               emission_log_b / emission_stats (csrc/emission_em.cu) vs their
               twins: D = 3, 9, 13, 39 x M = 1, 3, 16, N=4133 (off every
@@ -157,7 +163,8 @@ each (any failure raises, so the exit code is non-zero):
               timing_lane add each redesigned kernel's own device time
               (torch.profiler) beside the CUDA events around its call,
               timing_em the fused iteration's
-              device busy time and idle share; timing_mfcc is the cell
+              device busy time and idle share (kernel_device_ms counts a
+              profiler window only where it saw every launch of its calls); timing_mfcc is the cell
               mfcc_b256_10s (256 waveforms of 10 s in one launch), with the
               same function as torch.fft.rfft and two matmuls beside it;
               timing_lane times #15-#22 at em_diag (#15 also at diag10) and
@@ -1048,7 +1055,7 @@ def phase_timing(torch, main: dict, smi: str) -> dict:
                    plain_warmup=3)
     # the kernel's own device time; the CUDA events around the call include
     # the wrapper's host work (the constants' re-layout)
-    t["kernel_device_ms"] = kernel_device_ms(torch, lambda: vocab_scores(*args, **kw), "vocab_scores_kernel")
+    t["kernel_device_ms"] = kernel_device_ms(torch, lambda: vocab_scores(*args, **kw), "vocab_scores_kernel")[0]
     vocab_scores.launches = saved  # timing launches are not main-path launches
     audio_s = main["res"]["frames"] * FRAME_S
     # bound: features of the stepped frames, the constants, the (W*S, B)
@@ -1159,7 +1166,7 @@ def phase_timing_em(torch, train: dict, smi: str) -> dict:
             lambda: em_step(model, batch, fused=True, feats_tdb=feats_tdb, band=band)),
     }
     for name, fn in (("emit_forward", lambda: fe.emit_forward(*k1)), ("backward_stats", lambda: fe.backward_stats(*k2))):
-        out[name]["kernel_device_ms"] = kernel_device_ms(torch, fn, f"{name}_kernel")
+        out[name]["kernel_device_ms"] = kernel_device_ms(torch, fn, f"{name}_kernel")[0]
     out["em_iteration"]["profile"] = profile_window(
         torch, lambda: em_step(model, batch, fused=True, feats_tdb=feats_tdb, band=band),
         kernel_keys=("emit_forward_kernel", "backward_stats_kernel"))
@@ -1594,14 +1601,17 @@ def profile_window(torch, fn, kernel_keys=("word_loop_decode_kernel",)) -> dict:
 
 def kernel_device_ms(torch, fn, key: str, calls: int = 5, windows: int = 3):
     """A kernel's own device time per launch: torch.profiler over `calls`
-    calls of fn, the device time of the kernels whose names contain key
-    over the number of their launches the profiler saw (a window may lose
-    some, late in a long process all of them: then up to `windows` windows
-    are tried); None if none saw one."""
+    calls of fn (each launching the kernel once), the device time of the
+    kernels whose names contain key over the number of their launches.  A
+    window counts only where the profiler saw `calls` launches (a window may
+    lose some, late in a long process all of them); else the next is tried,
+    up to `windows`.  Returns (the time, None if no window counted; the
+    launches the last window tried saw)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
+    count = 0
     for _ in range(windows):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1614,9 +1624,9 @@ def kernel_device_ms(torch, fn, key: str, calls: int = 5, windows: int = 3):
                 dt = getattr(ev, "self_device_time_total", None)
                 total += ev.self_cuda_time_total if dt is None else dt
                 count += ev.count
-        if count:
-            return total / count / 1e3
-    return None
+        if count == calls:
+            return total / count / 1e3, count
+    return None, count
 
 
 def phase_timing_decode(torch, dec: dict, smi: str) -> dict:
@@ -2576,7 +2586,7 @@ def phase_timing_em_p2(torch, p2: dict, smi: str) -> dict:
         plain_b = median_ms(torch, plain, warmup=1, reps=3)
         out[name] = {"kernel_ms": [kern_a, kern_b], "plain_ms": [plain_a, plain_b], "ms": min(kern_a, kern_b),
                      "best_plain_ms": min(plain_a, plain_b),
-                     "kernel_device_ms": kernel_device_ms(torch, kernel, f"{name}_kernel")}
+                     "kernel_device_ms": kernel_device_ms(torch, kernel, f"{name}_kernel")[0]}
     fe.emit_forward.launches, fe.backward_stats.launches = saved  # timing launches
     em_bounds(out, feats[0].shape[0], [(s.dim, s.num_mixtures) for s in model.streams], False, packed,
               model.trans, lengths, valid, band)
@@ -2878,7 +2888,7 @@ def phase_timing_mfcc(torch, smi: str) -> dict:
     plain_a = median_ms(torch, plain, warmup=1, reps=3)
     kern_a, kern_b = median_ms(torch, kernel), median_ms(torch, kernel)
     plain_b = median_ms(torch, plain, warmup=1, reps=3)
-    device_ms = kernel_device_ms(torch, kernel, "mfcc_kernel")
+    device_ms = kernel_device_ms(torch, kernel, "mfcc_kernel")[0]
     km.mfcc_fused.launches = saved  # timing launches
     composed = lambda: mfcc_rfft_matmul(torch, samples, offsets, cfg)
     composed_err = float((composed() - km.mfcc_plain(samples, offsets, cfg)).abs().max())
@@ -3050,30 +3060,71 @@ def forward_reached(torch, S, B, T, lens) -> set:
     return out & LATTICE_SHAPES
 
 
+# the backward and Viterbi kernels' launch shapes phase_kernel_lattice must
+# see reached
+BACKWARD_SHAPES = {"slots_4", "slots_8", "slots_16", "slots_32", "slots_64", "idle_lanes", "ragged_block",
+                   "walks_tiles", "ragged_tile", "tile_edge", "copies_16", "copies_4", "T_1"}
+VITERBI_SHAPES = BACKWARD_SHAPES  # the same launch shapes
+
+
+def lane_reached(torch, kernel: str, S, B, T, lens) -> set:
+    """The launch shapes of BACKWARD_SHAPES (kernel "backward", the (T, S,
+    B) lattice) or VITERBI_SHAPES ("viterbi", on (B, T, S)) that the kernel
+    reaches on these lengths, from the wrappers' backward_block /
+    viterbi_block: the slot count, idle lanes, a ragged last block, tiles
+    walked and a ragged one, a tile edge (backward: a row whose last
+    initialization row min(length, T) - 1 >= 1 is a tile's lowest, so that
+    its first recursion row opens the next tile down; Viterbi: a row of
+    length 1 <= L < T whose frozen rows start a tile), 16- or 4-byte copies,
+    T = 1."""
+    from srhmm_tpu_torch.ops.kernels import lattice as kl
+    from srhmm_tpu_torch.ops.kernels.common import sm_count
+
+    sms = sm_count(torch.cuda.current_device())
+    if kernel == "backward":
+        sh, layout, want = kl.backward_block(S, B, sms), "tsb", BACKWARD_SHAPES
+        edge = any(min(n, T) >= 2 and (T - min(n, T) + 1) % sh["tile"] == 0 for n in lens)
+    else:
+        sh, layout, want = kl.viterbi_block(S, B, sms), "bts", VITERBI_SHAPES
+        edge = any(1 <= n < T and n % sh["tile"] == 0 for n in lens)
+    TT = sh["tile"]
+    out = {f"slots_{sh['slots']}", f"copies_{16 if kl.forward_copies_16(S, T, B, sh, layout) else 4}"}
+    out |= {"idle_lanes"} if sh["states_per_lane"] == 1 and sh["utts_per_warp"] * S < 32 else set()
+    out |= {"ragged_block"} if B % sh["utts"] else set()
+    out |= {"walks_tiles"} if T > TT else set()
+    out |= {"ragged_tile"} if T % TT else set()
+    out |= {"tile_edge"} if edge else set()
+    out |= {"T_1"} if T == 1 else set()
+    return out & want
+
+
 def phase_kernel_lattice(torch) -> dict:
     """#15-#20 vs their twins on the same CUDA tensors (lattice_check_inputs):
     S in 3, 6, 8, 16, 64 (the largest the kernels take) x delta 1, delta 2,
-    dense transitions, then the forward kernel's launch shapes of
+    dense transitions, then the three kernels' launch shapes of
     torch_port_utils.FORWARD_CHECK_CASES; the blocked wrappers at k_block
     1, 5, 19 where they divide T (bitwise the unblocked kernels); #15 with
     shared and per-row transitions; #16 with equal backpointers, and a
     configuration of two duplicated states whose candidates tie exactly.
     Lattices and scores within BOUND with equal masks and equal entries on
     the floor (compare_clamped); two launches bitwise equal.  Fails unless
-    every shape of LATTICE_SHAPES was reached.  Returns the worst absolute
-    error per wrapper."""
+    every shape of LATTICE_SHAPES (the forward), BACKWARD_SHAPES and
+    VITERBI_SHAPES was reached.  Returns the worst absolute error per
+    wrapper."""
     from srhmm_tpu_torch.ops.kernels import forward as kf
     from srhmm_tpu_torch.ops.kernels import lattice as kl
 
     saved = lane_counts()
     worst = {name: 0.0 for name, *_ in LANE_ROWS[:6]}
     inputs = lattice_check_inputs(torch)
-    seen = set()
+    seen, seen_bwd, seen_vit = set(), set(), set()
     for tag, (lb, lt, rows, lengths) in inputs.items():
         if rows is None:
             continue
-        (T, S, B), kind = lb.shape, tag.split("_")[1]
-        seen |= forward_reached(torch, S, B, T, lengths.tolist())
+        (T, S, B), kind, lens = lb.shape, tag.split("_")[1], lengths.tolist()
+        seen |= forward_reached(torch, S, B, T, lens)
+        seen_bwd |= lane_reached(torch, "backward", S, B, T, lens)
+        seen_vit |= lane_reached(torch, "viterbi", S, B, T, lens)
         res = {}
         for name, fn, plain in (("forward_lattice", kl.forward_lattice, kl.forward_lattice_plain),
                                 ("backward_lattice", kl.backward_lattice, kl.backward_lattice_plain)):
@@ -3107,8 +3158,10 @@ def phase_kernel_lattice(torch) -> dict:
             worst[name] = max(worst[name], r["max_abs_err"])
         emit({"phase": "kernel_lattice", "S": S, "trans": kind, "B": B, "T": T, "bitwise_repeat": True,
               "bptr_equal": True, **{k: v["rel_err"] for k, v in res.items()}})
-    if seen != LATTICE_SHAPES:
-        raise AssertionError(f"kernel_lattice reached {sorted(seen)}, not {sorted(LATTICE_SHAPES)}")
+    for kernel, got, want in (("forward", seen, LATTICE_SHAPES), ("backward", seen_bwd, BACKWARD_SHAPES),
+                              ("Viterbi", seen_vit, VITERBI_SHAPES)):
+        if got != want:
+            raise AssertionError(f"kernel_lattice: the {kernel} kernel reached {sorted(got)}, not {sorted(want)}")
     lb, lt, _, lengths = inputs["viterbi_tie_S6"]
     B, T, S = lb.shape
     sc, bp = kf.viterbi_batch(lb, lt, lengths)
@@ -3459,9 +3512,9 @@ def lane_bounds(lane: dict) -> dict:
 def phase_timing_lane(torch, lane: dict, smi: str) -> dict:
     """Each of #15-#22 and its twin at em_diag (#15 also per row at diag10):
     CUDA events, kernels median of 20, twins median of 3, in the order twin,
-    kernel, kernel, twin; each bound from its inputs; the redesigned
-    kernels' own device time under torch.profiler (#15, #17, #20, #21, #22:
-    kernel_device_ms).  Then one E-step at em_diag through e_step_fused,
+    kernel, kernel, twin; each bound from its inputs; each kernel's own
+    device time under torch.profiler (kernel_device_ms, with the launches
+    its window saw).  Then one E-step at em_diag through e_step_fused,
     e_step_lane_major(lattices="pallas") and e_step_fused_lane (#2-#5, the
     yardstick), each on the host clock (median of 3 after a warm-up) and
     once under torch.profiler (device busy and idle shares)."""
@@ -3506,12 +3559,15 @@ def phase_timing_lane(torch, lane: dict, smi: str) -> dict:
     # kernels summed); ms includes the wrapper's host work
     device_keys = {"emission_log_b": ("emission_log_b_kernel",),
                    "emission_stats": ("emission_stats_kernel", "sum_blocks_kernel"),
+                   "viterbi_batch": ("viterbi_kernel",),
                    **{name: ("lattice_forward_kernel",) for name in (
-                       "log_forward_batch", "log_forward_batch_diag10", "forward_lattice", "forward_lattice_blocked")}}
+                       "log_forward_batch", "log_forward_batch_diag10", "forward_lattice", "forward_lattice_blocked")},
+                   **{name: ("lattice_backward_kernel",) for name in ("backward_lattice", "backward_lattice_blocked")}}
     for name, keys in device_keys.items():
         _, kernel, args = calls[name]
         per = [kernel_device_ms(torch, lambda: kernel(*args), key) for key in keys]
-        out[name]["kernel_device_ms"] = None if None in per else sum(per)
+        out[name]["kernel_device_ms"] = None if any(ms is None for ms, _ in per) else sum(ms for ms, _ in per)
+        out[name]["kernel_device_launches"] = [n for _, n in per]
     band = trans_band(model.trans.cpu().numpy())
     feats_tdb = batch.features.permute(1, 2, 0).contiguous()
     steps = {

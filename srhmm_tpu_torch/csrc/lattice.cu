@@ -29,55 +29,50 @@
 //   chosen by a strict > from source 0 (ties to the lowest source, as
 //   lax.argmax); backpointer rows 0 and t >= len are the identity.
 //
-// Layouts.  log b (and the lattice output, the backpointers) are read with
-// element strides (st, ss, sb) for (t, s, b): (T, S, B) lattices and the
-// (B, T, S) inputs of log_forward_batch / viterbi_batch are both read in
-// place, with no transpose.  Transitions are one (S, S) matrix or one per
-// utterance, (B, S, S).
+// Layouts.  The lattices and the backward's log b are (T, S, B) contiguous
+// (layout 0); log_forward_batch's and viterbi_batch's log b and the
+// backpointers are (B, T, S) (layout 1): all are read and written in place,
+// with no transpose.  Transitions are one (S, S) matrix, or for
+// log_forward_batch also one per utterance, (B, S, S).
 //
-// Forward design (lattice_forward_kernel).  The S states of an utterance
-// sit on adjacent lanes of a warp, G = 32 / S utterances a warp (S <= 32;
-// for 32 < S <= 64 one utterance a warp, lane l holding states l and l +
-// 32), U = 4 G utterances a block of four recursion warps and one memory
-// warp.  Per frame a lane takes the S sources of its state from the lanes
-// of its utterance by __shfl_sync (forward_sources), its column of the
-// transitions kept in registers (in shared memory at 32 < S), and runs
-// the log-sum-exp unrolled to NS = 4, 8, 16, 32 or 64 compiled slots, a
-// slot past S entering the max as -inf and the sum as expf(-inf) = 0.0f,
-// which change no bit (forward_update): nothing but shuffles and math is
-// on the serial chain, no barrier and no load.  The block walks tiles of TT
-// frames: while the recursion warps run tile k out of shared memory (log b
-// read a frame ahead), the memory warp copies tile k+1's log b in by
-// 16-byte cp.async (stage_forward_tile: rows of U utterances along B of a
-// (T, S, B) tensor, or one run of TT S floats an utterance of a (B, T, S)
-// tensor) and writes the (T, S, B) lattice of tile k-1 out in rows of U
-// consecutive floats (store_forward_tile); one barrier closes a tile.  In
-// last-row mode a block stops at its longest utterance and writes only the
-// final carries.  The terms keep the single-thread kernel's order (max over
-// the sources, the sum of expf ascending, m + logf(e) + lb), so the lattice
-// and the last row are bitwise those of one thread a (state, utterance)
-// summing over the sources in a loop.
+// Design, the same in the three kernels.  The S states of an utterance sit
+// on adjacent lanes of a warp, G = 32 / S utterances a warp (S <= 32; for
+// 32 < S <= 64 one utterance a warp, lane l holding states l and l + 32),
+// U = 4 G utterances a block of four recursion warps and one memory warp
+// (two for the Viterbi).  Per frame a lane takes the S values of its utterance's states by
+// __shfl_sync (forward_sources) with its column (forward, Viterbi) or row
+// (backward) of the transitions in registers (in shared memory at 32 < S),
+// and runs its update unrolled to NS = 4, 8, 16, 32 or 64 compiled slots, a
+// slot past S entering as -inf, which changes no bit: the log-sum-exp
+// (forward_update; the backward's without the emission term) or the best
+// source (viterbi_best).  Nothing but shuffles and math is on the serial
+// chain, no barrier and no load from device memory.  The block walks tiles
+// of TT frames: while the recursion warps run tile k out of shared memory
+// (log b read a frame ahead into registers), the memory warp copies the
+// next tile's log b in by 16-byte cp.async (stage_forward_tile: rows of U
+// utterances along B of a (T, S, B) tensor, or one run of TT S floats an
+// utterance of a (B, T, S) tensor) and writes tile k-1's output: the (T,
+// S, B) lattice in rows of U consecutive floats (store_forward_tile), the
+// (B, T, S) backpointers in runs of TT S int32 an utterance
+// (store_run_tile); one barrier closes a tile.  The forward's last-row mode
+// stops at the block's longest utterance and writes only the final carries;
+// the backward walks its tiles down in time, the tile of rows [t_lo, t_hi)
+// holding log b of frames [t_lo + 1, t_hi + 1).  The terms keep the order
+// of one thread a (state, utterance) looping over the sources (the max,
+// exact in any order, as a tree; the sum of expf ascending; m + logf(e) +
+// lb; the best source by a strict > from source 0, as a tree that keeps its
+// lower half on a tie), so every lattice, last row, score and backpointer
+// is bitwise that loop's.
 //
-// Backward and Viterbi design.  One thread per (state, utterance), U
-// utterances a block (S * U threads), the whole time loop inside the
-// kernel: each frame a thread computes its own state's new value from the
-// S values of the next (backward) or previous (Viterbi) frame, which the
-// block exchanges through a double-buffered shared-memory row (one
-// __syncthreads per frame).  The transitions (the block's U matrices when
-// per row) are staged in shared memory.  Threads are laid out state-major
-// (thread j * U + u) where b is the unit-stride axis, and utterance-major
-// (thread u * S + j) where s is, so that a warp's reads of a frame's log b
-// are contiguous in both layouts.
-//
-// What bounds it on the H100.  Each lattice function moves 2 T S B floats
-// (65.5 MB at the em_diag shape B=2048, T=500, S=8: ~0.02 ms of HBM time)
-// and does ~6 S^2 operations per (frame, utterance): bytes bound it on
-// paper.  In practice the serial chain of T frames per utterance sets the
-// time: the forward kernel's chain is the shuffles, the S-term
-// log-sum-exp and one logf a frame, with 4 warps an SM at em_diag (512
-// warps); the backward and Viterbi kernels' chain is a shared-memory
-// exchange and a barrier a frame (later work: the forward's lanes and
-// staging, forward_sources / stage_forward_tile).
+// What bounds it on the H100.  The forward and backward lattices move 2 T
+// S B floats (65.5 MB at the em_diag shape B=2048, T=500, S=8: ~0.02 ms of
+// HBM time), the Viterbi as many bytes (log b in, int32 backpointers out),
+// and each does ~3-6 S^2 operations a (frame, utterance): bytes bound them
+// on paper.  In practice the serial chain of T frames an utterance sets the
+// time: the shuffles, the S-term update and one logf a frame (forward,
+// backward) or the compare-and-select tree (Viterbi), with four recursion
+// warps an SM at em_diag (512 warps on 132 SMs), too few to hide one warp's
+// latency behind another's.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -91,76 +86,29 @@ namespace {
 using namespace srhmm;
 
 constexpr int kMaxStates = 64;
-constexpr int kMaxLatticeThreads = 1024;
 constexpr size_t kSmemLimit = 232448;  // bytes a block may use (ops/kernels/common.py SMEM_LIMIT)
 
-enum Kind { kBackward = 1, kViterbi = 2 };
-
-struct Args {
-  const float* log_b;      // element (t, s, b) at t * st + s * ss + b * sb
-  long long st, ss, sb;
-  const float* lt;         // (S, S), or (B, S, S) when per_row
-  int per_row;
-  const int* lengths;      // (B,)
-  float* out;              // lattice (same strides as log_b) or scores (B, S)
-  int* bptr;               // viterbi: backpointers, same strides as log_b
-  int T, S, B, U;
-  int state_minor;         // thread u * S + j (else j * U + u)
-};
-
-// This thread's (state j, utterance slot u), and the shared-memory row
-// index of state i of slot u: base + i * step.
-struct Slot {
-  int j, u, base, step;
-};
-
-__device__ __forceinline__ Slot thread_slot(const Args& p) {
-  Slot s;
-  if (p.state_minor) {
-    s.u = threadIdx.x / p.S;
-    s.j = threadIdx.x - s.u * p.S;
-    s.base = s.u * p.S;
-    s.step = 1;
-  } else {
-    s.j = threadIdx.x / p.U;
-    s.u = threadIdx.x - s.j * p.U;
-    s.base = s.u;
-    s.step = p.U;
-  }
-  return s;
-}
-
-// Stage the transitions clamped at NEG_INF: one (S, S) matrix, or the
-// block's U per-utterance matrices (zero-padded past B with NEG_INF).
-__device__ __forceinline__ void stage_trans(const Args& p, float* lt_sh) {
-  const int SS = p.S * p.S;
-  if (!p.per_row) {
-    for (int i = threadIdx.x; i < SS; i += blockDim.x) lt_sh[i] = fmaxf(p.lt[i], kNegInf);
-    return;
-  }
-  const int b0 = blockIdx.x * p.U;
-  for (int i = threadIdx.x; i < p.U * SS; i += blockDim.x) {
-    const int b = b0 + i / SS;
-    lt_sh[i] = b < p.B ? fmaxf(p.lt[(size_t)b0 * SS + i], kNegInf) : kNegInf;
-  }
-}
-
 // ---------------------------------------------------------------------------
-// forward
+// the lanes and the memory warp, shared by the three kernels; the forward
 // ---------------------------------------------------------------------------
 
 constexpr int kFwdRecWarps = 4;                       // recursion warps a block
 constexpr int kFwdThreads = 32 * (kFwdRecWarps + 1);  // and one memory warp
+// The Viterbi's chain is short enough that one memory warp cannot copy and
+// store a tile while the recursion warps run one: two.
+constexpr int kVitThreads = 32 * (kFwdRecWarps + 2);
 
-struct FwdParams {
+struct Params {
   const float* log_b;  // (T, S, B) (layout 0) or (B, T, S) (layout 1), contiguous
-  const float* lt;     // (S, S), or (B, S, S) when per_row
+  const float* lt;     // (S, S), or (B, S, S) when per_row (the forward's last row)
   const int* lengths;  // (B,)
-  float* out;          // layout 0: the (T, S, B) lattice; layout 1: the final carries (B, S)
+  float* out;          // the (T, S, B) lattice (forward layout 0, backward); the final carries (forward
+                       // layout 1) or scores (Viterbi), (B, S)
   int per_row, layout;
   int T, S, B;
   int G, U, TT;        // utterances a warp and a block, frames a tile
   int vec;             // 16-byte copies and stores
+  int* bptr;           // Viterbi: the (B, T, S) backpointers
 };
 
 // (B, T, S) tiles: an utterance's TT S floats at a pitch rounded up to 4,
@@ -256,8 +204,10 @@ __device__ __forceinline__ void forward_sources(float carry, int src0, int S, co
 // The forward update from NS sources, bitwise the loop over the S real
 // ones: m = max(NEG_INF, max_i v[i]) (max is exact in any order, so a tree),
 // e = sum of expf(v[i] - m) over i ascending (a -inf slot adds 0.0f),
-// max(m + logf(e) + lb, NEG_INF).
-template <int NS>
+// max(m + logf(e) + lb, NEG_INF); the backward's (kEmit false) max(m +
+// logf(e), NEG_INF), with no term added (+ 0.0f would turn a -0.0f into
+// +0.0f).
+template <int NS, bool kEmit = true>
 __device__ __forceinline__ float forward_update(const float (&v)[NS], float lb) {
   float mm[NS];
 #pragma unroll
@@ -271,12 +221,15 @@ __device__ __forceinline__ float forward_update(const float (&v)[NS], float lb) 
   float e = 0.f;
 #pragma unroll
   for (int i = 0; i < NS; ++i) e += expf(v[i] - m);
+  if constexpr (!kEmit) return fmaxf(m + logf(e), kNegInf);
   return fmaxf(m + logf(e) + lb, kNegInf);
 }
 
 // R = 2 (32 < S <= 64): lane l holds states l and l + 32 (c[0], c[1]); the
 // sources of state j come by shuffle, the transitions from shared memory
-// (lt_col[i S] = lt[i -> j]), the update as forward_update.
+// (lt_col[i S] = lt[i -> j]; for the backward a transposed matrix), the
+// update as forward_update.
+template <bool kEmit = true>
 __device__ __forceinline__ float forward_update_wide(const float (&x)[64], const float* lt_col, int S, float lb) {
   float mm[64];
 #pragma unroll
@@ -290,6 +243,7 @@ __device__ __forceinline__ float forward_update_wide(const float (&x)[64], const
   float e = 0.f;
 #pragma unroll
   for (int i = 0; i < 64; ++i) e += expf(((i < S) ? x[i] + lt_col[i * S] : -INFINITY) - m);
+  if constexpr (!kEmit) return fmaxf(m + logf(e), kNegInf);
   return fmaxf(m + logf(e) + lb, kNegInf);
 }
 
@@ -298,7 +252,7 @@ __device__ __forceinline__ float forward_update_wide(const float (&x)[64], const
 // and write nothing), or states l and l + 32 of utterance w (R = 2).  Frame
 // 0 always initializes the carry (unclamped); frames t >= length keep it.
 template <int NS, int R>
-__global__ void __launch_bounds__(kFwdThreads) lattice_forward_kernel(const __grid_constant__ FwdParams p) {
+__global__ void __launch_bounds__(kFwdThreads) lattice_forward_kernel(const __grid_constant__ Params p) {
   extern __shared__ float4 smem4[];
   float* sh = reinterpret_cast<float*>(smem4);
   const int S = p.S, U = p.U, TT = p.TT, tid = threadIdx.x, layout = p.layout;
@@ -421,10 +375,10 @@ __global__ void __launch_bounds__(kFwdThreads) lattice_forward_kernel(const __gr
   }
 }
 
-using ForwardFn = void (*)(FwdParams);
+using KernelFn = void (*)(Params);
 
 // the instantiation for S states: NS slots, R states a lane
-ForwardFn forward_kernel_for(int S) {
+KernelFn forward_kernel_for(int S) {
   if (S <= 4) return lattice_forward_kernel<4, 1>;
   if (S <= 8) return lattice_forward_kernel<8, 1>;
   if (S <= 16) return lattice_forward_kernel<16, 1>;
@@ -433,126 +387,360 @@ ForwardFn forward_kernel_for(int S) {
 }
 
 // ---------------------------------------------------------------------------
-// backward and Viterbi
+// backward
 // ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(kMaxLatticeThreads) lattice_backward_kernel(const Args p) {
-  extern __shared__ float sh[];
-  const int S = p.S, nt = S * p.U;
-  float* row = sh;            // 2 * nt: log_b[t+1] + beta[t+1], double-buffered
-  float* lt_sh = sh + 2 * nt;
-  stage_trans(p, lt_sh);
-  const Slot q = thread_slot(p);
-  const int i = q.j;          // this thread's source state
-  const int b = blockIdx.x * p.U + q.u;
-  const bool live = b < p.B;
-  const int len = live ? p.lengths[b] : 0;
-  const float* lt = lt_sh + (p.per_row ? q.u * S * S : 0) + i * S;
-  const size_t o = live ? (size_t)b * p.sb + (size_t)i * p.ss : 0;
-  const float beta_init = (i == S - 1) ? 0.f : kNegInf;
-  float beta = beta_init;
-  if (live) p.out[o + (size_t)(p.T - 1) * p.st] = beta;
-  __syncthreads();
-  for (int t = p.T - 2; t >= 0; --t) {
-    const float lbn = live ? fmaxf(p.log_b[o + (size_t)(t + 1) * p.st], kNegInf) : kNegInf;
-    float* inner = row + (t & 1) * nt;
-    inner[threadIdx.x] = lbn + beta;
-    __syncthreads();
-    if (t + 1 < len) {
-      const float* in = inner + q.base;
-      float m = kNegInf;
-      for (int k = 0; k < S; ++k) m = fmaxf(m, lt[k] + in[k * q.step]);
-      float e = 0.f;
-      for (int k = 0; k < S; ++k) e += expf(lt[k] + in[k * q.step] - m);
-      beta = fmaxf(m + logf(e), kNegInf);
-    } else {
-      beta = beta_init;
-    }
-    if (live) p.out[o + (size_t)t * p.st] = beta;
-  }
+// Tile k of the backward holds rows [t_lo, t_hi), t_hi = T - k TT, t_lo =
+// max(t_hi - TT, 0): the block walks down in time.
+__device__ __forceinline__ void backward_rows(int k, int T, int TT, int& t_lo, int& t_hi) {
+  t_hi = T - k * TT;
+  t_lo = max(t_hi - TT, 0);
 }
 
-__global__ void __launch_bounds__(kMaxLatticeThreads) viterbi_kernel(const Args p) {
-  extern __shared__ float sh[];
-  const int S = p.S, nt = S * p.U;
-  float* row = sh;
-  float* lt_sh = sh + 2 * nt;
-  stage_trans(p, lt_sh);
-  const Slot q = thread_slot(p);
-  const int j = q.j;
-  const int b = blockIdx.x * p.U + q.u;
-  const bool live = b < p.B;
-  const int len = live ? p.lengths[b] : 0;
-  const float* lt = lt_sh + (p.per_row ? q.u * S * S : 0);
-  const size_t o = live ? (size_t)b * p.sb + (size_t)j * p.ss : 0;
-  float carry = kNegInf;
-  __syncthreads();
-  for (int t = 0; t < p.T; ++t) {
-    const size_t ot = o + (size_t)t * p.st;
-    const float lb = live ? fmaxf(p.log_b[ot], kNegInf) : kNegInf;
-    int arg = j;  // the identity on row 0 and past the length
-    if (t == 0) {
-      carry = (j == 0 ? 0.f : kNegInf) + lb;
-    } else if (t < len) {
-      const float* prev = row + ((t + 1) & 1) * nt + q.base;
-      float best = prev[0] + lt[j];
-      arg = 0;
-      for (int i = 1; i < S; ++i) {
-        const float c = prev[i * q.step] + lt[i * S + j];
-        if (c > best) {
-          best = c;
-          arg = i;
-        }
+// Recursion warps: the forward's lanes (lane l of warp w holds state i = l
+// mod S of utterance u = w G + l / S, or states l and l + 32 of utterance w
+// at R = 2), holding beta[t+1, i].  Row T-1 is the initialization (0 in
+// state S-1, NEG_INF elsewhere); row t < T-1 is the recursion where t + 1 <
+// length, else the initialization.  A lane first forms its own inner =
+// max(log_b[t+1, i], NEG_INF) + beta[t+1, i]; forward_sources brings the S
+// inner values of its utterance with row i of the transitions (in shared
+// memory, transposed, at R = 2).  Row t's log b (frame t + 1) sits at tile
+// row t - t_lo: the memory warp stages frames [t_lo + 1, min(t_hi + 1, T)).
+template <int NS, int R>
+__global__ void __launch_bounds__(kFwdThreads) lattice_backward_kernel(const __grid_constant__ Params p) {
+  extern __shared__ float4 smem4[];
+  float* sh = reinterpret_cast<float*>(smem4);
+  const int S = p.S, U = p.U, TT = p.TT, T = p.T, tid = threadIdx.x;
+  const size_t tile = (size_t)TT * S * U;
+  float* lb_slots = sh;               // slot k & 1 holds tile k
+  float* out_slots = sh + 2 * tile;
+  float* lt_sh = out_slots + 2 * tile;  // R = 2: lt_sh[k S + i] = lt[i -> k]
+  const int b0 = blockIdx.x * U, n_rec = 32 * kFwdRecWarps;
+  const int n_tiles = (T + TT - 1) / TT;
+  if (R == 2) {
+    for (int n = tid; n < S * S; n += blockDim.x) lt_sh[n] = fmaxf(p.lt[(n % S) * S + n / S], kNegInf);
+  }
+  if (tid >= n_rec) {
+    // ---- the memory warp ----
+    const int i = tid - n_rec, count = blockDim.x - n_rec;
+    auto stage = [&](int k) {
+      int t_lo, t_hi;
+      backward_rows(k, T, TT, t_lo, t_hi);
+      stage_forward_tile(lb_slots + (k & 1) * tile, p.log_b, 0, t_lo + 1, min(t_hi + 1, T) - t_lo - 1, T, S, p.B, b0,
+                         U, 0, p.vec, i, count);
+      cp_async_commit();
+    };
+    auto store = [&](int k) {
+      int t_lo, t_hi;
+      backward_rows(k, T, TT, t_lo, t_hi);
+      store_forward_tile(p.out, out_slots + (k & 1) * tile, t_lo, t_hi - t_lo, S, p.B, b0, U, p.vec, i, count);
+    };
+    stage(0);
+    cp_async_wait<0>();
+    __syncthreads();
+    for (int k = 0; k < n_tiles; ++k) {
+      // tile k+1 goes into the slot of tile k-1, read before the last barrier
+      if (k + 1 < n_tiles) stage(k + 1);
+      if (k >= 1) store(k - 1);
+      cp_async_wait<0>();
+      __syncthreads();
+    }
+    store(n_tiles - 1);
+    return;
+  }
+  // ---- the recursion warps ----
+  const int lane = tid & 31, wid = tid >> 5;
+  const int gl = (R == 1) ? lane / S : 0;
+  const int g = min(gl, p.G - 1);
+  const int u = wid * p.G + g, b = b0 + u;
+  const int len = b < p.B ? p.lengths[b] : 0;
+  int st[R];
+  bool wr[R];
+  int off[R];
+  float beta[R], init[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    st[r] = (R == 1) ? lane - gl * S : lane + 32 * r;
+    wr[r] = gl < p.G && st[r] < S;
+    off[r] = min(st[r], S - 1) * U + u;
+    init[r] = (st[r] == S - 1) ? 0.f : kNegInf;
+    beta[r] = init[r];
+  }
+  const int src0 = g * S, fs = S * U;
+  float ltr[R == 1 ? NS : 1];
+  if (R == 1) {
+#pragma unroll
+    for (int k = 0; k < (R == 1 ? NS : 1); ++k) ltr[k] = (k < S) ? fmaxf(p.lt[st[0] * S + k], kNegInf) : -INFINITY;
+  }
+  __syncthreads();  // tile 0 (and the transitions) are in
+  for (int k = 0; k < n_tiles; ++k) {
+    int t_lo, t_hi;
+    backward_rows(k, T, TT, t_lo, t_hi);
+    const float* lbt = lb_slots + (k & 1) * tile;
+    float* ot = out_slots + (k & 1) * tile;
+    float lbn[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) lbn[r] = lbt[(size_t)(t_hi - 1 - t_lo) * fs + off[r]];
+    for (int t = t_hi - 1; t >= t_lo; --t) {
+      const int tt = t - t_lo;
+      float lb[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        lb[r] = fmaxf(lbn[r], kNegInf);
+        if (t > t_lo) lbn[r] = lbt[(size_t)(tt - 1) * fs + off[r]];
       }
-      carry = fmaxf(best + lb, kNegInf);
+      if (t < T - 1) {  // row T-1 keeps the initialization
+        float inner[R], next[R];
+#pragma unroll
+        for (int r = 0; r < R; ++r) inner[r] = lb[r] + beta[r];
+        if constexpr (R == 1) {
+          float v[NS];
+          forward_sources<NS>(inner[0], src0, S, ltr, v);
+          next[0] = forward_update<NS, false>(v, 0.f);
+        } else {
+          float x[64];
+#pragma unroll
+          for (int i = 0; i < 64; ++i) x[i] = __shfl_sync(~0u, inner[i >> 5], i & 31);
+#pragma unroll
+          for (int r = 0; r < R; ++r) next[r] = forward_update_wide<false>(x, lt_sh + min(st[r], S - 1), S, 0.f);
+        }
+#pragma unroll
+        for (int r = 0; r < R; ++r) beta[r] = (t + 1 < len) ? next[r] : init[r];
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+        if (wr[r]) ot[(size_t)tt * fs + st[r] * U + u] = beta[r];
     }
-    row[(t & 1) * nt + threadIdx.x] = carry;
-    if (live) p.bptr[ot] = arg;
     __syncthreads();
   }
-  if (live) p.out[(size_t)b * S + j] = carry;
 }
 
-int launch(Kind kind, const Args& p, int device, void* stream) {
-  if (p.T < 1 || p.S < 1 || p.S > kMaxStates || p.B < 1 || p.U < 1 || p.S * p.U > kMaxLatticeThreads) {
+KernelFn backward_kernel_for(int S) {
+  if (S <= 4) return lattice_backward_kernel<4, 1>;
+  if (S <= 8) return lattice_backward_kernel<8, 1>;
+  if (S <= 16) return lattice_backward_kernel<16, 1>;
+  if (S <= 32) return lattice_backward_kernel<32, 1>;
+  return lattice_backward_kernel<64, 2>;
+}
+
+// ---------------------------------------------------------------------------
+// Viterbi
+// ---------------------------------------------------------------------------
+
+// Shared memory of a Viterbi block, in floats (ops/kernels/lattice.py
+// viterbi_smem_bytes mirrors it): log b in two slots of U runs of TT S
+// floats, the backpointers out in two slots of the same shape; the
+// transitions at 32 < S (R = 2).
+__host__ __device__ inline size_t viterbi_floats(int S, int U, int TT) {
+  return 4 * forward_tile_floats(S, U, TT, 1) + (S > 32 ? (size_t)S * S : 0);
+}
+
+// The way back for (B, T, S) backpointers: tile[u Q + tt S + s] goes to
+// dst[((b0 + u) T + t0 + tt) S + s] for tt < n, b0 + u < B, a run of n S
+// int32 an utterance; threads i in [0, count), 16-byte stores where vec (T
+// S and TT S multiples of 4, dst 16-byte aligned).
+__device__ __forceinline__ void store_run_tile(int* dst, const int* tile, int t0, int n, int T, int S, int B, int b0,
+                                               int U, int Q, int vec, int i, int count) {
+  const int w = vec ? 4 : 1, per = (n * S + w - 1) / w, total = U * per;
+  for (int c = i; c < total; c += count) {
+    const int u = c / per, v = c - u * per;
+    if (b0 + u >= B) continue;
+    int* d = dst + ((size_t)(b0 + u) * T + t0) * S + v * w;
+    const int* s = tile + (size_t)u * Q + v * w;
+    if (vec) {
+      *reinterpret_cast<int4*>(d) = *reinterpret_cast<const int4*>(s);
+    } else {
+      *d = *s;
+    }
+  }
+}
+
+// The best of NS candidates and its source: a tree whose every node keeps
+// its lower half unless the upper is strictly greater, so the lowest source
+// of the maximum wins, as a strict > from source 0 (lax.argmax) does; a -inf
+// slot past S never wins.
+template <int NS>
+__device__ __forceinline__ float viterbi_best(const float (&v)[NS], int& arg) {
+  float bv[NS];
+  int bi[NS];
+#pragma unroll
+  for (int i = 0; i < NS; ++i) bv[i] = v[i], bi[i] = i;
+#pragma unroll
+  for (int w = 1; w < NS; w *= 2) {
+#pragma unroll
+    for (int i = 0; i + w < NS; i += 2 * w) {
+      const bool up = bv[i + w] > bv[i];
+      bi[i] = up ? bi[i + w] : bi[i];
+      bv[i] = up ? bv[i + w] : bv[i];
+    }
+  }
+  arg = bi[0];
+  return bv[0];
+}
+
+// R = 2: the best source of state j from the 64 shuffled scores and column
+// j of the transitions in shared memory (lt_col[i S] = lt[i -> j]), by a
+// strict > from source 0.
+__device__ __forceinline__ float viterbi_best_wide(const float (&x)[64], const float* lt_col, int S, int& arg) {
+  float best = x[0] + lt_col[0];
+  arg = 0;
+#pragma unroll
+  for (int i = 1; i < 64; ++i) {
+    const float c = (i < S) ? x[i] + lt_col[i * S] : -INFINITY;
+    if (c > best) {
+      best = c;
+      arg = i;
+    }
+  }
+  return best;
+}
+
+// Recursion warps: the forward's lanes and staging on (B, T, S) log b,
+// holding the score of state j.  Frame 0 initializes the score (0 in state
+// 0, NEG_INF elsewhere, + log b, unclamped); frames 1 <= t < length take
+// the best source's score + log b, clamped at NEG_INF; frames t >= length
+// keep it.  A backpointer row holds the best source where the score
+// stepped, the identity j on row 0 and past the length; the rows go out a
+// tile behind, the scores (B, S) at the end.
+template <int NS, int R>
+__global__ void __launch_bounds__(kVitThreads) viterbi_kernel(const __grid_constant__ Params p) {
+  extern __shared__ float4 smem4[];
+  float* sh = reinterpret_cast<float*>(smem4);
+  const int S = p.S, U = p.U, TT = p.TT, T = p.T, tid = threadIdx.x;
+  const int Q = forward_run_pitch(S, TT);
+  const size_t tile = forward_tile_floats(S, U, TT, 1);
+  float* lb_slots = sh;                                 // slot k & 1 holds tile k
+  int* bp_slots = reinterpret_cast<int*>(sh + 2 * tile);
+  float* lt_sh = sh + 4 * tile;                         // R = 2
+  const int b0 = blockIdx.x * U, n_rec = 32 * kFwdRecWarps;
+  const int n_tiles = (T + TT - 1) / TT;
+  if (R == 2) {
+    for (int n = tid; n < S * S; n += blockDim.x) lt_sh[n] = fmaxf(p.lt[n], kNegInf);
+  }
+  if (tid >= n_rec) {
+    // ---- the memory warp ----
+    const int i = tid - n_rec, count = blockDim.x - n_rec;
+    auto stage = [&](int k) {
+      stage_forward_tile(lb_slots + (k & 1) * tile, p.log_b, 1, k * TT, min(TT, T - k * TT), T, S, p.B, b0, U, Q,
+                         p.vec, i, count);
+      cp_async_commit();
+    };
+    auto store = [&](int k) {
+      store_run_tile(p.bptr, bp_slots + (k & 1) * tile, k * TT, min(TT, T - k * TT), T, S, p.B, b0, U, Q, p.vec, i,
+                     count);
+    };
+    stage(0);
+    cp_async_wait<0>();
+    __syncthreads();
+    for (int k = 0; k < n_tiles; ++k) {
+      // tile k+1 goes into the slot of tile k-1, read before the last barrier
+      if (k + 1 < n_tiles) stage(k + 1);
+      if (k >= 1) store(k - 1);
+      cp_async_wait<0>();
+      __syncthreads();
+    }
+    store(n_tiles - 1);
+    return;
+  }
+  // ---- the recursion warps ----
+  const int lane = tid & 31, wid = tid >> 5;
+  const int gl = (R == 1) ? lane / S : 0;
+  const int g = min(gl, p.G - 1);
+  const int u = wid * p.G + g, b = b0 + u;
+  const int len = b < p.B ? p.lengths[b] : 0;
+  int j[R];
+  bool wr[R];
+  int off[R];
+  float score[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    j[r] = (R == 1) ? lane - gl * S : lane + 32 * r;
+    wr[r] = gl < p.G && j[r] < S;
+    off[r] = u * Q + min(j[r], S - 1);
+    score[r] = kNegInf;
+  }
+  const int src0 = g * S;
+  float ltc[R == 1 ? NS : 1];
+  if (R == 1) {
+#pragma unroll
+    for (int i = 0; i < (R == 1 ? NS : 1); ++i) ltc[i] = (i < S) ? fmaxf(p.lt[i * S + j[0]], kNegInf) : -INFINITY;
+  }
+  __syncthreads();  // tile 0 (and the transitions) are in
+  for (int k = 0; k < n_tiles; ++k) {
+    const int t_lo = k * TT, t_hi = min(T, t_lo + TT);
+    const float* lbt = lb_slots + (k & 1) * tile;
+    int* bpt = bp_slots + (k & 1) * tile;
+    float lbn[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) lbn[r] = lbt[off[r]];
+    for (int t = t_lo; t < t_hi; ++t) {
+      const int tt = t - t_lo;
+      float lb[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        lb[r] = fmaxf(lbn[r], kNegInf);
+        if (t + 1 < t_hi) lbn[r] = lbt[(tt + 1) * S + off[r]];
+      }
+      float best[R];
+      int arg[R];
+      if constexpr (R == 1) {
+        float v[NS];
+        forward_sources<NS>(score[0], src0, S, ltc, v);
+        best[0] = viterbi_best<NS>(v, arg[0]);
+      } else {
+        float x[64];
+#pragma unroll
+        for (int i = 0; i < 64; ++i) x[i] = __shfl_sync(~0u, score[i >> 5], i & 31);
+#pragma unroll
+        for (int r = 0; r < R; ++r) best[r] = viterbi_best_wide(x, lt_sh + min(j[r], S - 1), S, arg[r]);
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const bool step = t >= 1 && t < len;
+        score[r] = (t == 0) ? (j[r] == 0 ? 0.f : kNegInf) + lb[r] : (step ? fmaxf(best[r] + lb[r], kNegInf) : score[r]);
+        if (wr[r]) bpt[u * Q + tt * S + j[r]] = step ? arg[r] : j[r];
+      }
+    }
+    __syncthreads();
+  }
+  if (b < p.B) {
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+      if (wr[r]) p.out[(size_t)b * S + j[r]] = score[r];
+  }
+}
+
+KernelFn viterbi_kernel_for(int S) {
+  if (S <= 4) return viterbi_kernel<4, 1>;
+  if (S <= 8) return viterbi_kernel<8, 1>;
+  if (S <= 16) return viterbi_kernel<16, 1>;
+  if (S <= 32) return viterbi_kernel<32, 1>;
+  return viterbi_kernel<64, 2>;
+}
+
+// Checks the launch shape (ops/kernels/lattice.py forward_block /
+// backward_block / viterbi_block) and launches fn on (B + U - 1) / U blocks
+// of `threads` threads; 0 or a CUDA error code.
+int launch_lanes(KernelFn fn, int threads, const Params& p, size_t floats, bool vec_ok, int device, void* stream) {
+  const int S = p.S;
+  if (p.T < 1 || S < 1 || S > kMaxStates || p.B < 1 || p.TT < 1 || p.G != (S > 32 ? 1 : 32 / S) ||
+      p.U != p.G * kFwdRecWarps || (p.vec && !vec_ok) || sizeof(float) * floats > kSmemLimit) {
     return (int)cudaErrorInvalidValue;
   }
+  const size_t smem = sizeof(float) * floats;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const size_t smem =
-      sizeof(float) * (2 * (size_t)p.S * p.U + (size_t)(p.per_row ? p.U : 1) * p.S * p.S);
-  const void* fn = kind == kBackward ? reinterpret_cast<const void*>(lattice_backward_kernel)
-                                     : reinterpret_cast<const void*>(viterbi_kernel);
   if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    err = cudaFuncSetAttribute(reinterpret_cast<const void*>(fn), cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  const int blocks = (p.B + p.U - 1) / p.U;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (kind == kBackward) {
-    lattice_backward_kernel<<<blocks, p.S * p.U, smem, s>>>(p);
-  } else {
-    viterbi_kernel<<<blocks, p.S * p.U, smem, s>>>(p);
-  }
+  fn<<<(p.B + p.U - 1) / p.U, threads, smem, static_cast<cudaStream_t>(stream)>>>(p);
   return (int)cudaGetLastError();
 }
 
-Args make_args(const void* log_b, long long st, long long ss, long long sb, const void* lt,
-               int per_row, const void* lengths, int T, int S, int B, int U, int state_minor) {
-  Args p{};
-  p.log_b = static_cast<const float*>(log_b);
-  p.st = st;
-  p.ss = ss;
-  p.sb = sb;
-  p.lt = static_cast<const float*>(lt);
-  p.per_row = per_row;
-  p.lengths = static_cast<const int*>(lengths);
-  p.T = T;
-  p.S = S;
-  p.B = B;
-  p.U = U;
-  p.state_minor = state_minor;
-  return p;
+bool aligned16(const void* a, const void* b) {
+  return reinterpret_cast<uintptr_t>(a) % 16 == 0 && reinterpret_cast<uintptr_t>(b) % 16 == 0;
 }
 
 }  // namespace
@@ -561,57 +749,47 @@ extern "C" {
 
 // Every launcher runs on `stream` and returns cudaGetLastError() (0 = ok).
 // Pointers are device pointers; lengths int32 (B,), lt float32 (S, S) or,
-// with per_row, (B, S, S).
+// for the forward with per_row, (B, S, S).  G utterances a warp, U = 4 G a
+// block and TT frames a tile from ops/kernels/lattice.py forward_block /
+// backward_block / viterbi_block.
 
 // The forward kernel.  layout 0: log b (T, S, B) contiguous, out the (T,
 // S, B) lattice; layout 1: log b (B, T, S) contiguous, out the final
-// carries (B, S).  G utterances a warp, U = 4 G a block and TT frames a
-// tile from ops/kernels/lattice.py forward_block; vec: 16-byte copies (U
-// and B, or T S and TT S, multiples of 4, log b and out 16-byte aligned).
+// carries (B, S).  vec: 16-byte copies (U and B, or T S and TT S,
+// multiples of 4, log b and out 16-byte aligned).
 int srhmm_lattice_forward(const void* log_b, const void* lt, int per_row, const void* lengths, void* out,
                           int layout, int T, int S, int B, int G, int U, int TT, int vec, int device,
                           void* stream) {
-  const bool aligned = reinterpret_cast<uintptr_t>(log_b) % 16 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
-  const bool vec_ok = layout ? (T * S % 4 == 0 && TT * S % 4 == 0) : (U % 4 == 0 && B % 4 == 0);
-  if (T < 1 || S < 1 || S > kMaxStates || B < 1 || TT < 1 || (layout != 0 && layout != 1) ||
-      G != (S > 32 ? 1 : 32 / S) || U != G * kFwdRecWarps || (vec && !(aligned && vec_ok))) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const size_t smem = sizeof(float) * forward_floats(S, U, TT, layout, per_row);
-  if (smem > kSmemLimit) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  const ForwardFn fn = forward_kernel_for(S);
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(reinterpret_cast<const void*>(fn), cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  FwdParams p{static_cast<const float*>(log_b), static_cast<const float*>(lt), static_cast<const int*>(lengths),
-              static_cast<float*>(out), per_row, layout, T, S, B, G, U, TT, vec};
-  fn<<<(B + U - 1) / U, kFwdThreads, smem, static_cast<cudaStream_t>(stream)>>>(p);
-  return (int)cudaGetLastError();
+  if (layout != 0 && layout != 1) return (int)cudaErrorInvalidValue;
+  const bool vec_ok = aligned16(log_b, out) && (layout ? (T * S % 4 == 0 && TT * S % 4 == 0) : (U % 4 == 0 && B % 4 == 0));
+  const Params p{static_cast<const float*>(log_b), static_cast<const float*>(lt), static_cast<const int*>(lengths),
+                 static_cast<float*>(out), per_row, layout, T, S, B, G, U, TT, vec, nullptr};
+  if (S < 1 || S > kMaxStates) return (int)cudaErrorInvalidValue;
+  return launch_lanes(forward_kernel_for(S), kFwdThreads, p, forward_floats(S, U, TT, layout, per_row), vec_ok, device, stream);
 }
 
-// The backward and Viterbi kernels read log b with element strides (st,
-// ss, sb) for (t, s, b).
-
-int srhmm_lattice_backward(const void* log_b, long long st, long long ss, long long sb,
-                           const void* lt, int per_row, const void* lengths, void* out, int T,
-                           int S, int B, int U, int state_minor, int device, void* stream) {
-  Args p = make_args(log_b, st, ss, sb, lt, per_row, lengths, T, S, B, U, state_minor);
-  p.out = static_cast<float*>(out);
-  return launch(kBackward, p, device, stream);
+// The backward kernel: log b (T, S, B) contiguous, out the (T, S, B)
+// lattice; vec: 16-byte copies and stores (U and B multiples of 4, log b
+// and out 16-byte aligned).
+int srhmm_lattice_backward(const void* log_b, const void* lt, const void* lengths, void* out, int T, int S, int B,
+                           int G, int U, int TT, int vec, int device, void* stream) {
+  const bool vec_ok = aligned16(log_b, out) && U % 4 == 0 && B % 4 == 0;
+  const Params p{static_cast<const float*>(log_b), static_cast<const float*>(lt), static_cast<const int*>(lengths),
+                 static_cast<float*>(out), 0, 0, T, S, B, G, U, TT, vec, nullptr};
+  if (S < 1 || S > kMaxStates) return (int)cudaErrorInvalidValue;
+  return launch_lanes(backward_kernel_for(S), kFwdThreads, p, forward_floats(S, U, TT, 0, 0), vec_ok, device, stream);
 }
 
-// scores (B, S); bptr int32 with the strides of log b.
-int srhmm_viterbi(const void* log_b, long long st, long long ss, long long sb, const void* lt,
-                  int per_row, const void* lengths, void* scores, void* bptr, int T, int S, int B,
-                  int U, int state_minor, int device, void* stream) {
-  Args p = make_args(log_b, st, ss, sb, lt, per_row, lengths, T, S, B, U, state_minor);
-  p.out = static_cast<float*>(scores);
-  p.bptr = static_cast<int*>(bptr);
-  return launch(kViterbi, p, device, stream);
+// The Viterbi kernel: log b (B, T, S) contiguous, scores (B, S), bptr
+// int32 (B, T, S); vec: 16-byte copies and stores (T S and TT S multiples
+// of 4, log b and bptr 16-byte aligned).
+int srhmm_viterbi(const void* log_b, const void* lt, const void* lengths, void* scores, void* bptr, int T, int S,
+                  int B, int G, int U, int TT, int vec, int device, void* stream) {
+  const bool vec_ok = aligned16(log_b, bptr) && T * S % 4 == 0 && TT * S % 4 == 0;
+  Params p{static_cast<const float*>(log_b), static_cast<const float*>(lt), static_cast<const int*>(lengths),
+           static_cast<float*>(scores), 0, 1, T, S, B, G, U, TT, vec, static_cast<int*>(bptr)};
+  if (S < 1 || S > kMaxStates) return (int)cudaErrorInvalidValue;
+  return launch_lanes(viterbi_kernel_for(S), kVitThreads, p, viterbi_floats(S, U, TT), vec_ok, device, stream);
 }
 
 }  // extern "C"

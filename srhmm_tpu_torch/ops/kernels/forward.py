@@ -25,8 +25,9 @@ from __future__ import annotations
 
 import torch
 
-from .common import NEG_INF, check_launch, on_cpu
-from .lattice import LatticeLaunch, _clamped, _start, forward_launch, forward_recursion, kernel_library
+from .common import NEG_INF, aligned16, check_launch, device_args, on_cpu, sm_count
+from .lattice import (LatticeLaunch, _clamped, _start, forward_copies_16, forward_launch, forward_recursion,
+                      kernel_library, viterbi_block)
 
 
 def log_forward_batch_plain(log_b, log_trans, lengths):
@@ -92,10 +93,15 @@ def viterbi_batch(log_b, log_trans, lengths):
     if on_cpu("viterbi_batch", log_b):
         return viterbi_batch_plain(log_b, log_trans, lengths)
     ln = LatticeLaunch("viterbi_batch", log_b, log_trans, lengths, "bts")
+    index, stream = device_args(ln.dev)
+    blk = viterbi_block(ln.S, ln.B, sm_count(index))
     scores = ln.empty((ln.B, ln.S))
     bptr = ln.empty((ln.B, ln.T, ln.S), torch.int32)
+    vec = forward_copies_16(ln.S, ln.T, ln.B, blk, "bts")
+    lb = aligned16(ln.log_b) if vec else ln.log_b
     check_launch(ln.name, kernel_library().srhmm_viterbi(
-        *ln.head(), scores.data_ptr(), bptr.data_ptr(), *ln.tail()))
+        lb.data_ptr(), ln.log_trans.data_ptr(), ln.lengths.data_ptr(), scores.data_ptr(), bptr.data_ptr(), ln.T, ln.S,
+        ln.B, blk["utts_per_warp"], blk["utts"], blk["tile"], int(vec), index, stream))
     viterbi_batch.launches += 1
     return scores, bptr
 

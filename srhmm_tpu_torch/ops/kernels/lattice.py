@@ -19,7 +19,10 @@ blocked wrappers keep the JAX signature and its ``T % k_block == 0``
 assertion, but ``k_block`` was the TPU's time tiling: they launch the same
 kernel as the unblocked ones, each counting its own launches in
 ``.launches``.  ``csrc/lattice.cu`` also holds the forward kernel's
-last-row mode and the Viterbi kernel of ops/kernels/forward.py.
+last-row mode and the Viterbi kernel of ops/kernels/forward.py; the three
+kernels share a launch shape (``_lane_block``: an utterance's states on
+adjacent lanes, four recursion warps and a memory warp a block, two for the
+Viterbi).
 """
 
 from __future__ import annotations
@@ -32,9 +35,9 @@ import torch
 from .common import NEG_INF, SMEM_LIMIT, aligned16, check_launch, device_args, on_cpu, require_float32, sm_count
 
 MAX_STATES = 64  # csrc/lattice.cu kMaxStates
-THREADS_PER_BLOCK = 128  # backward / Viterbi: a block holds max(1, 128 // S) utterances
-FORWARD_REC_WARPS = 4  # csrc/lattice.cu kFwdRecWarps: a forward block's recursion warps (and one memory warp)
-FORWARD_TILES = (32, 16, 8, 4, 2, 1)  # frames a forward tile, largest first
+FORWARD_REC_WARPS = 4  # csrc/lattice.cu kFwdRecWarps: a block's recursion warps
+VITERBI_MEMORY_WARPS = 2  # csrc/lattice.cu kVitThreads (the forward and backward have one)
+FORWARD_TILES = (32, 16, 8, 4, 2, 1)  # frames a tile, largest first
 
 
 # ---------------------------------------------------------------------------
@@ -108,35 +111,30 @@ def kernel_library() -> ctypes.CDLL:
     from .build import load_library
 
     lib = load_library()
-    c_int, c_ll, c_ptr = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
+    c_int, c_ptr = ctypes.c_int, ctypes.c_void_p
     lib.srhmm_lattice_forward.restype = c_int
     # log_b lt per_row lengths out, layout T S B G U TT vec device, stream
     lib.srhmm_lattice_forward.argtypes = [c_ptr, c_ptr, c_int, c_ptr, c_ptr] + [c_int] * 9 + [c_ptr]
-    head = [c_ptr, c_ll, c_ll, c_ll, c_ptr, c_int, c_ptr]  # log_b st ss sb lt per_row lengths
-    tail = [c_int] * 6 + [c_ptr]  # T S B U state_minor device, stream
     lib.srhmm_lattice_backward.restype = c_int
-    lib.srhmm_lattice_backward.argtypes = head + [c_ptr] + tail  # out
+    # log_b lt lengths out, T S B G U TT vec device, stream
+    lib.srhmm_lattice_backward.argtypes = [c_ptr] * 4 + [c_int] * 8 + [c_ptr]
     lib.srhmm_viterbi.restype = c_int
-    lib.srhmm_viterbi.argtypes = head + [c_ptr, c_ptr] + tail  # scores, bptr
+    # log_b lt lengths scores bptr, T S B G U TT vec device, stream
+    lib.srhmm_viterbi.argtypes = [c_ptr] * 5 + [c_int] * 8 + [c_ptr]
     return lib
 
 
 class LatticeLaunch:
     """Checked operands of one csrc/lattice.cu launch.  layout "tsb": log b
-    (T, S, B), threads state-major; "bts": (B, T, S), utterance-major.
-    log_trans (S, S), or with per_row_ok also (B, S, S) per utterance."""
+    (T, S, B); "bts": (B, T, S).  log_trans (S, S), or with per_row_ok also
+    (B, S, S) per utterance."""
 
     def __init__(self, name: str, log_b, log_trans, lengths, layout: str, per_row_ok: bool = False):
         dev = log_b.device
         require_float32(name, dev, [log_b, log_trans, lengths], [log_b, log_trans])
         if log_b.dim() != 3:
             raise ValueError(f"{name}: log b must have three axes, got {tuple(log_b.shape)}")
-        if layout == "tsb":
-            T, S, B = log_b.shape
-            self.strides, self.state_minor = (S * B, B, 1), 0
-        else:
-            B, T, S = log_b.shape
-            self.strides, self.state_minor = (S, 1, T * S), 1
+        T, S, B = log_b.shape if layout == "tsb" else (log_b.shape[1], log_b.shape[2], log_b.shape[0])
         self.per_row = int(per_row_ok and log_trans.dim() == 3)
         want = (B, S, S) if self.per_row else (S, S)
         if tuple(log_trans.shape) != want or tuple(lengths.shape) != (B,):
@@ -144,18 +142,10 @@ class LatticeLaunch:
         if not 1 <= S <= MAX_STATES or T < 1 or B < 1:
             raise ValueError(f"{name}: 1 to {MAX_STATES} states and T, B >= 1, got T={T} S={S} B={B}")
         self.name, self.dev, self.T, self.S, self.B = name, dev, T, S, B
-        self.U = max(1, THREADS_PER_BLOCK // S)
         # kept alive in locals of the wrapper until the launch is queued
         self.log_b = log_b.contiguous()
         self.log_trans = log_trans.contiguous()
         self.lengths = lengths.to(torch.int32).contiguous()
-
-    def head(self):
-        return [self.log_b.data_ptr(), *self.strides, self.log_trans.data_ptr(), self.per_row,
-                self.lengths.data_ptr()]
-
-    def tail(self):
-        return [self.T, self.S, self.B, self.U, self.state_minor, *device_args(self.dev)]
 
     def empty(self, shape, dtype=torch.float32):
         return torch.empty(shape, dtype=dtype, device=self.dev)
@@ -172,35 +162,61 @@ def forward_smem_bytes(S: int, U: int, TT: int, layout: str, per_row: bool) -> i
     return 4 * (2 * tile + out + trans)
 
 
-def forward_block(S: int, B: int, layout: str, per_row: bool = False, sms: int = 132) -> dict:
-    """The launch shape of csrc/lattice.cu's forward kernel: R states a lane
-    (2 past 32 states), G = 32 // S utterances a warp (1 past 32 states), U
-    = 4 G a block of four recursion warps and a memory warp, NS compiled
-    transition slots (4, 8, 16, 32 or 64 >= S); TT the largest of
-    FORWARD_TILES whose blocks all fit on the card at once by shared memory
-    and threads (else the largest that fits a block), and the blocks."""
+def viterbi_smem_bytes(S: int, U: int, TT: int) -> int:
+    """csrc/lattice.cu viterbi_floats: log b in two slots of U runs of TT S
+    floats at a pitch rounded up to 4, + 4, the backpointers in two slots
+    of the same shape; the transitions past 32 states."""
+    return 4 * (4 * U * (-(-TT * S // 4) * 4 + 4) + (S * S if S > 32 else 0))
+
+
+def _lane_block(kernel: str, S: int, B: int, smem, sms: int, memory_warps: int = 1) -> dict:
+    """The launch shape of a csrc/lattice.cu kernel: R states a lane (2 past
+    32 states), G = 32 // S utterances a warp (1 past 32 states), U = 4 G a
+    block of four recursion warps and `memory_warps`, NS compiled transition
+    slots (4, 8, 16, 32 or 64 >= S); TT the largest of FORWARD_TILES whose
+    blocks all fit on the card at once by shared memory (smem(U, TT) bytes a
+    block) and threads (else the largest that fits a block), and the
+    blocks."""
     if not 1 <= S <= MAX_STATES:
-        raise ValueError(f"forward kernel: 1 to {MAX_STATES} states, got {S}")
+        raise ValueError(f"{kernel} kernel: 1 to {MAX_STATES} states, got {S}")
     R = 2 if S > 32 else 1
     G = 1 if R == 2 else 32 // S
     U = G * FORWARD_REC_WARPS
     blocks = -(-B // U)
-    threads = 32 * (FORWARD_REC_WARPS + 1)
-    fits = [tt for tt in FORWARD_TILES if forward_smem_bytes(S, U, tt, layout, per_row) <= SMEM_LIMIT]
+    threads = 32 * (FORWARD_REC_WARPS + memory_warps)
+    fits = [tt for tt in FORWARD_TILES if smem(U, tt) <= SMEM_LIMIT]
 
     def resident(tt):  # blocks an SM holds: 2048 threads, 228 KB with 1 KB reserved a block
-        return min(2048 // threads, 233472 // (forward_smem_bytes(S, U, tt, layout, per_row) + 1024))
+        return min(2048 // threads, 233472 // (smem(U, tt) + 1024))
 
     TT = next((tt for tt in fits if resident(tt) * sms >= blocks), fits[0])
     return {"states_per_lane": R, "utts_per_warp": G, "utts": U, "slots": next(n for n in (4, 8, 16, 32, 64) if n >= S),
-            "tile": TT, "blocks": blocks, "smem_bytes": forward_smem_bytes(S, U, TT, layout, per_row)}
+            "tile": TT, "blocks": blocks, "smem_bytes": smem(U, TT)}
+
+
+def forward_block(S: int, B: int, layout: str, per_row: bool = False, sms: int = 132) -> dict:
+    """The launch shape of csrc/lattice.cu's forward kernel (_lane_block)."""
+    return _lane_block("forward", S, B, lambda U, tt: forward_smem_bytes(S, U, tt, layout, per_row), sms)
+
+
+def backward_block(S: int, B: int, sms: int = 132) -> dict:
+    """The launch shape of csrc/lattice.cu's backward kernel (_lane_block):
+    its shared memory is the forward lattice's (log b and the lattice in two
+    (TT, S, U) slots each, the transitions past 32 states)."""
+    return _lane_block("backward", S, B, lambda U, tt: forward_smem_bytes(S, U, tt, "tsb", False), sms)
+
+
+def viterbi_block(S: int, B: int, sms: int = 132) -> dict:
+    """The launch shape of csrc/lattice.cu's Viterbi kernel (_lane_block,
+    viterbi_smem_bytes, VITERBI_MEMORY_WARPS)."""
+    return _lane_block("Viterbi", S, B, lambda U, tt: viterbi_smem_bytes(S, U, tt), sms, VITERBI_MEMORY_WARPS)
 
 
 def forward_copies_16(S: int, T: int, B: int, blk: dict, layout: str) -> bool:
-    """Whether the forward kernel moves log b (and the lattice) 16 bytes at
-    a time: rows of U utterances along B ("tsb") where U and B are
-    multiples of 4, runs of TT S floats an utterance ("bts") where T S and
-    TT S are."""
+    """Whether a csrc/lattice.cu kernel moves log b (and the lattice or the
+    backpointers) 16 bytes at a time: rows of U utterances along B ("tsb")
+    where U and B are multiples of 4, runs of TT S floats an utterance
+    ("bts") where T S and TT S are."""
     if layout == "tsb":
         return blk["utts"] % 4 == 0 and B % 4 == 0
     return T * S % 4 == 0 and blk["tile"] * S % 4 == 0
@@ -226,8 +242,14 @@ def _forward_cuda(name, log_b_tsb, log_trans, lengths):
 
 def _backward_cuda(name, log_b_tsb, log_trans, lengths):
     ln = LatticeLaunch(name, log_b_tsb, log_trans, lengths, "tsb")
+    index, stream = device_args(ln.dev)
+    blk = backward_block(ln.S, ln.B, sm_count(index))
     out = ln.empty((ln.T, ln.S, ln.B))
-    check_launch(name, kernel_library().srhmm_lattice_backward(*ln.head(), out.data_ptr(), *ln.tail()))
+    vec = forward_copies_16(ln.S, ln.T, ln.B, blk, "tsb")
+    log_b = aligned16(ln.log_b) if vec else ln.log_b
+    check_launch(name, kernel_library().srhmm_lattice_backward(
+        log_b.data_ptr(), ln.log_trans.data_ptr(), ln.lengths.data_ptr(), out.data_ptr(), ln.T, ln.S, ln.B,
+        blk["utts_per_warp"], blk["utts"], blk["tile"], int(vec), index, stream))
     return out
 
 

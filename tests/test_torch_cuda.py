@@ -1144,8 +1144,8 @@ def test_train_fast_full_d39_takes_the_plain_route(cuda_device):
 
 
 # ---------------------------------------------------------------------------
-# the redesigned lattice forward kernel (csrc/lattice.cu) and moments kernel
-# (csrc/emission_em.cu) at their launch shapes
+# the redesigned lattice kernels (csrc/lattice.cu: forward, backward,
+# Viterbi) and moments kernel (csrc/emission_em.cu) at their launch shapes
 # ---------------------------------------------------------------------------
 
 from torch_port_utils import FORWARD_CHECK_CASES, STATS_CHECK_CASES, forward_check_lengths, log_trans_np  # noqa: E402
@@ -1182,6 +1182,42 @@ def test_forward_kernel_matches_plain_at_every_launch_shape(cuda_device, i):
         assert torch.equal(got, again)
     # the last row is the lattice's last row where the transitions are shared
     assert torch.equal(kf.log_forward_batch(lb_bts, lt, lens), la[-1].T)
+
+
+@pytest.mark.parametrize("i", range(len(FORWARD_CHECK_CASES)))
+def test_backward_and_viterbi_kernels_match_plain_at_every_launch_shape(cuda_device, i):
+    """The backward and Viterbi kernels at FORWARD_CHECK_CASES (one state,
+    T below a tile with a ragged last block and 4-byte copies, idle lanes,
+    two states a lane walking ten tiles, 16 slots, one frame): the (T, S, B)
+    log-beta lattice and the Viterbi scores against the twins, the -1e30
+    floor bitwise; the backpointers equal to the twin's; two launches
+    bitwise equal; the blocked wrapper bitwise the unblocked."""
+    from srhmm_tpu_torch.ops.kernels import forward as kf
+    from srhmm_tpu_torch.ops.kernels import lattice as kl
+
+    S, kind, B, T = FORWARD_CHECK_CASES[i]
+    rng = np.random.default_rng(500 + i)
+    lb_np = (rng.normal(size=(T, S, B)) * 2).astype(np.float32)
+    lb_np[rng.integers(0, T, 7), rng.integers(0, S, 7), rng.integers(0, B, 7)] = -np.inf
+    lb = torch.as_tensor(lb_np, device=cuda_device)
+    lt = torch.as_tensor(log_trans_np(S, kind, i), device=cuda_device)
+    lens = torch.as_tensor(forward_check_lengths(i, B, T), dtype=torch.int32, device=cuda_device)
+    counts = kl.backward_lattice.launches, kf.viterbi_batch.launches
+    bwd, again = kl.backward_lattice(lb, lt, lens), kl.backward_lattice(lb, lt, lens)
+    want = kl.backward_lattice_plain(lb, lt, lens)
+    _lattice_close(bwd, want)
+    below = want <= NEG_INF / 2
+    assert torch.equal(bwd[below], want[below]) and torch.equal(bwd, again)
+    assert torch.equal(kl.backward_lattice_blocked(lb, lt, lens, k_block=1), bwd)
+    lb_bts = lb.permute(2, 0, 1).contiguous()
+    (scores, bptr), (scores2, bptr2) = kf.viterbi_batch(lb_bts, lt, lens), kf.viterbi_batch(lb_bts, lt, lens)
+    scores_p, bptr_p = kf.viterbi_batch_plain(lb_bts, lt, lens)
+    torch.cuda.synchronize()
+    assert (kl.backward_lattice.launches, kf.viterbi_batch.launches) == (counts[0] + 2, counts[1] + 2)
+    _lattice_close(scores, scores_p)
+    below = scores_p <= NEG_INF / 2
+    assert torch.equal(scores[below], scores_p[below])
+    assert torch.equal(bptr, bptr_p) and torch.equal(scores, scores2) and torch.equal(bptr, bptr2)
 
 
 @pytest.mark.parametrize("N,S,M,D", STATS_CHECK_CASES)

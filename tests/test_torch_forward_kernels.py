@@ -6,8 +6,9 @@ transitions) and viterbi_batch (#16) run their plain twins here; the same
 numpy inputs go through srhmm_tpu's Pallas kernels in interpret mode:
 scores max |port - jax| / max(|jax|, 1) <= 1e-5 with equal masks of values
 above NEG_INF/2, backpointers and backtrace paths equal.  Zero-length and
-length-1 rows are included, and a tie case (two identical states) where
-the backpointers must be identical (ties go to the lowest source).  The
+length-1 rows are included, S = 33 and 64 for the Viterbi (two states a
+lane of the CUDA kernel), and a tie case (two identical states) where the
+backpointers must be identical (ties go to the lowest source).  The
 twins also hold srhmm_tpu's float64 log_forward / viterbi to 1e-4 and the
 paths exactly, as tests/test_pallas_kernels.py:42-81 holds the Pallas
 kernels.
@@ -108,6 +109,24 @@ def test_viterbi_batch_matches_pallas(kind):
     scores, bptr = kf.viterbi_batch(_t(lb), _t(lt), _t(lens))
     j_scores, j_bptr = jf.viterbi_batch_pallas(_j(lb), _j(lt), _j(lens), interpret=True)
     assert bptr.dtype == torch.int32 and tuple(bptr.shape) == (len(LENS), T, S)
+    assert_log_close(scores.numpy(), np.asarray(j_scores))
+    np.testing.assert_array_equal(bptr.numpy(), np.asarray(j_bptr))
+    paths = kf.backtrace(bptr, _t(lens), S - 1).numpy()
+    np.testing.assert_array_equal(paths, np.asarray(jf.backtrace(j_bptr, _j(lens), S - 1)))
+
+
+@pytest.mark.parametrize("S", [33, 64])
+def test_viterbi_batch_matches_pallas_past_32_states(S):
+    """Past 32 states a lane of the CUDA Viterbi kernel holds two states
+    (the transitions in shared memory, the best source by a strict > over
+    64 slots): the twin there against the Pallas kernel, scores, backpointers
+    and backtraces."""
+    T, B = 40, 5
+    lb = _log_b(B, T, S, seed=40 + S, scale=2.0)
+    lt = log_trans_np(S, "dense" if S == 33 else "delta2", seed=S)
+    lens = np.asarray([40, 33, 9, 1, 0], np.int32)
+    scores, bptr = kf.viterbi_batch(_t(lb), _t(lt), _t(lens))
+    j_scores, j_bptr = jf.viterbi_batch_pallas(_j(lb), _j(lt), _j(lens), interpret=True)
     assert_log_close(scores.numpy(), np.asarray(j_scores))
     np.testing.assert_array_equal(bptr.numpy(), np.asarray(j_bptr))
     paths = kf.backtrace(bptr, _t(lens), S - 1).numpy()

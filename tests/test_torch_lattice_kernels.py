@@ -8,11 +8,13 @@ NEG_INF/2, padded tails included (rows past a length repeat the last valid
 row forward and hold the final-state initialization backward), log b with
 -inf entries (clamped at -1e30 by both), lengths 0 and 1.  The twins also
 hold the JAX scans (log_forward_full / log_backward_full, float64) to 1e-4,
-as tests/test_pallas_kernels.py holds the Pallas kernels; the forward twin
-also at S = 33 and 64, where the CUDA kernel holds two states a lane.  The
-forward kernel's launch shape (forward_block) is held to every shape the
-6fe1112 kernel took.  The CUDA kernels are held against the twins on the
-card (tests/test_torch_cuda.py, chip_smoke.py).
+as tests/test_pallas_kernels.py holds the Pallas kernels; the forward and
+backward twins also at S = 33 and 64, where the CUDA kernels hold two
+states a lane.  The forward kernel's launch shape (forward_block) is held
+to every shape the 6fe1112 kernel took, the backward's and the Viterbi's
+(backward_block, viterbi_block) to every shape the bac667f kernels took.
+The CUDA kernels are held against the twins on the card
+(tests/test_torch_cuda.py, chip_smoke.py).
 """
 
 import jax.numpy as jnp
@@ -170,3 +172,77 @@ def test_forward_block_takes_every_shape_it_took_at_6fe1112():
         assert (ln.B, ln.T, ln.S, ln.per_row) == (37, 95, S, 1)
     with pytest.raises(ValueError, match="states"):
         kl.forward_block(65, 8, "tsb")
+
+
+@pytest.mark.parametrize("S,kind", [(33, "dense"), (64, "delta2")])
+def test_backward_lattice_matches_pallas_past_32_states(S, kind):
+    """Past 32 states a lane of the CUDA backward kernel holds two states
+    (the transitions transposed in shared memory): the twin there against
+    the Pallas kernel, T = 40 off the kernel's 32-frame tiles."""
+    lb, lens = inputs(T=40, S=S, lens=(40, 33, 9, 2, 1, 0), seed=15)
+    lt = log_trans_np(S, kind, seed=7)
+    assert_log_close(_port(kl.backward_lattice, lb, lt, lens), _jax(jl.backward_lattice_pallas, lb, lt, lens))
+
+
+def _lane_shape_ok(sh, S, B):
+    """The launch shape csrc/lattice.cu's launcher takes: G = 32 // S
+    utterances a warp (1 past 32 states, two states a lane), U = 4 G a
+    block, NS >= S compiled slots, a tile of FORWARD_TILES, the blocks
+    covering B."""
+    R, G, U = sh["states_per_lane"], sh["utts_per_warp"], sh["utts"]
+    assert (R, G) == ((2, 1) if S > 32 else (1, 32 // S)) and U == 4 * G and G * S <= 32 * R
+    assert sh["slots"] >= S and sh["slots"] in (4, 8, 16, 32, 64) and sh["blocks"] * U >= B
+    assert sh["tile"] in kl.FORWARD_TILES
+
+
+def test_backward_block_takes_every_shape_it_took_at_bac667f():
+    """The bac667f backward kernel took every 1 <= S <= 64, T >= 1, B >= 1
+    with shared (S, S) transitions (a block of max(1, 128 // S) utterances,
+    one thread a (state, utterance)).  backward_block gives each a launch
+    shape its launcher takes, with the forward lattice's lanes and shared
+    memory (log b and the lattice in two (TT, S, U) slots each, the
+    transitions past 32 states) within a block's limit; the wrapper's checks
+    pass on meta tensors and refuse per-row transitions."""
+    for S in range(1, 65):
+        for B in (1, 37, 2048, 20480):
+            sh = kl.backward_block(S, B)
+            _lane_shape_ok(sh, S, B)
+            U, TT = sh["utts"], sh["tile"]
+            assert sh["smem_bytes"] == 4 * (4 * TT * S * U + (S * S if S > 32 else 0)) <= kl.SMEM_LIMIT
+            fwd = kl.forward_block(S, B, "tsb")
+            assert {k: sh[k] for k in ("states_per_lane", "utts_per_warp", "utts", "slots", "blocks")} == {
+                k: fwd[k] for k in ("states_per_lane", "utts_per_warp", "utts", "slots", "blocks")}
+    meta = dict(device="meta", dtype=torch.float32)
+    lens = torch.empty((37,), device="meta", dtype=torch.int32)
+    for S in (1, 33, 64):
+        ln = kl.LatticeLaunch("backward_lattice", torch.empty((95, S, 37), **meta), torch.empty((S, S), **meta), lens,
+                              "tsb")
+        assert (ln.T, ln.S, ln.B, ln.per_row) == (95, S, 37, 0)
+        with pytest.raises(ValueError, match="transitions"):
+            kl.LatticeLaunch("backward_lattice", torch.empty((95, S, 37), **meta), torch.empty((37, S, S), **meta),
+                             lens, "tsb")
+    with pytest.raises(ValueError, match="states"):
+        kl.backward_block(65, 8)
+
+
+def test_viterbi_block_takes_every_shape_it_took_at_bac667f():
+    """The bac667f Viterbi kernel took every 1 <= S <= 64, T >= 1, B >= 1
+    on (B, T, S) log b.  viterbi_block gives each a launch shape its
+    launcher takes: the forward's lanes, shared memory of log b and the
+    backpointers in two slots each of U runs of TT S at a pitch rounded up
+    to 4, + 4, the transitions past 32 states, within a block's limit; the
+    wrapper's checks pass on meta tensors."""
+    for S in range(1, 65):
+        for B in (1, 37, 2048, 20480):
+            sh = kl.viterbi_block(S, B)
+            _lane_shape_ok(sh, S, B)
+            U, TT = sh["utts"], sh["tile"]
+            pitch = -(-TT * S // 4) * 4 + 4
+            assert sh["smem_bytes"] == 4 * (4 * U * pitch + (S * S if S > 32 else 0)) <= kl.SMEM_LIMIT
+    meta = dict(device="meta", dtype=torch.float32)
+    for S in (1, 33, 64):
+        ln = kl.LatticeLaunch("viterbi_batch", torch.empty((37, 95, S), **meta), torch.empty((S, S), **meta),
+                              torch.empty((37,), device="meta", dtype=torch.int32), "bts")
+        assert (ln.B, ln.T, ln.S, ln.per_row) == (37, 95, S, 0)
+    with pytest.raises(ValueError, match="states"):
+        kl.viterbi_block(65, 8)

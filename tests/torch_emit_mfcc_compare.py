@@ -155,7 +155,7 @@ def time_kernels():
         model, batch, k1 = em_cell(cs, name)
         out[f"emit_forward_{name}_ms"] = cs.median_ms(torch, lambda: fe.emit_forward(*k1))
         out[f"emit_forward_{name}_kernel_device_ms"] = cs.kernel_device_ms(
-            torch, lambda: fe.emit_forward(*k1), "emit_forward_kernel")
+            torch, lambda: fe.emit_forward(*k1), "emit_forward_kernel")[0]
         if name == "em_diag":
             feats_tdb = k1[0][0]
             step = lambda: em_step(model, batch, fused=True, feats_tdb=feats_tdb, band=1)
@@ -174,7 +174,7 @@ def time_kernels():
     samples, offsets, cfg = mfcc_cell(cs)
     out["mfcc_b256_10s_ms"] = cs.median_ms(torch, lambda: km.mfcc_fused(samples, offsets, cfg))
     out["mfcc_b256_10s_kernel_device_ms"] = cs.kernel_device_ms(
-        torch, lambda: km.mfcc_fused(samples, offsets, cfg), "mfcc_kernel")
+        torch, lambda: km.mfcc_fused(samples, offsets, cfg), "mfcc_kernel")[0]
     ref = cs.mfcc_rfft_matmul(torch, samples, offsets, cfg)
     out["mfcc_b256_10s_rfft_matmul_ms"] = cs.median_ms(torch, lambda: cs.mfcc_rfft_matmul(torch, samples, offsets, cfg))
     out["mfcc_b256_10s_rfft_matmul_vs_twin"] = float(

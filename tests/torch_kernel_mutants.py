@@ -29,8 +29,10 @@ DEC = "srhmm_tpu_torch/csrc/word_loop_decode.cu"
 EMC, VOC = "srhmm_tpu_torch/csrc/emission.cuh", "srhmm_tpu_torch/csrc/vocab_scores.cu"
 MUTANTS = [
     ("forward_length_mask", LAT, "(t < len ? next[r] : carry[r])", "(t <= len ? next[r] : carry[r])", "kernel_lattice"),
-    ("backward_stepping_rule", LAT, "if (t + 1 < len) {", "if (t < len) {", "kernel_lattice"),
-    ("viterbi_tie_to_highest", LAT, "if (c > best) {", "if (c >= best) {", "kernel_lattice"),
+    ("backward_stepping_rule", LAT, "beta[r] = (t + 1 < len) ? next[r] : init[r];",
+     "beta[r] = (t + 2 < len) ? next[r] : init[r];", "kernel_lattice"),
+    ("viterbi_tie_to_highest", LAT, "const bool up = bv[i + w] > bv[i];", "const bool up = bv[i + w] >= bv[i];",
+     "kernel_lattice"),
     ("per_row_shared_matrix", LAT, "p.lt[(size_t)b0 * SS + i]", "p.lt[(size_t)b0 * SS + i % SS]", "kernel_lattice"),
     ("forward_no_carry_clamp", LAT, "  return fmaxf(m + logf(e) + lb, kNegInf);", "  return m + logf(e) + lb;", "kernel_lattice"),
     ("emission_drops_last_mixture", EM, "state_log_b_cols<DMAX, false, NC>(recs + s * M * stride, M, D, x, v);",
@@ -139,6 +141,30 @@ MUTANTS += [
     ("stats_3xtf32_drops_lo_hi", TILE, "        mma_tf32(c[hh], alo, b0h, b1h);\n", "", "kernel_emission"),
     ("stats_single_pass_tf32", TILE,
      "        mma_tf32(c[hh], alo, b0h, b1h);\n        mma_tf32(c[hh], ahi, b0l, b1l);\n", "", "kernel_emission"),
+]
+MUTANTS += [
+    # the redesigned backward and Viterbi kernels
+    ("backward_reads_frame_t", LAT, "p.log_b, 0, t_lo + 1, min(t_hi + 1, T) - t_lo - 1,",
+     "p.log_b, 0, t_lo, min(t_hi + 1, T) - t_lo - 1,", "kernel_lattice"),
+    ("backward_staging_drops_tile_edge_frame", LAT, "p.log_b, 0, t_lo + 1, min(t_hi + 1, T) - t_lo - 1,",
+     "p.log_b, 0, t_lo + 1, min(t_hi, T) - t_lo - 1,", "kernel_lattice"),
+    ("backward_shuffle_off_by_one_state", LAT, "forward_sources<NS>(inner[0], src0, S, ltr, v);",
+     "forward_sources<NS>(inner[0], src0 + 1, S, ltr, v);", "kernel_lattice"),
+    ("backward_wide_shuffle_off_by_one_state", LAT, "x[i] = __shfl_sync(~0u, inner[i >> 5], i & 31);",
+     "x[i] = __shfl_sync(~0u, inner[i >> 5], (i + 1) & 31);", "kernel_lattice"),
+    ("viterbi_shuffle_off_by_one_state", LAT, "forward_sources<NS>(score[0], src0, S, ltc, v);",
+     "forward_sources<NS>(score[0], src0 + 1, S, ltc, v);", "kernel_lattice"),
+    ("viterbi_wide_shuffle_off_by_one_state", LAT, "x[i] = __shfl_sync(~0u, score[i >> 5], i & 31);",
+     "x[i] = __shfl_sync(~0u, score[i >> 5], (i + 1) & 31);", "kernel_lattice"),
+    ("backward_last_tile_store_short", LAT, "t_lo, t_hi - t_lo, S, p.B, b0, U, p.vec, i, count);",
+     "t_lo, t_hi - t_lo - (k == n_tiles - 1), S, p.B, b0, U, p.vec, i, count);", "kernel_lattice"),
+    ("viterbi_last_tile_store_short", LAT, "k * TT, min(TT, T - k * TT), T, S, p.B, b0, U, Q, p.vec, i,",
+     "k * TT, min(TT, T - k * TT) - (k == n_tiles - 1), T, S, p.B, b0, U, Q, p.vec, i,", "kernel_lattice"),
+    ("viterbi_pointer_past_length", LAT, "bpt[u * Q + tt * S + j[r]] = step ? arg[r] : j[r];",
+     "bpt[u * Q + tt * S + j[r]] = (t >= 1) ? arg[r] : j[r];", "kernel_lattice"),
+    ("backward_init_row_at_length", LAT, "beta[r] = (t + 1 < len) ? next[r] : init[r];",
+     "beta[r] = (t < len) ? next[r] : init[r];", "kernel_lattice"),
+    ("viterbi_wide_tie_to_highest", LAT, "if (c > best) {", "if (c >= best) {", "kernel_lattice"),
 ]
 DRIVER = """
 import sys, torch

@@ -15,7 +15,8 @@ at em_diag's), tests/torch_forward_decode_compare.py time for the
 composed_forward and word-loop decode kernels (emb_c4 / tied_c5, dec_w200
 K = 1, 2, 3), and the other compare scripts' `time` for the kernels they
 compare (tests/torch_lattice_stats_compare.py for csrc/lattice.cu's
-forward kernel and csrc/emission_em.cu's moments).  The "parent_"
+kernels and csrc/emission_em.cu's moments; the backward and Viterbi
+variants time only backward_lattice and viterbi_batch).  The "parent_"
 variants cut a kernel as it was before its redesign (run them with --tree
 on a checkout of that commit).
 Prints one JSON line per variant with the kernel times and the last CYC
@@ -722,9 +723,10 @@ VARIANTS += [
 # the tile's barrier; "mode" is layout, per_row
 LN_CYCLES = (
     ("#include <math.h>\n", "#include <math.h>\n#include <cstdio>\n"),
-    ("  __syncthreads();  // tile 0 (and the transitions) are in\n  for (int k = 0; k < n_tiles; ++k) {\n",
-     "  __syncthreads();  // tile 0 (and the transitions) are in\n  long long cy_rec = 0, cy_bar = 0;\n"
-     "  for (int k = 0; k < n_tiles; ++k) {\n    long long c0 = clock64();\n"),
+    ("  for (int k = 0; k < n_tiles; ++k) {\n    const int t_lo = k * TT, t_hi = min(t_blk, t_lo + TT);\n",
+     "  long long cy_rec = 0, cy_bar = 0;\n"
+     "  for (int k = 0; k < n_tiles; ++k) {\n    long long c0 = clock64();\n"
+     "    const int t_lo = k * TT, t_hi = min(t_blk, t_lo + TT);\n"),
     ("        if (!layout && wr[r]) ot[(size_t)tt * S * U + j[r] * U + u] = carry[r];\n      }\n    }\n    __syncthreads();\n  }\n",
      "        if (!layout && wr[r]) ot[(size_t)tt * S * U + j[r] * U + u] = carry[r];\n      }\n    }\n"
      "    asm volatile(\"mov.b32 %0, %0;\" : \"+f\"(carry[0]));\n    cy_rec += clock64() - c0;\n    c0 = clock64();\n"
@@ -854,6 +856,168 @@ VARIANTS += [
     joined("parent_lattice_no_load_stats_no_weights", "parent_lattice_fwd_no_load", "parent_stats_no_weights"),
     joined("parent_lattice_no_barrier_stats_no_columns", "parent_lattice_fwd_no_barrier", "parent_stats_no_columns"),
 ]
+# bac667f's lattice_backward_kernel and viterbi_kernel (step 0 of their
+# redesign): thread 0 of block 0 per launch, the log b load (waited for),
+# the recursion, the stores (shared row and lattice or backpointers), the
+# barrier of the frame
+PB_CYCLES = (
+    ("#include <math.h>\n", "#include <math.h>\n#include <cstdio>\n"),
+    ("  for (int t = p.T - 2; t >= 0; --t) {\n"
+     "    const float lbn = live ? fmaxf(p.log_b[o + (size_t)(t + 1) * p.st], kNegInf) : kNegInf;\n",
+     "  long long cy_load = 0, cy_rec = 0, cy_store = 0, cy_bar = 0;\n  for (int t = p.T - 2; t >= 0; --t) {\n"
+     "    long long c0 = clock64();\n    float lbn = live ? fmaxf(p.log_b[o + (size_t)(t + 1) * p.st], kNegInf) : kNegInf;\n"
+     "    asm volatile(\"mov.b32 %0, %0;\" : \"+f\"(lbn));\n    cy_load += clock64() - c0;\n    c0 = clock64();\n"),
+    ("    inner[threadIdx.x] = lbn + beta;\n    __syncthreads();\n",
+     "    inner[threadIdx.x] = lbn + beta;\n    cy_store += clock64() - c0;\n    c0 = clock64();\n    __syncthreads();\n"
+     "    cy_bar += clock64() - c0;\n    c0 = clock64();\n"),
+    ("      beta = beta_init;\n    }\n    if (live) p.out[o + (size_t)t * p.st] = beta;\n  }\n}\n",
+     "      beta = beta_init;\n    }\n    asm volatile(\"mov.b32 %0, %0;\" : \"+f\"(beta));\n    cy_rec += clock64() - c0;\n"
+     "    c0 = clock64();\n    if (live) p.out[o + (size_t)t * p.st] = beta;\n    cy_store += clock64() - c0;\n  }\n"
+     "  if (blockIdx.x == 0 && threadIdx.x == 0)\n"
+     "    printf(\"CYC lattice_bwd S %d T %d load %lld recursion %lld store %lld barrier %lld\\n\", S, p.T, cy_load,\n"
+     "           cy_rec, cy_store, cy_bar);\n}\n"),
+)
+PV13_CYCLES = (
+    ("#include <math.h>\n", "#include <math.h>\n#include <cstdio>\n"),
+    ("  float carry = kNegInf;\n  __syncthreads();\n  for (int t = 0; t < p.T; ++t) {\n",
+     "  float carry = kNegInf;\n  long long cy_load = 0, cy_rec = 0, cy_store = 0, cy_bar = 0;\n  __syncthreads();\n"
+     "  for (int t = 0; t < p.T; ++t) {\n"),
+    ("    const float lb = live ? fmaxf(p.log_b[ot], kNegInf) : kNegInf;\n    int arg = j;",
+     "    long long c0 = clock64();\n    float lb = live ? fmaxf(p.log_b[ot], kNegInf) : kNegInf;\n"
+     "    asm volatile(\"mov.b32 %0, %0;\" : \"+f\"(lb));\n    cy_load += clock64() - c0;\n    c0 = clock64();\n    int arg = j;"),
+    ("    row[(t & 1) * nt + threadIdx.x] = carry;\n    if (live) p.bptr[ot] = arg;\n    __syncthreads();\n  }\n",
+     "    asm volatile(\"mov.b32 %0, %0;\" : \"+f\"(carry));\n    cy_rec += clock64() - c0;\n    c0 = clock64();\n"
+     "    row[(t & 1) * nt + threadIdx.x] = carry;\n    if (live) p.bptr[ot] = arg;\n    cy_store += clock64() - c0;\n"
+     "    c0 = clock64();\n    __syncthreads();\n    cy_bar += clock64() - c0;\n  }\n"
+     "  if (blockIdx.x == 0 && threadIdx.x == 0)\n"
+     "    printf(\"CYC viterbi S %d T %d load %lld recursion %lld store %lld barrier %lld\\n\", S, p.T, cy_load, cy_rec,\n"
+     "           cy_store, cy_bar);\n"),
+)
+VARIANTS += [
+    ("parent_lattice_bwd_cycles", *cut(LAT, *PB_CYCLES)),
+    ("parent_lattice_bwd_no_load", LAT,
+     "    const float lbn = live ? fmaxf(p.log_b[o + (size_t)(t + 1) * p.st], kNegInf) : kNegInf;\n",
+     "    const float lbn = live ? -0.25f * (float)(t & 7) : kNegInf;\n"),
+    ("parent_lattice_bwd_no_barrier", LAT, "    inner[threadIdx.x] = lbn + beta;\n    __syncthreads();\n",
+     "    inner[threadIdx.x] = lbn + beta;\n"),
+    ("parent_lattice_bwd_no_store", LAT, "    if (live) p.out[o + (size_t)t * p.st] = beta;\n",
+     "    if (live && t < 0) p.out[o + (size_t)t * p.st] = beta;\n"),
+    ("parent_viterbi_cycles", *cut(LAT, *PV13_CYCLES)),
+    ("parent_viterbi_no_load", LAT, "    const float lb = live ? fmaxf(p.log_b[ot], kNegInf) : kNegInf;\n    int arg = j;",
+     "    const float lb = live ? -0.25f * (float)(t & 7) : kNegInf;\n    int arg = j;"),
+    ("parent_viterbi_no_barrier", LAT, "    if (live) p.bptr[ot] = arg;\n    __syncthreads();\n",
+     "    if (live) p.bptr[ot] = arg;\n"),
+    ("parent_viterbi_no_store", LAT, "    if (live) p.bptr[ot] = arg;\n", "    if (live && t < 0) p.bptr[ot] = arg;\n"),
+]
+VARIANTS += [
+    joined(f"parent_lattice_bwd_viterbi_{cut_}", f"parent_lattice_bwd_{cut_}", f"parent_viterbi_{cut_}")
+    for cut_ in ("cycles", "no_load", "no_barrier", "no_store")
+]
+# the redesigned lattice_backward_kernel and viterbi_kernel: thread 0 of
+# block 0 (the first recursion lane) per launch, the recursion over each
+# tile and its wait at the tile's barrier; and the memory warp's stores cut
+BN_CYCLES = (
+    ("#include <math.h>\n", "#include <math.h>\n#include <cstdio>\n"),
+    ("  for (int k = 0; k < n_tiles; ++k) {\n    int t_lo, t_hi;\n    backward_rows(k, T, TT, t_lo, t_hi);\n"
+     "    const float* lbt",
+     "  long long cy_rec = 0, cy_bar = 0;\n  for (int k = 0; k < n_tiles; ++k) {\n    long long c0 = clock64();\n"
+     "    int t_lo, t_hi;\n    backward_rows(k, T, TT, t_lo, t_hi);\n    const float* lbt"),
+    ("        if (wr[r]) ot[(size_t)tt * fs + st[r] * U + u] = beta[r];\n    }\n    __syncthreads();\n  }\n",
+     "        if (wr[r]) ot[(size_t)tt * fs + st[r] * U + u] = beta[r];\n    }\n"
+     "    asm volatile(\"mov.b32 %0, %0;\" : \"+f\"(beta[0]));\n    cy_rec += clock64() - c0;\n    c0 = clock64();\n"
+     "    __syncthreads();\n    cy_bar += clock64() - c0;\n  }\n  if (blockIdx.x == 0 && tid == 0)\n"
+     "    printf(\"CYC latbwd_new S %d frames %d recursion %lld barrier %lld\\n\", S, T, cy_rec, cy_bar);\n"),
+)
+VN13_CYCLES = (
+    ("#include <math.h>\n", "#include <math.h>\n#include <cstdio>\n"),
+    ("  for (int k = 0; k < n_tiles; ++k) {\n    const int t_lo = k * TT, t_hi = min(T, t_lo + TT);\n",
+     "  long long cy_rec = 0, cy_bar = 0;\n  for (int k = 0; k < n_tiles; ++k) {\n    long long c0 = clock64();\n"
+     "    const int t_lo = k * TT, t_hi = min(T, t_lo + TT);\n"),
+    ("        if (wr[r]) bpt[u * Q + tt * S + j[r]] = step ? arg[r] : j[r];\n      }\n    }\n    __syncthreads();\n  }\n",
+     "        if (wr[r]) bpt[u * Q + tt * S + j[r]] = step ? arg[r] : j[r];\n      }\n    }\n"
+     "    asm volatile(\"mov.b32 %0, %0;\" : \"+f\"(score[0]));\n    cy_rec += clock64() - c0;\n    c0 = clock64();\n"
+     "    __syncthreads();\n    cy_bar += clock64() - c0;\n  }\n  if (blockIdx.x == 0 && tid == 0)\n"
+     "    printf(\"CYC viterbi_new S %d frames %d recursion %lld barrier %lld\\n\", S, T, cy_rec, cy_bar);\n"),
+)
+VARIANTS += [
+    ("lattice_bwd_cycles", *cut(LAT, *BN_CYCLES)),
+    ("viterbi_cycles", *cut(LAT, *VN13_CYCLES)),
+    ("lattice_bwd_no_store", LAT, "      store_forward_tile(p.out, out_slots + (k & 1) * tile, t_lo, t_hi - t_lo,",
+     "      if (k < 0) store_forward_tile(p.out, out_slots + (k & 1) * tile, t_lo, t_hi - t_lo,"),
+    ("viterbi_no_store", LAT, "      store_run_tile(p.bptr, bp_slots + (k & 1) * tile,",
+     "      if (k < 0) store_run_tile(p.bptr, bp_slots + (k & 1) * tile,"),
+]
+VARIANTS += [
+    joined("lattice_bwd_viterbi_cycles", "lattice_bwd_cycles", "viterbi_cycles"),
+    joined("lattice_bwd_viterbi_no_store", "lattice_bwd_no_store", "viterbi_no_store"),
+]
+# the (B, T, S) runs copied in and stored out with no division a copy: the
+# memory warp steps each utterance's run in turn (the forward's last-row
+# mode shares the copies)
+RUNS_STAGE = ("""    const int per = (n * S + w - 1) / w, total = U * per;
+    for (int c = i; c < total; c += count) {
+      const int u = c / per, v = c - u * per;
+      const bool ok = b0 + u < B;
+      const float* s = ok ? src + ((size_t)(b0 + u) * T + t0) * S + v * w : src;
+      float* d = dst + (size_t)u * Q + v * w;
+      if (vec) {
+        cp_async16(d, s, ok);
+      } else {
+        cp_async4(d, s, ok);
+      }
+    }""", """    const int per = (n * S + w - 1) / w;
+    for (int u = 0; u < U; ++u) {
+      const bool ok = b0 + u < B;
+      const float* s0 = ok ? src + ((size_t)(b0 + u) * T + t0) * S : src;
+      float* d0 = dst + (size_t)u * Q;
+      for (int v = i; v < per; v += count) {
+        if (vec) {
+          cp_async16(d0 + v * w, ok ? s0 + v * w : src, ok);
+        } else {
+          cp_async4(d0 + v * w, ok ? s0 + v * w : src, ok);
+        }
+      }
+    }""")
+RUNS_STORE = ("""  const int w = vec ? 4 : 1, per = (n * S + w - 1) / w, total = U * per;
+  for (int c = i; c < total; c += count) {
+    const int u = c / per, v = c - u * per;
+    if (b0 + u >= B) continue;
+    int* d = dst + ((size_t)(b0 + u) * T + t0) * S + v * w;
+    const int* s = tile + (size_t)u * Q + v * w;
+    if (vec) {
+      *reinterpret_cast<int4*>(d) = *reinterpret_cast<const int4*>(s);
+    } else {
+      *d = *s;
+    }
+  }""", """  const int w = vec ? 4 : 1, per = (n * S + w - 1) / w;
+  for (int u = 0; u < U && b0 + u < B; ++u) {
+    int* d = dst + ((size_t)(b0 + u) * T + t0) * S;
+    const int* s = tile + (size_t)u * Q;
+    for (int v = i; v < per; v += count) {
+      if (vec) {
+        *reinterpret_cast<int4*>(d + v * 4) = *reinterpret_cast<const int4*>(s + v * 4);
+      } else {
+        d[v] = s[v];
+      }
+    }
+  }""")
+VARIANTS += [
+    ("lattice_bwd_viterbi_runs_without_division", *cut(LAT, RUNS_STAGE, RUNS_STORE)),
+    # two or four memory warps a block in the backward (and forward) and
+    # the Viterbi kernels; the Viterbi with one, as first written
+    ("lattice_bwd_viterbi_2_memory_warps", LAT,
+     "constexpr int kFwdThreads = 32 * (kFwdRecWarps + 1);  // and one memory warp",
+     "constexpr int kFwdThreads = 32 * (kFwdRecWarps + 2);  // and one memory warp"),
+    ("lattice_bwd_viterbi_4_memory_warps", LAT,
+     ("constexpr int kFwdThreads = 32 * (kFwdRecWarps + 1);  // and one memory warp",
+      "constexpr int kVitThreads = 32 * (kFwdRecWarps + 2);"),
+     ("constexpr int kFwdThreads = 32 * (kFwdRecWarps + 4);  // and one memory warp",
+      "constexpr int kVitThreads = 32 * (kFwdRecWarps + 4);")),
+    ("viterbi_1_memory_warp", LAT, "constexpr int kVitThreads = 32 * (kFwdRecWarps + 2);",
+     "constexpr int kVitThreads = 32 * (kFwdRecWarps + 1);"),
+]
+VARIANTS += [joined("lattice_bwd_viterbi_runs_without_division_2_memory_warps",
+                    "lattice_bwd_viterbi_runs_without_division", "lattice_bwd_viterbi_2_memory_warps")]
 VARIANTS += [
     joined("vocab_noinline_4_columns", "vocab_noinline_emission", "vocab_4_columns"),
     joined("vocab_noinline_448_threads", "vocab_noinline_emission", "vocab_448_threads_2_blocks"),
@@ -861,7 +1025,11 @@ VARIANTS += [
 SCORING_EMISSION = ("scoring_emission_", "vocab_", "emission_", "parent_vocab", "parent_emission")
 FORWARD_DECODE = ("forward_", "decode_", "parent_forward", "parent_decode")
 EMIT_MFCC = ("emit_", "mfcc_", "parent_emit", "parent_mfcc")
-LATTICE_STATS = ("lattice_", "stats_", "parent_lattice", "parent_stats")
+LATTICE_STATS = ("lattice_", "stats_", "viterbi_", "parent_lattice", "parent_stats", "parent_viterbi")
+
+
+# variants of the backward and Viterbi kernels time only their own calls
+BACKWARD_VITERBI = ("lattice_bwd", "viterbi_", "parent_lattice_bwd", "parent_viterbi")
 
 
 def timing_script(name: str) -> str:
@@ -894,7 +1062,8 @@ def main(argv) -> None:
                 assert text.count(o) == 1, (name, o[:60])
                 f.write_text(text.replace(o, n))
         script = here / "tests" / timing_script(name)
-        r = subprocess.run([sys.executable, str(script), "time"], cwd=d, capture_output=True,
+        only = ["backward_lattice", "viterbi_batch"] if name.startswith(BACKWARD_VITERBI) else []
+        r = subprocess.run([sys.executable, str(script), "time", *only], cwd=d, capture_output=True,
                            text=True, timeout=900, env={**os.environ, "PYTHONPATH": str(d)})
         lines = [l for l in r.stdout.splitlines() if l.startswith("{")]
         out = json.loads(lines[-1]) if lines else {"error": r.stderr[-600:]}

@@ -1,9 +1,9 @@
-"""Two builds of the lattice forward kernel and of the emission-moments
-kernel compared on a CUDA card (not a tier-1 test):
+"""Two builds of the lattice forward, backward and Viterbi kernels and of
+the emission-moments kernel compared on a CUDA card (not a tier-1 test):
 
     PYTHONPATH=<checkout> python tests/torch_lattice_stats_compare.py dump OUT.pt
     python tests/torch_lattice_stats_compare.py compare A.pt B.pt
-    PYTHONPATH=<checkout> python tests/torch_lattice_stats_compare.py time
+    PYTHONPATH=<checkout> python tests/torch_lattice_stats_compare.py time [call ...]
 
 The inputs are made from fixed seeds by this file and by the chip_smoke.py
 beside it (loaded by path), so every checkout sees the same numbers; only
@@ -11,28 +11,32 @@ the srhmm_tpu_torch package comes from PYTHONPATH.  Run `time` in two
 checkouts in one call, in the order parent, change, change, parent.
 
 `dump` saves the forward kernel's outputs (forward_lattice on (T, S, B),
-log_forward_batch's last row on (B, T, S)) at em_diag (S=8, B=2048
-utterances of 500 frames) and with per-row transitions at diag10 (W=10
-words x B=2048 utterances of 400-500 frames = 20,480 rows), and at every
-input of chip_smoke.py's kernel_lattice phase (lattice_check_inputs, with
-shared and per-row transitions; the backward lattice and Viterbi too, whose
-kernels share the file), and emission_stats' moments at em_diag (N =
-1,024,000 frames, M=3, D=9) and at every kernel_emission input with
-posteriors (emission_check_inputs).  A shape a checkout refuses is printed
-as refused and left out.  `compare` prints, per output, whether the two
-files are bitwise equal, the largest difference and the largest difference
-over the largest |b|, then the count of bitwise-equal outputs per kernel.
-`time` prints the CUDA-event medians of 20 calls around each wrapper
-(the wrapper's host work included), each call's own device time under
-torch.profiler (over five calls: the forward kernel per launch, the
-moments' two kernels per call), for emission_stats at em_diag (also with
-one state's posterior a frame, and with all posteriors zero),
-forward_lattice and forward_lattice_blocked at em_diag, log_forward_batch
-at em_diag and per row at diag10; as a diagnostic the cuBLAS time of the
-moments' contraction alone ((N, S M)^T @ (N, 2D+1) in fp32 on precomputed
-weights); and one e_step_fused and one e_step_lane_major("pallas") at
-em_diag on the host clock (median of 5) with the device busy time of one
-under torch.profiler; with the card's name and power limit.
+log_forward_batch's last row on (B, T, S)), the backward lattice and the
+Viterbi scores and backpointers at em_diag (S=8, B=2048 utterances of 500
+frames), the last row with per-row transitions at diag10 (W=10 words x
+B=2048 utterances of 400-500 frames = 20,480 rows), all four at every
+input of chip_smoke.py's kernel_lattice phase (lattice_check_inputs, the
+last row with shared and per-row transitions), and emission_stats'
+moments at em_diag (N = 1,024,000 frames, M=3, D=9) and at every
+kernel_emission input with posteriors (emission_check_inputs).  A shape a
+checkout refuses is printed as refused and left out.  `compare` prints,
+per output, whether the two files are bitwise equal, the largest
+difference and the largest difference over the largest |b|, then the
+count of bitwise-equal outputs per kernel.  `time` prints the CUDA-event
+medians of 20 calls around each wrapper (the wrapper's host work
+included), each call's own device time under torch.profiler (over five
+calls, counted only where the profiler saw all five launches: the lattice
+kernels per launch, the moments' two kernels per call), for
+emission_stats at em_diag (also with one state's posterior a frame, and
+with all posteriors zero), forward_lattice, forward_lattice_blocked,
+backward_lattice, backward_lattice_blocked (k_block = 4) and viterbi_batch
+at em_diag, log_forward_batch at em_diag and per row at diag10; as a
+diagnostic the cuBLAS time of the moments' contraction alone ((N, S M)^T @
+(N, 2D+1) in fp32 on precomputed weights); and one e_step_fused and one
+e_step_lane_major("pallas") at em_diag on the host clock (median of 5)
+with the device busy time of one under torch.profiler; with the card's
+name and power limit.  Named calls (substrings of the call names) time
+only those calls (and E-steps), with no cuBLAS diagnostic.
 """
 
 import importlib.util
@@ -47,6 +51,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 LATTICE_KEY = "lattice_forward_kernel"
+BACKWARD_KEY, VITERBI_KEY = "lattice_backward_kernel", "viterbi_kernel"
 STATS_KEYS = ("emission_stats_kernel", "sum_blocks_kernel")
 
 
@@ -118,6 +123,8 @@ def dump(path):
     lb_tsb = log_b.permute(1, 2, 0).contiguous()
     out["lattice_em_diag"] = kl.forward_lattice(lb_tsb, lt, lengths).cpu()
     out["lastrow_em_diag"] = kf.log_forward_batch(log_b, lt, lengths).cpu()
+    out["backward_em_diag"] = kl.backward_lattice(lb_tsb, lt, lengths).cpu()
+    out["viterbi_em_diag"] = tuple(r.cpu() for r in kf.viterbi_batch(log_b, lt, lengths))
     out["stats_em_diag"] = ke.emission_stats(frames, gamma, log_b.reshape(-1, 8), a, b).cpu()
     del model, batch, frames, log_b, gamma, lb_tsb
     out["lastrow_diag10_per_row"] = kf.log_forward_batch(*diag10_rows(cs)).cpu()
@@ -164,14 +171,14 @@ def compare(a_path, b_path):
 
 def device_ms_per_call(cs, fn, keys, calls=5):
     """The device time of one call of fn: each key's per-launch device time
-    (chip_smoke.kernel_device_ms), and their sum (None if a key was not
-    seen)."""
-    per = {key: cs.kernel_device_ms(torch, fn, key, calls) for key in keys}
+    (chip_smoke.kernel_device_ms, one launch a call), and their sum (None
+    if a key's windows never saw one launch a call)."""
+    per = {key: cs.kernel_device_ms(torch, fn, key, calls)[0] for key in keys}
     total = None if any(v is None for v in per.values()) else float(sum(per.values()))
     return total, per
 
 
-def time_kernels():
+def time_kernels(only=()):
     from srhmm_tpu_torch.ops.kernels import emission as ke
     from srhmm_tpu_torch.ops.kernels import forward as kf
     from srhmm_tpu_torch.ops.kernels import lattice as kl
@@ -192,6 +199,10 @@ def time_kernels():
                                             (LATTICE_KEY,)),
         "log_forward_batch_em_diag": (lambda: kf.log_forward_batch(log_b, lt, lengths), (LATTICE_KEY,)),
         "log_forward_batch_diag10_per_row": (lambda: kf.log_forward_batch(*rows), (LATTICE_KEY,)),
+        "backward_lattice_em_diag": (lambda: kl.backward_lattice(lb_tsb, lt, lengths), (BACKWARD_KEY,)),
+        "backward_lattice_blocked_em_diag": (lambda: kl.backward_lattice_blocked(lb_tsb, lt, lengths, k_block=4),
+                                             (BACKWARD_KEY,)),
+        "viterbi_batch_em_diag": (lambda: kf.viterbi_batch(log_b, lt, lengths), (VITERBI_KEY,)),
     }
     # the moments on other posteriors of the same shape: one state a frame
     # (a one-hot of the argmax), and all zero
@@ -201,22 +212,27 @@ def time_kernels():
             lambda g=g: ke.emission_stats(frames, g, lb_flat, a, b), STATS_KEYS)
     out = {}
     for name, (fn, keys) in calls.items():
+        if only and not any(o in name for o in only):
+            continue
         out[f"{name}_ms"] = cs.median_ms(torch, fn)
         out[f"{name}_device_ms"], per = device_ms_per_call(cs, fn, keys)
         if len(per) > 1:
             out[f"{name}_device_ms_by_kernel"] = per
-    # the contraction alone, in cuBLAS fp32: weights (N, S M) precomputed as
-    # the moments' twin forms them, the lift [x, x^2, 1] (N, 2D+1)
-    x = frames
-    lift = torch.cat([x, x * x, torch.ones_like(x[:, :1])], dim=1)
-    g = torch.where(lb_flat > cs.NEG_INF, gamma, 0.0)
-    qs = [torch.cat([x, x * x], dim=1) @ a[m] + b[m] for m in range(a.shape[0])]
-    w = torch.stack([g * torch.exp(torch.clamp(q - lb_flat, max=0.0)) for q in qs], dim=2).reshape(x.shape[0], -1)
-    out["cublas_contraction_em_diag_ms"] = cs.median_ms(torch, lambda: w.T @ lift)
-    del w, qs, lift
+    if not only:
+        # the contraction alone, in cuBLAS fp32: weights (N, S M) precomputed
+        # as the moments' twin forms them, the lift [x, x^2, 1] (N, 2D+1)
+        x = frames
+        lift = torch.cat([x, x * x, torch.ones_like(x[:, :1])], dim=1)
+        g = torch.where(lb_flat > cs.NEG_INF, gamma, 0.0)
+        qs = [torch.cat([x, x * x], dim=1) @ a[m] + b[m] for m in range(a.shape[0])]
+        w = torch.stack([g * torch.exp(torch.clamp(q - lb_flat, max=0.0)) for q in qs], dim=2).reshape(x.shape[0], -1)
+        out["cublas_contraction_em_diag_ms"] = cs.median_ms(torch, lambda: w.T @ lift)
+        del w, qs, lift
     steps = {"e_step_fused": lambda: em.e_step_fused(model, batch),
              "e_step_lane_major_pallas": lambda: em.e_step_lane_major(model, batch, lattices="pallas")}
     for name, fn in steps.items():
+        if only and not any(o in name for o in only):
+            continue
         fn()
         walls = []
         for _ in range(5):
@@ -226,7 +242,8 @@ def time_kernels():
             torch.cuda.synchronize()
             walls.append((time.perf_counter() - t0) * 1e3)
         out[f"{name}_em_diag_wall_ms"] = float(np.median(walls))
-        out[f"{name}_em_diag_profile"] = cs.profile_window(torch, fn, kernel_keys=(LATTICE_KEY, *STATS_KEYS))
+        out[f"{name}_em_diag_profile"] = cs.profile_window(torch, fn, kernel_keys=(LATTICE_KEY, BACKWARD_KEY,
+                                                                                   *STATS_KEYS))
     clocks = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm", "--format=csv,noheader"],
                             capture_output=True, text=True).stdout.strip()
     print(json.dumps({**out, "package": kl.__file__, "card": card, "sm_clock_after": clocks}), flush=True)
@@ -238,6 +255,6 @@ if __name__ == "__main__":
     if sys.argv[1] == "dump":
         dump(sys.argv[2])
     elif sys.argv[1] == "time":
-        time_kernels()
+        time_kernels(sys.argv[2:])
     else:
         compare(sys.argv[2], sys.argv[3])

@@ -346,13 +346,14 @@ EMISSION_EXTRA_CASES = [
 ]
 
 
-# csrc/lattice.cu's forward kernel at launch shapes the kernel_lattice grid
-# (S = 3, 6, 8, 16, 64 at B = 37, T = 95) does not reach, (S, transitions,
-# B, T): one state (32 utterances a warp), T shorter than a tile with a
-# ragged last block and 4-byte copies, idle lanes (20 states a warp),
-# two states a lane (S = 33, 40) walking ten tiles with 16-byte copies,
-# em_diag's S = 8, 16 slots with a ragged last tile; lengths from
-# forward_check_lengths
+# csrc/lattice.cu's kernels (forward, backward, Viterbi: one launch shape)
+# at launch shapes the kernel_lattice grid (S = 3, 6, 8, 16, 64 at B = 37,
+# T = 95) does not reach, (S, transitions, B, T): one state (32 utterances
+# a warp), T shorter than a tile with a ragged last block and 4-byte
+# copies, idle lanes (20 states a warp), two states a lane (S = 33, 40)
+# walking ten tiles with 16-byte copies, em_diag's S = 8, 16 slots with a
+# ragged last tile, one frame (T = 1: the backward's only row is its
+# initialization); lengths from forward_check_lengths
 FORWARD_CHECK_CASES = [
     (1, "dense", 37, 95),
     (5, "delta1", 1001, 7),
@@ -361,6 +362,7 @@ FORWARD_CHECK_CASES = [
     (40, "delta1", 64, 300),
     (8, "delta1", 2048, 64),
     (12, "delta2", 400, 130),
+    (6, "delta2", 37, 1),
 ]
 
 

@@ -140,14 +140,14 @@ def time_kernels():
         vocab, batch, args, kw = score_cell(cs, name)
         call = lambda: ks.vocab_scores(*args, **kw)  # noqa: E731
         out[f"vocab_scores_{name}_ms"] = cs.median_ms(torch, call)
-        out[f"vocab_scores_{name}_kernel_device_ms"] = cs.kernel_device_ms(torch, call, "vocab_scores_kernel")
+        out[f"vocab_scores_{name}_kernel_device_ms"] = cs.kernel_device_ms(torch, call, "vocab_scores_kernel")[0]
         mode = "total" if name == "full13" else "final"
         out[f"score_batch_{name}_ms"] = cs.median_ms(torch, lambda: score_batch(vocab, batch, mode=mode))
         del vocab, batch, args, kw
     em = emission_cell(cs)
     call = lambda: ke.emission_log_b(*em)  # noqa: E731
     out["emission_log_b_em_diag_ms"] = cs.median_ms(torch, call)
-    out["emission_log_b_em_diag_kernel_device_ms"] = cs.kernel_device_ms(torch, call, "emission_log_b_kernel")
+    out["emission_log_b_em_diag_kernel_device_ms"] = cs.kernel_device_ms(torch, call, "emission_log_b_kernel")[0]
     clocks = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm", "--format=csv,noheader"],
                             capture_output=True, text=True).stdout.strip()
     print(json.dumps({**out, "package": ks.__file__, "card": card, "sm_clock_after": clocks}), flush=True)
