@@ -99,6 +99,27 @@ each (any failure raises, so the exit code is non-zero):
               the train_embedded CLI (LBG flat start, --scan-iters 8) on 8
               units, its models decoding 32 held-out strings through the
               decode CLI (WER <= 5 %), then --tied on triphone clones
+    production
+              the production surface on the inputs of the phases above:
+              (a) load_batch of em_diag's 2048 .perfil files through the
+              native loader and the Python reader, bitwise equal, both host
+              times; (b) train_fast_resumable at em_diag stopped after 2
+              iterations and resumed, bitwise an uninterrupted run, its
+              history within rtol 2e-4 of train_fast's, emit_forward and
+              backward_stats launched in both runs, save / load ms a
+              checkpoint; (c) train_embedded at emb_c4 and train_tied at
+              tied_c5, chunk 2, two iterations then resumed to four, bitwise
+              an uninterrupted run of four, the composed kernels launched;
+              (d) train_streaming over four host shards vs train_fast from
+              the trained model (iterations equal, history rtol 2e-4, means
+              at the train phase's rtol 1e-3; one streamed iteration vs
+              em_step within rtol and atol 1e-4), one iteration traced with
+              utils.profiling.trace (how much of the prefetch copies' device
+              time falls under kernels); (e) em_step(bf16_stats=True) vs
+              em_step(fused=False) at tests/test_em_fast.py:289-325's bounds,
+              no fused launch; (f) the train CLI with --checkpoint-dir twice
+              into one directory (the same .hmm bytes) and --stream-shards 2
+              (accuracy >= 0.9 through the vocab_scores kernel)
     train_p2  train_fast on two streams (D=9/M=3 + D=3/M=2) at em_diag's
               B=2048, T=500: 5 iterations through the E-step kernels at P=2
     kernel_mfcc
@@ -981,7 +1002,7 @@ def phase_train(torch, name, cov, S, M, D, t_range, tmp: Path, B=2048) -> dict:
     return {"res": out, "model": model, "trained": trained, "batch": batch, "launches": launches}
 
 
-def phase_train_cli(torch, tmp: Path) -> None:
+def phase_train_cli(torch, tmp: Path) -> dict:
     """The train CLI (--numerics fast --scan-iters 8) on the card for a
     4-word vocabulary (S=6, M=2, D=9 diagonal, 32 utterances per word), then
     the four .hmm files read back and 64 held-out utterances scored through
@@ -1029,6 +1050,7 @@ def phase_train_cli(torch, tmp: Path) -> None:
         raise AssertionError(f"train_cli: accuracy {acc} < 0.9")
     emit({"phase": "train_cli", "words": len(names), "train_utts_per_word": 32,
           "held_out": len(held), "accuracy": acc})
+    return {"root": root, "names": names, "held": held, "spoken": spoken}
 
 
 def median_ms(torch, fn, warmup=3, reps=20) -> float:
@@ -2148,7 +2170,8 @@ def phase_embedded(torch) -> dict:
            "B": B, "L": L, "T": int(feats.shape[1]), "frames": frames, "launches": launches,
            "train_embedded_history": res.log_prob_history, **cmp, "data_s": t_data}
     emit(out)
-    return {"res": out, "models": start, "batch": (transcripts, feats, lengths), "launches": launches}
+    return {"res": out, "models": start, "batch": (transcripts, feats, lengths), "launches": launches,
+            "utts": utts, "trs": trs.tolist()}
 
 
 TIED_C5 = (700, 3, 2000, 16, 39, 1024, 10)  # P units, S, N senones, M, D, B utterances, L units each
@@ -2227,7 +2250,8 @@ def phase_tied(torch) -> dict:
            "D": D, "B": B, "L": L, "T": int(feats.shape[1]), "frames": frames, "var_floor": vf,
            "launches": launches, "train_tied_history": res.log_prob_history, **cmp, "data_s": t_data}
     emit(out)
-    return {"res": out, "tied": start, "batch": (transcripts, feats, lengths), "launches": launches}
+    return {"res": out, "tied": start, "batch": (transcripts, feats, lengths), "launches": launches,
+            "utts": utts, "trs": trs.tolist()}
 
 
 def triphone_names(seq, names) -> list[str]:
@@ -3598,6 +3622,343 @@ def phase_timing_lane(torch, lane: dict, smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the production surface: native loader, checkpoint / resume, streaming EM,
+# profiling, bf16 statistics, the train CLI's --checkpoint-dir and
+# --stream-shards
+# ---------------------------------------------------------------------------
+
+EM_HISTORY_RTOL = 2e-4  # the EM history gate of the train and composed phases
+
+
+def fused_counts() -> dict:
+    from srhmm_tpu_torch.ops.kernels import fused_em as fe
+
+    return {"emit_forward": fe.emit_forward.launches, "backward_stats": fe.backward_stats.launches}
+
+
+def set_fused_counts(counts: dict) -> None:
+    from srhmm_tpu_torch.ops.kernels import fused_em as fe
+
+    fe.emit_forward.launches, fe.backward_stats.launches = counts["emit_forward"], counts["backward_stats"]
+
+
+def same_bits(torch, a, b) -> bool:
+    """Every buffer of two modules equal, bit for bit, in the same dtype."""
+    sa, sb = a.state_dict(), b.state_dict()
+    return list(sa) == list(sb) and all(sa[k].dtype == sb[k].dtype and torch.equal(sa[k], sb[k]) for k in sa)
+
+
+def h2d_overlap(trace_file: Path) -> dict:
+    """From a Chrome trace (utils.profiling.trace): the pinned host-to-device
+    copies (the prefetch loader's), their device time, and how much of it
+    falls inside the union of the kernels' intervals."""
+    events = json.loads(trace_file.read_text())["traceEvents"]
+    spans = [e for e in events if e.get("ph") == "X" and "dur" in e]
+    copies = [(e["ts"], e["ts"] + e["dur"]) for e in spans
+              if e.get("cat") == "gpu_memcpy" and "HtoD" in e.get("name", "") and "Pinned" in e.get("name", "")]
+    merged: list[list[float]] = []
+    for a, b in sorted((e["ts"], e["ts"] + e["dur"]) for e in spans if e.get("cat") == "kernel"):
+        if merged and a <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], b)
+        else:
+            merged.append([a, b])
+    h2d = sum(b - a for a, b in copies)
+    inside = sum(max(0.0, min(b, kb) - max(a, ka)) for a, b in copies for ka, kb in merged)
+    return {"pinned_h2d_copies": len(copies), "pinned_h2d_ms": h2d / 1e3,
+            "kernel_busy_ms": sum(b - a for a, b in merged) / 1e3, "h2d_under_kernels_ms": inside / 1e3,
+            "h2d_overlap_share": inside / h2d if h2d else None}
+
+
+def production_native(torch, lst: Path, root: Path, smi: str) -> None:
+    """(a) load_batch through the native loader and the Python reader: the
+    same bits, and both host times."""
+    from srhmm_tpu_torch.io import load_batch
+    from srhmm_tpu_torch.io.native_loader import LIBRARY, native_available
+
+    if not native_available():
+        raise AssertionError("production: the native .perfil loader did not build")
+    times = {"native": [], "python": []}
+    batches = {}
+    for native in (True, False, True, False):  # turns, the file cache warm for both
+        t0 = time.perf_counter()
+        b = load_batch(lst, relative_to=root, dtype=torch.float32, native=native)
+        times["native" if native else "python"].append((time.perf_counter() - t0) * 1e3)
+        batches[native] = b
+    a, b = batches[True], batches[False]
+    if not (torch.equal(a.features, b.features) and torch.equal(a.lengths, b.lengths)):
+        raise AssertionError("production: native and Python loads differ")
+    emit({"phase": "production", "step": "native_loader", "files": a.batch_size, "T": a.max_frames,
+          "D": a.features.shape[2], "bitwise_equal": True, "native_host_ms": times["native"],
+          "python_host_ms": times["python"], "library": str(LIBRARY.relative_to(ROOT)), "card": smi})
+
+
+def production_resume(torch, train: dict, ck: Path, smi: str) -> None:
+    """(b) train_fast_resumable stopped after 2 iterations and resumed, vs one
+    uninterrupted run (bitwise) and vs train_fast (history rtol 2e-4)."""
+    from srhmm_tpu_torch.train.checkpoint import CheckpointManager, EmDriverState, train_fast_resumable
+
+    model, batch = train["model"], train["batch"]
+    set_fused_counts({"emit_forward": 0, "backward_stats": 0})
+    stopped = train_fast_resumable(model, batch, ck / "a", max_iterations=2)
+    resumed = train_fast_resumable(model, batch, ck / "a", max_iterations=20)
+    torch.cuda.synchronize()
+    launches_resumed = fused_counts()
+    set_fused_counts({"emit_forward": 0, "backward_stats": 0})
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    whole = train_fast_resumable(model, batch, ck / "b", max_iterations=20)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches_whole = fused_counts()
+    for what, c in (("resumed", launches_resumed), ("uninterrupted", launches_whole)):
+        if min(c.values()) < 1:
+            raise AssertionError(f"production: the {what} run launched {c}")
+    if stopped.iterations != 2:
+        raise AssertionError(f"production: the stopped run ran {stopped.iterations} iterations")
+    if resumed.iterations != whole.iterations or resumed.log_prob_history != whole.log_prob_history:
+        raise AssertionError(f"production: resumed {resumed.log_prob_history} != {whole.log_prob_history}")
+    if not same_bits(torch, resumed.model, whole.model):
+        raise AssertionError("production: the resumed model is not bitwise the uninterrupted one")
+    fast = train["res"]
+    if whole.iterations != fast["iterations"]:
+        raise AssertionError(f"production: {whole.iterations} iterations against train_fast's {fast['iterations']}")
+    np.testing.assert_allclose(whole.log_prob_history, fast["history"], rtol=EM_HISTORY_RTOL,
+                               err_msg="production: train_fast_resumable vs train_fast")
+
+    mgr = CheckpointManager(ck / "t", keep=3)
+    save_ms, load_ms = [], []
+    for i in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mgr.save(whole.model, EmDriverState(iteration=i + 1, old_log_prob=-1.0, history=whole.log_prob_history))
+        save_ms.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        back, _ = mgr.latest(model)
+        torch.cuda.synchronize()
+        load_ms.append((time.perf_counter() - t0) * 1e3)
+    if not same_bits(torch, back, whole.model):
+        raise AssertionError("production: a checkpoint did not load back bitwise")
+    emit({"phase": "production", "step": "resume", "config": fast["config"], "iterations": whole.iterations,
+          "stopped_at": 2, "bitwise_equal_uninterrupted": True,
+          "history_bitwise_equal_train_fast": whole.log_prob_history == fast["history"],
+          "launches_resumed": launches_resumed, "launches_uninterrupted": launches_whole,
+          "uninterrupted_wall_s": wall, "save_ms": save_ms, "load_ms": load_ms,
+          "payload_bytes": (ck / "t" / "ckpt_000005.pt").stat().st_size, "card": smi})
+
+
+def production_composed(torch, emb: dict, tied: dict, ck: Path) -> None:
+    """(c) train_embedded at emb_c4 and train_tied at tied_c5, chunk=2: two
+    iterations, then resumed to four, bitwise an uninterrupted run of four."""
+    from srhmm_tpu_torch.train.embedded import train_embedded
+    from srhmm_tpu_torch.train.tied import train_tied
+
+    zero = {name: 0 for name, _ in COMPOSED_ROWS}
+    for name, train, start, inputs, kw in (
+        ("emb_c4", train_embedded, emb["models"], emb, {}),
+        ("tied_c5", train_tied, tied["tied"], tied, {"var_floor": TIED_C5_VAR_FLOOR}),
+    ):
+        kw = dict(kw, threshold=-1.0, chunk=2)
+        utts, trs = inputs["utts"], inputs["trs"]
+        set_composed_counts(zero)
+        train(start, utts, trs, max_iterations=2, checkpoint_dir=ck / name, **kw)
+        resumed = train(start, utts, trs, max_iterations=4, checkpoint_dir=ck / name, **kw)
+        launches_resumed = composed_counts()
+        set_composed_counts(zero)
+        whole = train(start, utts, trs, max_iterations=4, **kw)
+        launches_whole = composed_counts()
+        for what, c in (("resumed", launches_resumed), ("uninterrupted", launches_whole)):
+            if min(c[k] for k in ("bank_emission", "composed_forward", "composed_backward_stats",
+                                  "bank_moments_lattice")) < 1:
+                raise AssertionError(f"production: {name} {what} launched {c}")
+        if not (resumed.iterations == whole.iterations == 4 and resumed.log_prob_history == whole.log_prob_history):
+            raise AssertionError(f"production: {name} resumed {resumed.log_prob_history} != {whole.log_prob_history}")
+        if not same_bits(torch, resumed.model, whole.model):
+            raise AssertionError(f"production: {name} resumed model is not bitwise the uninterrupted one")
+        emit({"phase": "production", "step": "composed_resume", "config": name, "iterations": 4, "chunk": 2,
+              "stopped_at": 2, "bitwise_equal_uninterrupted": True, "history": whole.log_prob_history,
+              "launches_resumed": launches_resumed, "launches_uninterrupted": launches_whole,
+              "checkpoints": sorted(p.name for p in (ck / name).glob("*.json"))})
+
+
+def production_streaming(torch, train: dict, tmp: Path, smi: str) -> None:
+    """(d) train_streaming over four host shards vs train_fast on the
+    resident batch, from the trained model at threshold 1e-4 (from the LBG
+    start EM drives some mixtures to the weight floor, whose means two fp32
+    summation orders do not reproduce; see phase_train): the same
+    iterations, the history within rtol 2e-4, the means within the train
+    phase's fp32 trajectory bound (rtol 1e-3, atol 1e-3 of their scale);
+    one streamed iteration against em_step on the resident batch within
+    tests/test_streaming.py:88-95's rtol and atol 1e-4; one streamed
+    iteration traced with utils.profiling."""
+    from srhmm_tpu_torch.io.dataset import UtteranceBatch
+    from srhmm_tpu_torch.io.pipeline import device_put_loader, pin_batch
+    from srhmm_tpu_torch.ops.kernels.common import trans_band
+    from srhmm_tpu_torch.train.em import em_step, train_fast
+    from srhmm_tpu_torch.train.streaming import em_step_streaming, shard_batch, train_streaming
+    from srhmm_tpu_torch.utils import trace
+
+    model, batch = train["trained"], train["batch"]
+    host = UtteranceBatch(batch.features.cpu(), batch.lengths.cpu())
+    shards = shard_batch(host, 4)
+    set_fused_counts({"emit_forward": 0, "backward_stats": 0})
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rs = train_streaming(model, shards, threshold=1e-4, max_iterations=20)
+    torch.cuda.synchronize()
+    t_stream = time.perf_counter() - t0
+    launches = fused_counts()
+    t0 = time.perf_counter()
+    rf = train_fast(model, batch, threshold=1e-4, max_iterations=20)
+    torch.cuda.synchronize()
+    t_fast = time.perf_counter() - t0
+    if min(launches.values()) < len(shards) * rs.iterations:
+        raise AssertionError(f"production: streaming launched {launches} for {rs.iterations} iterations")
+    if rs.iterations != rf.iterations:
+        raise AssertionError(f"production: streaming {rs.iterations} iterations, train_fast {rf.iterations}")
+    np.testing.assert_allclose(rs.log_prob_history, rf.log_prob_history, rtol=EM_HISTORY_RTOL,
+                               err_msg="production: train_streaming vs train_fast")
+    ms_, mf = rs.model.streams[0].means.double().cpu().numpy(), rf.model.streams[0].means.double().cpu().numpy()
+    np.testing.assert_allclose(ms_, mf, rtol=1e-3, atol=1e-3 * np.abs(mf).max(),
+                               err_msg="production: streamed means after the trajectory")
+
+    pinned = [pin_batch(s) for s in shards]
+    band = trans_band(model.trans.cpu().numpy())
+    m1s, lp1s, nv1s = em_step_streaming(model, device_put_loader(pinned, device="cuda"), band=band)
+    m1f, lp1f, nv1f = em_step(model, batch, band=band)
+    m1s_, m1f_ = m1s.streams[0].means.double().cpu().numpy(), m1f.streams[0].means.double().cpu().numpy()
+    np.testing.assert_allclose(m1s_, m1f_, rtol=1e-4, atol=1e-4, err_msg="production: one streamed iteration")
+    np.testing.assert_allclose(float(lp1s), float(lp1f), rtol=1e-5)
+    if float(nv1s) != float(nv1f):
+        raise AssertionError(f"production: streamed num_valid {float(nv1s)} != {float(nv1f)}")
+    with trace(tmp / "trace_streaming"):
+        em_step_streaming(model, device_put_loader(pinned, device="cuda"), band=band)
+    (trace_file,) = (tmp / "trace_streaming").glob("trace_*.json")
+    emit({"phase": "production", "step": "streaming", "config": train["res"]["config"], "shards": len(shards),
+          "shard_B": shards[0].batch_size, "iterations": rs.iterations,
+          "history_max_rel_vs_train_fast": float(np.max(np.abs(np.asarray(rs.log_prob_history)
+                                                               - rf.log_prob_history) / np.abs(rf.log_prob_history))),
+          "means_max_abs_vs_train_fast": float(np.abs(ms_ - mf).max()),
+          "means_beyond_1e-4_vs_train_fast": int((np.abs(ms_ - mf) > 1e-4 + 1e-4 * np.abs(mf)).sum()),
+          "means": int(mf.size), "one_iteration_means_max_abs": float(np.abs(m1s_ - m1f_).max()),
+          "one_iteration_lp_rel": abs(float(lp1s) - float(lp1f)) / abs(float(lp1f)), "launches": launches,
+          "streaming_ms_per_iteration": t_stream / rs.iterations * 1e3,
+          "train_fast_ms_per_iteration": t_fast / rf.iterations * 1e3,
+          **h2d_overlap(trace_file),
+          "trace_bytes": trace_file.stat().st_size, "card": smi})
+
+
+def production_bf16(torch, train: dict, smi: str) -> None:
+    """(e) em_step(bf16_stats=True) at em_diag on the card against float32
+    em_step(fused=False), at the bounds of tests/test_em_fast.py:289-325."""
+    from srhmm_tpu_torch.train.em import e_step, em_step
+
+    model, batch = train["trained"], train["batch"]
+    before = fused_counts()
+    s32, s16 = e_step(model, batch), e_step(model, batch, bf16_stats=True)
+    moments = {}
+    for name in ("w", "x", "xx"):
+        a = getattr(s32.streams[0], name).double().cpu().numpy()
+        b = getattr(s16.streams[0], name).double().cpu().numpy()
+        moments[name] = float(np.abs(a - b).max() / np.abs(a).max())
+        if not moments[name] < 1e-3:
+            raise AssertionError(f"production: bf16 moment {name} off by {moments[name]} of its largest value")
+    if torch.equal(s16.streams[0].xx, s32.streams[0].xx):
+        raise AssertionError("production: bf16_stats=True gave the float32 moments")
+    np.testing.assert_allclose(s16.num_trans.cpu().numpy(), s32.num_trans.cpu().numpy(), rtol=1e-6)
+    np.testing.assert_allclose(float(s16.log_prob), float(s32.log_prob), rtol=1e-6)
+    m16, lp16, _ = em_step(model, batch, bf16_stats=True)
+    m32, lp32, _ = em_step(model, batch, fused=False)
+    np.testing.assert_allclose(float(lp16), float(lp32), rtol=1e-6)
+    params = {}
+    for name, a, b in (("trans", m16.trans, m32.trans), ("weights", m16.streams[0].weights, m32.streams[0].weights),
+                       ("means", m16.streams[0].means, m32.streams[0].means)):
+        a, b = a.double().cpu().numpy(), b.double().cpu().numpy()
+        np.testing.assert_allclose(a, b, rtol=5e-3, atol=5e-3, err_msg=f"production: bf16 {name}")
+        params[name] = float(np.abs(a - b).max())
+    # not held to a bound (tests/test_em_fast.py holds the means): the
+    # covariance comes back through the moment identity, which amplifies
+    # the bf16 rounding by mean^2 / variance
+    inv = ((m16.streams[0].inv_cov - m32.streams[0].inv_cov).abs() / m32.streams[0].inv_cov.abs()).flatten()
+    if not bool(torch.isfinite(m16.streams[0].log_det).all()):
+        raise AssertionError("production: bf16 log det not finite")
+    if fused_counts() != before:
+        raise AssertionError("production: bf16_stats launched the fused kernels")
+    emit({"phase": "production", "step": "bf16_stats", "config": train["res"]["config"],
+          "moments_max_rel": moments, "params_max_abs": params, "inv_cov_max_rel": float(inv.max()),
+          "inv_cov_median_rel": float(inv.median()), "inv_cov_beyond_5e-3": int((inv > 5e-3).sum()),
+          "inv_cov_elements": inv.numel(),
+          "ms": median_ms(torch, lambda: em_step(model, batch, bf16_stats=True), warmup=1, reps=3),
+          "float32_plain_ms": median_ms(torch, lambda: em_step(model, batch, fused=False), warmup=1, reps=3),
+          "card": smi})
+
+
+def production_cli(torch, train_cli: dict, smi: str) -> None:
+    """(f) the train CLI on phase_train_cli's four words: --checkpoint-dir
+    twice into one directory (the second run resumes from the converged
+    checkpoint: the same .hmm bytes), and --stream-shards 2, its models
+    scoring the held-out utterances through the vocab_scores kernel."""
+    from srhmm_tpu_torch.decode.scorer import score_batch
+    from srhmm_tpu_torch.eval.metrics import isolated_accuracy
+    from srhmm_tpu_torch.io import pack_utterances, read_hmm
+    from srhmm_tpu_torch.models import stack_models
+    from srhmm_tpu_torch.ops.kernels.scoring import vocab_scores
+
+    root, names = train_cli["root"], train_cli["names"]
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+
+    def run_all(jobs):
+        procs = [(tag, subprocess.Popen(
+            [sys.executable, "-m", "srhmm_tpu_torch.cli.train", "--cov", "diag", "--numerics", "fast", *flags,
+             n, "6", "1", "2", f"list_{n}.txt", out],
+            cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)) for tag, n, flags, out in jobs]
+        finals = {}
+        for tag, proc in procs:
+            out, err = proc.communicate(timeout=600)
+            if proc.returncode != 0:
+                raise RuntimeError(f"train CLI {tag} failed:\n{out[-2000:]}\n{err[-4000:]}")
+            finals[tag] = next(line for line in out.splitlines() if line.startswith("Final model"))
+        return finals
+
+    t0 = time.perf_counter()
+    first = run_all([(f"ck1_{n}", n, ["--checkpoint-dir", f"ck_{n}"], f"ck1_{n}.hmm") for n in names]
+                    + [(f"st_{n}", n, ["--stream-shards", "2"], f"st_{n}.hmm") for n in names])
+    second = run_all([(f"ck2_{n}", n, ["--checkpoint-dir", f"ck_{n}"], f"ck2_{n}.hmm") for n in names])
+    wall = time.perf_counter() - t0
+    for n in names:
+        if (root / f"ck1_{n}.hmm").read_bytes() != (root / f"ck2_{n}.hmm").read_bytes():
+            raise AssertionError(f"production: --checkpoint-dir rerun wrote another {n}.hmm")
+    vocab = stack_models([read_hmm(root / f"st_{n}.hmm") for n in names]).astype(torch.float32).to("cuda")
+    batch = pack_utterances(train_cli["held"], pad_multiple=1, dtype=torch.float32, device="cuda")
+    launches = vocab_scores.launches
+    scores = score_batch(vocab, batch, mode="final").cpu().numpy()
+    if vocab_scores.launches <= launches:
+        raise AssertionError("production: scoring did not launch the vocab_scores kernel")
+    acc = isolated_accuracy(train_cli["spoken"], [vocab.word[j] for j in scores.argmax(1)])
+    if not acc >= 0.9:
+        raise AssertionError(f"production: --stream-shards models' accuracy {acc} < 0.9")
+    emit({"phase": "production", "step": "train_cli", "words": len(names), "checkpoint_rerun_bytes_equal": True,
+          "stream_shards": 2, "accuracy": acc, "finals": {**first, **second}, "cli_wall_s": wall, "card": smi})
+
+
+def phase_production(torch, train_diag: dict, train_cli: dict, emb: dict, tied: dict, tmp: Path, smi: str) -> None:
+    """The production surface at full width, steps (a)-(f); the kernels'
+    counters are restored afterwards, so no later line counts these
+    launches."""
+    saved = fused_counts(), composed_counts()
+    ck = tmp / "checkpoints"
+    t0 = time.perf_counter()
+    production_native(torch, tmp / f"{train_diag['res']['config']}.txt", tmp, smi)
+    production_resume(torch, train_diag, ck, smi)
+    production_composed(torch, emb, tied, ck)
+    production_streaming(torch, train_diag, tmp, smi)
+    production_bf16(torch, train_diag, smi)
+    production_cli(torch, train_cli, smi)
+    set_fused_counts(saved[0])
+    set_composed_counts(saved[1])
+    emit({"phase": "production", "step": "done", "seconds": time.perf_counter() - t0})
+
+
 def main() -> int:
     import torch
 
@@ -3625,7 +3986,7 @@ def main() -> int:
         train_diag = phase_train(torch, "em_diag_S8_M3_D9", "diag", 8, 3, 9, (500, 501), tmp)
         train_full = phase_train(torch, "em_full_S6_M1_D9", "full", 6, 1, 9, (103, 214), tmp)
         train_p2 = phase_train_p2(torch, train_diag)
-        phase_train_cli(torch, tmp)
+        train_cli = phase_train_cli(torch, tmp)
         dec = phase_decode(torch, tmp)
         # the composed path: embedded and tied training at full width, then
         # the train_embedded CLI; launches counted over the three phases
@@ -3637,6 +3998,9 @@ def main() -> int:
         for name, _ in COMPOSED_ROWS:
             if comp_launches[name] < 1:
                 raise AssertionError(f"the embedded / tied main path launched {name} 0 times")
+        # the production surface; it reuses the train, train_cli, embedded
+        # and tied phases' inputs and counts its own launches
+        phase_production(torch, train_diag, train_cli, emb, tied, tmp, info["nvidia_smi"])
         # the frontend and the end-to-end pipeline; launches counted over
         # the pipeline phase (phase_pipeline)
         worst_mfcc = max(worst_mfcc, phase_features_cli(torch, tmp))

@@ -29,8 +29,18 @@ Optional leading flags:
                       is equivariant under the affine map, so the exported
                       model and the reported mean probability (Jacobian-
                       corrected) are unchanged up to float rounding
-    --checkpoint-dir D, --stream-shards N
-                      not ported yet: the CLI exits with an error
+    --checkpoint-dir D
+                      (fast) checkpoint every EM iteration into D
+                      (train/checkpoint.py train_fast_resumable); a rerun
+                      with the same D resumes from its newest complete
+                      checkpoint with the identical trajectory
+    --stream-shards N (fast) split the batch into N host shards and stream
+                      them through the device every iteration
+                      (train/streaming.py train_streaming; the copy of
+                      shard k+1 overlaps the E-step of shard k)
+
+--scan-iters, --checkpoint-dir and --stream-shards are tried in that order;
+the first one given picks the trainer.
 
 With --numerics fast the CLI writes the JAX CLI's two JSONL events to
 stderr (utils/logging.py EventLog): {"event": "train_fast", "seconds",
@@ -68,10 +78,6 @@ def main(argv: list[str] | None = None) -> int:
     add_device_argument(ap)
     ap.add_argument("rest", nargs=argparse.REMAINDER)
     ns = ap.parse_args(argv)
-    for flag, value in (("--checkpoint-dir", ns.checkpoint_dir), ("--stream-shards", ns.stream_shards)):
-        if value is not None:
-            print(f"train: {flag} is not ported to srhmm_tpu_torch yet", file=sys.stderr)
-            return 2
     rest = ns.rest
     if len(rest) < 5:
         print(USAGE, file=sys.stderr)
@@ -147,8 +153,12 @@ def main(argv: list[str] | None = None) -> int:
                 for (_, s) in cmvn_stats
             )
             cmvn_zd = tuple(float(np.log(1e-20) - 2.0 * np.log(s).sum()) for (_, s) in cmvn_stats)
+        # --stream-shards keeps the batch on the host: its shards go to the
+        # device every iteration (the branches below take the first flag given)
+        streaming = bool(ns.stream_shards) and not (ns.scan_iters or ns.checkpoint_dir)
         batches = tuple(
-            UtteranceBatch(b.features.to(device=device, dtype=torch.float32), b.lengths.to(device))
+            UtteranceBatch(b.features.to(torch.float32), b.lengths) if streaming
+            else UtteranceBatch(b.features.to(device=device, dtype=torch.float32), b.lengths.to(device))
             for b in batches_f64
         )
     else:
@@ -190,6 +200,19 @@ def main(argv: list[str] | None = None) -> int:
                     mean_log_prob=float(lps_h[-1]) / max(nv, 1),
                     exemplar_count=nv,
                     log_prob_history=[float(x) for x in lps_h],
+                )
+            elif ns.checkpoint_dir:
+                from ..train.checkpoint import train_fast_resumable
+
+                res = train_fast_resumable(
+                    fast_model, batch, ns.checkpoint_dir, threshold=ns.threshold, log_prob_offset=cmvn_offset,
+                )
+            elif ns.stream_shards:
+                from ..train.streaming import shard_batch, train_streaming
+
+                res = train_streaming(
+                    fast_model, shard_batch(batch, ns.stream_shards), threshold=ns.threshold,
+                    log_prob_offset=cmvn_offset, abs_floors=cmvn_abs_floors, zero_det_thresholds=cmvn_zd,
                 )
             else:
                 res = train_fast(

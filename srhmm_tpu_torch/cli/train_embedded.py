@@ -6,7 +6,8 @@
         [--tied] [--max-senones N] [--min-gain X] [--min-occ X]
         [--init DIR] [--threshold X] [--max-iters N] [--chunk K]
         [--pad-multiple N] [--var-floor X] [--size-t-width N]
-        [--scan-iters N] [--cmvn off|global] [--device cuda|cpu]
+        [--scan-iters N] [--cmvn off|global] [--checkpoint-dir D]
+        [--device cuda|cpu]
 
 TRANSCRIPTS: text file, one training utterance per line:
 
@@ -27,11 +28,14 @@ system trains with train/tied.train_tied, and OUTPUT_DIR gets the
 materialized per-unit `.hmm` files plus `senone_map.json` (unit -> senone
 ids) and `summary.json`.
 
+--checkpoint-dir enables chunk-granular checkpoint / resume through the
+chunked convergence driver for both trainers: a killed run re-invoked with
+the same command line resumes from the newest complete checkpoint with the
+identical trajectory.
 --init DIR warm-starts each unit from DIR/<unit>.hmm instead of the LBG
 flat start.  --device (default cuda) says where EM runs; without a CUDA
 device, cuda exits 2 instead of falling back to the CPU.
---checkpoint-dir and --data-parallel N are not ported yet: the CLI exits
-with an error.
+--data-parallel N is not ported yet: the CLI exits with an error.
 """
 
 from __future__ import annotations
@@ -109,7 +113,8 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--threshold", type=float, default=1.0e-3)
     ap.add_argument("--max-iters", type=int, default=50)
     ap.add_argument("--chunk", type=int, default=8)
-    ap.add_argument("--checkpoint-dir", default=None, help="not ported yet: exits with an error")
+    ap.add_argument("--checkpoint-dir", default=None,
+                    help="checkpoint every EM chunk into this directory and resume from it")
     ap.add_argument("--data-parallel", type=int, default=None, metavar="N",
                     help="not ported yet: exits with an error")
     ap.add_argument("--pad-multiple", type=int, default=32)
@@ -130,10 +135,9 @@ def main(argv: list[str] | None = None) -> int:
     )
     add_device_argument(ap)
     ns = ap.parse_args(argv)
-    for flag, value in (("--checkpoint-dir", ns.checkpoint_dir), ("--data-parallel", ns.data_parallel)):
-        if value is not None:
-            print(f"train_embedded: {flag} is not ported to srhmm_tpu_torch yet", file=sys.stderr)
-            return 2
+    if ns.data_parallel is not None:
+        print("train_embedded: --data-parallel is not ported to srhmm_tpu_torch yet", file=sys.stderr)
+        return 2
     device = resolve_device(ns.device, "train_embedded")
     if device is None:
         return 2
@@ -200,7 +204,7 @@ def main(argv: list[str] | None = None) -> int:
         res = train_tied(
             tied0, feats, transcripts, threshold=threshold, max_iterations=max_iters,
             var_floor=ns.var_floor, log_prob_offset=lp_offset, pad_multiple=ns.pad_multiple,
-            chunk=chunk,
+            chunk=chunk, checkpoint_dir=ns.checkpoint_dir,
         )
         trained = res.model
         unit_models = trained.materialize()
@@ -215,7 +219,7 @@ def main(argv: list[str] | None = None) -> int:
         res = train_embedded(
             models, feats, transcripts, threshold=threshold, max_iterations=max_iters,
             var_floor=ns.var_floor, log_prob_offset=lp_offset, pad_multiple=ns.pad_multiple,
-            chunk=chunk,
+            chunk=chunk, checkpoint_dir=ns.checkpoint_dir,
         )
         unit_models = res.model
 

@@ -4,8 +4,9 @@ A list of utterances becomes one padded (B, T_max, D) tensor with a lengths
 vector; every downstream op is masked by ``lengths`` so padding contributes
 nothing.  T_max is rounded up to ``pad_multiple`` so shapes repeat.
 
-Only the Python ``.perfil`` reader is ported; the threaded C++ loader of the
-JAX package is not, and ``native=True`` raises instead of falling back.
+A list file is read by the native C++ worker-pool loader
+(io/native_loader.py, native/loader.cpp) when it can be built, or by the
+Python ``.perfil`` reader; both give the same bits.
 """
 
 from __future__ import annotations
@@ -81,19 +82,51 @@ def load_batch(
     pad_batch_to: int | None = None,
     dtype: torch.dtype = torch.float32,
     device="cpu",
-    native: bool = False,
+    native: bool | None = None,
 ) -> UtteranceBatch:
     """Read every .perfil in a list file into one padded batch.
 
     List entries resolve against ``relative_to`` (default: the current
-    directory).  ``native=True`` asks for the C++ loader, which this package
-    does not have yet: it raises NotImplementedError.
+    directory).  native=None (default) uses the C++ worker-pool loader when
+    it can be built (one pass to scan headers, one threaded pass straight
+    into the padded array) and the Python reader otherwise; native=True
+    uses the C++ loader or raises (NativeLoaderUnavailable when it cannot
+    be built, IOError when a file cannot be scanned); native=False uses the
+    Python reader.  Every route gives the same bits.
     """
-    if native:
-        raise NotImplementedError("srhmm_tpu_torch has no native .perfil loader yet")
     from .lists import read_list
-    from .perfil import read_perfil
 
     base = Path(relative_to) if relative_to is not None else Path(".")
-    utts = [read_perfil(str(base / p)) for p in read_list(list_path)]
+    paths = [str(base / p) for p in read_list(list_path)]
+    if not paths:
+        raise ValueError("empty utterance list")
+
+    if native is None or native:
+        from .native_loader import load_batch_native, native_available, scan_perfil
+
+        if native or native_available():
+            shapes = scan_perfil(paths)
+            if (shapes[:, 0] > 0).all():
+                dims = set(int(d) for d in shapes[:, 1])
+                if len(dims) != 1:
+                    raise ValueError(f"{list_path}: mixed feature dims {dims}")
+                dim = dims.pop()
+                t_max = round_up(int(shapes[:, 0].max()), pad_multiple)
+                # the Python route reads float64 and casts once: so does this
+                np_dtype = np.float32 if dtype == torch.float32 else np.float64
+                feats, lengths = load_batch_native(paths, t_max, dim, dtype=np_dtype)
+                if pad_batch_to is not None and len(paths) < pad_batch_to:
+                    extra = pad_batch_to - len(paths)
+                    feats = np.concatenate([feats, np.zeros((extra, t_max, dim), feats.dtype)], 0)
+                    lengths = np.concatenate([lengths, np.zeros((extra,), lengths.dtype)], 0)
+                return UtteranceBatch(
+                    features=torch.as_tensor(feats, dtype=dtype, device=device),
+                    lengths=torch.as_tensor(lengths.astype(np.int32), device=device),
+                )
+            if native:
+                raise IOError(f"{list_path}: native loader failed to scan inputs")
+
+    from .perfil import read_perfil
+
+    utts = [read_perfil(p) for p in paths]
     return pack_utterances(utts, pad_multiple, pad_batch_to, dtype, device)

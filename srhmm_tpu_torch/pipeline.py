@@ -381,7 +381,7 @@ def run_pipeline(
     from .train.embedded import _not_ported, train_embedded
     from .train.tied import train_tied
 
-    _not_ported("run_pipeline", mesh, None)
+    _not_ported("run_pipeline", mesh)
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("run_pipeline: device cuda, but torch sees no CUDA device")

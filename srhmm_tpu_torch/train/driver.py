@@ -17,7 +17,10 @@ This driver keeps the trajectory and pays the round trip once per chunk:
   exactly (one extra chunk, only at the end);
 * chunks are issued SPECULATIVELY (pipeline depth 2): while the host blocks
   fetching chunk n's log probs, chunk n+1 is already queued on the device.
-  If convergence triggers, the speculative work is discarded.
+  If convergence triggers, the speculative work is discarded;
+* with a checkpoint manager (train/checkpoint.py) a newest complete
+  checkpoint resumes the run, and the state after a chunk is saved once
+  that chunk's log probs are on the host, never while it is in flight.
 """
 
 from __future__ import annotations
@@ -53,23 +56,32 @@ def chunked_convergence_train(
     training to apply the constant Jacobian correction INSIDE the rule (the
     reference's relative-change test is not shift-invariant).
 
-    checkpoint: not ported yet (train/checkpoint.py); anything but None
-    raises NotImplementedError.
+    checkpoint: optional train.checkpoint.CheckpointManager.  The state
+    and the driver bookkeeping (iteration, old log prob, history) are saved
+    after every fetched chunk and once more at convergence, and a newest
+    complete checkpoint in the directory resumes training mid-run with the
+    identical trajectory (EM is deterministic and the state is the complete
+    driver state).  A crash replays at most `chunk` iterations.
 
     Returns (final_state, iterations, log_prob_history, last_num_valid).
     `run_chunk(state, k)` must run k EM iterations and return
     (new_state, lps, nvs) with lps[j] the total log prob evaluated on the
     model before the j-th update (the em_train_scan contract).
     """
-    if checkpoint is not None:
-        raise NotImplementedError(
-            "chunked_convergence_train: checkpointing is not ported to srhmm_tpu_torch yet"
-        )
+    from .checkpoint import EmDriverState
+
     chunk = max(1, min(chunk, max_iterations))
     old = 1.0
     history: list[float] = []
     n_valid = 0
     iteration = 0
+    if checkpoint is not None:
+        resumed = checkpoint.latest(state)
+        if resumed is not None:
+            state, ck = resumed
+            iteration = ck.iteration
+            old = ck.old_log_prob
+            history = list(ck.history)
     cur = state
     inflight: deque = deque()
     planned = iteration
@@ -104,4 +116,10 @@ def chunked_convergence_train(
             inflight.clear()  # discard speculative chunks
             break
         final_state = after
+        if checkpoint is not None:
+            # `after` follows every op whose log probs were just fetched on
+            # the stream; a speculative chunk queued behind it is not saved
+            checkpoint.save(after, EmDriverState(iteration=iteration, old_log_prob=old, history=history))
+    if checkpoint is not None and converged:
+        checkpoint.save(final_state, EmDriverState(iteration=iteration, old_log_prob=old, history=history))
     return final_state, iteration, history, n_valid

@@ -28,8 +28,9 @@ sum gamma x x^T) and the M-step recovers the reference's residual-about-
 PRE-update-means covariance (T1:1744-1750) through the moment identity
 sum g (x-mu0)(x-mu0)^T = XX - mu0 a^T - a mu0^T + w mu0 mu0^T.
 
-Not ported yet: the sharded variants (data- and time-parallel) and
-``bf16_stats``.
+``bf16_stats`` (bf16-input moment contractions about a shifted origin)
+runs on the plain path only, as in the JAX package.  Not ported yet: the
+sharded variants (data- and time-parallel).
 """
 
 from __future__ import annotations
@@ -77,13 +78,25 @@ def _map_stats(fn, st: SuffStats) -> SuffStats:
     )
 
 
-def gmm_moment_stats(gm, feats, cov_type):
+def gmm_moment_stats(gm, feats, cov_type, stat_in=None, origin=None):
     """Occupancy-weighted GMM moment statistics as single contractions.
 
     gm: (..., N, G, M) mixture occupancy (gamma * posterior) over N frames
     and G groups (states); feats: (..., N, D).  Returns (w (..., G, M),
     x (..., G, M, D), xx (..., G, M, D, D) full | (..., G, M, D) diag);
-    leading axes (e.g. utterances) are kept."""
+    leading axes (e.g. utterances) are kept.
+
+    stat_in: optional low-precision input dtype (torch.bfloat16): gm and the
+    lifted features are rounded to it and contracted in the features' dtype
+    with TF32 off, the JAX package's bf16 GEMMs with a float32 result
+    (``preferred_element_type``; a product of two bf16 values is exact in
+    float32).  origin: optional (D,) shift o; the moments are taken about o
+    and unshifted exactly (sum g x = sum g y + o sum g, and the binomial
+    identity for the second moment), so the rounding is relative to
+    centred magnitudes.  With neither, the moments are the plain
+    contractions below."""
+    if stat_in is not None or origin is not None:
+        return _shifted_moment_stats(gm, feats, cov_type, stat_in, origin)
     ones = torch.ones_like(feats[..., :1])
     D = feats.shape[-1]
     if cov_type == FULL:
@@ -96,10 +109,56 @@ def gmm_moment_stats(gm, feats, cov_type):
     return w, x, xx
 
 
-def _per_utterance_stats(model: GmmHmm, feats_per_stream, lengths) -> SuffStats:
+def _shifted_moment_stats(gm, feats, cov_type, stat_in, origin):
+    """gmm_moment_stats about `origin` with inputs rounded to `stat_in`
+    (srhmm_tpu/train/em.py gmm_moment_stats' stat_in / origin path)."""
+    dtype = feats.dtype
+    D = feats.shape[-1]
+    o = torch.zeros(D, dtype=dtype, device=feats.device) if origin is None else origin.to(dtype)
+
+    def rounded(a):
+        return a if stat_in is None else a.to(stat_in).to(dtype)
+
+    y = feats - o
+    ones = torch.ones_like(feats[..., :1])
+    gmc = rounded(gm)
+    precision = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")  # no TF32: the products stay exact
+    try:
+        if cov_type == FULL:
+            smk = torch.einsum("...ngm,...nk->...gmk", gmc, rounded(torch.cat([y, ones], -1)))
+            ys, w = smk[..., :D], smk[..., D]
+            yc = rounded(y)
+            yy = torch.einsum("...ngm,...nd,...ne->...gmde", gmc, yc, yc)
+        else:
+            smk = torch.einsum("...ngm,...nk->...gmk", gmc, rounded(torch.cat([y, y * y, ones], -1)))
+            ys, yy, w = smk[..., :D], smk[..., D : 2 * D], smk[..., 2 * D]
+    finally:
+        torch.set_float32_matmul_precision(precision)
+    x = ys + o * w[..., None]
+    if cov_type == FULL:
+        xx = (
+            yy
+            + o[:, None] * ys[..., None, :]
+            + ys[..., :, None] * o[None, :]
+            + (o[:, None] * o[None, :]) * w[..., None, None]
+        )
+    else:
+        xx = yy + 2.0 * o * ys + (o * o) * w[..., None]
+    return w, x, xx
+
+
+def _per_utterance_stats(model: GmmHmm, feats_per_stream, lengths, bf16_stats: bool = False) -> SuffStats:
     """E-step statistics per utterance, with a leading (B,) axis on every
     tensor.  feats_per_stream: one (B, T, D_p) tensor per stream (all
-    streams of an utterance share the frame count, T1:274)."""
+    streams of an utterance share the frame count, T1:274).
+
+    bf16_stats: the moment contractions take bf16 inputs (float32 results,
+    gmm_moment_stats' stat_in) about a SHIFTED ORIGIN, the stream's mean of
+    means per dimension: the features are centred before the rounding, so
+    it is relative to the centred magnitudes (state spread + sigma) and not
+    amplified by the M-step's moment identity (~mean^2 / variance at raw
+    feature scale).  The lattices, xi and log probs are unaffected."""
     S = model.num_states
     dtype = feats_per_stream[0].dtype
     log_trans = model.log_trans().to(dtype)
@@ -140,7 +199,11 @@ def _per_utterance_stats(model: GmmHmm, feats_per_stream, lengths) -> SuffStats:
     stream_stats = []
     for stream, post, sf in zip(model.streams, posts, feats_per_stream):
         gm = gamma[..., None] * post  # (B, T, S, M)
-        w, x, xx = gmm_moment_stats(gm, sf, stream.cov_type)
+        if bf16_stats:
+            o = stream.means.to(dtype).mean(dim=(0, 1))
+            w, x, xx = gmm_moment_stats(gm, sf, stream.cov_type, stat_in=torch.bfloat16, origin=o)
+        else:
+            w, x, xx = gmm_moment_stats(gm, sf, stream.cov_type)
         stream_stats.append(StreamStats(w=w, x=x, xx=xx))
 
     def zero(a):
@@ -161,16 +224,17 @@ def _as_batches(batch) -> tuple[UtteranceBatch, ...]:
     return batch if isinstance(batch, tuple) else (batch,)
 
 
-def e_step(model: GmmHmm, batch) -> SuffStats:
+def e_step(model: GmmHmm, batch, bf16_stats: bool = False) -> SuffStats:
     """Batched E-step: per-utterance statistics over the batch axis, summed.
 
     batch: an UtteranceBatch, or a tuple of UtteranceBatch (one per stream,
-    equal lengths) for multi-stream models."""
+    equal lengths) for multi-stream models.  bf16_stats: bf16-input moment
+    contractions about a shifted origin (see _per_utterance_stats)."""
     batches = _as_batches(batch)
     feats = tuple(b.features for b in batches)
     if len(feats) == 1 and len(model.streams) > 1:
         feats = feats * len(model.streams)
-    per_utt = _per_utterance_stats(model, feats, batches[0].lengths)
+    per_utt = _per_utterance_stats(model, feats, batches[0].lengths, bf16_stats)
     return _map_stats(lambda a: a.sum(0), per_utt)
 
 
@@ -688,12 +752,18 @@ def em_step(
     fused: None auto-selects the fused kernels when eligible
     (_fused_lane_eligible: CUDA float32, homogeneous diag/full, shapes the
     kernels take); True forces them (the plain twins on CPU tensors); False
-    forces the plain e_step.  feats_tdb / band: precomputed (T, D, B)
-    feature transpose and static transition band for the fused path;
-    band=None computes it on the host from model.trans (a device sync:
-    loops pass it)."""
+    forces the plain e_step.  bf16_stats=True runs the plain e_step with
+    bf16-input moment contractions (see _per_utterance_stats): fused=None
+    then takes the plain path, and fused=True raises ValueError, as the
+    fused kernels have no bf16 statistics.  feats_tdb / band: precomputed
+    (T, D, B) feature transpose and static transition band for the fused
+    path; band=None computes it on the host from model.trans (a device
+    sync: loops pass it)."""
+    if fused and bf16_stats:
+        raise ValueError("em_step: fused=True has no bf16 stats path; pass one or the other")
     if bf16_stats:
-        raise NotImplementedError("em_step: bf16_stats is not ported to srhmm_tpu_torch")
+        stats = e_step(model, batch, bf16_stats=True)
+        return m_step(model, stats, var_floor=var_floor), stats.log_prob, stats.num_valid
     if band is None and fused is not False:
         band = trans_band(model.trans.detach().cpu().numpy())
     use_fused = _fused_lane_eligible(model, batch, band) if fused is None else fused

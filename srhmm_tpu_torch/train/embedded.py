@@ -27,8 +27,7 @@ buckets utterances by (padded length, transcript length) and runs the
 chunked convergence driver (train/driver.py).
 
 Not ported yet: the sharded functions (``batch_stats_fused_sharded``,
-``embedded_train_scan_sharded``; ``mesh=`` raises) and checkpointing
-(``checkpoint_dir=`` raises).
+``embedded_train_scan_sharded``; ``mesh=`` raises).
 """
 
 from __future__ import annotations
@@ -616,11 +615,19 @@ def pack_buckets(utterances, transcripts, dtype, device, pad_multiple: int = 32)
     return tuple(packed)
 
 
-def _not_ported(fn: str, mesh, checkpoint_dir) -> None:
+def _not_ported(fn: str, mesh) -> None:
     if mesh is not None:
         raise NotImplementedError(f"{fn}: mesh= (data-parallel training) is not ported to srhmm_tpu_torch yet")
-    if checkpoint_dir is not None:
-        raise NotImplementedError(f"{fn}: checkpoint_dir= is not ported to srhmm_tpu_torch yet")
+
+
+def _manager(checkpoint_dir):
+    """The chunked driver's CheckpointManager for checkpoint_dir (None: no
+    checkpoints)."""
+    if checkpoint_dir is None:
+        return None
+    from .checkpoint import CheckpointManager
+
+    return CheckpointManager(checkpoint_dir)
 
 
 def train_embedded(
@@ -644,12 +651,15 @@ def train_embedded(
     rule.  fused=None takes the composed kernels when every bucket is
     eligible (_embedded_fused_eligible), decided once here.
 
-    mesh= and checkpoint_dir= raise NotImplementedError until the
-    multi-device slice and train/checkpoint.py are ported."""
+    checkpoint_dir: chunk-granular checkpoint / resume through the chunked
+    driver (train/checkpoint.py); a rerun with the same directory resumes
+    from its newest complete checkpoint with the identical trajectory.
+    mesh= raises NotImplementedError until the multi-device slice is
+    ported."""
     from .driver import chunked_convergence_train
     from .em_parity import TrainResult
 
-    _not_ported("train_embedded", mesh, checkpoint_dir)
+    _not_ported("train_embedded", mesh)
     packed = pack_buckets(utterances, transcripts, models.trans.dtype, models.trans.device, pad_multiple)
     if fused is None:
         fused = all(_embedded_fused_eligible(models, trs, f) for trs, f, _ in packed)
@@ -659,7 +669,7 @@ def train_embedded(
 
     models, iteration, history, n_valid = chunked_convergence_train(
         models, run, threshold=threshold, max_iterations=max_iterations, chunk=chunk,
-        log_prob_offset=log_prob_offset,
+        log_prob_offset=log_prob_offset, checkpoint=_manager(checkpoint_dir),
     )
     return TrainResult(
         model=models,

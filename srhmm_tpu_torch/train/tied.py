@@ -10,7 +10,7 @@ Per-unit transition statistics stay unit-level.
 The statistics are a tuple (senone StreamStats (N, M, ...), den_mix (N,),
 num_trans (P, S, S), den_trans (P, S), log_prob, num_valid), as in the JAX
 package.  Not ported yet: the sharded functions (``tied_*_sharded``;
-``mesh=`` raises) and checkpointing (``checkpoint_dir=`` raises).
+``mesh=`` raises).
 """
 
 from __future__ import annotations
@@ -26,6 +26,7 @@ from .embedded import (
     _bank_stream_stats,
     _gather_rows,
     _left_right,
+    _manager,
     _not_ported,
     _pack_bank,
     _positional_stats,
@@ -226,12 +227,13 @@ def train_tied(
     takes the composed kernels when every bucket is eligible
     (_tied_fused_eligible), decided once here.
 
-    mesh= and checkpoint_dir= raise NotImplementedError until the
-    multi-device slice and train/checkpoint.py are ported."""
+    checkpoint_dir: chunk-granular checkpoint / resume, as in
+    train_embedded.  mesh= raises NotImplementedError until the
+    multi-device slice is ported."""
     from .driver import chunked_convergence_train
     from .em_parity import TrainResult
 
-    _not_ported("train_tied", mesh, checkpoint_dir)
+    _not_ported("train_tied", mesh)
     packed = pack_buckets(utterances, transcripts, tied.trans.dtype, tied.trans.device, pad_multiple)
     if fused is None:
         fused = all(_tied_fused_eligible(tied, trs, f) for trs, f, _ in packed)
@@ -241,7 +243,7 @@ def train_tied(
 
     tied, iteration, history, n_valid = chunked_convergence_train(
         tied, run, threshold=threshold, max_iterations=max_iterations, chunk=chunk,
-        log_prob_offset=log_prob_offset,
+        log_prob_offset=log_prob_offset, checkpoint=_manager(checkpoint_dir),
     )
     return TrainResult(
         model=tied,

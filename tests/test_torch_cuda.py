@@ -1267,3 +1267,74 @@ def test_emission_stats_single_frame_posteriors(cuda_device):
     want = ke.emission_stats_plain(frames, gamma, ke.emission_log_b_plain(frames, a, b), a, b)
     for part in (slice(0, D), slice(D, 2 * D), slice(2 * D, 2 * D + 1)):
         _stat_close(got[..., part], want[..., part])
+
+
+# ---------------------------------------------------------------------------
+# the production surface on the card: the prefetch loader's copies, resumed
+# training, the profiling timer
+# ---------------------------------------------------------------------------
+
+
+def _em_diag_like(device, B, T, seed=31):
+    rng = np.random.default_rng(seed)
+    trans, streams = rand_word(seed, 8, [(3, 9)], "diag", scale=3.0)
+    model = tm.gmm_hmm_from_numpy(trans, streams).astype(torch.float32).to(device)
+    host = pack_utterances([rng.normal(size=(int(rng.integers(T // 2, T + 1)), 9)) * 3.0 for _ in range(B)],
+                           pad_multiple=1, dtype=torch.float32)
+    return model, host
+
+
+def test_streamed_shards_are_waited_on(cuda_device):
+    """device_put_loader copies each shard from pinned memory on its own
+    stream while the E-step of the previous shard runs: every shard's fused
+    E-step statistics equal, bitwise, those of the same shard copied
+    synchronously (a consumer that did not wait for a copy would read a
+    shard still in flight)."""
+    from srhmm_tpu_torch.io.pipeline import device_put_loader
+    from srhmm_tpu_torch.ops.kernels.common import trans_band
+    from srhmm_tpu_torch.train.streaming import shard_batch
+
+    model, host = _em_diag_like(cuda_device, B=2048, T=400)
+    band = trans_band(model.trans.cpu().numpy())
+    shards = shard_batch(host, 4)
+    launches = fe.emit_forward.launches
+    streamed = [em._e_step_any(model, b, True, None, band) for b in device_put_loader(shards, device=cuda_device)]
+    torch.cuda.synchronize()
+    assert fe.emit_forward.launches == launches + len(shards)
+    for shard, got in zip(shards, streamed):
+        want = em._e_step_any(model, shard.to(cuda_device), True, None, band)
+        for name in ("num_trans", "den_trans", "den_mix", "log_prob", "num_valid"):
+            assert torch.equal(getattr(got, name), getattr(want, name)), name
+        for name in ("w", "x", "xx"):
+            assert torch.equal(getattr(got.streams[0], name), getattr(want.streams[0], name)), name
+
+
+def test_resumed_training_is_bitwise_the_uninterrupted_run(cuda_device, tmp_path):
+    from srhmm_tpu_torch.train.checkpoint import train_fast_resumable
+
+    model, host = _em_diag_like(cuda_device, B=256, T=200)
+    batch = host.to(cuda_device)
+    launches = fe.emit_forward.launches, fe.backward_stats.launches
+    whole = train_fast_resumable(model, batch, tmp_path / "a", max_iterations=6)
+    train_fast_resumable(model, batch, tmp_path / "b", max_iterations=2)
+    resumed = train_fast_resumable(model, batch, tmp_path / "b", max_iterations=6)
+    assert fe.emit_forward.launches > launches[0] and fe.backward_stats.launches > launches[1]
+    assert resumed.iterations == whole.iterations and resumed.log_prob_history == whole.log_prob_history
+    for x, y in zip(resumed.model.buffers(), whole.model.buffers()):
+        assert x.device.type == "cuda" and torch.equal(x, y)
+
+
+def test_timed_waits_for_the_card(cuda_device):
+    from srhmm_tpu_torch.utils import timed
+
+    a = torch.randn(4096, 4096, device=cuda_device)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    out = {}
+    with timed(out, sync=a):
+        start.record()
+        for _ in range(8):
+            a = a @ a / 64.0
+        end.record()
+    assert end.query()  # the timer synchronized before it stopped the clock
+    assert out["seconds"] * 1e3 >= 0.9 * start.elapsed_time(end)

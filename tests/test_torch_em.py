@@ -5,7 +5,7 @@ two-stream models, including the degenerate-mixture donor repair, the
 non-PD diagonal fallback and the --cmvn absolute floor; em_train_scan and
 train_fast against JAX's fused=False path (the same log-prob history at
 rtol 1e-10, the same iteration count, the same final model);
-chunked_convergence_train on a scripted run_chunk; train_word_parity on
+chunked_convergence_train on a scripted run_chunk (and its checkpoint saves); train_word_parity on
 generated data (identical leaves and iterations).
 """
 
@@ -234,8 +234,27 @@ def test_chunked_driver_matches_jax(history, threshold, max_it, chunk):
     script = _Script(history, True)
     got = t_driver.chunked_convergence_train(0, script, threshold, max_it, chunk, log_prob_offset=0.5)
     assert got == want
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        t_driver.chunked_convergence_train(0, script, checkpoint=object())
+    # checkpoint=: both drivers save the same states with the same bookkeeping
+    saves = []
+    for driver, run in ((j_driver, _Script(history, False)), (t_driver, _Script(history, True))):
+        rec = _SaveRecorder()
+        out = driver.chunked_convergence_train(0, run, threshold, max_it, chunk, log_prob_offset=0.5,
+                                               checkpoint=rec)
+        saves.append((out, rec.saves))
+    assert saves[1] == saves[0] and saves[1][0] == want and saves[1][1]
+
+
+class _SaveRecorder:
+    """A checkpoint manager with nothing to resume that records the saves."""
+
+    def __init__(self):
+        self.saves = []
+
+    def latest(self, template):
+        return None
+
+    def save(self, state, ck):
+        self.saves.append((state, ck.iteration, ck.old_log_prob, list(ck.history)))
 
 
 @pytest.mark.parametrize("cov,mixes_dims", [("full", [(1, 3)]), ("diag", [(2, 3), (1, 2)])])

@@ -177,7 +177,7 @@ def test_train_embedded_trajectory_matches_jax():
                                    rtol=2e-3, atol=2e-3)
 
 
-def test_packers_and_unported_options():
+def test_packers_and_unported_options(tmp_path):
     _, _, tmod = _units()
     st = tmod.streams[0]
     a, bias = te.pack_position_bank(st.means, st.inv_cov, st.weights, st.log_abs_det(), D)
@@ -189,7 +189,10 @@ def test_packers_and_unported_options():
     assert rec.shape == (P * S, M, 2 * 8 + 4) and rec.dtype == torch.float32
     with pytest.raises(NotImplementedError, match="mesh"):
         te.train_embedded(tmod, [np.zeros((9, D))], [[0]], mesh=object())
-    with pytest.raises(NotImplementedError, match="checkpoint_dir"):
-        te.train_embedded(tmod, [np.zeros((9, D))], [[0]], checkpoint_dir="ck")
+    # checkpoint_dir= is ported: the run saves, and a rerun resumes from it
+    r1 = te.train_embedded(tmod, [np.zeros((9, D))], [[0]], max_iterations=1, checkpoint_dir=tmp_path / "ck")
+    assert [p.name for p in sorted((tmp_path / "ck").glob("*.json"))] == ["ckpt_000001.json"]
+    r2 = te.train_embedded(tmod, [np.zeros((9, D))], [[0]], max_iterations=1, checkpoint_dir=tmp_path / "ck")
+    assert r2.iterations == r1.iterations == 1 and r2.log_prob_history == r1.log_prob_history
     assert not te._embedded_fused_eligible(tmod.astype(torch.float32), torch.zeros((2, 3), dtype=torch.int32),
                                            torch.zeros((2, 9, D)))  # CPU tensors

@@ -309,8 +309,14 @@ def test_em_step_dispatch_on_cpu():
     np.testing.assert_allclose(m_fused.streams[0].means.numpy(), m_plain.streams[0].means.numpy(),
                                rtol=1e-3, atol=1e-3)
     assert float(nv) == 2.0
-    with pytest.raises(NotImplementedError, match="bf16"):
-        t_em.em_step(tm_, bt, bf16_stats=True)
+    # bf16_stats: the fused kernels have none (fused=True raises), and
+    # fused=None takes the plain path, whose log prob the bf16 moments leave alone
+    with pytest.raises(ValueError, match="bf16"):
+        t_em.em_step(tm_, bt, fused=True, bf16_stats=True)
+    m_bf16, lp_bf16, _ = t_em.em_step(tm_, bt, bf16_stats=True)
+    assert float(lp_bf16) == float(lp_plain)
+    np.testing.assert_allclose(m_bf16.streams[0].means.numpy(), m_plain.streams[0].means.numpy(),
+                               rtol=5e-3, atol=5e-3)
 
 
 def _consts_floats(S, ds, ms, full):

@@ -1,6 +1,8 @@
 """srhmm_tpu_torch.io against srhmm_tpu.io: byte-identical .hmm files,
 .perfil round trips, equal vocabularies and batches."""
 
+import shutil
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -9,6 +11,7 @@ import torch
 import srhmm_tpu.io as jio
 import srhmm_tpu_torch.io as tio
 from srhmm_tpu_torch.io.dataset import load_batch, pack_utterances
+from srhmm_tpu_torch.io.native_loader import NativeLoaderUnavailable
 from torch_port_utils import assert_same_leaves, both_models, rand_word
 
 
@@ -72,8 +75,14 @@ def test_read_vocabulary_and_load_batch_match_jax(tmp_path):
     np.testing.assert_array_equal(bt.features.numpy(), np.asarray(bj.features))
     np.testing.assert_array_equal(bt.lengths.numpy(), np.asarray(bj.lengths))
     np.testing.assert_array_equal(bt.mask().numpy(), np.asarray(bj.mask()))
-    with pytest.raises(NotImplementedError):
-        load_batch(tmp_path / "utts.txt", relative_to=tmp_path, native=True)
+    # native=True reads through the C++ loader, the same bits; without g++ it raises
+    if shutil.which("g++"):
+        bn = load_batch(tmp_path / "utts.txt", relative_to=tmp_path, pad_multiple=8, pad_batch_to=6,
+                        dtype=torch.float64, native=True)
+        assert torch.equal(bn.features, bt.features) and torch.equal(bn.lengths, bt.lengths)
+    else:
+        with pytest.raises(NativeLoaderUnavailable):
+            load_batch(tmp_path / "utts.txt", relative_to=tmp_path, native=True)
 
 
 def test_pack_utterances_dtype_and_padding():

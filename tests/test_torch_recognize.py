@@ -106,6 +106,9 @@ def test_port_imports_no_jax():
         "assert 'srhmm_tpu_torch.cli.recognize' in names and 'srhmm_tpu_torch.ops.kernels.scoring' in names\n"
         "assert {'srhmm_tpu_torch.decode.continuous', 'srhmm_tpu_torch.ops.kernels.decode',\n"
         "        'srhmm_tpu_torch.cli.decode', 'srhmm_tpu_torch.cli.align'} <= set(names)\n"
+        "assert {'srhmm_tpu_torch.train.checkpoint', 'srhmm_tpu_torch.train.streaming',\n"
+        "        'srhmm_tpu_torch.utils.profiling', 'srhmm_tpu_torch.io.native_loader',\n"
+        "        'srhmm_tpu_torch.io.pipeline'} <= set(names)\n"
         "print(len(names))\n"
     )
     env = dict(os.environ, PYTHONPATH=str(REPO))

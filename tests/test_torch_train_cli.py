@@ -4,9 +4,9 @@ on the same generated .perfil files.
 --numerics parity: byte-identical .hmm files and .txt summaries identical
 apart from the time lines.  --numerics fast --scan-iters 4 on the CPU, with
 and without --cmvn global: the models agree at rtol 1e-4 (a fixed iteration
-budget keeps a threshold flip out of the comparison).  Usage errors and the
-flags not ported yet exit non-zero with their messages, and no
-srhmm_tpu_torch module of the slice imports jax.
+budget keeps a threshold flip out of the comparison).  Usage errors exit
+non-zero; --checkpoint-dir and --stream-shards train as the JAX CLI does;
+no srhmm_tpu_torch module of the slice imports jax.
 """
 
 import os
@@ -119,15 +119,40 @@ def test_fast_cli_writes_the_jax_events(tmp_path, monkeypatch, capsys, scan_iter
     assert t_events == j_events
 
 
+def _iterations(summary):
+    return next(l for l in _summary(summary) if "iterations" in l.lower())
+
+
 def test_cli_usage_errors_and_flags_not_ported(tmp_path, monkeypatch, capsys):
+    """Usage errors exit 1; --checkpoint-dir and --stream-shards, once
+    refused, now train as the JAX CLI does (its models within the fast
+    CLI's rtol 1e-4, and atol 1e-4 of each leaf's scale for the means near
+    0 after seven iterations; the same iterations), and a second --checkpoint-dir
+    run resumes from the converged checkpoint to the same .hmm bytes."""
     assert t_cli.main([]) == 1
     assert "Usage: train" in capsys.readouterr().err
-    lists = _fixture(tmp_path, "diag", [(1, 3)], n=2)
+    mixes_dims = [(2, 3)]
+    lists = _fixture(tmp_path, "diag", mixes_dims, n=8, offset=0.0)
     monkeypatch.chdir(tmp_path)
-    for flag in (["--checkpoint-dir", "ck"], ["--stream-shards", "2"]):
-        assert t_cli.main(["--numerics", "fast", *flag, *_args([(1, 3)], lists, "x.hmm")]) == 2
-        assert "not ported" in capsys.readouterr().err
-        assert not (tmp_path / "x.hmm").exists()
+    fast = ["--cov", "diag", "--numerics", "fast"]
+    for name, flag in (("ck", ["--checkpoint-dir"]), ("st", ["--stream-shards", "3"])):
+        jflag = flag + ([f"{name}_jax"] if name == "ck" else [])
+        tflag = flag + ([f"{name}_torch"] if name == "ck" else [])
+        assert j_cli.main(fast + jflag + _args(mixes_dims, lists, f"{name}_jax.hmm")) == 0
+        assert t_cli.main(fast + tflag + ["--device", "cpu"] + _args(mixes_dims, lists, f"{name}_torch.hmm")) == 0
+        mj, mt = jio.read_hmm(f"{name}_jax.hmm"), tio.read_hmm(f"{name}_torch.hmm")
+        np.testing.assert_allclose(mt.trans.numpy(), np.asarray(mj.trans), rtol=1e-4, atol=1e-6)
+        for leaf in ("weights", "means", "inv_cov", "det"):
+            want = np.asarray(getattr(mj.streams[0], leaf))
+            np.testing.assert_allclose(getattr(mt.streams[0], leaf).numpy(), want, rtol=1e-4,
+                                       atol=1e-4 * np.abs(want).max())
+        assert _iterations(f"{name}_torch.txt") == _iterations(f"{name}_jax.txt")
+    assert sorted(p.name for p in (tmp_path / "ck_torch").glob("*.json"))
+    first = (tmp_path / "ck_torch.hmm").read_bytes()
+    assert t_cli.main(fast + ["--checkpoint-dir", "ck_torch", "--device", "cpu"]
+                      + _args(mixes_dims, lists, "ck_torch.hmm")) == 0
+    assert (tmp_path / "ck_torch.hmm").read_bytes() == first
+    capsys.readouterr()
 
 
 def test_train_slice_imports_no_jax():
@@ -136,6 +161,8 @@ def test_train_slice_imports_no_jax():
         "import srhmm_tpu_torch.cli.train, srhmm_tpu_torch.train.em, srhmm_tpu_torch.train.driver\n"
         "import srhmm_tpu_torch.ops.kernels.fused_em, srhmm_tpu_torch.init, srhmm_tpu_torch.features\n"
         "import srhmm_tpu_torch.ops.linalg_parity, srhmm_tpu_torch.train.em_parity\n"
+        "import srhmm_tpu_torch.train.checkpoint, srhmm_tpu_torch.train.streaming, srhmm_tpu_torch.io.pipeline\n"
+        "import srhmm_tpu_torch.io.native_loader, srhmm_tpu_torch.utils.profiling\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'srhmm_tpu')]\n"
         "assert not bad, bad\n"
     )

@@ -77,10 +77,23 @@ def test_train_embedded_cli_matches_jax(tmp_path, monkeypatch, capsys, tied, ext
     assert json.loads(printed)["tied"] is tied
 
 
-def test_train_embedded_cli_refuses_what_is_not_ported(tmp_path, capsys):
-    (tmp_path / "trans.txt").write_text("u.perfil a\n")
-    for flag in (["--checkpoint-dir", "ck"], ["--data-parallel", "2"]):
-        assert t_cli.main([str(tmp_path / "trans.txt"), str(tmp_path / "out"), "--device", "cpu"] + flag) == 2
-        assert "not ported" in capsys.readouterr().err
+def test_train_embedded_cli_refuses_what_is_not_ported(tmp_path, monkeypatch, capsys):
+    """--data-parallel is still refused; --checkpoint-dir trains, and a
+    second run with the same directory resumes to the same .hmm files."""
+    (tmp_path / "one.txt").write_text("u.perfil a\n")
+    assert t_cli.main([str(tmp_path / "one.txt"), str(tmp_path / "out"), "--device", "cpu",
+                       "--data-parallel", "2"]) == 2
+    assert "not ported" in capsys.readouterr().err
     assert not (tmp_path / "out").exists()
+    _fixture(tmp_path, UNITS, [[0, 1, 2], [2, 3, 0], [1, 0, 3], [3, 2, 1], [0, 2], [1, 3]])
+    monkeypatch.chdir(tmp_path)
+    flags = ["--device", "cpu", "--max-iters", "4", "--chunk", "2", "--checkpoint-dir", "ck"]
+    assert t_cli.main(["trans.txt", "first"] + flags) == 0
+    assert sorted(p.name for p in (tmp_path / "ck").glob("*.json"))
+    assert t_cli.main(["trans.txt", "again"] + flags) == 0
+    for u in UNITS:
+        assert (tmp_path / "again" / f"{u}.hmm").read_bytes() == (tmp_path / "first" / f"{u}.hmm").read_bytes()
+    runs = [json.loads((tmp_path / d / "summary.json").read_text()) for d in ("first", "again")]
+    assert runs[0]["iterations"] == runs[1]["iterations"]
+    capsys.readouterr()
     assert t_cli.parse_triphone("l-c+r") == ("l", "c", "r") and t_cli.parse_triphone("ab") == ("", "ab", "")
