@@ -173,6 +173,30 @@ each (any failure raises, so the exit code is non-zero):
               em_diag and per row at diag10 (20,480 rows) vs its twin and vs
               the vocab_scores kernel (1e-4), viterbi_batch (pointer
               mismatches <= 1e-4); each of the eight kernels launched
+    multi     multi-device training on MULTI_RANKS = 2 spawned ranks (one
+              process each; on a one-card host they share cuda:0 and the
+              backend rule gives gloo, so this measures correctness, not
+              scaling): (a) e_step_fused_lane_sharded at em_diag within
+              STAT_BOUND of one process's e_step_fused_lane, train_fast(
+              data_mesh=) 6 iterations within rtol 1e-5; (b) score_batch_
+              sharded at full13 within BOUND, the same rankings; (c)
+              train_embedded / train_tied(mesh=) at emb_c4 / tied_c5, 4
+              iterations, histories rtol 2e-4; (d) em_step_sharded on a
+              (1, 2) mesh, em_diag's shape with M=4, float64 within rtol
+              1e-9 / atol 1e-12 (log prob 1e-12) of em_step(fused=False),
+              float32 statistics within STAT_BOUND; (e) e_step_time_sharded
+              at B=32 utterances of 8192 frames, utterance 0's time-sharded
+              lattice within TIME_F64_LATTICE_BOUND of an extended-precision
+              recursion (forward_extended), float64 statistics within
+              TIME_F64_STATS_BOUND of e_step's (max|k-p| / max|p|; log prob
+              rtol 1e-12), float32 log prob within 1e-2; (f)
+              pipe_c3 on the mesh at clean / 10 / 0 dB, WER <= 0.10 / 0.10 /
+              0.5; (g) the train_embedded CLI under torchrun
+              --data-parallel 2, its models decoding the held-out strings at
+              WER <= 5 %; (h) one NCCL rank a card, (a)'s calls, bitwise one
+              process's on one card.  Each rank's launches of #1, #2 / #3
+              and #9-#12 must be above 0 (set to 0 before each call, read
+              after); the kernels line's launches_multi sums them
   4 timing    every kernel and its plain version at the main-path shapes, and
               one whole EM iteration through the kernels vs fused=False;
               CUDA events, median of 20 after warm-up (the decode, composed,
@@ -2844,7 +2868,7 @@ def phase_pipeline(torch) -> dict:
 
     set_pipeline_counts({k: 0 for k in pipeline_counts()})
     base = PipelineConfig(min_words=3, max_words=3)
-    out = {}
+    out, hyps = {}, {}
     for label, snr, gate in (("clean", None, 0.10), ("10db", 10.0, 0.10), ("0db", 0.0, 0.5)):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2860,6 +2884,7 @@ def phase_pipeline(torch) -> dict:
             raise AssertionError(f"pipeline {label}: log probabilities not finite")
         if not 3 <= res.n_senones < res.n_units * 3 or set(res.stage_seconds) != set(PIPELINE_STAGES):
             raise AssertionError(f"pipeline {label}: {res.n_senones} senones, stages {res.stage_seconds}")
+        hyps[label] = res.hyps
         out[label] = {"wer": res.wer.wer, "ref_words": res.wer.num_ref_words, "n_senones": res.n_senones,
                       "n_units": res.n_units, "mono_iterations": res.mono_iterations,
                       "tied_iterations": res.tied_iterations, "mono_log_prob": res.mono_log_prob,
@@ -2883,7 +2908,7 @@ def phase_pipeline(torch) -> dict:
         if n < 1:
             raise AssertionError(f"the pipeline launched {k} 0 times")
     emit({"phase": "pipeline_launches", **launches})
-    return {"runs": out, "cli": summary, "launches": launches}
+    return {"runs": out, "cli": summary, "launches": launches, "hyps": hyps}
 
 
 def phase_timing_mfcc(torch, smi: str) -> dict:
@@ -3959,6 +3984,442 @@ def phase_production(torch, train_diag: dict, train_cli: dict, emb: dict, tied: 
     emit({"phase": "production", "step": "done", "seconds": time.perf_counter() - t0})
 
 
+# ---------------------------------------------------------------------------
+# multi: data-, mixture- and time-parallel training on ranks of one host
+# ---------------------------------------------------------------------------
+
+MULTI_RANKS = 2  # ranks of phase multi; on a one-card host they share cuda:0 (gloo, the backend rule)
+MULTI_TIMEOUT_S = 480.0  # a group of ranks is killed after this long
+MULTI_KERNELS = ("vocab_scores", "emit_forward", "backward_stats", "bank_emission", "composed_forward",
+                 "composed_backward_stats", "bank_moments_lattice")  # TPU kernels #1, #2 / #3, #9-#12
+MULTI_NOTE = "ranks that share one card measure correctness, not scaling"
+TIME_SHARDED = (32, 8192)  # (e): B utterances of T frames (82 s each), the frames split over the ranks
+# (e) float64: the time-sharded lattice's max abs difference from an
+# extended-precision recursion, and the statistics' max|k-p| / max|p| against
+# the plain e_step, whose own log-alpha is up to 4.0e-8 off the extended
+# recursion at T = 8192 (|log alpha| up to 5.9e5; H100 80GB HBM3, 700 W)
+TIME_F64_LATTICE_BOUND = 1e-8
+TIME_F64_STATS_BOUND = 1e-7
+
+
+def forward_extended(log_b: np.ndarray, log_trans: np.ndarray) -> np.ndarray:
+    """The (T, S) log-alpha recursion of ops/forward_backward.py in numpy
+    longdouble (x86 extended precision, a 64-bit mantissa): a reference
+    finer than either float64 order of the recursion."""
+    L = np.longdouble
+    lb, lt = log_b.astype(L), log_trans.astype(L)
+    alpha = np.full(lb.shape[1], -np.inf, dtype=L)
+    alpha[0] = 0.0
+    alpha = alpha + lb[0]
+    rows = [alpha]
+    for t in range(1, len(lb)):
+        x = alpha[:, None] + lt
+        m = np.max(x, axis=0)
+        safe = np.where(np.isfinite(m), m, L(0.0))
+        with np.errstate(divide="ignore"):
+            alpha = np.log(np.sum(np.exp(x - safe), axis=0)) + safe + lb[t]
+        rows.append(alpha)
+    return np.stack(rows).astype(np.float64)
+
+
+def multi_counts() -> dict:
+    from srhmm_tpu_torch.ops.kernels.scoring import vocab_scores
+
+    counts = {"vocab_scores": vocab_scores.launches, **fused_counts(), **composed_counts()}
+    return {k: counts[k] for k in MULTI_KERNELS}
+
+
+def set_multi_counts(counts: dict) -> None:
+    from srhmm_tpu_torch.ops.kernels.scoring import vocab_scores
+
+    vocab_scores.launches = counts["vocab_scores"]
+    set_fused_counts({k: counts[k] for k in fused_counts()})
+    set_composed_counts({k: counts.get(k, n) for k, n in composed_counts().items()})
+
+
+def numpy_stats(st) -> dict:
+    return {k: v.detach().double().cpu().numpy() for k, v in
+            {**stat_fields(st), "log_prob": st.log_prob, "num_valid": st.num_valid}.items()}
+
+
+def model_numpy(model) -> list:
+    return [t.detach().double().cpu().numpy() for t in
+            (model.trans, *[x for s in model.streams for x in (s.weights, s.means, s.inv_cov, s.log_abs_det())])]
+
+
+def multi_rank(rank: int, inputs: str) -> dict:
+    """One rank of phase multi, (a)-(f): every call through the entry points a
+    user would call, its launch counters set to 0 just before and read just
+    after; results come back as numpy for the parent to hold against its
+    one-process runs."""
+    import torch
+    import torch.distributed as dist
+
+    from srhmm_tpu_torch.decode.scorer import score_batch_sharded
+    from srhmm_tpu_torch.io.dataset import UtteranceBatch
+    from srhmm_tpu_torch.parallel import distributed
+    from srhmm_tpu_torch.parallel.mesh import MODEL_AXIS, em_step_sharded, gather_model, make_mesh, shard_model
+    from srhmm_tpu_torch.ops.emission import log_state_emission
+    from srhmm_tpu_torch.parallel.sequence import e_step_time_sharded, log_forward_time_sharded, make_time_mesh
+    from srhmm_tpu_torch.pipeline import PipelineConfig, run_pipeline
+    from srhmm_tpu_torch.train.em import e_step, e_step_fused_lane_sharded, train_fast
+    from srhmm_tpu_torch.train.embedded import train_embedded
+    from srhmm_tpu_torch.train.tied import train_tied
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    inp = torch.load(inputs, weights_only=False)  # written by this script's parent process
+    dev = distributed.local_device("cuda")
+    mesh = make_mesh(device="cuda")
+    out = {"backend": dist.get_backend(), "device": str(dev), "world": distributed.world_size(), "launches": {},
+           "wall_s": {}}
+
+    def run(name, fn):
+        set_multi_counts({k: 0 for k in MULTI_KERNELS})
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize(dev)
+        out["wall_s"][name] = time.perf_counter() - t0
+        out["launches"][name] = multi_counts()
+        return r
+
+    def on_card(b):
+        return UtteranceBatch(b.features.to(dev), b.lengths.to(dev))
+
+    # (a) data-parallel isolated-word EM at em_diag
+    model, batch = inp["em_model"].to(dev), on_card(inp["em_batch"])
+    out["a_stats"] = numpy_stats(run("a_e_step", lambda: e_step_fused_lane_sharded(model, batch, mesh)))
+    res = run("a_train_fast", lambda: train_fast(model, batch, threshold=-1.0, max_iterations=6, data_mesh=mesh))
+    out["a_history"] = np.asarray(res.log_prob_history)
+
+    # (b) sharded scoring at full13
+    vocab, sb = inp["vocab"].to(dev), on_card(inp["vocab_batch"])
+    out["b_scores"] = run("b_scores", lambda: score_batch_sharded(vocab, sb, mesh, mode="total")).cpu().numpy()
+
+    # (c) emb_c4 and tied_c5, 4 iterations each
+    for key, fn, start, kw in (("c_emb", train_embedded, inp["emb_models"], {}),
+                               ("c_tied", train_tied, inp["tied"], {"var_floor": TIED_C5_VAR_FLOOR})):
+        res = run(key, lambda: fn(start.to(dev), inp[f"{key}_utts"], inp[f"{key}_trs"], max_iterations=4,
+                                  chunk=4, threshold=-1.0, mesh=mesh, **kw))
+        out[f"{key}_history"] = np.asarray(res.log_prob_history)
+
+    # (d) the mixture axis over the ranks: mesh (1, n), M = 4
+    mmesh = make_mesh(n_data=1, n_model=distributed.world_size(), device="cuda")
+    mix = inp["mix_model"].to(dev)
+    b64 = UtteranceBatch(batch.features.double(), batch.lengths)
+    new, lp, nv = run("d_em_step_f64", lambda: em_step_sharded(shard_model(mix, mmesh), b64, mmesh))
+    out["d_f64"] = (model_numpy(gather_model(new, mmesh)), float(lp), float(nv))
+    mix32 = shard_model(mix.astype(torch.float32), mmesh)
+    st = run("d_e_step_f32", lambda: e_step(mix32, batch, model_group=mmesh.group(MODEL_AXIS)))
+    out["d_f32"] = (mmesh.index(MODEL_AXIS), numpy_stats(st))
+
+    # (e) the time axis over the ranks: B utterances of T frames
+    tmesh = make_time_mesh(device="cuda")
+    tb = on_card(inp["time_batch"])
+    for key, dtype in (("e_f64", torch.float64), ("e_f32", torch.float32)):
+        m, b = model.astype(dtype), UtteranceBatch(tb.features.to(dtype), tb.lengths)
+        out[key] = numpy_stats(run(key, lambda: e_step_time_sharded(m, b, tmesh)))
+    m64 = model.astype(torch.float64)
+    lb0 = log_state_emission(tb.features[0].double(), m64.streams)  # utterance 0's (T, S) log b
+    out["e_lattice"] = (lb0.cpu().numpy(), log_forward_time_sharded(lb0, m64.log_trans(), tmesh).cpu().numpy())
+
+    # (f) pipe_c3 with both EM stages on the mesh
+    out["f"] = {}
+    for label, snr in (("clean", None), ("10db", 10.0), ("0db", 0.0)):
+        cfg = PipelineConfig(min_words=3, max_words=3, snr_db=snr)
+        res = run(f"f_{label}", lambda: run_pipeline(cfg, n_train=40, n_test=16, max_iterations=5, tied_iterations=5,
+                                                     n_best=2, pad_multiple=128, mesh=mesh, device=dev))
+        out["f"][label] = {"wer": res.wer.wer, "hyps": res.hyps}
+    return out
+
+
+def multi_nccl_rank(rank: int, inputs: str) -> dict:
+    """(h): one rank a card over NCCL, (a)'s e_step_fused_lane_sharded and
+    train_fast(data_mesh=) at em_diag."""
+    import torch
+    import torch.distributed as dist
+
+    from srhmm_tpu_torch.io.dataset import UtteranceBatch
+    from srhmm_tpu_torch.parallel import distributed
+    from srhmm_tpu_torch.parallel.mesh import make_mesh
+    from srhmm_tpu_torch.train.em import e_step_fused_lane_sharded, train_fast
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    inp = torch.load(inputs, weights_only=False)  # written by this script's parent process
+    dev = distributed.local_device("cuda")
+    ones = distributed.all_reduce(torch.ones(1, device=dev), dist.group.WORLD)  # a collective over NCCL
+    mesh = make_mesh(device="cuda")
+    model = inp["em_model"].to(dev)
+    batch = UtteranceBatch(inp["em_batch"].features.to(dev), inp["em_batch"].lengths.to(dev))
+    set_multi_counts({k: 0 for k in MULTI_KERNELS})
+    st = e_step_fused_lane_sharded(model, batch, mesh)
+    res = train_fast(model, batch, threshold=-1.0, max_iterations=6, data_mesh=mesh)
+    torch.cuda.synchronize(dev)
+    return {"backend": dist.get_backend(), "device": str(dev), "all_reduce_ones": float(ones),
+            "stats": numpy_stats(st), "history": np.asarray(res.log_prob_history), "launches": multi_counts()}
+
+
+def stats_within(got: dict, want: dict, what: str, rel=STAT_BOUND) -> float:
+    """max |got - want| / max |want| over every statistic; raises above rel."""
+    worst = 0.0
+    for k, p in want.items():
+        err = float(np.abs(got[k] - p).max()) / max(float(np.abs(p).max()), 1e-30)
+        if not err <= rel:
+            raise AssertionError(f"{what}: {k} max|k-p| = {err:.3e} of max|p| > {rel}")
+        worst = max(worst, err)
+    return worst
+
+
+def multi_cli(torch, root: Path, smi: str) -> dict:
+    """(g): the train_embedded CLI under torchrun with --data-parallel 2 on
+    the train_embedded_cli phase's strings; its models decode the held-out
+    strings through the decode CLI at WER <= 5 %."""
+    from srhmm_tpu_torch.cli import decode as decode_cli
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", f"--nproc-per-node={MULTI_RANKS}",
+         "-m", "srhmm_tpu_torch.cli.train_embedded", str(root / "trans.txt"), str(root / "mono_dp"),
+         "--states", "3", "--mix", "2", "--scan-iters", "8", "--device", "cuda",
+         "--data-parallel", str(MULTI_RANKS)],
+        cwd=root, env=env, capture_output=True, text=True, timeout=300,
+    )
+    wall = time.perf_counter() - t0
+    if r.returncode != 0:
+        raise RuntimeError(f"train_embedded --data-parallel under torchrun failed:\n{r.stderr[-4000:]}")
+    summary = json.loads((root / "mono_dp" / "summary.json").read_text())
+    names = summary["units"]
+    (root / "models_dp.txt").write_text("".join(f"{root}/mono_dp/{n}.hmm\n" for n in names))
+    rc = decode_cli.main([str(root / "models_dp.txt"), str(root / "inputs.txt"), str(root / "out_dp.txt"),
+                          "--batch", "--ref", str(root / "ref.txt")])
+    wer_line = [l for l in (root / "out_dp.txt").read_text().splitlines() if l.startswith("WER:")]
+    if rc != 0 or not wer_line:
+        raise AssertionError(f"decode CLI on the data-parallel models: exit {rc}, no WER line")
+    wer = float(wer_line[0].split()[1].rstrip("%"))
+    if not wer <= 5.0:
+        raise AssertionError(f"train_embedded --data-parallel {MULTI_RANKS} models: held-out WER {wer}% > 5%")
+    return {"ranks": MULTI_RANKS, "data_parallel": summary["data_parallel"], "iterations": summary["iterations"],
+            "wer_percent": wer, "torchrun_wall_s": wall, "card": smi}
+
+
+def phase_multi(torch, train_diag: dict, main_full: dict, emb: dict, tied: dict, pipe: dict, te_cli_root: Path,
+                tmp: Path, smi: str) -> dict:
+    """Multi-device training, (a)-(h): MULTI_RANKS spawned ranks (on one
+    card they share cuda:0 over gloo) run the data-parallel E-step and
+    train_fast at em_diag, sharded scoring at full13, emb_c4 / tied_c5, the
+    mixture-sharded EM step, the time-sharded E-step, pipe_c3 on a mesh;
+    then the train_embedded CLI under torchrun, and NCCL with one rank a
+    card.  Every rank's results are held against this process's
+    one-process runs; the counters this process touches are restored."""
+    from srhmm_tpu_torch.decode.scorer import score_batch
+    from srhmm_tpu_torch.io.dataset import UtteranceBatch
+    from srhmm_tpu_torch.models import gmm_hmm_from_numpy
+    from srhmm_tpu_torch.ops.forward_backward import log_forward_full
+    from srhmm_tpu_torch.ops.kernels.common import trans_band
+    from srhmm_tpu_torch.parallel import distributed
+    from srhmm_tpu_torch.train.em import e_step, e_step_fused_lane, em_step, train_fast
+    from srhmm_tpu_torch.train.embedded import train_embedded
+    from srhmm_tpu_torch.train.tied import train_tied
+
+    from copy import deepcopy
+
+    saved = multi_counts()
+    t_phase = time.perf_counter()
+    model, batch = train_diag["trained"], train_diag["batch"]
+    B, T, D = batch.features.shape
+    S = model.num_states
+    mix = gmm_hmm_from_numpy(left_right_trans(S, 60.0), [rand_stream(np.random.default_rng(61), S, 4, D, "diag")])
+    tB, tT = TIME_SHARDED
+    time_utts = make_dataset(21, tB, S, 3, D, (tT, tT + 1))  # em_diag's generative process at 82 s
+    time_batch = UtteranceBatch(torch.as_tensor(np.stack(time_utts), dtype=torch.float32),
+                                torch.full((tB,), tT, dtype=torch.int32))
+    cpu = lambda b: UtteranceBatch(b.features.cpu(), b.lengths.cpu())
+    copy = lambda m: deepcopy(m).to("cpu")  # Module.to moves in place
+    inputs = tmp / "multi_inputs.pt"
+    torch.save({
+        "em_model": copy(model), "em_batch": cpu(batch),
+        "vocab": copy(main_full["vocab"]), "vocab_batch": cpu(main_full["batch"]),
+        "emb_models": copy(emb["models"]), "c_emb_utts": emb["utts"], "c_emb_trs": emb["trs"],
+        "tied": copy(tied["tied"]), "c_tied_utts": tied["utts"], "c_tied_trs": tied["trs"],
+        "mix_model": mix, "time_batch": time_batch,
+    }, inputs)
+
+    t0 = time.perf_counter()
+    ranks = distributed.spawn(multi_rank, MULTI_RANKS, args=(str(inputs),), device="cuda",
+                              timeout_s=MULTI_TIMEOUT_S, workdir=tmp)
+    group_wall = time.perf_counter() - t0
+    backends = {r["backend"] for r in ranks}
+    want_backend = distributed.backend_for("cuda", MULTI_RANKS)
+    if backends != {want_backend}:
+        raise AssertionError(f"multi: the ranks ran {backends}, the backend rule says {want_backend}")
+    for i, r in enumerate(ranks):
+        for name, kernels in (("a_e_step", ("emit_forward", "backward_stats")),
+                              ("a_train_fast", ("emit_forward", "backward_stats")),
+                              ("b_scores", ("vocab_scores",)),
+                              ("c_emb", MULTI_KERNELS[3:]), ("c_tied", MULTI_KERNELS[3:])):
+            for k in kernels:
+                if r["launches"][name][k] < 1:
+                    raise AssertionError(f"multi rank {i}: {name} launched {k} 0 times")
+    launches = {k: sum(r["launches"][name][k] for r in ranks for name in r["launches"]) for k in MULTI_KERNELS}
+    common = {"phase": "multi", "ranks": MULTI_RANKS, "backend": want_backend, "devices": [r["device"] for r in ranks],
+              "note": MULTI_NOTE, "card": smi}
+
+    # (a)
+    ref = numpy_stats(e_step_fused_lane(model, batch, band=trans_band(model.trans.cpu().numpy())))
+    a_err = [stats_within(r["a_stats"], ref, f"multi (a) rank {i}") for i, r in enumerate(ranks)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    one = train_fast(model, batch, threshold=-1.0, max_iterations=6)
+    torch.cuda.synchronize()
+    one_ms = (time.perf_counter() - t0) * 1e3 / 6
+    one_history = one.log_prob_history
+    for i, r in enumerate(ranks):
+        np.testing.assert_allclose(r["a_history"], one.log_prob_history, rtol=1e-5, err_msg=f"multi (a) rank {i}")
+    emit({**common, "step": "a_em_diag", "B": B, "T": T, "stats_max_rel_vs_one_process": max(a_err),
+          "history": ranks[0]["a_history"].tolist(), "one_process_history": one.log_prob_history,
+          "ms_per_iteration_sharded": [r["wall_s"]["a_train_fast"] * 1e3 / 6 for r in ranks],
+          "ms_per_iteration_one_process": one_ms,
+          "launches": [{n: r["launches"][n] for n in ("a_e_step", "a_train_fast")} for r in ranks]})
+
+    # (b)
+    want = score_batch(main_full["vocab"], main_full["batch"], mode="total").double().cpu().numpy()
+    fin = np.isfinite(want)
+    b_err = 0.0
+    for i, r in enumerate(ranks):
+        got = r["b_scores"]
+        if not (np.isfinite(got) == fin).all():
+            raise AssertionError(f"multi (b) rank {i}: finite masks differ")
+        err = float(np.abs(got[fin] - want[fin]).max() / max(np.abs(want[fin]).max(), 1.0))
+        if not err <= BOUND:
+            raise AssertionError(f"multi (b) rank {i}: scores max|k-p|/max(|p|,1) = {err} > {BOUND}")
+        ranks_equal = all((np.argsort(-got[u], kind="stable") == np.argsort(-want[u], kind="stable")).all()
+                          for u in range(len(got)))
+        if not ranks_equal:
+            raise AssertionError(f"multi (b) rank {i}: rankings differ from one process's")
+        b_err = max(b_err, err)
+    emit({**common, "step": "b_full13_scoring", "B": int(want.shape[0]), "W": int(want.shape[1]),
+          "scores_max_rel": b_err, "rankings_equal": True,
+          "wall_s_sharded": [r["wall_s"]["b_scores"] for r in ranks]})
+
+    # (c)
+    for key, fn, start, utts, trs, kw in (
+            ("c_emb", train_embedded, emb["models"], emb["utts"], emb["trs"], {}),
+            ("c_tied", train_tied, tied["tied"], tied["utts"], tied["trs"], {"var_floor": TIED_C5_VAR_FLOOR})):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one = fn(start, utts, trs, max_iterations=4, chunk=4, threshold=-1.0, **kw)
+        torch.cuda.synchronize()
+        one_ms = (time.perf_counter() - t0) * 1e3 / 4
+        for i, r in enumerate(ranks):
+            np.testing.assert_allclose(r[f"{key}_history"], one.log_prob_history, rtol=2e-4,
+                                       err_msg=f"multi {key} rank {i}")
+        emit({**common, "step": key, "history": ranks[0][f"{key}_history"].tolist(),
+              "one_process_history": one.log_prob_history,
+              "history_max_rel": float(np.max(np.abs(ranks[0][f"{key}_history"] - one.log_prob_history)
+                                              / np.abs(one.log_prob_history))),
+              "ms_per_iteration_sharded": [r["wall_s"][key] * 1e3 / 4 for r in ranks],
+              "ms_per_iteration_one_process": one_ms})
+
+    # (d)
+    mix_cuda = deepcopy(mix).to(batch.features.device)
+    b64 = UtteranceBatch(batch.features.double(), batch.lengths)
+    ref_model, ref_lp, ref_nv = em_step(mix_cuda, b64, fused=False)
+    ref_leaves = model_numpy(ref_model)
+    ref32 = numpy_stats(e_step(mix_cuda.astype(torch.float32), batch))
+    d32_err = 0.0
+    for i, r in enumerate(ranks):
+        leaves, lp, nv = r["d_f64"]
+        np.testing.assert_allclose(lp, float(ref_lp), rtol=1e-12, err_msg=f"multi (d) rank {i} log prob")
+        if nv != float(ref_nv):
+            raise AssertionError(f"multi (d) rank {i}: num_valid {nv} != {float(ref_nv)}")
+        for a, b in zip(leaves, ref_leaves):
+            np.testing.assert_allclose(a, b, rtol=1e-9, atol=1e-12, err_msg=f"multi (d) rank {i} model")
+        part, st = r["d_f32"]
+        m = 4 // MULTI_RANKS
+        local_ref = {k: (v[:, part * m:(part + 1) * m] if k in ("w", "x", "xx") else v) for k, v in ref32.items()}
+        d32_err = max(d32_err, stats_within(st, local_ref, f"multi (d) float32 rank {i}"))
+    emit({**common, "step": "d_mixture_sharded", "mesh": [1, MULTI_RANKS], "S": S, "M": 4, "D": D, "B": B, "T": T,
+          "float64_log_prob": float(ref_lp), "float32_stats_max_rel": d32_err,
+          "wall_s_sharded_f64": [r["wall_s"]["d_em_step_f64"] for r in ranks]})
+
+    # (e): the time-sharded lattice of utterance 0 against an
+    # extended-precision recursion, the float64 statistics against the plain
+    # e_step in the summed statistics' form (elementwise rtol 1e-9 does not
+    # hold at T = 8192 for any other order of the recursion)
+    dev = batch.features.device
+    tb = UtteranceBatch(time_batch.features.to(dev), time_batch.lengths.to(dev))
+    m64 = model.astype(torch.float64)
+    ref64 = numpy_stats(e_step(m64, UtteranceBatch(tb.features.double(), tb.lengths)))
+    lb0, la_sharded = ranks[0]["e_lattice"]
+    lt64 = m64.log_trans().cpu().numpy()
+    la_ext = forward_extended(lb0, lt64)
+    la_plain = log_forward_full(torch.as_tensor(lb0, device=dev), torch.as_tensor(lt64, device=dev)).cpu().numpy()
+    fin = np.isfinite(la_ext)
+    if not ((np.isfinite(la_sharded) == fin).all() and (np.isfinite(la_plain) == fin).all()):
+        raise AssertionError("multi (e): the lattices' finite masks differ")
+    err_sharded = float(np.abs(la_sharded[fin] - la_ext[fin]).max())
+    err_plain = float(np.abs(la_plain[fin] - la_ext[fin]).max())
+    if not err_sharded <= TIME_F64_LATTICE_BOUND:
+        raise AssertionError(f"multi (e): the time-sharded lattice is {err_sharded} off the extended recursion")
+    e64_err, e32_dev = 0.0, 0.0
+    for i, r in enumerate(ranks):
+        e64_err = max(e64_err, stats_within(r["e_f64"], ref64, f"multi (e) float64 rank {i}", TIME_F64_STATS_BOUND))
+        np.testing.assert_allclose(r["e_f64"]["log_prob"], ref64["log_prob"], rtol=1e-12, err_msg="multi (e)")
+        lp32, lp64 = float(r["e_f32"]["log_prob"]), float(ref64["log_prob"])
+        if not abs(lp32 - lp64) <= 1e-2 * abs(lp64):
+            raise AssertionError(f"multi (e) rank {i}: float32 log prob {lp32} vs float64 {lp64}")
+        e32_dev = max(e32_dev, max(float(np.abs(r["e_f32"][k] - a).max() / max(np.abs(a).max(), 1e-30))
+                                   for k, a in ref64.items()))
+    emit({**common, "step": "e_time_sharded", "B": tB, "T": tT, "seconds_per_utterance": tT * FRAME_S,
+          "float64_log_prob": float(ref64["log_prob"]), "float64_stats_max_rel": e64_err,
+          "lattice_max_abs_vs_extended": {"sharded": err_sharded, "plain": err_plain,
+                                          "max_abs_log_alpha": float(np.abs(la_ext[fin]).max())},
+          "float32_max_dev_rel_vs_float64": e32_dev,
+          "wall_s_sharded": {k: [r["wall_s"][k] for r in ranks] for k in ("e_f64", "e_f32")}})
+
+    # (f)
+    gates = {"clean": 0.10, "10db": 0.10, "0db": 0.5}
+    for label, gate in gates.items():
+        for i, r in enumerate(ranks):
+            if not r["f"][label]["wer"] <= gate:
+                raise AssertionError(f"multi (f) {label} rank {i}: WER {r['f'][label]['wer']} > {gate}")
+    emit({**common, "step": "f_pipe_c3", "wer": {k: ranks[0]["f"][k]["wer"] for k in gates},
+          "hyps_equal_one_rank": {k: all(r["f"][k]["hyps"] == pipe["hyps"][k] for r in ranks) for k in gates},
+          "wall_s_sharded": {k: [r["wall_s"][f"f_{k}"] for r in ranks] for k in gates}})
+
+    # (g)
+    emit({**common, "step": "g_train_embedded_cli", **multi_cli(torch, te_cli_root, smi)})
+
+    # (h): NCCL, one rank a card
+    n_cards = torch.cuda.device_count()
+    if distributed.backend_for("cuda", n_cards) != "nccl":
+        raise AssertionError("multi (h): the backend rule does not give nccl with a card a rank")
+    nccl = distributed.spawn(multi_nccl_rank, n_cards, args=(str(inputs),), device="cuda",
+                             timeout_s=MULTI_TIMEOUT_S, workdir=tmp)
+    for i, r in enumerate(nccl):
+        if r["backend"] != "nccl" or r["all_reduce_ones"] != n_cards or r["launches"]["emit_forward"] < 1:
+            raise AssertionError(f"multi (h) rank {i}: {r['backend']}, all_reduce {r['all_reduce_ones']}, "
+                                 f"launches {r['launches']}")
+        if n_cards == 1:
+            if not all(np.array_equal(r["stats"][k], ref[k]) for k in ref):
+                raise AssertionError("multi (h): one NCCL rank's statistics differ from one process's")
+            if not np.array_equal(r["history"], np.asarray(one_history)):
+                raise AssertionError("multi (h): one NCCL rank's train_fast differs from one process's")
+        else:
+            stats_within(r["stats"], ref, f"multi (h) rank {i}")
+            np.testing.assert_allclose(r["history"], one_history, rtol=1e-5, err_msg=f"multi (h) rank {i}")
+    emit({**common, "step": "h_nccl", "ranks": n_cards, "backend": nccl[0]["backend"],
+          "bitwise_equal_one_process": n_cards == 1, "devices": [r["device"] for r in nccl]})
+
+    set_multi_counts(saved)
+    out = {"phase": "multi", "step": "done", "seconds": time.perf_counter() - t_phase,
+           "rank_group_wall_s": group_wall, "launches": launches}
+    emit(out)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4008,6 +4469,10 @@ def main() -> int:
         # the lattice / Viterbi / fused-emission path at em_diag and diag10;
         # launches counted over the phase (phase_lane_em)
         lane = phase_lane_em(torch, train_diag, main_diag)
+        # multi-device training on spawned ranks and under torchrun; the
+        # ranks count their own launches (phase_multi)
+        multi = phase_multi(torch, train_diag, main_full, emb, tied, pipe, tmp / "train_embedded_cli", tmp,
+                            info["nvidia_smi"])
         t_full = phase_timing(torch, main_full, info["nvidia_smi"])
         t_diag = phase_timing(torch, main_diag, info["nvidia_smi"])
         em_diag = phase_timing_em(torch, train_diag, info["nvidia_smi"])
@@ -4038,6 +4503,8 @@ def main() -> int:
             "source": "srhmm_tpu_torch/csrc/vocab_scores.cu",
             "replaces": "srhmm_tpu/ops/pallas/scoring_pallas.py:301",
             "launches": launches,
+            # the multi phase's launches, summed over its ranks (phase_multi)
+            "launches_multi": multi["launches"]["vocab_scores"],
             "max_abs_err": worst_abs,
             "ms": t_full["ms"],
             "plain_ms": t_full["plain_ms"],
@@ -4054,6 +4521,7 @@ def main() -> int:
             "source": fused_src,
             "replaces": "srhmm_tpu/ops/pallas/fused_em_pallas.py:350 (and :946, multi-stream)",
             "launches": em_launches["emit_forward"],
+            "launches_multi": multi["launches"]["emit_forward"],
             "max_abs_err": worst_em["emit_forward"],
             "ms": em_diag["emit_forward"]["ms"],
             "plain_ms": em_diag["emit_forward"]["best_plain_ms"],
@@ -4074,6 +4542,7 @@ def main() -> int:
             "source": fused_src,
             "replaces": "srhmm_tpu/ops/pallas/fused_em_pallas.py:612 (and :1034, multi-stream)",
             "launches": em_launches["backward_stats"],
+            "launches_multi": multi["launches"]["backward_stats"],
             "max_abs_err": worst_em["backward_stats"],
             "ms": em_diag["backward_stats"]["ms"],
             "plain_ms": em_diag["backward_stats"]["best_plain_ms"],
@@ -4106,6 +4575,7 @@ def main() -> int:
             "source": COMPOSED_SRC,
             "replaces": where,
             "launches": comp_launches[name],
+            **({"launches_multi": multi["launches"][name]} if name in MULTI_KERNELS else {}),
             "max_abs_err": max(worst_comp[name], t_comp["emb_c4"]["worst_abs"][name],
                                t_comp["tied_c5"]["worst_abs"][name]),
             "ms": t_comp["emb_c4"]["kernels"][name]["ms"],

@@ -15,9 +15,15 @@ Usage:
         [--max-senones N] [--seed N] [--json FILE] [--device cuda|cpu]
 
 --device (default cuda) says where the whole chain runs; without a CUDA
-device, cuda exits 2 instead of falling back.  --data-parallel N is not
-ported yet: the CLI exits 2.  Exit code 0 on success; the one-line JSON
-summary goes to stdout (and --json FILE if given).
+device, cuda exits 2 instead of falling back.  --data-parallel N runs both
+EM stages data-parallel over N ranks of a launcher (run_pipeline(mesh=)):
+
+    torchrun --standalone --nproc-per-node N -m srhmm_tpu_torch.cli.pipeline --data-parallel N
+
+each rank on its own device; only the coordinator prints and writes the
+summary.  Without a launcher of N ranks the CLI exits 2.  Exit code 0 on
+success; the one-line JSON summary goes to stdout (and --json FILE if
+given).
 """
 
 from __future__ import annotations
@@ -27,7 +33,7 @@ import json
 import sys
 import time
 
-from .device import add_device_argument, resolve_device
+from .device import add_device_argument, data_parallel_mesh, resolve_device
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -47,18 +53,29 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--min-gain", type=float, default=200.0)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--data-parallel", type=int, default=None, metavar="N",
-                    help="data-parallel EM over N devices (not ported yet: exits 2)")
+                    help="data-parallel EM over N ranks of a launcher (torchrun --nproc-per-node N)")
     ap.add_argument("--json", default=None, help="also write the summary here")
     ap.add_argument("--quiet", action="store_true")
     add_device_argument(ap)
     ns = ap.parse_args(argv)
-    if ns.data_parallel is not None:
-        print("pipeline: --data-parallel is not ported to srhmm_tpu_torch yet", file=sys.stderr)
-        return 2
     device = resolve_device(ns.device, "pipeline")
     if device is None:
         return 2
+    if ns.data_parallel is None:
+        return _run(ns, device, None)
+    mesh = data_parallel_mesh(ns.data_parallel, ns.device, "pipeline")
+    if mesh is None:
+        return 2
+    from ..parallel import distributed
 
+    try:
+        return _run(ns, mesh.device, mesh)
+    finally:
+        distributed.destroy()
+
+
+def _run(ns, device, mesh) -> int:
+    from ..parallel.distributed import is_coordinator
     from ..pipeline import PipelineConfig, run_pipeline
 
     cfg = PipelineConfig(
@@ -80,7 +97,8 @@ def main(argv: list[str] | None = None) -> int:
         lm_scale=ns.lm_scale,
         max_senones=ns.max_senones,
         min_gain=ns.min_gain,
-        verbose=not ns.quiet,
+        mesh=mesh,
+        verbose=not ns.quiet and is_coordinator(),
         device=device,
     )
     wall = time.time() - t0
@@ -101,6 +119,10 @@ def main(argv: list[str] | None = None) -> int:
         "wall_seconds": round(wall, 2),
         "stage_seconds": res.stage_seconds,
     }
+    if mesh is not None:
+        summary["data_parallel"] = mesh.size("data")
+    if not is_coordinator():
+        return 0
     line = json.dumps(summary)
     print(line)
     if ns.json:

@@ -35,7 +35,17 @@ identical trajectory.
 --init DIR warm-starts each unit from DIR/<unit>.hmm instead of the LBG
 flat start.  --device (default cuda) says where EM runs; without a CUDA
 device, cuda exits 2 instead of falling back to the CPU.
---data-parallel N is not ported yet: the CLI exits with an error.
+
+--data-parallel N trains data-parallel over N ranks, one process each,
+started by a launcher (parallel/distributed.py):
+
+    torchrun --standalone --nproc-per-node N \
+        -m srhmm_tpu_torch.cli.train_embedded TRANSCRIPTS OUTPUT_DIR --data-parallel N
+
+Each rank reads the whole input and trains on its rows of every bucket on
+its own device (cuda:LOCAL_RANK, or the CPU with --device cpu; nccl when
+every rank has a card, gloo otherwise); only the coordinator writes
+OUTPUT_DIR and checkpoints.  Without a launcher of N ranks the CLI exits 2.
 """
 
 from __future__ import annotations
@@ -46,7 +56,7 @@ import sys
 import time
 from pathlib import Path
 
-from .device import add_device_argument, resolve_device
+from .device import add_device_argument, data_parallel_mesh, resolve_device
 
 
 def read_transcripts(path: str):
@@ -116,7 +126,7 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--checkpoint-dir", default=None,
                     help="checkpoint every EM chunk into this directory and resume from it")
     ap.add_argument("--data-parallel", type=int, default=None, metavar="N",
-                    help="not ported yet: exits with an error")
+                    help="data-parallel EM over N ranks of a launcher (torchrun --nproc-per-node N)")
     ap.add_argument("--pad-multiple", type=int, default=32)
     ap.add_argument(
         "--var-floor", type=float, default=0.0,
@@ -135,13 +145,23 @@ def main(argv: list[str] | None = None) -> int:
     )
     add_device_argument(ap)
     ns = ap.parse_args(argv)
-    if ns.data_parallel is not None:
-        print("train_embedded: --data-parallel is not ported to srhmm_tpu_torch yet", file=sys.stderr)
-        return 2
     device = resolve_device(ns.device, "train_embedded")
     if device is None:
         return 2
+    if ns.data_parallel is None:
+        return _run(ns, device, None)
+    mesh = data_parallel_mesh(ns.data_parallel, ns.device, "train_embedded")
+    if mesh is None:
+        return 2
+    from ..parallel import distributed
 
+    try:
+        return _run(ns, mesh.device, mesh)
+    finally:
+        distributed.destroy()
+
+
+def _run(ns, device, mesh) -> int:
     import numpy as np
     import torch
 
@@ -176,8 +196,10 @@ def main(argv: list[str] | None = None) -> int:
         models = flat_start_units(unit_names, feats, transcripts_named, ns.states, ns.mix, ns.cov)
     models = models.astype(torch.float32).to(device)
 
+    from ..parallel.distributed import is_coordinator
+
+    write = is_coordinator()  # one writer under a launcher of several ranks
     out_dir = Path(ns.output_dir)
-    out_dir.mkdir(parents=True, exist_ok=True)
     summary = {
         "units": unit_names,
         "n_utterances": len(items),
@@ -204,24 +226,23 @@ def main(argv: list[str] | None = None) -> int:
         res = train_tied(
             tied0, feats, transcripts, threshold=threshold, max_iterations=max_iters,
             var_floor=ns.var_floor, log_prob_offset=lp_offset, pad_multiple=ns.pad_multiple,
-            chunk=chunk, checkpoint_dir=ns.checkpoint_dir,
+            chunk=chunk, checkpoint_dir=ns.checkpoint_dir, mesh=mesh,
         )
         trained = res.model
         unit_models = trained.materialize()
         state_map = trained.state_map.cpu().numpy()
         summary.update(n_senones=int(trained.num_senones), senone_map_file="senone_map.json")
-        (out_dir / "senone_map.json").write_text(
-            json.dumps({u: state_map[i].tolist() for i, u in enumerate(unit_names)})
-        )
+        senone_map = json.dumps({u: state_map[i].tolist() for i, u in enumerate(unit_names)})
     else:
         from ..train.embedded import train_embedded
 
         res = train_embedded(
             models, feats, transcripts, threshold=threshold, max_iterations=max_iters,
             var_floor=ns.var_floor, log_prob_offset=lp_offset, pad_multiple=ns.pad_multiple,
-            chunk=chunk, checkpoint_dir=ns.checkpoint_dir,
+            chunk=chunk, checkpoint_dir=ns.checkpoint_dir, mesh=mesh,
         )
         unit_models = res.model
+        senone_map = None
 
     if cmvn_stats is not None:
         # back to raw feature space (exact inverse affine; the reported
@@ -229,6 +250,20 @@ def main(argv: list[str] | None = None) -> int:
         from ..models.gmm_hmm import denormalize_model
 
         unit_models = denormalize_model(unit_models, [cmvn_stats])
+
+    summary.update(
+        iterations=res.iterations,
+        mean_log_prob=float(res.mean_log_prob),
+        wall_seconds=round(time.time() - t0, 2),
+        tied=bool(ns.tied),
+    )
+    if mesh is not None:
+        summary.update(data_parallel=mesh.size("data"))
+    if not write:
+        return 0
+    out_dir.mkdir(parents=True, exist_ok=True)
+    if senone_map is not None:
+        (out_dir / "senone_map.json").write_text(senone_map)
 
     # export: one reference-compatible .hmm per unit in float64 (the file
     # contract), the linear det recomputed from log|det| on the host
@@ -243,13 +278,6 @@ def main(argv: list[str] | None = None) -> int:
                    for w, mu, ic, det, cov in leaves]
         write_hmm(str(out_dir / f"{u}.hmm"), GmmHmm(trans=trans[i], streams=streams, word=u),
                   size_t_width=ns.size_t_width)
-
-    summary.update(
-        iterations=res.iterations,
-        mean_log_prob=float(res.mean_log_prob),
-        wall_seconds=round(time.time() - t0, 2),
-        tied=bool(ns.tied),
-    )
     (out_dir / "summary.json").write_text(json.dumps(summary, indent=1))
     print(json.dumps(summary))
     return 0

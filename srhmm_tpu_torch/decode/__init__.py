@@ -12,6 +12,7 @@ from .scorer import (
     rank_c_parity,
     score_batch,
     score_batch_log,
+    score_batch_sharded,
     score_vocab_log,
     score_vocab_parity,
 )
@@ -28,6 +29,7 @@ __all__ = [
     "rank_c_parity",
     "score_batch",
     "score_batch_log",
+    "score_batch_sharded",
     "score_vocab_log",
     "score_vocab_parity",
 ]

@@ -152,6 +152,29 @@ def score_batch(
     return score_batch_log(vocab, batch, mode=mode, final_states=final_states)
 
 
+def score_batch_sharded(
+    vocab: GmmHmm,
+    batch,
+    mesh,
+    axis: str = "data",
+    mode: str = TOTAL,
+    final_states: torch.Tensor | None = None,
+    impl: str | None = None,
+) -> torch.Tensor:
+    """Batch scoring with the utterances split over the `axis` ranks of a
+    Mesh (parallel/mesh.py): each rank runs score_batch on its rows (the
+    scoring kernel on the card) and an all_gather assembles the (B, W)
+    scores in row order, on every rank.  `batch` is the whole batch, the
+    same on every rank; B must divide by the axis.  The vocabulary is
+    replicated."""
+    from ..parallel.distributed import all_gather
+    from ..parallel.mesh import shard_batch
+
+    local = shard_batch(batch, mesh, axis)
+    scores = score_batch(vocab, local, mode=mode, final_states=final_states, impl=impl)
+    return all_gather(scores, mesh.group(axis)).reshape(-1, scores.shape[-1])
+
+
 def score_vocab_parity(
     vocab: GmmHmm,
     frames_per_stream,

@@ -76,12 +76,28 @@ def log_gauss(frames: torch.Tensor, stream: GmmStream) -> torch.Tensor:
     raise ValueError(f"unknown cov_type {stream.cov_type}")
 
 
-def log_state_emission(frames, streams) -> torch.Tensor:
+def logsumexp_mixtures(lg: torch.Tensor, group=None) -> torch.Tensor:
+    """logsumexp over the last (mixture) axis.  group: the process group of
+    a mixture-sharded model's `model` axis (parallel/mesh.py), each rank
+    holding a slice of the mixtures: then an all_reduce(MAX) of the local
+    maxima and an all_reduce(SUM) of the shifted exponentials.  None: the
+    mixtures are all here (torch.logsumexp)."""
+    if group is None:
+        return torch.logsumexp(lg, dim=-1)
+    from ..parallel.distributed import all_reduce
+
+    m = all_reduce(lg.amax(dim=-1), group, "max")
+    shift = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    return torch.log(all_reduce(torch.exp(lg - shift[..., None]).sum(-1), group)) + shift
+
+
+def log_state_emission(frames, streams, group=None) -> torch.Tensor:
     """log b_i(o_t): per-state emission log-likelihood, summed over streams.
 
     frames: (*F, D) shared across streams, or a tuple of per-stream
     (*F, D_p) tensors (the reference reads one feature file per stream).
-    Returns (*F, *P) with P the stream tensors' state axes.
+    Returns (*F, *P) with P the stream tensors' state axes.  group: the
+    `model` axis of mixture-sharded streams (logsumexp_mixtures).
     """
     per_stream = (
         tuple(frames) if isinstance(frames, (tuple, list)) else (frames,) * len(streams)
@@ -94,20 +110,22 @@ def log_state_emission(frames, streams) -> torch.Tensor:
     for fr, stream in zip(per_stream, streams):
         lg = log_gauss(fr, stream)  # (*F, *P, M)
         logw = torch.log(stream.weights.to(fr.dtype))
-        per_state = torch.logsumexp(lg + logw, dim=-1)
+        per_state = logsumexp_mixtures(lg + logw, group)
         total = per_state if total is None else total + per_state
     return total
 
 
-def log_mixture_posteriors(frames: torch.Tensor, stream: GmmStream):
+def log_mixture_posteriors(frames: torch.Tensor, stream: GmmStream, group=None):
     """(log b per state, per-mixture posterior) — the quantities the
     trainer's ``calc_symbol_probab`` produces (T1:1791-1811): posteriors are
     the weighted mixture likelihoods normalized within each state.
 
     frames (*F, D) -> (log_b (*F, S), post (*F, S, M)), post in linear
-    domain; a state with zero total likelihood gets zero posteriors."""
+    domain; a state with zero total likelihood gets zero posteriors.
+    group: the `model` axis of a mixture-sharded stream
+    (logsumexp_mixtures); post then holds this rank's mixtures."""
     lg = log_gauss(frames, stream) + torch.log(stream.weights.to(frames.dtype))
-    log_b = torch.logsumexp(lg, dim=-1)
+    log_b = logsumexp_mixtures(lg, group)
     post = torch.exp(lg - log_b[..., None])
     post = torch.where(torch.isfinite(log_b)[..., None], post, torch.zeros_like(post))
     return log_b, post

@@ -106,6 +106,60 @@ def log_backward_full(
     return torch.stack(rows[::-1], dim=-2)
 
 
+def eye_log(S: int, dtype, device) -> torch.Tensor:
+    """The (S, S) identity of the (logsumexp, +) semiring: 0 on the
+    diagonal, -inf elsewhere."""
+    eye = torch.full((S, S), -torch.inf, dtype=dtype, device=device)
+    return eye.fill_diagonal_(0.0)
+
+
+def log_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(..., S, S) @ (..., S, S) under the (logsumexp, +) semiring."""
+    return torch.logsumexp(a[..., :, :, None] + b[..., None, :, :], dim=-2)
+
+
+def log_matmul_chain(mats: torch.Tensor) -> torch.Tensor:
+    """The product M_0 @ M_1 @ ... @ M_{N-1} of (..., N, S, S) operators
+    (N >= 1) under the (logsumexp, +) semiring, by a pairwise tree: log2 N
+    rounds of batched products instead of N dependent ones (an odd round
+    gets an identity appended)."""
+    S = mats.shape[-1]
+    while mats.shape[-3] > 1:
+        if mats.shape[-3] % 2:
+            eye = eye_log(S, mats.dtype, mats.device).expand(*mats.shape[:-3], 1, S, S)
+            mats = torch.cat([mats, eye], dim=-3)
+        mats = log_matmul(mats[..., 0::2, :, :], mats[..., 1::2, :, :])
+    return mats[..., 0, :, :]
+
+
+def log_forward_assoc(
+    log_b: torch.Tensor, log_trans: torch.Tensor, length: torch.Tensor | None = None
+) -> torch.Tensor:
+    """Parallel-prefix log-space forward (srhmm_tpu/ops/forward_backward.py
+    log_forward_assoc): the final log-alpha as the product of per-frame
+    transfer operators M_t[i, j] = log_trans[i, j] + log_b[t, j] under the
+    log-matmul semiring, in O(log T) depth (O(T S^3) work against the
+    recursion's O(T S^2): worth it where T is long and S small).
+
+    log_b (..., T, S); log_trans (..., S, S), broadcastable; length:
+    optional valid frame counts, padded steps t >= length being identity
+    operators, so the result equals log_forward at each last valid frame.
+    Returns (..., S)."""
+    T, S = log_b.shape[-2:]
+    start = torch.full((S,), -torch.inf, dtype=log_b.dtype, device=log_b.device)
+    start[0] = 0.0
+    init = start + log_b[..., 0, :]
+    if T == 1:
+        return init
+    mats = log_trans.unsqueeze(-3) + log_b[..., 1:, :].unsqueeze(-2)  # (..., T-1, S, S)
+    if length is not None:
+        t_idx = torch.arange(1, T, device=log_b.device)
+        live = t_idx < torch.as_tensor(length, device=log_b.device)[..., None]
+        mats = torch.where(live[..., None, None], mats, eye_log(S, mats.dtype, mats.device))
+    prod = log_matmul_chain(mats)
+    return torch.logsumexp(init[..., :, None] + prod, dim=-2)
+
+
 def score_total(log_alpha_final: torch.Tensor) -> torch.Tensor:
     """Total-probability score: R1's -sum log c_t."""
     return torch.logsumexp(log_alpha_final, dim=-1)

@@ -369,19 +369,27 @@ def run_pipeline(
 
     cmvn and var_floor are the numerics levers (on by default): global
     mean/variance normalization of the MFCC space, computed on the host in
-    float32 as the JAX package does, and a relative variance floor.  mesh=
-    (data-parallel EM) raises NotImplementedError until the multi-device
-    slice."""
+    float32 as the JAX package does, and a relative variance floor.
+
+    mesh: a Mesh with a "data" axis (parallel/mesh.py), ``device`` its
+    device: both EM stages train data-parallel (train_embedded /
+    train_tied with mesh=).  Every rank runs the rest of the chain on the
+    whole data (synthesis, MFCC and the clustering statistics are
+    deterministic; every rank decodes the held-out set), so every rank
+    returns the same result."""
     from .decode.continuous import decode_continuous_batch
     from .eval.metrics import WerCounts, edit_alignment
     from .io.dataset import pack_utterances
     from .models import concat_models, pad_stack_models, stack_models
     from .models.decision_tree import cluster_states, state_stats_from_suffstats
     from .models.tying import tie_from_models
-    from .train.embedded import _not_ported, train_embedded
+    from .train.embedded import train_embedded
     from .train.tied import train_tied
 
-    _not_ported("run_pipeline", mesh)
+    if mesh is not None:
+        from .parallel.mesh import DATA_AXIS, require_axis
+
+        require_axis("run_pipeline", mesh, DATA_AXIS)
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("run_pipeline: device cuda, but torch sees no CUDA device")
@@ -416,7 +424,7 @@ def run_pipeline(
 
     mono_res = train_embedded(
         mono0, train_feats, phone_seqs,
-        max_iterations=max_iterations, pad_multiple=pad_multiple, var_floor=var_floor,
+        max_iterations=max_iterations, mesh=mesh, pad_multiple=pad_multiple, var_floor=var_floor,
     )
     tick("monophone_em")
 
@@ -434,7 +442,7 @@ def run_pipeline(
     tied0 = tie_from_models(tri0, cluster.state_map).astype(torch.float32)
     tied_res = train_tied(
         tied0, train_feats, unit_seqs,
-        max_iterations=tied_iterations, pad_multiple=pad_multiple, var_floor=var_floor,
+        max_iterations=tied_iterations, mesh=mesh, pad_multiple=pad_multiple, var_floor=var_floor,
     )
     tick("tied_em")
 

@@ -29,8 +29,13 @@ PRE-update-means covariance (T1:1744-1750) through the moment identity
 sum g (x-mu0)(x-mu0)^T = XX - mu0 a^T - a mu0^T + w mu0 mu0^T.
 
 ``bf16_stats`` (bf16-input moment contractions about a shifted origin)
-runs on the plain path only, as in the JAX package.  Not ported yet: the
-sharded variants (data- and time-parallel).
+runs on the plain path only, as in the JAX package.
+
+Multi-device EM (parallel/): ``e_step_fused_lane_sharded`` /
+``em_train_scan_sharded`` / ``train_fast(data_mesh=)`` split the batch over
+ranks and all-reduce the statistics once an iteration;
+``em_step_time_sharded`` / ``em_train_scan_time_sharded`` /
+``train_fast(time_mesh=)`` split the time axis (parallel/sequence.py).
 """
 
 from __future__ import annotations
@@ -148,7 +153,9 @@ def _shifted_moment_stats(gm, feats, cov_type, stat_in, origin):
     return w, x, xx
 
 
-def _per_utterance_stats(model: GmmHmm, feats_per_stream, lengths, bf16_stats: bool = False) -> SuffStats:
+def _per_utterance_stats(
+    model: GmmHmm, feats_per_stream, lengths, bf16_stats: bool = False, model_group=None
+) -> SuffStats:
     """E-step statistics per utterance, with a leading (B,) axis on every
     tensor.  feats_per_stream: one (B, T, D_p) tensor per stream (all
     streams of an utterance share the frame count, T1:274).
@@ -158,7 +165,9 @@ def _per_utterance_stats(model: GmmHmm, feats_per_stream, lengths, bf16_stats: b
     means per dimension: the features are centred before the rounding, so
     it is relative to the centred magnitudes (state spread + sigma) and not
     amplified by the M-step's moment identity (~mean^2 / variance at raw
-    feature scale).  The lattices, xi and log probs are unaffected."""
+    feature scale).  The lattices, xi and log probs are unaffected.
+    model_group: the `model` axis of a mixture-sharded model (the mixture
+    logsumexp runs over it; the per-mixture statistics are this rank's)."""
     S = model.num_states
     dtype = feats_per_stream[0].dtype
     log_trans = model.log_trans().to(dtype)
@@ -166,7 +175,7 @@ def _per_utterance_stats(model: GmmHmm, feats_per_stream, lengths, bf16_stats: b
     log_b = None
     posts = []
     for stream, sf in zip(model.streams, feats_per_stream):
-        lb_s, post_s = log_mixture_posteriors(sf, stream)  # (B, T, S), (B, T, S, M)
+        lb_s, post_s = log_mixture_posteriors(sf, stream, model_group)  # (B, T, S), (B, T, S, M)
         posts.append(post_s)
         log_b = lb_s if log_b is None else log_b + lb_s
 
@@ -224,17 +233,19 @@ def _as_batches(batch) -> tuple[UtteranceBatch, ...]:
     return batch if isinstance(batch, tuple) else (batch,)
 
 
-def e_step(model: GmmHmm, batch, bf16_stats: bool = False) -> SuffStats:
+def e_step(model: GmmHmm, batch, bf16_stats: bool = False, model_group=None) -> SuffStats:
     """Batched E-step: per-utterance statistics over the batch axis, summed.
 
     batch: an UtteranceBatch, or a tuple of UtteranceBatch (one per stream,
     equal lengths) for multi-stream models.  bf16_stats: bf16-input moment
-    contractions about a shifted origin (see _per_utterance_stats)."""
+    contractions about a shifted origin (see _per_utterance_stats).
+    model_group: the `model` axis of a mixture-sharded model
+    (parallel/mesh.py em_step_sharded)."""
     batches = _as_batches(batch)
     feats = tuple(b.features for b in batches)
     if len(feats) == 1 and len(model.streams) > 1:
         feats = feats * len(model.streams)
-    per_utt = _per_utterance_stats(model, feats, batches[0].lengths, bf16_stats)
+    per_utt = _per_utterance_stats(model, feats, batches[0].lengths, bf16_stats, model_group)
     return _map_stats(lambda a: a.sum(0), per_utt)
 
 
@@ -782,6 +793,7 @@ def em_train_scan(
     band: int | None = None,
     abs_floors=None,
     zero_det_thresholds=None,
+    group=None,
 ):
     """N EM iterations with no host sync inside: a Python loop of E- and
     M-steps whose log probs stay on the device.  Returns (final model,
@@ -789,15 +801,105 @@ def em_train_scan(
 
     fused=True runs the fused kernels (pass feats_tdb and band
     precomputed; band=None means dense transitions); False the plain
-    e_step."""
+    e_step.  group: the data axis of a data-parallel run (batch is this
+    rank's shard): each E-step's statistics are all-reduced over it before
+    the M-step, which every rank then runs on the same sums."""
+    from ..parallel.mesh import all_reduce_stats
+
     lps, nvs = [], []
     m = model
     for _ in range(n_iters):
-        st = _e_step_any(m, batch, fused, feats_tdb, band)
+        st = all_reduce_stats(_e_step_any(m, batch, fused, feats_tdb, band), group)
         m = m_step(
             m, st, var_floor=var_floor, abs_floors=abs_floors,
             zero_det_thresholds=zero_det_thresholds,
         )
+        lps.append(st.log_prob)
+        nvs.append(st.num_valid)
+    if not lps:
+        empty = torch.zeros(0, dtype=model.trans.dtype, device=model.trans.device)
+        return m, empty, empty
+    return m, torch.stack(lps), torch.stack(nvs)
+
+
+# ---------------------------------------------------------------------------
+# data- and time-parallel EM (parallel/mesh.py, parallel/sequence.py)
+# ---------------------------------------------------------------------------
+
+
+def e_step_fused_lane_sharded(
+    model: GmmHmm, batch: UtteranceBatch, mesh, axis: str = "data", band=_MODEL_BAND
+) -> SuffStats:
+    """Data-parallel fused E-step: each rank runs e_step_fused_lane on its
+    rows of `batch` (the whole batch, the same on every rank; B must divide
+    by the axis), which on CUDA float32 launches the emit-forward /
+    backward-stats kernels (TPU kernels #2 / #3), then one all_reduce of the
+    statistics over `axis`.  The model is replicated.  band: the static
+    transition band; by default trans_band of model.trans (a host sync),
+    None for dense transitions."""
+    from ..parallel.mesh import all_reduce_stats, shard_batch
+
+    if band is _MODEL_BAND:
+        band = trans_band(model.trans.detach().cpu().numpy())
+    local = shard_batch(batch, mesh, axis)
+    return all_reduce_stats(e_step_fused_lane(model, local, band=band), mesh.group(axis))
+
+
+def em_train_scan_sharded(
+    model: GmmHmm,
+    batch: UtteranceBatch,
+    n_iters: int,
+    mesh,
+    axis: str = "data",
+    var_floor: float = 0.0,
+    band=_MODEL_BAND,
+):
+    """N data-parallel EM iterations: em_train_scan on this rank's rows of
+    `batch` through the fused kernels (their twins on CPU tensors), the
+    statistics all-reduced over `axis` inside every iteration and the same
+    M-step on every rank; the feature transpose is taken once for the
+    shard.  band as in e_step_fused_lane_sharded.  Returns (final model,
+    (n_iters,) log-prob history, (n_iters,) num_valid history), the same
+    on every rank."""
+    from ..parallel.mesh import shard_batch
+
+    if band is _MODEL_BAND:
+        band = trans_band(model.trans.detach().cpu().numpy())
+    local = shard_batch(batch, mesh, axis)
+    feats_tdb = local.features.to(torch.float32).permute(1, 2, 0).contiguous()
+    return em_train_scan(model, local, n_iters, feats_tdb, var_floor=var_floor, band=band, group=mesh.group(axis))
+
+
+def em_step_time_sharded(model: GmmHmm, batch, mesh, var_floor: float = 0.0, axis: str = "time"):
+    """One EM iteration with the TIME axis split over `axis`
+    (parallel/sequence.py): the E-step statistics all-reduced over it, the
+    M-step replicated.  For utterances that outgrow one device; otherwise
+    the data-parallel path is faster."""
+    from ..parallel.sequence import e_step_time_sharded
+
+    stats = e_step_time_sharded(model, batch, mesh, axis=axis)
+    return m_step(model, stats, var_floor=var_floor), stats.log_prob, stats.num_valid
+
+
+def em_train_scan_time_sharded(
+    model: GmmHmm, batch, n_iters: int, mesh, axis: str = "time", var_floor: float = 0.0
+):
+    """N sequence-parallel EM iterations (em_step_time_sharded in a loop,
+    the frame blocks cut once).  Returns (final model, (n_iters,) log-prob
+    history, (n_iters,) num_valid history), the same on every rank."""
+    from ..parallel.sequence import time_shard
+
+    return _time_scan(model, *time_shard(batch, mesh, axis), n_iters, mesh, axis, var_floor)
+
+
+def _time_scan(model, feats_loc, lengths, n_iters: int, mesh, axis: str, var_floor: float):
+    from ..parallel.sequence import e_step_time_local
+
+    lps, nvs = [], []
+    m = model
+    for _ in range(n_iters):
+        st = e_step_time_local(m, feats_loc, lengths, mesh, axis)
+        m = m_step(m, st, var_floor=var_floor)
         lps.append(st.log_prob)
         nvs.append(st.num_valid)
     if not lps:
@@ -816,6 +918,8 @@ def train_fast(
     log_prob_offset: float = 0.0,
     abs_floors=None,
     zero_det_thresholds=None,
+    time_mesh=None,
+    data_mesh=None,
 ):
     """EM driver with the reference's convergence rule (|old - new| / |old|
     <= threshold, old initialized to 1.0, final pass not applying an update
@@ -826,17 +930,45 @@ def train_fast(
     per-iteration loop's, but the host waits for the device once per
     `chunk` iterations.  The fused kernels run when eligible
     (_fused_lane_eligible); the band is decided once from the initial model
-    (EM preserves the transition structure)."""
+    (EM preserves the transition structure).
+
+    data_mesh: a Mesh with a "data" axis (parallel/mesh.py): every rank
+    passes the whole batch and trains on its rows (B must divide by the
+    axis), the statistics all-reduced every iteration; the routing to the
+    fused kernels is decided on the shard.  time_mesh: a ("time",) Mesh
+    (parallel/sequence.py): sequence-parallel EM, the frame count divisible
+    by the axis.  Either way the driver's decisions read all-reduced log
+    probs, the same on every rank, so every rank runs the same chunks and
+    collectives."""
     from .driver import chunked_convergence_train
     from .em_parity import TrainResult
 
-    use_fused, feats_tdb, band = _fused_setup(model, batch)
+    if data_mesh is not None and time_mesh is not None:
+        raise ValueError("train_fast: pass data_mesh or time_mesh, not both")
+    group = None
+    if data_mesh is not None:
+        from ..parallel.mesh import DATA_AXIS, require_axis, shard_batch
 
-    def run(m, k):
-        return em_train_scan(
-            m, batch, k, feats_tdb, var_floor=var_floor, fused=use_fused, band=band,
-            abs_floors=abs_floors, zero_det_thresholds=zero_det_thresholds,
-        )
+        require_axis("train_fast", data_mesh, DATA_AXIS)
+        batch = shard_batch(batch, data_mesh, DATA_AXIS)
+        group = data_mesh.group(DATA_AXIS)
+    if time_mesh is not None:
+        from ..parallel.mesh import require_axis
+        from ..parallel.sequence import TIME_AXIS, time_shard
+
+        require_axis("train_fast", time_mesh, TIME_AXIS)
+        feats_loc, lengths = time_shard(batch, time_mesh, TIME_AXIS)
+
+        def run(m, k):
+            return _time_scan(m, feats_loc, lengths, k, time_mesh, TIME_AXIS, var_floor)
+    else:
+        use_fused, feats_tdb, band = _fused_setup(model, batch)
+
+        def run(m, k):
+            return em_train_scan(
+                m, batch, k, feats_tdb, var_floor=var_floor, fused=use_fused, band=band,
+                abs_floors=abs_floors, zero_det_thresholds=zero_det_thresholds, group=group,
+            )
 
     model, iteration, history, n_valid = chunked_convergence_train(
         model, run, threshold=threshold, max_iterations=max_iterations,

@@ -26,8 +26,10 @@ state axis and runs ``train/em.py::m_step`` once.  ``train_embedded``
 buckets utterances by (padded length, transcript length) and runs the
 chunked convergence driver (train/driver.py).
 
-Not ported yet: the sharded functions (``batch_stats_fused_sharded``,
-``embedded_train_scan_sharded``; ``mesh=`` raises).
+Data-parallel training (parallel/mesh.py): ``batch_stats_fused_sharded``,
+``embedded_train_scan_sharded`` and ``train_embedded(mesh=)`` run each
+rank's rows of every bucket and all-reduce the unit-space statistics once
+an iteration.
 """
 
 from __future__ import annotations
@@ -566,11 +568,16 @@ def _add_stats(a: SuffStats, b: SuffStats) -> SuffStats:
     )
 
 
-def _embedded_chunk(models, packed, k: int, var_floor: float, fused: bool):
+def _embedded_chunk(models, packed, k: int, var_floor: float, fused: bool, group=None):
     """k embedded EM iterations over all shape buckets with no host sync
     (the train/driver.py run_chunk contract): per iteration the bucket
-    statistics add up on the device, then one unit M-step.  Returns (final
-    models, (k,) log-prob history, (k,) num_valid history)."""
+    statistics add up on the device, then one unit M-step.  group: the
+    data axis of a data-parallel run (packed holds this rank's rows of every
+    bucket): the summed statistics are all-reduced over it once an
+    iteration, before the M-step that every rank runs alike.  Returns
+    (final models, (k,) log-prob history, (k,) num_valid history)."""
+    from ..parallel.mesh import all_reduce_stats
+
     lps, nvs = [], []
     m = models
     for _ in range(k):
@@ -578,6 +585,7 @@ def _embedded_chunk(models, packed, k: int, var_floor: float, fused: bool):
         for trs, feats, lengths in packed:
             st = (batch_stats_fused if fused else batch_stats)(m, trs, feats, lengths)
             agg = st if agg is None else _add_stats(agg, st)
+        agg = all_reduce_stats(agg, group)
         m = _unit_m_step(m, agg, var_floor)
         lps.append(agg.log_prob)
         nvs.append(agg.num_valid)
@@ -587,11 +595,13 @@ def _embedded_chunk(models, packed, k: int, var_floor: float, fused: bool):
     return m, torch.stack(lps), torch.stack(nvs)
 
 
-def pack_buckets(utterances, transcripts, dtype, device, pad_multiple: int = 32):
+def pack_buckets(utterances, transcripts, dtype, device, pad_multiple: int = 32, rows_multiple: int = 1):
     """Shape buckets of the composed trainers: utterances grouped by
     (length rounded up to pad_multiple, transcript length), each bucket
     (transcripts (Bk, L) int32, feats (Bk, T, D) zero-padded, lengths
-    (Bk,) int32) as tensors on `device`."""
+    (Bk,) int32) as tensors on `device`.  rows_multiple: Bk is padded up to
+    a multiple with empty utterances (length 0: no statistics), so that a
+    data axis of that many ranks divides every bucket."""
     from ..io.dataset import round_up
 
     buckets: dict[tuple[int, int], list[int]] = {}
@@ -600,9 +610,10 @@ def pack_buckets(utterances, transcripts, dtype, device, pad_multiple: int = 32)
     D = utterances[0].shape[1]
     packed = []
     for (T, L), idxs in buckets.items():
-        feats = np.zeros((len(idxs), T, D))
-        lengths = np.zeros(len(idxs), np.int32)
-        trs = np.zeros((len(idxs), L), np.int32)
+        nb = round_up(len(idxs), rows_multiple)
+        feats = np.zeros((nb, T, D))
+        lengths = np.zeros(nb, np.int32)
+        trs = np.zeros((nb, L), np.int32)
         for row, i in enumerate(idxs):
             feats[row, : len(utterances[i])] = utterances[i]
             lengths[row] = len(utterances[i])
@@ -615,9 +626,52 @@ def pack_buckets(utterances, transcripts, dtype, device, pad_multiple: int = 32)
     return tuple(packed)
 
 
-def _not_ported(fn: str, mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(f"{fn}: mesh= (data-parallel training) is not ported to srhmm_tpu_torch yet")
+def shard_buckets(fn: str, packed, mesh, axis: str):
+    """This rank's rows of every bucket (transcripts, feats, lengths) on the
+    mesh's device; every bucket's row count must divide by the axis (pad
+    with empty utterances: pack_buckets rows_multiple)."""
+    from ..parallel.mesh import require_axis, shard_rows
+
+    require_axis(fn, mesh, axis)
+    return tuple(tuple(shard_rows(t, mesh, axis) for t in bucket) for bucket in packed)
+
+
+def mesh_buckets(fn: str, utterances, transcripts, trans: torch.Tensor, pad_multiple: int, mesh, axis: str):
+    """(buckets, data group) of a composed trainer: pack_buckets on trans'
+    device and dtype; under a mesh, each rank's rows of buckets padded to a
+    multiple of the axis, and the axis' group (None without a mesh)."""
+    if mesh is None:
+        return pack_buckets(utterances, transcripts, trans.dtype, trans.device, pad_multiple), None
+    from ..parallel.mesh import require_axis
+
+    require_axis(fn, mesh, axis)  # before mesh.size below
+    packed = pack_buckets(utterances, transcripts, trans.dtype, trans.device, pad_multiple, mesh.size(axis))
+    return shard_buckets(fn, packed, mesh, axis), mesh.group(axis)
+
+
+def batch_stats_fused_sharded(models: GmmHmm, transcripts, feats, lengths, mesh, axis: str = "data") -> SuffStats:
+    """Data-parallel composed E-step: each rank runs batch_stats_fused (the
+    composed kernels, TPU kernels #9-#12, on CUDA float32) on its rows of
+    the batch (the same whole batch on every rank; B must divide by the
+    axis), then one all_reduce of the unit-space statistics over `axis`.
+    The models are replicated."""
+    from ..parallel.mesh import all_reduce_stats
+
+    (local,) = shard_buckets("batch_stats_fused_sharded", ((transcripts, feats, lengths),), mesh, axis)
+    return all_reduce_stats(batch_stats_fused(models, *local), mesh.group(axis))
+
+
+def embedded_train_scan_sharded(models: GmmHmm, packed, n_iters: int, mesh, axis: str = "data",
+                                var_floor: float = 0.0):
+    """N data-parallel embedded EM iterations: every rank runs
+    batch_stats_fused on its rows of every bucket, the unit-space
+    statistics are all-reduced over `axis` once an iteration, and every
+    rank runs the same unit M-step.  packed: the train_embedded buckets,
+    each one's row count divisible by the axis.  Returns (final models,
+    (n_iters,) log-prob history, (n_iters,) num_valid history), the same on
+    every rank."""
+    local = shard_buckets("embedded_train_scan_sharded", packed, mesh, axis)
+    return _embedded_chunk(models, local, n_iters, var_floor, True, mesh.group(axis))
 
 
 def _manager(checkpoint_dir):
@@ -654,18 +708,24 @@ def train_embedded(
     checkpoint_dir: chunk-granular checkpoint / resume through the chunked
     driver (train/checkpoint.py); a rerun with the same directory resumes
     from its newest complete checkpoint with the identical trajectory.
-    mesh= raises NotImplementedError until the multi-device slice is
-    ported."""
+
+    mesh: a Mesh (parallel/mesh.py) with a `mesh_axis` axis: data-parallel
+    training, every rank passing the same utterances and the models on its
+    device.  Every bucket is padded with empty utterances to a multiple of
+    the axis and each rank trains on its rows of it (the routing to the
+    kernels decided on those rows), the statistics all-reduced once an
+    iteration; only the coordinator writes checkpoints, and every rank
+    resumes from them."""
     from .driver import chunked_convergence_train
     from .em_parity import TrainResult
 
-    _not_ported("train_embedded", mesh)
-    packed = pack_buckets(utterances, transcripts, models.trans.dtype, models.trans.device, pad_multiple)
+    packed, group = mesh_buckets("train_embedded", utterances, transcripts, models.trans, pad_multiple,
+                                 mesh, mesh_axis)
     if fused is None:
         fused = all(_embedded_fused_eligible(models, trs, f) for trs, f, _ in packed)
 
     def run(m, k):
-        return _embedded_chunk(m, packed, k, var_floor, fused)
+        return _embedded_chunk(m, packed, k, var_floor, fused, group)
 
     models, iteration, history, n_valid = chunked_convergence_train(
         models, run, threshold=threshold, max_iterations=max_iterations, chunk=chunk,

@@ -9,8 +9,9 @@ Per-unit transition statistics stay unit-level.
 
 The statistics are a tuple (senone StreamStats (N, M, ...), den_mix (N,),
 num_trans (P, S, S), den_trans (P, S), log_prob, num_valid), as in the JAX
-package.  Not ported yet: the sharded functions (``tied_*_sharded``;
-``mesh=`` raises).
+package.  Data-parallel training: ``tied_batch_stats_fused_sharded``,
+``tied_train_scan_sharded`` and ``train_tied(mesh=)``, as in
+train/embedded.py.
 """
 
 from __future__ import annotations
@@ -27,11 +28,11 @@ from .embedded import (
     _gather_rows,
     _left_right,
     _manager,
-    _not_ported,
     _pack_bank,
     _positional_stats,
     fused_positional_stats,
-    pack_buckets,
+    mesh_buckets,
+    shard_buckets,
 )
 
 
@@ -187,9 +188,12 @@ def _add_tied(a, b):
     return (st,) + tuple(x + y for x, y in zip(a[1:], b[1:]))
 
 
-def _tied_chunk(tied, packed, k: int, var_floor: float, fused: bool):
+def _tied_chunk(tied, packed, k: int, var_floor: float, fused: bool, group=None):
     """k tied EM iterations over all shape buckets with no host sync (the
-    train/driver.py run_chunk contract)."""
+    train/driver.py run_chunk contract).  group: the data axis of a
+    data-parallel run, as in train/embedded.py _embedded_chunk."""
+    from ..parallel.mesh import all_reduce_stats
+
     lps, nvs = [], []
     t = tied
     for _ in range(k):
@@ -197,6 +201,7 @@ def _tied_chunk(tied, packed, k: int, var_floor: float, fused: bool):
         for trs, feats, lengths in packed:
             st = (tied_batch_stats_fused if fused else tied_batch_stats)(t, trs, feats, lengths)
             agg = st if agg is None else _add_tied(agg, st)
+        agg = all_reduce_stats(agg, group)
         t = _apply_tied_update(t, agg, var_floor)
         lps.append(agg[4])
         nvs.append(agg[5])
@@ -204,6 +209,30 @@ def _tied_chunk(tied, packed, k: int, var_floor: float, fused: bool):
         empty = torch.zeros(0, dtype=tied.trans.dtype, device=tied.trans.device)
         return t, empty, empty
     return t, torch.stack(lps), torch.stack(nvs)
+
+
+def tied_batch_stats_fused_sharded(tied: TiedHmmSet, transcripts, feats, lengths, mesh, axis: str = "data"):
+    """Data-parallel tied E-step: each rank runs tied_batch_stats_fused (the
+    composed kernels on CUDA float32) on its rows of the batch, then one
+    all_reduce of the senone / unit-space statistics over `axis`.  Same
+    return contract as tied_batch_stats."""
+    from ..parallel.mesh import all_reduce_stats
+
+    (local,) = shard_buckets("tied_batch_stats_fused_sharded", ((transcripts, feats, lengths),), mesh, axis)
+    return all_reduce_stats(tied_batch_stats_fused(tied, *local), mesh.group(axis))
+
+
+def tied_train_scan_sharded(tied: TiedHmmSet, packed, n_iters: int, mesh, axis: str = "data",
+                            var_floor: float = 0.0):
+    """N data-parallel tied EM iterations (train/embedded.py
+    embedded_train_scan_sharded for senone inventories): each rank's rows
+    of every bucket through tied_batch_stats_fused, the statistics
+    all-reduced over `axis` once an iteration, the same tied update on
+    every rank.  Returns (final
+    TiedHmmSet, (n_iters,) log-prob history, (n_iters,) num_valid
+    history)."""
+    local = shard_buckets("tied_train_scan_sharded", packed, mesh, axis)
+    return _tied_chunk(tied, local, n_iters, var_floor, True, mesh.group(axis))
 
 
 def train_tied(
@@ -227,19 +256,18 @@ def train_tied(
     takes the composed kernels when every bucket is eligible
     (_tied_fused_eligible), decided once here.
 
-    checkpoint_dir: chunk-granular checkpoint / resume, as in
-    train_embedded.  mesh= raises NotImplementedError until the
-    multi-device slice is ported."""
+    checkpoint_dir: chunk-granular checkpoint / resume, and mesh:
+    data-parallel training over its `mesh_axis`, both as in
+    train_embedded."""
     from .driver import chunked_convergence_train
     from .em_parity import TrainResult
 
-    _not_ported("train_tied", mesh)
-    packed = pack_buckets(utterances, transcripts, tied.trans.dtype, tied.trans.device, pad_multiple)
+    packed, group = mesh_buckets("train_tied", utterances, transcripts, tied.trans, pad_multiple, mesh, mesh_axis)
     if fused is None:
         fused = all(_tied_fused_eligible(tied, trs, f) for trs, f, _ in packed)
 
     def run(t, k):
-        return _tied_chunk(t, packed, k, var_floor, fused)
+        return _tied_chunk(t, packed, k, var_floor, fused, group)
 
     tied, iteration, history, n_valid = chunked_convergence_train(
         tied, run, threshold=threshold, max_iterations=max_iterations, chunk=chunk,

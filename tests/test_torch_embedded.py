@@ -187,7 +187,8 @@ def test_packers_and_unported_options(tmp_path):
     np.testing.assert_allclose(bias.numpy(), np.asarray(jbias), rtol=1e-12)
     rec = te.pack_position_bank_diag(st.means, st.inv_cov, st.weights, st.log_abs_det(), D)
     assert rec.shape == (P * S, M, 2 * 8 + 4) and rec.dtype == torch.float32
-    with pytest.raises(NotImplementedError, match="mesh"):
+    # mesh= takes a srhmm_tpu_torch.parallel.Mesh (tests/test_torch_parallel_mesh.py runs one)
+    with pytest.raises(TypeError, match="mesh"):
         te.train_embedded(tmod, [np.zeros((9, D))], [[0]], mesh=object())
     # checkpoint_dir= is ported: the run saves, and a rerun resumes from it
     r1 = te.train_embedded(tmod, [np.zeros((9, D))], [[0]], max_iterations=1, checkpoint_dir=tmp_path / "ck")

@@ -8,8 +8,9 @@ summation orders) and rtol = atol = 2e-3 for --fused (the port's float32
 twin against the JAX Pallas kernel in interpret mode, the bound of
 tests/test_pallas_kernels.py::test_fused_mfcc_matches_frontend).
 pipeline: the JAX CLI's summary keys, WER <= 0.10 on a small clean corpus
-(tests/test_pipeline.py's gate); --data-parallel exits 2.  No module of
-the slice imports jax.
+(tests/test_pipeline.py's gate); --data-parallel 2 exits 2 without a
+launcher of 2 ranks and passes the same gate under one.  No module of the
+slice imports jax.
 """
 
 import json
@@ -173,11 +174,34 @@ def test_pipeline_cli_prints_the_jax_summary(tmp_path, monkeypatch, capsys):
     assert out.read_text() == lines[-1] + "\n"
 
 
-def test_pipeline_cli_refuses_data_parallel(tmp_path, capsys):
+def test_pipeline_cli_refuses_data_parallel(tmp_path, capsys, monkeypatch):
+    """--data-parallel N without a launcher of N ranks exits 2 and names
+    the launcher (the JAX CLI's "only k devices" exit)."""
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
     out = tmp_path / "s.json"
     assert t_pipeline.main(["--data-parallel", "2", "--device", "cpu", "--json", str(out)]) == 2
-    assert "--data-parallel is not ported" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert "--data-parallel 2 needs a launcher of 2 ranks" in err and "torchrun" in err
     assert not out.exists()
+
+
+def test_pipeline_cli_data_parallel_under_the_launcher(tmp_path):
+    """--data-parallel 2 under torch.distributed.run (2 CPU ranks): one
+    summary line, from the coordinator, at the gate of the one-process
+    CLI."""
+    import torch_dist_workers as w
+
+    out = tmp_path / "s.json"
+    rc, stdout, err = w.launch(["-m", "srhmm_tpu_torch.cli.pipeline", "--n-train", "24", "--n-test", "8",
+                                "--words", "6", "--phones-per-word", "2", "--mono-iters", "4", "--tied-iters",
+                                "4", "--device", "cpu", "--quiet", "--data-parallel", "2", "--json", str(out)],
+                               tmp_path)
+    assert rc == 0, err[-4000:]
+    lines = [line for line in stdout.splitlines() if line.startswith("{")]
+    assert len(lines) == 1, stdout
+    summary = json.loads(lines[0])
+    assert summary["data_parallel"] == 2 and summary["wer"] <= 0.10, summary
+    assert out.read_text() == lines[0] + "\n"
 
 
 def test_frontend_and_pipeline_slice_imports_no_jax():

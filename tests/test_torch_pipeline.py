@@ -191,5 +191,27 @@ def test_pipeline_variable_word_lengths():
 
 
 def test_pipeline_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match="mesh"):
+    """mesh= takes a srhmm_tpu_torch.parallel.Mesh with a data axis; anything
+    else is refused before any work (test_pipeline_data_parallel_mesh runs a
+    real one)."""
+    with pytest.raises(TypeError, match="mesh"):
         tp.run_pipeline(TINY, n_train=2, n_test=1, mesh=object(), device="cpu")
+
+
+def test_pipeline_data_parallel_mesh(port_clean, tmp_path):
+    """tests/test_pipeline.py test_pipeline_data_parallel_mesh on the port:
+    the same chain with both EM stages on a mesh of 2 gloo ranks (spawned,
+    killed after torch_dist_workers.TIMEOUT_S) gives the one-rank run's
+    hypotheses on every rank, at WER <= 0.10."""
+    import torch_dist_workers as w
+    from srhmm_tpu_torch.parallel import distributed
+
+    kw = dict(n_train=24, n_test=8, max_iterations=4, tied_iterations=4)
+    ranks = distributed.spawn(w.pipeline_case, 2, args=(TINY, kw), device="cpu", timeout_s=w.TIMEOUT_S,
+                              workdir=tmp_path)
+    for res in ranks:
+        assert res["wer"] <= 0.10, res
+        assert res["refs"] == port_clean.refs
+        assert res["hyps"] == port_clean.hyps
+        assert res["n_senones"] == port_clean.n_senones
+        np.testing.assert_allclose(res["mono_log_prob"], port_clean.mono_log_prob, rtol=1e-4)

@@ -109,6 +109,8 @@ def test_port_imports_no_jax():
         "assert {'srhmm_tpu_torch.train.checkpoint', 'srhmm_tpu_torch.train.streaming',\n"
         "        'srhmm_tpu_torch.utils.profiling', 'srhmm_tpu_torch.io.native_loader',\n"
         "        'srhmm_tpu_torch.io.pipeline'} <= set(names)\n"
+        "assert {'srhmm_tpu_torch.parallel.distributed', 'srhmm_tpu_torch.parallel.mesh',\n"
+        "        'srhmm_tpu_torch.parallel.sequence', 'srhmm_tpu_torch.parallel.dryrun'} <= set(names)\n"
         "print(len(names))\n"
     )
     env = dict(os.environ, PYTHONPATH=str(REPO))

@@ -227,5 +227,5 @@ def test_train_tied_trajectory_matches_jax():
     new, lp, nv = tt.tied_em_step(ttd, torch.as_tensor(trs), torch.as_tensor(feats), lens)
     np.testing.assert_allclose(new.senones.weights.sum(-1).numpy(), 1.0, rtol=1e-6)
     assert int(nv) == len(utts) and np.isfinite(float(lp))
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="mesh"):  # a Mesh of parallel/mesh.py is wanted
         tt.train_tied(ttd, utts, transcripts, mesh=object())

@@ -6,7 +6,9 @@ Both CLIs run the same flat start (the LBG init is a port of the JAX one)
 and the plain EM path in float32; the exported .hmm files agree within
 trans atol 1e-5 and means rtol 2e-3 (the trajectory bounds of
 tests/test_embedded.py:251-258), senone_map.json is identical, and
-summary.json has the same keys and iteration count.
+summary.json has the same keys and iteration count.  --data-parallel 2
+under torch.distributed.run writes the one-process CLI's models to the same
+bounds.
 """
 
 import json
@@ -78,12 +80,15 @@ def test_train_embedded_cli_matches_jax(tmp_path, monkeypatch, capsys, tied, ext
 
 
 def test_train_embedded_cli_refuses_what_is_not_ported(tmp_path, monkeypatch, capsys):
-    """--data-parallel is still refused; --checkpoint-dir trains, and a
-    second run with the same directory resumes to the same .hmm files."""
+    """--data-parallel N without a launcher of N ranks is refused (exit 2,
+    the launcher named); --checkpoint-dir trains, and a second run with the
+    same directory resumes to the same .hmm files."""
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
     (tmp_path / "one.txt").write_text("u.perfil a\n")
     assert t_cli.main([str(tmp_path / "one.txt"), str(tmp_path / "out"), "--device", "cpu",
                        "--data-parallel", "2"]) == 2
-    assert "not ported" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert "--data-parallel 2 needs a launcher of 2 ranks" in err and "torchrun" in err
     assert not (tmp_path / "out").exists()
     _fixture(tmp_path, UNITS, [[0, 1, 2], [2, 3, 0], [1, 0, 3], [3, 2, 1], [0, 2], [1, 3]])
     monkeypatch.chdir(tmp_path)
@@ -97,3 +102,40 @@ def test_train_embedded_cli_refuses_what_is_not_ported(tmp_path, monkeypatch, ca
     assert runs[0]["iterations"] == runs[1]["iterations"]
     capsys.readouterr()
     assert t_cli.parse_triphone("l-c+r") == ("l", "c", "r") and t_cli.parse_triphone("ab") == ("", "ab", "")
+
+
+@pytest.mark.parametrize("tied", [False, True])
+def test_train_embedded_cli_data_parallel_matches_one_process(tmp_path, monkeypatch, tied):
+    """--data-parallel 2 under torch.distributed.run (2 CPU ranks, gloo):
+    the coordinator alone writes OUTPUT_DIR, whose models agree with the
+    one-process CLI's within rtol 2e-3 (the file's trajectory bound; the
+    float32 statistics summed in another order), the zeros of the
+    transitions kept (atol 1e-5)."""
+    import torch_dist_workers as w
+
+    if tied:
+        names = TRIPHONES
+        seqs = [[0, 1, 2], [3, 4, 5], [0, 1, 2], [3, 4, 5], [1, 2], [4, 5], [0, 1], [3, 4], [0, 1, 2]]
+        flags = ["--tied", "--min-occ", "10", "--min-gain", "30", "--max-iters", "4"]
+    else:
+        names = UNITS
+        seqs = [[0, 1, 2], [2, 3, 0], [1, 0, 3], [3, 2, 1], [0, 2], [1, 3], [2, 0, 1]]
+        flags = ["--max-iters", "5", "--pad-multiple", "16"]
+    _fixture(tmp_path, names, seqs)
+    monkeypatch.chdir(tmp_path)
+    assert t_cli.main(["trans.txt", "one", "--device", "cpu"] + flags) == 0
+    rc, out, err = w.launch(["-m", "srhmm_tpu_torch.cli.train_embedded", "trans.txt", "dp", "--device", "cpu",
+                             "--data-parallel", "2"] + flags, tmp_path)
+    assert rc == 0, err[-4000:]
+    assert len([line for line in out.splitlines() if line.startswith("{")]) == 1  # the coordinator's
+    s1 = json.loads((tmp_path / "one" / "summary.json").read_text())
+    s2 = json.loads((tmp_path / "dp" / "summary.json").read_text())
+    assert s2.pop("data_parallel") == 2 and sorted(s1) == sorted(s2)
+    assert s2["iterations"] == s1["iterations"] and s2["tied"] is tied
+    np.testing.assert_allclose(s2["mean_log_prob"], s1["mean_log_prob"], rtol=2e-4)
+    for u in names:
+        h1, h2 = tio.read_hmm(tmp_path / "one" / f"{u}.hmm"), tio.read_hmm(tmp_path / "dp" / f"{u}.hmm")
+        np.testing.assert_allclose(h2.trans.numpy(), h1.trans.numpy(), rtol=2e-3, atol=1e-5)
+        np.testing.assert_allclose(h2.streams[0].means.numpy(), h1.streams[0].means.numpy(), rtol=2e-3, atol=2e-3)
+    if tied:
+        assert (tmp_path / "dp" / "senone_map.json").read_text() == (tmp_path / "one" / "senone_map.json").read_text()
