@@ -189,7 +189,9 @@ each (any failure raises, so the exit code is non-zero):
               lattice within TIME_F64_LATTICE_BOUND of an extended-precision
               recursion (forward_extended), float64 statistics within
               TIME_F64_STATS_BOUND of e_step's (max|k-p| / max|p|; log prob
-              rtol 1e-12), float32 log prob within 1e-2; (f)
+              rtol 1e-12), float32 log prob within 1e-2 and each float32
+              field's deviation from float64 within TIME_F32_VS_PLAIN x
+              the plain float32 e_step's own; (f)
               pipe_c3 on the mesh at clean / 10 / 0 dB, WER <= 0.10 / 0.10 /
               0.5; (g) the train_embedded CLI under torchrun
               --data-parallel 2, its models decoding the held-out strings at
@@ -4000,6 +4002,12 @@ TIME_SHARDED = (32, 8192)  # (e): B utterances of T frames (82 s each), the fram
 # recursion at T = 8192 (|log alpha| up to 5.9e5; H100 80GB HBM3, 700 W)
 TIME_F64_LATTICE_BOUND = 1e-8
 TIME_F64_STATS_BOUND = 1e-7
+# (e) float32: at |log alpha| ~ 6e5 a float32 lattice carries tenths of a
+# nat in log gamma, so the plain float32 e_step's statistics are themselves
+# tenths of their largest value off float64.  Each time-sharded float32
+# field (max|k-p| / max|p| against float64) is held to this multiple of the
+# plain float32 path's own deviation in that field; num_valid exact.
+TIME_F32_VS_PLAIN = 2.0
 
 
 def forward_extended(log_b: np.ndarray, log_trans: np.ndarray) -> np.ndarray:
@@ -4363,20 +4371,27 @@ def phase_multi(torch, train_diag: dict, main_full: dict, emb: dict, tied: dict,
     err_plain = float(np.abs(la_plain[fin] - la_ext[fin]).max())
     if not err_sharded <= TIME_F64_LATTICE_BOUND:
         raise AssertionError(f"multi (e): the time-sharded lattice is {err_sharded} off the extended recursion")
-    e64_err, e32_dev = 0.0, 0.0
+    def dev64(st):  # {field: max|k - float64| / max|float64|}
+        return {k: float(np.abs(st[k] - a).max() / max(np.abs(a).max(), 1e-30)) for k, a in ref64.items()}
+
+    plain32_dev = dev64(numpy_stats(e_step(model, tb)))
+    e64_err, e32_dev = 0.0, {}
     for i, r in enumerate(ranks):
         e64_err = max(e64_err, stats_within(r["e_f64"], ref64, f"multi (e) float64 rank {i}", TIME_F64_STATS_BOUND))
         np.testing.assert_allclose(r["e_f64"]["log_prob"], ref64["log_prob"], rtol=1e-12, err_msg="multi (e)")
         lp32, lp64 = float(r["e_f32"]["log_prob"]), float(ref64["log_prob"])
         if not abs(lp32 - lp64) <= 1e-2 * abs(lp64):
             raise AssertionError(f"multi (e) rank {i}: float32 log prob {lp32} vs float64 {lp64}")
-        e32_dev = max(e32_dev, max(float(np.abs(r["e_f32"][k] - a).max() / max(np.abs(a).max(), 1e-30))
-                                   for k, a in ref64.items()))
+        for k, d in dev64(r["e_f32"]).items():
+            if not d <= TIME_F32_VS_PLAIN * plain32_dev[k]:
+                raise AssertionError(f"multi (e) rank {i}: float32 {k} {d:.3e} off float64, above "
+                                     f"{TIME_F32_VS_PLAIN} x the plain float32 e_step's {plain32_dev[k]:.3e}")
+            e32_dev[k] = max(e32_dev.get(k, 0.0), d)
     emit({**common, "step": "e_time_sharded", "B": tB, "T": tT, "seconds_per_utterance": tT * FRAME_S,
           "float64_log_prob": float(ref64["log_prob"]), "float64_stats_max_rel": e64_err,
           "lattice_max_abs_vs_extended": {"sharded": err_sharded, "plain": err_plain,
                                           "max_abs_log_alpha": float(np.abs(la_ext[fin]).max())},
-          "float32_max_dev_rel_vs_float64": e32_dev,
+          "float32_dev_rel_vs_float64": {"sharded": e32_dev, "plain": plain32_dev},
           "wall_s_sharded": {k: [r["wall_s"][k] for r in ranks] for k in ("e_f64", "e_f32")}})
 
     # (f)

@@ -211,16 +211,14 @@ def _run(ns, device, mesh) -> int:
         (-1.0, ns.scan_iters, ns.scan_iters) if ns.scan_iters else (ns.threshold, ns.max_iters, ns.chunk)
     )
     if ns.tied:
-        from ..models.decision_tree import cluster_states, state_stats_from_suffstats
         from ..models.tying import tie_from_models
-        from ..pipeline import _bucketed_embedded_stats
+        from ..pipeline import tree_cluster
         from ..train.tied import train_tied
 
         tris = [parse_triphone(u) for u in unit_names]
-        stats = _bucketed_embedded_stats(models, feats, transcripts, pad_multiple=ns.pad_multiple)
-        occ, x, xx = state_stats_from_suffstats(stats)
-        cluster = cluster_states(
-            tris, occ, x, xx, min_occ=ns.min_occ, min_gain=ns.min_gain, max_senones=ns.max_senones,
+        cluster = tree_cluster(
+            models, feats, transcripts, tris, pad_multiple=ns.pad_multiple, mesh=mesh,
+            min_occ=ns.min_occ, min_gain=ns.min_gain, max_senones=ns.max_senones,
         )
         tied0 = tie_from_models(models, cluster.state_map).astype(torch.float32)
         res = train_tied(

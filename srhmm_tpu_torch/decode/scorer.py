@@ -158,20 +158,18 @@ def score_batch_sharded(
     mesh,
     axis: str = "data",
     mode: str = TOTAL,
-    final_states: torch.Tensor | None = None,
-    impl: str | None = None,
 ) -> torch.Tensor:
     """Batch scoring with the utterances split over the `axis` ranks of a
     Mesh (parallel/mesh.py): each rank runs score_batch on its rows (the
     scoring kernel on the card) and an all_gather assembles the (B, W)
     scores in row order, on every rank.  `batch` is the whole batch, the
     same on every rank; B must divide by the axis.  The vocabulary is
-    replicated."""
+    replicated on the mesh's device."""
     from ..parallel.distributed import all_gather
-    from ..parallel.mesh import shard_batch
+    from ..parallel.mesh import replicate, shard_batch
 
     local = shard_batch(batch, mesh, axis)
-    scores = score_batch(vocab, local, mode=mode, final_states=final_states, impl=impl)
+    scores = score_batch(replicate(vocab, mesh), local, mode=mode)
     return all_gather(scores, mesh.group(axis)).reshape(-1, scores.shape[-1])
 
 

@@ -61,10 +61,6 @@ def local_rank() -> int:
     return _env_int("LOCAL_RANK", rank())
 
 
-def local_world_size() -> int:
-    return _env_int("LOCAL_WORLD_SIZE", world_size())
-
-
 def is_coordinator() -> bool:
     return rank() == 0
 

@@ -244,4 +244,4 @@ def em_step_sharded(model: GmmHmm, batch, mesh: Mesh, var_floor: float = 0.0):
         stats, streams=tuple(_gather_stream_stats(st, s, model_group) for st, s in zip(stats.streams, model.streams))
     )
     new = m_step(whole, gathered, var_floor=var_floor)
-    return shard_model(new, mesh, shard_mixtures=True), stats.log_prob, stats.num_valid
+    return shard_model(new, mesh), stats.log_prob, stats.num_valid

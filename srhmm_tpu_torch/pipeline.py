@@ -288,7 +288,8 @@ def clone_monophones_to_units(mono, units, phones):
     return GmmHmm(trans=mono.trans[center], streams=streams, word=tuple("-".join(u) for u in units))
 
 
-def _bucketed_embedded_stats(models, utts, transcripts, pad_multiple: int = 32, fused: bool | None = None):
+def _bucketed_embedded_stats(models, utts, transcripts, pad_multiple: int = 32, fused: bool | None = None,
+                             mesh=None):
     """Summed embedded E-step SuffStats over shape buckets (the
     train_embedded packing, float32 features on the models' device): the
     per-(unit, state) occupancy and moment source of tree clustering.
@@ -296,11 +297,16 @@ def _bucketed_embedded_stats(models, utts, transcripts, pad_multiple: int = 32, 
     fused=None takes the composed kernels (batch_stats_fused) when every
     bucket is eligible (_embedded_fused_eligible: CUDA float32 among
     others), decided once here; True forces them (their plain twins on CPU
-    tensors); False runs the plain batch_stats."""
-    from .train.embedded import _add_stats, _embedded_fused_eligible, batch_stats, batch_stats_fused, pack_buckets
+    tensors); False runs the plain batch_stats.  mesh: a Mesh with a
+    "data" axis: each rank sums its rows of every bucket (padded to a
+    multiple of the axis) and one all_reduce gives every rank the same
+    sums."""
+    from .parallel.mesh import DATA_AXIS, all_reduce_stats
+    from .train.embedded import _add_stats, _embedded_fused_eligible, batch_stats, batch_stats_fused, mesh_buckets
 
     utts = [np.asarray(u, np.float32) for u in utts]
-    packed = pack_buckets(utts, transcripts, torch.float32, models.trans.device, pad_multiple)
+    packed, group = mesh_buckets("_bucketed_embedded_stats", utts, transcripts, models.trans.float(), pad_multiple,
+                                 mesh, DATA_AXIS)
     if fused is None:
         fused = all(_embedded_fused_eligible(models, trs, f) for trs, f, _ in packed)
     stats = batch_stats_fused if fused else batch_stats
@@ -308,7 +314,21 @@ def _bucketed_embedded_stats(models, utts, transcripts, pad_multiple: int = 32, 
     for trs, feats, lengths in packed:
         st = stats(models, trs, feats, lengths)
         agg = st if agg is None else _add_stats(agg, st)
-    return agg
+    return all_reduce_stats(agg, group)
+
+
+def tree_cluster(models, utts, transcripts, units, pad_multiple: int = 32, mesh=None, **cluster_kw):
+    """Tie the (unit, state) pairs of `models` by tree clustering
+    (models/decision_tree.py cluster_states, `cluster_kw` its thresholds) on
+    the statistics of one embedded E-step.  Under a mesh the statistics are
+    data-parallel and all-reduced, so every rank's tree reads the same sums
+    and builds the same state map (the senone count sizes every later
+    collective)."""
+    from .models.decision_tree import cluster_states, state_stats_from_suffstats
+
+    stats = _bucketed_embedded_stats(models, utts, transcripts, pad_multiple=pad_multiple, mesh=mesh)
+    occ, x, xx = state_stats_from_suffstats(stats)
+    return cluster_states(units, occ, x, xx, **cluster_kw)
 
 
 def estimate_bigram(refs: Sequence[Sequence[int]], W: int, alpha: float = 0.5) -> tuple:
@@ -372,16 +392,16 @@ def run_pipeline(
     float32 as the JAX package does, and a relative variance floor.
 
     mesh: a Mesh with a "data" axis (parallel/mesh.py), ``device`` its
-    device: both EM stages train data-parallel (train_embedded /
-    train_tied with mesh=).  Every rank runs the rest of the chain on the
-    whole data (synthesis, MFCC and the clustering statistics are
+    device: both EM stages and the clustering statistics run
+    data-parallel (train_embedded / train_tied / tree_cluster with mesh=),
+    so every rank clusters the same all-reduced sums.  Every rank runs the
+    rest of the chain on the whole data (synthesis and MFCC are
     deterministic; every rank decodes the held-out set), so every rank
     returns the same result."""
     from .decode.continuous import decode_continuous_batch
     from .eval.metrics import WerCounts, edit_alignment
     from .io.dataset import pack_utterances
     from .models import concat_models, pad_stack_models, stack_models
-    from .models.decision_tree import cluster_states, state_stats_from_suffstats
     from .models.tying import tie_from_models
     from .train.embedded import train_embedded
     from .train.tied import train_tied
@@ -432,10 +452,9 @@ def run_pipeline(
     units, word_unit_ids = build_inventory(cfg, lexicon)
     tri0 = clone_monophones_to_units(mono_res.model, units, cfg.phones)
     unit_seqs = [[u for w in ids for u in word_unit_ids[w]] for ids in train_refs]
-    stats = _bucketed_embedded_stats(tri0, train_feats, unit_seqs, pad_multiple=pad_multiple)
-    occ, x, xx = state_stats_from_suffstats(stats)
-    cluster = cluster_states(
-        units, occ, x, xx, min_occ=min_occ, min_gain=min_gain, max_senones=max_senones,
+    cluster = tree_cluster(
+        tri0, train_feats, unit_seqs, units, pad_multiple=pad_multiple, mesh=mesh,
+        min_occ=min_occ, min_gain=min_gain, max_senones=max_senones,
     )
     tick("tree_cluster")
 

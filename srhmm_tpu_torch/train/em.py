@@ -729,15 +729,16 @@ def _kernels_take(model: GmmHmm, batches, band) -> bool:
     return fits(model.coef_numbers, model.mixture_numbers, cov == FULL, model.num_states, band)
 
 
-def _fused_setup(model: GmmHmm, batch):
+def _fused_setup(model: GmmHmm, batch, fused: bool | None = None):
     """(use_fused, feats_tdb, band) for a loop of E-steps, decided once on
     the host: the static transition band of the model (EM preserves its
-    zeros), eligibility at that band and the single-stream (T, D, B) feature
-    transpose."""
+    zeros), eligibility at that band (fused=None; True forces the kernels,
+    their twins on CPU tensors) and the single-stream float32 (T, D, B)
+    feature transpose."""
     band = trans_band(model.trans.detach().cpu().numpy())
-    if not _fused_lane_eligible(model, batch, band):
+    if not (_fused_lane_eligible(model, batch, band) if fused is None else fused):
         return False, None, None
-    feats_tdb = None if isinstance(batch, tuple) else batch.features.permute(1, 2, 0).contiguous()
+    feats_tdb = None if isinstance(batch, tuple) else batch.features.to(torch.float32).permute(1, 2, 0).contiguous()
     return True, feats_tdb, band
 
 
@@ -845,6 +846,17 @@ def e_step_fused_lane_sharded(
     return all_reduce_stats(e_step_fused_lane(model, local, band=band), mesh.group(axis))
 
 
+def _data_parallel_setup(model: GmmHmm, batch, mesh, axis: str, fused: bool | None):
+    """What a data-parallel loop of E-steps runs on: (this rank's rows of
+    `batch` on the mesh's device, use_fused, feats_tdb, band, the axis'
+    process group), _fused_setup decided on the shard."""
+    from ..parallel.mesh import require_axis, shard_batch
+
+    require_axis("data-parallel EM", mesh, axis)
+    local = shard_batch(batch, mesh, axis)
+    return (local, *_fused_setup(model, local, fused), mesh.group(axis))
+
+
 def em_train_scan_sharded(
     model: GmmHmm,
     batch: UtteranceBatch,
@@ -852,22 +864,17 @@ def em_train_scan_sharded(
     mesh,
     axis: str = "data",
     var_floor: float = 0.0,
-    band=_MODEL_BAND,
 ):
     """N data-parallel EM iterations: em_train_scan on this rank's rows of
     `batch` through the fused kernels (their twins on CPU tensors), the
     statistics all-reduced over `axis` inside every iteration and the same
     M-step on every rank; the feature transpose is taken once for the
-    shard.  band as in e_step_fused_lane_sharded.  Returns (final model,
-    (n_iters,) log-prob history, (n_iters,) num_valid history), the same
-    on every rank."""
-    from ..parallel.mesh import shard_batch
-
-    if band is _MODEL_BAND:
-        band = trans_band(model.trans.detach().cpu().numpy())
-    local = shard_batch(batch, mesh, axis)
-    feats_tdb = local.features.to(torch.float32).permute(1, 2, 0).contiguous()
-    return em_train_scan(model, local, n_iters, feats_tdb, var_floor=var_floor, band=band, group=mesh.group(axis))
+    shard.  train_fast(data_mesh=) runs the same loop, routed to the
+    kernels when they take the shard.  Returns (final model, (n_iters,)
+    log-prob history, (n_iters,) num_valid history), the same on every
+    rank."""
+    local, _, feats_tdb, band, group = _data_parallel_setup(model, batch, mesh, axis, fused=True)
+    return em_train_scan(model, local, n_iters, feats_tdb, var_floor=var_floor, band=band, group=group)
 
 
 def em_step_time_sharded(model: GmmHmm, batch, mesh, var_floor: float = 0.0, axis: str = "time"):
@@ -945,13 +952,6 @@ def train_fast(
 
     if data_mesh is not None and time_mesh is not None:
         raise ValueError("train_fast: pass data_mesh or time_mesh, not both")
-    group = None
-    if data_mesh is not None:
-        from ..parallel.mesh import DATA_AXIS, require_axis, shard_batch
-
-        require_axis("train_fast", data_mesh, DATA_AXIS)
-        batch = shard_batch(batch, data_mesh, DATA_AXIS)
-        group = data_mesh.group(DATA_AXIS)
     if time_mesh is not None:
         from ..parallel.mesh import require_axis
         from ..parallel.sequence import TIME_AXIS, time_shard
@@ -962,7 +962,12 @@ def train_fast(
         def run(m, k):
             return _time_scan(m, feats_loc, lengths, k, time_mesh, TIME_AXIS, var_floor)
     else:
-        use_fused, feats_tdb, band = _fused_setup(model, batch)
+        if data_mesh is not None:
+            from ..parallel.mesh import DATA_AXIS
+
+            batch, use_fused, feats_tdb, band, group = _data_parallel_setup(model, batch, data_mesh, DATA_AXIS, None)
+        else:
+            (use_fused, feats_tdb, band), group = _fused_setup(model, batch), None
 
         def run(m, k):
             return em_train_scan(

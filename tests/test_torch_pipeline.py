@@ -198,6 +198,38 @@ def test_pipeline_refuses_a_mesh():
         tp.run_pipeline(TINY, n_train=2, n_test=1, mesh=object(), device="cpu")
 
 
+def test_tree_cluster_on_a_mesh_reads_all_reduced_statistics(tmp_path):
+    """Under a mesh of 2 gloo ranks the clustering statistics are summed over
+    the ranks' rows: with rank 1's copy of the features one ulp off, the
+    ranks' own whole-batch statistics differ, but the sums the tree reads
+    are bitwise the same on both ranks and within the file's float32
+    bucketed-statistics bound (5e-4) of the one-process statistics, and so
+    is the state map."""
+    import torch_dist_workers as w
+    from srhmm_tpu_torch.models.decision_tree import state_stats_from_suffstats
+    from srhmm_tpu_torch.parallel import distributed
+
+    lex = tp.make_lexicon(TINY)
+    waves, refs, _, _ = tp.synthesize_dataset(TINY, n_train=12, n_test=0)
+    feats, _ = tp.global_cmvn(tp.mfcc_features(waves, TINY.frontend, "cpu"), [])
+    mono = tp.flat_start_monophones(TINY, feats, [[p for w_ in ids for p in lex[w_][1]] for ids in refs])
+    units, word_unit_ids = tp.build_inventory(TINY, lex)
+    tri = tp.clone_monophones_to_units(mono.astype(torch.float32), units, TINY.phones)
+    trs = [[u for w_ in ids for u in word_unit_ids[w_]] for ids in refs]
+    kw = dict(min_occ=10.0, min_gain=20.0)
+    one_stats = state_stats_from_suffstats(tp._bucketed_embedded_stats(tri, feats, trs))
+    one_map = tp.tree_cluster(tri, feats, trs, units, **kw).state_map
+    assert len(np.unique(one_map)) > len(TINY.phones) * tri.num_states  # the tree splits
+    r0, r1 = distributed.spawn(w.tree_case, 2, args=(tri, feats, trs, units, kw), device="cpu",
+                               timeout_s=w.TIMEOUT_S, workdir=tmp_path)
+    assert any(not np.array_equal(a, b) for a, b in zip(r0["own"], r1["own"]))
+    for a, b, want in zip(r0["shared"], r1["shared"], one_stats):
+        np.testing.assert_array_equal(a, b)
+        np.testing.assert_allclose(a, np.asarray(want), rtol=5e-4, atol=5e-4 * float(np.abs(want).max()))
+    np.testing.assert_array_equal(r0["state_map"], r1["state_map"])
+    np.testing.assert_array_equal(r0["state_map"], one_map)
+
+
 def test_pipeline_data_parallel_mesh(port_clean, tmp_path):
     """tests/test_pipeline.py test_pipeline_data_parallel_mesh on the port:
     the same chain with both EM stages on a mesh of 2 gloo ranks (spawned,

@@ -376,6 +376,25 @@ def pipeline_case(rank: int, cfg, kwargs) -> dict:
             "mono_log_prob": res.mono_log_prob, "tied_log_prob": res.tied_log_prob}
 
 
+def tree_case(rank: int, models, utts, transcripts, units, cluster_kw) -> dict:
+    """The tied-state tree on a mesh of 2 ranks, rank 1's copy of every
+    frame one float32 ulp up: the all-reduced clustering statistics, the
+    state map built from them, and this rank's own whole-batch statistics
+    (no mesh) for contrast."""
+    from srhmm_tpu_torch.models.decision_tree import state_stats_from_suffstats
+    from srhmm_tpu_torch.parallel.mesh import make_mesh
+    from srhmm_tpu_torch.pipeline import _bucketed_embedded_stats, tree_cluster
+
+    if rank == 1:
+        utts = [np.nextafter(np.asarray(u, np.float32), np.float32(np.inf)) for u in utts]
+    mesh = make_mesh(device="cpu")
+    shared = state_stats_from_suffstats(_bucketed_embedded_stats(models, utts, transcripts, mesh=mesh))
+    own = state_stats_from_suffstats(_bucketed_embedded_stats(models, utts, transcripts))
+    cluster = tree_cluster(models, utts, transcripts, units, mesh=mesh, **cluster_kw)
+    return {"shared": [np.asarray(a) for a in shared], "own": [np.asarray(a) for a in own],
+            "state_map": np.asarray(cluster.state_map)}
+
+
 # ---------------------------------------------------------------------------
 # test_torch_distributed.py: 2 ranks under torch.distributed.run
 # ---------------------------------------------------------------------------

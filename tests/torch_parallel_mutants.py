@@ -41,6 +41,11 @@ MUTANTS = {  # name: (file, original, broken, tests that must catch it)
         '    m = all_reduce(lg.amax(dim=-1), group, "max")',
         "    m = lg.amax(dim=-1)",
         MESH),
+    "tree_statistics_rank_local": (
+        "srhmm_tpu_torch/pipeline.py",
+        "pad_multiple,\n                                 mesh, DATA_AXIS)",
+        "pad_multiple,\n                                 None, DATA_AXIS)",
+        ["tests/test_torch_pipeline.py::test_tree_cluster_on_a_mesh_reads_all_reduced_statistics"]),
 }
 
 
