@@ -199,6 +199,36 @@ each (any failure raises, so the exit code is non-zero):
               process's on one card.  Each rank's launches of #1, #2 / #3
               and #9-#12 must be above 0 (set to 0 before each call, read
               after); the kernels line's launches_multi sums them
+    kernel_lattice_wide / kernel_em_wide / kernel_composed_wide
+              the shapes past the lane path vs their twins:
+              csrc/lattice.cu's block-wide mode (#15-#20) at
+              torch_port_utils.WIDE_LATTICE_CASES (S = 65 to 4096, banded
+              and dense, B = 1 and 37, T = 1 and 95, rows of length 0 and
+              1; the Viterbi twin on its first 40000 // S frames,
+              backpointers equal; a duplicated-state tie at S = 96), the
+              E-step kernels (#2-#5) at full covariance EM_FULL_WIDE_CASES
+              (D = 17 to 64, two streams, the records in device memory) and
+              the composed kernels at BANK_FULL_WIDE_CASES (every full
+              register bound 24-64, the emission's records and the moments'
+              records and accumulators out of shared memory), each failing
+              unless every shape of its set was reached
+    align_s96 / lattice_s1024
+              the lattice kernels' main path past 64 states:
+              log_forward_batch, viterbi_batch + backtrace,
+              forward / backward lattices and their blocked forms, and
+              e_step_lane_major(lattices="pallas") (cut to B=128 / B=2,
+              T=64: its plain xi is (T-1, S, S, B)) on a chain of 32
+              three-state units (S=96, band 1, B=2048, T=512) and on
+              dense transitions (S=1024, B=64, T=512); launches counted,
+              each kernel vs its twin
+    em_full39 train_fast at full covariance D=39 (S=6, M=4, B=2048 of
+              103-213 frames) through #2 / #3: eligible, launched, its
+              first three iterations retraced a step at a time, each log
+              prob within rtol 2e-4 of the plain E-step's on that model
+    emb_full39 / tied_full39
+              train_embedded / train_tied at emb_c4's structure with M=8
+              full covariance at D=39 (3 EM iterations through #9-#13 vs
+              fused=False, as embedded / tied), launches counted
   4 timing    every kernel and its plain version at the main-path shapes, and
               one whole EM iteration through the kernels vs fused=False;
               CUDA events, median of 20 after warm-up (the decode, composed,
@@ -216,7 +246,11 @@ each (any failure raises, so the exit code is non-zero):
               same function as torch.fft.rfft and two matmuls beside it;
               timing_lane times #15-#22 at em_diag (#15 also at diag10) and
               one E-step through e_step_fused, e_step_lane_major("pallas")
-              and e_step_fused_lane, with torch.profiler's idle share
+              and e_step_fused_lane, with torch.profiler's idle share;
+              timing_wide times #15-#20 at align_s96 and lattice_s1024,
+              timing_em and timing_composed also run at em_full39 and
+              emb_full39 / tied_full39, and the `kernels` line carries
+              those cells' fields (*_s96, *_s1024, *_full39)
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 card's name and power limit as nvidia-smi reports them.
@@ -448,15 +482,15 @@ def compare_lattice(k, p, what: str) -> dict:
     return {"rel_err": rel, "max_abs_err": float(diff.max()) if mp.any() else 0.0}
 
 
-def compare_stat(k, p, what: str) -> dict:
-    """A summed statistic: max |k - p| <= STAT_BOUND * max |p|."""
+def compare_stat(k, p, what: str, bound: float = STAT_BOUND) -> dict:
+    """A summed statistic: max |k - p| <= bound (STAT_BOUND) * max |p|."""
     k, p = k.double().cpu().numpy(), p.double().cpu().numpy()
     if not np.isfinite(k).all():
         raise AssertionError(f"{what}: kernel statistic not finite")
     diff = float(np.abs(k - p).max())
     scale = float(np.abs(p).max())
-    if not diff <= STAT_BOUND * scale:
-        raise AssertionError(f"{what}: kernel vs plain {diff} > {STAT_BOUND} x {scale}")
+    if not diff <= bound * scale:
+        raise AssertionError(f"{what}: kernel vs plain {diff} > {bound} x {scale}")
     return {"rel_err": diff / scale if scale else 0.0, "max_abs_err": diff}
 
 
@@ -708,21 +742,9 @@ def phase_kernel_em(torch) -> dict:
     saved = fe.emit_forward.launches, fe.backward_stats.launches
     reached, emit_seen = set(), set()
     for cov, band, mixes_dims, lens, S in kernel_em_cases(fe):
-        feats, packed, origins, trans, lengths = em_case(torch, cov, band, mixes_dims, lens, S=S,
-                                                         shared_gaussians=len(lens) == 2)
-        args = (feats, packed, origins, trans, lengths)
-        lb_k, la_k = fe.emit_forward(*args, band)
-        lb_p, la_p = fe.emit_forward_plain(*args, band)
-        lb_k2, la_k2 = fe.emit_forward(*args, band)
-        log_z = la_p[-1, -1]
-        valid = torch.isfinite(log_z) & (log_z > NEG_INF / 2) & (lengths > 0)
-        safe_z = torch.where(valid, log_z, 0.0)
-        vmask = valid.to(torch.float32)
-        rest = (feats, lb_p, la_p, packed, origins, trans, lengths, safe_z, vmask, band)
-        st_k = fe.backward_stats(*rest)
-        st_p = fe.backward_stats_plain(*rest)
-        st_k2 = fe.backward_stats(*rest)
-        torch.cuda.synchronize()
+        name = f"{cov}_S{S}_band{band}_" + "_".join(f"M{M}D{D}" for M, D in mixes_dims)
+        res, args, valid = em_kernel_check(torch, fe, cov, band, mixes_dims, lens, S, name,
+                                           shared_gaussians=len(lens) == 2)
         occ = fe.occupancy(1, *args, band)
         emit_seen |= emit_reached(fe, args, band, lens)
         T = max(lens)
@@ -731,34 +753,12 @@ def phase_kernel_em(torch) -> dict:
         reached |= {"skipped_columns"} if skipped else set()
         reached |= {"acc_in_partials"} if not occ["acc_in_shared_memory"] else set()
         reached |= {"slots_past_registers"} if band is None and S > fe.XI_REGS else set()
-        name = f"{cov}_S{S}_band{band}_" + "_".join(f"M{M}D{D}" for M, D in mixes_dims)
-        res = {"log_b": compare_lattice(lb_k, lb_p, f"{name} log_b"),
-               "log_alpha": compare_lattice(la_k, la_p, f"{name} log_alpha")}
-        # each moment block is its own statistic: its first moments,
-        # second moments and occupancy column have different scales
-        def parts(st):
-            out = [st[0], st[1], st[2]]
-            for mom, (_, D) in zip(st[3], mixes_dims):
-                out += [mom[:, :D], mom[:, D:-1], mom[:, -1]]
-            return out
-
-        kst, pst = parts(st_k), parts(st_p)
-        names = ["xi", "den_trans", "den_mix"] + [
-            f"mom{q}_{part}" for q in range(len(mixes_dims)) for part in ("x", "xx", "w")
-        ]
-        for n, a, b in zip(names, kst, pst):
-            res[n] = compare_stat(a, b, f"{name} {n}")
-        again = parts(st_k2)
-        bitwise = (torch.equal(lb_k, lb_k2) and torch.equal(la_k, la_k2)
-                   and all(torch.equal(a, b) for a, b in zip(kst, again)))
-        if not bitwise:
-            raise AssertionError(f"{name}: two kernel runs of one E-step differ")
         worst["emit_forward"] = max(worst["emit_forward"], res["log_b"]["max_abs_err"],
                                     res["log_alpha"]["max_abs_err"])
-        worst["backward_stats"] = max(worst["backward_stats"],
-                                      *(res[n]["max_abs_err"] for n in names))
+        worst["backward_stats"] = max(worst["backward_stats"], *(v["max_abs_err"] for k, v in res.items()
+                                                                 if k not in ("log_b", "log_alpha")))
         emit({"phase": "kernel_em", "config": name, "B": len(lens), "T": T,
-              "valid": int(vmask.sum()), "bitwise_repeat": bitwise, "block": occ,
+              "valid": int(valid.sum()), "bitwise_repeat": True, "block": occ,
               "skipped_columns": skipped, **{k: v["rel_err"] for k, v in res.items()}})
     want = {"partial_tile", "skipped_columns", "acc_in_partials", "slots_past_registers"}
     if reached != want:
@@ -951,11 +951,14 @@ def write_utterances(root: Path, name: str, utts) -> Path:
     return lst
 
 
-def phase_train(torch, name, cov, S, M, D, t_range, tmp: Path, B=2048) -> dict:
+def phase_train(torch, name, cov, S, M, D, t_range, tmp: Path, B=2048, monotone=True, scan_iters=5) -> dict:
     """The training main path at full width: .perfil files -> load_batch ->
     create_initial_model (LBG) -> astype(float32) -> cuda -> train_fast;
-    then, from the trained model, em_train_scan(5) through the kernels vs
-    fused=False on the card."""
+    then, from the trained model, em_train_scan(scan_iters) through the
+    kernels vs fused=False on the card.  monotone: fail where the log
+    probability falls (False where the reference's M-step, which takes the
+    covariance about the old means, makes EM fall and wander, as at full
+    covariance D = 39: phase_em_full39)."""
     from srhmm_tpu_torch.init.lbg import create_initial_model
     from srhmm_tpu_torch.io import load_batch
     from srhmm_tpu_torch.io.dataset import UtteranceBatch
@@ -987,7 +990,7 @@ def phase_train(torch, name, cov, S, M, D, t_range, tmp: Path, B=2048) -> dict:
             raise AssertionError(f"{name}: {k} launched {n} times for {res.iterations} iterations")
     hist = np.asarray(res.log_prob_history)
     drops = (hist[1:] - hist[:-1]) / np.abs(hist[:-1])
-    if (drops < -1e-5).any():
+    if monotone and (drops < -1e-5).any():
         raise AssertionError(f"{name}: log-probability decreased: {hist.tolist()}")
     if res.exemplar_count != B:
         raise AssertionError(f"{name}: num_valid {res.exemplar_count} != {B}")
@@ -1003,9 +1006,9 @@ def phase_train(torch, name, cov, S, M, D, t_range, tmp: Path, B=2048) -> dict:
     # fp64); near the trained model EM contracts
     band = trans_band(model.trans.cpu().numpy())
     trained = res.model
-    fin_k, lps_k, nvs_k = em_train_scan(trained, batch, 5, batch.features.permute(1, 2, 0).contiguous(),
+    fin_k, lps_k, nvs_k = em_train_scan(trained, batch, scan_iters, batch.features.permute(1, 2, 0).contiguous(),
                                         fused=True, band=band)
-    fin_p, lps_p, nvs_p = em_train_scan(trained, batch, 5, fused=False)
+    fin_p, lps_p, nvs_p = em_train_scan(trained, batch, scan_iters, fused=False)
     lps_k, lps_p = lps_k.double().cpu().numpy(), lps_p.double().cpu().numpy()
     lp_rel = float(np.max(np.abs(lps_k - lps_p) / np.abs(lps_p)))
     if not lp_rel <= 1e-4:
@@ -1019,9 +1022,10 @@ def phase_train(torch, name, cov, S, M, D, t_range, tmp: Path, B=2048) -> dict:
     out = {
         "phase": "train", "config": name, "cov": cov, "S": S, "M": M, "D": D, "B": B,
         "T": int(host.lengths.max()), "frames": frames, "iterations": res.iterations,
-        "launches": launches, "history": hist.tolist(), "mean_log_prob": res.mean_log_prob,
-        "num_valid": res.exemplar_count, "scan5_lps_rel_vs_plain": lp_rel,
-        "scan5_means_max_abs_vs_plain": float(np.abs(mk - mp).max()),
+        "launches": launches, "history": hist.tolist(), "log_prob_falls": int((drops < -1e-5).sum()),
+        "mean_log_prob": res.mean_log_prob,
+        "num_valid": res.exemplar_count, "scan_iters": scan_iters, "scan_lps_rel_vs_plain": lp_rel,
+        "scan_means_max_abs_vs_plain": float(np.abs(mk - mp).max()),
         "load_s": t_load, "lbg_init_s": t_init, "train_fast_wall_s": wall,
     }
     emit(out)
@@ -1125,14 +1129,14 @@ def phase_timing(torch, main: dict, smi: str) -> dict:
     return {"ms": t["ms"], "plain_ms": t["best_plain_ms"], "kernel_device_ms": t["kernel_device_ms"], **bnd}
 
 
-def timed_pair(torch, plain, kernel, plain_warmup=1) -> dict:
-    """CUDA-event medians of 20 in the order plain, kernel, kernel, plain:
-    a drift across the window shows up as a difference between the two
-    readings of one version."""
-    plain_a = median_ms(torch, plain, warmup=plain_warmup)
+def timed_pair(torch, plain, kernel, plain_warmup=1, plain_reps=20) -> dict:
+    """CUDA-event medians of 20 (the plain version's of plain_reps) in the
+    order plain, kernel, kernel, plain: a drift across the window shows up
+    as a difference between the two readings of one version."""
+    plain_a = median_ms(torch, plain, warmup=plain_warmup, reps=plain_reps)
     kern_a = median_ms(torch, kernel)
     kern_b = median_ms(torch, kernel)
-    plain_b = median_ms(torch, plain, warmup=plain_warmup)
+    plain_b = median_ms(torch, plain, warmup=plain_warmup, reps=plain_reps)
     return {"kernel_ms": [kern_a, kern_b], "plain_ms": [plain_a, plain_b],
             "ms": min(kern_a, kern_b), "best_plain_ms": min(plain_a, plain_b)}
 
@@ -1184,12 +1188,13 @@ def em_bounds(out: dict, T: int, dims, full: bool, packed, trans, lengths, valid
             raise AssertionError(f"{name}: {row['ms']} ms is below its bound {row['bound_ms']} ms")
 
 
-def phase_timing_em(torch, train: dict, smi: str) -> dict:
+def phase_timing_em(torch, train: dict, smi: str, plain_reps: int = 20) -> dict:
     """emit_forward, backward_stats and one whole EM iteration (kernel path
     vs fused=False) at a train shape, on the trained phase's initial model:
-    CUDA events around each call (the wrapper's host work included), each
-    kernel's own device time and the fused iteration's device busy time and
-    idle share under torch.profiler."""
+    CUDA events around each call (the wrapper's host work included; the
+    plain versions median of plain_reps), each kernel's own device time and
+    the fused iteration's device busy time and idle share under
+    torch.profiler."""
     from srhmm_tpu_torch.ops.kernels import fused_em as fe
     from srhmm_tpu_torch.ops.kernels.common import trans_band
     from srhmm_tpu_torch.train.em import em_step
@@ -1207,11 +1212,13 @@ def phase_timing_em(torch, train: dict, smi: str) -> dict:
           torch.where(valid, log_z, 0.0), valid.to(torch.float32), band)
     saved = fe.emit_forward.launches, fe.backward_stats.launches
     out = {
-        "emit_forward": timed_pair(torch, lambda: fe.emit_forward_plain(*k1), lambda: fe.emit_forward(*k1)),
-        "backward_stats": timed_pair(torch, lambda: fe.backward_stats_plain(*k2), lambda: fe.backward_stats(*k2)),
+        "emit_forward": timed_pair(torch, lambda: fe.emit_forward_plain(*k1), lambda: fe.emit_forward(*k1),
+                                   plain_reps=plain_reps),
+        "backward_stats": timed_pair(torch, lambda: fe.backward_stats_plain(*k2), lambda: fe.backward_stats(*k2),
+                                     plain_reps=plain_reps),
         "em_iteration": timed_pair(
             torch, lambda: em_step(model, batch, fused=False),
-            lambda: em_step(model, batch, fused=True, feats_tdb=feats_tdb, band=band)),
+            lambda: em_step(model, batch, fused=True, feats_tdb=feats_tdb, band=band), plain_reps=plain_reps),
     }
     for name, fn in (("emit_forward", lambda: fe.emit_forward(*k1)), ("backward_stats", lambda: fe.backward_stats(*k2))):
         out[name]["kernel_device_ms"] = kernel_device_ms(torch, fn, f"{name}_kernel")[0]
@@ -1225,7 +1232,7 @@ def phase_timing_em(torch, train: dict, smi: str) -> dict:
     D, M, full = feats_tdb.shape[1], model.mixture_numbers[0], model.streams[0].cov_type == "full"
     em_bounds(out, feats_tdb.shape[0], [(D, M)], full, packed, model.trans, batch.lengths, valid, band)
     res = {
-        "phase": "timing_em", "config": train["res"]["config"], "reps": 20, **out,
+        "phase": "timing_em", "config": train["res"]["config"], "reps": 20, "plain_reps": plain_reps, **out,
         "em_audio_s_per_s": audio_s / (it["ms"] / 1e3),
         "plain_em_audio_s_per_s": audio_s / (it["best_plain_ms"] / 1e3),
         "audio_s": audio_s, "occupancy": occ, "sms": torch.cuda.get_device_properties(0).multi_processor_count,
@@ -1949,6 +1956,30 @@ def backward_check(torch) -> float:
     return worst
 
 
+def composed_case(torch, seed, cov, S, L, md):
+    """One composed-kernel input from a seed: B=37 utterances, T=95, a
+    zero-length and a length-1 row, 6 units (every other one with a skip
+    arc) of S states with streams [(M, D)], transcripts of L units
+    (utterance 0 repeating unit 1): (lengths, feats, lengths tensor,
+    composed_inputs)."""
+    from srhmm_tpu_torch.models import gmm_hmm_from_numpy, stack_models
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed)
+    lens = [int(n) for n in rng.integers(2, 95, size=34)] + [95, 0, 1]
+    P = 6
+    units = [(left_right_trans(S, 3.0) if i % 2 else skip_trans(S), [rand_stream(rng, S, M, D, cov) for M, D in md])
+             for i in range(P)]
+    models = stack_models([gmm_hmm_from_numpy(t, st, f"u{i}") for i, (t, st) in enumerate(units)])
+    models = models.astype(torch.float32).to(dev)
+    trs = rng.integers(0, P, size=(len(lens), L))
+    trs[0] = 1
+    transcripts = torch.as_tensor(trs, device=dev)
+    feats = torch.as_tensor(rng.normal(size=(len(lens), max(lens), md[0][1])) * 3, dtype=torch.float32, device=dev)
+    lengths = torch.as_tensor(lens, dtype=torch.int32, device=dev)
+    return lens, feats, lengths, composed_inputs(torch, models, transcripts, feats, lengths)
+
+
 def phase_kernel_composed(torch) -> dict:
     """The four composed kernels vs their twins on CUDA tensors at B=37,
     T=95 with a zero-length and a length-1 row: diag/full, S = 2, 3, 4
@@ -1959,28 +1990,13 @@ def phase_kernel_composed(torch) -> dict:
     the last); every depth of the emission's record ring (3, 2, 1 rows)
     and of the moments batch (4, 2, 1 tiles).  Returns the worst absolute
     error per wrapper."""
-    from srhmm_tpu_torch.models import gmm_hmm_from_numpy, stack_models
     from srhmm_tpu_torch.ops.kernels import composed as kc
 
-    dev = torch.device("cuda")
     saved = composed_counts()
     worst = {name: 0.0 for name, _ in COMPOSED_ROWS}
     depths = set()
     for ci, (cov, S, L, md) in enumerate(COMPOSED_CASES):
-        rng = np.random.default_rng(300 + ci)
-        lens = [int(n) for n in rng.integers(2, 95, size=34)] + [95, 0, 1]
-        P = 6
-        units = [(left_right_trans(S, 3.0) if i % 2 else skip_trans(S), [rand_stream(rng, S, M, D, cov) for M, D in md])
-                 for i in range(P)]
-        models = stack_models([gmm_hmm_from_numpy(t, st, f"u{i}") for i, (t, st) in enumerate(units)])
-        models = models.astype(torch.float32).to(dev)
-        trs = rng.integers(0, P, size=(len(lens), L))
-        trs[0] = 1
-        transcripts = torch.as_tensor(trs, device=dev)
-        feats = torch.as_tensor(rng.normal(size=(len(lens), max(lens), md[0][1])) * 3, dtype=torch.float32,
-                                device=dev)
-        lengths = torch.as_tensor(lens, dtype=torch.int32, device=dev)
-        ids, banks, diag_row, diag_col, full = composed_inputs(torch, models, transcripts, feats, lengths)
+        lens, feats, lengths, (ids, banks, diag_row, diag_col, full) = composed_case(torch, 300 + ci, cov, S, L, md)
         name = f"{cov}_S{S}_L{L}_" + "_".join(f"M{M}D{D}" for M, D in md)
         out = composed_check(torch, ids, banks, feats, lengths, diag_row, diag_col, full, name)
         sparse = sparse_moments_check(torch, ids, banks, feats, lengths, full, name)
@@ -2141,8 +2157,6 @@ def phase_embedded(torch) -> dict:
     embedded_em_step's E-step and M-step, then train_embedded on the same utterances (3
     iterations, its own buckets) against the kernel history."""
     from srhmm_tpu_torch.models import gmm_hmm_from_numpy, stack_models
-    from srhmm_tpu_torch.train import embedded as emb
-    from srhmm_tpu_torch.train.em import update_stream
 
     P, S, M, D, B, L = 40, 3, 32, 13, 512, 12
     rng = np.random.default_rng(44)
@@ -2156,10 +2170,23 @@ def phase_embedded(torch) -> dict:
     t0 = time.perf_counter()
     utts = composed_dataset(rng, W, MU, K, rows, B, (400, 513))
     t_data = time.perf_counter() - t0
-    transcripts, feats, lengths = pad_batch(torch, utts, trs)
     start = models.astype(torch.float32).to("cuda")
+    return embedded_run(torch, "emb_c4", "emb_c4_P40_S3_M32_D13_diag", start, utts, trs, t_data)
+
+
+def embedded_run(torch, name: str, config: str, start, utts, trs, t_data: float) -> dict:
+    """phase_embedded's checks on a start model (P units of S states) and
+    its utterances / transcripts (numpy): em_comparison of embedded_em_step's
+    E-step and M-step, then train_embedded (3 iterations, its own buckets)
+    against the kernel history."""
+    from srhmm_tpu_torch.train import embedded as emb
+    from srhmm_tpu_torch.train.em import update_stream
+
+    P, S = start.trans.shape[0], start.num_states
+    B, L = trs.shape
+    transcripts, feats, lengths = pad_batch(torch, utts, trs)
     if not emb._embedded_fused_eligible(start, transcripts, feats):
-        raise AssertionError("emb_c4: the batch is not eligible for the composed kernels")
+        raise AssertionError(f"{name}: the batch is not eligible for the composed kernels")
 
     def stats(m, fused, gamma_lattice):
         if fused:
@@ -2180,20 +2207,21 @@ def phase_embedded(torch) -> dict:
         return m.streams[0], m.trans
 
     before = composed_counts()
-    cmp = em_comparison(torch, "emb_c4", stats, update, unrepaired, start, params)
+    cmp = em_comparison(torch, name, stats, update, unrepaired, start, params)
     mid = composed_counts()
     res = emb.train_embedded(start, utts, trs.tolist(), max_iterations=3, chunk=3, threshold=-1.0)
     after = composed_counts()
     launches = {k: after[k] - before[k] for k in after}
     if any(mid[k] - before[k] != n for k, n in (("bank_emission", 3), ("bank_moments", 1))):
-        raise AssertionError(f"emb_c4: the kernel iterations launched {mid} (from {before})")
+        raise AssertionError(f"{name}: the kernel iterations launched {mid} (from {before})")
     np.testing.assert_allclose(res.log_prob_history, cmp["history_kernels"], rtol=2e-4,
-                               err_msg="emb_c4 train_embedded")
+                               err_msg=f"{name} train_embedded")
     if res.exemplar_count != B or res.iterations != 3:
-        raise AssertionError(f"emb_c4: train_embedded ran {res.iterations} iterations on {res.exemplar_count}")
+        raise AssertionError(f"{name}: train_embedded ran {res.iterations} iterations on {res.exemplar_count}")
     frames = int(lengths.sum())
-    out = {"phase": "embedded", "config": "emb_c4_P40_S3_M32_D13_diag", "P": P, "S": S, "M": M, "D": D,
-           "B": B, "L": L, "T": int(feats.shape[1]), "frames": frames, "launches": launches,
+    st = start.streams[0]
+    out = {"phase": "embedded", "config": config, "P": P, "S": S, "M": st.num_mixtures, "D": st.dim,
+           "cov": st.cov_type, "B": B, "L": L, "T": int(feats.shape[1]), "frames": frames, "launches": launches,
            "train_embedded_history": res.log_prob_history, **cmp, "data_s": t_data}
     emit(out)
     return {"res": out, "models": start, "batch": (transcripts, feats, lengths), "launches": launches,
@@ -2230,18 +2258,27 @@ def phase_tied(torch) -> dict:
     em_comparison of tied_em_step's E-step and M-step, then train_tied (3
     iterations)."""
     from srhmm_tpu_torch.models import tied_hmm_set_from_numpy
-    from srhmm_tpu_torch.train import tied as tt
-    from srhmm_tpu_torch.train.em import update_stream
 
     P, S, N, M, D, B, L, vf = *TIED_C5, TIED_C5_VAR_FLOOR
     t0 = time.perf_counter()
     senones, trans, sm, trs, utts = tied_c5_inputs(B)
     t_data = time.perf_counter() - t0
     tied0 = tied_hmm_set_from_numpy(senones, trans, sm, tuple(f"t{i:03d}" for i in range(P)))
-    transcripts, feats, lengths = pad_batch(torch, utts, trs)
     start = tied0.astype(torch.float32).to("cuda")
+    return tied_run(torch, "tied_c5", "tied_c5_P700_S3_N2000_M16_D39_diag", start, utts, trs, vf, t_data)
+
+
+def tied_run(torch, name: str, config: str, start, utts, trs, vf: float, t_data: float) -> dict:
+    """phase_tied's checks on a start tied set and its utterances /
+    transcripts (numpy): em_comparison of tied_em_step's E-step and M-step
+    at var_floor vf, then train_tied (3 iterations)."""
+    from srhmm_tpu_torch.train import tied as tt
+    from srhmm_tpu_torch.train.em import update_stream
+
+    B, L = trs.shape
+    transcripts, feats, lengths = pad_batch(torch, utts, trs)
     if not tt._tied_fused_eligible(start, transcripts, feats):
-        raise AssertionError("tied_c5: the batch is not eligible for the composed kernels")
+        raise AssertionError(f"{name}: the batch is not eligible for the composed kernels")
 
     def stats(t, fused, gamma_lattice):
         if fused:
@@ -2260,20 +2297,22 @@ def phase_tied(torch) -> dict:
         return t.senones, t.trans
 
     before = composed_counts()
-    cmp = em_comparison(torch, "tied_c5", stats, update, unrepaired, start, params)
+    cmp = em_comparison(torch, name, stats, update, unrepaired, start, params)
     mid = composed_counts()
     res = tt.train_tied(start, utts, trs.tolist(), max_iterations=3, chunk=3, threshold=-1.0, var_floor=vf)
     after = composed_counts()
     launches = {k: after[k] - before[k] for k in after}
     if any(mid[k] - before[k] != n for k, n in (("bank_emission", 3), ("bank_moments", 1))):
-        raise AssertionError(f"tied_c5: the kernel iterations launched {mid} (from {before})")
+        raise AssertionError(f"{name}: the kernel iterations launched {mid} (from {before})")
     np.testing.assert_allclose(res.log_prob_history, cmp["history_kernels"], rtol=2e-4,
-                               err_msg="tied_c5 train_tied")
+                               err_msg=f"{name} train_tied")
     if res.exemplar_count != B or res.iterations != 3:
-        raise AssertionError(f"tied_c5: train_tied ran {res.iterations} iterations on {res.exemplar_count}")
+        raise AssertionError(f"{name}: train_tied ran {res.iterations} iterations on {res.exemplar_count}")
     frames = int(lengths.sum())
-    out = {"phase": "tied", "config": "tied_c5_P700_S3_N2000_M16_D39_diag", "P": P, "S": S, "N": N, "M": M,
-           "D": D, "B": B, "L": L, "T": int(feats.shape[1]), "frames": frames, "var_floor": vf,
+    sen = start.senones
+    out = {"phase": "tied", "config": config, "P": start.trans.shape[0], "S": start.num_states,
+           "N": sen.means.shape[0], "M": sen.num_mixtures, "D": sen.dim, "cov": sen.cov_type, "B": B, "L": L,
+           "T": int(feats.shape[1]), "frames": frames, "var_floor": vf,
            "launches": launches, "train_tied_history": res.log_prob_history, **cmp, "data_s": t_data}
     emit(out)
     return {"res": out, "tied": start, "batch": (transcripts, feats, lengths), "launches": launches,
@@ -2459,8 +2498,11 @@ def composed_bounds(torch, ids, banks, feats, lengths, diag, full, gamma) -> dic
     }
 
 
-def phase_timing_composed(torch, emb: dict, tied: dict, smi: str) -> dict:
-    """Each composed kernel and its twin at emb_c4 and tied_c5 (CUDA
+def phase_timing_composed(torch, emb: dict, tied: dict, smi: str, cells=("emb_c4", "tied_c5"),
+                          plain_reps: int = 20) -> dict:
+    """Each composed kernel and its twin at emb_c4 and tied_c5 (or the two
+    cells named, the embedded one first; the plain EM iteration median of
+    plain_reps) (CUDA
     events: kernels median of 20, twins median of 3, in the order twin,
     kernel, kernel, twin), the kernels vs twins on those full-width inputs,
     one whole EM iteration through the kernels vs fused=False, and one
@@ -2477,20 +2519,20 @@ def phase_timing_composed(torch, emb: dict, tied: dict, smi: str) -> dict:
 
     saved = composed_counts()
     out = {}
-    for cell, src in (("emb_c4", emb), ("tied_c5", tied)):
+    for cell, src in zip(cells, (emb, tied)):
         transcripts, feats, lengths = src["batch"]
-        if cell == "emb_c4":
+        if "models" in src:
             models = src["models"]
             ids, banks, diag_row, diag_col, full = composed_inputs(torch, models, transcripts, feats, lengths)
             step = lambda fused: embm.embedded_em_step(models, transcripts, feats, lengths, fused=fused)
         else:
-            td = src["tied"]
-            full = False
+            td, vf = src["tied"], src["res"]["var_floor"]
+            full = td.senones.cov_type == "full"
             ids = tt._senone_ids(td, transcripts)
             banks = embm._pack_bank(td.senones, feats.shape[-1], full)
             diag_row, diag_col = embm._composed_diagonals(
                 td.log_trans().to(torch.float32)[transcripts.long()], max(td.num_states - 1, 1))
-            step = lambda fused: tt.tied_em_step(td, transcripts, feats, lengths, var_floor=0.1, fused=fused)
+            step = lambda fused: tt.tied_em_step(td, transcripts, feats, lengths, var_floor=vf, fused=fused)
         check = composed_check(torch, ids, banks, feats, lengths, diag_row, diag_col, full, f"{cell} full width")
         lb = kc.bank_emission(ids, banks, feats, full)
         la = kc.composed_forward(lb, diag_col, lengths)
@@ -2544,7 +2586,7 @@ def phase_timing_composed(torch, emb: dict, tied: dict, smi: str) -> dict:
                  "zero_gamma_ms": z_ms, "dense_gamma_ms": d_ms, "dense_tiles": tiles["tiles"], "kept_tiles": kept,
                  "us_per_computed_tile": (d_ms - z_ms) / tiles["tiles"] * 1e3,
                  "scan_setup_share": z_ms / rows["bank_moments_lattice"]["ms"]}
-        it = timed_pair(torch, lambda: step(False), lambda: step(True))
+        it = timed_pair(torch, lambda: step(False), lambda: step(True), plain_reps=plain_reps)
         prof = profile_window(torch, lambda: step(True), kernel_keys=COMPOSED_KERNEL_NAMES)
         audio_s = int(lengths.sum()) * FRAME_S
         out[cell] = {"kernels": rows, "em_iteration": it, "em_iteration_idle_share": prof["idle_share"],
@@ -4435,6 +4477,592 @@ def phase_multi(torch, train_diag: dict, main_full: dict, emb: dict, tied: dict,
     return out
 
 
+# ---------------------------------------------------------------------------
+# the shapes past the lane path: the lattice kernels past 64 states
+# (csrc/lattice.cu's block-wide mode) and full covariance past D = 16 in the
+# E-step (csrc/fused_em.cu) and composed (csrc/composed.cu) kernels
+# ---------------------------------------------------------------------------
+
+# the block-wide launch shapes phase_kernel_lattice_wide must see reached
+WIDE_LATTICE_SHAPES = {"packed_band", "packed_dense", "l2_dense", "idle_threads", "states_per_thread_2",
+                       "states_per_thread_8", "T_1", "B_1", "walks_tiles", "ragged_tile", "copies_16", "copies_4",
+                       "length_0", "length_1", "per_row", "stops_early", "unreachable_states", "tie"}
+VITERBI_TWIN_STEPS = 40000  # the Viterbi twin loops S sources a frame: compared on its first 40000 // S frames
+
+
+def wide_reached(torch, S, kind, B, T, lens, lt_np) -> set:
+    """The shapes of WIDE_LATTICE_SHAPES one case reaches, from the
+    wrappers' launch shapes and the transitions' ranges
+    (torch_port_utils.lattice_ranges): the transitions packed in shared
+    memory (a band, or dense) or read through L2, idle threads (S off a
+    warp), states a thread, T = 1, B = 1, tiles walked and a ragged one,
+    16- or 4-byte copies of (B, T, S) log b, rows of length 0 and 1, a last
+    row that stops before T, and a banded chain's states not yet reachable
+    (the Viterbi's loop over every source)."""
+    from srhmm_tpu_torch.ops.kernels import lattice as kl
+
+    pu = port_utils()
+    out = {"per_row"}
+    for sh, rows in ((kl.forward_block(S, B, "tsb"), False), (kl.backward_block(S, B), True),
+                     (kl.viterbi_block(S, B), False), (kl.forward_block(S, B, "bts"), False)):
+        W = int(pu.lattice_ranges(lt_np, rows).max())
+        out.add(("packed_" if W * S <= sh["lt_cap"] else "l2_") + ("dense" if kind == "dense" else "band"))
+        out |= {f"states_per_thread_{sh['states_per_thread']}"} if sh["states_per_thread"] > 1 else set()
+        out |= {"walks_tiles"} if T > sh["tile"] else set()
+        out |= {"ragged_tile"} if T % sh["tile"] else set()
+    bts = kl.forward_block(S, B, "bts")
+    out.add(f"copies_{16 if kl.forward_copies_16(S, T, B, bts, 'bts') else 4}")
+    out |= {"idle_threads"} if S % 32 else set()
+    out |= {"T_1"} if T == 1 else set()
+    out |= {"B_1"} if B == 1 else set()
+    out |= {f"length_{n}" for n in (0, 1) if n in lens}
+    out |= {"stops_early"} if any(min(n, T) < T for n in lens) else set()
+    out |= {"unreachable_states"} if kind != "dense" and T >= 2 else set()
+    return out & WIDE_LATTICE_SHAPES
+
+
+def wide_lattice_inputs(torch) -> dict:
+    """phase_kernel_lattice_wide's inputs, (S, kind, B, T) of
+    torch_port_utils.WIDE_LATTICE_CASES -> (log b (T, S, B) with seven -inf
+    entries, log transitions (S, S), per-row transitions (B, S, S: delta 1
+    and dense alternating, delta 1 from 1024 states on), lengths, the
+    transitions as numpy); "tie" -> ((B, T, S) log b of S = 96 states with
+    states 40 and 41 duplicated, their transitions, None, lengths, None)."""
+    pu = port_utils()
+    rng = np.random.default_rng(2041)
+    cuda = lambda x: torch.as_tensor(x, device="cuda")
+    out = {}
+    for i, (S, kind, B, T) in enumerate(pu.WIDE_LATTICE_CASES):
+        lb_np = (rng.normal(size=(T, S, B)) * 2).astype(np.float32)
+        lb_np[rng.integers(0, T, 7), rng.integers(0, S, 7), rng.integers(0, B, 7)] = -np.inf
+        lt_np = lattice_trans(rng, S, kind)
+        rows = np.stack([lattice_trans(rng, S, "delta1" if S >= 1024 or b % 2 else "dense") for b in range(B)])
+        lens = pu.wide_lattice_lengths(i, B, T)
+        out[(S, kind, B, T)] = (cuda(lb_np), cuda(lt_np), cuda(rows),
+                                torch.as_tensor(lens, dtype=torch.int32, device="cuda"), lt_np)
+    S, T, B = 96, 60, 37
+    p = rng.uniform(0.1, 1.0, size=(S, S))
+    p[41, :] = p[40, :]
+    p[:, 41] = p[:, 40]
+    lb = (rng.normal(size=(B, T, S)) * 2).astype(np.float32)
+    lb[..., 41] = lb[..., 40]
+    lens = [int(n) for n in rng.integers(2, T, size=B - 1)] + [T]
+    out["tie"] = (cuda(lb), cuda(np.log(p / p.sum(-1, keepdims=True)).astype(np.float32)), None,
+                  torch.as_tensor(lens, dtype=torch.int32, device="cuda"), None)
+    return out
+
+
+def wide_lattice_check(torch, lb, lt, rows, lengths, what: str) -> dict:
+    """The six lattice wrappers vs their twins on one input: forward and
+    backward lattices (compare_clamped) and their blocked forms at the
+    largest of k_block 19, 5, 1 dividing T (bitwise the unblocked), #15
+    shared and per row, #16 on the first VITERBI_TWIN_STEPS // S frames
+    (scores within BOUND, backpointers equal); every kernel twice, bitwise.
+    Returns {wrapper: compare result}."""
+    from srhmm_tpu_torch.ops.kernels import forward as kf
+    from srhmm_tpu_torch.ops.kernels import lattice as kl
+
+    T, S, _ = lb.shape
+    kb = next(k for k in (19, 5, 1) if T % k == 0)
+    res = {}
+    for name, fn, plain in (("forward_lattice", kl.forward_lattice, kl.forward_lattice_plain),
+                            ("backward_lattice", kl.backward_lattice, kl.backward_lattice_plain)):
+        k, k2 = fn(lb, lt, lengths), fn(lb, lt, lengths)
+        if not torch.equal(k, k2):
+            raise AssertionError(f"{what} {name}: two launches differ")
+        if not torch.equal(getattr(kl, f"{name}_blocked")(lb, lt, lengths, k_block=kb), k):
+            raise AssertionError(f"{what} {name}_blocked k_block={kb}: differs from {name}")
+        res[name] = res[f"{name}_blocked"] = compare_clamped(k, plain(lb, lt, lengths), f"{what} {name}")
+    lb_bts = lb.permute(2, 0, 1).contiguous()
+    for tag, trans in (("shared", lt), ("per_row", rows)):
+        k, k2 = kf.log_forward_batch(lb_bts, trans, lengths), kf.log_forward_batch(lb_bts, trans, lengths)
+        if not torch.equal(k, k2):
+            raise AssertionError(f"{what} log_forward_batch {tag}: two launches differ")
+        r = compare_clamped(k, kf.log_forward_batch_plain(lb_bts, trans, lengths), f"{what} log_forward_batch {tag}")
+        res["log_forward_batch"] = max(res.get("log_forward_batch", r), r, key=lambda x: x["max_abs_err"])
+    res["viterbi_batch"] = viterbi_twin_check(torch, lb_bts, lt, lengths, what)
+    return res
+
+
+def viterbi_twin_check(torch, lb_bts, lt, lengths, what: str) -> dict:
+    """viterbi_batch twice (bitwise) and its twin on the first
+    VITERBI_TWIN_STEPS // S frames of (B, T, S) log b: scores within BOUND
+    (compare_clamped), backpointers equal."""
+    from srhmm_tpu_torch.ops.kernels import forward as kf
+
+    S = lb_bts.shape[-1]
+    cut = lb_bts[:, : max(1, VITERBI_TWIN_STEPS // S)].contiguous()
+    sc, bp = kf.viterbi_batch(cut, lt, lengths)
+    sc2, bp2 = kf.viterbi_batch(cut, lt, lengths)
+    sc_p, bp_p = kf.viterbi_batch_plain(cut, lt, lengths)
+    torch.cuda.synchronize()
+    if not (torch.equal(sc, sc2) and torch.equal(bp, bp2)):
+        raise AssertionError(f"{what} viterbi_batch: two launches differ")
+    if not torch.equal(bp, bp_p):
+        raise AssertionError(f"{what} viterbi_batch: {int((bp != bp_p).sum())} backpointers differ from the twin")
+    return {**compare_clamped(sc, sc_p, f"{what} viterbi_batch"), "frames": int(cut.shape[1])}
+
+
+def phase_kernel_lattice_wide(torch) -> dict:
+    """#15-#20 past 64 states (csrc/lattice.cu's block-wide mode) vs their
+    twins at torch_port_utils.WIDE_LATTICE_CASES (wide_lattice_check), and
+    viterbi_batch on S = 96 with two duplicated states (backpointers equal
+    to the twin's, never the higher of the two).  Fails unless every shape
+    of WIDE_LATTICE_SHAPES was reached.  Returns the worst absolute error
+    per wrapper."""
+    from srhmm_tpu_torch.ops.kernels import forward as kf
+
+    saved = lane_counts()
+    worst = {name: 0.0 for name, *_ in LANE_ROWS[:6]}
+    seen = set()
+    inputs = wide_lattice_inputs(torch)
+    for key, (lb, lt, rows, lengths, lt_np) in inputs.items():
+        if key == "tie":
+            continue
+        S, kind, B, T = key
+        what = f"S={S} {kind} B={B} T={T}"
+        t0 = time.perf_counter()
+        res = wide_lattice_check(torch, lb, lt, rows, lengths, what)
+        got = wide_reached(torch, S, kind, B, T, lengths.tolist(), lt_np)
+        seen |= got
+        for name, r in res.items():
+            worst[name] = max(worst[name], r["max_abs_err"])
+        emit({"phase": "kernel_lattice_wide", "S": S, "trans": kind, "B": B, "T": T, "reached": sorted(got),
+              "bitwise_repeat": True, "bptr_equal": True, "viterbi_frames": res["viterbi_batch"]["frames"],
+              "s": time.perf_counter() - t0, **{k: v["rel_err"] for k, v in res.items()}})
+    lb, lt, _, lengths, _ = inputs["tie"]
+    sc, bp = kf.viterbi_batch(lb, lt, lengths)
+    sc_p, bp_p = kf.viterbi_batch_plain(lb, lt, lengths)
+    torch.cuda.synchronize()
+    live = torch.arange(lb.shape[1], device="cuda")[None, :] < lengths[:, None].long()
+    live[:, 0] = False
+    if not torch.equal(bp, bp_p) or bool((bp[live] == 41).any()) or not bool((bp[live] == 40).any()):
+        raise AssertionError("kernel_lattice_wide tie: backpointers differ from the twin or take the higher source")
+    r = compare_clamped(sc, sc_p, "kernel_lattice_wide tie")
+    worst["viterbi_batch"] = max(worst["viterbi_batch"], r["max_abs_err"])
+    seen.add("tie")
+    emit({"phase": "kernel_lattice_wide", "config": "viterbi_tie_S96", "bptr_equal": True, "ties_to_lowest": True,
+          "viterbi_batch": r["rel_err"]})
+    set_lane_counts(saved)  # comparison launches
+    if seen != WIDE_LATTICE_SHAPES:
+        raise AssertionError(f"kernel_lattice_wide reached {sorted(seen)}, not {sorted(WIDE_LATTICE_SHAPES)}")
+    return worst
+
+
+# the full-covariance E-step shapes past D = 16 phase_kernel_em_wide must see reached
+EM_WIDE_SHAPES = {"dmax_32", "dmax_40", "dmax_64", "two_streams", "band_1", "dense", "consts_in_device_memory_emit",
+                  "consts_in_device_memory_stats", "acc_in_partials", "acc_in_shared_memory"}
+
+
+def em_kernel_check(torch, fe, cov, band, mixes_dims, lens, S, name, shared_gaussians=False):
+    """emit_forward and backward_stats vs their twins on one E-step's CUDA
+    inputs (em_case), the twins' lattices feeding both backward passes:
+    log_b and log-alpha within BOUND (equal masks), xi, den_trans, den_mix
+    and each stream's first and second moments and occupancies within
+    STAT_BOUND (each moment block its own statistic: first moments, second
+    moments and occupancies have different scales), two kernel runs bitwise
+    equal.  Returns (the comparisons, the inputs, the valid utterances)."""
+    feats, packed, origins, trans, lengths = args = em_case(torch, cov, band, mixes_dims, lens, S=S,
+                                                            shared_gaussians=shared_gaussians)
+    lb_k, la_k = fe.emit_forward(*args, band)
+    lb_k2, la_k2 = fe.emit_forward(*args, band)
+    lb_p, la_p = fe.emit_forward_plain(*args, band)
+    log_z = la_p[-1, -1]
+    valid = torch.isfinite(log_z) & (log_z > NEG_INF / 2) & (lengths > 0)
+    rest = (feats, lb_p, la_p, packed, origins, trans, lengths, torch.where(valid, log_z, 0.0),
+            valid.to(torch.float32), band)
+    st_k, st_k2, st_p = fe.backward_stats(*rest), fe.backward_stats(*rest), fe.backward_stats_plain(*rest)
+    torch.cuda.synchronize()
+
+    def parts(st):
+        out = [st[0], st[1], st[2]]
+        for mom, (_, D) in zip(st[3], mixes_dims):
+            out += [mom[:, :D], mom[:, D:-1], mom[:, -1]]
+        return out
+
+    names = ["xi", "den_trans", "den_mix"] + [f"mom{q}_{p}" for q in range(len(mixes_dims)) for p in ("x", "xx", "w")]
+    res = {"log_b": compare_lattice(lb_k, lb_p, f"{name} log_b"),
+           "log_alpha": compare_lattice(la_k, la_p, f"{name} log_alpha")}
+    for n, a, b in zip(names, parts(st_k), parts(st_p)):
+        res[n] = compare_stat(a, b, f"{name} {n}")
+    if not (torch.equal(lb_k, lb_k2) and torch.equal(la_k, la_k2)
+            and all(torch.equal(a, b) for a, b in zip(parts(st_k), parts(st_k2)))):
+        raise AssertionError(f"{name}: two kernel runs of one E-step differ")
+    return res, args, valid
+
+
+def phase_kernel_em_wide(torch) -> dict:
+    """emit_forward and backward_stats past full D = 16 vs their twins
+    (em_kernel_check) at torch_port_utils.EM_FULL_WIDE_CASES, S = 6, band 1
+    and dense, B=37, T=95 with rows of length 0 and 1.  Fails unless every
+    shape of EM_WIDE_SHAPES was reached (each full bound 32 / 40 / 64, two
+    streams, the constants in device memory for each kernel, the moment
+    accumulators in the partials and in shared memory).  Returns the worst
+    absolute error per kernel."""
+    from srhmm_tpu_torch.ops.kernels import fused_em as fe
+
+    saved = fe.emit_forward.launches, fe.backward_stats.launches
+    worst = {"emit_forward": 0.0, "backward_stats": 0.0}
+    rng = np.random.default_rng(2043)
+    lens = [int(n) for n in rng.integers(2, 95, size=34)] + [95, 0, 1]
+    seen = set()
+    for md in port_utils().EM_FULL_WIDE_CASES:
+        for band in (1, None):
+            name = emit_case_name("full", band, md, 6, len(lens), max(lens))
+            res, args, _ = em_kernel_check(torch, fe, "full", band, md, lens, 6, name)
+            k1, k2 = fe.occupancy(0, *args, band), fe.occupancy(1, *args, band)
+            dmax = fe.em_dmax([D for _, D in md], True, name)
+            got = {f"dmax_{dmax}", "dense" if band is None else "band_1"}
+            got |= {"two_streams"} if len(md) == 2 else set()
+            got |= {"consts_in_device_memory_emit"} if k1["consts_global"] else set()
+            got |= {"consts_in_device_memory_stats"} if not k2["consts_in_shared_memory"] else set()
+            got.add("acc_in_shared_memory" if k2["acc_in_shared_memory"] else "acc_in_partials")
+            seen |= got
+            worst["emit_forward"] = max(worst["emit_forward"], res["log_b"]["max_abs_err"],
+                                        res["log_alpha"]["max_abs_err"])
+            worst["backward_stats"] = max(worst["backward_stats"], *(v["max_abs_err"] for k, v in res.items()
+                                                                     if k not in ("log_b", "log_alpha")))
+            emit({"phase": "kernel_em_wide", "config": name, "reached": sorted(got), "bitwise_repeat": True,
+                  "emit_block": k1, "stats_block": k2, **{k: v["rel_err"] for k, v in res.items()}})
+    fe.emit_forward.launches, fe.backward_stats.launches = saved  # comparison launches
+    if seen != EM_WIDE_SHAPES:
+        raise AssertionError(f"kernel_em_wide reached {sorted(seen)}, not {sorted(EM_WIDE_SHAPES)}")
+    return worst
+
+
+# the composed bank kernels' shapes past full D = 16 phase_kernel_composed_wide must see reached
+BANK_WIDE_SHAPES = {"rb_24", "rb_32", "rb_40", "rb_48", "rb_64", "two_streams", "ring_3", "ring_2", "ring_1",
+                    "ring_0", "moments_shared", "moments_acc_in_partials", "moments_records_in_device_memory",
+                    "moments_both_in_device_memory"}
+
+
+def phase_kernel_composed_wide(torch) -> dict:
+    """The four composed kernels at full covariance past D = 16 vs their
+    twins (composed_check, sparse_moments_check) at
+    torch_port_utils.BANK_FULL_WIDE_CASES: S = 3, L = 4, B=37, T=95 with
+    rows of length 0 and 1.  Fails unless every shape of BANK_WIDE_SHAPES
+    was reached (every full register bound 24 to 64, two streams, the
+    emission ring at 3 / 2 / 1 rows and its records in device memory, the
+    moments block at each place of its records and accumulators).  Returns
+    the worst absolute error per wrapper."""
+    from srhmm_tpu_torch.ops.kernels import composed as kc
+
+    saved = composed_counts()
+    worst = {name: 0.0 for name, _ in COMPOSED_ROWS}
+    seen = set()
+    places = dict(zip(kc.MOMENTS_PLACES, ("moments_shared", "moments_acc_in_partials",
+                                          "moments_records_in_device_memory", "moments_both_in_device_memory")))
+    for ci, md in enumerate(port_utils().BANK_FULL_WIDE_CASES):
+        lens, feats, lengths, (ids, banks, diag_row, diag_col, full) = composed_case(torch, 400 + ci, "full", 3, 4, md)
+        name = "full_S3_L4_" + "_".join(f"M{M}D{D}" for M, D in md)
+        out = composed_check(torch, ids, banks, feats, lengths, diag_row, diag_col, full, name)
+        sparse = sparse_moments_check(torch, ids, banks, feats, lengths, full, name)
+        for k, v in out["worst"].items():
+            worst[k] = max(worst[k], v)
+        for k in ("bank_moments_lattice", "bank_moments"):
+            worst[k] = max(worst[k], sparse)
+        mixes, D = [M for M, _ in md], md[0][1]
+        ring = kc.emission_ring(mixes, [kc.record_stride(D, True)] * len(mixes))
+        shape = kc.moments_shape(mixes, D, True)
+        got = {f"rb_{next(b for b in (24, 32, 40, 48, 64) if b >= -(-D // 4) * 4)}", f"ring_{ring}",
+               places[shape[1:]]}
+        got |= {"two_streams"} if len(md) == 2 else set()
+        seen |= got
+        emit({"phase": "kernel_composed_wide", "config": name, "B": len(lens), "T": max(lens), "reached": sorted(got),
+              "emission_ring": ring, "moments_shape": list(shape), "bitwise_repeat": True,
+              "gamma_layouts_bitwise_equal": True, **out["rel"], "zero_tile_gammas_max_abs": sparse})
+    set_composed_counts(saved)  # comparison launches
+    if seen != BANK_WIDE_SHAPES:
+        raise AssertionError(f"kernel_composed_wide reached {sorted(seen)}, not {sorted(BANK_WIDE_SHAPES)}")
+    return worst
+
+
+ALIGN_S96 = (32, 3, 4, 13, 2048, 512)  # units, states each, M, D, B, T
+EM_FULL39 = (6, 4, 39, (103, 214), 2048)  # S, M, D, lengths, B
+EMB_FULL39 = (40, 3, 8, 39, 512, 12, (400, 513))  # P units, S, M, D, B, L units each, lengths
+LATTICE_S1024 = (1024, 64, 512)  # S, B, T: dense transitions
+LANE_MAJOR_CUT = {"align_s96": (128, 512), "lattice_s1024": (2, 64)}  # (B, T) of e_step_lane_major's dense xi
+# e_step_lane_major through the lattice kernels vs through the plain scans:
+# xi = exp(alpha + beta - Z) turns the lattices' float32 error (1e-5 of
+# |log alpha| in the hundreds) into ~1e-4 of the largest statistic at S =
+# 1024 dense, so the bound is the fused float32 statistics one of
+# tests/test_pallas_kernels.py (atol 2e-4 max |p|)
+LANE_MAJOR_STAT_BOUND = 2e-4
+# timing_wide's (warm-up, CUDA-event reps, profiler calls) a cell: a dense
+# lattice_s1024 call takes tenths of a second
+WIDE_TIMING = {"align_s96": (3, 20, 5), "lattice_s1024": (1, 3, 2)}
+
+
+def lattice_cell(torch, name: str, model, batch, lb_bts, lt) -> dict:
+    """One lattice cell's main path, the launch counts set to 0 before it
+    and read after: log_forward_batch (the chain's scores) and viterbi_batch
+    + backtrace (its alignments) on (B, T, S) log b, forward_lattice /
+    backward_lattice and their blocked forms on the (T, S, B) lattice, and
+    e_step_lane_major(lattices="pallas") on the first LANE_MAJOR_CUT
+    utterances and frames (its plain xi is (T-1, S, S, B) floats); every
+    kernel of #15-#20 must launch.  Then each against its twin: #15 within
+    BOUND, #16 on its first VITERBI_TWIN_STEPS // S frames (backpointers
+    equal, the full run's first rows equal to the cut run's), #17-#20
+    within BOUND, the lane-major statistics within LANE_MAJOR_STAT_BOUND of
+    lattices="scan" (the same function on the plain scans)."""
+    from srhmm_tpu_torch.io.dataset import UtteranceBatch
+    from srhmm_tpu_torch.ops.kernels import forward as kf
+    from srhmm_tpu_torch.ops.kernels import lattice as kl
+    from srhmm_tpu_torch.train import em
+
+    B, T, S = lb_bts.shape
+    lengths = batch.lengths
+    lb_tsb = lb_bts.permute(1, 2, 0).contiguous()
+    cb, ct = LANE_MAJOR_CUT[name]
+    cut = UtteranceBatch(batch.features[:cb, :ct].contiguous(), torch.clamp(lengths[:cb], max=ct))
+    k_block = next(k for k in (16, 8, 4, 2, 1) if T % k == 0)
+    set_lane_counts({n: 0 for n, *_ in LANE_ROWS})
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scores = kf.log_forward_batch(lb_bts, lt, lengths)
+    vit, bptr = kf.viterbi_batch(lb_bts, lt, lengths)
+    paths = kf.backtrace(bptr, lengths, S - 1)
+    la, lbw = kl.forward_lattice(lb_tsb, lt, lengths), kl.backward_lattice(lb_tsb, lt, lengths)
+    la_b = kl.forward_lattice_blocked(lb_tsb, lt, lengths, k_block=k_block)
+    lbw_b = kl.backward_lattice_blocked(lb_tsb, lt, lengths, k_block=k_block)
+    st = em.e_step_lane_major(model, cut, lattices="pallas")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {n: c for n, c in lane_counts().items() if n not in ("emission_log_b", "emission_stats")}
+    for n, c in launches.items():
+        if c < 1:
+            raise AssertionError(f"the {name} main path launched {n} 0 times")
+    saved = lane_counts()
+    res = {"log_forward_batch": compare_clamped(scores, kf.log_forward_batch_plain(lb_bts, lt, lengths),
+                                                f"{name} log_forward_batch")}
+    res["viterbi_batch"] = viterbi_twin_check(torch, lb_bts, lt, lengths, name)
+    rows = res["viterbi_batch"]["frames"]
+    if not torch.equal(kf.viterbi_batch(lb_bts[:, :rows].contiguous(), lt, lengths)[1], bptr[:, :rows]):
+        raise AssertionError(f"{name} viterbi_batch: the full run's first {rows} rows differ from the cut run's")
+    for n, got, want in (("forward_lattice", la, kl.forward_lattice_plain(lb_tsb, lt, lengths)),
+                         ("backward_lattice", lbw, kl.backward_lattice_plain(lb_tsb, lt, lengths))):
+        res[n] = res[f"{n}_blocked"] = compare_clamped(got, want, f"{name} {n}")
+    if not (torch.equal(la, la_b) and torch.equal(lbw, lbw_b)):
+        raise AssertionError(f"{name}: the blocked lattices differ from the unblocked")
+    ref = em.e_step_lane_major(model, cut, lattices="scan")
+    ours, want = stat_fields(st), stat_fields(ref)
+    lane = {k: compare_stat(ours[k], want[k], f"{name} e_step_lane_major {k}", LANE_MAJOR_STAT_BOUND)["rel_err"]
+            for k in ours}
+    set_lane_counts(saved)  # comparison launches
+    path_ok = bool(((paths >= 0) & (paths < S)).all()) and bool((paths[:, -1] == S - 1).all())
+    if not path_ok or not bool(torch.isfinite(scores).all()):
+        raise AssertionError(f"{name}: alignments outside the chain or scores not finite")
+    out = {"phase": name, "S": S, "B": B, "T": T, "launches": launches, "wall_s": wall,
+           "lane_major_cut_B_T": [cb, ct], "lane_major_vs_scan": lane, "viterbi_twin_frames": rows,
+           **{k: v["rel_err"] for k, v in res.items()}}
+    emit(out)
+    return {"launches": launches, "worst": {k: v["max_abs_err"] for k, v in res.items()}, "lb_bts": lb_bts,
+            "lb_tsb": lb_tsb, "lt": lt, "lengths": lengths}
+
+
+def phase_align_s96(torch) -> dict:
+    """Alignment against a left-right chain of 32 three-state units (S = 96,
+    band 1, M=4, D=13 diagonal) at B = 2048 utterances of 204-512 frames
+    sampled from it: log b through the emission kernel (#21), then
+    lattice_cell."""
+    from srhmm_tpu_torch.io.dataset import pack_utterances
+    from srhmm_tpu_torch.ops.kernels import emission as ke
+
+    from srhmm_tpu_torch.models import gmm_hmm_from_numpy
+
+    units, states, M, D, B, T = ALIGN_S96
+    S = units * states
+    rng = np.random.default_rng(96)
+    model = gmm_hmm_from_numpy(left_right_trans(S, 1.5), [rand_stream(rng, S, M, D, "diag")]).astype(
+        torch.float32).to("cuda")
+    st = model.streams[0]
+    streams = [{k: getattr(st, k).double().cpu().numpy() for k in ("weights", "means", "inv_cov")} | {
+        "cov_type": "diag"}]
+    trans = model.trans.double().cpu().numpy()
+    utts = [sample(rng, trans, streams, int(n))[0] for n in rng.integers(T * 2 // 5, T + 1, size=B - 1)] + [
+        sample(rng, trans, streams, T)[0]]
+    batch = pack_utterances(utts, pad_multiple=1, dtype=torch.float32, device="cuda")
+    a, bias = ke.pack_constants(st)
+    saved = lane_counts()
+    lb_bts = ke.emission_log_b(batch.features.reshape(-1, D), a, bias).reshape(B, -1, S)
+    set_lane_counts(saved)
+    return {**lattice_cell(torch, "align_s96", model, batch, lb_bts, model.log_trans().to(torch.float32)),
+            "model": model, "batch": batch}
+
+
+def phase_lattice_s1024(torch) -> dict:
+    """The lattice kernels on dense transitions: S = 1024 states, B = 64
+    utterances of 102-512 frames, log b drawn from a seed, then
+    lattice_cell (e_step_lane_major on a model of 1024 states, M=1, D=4
+    diagonal, with the same transitions)."""
+    from srhmm_tpu_torch.io.dataset import UtteranceBatch
+    from srhmm_tpu_torch.models import gmm_hmm_from_numpy
+
+    S, B, T = LATTICE_S1024
+    rng = np.random.default_rng(1024)
+    p = rng.uniform(0.1, 1.0, size=(S, S))
+    p /= p.sum(-1, keepdims=True)
+    model = gmm_hmm_from_numpy(p, [rand_stream(rng, S, 1, 4, "diag")]).astype(torch.float32).to("cuda")
+    lens = [int(n) for n in rng.integers(T // 5, T, size=B - 1)] + [T]
+    lengths = torch.as_tensor(lens, dtype=torch.int32, device="cuda")
+    feats = torch.as_tensor(rng.normal(size=(B, T, 4)) * 3, dtype=torch.float32, device="cuda")
+    lb_bts = torch.as_tensor((rng.normal(size=(B, T, S)) * 2).astype(np.float32), device="cuda")
+    return {**lattice_cell(torch, "lattice_s1024", model, UtteranceBatch(feats, lengths), lb_bts,
+                           model.log_trans().to(torch.float32)), "model": model}
+
+
+def phase_em_full39(torch, tmp: Path) -> dict:
+    """Isolated-word EM at full covariance D = 39 (MFCC + deltas), S=6,
+    M=4, B=2048 utterances of 103-213 frames: phase_train's main path
+    (train_fast through #2 / #3, then one iteration from the trained model
+    vs fused=False), _fused_lane_eligible True, and train_fast's first
+    three iterations retraced one em_step at a time through the kernels,
+    each log prob within rtol EM_HISTORY_RTOL of the plain E-step's on the
+    same model and within 1e-6 of train_fast's history.  EM here falls and
+    wanders: the reference's M-step takes the covariance about the old
+    means, and the JAX package's float64 em_step and the port's give the
+    same falling history on this generator (CPU runs at B = 64 and 2048);
+    so float32 summation orders part after a few iterations (the kernel
+    path and the plain one by 2.5e-4 at the third, on the card), the
+    monotone check is off, and the comparisons are a step at a time from
+    one model, as the composed phases' em_comparison."""
+    from srhmm_tpu_torch.ops.kernels.common import trans_band
+    from srhmm_tpu_torch.train import em
+
+    S, M, D, t_range, B = EM_FULL39
+    train = phase_train(torch, f"em_full39_S{S}_M{M}_D{D}", "full", S, M, D, t_range, tmp, B=B, monotone=False,
+                        scan_iters=1)
+    model, batch = train["model"], train["batch"]
+    if not em._fused_lane_eligible(model, batch):
+        raise AssertionError("em_full39: the fused E-step kernels do not take full covariance at D = 39")
+    hist = train["res"]["history"]
+    feats_tdb, band = batch.features.permute(1, 2, 0).contiguous(), trans_band(model.trans.cpu().numpy())
+    steps, m = [], model
+    for it in range(3):
+        m_next, lp_k, _ = em.em_step(m, batch, fused=True, feats_tdb=feats_tdb, band=band)
+        _, lp_p, _ = em.em_step(m, batch, fused=False)
+        lp_k, lp_p = float(lp_k), float(lp_p)
+        rel, rel_hist = abs(lp_k - lp_p) / abs(lp_p), abs(lp_k - hist[it]) / abs(hist[it])
+        if not (rel <= EM_HISTORY_RTOL and rel_hist <= 1e-6):
+            raise AssertionError(f"em_full39 iteration {it}: kernel {lp_k} vs plain {lp_p}, history {hist[it]}")
+        steps.append({"lp_rel_vs_plain": rel, "lp_rel_vs_train_fast": rel_hist})
+        m = m_next
+    emit({"phase": "em_full39", "steps": steps, "launches": train["launches"]})
+    return train
+
+
+def phase_emb_full39(torch) -> tuple[dict, dict]:
+    """Embedded and tied training at emb_c4's structure (P=40 units, S=3,
+    B=512 utterances of L=12 units, T <= 512) with M=8 mixtures of full
+    covariance at D = 39: the shape the JAX package's 48 MB bank gate
+    admits.  embedded_run on the units, then tied_run on their states tied
+    one to one (120 senones, var_floor 0.1)."""
+    from srhmm_tpu_torch.models import gmm_hmm_from_numpy, stack_models
+    from srhmm_tpu_torch.models.tying import tie_from_models
+
+    P, S, M, D, B, L, t_range = EMB_FULL39
+    rng = np.random.default_rng(4439)
+    units = [(left_right_trans(S, 4.0), [rand_stream(rng, S, M, D, "full")]) for _ in range(P)]
+    models = stack_models([gmm_hmm_from_numpy(t, st, f"ph{i:02d}") for i, (t, st) in enumerate(units)])
+    W = np.stack([st[0]["weights"] for _, st in units]).reshape(P * S, M)
+    MU = np.stack([st[0]["means"] for _, st in units]).reshape(P * S, M, D)
+    trs = rng.integers(0, P, size=(B, L))
+    rows = (trs[:, :, None] * S + np.arange(S)).reshape(B, L * S)
+    t0 = time.perf_counter()
+    utts = composed_dataset(rng, W, MU, np.ones((P * S, M, D)), rows, B, t_range)
+    t_data = time.perf_counter() - t0
+    start = models.astype(torch.float32).to("cuda")
+    emb = embedded_run(torch, "emb_full39", "emb_full39_P40_S3_M8_D39_full", start, utts, trs, t_data)
+    tied0 = tie_from_models(start, np.arange(P * S).reshape(P, S)).astype(torch.float32).to("cuda")
+    tied = tied_run(torch, "tied_full39", "tied_full39_P40_S3_N120_M8_D39_full", tied0, utts, trs,
+                    TIED_C5_VAR_FLOOR, t_data)
+    return emb, tied
+
+
+def phase_timing_wide(torch, cells: dict, smi: str) -> dict:
+    """#15-#20 and their twins at align_s96 and lattice_s1024 (CUDA events,
+    kernels median of WIDE_TIMING's reps after its warm-up, each twin one
+    run, in the order twin, kernel, kernel, twin; the blocked wrappers'
+    twins are the unblocked ones, timed once; the Viterbi twin on its first
+    VITERBI_TWIN_STEPS // S frames, its kernel timed on those too beside
+    the full run), each bound from its inputs (lattice_bound) and each
+    kernel's own device time (torch.profiler over WIDE_TIMING's calls)."""
+    from srhmm_tpu_torch.ops.kernels import forward as kf
+    from srhmm_tpu_torch.ops.kernels import lattice as kl
+
+    saved = lane_counts()
+    out = {}
+    for cell, c in cells.items():
+        lb_bts, lb_tsb, lt, lengths = c["lb_bts"], c["lb_tsb"], c["lt"], c["lengths"]
+        B, T, S = lb_bts.shape
+        cut = lb_bts[:, : max(1, VITERBI_TWIN_STEPS // S)].contiguous()
+        calls = {
+            "log_forward_batch": (kf.log_forward_batch_plain, kf.log_forward_batch, (lb_bts, lt, lengths)),
+            "viterbi_batch": (kf.viterbi_batch_plain, kf.viterbi_batch, (cut, lt, lengths)),
+            "forward_lattice": (kl.forward_lattice_plain, kl.forward_lattice, (lb_tsb, lt, lengths)),
+            "backward_lattice": (kl.backward_lattice_plain, kl.backward_lattice, (lb_tsb, lt, lengths)),
+            "forward_lattice_blocked": (kl.forward_lattice_plain,
+                                        lambda *x: kl.forward_lattice_blocked(*x, k_block=4), (lb_tsb, lt, lengths)),
+            "backward_lattice_blocked": (kl.backward_lattice_plain,
+                                         lambda *x: kl.backward_lattice_blocked(*x, k_block=4), (lb_tsb, lt, lengths)),
+        }
+        rows, plains = {}, {}
+        warmup, reps, calls_dev = WIDE_TIMING[cell]
+        for name, (plain, kernel, args) in calls.items():
+            twin = name.replace("_blocked", "")
+            plain_a = plains[twin][0] if twin in plains else median_ms(torch, lambda: plain(*args), warmup=0, reps=1)
+            kern_a, kern_b = (median_ms(torch, lambda: kernel(*args), warmup, reps) for _ in range(2))
+            plain_b = plains[twin][1] if twin in plains else median_ms(torch, lambda: plain(*args), warmup=0, reps=1)
+            plains[twin] = (plain_a, plain_b)
+            bnd = lattice_bound(name, args[0], lt, lengths)
+            ms = min(kern_a, kern_b)
+            rows[name] = {"kernel_ms": [kern_a, kern_b], "plain_ms": [plain_a, plain_b], "ms": ms,
+                          "best_plain_ms": min(plain_a, plain_b), **bnd, "share_of_bound": bnd["bound_ms"] / ms}
+            if rows[name]["share_of_bound"] > 1.0:
+                raise AssertionError(f"{cell} {name}: {ms} ms is below its bound {bnd['bound_ms']} ms")
+        full_args = (lb_bts, lt, lengths)
+        rows["viterbi_batch"]["full_T_ms"] = median_ms(torch, lambda: kf.viterbi_batch(*full_args), warmup, reps)
+        rows["viterbi_batch"]["full_T_bound"] = lattice_bound("viterbi_batch", lb_bts, lt, lengths)
+        for name, key in (("log_forward_batch", "lattice_block_kernel"), ("viterbi_batch", "lattice_block_kernel"),
+                          ("forward_lattice", "lattice_block_kernel"), ("backward_lattice", "lattice_block_kernel")):
+            _, kernel, args = calls[name]
+            rows[name]["kernel_device_ms"], rows[name]["kernel_device_launches"] = kernel_device_ms(
+                torch, lambda: kernel(*args), key, calls=calls_dev)
+        out[cell] = rows
+        emit({"phase": "timing_wide", "config": cell, "S": S, "B": B, "T": T, "kernel_reps": reps, "plain_reps": 1,
+              "kernels": rows, "card": smi})
+    set_lane_counts(saved)  # timing launches are not main-path launches
+    return out
+
+
+def wide_fields(row: dict, cell: str, launches=None) -> dict:
+    """A cell's fields of the kernels line: ms, plain_ms, bound_ms,
+    bound_by and, where timed, kernel_device_ms, suffixed with the cell;
+    launches_<cell> where given."""
+    out = {f"{k}_{cell}": row[v] for k, v in (("ms", "ms"), ("plain_ms", "best_plain_ms"), ("bound_ms", "bound_ms"),
+                                             ("bound_by", "bound_by"), ("kernel_device_ms", "kernel_device_ms"))
+           if v in row}
+    return out if launches is None else {f"launches_{cell}": launches, **out}
+
+
+def lattice_bound(name: str, log_b, lt, lengths) -> dict:
+    """The bound of one lattice call (see bound()): log b read once, the
+    lattice, the final row or the scores and backpointers written once;
+    per stepped frame and state the log-sum-exp (~5 operations a source)
+    or the max-plus (3) over the sources the transitions allow (their
+    count above -1e30: the kernels skip the rest)."""
+    tsb = name in ("forward_lattice", "backward_lattice", "forward_lattice_blocked", "backward_lattice_blocked")
+    T, S, B = log_b.shape if tsb else (log_b.shape[1], log_b.shape[2], log_b.shape[0])
+    arcs = int((lt > NEG_INF).sum())  # (source, destination) pairs
+    stepped = valid_frames(lengths.tolist(), T)
+    io = numel_bytes(log_b, lt, lengths)
+    if name == "viterbi_batch":
+        return bound(io + 4 * B * T * S + 4 * B * S, stepped * (3 * arcs + 2 * S))
+    if name == "log_forward_batch":
+        return bound(io + 4 * B * S, stepped * (5 * arcs + 4 * S))
+    return bound(io + 4 * T * S * B, stepped * (5 * arcs + 4 * S))
+
+
 def main() -> int:
     import torch
 
@@ -4484,6 +5112,20 @@ def main() -> int:
         # the lattice / Viterbi / fused-emission path at em_diag and diag10;
         # launches counted over the phase (phase_lane_em)
         lane = phase_lane_em(torch, train_diag, main_diag)
+        # the shapes past the lane path: the correctness sets, then the four
+        # full-width cells, each counting its own launches
+        worst_lat_wide = phase_kernel_lattice_wide(torch)
+        worst_em_wide = phase_kernel_em_wide(torch)
+        worst_comp_wide = phase_kernel_composed_wide(torch)
+        s96 = phase_align_s96(torch)
+        s1024 = phase_lattice_s1024(torch)
+        em39 = phase_em_full39(torch, tmp)
+        set_composed_counts({name: 0 for name, _ in COMPOSED_ROWS})
+        emb39, tied39 = phase_emb_full39(torch)
+        comp39_launches = composed_counts()
+        for name, _ in COMPOSED_ROWS:
+            if comp39_launches[name] < 1:
+                raise AssertionError(f"the emb_full39 / tied_full39 main path launched {name} 0 times")
         # multi-device training on spawned ranks and under torchrun; the
         # ranks count their own launches (phase_multi)
         multi = phase_multi(torch, train_diag, main_full, emb, tied, pipe, tmp / "train_embedded_cli", tmp,
@@ -4497,6 +5139,10 @@ def main() -> int:
         t_comp = phase_timing_composed(torch, emb, tied, info["nvidia_smi"])
         t_mfcc = phase_timing_mfcc(torch, info["nvidia_smi"])
         t_lane = phase_timing_lane(torch, lane, info["nvidia_smi"])
+        t_wide = phase_timing_wide(torch, {"align_s96": s96, "lattice_s1024": s1024}, info["nvidia_smi"])
+        t_em39 = phase_timing_em(torch, em39, info["nvidia_smi"], plain_reps=3)
+        t_comp39 = phase_timing_composed(torch, emb39, tied39, info["nvidia_smi"], cells=("emb_full39", "tied_full39"),
+                                         plain_reps=3)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     fused_src = "srhmm_tpu_torch/csrc/fused_em.cu"
@@ -4550,6 +5196,9 @@ def main() -> int:
             "ms_p2": em_p2["emit_forward"]["ms"],
             "plain_ms_p2": em_p2["emit_forward"]["best_plain_ms"],
             **{f"{k}_p2": em_p2["emit_forward"][k] for k in bkeys},
+            # full covariance at D = 39: em_full39
+            **wide_fields(t_em39["emit_forward"], "full39", em39["launches"]["emit_forward"]),
+            "max_abs_err_full_wide": worst_em_wide["emit_forward"],
         },
         {
             "name": "backward_stats",
@@ -4568,6 +5217,8 @@ def main() -> int:
             "ms_p2": em_p2["backward_stats"]["ms"],
             "plain_ms_p2": em_p2["backward_stats"]["best_plain_ms"],
             **{f"{k}_p2": em_p2["backward_stats"][k] for k in bkeys},
+            **wide_fields(t_em39["backward_stats"], "full39", em39["launches"]["backward_stats"]),
+            "max_abs_err_full_wide": worst_em_wide["backward_stats"],
         },
     ] + [
         {
@@ -4601,6 +5252,12 @@ def main() -> int:
             "ms_tied_c5": t_comp["tied_c5"]["kernels"][name]["ms"],
             "plain_ms_tied_c5": t_comp["tied_c5"]["kernels"][name]["best_plain_ms"],
             **{f"{k}_tied_c5": t_comp["tied_c5"]["kernels"][name][k] for k in bkeys},
+            # full covariance at D = 39: emb_full39 and tied_full39 (launches over both)
+            "launches_full39": comp39_launches[name],
+            **wide_fields(t_comp39["emb_full39"]["kernels"][name], "emb_full39"),
+            **wide_fields(t_comp39["tied_full39"]["kernels"][name], "tied_full39"),
+            "max_abs_err_full_wide": max(worst_comp_wide[name], t_comp39["emb_full39"]["worst_abs"][name],
+                                         t_comp39["tied_full39"]["worst_abs"][name]),
         }
         for name, where in COMPOSED_ROWS
     ] + [
@@ -4639,6 +5296,12 @@ def main() -> int:
             **({"kernel_device_ms": t_lane[name]["kernel_device_ms"]} if "kernel_device_ms" in t_lane[name] else {}),
             **({"kernel_device_ms_diag10": t_lane["log_forward_batch_diag10"]["kernel_device_ms"]}
                if name == "log_forward_batch" else {}),
+            # past 64 states (the block-wide mode): align_s96 and lattice_s1024
+            **({k: v for cell, tag, c in (("align_s96", "s96", s96), ("lattice_s1024", "s1024", s1024))
+                for k, v in wide_fields(t_wide[cell][name], tag, c["launches"][name]).items()}
+               if name in t_wide["align_s96"] else {}),
+            **({"max_abs_err_wide": max(worst_lat_wide[name], s96["worst"][name], s1024["worst"][name])}
+               if name in worst_lat_wide else {}),
         }
         for name, _, where, src in LANE_ROWS
     ]})

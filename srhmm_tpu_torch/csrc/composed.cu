@@ -139,6 +139,8 @@ struct MomParams {
   float* mom[kMaxStreams];            // per stream: (NB, M_p * Cm)
   int cols[kMaxStreams];              // M_p * Cm
   int slots;                          // tiles a batch = warps a block (<= kMaxSlots)
+  int rec_global;                     // the bank row's records read from device memory, not staged
+  int acc_global;                     // the accumulators in the chunk's partial row, not shared memory
 };
 
 struct LatticeParams {
@@ -311,7 +313,9 @@ __device__ __forceinline__ void copy_records_async(const BankParams& p, int row,
 // grid (ceil(T / (kFrames * F)), B), kFrames threads: thread k takes frames
 // blockIdx.x * kFrames * F + k + f * kFrames of utterance blockIdx.y and
 // walks the LS rows; the records of rows j+1 .. j+nbuf-1 are in flight in
-// the ring while row j computes (nbuf = 1: copy, wait, compute).  The
+// the ring while row j computes (nbuf = 1: copy, wait, compute; nbuf = 0:
+// a bank row's records outgrow shared memory, as full covariance past D =
+// 16 with many mixtures does, and are read from device memory through L2).  The
 // mixtures go two at a time (G independent FMA chains a frame), pushed into
 // the logsumexp in mixture order: log_b is bitwise that of one mixture at a
 // time.
@@ -326,12 +330,12 @@ __global__ void __launch_bounds__(kFrames) bank_emission_kernel(const BankParams
   const int* ids = p.ids + (size_t)b * p.LS;
   float x[F][RB], x2[F][RB];
   load_frames<RB, F>(p, b, t0, kFrames, x, x2);
-  for (int r = 0; r + 1 < nbuf; ++r) {  // exactly nbuf - 1 groups in flight
+  for (int r = 0; r + 1 < nbuf; ++r) {  // exactly nbuf - 1 groups in flight (none for nbuf 0 or 1)
     if (r < p.LS) copy_records_async(p, ids[r], ring + (size_t)r * p.rec_floats);
     cp_async_commit();
   }
   for (int j = 0; j < p.LS; ++j) {
-    const float* buf = ring + (size_t)(j % nbuf) * p.rec_floats;
+    const float* buf = ring + (size_t)(nbuf > 0 ? j % nbuf : 0) * p.rec_floats;
     if (nbuf == 1) {
       __syncthreads();  // the previous row's records are no longer read
       copy_records_async(p, ids[j], ring);
@@ -339,10 +343,10 @@ __global__ void __launch_bounds__(kFrames) bank_emission_kernel(const BankParams
     }
     if (nbuf >= 3) {
       cp_async_wait<1>();  // row j's group is complete; row j+1's may still fly
-    } else {
+    } else if (nbuf > 0) {
       cp_async_wait<0>();
     }
-    __syncthreads();  // row j visible to all; row j-1's buffer free
+    if (nbuf > 0) __syncthreads();  // row j visible to all; row j-1's buffer free
     if (nbuf > 1) {
       const int r = j + nbuf - 1;
       if (r < p.LS) copy_records_async(p, ids[r], ring + (size_t)(r % nbuf) * p.rec_floats);
@@ -354,7 +358,7 @@ __global__ void __launch_bounds__(kFrames) bank_emission_kernel(const BankParams
     for (int q = 0; q < p.n_streams; ++q) {
       const int M = p.mixes[q], stride = p.strides[q];
       const int h = record_dmax(stride, D, FULL);
-      const float* rec = buf + p.rec_offs[q];
+      const float* rec = nbuf > 0 ? buf + p.rec_offs[q] : p.banks[q] + (size_t)(ok ? row : 0) * M * stride;
       float m[F], e[F];
 #pragma unroll
       for (int f = 0; f < F; ++f) {
@@ -790,8 +794,9 @@ __global__ void __launch_bounds__(kBackwardThreads) composed_backward_stats_kern
 
 // Shared memory of one moments block, in floats then ints (the wrapper's
 // ops/kernels/composed.py moments_smem_bytes mirrors it):
-//   records M * stride | posterior weights w (M, ks) | features x (D, ks) |
-//   accumulators (M, Cm) | queued gamma (qcap, 32) |
+//   records M * stride (unless rec_global) | posterior weights w (M, ks) |
+//   features x (D, ks) | accumulators (M, Cm) (unless acc_global: then the
+//   chunk's own partial row holds them) | queued gamma (qcap, 32) |
 //   ints: queued pair (qcap) | queued tile (qcap) | vote masks (2, slots) |
 //   pair b, j, length (3 kChunk) | first tile of each pair (kChunk + 1)
 // with qcap = (kScan + 1) * slots (fewer than slots left over, and up to
@@ -803,24 +808,29 @@ struct MomLayout {
   int ks, qcap;
 };
 
-__host__ __device__ inline size_t moments_floats(int M, int stride, int D, int Cm, int slots) {
+__host__ __device__ inline size_t moments_floats(int M, int stride, int D, int Cm, int slots, int rec_global,
+                                                 int acc_global) {
   const int ks = kTile * slots + 4;
-  return (size_t)M * stride + (size_t)(M + D) * ks + (size_t)M * Cm + (size_t)(kScan + 1) * slots * kTile;
+  return (rec_global ? 0 : (size_t)M * stride) + (size_t)(M + D) * ks + (acc_global ? 0 : (size_t)M * Cm) +
+         (size_t)(kScan + 1) * slots * kTile;
 }
 
 __host__ __device__ inline size_t moments_ints(int slots) {
   return (size_t)(2 * (kScan + 1) + 2) * slots + 4 * (size_t)kChunk + 1;
 }
 
-__device__ __forceinline__ MomLayout moments_layout(float* base, int M, int stride, int D, int Cm, int slots) {
+// rec and acc: the records and accumulators in device memory where the
+// block keeps them there (nullptr: in shared memory)
+__device__ __forceinline__ MomLayout moments_layout(float* base, int M, int stride, int D, int Cm, int slots,
+                                                   const float* rec, float* acc) {
   MomLayout L;
   L.ks = kTile * slots + 4;
   L.qcap = (kScan + 1) * slots;
-  L.rec = base;
-  L.w = L.rec + (size_t)M * stride;
+  L.w = base + (rec ? 0 : (size_t)M * stride);
+  L.rec = rec ? const_cast<float*>(rec) : base;
   L.x = L.w + (size_t)M * L.ks;
-  L.acc = L.x + (size_t)D * L.ks;
-  L.gq = L.acc + (size_t)M * Cm;
+  L.gq = L.x + (size_t)D * L.ks + (acc ? 0 : (size_t)M * Cm);
+  L.acc = acc ? acc : L.x + (size_t)D * L.ks;
   L.qpair = reinterpret_cast<int*>(L.gq + (size_t)L.qcap * kTile);
   L.qtile = L.qpair + L.qcap;
   L.vote = L.qtile + L.qcap;
@@ -942,11 +952,14 @@ __global__ void __launch_bounds__(kTile * kMaxSlots) bank_moments_kernel(const B
   const int M = p.mixes[q], stride = p.strides[q], D = p.D;
   const int Cm = FULL ? D + D * D + 1 : 2 * D + 1;
   const int slots = m.slots;
-  const MomLayout L = moments_layout(reinterpret_cast<float*>(smem4), M, stride, D, Cm, slots);
+  float* out = m.partial[q] + (size_t)g * M * Cm;
+  const MomLayout L = moments_layout(reinterpret_cast<float*>(smem4), M, stride, D, Cm, slots,
+                                     m.rec_global ? p.banks[q] + (size_t)r * M * stride : nullptr,
+                                     m.acc_global ? out : nullptr);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 
   // the row's records, once for every pair; zeroed accumulators
-  {
+  if (!m.rec_global) {
     const int n4 = M * stride / 4;
     const float4* src = reinterpret_cast<const float4*>(p.banks[q] + (size_t)r * M * stride);
     float4* dst = reinterpret_cast<float4*>(L.rec);
@@ -1034,7 +1047,7 @@ __global__ void __launch_bounds__(kTile * kMaxSlots) bank_moments_kernel(const B
 
   const float nan = __int_as_float(0x7fc00000);
   const int cols = M * Cm;
-  float* out = m.partial[q] + (size_t)g * cols;
+  __syncthreads();  // with acc_global, every warp's accumulators are in out before they are scaled in place
   for (int i = tid; i < cols; i += blockDim.x) out[i] = bad ? nan : L.acc[i] * kWeightUnscale;
 }
 
@@ -1064,11 +1077,12 @@ void pick(int which, void** fn) {
 }
 
 // The register bound of a bank kernel: the smallest compiled bound >= D
-// rounded up to 4 (diagonal 8, 16, 24, 32, 40, 48, 64; full 4, 8, 12, 16);
-// 0 when there is none.
+// rounded up to 4 (diagonal 8, 16, 24, 32, 40, 48, 64; full 4, 8, 12, 16,
+// 24, 32, 40, 48, 64: D = 39 holds 40 floats of features, not 64); 0 when
+// there is none.
 int register_bound(int D, bool full) {
   static const int kDiag[] = {8, 16, 24, 32, 40, 48, 64};
-  static const int kFull[] = {4, 8, 12, 16};
+  static const int kFull[] = {4, 8, 12, 16, 24, 32, 40, 48, 64};
   const int need = 4 * groups_of(D);
   if (full) {
     for (int rb : kFull)
@@ -1089,6 +1103,11 @@ void* bank_kernel_for(int which, int rb, bool full) {
       case 8: pick<8, true>(which, &fn); break;
       case 12: pick<12, true>(which, &fn); break;
       case 16: pick<16, true>(which, &fn); break;
+      case 24: pick<24, true>(which, &fn); break;
+      case 32: pick<32, true>(which, &fn); break;
+      case 40: pick<40, true>(which, &fn); break;
+      case 48: pick<48, true>(which, &fn); break;
+      case 64: pick<64, true>(which, &fn); break;
       default: break;
     }
     return fn;
@@ -1208,14 +1227,15 @@ extern "C" {
 // the pointers they hold and every other pointer are device pointers.
 
 // nbuf: record buffers in the ring, 1 to 3 (shared memory nbuf * the
-// records of one bank row of every stream)
+// records of one bank row of every stream), or 0 (the records read from
+// device memory)
 int srhmm_bank_emission(const void* ids, const void* const* banks, const int* mixes,
                         const int* strides, int n_streams, int NB, const void* feats, void* log_b,
                         int B, int T, int D, int LS, int full, int nbuf, int device, void* stream) {
   BankParams p;
   int bad = fill_bank(p, ids, banks, mixes, strides, n_streams, NB, feats, B, T, D, LS);
   if (bad) return bad;
-  if (nbuf < 1 || nbuf > kMaxRing) return (int)cudaErrorInvalidValue;
+  if (nbuf < 0 || nbuf > kMaxRing) return (int)cudaErrorInvalidValue;
   const int rb = register_bound(D, full != 0);
   void* fn = bank_kernel_for(0, rb, full != 0);
   if (fn == nullptr) return (int)cudaErrorInvalidValue;
@@ -1283,14 +1303,16 @@ int srhmm_composed_backward_stats(const void* log_b, const void* la, const void*
 // The moments.  sorted (B * LS,) int32 and order (B * LS,) int64 are the
 // flattened ids sorted stably and the sort's permutation; table (2 (NB + 1),)
 // int32 is workspace for the chunk table; partial[q] holds n_chunks rows of
-// M_q * Cm floats, n_chunks >= ceil(B LS / kChunk) + min(NB, B LS).  Pass 0
+// M_q * Cm floats, n_chunks >= ceil(B LS / kChunk) + min(NB, B LS);
+// rec_global / acc_global: the records read from device memory / the
+// accumulators kept in the partial rows (moments_floats).  Pass 0
 // builds the chunk table, pass 1 writes the chunks' partials, pass 2 sums
 // them into mom[q] (NB, M_q * Cm).
 int srhmm_bank_moments(const void* ids, const void* const* banks, const int* mixes,
                        const int* strides, int n_streams, int NB, const void* feats,
                        const void* gamma, long long g_st, long long g_sj, long long g_sb,
                        const void* lengths, const void* sorted, const void* order, void* table,
-                       void* const* partial, int n_chunks, int slots,
+                       void* const* partial, int n_chunks, int slots, int rec_global, int acc_global,
                        void* const* mom, int B, int T, int D, int LS, int full, int device,
                        void* stream) {
   BankParams p;
@@ -1311,6 +1333,8 @@ int srhmm_bank_moments(const void* ids, const void* const* banks, const int* mix
   m.offsets = offsets;
   m.chunk_cum = chunk_cum;
   m.slots = slots;
+  m.rec_global = rec_global;
+  m.acc_global = acc_global;
   const int Cm = full ? D + D * D + 1 : 2 * D + 1;
   size_t floats = 0;
   int max_cols = 0;
@@ -1319,7 +1343,7 @@ int srhmm_bank_moments(const void* ids, const void* const* banks, const int* mix
     m.mom[q] = static_cast<float*>(mom[q]);
     m.cols[q] = mixes[q] * Cm;
     max_cols = m.cols[q] > max_cols ? m.cols[q] : max_cols;
-    const size_t f = moments_floats(mixes[q], strides[q], D, Cm, slots);
+    const size_t f = moments_floats(mixes[q], strides[q], D, Cm, slots, rec_global, acc_global);
     floats = f > floats ? f : floats;
   }
   void* fn = bank_kernel_for(1, register_bound(D, full != 0), full != 0);

@@ -370,7 +370,8 @@ __global__ void __launch_bounds__(kEmitThreads) emit_forward_kernel(const EmPara
 
 // Shared memory of one backward-stats block, in floats then ints (the
 // wrapper's ops/kernels/fused_em.py backward_smem_bytes mirrors it):
-//   constants C | a ring of three tiles of TT frames, each log-alpha
+//   constants C (unless consts_global: then they are read from device
+//   memory, as full-covariance records past D = 16 need) | a ring of three tiles of TT frames, each log-alpha
 //   (TT, S, U), log_b of the next frames (TT, S, U) and every stream's
 //   features (TT, D_p, U) | two gamma tiles (TT, S, U) | two exchange rows
 //   (2, S U) | xi sums of the slots past kXiRegs (nslots - kXiRegs, S U) |
@@ -389,7 +390,7 @@ __host__ __device__ inline size_t backward_floats(const EmParams& p, int TT) {
   const size_t nt = (size_t)p.S * p.U;
   const int nslots = p.band >= 0 ? p.band + 1 : p.S;
   const size_t ks = backward_ks(TT, p.U);
-  return (size_t)p.C + 3 * (size_t)TT * p.U * (2 * p.S + p.sum_dims) + 2 * (size_t)TT * nt + 2 * nt +
+  return (p.consts_global ? 0 : (size_t)p.C) + 3 * (size_t)TT * p.U * (2 * p.S + p.sum_dims) + 2 * (size_t)TT * nt + 2 * nt +
          (size_t)(nslots > kXiRegs ? nslots - kXiRegs : 0) * nt + ((size_t)p.S * p.max_mix + p.max_dim) * ks +
          (p.acc_global ? 0 : (size_t)p.S * p.mom_thread);
 }
@@ -433,9 +434,10 @@ __global__ void __launch_bounds__(kMaxBackwardThreads) backward_stats_kernel(con
   const int b0 = blockIdx.x * U;
   const bool banded = p.band >= 0;
   const int nslots = banded ? p.band + 1 : S;
-  stage_constants(p, smem4, tid, blockDim.x);
+  if (!p.consts_global) stage_constants(p, smem4, tid, blockDim.x);
+  const float* cst = p.consts_global ? p.consts : smem;
   const size_t frame_tile = (size_t)TT * U * (2 * S + p.sum_dims);  // floats of one tile
-  float* ring = smem + p.C;
+  float* ring = smem + (p.consts_global ? 0 : p.C);
   float* gam = ring + 3 * frame_tile;                  // two (TT, S, U) tiles
   float* inner_sh = gam + 2 * (size_t)TT * nt;         // two (S, U) rows: frame t writes row t & 1
   float* xi_sh = inner_sh + 2 * nt;                    // (nslots - NSL, S*U)
@@ -478,7 +480,7 @@ __global__ void __launch_bounds__(kMaxBackwardThreads) backward_stats_kernel(con
     const bool th = tid < nt;  // a (state, utterance) thread
     const int b = b0 + u;
     const bool live = th && b < p.B;
-    const float* lt = smem + p.lt_off;
+    const float* lt = cst + p.lt_off;
     const int len = live ? p.lengths[b] : 0;
     const float z = live ? p.safe_z[b] : 0.f;
     const bool valid = live && p.vmask[b] > 0.f;
@@ -623,7 +625,7 @@ __global__ void __launch_bounds__(kMaxBackwardThreads) backward_stats_kernel(con
         const int stride = record_stride<DMAX, FULL>(D);
         float origin[DMAX];
 #pragma unroll
-        for (int e = 0; e < DMAX; ++e) origin[e] = (e < D) ? smem[p.origin_offs[q] + e] : 0.f;
+        for (int e = 0; e < DMAX; ++e) origin[e] = (e < D) ? cst[p.origin_offs[q] + e] : 0.f;
         // a thread an item (kept column kc, state s2), the columns fastest
         for (int it = st; it < k8 * S; it += n_stat) {
           const int s2 = it / k8, kc = it - s2 * k8;
@@ -642,7 +644,7 @@ __global__ void __launch_bounds__(kMaxBackwardThreads) backward_stats_kernel(con
             x2[e] = x[e] * x[e];
             if (s2 == 0 && e < D) x_sh[e * ks + kc] = x[e];
           }
-          const float* rec = smem + p.offs[q] + s2 * M * stride;
+          const float* rec = cst + p.offs[q] + s2 * M * stride;
           float mx = kNegInf, ex = 0.f;
           // two mixtures' FMA chains side by side, pushed in mixture order
           int mix = 0;
@@ -708,9 +710,12 @@ KernelFn pick(int variant) {
   }
 }
 
-// nullptr for a bound that is not compiled: full covariance carries D^2
-// moments per mixture, and bounds above 16 would not fit a block's shared
-// memory
+// nullptr for a bound that is not compiled.  Full covariance: 4, 8, 12,
+// 16, then 32, 40 and 64 (ops/kernels/fused_em.py FULL_DMAX_BOUNDS: 40
+// keeps D = 39's records and features in fewer registers than 64); past 16
+// the records (D DMAX floats a mixture) and the D + D^2 + 1 moments a
+// mixture outgrow shared memory, and backward_block reads the constants
+// from device memory and keeps the accumulators in the partials.
 KernelFn kernel_for(int variant, int dmax, int full) {
   if (full) {
     switch (dmax) {
@@ -718,6 +723,9 @@ KernelFn kernel_for(int variant, int dmax, int full) {
       case 8: return pick<8, true>(variant);
       case 12: return pick<12, true>(variant);
       case 16: return pick<16, true>(variant);
+      case 32: return pick<32, true>(variant);
+      case 40: return pick<40, true>(variant);
+      case 64: return pick<64, true>(variant);
       default: return nullptr;
     }
   }
@@ -836,9 +844,10 @@ extern "C" {
 // in device memory (consts_global) or shared memory, nsl transition slots
 // unrolled (2, 4, 8; 0 = the generic loop); shared memory emit_floats.
 // Backward-stats: S*U threads rounded up to whole warps plus stat_warps
-// statistics warps; TT = frames a tile stages and acc_global = its moment
-// accumulators in mom rather than shared memory (shared memory
-// backward_floats + backward_ints).
+// statistics warps; TT = frames a tile stages, acc_global = its moment
+// accumulators in mom rather than shared memory and consts_global = its
+// constants read from device memory (shared memory backward_floats +
+// backward_ints).
 int srhmm_emit_forward(const void* const* feats, const int* dims, const int* mixes,
                        const int* offs, const int* origin_offs, int n_streams, const void* consts,
                        int C, int lt_off, const void* lengths, void* log_b, void* la, int T, int B,
@@ -872,7 +881,7 @@ int srhmm_backward_stats(const void* const* feats, const int* dims, const int* m
                          const void* safe_z, const void* vmask, const void* log_b, const void* la,
                          void* xi, void* den_trans, void* den_mix, void* mom, int T, int B, int S,
                          int band, int full, int dmax, int U, int TT, int stat_warps, int acc_global,
-                         int device, void* stream) {
+                         int consts_global, int device, void* stream) {
   EmParams p;
   const int bad = fill_params(p, feats, dims, mixes, offs, origin_offs, n_streams, consts, C,
                               lt_off, lengths, T, B, S, band, full, U);
@@ -880,6 +889,7 @@ int srhmm_backward_stats(const void* const* feats, const int* dims, const int* m
   p.TT = TT;
   p.stat_warps = stat_warps;
   p.acc_global = acc_global;
+  p.consts_global = consts_global;
   if (TT < 1 || stat_warps < 1 || block_threads(1, p) > kMaxBackwardThreads) return (int)cudaErrorInvalidValue;
   p.safe_z = static_cast<const float*>(safe_z);
   p.vmask = static_cast<const float*>(vmask);

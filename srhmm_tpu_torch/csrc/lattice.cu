@@ -10,6 +10,8 @@
 //   lattice_backward_kernel <- lattice_pallas.py:134 backward_lattice_pallas,
 //                              :253 backward_lattice_pallas_blocked
 //   viterbi_kernel          <- forward_pallas.py:137 viterbi_batch_pallas
+//   lattice_block_kernel    <- all of them past 64 states (the block-wide
+//                              mode below)
 // The blocked TPU kernels compute the same functions as the unblocked ones:
 // k_block was the TPU's time tiling.  The plain PyTorch twins
 // (ops/kernels/lattice.py, ops/kernels/forward.py *_plain) compute the same
@@ -85,7 +87,7 @@ namespace {
 
 using namespace srhmm;
 
-constexpr int kMaxStates = 64;
+constexpr int kMaxStates = 64;  // the lane path; the block-wide mode takes up to kMaxBlockStates
 constexpr size_t kSmemLimit = 232448;  // bytes a block may use (ops/kernels/common.py SMEM_LIMIT)
 
 // ---------------------------------------------------------------------------
@@ -109,6 +111,7 @@ struct Params {
   int G, U, TT;        // utterances a warp and a block, frames a tile
   int vec;             // 16-byte copies and stores
   int* bptr;           // Viterbi: the (B, T, S) backpointers
+  int rec, lt_cap;     // block-wide mode (S > kMaxStates): recursion threads, floats of the transitions' region
 };
 
 // (B, T, S) tiles: an utterance's TT S floats at a pitch rounded up to 4,
@@ -718,6 +721,338 @@ KernelFn viterbi_kernel_for(int S) {
   return viterbi_kernel<64, 2>;
 }
 
+// ---------------------------------------------------------------------------
+// the block-wide mode: S > kMaxStates
+// ---------------------------------------------------------------------------
+//
+// Past 64 states an utterance's states do not fit a warp's lanes.  Each
+// block takes one utterance; its p.rec recursion threads (S rounded up to
+// whole warps, at most kBlockRec) take the destinations j = tid + r p.rec,
+// r < ceil(S / p.rec) <= kBlockPerThread, and one memory warp stages log b a
+// tile of TT frames ahead and writes the output a tile behind
+// (stage_forward_tile, store_forward_tile, store_run_tile with U = 1).  The
+// previous row (log-alpha, the backward's inner terms log b + log-beta, or
+// the Viterbi scores) sits double-buffered in shared memory: a frame reads
+// one slot and writes the other, and one barrier of the recursion threads a
+// frame orders them (none past the utterance's length, where the row only
+// repeats).  The transitions: each destination's sources (the backward:
+// each source's destinations) run over the range [lo, lo + cnt) of its
+// column whose clamped log transitions are above NEG_INF, found by the
+// block at its start; the backward is given the transposed matrix (lt[j S +
+// i] = log a(i -> j)), so that a key's entries are a column there too and a
+// warp's loads of them are coalesced.  The ranges' columns sit in shared
+// memory, packed W = max cnt wide (a band of W diagonals, or the dense
+// matrix), when W S floats fit p.lt_cap, else they are read from device
+// memory through L2.
+// A source outside the range adds a term that changes no bit: the clamped
+// transition NEG_INF puts its value at or below NEG_INF, so it is never the
+// maximum m above NEG_INF and its expf(v - m) is 0.0f; and where every term
+// is at or below NEG_INF the update is NEG_INF either way.  The Viterbi's
+// tie rule is the exception: where the best in-range score is at or below
+// NEG_INF (a state not yet reachable), sources outside the range tie with it
+// and the lowest source wins, so that case loops over all S sources.
+// Semantics are the lane path's (the clamp, lengths of 0 and 1, per-row
+// transitions, the lower source on a tie); the sums run over the range in
+// ascending order (max first, then the sum of expf).
+constexpr int kBlockRec = 512;                               // recursion threads a block at most
+constexpr int kBlockPerThread = 8;                           // destinations a thread at most
+constexpr int kMaxBlockStates = kBlockRec * kBlockPerThread;  // 4096
+constexpr int kBlockThreads = kBlockRec + 32;                // and one memory warp
+enum { kForwardKind = 0, kBackwardKind = 1, kViterbiKind = 2 };
+
+__host__ __device__ inline size_t round4(size_t n) { return (n + 3) / 4 * 4; }
+
+__device__ __forceinline__ void named_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// The regions of a block-mode block, in floats (ops/kernels/lattice.py
+// block_smem_bytes mirrors it): two rows of S | log b in two slots (TT S, or
+// a run of TT S at forward_run_pitch for (B, T, S) log b) | the output in
+// two slots (the lattice TT S; the Viterbi's backpointers a run; none for
+// the forward's last row) | the ranges, lo and cnt of S ints and the width
+// | the transitions, lt_cap floats; each region a multiple of 4 floats.
+struct BlockLayout {
+  size_t rows, in, out, ints;
+};
+
+__host__ __device__ inline BlockLayout block_layout(int kind, int S, int TT, int layout) {
+  BlockLayout L;
+  L.rows = round4(2 * (size_t)S);
+  L.in = round4(kind == kBackwardKind ? (size_t)TT * S : forward_tile_floats(S, 1, TT, kind == kViterbiKind ? 1 : layout));
+  L.out = kind == kViterbiKind ? forward_tile_floats(S, 1, TT, 1) : (kind == kBackwardKind || layout == 0 ? round4((size_t)TT * S) : 0);
+  L.ints = round4(2 * (size_t)S + 1);
+  return L;
+}
+
+__host__ __device__ inline size_t block_floats(int kind, int S, int TT, int layout, int lt_cap) {
+  const BlockLayout L = block_layout(kind, S, TT, layout);
+  return L.rows + 2 * L.in + 2 * L.out + L.ints + (size_t)lt_cap;
+}
+
+// The packed transition of key k (a destination; the backward's source) and
+// its e-th range entry: from shared memory, or clamped from device memory.
+struct BlockTrans {
+  const float* g;  // this block's (S, S) log transitions in device memory, key k's entries column k
+  const float* c;  // the packed ranges in shared memory, or nullptr
+  const int *lo, *cnt;
+  int S, W;
+  __device__ __forceinline__ float at(int k, int e) const {
+    return c ? c[(size_t)k * W + e] : fmaxf(g[(size_t)(lo[k] + e) * S + k], kNegInf);
+  }
+};
+
+// The log-sum-exp update of key k over its range from the row x (x[o] +
+// at(k, e) with o = lo[k] + e): max(m + logf(sum) + lb, NEG_INF) with m =
+// max(NEG_INF, max v), the sum of expf(v - m) ascending.
+template <bool kEmit>
+__device__ __forceinline__ float block_lse(const BlockTrans& tr, const float* x, int k, float lb) {
+  const int l0 = tr.lo[k], n = tr.cnt[k];
+  float m = kNegInf;
+  for (int e = 0; e < n; ++e) m = fmaxf(m, x[l0 + e] + tr.at(k, e));
+  float sum = 0.f;
+  for (int e = 0; e < n; ++e) sum += expf(x[l0 + e] + tr.at(k, e) - m);
+  if constexpr (!kEmit) return fmaxf(m + logf(sum), kNegInf);
+  return fmaxf(m + logf(sum) + lb, kNegInf);
+}
+
+// The Viterbi's best source of destination j by a strict > from source 0
+// over all S sources: over the range, unless its best is at or below
+// NEG_INF, where sources outside it (transition NEG_INF) may tie.
+__device__ __forceinline__ float block_best(const BlockTrans& tr, const float* x, int j, int& arg) {
+  const int l0 = tr.lo[j], n = tr.cnt[j];
+  float best = -INFINITY;
+  arg = 0;
+  for (int e = 0; e < n; ++e) {
+    const float c = x[l0 + e] + tr.at(j, e);
+    if (e == 0 || c > best) {
+      best = c;
+      arg = l0 + e;
+    }
+  }
+  if (n > 0 && best > kNegInf) return best;
+  for (int i = 0; i < tr.S; ++i) {
+    const float c = x[i] + (i >= l0 && i < l0 + n ? tr.at(j, i - l0) : kNegInf);
+    if (i == 0 || c > best) {
+      best = c;
+      arg = i;
+    }
+  }
+  return best;
+}
+
+// One utterance a block (blockIdx.x), KIND forward (p.layout 0: the (T, S,
+// B) lattice; 1: the final carries of (B, T, S) log b), backward or
+// Viterbi; the functions and frame rules of the lane kernels above.
+template <int KIND>
+__global__ void __launch_bounds__(kBlockThreads) lattice_block_kernel(const __grid_constant__ Params p) {
+  extern __shared__ float4 smem4[];
+  float* sh = reinterpret_cast<float*>(smem4);
+  const int S = p.S, TT = p.TT, T = p.T, tid = threadIdx.x, nr = p.rec, b = blockIdx.x;
+  const int layout = KIND == kForwardKind ? p.layout : (KIND == kViterbiKind ? 1 : 0);
+  const int Q = forward_run_pitch(S, TT);
+  const BlockLayout L = block_layout(KIND, S, TT, layout);
+  float* row = sh;                        // slot f & 1 of S floats: frame (row) f
+  float* lb_slots = row + L.rows;         // slot k & 1 holds tile k
+  float* out_slots = lb_slots + 2 * L.in;
+  int* lo = reinterpret_cast<int*>(out_slots + 2 * L.out);
+  int* cnt = lo + S;
+  int* width = cnt + S;
+  float* lt_sh = reinterpret_cast<float*>(lo) + L.ints;
+  const int len = p.lengths[b];
+  const float* ltg = p.lt + (p.per_row ? (size_t)b * S * S : 0);  // the backward's: transposed
+  // the frames: all T, the forward's last row only up to the length (frame 0 always)
+  const int t_blk = (KIND == kForwardKind && layout) ? max(1, min(len, T)) : T;
+  const int n_tiles = (t_blk + TT - 1) / TT;
+
+  // the ranges: key k's entries above NEG_INF (column k)
+  if (tid == 0) *width = 0;
+  __syncthreads();
+  if (tid < nr) {
+    int wmax = 0;
+    for (int k = tid; k < S; k += nr) {
+      int first = S, last = -1;
+      for (int e = 0; e < S; ++e) {
+        const float v = ltg[(size_t)e * S + k];
+        if (v > kNegInf) {
+          first = min(first, e);
+          last = e;
+        }
+      }
+      lo[k] = first <= last ? first : 0;
+      cnt[k] = first <= last ? last - first + 1 : 0;
+      wmax = max(wmax, cnt[k]);
+    }
+    atomicMax(width, wmax);
+  }
+  __syncthreads();
+  const int W = *width;
+  const bool packed = (size_t)W * S <= (size_t)p.lt_cap;
+  BlockTrans tr{ltg, nullptr, lo, cnt, S, W};
+  if (packed && tid < nr) {
+    for (int k = tid; k < S; k += nr)
+      for (int e = 0; e < cnt[k]; ++e) lt_sh[(size_t)k * W + e] = tr.at(k, e);
+  }
+  if (packed) tr.c = lt_sh;
+
+  if (tid >= nr) {
+    // ---- the memory warp ----
+    const int i = tid - nr, count = blockDim.x - nr;
+    auto rows_of = [&](int k, int& t_lo, int& t_hi) {
+      if (KIND == kBackwardKind) {
+        backward_rows(k, T, TT, t_lo, t_hi);
+      } else {
+        t_lo = k * TT;
+        t_hi = min(t_blk, t_lo + TT);
+      }
+    };
+    auto stage = [&](int k) {
+      int t_lo, t_hi;
+      rows_of(k, t_lo, t_hi);
+      if (KIND == kBackwardKind) {  // rows [t_lo, t_hi) hold log b of frames [t_lo + 1, t_hi + 1)
+        stage_forward_tile(lb_slots + (k & 1) * L.in, p.log_b, 0, t_lo + 1, min(t_hi + 1, T) - t_lo - 1, T, S, p.B,
+                           b, 1, 0, 0, i, count);
+      } else {
+        stage_forward_tile(lb_slots + (k & 1) * L.in, p.log_b, layout, t_lo, t_hi - t_lo, T, S, p.B, b, 1, Q, p.vec,
+                           i, count);
+      }
+      cp_async_commit();
+    };
+    auto store = [&](int k) {
+      int t_lo, t_hi;
+      rows_of(k, t_lo, t_hi);
+      if (KIND == kViterbiKind) {
+        store_run_tile(p.bptr, reinterpret_cast<const int*>(out_slots + (k & 1) * L.out), t_lo, t_hi - t_lo, T, S,
+                       p.B, b, 1, Q, p.vec, i, count);
+      } else if (L.out) {
+        store_forward_tile(p.out, out_slots + (k & 1) * L.out, t_lo, t_hi - t_lo, S, p.B, b, 1, 0, i, count);
+      }
+    };
+    stage(0);
+    cp_async_wait<0>();
+    __syncthreads();
+    for (int k = 0; k < n_tiles; ++k) {
+      // tile k+1 goes into the slot of tile k-1, read before the last barrier
+      if (k + 1 < n_tiles) stage(k + 1);
+      if (k >= 1) store(k - 1);
+      cp_async_wait<0>();
+      __syncthreads();
+    }
+    store(n_tiles - 1);
+    return;
+  }
+
+  // ---- the recursion threads ----
+  const int K = (S + nr - 1) / nr;
+  float carry[kBlockPerThread];  // log-alpha, log-beta at the next row, or the score
+#pragma unroll
+  for (int r = 0; r < kBlockPerThread; ++r) {
+    const int j = tid + r * nr;
+    carry[r] = (KIND == kBackwardKind && j == S - 1) ? 0.f : kNegInf;
+  }
+  __syncthreads();  // tile 0 (and the packed transitions) are in
+  for (int k = 0; k < n_tiles; ++k) {
+    const float* lbt = lb_slots + (k & 1) * L.in;
+    float* ot = out_slots + (k & 1) * L.out;
+    if constexpr (KIND == kBackwardKind) {
+      int t_lo, t_hi;
+      backward_rows(k, T, TT, t_lo, t_hi);
+      for (int t = t_hi - 1; t >= t_lo; --t) {
+        const int tt = t - t_lo;
+        if (t < T - 1) {  // row T-1 keeps the initialization
+          if (t + 1 < len) {
+            float* ib = row + (t & 1) * S;  // inner terms of row t: log b[t+1] + log-beta[t+1]
+#pragma unroll
+            for (int r = 0; r < kBlockPerThread; ++r) {
+              const int j = tid + r * nr;
+              if (r < K && j < S) ib[j] = fmaxf(lbt[(size_t)tt * S + j], kNegInf) + carry[r];
+            }
+            named_barrier(1, nr);
+#pragma unroll
+            for (int r = 0; r < kBlockPerThread; ++r) {
+              const int j = tid + r * nr;
+              if (r < K && j < S) carry[r] = block_lse<false>(tr, ib, j, 0.f);
+            }
+          } else {
+#pragma unroll
+            for (int r = 0; r < kBlockPerThread; ++r) carry[r] = (tid + r * nr == S - 1) ? 0.f : kNegInf;
+          }
+        }
+#pragma unroll
+        for (int r = 0; r < kBlockPerThread; ++r) {
+          const int j = tid + r * nr;
+          if (r < K && j < S) ot[(size_t)tt * S + j] = carry[r];
+        }
+      }
+    } else {
+      const int t_lo = k * TT, t_hi = min(t_blk, t_lo + TT);
+      for (int t = t_lo; t < t_hi; ++t) {
+        const int tt = t - t_lo;
+        const float* prev = row + ((t + 1) & 1) * S;  // frame t-1
+        float* cur = row + (t & 1) * S;
+        const bool step = t >= 1 && t < len;
+#pragma unroll
+        for (int r = 0; r < kBlockPerThread; ++r) {
+          const int j = tid + r * nr;
+          if (r >= K || j >= S) continue;
+          const float lb = fmaxf(lbt[(size_t)tt * S + j], kNegInf);
+          int arg = j;
+          if (t == 0) {
+            carry[r] = (j == 0 ? 0.f : kNegInf) + lb;
+          } else if (step) {
+            if constexpr (KIND == kViterbiKind) {
+              carry[r] = fmaxf(block_best(tr, prev, j, arg) + lb, kNegInf);
+            } else {
+              carry[r] = block_lse<true>(tr, prev, j, lb);
+            }
+          }
+          if (t + 1 < len && t + 1 < t_blk) cur[j] = carry[r];  // read by frame t+1 only
+          if constexpr (KIND == kViterbiKind) {
+            reinterpret_cast<int*>(ot)[tt * S + j] = step ? arg : j;
+          } else if (L.out) {
+            ot[(size_t)tt * S + j] = carry[r];
+          }
+        }
+        if (t + 1 < len && t + 1 < t_blk) named_barrier(1, nr);  // frame t's row, for frame t+1
+      }
+    }
+    __syncthreads();
+  }
+  if (KIND != kBackwardKind && (KIND == kViterbiKind || layout)) {
+#pragma unroll
+    for (int r = 0; r < kBlockPerThread; ++r) {
+      const int j = tid + r * nr;
+      if (r < K && j < S) p.out[(size_t)b * S + j] = carry[r];
+    }
+  }
+}
+
+// The block-wide mode's launch: one utterance a block, p.rec recursion
+// threads (S rounded up to whole warps, at most kBlockRec) and a memory
+// warp; 0 or a CUDA error code.
+int launch_block(int kind, const Params& p, int device, void* stream) {
+  const int S = p.S;
+  const int rec = min(kBlockRec, (S + 31) / 32 * 32);
+  const int layout = kind == kForwardKind ? p.layout : (kind == kViterbiKind ? 1 : 0);
+  const size_t smem = sizeof(float) * block_floats(kind, S, p.TT, layout, p.lt_cap);
+  if (p.T < 1 || S <= kMaxStates || S > kMaxBlockStates || p.B < 1 || p.TT < 1 || p.G != 0 || p.U != 1 ||
+      p.rec != rec || p.lt_cap < 0 || p.lt_cap % 4 != 0 || (p.vec && layout == 0) || smem > kSmemLimit) {
+    return (int)cudaErrorInvalidValue;
+  }
+  KernelFn fn = kind == kForwardKind ? lattice_block_kernel<kForwardKind>
+                                     : (kind == kBackwardKind ? lattice_block_kernel<kBackwardKind>
+                                                              : lattice_block_kernel<kViterbiKind>);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(reinterpret_cast<const void*>(fn), cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  fn<<<p.B, rec + 32, smem, static_cast<cudaStream_t>(stream)>>>(p);
+  return (int)cudaGetLastError();
+}
+
 // Checks the launch shape (ops/kernels/lattice.py forward_block /
 // backward_block / viterbi_block) and launches fn on (B + U - 1) / U blocks
 // of `threads` threads; 0 or a CUDA error code.
@@ -751,32 +1086,37 @@ extern "C" {
 // Pointers are device pointers; lengths int32 (B,), lt float32 (S, S) or,
 // for the forward with per_row, (B, S, S).  G utterances a warp, U = 4 G a
 // block and TT frames a tile from ops/kernels/lattice.py forward_block /
-// backward_block / viterbi_block.
+// backward_block / viterbi_block; rec and lt_cap are 0 there.  Past
+// kMaxStates states the block-wide mode: G = 0, U = 1, rec recursion
+// threads and lt_cap floats of transitions (block_floats).
 
 // The forward kernel.  layout 0: log b (T, S, B) contiguous, out the (T,
 // S, B) lattice; layout 1: log b (B, T, S) contiguous, out the final
 // carries (B, S).  vec: 16-byte copies (U and B, or T S and TT S,
 // multiples of 4, log b and out 16-byte aligned).
 int srhmm_lattice_forward(const void* log_b, const void* lt, int per_row, const void* lengths, void* out,
-                          int layout, int T, int S, int B, int G, int U, int TT, int vec, int device,
-                          void* stream) {
+                          int layout, int T, int S, int B, int G, int U, int TT, int vec, int rec, int lt_cap,
+                          int device, void* stream) {
   if (layout != 0 && layout != 1) return (int)cudaErrorInvalidValue;
   const bool vec_ok = aligned16(log_b, out) && (layout ? (T * S % 4 == 0 && TT * S % 4 == 0) : (U % 4 == 0 && B % 4 == 0));
   const Params p{static_cast<const float*>(log_b), static_cast<const float*>(lt), static_cast<const int*>(lengths),
-                 static_cast<float*>(out), per_row, layout, T, S, B, G, U, TT, vec, nullptr};
-  if (S < 1 || S > kMaxStates) return (int)cudaErrorInvalidValue;
+                 static_cast<float*>(out), per_row, layout, T, S, B, G, U, TT, vec, nullptr, rec, lt_cap};
+  if (S < 1 || S > kMaxBlockStates || (p.vec && !vec_ok)) return (int)cudaErrorInvalidValue;
+  if (S > kMaxStates) return launch_block(kForwardKind, p, device, stream);
   return launch_lanes(forward_kernel_for(S), kFwdThreads, p, forward_floats(S, U, TT, layout, per_row), vec_ok, device, stream);
 }
 
 // The backward kernel: log b (T, S, B) contiguous, out the (T, S, B)
 // lattice; vec: 16-byte copies and stores (U and B multiples of 4, log b
-// and out 16-byte aligned).
+// and out 16-byte aligned).  Past kMaxStates lt is the transposed matrix,
+// lt[j S + i] = log a(i -> j).
 int srhmm_lattice_backward(const void* log_b, const void* lt, const void* lengths, void* out, int T, int S, int B,
-                           int G, int U, int TT, int vec, int device, void* stream) {
+                           int G, int U, int TT, int vec, int rec, int lt_cap, int device, void* stream) {
   const bool vec_ok = aligned16(log_b, out) && U % 4 == 0 && B % 4 == 0;
   const Params p{static_cast<const float*>(log_b), static_cast<const float*>(lt), static_cast<const int*>(lengths),
-                 static_cast<float*>(out), 0, 0, T, S, B, G, U, TT, vec, nullptr};
-  if (S < 1 || S > kMaxStates) return (int)cudaErrorInvalidValue;
+                 static_cast<float*>(out), 0, 0, T, S, B, G, U, TT, vec, nullptr, rec, lt_cap};
+  if (S < 1 || S > kMaxBlockStates || (p.vec && !vec_ok)) return (int)cudaErrorInvalidValue;
+  if (S > kMaxStates) return launch_block(kBackwardKind, p, device, stream);
   return launch_lanes(backward_kernel_for(S), kFwdThreads, p, forward_floats(S, U, TT, 0, 0), vec_ok, device, stream);
 }
 
@@ -784,11 +1124,12 @@ int srhmm_lattice_backward(const void* log_b, const void* lt, const void* length
 // int32 (B, T, S); vec: 16-byte copies and stores (T S and TT S multiples
 // of 4, log b and bptr 16-byte aligned).
 int srhmm_viterbi(const void* log_b, const void* lt, const void* lengths, void* scores, void* bptr, int T, int S,
-                  int B, int G, int U, int TT, int vec, int device, void* stream) {
+                  int B, int G, int U, int TT, int vec, int rec, int lt_cap, int device, void* stream) {
   const bool vec_ok = aligned16(log_b, bptr) && T * S % 4 == 0 && TT * S % 4 == 0;
   Params p{static_cast<const float*>(log_b), static_cast<const float*>(lt), static_cast<const int*>(lengths),
-           static_cast<float*>(scores), 0, 1, T, S, B, G, U, TT, vec, static_cast<int*>(bptr)};
-  if (S < 1 || S > kMaxStates) return (int)cudaErrorInvalidValue;
+           static_cast<float*>(scores), 0, 1, T, S, B, G, U, TT, vec, static_cast<int*>(bptr), rec, lt_cap};
+  if (S < 1 || S > kMaxBlockStates || (p.vec && !vec_ok)) return (int)cudaErrorInvalidValue;
+  if (S > kMaxStates) return launch_block(kViterbiKind, p, device, stream);
   return launch_lanes(viterbi_kernel_for(S), kVitThreads, p, viterbi_floats(S, U, TT), vec_ok, device, stream);
 }
 

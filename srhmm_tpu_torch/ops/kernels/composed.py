@@ -62,14 +62,17 @@ TILE = 32  # csrc/composed.cu kTile: frames of a moments tile
 SCAN = 4  # csrc/composed.cu kScan: candidate tiles a warp checks a scan step
 PAIRS_PER_CHUNK = 16  # csrc/composed.cu kChunk: (utterance, row) pairs a moments block
 MOMENTS_SLOTS = (4, 2, 1)  # tiles a moments batch = warps a block, largest that fits first
-EMISSION_RING = (3, 2, 1)  # record buffers of a bank-emission block, deepest that fits first
+# where a moments block keeps (records, accumulators), the first that fits:
+# shared memory, then the accumulators in the chunk's partial row, then the
+# records read from device memory, then both (full covariance past D = 16)
+MOMENTS_PLACES = ((False, False), (False, True), (True, False), (True, True))
+EMISSION_RING = (3, 2, 1, 0)  # record buffers of a bank-emission block, deepest that fits first (0: device memory)
 _MAX_LATTICE_THREADS = 1024
 ROWS_PER_LANE = (1, 2, 4)  # composed rows a lattice lane holds (csrc/composed.cu instantiations)
 FORWARD_TILES = (32, 16, 8, 4, 2, 1)  # frames a forward tile stages, largest that fits first
 BACKWARD_TILES = (16, 8, 4, 2, 1)  # frames a backward-stats tile stages, largest that fits first
 # recursion warps a block: csrc/composed.cu kForwardThreads / 64 and kBackwardThreads / 64
 _LATTICE_WARPS = 8
-_FULL_DMAX_LIMIT = 16  # full-covariance bounds compiled in csrc/composed.cu
 _MAX_GRID_Y = 65535
 _ELEMS_PER_CHUNK = 1 << 24  # per-mixture elements the twins hold at once
 
@@ -92,54 +95,65 @@ def moment_cols(D: int, full: bool) -> int:
     return D + D * D + 1 if full else 2 * D + 1
 
 
-def _moments_bytes(mixes, strides, D: int, full: bool, slots: int) -> int:
+def _moments_bytes(mixes, strides, D: int, full: bool, slots: int, rec_global: bool = False,
+                   acc_global: bool = False) -> int:
     """csrc/composed.cu moments_floats / moments_ints: one moments block of
-    the widest stream (a block takes one stream) at `slots` tiles a batch."""
+    the widest stream (a block takes one stream) at `slots` tiles a batch,
+    the records (rec_global) or the accumulators (acc_global) kept out of
+    shared memory."""
     Cm = moment_cols(D, full)
     ks = TILE * slots + 4
     qcap = (SCAN + 1) * slots
-    floats = max(M * st + (M + D) * ks + M * Cm for M, st in zip(mixes, strides)) + qcap * TILE
+    floats = max((0 if rec_global else M * st) + (M + D) * ks + (0 if acc_global else M * Cm)
+                 for M, st in zip(mixes, strides)) + qcap * TILE
     return 4 * floats + 4 * (2 * qcap + 2 * slots + 4 * PAIRS_PER_CHUNK + 1)
 
 
+def moments_shape(mixes, D: int, full: bool, strides=None) -> tuple[int, bool, bool]:
+    """(slots, rec_global, acc_global) of a moments block: the first of
+    MOMENTS_PLACES at which one of MOMENTS_SLOTS fits SMEM_LIMIT, the
+    largest such slots; else the last try (and the launch refuses)."""
+    strides = strides or [record_stride(D, full)] * len(mixes)
+    for rec_global, acc_global in MOMENTS_PLACES:
+        for slots in MOMENTS_SLOTS:
+            if _moments_bytes(mixes, strides, D, full, slots, rec_global, acc_global) <= SMEM_LIMIT:
+                return slots, rec_global, acc_global
+    return MOMENTS_SLOTS[-1], True, True
+
+
 def moments_slots(mixes, D: int, full: bool) -> int:
-    """Tiles a moments batch (warps a block): the largest of MOMENTS_SLOTS
-    whose block fits SMEM_LIMIT, else the smallest (and the launch refuses)."""
-    strides = [record_stride(D, full)] * len(mixes)
-    for slots in MOMENTS_SLOTS:
-        if _moments_bytes(mixes, strides, D, full, slots) <= SMEM_LIMIT:
-            return slots
-    return MOMENTS_SLOTS[-1]
+    """Tiles a moments batch (warps a block): moments_shape's."""
+    return moments_shape(mixes, D, full)[0]
 
 
 def moments_smem_bytes(mixes, D: int, full: bool) -> int:
     """Dynamic shared memory of one moments block (csrc/composed.cu
-    bank_moments_kernel) at moments_slots: one bank row's records of the
-    widest stream, its posterior weights and the features of a batch of
-    tiles, its accumulators, the tile queue and the chunk's pairs."""
+    bank_moments_kernel) at moments_shape: one bank row's records of the
+    widest stream (unless in device memory), its posterior weights and the
+    features of a batch of tiles, its accumulators (unless in the partial
+    rows), the tile queue and the chunk's pairs."""
     strides = [record_stride(D, full)] * len(mixes)
-    return _moments_bytes(mixes, strides, D, full, moments_slots(mixes, D, full))
+    return _moments_bytes(mixes, strides, D, full, *moments_shape(mixes, D, full))
 
 
 def emission_ring(mixes, strides) -> int:
     """Record buffers of a bank-emission block: the deepest of
     EMISSION_RING whose ring (that many bank rows' records of every stream)
-    fits SMEM_LIMIT, else the shallowest (and the launch refuses)."""
+    fits SMEM_LIMIT; 0 (the records read from device memory) where one
+    row's do not."""
     row = 4 * sum(m * s for m, s in zip(mixes, strides))
-    for nbuf in EMISSION_RING:
-        if nbuf * row <= SMEM_LIMIT:
-            return nbuf
-    return EMISSION_RING[-1]
+    return next(nbuf for nbuf in EMISSION_RING if nbuf * row <= SMEM_LIMIT)
 
 
 def fused_eligible(feats, cov_types, dims, mixes, S: int, LS: int, B: int) -> bool:
     """Whether a batch rides the composed kernels, from facts known before
     any launch: CUDA float32 features; one homogeneous diagonal or full
     covariance type over 1 to MAX_STREAMS streams that share the feature
-    dim; D within the compiled bounds (64 diagonal, 16 full); the chain's
+    dim; D within the compiled bound of 64 (diagonal or full); the chain's
     band (max(S-1, 1)) within MAX_BAND; LS rows within one lattice block;
-    B within the grid; the moments and emission blocks within the
-    shared-memory budget.
+    B within the grid; the moments block within the shared-memory budget
+    (the emission takes any bank row: its records stay in device memory
+    where they do not fit).
     Left-right transitions are the caller's check."""
     if feats.device.type != "cuda" or feats.dtype != torch.float32:
         return False
@@ -149,12 +163,9 @@ def fused_eligible(feats, cov_types, dims, mixes, S: int, LS: int, B: int) -> bo
     D = feats.shape[-1]
     if not 1 <= len(dims) <= MAX_STREAMS or any(d != D for d in dims) or D > DMAX_BOUNDS[-1]:
         return False
-    if full and dmax_for([D], "fused_eligible") > _FULL_DMAX_LIMIT:
-        return False
     if max(S - 1, 1) > MAX_BAND or LS > _MAX_LATTICE_THREADS or B > _MAX_GRID_Y:
         return False
-    one_row = 4 * sum(mixes) * record_stride(D, full)  # the emission ring at its shallowest
-    return moments_smem_bytes(mixes, D, full) <= SMEM_LIMIT and one_row <= SMEM_LIMIT
+    return moments_smem_bytes(mixes, D, full) <= SMEM_LIMIT
 
 
 def segment_sum(values: torch.Tensor, ids: torch.Tensor, n: int) -> torch.Tensor:
@@ -370,7 +381,7 @@ def _kernel_library() -> ctypes.CDLL:
     lib.srhmm_composed_backward_stats.argtypes = [c_ptr] * 10 + [c_int] * 9 + [c_ptr]
     lib.srhmm_bank_moments.restype = c_int
     lib.srhmm_bank_moments.argtypes = (
-        bank_head + [c_ptr, c_ll, c_ll, c_ll] + [c_ptr] * 4 + [p_ptr] + [c_int] * 2 + [p_ptr] + [c_int] * 6
+        bank_head + [c_ptr, c_ll, c_ll, c_ll] + [c_ptr] * 4 + [p_ptr] + [c_int] * 4 + [p_ptr] + [c_int] * 6
         + [c_ptr]
     )
     return lib
@@ -388,8 +399,6 @@ class _BankLaunch:
             raise ValueError(f"{name}: ids (B, LS) and features (B, T, D) disagree on B")
         self.D, self.NB = _check_streams(banks, feats, full)
         self.dmax = dmax_for([self.D], name)
-        if full and self.dmax > _FULL_DMAX_LIMIT:
-            raise ValueError(f"{name}: full covariance takes D <= {_FULL_DMAX_LIMIT}, got {self.D}")
         self.B, self.T, _ = feats.shape
         self.LS = ids.shape[1]
         if self.B > _MAX_GRID_Y:
@@ -414,10 +423,10 @@ class _BankLaunch:
         emission_ring buffers), 1 = moments."""
         if which == 0:
             return emission_ring(self.mixes, self.strides) * 4 * sum(m * s for m, s in zip(self.mixes, self.strides))
-        return _moments_bytes(self.mixes, self.strides, self.D, self.full, self.slots())
+        return _moments_bytes(self.mixes, self.strides, self.D, self.full, *self.moments_shape())
 
-    def slots(self) -> int:
-        return moments_slots(self.mixes, self.D, self.full)
+    def moments_shape(self) -> tuple[int, bool, bool]:
+        return moments_shape(self.mixes, self.D, self.full, self.strides)
 
     def fit(self, which: int) -> None:
         if self.smem_bytes(which) > SMEM_LIMIT:
@@ -602,7 +611,7 @@ def _bank_moments_cuda(name, ids, bank, feats, gamma, strides_tjb, lengths, full
     st, sj, sb = strides_tjb
     check_launch(name, _kernel_library().srhmm_bank_moments(
         *ln.head(), gamma.data_ptr(), st, sj, sb, lens.data_ptr(), sorted_ids.data_ptr(), order.data_ptr(),
-        table.data_ptr(), ptrs(*[t.data_ptr() for t in partial]), n_chunks, ln.slots(),
+        table.data_ptr(), ptrs(*[t.data_ptr() for t in partial]), n_chunks, *map(int, ln.moments_shape()),
         ptrs(*[t.data_ptr() for t in mom]), B, ln.T, ln.D, LS, int(full), *device_args(ln.dev)))
     return tuple(mom) if isinstance(bank, (tuple, list)) else mom[0]
 

@@ -27,7 +27,7 @@ import torch
 
 from .common import NEG_INF, aligned16, check_launch, device_args, on_cpu, sm_count
 from .lattice import (LatticeLaunch, _clamped, _start, forward_copies_16, forward_launch, forward_recursion,
-                      kernel_library, viterbi_block)
+                      kernel_library, shape_args, viterbi_block)
 
 
 def log_forward_batch_plain(log_b, log_trans, lengths):
@@ -101,7 +101,7 @@ def viterbi_batch(log_b, log_trans, lengths):
     lb = aligned16(ln.log_b) if vec else ln.log_b
     check_launch(ln.name, kernel_library().srhmm_viterbi(
         lb.data_ptr(), ln.log_trans.data_ptr(), ln.lengths.data_ptr(), scores.data_ptr(), bptr.data_ptr(), ln.T, ln.S,
-        ln.B, blk["utts_per_warp"], blk["utts"], blk["tile"], int(vec), index, stream))
+        ln.B, *shape_args(blk, vec), index, stream))
     viterbi_batch.launches += 1
     return scores, bptr
 

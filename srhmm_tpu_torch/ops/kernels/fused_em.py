@@ -12,10 +12,13 @@ Counterpart of ``srhmm_tpu/ops/pallas/fused_em_pallas.py``.  Three layers:
   ``backward_stats_plain``, the same functions in eager PyTorch.  Nothing
   falls back from one to the other.
 * ``fits`` — the static rule of which E-steps the kernels take (streams,
-  states, band, feature dims, full covariance's compiled bound of 16, a
-  backward-stats block within shared memory): every refusal of the two
-  wrappers', so ``train.em`` routes any other model to the plain E-step
-  before a launch.
+  states, band, feature dims up to the compiled bound of 64, diagonal or
+  full covariance, a backward-stats block within shared memory): every
+  refusal of the two wrappers', so ``train.em`` routes any other model to
+  the plain E-step before a launch.  Full covariance past D = 16 keeps its
+  records (D x DMAX floats a mixture) in device memory and its moment
+  accumulators (D + D^2 + 1 columns a mixture) in the per-block partials
+  (``backward_shape``).
 * the shapes, in the JAX layouts: features (T, D_p, B) per stream;
   ``log_b`` and ``log_alpha`` (T, S, B); xi (nslots, S, B) per utterance
   with nslots = band+1 (slot d holds xi[j-d -> j] at j) for a banded
@@ -66,7 +69,18 @@ BACKWARD_TILES = (16, 8, 4, 2, 1)  # frames a backward-stats tile stages, larges
 BACKWARD_UTTS = 16  # utterances a backward-stats block at most
 BACKWARD_THREADS = 512  # csrc/fused_em.cu kMaxBackwardThreads: recursion threads + statistics warps
 XI_REGS = 8  # csrc/fused_em.cu kXiRegs: xi slots a backward-stats thread keeps in registers
-_FULL_DMAX_LIMIT = 16  # full-covariance bounds compiled in csrc/fused_em.cu
+# full-covariance bounds DMAX compiled in csrc/fused_em.cu (kernel_for): 40
+# keeps D = 39's records and features smaller than the shared bound 64
+FULL_DMAX_BOUNDS = (4, 8, 12, 16, 32, 40, 64)
+
+
+def em_dmax(ds, full: bool, name: str) -> int:
+    """The compiled bound DMAX of the E-step kernels for feature dims ds:
+    common.dmax_for for diagonal covariance, the smallest of
+    FULL_DMAX_BOUNDS >= max(ds) for full."""
+    if not full or max(ds) > FULL_DMAX_BOUNDS[-1]:
+        return dmax_for(ds, name)
+    return next(b for b in FULL_DMAX_BOUNDS if b >= max(ds))
 
 
 def pack_lane_constants(stream: GmmStream, dtype=torch.float32, origin=None):
@@ -366,8 +380,8 @@ def _kernel_library() -> ctypes.CDLL:
     # log_b, la; the shape; TT, rec_warps, em_warps, consts_global, nsl, device; stream
     lib.srhmm_emit_forward.argtypes = head + [c_ptr, c_ptr] + shape + [c_int] * 6 + [c_ptr]
     lib.srhmm_backward_stats.restype = c_int
-    # safe_z .. mom; the shape; TT, stat_warps, acc_global, device; stream
-    lib.srhmm_backward_stats.argtypes = head + [c_ptr] * 8 + shape + [c_int] * 4 + [c_ptr]
+    # safe_z .. mom; the shape; TT, stat_warps, acc_global, consts_global, device; stream
+    lib.srhmm_backward_stats.argtypes = head + [c_ptr] * 8 + shape + [c_int] * 5 + [c_ptr]
     lib.srhmm_em_occupancy.restype = c_int
     lib.srhmm_em_occupancy.argtypes = [c_int, c_int, c_int, c_int, c_int, p_int]
     return lib
@@ -385,7 +399,7 @@ def constant_floats(ds, ms, full: bool, S: int, dmax: int) -> int:
 def _launch_refusal(ds, full: bool, S: int, band) -> str | None:
     """The refusals _Launch makes for both kernels: 1 to MAX_STREAMS
     streams, a band inside the model, at most MAX_STATES states, dims
-    within the compiled bound of 64 (16 for full covariance)."""
+    within the compiled bound of 64 (diagonal or full covariance)."""
     if not 1 <= len(ds) <= MAX_STREAMS:
         return f"1 to {MAX_STREAMS} streams, one pack and origin each"
     if band is not None and not 0 <= band < S:
@@ -394,8 +408,6 @@ def _launch_refusal(ds, full: bool, S: int, band) -> str | None:
         return f"at most {MAX_STATES} states, got {S}"
     if max(ds) > DMAX_BOUNDS[-1]:
         return f"feature dim {max(ds)} exceeds {DMAX_BOUNDS[-1]}"
-    if full and dmax_for(ds, "fused E-step") > _FULL_DMAX_LIMIT:
-        return f"full covariance takes D <= {_FULL_DMAX_LIMIT}, got {max(ds)}"
     return None
 
 
@@ -412,7 +424,7 @@ def refusal(ds, ms, full: bool, S: int, band) -> str | None:
     if why is not None:
         return why
     nslots = band + 1 if band is not None else S
-    dmax = dmax_for(ds, "fused E-step")
+    dmax = em_dmax(ds, full, "fused E-step")
     least = _backward_least_smem(constant_floats(ds, ms, full, S, dmax), S, ds, ms, nslots, full)
     if least > SMEM_LIMIT:
         return f"{least} bytes of shared memory per block, above the {SMEM_LIMIT}-byte budget"
@@ -450,7 +462,7 @@ class _Launch:
         if why is not None:
             raise ValueError(f"{name}: {why}")
         self.ms = tuple(ms // S for ms in mss)
-        self.dmax = dmax_for(ds, name)
+        self.dmax = em_dmax(ds, full, name)
         self.name, self.dev, self.ds, self.full = name, dev, ds, full
         self.T, self.B, self.S, self.band = T, B, S, band
         self.nslots = band + 1 if band is not None else S
@@ -492,10 +504,10 @@ class _Launch:
 
     def block(self, which: int) -> dict:
         """The launch shape: emit_block's for emit-forward (which=0),
-        backward_block's (U, TT, statistics warps, acc_global) for
-        backward-stats."""
+        backward_shape's (U, TT, statistics warps, acc_global,
+        consts_global) for backward-stats."""
         if which == 1:
-            return backward_block(self.consts.numel(), self.S, self.ds, self.ms, self.nslots, self.full, self.name)
+            return backward_shape(self.consts.numel(), self.S, self.ds, self.ms, self.nslots, self.full, self.name)
         return emit_block(self.S, self.B, self.consts.numel(), self.ds, _sm_count(self.dev), self.name)
 
     def head(self):
@@ -527,16 +539,16 @@ def moment_floats(ds, ms, full: bool) -> int:
 
 
 def backward_smem_bytes(C: int, S: int, ds, ms, nslots: int, full: bool, U: int, TT: int, stat_warps: int,
-                        acc_global: bool = False) -> int:
+                        acc_global: bool = False, consts_global: bool = False) -> int:
     """csrc/fused_em.cu backward_floats + backward_ints: the dynamic shared
     memory of a backward-stats block of U utterances at TT frames a tile
     with stat_warps statistics warps, for C floats of constants (the
     records, origins and log transitions); acc_global: the moment
     accumulators in the block's row of the partials instead of shared
-    memory."""
+    memory; consts_global: the constants read from device memory."""
     nt, cols = S * U, TT * U
     ks = -(-cols // 8) * 8 + (4 if cols > 8 else 0)
-    floats = (C + 3 * TT * U * (2 * S + sum(ds)) + 2 * TT * nt + 2 * nt + max(nslots - XI_REGS, 0) * nt
+    floats = ((0 if consts_global else C) + 3 * TT * U * (2 * S + sum(ds)) + 2 * TT * nt + 2 * nt + max(nslots - XI_REGS, 0) * nt
               + (S * max(ms) + max(ds)) * ks + (0 if acc_global else S * moment_floats(ds, ms, full)))
     return 4 * floats + 4 * (cols + stat_warps)
 
@@ -593,14 +605,14 @@ def _sm_count(dev: torch.device) -> int:
 
 
 def backward_block(C: int, S: int, ds, ms, nslots: int, full: bool,
-                   name: str = "backward_stats") -> tuple[int, int, int, bool]:
+                   name: str = "backward_stats", consts_global: bool = False) -> tuple[int, int, int, bool]:
     """(utterances per block U, frames a tile TT, statistics warps,
     acc_global) of the backward-stats kernel: U = min(16, 128 // S) (at
     most four warps of recursion threads), statistics warps filling the
     block to 512 threads, TT the largest of BACKWARD_TILES whose block fits
     SMEM_LIMIT, with the moment accumulators in shared memory or, where
     only that way it fits, in the block's row of the partials; U halves
-    until a tile fits."""
+    until a tile fits.  consts_global: the constants in device memory."""
     if S > MAX_STATES:
         raise ValueError(f"{name}: at most {MAX_STATES} states, got {S}")
     U = max(1, min(BACKWARD_UTTS, 128 // S))
@@ -608,7 +620,8 @@ def backward_block(C: int, S: int, ds, ms, nslots: int, full: bool,
         warps = _backward_stat_warps(S, U)
         for TT in BACKWARD_TILES:
             for acc_global in (False, True):
-                if backward_smem_bytes(C, S, ds, ms, nslots, full, U, TT, warps, acc_global) <= SMEM_LIMIT:
+                if backward_smem_bytes(C, S, ds, ms, nslots, full, U, TT, warps, acc_global,
+                                       consts_global) <= SMEM_LIMIT:
                     return U, TT, warps, acc_global
         if U == 1:
             raise ValueError(
@@ -618,6 +631,18 @@ def backward_block(C: int, S: int, ds, ms, nslots: int, full: bool,
         U //= 2
 
 
+def backward_shape(C: int, S: int, ds, ms, nslots: int, full: bool,
+                   name: str = "backward_stats") -> tuple[int, int, int, bool, bool]:
+    """backward_block's shape with the constants in shared memory, else
+    (full covariance past D = 16: records of D DMAX floats a mixture) with
+    them read from device memory: (U, TT, statistics warps, acc_global,
+    consts_global)."""
+    try:
+        return (*backward_block(C, S, ds, ms, nslots, full, name), False)
+    except ValueError:
+        return (*backward_block(C, S, ds, ms, nslots, full, name, consts_global=True), True)
+
+
 def _backward_stat_warps(S: int, U: int) -> int:
     """Statistics warps filling a backward-stats block of U utterances to
     BACKWARD_THREADS (at least 2)."""
@@ -625,9 +650,10 @@ def _backward_stat_warps(S: int, U: int) -> int:
 
 
 def _backward_least_smem(C: int, S: int, ds, ms, nslots: int, full: bool) -> int:
-    """The shared memory of backward_block's last try: one utterance, one
-    frame a tile, the accumulators in the partials."""
-    return backward_smem_bytes(C, S, ds, ms, nslots, full, 1, 1, _backward_stat_warps(S, 1), True)
+    """The shared memory of backward_shape's last try: one utterance, one
+    frame a tile, the accumulators in the partials, the constants in device
+    memory."""
+    return backward_smem_bytes(C, S, ds, ms, nslots, full, 1, 1, _backward_stat_warps(S, 1), True, True)
 
 
 def _on_cpu(name, feats) -> bool:
@@ -688,7 +714,7 @@ def backward_stats(feats, log_b, log_alpha, packed, origins, trans, lengths, saf
     # before then could be handed to the next allocation while still unread
     safe_z, vmask = safe_z.contiguous(), vmask.contiguous()
     log_b, log_alpha = log_b.contiguous(), log_alpha.contiguous()
-    U, TT, stat_warps, acc_global = ln.block(1)
+    U, TT, stat_warps, acc_global, consts_global = ln.block(1)
     mom_thread = ln.moment_floats()
     f32 = dict(dtype=torch.float32, device=ln.dev)
     xi = torch.empty((ln.nslots, S, B), **f32)
@@ -701,7 +727,7 @@ def backward_stats(feats, log_b, log_alpha, packed, origins, trans, lengths, saf
         *ln.head(), safe_z.data_ptr(), vmask.data_ptr(),
         log_b.data_ptr(), log_alpha.data_ptr(), xi.data_ptr(),
         den_trans.data_ptr(), den_mix.data_ptr(), partial.data_ptr(), *ln.shape(U),
-        TT, stat_warps, int(acc_global), *ln.where(),
+        TT, stat_warps, int(acc_global), int(consts_global), *ln.where(),
     ))
     backward_stats.launches += 1
     mom = partial.sum(0)
@@ -727,12 +753,13 @@ def occupancy(which: int, feats, packed, origins, trans, lengths, band) -> dict:
         variant = {0: 0, 2: 1, 4: 2, 8: 3}[emit_slots(ln.S, ln.band)]  # csrc/fused_em.cu emit_variant
         out = {**shape, "slots": emit_slots(ln.S, ln.band)}
     else:
-        U, TT, stat_warps, acc_global = ln.block(1)
+        U, TT, stat_warps, acc_global, consts_global = ln.block(1)
         threads = -(-ln.S * U // 32) * 32 + 32 * stat_warps
         smem = backward_smem_bytes(ln.consts.numel(), ln.S, ln.ds, ln.ms, ln.nslots, ln.full, U, TT, stat_warps,
-                                   acc_global)
+                                   acc_global, consts_global)
         variant = 4 if ln.nslots <= 2 else 5  # csrc/fused_em.cu backward_variant
-        out = {"tile_frames": TT, "stat_warps": stat_warps, "acc_in_shared_memory": not acc_global}
+        out = {"tile_frames": TT, "stat_warps": stat_warps, "acc_in_shared_memory": not acc_global,
+               "consts_in_shared_memory": not consts_global}
     blocks = ctypes.c_int(0)
     ln.check(_kernel_library().srhmm_em_occupancy(variant, ln.dmax, int(ln.full), threads, smem, ctypes.byref(blocks)))
     return {**out, "utts_per_block": U, "threads": threads, "smem_bytes": smem, "blocks_per_sm": blocks.value,

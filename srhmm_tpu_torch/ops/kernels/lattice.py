@@ -22,7 +22,10 @@ kernel as the unblocked ones, each counting its own launches in
 last-row mode and the Viterbi kernel of ops/kernels/forward.py; the three
 kernels share a launch shape (``_lane_block``: an utterance's states on
 adjacent lanes, four recursion warps and a memory warp a block, two for the
-Viterbi).
+Viterbi) up to LANE_STATES = 64 states, and past them the block-wide mode
+(``_wide_block``: one utterance a block, its states spread over up to 512
+recursion threads, the previous row in shared memory) up to MAX_STATES =
+4096; the wrappers refuse more.
 """
 
 from __future__ import annotations
@@ -34,7 +37,10 @@ import torch
 
 from .common import NEG_INF, SMEM_LIMIT, aligned16, check_launch, device_args, on_cpu, require_float32, sm_count
 
-MAX_STATES = 64  # csrc/lattice.cu kMaxStates
+LANE_STATES = 64  # csrc/lattice.cu kMaxStates: the lane path
+MAX_STATES = 4096  # csrc/lattice.cu kMaxBlockStates: the block-wide mode
+BLOCK_REC = 512  # csrc/lattice.cu kBlockRec: a block-wide block's recursion threads at most
+BLOCK_BAND = 32  # diagonals the block-wide tile choice leaves room for in shared memory
 FORWARD_REC_WARPS = 4  # csrc/lattice.cu kFwdRecWarps: a block's recursion warps
 VITERBI_MEMORY_WARPS = 2  # csrc/lattice.cu kVitThreads (the forward and backward have one)
 FORWARD_TILES = (32, 16, 8, 4, 2, 1)  # frames a tile, largest first
@@ -113,14 +119,14 @@ def kernel_library() -> ctypes.CDLL:
     lib = load_library()
     c_int, c_ptr = ctypes.c_int, ctypes.c_void_p
     lib.srhmm_lattice_forward.restype = c_int
-    # log_b lt per_row lengths out, layout T S B G U TT vec device, stream
-    lib.srhmm_lattice_forward.argtypes = [c_ptr, c_ptr, c_int, c_ptr, c_ptr] + [c_int] * 9 + [c_ptr]
+    # log_b lt per_row lengths out, layout T S B G U TT vec rec lt_cap device, stream
+    lib.srhmm_lattice_forward.argtypes = [c_ptr, c_ptr, c_int, c_ptr, c_ptr] + [c_int] * 11 + [c_ptr]
     lib.srhmm_lattice_backward.restype = c_int
-    # log_b lt lengths out, T S B G U TT vec device, stream
-    lib.srhmm_lattice_backward.argtypes = [c_ptr] * 4 + [c_int] * 8 + [c_ptr]
+    # log_b lt lengths out, T S B G U TT vec rec lt_cap device, stream
+    lib.srhmm_lattice_backward.argtypes = [c_ptr] * 4 + [c_int] * 10 + [c_ptr]
     lib.srhmm_viterbi.restype = c_int
-    # log_b lt lengths scores bptr, T S B G U TT vec device, stream
-    lib.srhmm_viterbi.argtypes = [c_ptr] * 5 + [c_int] * 8 + [c_ptr]
+    # log_b lt lengths scores bptr, T S B G U TT vec rec lt_cap device, stream
+    lib.srhmm_viterbi.argtypes = [c_ptr] * 5 + [c_int] * 10 + [c_ptr]
     return lib
 
 
@@ -169,6 +175,48 @@ def viterbi_smem_bytes(S: int, U: int, TT: int) -> int:
     return 4 * (4 * U * (-(-TT * S // 4) * 4 + 4) + (S * S if S > 32 else 0))
 
 
+def _r4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+def block_smem_bytes(kind: str, S: int, TT: int, layout: str, lt_cap: int) -> int:
+    """csrc/lattice.cu block_floats: the block-wide mode's shared memory
+    (kind "forward", "backward" or "viterbi"): two rows of S; log b in two
+    slots of TT S ((T, S, B) log b) or a run of TT S at a pitch rounded up to
+    4, + 4 ((B, T, S)); the output in two slots (the lattice TT S, the
+    Viterbi's backpointers a run, none for the forward's last row); lo, cnt
+    and the width, 2 S + 1 ints; lt_cap floats of transitions; each region
+    a multiple of 4 floats."""
+    run = _r4(TT * S) + 4
+    bts = kind == "viterbi" or (kind == "forward" and layout == "bts")
+    tile = run if bts else _r4(TT * S)
+    out = run if kind == "viterbi" else (0 if bts else _r4(TT * S))
+    return 4 * (_r4(2 * S) + 2 * tile + 2 * out + _r4(2 * S + 1) + lt_cap)
+
+
+def _wide_block(kind: str, S: int, B: int, layout: str) -> dict:
+    """The block-wide launch shape past LANE_STATES states: one utterance a
+    block, rec = S rounded up to whole warps (at most BLOCK_REC) recursion
+    threads of ceil(S / rec) states each and a memory warp; TT the largest
+    of FORWARD_TILES whose block leaves room for the dense transitions or
+    BLOCK_BAND diagonals, whichever is less (else the largest that fits at
+    all), and lt_cap the floats of transitions the rest of SMEM_LIMIT holds
+    (at most S S rounded up to 4, a multiple of 4): the kernel packs its ranges there when
+    they fit, else reads them through L2."""
+    if not LANE_STATES < S <= MAX_STATES:
+        raise ValueError(f"{kind} kernel: 1 to {MAX_STATES} states, got {S}")
+    rec = min(BLOCK_REC, -(-S // 32) * 32)
+    room = 4 * min(S * S, BLOCK_BAND * S)
+    fits = [tt for tt in FORWARD_TILES if block_smem_bytes(kind, S, tt, layout, 0) <= SMEM_LIMIT]
+    if not fits:
+        raise ValueError(f"{kind} kernel: no tile of S={S} fits {SMEM_LIMIT} bytes")
+    TT = next((tt for tt in fits if block_smem_bytes(kind, S, tt, layout, 0) + room <= SMEM_LIMIT), fits[-1])
+    base = block_smem_bytes(kind, S, TT, layout, 0)
+    lt_cap = min(_r4(S * S), (SMEM_LIMIT - base) // 16 * 4)
+    return {"mode": "block", "utts_per_warp": 0, "utts": 1, "rec_threads": rec, "states_per_thread": -(-S // rec),
+            "tile": TT, "lt_cap": lt_cap, "blocks": B, "smem_bytes": base + 4 * lt_cap}
+
+
 def _lane_block(kernel: str, S: int, B: int, smem, sms: int, memory_warps: int = 1) -> dict:
     """The launch shape of a csrc/lattice.cu kernel: R states a lane (2 past
     32 states), G = 32 // S utterances a warp (1 past 32 states), U = 4 G a
@@ -177,8 +225,8 @@ def _lane_block(kernel: str, S: int, B: int, smem, sms: int, memory_warps: int =
     blocks all fit on the card at once by shared memory (smem(U, TT) bytes a
     block) and threads (else the largest that fits a block), and the
     blocks."""
-    if not 1 <= S <= MAX_STATES:
-        raise ValueError(f"{kernel} kernel: 1 to {MAX_STATES} states, got {S}")
+    if not 1 <= S <= LANE_STATES:
+        raise ValueError(f"{kernel} kernel: 1 to {LANE_STATES} states a lane, got {S}")
     R = 2 if S > 32 else 1
     G = 1 if R == 2 else 32 // S
     U = G * FORWARD_REC_WARPS
@@ -195,21 +243,37 @@ def _lane_block(kernel: str, S: int, B: int, smem, sms: int, memory_warps: int =
 
 
 def forward_block(S: int, B: int, layout: str, per_row: bool = False, sms: int = 132) -> dict:
-    """The launch shape of csrc/lattice.cu's forward kernel (_lane_block)."""
+    """The launch shape of csrc/lattice.cu's forward kernel (_lane_block;
+    past LANE_STATES states _wide_block, whose shared memory does not
+    depend on per-row transitions)."""
+    if S > LANE_STATES:
+        return _wide_block("forward", S, B, layout)
     return _lane_block("forward", S, B, lambda U, tt: forward_smem_bytes(S, U, tt, layout, per_row), sms)
 
 
 def backward_block(S: int, B: int, sms: int = 132) -> dict:
     """The launch shape of csrc/lattice.cu's backward kernel (_lane_block):
     its shared memory is the forward lattice's (log b and the lattice in two
-    (TT, S, U) slots each, the transitions past 32 states)."""
+    (TT, S, U) slots each, the transitions past 32 states); past
+    LANE_STATES states _wide_block."""
+    if S > LANE_STATES:
+        return _wide_block("backward", S, B, "tsb")
     return _lane_block("backward", S, B, lambda U, tt: forward_smem_bytes(S, U, tt, "tsb", False), sms)
 
 
 def viterbi_block(S: int, B: int, sms: int = 132) -> dict:
     """The launch shape of csrc/lattice.cu's Viterbi kernel (_lane_block,
-    viterbi_smem_bytes, VITERBI_MEMORY_WARPS)."""
+    viterbi_smem_bytes, VITERBI_MEMORY_WARPS; past LANE_STATES states
+    _wide_block)."""
+    if S > LANE_STATES:
+        return _wide_block("viterbi", S, B, "bts")
     return _lane_block("Viterbi", S, B, lambda U, tt: viterbi_smem_bytes(S, U, tt), sms, VITERBI_MEMORY_WARPS)
+
+
+def shape_args(blk: dict, vec: bool) -> list[int]:
+    """The launchers' shape arguments G, U, TT, vec, rec, lt_cap (rec and
+    lt_cap 0 on the lane path)."""
+    return [blk["utts_per_warp"], blk["utts"], blk["tile"], int(vec), blk.get("rec_threads", 0), blk.get("lt_cap", 0)]
 
 
 def forward_copies_16(S: int, T: int, B: int, blk: dict, layout: str) -> bool:
@@ -232,7 +296,7 @@ def forward_launch(ln: "LatticeLaunch", layout: str):
     log_b = aligned16(ln.log_b) if vec else ln.log_b
     check_launch(ln.name, kernel_library().srhmm_lattice_forward(
         log_b.data_ptr(), ln.log_trans.data_ptr(), ln.per_row, ln.lengths.data_ptr(), out.data_ptr(),
-        int(layout == "bts"), ln.T, ln.S, ln.B, blk["utts_per_warp"], blk["utts"], blk["tile"], int(vec), index, stream))
+        int(layout == "bts"), ln.T, ln.S, ln.B, *shape_args(blk, vec), index, stream))
     return out
 
 
@@ -247,9 +311,11 @@ def _backward_cuda(name, log_b_tsb, log_trans, lengths):
     out = ln.empty((ln.T, ln.S, ln.B))
     vec = forward_copies_16(ln.S, ln.T, ln.B, blk, "tsb")
     log_b = aligned16(ln.log_b) if vec else ln.log_b
+    # the block-wide mode reads a source's row as a column of the transpose
+    lt = ln.log_trans.t().contiguous() if ln.S > LANE_STATES else ln.log_trans
     check_launch(name, kernel_library().srhmm_lattice_backward(
-        log_b.data_ptr(), ln.log_trans.data_ptr(), ln.lengths.data_ptr(), out.data_ptr(), ln.T, ln.S, ln.B,
-        blk["utts_per_warp"], blk["utts"], blk["tile"], int(vec), index, stream))
+        log_b.data_ptr(), lt.data_ptr(), ln.lengths.data_ptr(), out.data_ptr(), ln.T, ln.S, ln.B,
+        *shape_args(blk, vec), index, stream))
     return out
 
 

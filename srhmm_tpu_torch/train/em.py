@@ -699,7 +699,7 @@ def _fused_lane_eligible(model: GmmHmm, batch, band=_MODEL_BAND) -> bool:
     """Static facts only: the fused kernels take homogeneous diagonal or
     full covariance (one batch per stream), float32 features, CUDA tensors,
     and the model's shapes at its transition band (ops/kernels/fused_em.py
-    ``fits``: streams, states, band, feature dims, the full-covariance bound,
+    ``fits``: streams, states, band, feature dims up to the compiled bound,
     shared memory).  band: trans_band of the model (None = dense), by
     default computed here from model.trans (a host sync)."""
     batches = _as_batches(batch)
@@ -889,24 +889,28 @@ def em_step_time_sharded(model: GmmHmm, batch, mesh, var_floor: float = 0.0, axi
 
 
 def em_train_scan_time_sharded(
-    model: GmmHmm, batch, n_iters: int, mesh, axis: str = "time", var_floor: float = 0.0
+    model: GmmHmm, batch, n_iters: int, mesh, axis: str = "time", var_floor: float = 0.0,
+    abs_floors=None, zero_det_thresholds=None,
 ):
     """N sequence-parallel EM iterations (em_step_time_sharded in a loop,
-    the frame blocks cut once).  Returns (final model, (n_iters,) log-prob
-    history, (n_iters,) num_valid history), the same on every rank."""
+    the frame blocks cut once), the M-step's floors as em_train_scan's.
+    Returns (final model, (n_iters,) log-prob history, (n_iters,) num_valid
+    history), the same on every rank."""
     from ..parallel.sequence import time_shard
 
-    return _time_scan(model, *time_shard(batch, mesh, axis), n_iters, mesh, axis, var_floor)
+    return _time_scan(model, *time_shard(batch, mesh, axis), n_iters, mesh, axis, var_floor, abs_floors,
+                      zero_det_thresholds)
 
 
-def _time_scan(model, feats_loc, lengths, n_iters: int, mesh, axis: str, var_floor: float):
+def _time_scan(model, feats_loc, lengths, n_iters: int, mesh, axis: str, var_floor: float, abs_floors=None,
+               zero_det_thresholds=None):
     from ..parallel.sequence import e_step_time_local
 
     lps, nvs = [], []
     m = model
     for _ in range(n_iters):
         st = e_step_time_local(m, feats_loc, lengths, mesh, axis)
-        m = m_step(m, st, var_floor=var_floor)
+        m = m_step(m, st, var_floor=var_floor, abs_floors=abs_floors, zero_det_thresholds=zero_det_thresholds)
         lps.append(st.log_prob)
         nvs.append(st.num_valid)
     if not lps:
@@ -946,7 +950,9 @@ def train_fast(
     (parallel/sequence.py): sequence-parallel EM, the frame count divisible
     by the axis.  Either way the driver's decisions read all-reduced log
     probs, the same on every rank, so every rank runs the same chunks and
-    collectives."""
+    collectives, and every M-step applies abs_floors and
+    zero_det_thresholds as the unsharded path does (the JAX package's
+    mesh paths drop both)."""
     from .driver import chunked_convergence_train
     from .em_parity import TrainResult
 
@@ -960,7 +966,8 @@ def train_fast(
         feats_loc, lengths = time_shard(batch, time_mesh, TIME_AXIS)
 
         def run(m, k):
-            return _time_scan(m, feats_loc, lengths, k, time_mesh, TIME_AXIS, var_floor)
+            return _time_scan(m, feats_loc, lengths, k, time_mesh, TIME_AXIS, var_floor, abs_floors,
+                              zero_det_thresholds)
     else:
         if data_mesh is not None:
             from ..parallel.mesh import DATA_AXIS

@@ -988,8 +988,9 @@ def test_new_kernels_refuse_what_they_do_not_take(cuda_device):
     lb, lt, lens = _lattice_inputs(cuda_device, 4, "delta1")
     with pytest.raises(ValueError, match="float32"):
         kl.forward_lattice(lb.double(), lt, lens)
-    wide, wide_t, _ = _lattice_inputs(cuda_device, 65, "dense")
-    with pytest.raises(ValueError, match="states"):
+    # past the block-wide mode's bound (64 states before it)
+    wide, wide_t, _ = _lattice_inputs(cuda_device, kl.MAX_STATES + 1, "delta1")
+    with pytest.raises(ValueError, match="4096 states"):
         kl.backward_lattice(wide, wide_t, lens)
     with pytest.raises(ValueError, match="float32"):
         kf.viterbi_batch(lb.permute(2, 0, 1).double(), lt, lens)
@@ -1116,16 +1117,18 @@ def test_emission_log_b_matches_plain(cuda_device, N, S, M, D):
 
 
 def test_train_fast_full_d39_takes_the_plain_route(cuda_device):
-    """Full covariance at D=39 is past the fused E-step kernels' bound (16):
+    """A model past the fused E-step kernels' bound takes the plain route:
+    full covariance at D = 65 (the bound was 16 when this test held D = 39,
+    which the kernels now take: test_train_fast_full_d39_takes_the_kernels).
     em_step (auto), train_fast and em_train_scan take the plain e_step on
     the card instead of raising, and train_fast equals the chunked driver
     over em_train_scan(fused=False)."""
     from srhmm_tpu_torch.train.driver import chunked_convergence_train
 
     rng = np.random.default_rng(21)
-    utts = [rng.normal(size=(int(rng.integers(80, 120)), 39)) + np.arange(39) * 0.1 for _ in range(64)]
+    utts = [rng.normal(size=(int(rng.integers(80, 120)), 65)) + np.arange(65) * 0.1 for _ in range(64)]
     batch = pack_utterances(utts, pad_multiple=1, dtype=torch.float32, device=cuda_device)
-    trans, streams = rand_word(21, 3, [(1, 39)], "full")
+    trans, streams = rand_word(21, 3, [(1, 65)], "full")
     model = tm.gmm_hmm_from_numpy(trans, streams).astype(torch.float32).to(cuda_device)
     assert not em._fused_lane_eligible(model, batch)
     counts = fe.emit_forward.launches, fe.backward_stats.launches
@@ -1338,3 +1341,136 @@ def test_timed_waits_for_the_card(cuda_device):
         end.record()
     assert end.query()  # the timer synchronized before it stopped the clock
     assert out["seconds"] * 1e3 >= 0.9 * start.elapsed_time(end)
+
+
+# ---------------------------------------------------------------------------
+# the shapes past the lane path: the lattice kernels past 64 states (the
+# block-wide mode of csrc/lattice.cu), full covariance past D = 16
+# (csrc/fused_em.cu, csrc/composed.cu), and the shapes before them bitwise
+# the parent's (tests/torch_lane_digests.py)
+# ---------------------------------------------------------------------------
+
+from torch_port_utils import (  # noqa: E402
+    BANK_FULL_WIDE_CASES,
+    EM_FULL_WIDE_CASES,
+    WIDE_LATTICE_CASES,
+    wide_lattice_lengths,
+)
+
+
+@pytest.mark.parametrize("i", range(len(WIDE_LATTICE_CASES)))
+def test_wide_lattice_kernels_match_plain(cuda_device, i):
+    """#15-#20 at every case of WIDE_LATTICE_CASES against their twins:
+    lattices and scores within 1e-5 (equal masks), backpointers equal (the
+    Viterbi twin on its first 40000 // S frames), two launches bitwise
+    equal, the blocked wrappers bitwise the unblocked."""
+    from srhmm_tpu_torch.ops.kernels import forward as kf
+    from srhmm_tpu_torch.ops.kernels import lattice as kl
+
+    S, kind, B, T = WIDE_LATTICE_CASES[i]
+    lens = wide_lattice_lengths(i, B, T)
+    lb, lt, lengths = _lattice_inputs(cuda_device, S, kind, lens=lens, seed=40 + i)
+    for fn, plain in ((kl.forward_lattice, kl.forward_lattice_plain), (kl.backward_lattice, kl.backward_lattice_plain)):
+        got = fn(lb, lt, lengths)
+        assert torch.equal(got, fn(lb, lt, lengths))
+        _lattice_close(got, plain(lb, lt, lengths))
+    assert torch.equal(kl.forward_lattice_blocked(lb, lt, lengths, k_block=1), kl.forward_lattice(lb, lt, lengths))
+    assert torch.equal(kl.backward_lattice_blocked(lb, lt, lengths, k_block=1), kl.backward_lattice(lb, lt, lengths))
+    lb_bts = lb.permute(2, 0, 1).contiguous()
+    rows = lt.expand(B, S, S).contiguous()
+    for trans in (lt, rows):
+        got = kf.log_forward_batch(lb_bts, trans, lengths)
+        assert torch.equal(got, kf.log_forward_batch(lb_bts, trans, lengths))
+        _lattice_close(got, kf.log_forward_batch_plain(lb_bts, trans, lengths))
+    cut = lb_bts[:, : max(1, 40000 // S)].contiguous()
+    sc, bp = kf.viterbi_batch(cut, lt, lengths)
+    sc_p, bp_p = kf.viterbi_batch_plain(cut, lt, lengths)
+    assert torch.equal(bp, bp_p) and torch.equal(bp, kf.viterbi_batch(cut, lt, lengths)[1])
+    _lattice_close(sc, sc_p)
+
+
+def test_block_viterbi_ties_go_to_the_lowest_source(cuda_device):
+    """S = 96 with states 40 and 41 duplicated: the candidates from them tie
+    exactly, and the block-wide kernel keeps the lower, as the twin."""
+    from srhmm_tpu_torch.ops.kernels import forward as kf
+
+    S, T = 96, 60
+    rng = np.random.default_rng(13)
+    p = rng.uniform(0.1, 1.0, size=(S, S))
+    p[41, :] = p[40, :]
+    p[:, 41] = p[:, 40]
+    lt = torch.as_tensor(np.log(p / p.sum(-1, keepdims=True)).astype(np.float32), device=cuda_device)
+    lb = rng.normal(size=(len(_LENS), T, S)).astype(np.float32) * 2
+    lb[..., 41] = lb[..., 40]
+    lb = torch.as_tensor(lb, device=cuda_device)
+    lengths = torch.as_tensor(np.minimum(_LENS, T), dtype=torch.int32, device=cuda_device)
+    _, bp = kf.viterbi_batch(lb, lt, lengths)
+    _, bp_p = kf.viterbi_batch_plain(lb, lt, lengths)
+    assert torch.equal(bp, bp_p)
+    live = torch.arange(T, device=cuda_device)[None, :] < lengths[:, None].long()
+    live[:, 0] = False  # row 0 and rows past a length are the identity
+    assert bool((bp[live] == 40).any()) and not bool((bp[live] == 41).any())
+
+
+@pytest.mark.parametrize("band", [1, None])
+@pytest.mark.parametrize("mixes_dims", EM_FULL_WIDE_CASES)
+def test_em_kernels_match_plain_past_full_d16(cuda_device, band, mixes_dims):
+    """emit_forward and backward_stats at full covariance past D = 16 (the
+    bounds 32, 40 and 64, two streams, the records past shared memory)
+    against their twins, two launches bitwise equal."""
+    args = (*_em_inputs(cuda_device, "full", band, mixes_dims, _LENS), band)
+    lb_k, la_k = fe.emit_forward(*args)
+    lb_p, la_p = fe.emit_forward_plain(*args)
+    _lattice_close(lb_k, lb_p)
+    _lattice_close(la_k, la_p)
+    assert all(torch.equal(a, b) for a, b in zip((lb_k, la_k), fe.emit_forward(*args)))
+    feats, packed, origins, trans, lengths, _ = args
+    log_z = la_p[-1, -1]
+    valid = torch.isfinite(log_z) & (log_z > NEG_INF / 2) & (lengths > 0)
+    rest = (feats, lb_p, la_p, packed, origins, trans, lengths, torch.where(valid, log_z, 0.0), valid.float(), band)
+    got, again, want = fe.backward_stats(*rest), fe.backward_stats(*rest), fe.backward_stats_plain(*rest)
+    torch.cuda.synchronize()
+    for a, b, c in zip(_stat_parts(got, mixes_dims), _stat_parts(again, mixes_dims), _stat_parts(want, mixes_dims)):
+        assert torch.equal(a, b)
+        _stat_close(a, c)
+
+
+@pytest.mark.parametrize("mixes_dims", [tuple(md) for md in BANK_FULL_WIDE_CASES])
+def test_bank_kernels_match_plain_past_full_d16(cuda_device, mixes_dims):
+    """The bank kernels at full covariance past D = 16 (every register
+    bound 24-64, two streams, the emission's records and the moments'
+    records and accumulators out of shared memory): _check_bank_kernels."""
+    _check_bank_kernels(cuda_device, "full", mixes_dims)
+
+
+def test_train_fast_full_d39_takes_the_kernels(cuda_device):
+    """Full covariance at D = 39 (S=3, M=2): em_step (auto) launches the
+    E-step kernels, and its log prob equals the plain e_step's within 1e-5."""
+    rng = np.random.default_rng(21)
+    utts = [rng.normal(size=(int(rng.integers(80, 120)), 39)) + np.arange(39) * 0.1 for _ in range(64)]
+    batch = pack_utterances(utts, pad_multiple=1, dtype=torch.float32, device=cuda_device)
+    trans, streams = rand_word(21, 3, [(2, 39)], "full")
+    model = tm.gmm_hmm_from_numpy(trans, streams).astype(torch.float32).to(cuda_device)
+    assert em._fused_lane_eligible(model, batch)
+    counts = fe.emit_forward.launches, fe.backward_stats.launches
+    _, lp_auto, _ = em.em_step(model, batch)
+    _, lp_plain, _ = em.em_step(model, batch, fused=False)
+    torch.cuda.synchronize()
+    assert (fe.emit_forward.launches, fe.backward_stats.launches) == (counts[0] + 1, counts[1] + 1)
+    np.testing.assert_allclose(float(lp_auto), float(lp_plain), rtol=1e-5)
+
+
+def test_lane_and_narrow_full_launches_are_the_parents(cuda_device):
+    """The lattice lane path (S <= 64), the E-step kernels and the composed
+    kernels up to full D = 16 give bitwise the outputs of commit 76f6f1a's
+    kernels: tests/torch_lane_digests.py's digests equal the ones saved in
+    tests/lane_digests.json from that commit's kernels on an H100."""
+    import json
+    from pathlib import Path
+
+    import torch_lane_digests
+
+    want = json.loads((Path(__file__).parent / "lane_digests.json").read_text())
+    got = torch_lane_digests.digests()
+    assert sorted(got) == sorted(want)
+    assert [k for k in want if got[k] != want[k]] == []

@@ -10,7 +10,12 @@ all-reduced, equals JAX's e_step on the whole batch at that test's bounds
 (log prob rtol 1e-5, num_valid exact, den_mix rtol 1e-4 / atol 1e-5).  The
 same ranks train_embedded on a 2-rank mesh with checkpoints: only the
 coordinator writes, and a run stopped after two iterations and resumed to
-four equals an uninterrupted run of four bitwise.
+four equals an uninterrupted run of four bitwise.  The same ranks run
+train_fast(data_mesh=) and train_fast(time_mesh=) in float64 with an
+absolute variance floor and a zero-det threshold that both bind: each run
+equals JAX's unsharded train_fast with the same floors at
+test_torch_sequence_parallel.py's trajectory bounds (histories rtol 1e-9,
+models rtol 1e-8 / atol 1e-10), and JAX's run without them differs.
 """
 
 import time
@@ -23,7 +28,7 @@ import torch
 import torch_dist_workers as w
 from srhmm_tpu.io.dataset import pack_utterances
 from srhmm_tpu_torch.parallel import distributed
-from torch_port_utils import jax_model
+from torch_port_utils import jax_model, leaves_jax
 
 
 
@@ -64,6 +69,29 @@ def test_checkpoint_under_a_mesh_resumes_the_same_trajectory(two_ranks):
     np.testing.assert_array_equal(again[0]["history"][:2], ck["first"]["history"])
     for a, b in zip(again[1], whole[1]):
         np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("kind", ["data", "time"])
+def test_train_fast_mesh_applies_the_floors_as_jax_unsharded(two_ranks, kind):
+    """Both mesh paths apply abs_floors and zero_det_thresholds, as the
+    unsharded train_fast of both packages does (the JAX package's mesh
+    paths drop them: ROADMAP Queue 3, deliberate differences)."""
+    from srhmm_tpu.train.em import train_fast
+
+    trans, streams, utts, pad, floors, zd = w.floor_inputs(kind)
+    model, batch = jax_model(trans, streams), pack_utterances(utts, pad_multiple=pad, dtype=jnp.float64)
+    ref = train_fast(model, batch, max_iterations=w.FLOOR_ITERS, abs_floors=[jnp.asarray(f) for f in floors],
+                     zero_det_thresholds=zd)
+    free = train_fast(model, batch, max_iterations=w.FLOOR_ITERS)
+    # the floors bind: some variance sits on the floor, and the run differs
+    var = 1.0 / np.asarray(ref.model.streams[0].inv_cov)
+    assert np.isclose(var, floors[0], rtol=1e-12).any()
+    assert not np.allclose(np.asarray(free.model.streams[0].means), np.asarray(ref.model.streams[0].means))
+    hist, leaves = two_ranks["floors"][kind]
+    assert hist["iterations"] == ref.iterations
+    np.testing.assert_allclose(hist["history"], ref.log_prob_history, rtol=1e-9)
+    for a, b in zip(leaves_jax(ref.model), leaves):
+        np.testing.assert_allclose(b, a, rtol=1e-8, atol=1e-10)
 
 
 def test_backend_rule_and_single_process_no_op(monkeypatch):

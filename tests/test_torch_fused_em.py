@@ -493,7 +493,7 @@ def _meta_refusal(ds, ms, full, S, band):
 def test_fits_mirrors_the_wrappers_refusals(full):
     """fused_em.fits (and so the EM routing) accepts exactly the (P, S, D,
     M, band) the two wrappers launch: streams past 6, states past 256, a
-    band outside the model, dims past 64 (16 for full covariance) and
+    band outside the model, dims past 64 (diagonal or full covariance) and
     backward-stats blocks past shared memory are refused by both."""
     seen = {True: 0, False: 0}
     for P in (1, 2, 6, 7):
@@ -513,13 +513,14 @@ def test_fits_mirrors_the_wrappers_refusals(full):
 
 
 def test_em_routes_refused_shapes_to_the_plain_e_step(monkeypatch):
-    """Where the kernels refuse a model (full covariance past D=16 here),
-    em_step (auto) and train_fast's setup take the plain e_step even for
-    features the kernels compute on (the device rule stubbed true on this
-    host); where they take it, the fused E-step runs."""
+    """Where the kernels refuse a model (full covariance past the compiled
+    bound of 64 here), em_step (auto) and train_fast's setup take the plain
+    e_step even for features the kernels compute on (the device rule
+    stubbed true on this host); where they take it (D = 9, and D = 39 past
+    the former full bound of 16), the fused E-step runs."""
     monkeypatch.setattr(t_em, "_on_card_float32", lambda batches: True)
     rng = np.random.default_rng(4)
-    for D, full_ok in ((17, False), (9, True)):
+    for D, full_ok in ((65, False), (9, True), (39, True)):
         model = gmm_hmm_from_numpy(*rand_word(30 + D, 3, [(1, D)], "full")).astype(torch.float32)
         utts = [rng.normal(size=(n, D)) + 0.1 * np.arange(D) for n in (40, 33, 51)]
         batch = pack_utterances(utts, pad_multiple=1, dtype=torch.float32)

@@ -151,7 +151,9 @@ def test_forward_block_takes_every_shape_it_took_at_6fe1112():
     launcher takes: G = 32 // S utterances a warp (1 past 32 states, two
     states a lane), U = 4 G a block, NS >= S compiled slots, a tile whose
     shared memory (forward_floats) fits, the blocks covering B; the
-    wrappers' checks pass on meta tensors."""
+    wrappers' checks pass on meta tensors.  Past 64 states the block-wide
+    mode takes over (tests/test_torch_wide_lattice.py); past MAX_STATES
+    the shape is refused."""
     for S in range(1, 65):
         for layout in ("tsb", "bts"):
             for per_row in (False, True):
@@ -171,7 +173,7 @@ def test_forward_block_takes_every_shape_it_took_at_6fe1112():
                               torch.empty((37,), device="meta", dtype=torch.int32), "bts", per_row_ok=True)
         assert (ln.B, ln.T, ln.S, ln.per_row) == (37, 95, S, 1)
     with pytest.raises(ValueError, match="states"):
-        kl.forward_block(65, 8, "tsb")
+        kl.forward_block(kl.MAX_STATES + 1, 8, "tsb")
 
 
 @pytest.mark.parametrize("S,kind", [(33, "dense"), (64, "delta2")])
@@ -222,7 +224,7 @@ def test_backward_block_takes_every_shape_it_took_at_bac667f():
             kl.LatticeLaunch("backward_lattice", torch.empty((95, S, 37), **meta), torch.empty((37, S, S), **meta),
                              lens, "tsb")
     with pytest.raises(ValueError, match="states"):
-        kl.backward_block(65, 8)
+        kl.backward_block(kl.MAX_STATES + 1, 8)
 
 
 def test_viterbi_block_takes_every_shape_it_took_at_bac667f():
@@ -245,4 +247,4 @@ def test_viterbi_block_takes_every_shape_it_took_at_bac667f():
                               torch.empty((37,), device="meta", dtype=torch.int32), "bts")
         assert (ln.B, ln.T, ln.S, ln.per_row) == (37, 95, S, 0)
     with pytest.raises(ValueError, match="states"):
-        kl.viterbi_block(65, 8)
+        kl.viterbi_block(kl.MAX_STATES + 1, 8)

@@ -400,6 +400,37 @@ def tree_case(rank: int, models, utts, transcripts, units, cluster_kw) -> dict:
 # ---------------------------------------------------------------------------
 
 DIST_SHAPE = (4, 2, 6, 16)  # S, M, D, B of tests/test_distributed.py
+FLOOR_ITERS = 4  # train_fast iterations of the floor cases
+
+
+def floor_inputs(mesh_kind: str):
+    """The float64 problem, padding and floors of a floor case: toy() on
+    the data mesh, sequence_toy's three-utterance problem on the time mesh;
+    an absolute variance floor of 0.05 a dim (above ~10 % of the unfloored
+    variances) and a zero-det threshold of -12 (above the smallest log
+    dets), both binding."""
+    trans, streams, utts = toy() if mesh_kind == "data" else sequence_toy(seed=5, lengths=SEQ_LENGTHS[:3])
+    D = streams[0]["means"].shape[-1]
+    return trans, streams, utts, 16 if mesh_kind == "data" else 96, [np.full(D, 0.05)], [-12.0]
+
+
+def floor_cases() -> dict:
+    """train_fast(data_mesh=) and train_fast(time_mesh=) on the launcher's
+    ranks with binding floors, float64 (the plain E-step on the CPU)."""
+    from srhmm_tpu_torch.parallel.mesh import make_mesh
+    from srhmm_tpu_torch.parallel.sequence import make_time_mesh
+    from srhmm_tpu_torch.train.em import train_fast
+
+    out = {}
+    for kind, mesh_kw in (("data", {"data_mesh": make_mesh(device="cpu")}),
+                          ("time", {"time_mesh": make_time_mesh(device="cpu")})):
+        trans, streams, utts, pad, floors, zd = floor_inputs(kind)
+        model = gmm_hmm_from_numpy(trans, streams)
+        batch = pack_utterances(utts, pad_multiple=pad, dtype=torch.float64)
+        res = train_fast(model, batch, max_iterations=FLOOR_ITERS, abs_floors=floors, zero_det_thresholds=zd,
+                         **mesh_kw)
+        out[kind] = (_history(res), model_leaves(res.model))
+    return out
 
 
 def dist_inputs():
@@ -463,6 +494,7 @@ def distributed_main(out: str) -> None:
             "writers": [bool(x) for x in distributed.all_gather(
                 torch.tensor(CheckpointManager.should_write()), mesh.group("data"))],
         }
+        res["floors"] = floor_cases()
         if distributed.is_coordinator():
             torch.save(res, out)
         else:

@@ -8,7 +8,9 @@ csrc/word_loop_decode.cu, csrc/mfcc.cu and csrc/vocab_scores.cu
 Each mutant is a copy of the tree in a temporary directory with one
 deliberate fault in a kernel source; the chip_smoke.py phase that should
 catch it (kernel, kernel_lattice, kernel_emission, kernel_composed,
-kernel_em, kernel_decode or kernel_mfcc) runs there, after the build.
+kernel_em, kernel_decode, kernel_mfcc, or kernel_lattice_wide,
+kernel_em_wide and kernel_composed_wide, the shapes past 64 states and
+full covariance past D = 16) runs there, after the build.
 Prints one JSON line per mutant: caught (the phase raised) or survived,
 and the largest moment error over its scale (``mom_*``) the phase's rows
 reported before it ended.  With no arguments every mutant runs.
@@ -50,8 +52,8 @@ MUTANTS = [
      "int groups_of(int D) { return D / 4; }", "kernel_composed"),
     ("sum_chunks_skips_last_partial", COMP, "g < m.chunk_cum[r + 1]; ++g)", "g + 1 < m.chunk_cum[r + 1]; ++g)",
      "kernel_composed"),
-    ("emission_ring_reads_previous_row", COMP, "ring + (size_t)(j % nbuf) * p.rec_floats;",
-     "ring + (size_t)((j + nbuf - 1) % nbuf) * p.rec_floats;", "kernel_composed"),
+    ("emission_ring_reads_previous_row", COMP, "ring + (size_t)(nbuf > 0 ? j % nbuf : 0) * p.rec_floats;",
+     "ring + (size_t)(nbuf > 0 ? (j + nbuf - 1) % nbuf : 0) * p.rec_floats;", "kernel_composed"),
     ("backward_ring_reads_previous_tile", COMP, "      float* la_tile = la_slots + ((k - 1) % 3) * tile;",
      "      float* la_tile = la_slots + (k % 3) * tile;", "kernel_composed"),
     ("backward_drops_first_frame_of_tile", COMP,
@@ -165,6 +167,21 @@ MUTANTS += [
     ("backward_init_row_at_length", LAT, "beta[r] = (t + 1 < len) ? next[r] : init[r];",
      "beta[r] = (t < len) ? next[r] : init[r];", "kernel_lattice"),
     ("viterbi_wide_tie_to_highest", LAT, "if (c > best) {", "if (c >= best) {", "kernel_lattice"),
+]
+MUTANTS += [
+    # the block-wide lattice mode past 64 states, and full covariance past D = 16
+    ("block_forward_reads_row_being_written", LAT, "const float* prev = row + ((t + 1) & 1) * S;  // frame t-1",
+     "const float* prev = row + (t & 1) * S;  // frame t-1", "kernel_lattice_wide"),
+    ("block_backward_barrier_dropped", LAT,
+     "            named_barrier(1, nr);\n#pragma unroll\n            for (int r = 0; r < kBlockPerThread; ++r) {",
+     "#pragma unroll\n            for (int r = 0; r < kBlockPerThread; ++r) {", "kernel_lattice_wide"),
+    ("block_viterbi_tie_to_highest", LAT, "    if (e == 0 || c > best) {", "    if (e == 0 || c >= best) {",
+     "kernel_lattice_wide"),
+    ("full_moment_column_off_by_one_d", TILE, "    return {2, r - d * D, d};",
+     "    return {2, r - d * D, d + 1 < D ? d + 1 : d};", "kernel_em_wide"),
+    ("composed_full_record_stride_one_row_short", COMP,
+     "const float4* row = reinterpret_cast<const float4*>(rec + g * stride + d * h);",
+     "const float4* row = reinterpret_cast<const float4*>(rec + g * (stride - h) + d * h);", "kernel_composed_wide"),
 ]
 DRIVER = """
 import sys, torch

@@ -384,3 +384,72 @@ STATS_CHECK_CASES = [
     (100003, 8, 3, 9),
     (5, 8, 3, 9),
 ]
+
+
+# csrc/lattice.cu's block-wide mode past 64 states (one utterance a block),
+# (S, transitions, B, T): every S of 65, 96, 127, 128, 257, 1024 and 4096,
+# banded and dense, B of 1 and 37, T of 1 and 95; idle threads (S off a
+# warp), several states a thread (S = 1024, 4096), the packed band and the
+# packed dense matrix in shared memory, dense transitions read through L2
+# (S = 257, 1024, 4096); lengths from wide_lattice_lengths (rows of length
+# 0 and 1 where B >= 4)
+WIDE_LATTICE_CASES = [
+    (65, "delta1", 37, 95),
+    (96, "delta2", 37, 95),
+    (127, "dense", 37, 95),
+    (128, "delta1", 1, 95),
+    (257, "dense", 37, 95),
+    (1024, "dense", 37, 95),
+    (1024, "delta1", 1, 1),
+    (4096, "delta1", 8, 95),
+    (4096, "dense", 1, 1),
+    (96, "dense", 37, 1),
+]
+
+
+def wide_lattice_lengths(i: int, B: int, T: int) -> list[int]:
+    """B lengths of WIDE_LATTICE_CASES[i]: drawn in [2, T), then T, 0 and 1
+    (every row of length T where B < 4)."""
+    if B < 4:
+        return [T] * B
+    rng = np.random.default_rng(160 + i)
+    return [int(n) for n in rng.integers(2, max(T, 3), size=B - 3)] + [T, 0, 1]
+
+
+def lattice_ranges(log_trans: np.ndarray, rows: bool) -> np.ndarray:
+    """The block-wide kernels' ranges (csrc/lattice.cu lattice_block_kernel):
+    per column (rows=False: a destination's sources) or row (a source's
+    destinations) of float32 log transitions, the width from the first to
+    the last entry above -1e30 (0 where none is)."""
+    on = np.asarray(log_trans) > NEG_INF
+    on = on if rows else on.T
+    first = np.where(on.any(1), on.argmax(1), 0)
+    last = np.where(on.any(1), on.shape[1] - 1 - on[:, ::-1].argmax(1), -1)
+    return np.where(on.any(1), last - first + 1, 0)
+
+
+# full covariance past D = 16 in the E-step kernels (csrc/fused_em.cu) and
+# the composed bank kernels (csrc/composed.cu): [(M, D) per stream].  The
+# E-step: D of 17, 20, 39 and 64 (bounds 32, 40, 64), one and two streams,
+# the records past shared memory (D = 64 and D = 39 at M = 16); the bank
+# kernels: every register bound 24, 32, 40, 48, 64 (D of 17, 20, 30, 39, 45,
+# 64), two streams, the emission's ring at each depth 3 / 2 / 1 / 0 (0: the
+# records in device memory) and the moments block at each place of its
+# records and accumulators
+EM_FULL_WIDE_CASES = [
+    [(2, 17)],
+    [(3, 20), (2, 17)],
+    [(4, 39)],
+    [(16, 39)],
+    [(4, 64)],
+]
+BANK_FULL_WIDE_CASES = [
+    [(2, 17)],
+    [(4, 20), (3, 20)],
+    [(3, 30)],
+    [(8, 39)],
+    [(16, 39)],
+    [(24, 39)],
+    [(2, 45)],
+    [(16, 64)],
+]
