@@ -208,10 +208,12 @@ each (any failure raises, so the exit code is non-zero):
               backpointers equal; a duplicated-state tie at S = 96), the
               E-step kernels (#2-#5) at full covariance EM_FULL_WIDE_CASES
               (D = 17 to 64, two streams, the records in device memory) and
-              the composed kernels at BANK_FULL_WIDE_CASES (every full
-              register bound 24-64, the emission's records and the moments'
-              records and accumulators out of shared memory), each failing
-              unless every shape of its set was reached
+              the composed kernels' z-GEMM blocks at BANK_FULL_WIDE_CASES
+              (every full register bound 24-64, two streams, one and several
+              record slices, one to three mixture groups, a padded n tile,
+              T off the 128-frame tile; each block's blocks an SM printed,
+              two or more at M=8, D=39), each failing unless every shape of
+              its set was reached
     align_s96 / lattice_s1024
               the lattice kernels' main path past 64 states:
               log_forward_batch, viterbi_batch + backtrace,
@@ -301,8 +303,21 @@ def bound(nbytes: float, ops: float) -> dict:
 def mixture_ops(D: int, M: int, full: bool) -> int:
     """fp32 operations of one state's emission: per mixture the lifted dot
     product (diagonal: 2D multiply-adds) or the Cholesky z and its square
-    (full: D*D + D multiply-adds), then ~8 for the running logsumexp."""
-    return M * ((2 * D * D + 2 * D) if full else 4 * D) + 8 * M
+    (full: D(D+1)/2 + D multiply-adds, L^T being upper triangular), then ~8
+    for the running logsumexp."""
+    return M * ((D * (D + 1) + 2 * D) if full else 4 * D) + 8 * M
+
+
+def moment_columns(D: int, full: bool) -> int:
+    """Columns of one mixture's moments a contraction must accumulate: x,
+    the lower triangle of x x^T (full; x x^T is symmetric) or x*x (diagonal),
+    and the weight.  The output holds all D*D of x x^T (moment_row)."""
+    return D + (D * (D + 1) // 2 if full else D) + 1
+
+
+def moment_row(D: int, full: bool) -> int:
+    """Floats of one mixture's moments row: x, x x^T or x*x, the weight."""
+    return D + (D * D if full else D) + 1
 
 
 def valid_frames(lengths, T: int) -> int:
@@ -1165,10 +1180,11 @@ def em_bounds(out: dict, T: int, dims, full: bool, packed, trans, lengths, valid
     sum_d = sum(D for D, _ in dims)
     consts = sum(numel_bytes(*pk) for pk in packed) + numel_bytes(trans)
     em_ops = sum(mixture_ops(D, M, full) for D, M in dims)
-    mom = sum(M * ((D + D * D if full else 2 * D) + 1) for D, M in dims)
+    mom = sum(M * moment_columns(D, full) for D, M in dims)
     lattices = 4 * 2 * T * S * B
     out["emit_forward"].update(bound(4 * frames * sum_d + consts + lattices, frames * S * (em_ops + 4 * nb + 4)))
-    k2_bytes = 4 * frames * sum_d + consts + lattices + 4 * (nb + 2) * S * B + 4 * S * mom
+    k2_bytes = (4 * frames * sum_d + consts + lattices + 4 * (nb + 2) * S * B
+                + 4 * S * sum(M * moment_row(D, full) for D, M in dims))
     dense = bound(k2_bytes, frames * S * (em_ops + 2 * mom + 8 * nb + 8))
     fp32_ops = frames * S * (8 * nb + 8) + kept * S * (em_ops + sum(6 * M for _, M in dims))
     tc_ops = kept * S * 2 * mom
@@ -1728,7 +1744,8 @@ def phase_timing_decode(torch, dec: dict, smi: str) -> dict:
 
 COMPOSED_SRC = "srhmm_tpu_torch/csrc/composed.cu"
 COMPOSED_KERNEL_NAMES = ("bank_emission_kernel", "composed_forward_kernel", "composed_backward_stats_kernel",
-                         "chunk_table_kernel", "bank_moments_kernel", "sum_chunks_kernel")  # csrc/composed.cu
+                         "chunk_table_kernel", "bank_moments_kernel", "sum_chunks_kernel",
+                         "bank_emission_wide_kernel", "bank_moments_wide_kernel")  # csrc/composed.cu
 COMPOSED_ROWS = [  # (wrapper, the TPU kernel it replaces)
     ("bank_emission", "srhmm_tpu/ops/pallas/composed_pallas.py:218"),
     ("composed_forward", "srhmm_tpu/ops/pallas/composed_pallas.py:348"),
@@ -2459,8 +2476,9 @@ def composed_bounds(torch, ids, banks, feats, lengths, diag, full, gamma) -> dic
     outputs written once; operations of the frames the
     kernels must step (emission: every frame of the padded T, as its output
     holds them; lattices: t < length).  The moments count the emission,
-    posteriors and contraction of the (t, j, b) entries with gamma != 0 and
-    t < length only (a zero gamma adds nothing), the contraction's
+    posteriors and contraction (moment_columns: x x^T's lower triangle) of
+    the (t, j, b) entries with gamma != 0 and t < length only (a zero gamma
+    adds nothing), the contraction's
     multiply-adds at the TF32 tensor-core rate and the rest at the fp32
     rate, the larger of the three times; dense_bound_ms is the dense count
     (every t < length, every multiply-add at the fp32 rate)."""
@@ -2473,8 +2491,8 @@ def composed_bounds(torch, ids, banks, feats, lengths, diag, full, gamma) -> dic
     used = int(sum(min(int(n), T) for n in lens))
     lat = 4 * T * LS * B
     em_ops = sum(mixture_ops(D, bk.shape[1], full) for bk in banks)
-    Cm = (D + D * D + 1) if full else (2 * D + 1)
-    mom_out = sum(4 * bk.shape[0] * bk.shape[1] * Cm for bk in banks)
+    Cm = moment_columns(D, full)
+    mom_out = sum(4 * bk.shape[0] * bk.shape[1] * moment_row(D, full) for bk in banks)
     mom_ops = sum(bk.shape[1] * (2 * Cm + 6) for bk in banks)
     rec = record_bytes(banks, D, full)
     mom_bytes = numel_bytes(ids, lengths) + rec + 4 * used * (D + LS) + mom_out
@@ -2496,6 +2514,44 @@ def composed_bounds(torch, ids, banks, feats, lengths, diag, full, gamma) -> dic
                                          stepped * LS * (9 * nd + 10)),
         "bank_moments": moments,
     }
+
+
+def zgemm_matmul_ms(torch, ids, banks, feats) -> dict:
+    """The bank emission's z-GEMM at full covariance as torch.matmul in fp32
+    with TF32 off, a practical ceiling beside the kernel (not a port, used
+    nowhere in it): per utterance b and row j, [x; 1] (T, D + 1) times
+    [L^T | c]^T (D + 1, M D) of the row's records, in chunks of 32
+    utterances into one output buffer (z, which the kernel never writes);
+    CUDA events, median of 3 after one warm-up, of the whole pass."""
+    banks = banks if isinstance(banks, tuple) else (banks,)
+    B, T, D = feats.shape
+    x1 = torch.cat([feats, torch.ones_like(feats[..., :1])], -1)[:, None]  # (B, 1, T, D + 1)
+    chunk = 32
+    ws = []
+    for bk in banks:
+        NB, M, stride = bk.shape
+        h = (stride - 4) // (D + 1)
+        lt = bk[..., : D * h].reshape(NB, M, D, h)[..., :D]  # rows d of L^T: [r, m, d, k]
+        c = bk[..., D * h : D * h + D]  # [r, m, d]
+        w = torch.cat([lt.permute(0, 3, 1, 2), c[:, None]], 1).reshape(NB, D + 1, M * D)
+        ws.append(w[ids.long()].contiguous())  # (B, LS, D + 1, M D)
+    out = torch.empty((chunk, ids.shape[1], T, max(w.shape[-1] for w in ws)), dtype=torch.float32,
+                      device=feats.device)
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    def run():
+        for w in ws:
+            for b0 in range(0, B, chunk):
+                n = min(chunk, B - b0)
+                torch.matmul(x1[b0:b0 + n], w[b0:b0 + n], out=out[:n, ..., : w.shape[-1]])
+
+    try:
+        ms = median_ms(torch, run, warmup=1, reps=3)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    fmas = sum(B * ids.shape[1] * T * (D + 1) * w.shape[-1] for w in ws)
+    return {"ms": ms, "tf32": False, "fp32_tflops": 2 * fmas / (ms * 1e-3) / 1e12, "chunk_utterances": chunk}
 
 
 def phase_timing_composed(torch, emb: dict, tied: dict, smi: str, cells=("emb_c4", "tied_c5"),
@@ -2580,7 +2636,8 @@ def phase_timing_composed(torch, emb: dict, tied: dict, smi: str, cells=("emb_c4
         # one call under the profiler: the device time of its three kernels
         # (pass 0, 1, 2) against the wall of the call (host work of the wrapper)
         one = profile_window(torch, lambda: kc.bank_moments_lattice(ids, banks, feats, gamma, lengths, full),
-                             kernel_keys=("chunk_table_kernel", "bank_moments_kernel", "sum_chunks_kernel"))
+                             kernel_keys=("chunk_table_kernel", "bank_moments_kernel", "bank_moments_wide_kernel",
+                                          "sum_chunks_kernel"))
         split = {"device_ms": one["kernel_device_ms"], "device_busy_ms": one["device_busy_ms"],
                  "profiled_wall_ms": one["profiled_wall_ms"],
                  "zero_gamma_ms": z_ms, "dense_gamma_ms": d_ms, "dense_tiles": tiles["tiles"], "kept_tiles": kept,
@@ -2593,6 +2650,13 @@ def phase_timing_composed(torch, emb: dict, tied: dict, smi: str, cells=("emb_c4
                      "moment_tiles": tiles, "moments_split": split, "worst_abs": check["worst"],
                      "em_audio_s_per_s": audio_s / (it["ms"] / 1e3),
                      "plain_em_audio_s_per_s": audio_s / (it["best_plain_ms"] / 1e3), "profile": prof}
+        if kc.wide_full(feats.shape[-1], full):  # the z-GEMM blocks: their occupancy and the matmul ceiling
+            out[cell]["blocks_per_sm"] = kc.wide_occupancy(feats.shape[-1])
+            out[cell]["zgemm_matmul"] = zgemm_matmul_ms(torch, ids, banks, feats)
+            out[cell]["kernels"]["bank_emission"]["kernel_device_ms"], _ = kernel_device_ms(
+                torch, calls["bank_emission"][1], "bank_emission_wide_kernel", calls=3)
+            out[cell]["kernels"]["bank_moments_lattice"]["kernel_device_ms"], _ = kernel_device_ms(
+                torch, calls["bank_moments_lattice"][1], "bank_moments_wide_kernel", calls=3)
         emit({"phase": "timing_composed", "config": cell, "B": int(feats.shape[0]), "T": int(feats.shape[1]),
               "LS": int(ids.shape[1]), "audio_s": audio_s, "kernel_reps": 20, "plain_reps": 3,
               "full_width_vs_twin_rel": check["rel"], **out[cell], "card": smi})
@@ -4730,31 +4794,44 @@ def phase_kernel_em_wide(torch) -> dict:
     return worst
 
 
-# the composed bank kernels' shapes past full D = 16 phase_kernel_composed_wide must see reached
-BANK_WIDE_SHAPES = {"rb_24", "rb_32", "rb_40", "rb_48", "rb_64", "two_streams", "ring_3", "ring_2", "ring_1",
-                    "ring_0", "moments_shared", "moments_acc_in_partials", "moments_records_in_device_memory",
-                    "moments_both_in_device_memory"}
+# the composed bank kernels' shapes phase_kernel_composed_wide must see reached: the z-GEMM
+# blocks' past full D = 16 (torch_port_utils.BANK_WIDE_PLACEMENTS, T off the 128-frame tile),
+# and at torch_port_utils.BANK_PLACE_CASES the emission's one-row ring and records in device
+# memory (ring_1, ring_0) and the moments' records and accumulators at every place
+# (one name each of ops/kernels/composed.py MOMENTS_PLACES, in its order)
+BANK_PLACES = ("moments_shared", "moments_acc_in_partials", "moments_records_in_device_memory",
+               "moments_both_in_device_memory")
+BANK_WIDE_SHAPES = {"rb_24", "rb_32", "rb_40", "rb_48", "rb_64", "two_streams", "one_slice", "several_slices",
+                    "partial_slice", "groups_1", "groups_2", "groups_3", "padded_n_tile", "whole_n_tile",
+                    "streams_of_different_groups", "frames_off_tile", "ring_1", "ring_0", *BANK_PLACES}
 
 
 def phase_kernel_composed_wide(torch) -> dict:
     """The four composed kernels at full covariance past D = 16 vs their
     twins (composed_check, sparse_moments_check) at
     torch_port_utils.BANK_FULL_WIDE_CASES: S = 3, L = 4, B=37, T=95 with
-    rows of length 0 and 1.  Fails unless every shape of BANK_WIDE_SHAPES
-    was reached (every full register bound 24 to 64, two streams, the
-    emission ring at 3 / 2 / 1 rows and its records in device memory, the
-    moments block at each place of its records and accumulators).  Returns
-    the worst absolute error per wrapper."""
+    rows of length 0 and 1.  Prints each case's z-GEMM blocks an SM
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor), failing below two at
+    M=8, D=39.  Then the same checks at the diagonal rows of hundreds of
+    mixtures of torch_port_utils.BANK_PLACE_CASES.  Fails unless every
+    shape of BANK_WIDE_SHAPES was reached (every full register bound 24 to
+    64, two streams of different M and mixture groups, one and several
+    record slices and a partial one, one to three mixture groups, the n
+    tile whole and padded, T off the 128-frame tile; the emission's
+    one-row ring and its records in device memory, the moments' records
+    and accumulators at every place).  Returns the worst absolute error
+    per wrapper."""
     from srhmm_tpu_torch.ops.kernels import composed as kc
 
     saved = composed_counts()
     worst = {name: 0.0 for name, _ in COMPOSED_ROWS}
     seen = set()
-    places = dict(zip(kc.MOMENTS_PLACES, ("moments_shared", "moments_acc_in_partials",
-                                          "moments_records_in_device_memory", "moments_both_in_device_memory")))
-    for ci, md in enumerate(port_utils().BANK_FULL_WIDE_CASES):
-        lens, feats, lengths, (ids, banks, diag_row, diag_col, full) = composed_case(torch, 400 + ci, "full", 3, 4, md)
-        name = "full_S3_L4_" + "_".join(f"M{M}D{D}" for M, D in md)
+    places = dict(zip(kc.MOMENTS_PLACES, BANK_PLACES))
+    pu = port_utils()
+    cases = [("full", md) for md in pu.BANK_FULL_WIDE_CASES] + [("diag", list(md)) for md, _, _ in pu.BANK_PLACE_CASES]
+    for ci, (cov, md) in enumerate(cases):
+        lens, feats, lengths, (ids, banks, diag_row, diag_col, full) = composed_case(torch, 400 + ci, cov, 3, 4, md)
+        name = f"{cov}_S3_L4_" + "_".join(f"M{M}D{D}" for M, D in md)
         out = composed_check(torch, ids, banks, feats, lengths, diag_row, diag_col, full, name)
         sparse = sparse_moments_check(torch, ids, banks, feats, lengths, full, name)
         for k, v in out["worst"].items():
@@ -4762,15 +4839,22 @@ def phase_kernel_composed_wide(torch) -> dict:
         for k in ("bank_moments_lattice", "bank_moments"):
             worst[k] = max(worst[k], sparse)
         mixes, D = [M for M, _ in md], md[0][1]
-        ring = kc.emission_ring(mixes, [kc.record_stride(D, True)] * len(mixes))
-        shape = kc.moments_shape(mixes, D, True)
-        got = {f"rb_{next(b for b in (24, 32, 40, 48, 64) if b >= -(-D // 4) * 4)}", f"ring_{ring}",
-               places[shape[1:]]}
-        got |= {"two_streams"} if len(md) == 2 else set()
+        if full:
+            occ = kc.wide_occupancy(D)
+            if md == [(8, 39)] and min(occ.values()) < 2:
+                raise AssertionError(f"kernel_composed_wide: {name} runs {occ} blocks an SM, below two")
+            got = pu.bank_wide_placements(md) | ({"frames_off_tile"} if max(lens) % kc.WIDE_FRAMES else set())
+            block = {"blocks_per_sm": occ, "smem_bytes": {"bank_emission": kc.wide_smem_bytes(D, 0),
+                                                          "bank_moments": kc.wide_smem_bytes(D, 1)}}
+        else:
+            ring = kc.emission_ring(mixes, [kc.record_stride(D, False)] * len(mixes))
+            shape = kc.moments_shape(mixes, D, False)
+            got = {f"ring_{ring}", places[shape[1:]]}
+            block = {"emission_ring": ring, "moments_shape": list(shape)}
         seen |= got
         emit({"phase": "kernel_composed_wide", "config": name, "B": len(lens), "T": max(lens), "reached": sorted(got),
-              "emission_ring": ring, "moments_shape": list(shape), "bitwise_repeat": True,
-              "gamma_layouts_bitwise_equal": True, **out["rel"], "zero_tile_gammas_max_abs": sparse})
+              **block, "bitwise_repeat": True, "gamma_layouts_bitwise_equal": True, **out["rel"],
+              "zero_tile_gammas_max_abs": sparse})
     set_composed_counts(saved)  # comparison launches
     if seen != BANK_WIDE_SHAPES:
         raise AssertionError(f"kernel_composed_wide reached {sorted(seen)}, not {sorted(BANK_WIDE_SHAPES)}")

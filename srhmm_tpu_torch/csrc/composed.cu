@@ -58,6 +58,18 @@
 //   order of emission.cuh is kept, so log_b is bitwise its diag_mix_q's), so
 //   a thread runs two mixtures' chains side by side for each of its frames,
 //   and the logsumexp step takes one expf and no branch (lse_add).
+// * Full covariance past D = 16 (bounded by the z = L^T x FMAs, D^2 a
+//   mixture and frame): one row's records (8 mixtures at D = 39: 82 KB)
+//   outgrow a ring, and one frame a thread left one 4-warp block an SM,
+//   each thread a serial chain.  Both kernels instead compute z as a
+//   register-blocked fp32 GEMM on the CUDA cores (wide_q: a lane holds 4
+//   frames x RB/4 components, each float4 of L^T read from shared memory
+//   feeding 16 FMAs and each of x RB), the records streamed through two slices of
+//   two mixtures by cp.async, so a block's shared memory no longer grows
+//   with a row and two 8-warp blocks fit an SM.  The moments keep their
+//   posterior weights' contraction in mma fragments in registers for the
+//   whole chunk, the moment rows on m (the lower triangle of x x^T only,
+//   mirrored when written), 8 mixtures on n, frames on k.
 // * bank_moments (bounded by the emission of the frames whose gamma is not
 //   zero, and the contraction): one block per (chunk of up to 16
 //   (utterance, row) pairs that map to one bank row, stream), the pairs
@@ -314,8 +326,8 @@ __device__ __forceinline__ void copy_records_async(const BankParams& p, int row,
 // blockIdx.x * kFrames * F + k + f * kFrames of utterance blockIdx.y and
 // walks the LS rows; the records of rows j+1 .. j+nbuf-1 are in flight in
 // the ring while row j computes (nbuf = 1: copy, wait, compute; nbuf = 0:
-// a bank row's records outgrow shared memory, as full covariance past D =
-// 16 with many mixtures does, and are read from device memory through L2).  The
+// a bank row's records outgrow shared memory, hundreds of mixtures a row,
+// and are read from device memory through L2).  The
 // mixtures go two at a time (G independent FMA chains a frame), pushed into
 // the logsumexp in mixture order: log_b is bitwise that of one mixture at a
 // time.
@@ -1064,12 +1076,520 @@ __global__ void __launch_bounds__(kReduceThreads) sum_chunks_kernel(const MomPar
   m.mom[q][(size_t)r * cols + col] = a;
 }
 
+// ---------------------------------------------------------------------------
+// full covariance past D = 16: the z-GEMM blocks of the bank emission and
+// the bank moments
+// ---------------------------------------------------------------------------
+
+// Shared memory of one block, in floats then ints (the wrapper's
+// ops/kernels/composed.py wide_smem_bytes mirrors it), at register bound
+// RB (pitch RB + 4 floats, so that rows 4 floats apart in k fall on
+// different banks):
+//   features xs (kWideFrames, RB + 4): x_k at column k, zeros from D on,
+//     1.0 at column RB and 0.0 at RB + 1 (the moments' lift reads them)
+//   record slices, 2 x kWideSlice mixtures of wide_mix_floats(RB):
+//     L^T rows d < RB at pitch RB + 4 (zero rows from D on), c = -L^T mu
+//     (RB, zeros from D on), [bias, log w, 0, 0]
+//   q of a slice, 2 x (kWideSlice, kWideFrames)
+// then the moments' own: the block's n tile of weights (kWideGroup,
+// kWideKS), the queued gamma (kWideQcap, kTile); ints: the lift table (16
+// a m tile), queued pair and tile (kWideQcap each), vote masks (2, warps),
+// pair b, j, length (3 kChunk), first tile of each pair (kChunk + 1).
+constexpr int kWideThreads = 256;                          // 8 warps
+constexpr int kWideWarps = kWideThreads / 32;
+constexpr int kWideFrames = 128;                           // frames of a z-GEMM tile: 32 a warp
+constexpr int kWideSlice = kWideWarps / (kWideFrames / 32);  // mixtures of a record slice: 2
+constexpr int kWideGroup = 8;                              // mixtures of a moments block: one mma n tile
+constexpr int kWideTiles = kWideFrames / kTile;            // moments tiles a batch
+constexpr int kWideKS = kWideFrames + 4;                   // pitch of the weights (fragment loads hit 32 banks)
+constexpr int kWideQcap = kScan * kWideWarps + kWideTiles;  // up to kScan a warp found a step, fewer than a batch left
+
+__host__ __device__ constexpr int wide_pitch(int rb) { return rb + 4; }
+__host__ __device__ constexpr int wide_mix_floats(int rb) { return rb * wide_pitch(rb) + rb + 4; }
+// rows of the moments' lift [x; lower triangle of x x^T; 1], and its m tiles
+__host__ __device__ constexpr int wide_lift_rows(int D) { return D + D * (D + 1) / 2 + 1; }
+__host__ __device__ constexpr int wide_m_tiles(int D) { return (wide_lift_rows(D) + 15) / 16; }
+
+__host__ __device__ inline size_t wide_emission_floats(int rb) {
+  return (size_t)kWideFrames * wide_pitch(rb) + 2 * kWideSlice * ((size_t)wide_mix_floats(rb) + kWideFrames);
+}
+
+__host__ __device__ inline size_t wide_moments_floats(int rb) {
+  return wide_emission_floats(rb) + (size_t)kWideGroup * kWideKS + (size_t)kWideQcap * kTile;
+}
+
+__host__ __device__ inline size_t wide_moments_ints(int D) {
+  return 16 * (size_t)wide_m_tiles(D) + 2 * kWideQcap + 2 * kWideWarps + 4 * kChunk + 1;
+}
+
+// Start the copies of n mixtures' records (stride floats apart from rec,
+// rows of L^T h >= RB floats apart, zeros past D) into the staged layout
+// at dst, one wide_mix_floats(RB) block a mixture: the first RB floats of
+// each row d < D of L^T, zero rows D <= d < RB (copies of no bytes), the
+// first RB floats of c, and [bias, log w, 0, 0].  Every bound is a
+// constant of RB, so the index arithmetic takes no division.
+template <int RB>
+__device__ __forceinline__ void copy_slice_async(float* dst, const float* rec, int stride, int h, int D, int n) {
+  constexpr int P = wide_pitch(RB), MF = wide_mix_floats(RB), G4 = RB / 4;
+  constexpr int rows = RB * G4, per = rows + G4 + 1;  // float4 copies a mixture
+  for (int i = threadIdx.x; i < n * per; i += blockDim.x) {
+    const int g = i / per, u = i - g * per;
+    const float* src = rec + (size_t)g * stride;
+    float* d = dst + g * MF;
+    if (u < rows) {
+      const int row = u / G4, kk = u - row * G4;
+      const bool ok = row < D;
+      cp_async16(d + row * P + 4 * kk, ok ? src + row * h + 4 * kk : src, ok);
+    } else if (u < rows + G4) {
+      cp_async16(d + RB * P + 4 * (u - rows), src + D * h + 4 * (u - rows), true);
+    } else {
+      cp_async16(d + RB * P + RB, src + D * h + h, true);
+    }
+  }
+}
+
+// The z-GEMM, shared by the two kernels: the weighted log-likelihood of one
+// mixture (its staged records w) at the 32 frames of xs, one frame a lane.
+// Lane 4 tau + t holds frames f * 8 + tau (f < 4) and the components
+// d = 4 i + t (i < RB / 4) of z = c + L^T x, each z_d one fmaf chain from
+// c_d over k ascending (full_q's), every float4 of L^T read from shared
+// memory feeding 16 FMAs and every float4 of x up to RB.  L^T is upper
+// triangular (embedded.pack_position_bank_full writes the rows of the
+// Cholesky factor's transpose), so component group i skips the k groups
+// below i: their products are exact zeros, and fmaf(0, x, z) is z for a
+// finite x, so each z_d is bitwise the whole chain's.  The squares are summed per
+// lane in i order, then over the four lanes of the team in lane order by
+// shuffles, so the four hold the same sum.  Returns q of frame
+// wide_q_frame(lane): min(-sum / 2 + bias, log 1e20) + log w.  Four frames
+// a lane: eight (80 accumulators at RB = 40) spill at two blocks an SM, and
+// ran slower.
+template <int RB>
+__device__ __forceinline__ float wide_q(const float* xs, const float* w, int d4) {
+  constexpr int TZ = RB / 4, P = wide_pitch(RB);
+  const int lane = threadIdx.x & 31, tau = lane >> 2, t = lane & 3, team = lane & ~3;
+  const float* c = w + RB * P;
+  float z[4][TZ];
+#pragma unroll
+  for (int i = 0; i < TZ; ++i) {
+    const float ci = c[4 * i + t];
+#pragma unroll
+    for (int f = 0; f < 4; ++f) z[f][i] = ci;
+  }
+#pragma unroll 2
+  for (int kk = 0; kk < d4; ++kk) {
+    float4 x[4];
+#pragma unroll
+    for (int f = 0; f < 4; ++f) x[f] = *reinterpret_cast<const float4*>(xs + (f * 8 + tau) * P + 4 * kk);
+#pragma unroll
+    for (int i = 0; i < TZ; ++i) {
+      if (i > kk) break;  // rows 4 i .. 4 i + 3 of L^T are zero left of column 4 i
+      const float4 r = *reinterpret_cast<const float4*>(w + (4 * i + t) * P + 4 * kk);
+#pragma unroll
+      for (int f = 0; f < 4; ++f) {
+        z[f][i] = fmaf(r.x, x[f].x, z[f][i]);
+        z[f][i] = fmaf(r.y, x[f].y, z[f][i]);
+        z[f][i] = fmaf(r.z, x[f].z, z[f][i]);
+        z[f][i] = fmaf(r.w, x[f].w, z[f][i]);
+      }
+    }
+  }
+  float mine = 0.f;
+#pragma unroll
+  for (int f = 0; f < 4; ++f) {
+    float part = 0.f;
+#pragma unroll
+    for (int i = 0; i < TZ; ++i) part = fmaf(z[f][i], z[f][i], part);
+    float s = __shfl_sync(~0u, part, team);
+    s += __shfl_sync(~0u, part, team + 1);
+    s += __shfl_sync(~0u, part, team + 2);
+    s += __shfl_sync(~0u, part, team + 3);
+    mine = (f == t) ? s : mine;
+  }
+  return fminf(fmaf(-0.5f, mine, c[RB]), kLogGausClamp) + c[RB + 1];
+}
+
+// where wide_q's lane leaves its q among the 32 frames of its warp
+__device__ __forceinline__ int wide_q_frame(int lane) { return (lane & 3) * 8 + (lane >> 2); }
+
+// A stage of a bank-emission block: the stages run over the rows j, the
+// streams q of a row and the slices of up to kWideSlice mixtures of a
+// stream, in that order.
+struct WideStage {
+  int j, q, mix0, n;
+  bool last_of_stream, last_of_row;
+};
+
+__device__ __forceinline__ WideStage wide_stage_at(const BankParams& p, int j, int q, int mix0) {
+  WideStage s;
+  s.j = j;
+  s.q = q;
+  s.mix0 = mix0;
+  s.n = min(kWideSlice, p.mixes[q] - mix0);
+  s.last_of_stream = mix0 + s.n == p.mixes[q];
+  s.last_of_row = s.last_of_stream && q == p.n_streams - 1;
+  return s;
+}
+
+// the stage after s
+__device__ __forceinline__ WideStage wide_next(const BankParams& p, const WideStage& s) {
+  if (!s.last_of_stream) return wide_stage_at(p, s.j, s.q, s.mix0 + kWideSlice);
+  return s.last_of_row ? wide_stage_at(p, s.j + 1, 0, 0) : wide_stage_at(p, s.j, s.q + 1, 0);
+}
+
+// Bank emission at full covariance past D = 16 (a z-GEMM of the frames'
+// lift [x; 1] against [L^T | c] of every mixture of the row).  grid
+// (ceil(T / kWideFrames), B), kWideThreads threads: block (x, b) stages
+// the features of its kWideFrames frames of utterance b once, then walks
+// the stages; warp w computes mixture w / 4 of the stage's slice at the 32
+// frames from 32 (w % 4) on (wide_q).  The slices stream through
+// two buffers by cp.async, the next one copied while the block computes
+// this one: one barrier a stage.  After that barrier thread k <
+// kWideFrames pushes the previous stage's q of frame k into its running
+// logsumexp, in mixture order (log_b is bitwise that of one mixture at a
+// time from the same q), closes a stream's logsumexp at its last slice and
+// writes log_b at the row's last.  An id outside the bank gives a NaN row.
+template <int RB>
+__global__ void __launch_bounds__(kWideThreads, 2) bank_emission_wide_kernel(const BankParams p, float* log_b) {
+  constexpr int P = wide_pitch(RB), MF = wide_mix_floats(RB), G = kWideSlice;
+  extern __shared__ float4 smem4[];
+  float* xs = reinterpret_cast<float*>(smem4);
+  float* slices = xs + kWideFrames * P;
+  float* qs = slices + 2 * G * MF;
+  const int b = blockIdx.y, t0 = blockIdx.x * kWideFrames, tid = threadIdx.x, lane = tid & 31;
+  const int gw = (tid >> 5) / (kWideFrames / 32), fg = (tid >> 5) % (kWideFrames / 32);
+  const int D = p.D, d4 = groups_of(D);
+  const int* ids = p.ids + (size_t)b * p.LS;
+  int per_row = 0;
+  for (int q = 0; q < p.n_streams; ++q) per_row += (p.mixes[q] + G - 1) / G;
+  const int n_st = p.LS * per_row;
+  auto start_copy = [&](int i, const WideStage& s) {  // the copies of stage i's slice
+    const int row = ids[s.j], stride = p.strides[s.q];
+    if (row >= 0 && row < p.NB)
+      copy_slice_async<RB>(slices + (i & 1) * G * MF, p.banks[s.q] + ((size_t)row * p.mixes[s.q] + s.mix0) * stride,
+                           stride, record_dmax(stride, D, true), D, s.n);
+    cp_async_commit();
+  };
+  WideStage cur = wide_stage_at(p, 0, 0, 0), prev = cur;
+  start_copy(0, cur);
+  for (int i = tid; i < kWideFrames * RB; i += kWideThreads) {
+    const int f = i / RB, k = i - f * RB, t = t0 + f;
+    xs[f * P + k] = (t < p.T && k < D) ? __ldg(p.feats + ((size_t)b * p.T + t) * D + k) : 0.f;
+  }
+  const int t = t0 + tid;  // the frame thread tid < kWideFrames pushes
+  float mr = kNegInf, er = 0.f, lb = 0.f;
+  for (int i = 0; i <= n_st; ++i) {
+    cp_async_wait<0>();  // stage i's slice has landed
+    __syncthreads();     // visible to all; stage i-1's q complete, its slice buffer free
+    const WideStage next = (i + 1 < n_st) ? wide_next(p, cur) : cur;
+    if (i + 1 < n_st) start_copy(i + 1, next);
+    if (i > 0 && tid < kWideFrames) {
+      const float* qv = qs + ((i - 1) & 1) * G * kWideFrames + tid;
+      for (int g = 0; g < prev.n; ++g) lse_add(qv[g * kWideFrames], mr, er);
+      if (prev.last_of_stream) {
+        const float v = lse_value(mr, er);
+        lb = (prev.q == 0) ? v : lb + v;
+        mr = kNegInf;
+        er = 0.f;
+      }
+      if (prev.last_of_row && t < p.T) {
+        const int row = ids[prev.j];
+        log_b[((size_t)t * p.LS + prev.j) * p.B + b] =
+            (row >= 0 && row < p.NB) ? fmaxf(lb, kNegInf) : __int_as_float(0x7fc00000);
+      }
+    }
+    if (i < n_st && gw < cur.n) {
+      const float qv = wide_q<RB>(xs + fg * 32 * P, slices + (i & 1) * G * MF + gw * MF, d4);
+      qs[(i & 1) * G * kWideFrames + gw * kWideFrames + fg * 32 + wide_q_frame(lane)] = qv;
+    }
+    prev = cur;
+    cur = next;
+  }
+}
+
+// Row c of the moments' lift as (ia | ib << 16), the lift being x[ia] x[ib]
+// of the staged features with x[RB] = 1 and x[RB + 1] = 0: rows c < D are
+// x_c (ib = RB), then the lower triangle x_a x_b (a >= b) in row order,
+// then the constant 1, then zero rows up to a whole m tile.
+template <int RB>
+__device__ __forceinline__ int wide_lift_entry(int c, int D) {
+  const int tri = D * (D + 1) / 2;
+  if (c < D) return c | RB << 16;
+  if (c < D + tri) {
+    const int r = c - D;
+    int a = (int)((sqrtf(8.f * r + 1.f) - 1.f) * 0.5f);
+    while (a * (a + 1) / 2 > r) --a;
+    while ((a + 1) * (a + 2) / 2 <= r) ++a;
+    return a | (r - a * (a + 1) / 2) << 16;
+  }
+  return c == D + tri ? (RB | RB << 16) : ((RB + 1) | (RB + 1) << 16);
+}
+
+// acc += lift w^T over ksteps * 8 staged frames, on the tensor cores in
+// 3xTF32 (lo*hi + hi*lo + hi*hi into fp32): the moment rows on the mma's
+// m (this warp's m tiles warp, warp + kWideWarps, ...), the block's
+// kWideGroup mixtures on n (mixtures past nm enter as 0), the frames on k.
+// The lift is formed from the features on the fly; each accumulator is
+// summed over the frames in mma order, so the result is the same on every
+// run and for either gamma layout.
+template <int RB, int MTW>
+__device__ __forceinline__ void wide_contract(float (&acc)[MTW][4], const float* xs, const float* wq, const int* tab,
+                                              int nm, int ksteps, int n_mt) {
+  constexpr int P = wide_pitch(RB);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, gid = lane >> 2, tig = lane & 3;
+  const bool real = gid < nm;
+  for (int kk = 0; kk < ksteps; ++kk) {
+    const int k0 = kk * 8 + tig, k1 = k0 + 4;
+    unsigned b0h, b0l, b1h, b1l;
+    split_tf32(real ? wq[gid * kWideKS + k0] : 0.f, b0h, b0l);
+    split_tf32(real ? wq[gid * kWideKS + k1] : 0.f, b1h, b1l);
+    const float* x0 = xs + k0 * P;
+    const float* x1 = xs + k1 * P;
+#pragma unroll
+    for (int u = 0; u < MTW; ++u) {
+      const int mt = warp + kWideWarps * u;
+      if (mt < n_mt) {
+        const int e0 = tab[mt * 16 + gid], e1 = tab[mt * 16 + gid + 8];
+        const float a[4] = {x0[e0 & 0xffff] * x0[e0 >> 16], x0[e1 & 0xffff] * x0[e1 >> 16],
+                            x1[e0 & 0xffff] * x1[e0 >> 16], x1[e1 & 0xffff] * x1[e1 >> 16]};
+        unsigned ahi[4], alo[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) split_tf32(a[i], ahi[i], alo[i]);
+        mma_tf32(acc[u], alo, b0h, b1h);
+        mma_tf32(acc[u], ahi, b0l, b1l);
+        mma_tf32(acc[u], ahi, b0h, b1h);
+      }
+    }
+  }
+}
+
+// Bank moments pass 1 at full covariance past D = 16.  grid (n_chunks, P,
+// mixture groups), kWideThreads threads: block (g, q, z) takes chunk g
+// (bank_moments_kernel's pairs) and stream q, and writes mixtures [8 z,
+// 8 z + 8) of the chunk's partial row.  Every warp scans candidate tiles
+// (the zero-tile vote), the kept ones queue up; a batch of up to
+// kWideTiles tiles stages its frames' features, streams the row's
+// records through the two slice buffers (wide_q, all M mixtures, pushed
+// into each frame's logsumexp in mixture order; the q of the block's own
+// mixtures kept), turns those into weights gamma post 2^48 and adds
+// lift w^T into accumulators that stay in registers for the whole chunk
+// (wide_contract).  The lower triangle of x x^T is contracted once and
+// written to both of its places: x_a x_b and x_b x_a are the same float,
+// so the sums equal those of the whole square in the same order.
+template <int RB>
+__global__ void __launch_bounds__(kWideThreads, RB <= 40 ? 2 : 1)
+    bank_moments_wide_kernel(const BankParams p, const MomParams m) {
+  constexpr int P = wide_pitch(RB), MF = wide_mix_floats(RB);
+  constexpr int MTW = (wide_m_tiles(RB) + kWideWarps - 1) / kWideWarps;  // m tiles a warp, at most
+  extern __shared__ float4 smem4[];
+  const int g = blockIdx.x, q = blockIdx.y, m0 = blockIdx.z * kWideGroup;
+  if (g >= m.chunk_cum[p.NB] || m0 >= p.mixes[q]) return;  // past the last chunk, or the stream's mixtures
+  int lo = 0, hi = p.NB;  // chunk_cum[lo] <= g < chunk_cum[hi]
+  while (hi - lo > 1) {
+    const int mid = (lo + hi) >> 1;
+    if (m.chunk_cum[mid] <= g) lo = mid; else hi = mid;
+  }
+  const int r = lo;
+  const int s0 = m.offsets[r] + (g - m.chunk_cum[r]) * kChunk;
+  const int np = min(kChunk, m.offsets[r + 1] - s0);
+  const int M = p.mixes[q], stride = p.strides[q], D = p.D, d4 = groups_of(D);
+  const int h = record_dmax(stride, D, true), nm = min(kWideGroup, M - m0);
+  const int Cm = D + D * D + 1, n_mt = wide_m_tiles(D), ns = (M + kWideSlice - 1) / kWideSlice;
+  float* xs = reinterpret_cast<float*>(smem4);
+  float* slices = xs + kWideFrames * P;
+  float* qs = slices + 2 * kWideSlice * MF;
+  float* wq = qs + 2 * kWideSlice * kWideFrames;
+  float* gq = wq + kWideGroup * kWideKS;
+  int* tab = reinterpret_cast<int*>(gq + kWideQcap * kTile);
+  int* qpair = tab + 16 * n_mt;
+  int* qtile = qpair + kWideQcap;
+  int* vote = qtile + kWideQcap;
+  int* pb = vote + 2 * kWideWarps;
+  int* pj = pb + kChunk;
+  int* plen = pj + kChunk;
+  int* pfirst = plen + kChunk;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gw = warp / (kWideFrames / 32), fg = warp % (kWideFrames / 32);
+  const float* rec = p.banks[q] + (size_t)r * M * stride;
+  auto start_copy = [&](int st, int s) {  // the copies of slice s into buffer st & 1
+    copy_slice_async<RB>(slices + (st & 1) * kWideSlice * MF, rec + (size_t)s * kWideSlice * stride, stride, h, D,
+                         min(kWideSlice, M - s * kWideSlice));
+    cp_async_commit();
+  };
+
+  for (int c = tid; c < 16 * n_mt; c += kWideThreads) tab[c] = wide_lift_entry<RB>(c, D);
+  for (int f = tid; f < kWideFrames; f += kWideThreads) {
+    xs[f * P + RB] = 1.f;
+    xs[f * P + RB + 1] = 0.f;
+  }
+  // the pairs, and the first tile of each (a prefix sum over warp 0)
+  bool bad = false;
+  if (warp == 0) {
+    int tiles = 0;
+    if (lane < np) {
+      const int pair = (int)m.order[s0 + lane];
+      const int b = pair / p.LS;
+      bad = p.ids[pair] != r;  // an id outside the bank sorts into row 0 or NB-1
+      const int len = min(max(m.lengths[b], 0), p.T);
+      pb[lane] = b;
+      pj[lane] = pair - b * p.LS;
+      plen[lane] = len;
+      tiles = (len + kTile - 1) / kTile;
+    }
+    int incl = tiles;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int v = __shfl_up_sync(~0u, incl, o);
+      if (lane >= o) incl += v;
+    }
+    if (lane < np) pfirst[lane + 1] = incl;
+    if (lane == 0) pfirst[0] = 0;
+  }
+  bad = __syncthreads_or(bad);
+  const int ctot = bad ? 0 : pfirst[np];
+
+  float acc[MTW][4];
+#pragma unroll
+  for (int u = 0; u < MTW; ++u)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[u][i] = 0.f;
+  int head = 0, count = 0, base = 0, step = 0, st = 0;
+  for (;;) {
+    if (count < kWideTiles && base < ctot) {
+      // scan kScan candidate tiles a warp (their loads in flight together);
+      // queue the non-zero ones in candidate order
+      float gv[kScan];
+      int pi[kScan], u[kScan];
+      unsigned mask = 0;
+#pragma unroll
+      for (int v = 0; v < kScan; ++v) {
+        const int c = base + warp * kScan + v;
+        gv[v] = 0.f;
+        pi[v] = 0;
+        u[v] = 0;
+        if (c < ctot) {  // uniform over the warp
+          const unsigned le = __ballot_sync(~0u, lane < np && pfirst[lane] <= c);
+          pi[v] = 31 - __clz(le);
+          u[v] = c - pfirst[pi[v]];
+          const int t = u[v] * kTile + lane;
+          if (t < plen[pi[v]]) gv[v] = m.gamma[t * m.g_st + pj[pi[v]] * m.g_sj + pb[pi[v]] * m.g_sb];
+        }
+      }
+#pragma unroll
+      for (int v = 0; v < kScan; ++v) mask |= __any_sync(~0u, gv[v] != 0.f) ? 1u << v : 0u;
+      int* vt = vote + (step & 1) * kWideWarps;
+      if (lane == 0) vt[warp] = (int)mask;
+      __syncthreads();
+      int rank = 0, added = 0;
+      for (int w = 0; w < kWideWarps; ++w) {
+        const int n = __popc(vt[w]);
+        rank += (w < warp) ? n : 0;
+        added += n;
+      }
+#pragma unroll
+      for (int v = 0; v < kScan; ++v) {
+        if (mask & (1u << v)) {
+          const int e = (head + count + rank) % kWideQcap;
+          gq[e * kTile + lane] = gv[v];
+          if (lane == 0) {
+            qpair[e] = pi[v];
+            qtile[e] = u[v];
+          }
+          ++rank;
+        }
+      }
+      count += added;
+      base += kWideWarps * kScan;
+      ++step;
+      continue;
+    }
+    if (count == 0) break;
+    // one batch of nb queued tiles: frame f of the batch is frame 32 u +
+    // (f % 32) of entry head + f / 32, and thread f < nb 32 its pusher
+    const int nb = min(count, kWideTiles);
+    __syncthreads();  // the queue entries are written; xs and wq are free
+    start_copy(st, 0);
+    for (int i = tid; i < nb * kTile * RB; i += kWideThreads) {
+      const int f = i / RB, k = i - f * RB, e = (head + f / kTile) % kWideQcap, pi = qpair[e];
+      const int t = qtile[e] * kTile + f % kTile;
+      xs[f * P + k] = (t < plen[pi] && k < D) ? __ldg(p.feats + ((size_t)pb[pi] * p.T + t) * D + k) : 0.f;
+    }
+    const int e_own = (head + tid / kTile) % kWideQcap;
+    const bool pusher = tid < nb * kTile;
+    const bool on = pusher && qtile[e_own] * kTile + lane < plen[qpair[e_own]];
+    float mr = kNegInf, er = 0.f;
+    for (int s = 0; s <= ns; ++s) {
+      cp_async_wait<0>();  // slice s has landed
+      __syncthreads();     // visible to all; slice s-1's q complete, its buffer free
+      if (s + 1 < ns) start_copy(st + s + 1, s + 1);
+      if (s > 0 && pusher) {
+        const int mix0 = (s - 1) * kWideSlice, n = min(kWideSlice, M - mix0);
+        const float* qv = qs + ((st + s - 1) & 1) * kWideSlice * kWideFrames + tid;
+        for (int gg = 0; gg < n; ++gg) {
+          const float v = qv[gg * kWideFrames];
+          lse_add(v, mr, er);
+          const int mm = mix0 + gg - m0;
+          if (mm >= 0 && mm < nm) wq[mm * kWideKS + tid] = v;
+        }
+      }
+      if (s < ns && gw < min(kWideSlice, M - s * kWideSlice) && fg < nb) {
+        const float qv = wide_q<RB>(xs + fg * 32 * P, slices + ((st + s) & 1) * kWideSlice * MF + gw * MF, d4);
+        qs[((st + s) & 1) * kWideSlice * kWideFrames + gw * kWideFrames + fg * 32 + wide_q_frame(lane)] = qv;
+      }
+    }
+    st += ns;
+    if (pusher) {
+      const float lbp = lse_value(mr, er);  // this stream's own log b
+      const float gam = gq[e_own * kTile + lane];
+      for (int mm = 0; mm < nm; ++mm) {
+        float* wv = wq + mm * kWideKS + tid;
+        const float post = (lbp > 0.5f * kNegInf) ? expf(fminf(*wv - lbp, 0.f)) : 0.f;
+        *wv = on ? (gam * post) * kWeightScale : 0.f;
+      }
+    }
+    __syncthreads();  // the weights are complete
+    wide_contract<RB, MTW>(acc, xs, wq, tab, nm, nb * (kTile / 8), n_mt);
+    head = (head + nb) % kWideQcap;
+    count -= nb;
+  }
+
+  // the partial row: each accumulator to its column and its mirror
+  const float nan = __int_as_float(0x7fc00000);
+  const int lc = wide_lift_rows(D), gid = lane >> 2, tig = lane & 3;
+  float* out = m.partial[q] + ((size_t)g * M + m0) * Cm;
+#pragma unroll
+  for (int u = 0; u < MTW; ++u) {
+    const int mt = warp + kWideWarps * u;
+    if (mt >= n_mt) continue;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int c = mt * 16 + gid + ((i & 2) ? 8 : 0), n = 2 * tig + (i & 1);
+      if (n >= nm || c >= lc) continue;
+      const float v = bad ? nan : acc[u][i] * kWeightUnscale;
+      const int e = tab[c], ia = e & 0xffff, ib = e >> 16;
+      float* o = out + (size_t)n * Cm;
+      if (ib == RB) {
+        o[ia == RB ? Cm - 1 : ia] = v;  // x_ia, or the constant
+      } else {
+        o[D + ia * D + ib] = v;
+        o[D + ib * D + ia] = v;  // the mirror (the same column where ia == ib)
+      }
+    }
+  }
+}
+
 using EmitFn = void (*)(BankParams, float*, int);
 using MomFn = void (*)(BankParams, MomParams);
+using WideEmitFn = void (*)(BankParams, float*);
 
 template <int RB, bool FULL>
 void pick(int which, void** fn) {
-  if (which == 0) {
+  if constexpr (FULL && RB > 16) {
+    if (which == 0) {
+      *fn = reinterpret_cast<void*>(static_cast<WideEmitFn>(bank_emission_wide_kernel<RB>));
+    } else {
+      *fn = reinterpret_cast<void*>(static_cast<MomFn>(bank_moments_wide_kernel<RB>));
+    }
+  } else if (which == 0) {
     *fn = reinterpret_cast<void*>(static_cast<EmitFn>(bank_emission_kernel<RB, FULL>));
   } else {
     *fn = reinterpret_cast<void*>(static_cast<MomFn>(bank_moments_kernel<RB, FULL>));
@@ -1158,6 +1678,17 @@ cudaError_t allow_smem(const void* fn, size_t smem) {
   return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
+// full covariance past D = 16 takes the z-GEMM blocks
+bool wide(int rb, bool full) { return full && rb > 16; }
+
+// a z-GEMM block's shared memory, and the largest carveout, so that as
+// many blocks fit an SM as their registers and shared memory allow
+cudaError_t wide_setup(const void* fn, size_t smem) {
+  cudaError_t err = allow_smem(fn, smem);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(fn, cudaFuncAttributePreferredSharedMemoryCarveout, cudaSharedmemCarveoutMaxShared);
+}
+
 using LatticeFn = void (*)(LatticeParams);
 
 // the lattice kernel for R rows a lane and nd diagonals: the smallest
@@ -1228,7 +1759,8 @@ extern "C" {
 
 // nbuf: record buffers in the ring, 1 to 3 (shared memory nbuf * the
 // records of one bank row of every stream), or 0 (the records read from
-// device memory)
+// device memory); full covariance past D = 16 takes the z-GEMM block, with
+// its own two slice buffers, and ignores nbuf
 int srhmm_bank_emission(const void* ids, const void* const* banks, const int* mixes,
                         const int* strides, int n_streams, int NB, const void* feats, void* log_b,
                         int B, int T, int D, int LS, int full, int nbuf, int device, void* stream) {
@@ -1241,6 +1773,14 @@ int srhmm_bank_emission(const void* ids, const void* const* banks, const int* mi
   if (fn == nullptr) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
+  if (wide(rb, full != 0)) {  // the z-GEMM block: two slice buffers
+    err = wide_setup(fn, sizeof(float) * wide_emission_floats(rb));
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid((T + kWideFrames - 1) / kWideFrames, B);
+    reinterpret_cast<WideEmitFn>(fn)<<<grid, kWideThreads, sizeof(float) * wide_emission_floats(rb),
+                                       static_cast<cudaStream_t>(stream)>>>(p, static_cast<float*>(log_b));
+    return (int)cudaGetLastError();
+  }
   const size_t smem = sizeof(float) * (size_t)nbuf * p.rec_floats;
   err = allow_smem(fn, smem);
   if (err != cudaSuccess) return (int)err;
@@ -1249,6 +1789,22 @@ int srhmm_bank_emission(const void* ids, const void* const* banks, const int* mi
   reinterpret_cast<EmitFn>(fn)<<<grid, kFrames, smem, static_cast<cudaStream_t>(stream)>>>(
       p, static_cast<float*>(log_b), nbuf);
   return (int)cudaGetLastError();
+}
+
+// Blocks an SM of the z-GEMM bank kernel `which` (0 emission, 1 moments)
+// at full covariance and feature dim D past 16, at its launch shape
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), into *blocks.
+int srhmm_bank_wide_occupancy(int which, int D, int device, int* blocks) {
+  const int rb = register_bound(D, true);
+  void* fn = (which == 0 || which == 1) && wide(rb, true) ? bank_kernel_for(which, rb, true) : nullptr;
+  if (fn == nullptr) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const size_t smem = which == 0 ? sizeof(float) * wide_emission_floats(rb)
+                                 : sizeof(float) * wide_moments_floats(rb) + sizeof(int) * wide_moments_ints(D);
+  err = wide_setup(fn, smem);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fn, kWideThreads, smem);
 }
 
 // R rows a lane (1, 2 or 4), W warps an utterance of each kind (32 R W >=
@@ -1305,7 +1861,8 @@ int srhmm_composed_backward_stats(const void* log_b, const void* la, const void*
 // int32 is workspace for the chunk table; partial[q] holds n_chunks rows of
 // M_q * Cm floats, n_chunks >= ceil(B LS / kChunk) + min(NB, B LS);
 // rec_global / acc_global: the records read from device memory / the
-// accumulators kept in the partial rows (moments_floats).  Pass 0
+// accumulators kept in the partial rows (moments_floats); full covariance
+// past D = 16 takes the z-GEMM block (slots = kWideTiles, neither).  Pass 0
 // builds the chunk table, pass 1 writes the chunks' partials, pass 2 sums
 // them into mom[q] (NB, M_q * Cm).
 int srhmm_bank_moments(const void* ids, const void* const* banks, const int* mixes,
@@ -1336,29 +1893,39 @@ int srhmm_bank_moments(const void* ids, const void* const* banks, const int* mix
   m.rec_global = rec_global;
   m.acc_global = acc_global;
   const int Cm = full ? D + D * D + 1 : 2 * D + 1;
+  const int rb = register_bound(D, full != 0);
+  const bool z_gemm = wide(rb, full != 0);
+  if (z_gemm && (slots != kWideTiles || rec_global || acc_global)) return (int)cudaErrorInvalidValue;
   size_t floats = 0;
-  int max_cols = 0;
+  int max_cols = 0, groups = 1;
   for (int q = 0; q < n_streams; ++q) {
     m.partial[q] = static_cast<float*>(partial[q]);
     m.mom[q] = static_cast<float*>(mom[q]);
     m.cols[q] = mixes[q] * Cm;
     max_cols = m.cols[q] > max_cols ? m.cols[q] : max_cols;
+    const int gq = (mixes[q] + kWideGroup - 1) / kWideGroup;
+    groups = gq > groups ? gq : groups;
     const size_t f = moments_floats(mixes[q], strides[q], D, Cm, slots, rec_global, acc_global);
     floats = f > floats ? f : floats;
   }
-  void* fn = bank_kernel_for(1, register_bound(D, full != 0), full != 0);
+  void* fn = bank_kernel_for(1, rb, full != 0);
   if (fn == nullptr) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const size_t smem = sizeof(float) * floats + sizeof(int) * moments_ints(slots);
-  err = allow_smem(fn, smem);
+  const size_t smem = z_gemm ? sizeof(float) * wide_moments_floats(rb) + sizeof(int) * wide_moments_ints(D)
+                             : sizeof(float) * floats + sizeof(int) * moments_ints(slots);
+  err = z_gemm ? wide_setup(fn, smem) : allow_smem(fn, smem);
   if (err != cudaSuccess) return (int)err;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   chunk_table_kernel<<<1, kTableThreads, 0, s>>>(static_cast<const int*>(sorted), B * LS, NB, offsets,
                                                  chunk_cum);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  reinterpret_cast<MomFn>(fn)<<<dim3(n_chunks, n_streams), kTile * slots, smem, s>>>(p, m);
+  if (z_gemm) {  // a block a (chunk, stream, group of kWideGroup mixtures)
+    reinterpret_cast<MomFn>(fn)<<<dim3(n_chunks, n_streams, groups), kWideThreads, smem, s>>>(p, m);
+  } else {
+    reinterpret_cast<MomFn>(fn)<<<dim3(n_chunks, n_streams), kTile * slots, smem, s>>>(p, m);
+  }
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(NB, (max_cols + kReduceThreads - 1) / kReduceThreads, n_streams);

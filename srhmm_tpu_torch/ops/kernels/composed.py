@@ -64,9 +64,17 @@ PAIRS_PER_CHUNK = 16  # csrc/composed.cu kChunk: (utterance, row) pairs a moment
 MOMENTS_SLOTS = (4, 2, 1)  # tiles a moments batch = warps a block, largest that fits first
 # where a moments block keeps (records, accumulators), the first that fits:
 # shared memory, then the accumulators in the chunk's partial row, then the
-# records read from device memory, then both (full covariance past D = 16)
+# records read from device memory, then both (hundreds of mixtures a row)
 MOMENTS_PLACES = ((False, False), (False, True), (True, False), (True, True))
 EMISSION_RING = (3, 2, 1, 0)  # record buffers of a bank-emission block, deepest that fits first (0: device memory)
+# full covariance past D = 16: the z-GEMM blocks (csrc/composed.cu kWide*)
+WIDE_THREADS = 256  # threads of a block: 8 warps
+WIDE_FRAMES = 128  # frames of a z-GEMM tile, 32 a warp
+WIDE_SLICE = 2  # mixtures of a record slice (two slice buffers)
+WIDE_GROUP = 8  # mixtures of a moments block: one mma n tile
+WIDE_TILES = WIDE_FRAMES // TILE  # moments tiles a batch
+_WIDE_QCAP = SCAN * (WIDE_THREADS // 32) + WIDE_TILES  # queued tiles a moments block holds
+_FULL_REGISTER_BOUNDS = (4, 8, 12, 16, 24, 32, 40, 48, 64)  # csrc/composed.cu register_bound, full covariance
 _MAX_LATTICE_THREADS = 1024
 ROWS_PER_LANE = (1, 2, 4)  # composed rows a lattice lane holds (csrc/composed.cu instantiations)
 FORWARD_TILES = (32, 16, 8, 4, 2, 1)  # frames a forward tile stages, largest that fits first
@@ -95,12 +103,49 @@ def moment_cols(D: int, full: bool) -> int:
     return D + D * D + 1 if full else 2 * D + 1
 
 
+def register_bound(D: int) -> int:
+    """csrc/composed.cu register_bound at full covariance: the smallest
+    compiled bound of the bank kernels >= D rounded up to 4 (0 where none
+    is)."""
+    return next((rb for rb in _FULL_REGISTER_BOUNDS if rb >= 4 * -(-D // 4)), 0)
+
+
+def wide_full(D: int, full: bool) -> bool:
+    """Whether the bank kernels take the z-GEMM blocks: full covariance
+    past D = 16 (register bound 24 to 64)."""
+    return full and register_bound(D) > 16
+
+
+def wide_lift_rows(D: int) -> int:
+    """Rows of the z-GEMM moments' lift: x, the lower triangle of x x^T, 1."""
+    return D + D * (D + 1) // 2 + 1
+
+
+def wide_smem_bytes(D: int, which: int) -> int:
+    """csrc/composed.cu wide_emission_floats (which = 0) and
+    wide_moments_floats / wide_moments_ints (1): the features of a
+    z-GEMM tile (rows of RB + 4 floats), two record slices of WIDE_SLICE
+    mixtures (rows of L^T at that pitch, c, bias and log w) and their q;
+    the moments add the n tile's weights, the tile queue, the lift table
+    and the chunk's pairs.  It does not grow with the mixtures."""
+    rb = register_bound(D)
+    pitch = rb + 4
+    floats = WIDE_FRAMES * pitch + 2 * WIDE_SLICE * (rb * pitch + rb + 4 + WIDE_FRAMES)
+    if which == 0:
+        return 4 * floats
+    floats += WIDE_GROUP * (WIDE_FRAMES + 4) + _WIDE_QCAP * TILE
+    ints = 16 * -(-wide_lift_rows(D) // 16) + 2 * _WIDE_QCAP + 2 * (WIDE_THREADS // 32) + 4 * PAIRS_PER_CHUNK + 1
+    return 4 * floats + 4 * ints
+
+
 def _moments_bytes(mixes, strides, D: int, full: bool, slots: int, rec_global: bool = False,
                    acc_global: bool = False) -> int:
     """csrc/composed.cu moments_floats / moments_ints: one moments block of
     the widest stream (a block takes one stream) at `slots` tiles a batch,
     the records (rec_global) or the accumulators (acc_global) kept out of
-    shared memory."""
+    shared memory; past full D = 16 the z-GEMM block's (wide_smem_bytes)."""
+    if wide_full(D, full):
+        return wide_smem_bytes(D, 1)
     Cm = moment_cols(D, full)
     ks = TILE * slots + 4
     qcap = (SCAN + 1) * slots
@@ -112,7 +157,11 @@ def _moments_bytes(mixes, strides, D: int, full: bool, slots: int, rec_global: b
 def moments_shape(mixes, D: int, full: bool, strides=None) -> tuple[int, bool, bool]:
     """(slots, rec_global, acc_global) of a moments block: the first of
     MOMENTS_PLACES at which one of MOMENTS_SLOTS fits SMEM_LIMIT, the
-    largest such slots; else the last try (and the launch refuses)."""
+    largest such slots; else the last try (and the launch refuses).  Past
+    full D = 16 the z-GEMM block: WIDE_TILES tiles a batch, records and
+    accumulators neither in device memory."""
+    if wide_full(D, full):
+        return WIDE_TILES, False, False
     strides = strides or [record_stride(D, full)] * len(mixes)
     for rec_global, acc_global in MOMENTS_PLACES:
         for slots in MOMENTS_SLOTS:
@@ -137,10 +186,10 @@ def moments_smem_bytes(mixes, D: int, full: bool) -> int:
 
 
 def emission_ring(mixes, strides) -> int:
-    """Record buffers of a bank-emission block: the deepest of
-    EMISSION_RING whose ring (that many bank rows' records of every stream)
-    fits SMEM_LIMIT; 0 (the records read from device memory) where one
-    row's do not."""
+    """Record buffers of a bank-emission block below full D = 16: the
+    deepest of EMISSION_RING whose ring (that many bank rows' records of
+    every stream) fits SMEM_LIMIT; 0 (the records read from device memory)
+    where one row's do not."""
     row = 4 * sum(m * s for m, s in zip(mixes, strides))
     return next(nbuf for nbuf in EMISSION_RING if nbuf * row <= SMEM_LIMIT)
 
@@ -153,7 +202,8 @@ def fused_eligible(feats, cov_types, dims, mixes, S: int, LS: int, B: int) -> bo
     band (max(S-1, 1)) within MAX_BAND; LS rows within one lattice block;
     B within the grid; the moments block within the shared-memory budget
     (the emission takes any bank row: its records stay in device memory
-    where they do not fit).
+    where they do not fit; past full D = 16 both z-GEMM blocks fit at any
+    number of mixtures, their records streamed in slices).
     Left-right transitions are the caller's check."""
     if feats.device.type != "cuda" or feats.dtype != torch.float32:
         return False
@@ -384,6 +434,8 @@ def _kernel_library() -> ctypes.CDLL:
         bank_head + [c_ptr, c_ll, c_ll, c_ll] + [c_ptr] * 4 + [p_ptr] + [c_int] * 4 + [p_ptr] + [c_int] * 6
         + [c_ptr]
     )
+    lib.srhmm_bank_wide_occupancy.restype = c_int
+    lib.srhmm_bank_wide_occupancy.argtypes = [c_int, c_int, c_int, p_int]
     return lib
 
 
@@ -420,8 +472,10 @@ class _BankLaunch:
 
     def smem_bytes(self, which: int) -> int:
         """Dynamic shared memory of one block: 0 = emission (its ring of
-        emission_ring buffers), 1 = moments."""
+        emission_ring buffers, or the z-GEMM block), 1 = moments."""
         if which == 0:
+            if wide_full(self.D, self.full):
+                return wide_smem_bytes(self.D, 0)
             return emission_ring(self.mixes, self.strides) * 4 * sum(m * s for m, s in zip(self.mixes, self.strides))
         return _moments_bytes(self.mixes, self.strides, self.D, self.full, *self.moments_shape())
 
@@ -444,7 +498,10 @@ def bank_emission(ids, bank, feats, full: bool = False):
     CUDA tensors launch the hand-written kernel (csrc/composed.cu) and count
     one in ``bank_emission.launches``; CPU tensors run bank_emission_plain.
     The ids are not range-checked on the host (that would wait for the
-    card): on the card an id outside [0, NB) gives NaN rows."""
+    card): on the card an id outside [0, NB) gives NaN rows.  Full records
+    hold the rows of L^T upper triangular, as pack_position_bank_full
+    writes them: past D = 16 the kernel skips the products left of the
+    diagonal (exact zeros there)."""
     if on_cpu("bank_emission", feats):
         return bank_emission_plain(ids, bank, feats, full)
     ln = _BankLaunch("bank_emission", ids, bank, feats, full)
@@ -627,7 +684,8 @@ def bank_moments_lattice(ids, bank, feats, gamma_tsb, lengths, full: bool = Fals
     stable order of the ids, tiles of 32 frames whose gamma are all 0.0
     skipped; then each bank row's partials summed in chunk order: no
     atomics, two runs bitwise equal) and count one in
-    ``bank_moments_lattice.launches``; CPU tensors run the twin."""
+    ``bank_moments_lattice.launches``; CPU tensors run the twin.  Full
+    records as bank_emission takes them (L^T upper triangular)."""
     if on_cpu("bank_moments_lattice", feats):
         return bank_moments_lattice_plain(ids, bank, feats, gamma_tsb, lengths, full)
     T, LS, B = gamma_tsb.shape
@@ -661,6 +719,22 @@ def bank_moments(ids, bank, feats, gamma_bst, lengths, full: bool = False):
 
 
 bank_moments.launches = 0
+
+
+def wide_occupancy(D: int, device=None) -> dict:
+    """Blocks an SM of the two z-GEMM bank kernels at full covariance and
+    feature dim D past 16 on the card, at their launch shapes
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor): {"bank_emission": n,
+    "bank_moments": n}."""
+    if not wide_full(D, True):
+        raise ValueError(f"wide_occupancy: the z-GEMM blocks take D = 17 to 64, got {D}")
+    index, _ = device_args(torch.device("cuda") if device is None else torch.device(device))
+    out = {}
+    for which, name in ((0, "bank_emission"), (1, "bank_moments")):
+        n = ctypes.c_int(0)
+        check_launch("wide_occupancy", _kernel_library().srhmm_bank_wide_occupancy(which, D, index, ctypes.byref(n)))
+        out[name] = n.value
+    return out
 
 
 def launch_counts() -> dict:

@@ -29,7 +29,7 @@ from srhmm_tpu_torch.models import stack_models
 from srhmm_tpu_torch.ops.kernels import composed as kc
 from srhmm_tpu_torch.ops.kernels.common import NEG_INF
 from srhmm_tpu_torch.train import embedded as te
-from torch_port_utils import BANK_DEPTH_CASES, both_models, rand_word
+from torch_port_utils import BANK_DEPTH_CASES, BANK_PLACE_CASES, both_models, rand_word
 
 B, T, P = 8, 24, 5
 LENS = [T, 0, 1, 17, 9, T - 1, 2, 13]
@@ -236,6 +236,21 @@ def test_bank_depth_cases_pick_their_depths(cov, mixes_dims, nbuf, slots):
     assert kc.fused_eligible(_cuda_feats(19, 95, D), [cov] * len(mixes), [D] * len(mixes), mixes, 3, 12, 19)
     assert kc.emission_ring(mixes, [kc.record_stride(D, full)] * len(mixes)) == nbuf
     assert kc.moments_slots(mixes, D, full) == slots
+
+
+@pytest.mark.parametrize("mixes_dims,nbuf,place", BANK_PLACE_CASES)
+def test_bank_place_cases_reach_their_places(mixes_dims, nbuf, place):
+    """The diagonal shapes tests/test_torch_cuda.py holds the records and
+    accumulators outside shared memory with: eligible, the emission's
+    records in device memory or a one-row ring, the moments at each place
+    of MOMENTS_PLACES past (shared, shared), within SMEM_LIMIT."""
+    mixes = [m for m, _ in mixes_dims]
+    D = mixes_dims[0][1]
+    assert kc.fused_eligible(_cuda_feats(19, 95, D), ["diag"] * len(mixes), [D] * len(mixes), mixes, 3, 12, 19)
+    assert kc.emission_ring(mixes, [kc.record_stride(D, False)] * len(mixes)) == nbuf
+    assert kc.moments_shape(mixes, D, False)[1:] == place
+    assert kc.moments_smem_bytes(mixes, D, False) <= kc.SMEM_LIMIT
+    assert {c[1] for c in BANK_PLACE_CASES} == {0, 1} and {c[2] for c in BANK_PLACE_CASES} == set(kc.MOMENTS_PLACES)
 
 
 def _moments_smem_before_redesign(mixes, D, full):

@@ -24,6 +24,7 @@ from srhmm_tpu_torch.ops.kernels.common import NEG_INF
 from srhmm_tpu_torch.train import em
 from torch_port_utils import (
     BANK_DEPTH_CASES,
+    BANK_PLACE_CASES,
     EMIT_CHECK_CASES,
     LATTICE_CASES,
     backward_lattice_case,
@@ -623,6 +624,18 @@ def test_bank_kernels_match_plain_at_every_buffer_depth(cuda_device, cov, mixes_
     assert kc.emission_ring(mixes, [kc.record_stride(D, cov == "full")] * len(mixes)) == nbuf
     assert kc.moments_slots(mixes, D, cov == "full") == slots
     _check_bank_kernels(cuda_device, cov, mixes_dims)
+
+
+@pytest.mark.parametrize("mixes_dims,nbuf,place", BANK_PLACE_CASES)
+def test_bank_kernels_match_plain_with_records_or_accumulators_off_chip(cuda_device, mixes_dims, nbuf, place):
+    """_check_bank_kernels at the diagonal shapes whose emission reads the
+    records from device memory (ring 0) or a one-row ring, and whose
+    moments keep the records, the accumulators or both outside shared
+    memory."""
+    mixes, D = [m for m, _ in mixes_dims], mixes_dims[0][1]
+    assert kc.emission_ring(mixes, [kc.record_stride(D, False)] * len(mixes)) == nbuf
+    assert kc.moments_shape(mixes, D, False)[1:] == place
+    _check_bank_kernels(cuda_device, "diag", mixes_dims)
 
 
 def test_bank_kernels_poison_out_of_range_ids(cuda_device):
@@ -1437,10 +1450,44 @@ def test_em_kernels_match_plain_past_full_d16(cuda_device, band, mixes_dims):
 
 @pytest.mark.parametrize("mixes_dims", [tuple(md) for md in BANK_FULL_WIDE_CASES])
 def test_bank_kernels_match_plain_past_full_d16(cuda_device, mixes_dims):
-    """The bank kernels at full covariance past D = 16 (every register
-    bound 24-64, two streams, the emission's records and the moments'
-    records and accumulators out of shared memory): _check_bank_kernels."""
+    """The bank kernels' z-GEMM blocks at full covariance past D = 16
+    (every register bound 24-64, D = 17, 39, 64, T = 95 off the 128-frame
+    tile, two streams of different M, a partial slice, one to three
+    mixture groups, a padded n tile at M = 9): _check_bank_kernels (two
+    runs and the two gamma layouts bitwise equal)."""
     _check_bank_kernels(cuda_device, "full", mixes_dims)
+
+
+def test_wide_bank_kernels_poison_out_of_range_ids(cuda_device):
+    """The z-GEMM blocks at full D = 39, M = 9, with utterances of up to
+    300 frames (three frame tiles, the last partial): an id outside [0, NB)
+    gives NaN log_b rows and a NaN moment row (the first or last bank row,
+    where the stable sort puts it); every other row equals the twin's."""
+    lens = [300, 0, 1, 129, 128, 257] + [int(n) for n in np.random.default_rng(17).integers(2, 300, size=7)]
+    _, _, ids, banks, feats, lengths, *_, full = _composed_case(cuda_device, "full", 3, 4, ((9, 39),), lens=lens)
+    bank = banks[0]
+    NB = bank.shape[0]
+    bad = ids.clone()
+    bad[3, 5] = NB
+    bad[4, 0] = -1
+    lb = kc.bank_emission(bad, bank, feats, full)
+    lb_p = kc.bank_emission_plain(bad.clamp(0, NB - 1), bank, feats, full)
+    torch.cuda.synchronize()
+    assert torch.isnan(lb[:, 5, 3]).all() and torch.isnan(lb[:, 0, 4]).all()
+    assert int(torch.isnan(lb).sum()) == 2 * lb.shape[0]
+    ok = ~torch.isnan(lb)
+    _lattice_close(torch.where(ok, lb, 0.0), torch.where(ok, lb_p, 0.0))
+    for g in sparse_gammas(ids, lengths, feats.shape[1], seed=5).values():
+        mom = kc.bank_moments_lattice(bad, bank, feats, g, lengths, full)
+        again = kc.bank_moments(bad, bank, feats, g.permute(2, 1, 0).contiguous(), lengths, full)
+        torch.cuda.synchronize()
+        rows_nan = torch.isnan(mom).flatten(1).any(1).cpu().numpy()
+        assert rows_nan[0] and rows_nan[NB - 1] and not rows_nan[1:NB - 1].any()
+        assert torch.equal(torch.isnan(mom), torch.isnan(again))
+        want = kc.bank_moments_lattice_plain(bad.clamp(0, NB - 1), bank, feats, g, lengths, full)
+        keep = torch.as_tensor(~rows_nan, device=mom.device)
+        assert torch.equal(mom[keep], again[keep])
+        _stat_close(mom[keep], want[keep])
 
 
 def test_train_fast_full_d39_takes_the_kernels(cuda_device):
@@ -1463,8 +1510,9 @@ def test_train_fast_full_d39_takes_the_kernels(cuda_device):
 def test_lane_and_narrow_full_launches_are_the_parents(cuda_device):
     """The lattice lane path (S <= 64), the E-step kernels and the composed
     kernels up to full D = 16 give bitwise the outputs of commit 76f6f1a's
-    kernels: tests/torch_lane_digests.py's digests equal the ones saved in
-    tests/lane_digests.json from that commit's kernels on an H100."""
+    kernels, the composed kernels at diagonal D = 39 those of commit
+    b91d8b8's: tests/torch_lane_digests.py's digests equal the ones saved
+    in tests/lane_digests.json from those commits' kernels on an H100."""
     import json
     from pathlib import Path
 

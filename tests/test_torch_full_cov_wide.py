@@ -14,9 +14,12 @@ torch_port_utils.EM_FULL_WIDE_CASES / BANK_FULL_WIDE_CASES: fused_em.fits
 and composed.fused_eligible take them, the backward-stats block keeps its
 constants in device memory and its accumulators in the partials exactly
 where csrc/fused_em.cu's backward_floats (written out again here) puts
-them past shared memory, the bank moments block and the emission ring
-likewise by csrc/composed.cu's moments_floats; the wrappers' own checks on
-meta tensors take D = 64 and refuse D = 65.  The CUDA kernels are held
+them past shared memory, the bank kernels' z-GEMM blocks take the shared
+memory csrc/composed.cu reckons (written out again), whatever M, and the
+sets reach each of their launch shapes; the wrappers' own checks on meta
+tensors take D = 64 and refuse D = 65.  At the bank cases that reach a
+padded n tile, two streams of different mixture groups and one mixture,
+the composed batch_stats_fused twins against JAX's as above.  The CUDA kernels are held
 against the twins on the card (tests/test_torch_cuda.py, chip_smoke.py).
 """
 
@@ -37,7 +40,14 @@ from srhmm_tpu.io.dataset import pack_utterances as j_pack
 from srhmm_tpu_torch.io.dataset import UtteranceBatch
 from srhmm_tpu_torch.ops.kernels import composed as kc
 from srhmm_tpu_torch.ops.kernels import fused_em as fe
-from torch_port_utils import BANK_FULL_WIDE_CASES, EM_FULL_WIDE_CASES, both_models, rand_word
+from torch_port_utils import (
+    BANK_FULL_WIDE_CASES,
+    BANK_WIDE_PLACEMENTS,
+    EM_FULL_WIDE_CASES,
+    bank_wide_placements,
+    both_models,
+    rand_word,
+)
 
 LENS = [21, 29, 0, 17, 1]
 T = 29
@@ -141,42 +151,76 @@ def test_em_kernels_take_every_wide_full_case(i):
         assert fe.backward_shape(C, 6, ds, ms, 2, True)[3:] == (True, True)
 
 
-def _moments_floats(M, stride, D, slots, rec_global, acc_global):
-    """csrc/composed.cu moments_floats, written out again."""
-    ks = 32 * slots + 4
-    return ((0 if rec_global else M * stride) + (M + D) * ks + (0 if acc_global else M * (D + D * D + 1))
-            + 5 * slots * 32)
+# shared memory an SM offers blocks (228 KB), and what it keeps a block (1 KB)
+_SM_SMEM, _BLOCK_RESERVED = 233472, 1024
+
+
+def _wide_bytes(D, which):
+    """csrc/composed.cu wide_emission_floats (which 0) and wide_moments_floats
+    / wide_moments_ints (1) in bytes, written out again: the features of 128
+    frames at pitch RB + 4, two slices of two mixtures (RB rows of L^T at
+    that pitch, c, bias and log w) and their q; then the 8 mixtures'
+    weights (pitch 132), 36 queued gamma tiles of 32, and as ints the lift
+    table (16 a m tile), the queue, the votes and the chunk's 16 pairs."""
+    rb = next(b for b in (24, 32, 40, 48, 64) if b >= -(-D // 4) * 4)
+    floats = 128 * (rb + 4) + 2 * 2 * (rb * (rb + 4) + rb + 4 + 128)
+    if which == 0:
+        return 4 * floats
+    rows = D + D * (D + 1) // 2 + 1
+    return 4 * (floats + 8 * 132 + 36 * 32) + 4 * (16 * -(-rows // 16) + 2 * 36 + 2 * 8 + 4 * 16 + 1)
 
 
 @pytest.mark.parametrize("i", range(len(BANK_FULL_WIDE_CASES)))
 def test_bank_kernels_take_every_wide_full_case(i):
+    """Every case rides the z-GEMM blocks: fused_eligible, the moments'
+    shape (4 tiles a batch, records and accumulators on the chip) and both
+    blocks' shared memory as csrc/composed.cu reckons it, within
+    SMEM_LIMIT whatever M; two blocks of each an SM at (8, 39)."""
     md = BANK_FULL_WIDE_CASES[i]
     mixes, D = [m for m, _ in md], md[0][1]
     feats = types.SimpleNamespace(device=torch.device("cuda"), dtype=torch.float32, shape=(512, 512, D))
     assert kc.fused_eligible(feats, ["full"] * len(mixes), [D] * len(mixes), mixes, 3, 36, 512)
-    stride = kc.record_stride(D, True)
-    slots, rec_global, acc_global = kc.moments_shape(mixes, D, True)
-    want = next((s, r, a) for r, a in kc.MOMENTS_PLACES for s in kc.MOMENTS_SLOTS
-                if 4 * max(_moments_floats(M, stride, D, s, r, a) for M in mixes) + 4 * (12 * s + 65) <= kc.SMEM_LIMIT)
-    assert (slots, rec_global, acc_global) == want
-    assert kc.moments_smem_bytes(mixes, D, True) <= kc.SMEM_LIMIT
-    ring = kc.emission_ring(mixes, [stride] * len(mixes))
-    row = 4 * sum(mixes) * stride
-    assert ring == next(n for n in (3, 2, 1, 0) if n * row <= kc.SMEM_LIMIT)
+    assert kc.wide_full(D, True) and kc.moments_shape(mixes, D, True) == (kc.WIDE_TILES, False, False)
+    for which in (0, 1):
+        assert kc.wide_smem_bytes(D, which) == _wide_bytes(D, which) <= kc.SMEM_LIMIT
+    assert kc.moments_smem_bytes(mixes, D, True) == _wide_bytes(D, 1)
+    assert kc.moments_smem_bytes(mixes * 100, D, True) == _wide_bytes(D, 1)  # no growth with M
+    if md == [(8, 39)]:
+        assert all(2 * (_wide_bytes(D, w) + _BLOCK_RESERVED) <= _SM_SMEM for w in (0, 1))
 
 
 def test_the_wide_sets_reach_every_placement():
-    """Ring depths 3 / 2 / 1 / 0, every moments place, every full register
-    bound 24-64 (csrc/composed.cu register_bound) and every E-step bound 32,
-    40, 64 are reached by the sets."""
-    rings, places, rbs = set(), set(), set()
-    for md in BANK_FULL_WIDE_CASES:
-        mixes, D = [m for m, _ in md], md[0][1]
-        rings.add(kc.emission_ring(mixes, [kc.record_stride(D, True)] * len(mixes)))
-        places.add(kc.moments_shape(mixes, D, True)[1:])
-        rbs.add(next(b for b in (24, 32, 40, 48, 64) if b >= -(-D // 4) * 4))
-    assert rings == {3, 2, 1, 0} and places == set(kc.MOMENTS_PLACES) and rbs == {24, 32, 40, 48, 64}
+    """Every launch shape of the z-GEMM blocks (torch_port_utils
+    BANK_WIDE_PLACEMENTS: every full register bound 24-64, two streams of
+    different M and groups, one and several slices, a partial slice, one to
+    three mixture groups, the n tile whole and padded) is reached by
+    BANK_FULL_WIDE_CASES, and every E-step bound 32, 40, 64 by
+    EM_FULL_WIDE_CASES."""
+    reached = set().union(*(bank_wide_placements(md) for md in BANK_FULL_WIDE_CASES))
+    assert reached == BANK_WIDE_PLACEMENTS
     assert {fe.em_dmax([d for _, d in md], True, "t") for md in EM_FULL_WIDE_CASES} == {32, 40, 64}
+
+
+@pytest.mark.parametrize("mixes_dims", [[(9, 39)], [(9, 17), (2, 17)], [(1, 45)]])
+def test_composed_batch_stats_match_jax_at_new_bank_wide_cases(mixes_dims):
+    """The composed batch_stats_fused (the bank and lattice twins) against
+    the JAX package's (Pallas interpret mode) at the cases of
+    BANK_FULL_WIDE_CASES that reach a padded n tile of 9 mixtures, two
+    streams of different mixture groups and one mixture: three units of
+    S = 3, B = 4, T = 32."""
+    D = mixes_dims[0][1]
+    words = [rand_word(60 + i, 3, mixes_dims, "full", 1, scale=3.0) for i in range(3)]
+    pairs = [both_models(*w, f"u{i}") for i, w in enumerate(words)]
+    jmod = jm.stack_models([p[0] for p in pairs]).astype(jnp.float32)
+    tmod = tmods.stack_models([p[1] for p in pairs]).astype(torch.float32)
+    rng = np.random.default_rng(D + len(mixes_dims))
+    trs = np.asarray([[0, 0], [1, 2], [2, 1], [0, 2]], np.int32)
+    feats = (rng.normal(size=(4, 32, D)) * 2).astype(np.float32)
+    lens = np.asarray([32, 19, 6, 1], np.int32)
+    want = je.batch_stats_fused(jmod, jnp.asarray(trs), jnp.asarray(feats), jnp.asarray(lens), k_block=8,
+                                interpret=True)
+    got = te.batch_stats_fused(tmod, torch.as_tensor(trs), torch.as_tensor(feats), torch.as_tensor(lens))
+    _stats_close(got, want)
 
 
 def test_wrappers_take_d64_and_refuse_d65_on_meta_tensors():

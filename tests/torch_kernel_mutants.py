@@ -179,9 +179,23 @@ MUTANTS += [
      "kernel_lattice_wide"),
     ("full_moment_column_off_by_one_d", TILE, "    return {2, r - d * D, d};",
      "    return {2, r - d * D, d + 1 < D ? d + 1 : d};", "kernel_em_wide"),
-    ("composed_full_record_stride_one_row_short", COMP,
-     "const float4* row = reinterpret_cast<const float4*>(rec + g * stride + d * h);",
-     "const float4* row = reinterpret_cast<const float4*>(rec + g * (stride - h) + d * h);", "kernel_composed_wide"),
+    ("composed_full_record_stride_one_row_short", COMP, "    const float* src = rec + (size_t)g * stride;",
+     "    const float* src = rec + (size_t)g * (stride - h);", "kernel_composed_wide"),
+]
+MUTANTS += [
+    # the z-GEMM blocks of the bank kernels at full covariance past D = 16
+    ("wide_mirror_copies_neighbouring_column", COMP,
+     "        o[D + ib * D + ia] = v;  // the mirror",
+     "        o[D + ib * D + ia] = o[D + ib * D + ia - 1];  // the mirror", "kernel_composed_wide"),
+    ("wide_square_sum_drops_one_lane", COMP, "    s += __shfl_sync(~0u, part, team + 3);\n", "",
+     "kernel_composed_wide"),
+    ("wide_n_tile_padding_mixture_enters_lse", COMP, "        for (int gg = 0; gg < n; ++gg) {",
+     "        for (int gg = 0; gg < kWideSlice; ++gg) {", "kernel_composed_wide"),
+    ("wide_slice_read_before_its_wait", COMP,
+     "wide_q<RB>(xs + fg * 32 * P, slices + (i & 1) * G * MF + gw * MF, d4);",
+     "wide_q<RB>(xs + fg * 32 * P, slices + ((i + 1) & 1) * G * MF + gw * MF, d4);",
+     "kernel_composed_wide"),
+    ("wide_3xtf32_drops_lo_hi", COMP, "        mma_tf32(acc[u], alo, b0h, b1h);\n", "", "kernel_composed_wide"),
 ]
 DRIVER = """
 import sys, torch

@@ -16,7 +16,9 @@ composed_forward and word-loop decode kernels (emb_c4 / tied_c5, dec_w200
 K = 1, 2, 3), and the other compare scripts' `time` for the kernels they
 compare (tests/torch_lattice_stats_compare.py for csrc/lattice.cu's
 kernels and csrc/emission_em.cu's moments; the backward and Viterbi
-variants time only backward_lattice and viterbi_batch).  The "parent_"
+variants time only backward_lattice and viterbi_batch;
+tests/torch_bank_wide_compare.py for the "wide_" variants of the bank
+kernels' z-GEMM blocks at full D = 39).  The "parent_"
 variants cut a kernel as it was before its redesign (run them with --tree
 on a checkout of that commit).
 Prints one JSON line per variant with the kernel times and the last CYC
@@ -1022,6 +1024,25 @@ VARIANTS += [
     joined("vocab_noinline_4_columns", "vocab_noinline_emission", "vocab_4_columns"),
     joined("vocab_noinline_448_threads", "vocab_noinline_emission", "vocab_448_threads_2_blocks"),
 ]
+# the z-GEMM bank kernels at full covariance past D = 16 (emb_full39):
+# without the z FMAs (z = c), with one shared-memory load of L^T (or of x)
+# a k group where there are RB / 4 (4), without the slices' copies, and
+# the moments without their contraction or without their posteriors' z-GEMM
+VARIANTS += [
+    ("wide_base", COMP, "", ""),
+    ("wide_no_z_fmas", COMP, "  for (int kk = 0; kk < d4; ++kk) {\n    float4 x[4];",
+     "  for (int kk = 0; kk < 0; ++kk) {\n    float4 x[4];"),
+    ("wide_one_w_load", COMP, "*reinterpret_cast<const float4*>(w + (4 * i + t) * P + 4 * kk);",
+     "*reinterpret_cast<const float4*>(w + t * P + 4 * kk);"),
+    ("wide_one_x_load", COMP, "x[f] = *reinterpret_cast<const float4*>(xs + (f * 8 + tau) * P + 4 * kk);",
+     "x[f] = *reinterpret_cast<const float4*>(xs + tau * P + 4 * kk);"),
+    ("wide_no_copies", COMP, "  for (int i = threadIdx.x; i < n * per; i += blockDim.x) {",
+     "  for (int i = threadIdx.x; i < 0; i += blockDim.x) {"),
+    ("wide_moments_no_contraction", COMP, "    wide_contract<RB, MTW>(acc, xs, wq, tab, nm, nb * (kTile / 8), n_mt);\n",
+     ""),
+    ("wide_moments_no_posteriors", COMP, "      if (s < ns && gw < min(kWideSlice, M - s * kWideSlice) && fg < nb) {",
+     "      if (false) {"),
+]
 SCORING_EMISSION = ("scoring_emission_", "vocab_", "emission_", "parent_vocab", "parent_emission")
 FORWARD_DECODE = ("forward_", "decode_", "parent_forward", "parent_decode")
 EMIT_MFCC = ("emit_", "mfcc_", "parent_emit", "parent_mfcc")
@@ -1033,6 +1054,8 @@ BACKWARD_VITERBI = ("lattice_bwd", "viterbi_", "parent_lattice_bwd", "parent_vit
 
 
 def timing_script(name: str) -> str:
+    if name.startswith("wide_"):
+        return "torch_bank_wide_compare.py"
     if name.startswith(LATTICE_STATS):
         return "torch_lattice_stats_compare.py"
     if name.startswith(SCORING_EMISSION):

@@ -191,6 +191,18 @@ BANK_DEPTH_CASES = [
     ("diag", ((200, 39),), 2, 1),
 ]
 
+# Diagonal bank shapes of hundreds of mixtures that reach the places of
+# csrc/composed.cu's records and accumulators outside shared memory below
+# full D = 16 (full covariance past it takes the z-GEMM blocks): (((M, D)
+# per stream), the emission ring (emission_ring), the moments'
+# (rec_global, acc_global) (moments_shape))
+BANK_PLACE_CASES = [
+    (((80, 64),) * 6, 0, (False, False)),
+    (((240, 64),), 1, (False, True)),
+    (((350, 33),), 1, (True, False)),
+    (((400, 64),), 1, (True, True)),
+]
+
 
 NEG_INF = -1e30
 
@@ -432,10 +444,10 @@ def lattice_ranges(log_trans: np.ndarray, rows: bool) -> np.ndarray:
 # the composed bank kernels (csrc/composed.cu): [(M, D) per stream].  The
 # E-step: D of 17, 20, 39 and 64 (bounds 32, 40, 64), one and two streams,
 # the records past shared memory (D = 64 and D = 39 at M = 16); the bank
-# kernels: every register bound 24, 32, 40, 48, 64 (D of 17, 20, 30, 39, 45,
-# 64), two streams, the emission's ring at each depth 3 / 2 / 1 / 0 (0: the
-# records in device memory) and the moments block at each place of its
-# records and accumulators
+# kernels' z-GEMM blocks: every register bound 24, 32, 40, 48, 64 (D of 17,
+# 20, 30, 39, 45, 64), two streams (of different M and mixture groups), one
+# and several record slices, a partial last slice (M odd), one to three
+# mixture groups of the moments, the n tile whole and padded (M = 9)
 EM_FULL_WIDE_CASES = [
     [(2, 17)],
     [(3, 20), (2, 17)],
@@ -452,4 +464,32 @@ BANK_FULL_WIDE_CASES = [
     [(24, 39)],
     [(2, 45)],
     [(16, 64)],
+    [(9, 39)],
+    [(9, 17), (2, 17)],
+    [(1, 45)],
 ]
+
+
+def bank_wide_placements(md) -> set:
+    """The launch shapes of the z-GEMM bank kernels (csrc/composed.cu,
+    ops/kernels/composed.py) that one case of BANK_FULL_WIDE_CASES reaches:
+    its register bound, two streams, one or several record slices of a
+    stream and a partial last one, its moments' mixture groups, the n tile
+    of a group whole or padded, streams of different group counts.  Shared
+    by tests/test_torch_full_cov_wide.py and chip_smoke.py."""
+    from srhmm_tpu_torch.ops.kernels import composed as kc
+
+    mixes, D = [M for M, _ in md], md[0][1]
+    groups = [-(-M // kc.WIDE_GROUP) for M in mixes]
+    out = {f"rb_{kc.register_bound(D)}"} | {f"groups_{n}" for n in groups}
+    out |= {"two_streams"} if len(md) == 2 else set()
+    out |= {"one_slice" if M <= kc.WIDE_SLICE else "several_slices" for M in mixes}
+    out |= {"partial_slice" for M in mixes if M % kc.WIDE_SLICE}
+    out |= {"padded_n_tile" if M % kc.WIDE_GROUP else "whole_n_tile" for M in mixes}
+    out |= {"streams_of_different_groups"} if len(set(groups)) > 1 else set()
+    return out
+
+
+BANK_WIDE_PLACEMENTS = {"rb_24", "rb_32", "rb_40", "rb_48", "rb_64", "two_streams", "one_slice", "several_slices",
+                        "partial_slice", "groups_1", "groups_2", "groups_3", "padded_n_tile", "whole_n_tile",
+                        "streams_of_different_groups"}
