@@ -206,8 +206,11 @@ each (any failure raises, so the exit code is non-zero):
               and dense, B = 1 and 37, T = 1 and 95, rows of length 0 and
               1; the Viterbi twin on its first 40000 // S frames,
               backpointers equal; a duplicated-state tie at S = 96), the
-              E-step kernels (#2-#5) at full covariance EM_FULL_WIDE_CASES
-              (D = 17 to 64, two streams, the records in device memory) and
+              E-step kernels' z-GEMM emission and moments beside their
+              recursions (#2-#5) at full covariance EM_FULL_WIDE_CASES
+              (D = 17 to 64, two and six streams, M past one n tile, banded
+              and dense, B and T off the blocks, columns of all-zero gamma;
+              the moments within WIDE_MOMENT_BOUND = 1e-5 max|p|) and
               the composed kernels' z-GEMM blocks at BANK_FULL_WIDE_CASES
               (every full register bound 24-64, two streams, one and several
               record slices, one to three mixture groups, a padded n tile,
@@ -276,6 +279,11 @@ BOUND = 1e-5  # kernel vs plain: max |k - p| / max(|p|, 1) over finite scores
 # summed E-step statistics, kernel vs plain: max |k - p| <= 1e-4 max |p|
 # (fp32 sums over up to ~1e6 frames, taken in another order)
 STAT_BOUND = 1e-4
+# the z-GEMM moments past full D = 16 (3xTF32 mma) vs their twin at
+# phase_kernel_em_wide's shapes: max |k - p| <= 1e-5 max |p|; the kernel
+# reads about 1.2e-6 there, a 2xTF32 contraction (no lo x hi term) about
+# 8e-5 (PERF.md section 6)
+WIDE_MOMENT_BOUND = 1e-5
 NEG_INF = -1e30  # the kernels' log-domain floor
 FRAME_S = 0.01  # seconds of audio per frame
 # the least time the card could take (NVIDIA H100 SXM data sheet):
@@ -771,7 +779,7 @@ def phase_kernel_em(torch) -> dict:
         worst["emit_forward"] = max(worst["emit_forward"], res["log_b"]["max_abs_err"],
                                     res["log_alpha"]["max_abs_err"])
         worst["backward_stats"] = max(worst["backward_stats"], *(v["max_abs_err"] for k, v in res.items()
-                                                                 if k not in ("log_b", "log_alpha")))
+                                                                 if k not in ("log_b", "log_alpha", "stored_q")))
         emit({"phase": "kernel_em", "config": name, "B": len(lens), "T": T,
               "valid": int(valid.sum()), "bitwise_repeat": True, "block": occ,
               "skipped_columns": skipped, **{k: v["rel_err"] for k, v in res.items()}})
@@ -1156,7 +1164,8 @@ def timed_pair(torch, plain, kernel, plain_warmup=1, plain_reps=20) -> dict:
             "ms": min(kern_a, kern_b), "best_plain_ms": min(plain_a, plain_b)}
 
 
-def em_bounds(out: dict, T: int, dims, full: bool, packed, trans, lengths, valid, band) -> None:
+def em_bounds(out: dict, T: int, dims, full: bool, packed, trans, lengths, valid, band,
+              stored_q: bool = False) -> None:
     """Adds each E-step kernel's bound (see bound()) and share of it to
     out["emit_forward"] / out["backward_stats"]; raises if a kernel's time
     is below its bound.  K1 reads the stepped frames' features and the
@@ -1170,7 +1179,10 @@ def em_bounds(out: dict, T: int, dims, full: bool, packed, trans, lengths, valid
     utterances: the kernel skips the others, which add nothing), the
     contraction's multiply-adds at the TF32 tensor-core rate, the rest at
     the fp32 rate, the larger of the three times; dense_bound_ms counts
-    every stepped frame at the fp32 rate, as before the kernel skipped."""
+    every stepped frame at the fp32 rate, as before the kernel skipped.
+    stored_q: whether K1 stores the per-mixture q (T, M S, B) and K2 reads
+    it in place of its emission (full covariance past D = 16): K1 writes it
+    whole, K2 reads it at the columns with a gamma that is not zero only."""
     B = lengths.shape[0]
     S = trans.shape[-1]
     lens = lengths.tolist()
@@ -1182,17 +1194,20 @@ def em_bounds(out: dict, T: int, dims, full: bool, packed, trans, lengths, valid
     em_ops = sum(mixture_ops(D, M, full) for D, M in dims)
     mom = sum(M * moment_columns(D, full) for D, M in dims)
     lattices = 4 * 2 * T * S * B
-    out["emit_forward"].update(bound(4 * frames * sum_d + consts + lattices, frames * S * (em_ops + 4 * nb + 4)))
+    q_rows = S * sum(M for _, M in dims) if stored_q else 0
+    out["emit_forward"].update(bound(4 * frames * sum_d + consts + lattices + 4 * T * B * q_rows,
+                                     frames * S * (em_ops + 4 * nb + 4)))
     k2_bytes = (4 * frames * sum_d + consts + lattices + 4 * (nb + 2) * S * B
-                + 4 * S * sum(M * moment_row(D, full) for D, M in dims))
+                + 4 * S * sum(M * moment_row(D, full) for D, M in dims) + 4 * kept * q_rows)
     dense = bound(k2_bytes, frames * S * (em_ops + 2 * mom + 8 * nb + 8))
-    fp32_ops = frames * S * (8 * nb + 8) + kept * S * (em_ops + sum(6 * M for _, M in dims))
+    fp32_ops = frames * S * (8 * nb + 8) + kept * S * ((0 if stored_q else em_ops) + sum(6 * M for _, M in dims))
     tc_ops = kept * S * 2 * mom
     times = {"bytes": k2_bytes / HBM_BYTES_PER_S * 1e3,
              "operations": max(fp32_ops / FP32_OPS_PER_S, tc_ops / TF32_TC_OPS_PER_S) * 1e3}
     by = max(times, key=times.get)
     out["backward_stats"].update({"bound_ms": times[by], "bound_by": by, "bound_bytes": k2_bytes,
-                                  "bound_ops": fp32_ops, "bound_tensor_core_ops": tc_ops,
+                                  "stored_q_read_bytes": 4 * kept * q_rows, "bound_ops": fp32_ops,
+                                  "bound_tensor_core_ops": tc_ops,
                                   "nonzero_gamma_columns": kept, "stepped_columns": frames,
                                   "skipped_column_share": 1.0 - kept / (T * B),
                                   "dense_bound_ms": dense["bound_ms"], "dense_bound_by": dense["bound_by"]})
@@ -1204,13 +1219,31 @@ def em_bounds(out: dict, T: int, dims, full: bool, packed, trans, lengths, valid
             raise AssertionError(f"{name}: {row['ms']} ms is below its bound {row['bound_ms']} ms")
 
 
+# the kernels of csrc/fused_em.cu each E-step wrapper launches: the recursion
+# kernel, and past full D = 16 the z-GEMM emission before it (emit_forward)
+# or the z-GEMM moments after it (backward_stats)
+EM_KERNELS = {"emit_forward": ("emit_forward_kernel", "em_emission_wide_kernel"),
+              "backward_stats": ("backward_stats_kernel", "em_moments_wide_kernel")}
+
+
+def em_device_ms(torch, fn, name: str, wide: bool) -> tuple:
+    """One call's device time of the E-step wrapper `name`: the sum over
+    the kernels it launches (EM_KERNELS; the first alone below full D = 16)
+    of each one's device time (kernel_device_ms), and those parts by kernel;
+    None where a key's profiler windows never saw one launch a call."""
+    keys = EM_KERNELS[name] if wide else EM_KERNELS[name][:1]
+    parts = {key: kernel_device_ms(torch, fn, key)[0] for key in keys}
+    total = None if any(v is None for v in parts.values()) else float(sum(parts.values()))
+    return total, parts
+
+
 def phase_timing_em(torch, train: dict, smi: str, plain_reps: int = 20) -> dict:
     """emit_forward, backward_stats and one whole EM iteration (kernel path
     vs fused=False) at a train shape, on the trained phase's initial model:
     CUDA events around each call (the wrapper's host work included; the
-    plain versions median of plain_reps), each kernel's own device time and
-    the fused iteration's device busy time and idle share under
-    torch.profiler."""
+    plain versions median of plain_reps), each wrapper's kernels' own
+    device time (em_device_ms) and the fused iteration's device busy time
+    and idle share under torch.profiler."""
     from srhmm_tpu_torch.ops.kernels import fused_em as fe
     from srhmm_tpu_torch.ops.kernels.common import trans_band
     from srhmm_tpu_torch.train.em import em_step
@@ -1221,32 +1254,40 @@ def phase_timing_em(torch, train: dict, smi: str, plain_reps: int = 20) -> dict:
     origins = (model.streams[0].means.mean(dim=(0, 1)),)
     packed = (fe.pack_lane_constants(model.streams[0], torch.float32, origin=origins[0]),)
     k1 = ((feats_tdb,), packed, origins, model.trans, batch.lengths, band)
-    lb, la = fe.emit_forward(*k1)
+    # the main path's route (train.em._e_step_fused): past full D = 16 emit_forward stores the per-mixture q
+    # for backward_stats where it fits
+    T, D, B = feats_tdb.shape
+    S, M, full = model.trans.shape[-1], model.mixture_numbers[0], model.streams[0].cov_type == "full"
+    wide = fe.wide_full([D], full)
+    q = fe.stored_q_buffers((feats_tdb,), [M], S, full)
+    lb, la = fe.emit_forward(*k1, q_out=q)
     log_z = la[-1, -1]
     valid = torch.isfinite(log_z) & (log_z > NEG_INF / 2) & (batch.lengths > 0)
     k2 = ((feats_tdb,), lb, la, packed, origins, model.trans, batch.lengths,
           torch.where(valid, log_z, 0.0), valid.to(torch.float32), band)
     saved = fe.emit_forward.launches, fe.backward_stats.launches
     out = {
-        "emit_forward": timed_pair(torch, lambda: fe.emit_forward_plain(*k1), lambda: fe.emit_forward(*k1),
+        "emit_forward": timed_pair(torch, lambda: fe.emit_forward_plain(*k1), lambda: fe.emit_forward(*k1, q_out=q),
                                    plain_reps=plain_reps),
-        "backward_stats": timed_pair(torch, lambda: fe.backward_stats_plain(*k2), lambda: fe.backward_stats(*k2),
-                                     plain_reps=plain_reps),
+        "backward_stats": timed_pair(torch, lambda: fe.backward_stats_plain(*k2),
+                                     lambda: fe.backward_stats(*k2, q=q), plain_reps=plain_reps),
         "em_iteration": timed_pair(
             torch, lambda: em_step(model, batch, fused=False),
             lambda: em_step(model, batch, fused=True, feats_tdb=feats_tdb, band=band), plain_reps=plain_reps),
     }
-    for name, fn in (("emit_forward", lambda: fe.emit_forward(*k1)), ("backward_stats", lambda: fe.backward_stats(*k2))):
-        out[name]["kernel_device_ms"] = kernel_device_ms(torch, fn, f"{name}_kernel")[0]
+    for name, fn in (("emit_forward", lambda: fe.emit_forward(*k1, q_out=q)),
+                     ("backward_stats", lambda: fe.backward_stats(*k2, q=q))):
+        out[name]["kernel_device_ms"], parts = em_device_ms(torch, fn, name, wide)
+        if wide:
+            out[name]["kernel_device_ms_parts"] = parts
     out["em_iteration"]["profile"] = profile_window(
         torch, lambda: em_step(model, batch, fused=True, feats_tdb=feats_tdb, band=band),
-        kernel_keys=("emit_forward_kernel", "backward_stats_kernel"))
+        kernel_keys=EM_KERNELS["emit_forward"] + EM_KERNELS["backward_stats"])
     occ = {k: fe.occupancy(w, *k1) for k, w in (("emit_forward", 0), ("backward_stats", 1))}
     fe.emit_forward.launches, fe.backward_stats.launches = saved  # timing launches
     audio_s = train["res"]["frames"] * FRAME_S
     it = out["em_iteration"]
-    D, M, full = feats_tdb.shape[1], model.mixture_numbers[0], model.streams[0].cov_type == "full"
-    em_bounds(out, feats_tdb.shape[0], [(D, M)], full, packed, model.trans, batch.lengths, valid, band)
+    em_bounds(out, T, [(D, M)], full, packed, model.trans, batch.lengths, valid, band, q is not None)
     res = {
         "phase": "timing_em", "config": train["res"]["config"], "reps": 20, "plain_reps": plain_reps, **out,
         "em_audio_s_per_s": audio_s / (it["ms"] / 1e3),
@@ -3744,7 +3785,7 @@ def phase_timing_lane(torch, lane: dict, smi: str) -> dict:
             walls.append((time.perf_counter() - t0) * 1e3)
         e_steps[name] = {"wall_ms": float(np.median(walls)), "walls_ms": walls,
                          "profile": profile_window(torch, fn, kernel_keys=LANE_KERNEL_NAMES + (
-                             "emit_forward_kernel", "backward_stats_kernel"))}
+                             *EM_KERNELS["emit_forward"], *EM_KERNELS["backward_stats"]))}
     set_lane_counts(saved)  # timing launches are not main-path launches
     audio_s = int(lengths.sum()) * FRAME_S
     res = {"phase": "timing_lane", "config": "em_diag_S8_M3_D9", "B": B, "T": T, "kernel_reps": 20, "plain_reps": 3,
@@ -4713,19 +4754,58 @@ def phase_kernel_lattice_wide(torch) -> dict:
     return worst
 
 
-# the full-covariance E-step shapes past D = 16 phase_kernel_em_wide must see reached
-EM_WIDE_SHAPES = {"dmax_32", "dmax_40", "dmax_64", "two_streams", "band_1", "dense", "consts_in_device_memory_emit",
-                  "consts_in_device_memory_stats", "acc_in_partials", "acc_in_shared_memory"}
+# the full-covariance E-step shapes past D = 16 phase_kernel_em_wide must see reached: each
+# bound, two and six streams, band 1 and dense, the recursions' log transitions in device
+# memory, a ragged block (B off the recursions' utterances and the z-GEMM's 128 columns),
+# T off the recursions' tiles, rows of length 0 and 1, candidate columns whose gamma are all
+# zero at a moments group's states, several states a group and a state over two groups
+# (M > 8), several ranges of utterances
+EM_WIDE_SHAPES = {"dmax_32", "dmax_40", "dmax_64", "two_streams", "streams_6", "band_1", "dense",
+                  "consts_in_device_memory_emit", "consts_in_device_memory_stats", "ragged_block",
+                  "frames_off_tile", "rows_0_and_1", "zero_gamma_columns", "states_share_a_group",
+                  "state_over_groups", "ranges_2"}
 
 
-def em_kernel_check(torch, fe, cov, band, mixes_dims, lens, S, name, shared_gaussians=False):
+def em_wide_reached(torch, fe, md, band, lens, la, k1: dict, k2: dict) -> set:
+    """The launch shapes of EM_WIDE_SHAPES one E-step past full D = 16
+    reaches (k1 / k2: fe.occupancy of its two wrappers; la: the plain
+    log-alpha, (T, S, B)).  A candidate column is dropped where gamma is 0
+    at every state of a moments group: counted here where log-alpha is at
+    its floor at all of them (gamma exp(min(la + beta - z, 0)) is 0.0f)."""
+    T, S, B = la.shape
+    ms = [M for M, _ in md]
+    got = {f"dmax_{fe.em_dmax([D for _, D in md], True, 'em_wide_reached')}", "dense" if band is None else "band_1"}
+    got |= {"two_streams"} if len(md) == 2 else {"streams_6"} if len(md) == 6 else set()
+    got |= {"consts_in_device_memory_emit"} if k1["consts_global"] else set()
+    got |= {"consts_in_device_memory_stats"} if not k2["consts_in_shared_memory"] else set()
+    if B % k1["utts"] or B % k2["utts_per_block"] or B % 128:
+        got.add("ragged_block")
+    if T % k1["tile"] or T % k2["tile_frames"]:
+        got.add("frames_off_tile")
+    if {0, 1} <= set(lens):
+        got.add("rows_0_and_1")
+    got |= {"states_share_a_group"} if any(M <= 4 and S > 1 for M in ms) else set()
+    got |= {"state_over_groups"} if any(M > 8 for M in ms) else set()
+    got |= {"ranges_2"} if k2["moment_grid"][0] >= 2 else set()
+    floor = (la <= NEG_INF / 2).cpu()
+    on = torch.arange(T)[:, None] < torch.as_tensor(lens)[None, :]
+    for M in ms:
+        per = max(1, 8 // M)
+        for s0 in range(0, S, per):
+            if bool((floor[:, s0:s0 + per].all(1) & on).any()):
+                got.add("zero_gamma_columns")
+    return got
+
+
+def em_kernel_check(torch, fe, cov, band, mixes_dims, lens, S, name, shared_gaussians=False, mom_bound=STAT_BOUND):
     """emit_forward and backward_stats vs their twins on one E-step's CUDA
     inputs (em_case), the twins' lattices feeding both backward passes:
-    log_b and log-alpha within BOUND (equal masks), xi, den_trans, den_mix
-    and each stream's first and second moments and occupancies within
-    STAT_BOUND (each moment block its own statistic: first moments, second
-    moments and occupancies have different scales), two kernel runs bitwise
-    equal.  Returns (the comparisons, the inputs, the valid utterances)."""
+    log_b and log-alpha within BOUND (equal masks), xi, den_trans and
+    den_mix within STAT_BOUND, each stream's first and second moments and
+    occupancies within mom_bound (each moment block its own statistic:
+    first moments, second moments and occupancies have different scales),
+    two kernel runs bitwise equal.  Returns (the comparisons, the inputs,
+    the valid utterances)."""
     feats, packed, origins, trans, lengths = args = em_case(torch, cov, band, mixes_dims, lens, S=S,
                                                             shared_gaussians=shared_gaussians)
     lb_k, la_k = fe.emit_forward(*args, band)
@@ -4748,21 +4828,33 @@ def em_kernel_check(torch, fe, cov, band, mixes_dims, lens, S, name, shared_gaus
     res = {"log_b": compare_lattice(lb_k, lb_p, f"{name} log_b"),
            "log_alpha": compare_lattice(la_k, la_p, f"{name} log_alpha")}
     for n, a, b in zip(names, parts(st_k), parts(st_p)):
-        res[n] = compare_stat(a, b, f"{name} {n}")
+        res[n] = compare_stat(a, b, f"{name} {n}", mom_bound if n.startswith("mom") else STAT_BOUND)
     if not (torch.equal(lb_k, lb_k2) and torch.equal(la_k, la_k2)
             and all(torch.equal(a, b) for a, b in zip(parts(st_k), parts(st_k2)))):
         raise AssertionError(f"{name}: two kernel runs of one E-step differ")
+    if fe.wide_full([D for _, D in mixes_dims], cov == "full"):
+        # the stored per-mixture q: within BOUND of the twin's, the lattices and statistics bitwise unchanged
+        T, S, B = lb_k.shape
+        q, q_p = ([torch.empty((T, M * S, B), device="cuda") for M, _ in mixes_dims] for _ in range(2))
+        lb_q, la_q = fe.emit_forward(*args, band, q_out=q)
+        fe.emit_forward_plain(*args, band, q_out=q_p)
+        st_q = fe.backward_stats(*rest, q=q)
+        res["stored_q"] = max((compare_lattice(a, b, f"{name} stored q") for a, b in zip(q, q_p)),
+                              key=lambda r: r["rel_err"])
+        if not (torch.equal(lb_k, lb_q) and torch.equal(la_k, la_q)
+                and all(torch.equal(a, b) for a, b in zip(parts(st_k), parts(st_q)))):
+            raise AssertionError(f"{name}: the E-step with the stored q differs from the one that recomputes it")
     return res, args, valid
 
 
 def phase_kernel_em_wide(torch) -> dict:
-    """emit_forward and backward_stats past full D = 16 vs their twins
-    (em_kernel_check) at torch_port_utils.EM_FULL_WIDE_CASES, S = 6, band 1
-    and dense, B=37, T=95 with rows of length 0 and 1.  Fails unless every
-    shape of EM_WIDE_SHAPES was reached (each full bound 32 / 40 / 64, two
-    streams, the constants in device memory for each kernel, the moment
-    accumulators in the partials and in shared memory).  Returns the worst
-    absolute error per kernel."""
+    """emit_forward and backward_stats past full D = 16 (the z-GEMM
+    emission and moments beside the recursions) vs their twins
+    (em_kernel_check, the moments within WIDE_MOMENT_BOUND) at
+    torch_port_utils.EM_FULL_WIDE_CASES, S = 6, band 1 and dense, B=37,
+    T=95 with rows of length 0 and 1.  Fails unless every
+    shape of EM_WIDE_SHAPES was reached (em_wide_reached).  Returns the
+    worst absolute error per kernel."""
     from srhmm_tpu_torch.ops.kernels import fused_em as fe
 
     saved = fe.emit_forward.launches, fe.backward_stats.launches
@@ -4773,19 +4865,15 @@ def phase_kernel_em_wide(torch) -> dict:
     for md in port_utils().EM_FULL_WIDE_CASES:
         for band in (1, None):
             name = emit_case_name("full", band, md, 6, len(lens), max(lens))
-            res, args, _ = em_kernel_check(torch, fe, "full", band, md, lens, 6, name)
+            res, args, _ = em_kernel_check(torch, fe, "full", band, md, lens, 6, name, mom_bound=WIDE_MOMENT_BOUND)
             k1, k2 = fe.occupancy(0, *args, band), fe.occupancy(1, *args, band)
-            dmax = fe.em_dmax([D for _, D in md], True, name)
-            got = {f"dmax_{dmax}", "dense" if band is None else "band_1"}
-            got |= {"two_streams"} if len(md) == 2 else set()
-            got |= {"consts_in_device_memory_emit"} if k1["consts_global"] else set()
-            got |= {"consts_in_device_memory_stats"} if not k2["consts_in_shared_memory"] else set()
-            got.add("acc_in_shared_memory" if k2["acc_in_shared_memory"] else "acc_in_partials")
+            got = em_wide_reached(torch, fe, md, band, lens, fe.emit_forward_plain(*args, band)[1], k1, k2)
             seen |= got
             worst["emit_forward"] = max(worst["emit_forward"], res["log_b"]["max_abs_err"],
                                         res["log_alpha"]["max_abs_err"])
             worst["backward_stats"] = max(worst["backward_stats"], *(v["max_abs_err"] for k, v in res.items()
-                                                                     if k not in ("log_b", "log_alpha")))
+                                                                     if k not in ("log_b", "log_alpha", "stored_q")))
+            worst["emit_forward"] = max(worst["emit_forward"], res["stored_q"]["max_abs_err"])
             emit({"phase": "kernel_em_wide", "config": name, "reached": sorted(got), "bitwise_repeat": True,
                   "emit_block": k1, "stats_block": k2, **{k: v["rel_err"] for k, v in res.items()}})
     fe.emit_forward.launches, fe.backward_stats.launches = saved  # comparison launches

@@ -63,12 +63,27 @@
 // 2 T S B floats (65 MB at the headline) and K2 reads them back once, well
 // under a millisecond of HBM time.  Later work: CUDA-graph capture of
 // whole EM iterations.
+//
+// Full covariance past D = 16 is bound instead by the z = L^T x FMAs, D^2 / 2
+// a mixture and column (em_full39: 24 mixtures of D = 39 at 2048 x 256
+// columns), which a column a thread ran as serial chains with a load per
+// 4 FMAs, and K2 computed twice and contracted over the full D^2 square
+// with its accumulators in device memory.  There each wrapper launches a
+// z-GEMM block of csrc/wide_gemm.cuh beside its recursion:
+// em_emission_wide_kernel writes log_b (and, where the caller stores it,
+// every mixture's q) before K1's recursion, which then reads log_b; K2's
+// recursion writes gamma out, and em_moments_wide_kernel contracts the
+// columns whose gamma are not all 0.0f over the lower triangle of x x^T,
+// its accumulators in registers for a whole range of utterances, from the
+// stored q or from its own z-GEMM.  Two launches a pass keep the time loop
+// inside the recursion kernels.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
 #include "emission.cuh"
 #include "tile_mma.cuh"
+#include "wide_gemm.cuh"
 
 namespace {
 
@@ -113,6 +128,12 @@ struct EmParams {
   int stat_warps;       // K2: statistics warps a block
   int acc_global;       // K2: the moment accumulators in the block's row of mom, not shared memory
   int sum_dims, max_dim;  // sum_p D_p, max_p D_p
+  int wide;             // full covariance past D = 16: K1 reads log_b (em_emission_wide_kernel wrote it), K2 writes
+                        // gamma and em_moments_wide_kernel takes the moments; neither stages features
+  float* gamma;         // (T, S, B) (K2, wide)
+  int ranges;           // utterance ranges of the moments, one partial row each (K2, wide)
+  float* qbuf[kMaxStreams];  // per stream (T, M_p S, B), rows m S + s, or null (wide): the per-mixture q that
+                             // em_emission_wide_kernel writes and em_moments_wide_kernel reads in place of its own
 };
 
 // Transition slots: a banded model has band+1 (slot k = diagonal k), a
@@ -129,10 +150,11 @@ __device__ __forceinline__ void stage_constants(const EmParams& p, float4* smem4
 // Shared memory of one emit-forward block, in floats (the wrapper's
 // ops/kernels/fused_em.py emit_smem_bytes mirrors it): the constants C
 // (unless consts_global: then they are read from device memory) | the
-// features, two slots of (TT, sum_p D_p, U) | log_b, two slots of (TT, S,
-// U) | log-alpha, two slots of (TT, S, U); slot k & 1 holds tile k.
+// features, two slots of (TT, sum_p D_p, U) (none when wide) | log_b, two
+// slots of (TT, S, U) | log-alpha, two slots of (TT, S, U); slot k & 1
+// holds tile k.
 __host__ __device__ inline size_t emit_floats(const EmParams& p) {
-  return (p.consts_global ? 0 : (size_t)p.C) + 2 * (size_t)p.TT * p.U * (p.sum_dims + 2 * p.S);
+  return (p.consts_global ? 0 : (size_t)p.C) + 2 * (size_t)p.TT * p.U * ((p.wide ? 0 : p.sum_dims) + 2 * p.S);
 }
 
 __device__ __forceinline__ void named_barrier(int id, int threads) {
@@ -171,9 +193,13 @@ __device__ __forceinline__ void named_barrier(int id, int threads) {
 //   log-alpha of tile k-1 out, runs of U floats along B.
 // Nothing but the band step and the tile's log_b read is on the serial
 // chain: log_b and log-alpha are bitwise those of one thread per (state,
-// utterance) computing its emission and step in that order.
+// utterance) computing its emission and step in that order.  Full
+// covariance past D = 16 (kWide): em_emission_wide_kernel has written log_b
+// before this launch, the emission warps copy each tile of it from device
+// memory, and no features are staged.
 template <int DMAX, bool FULL, int NSL>
 __global__ void __launch_bounds__(kEmitThreads) emit_forward_kernel(const EmParams p) {
+  constexpr bool kWide = FULL && DMAX > 16;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int S = p.S, U = p.U, TT = p.TT, T = p.T, tid = threadIdx.x;
@@ -181,7 +207,7 @@ __global__ void __launch_bounds__(kEmitThreads) emit_forward_kernel(const EmPara
   const int b0 = blockIdx.x * U;
   if (!p.consts_global) stage_constants(p, smem4, tid, blockDim.x);
   const float* cst = p.consts_global ? p.consts : smem;
-  const size_t x_tile = (size_t)TT * p.sum_dims * U, s_tile = (size_t)TT * S * U;
+  const size_t x_tile = kWide ? 0 : (size_t)TT * p.sum_dims * U, s_tile = (size_t)TT * S * U;
   float* xs = smem + (p.consts_global ? 0 : p.C);  // features
   float* lbs = xs + 2 * x_tile;                    // log_b
   float* las = lbs + 2 * s_tile;                   // log-alpha
@@ -190,12 +216,14 @@ __global__ void __launch_bounds__(kEmitThreads) emit_forward_kernel(const EmPara
 
   // the features of tile k into slot k & 1 (the memory warps' copies)
   auto stage = [&](int k) {
-    const int t0 = k * TT;
-    float* f = xs + (k & 1) * x_tile;
-    for (int q = 0; q < p.n_streams; ++q) {
-      stage_rows_async(f, p.dims[q] * U, U, p.feats[q], t0, min(TT, T - t0), p.dims[q], T, p.B, b0, U, n_rec + n_em,
-                       blockDim.x - n_rec - n_em);
-      f += (size_t)TT * p.dims[q] * U;
+    if constexpr (!kWide) {
+      const int t0 = k * TT;
+      float* f = xs + (k & 1) * x_tile;
+      for (int q = 0; q < p.n_streams; ++q) {
+        stage_rows_async(f, p.dims[q] * U, U, p.feats[q], t0, min(TT, T - t0), p.dims[q], T, p.B, b0, U, n_rec + n_em,
+                         blockDim.x - n_rec - n_em);
+        f += (size_t)TT * p.dims[q] * U;
+      }
     }
     cp_async_commit();
   };
@@ -234,46 +262,55 @@ __global__ void __launch_bounds__(kEmitThreads) emit_forward_kernel(const EmPara
     const int lane = e & 31, lg_u = 31 - __clz(U);  // U is a power of 2
     auto emit_tile = [&](int k) {
       const int t0 = k * TT, n = min(TT, T - t0), ncol = n * U;
-      const int groups = (ncol + 32 * NC - 1) / (32 * NC);
-      const float* f = xs + (k & 1) * x_tile;
-      float* lbt = lbs + (k & 1) * s_tile;
-      // task w + r n_w of the warp is (state s, group g), stepped without a division
-      int s = 0, g = e >> 5;
-      while (g >= groups) g -= groups, ++s;
-      for (; s < S; g += n_em >> 5) {
-        while (g >= groups && s < S) g -= groups, ++s;
-        if (s >= S) break;
-        const int c0 = g * 32 * NC + lane;
-        int tt[NC], u[NC];
-#pragma unroll
-        for (int j = 0; j < NC; ++j) {
-          const int c = min(c0 + 32 * j, ncol - 1);  // a column past the tile repeats the last, not stored
-          tt[j] = c >> lg_u;
-          u[j] = c & (U - 1);
+      if constexpr (kWide) {
+        // the tile's log_b from device memory: a thread a (state, column), runs of U floats along B
+        float* lbt = lbs + (k & 1) * s_tile;
+        for (int i = e; i < S * ncol; i += n_em) {
+          const int s = i / ncol, c = i - s * ncol, tt = c >> lg_u, u = c & (U - 1);
+          lbt[((size_t)tt * S + s) * U + u] = (b0 + u < p.B) ? p.log_b[((size_t)(t0 + tt) * S + s) * p.B + b0 + u] : 0.f;
         }
-        float lb[NC];
-        const float* fq = f;
-        for (int q = 0; q < p.n_streams; ++q) {
-          const int D = p.dims[q], M = p.mixes[q];
-          const float* o = cst + p.origin_offs[q];
-          float x[NC][DMAX];
+      } else {
+        const int groups = (ncol + 32 * NC - 1) / (32 * NC);
+        const float* f = xs + (k & 1) * x_tile;
+        float* lbt = lbs + (k & 1) * s_tile;
+        // task w + r n_w of the warp is (state s, group g), stepped without a division
+        int s = 0, g = e >> 5;
+        while (g >= groups) g -= groups, ++s;
+        for (; s < S; g += n_em >> 5) {
+          while (g >= groups && s < S) g -= groups, ++s;
+          if (s >= S) break;
+          const int c0 = g * 32 * NC + lane;
+          int tt[NC], u[NC];
 #pragma unroll
-          for (int j = 0; j < NC; ++j)
+          for (int j = 0; j < NC; ++j) {
+            const int c = min(c0 + 32 * j, ncol - 1);  // a column past the tile repeats the last, not stored
+            tt[j] = c >> lg_u;
+            u[j] = c & (U - 1);
+          }
+          float lb[NC];
+          const float* fq = f;
+          for (int q = 0; q < p.n_streams; ++q) {
+            const int D = p.dims[q], M = p.mixes[q];
+            const float* o = cst + p.origin_offs[q];
+            float x[NC][DMAX];
 #pragma unroll
-            for (int d = 0; d < DMAX; ++d) x[j][d] = (d < D) ? fq[(tt[j] * D + d) * U + u[j]] - o[d] : 0.f;
-          const float* rec = cst + p.offs[q] + s * M * record_stride<DMAX, FULL>(D);
-          float v[NC];
-          state_log_b_cols<DMAX, FULL, NC>(rec, M, D, x, v);
+            for (int j = 0; j < NC; ++j)
 #pragma unroll
-          for (int j = 0; j < NC; ++j) lb[j] = (q == 0) ? v[j] : lb[j] + v[j];
-          fq += (size_t)TT * D * U;
-        }
+              for (int d = 0; d < DMAX; ++d) x[j][d] = (d < D) ? fq[(tt[j] * D + d) * U + u[j]] - o[d] : 0.f;
+            const float* rec = cst + p.offs[q] + s * M * record_stride<DMAX, FULL>(D);
+            float v[NC];
+            state_log_b_cols<DMAX, FULL, NC>(rec, M, D, x, v);
 #pragma unroll
-        for (int j = 0; j < NC; ++j) {
-          if (c0 + 32 * j >= ncol) continue;
-          const float l = fmaxf(lb[j], kNegInf);
-          lbt[((size_t)tt[j] * S + s) * U + u[j]] = l;
-          if (b0 + u[j] < p.B) p.log_b[((size_t)(t0 + tt[j]) * S + s) * p.B + b0 + u[j]] = l;
+            for (int j = 0; j < NC; ++j) lb[j] = (q == 0) ? v[j] : lb[j] + v[j];
+            fq += (size_t)TT * D * U;
+          }
+#pragma unroll
+          for (int j = 0; j < NC; ++j) {
+            if (c0 + 32 * j >= ncol) continue;
+            const float l = fmaxf(lb[j], kNegInf);
+            lbt[((size_t)tt[j] * S + s) * U + u[j]] = l;
+            if (b0 + u[j] < p.B) p.log_b[((size_t)(t0 + tt[j]) * S + s) * p.B + b0 + u[j]] = l;
+          }
         }
       }
     };
@@ -380,7 +417,9 @@ __global__ void __launch_bounds__(kEmitThreads) emit_forward_kernel(const EmPara
 //   block's own row of the moment partials (acc_global) | ints: the kept
 //   columns (TT U) and the statistics warps' counts of them (stat_warps)
 // with KS = TT U rounded up to 8, + 4 past 8 columns (the fragment loads
-// then hit 32 banks).
+// then hit 32 banks).  A wide block (full covariance past D = 16) keeps the
+// ring without features, the gamma tiles, the exchange rows and the xi
+// sums, and nothing of the statistics.
 __host__ __device__ inline int backward_ks(int TT, int U) {
   const int c = TT * U;
   return (c + 7) / 8 * 8 + (c > 8 ? 4 : 0);
@@ -390,13 +429,14 @@ __host__ __device__ inline size_t backward_floats(const EmParams& p, int TT) {
   const size_t nt = (size_t)p.S * p.U;
   const int nslots = p.band >= 0 ? p.band + 1 : p.S;
   const size_t ks = backward_ks(TT, p.U);
-  return (p.consts_global ? 0 : (size_t)p.C) + 3 * (size_t)TT * p.U * (2 * p.S + p.sum_dims) + 2 * (size_t)TT * nt + 2 * nt +
-         (size_t)(nslots > kXiRegs ? nslots - kXiRegs : 0) * nt + ((size_t)p.S * p.max_mix + p.max_dim) * ks +
-         (p.acc_global ? 0 : (size_t)p.S * p.mom_thread);
+  const size_t recursion = (p.consts_global ? 0 : (size_t)p.C) + 3 * (size_t)TT * p.U * (2 * p.S + (p.wide ? 0 : p.sum_dims)) +
+                           2 * (size_t)TT * nt + 2 * nt + (size_t)(nslots > kXiRegs ? nslots - kXiRegs : 0) * nt;
+  if (p.wide) return recursion;
+  return recursion + ((size_t)p.S * p.max_mix + p.max_dim) * ks + (p.acc_global ? 0 : (size_t)p.S * p.mom_thread);
 }
 
-__host__ __device__ inline size_t backward_ints(int TT, int U, int stat_warps) {
-  return (size_t)TT * U + stat_warps;
+__host__ __device__ inline size_t backward_ints(const EmParams& p, int TT) {
+  return p.wide ? 0 : (size_t)TT * p.U + p.stat_warps;
 }
 
 // Two kinds of thread, one tile of TT frames apart (the block walks the
@@ -423,8 +463,12 @@ __host__ __device__ inline size_t backward_ints(int TT, int U, int stat_warps) {
 //   3xTF32, the states folded onto the rows since every state of a column
 //   sees the same features).  The block's accumulators, scaled back by
 //   2^-48, are its moment partial.
+// Full covariance past D = 16 (kWide): the statistics warps write each
+// gamma tile out to device memory instead, em_moments_wide_kernel takes the
+// moments, and no features are staged.
 template <int DMAX, bool FULL, int NSL>
 __global__ void __launch_bounds__(kMaxBackwardThreads) backward_stats_kernel(const EmParams p) {
+  constexpr bool kWide = FULL && DMAX > 16;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int S = p.S, U = p.U, nt = S * U, tid = threadIdx.x, TT = p.TT, T = p.T;
@@ -436,7 +480,7 @@ __global__ void __launch_bounds__(kMaxBackwardThreads) backward_stats_kernel(con
   const int nslots = banded ? p.band + 1 : S;
   if (!p.consts_global) stage_constants(p, smem4, tid, blockDim.x);
   const float* cst = p.consts_global ? p.consts : smem;
-  const size_t frame_tile = (size_t)TT * U * (2 * S + p.sum_dims);  // floats of one tile
+  const size_t frame_tile = (size_t)TT * U * (2 * S + (kWide ? 0 : p.sum_dims));  // floats of one tile
   float* ring = smem + (p.consts_global ? 0 : p.C);
   float* gam = ring + 3 * frame_tile;                  // two (TT, S, U) tiles
   float* inner_sh = gam + 2 * (size_t)TT * nt;         // two (S, U) rows: frame t writes row t & 1
@@ -458,15 +502,18 @@ __global__ void __launch_bounds__(kMaxBackwardThreads) backward_stats_kernel(con
     float* buf = ring + (k % 3) * frame_tile;
     stage_rows_async(buf, nt, U, p.la, lo, n, S, T, p.B, b0, U, 0, cnt);
     stage_rows_async(buf + (size_t)TT * nt, nt, U, p.log_b, lo + 1, n, S, T, p.B, b0, U, 0, cnt);
-    float* f = buf + 2 * (size_t)TT * nt;
-    for (int q = 0; q < p.n_streams; ++q) {
-      stage_rows_async(f, p.dims[q] * U, U, p.feats[q], lo, n, p.dims[q], T, p.B, b0, U, 0, cnt);
-      f += (size_t)TT * p.dims[q] * U;
+    if constexpr (!kWide) {
+      float* f = buf + 2 * (size_t)TT * nt;
+      for (int q = 0; q < p.n_streams; ++q) {
+        stage_rows_async(f, p.dims[q] * U, U, p.feats[q], lo, n, p.dims[q], T, p.B, b0, U, 0, cnt);
+        f += (size_t)TT * p.dims[q] * U;
+      }
     }
     cp_async_commit();
   };
   if (stats) {
-    for (int k = tid - n_rec; k < S * p.mom_thread; k += n_stat) acc[k] = 0.f;
+    if constexpr (!kWide)
+      for (int k = tid - n_rec; k < S * p.mom_thread; k += n_stat) acc[k] = 0.f;
   } else {
     for (int k = tid; k < (nslots - NSL) * nt; k += n_rec) xi_sh[k] = 0.f;
     stage(0);
@@ -587,6 +634,22 @@ __global__ void __launch_bounds__(kMaxBackwardThreads) backward_stats_kernel(con
     return;
   }
 
+  if constexpr (kWide) {
+    // ---- gamma of tile k-1 out to device memory, runs of U floats along B ----
+    for (int k = 0; k <= n_tiles; ++k) {
+      if (k >= 1) {
+        const int t_hi = T - (k - 1) * TT, t_lo = max(t_hi - TT, 0);
+        const float* g_tile = gam + (size_t)((k - 1) & 1) * TT * nt;
+        for (int i = tid - n_rec; i < (t_hi - t_lo) * nt; i += n_stat) {
+          const int tt = i / nt, r = i - tt * nt, s = r / U, u = r - s * U;
+          if (b0 + u < p.B) p.gamma[((size_t)(t_lo + tt) * S + s) * p.B + b0 + u] = g_tile[i];
+        }
+      }
+      __syncthreads();
+    }
+    return;
+  }
+
   // ---- the statistics: tiles -1 .. n_tiles-1, one a step behind ----
   const int st = tid - n_rec, swarp = st >> 5;
   for (int k = 0; k <= n_tiles; ++k) {
@@ -692,11 +755,334 @@ __global__ void __launch_bounds__(kMaxBackwardThreads) backward_stats_kernel(con
   for (int i = st; i < S * p.mom_thread; i += n_stat) out[i] = acc[i] * kWeightUnscale;
 }
 
+// ---------------------------------------------------------------------------
+// full covariance past D = 16: the emission and the moments as z-GEMM blocks
+// ---------------------------------------------------------------------------
+
+// The moments block's shared memory past wide_emission_floats(RB) (the
+// wrapper's ops/kernels/fused_em.py wide_smem_bytes mirrors it): the
+// weights of its n tile (kWideGroup, kWideKS) and the gamma of its states
+// at the batch's columns (kWideGroup, kWideFrames); ints: the lift table (16
+// a m tile at the bound RB), the queue of kept columns (kEmQcap) and the
+// warps' vote counts (2, kWideWarps).
+constexpr int kEmQcap = kWideFrames + kWideThreads;  // fewer than a batch queued, and one scan step
+
+__host__ __device__ inline size_t em_moments_floats(int rb) {
+  return wide_emission_floats(rb) + (size_t)kWideGroup * kWideKS + (size_t)kWideGroup * kWideFrames;
+}
+
+__host__ __device__ inline size_t em_moments_ints(int rb) {
+  return 16 * (size_t)wide_m_tiles(rb) + kEmQcap + 2 * kWideWarps;
+}
+
+// The moments' row groups of a stream of M mixtures over S states, one mma
+// n tile (kWideGroup rows of W) each: kWideGroup / M whole states a group
+// for M <= kWideGroup, else kWideGroup mixtures of one state.
+__host__ __device__ inline int em_groups(int S, int M) {
+  return M <= kWideGroup ? (S + kWideGroup / M - 1) / (kWideGroup / M) : S * ((M + kWideGroup - 1) / kWideGroup);
+}
+
+// The emission of K1 at full covariance past D = 16 (a z-GEMM of the
+// columns' lift [x; 1] against [L^T | c] of every mixture).  grid T *
+// ceil(B / kWideFrames), kWideThreads threads: block (t, x) takes the
+// kWideFrames columns (t, b) with b from x kWideFrames on, stages each
+// stream's features x = feats - origin there, and walks the stream's S M
+// mixtures (state-major) in slices of kWideSlice streamed through two
+// cp.async buffers, the next one copied while the block computes this one:
+// one barrier a slice; warp w computes mixture w / 4 of the slice at the 32
+// columns from 32 (w % 4) on (wide_q).  After that barrier thread c <
+// kWideFrames pushes the previous slice's q of column c into its running
+// logsumexp in mixture order, closes a state's at its last mixture (the
+// stream's own log b, 1e-38 guard), and adds it to log_b[t, s, b], which
+// it wrote itself for the streams before; the last stream's sum is clamped
+// at NEG_INF.  Only the sum of squares of z differs in order from
+// emission.cuh's full_mix_q.  Where the stream's qbuf is given, every
+// mixture's q goes there too, (t, m S + s, b), for the moments to read.
+template <int RB>
+__global__ void __launch_bounds__(kWideThreads, 2) em_emission_wide_kernel(const EmParams p) {
+  constexpr int P = wide_pitch(RB), MF = wide_mix_floats(RB), G = kWideSlice;
+  extern __shared__ float4 smem4[];
+  float* xs = reinterpret_cast<float*>(smem4);
+  float* slices = xs + kWideFrames * P;
+  float* qs = slices + 2 * G * MF;
+  const int nbx = (p.B + kWideFrames - 1) / kWideFrames;
+  const int t = blockIdx.x / nbx, b0 = (blockIdx.x - t * nbx) * kWideFrames;
+  const int S = p.S, tid = threadIdx.x, lane = tid & 31, b = b0 + tid;  // b: the column thread tid pushes
+  const int gw = (tid >> 5) / (kWideFrames / 32), fg = (tid >> 5) % (kWideFrames / 32);
+  int n_st = 0;  // stages: per stream, slices of its S M mixtures
+  for (int q = 0; q < p.n_streams; ++q) n_st += (S * p.mixes[q] + G - 1) / G;
+  struct Stage {
+    int q, mix0, n;
+  };
+  auto stage_at = [&](int q, int mix0) { return Stage{q, mix0, min(G, S * p.mixes[q] - mix0)}; };
+  auto start_copy = [&](int i, const Stage& s) {  // the copies of stage i's slice
+    const int D = p.dims[s.q], stride = record_stride(RB, D, true);
+    copy_slice_async<RB>(slices + (i & 1) * G * MF, p.consts + p.offs[s.q] + (size_t)s.mix0 * stride, stride, RB, D,
+                         s.n);
+    cp_async_commit();
+  };
+  auto stage_x = [&](int q) {  // stream q's features at the block's columns, zeros past D and B
+    const int D = p.dims[q];
+    const float* f = p.feats[q] + (size_t)t * D * p.B;
+    const float* o = p.consts + p.origin_offs[q];
+    for (int i = tid; i < RB * kWideFrames; i += kWideThreads) {
+      const int k = i / kWideFrames, c = i - k * kWideFrames;
+      xs[c * P + k] = (k < D && b0 + c < p.B) ? __ldg(f + (size_t)k * p.B + b0 + c) - __ldg(o + k) : 0.f;
+    }
+  };
+  Stage cur = stage_at(0, 0), prev = cur;
+  start_copy(0, cur);
+  stage_x(0);
+  float mr = kNegInf, er = 0.f;
+  for (int i = 0; i <= n_st; ++i) {
+    cp_async_wait<0>();  // stage i's slice has landed
+    __syncthreads();     // visible to all; stage i-1's q complete, its slice buffer free
+    Stage next = cur;
+    if (i + 1 < n_st) {
+      next = cur.mix0 + G < S * p.mixes[cur.q] ? stage_at(cur.q, cur.mix0 + G) : stage_at(cur.q + 1, 0);
+      start_copy(i + 1, next);
+    }
+    if (i > 0 && tid < kWideFrames) {
+      const int M = p.mixes[prev.q];
+      const float* qv = qs + ((i - 1) & 1) * G * kWideFrames + tid;
+      float* qout = p.qbuf[prev.q];
+      for (int g = 0; g < prev.n; ++g) {
+        lse_add(qv[g * kWideFrames], mr, er);
+        const int mi = prev.mix0 + g;
+        if (qout != nullptr && b < p.B)
+          qout[((size_t)t * S * M + (mi % M) * S + mi / M) * p.B + b] = qv[g * kWideFrames];
+        if ((mi + 1) % M == 0) {  // the state's last mixture
+          const float v = lse_value(mr, er);
+          mr = kNegInf;
+          er = 0.f;
+          if (b < p.B) {
+            float* o = p.log_b + ((size_t)t * S + mi / M) * p.B + b;
+            const float lb = (prev.q == 0) ? v : *o + v;
+            *o = (prev.q == p.n_streams - 1) ? fmaxf(lb, kNegInf) : lb;
+          }
+        }
+      }
+    }
+    if (i < n_st) {
+      if (i > 0 && cur.q != prev.q) {  // a new stream: every warp is done with stage i-1's features
+        stage_x(cur.q);
+        __syncthreads();
+      }
+      if (gw < cur.n) {
+        const float qv = wide_q<RB>(xs + fg * 32 * P, slices + (i & 1) * G * MF + gw * MF, (p.dims[cur.q] + 3) / 4);
+        qs[(i & 1) * G * kWideFrames + gw * kWideFrames + fg * 32 + wide_q_frame(lane)] = qv;
+      }
+    }
+    prev = cur;
+    cur = next;
+  }
+}
+
+// The moments of K2 at full covariance past D = 16.  grid (ranges, the row
+// groups of every stream (em_groups)), kWideThreads threads: block (r, g)
+// takes stream q's group g (states [s_lo, s_lo + n_states), the
+// mixtures [lo, hi) of their logsumexps, the rows keep .. keep + nm - 1 on
+// the mma's n) over the utterances of range r.  Every thread scans a
+// candidate column (t, b) a step, b fastest; a column whose gamma at the
+// group's states are all exactly 0.0f adds nothing (x finite) and is
+// dropped, the others queue up in scan order (ballots, the warps' counts
+// summed in warp order).  Each batch of up to kWideFrames queued columns
+// stages their features (x = feats - origin) and gamma, streams the
+// group's records through the two slice buffers (wide_q) or, where the
+// stream's qbuf holds them, reads the q em_emission_wide_kernel wrote
+// (bitwise the same values), pushes each column's q into its state's
+// logsumexp in mixture order (thread c < kWideFrames for column c), turns
+// the kept rows' q into weights gamma * post * 2^48 at the state's last
+// mixture, and adds lift w^T into accumulators that stay in registers for
+// the whole range (wide_contract: the lower triangle of x x^T on m,
+// 3xTF32).  The partial row of range r
+// gets each accumulator at its column and its mirror, in the JAX layout
+// (rows m S + s, columns [x | vec(x x^T) | 1]); the wrapper sums the rows
+// over the ranges in order.  No atomics: two runs are bitwise equal.
+template <int RB>
+__global__ void __launch_bounds__(kWideThreads, RB <= 40 ? 2 : 1) em_moments_wide_kernel(const EmParams p) {
+  constexpr int P = wide_pitch(RB), MF = wide_mix_floats(RB);
+  constexpr int MTW = (wide_m_tiles(RB) + kWideWarps - 1) / kWideWarps;  // m tiles a warp, at most
+  extern __shared__ float4 smem4[];
+  const int S = p.S, r = blockIdx.x, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gw = warp / (kWideFrames / 32), fg = warp % (kWideFrames / 32);
+  int q = 0, g = blockIdx.y;  // the block's stream and its group there
+  while (g >= em_groups(S, p.mixes[q])) g -= em_groups(S, p.mixes[q]), ++q;
+  const int M = p.mixes[q], D = p.dims[q], d4 = (D + 3) / 4, stride = record_stride(RB, D, true);
+  const int Cm = D + D * D + 1, n_mt = wide_m_tiles(D);
+  int lo, hi, keep, nm;
+  if (M <= kWideGroup) {
+    const int per = kWideGroup / M;
+    lo = g * per * M;
+    hi = min(S, (g + 1) * per) * M;
+    keep = lo;
+    nm = hi - lo;
+  } else {
+    const int mg = (M + kWideGroup - 1) / kWideGroup, s = g / mg;
+    lo = s * M;
+    hi = lo + M;
+    keep = lo + (g - s * mg) * kWideGroup;
+    nm = min(kWideGroup, hi - keep);
+  }
+  const int s_lo = lo / M, n_states = (hi - lo) / M, ns = (hi - lo + kWideSlice - 1) / kWideSlice;
+  const int per_range = (p.B + p.ranges - 1) / p.ranges, b_lo = min(p.B, r * per_range);
+  const int nbr = min(p.B, b_lo + per_range) - b_lo, ctot = p.T * nbr;  // candidate columns (t, b)
+  float* xs = reinterpret_cast<float*>(smem4);
+  float* slices = xs + kWideFrames * P;
+  float* qs = slices + 2 * kWideSlice * MF;
+  float* wq = qs + 2 * kWideSlice * kWideFrames;
+  float* gq = wq + kWideGroup * kWideKS;
+  int* tab = reinterpret_cast<int*>(gq + kWideGroup * kWideFrames);
+  int* queue = tab + 16 * wide_m_tiles(RB);
+  int* vote = queue + kEmQcap;
+  const bool stored = p.qbuf[q] != nullptr;  // the q em_emission_wide_kernel stored, else recomputed here
+  // (the stream's pointers are read from the parameters where used: fewer registers live across wide_q)
+  auto start_copy = [&](int st, int s) {  // the copies of slice s into buffer st & 1
+    copy_slice_async<RB>(slices + (st & 1) * kWideSlice * MF,
+                         p.consts + p.offs[q] + (size_t)(lo + s * kWideSlice) * stride, stride, RB, D,
+                         min(kWideSlice, hi - lo - s * kWideSlice));
+    cp_async_commit();
+  };
+
+  for (int c = tid; c < 16 * n_mt; c += kWideThreads) tab[c] = wide_lift_entry<RB>(c, D);
+  for (int f = tid; f < kWideFrames; f += kWideThreads) {
+    xs[f * P + RB] = 1.f;
+    xs[f * P + RB + 1] = 0.f;
+  }
+  float acc[MTW][4];
+#pragma unroll
+  for (int u = 0; u < MTW; ++u)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[u][i] = 0.f;
+  int head = 0, count = 0, base = 0, step = 0, st = 0;
+  for (;;) {
+    if (count < kWideFrames && base < ctot) {
+      // scan one candidate a thread, queue the kept ones in candidate order
+      const int c = base + tid;
+      bool kept = false;
+      if (c < ctot) {
+        const int t = c / nbr, b = b_lo + c - t * nbr;
+        const float* gm = p.gamma + ((size_t)t * S + s_lo) * p.B + b;
+        for (int j = 0; j < n_states; ++j) kept |= gm[(size_t)j * p.B] != 0.f;
+      }
+      const unsigned ballot = __ballot_sync(~0u, kept);
+      int* vt = vote + (step & 1) * kWideWarps;
+      if (lane == 0) vt[warp] = __popc(ballot);
+      __syncthreads();
+      int rank = 0, added = 0;
+      for (int w = 0; w < kWideWarps; ++w) {
+        rank += (w < warp) ? vt[w] : 0;
+        added += vt[w];
+      }
+      if (kept) queue[(head + count + rank + __popc(ballot & ((1u << lane) - 1))) % kEmQcap] = c;
+      count += added;
+      base += kWideThreads;
+      ++step;
+      continue;
+    }
+    if (count == 0) break;
+    // one batch of nb queued columns: column f of the batch is entry head + f
+    const int nb = min(count, kWideFrames);
+    __syncthreads();  // the queue entries are written; xs, wq and gq are free
+    if (!stored) start_copy(st, 0);
+    for (int i = tid; i < RB * kWideFrames; i += kWideThreads) {
+      const int k = i / kWideFrames, f = i - k * kWideFrames;
+      float v = 0.f;
+      if (f < nb && k < D) {
+        const int c = queue[(head + f) % kEmQcap], t = c / nbr, b = b_lo + c - t * nbr;
+        v = __ldg(p.feats[q] + ((size_t)t * D + k) * p.B + b) - __ldg(p.consts + p.origin_offs[q] + k);
+      }
+      xs[f * P + k] = v;
+    }
+    for (int i = tid; i < n_states * kWideFrames; i += kWideThreads) {
+      const int j = i / kWideFrames, f = i - j * kWideFrames;
+      float v = 0.f;
+      if (f < nb) {
+        const int c = queue[(head + f) % kEmQcap], t = c / nbr, b = b_lo + c - t * nbr;
+        v = p.gamma[((size_t)t * S + s_lo + j) * p.B + b];
+      }
+      gq[j * kWideFrames + f] = v;
+    }
+    const bool pusher = tid < kWideFrames, on = tid < nb;
+    float mr = kNegInf, er = 0.f;
+    auto push = [&](int mi, float v) {  // mixture mi's q at the pusher's column, in mixture order
+      lse_add(v, mr, er);
+      if (mi >= keep && mi < keep + nm) wq[(mi - keep) * kWideKS + tid] = v;
+      if ((mi + 1) % M == 0) {  // the state's last mixture: its kept rows' weights
+        const float lbp = lse_value(mr, er);  // this stream's own log b
+        const float gam = gq[(mi / M - s_lo) * kWideFrames + tid];
+        for (int j = max(mi + 1 - M, keep) - keep; j < min(mi + 1, keep + nm) - keep; ++j) {
+          float* wv = wq + j * kWideKS + tid;
+          const float post = (lbp > 0.5f * kNegInf) ? expf(fminf(*wv - lbp, 0.f)) : 0.f;
+          *wv = on ? (gam * post) * kWeightScale : 0.f;
+        }
+        mr = kNegInf;
+        er = 0.f;
+      }
+    };
+    if (stored) {
+      __syncthreads();  // the staged gamma
+      if (pusher) {
+        size_t col = 0;
+        if (on) {
+          const int c = queue[(head + tid) % kEmQcap], t = c / nbr;
+          col = (size_t)t * S * M * p.B + b_lo + c - t * nbr;
+        }
+        for (int mi = lo; mi < hi; ++mi) push(mi, on ? p.qbuf[q][col + (size_t)((mi % M) * S + mi / M) * p.B] : 0.f);
+      }
+    } else {
+      for (int s = 0; s <= ns; ++s) {
+        cp_async_wait<0>();  // slice s has landed
+        __syncthreads();     // visible to all; slice s-1's q complete, its buffer free
+        if (s + 1 < ns) start_copy(st + s + 1, s + 1);
+        if (s > 0 && pusher) {
+          const int mix0 = lo + (s - 1) * kWideSlice, n = min(kWideSlice, hi - mix0);
+          const float* qv = qs + ((st + s - 1) & 1) * kWideSlice * kWideFrames + tid;
+          for (int gg = 0; gg < n; ++gg) push(mix0 + gg, qv[gg * kWideFrames]);
+        }
+        if (s < ns && gw < min(kWideSlice, hi - lo - s * kWideSlice) && fg * 32 < nb) {
+          const float qv = wide_q<RB>(xs + fg * 32 * P, slices + ((st + s) & 1) * kWideSlice * MF + gw * MF, d4);
+          qs[((st + s) & 1) * kWideSlice * kWideFrames + gw * kWideFrames + fg * 32 + wide_q_frame(lane)] = qv;
+        }
+      }
+      st += ns;
+    }
+    __syncthreads();  // the weights are complete
+    wide_contract<RB, MTW>(acc, xs, wq, tab, nm, (nb + 7) / 8, n_mt);
+    head = (head + nb) % kEmQcap;
+    count -= nb;
+  }
+
+  // range r's partial row: each accumulator to its column and its mirror
+  const int lc = wide_lift_rows(D), gid = lane >> 2, tig = lane & 3;
+  float* out = p.mom + ((size_t)r * p.mom_thread + p.mom_offs[q]) * S;
+#pragma unroll
+  for (int u = 0; u < MTW; ++u) {
+    const int mt = warp + kWideWarps * u;
+    if (mt >= n_mt) continue;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int c = mt * 16 + gid + ((i & 2) ? 8 : 0), n = 2 * tig + (i & 1);
+      if (n >= nm || c >= lc) continue;
+      const float v = acc[u][i] * kWeightUnscale;
+      const int mi = keep + n, s = mi / M, e = tab[c], ia = e & 0xffff, ib = e >> 16;
+      float* o = out + ((size_t)(mi - s * M) * S + s) * Cm;
+      if (ib == RB) {
+        o[ia == RB ? Cm - 1 : ia] = v;  // x_ia, or the constant
+      } else {
+        o[D + ia * D + ib] = v;
+        o[D + ib * D + ia] = v;  // the mirror (the same column where ia == ib)
+      }
+    }
+  }
+}
+
 using KernelFn = void (*)(EmParams);
 
 // variant: 0-3 emit-forward with NSL = 0 (the generic loop), 2, 4, 8
 // transition slots unrolled; 4 backward-stats with up to 2 transition slots
-// (band 0 or 1) in registers, 5 with up to kXiRegs
+// (band 0 or 1) in registers, 5 with up to kXiRegs; full covariance past
+// D = 16 only: 6 the z-GEMM emission, 7 the z-GEMM moments
 template <int DMAX, bool FULL>
 KernelFn pick(int variant) {
   switch (variant) {
@@ -706,6 +1092,10 @@ KernelFn pick(int variant) {
     case 3: return emit_forward_kernel<DMAX, FULL, 8>;
     case 4: return backward_stats_kernel<DMAX, FULL, 2>;
     case 5: return backward_stats_kernel<DMAX, FULL, kXiRegs>;
+    case 6:
+    case 7:
+      if constexpr (FULL && DMAX > 16) return variant == 6 ? em_emission_wide_kernel<DMAX> : em_moments_wide_kernel<DMAX>;
+      return nullptr;
     default: return nullptr;
   }
 }
@@ -714,8 +1104,9 @@ KernelFn pick(int variant) {
 // 16, then 32, 40 and 64 (ops/kernels/fused_em.py FULL_DMAX_BOUNDS: 40
 // keeps D = 39's records and features in fewer registers than 64); past 16
 // the records (D DMAX floats a mixture) and the D + D^2 + 1 moments a
-// mixture outgrow shared memory, and backward_block reads the constants
-// from device memory and keeps the accumulators in the partials.
+// mixture outgrow shared memory: the emission and the moments take the
+// z-GEMM blocks (records streamed in slices, accumulators in registers) and
+// the recursions read the log transitions from device memory.
 KernelFn kernel_for(int variant, int dmax, int full) {
   if (full) {
     switch (dmax) {
@@ -742,7 +1133,7 @@ KernelFn kernel_for(int variant, int dmax, int full) {
 
 size_t smem_bytes(int which, const EmParams& p) {
   if (which == 0) return sizeof(float) * emit_floats(p);
-  return sizeof(float) * backward_floats(p, p.TT) + sizeof(int) * backward_ints(p.TT, p.U, p.stat_warps);
+  return sizeof(float) * backward_floats(p, p.TT) + sizeof(int) * backward_ints(p, p.TT);
 }
 
 // threads of a block: emit-forward its recursion, emission and memory
@@ -818,6 +1209,23 @@ cudaError_t allow_smem(KernelFn kernel, size_t smem) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
+// a z-GEMM block (variant 6 or 7) of kWideThreads threads
+int run_wide(int variant, const EmParams& p, int dmax, dim3 grid, size_t smem, int device, void* stream) {
+  const KernelFn kernel = kernel_for(variant, dmax, 1);
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  err = wide_setup(reinterpret_cast<const void*>(kernel), smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<grid, kWideThreads, smem, static_cast<cudaStream_t>(stream)>>>(p);
+  return (int)cudaGetLastError();
+}
+
+size_t wide_smem(int variant, int dmax) {
+  return variant == 6 ? sizeof(float) * wide_emission_floats(dmax)
+                      : sizeof(float) * em_moments_floats(dmax) + sizeof(int) * em_moments_ints(dmax);
+}
+
 int run(int which, int variant, const EmParams& p, int dmax, int full, int device, void* stream) {
   const KernelFn kernel = kernel_for(variant, dmax, full);
   if (kernel == nullptr) return (int)cudaErrorInvalidValue;
@@ -847,10 +1255,18 @@ extern "C" {
 // statistics warps; TT = frames a tile stages, acc_global = its moment
 // accumulators in mom rather than shared memory and consts_global = its
 // constants read from device memory (shared memory backward_floats +
-// backward_ints).
+// backward_ints); mom holds one partial row per block.  Full covariance
+// past D = 16 (dmax > 16) launches two kernels each: emit-forward
+// em_emission_wide_kernel into log_b, then the recursion; backward-stats
+// the recursion, writing gamma (T, S, B) scratch, then
+// em_moments_wide_kernel over `ranges` ranges of utterances, mom holding
+// one partial row per range.  qbuf (null, or a host array of n_streams
+// device pointers, full covariance past D = 16 only): the per-mixture q
+// (T, M_p S, B) that emit-forward writes and backward-stats' moments read
+// instead of recomputing it.
 int srhmm_emit_forward(const void* const* feats, const int* dims, const int* mixes,
                        const int* offs, const int* origin_offs, int n_streams, const void* consts,
-                       int C, int lt_off, const void* lengths, void* log_b, void* la, int T, int B,
+                       int C, int lt_off, const void* lengths, void* log_b, void* la, void* const* qbuf, int T, int B,
                        int S, int band, int full, int dmax, int U, int TT, int rec_warps, int em_warps,
                        int consts_global, int nsl, int device, void* stream) {
   EmParams p;
@@ -870,8 +1286,19 @@ int srhmm_emit_forward(const void* const* feats, const int* dims, const int* mix
   p.rec_warps = rec_warps;
   p.em_warps = em_warps;
   p.consts_global = consts_global;
+  p.wide = full && dmax > 16;
   p.log_b = static_cast<float*>(log_b);
   p.la = static_cast<float*>(la);
+  if (qbuf != nullptr) {
+    if (!p.wide) return (int)cudaErrorInvalidValue;
+    for (int q = 0; q < n_streams; ++q) p.qbuf[q] = static_cast<float*>(qbuf[q]);
+  }
+  if (p.wide) {
+    const size_t blocks = (size_t)((B + kWideFrames - 1) / kWideFrames) * T;
+    if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
+    const int err = run_wide(6, p, dmax, dim3((unsigned)blocks), wide_smem(6, dmax), device, stream);
+    if (err != 0) return err;
+  }
   return run(0, variant, p, dmax, full, device, stream);
 }
 
@@ -879,9 +1306,9 @@ int srhmm_backward_stats(const void* const* feats, const int* dims, const int* m
                          const int* offs, const int* origin_offs, int n_streams,
                          const void* consts, int C, int lt_off, const void* lengths,
                          const void* safe_z, const void* vmask, const void* log_b, const void* la,
-                         void* xi, void* den_trans, void* den_mix, void* mom, int T, int B, int S,
-                         int band, int full, int dmax, int U, int TT, int stat_warps, int acc_global,
-                         int consts_global, int device, void* stream) {
+                         void* xi, void* den_trans, void* den_mix, void* mom, void* gamma, int ranges,
+                         void* const* qbuf, int T, int B, int S, int band, int full, int dmax, int U, int TT,
+                         int stat_warps, int acc_global, int consts_global, int device, void* stream) {
   EmParams p;
   const int bad = fill_params(p, feats, dims, mixes, offs, origin_offs, n_streams, consts, C,
                               lt_off, lengths, T, B, S, band, full, U);
@@ -890,7 +1317,15 @@ int srhmm_backward_stats(const void* const* feats, const int* dims, const int* m
   p.stat_warps = stat_warps;
   p.acc_global = acc_global;
   p.consts_global = consts_global;
-  if (TT < 1 || stat_warps < 1 || block_threads(1, p) > kMaxBackwardThreads) return (int)cudaErrorInvalidValue;
+  p.wide = full && dmax > 16;
+  p.gamma = static_cast<float*>(gamma);
+  p.ranges = ranges;
+  if (TT < 1 || stat_warps < 1 || block_threads(1, p) > kMaxBackwardThreads ||
+      (p.wide && (gamma == nullptr || ranges < 1 || ranges > B)) || (qbuf != nullptr && !p.wide)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (qbuf != nullptr)
+    for (int q = 0; q < n_streams; ++q) p.qbuf[q] = static_cast<float*>(qbuf[q]);
   p.safe_z = static_cast<const float*>(safe_z);
   p.vmask = static_cast<const float*>(vmask);
   p.log_b = const_cast<float*>(static_cast<const float*>(log_b));
@@ -899,18 +1334,30 @@ int srhmm_backward_stats(const void* const* feats, const int* dims, const int* m
   p.den_trans = static_cast<float*>(den_trans);
   p.den_mix = static_cast<float*>(den_mix);
   p.mom = static_cast<float*>(mom);
-  return run(1, backward_variant(p), p, dmax, full, device, stream);
+  const int err = run(1, backward_variant(p), p, dmax, full, device, stream);
+  if (err != 0 || !p.wide) return err;
+  int groups = 0;
+  for (int q = 0; q < n_streams; ++q) groups += em_groups(S, p.mixes[q]);
+  if (groups > 65535) return (int)cudaErrorInvalidValue;
+  return run_wide(7, p, dmax, dim3(ranges, groups), wide_smem(7, dmax), device, stream);
 }
 
 // Resident blocks per SM for a launch of `threads` threads and `smem`
 // bytes of dynamic shared memory of kernel_for variant `variant` (0-3
 // emit-forward unrolled to 0 (generic), 2, 4, 8 slots; 4, 5 backward-stats
-// with 2 or kXiRegs slots in registers); written to *blocks.  Returns a
+// with 2 or kXiRegs slots in registers; 6, 7 the z-GEMM emission and
+// moments of full covariance past D = 16, at their own threads and shared
+// memory whatever `threads` and `smem` say); written to *blocks.  Returns a
 // CUDA error code (0 = ok).
 int srhmm_em_occupancy(int variant, int dmax, int full, int threads, int smem, int* blocks) {
   const KernelFn kernel = kernel_for(variant, dmax, full);
   if (kernel == nullptr) return (int)cudaErrorInvalidValue;
-  const cudaError_t err = allow_smem(kernel, (size_t)smem);
+  if (variant >= 6) {
+    threads = kWideThreads;
+    smem = (int)wide_smem(variant, dmax);
+  }
+  const cudaError_t err = variant >= 6 ? wide_setup(reinterpret_cast<const void*>(kernel), (size_t)smem)
+                                       : allow_smem(kernel, (size_t)smem);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, threads, (size_t)smem);
 }

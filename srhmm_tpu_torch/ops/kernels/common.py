@@ -33,6 +33,25 @@ def trans_band(trans) -> int | None:
 
 DMAX_BOUNDS = (4, 8, 12, 16, 32, 64)  # template bounds on D compiled in the .cu files
 SMEM_LIMIT = 232448  # bytes of shared memory a Hopper block may use
+# full covariance past D = 16: the z-GEMM blocks of csrc/wide_gemm.cuh (kWide*)
+WIDE_THREADS = 256  # threads of a block: 8 warps
+WIDE_FRAMES = 128  # frames (columns) of a z-GEMM tile, 32 a warp
+WIDE_SLICE = 2  # mixtures of a record slice (two slice buffers)
+WIDE_GROUP = 8  # mixtures of a moments block: one mma n tile
+
+
+def wide_lift_rows(D: int) -> int:
+    """Rows of the z-GEMM moments' lift: x, the lower triangle of x x^T, 1."""
+    return D + D * (D + 1) // 2 + 1
+
+
+def wide_emission_bytes(rb: int) -> int:
+    """csrc/wide_gemm.cuh wide_emission_floats in bytes at register bound
+    rb: the features of a z-GEMM tile (rows of rb + 4 floats), two record
+    slices of WIDE_SLICE mixtures (rows of L^T at that pitch, c, bias and
+    log w) and their q."""
+    pitch = rb + 4
+    return 4 * (WIDE_FRAMES * pitch + 2 * WIDE_SLICE * (rb * pitch + rb + 4 + WIDE_FRAMES))
 
 
 def on_cpu(name: str, t: torch.Tensor) -> bool:

@@ -47,12 +47,18 @@ from .common import (
     LOG_GAUS_CLAMP,
     NEG_INF,
     SMEM_LIMIT,
+    WIDE_FRAMES,
+    WIDE_GROUP,
+    WIDE_SLICE,
+    WIDE_THREADS,
     check_launch,
     device_args,
     dmax_for,
     on_cpu,
     require_float32,
     sm_count,
+    wide_emission_bytes,
+    wide_lift_rows,
 )
 from .fused_em import _lse_terms, _shift_down, _shift_up
 
@@ -67,11 +73,7 @@ MOMENTS_SLOTS = (4, 2, 1)  # tiles a moments batch = warps a block, largest that
 # records read from device memory, then both (hundreds of mixtures a row)
 MOMENTS_PLACES = ((False, False), (False, True), (True, False), (True, True))
 EMISSION_RING = (3, 2, 1, 0)  # record buffers of a bank-emission block, deepest that fits first (0: device memory)
-# full covariance past D = 16: the z-GEMM blocks (csrc/composed.cu kWide*)
-WIDE_THREADS = 256  # threads of a block: 8 warps
-WIDE_FRAMES = 128  # frames of a z-GEMM tile, 32 a warp
-WIDE_SLICE = 2  # mixtures of a record slice (two slice buffers)
-WIDE_GROUP = 8  # mixtures of a moments block: one mma n tile
+# full covariance past D = 16: the z-GEMM blocks (common.WIDE_*)
 WIDE_TILES = WIDE_FRAMES // TILE  # moments tiles a batch
 _WIDE_QCAP = SCAN * (WIDE_THREADS // 32) + WIDE_TILES  # queued tiles a moments block holds
 _FULL_REGISTER_BOUNDS = (4, 8, 12, 16, 24, 32, 40, 48, 64)  # csrc/composed.cu register_bound, full covariance
@@ -116,11 +118,6 @@ def wide_full(D: int, full: bool) -> bool:
     return full and register_bound(D) > 16
 
 
-def wide_lift_rows(D: int) -> int:
-    """Rows of the z-GEMM moments' lift: x, the lower triangle of x x^T, 1."""
-    return D + D * (D + 1) // 2 + 1
-
-
 def wide_smem_bytes(D: int, which: int) -> int:
     """csrc/composed.cu wide_emission_floats (which = 0) and
     wide_moments_floats / wide_moments_ints (1): the features of a
@@ -129,13 +126,11 @@ def wide_smem_bytes(D: int, which: int) -> int:
     the moments add the n tile's weights, the tile queue, the lift table
     and the chunk's pairs.  It does not grow with the mixtures."""
     rb = register_bound(D)
-    pitch = rb + 4
-    floats = WIDE_FRAMES * pitch + 2 * WIDE_SLICE * (rb * pitch + rb + 4 + WIDE_FRAMES)
     if which == 0:
-        return 4 * floats
-    floats += WIDE_GROUP * (WIDE_FRAMES + 4) + _WIDE_QCAP * TILE
+        return wide_emission_bytes(rb)
+    floats = WIDE_GROUP * (WIDE_FRAMES + 4) + _WIDE_QCAP * TILE
     ints = 16 * -(-wide_lift_rows(D) // 16) + 2 * _WIDE_QCAP + 2 * (WIDE_THREADS // 32) + 4 * PAIRS_PER_CHUNK + 1
-    return 4 * floats + 4 * ints
+    return wide_emission_bytes(rb) + 4 * floats + 4 * ints
 
 
 def _moments_bytes(mixes, strides, D: int, full: bool, slots: int, rec_global: bool = False,

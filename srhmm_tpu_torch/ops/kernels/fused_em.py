@@ -15,10 +15,12 @@ Counterpart of ``srhmm_tpu/ops/pallas/fused_em_pallas.py``.  Three layers:
   states, band, feature dims up to the compiled bound of 64, diagonal or
   full covariance, a backward-stats block within shared memory): every
   refusal of the two wrappers', so ``train.em`` routes any other model to
-  the plain E-step before a launch.  Full covariance past D = 16 keeps its
-  records (D x DMAX floats a mixture) in device memory and its moment
-  accumulators (D + D^2 + 1 columns a mixture) in the per-block partials
-  (``backward_shape``).
+  the plain E-step before a launch.  Full covariance past D = 16
+  (``wide_full``) takes the z-GEMM blocks of csrc/wide_gemm.cuh: each
+  wrapper launches two kernels, emit-forward the emission into log_b then
+  the recursion, backward-stats the recursion into a gamma scratch then
+  the moments over ranges of utterances (``moment_ranges``), one partial
+  row a range.
 * the shapes, in the JAX layouts: features (T, D_p, B) per stream;
   ``log_b`` and ``log_alpha`` (T, S, B); xi (nslots, S, B) per utterance
   with nslots = band+1 (slot d holds xi[j-d -> j] at j) for a banded
@@ -52,8 +54,13 @@ from .common import (
     LOG_GAUS_CLAMP,
     NEG_INF,
     SMEM_LIMIT,
+    WIDE_FRAMES,
+    WIDE_GROUP,
+    WIDE_THREADS,
     dmax_for,
     mixture_records,
+    wide_emission_bytes,
+    wide_lift_rows,
 )
 
 MAX_STREAMS = 6
@@ -72,6 +79,12 @@ XI_REGS = 8  # csrc/fused_em.cu kXiRegs: xi slots a backward-stats thread keeps 
 # full-covariance bounds DMAX compiled in csrc/fused_em.cu (kernel_for): 40
 # keeps D = 39's records and features smaller than the shared bound 64
 FULL_DMAX_BOUNDS = (4, 8, 12, 16, 32, 40, 64)
+WIDE_STAT_WARPS = 2  # warps of a wide backward-stats block writing gamma out
+WIDE_MOMENT_BLOCKS = 4  # moments blocks an SM the ranges aim at (two waves of two resident blocks)
+# share of the card's memory a stored per-mixture q may take (stored_q_refusal): the E-step's
+# other (T, ., B) buffers (features, lattices, gamma) keep the rest
+STORED_Q_SHARE = 0.25
+_WIDE_QCAP = WIDE_FRAMES + WIDE_THREADS  # csrc/fused_em.cu kEmQcap: kept columns a moments block queues
 
 
 def em_dmax(ds, full: bool, name: str) -> int:
@@ -81,6 +94,80 @@ def em_dmax(ds, full: bool, name: str) -> int:
     if not full or max(ds) > FULL_DMAX_BOUNDS[-1]:
         return dmax_for(ds, name)
     return next(b for b in FULL_DMAX_BOUNDS if b >= max(ds))
+
+
+def wide_full(ds, full: bool) -> bool:
+    """Whether the E-step kernels take the z-GEMM blocks: full covariance
+    past D = 16 (the compiled bounds 32, 40 and 64)."""
+    return full and max(ds) > 16
+
+
+def moment_groups(S: int, M: int) -> int:
+    """csrc/fused_em.cu em_groups: the z-GEMM moments' row groups of a
+    stream of M mixtures, one mma n tile of WIDE_GROUP rows each:
+    WIDE_GROUP // M whole states a group for M <= WIDE_GROUP, else
+    WIDE_GROUP mixtures of one state."""
+    if M <= WIDE_GROUP:
+        return -(-S // (WIDE_GROUP // M))
+    return S * -(-M // WIDE_GROUP)
+
+
+def moment_ranges(B: int, groups: int, sms: int) -> int:
+    """Ranges of utterances the z-GEMM moments split B into, one partial row
+    each: about WIDE_MOMENT_BLOCKS blocks an SM over all groups, ranges of
+    equal length but the last, none empty."""
+    per = -(-B // max(1, min(B, -(-WIDE_MOMENT_BLOCKS * sms // groups))))
+    return -(-B // per)
+
+
+def stored_q_bytes(T: int, S: int, B: int, ms) -> int:
+    """Bytes of the stored per-mixture q of one E-step: (T, M_p S, B)
+    float32 per stream."""
+    return 4 * T * S * B * sum(ms)
+
+
+def stored_q_refusal(ds, ms, full: bool, S: int, T: int, B: int, device_bytes: int | None = None) -> str | None:
+    """Why emit-forward does not store the per-mixture q for backward-stats
+    at these shapes, or None where it does: full covariance past D = 16
+    (wide_full) only, and, given the card's memory in bytes, at most
+    STORED_Q_SHARE of it (stored_q_bytes)."""
+    if not wide_full(ds, full):
+        return "a stored q is for full covariance past D = 16 only"
+    need = stored_q_bytes(T, S, B, ms)
+    if device_bytes is not None and need > STORED_Q_SHARE * device_bytes:
+        return f"a stored q of {need} bytes, above {STORED_Q_SHARE} of the card's {device_bytes} bytes"
+    return None
+
+
+def stored_q_buffers(feats, ms, S: int, full: bool):
+    """The per-stream (T, M_p S, B) float32 buffers in which emit_forward
+    stores the per-mixture q for backward_stats (their q_out / q), or None
+    where the moments recompute it: CPU tensors, and where
+    stored_q_refusal refuses at the card's total memory.  The total, not
+    the free memory: a free-memory query takes milliseconds a call on the
+    H100, more than the E-step's kernels (PERF.md section 6)."""
+    ds = [f.shape[1] for f in feats]
+    if not feats[0].is_cuda or not wide_full(ds, full):
+        return None
+    T, _, B = feats[0].shape
+    dev = feats[0].device
+    if stored_q_refusal(ds, ms, full, S, T, B, torch.cuda.get_device_properties(dev).total_memory) is not None:
+        return None
+    return tuple(torch.empty((T, M * S, B), dtype=torch.float32, device=dev) for M in ms)
+
+
+def wide_smem_bytes(rb: int, which: int) -> int:
+    """csrc/fused_em.cu wide_smem at the bound rb: the emission's
+    wide_emission_floats (which = 0); the moments' (1) em_moments_floats,
+    that plus the weights of its n tile (WIDE_GROUP, WIDE_FRAMES + 4) and
+    the gamma of its states (WIDE_GROUP, WIDE_FRAMES), and em_moments_ints,
+    the lift table (16 a m tile at rb), the queue of kept columns and the
+    warps' vote counts (2, warps)."""
+    if which == 0:
+        return wide_emission_bytes(rb)
+    floats = WIDE_GROUP * (WIDE_FRAMES + 4) + WIDE_GROUP * WIDE_FRAMES
+    ints = 16 * -(-wide_lift_rows(rb) // 16) + _WIDE_QCAP + 2 * (WIDE_THREADS // 32)
+    return wide_emission_bytes(rb) + 4 * floats + 4 * ints
 
 
 def pack_lane_constants(stream: GmmStream, dtype=torch.float32, origin=None):
@@ -252,12 +339,13 @@ def _frame_q(feats, packed, origins, t: int, full: bool):
     return out
 
 
-def emit_forward_plain(feats, packed, origins, trans, lengths, band):
+def emit_forward_plain(feats, packed, origins, trans, lengths, band, q_out=None):
     """The emit-forward kernel's function in eager PyTorch: per-stream
     (T, D_p, B) features + packed constants -> (log_b, log_alpha), both
     (T, S, B) float32, log-alpha rows at t >= length repeating the last
     valid row.  band: the transition band width (trans_band) or None for
-    dense transitions."""
+    dense transitions.  q_out: None, or per stream a (T, M_p S, B) float32
+    tensor that gets every frame's per-mixture q (rows m S + s)."""
     _, _, full = _stream_shapes(feats, packed)
     T, _, B = feats[0].shape
     S = trans.shape[-1]
@@ -271,9 +359,11 @@ def emit_forward_plain(feats, packed, origins, trans, lengths, band):
     carry = None
     for t in range(T):
         lb = None
-        for (_, q), pk in zip(_frame_q(feats, packed, origins, t, full), packed):
+        for p, ((_, q), pk) in enumerate(zip(_frame_q(feats, packed, origins, t, full), packed)):
             lb_p = _log_b_from_q(q, S, pk[2].shape[0] // S)
             lb = lb_p if lb is None else lb + lb_p
+            if q_out is not None:
+                q_out[p][t] = q
         lb = torch.clamp(lb, min=NEG_INF)
         if t == 0:  # frame 0 always initializes the carry, even for zero-length rows
             carry = torch.clamp(start + lb, min=NEG_INF)
@@ -377,11 +467,12 @@ def _kernel_library() -> ctypes.CDLL:
             c_ptr, c_int, c_int, c_ptr]  # consts, C, lt_off, lengths
     shape = [c_int] * 7  # T B S band full dmax U
     lib.srhmm_emit_forward.restype = c_int
-    # log_b, la; the shape; TT, rec_warps, em_warps, consts_global, nsl, device; stream
-    lib.srhmm_emit_forward.argtypes = head + [c_ptr, c_ptr] + shape + [c_int] * 6 + [c_ptr]
+    # log_b, la, the stored q; the shape; TT, rec_warps, em_warps, consts_global, nsl, device; stream
+    lib.srhmm_emit_forward.argtypes = head + [c_ptr, c_ptr, ctypes.POINTER(c_ptr)] + shape + [c_int] * 6 + [c_ptr]
     lib.srhmm_backward_stats.restype = c_int
-    # safe_z .. mom; the shape; TT, stat_warps, acc_global, consts_global, device; stream
-    lib.srhmm_backward_stats.argtypes = head + [c_ptr] * 8 + shape + [c_int] * 5 + [c_ptr]
+    # safe_z .. mom, gamma, ranges, the stored q; the shape; TT, stat_warps, acc_global, consts_global, device; stream
+    lib.srhmm_backward_stats.argtypes = (head + [c_ptr] * 9 + [c_int, ctypes.POINTER(c_ptr)] + shape + [c_int] * 5
+                                         + [c_ptr])
     lib.srhmm_em_occupancy.restype = c_int
     lib.srhmm_em_occupancy.argtypes = [c_int, c_int, c_int, c_int, c_int, p_int]
     return lib
@@ -463,6 +554,7 @@ class _Launch:
             raise ValueError(f"{name}: {why}")
         self.ms = tuple(ms // S for ms in mss)
         self.dmax = em_dmax(ds, full, name)
+        self.wide = wide_full(ds, full)
         self.name, self.dev, self.ds, self.full = name, dev, ds, full
         self.T, self.B, self.S, self.band = T, B, S, band
         self.nslots = band + 1 if band is not None else S
@@ -508,7 +600,12 @@ class _Launch:
         consts_global) for backward-stats."""
         if which == 1:
             return backward_shape(self.consts.numel(), self.S, self.ds, self.ms, self.nslots, self.full, self.name)
-        return emit_block(self.S, self.B, self.consts.numel(), self.ds, _sm_count(self.dev), self.name)
+        return emit_block(self.S, self.B, self.consts.numel(), self.ds, _sm_count(self.dev), self.name, self.wide)
+
+    def ranges(self) -> int:
+        """The z-GEMM moments' ranges of utterances (moment_ranges)."""
+        groups = sum(moment_groups(self.S, M) for M in self.ms)
+        return moment_ranges(self.B, groups, _sm_count(self.dev))
 
     def head(self):
         P = len(self.feats)
@@ -527,6 +624,23 @@ class _Launch:
         return [dev.index if dev.index is not None else torch.cuda.current_device(),
                 torch.cuda.current_stream(dev).cuda_stream]
 
+    def stored_q(self, q):
+        """The host array of the stored q's device pointers for the
+        launchers (None for none), after its checks: full covariance past
+        D = 16 (stored_q_refusal), per stream a contiguous (T, M_p S, B)
+        float32 tensor on the features' device."""
+        if q is None:
+            return None
+        why = stored_q_refusal(self.ds, self.ms, self.full, self.S, self.T, self.B)
+        if why is not None:
+            raise ValueError(f"{self.name}: {why}")
+        if len(q) != len(self.feats) or any(
+                t.shape != (self.T, M * self.S, self.B) or t.dtype != torch.float32 or t.device != self.dev
+                or not t.is_contiguous() for t, M in zip(q, self.ms)):
+            raise ValueError(f"{self.name}: the stored q must be one contiguous (T, M_p*S, B) float32 tensor "
+                             "a stream, on the features' device")
+        return (ctypes.c_void_p * len(q))(*[t.data_ptr() for t in q])
+
     def check(self, err: int):
         if err != 0:
             msg = _kernel_library().srhmm_cuda_error_string(err).decode()
@@ -539,17 +653,22 @@ def moment_floats(ds, ms, full: bool) -> int:
 
 
 def backward_smem_bytes(C: int, S: int, ds, ms, nslots: int, full: bool, U: int, TT: int, stat_warps: int,
-                        acc_global: bool = False, consts_global: bool = False) -> int:
+                        acc_global: bool = False, consts_global: bool = False, wide: bool = False) -> int:
     """csrc/fused_em.cu backward_floats + backward_ints: the dynamic shared
     memory of a backward-stats block of U utterances at TT frames a tile
     with stat_warps statistics warps, for C floats of constants (the
     records, origins and log transitions); acc_global: the moment
     accumulators in the block's row of the partials instead of shared
-    memory; consts_global: the constants read from device memory."""
+    memory; consts_global: the constants read from device memory; wide
+    (full covariance past D = 16): the recursion's part alone, no features
+    staged (the statistics warps write gamma out)."""
     nt, cols = S * U, TT * U
+    recursion = ((0 if consts_global else C) + 3 * TT * U * (2 * S + (0 if wide else sum(ds))) + 2 * TT * nt + 2 * nt
+                 + max(nslots - XI_REGS, 0) * nt)
+    if wide:
+        return 4 * recursion
     ks = -(-cols // 8) * 8 + (4 if cols > 8 else 0)
-    floats = ((0 if consts_global else C) + 3 * TT * U * (2 * S + sum(ds)) + 2 * TT * nt + 2 * nt + max(nslots - XI_REGS, 0) * nt
-              + (S * max(ms) + max(ds)) * ks + (0 if acc_global else S * moment_floats(ds, ms, full)))
+    floats = recursion + (S * max(ms) + max(ds)) * ks + (0 if acc_global else S * moment_floats(ds, ms, full))
     return 4 * floats + 4 * (cols + stat_warps)
 
 
@@ -562,14 +681,16 @@ def emit_slots(S: int, band) -> int:
     return next((n for n in EMIT_SLOTS if n >= band + 1), 0)
 
 
-def emit_smem_bytes(C: int, S: int, sum_d: int, U: int, TT: int, consts_global: bool = False) -> int:
+def emit_smem_bytes(C: int, S: int, sum_d: int, U: int, TT: int, consts_global: bool = False,
+                    wide: bool = False) -> int:
     """csrc/fused_em.cu emit_floats: the constants (C floats, unless read
-    from device memory), two slots each of the features (TT, sum_p D_p, U),
-    log_b and log-alpha (TT, S, U)."""
-    return 4 * ((0 if consts_global else C) + 2 * TT * U * (sum_d + 2 * S))
+    from device memory), two slots each of the features (TT, sum_p D_p, U;
+    none when wide: full covariance past D = 16 reads log_b), log_b and
+    log-alpha (TT, S, U)."""
+    return 4 * ((0 if consts_global else C) + 2 * TT * U * ((0 if wide else sum_d) + 2 * S))
 
 
-def emit_block(S: int, B: int, C: int, ds, sms: int, name: str = "emit_forward") -> dict:
+def emit_block(S: int, B: int, C: int, ds, sms: int, name: str = "emit_forward", wide: bool = False) -> dict:
     """The emit-forward launch shape on a card of `sms` SMs, for C floats of
     constants and feature dims ds.  Utterances a block U: the largest of
     EMIT_UTTS whose recursion fits EMIT_REC_WARPS warps (32 // S utterances
@@ -578,7 +699,10 @@ def emit_block(S: int, B: int, C: int, ds, sms: int, name: str = "emit_forward")
     for that); the tile the largest of EMIT_TILES that fits SMEM_LIMIT with
     the constants in shared memory, halving U until one does, else the
     constants stay in device memory at that U; EMIT_MEMORY_WARPS memory
-    warps and the rest of EMIT_THREADS emission warps."""
+    warps and the rest of EMIT_THREADS emission warps.  wide (full
+    covariance past D = 16): the recursion's block after the z-GEMM
+    emission, no features staged and the log transitions read from device
+    memory, so only log_b and log-alpha tiles take shared memory."""
     if S > MAX_STATES:
         raise ValueError(f"{name}: at most {MAX_STATES} states, got {S}")
     W = -(-S // 32)  # warps an utterance's states span
@@ -587,16 +711,16 @@ def emit_block(S: int, B: int, C: int, ds, sms: int, name: str = "emit_forward")
     utts = [U for U in EMIT_UTTS if U <= cap]
     busy = next((U for U in utts if -(-B // U) >= EMIT_BUSY * sms), 1)
     sum_d = sum(ds)
-    shape = next(((U, TT, False) for U in utts if U <= busy for TT in EMIT_TILES
-                  if emit_smem_bytes(C, S, sum_d, U, TT) <= SMEM_LIMIT), None)
+    shape = None if wide else next(((U, TT, False) for U in utts if U <= busy for TT in EMIT_TILES
+                                    if emit_smem_bytes(C, S, sum_d, U, TT) <= SMEM_LIMIT), None)
     if shape is None:
-        TT = next(tt for tt in EMIT_TILES if emit_smem_bytes(C, S, sum_d, busy, tt, True) <= SMEM_LIMIT)
+        TT = next(tt for tt in EMIT_TILES if emit_smem_bytes(C, S, sum_d, busy, tt, True, wide) <= SMEM_LIMIT)
         shape = (busy, TT, True)
     U, TT, consts_global = shape
     rec = -(-U // G) if S <= 32 else U * W
     return {"utts": U, "tile": TT, "rec_warps": rec, "em_warps": EMIT_THREADS // 32 - rec - EMIT_MEMORY_WARPS,
             "memory_warps": EMIT_MEMORY_WARPS, "warps_per_utt": W, "consts_global": consts_global,
-            "threads": EMIT_THREADS, "smem_bytes": emit_smem_bytes(C, S, sum_d, U, TT, consts_global)}
+            "threads": EMIT_THREADS, "smem_bytes": emit_smem_bytes(C, S, sum_d, U, TT, consts_global, wide)}
 
 
 @functools.cache
@@ -605,23 +729,25 @@ def _sm_count(dev: torch.device) -> int:
 
 
 def backward_block(C: int, S: int, ds, ms, nslots: int, full: bool,
-                   name: str = "backward_stats", consts_global: bool = False) -> tuple[int, int, int, bool]:
+                   name: str = "backward_stats", consts_global: bool = False,
+                   wide: bool = False) -> tuple[int, int, int, bool]:
     """(utterances per block U, frames a tile TT, statistics warps,
     acc_global) of the backward-stats kernel: U = min(16, 128 // S) (at
     most four warps of recursion threads), statistics warps filling the
     block to 512 threads, TT the largest of BACKWARD_TILES whose block fits
     SMEM_LIMIT, with the moment accumulators in shared memory or, where
     only that way it fits, in the block's row of the partials; U halves
-    until a tile fits.  consts_global: the constants in device memory."""
+    until a tile fits.  consts_global: the constants in device memory.
+    wide: the recursion alone and WIDE_STAT_WARPS warps writing gamma out."""
     if S > MAX_STATES:
         raise ValueError(f"{name}: at most {MAX_STATES} states, got {S}")
     U = max(1, min(BACKWARD_UTTS, 128 // S))
     while True:
-        warps = _backward_stat_warps(S, U)
+        warps = WIDE_STAT_WARPS if wide else _backward_stat_warps(S, U)
         for TT in BACKWARD_TILES:
-            for acc_global in (False, True):
+            for acc_global in (False,) if wide else (False, True):
                 if backward_smem_bytes(C, S, ds, ms, nslots, full, U, TT, warps, acc_global,
-                                       consts_global) <= SMEM_LIMIT:
+                                       consts_global, wide) <= SMEM_LIMIT:
                     return U, TT, warps, acc_global
         if U == 1:
             raise ValueError(
@@ -634,9 +760,12 @@ def backward_block(C: int, S: int, ds, ms, nslots: int, full: bool,
 def backward_shape(C: int, S: int, ds, ms, nslots: int, full: bool,
                    name: str = "backward_stats") -> tuple[int, int, int, bool, bool]:
     """backward_block's shape with the constants in shared memory, else
-    (full covariance past D = 16: records of D DMAX floats a mixture) with
-    them read from device memory: (U, TT, statistics warps, acc_global,
-    consts_global)."""
+    with them read from device memory: (U, TT, statistics warps,
+    acc_global, consts_global).  Full covariance past D = 16 (wide_full):
+    the wide recursion's block, the log transitions read from device
+    memory."""
+    if wide_full(ds, full):
+        return (*backward_block(C, S, ds, ms, nslots, full, name, consts_global=True, wide=True), True)
     try:
         return (*backward_block(C, S, ds, ms, nslots, full, name), False)
     except ValueError:
@@ -665,23 +794,27 @@ def _on_cpu(name, feats) -> bool:
     return False
 
 
-def emit_forward(feats, packed, origins, trans, lengths, band):
+def emit_forward(feats, packed, origins, trans, lengths, band, q_out=None):
     """Per-stream (T, D_p, B) features + packed constants
     (pack_lane_constants, about ``origins``) -> (log_b, log_alpha), both
-    (T, S, B) float32 (see emit_forward_plain).
+    (T, S, B) float32 (see emit_forward_plain).  q_out: None, or per
+    stream a (T, M_p S, B) float32 tensor for the per-mixture q, which
+    backward_stats then reads instead of recomputing it (full covariance
+    past D = 16: stored_q_refusal, stored_q_buffers; else ValueError).
 
     CUDA tensors launch the hand-written kernel (csrc/fused_em.cu) and count
     one in ``emit_forward.launches``; CPU tensors run emit_forward_plain."""
     if _on_cpu("emit_forward", feats):
-        return emit_forward_plain(feats, packed, origins, trans, lengths, band)
+        return emit_forward_plain(feats, packed, origins, trans, lengths, band, q_out)
     ln = _Launch("emit_forward", feats, packed, origins, trans, lengths, band)
+    qbuf = ln.stored_q(q_out)
     shape = ln.block(0)
     f32 = dict(dtype=torch.float32, device=ln.dev)
     log_b = torch.empty((ln.T, ln.S, ln.B), **f32)
     la = torch.empty((ln.T, ln.S, ln.B), **f32)
     lib = _kernel_library()
     ln.check(lib.srhmm_emit_forward(
-        *ln.head(), log_b.data_ptr(), la.data_ptr(), *ln.shape(shape["utts"]), shape["tile"],
+        *ln.head(), log_b.data_ptr(), la.data_ptr(), qbuf, *ln.shape(shape["utts"]), shape["tile"],
         shape["rec_warps"], shape["em_warps"], int(shape["consts_global"]), emit_slots(ln.S, ln.band), *ln.where()))
     emit_forward.launches += 1
     return log_b, la
@@ -690,21 +823,25 @@ def emit_forward(feats, packed, origins, trans, lengths, band):
 emit_forward.launches = 0
 
 
-def backward_stats(feats, log_b, log_alpha, packed, origins, trans, lengths, safe_z, vmask, band):
+def backward_stats(feats, log_b, log_alpha, packed, origins, trans, lengths, safe_z, vmask, band, q=None):
     """The E-step statistics from emit_forward's lattices: (xi (nslots, S,
     B), den_trans (S, B), den_mix (S, B), (mom_p (M_p*S, L_p+1), ...))
-    (see backward_stats_plain).
+    (see backward_stats_plain).  q: None, or the per-mixture q emit_forward
+    stored (its q_out), which the moments read instead of recomputing it
+    (bitwise the same statistics).
 
     CUDA tensors launch the hand-written kernel (csrc/fused_em.cu) and count
-    one in ``backward_stats.launches``; the per-block moment partials are
-    summed over blocks here, in a fixed order.  CPU tensors run
-    backward_stats_plain."""
+    one in ``backward_stats.launches``; the per-block moment partials (per
+    range of utterances at full covariance past D = 16, where the recursion
+    writes gamma to a scratch the z-GEMM moments read) are summed over
+    blocks here, in a fixed order.  CPU tensors run backward_stats_plain."""
     if _on_cpu("backward_stats", feats):
         return backward_stats_plain(
             feats, log_b, log_alpha, packed, origins, trans, lengths, safe_z, vmask, band
         )
     ln = _Launch("backward_stats", feats, packed, origins, trans, lengths, band,
                  extra=(log_b, log_alpha, safe_z, vmask))
+    qbuf = ln.stored_q(q)
     T, S, B = ln.T, ln.S, ln.B
     if log_b.shape != (T, S, B) or log_alpha.shape != (T, S, B):
         raise ValueError("backward_stats: log_b / log_alpha must be (T, S, B)")
@@ -720,13 +857,15 @@ def backward_stats(feats, log_b, log_alpha, packed, origins, trans, lengths, saf
     xi = torch.empty((ln.nslots, S, B), **f32)
     den_trans = torch.empty((S, B), **f32)
     den_mix = torch.empty((S, B), **f32)
-    blocks = -(-B // U)
-    partial = torch.empty((blocks, S * mom_thread), **f32)
+    ranges = ln.ranges() if ln.wide else 0
+    gamma = torch.empty((T, S, B), **f32) if ln.wide else None
+    partial = torch.empty((ranges if ln.wide else -(-B // U), S * mom_thread), **f32)
     lib = _kernel_library()
     ln.check(lib.srhmm_backward_stats(
         *ln.head(), safe_z.data_ptr(), vmask.data_ptr(),
         log_b.data_ptr(), log_alpha.data_ptr(), xi.data_ptr(),
-        den_trans.data_ptr(), den_mix.data_ptr(), partial.data_ptr(), *ln.shape(U),
+        den_trans.data_ptr(), den_mix.data_ptr(), partial.data_ptr(),
+        None if gamma is None else gamma.data_ptr(), ranges, qbuf, *ln.shape(U),
         TT, stat_warps, int(acc_global), int(consts_global), *ln.where(),
     ))
     backward_stats.launches += 1
@@ -745,7 +884,10 @@ backward_stats.launches = 0
 def occupancy(which: int, feats, packed, origins, trans, lengths, band) -> dict:
     """Resident blocks and warps per SM of one launch (which: 0 =
     emit-forward, 1 = backward-stats), from the CUDA occupancy calculator
-    for the block shape the wrappers choose, with that shape."""
+    for the block shape the wrappers choose, with that shape.  Full
+    covariance past D = 16 adds the z-GEMM kernel's blocks an SM
+    (``emission_blocks_per_sm`` / ``moments_blocks_per_sm``) and, for the
+    moments, their grid (ranges x row groups)."""
     ln = _Launch("occupancy", feats, packed, origins, trans, lengths, band)
     if which == 0:
         shape = ln.block(0)
@@ -755,12 +897,20 @@ def occupancy(which: int, feats, packed, origins, trans, lengths, band) -> dict:
     else:
         U, TT, stat_warps, acc_global, consts_global = ln.block(1)
         threads = -(-ln.S * U // 32) * 32 + 32 * stat_warps
-        smem = backward_smem_bytes(ln.consts.numel(), ln.S, ln.ds, ln.ms, ln.nslots, ln.full, U, TT, stat_warps,
-                                   acc_global, consts_global)
         variant = 4 if ln.nslots <= 2 else 5  # csrc/fused_em.cu backward_variant
         out = {"tile_frames": TT, "stat_warps": stat_warps, "acc_in_shared_memory": not acc_global,
                "consts_in_shared_memory": not consts_global}
+        smem = backward_smem_bytes(ln.consts.numel(), ln.S, ln.ds, ln.ms, ln.nslots, ln.full, U, TT, stat_warps,
+                                   acc_global, consts_global, ln.wide)
+    lib = _kernel_library()
     blocks = ctypes.c_int(0)
-    ln.check(_kernel_library().srhmm_em_occupancy(variant, ln.dmax, int(ln.full), threads, smem, ctypes.byref(blocks)))
+    ln.check(lib.srhmm_em_occupancy(variant, ln.dmax, int(ln.full), threads, smem, ctypes.byref(blocks)))
+    if ln.wide:  # the z-GEMM kernel beside the recursion (csrc/fused_em.cu variants 6 and 7)
+        wide = ctypes.c_int(0)
+        ln.check(lib.srhmm_em_occupancy(6 + which, ln.dmax, 1, 0, 0, ctypes.byref(wide)))
+        kind = "moments" if which else "emission"
+        out = {**out, f"{kind}_blocks_per_sm": wide.value, f"{kind}_smem_bytes": wide_smem_bytes(ln.dmax, which)}
+        if which == 1:
+            out["moment_grid"] = (ln.ranges(), sum(moment_groups(ln.S, M) for M in ln.ms))
     return {**out, "utts_per_block": U, "threads": threads, "smem_bytes": smem, "blocks_per_sm": blocks.value,
             "grid": -(-ln.B // U), "warps_per_block": -(-threads // 32)}

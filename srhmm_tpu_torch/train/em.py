@@ -454,8 +454,11 @@ def _unshift_moments(mom, origin, cov_type, S: int, M: int, D: int) -> StreamSta
 def _e_step_fused(model: GmmHmm, batches, feats_tdb, band) -> SuffStats:
     """The fused E-step for P >= 1 streams: emit-forward, then
     backward-stats, in float32.  Any (B, T): the kernels mask frames past
-    each length and zero-length rows themselves, so no padding is needed."""
-    from ..ops.kernels.fused_em import backward_stats, emit_forward, pack_lane_constants
+    each length and zero-length rows themselves, so no padding is needed.
+    On a card at full covariance past D = 16, emit-forward stores the
+    per-mixture q for backward-stats' moments where it fits
+    (fused_em.stored_q_buffers), else the moments recompute it."""
+    from ..ops.kernels.fused_em import backward_stats, emit_forward, pack_lane_constants, stored_q_buffers
 
     streams = model.streams
     if len(streams) != len(batches):
@@ -474,14 +477,15 @@ def _e_step_fused(model: GmmHmm, batches, feats_tdb, band) -> SuffStats:
     packed = tuple(pack_lane_constants(s, dtype, origin=o) for s, o in zip(streams, origins))
     trans = model.trans.to(dtype)
 
-    log_b, la = emit_forward(feats_tdb, packed, origins, trans, lengths, band)
+    q = stored_q_buffers(feats_tdb, [s.num_mixtures for s in streams], S, cov == FULL)
+    log_b, la = emit_forward(feats_tdb, packed, origins, trans, lengths, band, q_out=q)
     log_z = la[-1, S - 1, :]  # (B,): rows repeat past each length
     valid = torch.isfinite(log_z) & (log_z > NEG_INF / 2) & (lengths > 0)
     vmask = valid.to(dtype)
     safe_z = torch.where(valid, log_z, 0.0)
 
     xi, den_trans, den_mix, moms = backward_stats(
-        feats_tdb, log_b, la, packed, origins, trans, lengths, safe_z, vmask, band
+        feats_tdb, log_b, la, packed, origins, trans, lengths, safe_z, vmask, band, q=q
     )
     stream_stats = tuple(
         _unshift_moments(mom, o, cov, S, s.num_mixtures, s.dim)

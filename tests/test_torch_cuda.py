@@ -1429,8 +1429,12 @@ def test_block_viterbi_ties_go_to_the_lowest_source(cuda_device):
 @pytest.mark.parametrize("mixes_dims", EM_FULL_WIDE_CASES)
 def test_em_kernels_match_plain_past_full_d16(cuda_device, band, mixes_dims):
     """emit_forward and backward_stats at full covariance past D = 16 (the
-    bounds 32, 40 and 64, two streams, the records past shared memory)
-    against their twins, two launches bitwise equal."""
+    z-GEMM emission and moments: the bounds 32, 40 and 64, two and six
+    streams, banded and dense, M past one n tile, B = 37 off the blocks'
+    utterances and T = 95 off the tiles, rows of length 0 and 1, columns of
+    all-zero gamma) against their twins, two launches bitwise equal; the
+    stored per-mixture q against the twin's, and the statistics from it
+    bitwise those the moments recompute."""
     args = (*_em_inputs(cuda_device, "full", band, mixes_dims, _LENS), band)
     lb_k, la_k = fe.emit_forward(*args)
     lb_p, la_p = fe.emit_forward_plain(*args)
@@ -1438,14 +1442,55 @@ def test_em_kernels_match_plain_past_full_d16(cuda_device, band, mixes_dims):
     _lattice_close(la_k, la_p)
     assert all(torch.equal(a, b) for a, b in zip((lb_k, la_k), fe.emit_forward(*args)))
     feats, packed, origins, trans, lengths, _ = args
+    # the stored per-mixture q: the lattices unchanged, q against the twin's
+    T, S, B = lb_k.shape
+    q, q_p = ([torch.empty((T, M * S, B), device=cuda_device) for M, _ in mixes_dims] for _ in range(2))
+    assert all(torch.equal(a, b) for a, b in zip((lb_k, la_k), fe.emit_forward(*args, q_out=q)))
+    fe.emit_forward_plain(*args, q_out=q_p)
+    for a, b in zip(q, q_p):
+        _lattice_close(a, b)
     log_z = la_p[-1, -1]
     valid = torch.isfinite(log_z) & (log_z > NEG_INF / 2) & (lengths > 0)
     rest = (feats, lb_p, la_p, packed, origins, trans, lengths, torch.where(valid, log_z, 0.0), valid.float(), band)
     got, again, want = fe.backward_stats(*rest), fe.backward_stats(*rest), fe.backward_stats_plain(*rest)
+    stored = fe.backward_stats(*rest, q=q)
     torch.cuda.synchronize()
-    for a, b, c in zip(_stat_parts(got, mixes_dims), _stat_parts(again, mixes_dims), _stat_parts(want, mixes_dims)):
-        assert torch.equal(a, b)
+    for a, b, c, d in zip(_stat_parts(got, mixes_dims), _stat_parts(again, mixes_dims), _stat_parts(want, mixes_dims),
+                          _stat_parts(stored, mixes_dims)):
+        assert torch.equal(a, b) and torch.equal(a, d)
         _stat_close(a, c)
+
+
+@pytest.mark.parametrize("mixes_dims", [((4, 39),), ((9, 20), (1, 17))])
+def test_em_wide_kernels_at_many_columns_and_zero_gamma(cuda_device, mixes_dims):
+    """The z-GEMM E-step past full D = 16 at B = 300 (three emission column
+    blocks, the last ragged; several utterances a moments range), T = 40
+    off the recursions' tiles, shared Gaussians (every posterior a weight,
+    no mixture's q far below the others): log b, log-alpha and the
+    statistics against the twins, two runs bitwise equal; then every
+    utterance invalid (vmask 0: every gamma 0.0f, so the moments' scan
+    keeps no column): the statistics exactly the twins' zeros."""
+    rng = np.random.default_rng(29)
+    lens = [int(n) for n in rng.integers(2, 40, size=297)] + [40, 0, 1]
+    args = (*_em_inputs(cuda_device, "full", 1, mixes_dims, lens, shared_gaussians=True), 1)
+    lb_k, la_k = fe.emit_forward(*args)
+    lb_p, la_p = fe.emit_forward_plain(*args)
+    _lattice_close(lb_k, lb_p)
+    _lattice_close(la_k, la_p)
+    feats, packed, origins, trans, lengths, _ = args
+    log_z = la_p[-1, -1]
+    valid = torch.isfinite(log_z) & (log_z > NEG_INF / 2) & (lengths > 0)
+    for vmask in (valid.float(), torch.zeros_like(valid, dtype=torch.float32)):
+        rest = (feats, lb_p, la_p, packed, origins, trans, lengths, torch.where(valid, log_z, 0.0), vmask, 1)
+        got, again, want = fe.backward_stats(*rest), fe.backward_stats(*rest), fe.backward_stats_plain(*rest)
+        torch.cuda.synchronize()
+        for a, b, c in zip(_stat_parts(got, mixes_dims), _stat_parts(again, mixes_dims),
+                           _stat_parts(want, mixes_dims)):
+            assert torch.equal(a, b)
+            if float(vmask.sum()) == 0.0:
+                assert torch.equal(a, c) and not bool(c.any())
+            else:
+                _stat_close(a, c)
 
 
 @pytest.mark.parametrize("mixes_dims", [tuple(md) for md in BANK_FULL_WIDE_CASES])
@@ -1511,7 +1556,8 @@ def test_lane_and_narrow_full_launches_are_the_parents(cuda_device):
     """The lattice lane path (S <= 64), the E-step kernels and the composed
     kernels up to full D = 16 give bitwise the outputs of commit 76f6f1a's
     kernels, the composed kernels at diagonal D = 39 those of commit
-    b91d8b8's: tests/torch_lane_digests.py's digests equal the ones saved
+    b91d8b8's and at full D = 39 (the z-GEMM bank kernels) those of commit
+    51f7e05's: tests/torch_lane_digests.py's digests equal the ones saved
     in tests/lane_digests.json from those commits' kernels on an H100."""
     import json
     from pathlib import Path

@@ -11,13 +11,16 @@ full D = 20 and 39: every statistic rtol 2e-3, atol 2e-4 max |jax| (the
 fused float32 statistics bound of tests/test_pallas_kernels.py), log prob
 rtol 1e-5.  The shape rules at every case of
 torch_port_utils.EM_FULL_WIDE_CASES / BANK_FULL_WIDE_CASES: fused_em.fits
-and composed.fused_eligible take them, the backward-stats block keeps its
-constants in device memory and its accumulators in the partials exactly
-where csrc/fused_em.cu's backward_floats (written out again here) puts
-them past shared memory, the bank kernels' z-GEMM blocks take the shared
-memory csrc/composed.cu reckons (written out again), whatever M, and the
-sets reach each of their launch shapes; the wrappers' own checks on meta
-tensors take D = 64 and refuse D = 65.  At the bank cases that reach a
+and composed.fused_eligible take them, the E-step kernels take their
+z-GEMM blocks (the emission and moments at the shared memory
+csrc/fused_em.cu reckons, and the recursions' blocks without features or
+statistics, each written out again here), and so do the bank kernels
+(csrc/composed.cu, written out again), whatever M, and the sets reach
+each of their launch shapes; at P = 1 to 6 streams of D = 17, 39 and 64,
+banded and dense, the E-step takes the z-GEMM path within shared memory,
+and fits admits exactly the shapes the rule before the z-GEMM blocks
+admitted (written out again); the wrappers' own checks on meta tensors
+take D = 64 and refuse D = 65.  At the bank cases that reach a
 padded n tile, two streams of different mixture groups and one mixture,
 the composed batch_stats_fused twins against JAX's as above.  The CUDA kernels are held
 against the twins on the card (tests/test_torch_cuda.py, chip_smoke.py).
@@ -110,12 +113,12 @@ def test_composed_batch_stats_match_jax_at_wide_full_covariance(D):
 
 
 def _backward_floats(C, S, ds, ms, nslots, U, TT, warps, acc_global, consts_global):
-    """csrc/fused_em.cu backward_floats + backward_ints in bytes, written out
-    again: the constants (unless in device memory), a ring of three tiles
-    of log-alpha, log b and the features, two gamma tiles, two exchange
-    rows, xi past 8 slots, the weights (S max M, KS) and features (max D,
-    KS), the accumulators (unless in the partials), the kept columns and
-    the warps' counts."""
+    """csrc/fused_em.cu backward_floats + backward_ints in bytes before the
+    z-GEMM blocks, written out again: the constants (unless in device
+    memory), a ring of three tiles of log-alpha, log b and the features,
+    two gamma tiles, two exchange rows, xi past 8 slots, the weights (S max
+    M, KS) and features (max D, KS), the accumulators (unless in the
+    partials), the kept columns and the warps' counts."""
     nt, cols = S * U, TT * U
     ks = -(-cols // 8) * 8 + (4 if cols > 8 else 0)
     mom = sum(M * (D + D * D + 1) for D, M in zip(ds, ms))
@@ -124,31 +127,142 @@ def _backward_floats(C, S, ds, ms, nslots, U, TT, warps, acc_global, consts_glob
     return 4 * floats + 4 * (cols + warps)
 
 
+def _wide_backward_bytes(S, nslots, U, TT):
+    """csrc/fused_em.cu backward_floats of a wide block (full covariance
+    past D = 16), written out again: a ring of three tiles of log-alpha and
+    log b (no features), two gamma tiles, two exchange rows, xi past 8
+    slots; the log transitions in device memory and no statistics."""
+    nt = S * U
+    return 4 * (3 * TT * U * 2 * S + 2 * TT * nt + 2 * nt + max(nslots - 8, 0) * nt)
+
+
+def _wide_em_bytes(rb, which):
+    """csrc/fused_em.cu wide_smem, written out again: the z-GEMM emission
+    (which 0) the features of 128 columns at pitch rb + 4, two slices of
+    two mixtures and their q; the moments (1) that plus the 8 rows of
+    weights (pitch 132), the gamma of up to 8 states at 128 columns, and as
+    ints the lift table (16 a m tile at rb), 384 queued columns and two
+    rows of 8 vote counts."""
+    floats = 128 * (rb + 4) + 2 * 2 * (rb * (rb + 4) + rb + 4 + 128)
+    if which == 0:
+        return 4 * floats
+    rows = rb + rb * (rb + 1) // 2 + 1
+    return 4 * (floats + 8 * 132 + 8 * 128) + 4 * (16 * -(-rows // 16) + 384 + 16)
+
+
+def _moment_group(S, M, g):
+    """csrc/fused_em.cu em_moments_wide_kernel's group g of a stream of M
+    mixtures, written out again: the mixtures [lo, hi) of its states'
+    logsumexps (state-major) and the rows [keep, keep + nm) it contracts."""
+    if M <= 8:
+        per = 8 // M
+        lo, hi = g * per * M, min(S, (g + 1) * per) * M
+        return lo, hi, lo, hi - lo
+    mg = -(-M // 8)
+    s = g // mg
+    keep = s * M + (g - s * mg) * 8
+    return s * M, s * M + M, keep, min(8, s * M + M - keep)
+
+
+def _check_wide_launch(ds, ms, S, band, B=2048, sms=132):
+    """The E-step's z-GEMM path at these shapes: chosen, every block within
+    shared memory as csrc/fused_em.cu reckons it, the moments' row groups
+    covering the S M rows of each stream once and its ranges covering B."""
+    assert fe.fits(ds, ms, True, S, band) and fe.wide_full(ds, True)
+    dmax = fe.em_dmax(ds, True, "test")
+    assert dmax == next(b for b in (32, 40, 64) if b >= max(ds))
+    C = fe.constant_floats(ds, ms, True, S, dmax)
+    nslots = S if band is None else band + 1
+    U, TT, warps, acc_global, consts_global = fe.backward_shape(C, S, ds, ms, nslots, True)
+    assert (warps, acc_global, consts_global) == (fe.WIDE_STAT_WARPS, False, True)
+    smem = _wide_backward_bytes(S, nslots, U, TT)
+    assert smem == fe.backward_smem_bytes(C, S, ds, ms, nslots, True, U, TT, warps, False, True, True) <= fe.SMEM_LIMIT
+    utts = [max(1, min(16, 128 // S))]
+    while utts[-1] > 1:
+        utts.append(utts[-1] // 2)
+    assert (U, TT) == next((u, tt) for u in utts for tt in fe.BACKWARD_TILES
+                           if _wide_backward_bytes(S, nslots, u, tt) <= fe.SMEM_LIMIT)
+    emit = fe.emit_block(S, B, C, ds, sms, wide=True)
+    assert emit["consts_global"]
+    assert emit["smem_bytes"] == 4 * 2 * emit["tile"] * emit["utts"] * 2 * S <= fe.SMEM_LIMIT
+    for which in (0, 1):
+        assert fe.wide_smem_bytes(dmax, which) == _wide_em_bytes(dmax, which) <= fe.SMEM_LIMIT
+    for M in ms:
+        kept = []
+        for g in range(fe.moment_groups(S, M)):
+            lo, hi, keep, nm = _moment_group(S, M, g)
+            assert lo % M == hi % M == 0 and 1 <= (hi - lo) // M <= 8 and 1 <= nm <= 8
+            assert lo <= keep and keep + nm <= hi
+            kept += range(keep, keep + nm)
+        assert kept == list(range(S * M))  # every row of W once, in order
+    groups = sum(fe.moment_groups(S, M) for M in ms)
+    R = fe.moment_ranges(B, groups, sms)
+    per = -(-B // R)
+    assert 1 <= R <= B and (R - 1) * per < B <= R * per and groups <= 65535
+    return U, TT, groups, R
+
+
 @pytest.mark.parametrize("i", range(len(EM_FULL_WIDE_CASES)))
 def test_em_kernels_take_every_wide_full_case(i):
+    """Every case takes the E-step's z-GEMM path within shared memory
+    (_check_wide_launch) at S = 6 banded and dense and S = 8 with a band of
+    2; the set reaches mixtures past one n tile (M = 16: two groups a
+    state), several states a group, two and six streams, each bound."""
     md = EM_FULL_WIDE_CASES[i]
     ms, ds = tuple(m for m, _ in md), tuple(d for _, d in md)
     for S, band in ((6, 1), (6, None), (8, 2)):
-        assert fe.fits(ds, ms, True, S, band) and fe.refusal(ds, ms, True, S, band) is None
-        dmax = fe.em_dmax(ds, True, "test")
-        assert dmax == next(b for b in (32, 40, 64) if b >= max(ds))
-        C = fe.constant_floats(ds, ms, True, S, dmax)
-        nslots = S if band is None else band + 1
-        U, TT, warps, acc_global, consts_global = fe.backward_shape(C, S, ds, ms, nslots, True)
-        smem = _backward_floats(C, S, ds, ms, nslots, U, TT, warps, acc_global, consts_global)
-        assert smem == fe.backward_smem_bytes(C, S, ds, ms, nslots, True, U, TT, warps, acc_global, consts_global)
-        assert smem <= fe.SMEM_LIMIT
-        # the constants leave shared memory only where no shape fits with them
-        in_shared = [_backward_floats(C, S, ds, ms, nslots, u, tt, fe._backward_stat_warps(S, u), g, False)
-                     for u in (16, 8, 4, 2, 1) for tt in fe.BACKWARD_TILES for g in (False, True)
-                     if u <= max(1, min(16, 128 // S))]
-        assert consts_global == (min(in_shared) > fe.SMEM_LIMIT)
-        emit = fe.emit_block(S, 2048, C, ds, 132)
-        assert fe.emit_smem_bytes(C, S, sum(ds), emit["utts"], emit["tile"], emit["consts_global"]) <= fe.SMEM_LIMIT
-    # the set reaches the records past shared memory and the accumulators in the partials
-    if md in ([(16, 39)], [(4, 64)]):
-        C = fe.constant_floats(ds, ms, True, 6, fe.em_dmax(ds, True, "test"))
-        assert fe.backward_shape(C, 6, ds, ms, 2, True)[3:] == (True, True)
+        assert fe.refusal(ds, ms, True, S, band) is None
+        _check_wide_launch(ds, ms, S, band)
+    if md == [(16, 39)]:
+        assert fe.moment_groups(6, 16) == 12
+    if md == [(4, 39)]:
+        assert fe.moment_groups(6, 4) == 3
+
+
+@pytest.mark.parametrize("D", [17, 39, 64])
+@pytest.mark.parametrize("P", range(1, 7))
+def test_em_wide_launch_rule_at_every_stream_count(P, D):
+    """P streams of D = 17, 39 or 64 (M of 1 to 16 and dims down to 17 in
+    turn), banded and dense, S = 6 and 40: the z-GEMM path, within shared
+    memory (_check_wide_launch)."""
+    ms = tuple((1, 4, 16, 3, 9, 2)[:P])
+    ds = tuple([D] + [max(17, D - 3 * q) for q in range(1, P)])
+    for S in (6, 40):
+        for band in (1, None):
+            U, TT, groups, R = _check_wide_launch(ds, ms, S, band)
+            assert groups == sum(fe.moment_groups(S, M) for M in ms) and U >= 1 and TT >= 1
+
+
+def _parent_refusal(ds, ms, S, band):
+    """fused_em.refusal for full covariance before the z-GEMM blocks,
+    written out again: 1 to 6 streams, a band inside the model, at most 256
+    states, D up to 64, and a backward-stats block of one utterance and one
+    frame (the features staged, the constants in device memory, the
+    accumulators in the partials) within shared memory."""
+    if not 1 <= len(ds) <= 6 or (band is not None and not 0 <= band < S) or S > 256 or max(ds) > 64:
+        return True
+    nslots = S if band is None else band + 1
+    warps = max(2, (512 - -(-S // 32) * 32) // 32)
+    return _backward_floats(0, S, ds, ms, nslots, 1, 1, warps, True, True) > fe.SMEM_LIMIT
+
+
+def test_fits_admits_the_set_it_admitted_before():
+    """fits at full covariance over streams, states, mixtures, dims and
+    bands, D = 64 admitted and D = 65 refused: exactly the rule before the
+    z-GEMM blocks, and every admitted shape past D = 16 launches within
+    shared memory."""
+    taken = refused = 0
+    for ds in ((17,), (39,), (64,), (65,), (39, 20), (64,) * 6, (17,) * 7):
+        for ms in ((1,) * len(ds), (4,) * len(ds), (40,) * len(ds), (300,) * len(ds)):
+            for S in (3, 6, 40, 256, 257):
+                for band in (0, 1, 2, None, S):
+                    ok = fe.fits(ds, ms, True, S, band)
+                    assert ok == (not _parent_refusal(ds, ms, S, band)), (ds, ms, S, band)
+                    if ok:
+                        _check_wide_launch(ds, ms, S, band)
+                    taken, refused = taken + ok, refused + (not ok)
+    assert taken and refused
+    assert fe.fits((64,), (4,), True, 6, 1) and not fe.fits((65,), (4,), True, 6, 1)
 
 
 # shared memory an SM offers blocks (228 KB), and what it keeps a block (1 KB)
@@ -223,6 +337,86 @@ def test_composed_batch_stats_match_jax_at_new_bank_wide_cases(mixes_dims):
     _stats_close(got, want)
 
 
+def test_plain_emit_forward_stores_q_whose_logsumexp_is_log_b():
+    """emit_forward's twin with q_out at two streams of full D = 20 and 17
+    (S = 4, M = 3 and 2): per stream (T, M S, B) rows m S + s, whose
+    mixture logsumexps summed over the streams are log b (rtol 1e-5)."""
+    _, streams = rand_word(5, 4, [(3, 20), (2, 17)], "full", scale=2.0)
+    trans = np.zeros((4, 4))
+    for i in range(4):
+        trans[i, i : i + 2] = (0.6, 0.4) if i < 3 else (1.0,)
+    model = tmods.gmm_hmm_from_numpy(trans, streams).astype(torch.float32)
+    rng = np.random.default_rng(12)
+    feats = tuple(torch.as_tensor(rng.normal(size=(T, D, len(LENS))) * 2, dtype=torch.float32) for D in (20, 17))
+    origins = tuple(st.means.mean(dim=(0, 1)) for st in model.streams)
+    packed = tuple(fe.pack_lane_constants(st, origin=o) for st, o in zip(model.streams, origins))
+    q = tuple(torch.full((T, M * 4, len(LENS)), np.nan) for M in (3, 2))
+    lengths = torch.tensor(LENS, dtype=torch.int32)
+    log_b, _ = fe.emit_forward(feats, packed, origins, model.trans, lengths, 1, q_out=q)
+    lse = sum(torch.logsumexp(qp.reshape(T, M, 4, len(LENS)), dim=1) for qp, M in zip(q, (3, 2)))
+    np.testing.assert_allclose(lse.numpy(), log_b.numpy(), rtol=1e-5)
+
+
+def test_stored_q_rule():
+    """emit_forward stores the per-mixture q at full covariance past D = 16
+    where it takes at most STORED_Q_SHARE of the card's memory
+    (stored_q_refusal names both past that); stored_q_buffers stores none
+    on the CPU; the wrappers refuse a q on other shapes (meta tensors)."""
+    need = fe.stored_q_bytes(256, 6, 2048, (4,))
+    assert need == 50331648
+    card = int(need / fe.STORED_Q_SHARE)
+    assert fe.stored_q_refusal((39,), (4,), True, 6, 256, 2048) is None
+    assert fe.stored_q_refusal((39,), (4,), True, 6, 256, 2048, device_bytes=card) is None
+    small = fe.stored_q_refusal((39,), (4,), True, 6, 256, 2048, device_bytes=card - 1)
+    assert str(need) in small and str(card - 1) in small
+    assert "past D = 16" in fe.stored_q_refusal((16,), (4,), True, 6, 256, 2048, device_bytes=1 << 40)
+    assert "past D = 16" in fe.stored_q_refusal((39,), (4,), False, 6, 256, 2048, device_bytes=1 << 40)
+    assert fe.stored_q_buffers((torch.zeros((4, 39, 3)),), (4,), 6, True) is None
+    m = dict(device="meta", dtype=torch.float32)
+    S, M, T, B = 6, 4, 4, 3
+    for D, why in ((39, None), (16, "past D = 16")):
+        feats = (torch.empty((T, D, B), **m),)
+        packed = ((torch.empty((M * S * D, D), **m), torch.empty((M * S * D, 1), **m),
+                   torch.empty((M * S, 1), **m), torch.empty((M * S, 1), **m)),)
+        ln = fe._Launch("emit_forward", feats, packed, (torch.empty(D, **m),), torch.empty((S, S), **m),
+                        torch.empty(B, dtype=torch.int32, device="meta"), 1)
+        q = (torch.empty((T, M * S, B), **m),)
+        if why is None:
+            assert ln.stored_q(q) is not None
+            with pytest.raises(ValueError, match="T, M_p\\*S, B"):
+                ln.stored_q((torch.empty((T, M * S + 1, B), **m),))
+        else:
+            with pytest.raises(ValueError, match=why):
+                ln.stored_q(q)
+
+
+def test_em_bounds_read_the_stored_q_at_kept_columns():
+    """chip_smoke.em_bounds: where emit_forward stores the per-mixture q,
+    its bound writes the whole (T, M S, B) buffer and backward_stats'
+    bound reads it at the columns of valid utterances' frames only."""
+    import importlib.util
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    S, M, D, T = 6, 4, 39, 29
+    lengths = torch.tensor(LENS, dtype=torch.int32)
+    valid = torch.tensor([True, True, False, False, True])
+    kept = 21 + 29 + 1
+    packed = ((torch.zeros((M * S * D, D)), torch.zeros((M * S * D, 1)), torch.zeros((M * S, 1)),
+               torch.zeros((M * S, 1))),)
+    out = {}
+    for stored in (False, True):
+        rows = {"emit_forward": {"ms": 1e3}, "backward_stats": {"ms": 1e3}}
+        cs.em_bounds(rows, T, [(D, M)], True, packed, torch.zeros((S, S)), lengths, valid, 1, stored)
+        out[stored] = rows
+    k1 = out[True]["emit_forward"]["bound_ms"] - out[False]["emit_forward"]["bound_ms"]
+    np.testing.assert_allclose(k1, 4 * T * len(LENS) * S * M / cs.HBM_BYTES_PER_S * 1e3, rtol=1e-9)
+    assert out[True]["backward_stats"]["stored_q_read_bytes"] == 4 * kept * S * M
+    assert out[True]["backward_stats"]["bound_bytes"] - out[False]["backward_stats"]["bound_bytes"] == 4 * kept * S * M
+
+
 def test_wrappers_take_d64_and_refuse_d65_on_meta_tensors():
     m = dict(device="meta", dtype=torch.float32)
     S, B, M = 6, 3, 4
@@ -234,8 +428,8 @@ def test_wrappers_take_d64_and_refuse_d65_on_meta_tensors():
                 torch.empty(B, dtype=torch.int32, device="meta"), 1)
         if ok:
             ln = fe._Launch("emit_forward", *args)
-            assert (ln.dmax, ln.full) == (64, True)
-            assert ln.block(1)[3:] == (True, True)
+            assert (ln.dmax, ln.full, ln.wide) == (64, True, True)
+            assert ln.block(1)[2:] == (fe.WIDE_STAT_WARPS, False, True)
         else:
             with pytest.raises(ValueError, match="exceeds 64"):
                 fe._Launch("emit_forward", *args)

@@ -1,5 +1,5 @@
 """Mutation check of csrc/lattice.cu, csrc/emission_em.cu, csrc/composed.cu,
-csrc/fused_em.cu, csrc/tile_mma.cuh, csrc/emission.cuh,
+csrc/fused_em.cu, csrc/tile_mma.cuh, csrc/emission.cuh, csrc/wide_gemm.cuh,
 csrc/word_loop_decode.cu, csrc/mfcc.cu and csrc/vocab_scores.cu
 (needs a CUDA card and nvcc; not a tier-1 test):
 
@@ -29,6 +29,7 @@ COMP = "srhmm_tpu_torch/csrc/composed.cu"
 FEM, TILE = "srhmm_tpu_torch/csrc/fused_em.cu", "srhmm_tpu_torch/csrc/tile_mma.cuh"
 DEC = "srhmm_tpu_torch/csrc/word_loop_decode.cu"
 EMC, VOC = "srhmm_tpu_torch/csrc/emission.cuh", "srhmm_tpu_torch/csrc/vocab_scores.cu"
+WIDE = "srhmm_tpu_torch/csrc/wide_gemm.cuh"
 MUTANTS = [
     ("forward_length_mask", LAT, "(t < len ? next[r] : carry[r])", "(t <= len ? next[r] : carry[r])", "kernel_lattice"),
     ("backward_stepping_rule", LAT, "beta[r] = (t + 1 < len) ? next[r] : init[r];",
@@ -91,8 +92,8 @@ MFCC = "srhmm_tpu_torch/csrc/mfcc.cu"
 MUTANTS += [
     ("emit_shuffle_off_by_one_state", FEM, "float x = __shfl_up_sync(~0u, carry, kk);",
      "float x = __shfl_up_sync(~0u, carry, kk + 1);", "kernel_em"),
-    ("emit_staging_reads_previous_tile", FEM, "      const float* f = xs + (k & 1) * x_tile;\n      float* lbt",
-     "      const float* f = xs + ((k + 1) & 1) * x_tile;\n      float* lbt", "kernel_em"),
+    ("emit_staging_reads_previous_tile", FEM, "        const float* f = xs + (k & 1) * x_tile;\n        float* lbt",
+     "        const float* f = xs + ((k + 1) & 1) * x_tile;\n        float* lbt", "kernel_em"),
     ("emit_off_chain_term_sums_one", EMC, "  for (int kk = 0; kk < NSL; ++kk) e += expf(v[kk] - m);",
      "  for (int kk = 0; kk < NSL; ++kk) e += (v[kk] == -INFINITY) ? 1.f : expf(v[kk] - m);", "kernel_em"),
     ("emit_drops_last_frame_of_partial_tile", FEM, "const int t0 = k * TT, n = min(TT, T - t0), ncol = n * U;",
@@ -179,7 +180,7 @@ MUTANTS += [
      "kernel_lattice_wide"),
     ("full_moment_column_off_by_one_d", TILE, "    return {2, r - d * D, d};",
      "    return {2, r - d * D, d + 1 < D ? d + 1 : d};", "kernel_em_wide"),
-    ("composed_full_record_stride_one_row_short", COMP, "    const float* src = rec + (size_t)g * stride;",
+    ("composed_full_record_stride_one_row_short", WIDE, "    const float* src = rec + (size_t)g * stride;",
      "    const float* src = rec + (size_t)g * (stride - h);", "kernel_composed_wide"),
 ]
 MUTANTS += [
@@ -187,7 +188,7 @@ MUTANTS += [
     ("wide_mirror_copies_neighbouring_column", COMP,
      "        o[D + ib * D + ia] = v;  // the mirror",
      "        o[D + ib * D + ia] = o[D + ib * D + ia - 1];  // the mirror", "kernel_composed_wide"),
-    ("wide_square_sum_drops_one_lane", COMP, "    s += __shfl_sync(~0u, part, team + 3);\n", "",
+    ("wide_square_sum_drops_one_lane", WIDE, "    s += __shfl_sync(~0u, part, team + 3);\n", "",
      "kernel_composed_wide"),
     ("wide_n_tile_padding_mixture_enters_lse", COMP, "        for (int gg = 0; gg < n; ++gg) {",
      "        for (int gg = 0; gg < kWideSlice; ++gg) {", "kernel_composed_wide"),
@@ -195,7 +196,29 @@ MUTANTS += [
      "wide_q<RB>(xs + fg * 32 * P, slices + (i & 1) * G * MF + gw * MF, d4);",
      "wide_q<RB>(xs + fg * 32 * P, slices + ((i + 1) & 1) * G * MF + gw * MF, d4);",
      "kernel_composed_wide"),
-    ("wide_3xtf32_drops_lo_hi", COMP, "        mma_tf32(acc[u], alo, b0h, b1h);\n", "", "kernel_composed_wide"),
+    ("wide_3xtf32_drops_lo_hi", WIDE, "        mma_tf32(acc[u], alo, b0h, b1h);\n", "", "kernel_composed_wide"),
+]
+MUTANTS += [
+    # the E-step's z-GEMM blocks at full covariance past D = 16
+    ("em_wide_triangle_skip_drops_diagonal_group", WIDE, "      if (i > kk) break;", "      if (i >= kk) break;",
+     "kernel_em_wide"),
+    ("em_wide_slice_read_before_its_wait", FEM,
+     "wide_q<RB>(xs + fg * 32 * P, slices + (i & 1) * G * MF + gw * MF, (p.dims[cur.q] + 3) / 4);",
+     "wide_q<RB>(xs + fg * 32 * P, slices + ((i + 1) & 1) * G * MF + gw * MF, (p.dims[cur.q] + 3) / 4);",
+     "kernel_em_wide"),
+    ("em_wide_state_closes_a_mixture_early", FEM,
+     "      if ((mi + 1) % M == 0) {  // the state's last mixture: its kept rows' weights",
+     "      if ((mi + 2) % M == 0) {  // the state's last mixture: its kept rows' weights", "kernel_em_wide"),
+    ("em_wide_mirror_copies_neighbouring_column", FEM,
+     "        o[D + ib * D + ia] = v;  // the mirror (the same column where ia == ib)",
+     "        o[D + ib * D + ia] = o[D + ib * D + ia - 1];  // the mirror", "kernel_em_wide"),
+    ("em_wide_stored_q_in_the_next_state_row", FEM,
+     "qout[((size_t)t * S * M + (mi % M) * S + mi / M) * p.B + b]",
+     "qout[((size_t)t * S * M + (mi % M) * S + (mi / M + 1) % S) * p.B + b]", "kernel_em_wide"),
+    ("em_wide_3xtf32_drops_lo_hi", WIDE, "        mma_tf32(acc[u], alo, b0h, b1h);\n", "", "kernel_em_wide"),
+    ("em_wide_scan_drops_last_state_of_group", FEM,
+     "        for (int j = 0; j < n_states; ++j) kept |= gm[(size_t)j * p.B] != 0.f;",
+     "        for (int j = 0; j + 1 < n_states; ++j) kept |= gm[(size_t)j * p.B] != 0.f;", "kernel_em_wide"),
 ]
 DRIVER = """
 import sys, torch

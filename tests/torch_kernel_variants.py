@@ -18,7 +18,8 @@ compare (tests/torch_lattice_stats_compare.py for csrc/lattice.cu's
 kernels and csrc/emission_em.cu's moments; the backward and Viterbi
 variants time only backward_lattice and viterbi_batch;
 tests/torch_bank_wide_compare.py for the "wide_" variants of the bank
-kernels' z-GEMM blocks at full D = 39).  The "parent_"
+kernels' z-GEMM blocks at full D = 39, tests/torch_em_wide_compare.py for
+the "emw_" variants of the E-step's z-GEMM blocks at em_full39).  The "parent_"
 variants cut a kernel as it was before its redesign (run them with --tree
 on a checkout of that commit).
 Prints one JSON line per variant with the kernel times and the last CYC
@@ -43,6 +44,7 @@ VOC, EMI = "srhmm_tpu_torch/csrc/vocab_scores.cu", "srhmm_tpu_torch/csrc/emissio
 LAT = "srhmm_tpu_torch/csrc/lattice.cu"
 SCO_PY = "srhmm_tpu_torch/ops/kernels/scoring.py"
 EMC = "srhmm_tpu_torch/csrc/emission.cuh"
+WIDE = "srhmm_tpu_torch/csrc/wide_gemm.cuh"
 EMI_PY = "srhmm_tpu_torch/ops/kernels/emission.py"
 # emission.cuh's full_mix_q_cols with two rows' z chains side by side (a
 # helper full_row_z computing one row's chain), the squares summed in row
@@ -598,9 +600,9 @@ VARIANTS = [
     # emission, the recursion, the log-alpha stores, the framing or the
     # FFT's stages cut
     ("emit_cycles", *cut(FEM, *EN_CYCLES)),
-    ("emit_no_emission", FEM, "        for (int q = 0; q < p.n_streams; ++q) {\n          const int D = p.dims[q], M = p.mixes[q];\n"
-     "          const float* o = cst", "        for (int q = 0; q < 0; ++q) {\n          const int D = p.dims[q], M = p.mixes[q];\n"
-     "          const float* o = cst"),
+    ("emit_no_emission", FEM, "          for (int q = 0; q < p.n_streams; ++q) {\n            const int D = p.dims[q], M = p.mixes[q];\n"
+     "            const float* o = cst", "          for (int q = 0; q < 0; ++q) {\n            const int D = p.dims[q], M = p.mixes[q];\n"
+     "            const float* o = cst"),
     ("emit_no_recursion", FEM, "    for (int t = t_lo; t < t_hi; ++t) {\n      const int tt = t - t_lo;\n      const float lb = lbn;",
      "    for (int t = t_lo; t < t_lo; ++t) {\n      const int tt = t - t_lo;\n      const float lb = lbn;"),
     ("emit_no_stores", FEM, "      if (k >= 1) store_rows_from_tile(p.la, las", "      if (false) store_rows_from_tile(p.la, las"),
@@ -1028,20 +1030,36 @@ VARIANTS += [
 # without the z FMAs (z = c), with one shared-memory load of L^T (or of x)
 # a k group where there are RB / 4 (4), without the slices' copies, and
 # the moments without their contraction or without their posteriors' z-GEMM
+# (the first four cut csrc/wide_gemm.cuh, which the E-step's z-GEMM blocks
+# share; the "wide_" variants time the bank kernels only)
+Z_FMAS = ("  for (int kk = 0; kk < d4; ++kk) {\n    float4 x[4];", "  for (int kk = 0; kk < 0; ++kk) {\n    float4 x[4];")
+SLICE_COPIES = ("  for (int i = threadIdx.x; i < n * per; i += blockDim.x) {",
+                "  for (int i = threadIdx.x; i < 0; i += blockDim.x) {")
 VARIANTS += [
     ("wide_base", COMP, "", ""),
-    ("wide_no_z_fmas", COMP, "  for (int kk = 0; kk < d4; ++kk) {\n    float4 x[4];",
-     "  for (int kk = 0; kk < 0; ++kk) {\n    float4 x[4];"),
-    ("wide_one_w_load", COMP, "*reinterpret_cast<const float4*>(w + (4 * i + t) * P + 4 * kk);",
+    ("wide_no_z_fmas", WIDE, *Z_FMAS),
+    ("wide_one_w_load", WIDE, "*reinterpret_cast<const float4*>(w + (4 * i + t) * P + 4 * kk);",
      "*reinterpret_cast<const float4*>(w + t * P + 4 * kk);"),
-    ("wide_one_x_load", COMP, "x[f] = *reinterpret_cast<const float4*>(xs + (f * 8 + tau) * P + 4 * kk);",
+    ("wide_one_x_load", WIDE, "x[f] = *reinterpret_cast<const float4*>(xs + (f * 8 + tau) * P + 4 * kk);",
      "x[f] = *reinterpret_cast<const float4*>(xs + tau * P + 4 * kk);"),
-    ("wide_no_copies", COMP, "  for (int i = threadIdx.x; i < n * per; i += blockDim.x) {",
-     "  for (int i = threadIdx.x; i < 0; i += blockDim.x) {"),
+    ("wide_no_copies", WIDE, *SLICE_COPIES),
     ("wide_moments_no_contraction", COMP, "    wide_contract<RB, MTW>(acc, xs, wq, tab, nm, nb * (kTile / 8), n_mt);\n",
      ""),
     ("wide_moments_no_posteriors", COMP, "      if (s < ns && gw < min(kWideSlice, M - s * kWideSlice) && fg < nb) {",
      "      if (false) {"),
+]
+# the E-step's z-GEMM blocks at full covariance past D = 16 (em_full39,
+# tests/torch_em_wide_compare.py): without the z FMAs, without the slices'
+# copies, the moments without their contraction, and the moments without
+# their posteriors' z-GEMM (the floor of a route that stores q in #2 and
+# reads it back here, beside the stored q's bytes the script times)
+VARIANTS += [
+    ("emw_base", FEM, "", ""),
+    ("emw_no_z_fmas", WIDE, *Z_FMAS),
+    ("emw_no_copies", WIDE, *SLICE_COPIES),
+    ("emw_moments_no_contraction", FEM, "    wide_contract<RB, MTW>(acc, xs, wq, tab, nm, (nb + 7) / 8, n_mt);\n", ""),
+    ("emw_moments_no_posteriors", FEM,
+     "      if (s < ns && gw < min(kWideSlice, hi - lo - s * kWideSlice) && fg * 32 < nb) {", "      if (false) {"),
 ]
 SCORING_EMISSION = ("scoring_emission_", "vocab_", "emission_", "parent_vocab", "parent_emission")
 FORWARD_DECODE = ("forward_", "decode_", "parent_forward", "parent_decode")
@@ -1056,6 +1074,8 @@ BACKWARD_VITERBI = ("lattice_bwd", "viterbi_", "parent_lattice_bwd", "parent_vit
 def timing_script(name: str) -> str:
     if name.startswith("wide_"):
         return "torch_bank_wide_compare.py"
+    if name.startswith("emw_"):
+        return "torch_em_wide_compare.py"
     if name.startswith(LATTICE_STATS):
         return "torch_lattice_stats_compare.py"
     if name.startswith(SCORING_EMISSION):
@@ -1086,6 +1106,8 @@ def main(argv) -> None:
                 f.write_text(text.replace(o, n))
         script = here / "tests" / timing_script(name)
         only = ["backward_lattice", "viterbi_batch"] if name.startswith(BACKWARD_VITERBI) else []
+        if name.startswith("emw_"):  # em_full39's inputs, built by the first variant and loaded by the rest
+            only = [str(here / "build" / "em_full39_inputs.pt")]
         r = subprocess.run([sys.executable, str(script), "time", *only], cwd=d, capture_output=True,
                            text=True, timeout=900, env={**os.environ, "PYTHONPATH": str(d)})
         lines = [l for l in r.stdout.splitlines() if l.startswith("{")]

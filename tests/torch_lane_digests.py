@@ -15,10 +15,12 @@ per-row transitions, backward, Viterbi scores and backpointers) at S = 3,
 backward_stats at diagonal and full covariance up to D = 16 (one and two
 streams, dense transitions, the accumulators in the partials);
 csrc/composed.cu's four kernels at diagonal and full covariance up to
-D = 16 (two streams, the emission ring and moments batch at two) and at
-diagonal D = 39, the frontend's width.  tests/lane_digests.json holds the
-digests of commit 76f6f1a's kernels (the diagonal D = 39 case's of commit
-b91d8b8's); tests/test_torch_cuda.py holds these kernels to them.
+D = 16 (two streams, the emission ring and moments batch at two), at
+diagonal D = 39, the frontend's width, and at full D = 39, M = 9 (the
+z-GEMM bank kernels).  tests/lane_digests.json holds the digests of commit
+76f6f1a's kernels (the diagonal D = 39 case's of commit b91d8b8's, the full
+D = 39 case's of commit 51f7e05's); tests/test_torch_cuda.py holds these
+kernels to them.
 """
 
 from __future__ import annotations
@@ -39,7 +41,7 @@ LATTICE = [(S, kind) for S in (3, 8, 33, 64) for kind in ("delta1", "dense")]
 EM = [("diag", 1, [(3, 9)]), ("full", 1, [(3, 9)]), ("full", None, [(16, 16)]), ("diag", 2, [(3, 9), (2, 3)]),
       ("full", 2, [(2, 12), (1, 4)])]
 BANK = [("full", [(2, 6)]), ("full", [(3, 16)]), ("diag", [(4, 13)]), ("full", [(3, 4), (2, 4)]),
-        ("full", [(82, 16)]), ("diag", [(3, 39)])]
+        ("full", [(82, 16)]), ("diag", [(3, 39)]), ("full", [(9, 39)])]
 
 
 def _digest(*tensors) -> str:

@@ -442,8 +442,9 @@ def lattice_ranges(log_trans: np.ndarray, rows: bool) -> np.ndarray:
 
 # full covariance past D = 16 in the E-step kernels (csrc/fused_em.cu) and
 # the composed bank kernels (csrc/composed.cu): [(M, D) per stream].  The
-# E-step: D of 17, 20, 39 and 64 (bounds 32, 40, 64), one and two streams,
-# the records past shared memory (D = 64 and D = 39 at M = 16); the bank
+# E-step: D of 17, 20, 39 and 64 (bounds 32, 40, 64), one, two and six
+# streams (of different D and M: one to four states a moments group, a
+# state over two groups at M = 9 and 16, M odd); the bank
 # kernels' z-GEMM blocks: every register bound 24, 32, 40, 48, 64 (D of 17,
 # 20, 30, 39, 45, 64), two streams (of different M and mixture groups), one
 # and several record slices, a partial last slice (M odd), one to three
@@ -454,6 +455,7 @@ EM_FULL_WIDE_CASES = [
     [(4, 39)],
     [(16, 39)],
     [(4, 64)],
+    [(2, 17), (1, 20), (3, 24), (9, 33), (4, 18), (2, 17)],
 ]
 BANK_FULL_WIDE_CASES = [
     [(2, 17)],
