@@ -201,10 +201,11 @@ each (any failure raises, so the exit code is non-zero):
               after); the kernels line's launches_multi sums them
     kernel_lattice_wide / kernel_em_wide / kernel_composed_wide
               the shapes past the lane path vs their twins:
-              csrc/lattice.cu's block-wide mode (#15-#20) at
-              torch_port_utils.WIDE_LATTICE_CASES (S = 65 to 4096, banded
-              and dense, B = 1 and 37, T = 1 and 95, rows of length 0 and
-              1; the Viterbi twin on its first 40000 // S frames,
+              csrc/lattice.cu's group mode (#15, #17-#20) and block-wide
+              Viterbi (#16) at torch_port_utils.WIDE_LATTICE_CASES (S = 65
+              to 4096, banded, dense and spread, B = 1 to 37, T = 1 to 95,
+              rows of length 0 and 1, every shape of WIDE_LATTICE_SHAPES;
+              the Viterbi twin on its first 40000 // S frames,
               backpointers equal; a duplicated-state tie at S = 96), the
               E-step kernels' z-GEMM emission and moments beside their
               recursions (#2-#5) at full covariance EM_FULL_WIDE_CASES
@@ -263,6 +264,7 @@ card's name and power limit as nvidia-smi reports them.
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import shutil
@@ -292,20 +294,38 @@ FRAME_S = 0.01  # seconds of audio per frame
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 TF32_TC_OPS_PER_S = 495e12  # dense TF32 tensor-core rate (NVIDIA H100 SXM data sheet)
+# an exponential issues on the SFU (MUFU.EX2): 16 a clock an SM, an eighth of
+# the fp32 FMA rate, on the card's 132 SMs at its highest SM clock
+SFU_EXPS_PER_CLOCK_SM = 16
+H100_SMS = 132
+
+
+@functools.cache
+def sm_clock_hz() -> float:
+    """The card's highest SM clock (nvidia-smi clocks.max.sm) in Hz."""
+    return float(sh(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"]).splitlines()[0]) * 1e6
 
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def bound(nbytes: float, ops: float) -> dict:
+def bound(nbytes: float, ops: float, exps: float = 0.0) -> dict:
     """bound_ms / bound_by of a kernel that must move nbytes (each input read
     once, each output written once) and do ops fp32 operations (a multiply-
-    add counts two; exp, log, max and compare one each)."""
+    add counts two; exp, log, max and compare one each); where exps is
+    given, also those exponentials at the SFU's rate (bound_by "sfu" where
+    that is the largest of the three)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / FP32_OPS_PER_S * 1e3
-    return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bound_bytes": nbytes, "bound_ops": ops}
+    out = {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "bound_bytes": nbytes, "bound_ops": ops}
+    if exps:
+        t_sfu = exps / (SFU_EXPS_PER_CLOCK_SM * H100_SMS * sm_clock_hz()) * 1e3
+        out.update({"bound_ms_bytes_ops": out["bound_ms"], "bound_exps": exps, "sm_clock_hz": sm_clock_hz()})
+        if t_sfu > out["bound_ms"]:
+            out.update({"bound_ms": t_sfu, "bound_by": "sfu"})
+    return out
 
 
 def mixture_ops(D: int, M: int, full: bool) -> int:
@@ -3147,9 +3167,11 @@ def set_lane_counts(counts: dict) -> None:
 
 def lattice_trans(rng, S: int, kind: str) -> np.ndarray:
     """(S, S) float32 log transitions, -inf off the band: left-right with
-    delta 1 or 2, or dense."""
+    delta 1 or 2, dense, or spread (torch_port_utils.spread_trans)."""
     if kind == "dense":
         t = rng.uniform(0.1, 1.0, size=(S, S))
+    elif kind == "spread":
+        t = port_utils().spread_trans(rng, S)
     else:
         band = {"delta1": 1, "delta2": 2}[kind]
         t = np.zeros((S, S))
@@ -4588,48 +4610,72 @@ def phase_multi(torch, train_diag: dict, main_full: dict, emb: dict, tied: dict,
 # E-step (csrc/fused_em.cu) and composed (csrc/composed.cu) kernels
 # ---------------------------------------------------------------------------
 
-# the block-wide launch shapes phase_kernel_lattice_wide must see reached
-WIDE_LATTICE_SHAPES = {"packed_band", "packed_dense", "l2_dense", "idle_threads", "states_per_thread_2",
-                       "states_per_thread_8", "T_1", "B_1", "walks_tiles", "ragged_tile", "copies_16", "copies_4",
-                       "length_0", "length_1", "per_row", "stops_early", "unreachable_states", "tie"}
+# the launch shapes past 64 states phase_kernel_lattice_wide must see reached:
+# the forward's and backward's group mode (each transition route by band,
+# dense and spread transitions; a cluster of one block, of several, of the
+# non-portable 16; a group of one utterance and of several, a ragged last
+# group; each register tile of the streamed route; a block past 512
+# threads; the per-row route), the
+# block-wide Viterbi's (its ranges packed or read through L2, idle threads,
+# states a thread, tiles walked and ragged, 16- and 4-byte copies, states
+# not yet reachable, a tie) and the inputs' (T = 1, B = 1, rows of length 0
+# and 1, rows that stop early)
+WIDE_LATTICE_SHAPES = {"packed_band", "packed_dense", "packed_spread", "streamed_dense", "streamed_spread",
+                       "cluster_1", "cluster_n", "cluster_16", "group_1", "group_g", "ragged_group",
+                       "streamed_utt_tile_1", "streamed_utt_tile_2", "threads_past_512", "per_row",
+                       "viterbi_packed", "viterbi_l2", "idle_threads", "states_per_thread_2", "states_per_thread_8",
+                       "walks_tiles", "ragged_tile", "copies_16", "copies_4", "unreachable_states", "tie",
+                       "T_1", "B_1", "length_0", "length_1", "stops_early"}
 VITERBI_TWIN_STEPS = 40000  # the Viterbi twin loops S sources a frame: compared on its first 40000 // S frames
 
 
 def wide_reached(torch, S, kind, B, T, lens, lt_np) -> set:
     """The shapes of WIDE_LATTICE_SHAPES one case reaches, from the
     wrappers' launch shapes and the transitions' ranges
-    (torch_port_utils.lattice_ranges): the transitions packed in shared
-    memory (a band, or dense) or read through L2, idle threads (S off a
-    warp), states a thread, T = 1, B = 1, tiles walked and a ragged one,
-    16- or 4-byte copies of (B, T, S) log b, rows of length 0 and 1, a last
-    row that stops before T, and a banded chain's states not yet reachable
-    (the Viterbi's loop over every source)."""
+    (torch_port_utils.lattice_ranges; a cluster holds every key, so its
+    widest range is the matrix's): the group mode's route (packed where the
+    widest range times the block's keys fits lt_cap, else streamed), its
+    cluster, group and register tile; the block-wide Viterbi's placement,
+    idle threads (S off a warp), states a thread, tiles, copies of (B, T,
+    S) log b and a banded chain's states not yet reachable (its loop over
+    every source); T = 1, B = 1, rows of length 0 and 1, a row that stops
+    before T."""
     from srhmm_tpu_torch.ops.kernels import lattice as kl
 
     pu = port_utils()
     out = {"per_row"}
-    for sh, rows in ((kl.forward_block(S, B, "tsb"), False), (kl.backward_block(S, B), True),
-                     (kl.viterbi_block(S, B), False), (kl.forward_block(S, B, "bts"), False)):
+    trans = {"dense": "dense", "spread": "spread"}.get(kind, "band")
+    for sh, rows in ((kl.forward_block(S, B, "tsb"), False), (kl.backward_block(S, B), True)):
         W = int(pu.lattice_ranges(lt_np, rows).max())
-        out.add(("packed_" if W * S <= sh["lt_cap"] else "l2_") + ("dense" if kind == "dense" else "band"))
-        out |= {f"states_per_thread_{sh['states_per_thread']}"} if sh["states_per_thread"] > 1 else set()
-        out |= {"walks_tiles"} if T > sh["tile"] else set()
-        out |= {"ragged_tile"} if T % sh["tile"] else set()
-    bts = kl.forward_block(S, B, "bts")
-    out.add(f"copies_{16 if kl.forward_copies_16(S, T, B, bts, 'bts') else 4}")
+        packed = W * sh["keys"] <= sh["lt_cap"]
+        out.add(("packed_" if packed else "streamed_") + trans)
+        out |= {"streamed_utt_tile_%d" % sh["utt_tile"]} if not packed else set()
+        out.add("cluster_1" if sh["cluster"] == 1 else "cluster_n")
+        out |= {"cluster_16"} if sh["cluster"] == 16 else set()
+        out.add("group_1" if sh["utts"] == 1 else "group_g")
+        out |= {"ragged_group"} if B % sh["utts"] else set()
+        out |= {"threads_past_512"} if sh["threads"] > 512 else set()
+    vit = kl.viterbi_block(S, B)
+    W = int(pu.lattice_ranges(lt_np, False).max())
+    out.add("viterbi_packed" if W * S <= vit["lt_cap"] else "viterbi_l2")
+    out |= {f"states_per_thread_{vit['states_per_thread']}"} if vit["states_per_thread"] > 1 else set()
+    out |= {"walks_tiles"} if T > vit["tile"] else set()
+    out |= {"ragged_tile"} if T % vit["tile"] else set()
+    out.add(f"copies_{16 if kl.forward_copies_16(S, T, B, vit, 'bts') else 4}")
     out |= {"idle_threads"} if S % 32 else set()
+    out |= {"unreachable_states"} if kind in ("delta1", "delta2") and T >= 2 else set()
     out |= {"T_1"} if T == 1 else set()
     out |= {"B_1"} if B == 1 else set()
     out |= {f"length_{n}" for n in (0, 1) if n in lens}
     out |= {"stops_early"} if any(min(n, T) < T for n in lens) else set()
-    out |= {"unreachable_states"} if kind != "dense" and T >= 2 else set()
     return out & WIDE_LATTICE_SHAPES
 
 
 def wide_lattice_inputs(torch) -> dict:
     """phase_kernel_lattice_wide's inputs, (S, kind, B, T) of
     torch_port_utils.WIDE_LATTICE_CASES -> (log b (T, S, B) with seven -inf
-    entries, log transitions (S, S), per-row transitions (B, S, S: delta 1
+    entries, the spread case's second half SPREAD_GAP lower, log
+    transitions (S, S), per-row transitions (B, S, S: delta 1
     and dense alternating, delta 1 from 1024 states on), lengths, the
     transitions as numpy); "tie" -> ((B, T, S) log b of S = 96 states with
     states 40 and 41 duplicated, their transitions, None, lengths, None)."""
@@ -4638,7 +4684,7 @@ def wide_lattice_inputs(torch) -> dict:
     cuda = lambda x: torch.as_tensor(x, device="cuda")
     out = {}
     for i, (S, kind, B, T) in enumerate(pu.WIDE_LATTICE_CASES):
-        lb_np = (rng.normal(size=(T, S, B)) * 2).astype(np.float32)
+        lb_np = pu.spread_log_b((rng.normal(size=(T, S, B)) * 2).astype(np.float32), kind, axis=1)
         lb_np[rng.integers(0, T, 7), rng.integers(0, S, 7), rng.integers(0, B, 7)] = -np.inf
         lt_np = lattice_trans(rng, S, kind)
         rows = np.stack([lattice_trans(rng, S, "delta1" if S >= 1024 or b % 2 else "dense") for b in range(B)])
@@ -4709,7 +4755,7 @@ def viterbi_twin_check(torch, lb_bts, lt, lengths, what: str) -> dict:
 
 
 def phase_kernel_lattice_wide(torch) -> dict:
-    """#15-#20 past 64 states (csrc/lattice.cu's block-wide mode) vs their
+    """#15-#20 past 64 states (csrc/lattice.cu's group mode, the Viterbi's block-wide mode) vs their
     twins at torch_port_utils.WIDE_LATTICE_CASES (wide_lattice_check), and
     viterbi_batch on S = 96 with two duplicated states (backpointers equal
     to the twin's, never the higher of the two).  Fails unless every shape
@@ -5195,8 +5241,8 @@ def phase_timing_wide(torch, cells: dict, smi: str) -> dict:
         full_args = (lb_bts, lt, lengths)
         rows["viterbi_batch"]["full_T_ms"] = median_ms(torch, lambda: kf.viterbi_batch(*full_args), warmup, reps)
         rows["viterbi_batch"]["full_T_bound"] = lattice_bound("viterbi_batch", lb_bts, lt, lengths)
-        for name, key in (("log_forward_batch", "lattice_block_kernel"), ("viterbi_batch", "lattice_block_kernel"),
-                          ("forward_lattice", "lattice_block_kernel"), ("backward_lattice", "lattice_block_kernel")):
+        for name, key in (("log_forward_batch", "lattice_group_kernel"), ("viterbi_batch", "viterbi_block_kernel"),
+                          ("forward_lattice", "lattice_group_kernel"), ("backward_lattice", "lattice_group_kernel")):
             _, kernel, args = calls[name]
             rows[name]["kernel_device_ms"], rows[name]["kernel_device_launches"] = kernel_device_ms(
                 torch, lambda: kernel(*args), key, calls=calls_dev)
@@ -5222,7 +5268,8 @@ def lattice_bound(name: str, log_b, lt, lengths) -> dict:
     lattice, the final row or the scores and backpointers written once;
     per stepped frame and state the log-sum-exp (~5 operations a source)
     or the max-plus (3) over the sources the transitions allow (their
-    count above -1e30: the kernels skip the rest)."""
+    count above -1e30: the kernels skip the rest); the log-sum-exp's one
+    exponential a (source, state) pair also at the SFU's rate."""
     tsb = name in ("forward_lattice", "backward_lattice", "forward_lattice_blocked", "backward_lattice_blocked")
     T, S, B = log_b.shape if tsb else (log_b.shape[1], log_b.shape[2], log_b.shape[0])
     arcs = int((lt > NEG_INF).sum())  # (source, destination) pairs
@@ -5231,8 +5278,8 @@ def lattice_bound(name: str, log_b, lt, lengths) -> dict:
     if name == "viterbi_batch":
         return bound(io + 4 * B * T * S + 4 * B * S, stepped * (3 * arcs + 2 * S))
     if name == "log_forward_batch":
-        return bound(io + 4 * B * S, stepped * (5 * arcs + 4 * S))
-    return bound(io + 4 * T * S * B, stepped * (5 * arcs + 4 * S))
+        return bound(io + 4 * B * S, stepped * (5 * arcs + 4 * S), stepped * arcs)
+    return bound(io + 4 * T * S * B, stepped * (5 * arcs + 4 * S), stepped * arcs)
 
 
 def main() -> int:

@@ -10,8 +10,10 @@
 //   lattice_backward_kernel <- lattice_pallas.py:134 backward_lattice_pallas,
 //                              :253 backward_lattice_pallas_blocked
 //   viterbi_kernel          <- forward_pallas.py:137 viterbi_batch_pallas
-//   lattice_block_kernel    <- all of them past 64 states (the block-wide
-//                              mode below)
+//   lattice_group_kernel    <- the forward and backward ones past 64 states
+//                              (the group mode below)
+//   viterbi_block_kernel    <- viterbi_batch_pallas past 64 states (the
+//                              block-wide mode below)
 // The blocked TPU kernels compute the same functions as the unblocked ones:
 // k_block was the TPU's time tiling.  The plain PyTorch twins
 // (ops/kernels/lattice.py, ops/kernels/forward.py *_plain) compute the same
@@ -76,6 +78,7 @@
 // warps an SM at em_diag (512 warps on 132 SMs), too few to hide one warp's
 // latency behind another's.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -87,7 +90,7 @@ namespace {
 
 using namespace srhmm;
 
-constexpr int kMaxStates = 64;  // the lane path; the block-wide mode takes up to kMaxBlockStates
+constexpr int kMaxStates = 64;  // the lane path; the group and block-wide modes take up to kMaxBlockStates
 constexpr size_t kSmemLimit = 232448;  // bytes a block may use (ops/kernels/common.py SMEM_LIMIT)
 
 // ---------------------------------------------------------------------------
@@ -111,7 +114,7 @@ struct Params {
   int G, U, TT;        // utterances a warp and a block, frames a tile
   int vec;             // 16-byte copies and stores
   int* bptr;           // Viterbi: the (B, T, S) backpointers
-  int rec, lt_cap;     // block-wide mode (S > kMaxStates): recursion threads, floats of the transitions' region
+  int rec, lt_cap;     // the block-wide Viterbi (S > kMaxStates): recursion threads, floats of the transitions' region
 };
 
 // (B, T, S) tiles: an utterance's TT S floats at a pitch rounded up to 4,
@@ -722,43 +725,32 @@ KernelFn viterbi_kernel_for(int S) {
 }
 
 // ---------------------------------------------------------------------------
-// the block-wide mode: S > kMaxStates
+// the block-wide Viterbi: S > kMaxStates
 // ---------------------------------------------------------------------------
 //
 // Past 64 states an utterance's states do not fit a warp's lanes.  Each
 // block takes one utterance; its p.rec recursion threads (S rounded up to
 // whole warps, at most kBlockRec) take the destinations j = tid + r p.rec,
 // r < ceil(S / p.rec) <= kBlockPerThread, and one memory warp stages log b a
-// tile of TT frames ahead and writes the output a tile behind
-// (stage_forward_tile, store_forward_tile, store_run_tile with U = 1).  The
-// previous row (log-alpha, the backward's inner terms log b + log-beta, or
-// the Viterbi scores) sits double-buffered in shared memory: a frame reads
-// one slot and writes the other, and one barrier of the recursion threads a
-// frame orders them (none past the utterance's length, where the row only
-// repeats).  The transitions: each destination's sources (the backward:
-// each source's destinations) run over the range [lo, lo + cnt) of its
-// column whose clamped log transitions are above NEG_INF, found by the
-// block at its start; the backward is given the transposed matrix (lt[j S +
-// i] = log a(i -> j)), so that a key's entries are a column there too and a
-// warp's loads of them are coalesced.  The ranges' columns sit in shared
-// memory, packed W = max cnt wide (a band of W diagonals, or the dense
-// matrix), when W S floats fit p.lt_cap, else they are read from device
-// memory through L2.
-// A source outside the range adds a term that changes no bit: the clamped
-// transition NEG_INF puts its value at or below NEG_INF, so it is never the
-// maximum m above NEG_INF and its expf(v - m) is 0.0f; and where every term
-// is at or below NEG_INF the update is NEG_INF either way.  The Viterbi's
-// tie rule is the exception: where the best in-range score is at or below
-// NEG_INF (a state not yet reachable), sources outside the range tie with it
+// tile of TT frames ahead and writes the backpointers a tile behind
+// (stage_forward_tile, store_run_tile with U = 1).  The previous row of
+// scores sits double-buffered in shared memory: a frame reads one slot and
+// writes the other, and one barrier of the recursion threads a frame orders
+// them (none past the utterance's length, where the row only repeats).  The
+// transitions: each destination's sources run over the range [lo, lo + cnt)
+// of its column whose clamped log transitions are above NEG_INF, found by
+// the block at its start.  The ranges' columns sit in shared memory, packed
+// W = max cnt wide (a band of W diagonals, or the dense matrix), when W S
+// floats fit p.lt_cap, else they are read from device memory through L2.
+// Where the best in-range score is at or below NEG_INF (a state not yet
+// reachable), sources outside the range (transition NEG_INF) tie with it
 // and the lowest source wins, so that case loops over all S sources.
-// Semantics are the lane path's (the clamp, lengths of 0 and 1, per-row
-// transitions, the lower source on a tie); the sums run over the range in
-// ascending order (max first, then the sum of expf).
+// Semantics are the lane path's (the clamp, lengths of 0 and 1, the lower
+// source on a tie).
 constexpr int kBlockRec = 512;                               // recursion threads a block at most
 constexpr int kBlockPerThread = 8;                           // destinations a thread at most
 constexpr int kMaxBlockStates = kBlockRec * kBlockPerThread;  // 4096
 constexpr int kBlockThreads = kBlockRec + 32;                // and one memory warp
-enum { kForwardKind = 0, kBackwardKind = 1, kViterbiKind = 2 };
 
 __host__ __device__ inline size_t round4(size_t n) { return (n + 3) / 4 * 4; }
 
@@ -766,34 +758,33 @@ __device__ __forceinline__ void named_barrier(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
-// The regions of a block-mode block, in floats (ops/kernels/lattice.py
-// block_smem_bytes mirrors it): two rows of S | log b in two slots (TT S, or
-// a run of TT S at forward_run_pitch for (B, T, S) log b) | the output in
-// two slots (the lattice TT S; the Viterbi's backpointers a run; none for
-// the forward's last row) | the ranges, lo and cnt of S ints and the width
-// | the transitions, lt_cap floats; each region a multiple of 4 floats.
+// The regions of a block-wide Viterbi block, in floats (ops/kernels/lattice.py
+// viterbi_wide_smem_bytes mirrors it): two rows of S | log b in two slots (a
+// run of TT S at forward_run_pitch) | the backpointers in two slots of the
+// same run | the ranges, lo and cnt of S ints and the width | the
+// transitions, lt_cap floats; each region a multiple of 4 floats.
 struct BlockLayout {
   size_t rows, in, out, ints;
 };
 
-__host__ __device__ inline BlockLayout block_layout(int kind, int S, int TT, int layout) {
+__host__ __device__ inline BlockLayout block_layout(int S, int TT) {
   BlockLayout L;
   L.rows = round4(2 * (size_t)S);
-  L.in = round4(kind == kBackwardKind ? (size_t)TT * S : forward_tile_floats(S, 1, TT, kind == kViterbiKind ? 1 : layout));
-  L.out = kind == kViterbiKind ? forward_tile_floats(S, 1, TT, 1) : (kind == kBackwardKind || layout == 0 ? round4((size_t)TT * S) : 0);
+  L.in = round4(forward_tile_floats(S, 1, TT, 1));
+  L.out = forward_tile_floats(S, 1, TT, 1);
   L.ints = round4(2 * (size_t)S + 1);
   return L;
 }
 
-__host__ __device__ inline size_t block_floats(int kind, int S, int TT, int layout, int lt_cap) {
-  const BlockLayout L = block_layout(kind, S, TT, layout);
+__host__ __device__ inline size_t block_floats(int S, int TT, int lt_cap) {
+  const BlockLayout L = block_layout(S, TT);
   return L.rows + 2 * L.in + 2 * L.out + L.ints + (size_t)lt_cap;
 }
 
-// The packed transition of key k (a destination; the backward's source) and
-// its e-th range entry: from shared memory, or clamped from device memory.
+// The packed transition of destination k and its e-th range entry: from
+// shared memory, or clamped from device memory.
 struct BlockTrans {
-  const float* g;  // this block's (S, S) log transitions in device memory, key k's entries column k
+  const float* g;  // the (S, S) log transitions in device memory, destination k's sources column k
   const float* c;  // the packed ranges in shared memory, or nullptr
   const int *lo, *cnt;
   int S, W;
@@ -801,20 +792,6 @@ struct BlockTrans {
     return c ? c[(size_t)k * W + e] : fmaxf(g[(size_t)(lo[k] + e) * S + k], kNegInf);
   }
 };
-
-// The log-sum-exp update of key k over its range from the row x (x[o] +
-// at(k, e) with o = lo[k] + e): max(m + logf(sum) + lb, NEG_INF) with m =
-// max(NEG_INF, max v), the sum of expf(v - m) ascending.
-template <bool kEmit>
-__device__ __forceinline__ float block_lse(const BlockTrans& tr, const float* x, int k, float lb) {
-  const int l0 = tr.lo[k], n = tr.cnt[k];
-  float m = kNegInf;
-  for (int e = 0; e < n; ++e) m = fmaxf(m, x[l0 + e] + tr.at(k, e));
-  float sum = 0.f;
-  for (int e = 0; e < n; ++e) sum += expf(x[l0 + e] + tr.at(k, e) - m);
-  if constexpr (!kEmit) return fmaxf(m + logf(sum), kNegInf);
-  return fmaxf(m + logf(sum) + lb, kNegInf);
-}
 
 // The Viterbi's best source of destination j by a strict > from source 0
 // over all S sources: over the range, unless its best is at or below
@@ -841,17 +818,14 @@ __device__ __forceinline__ float block_best(const BlockTrans& tr, const float* x
   return best;
 }
 
-// One utterance a block (blockIdx.x), KIND forward (p.layout 0: the (T, S,
-// B) lattice; 1: the final carries of (B, T, S) log b), backward or
-// Viterbi; the functions and frame rules of the lane kernels above.
-template <int KIND>
-__global__ void __launch_bounds__(kBlockThreads) lattice_block_kernel(const __grid_constant__ Params p) {
+// One utterance a block (blockIdx.x): the Viterbi scores and (B, T, S)
+// backpointers of the lane kernel above, past 64 states.
+__global__ void __launch_bounds__(kBlockThreads) viterbi_block_kernel(const __grid_constant__ Params p) {
   extern __shared__ float4 smem4[];
   float* sh = reinterpret_cast<float*>(smem4);
   const int S = p.S, TT = p.TT, T = p.T, tid = threadIdx.x, nr = p.rec, b = blockIdx.x;
-  const int layout = KIND == kForwardKind ? p.layout : (KIND == kViterbiKind ? 1 : 0);
   const int Q = forward_run_pitch(S, TT);
-  const BlockLayout L = block_layout(KIND, S, TT, layout);
+  const BlockLayout L = block_layout(S, TT);
   float* row = sh;                        // slot f & 1 of S floats: frame (row) f
   float* lb_slots = row + L.rows;         // slot k & 1 holds tile k
   float* out_slots = lb_slots + 2 * L.in;
@@ -860,12 +834,10 @@ __global__ void __launch_bounds__(kBlockThreads) lattice_block_kernel(const __gr
   int* width = cnt + S;
   float* lt_sh = reinterpret_cast<float*>(lo) + L.ints;
   const int len = p.lengths[b];
-  const float* ltg = p.lt + (p.per_row ? (size_t)b * S * S : 0);  // the backward's: transposed
-  // the frames: all T, the forward's last row only up to the length (frame 0 always)
-  const int t_blk = (KIND == kForwardKind && layout) ? max(1, min(len, T)) : T;
-  const int n_tiles = (t_blk + TT - 1) / TT;
+  const float* ltg = p.lt;
+  const int n_tiles = (T + TT - 1) / TT;
 
-  // the ranges: key k's entries above NEG_INF (column k)
+  // the ranges: destination k's entries above NEG_INF (column k)
   if (tid == 0) *width = 0;
   __syncthreads();
   if (tid < nr) {
@@ -898,35 +870,16 @@ __global__ void __launch_bounds__(kBlockThreads) lattice_block_kernel(const __gr
   if (tid >= nr) {
     // ---- the memory warp ----
     const int i = tid - nr, count = blockDim.x - nr;
-    auto rows_of = [&](int k, int& t_lo, int& t_hi) {
-      if (KIND == kBackwardKind) {
-        backward_rows(k, T, TT, t_lo, t_hi);
-      } else {
-        t_lo = k * TT;
-        t_hi = min(t_blk, t_lo + TT);
-      }
-    };
     auto stage = [&](int k) {
-      int t_lo, t_hi;
-      rows_of(k, t_lo, t_hi);
-      if (KIND == kBackwardKind) {  // rows [t_lo, t_hi) hold log b of frames [t_lo + 1, t_hi + 1)
-        stage_forward_tile(lb_slots + (k & 1) * L.in, p.log_b, 0, t_lo + 1, min(t_hi + 1, T) - t_lo - 1, T, S, p.B,
-                           b, 1, 0, 0, i, count);
-      } else {
-        stage_forward_tile(lb_slots + (k & 1) * L.in, p.log_b, layout, t_lo, t_hi - t_lo, T, S, p.B, b, 1, Q, p.vec,
-                           i, count);
-      }
+      const int t_lo = k * TT, t_hi = min(T, t_lo + TT);
+      stage_forward_tile(lb_slots + (k & 1) * L.in, p.log_b, 1, t_lo, t_hi - t_lo, T, S, p.B, b, 1, Q, p.vec, i,
+                         count);
       cp_async_commit();
     };
     auto store = [&](int k) {
-      int t_lo, t_hi;
-      rows_of(k, t_lo, t_hi);
-      if (KIND == kViterbiKind) {
-        store_run_tile(p.bptr, reinterpret_cast<const int*>(out_slots + (k & 1) * L.out), t_lo, t_hi - t_lo, T, S,
-                       p.B, b, 1, Q, p.vec, i, count);
-      } else if (L.out) {
-        store_forward_tile(p.out, out_slots + (k & 1) * L.out, t_lo, t_hi - t_lo, S, p.B, b, 1, 0, i, count);
-      }
+      const int t_lo = k * TT, t_hi = min(T, t_lo + TT);
+      store_run_tile(p.bptr, reinterpret_cast<const int*>(out_slots + (k & 1) * L.out), t_lo, t_hi - t_lo, T, S,
+                     p.B, b, 1, Q, p.vec, i, count);
     };
     stage(0);
     cp_async_wait<0>();
@@ -944,104 +897,56 @@ __global__ void __launch_bounds__(kBlockThreads) lattice_block_kernel(const __gr
 
   // ---- the recursion threads ----
   const int K = (S + nr - 1) / nr;
-  float carry[kBlockPerThread];  // log-alpha, log-beta at the next row, or the score
+  float carry[kBlockPerThread];  // the score
 #pragma unroll
-  for (int r = 0; r < kBlockPerThread; ++r) {
-    const int j = tid + r * nr;
-    carry[r] = (KIND == kBackwardKind && j == S - 1) ? 0.f : kNegInf;
-  }
+  for (int r = 0; r < kBlockPerThread; ++r) carry[r] = kNegInf;
   __syncthreads();  // tile 0 (and the packed transitions) are in
   for (int k = 0; k < n_tiles; ++k) {
     const float* lbt = lb_slots + (k & 1) * L.in;
     float* ot = out_slots + (k & 1) * L.out;
-    if constexpr (KIND == kBackwardKind) {
-      int t_lo, t_hi;
-      backward_rows(k, T, TT, t_lo, t_hi);
-      for (int t = t_hi - 1; t >= t_lo; --t) {
-        const int tt = t - t_lo;
-        if (t < T - 1) {  // row T-1 keeps the initialization
-          if (t + 1 < len) {
-            float* ib = row + (t & 1) * S;  // inner terms of row t: log b[t+1] + log-beta[t+1]
+    const int t_lo = k * TT, t_hi = min(T, t_lo + TT);
+    for (int t = t_lo; t < t_hi; ++t) {
+      const int tt = t - t_lo;
+      const float* prev = row + ((t + 1) & 1) * S;  // frame t-1
+      float* cur = row + (t & 1) * S;
+      const bool step = t >= 1 && t < len;
 #pragma unroll
-            for (int r = 0; r < kBlockPerThread; ++r) {
-              const int j = tid + r * nr;
-              if (r < K && j < S) ib[j] = fmaxf(lbt[(size_t)tt * S + j], kNegInf) + carry[r];
-            }
-            named_barrier(1, nr);
-#pragma unroll
-            for (int r = 0; r < kBlockPerThread; ++r) {
-              const int j = tid + r * nr;
-              if (r < K && j < S) carry[r] = block_lse<false>(tr, ib, j, 0.f);
-            }
-          } else {
-#pragma unroll
-            for (int r = 0; r < kBlockPerThread; ++r) carry[r] = (tid + r * nr == S - 1) ? 0.f : kNegInf;
-          }
+      for (int r = 0; r < kBlockPerThread; ++r) {
+        const int j = tid + r * nr;
+        if (r >= K || j >= S) continue;
+        const float lb = fmaxf(lbt[(size_t)tt * S + j], kNegInf);
+        int arg = j;
+        if (t == 0) {
+          carry[r] = (j == 0 ? 0.f : kNegInf) + lb;
+        } else if (step) {
+          carry[r] = fmaxf(block_best(tr, prev, j, arg) + lb, kNegInf);
         }
-#pragma unroll
-        for (int r = 0; r < kBlockPerThread; ++r) {
-          const int j = tid + r * nr;
-          if (r < K && j < S) ot[(size_t)tt * S + j] = carry[r];
-        }
+        if (t + 1 < len && t + 1 < T) cur[j] = carry[r];  // read by frame t+1 only
+        reinterpret_cast<int*>(ot)[tt * S + j] = step ? arg : j;
       }
-    } else {
-      const int t_lo = k * TT, t_hi = min(t_blk, t_lo + TT);
-      for (int t = t_lo; t < t_hi; ++t) {
-        const int tt = t - t_lo;
-        const float* prev = row + ((t + 1) & 1) * S;  // frame t-1
-        float* cur = row + (t & 1) * S;
-        const bool step = t >= 1 && t < len;
-#pragma unroll
-        for (int r = 0; r < kBlockPerThread; ++r) {
-          const int j = tid + r * nr;
-          if (r >= K || j >= S) continue;
-          const float lb = fmaxf(lbt[(size_t)tt * S + j], kNegInf);
-          int arg = j;
-          if (t == 0) {
-            carry[r] = (j == 0 ? 0.f : kNegInf) + lb;
-          } else if (step) {
-            if constexpr (KIND == kViterbiKind) {
-              carry[r] = fmaxf(block_best(tr, prev, j, arg) + lb, kNegInf);
-            } else {
-              carry[r] = block_lse<true>(tr, prev, j, lb);
-            }
-          }
-          if (t + 1 < len && t + 1 < t_blk) cur[j] = carry[r];  // read by frame t+1 only
-          if constexpr (KIND == kViterbiKind) {
-            reinterpret_cast<int*>(ot)[tt * S + j] = step ? arg : j;
-          } else if (L.out) {
-            ot[(size_t)tt * S + j] = carry[r];
-          }
-        }
-        if (t + 1 < len && t + 1 < t_blk) named_barrier(1, nr);  // frame t's row, for frame t+1
-      }
+      if (t + 1 < len && t + 1 < T) named_barrier(1, nr);  // frame t's row, for frame t+1
     }
     __syncthreads();
   }
-  if (KIND != kBackwardKind && (KIND == kViterbiKind || layout)) {
 #pragma unroll
-    for (int r = 0; r < kBlockPerThread; ++r) {
-      const int j = tid + r * nr;
-      if (r < K && j < S) p.out[(size_t)b * S + j] = carry[r];
-    }
+  for (int r = 0; r < kBlockPerThread; ++r) {
+    const int j = tid + r * nr;
+    if (r < K && j < S) p.out[(size_t)b * S + j] = carry[r];
   }
 }
 
-// The block-wide mode's launch: one utterance a block, p.rec recursion
+// The block-wide Viterbi's launch: one utterance a block, p.rec recursion
 // threads (S rounded up to whole warps, at most kBlockRec) and a memory
 // warp; 0 or a CUDA error code.
-int launch_block(int kind, const Params& p, int device, void* stream) {
+int launch_viterbi_block(const Params& p, int device, void* stream) {
   const int S = p.S;
   const int rec = min(kBlockRec, (S + 31) / 32 * 32);
-  const int layout = kind == kForwardKind ? p.layout : (kind == kViterbiKind ? 1 : 0);
-  const size_t smem = sizeof(float) * block_floats(kind, S, p.TT, layout, p.lt_cap);
+  const size_t smem = sizeof(float) * block_floats(S, p.TT, p.lt_cap);
   if (p.T < 1 || S <= kMaxStates || S > kMaxBlockStates || p.B < 1 || p.TT < 1 || p.G != 0 || p.U != 1 ||
-      p.rec != rec || p.lt_cap < 0 || p.lt_cap % 4 != 0 || (p.vec && layout == 0) || smem > kSmemLimit) {
+      p.rec != rec || p.lt_cap < 0 || p.lt_cap % 4 != 0 || smem > kSmemLimit) {
     return (int)cudaErrorInvalidValue;
   }
-  KernelFn fn = kind == kForwardKind ? lattice_block_kernel<kForwardKind>
-                                     : (kind == kBackwardKind ? lattice_block_kernel<kBackwardKind>
-                                                              : lattice_block_kernel<kViterbiKind>);
+  KernelFn fn = viterbi_block_kernel;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (smem > 48 * 1024) {
@@ -1050,6 +955,495 @@ int launch_block(int kind, const Params& p, int device, void* stream) {
     if (err != cudaSuccess) return (int)err;
   }
   fn<<<p.B, rec + 32, smem, static_cast<cudaStream_t>(stream)>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// the group mode: the forward and backward lattices past kMaxStates
+// ---------------------------------------------------------------------------
+enum { kForwardKind = 0, kBackwardKind = 1 };
+//
+// The forward and the backward compute, for every key k of a row (the
+// forward's destination, the backward's source), a log-sum-exp over the
+// previous row x (log-alpha; the backward's inner terms log b + log-beta)
+// plus a column of the log transitions g[o S + k] (the backward is given the
+// transposed matrix).  Past 64 states one such row is S^2 exponentials, and
+// the matrix (4 MB at S = 1024) does not fit a block.
+//
+// A cluster of C blocks takes a group of G consecutive utterances (one
+// where the transitions are per utterance: nothing is shared then), and
+// each block owns a slice of Db keys [rank Db, rank Db + Db) for all G of
+// them.  Every block holds the group's whole previous row, double-buffered
+// (2 G rows of RP floats); after a frame each
+// block writes its slice of the new row into every peer's buffer through
+// distributed shared memory, and one cluster barrier (arrive.release /
+// wait.acquire) a frame orders the cluster: a frame reads one slot and the
+// peers write the other.  Each transition a block loads serves its G
+// utterances, and each element of the row several keys.
+//
+// Two routes for the transitions, chosen by the cluster at its start from
+// the widest range W of sources above NEG_INF over its keys (the same in
+// every block): "packed", where W Db floats fit lt_cap: the ranges' entries
+// of the block's keys sit in shared memory and an owner thread of a
+// (utterance, key) pair runs the max and the sum of expf over its range as
+// the plain twin does (a banded chain's two or three terms, or a small
+// dense matrix); "streamed" otherwise: tiles of KT sources x Db keys stream
+// from device memory (through L2) by 16-byte cp.async into kGroupStages
+// slots, and a thread takes a register tile of UT utterances x 4 keys over
+// its share of SP sources of each tile (KS shares a tile), keeping
+// an online log-sum-exp: a pair's sum is taken against a reference m, a
+// running max that is raised lazily: each chunk of kGroupChunk sources runs
+// as straight-line code (v = x + a, ex2.approx of v log2(e) - m log2(e) by
+// one fma, the add), and only where a chunk's sum passes kGroupLazy (a
+// source more than ~44 nats above m, or m still at the floor) is the chunk
+// taken again against its max (the sum rescaled, the difference v - m in
+// natural units); m + log(sum) is exact whatever m is.  The KS partial
+// (reference, sum) pairs of a key are combined by its owner in a fixed
+// order.  Every (source, key) pair gets its own exponential: no term leaves
+// the log domain, so a key whose sources all sit far below the row's
+// maximum keeps its mass.
+//
+// log b: an owner copies the values of its pairs kGroupRing - 1 frames
+// ahead into a ring of its own (4-byte cp.async, one commit group a frame).
+// Outputs: the owners write the (T, S, B) lattice or, for (B, T, S) log b,
+// the final carries.  A group runs to its
+// longest member; rows past each member's length follow the lane path's
+// rules (the forward repeats the last valid row, the backward keeps the
+// initialization), and the rows past the group's longest are written
+// without a recursion.  Sums run in a fixed order, so two runs are bitwise
+// equal.
+//
+// What bounds it on the H100: one exponential per (source, key, frame) on
+// the SFU (16 a clock an SM): a dense S = 1024 lattice at B = 64 needs 2.1e10;
+// beside each one the streamed route issues an add (v = x + a), an fma (the
+// exponent) and the add of the sum.
+constexpr int kGroupRing = 8;        // frames of log b an owner keeps in flight
+constexpr int kGroupStages = 2;      // transition tiles in flight (the streamed route)
+constexpr int kGroupChunk = 8;       // sources of one max-then-exponentials step (SP a multiple)
+constexpr int kGroupMaxThreads = 1024;
+constexpr int kGroupStreamThreads = 640;  // the instance whose registers suit the streamed route
+constexpr int kGroupMaxOwned = 16;   // (utterance, key) pairs a thread owns at most
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kGroupLazy = 0x1p64f;  // a chunk's sum of exponentials past which it is taken again
+
+struct GroupParams {
+  const float* log_b;  // (T, S, B) (layout 0) or (B, T, S) (layout 1), contiguous
+  const float* lt;     // (S, S) key k's terms column k; (B, S, S) per utterance where per_row (G = 1)
+  const int* lengths;  // (B,)
+  float* out;          // the (T, S, B) lattice (layout 0) or the final carries (B, S) (layout 1, forward)
+  int per_row, layout, T, S, B;
+  int G, C, NT, KS;    // utterances a group, blocks a cluster, threads a block, source shares a tile
+  int SP;              // sources a share (a multiple of kGroupChunk)
+  int lt_cap, vec;     // floats of the transitions' region; 16-byte tile copies (S % 4 == 0, lt aligned)
+};
+
+// The shape of a group-mode block, in floats (ops/kernels/lattice.py
+// group_regions mirrors it): keys a block Db (ceil(S / C) rounded up to
+// 4), sources a tile KT, row pitches; the regions: two rows of G
+// utterances | the log b ring | the owners' carries | the partial (max,
+// sum) pairs, KS a pair | lo, cnt of Db ints, the width and the G lengths |
+// the transitions, lt_cap floats (the packed ranges, or kGroupStages tiles
+// of KT x Db).
+struct GroupLayout {
+  int Db, KT, rp_stream, rp_packed, PO;
+  size_t rows, ring, carry, part, ints, tiles;
+};
+
+__host__ __device__ inline GroupLayout group_layout(int S, int G, int C, int NT, int KS, int SP) {
+  GroupLayout L;
+  L.Db = ((S + C - 1) / C + 3) / 4 * 4;
+  L.KT = SP * KS;
+  L.rp_stream = (S + L.KT - 1) / L.KT * L.KT;  // float4 rows, -inf past S
+  L.rp_packed = S | 1;                         // an odd pitch: utterances on other banks
+  L.PO = (G * L.Db + NT - 1) / NT;
+  L.rows = round4(2 * (size_t)G * max(L.rp_stream, L.rp_packed));
+  L.ring = (size_t)kGroupRing * L.PO * NT;
+  L.carry = (size_t)L.PO * NT;
+  L.part = 2 * (size_t)KS * G * L.Db;
+  L.ints = round4(2 * (size_t)L.Db + 1 + G);
+  L.tiles = (size_t)kGroupStages * L.KT * L.Db;
+  return L;
+}
+
+__host__ __device__ inline size_t group_floats(const GroupLayout& L, int lt_cap) {
+  return L.rows + L.ring + L.carry + L.part + L.ints + (size_t)lt_cap;
+}
+
+__device__ __forceinline__ float lane4(const float4& a, int c) {
+  return c == 0 ? a.x : (c == 1 ? a.y : (c == 2 ? a.z : a.w));
+}
+
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The max and the sum of exponentials of one key over its packed range, as
+// the plain twin takes them: x the row from the range's first source, a the
+// key's clamped entries at a stride of Db; m = max(NEG_INF, max v), the sum
+// of expf(v - m) ascending.
+__device__ __forceinline__ float2 range_lse(const float* x, const float* a, int Db, int n) {
+  float m = kNegInf;
+  for (int e = 0; e < n; ++e) m = fmaxf(m, x[e] + a[(size_t)e * Db]);
+  float sum = 0.f;
+  for (int e = 0; e < n; ++e) sum += expf(x[e] + a[(size_t)e * Db] - m);
+  return make_float2(m, sum);
+}
+
+// The owner pairs of thread tid: pair index q = tid + i NT < G Db, the
+// utterance fastest (ufast) where a group is one block with the (T, S, B)
+// lattice out (G consecutive floats a key), else the key fastest: a warp's
+// new row then goes into a peer's shared memory in consecutive floats, and
+// (B, T, S) log b is read along its keys.
+__device__ __forceinline__ void owner_pair(int q, int G, int Db, bool ufast, int& u, int& kk) {
+  if (ufast) {
+    u = q % G;
+    kk = q / G;
+  } else {
+    kk = q % Db;
+    u = q / Db;
+  }
+}
+
+template <int KIND, int UT, int MAXT>
+__global__ void __launch_bounds__(MAXT) lattice_group_kernel(const __grid_constant__ GroupParams p) {
+  namespace cg = cooperative_groups;
+  extern __shared__ float4 smem4[];
+  float* sh = reinterpret_cast<float*>(smem4);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int S = p.S, T = p.T, B = p.B, G = p.G, C = p.C, NT = p.NT, KS = p.KS, tid = threadIdx.x;
+  const int layout = KIND == kForwardKind ? p.layout : 0;
+  const bool ufast = layout == 0 && C == 1;
+  const GroupLayout L = group_layout(S, G, C, NT, KS, p.SP);
+  const int Db = L.Db, KT = L.KT, PO = L.PO, GD = G * Db, SP = p.SP;
+  const int rank = (int)cluster.block_rank(), d0 = rank * Db, b0 = (blockIdx.x / C) * G;
+  float* rows = sh;
+  float* ring = rows + L.rows;
+  float* carry = ring + L.ring;  // the forward's carries, the backward's log-beta: [i NT + tid]
+  float* part = carry + L.carry;  // max at [s GD + q], sum at [KS GD + s GD + q]
+  int* lo = reinterpret_cast<int*>(part + L.part);
+  int* cnt = lo + Db;
+  int* width = cnt + Db;
+  int* glen = width + 1;
+  float* ltr = reinterpret_cast<float*>(lo) + L.ints;
+  const float* g = p.lt + (p.per_row ? (size_t)b0 * S * S : 0);
+
+  // the group's lengths and frames: the forward takes frame 0 always
+  int tg = 0;
+  for (int u = 0; u < G; ++u) {
+    const int n = b0 + u < B ? min(p.lengths[b0 + u], T) : 0;
+    tg = max(tg, KIND == kForwardKind ? max(1, n) : n);
+    if (tid == 0) glen[u] = b0 + u < B ? p.lengths[b0 + u] : 0;
+  }
+  const int n_steps = tg;  // step s: the forward's frame s; the backward's row tg - 1 - s
+
+  // the ranges of the block's keys: entries above NEG_INF of column k
+  if (tid == 0) *width = 0;
+  __syncthreads();
+  for (int kk = tid; kk < Db; kk += NT) {
+    const int k = d0 + kk;
+    int first = S, last = -1;
+    if (k < S) {
+#pragma unroll 8
+      for (int e = 0; e < S; ++e) {
+        if (g[(size_t)e * S + k] > kNegInf) {
+          first = min(first, e);
+          last = e;
+        }
+      }
+    }
+    lo[kk] = first <= last ? first : 0;
+    cnt[kk] = first <= last ? last - first + 1 : 0;
+    atomicMax(width, cnt[kk]);
+  }
+  cluster.sync();  // every block's width is in (and every block has started)
+  int W = 0;
+  for (int r = 0; r < C; ++r) W = max(W, *cluster.map_shared_rank(width, r));
+  const bool packed = (size_t)W * Db <= (size_t)p.lt_cap;
+  const int RP = packed ? L.rp_packed : L.rp_stream;
+  if (packed) {
+    for (int kk = tid; kk < Db; kk += NT)
+      for (int e = 0; e < cnt[kk]; ++e)
+        ltr[(size_t)e * Db + kk] = fmaxf(g[(size_t)(lo[kk] + e) * S + d0 + kk], kNegInf);
+  } else if (RP > S) {
+    for (int i = tid; i < 2 * G * (RP - S); i += NT) rows[(size_t)(i / (RP - S)) * RP + S + i % (RP - S)] = -INFINITY;
+  }
+  cluster.sync();  // the peers have read this block's width; the transitions are in
+
+  auto frame_of = [&](int s) { return KIND == kBackwardKind ? tg - 1 - s : s; };
+  auto lb_addr = [&](int t, int u, int k) {
+    return layout == 0 ? p.log_b + ((size_t)t * S + k) * B + b0 + u : p.log_b + ((size_t)(b0 + u) * T + t) * S + k;
+  };
+  // step s's log b into ring slot s % kGroupRing (one commit group a step, empty past the last)
+  auto issue_lb = [&](int s) {
+    if (s < n_steps) {
+      const int t = frame_of(s);
+      for (int i = 0; i < PO; ++i) {
+        const int q = tid + i * NT;
+        if (q >= GD) break;
+        int u, kk;
+        owner_pair(q, G, Db, ufast, u, kk);
+        const bool ok = b0 + u < B && d0 + kk < S;
+        cp_async4(ring + ((size_t)(s % kGroupRing) * PO + i) * NT + tid, ok ? lb_addr(t, u, d0 + kk) : p.log_b, ok);
+      }
+    }
+    cp_async_commit();
+  };
+  // the streamed route's tiles: sources [j KT, j KT + KT) x the block's keys into slot j % kGroupStages
+  const int n_tiles = (S + KT - 1) / KT;
+  auto issue_tile = [&](int j) {
+    float* st = ltr + (size_t)(j % kGroupStages) * KT * Db;
+    const int i0 = j * KT;
+    if (p.vec) {
+      const int per = Db / 4;
+      for (int c = tid; c < KT * per; c += NT) {
+        const int r = c / per, q = c - r * per;
+        const bool ok = i0 + r < S && d0 + 4 * q < S;
+        cp_async16(st + (size_t)r * Db + 4 * q, ok ? g + (size_t)(i0 + r) * S + d0 + 4 * q : g, ok);
+      }
+    } else {
+      for (int c = tid; c < KT * Db; c += NT) {
+        const int r = c / Db, q = c - r * Db;
+        const bool ok = i0 + r < S && d0 + q < S;
+        cp_async4(st + c, ok ? g + (size_t)(i0 + r) * S + d0 + q : g, ok);
+      }
+    }
+    cp_async_commit();
+  };
+  // this thread's register tile: utterances ut UT .., keys 4 kg .., the share ks of each tile
+  const int kgs = Db / 4, units = (G / UT) * kgs;
+  const bool unit = tid < units * KS;
+  const int kg = tid % kgs, ut = (tid / kgs) % (G / UT), ks = tid / units;
+
+  for (int s = 0; s + 1 < kGroupRing; ++s) issue_lb(s);
+
+  for (int s = 0; s < n_steps; ++s) {
+    issue_lb(s + kGroupRing - 1);
+    const int t = frame_of(s);
+    const float* x = rows + (size_t)((s + 1) & 1) * G * RP;  // the row step s - 1 wrote
+    float* xn = rows + (size_t)(s & 1) * G * RP;
+    if (s >= 1 && !packed) {
+      float m[UT][4], acc[UT][4];
+#pragma unroll
+      for (int a = 0; a < UT; ++a)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) m[a][c] = kNegInf, acc[a][c] = 0.f;
+      for (int j = 0; j + 1 < kGroupStages && j < n_tiles; ++j) issue_tile(j);
+      for (int j = 0; j < n_tiles; ++j) {
+        if (j + 1 < n_tiles) {
+          cp_async_wait<kGroupStages - 2>();
+        } else {
+          cp_async_wait<0>();
+        }
+        __syncthreads();  // tile j is in for every thread; tile j - 1's slot is free
+        if (j + kGroupStages - 1 < n_tiles) issue_tile(j + kGroupStages - 1);
+        if (!unit) continue;
+        for (int ch = 0; ch < SP; ch += kGroupChunk) {
+          const int r0 = ks * SP + ch;  // the chunk's first source in the tile
+          const float* st = ltr + (size_t)(j % kGroupStages) * KT * Db + (size_t)r0 * Db + 4 * kg;
+          float4 a[kGroupChunk];
+#pragma unroll
+          for (int q = 0; q < kGroupChunk; ++q) a[q] = *reinterpret_cast<const float4*>(st + (size_t)q * Db);
+          float xs[UT][kGroupChunk];
+#pragma unroll
+          for (int uu = 0; uu < UT; ++uu) {
+            const float* xr = x + (size_t)(ut * UT + uu) * RP + j * KT + r0;
+            const float4 x0 = *reinterpret_cast<const float4*>(xr), x1 = *reinterpret_cast<const float4*>(xr + 4);
+            xs[uu][0] = x0.x, xs[uu][1] = x0.y, xs[uu][2] = x0.z, xs[uu][3] = x0.w;
+            xs[uu][4] = x1.x, xs[uu][5] = x1.y, xs[uu][6] = x1.z, xs[uu][7] = x1.w;
+          }
+          // the exponentials against each pair's reference m as straight-line
+          // code; where a sum reaches kGroupLazy (a source above m by ~44
+          // nats, or m still the floor) the chunk is taken again against its
+          // max, the sum rescaled (one branch for the rare cases)
+          float e[UT][4];
+          bool again = false;
+#pragma unroll
+          for (int uu = 0; uu < UT; ++uu)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+              const float mref = m[uu][c] * kLog2e;
+              float sum = 0.f;
+#pragma unroll
+              for (int q = 0; q < kGroupChunk; ++q)
+                sum += fast_exp2(fmaf(xs[uu][q] + lane4(a[q], c), kLog2e, -mref));
+              e[uu][c] = sum;
+              again |= !(sum < kGroupLazy);
+            }
+          if (again) {
+#pragma unroll
+            for (int uu = 0; uu < UT; ++uu)
+#pragma unroll
+              for (int c = 0; c < 4; ++c) {
+                if (e[uu][c] < kGroupLazy) continue;
+                float mx = -INFINITY;
+#pragma unroll
+                for (int q = 0; q < kGroupChunk; ++q) mx = fmaxf(mx, xs[uu][q] + lane4(a[q], c));
+                if (mx > m[uu][c]) {  // the running max rises: rescale the sum
+                  acc[uu][c] *= fast_exp2((m[uu][c] - mx) * kLog2e);
+                  m[uu][c] = mx;
+                }
+                float sum = 0.f;
+#pragma unroll
+                for (int q = 0; q < kGroupChunk; ++q) sum += fast_exp2((xs[uu][q] + lane4(a[q], c) - m[uu][c]) * kLog2e);
+                e[uu][c] = sum;
+              }
+          }
+#pragma unroll
+          for (int uu = 0; uu < UT; ++uu)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) acc[uu][c] += e[uu][c];
+        }
+      }
+      if (unit) {
+#pragma unroll
+        for (int uu = 0; uu < UT; ++uu)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const int u = ut * UT + uu, kk = 4 * kg + c;
+            const int q = ufast ? kk * G + u : u * Db + kk;
+            part[(size_t)ks * GD + q] = m[uu][c];
+            part[(size_t)(KS + ks) * GD + q] = acc[uu][c];
+          }
+      }
+      __syncthreads();  // the partial pairs are in
+    } else {
+      cp_async_wait<kGroupRing - 1>();  // this thread's log b of step s
+    }
+
+    // ---- the owners: the new values, the output, the new row into every peer ----
+    for (int i = 0; i < PO; ++i) {
+      const int q = tid + i * NT;
+      if (q >= GD) break;
+      int u, kk;
+      owner_pair(q, G, Db, ufast, u, kk);
+      const int k = d0 + kk, b = b0 + u;
+      if (k >= S) continue;
+      const float lb = fmaxf(ring[((size_t)(s % kGroupRing) * PO + i) * NT + tid], kNegInf);
+      const int len = glen[u];
+      float v;
+      if (s == 0) {
+        v = KIND == kForwardKind ? (k == 0 ? 0.f : kNegInf) + lb : (k == S - 1 ? 0.f : kNegInf);
+      } else {
+        float2 ms;
+        if (packed) {
+          ms = range_lse(x + (size_t)u * RP + lo[kk], ltr + kk, Db, cnt[kk]);
+        } else {
+          float mx = kNegInf;
+          for (int r = 0; r < KS; ++r) mx = fmaxf(mx, part[(size_t)r * GD + q]);
+          float sum = 0.f;
+          for (int r = 0; r < KS; ++r)
+            sum += part[(size_t)(KS + r) * GD + q] * fast_exp2((part[(size_t)r * GD + q] - mx) * kLog2e);
+          ms = make_float2(mx, sum);
+        }
+        if constexpr (KIND == kForwardKind) {
+          v = t < len ? fmaxf(ms.x + logf(ms.y) + lb, kNegInf) : carry[i * NT + tid];
+        } else {
+          v = t + 1 < len ? fmaxf(ms.x + logf(ms.y), kNegInf) : (k == S - 1 ? 0.f : kNegInf);
+        }
+      }
+      carry[i * NT + tid] = v;
+      if (layout == 0 && b < B) p.out[((size_t)t * S + k) * B + b] = v;
+      if (s + 1 < n_steps) {
+        const float xv = KIND == kForwardKind ? v : lb + v;
+        float* dst = xn + (size_t)u * RP + k;
+        if (C == 1) {
+          *dst = xv;
+        } else {
+          for (int r = 0; r < C; ++r) *cluster.map_shared_rank(dst, r) = xv;
+        }
+      }
+    }
+    if (C == 1) {
+      __syncthreads();  // one block: the new row is in, the old one read
+    } else {
+      cluster.sync();  // the new row is in every block; the old one is read
+    }
+  }
+
+  // the rows past the group's longest member (the forward repeats its last
+  // row, the backward keeps the initialization), or the final carries
+  for (int i = 0; i < PO; ++i) {
+    const int q = tid + i * NT;
+    if (q >= GD) break;
+    int u, kk;
+    owner_pair(q, G, Db, ufast, u, kk);
+    const int k = d0 + kk, b = b0 + u;
+    if (k >= S || b >= B) continue;
+    if (layout == 1) {
+      p.out[(size_t)b * S + k] = carry[i * NT + tid];
+      continue;
+    }
+    const float v = KIND == kForwardKind ? carry[i * NT + tid] : (k == S - 1 ? 0.f : kNegInf);
+    for (int t = tg; t < T; ++t) p.out[((size_t)t * S + k) * B + b] = v;
+  }
+}
+
+using GroupFn = void (*)(GroupParams);
+
+// The instance for UT and NT threads: up to kGroupStreamThreads the one
+// whose register budget keeps the streamed route's tiles in registers (the
+// shapes of clusters past one block), past them up to kGroupMaxThreads (one
+// block a group, the packed route: a thread owns fewer pairs).
+template <int KIND>
+GroupFn group_kernel_for(int UT, int NT) {
+  if (NT > kGroupStreamThreads) {
+    return UT == 2 ? lattice_group_kernel<KIND, 2, kGroupMaxThreads> : lattice_group_kernel<KIND, 1, kGroupMaxThreads>;
+  }
+  return UT == 2 ? lattice_group_kernel<KIND, 2, kGroupStreamThreads>
+                 : lattice_group_kernel<KIND, 1, kGroupStreamThreads>;
+}
+
+// The register tile's utterances: 2 where G is even, else 1.
+inline int group_utt_tile(int G) { return G % 2 == 0 ? 2 : 1; }
+
+// The checked launch shape of the group mode (ops/kernels/lattice.py
+// group_block): the kernel, its shared memory and threads; false where the
+// shape is not one the kernel takes.
+bool group_shape(int kind, const GroupParams& p, GroupFn& fn, size_t& smem) {
+  const int S = p.S, G = p.G, C = p.C, KS = p.KS;
+  if (p.T < 1 || S <= kMaxStates || S > kMaxBlockStates || p.B < 1 || G < 1 || (p.per_row && G != 1) ||
+      (C != 1 && C != 2 && C != 4 && C != 8 && C != 16) || KS < 1 || KS > 64 || (KS & (KS - 1)) != 0 ||
+      p.SP < kGroupChunk || p.SP > 64 || p.SP % kGroupChunk != 0) {
+    return false;
+  }
+  const GroupLayout L = group_layout(S, G, C, p.NT, KS, p.SP);
+  const int UT = group_utt_tile(G), units = (G / UT) * (L.Db / 4);
+  smem = sizeof(float) * group_floats(L, p.lt_cap);
+  fn = kind == kForwardKind ? group_kernel_for<kForwardKind>(UT, p.NT) : group_kernel_for<kBackwardKind>(UT, p.NT);
+  return (C - 1) * L.Db < S && p.NT % 32 == 0 && units * KS <= p.NT && p.NT <= kGroupMaxThreads &&
+         L.PO <= kGroupMaxOwned && p.lt_cap % 4 == 0 && (size_t)p.lt_cap >= L.tiles && smem <= kSmemLimit;
+}
+
+// The group mode's launch: ceil(B / G) clusters of C blocks (a non-portable
+// cluster size past 8); 0 or a CUDA error code.
+int launch_group(int kind, const GroupParams& p, int device, void* stream) {
+  GroupFn fn;
+  size_t smem;
+  if (!group_shape(kind, p, fn, smem)) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(reinterpret_cast<const void*>(fn), cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  if (p.C > 8) {
+    err = cudaFuncSetAttribute(reinterpret_cast<const void*>(fn), cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return (int)err;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)((p.B + p.G - 1) / p.G * p.C));
+  cfg.blockDim = dim3((unsigned)p.NT);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)p.C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, fn, p);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
@@ -1086,38 +1480,85 @@ extern "C" {
 // Pointers are device pointers; lengths int32 (B,), lt float32 (S, S) or,
 // for the forward with per_row, (B, S, S).  G utterances a warp, U = 4 G a
 // block and TT frames a tile from ops/kernels/lattice.py forward_block /
-// backward_block / viterbi_block; rec and lt_cap are 0 there.  Past
-// kMaxStates states the block-wide mode: G = 0, U = 1, rec recursion
-// threads and lt_cap floats of transitions (block_floats).
+// backward_block / viterbi_block (up to kMaxStates states); rec and lt_cap
+// are 0 there.  Past kMaxStates the forward and backward take
+// srhmm_lattice_group, the Viterbi its block-wide mode: G = 0, U = 1, rec
+// recursion threads and lt_cap floats of transitions (block_floats).
 
-// The forward kernel.  layout 0: log b (T, S, B) contiguous, out the (T,
-// S, B) lattice; layout 1: log b (B, T, S) contiguous, out the final
-// carries (B, S).  vec: 16-byte copies (U and B, or T S and TT S,
-// multiples of 4, log b and out 16-byte aligned).
+// The forward kernel, up to kMaxStates states.  layout 0: log b (T, S, B)
+// contiguous, out the (T, S, B) lattice; layout 1: log b (B, T, S)
+// contiguous, out the final carries (B, S).  vec: 16-byte copies (U and
+// B, or T S and TT S, multiples of 4, log b and out 16-byte aligned).
 int srhmm_lattice_forward(const void* log_b, const void* lt, int per_row, const void* lengths, void* out,
                           int layout, int T, int S, int B, int G, int U, int TT, int vec, int rec, int lt_cap,
                           int device, void* stream) {
   if (layout != 0 && layout != 1) return (int)cudaErrorInvalidValue;
   const bool vec_ok = aligned16(log_b, out) && (layout ? (T * S % 4 == 0 && TT * S % 4 == 0) : (U % 4 == 0 && B % 4 == 0));
   const Params p{static_cast<const float*>(log_b), static_cast<const float*>(lt), static_cast<const int*>(lengths),
-                 static_cast<float*>(out), per_row, layout, T, S, B, G, U, TT, vec, nullptr, rec, lt_cap};
-  if (S < 1 || S > kMaxBlockStates || (p.vec && !vec_ok)) return (int)cudaErrorInvalidValue;
-  if (S > kMaxStates) return launch_block(kForwardKind, p, device, stream);
+                 static_cast<float*>(out), per_row, layout, T, S, B, G, U, TT, vec, nullptr, 0, 0};
+  if (S < 1 || S > kMaxStates || rec != 0 || lt_cap != 0 || (p.vec && !vec_ok)) return (int)cudaErrorInvalidValue;
   return launch_lanes(forward_kernel_for(S), kFwdThreads, p, forward_floats(S, U, TT, layout, per_row), vec_ok, device, stream);
 }
 
-// The backward kernel: log b (T, S, B) contiguous, out the (T, S, B)
-// lattice; vec: 16-byte copies and stores (U and B multiples of 4, log b
-// and out 16-byte aligned).  Past kMaxStates lt is the transposed matrix,
-// lt[j S + i] = log a(i -> j).
+// The backward kernel, up to kMaxStates states: log b (T, S, B)
+// contiguous, out the (T, S, B) lattice; vec: 16-byte copies and stores (U
+// and B multiples of 4, log b and out 16-byte aligned).
 int srhmm_lattice_backward(const void* log_b, const void* lt, const void* lengths, void* out, int T, int S, int B,
                            int G, int U, int TT, int vec, int rec, int lt_cap, int device, void* stream) {
   const bool vec_ok = aligned16(log_b, out) && U % 4 == 0 && B % 4 == 0;
   const Params p{static_cast<const float*>(log_b), static_cast<const float*>(lt), static_cast<const int*>(lengths),
-                 static_cast<float*>(out), 0, 0, T, S, B, G, U, TT, vec, nullptr, rec, lt_cap};
-  if (S < 1 || S > kMaxBlockStates || (p.vec && !vec_ok)) return (int)cudaErrorInvalidValue;
-  if (S > kMaxStates) return launch_block(kBackwardKind, p, device, stream);
+                 static_cast<float*>(out), 0, 0, T, S, B, G, U, TT, vec, nullptr, 0, 0};
+  if (S < 1 || S > kMaxStates || rec != 0 || lt_cap != 0 || (p.vec && !vec_ok)) return (int)cudaErrorInvalidValue;
   return launch_lanes(backward_kernel_for(S), kFwdThreads, p, forward_floats(S, U, TT, 0, 0), vec_ok, device, stream);
+}
+
+// The forward (kind 0: layout 0 the (T, S, B) lattice, layout 1 the final
+// carries of (B, T, S) log b, per_row transitions (B, S, S) with G = 1) or
+// the backward (kind 1: the (T, S, B) lattice; lt the transposed matrix,
+// lt[j S + i] = log a(i -> j)) past kMaxStates, the group mode: G
+// utterances a cluster of C blocks of NT threads, KS source shares of SP a
+// tile, lt_cap floats of transitions (ops/kernels/lattice.py group_block).
+int srhmm_lattice_group(int kind, const void* log_b, const void* lt, int per_row, const void* lengths, void* out,
+                        int layout, int T, int S, int B, int G, int C, int NT, int KS, int SP, int lt_cap,
+                        int device, void* stream) {
+  if ((kind != kForwardKind && kind != kBackwardKind) || (layout != 0 && layout != 1) ||
+      (kind == kBackwardKind && (layout != 0 || per_row))) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int vec = S % 4 == 0 && reinterpret_cast<uintptr_t>(lt) % 16 == 0;
+  const GroupParams p{static_cast<const float*>(log_b), static_cast<const float*>(lt), static_cast<const int*>(lengths),
+                      static_cast<float*>(out), per_row, layout, T, S, B, G, C, NT, KS, SP, lt_cap, vec};
+  return launch_group(kind, p, device, stream);
+}
+
+// Clusters of the group mode's shape that the card runs at once
+// (cudaOccupancyMaxActiveClusters) into *clusters; 0 or a CUDA error code.
+int srhmm_lattice_group_clusters(int kind, int S, int B, int G, int C, int NT, int KS, int SP, int lt_cap, int device,
+                                 int* clusters) {
+  const GroupParams p{nullptr, nullptr, nullptr, nullptr, 0, 0, 1, S, B, G, C, NT, KS, SP, lt_cap, 0};
+  GroupFn fn;
+  size_t smem;
+  if (!group_shape(kind, p, fn, smem)) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(reinterpret_cast<const void*>(fn), cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  if (C > 8) {
+    err = cudaFuncSetAttribute(reinterpret_cast<const void*>(fn), cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return (int)err;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)((B + G - 1) / G * C));
+  cfg.blockDim = dim3((unsigned)NT);
+  cfg.dynamicSmemBytes = smem;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return (int)cudaOccupancyMaxActiveClusters(clusters, reinterpret_cast<const void*>(fn), &cfg);
 }
 
 // The Viterbi kernel: log b (B, T, S) contiguous, scores (B, S), bptr
@@ -1129,7 +1570,7 @@ int srhmm_viterbi(const void* log_b, const void* lt, const void* lengths, void* 
   Params p{static_cast<const float*>(log_b), static_cast<const float*>(lt), static_cast<const int*>(lengths),
            static_cast<float*>(scores), 0, 1, T, S, B, G, U, TT, vec, static_cast<int*>(bptr), rec, lt_cap};
   if (S < 1 || S > kMaxBlockStates || (p.vec && !vec_ok)) return (int)cudaErrorInvalidValue;
-  if (S > kMaxStates) return launch_block(kViterbiKind, p, device, stream);
+  if (S > kMaxStates) return launch_viterbi_block(p, device, stream);
   return launch_lanes(viterbi_kernel_for(S), kVitThreads, p, viterbi_floats(S, U, TT), vec_ok, device, stream);
 }
 

@@ -22,10 +22,14 @@ kernel as the unblocked ones, each counting its own launches in
 last-row mode and the Viterbi kernel of ops/kernels/forward.py; the three
 kernels share a launch shape (``_lane_block``: an utterance's states on
 adjacent lanes, four recursion warps and a memory warp a block, two for the
-Viterbi) up to LANE_STATES = 64 states, and past them the block-wide mode
-(``_wide_block``: one utterance a block, its states spread over up to 512
-recursion threads, the previous row in shared memory) up to MAX_STATES =
-4096; the wrappers refuse more.
+Viterbi) up to LANE_STATES = 64 states.  Past them, up to MAX_STATES =
+4096 (the wrappers refuse more), the forward and backward run the group
+mode (``group_block``: a group of utterances a cluster of blocks, each
+block owning a slice of the states for the whole group, the previous row
+shared through distributed shared memory, the transitions packed or
+streamed in tiles that serve the whole group), the Viterbi its block-wide
+mode (``_viterbi_wide_block``: one utterance a block, its states spread
+over up to 512 recursion threads).
 """
 
 from __future__ import annotations
@@ -38,9 +42,25 @@ import torch
 from .common import NEG_INF, SMEM_LIMIT, aligned16, check_launch, device_args, on_cpu, require_float32, sm_count
 
 LANE_STATES = 64  # csrc/lattice.cu kMaxStates: the lane path
-MAX_STATES = 4096  # csrc/lattice.cu kMaxBlockStates: the block-wide mode
-BLOCK_REC = 512  # csrc/lattice.cu kBlockRec: a block-wide block's recursion threads at most
-BLOCK_BAND = 32  # diagonals the block-wide tile choice leaves room for in shared memory
+MAX_STATES = 4096  # csrc/lattice.cu kMaxBlockStates: the group and block-wide modes
+BLOCK_REC = 512  # csrc/lattice.cu kBlockRec: a block-wide Viterbi block's recursion threads at most
+BLOCK_BAND = 32  # diagonals the block-wide Viterbi's tile choice leaves room for in shared memory
+# csrc/lattice.cu's group mode (the forward and backward past LANE_STATES)
+GROUP_CLUSTERS = (1, 2, 4, 8, 16)  # blocks a cluster (16: the non-portable size)
+# clusters of each size an H100 (132 SMs) runs at once at one block an SM: its
+# GPCs hold 7 of 16, 15 of 8, 30 of 4 (cudaOccupancyMaxActiveClusters through
+# srhmm_lattice_group_clusters, NVIDIA H100 80GB HBM3)
+GROUP_CLUSTERS_AT_ONCE = {1: 132, 2: 66, 4: 30, 8: 15, 16: 7}
+GROUP_SFU_EXPS_PER_S = 16 * 1.755e9  # an SM's exponentials a second (MUFU.EX2, 16 a clock)
+GROUP_L2_BYTES_PER_S = 5.5e12  # the card's L2 reads a second (an estimate): the dense tiles' source
+GROUP_RING = 8  # kGroupRing: frames of log b an owner keeps in flight
+GROUP_STAGES = 2  # kGroupStages: transition tiles in flight (the streamed route)
+GROUP_SHARES = (32, 16, 8)  # sources a thread takes from a tile, largest first (kGroupChunk multiples)
+GROUP_THREADS = 512  # the threads a cluster block's register tiles aim at
+GROUP_STREAM_THREADS = 640  # kGroupStreamThreads: a cluster block's threads at most
+GROUP_MAX_THREADS = 1024  # kGroupMaxThreads: a one-block group's threads at most
+GROUP_MAX_OWNED = 16  # kGroupMaxOwned: (utterance, key) pairs a thread owns at most
+SINGLE_BLOCK_STATES = 128  # up to here one block takes every key of a group
 FORWARD_REC_WARPS = 4  # csrc/lattice.cu kFwdRecWarps: a block's recursion warps
 VITERBI_MEMORY_WARPS = 2  # csrc/lattice.cu kVitThreads (the forward and backward have one)
 FORWARD_TILES = (32, 16, 8, 4, 2, 1)  # frames a tile, largest first
@@ -127,6 +147,12 @@ def kernel_library() -> ctypes.CDLL:
     lib.srhmm_viterbi.restype = c_int
     # log_b lt lengths scores bptr, T S B G U TT vec rec lt_cap device, stream
     lib.srhmm_viterbi.argtypes = [c_ptr] * 5 + [c_int] * 10 + [c_ptr]
+    lib.srhmm_lattice_group.restype = c_int
+    # kind, log_b lt, per_row, lengths out, layout T S B G C NT KS SP lt_cap device, stream
+    lib.srhmm_lattice_group.argtypes = [c_int, c_ptr, c_ptr, c_int, c_ptr, c_ptr] + [c_int] * 11 + [c_ptr]
+    lib.srhmm_lattice_group_clusters.restype = c_int
+    # kind S B G C NT KS SP lt_cap device, clusters
+    lib.srhmm_lattice_group_clusters.argtypes = [c_int] * 10 + [c_ptr]
     return lib
 
 
@@ -179,42 +205,143 @@ def _r4(n: int) -> int:
     return -(-n // 4) * 4
 
 
-def block_smem_bytes(kind: str, S: int, TT: int, layout: str, lt_cap: int) -> int:
-    """csrc/lattice.cu block_floats: the block-wide mode's shared memory
-    (kind "forward", "backward" or "viterbi"): two rows of S; log b in two
-    slots of TT S ((T, S, B) log b) or a run of TT S at a pitch rounded up to
-    4, + 4 ((B, T, S)); the output in two slots (the lattice TT S, the
-    Viterbi's backpointers a run, none for the forward's last row); lo, cnt
-    and the width, 2 S + 1 ints; lt_cap floats of transitions; each region
-    a multiple of 4 floats."""
+def viterbi_wide_smem_bytes(S: int, TT: int, lt_cap: int) -> int:
+    """csrc/lattice.cu block_floats: the block-wide Viterbi's shared memory:
+    two rows of S; log b in two slots of a run of TT S at a pitch rounded up
+    to 4, + 4; the backpointers in two slots of the same run; lo, cnt and
+    the width, 2 S + 1 ints; lt_cap floats of transitions; each region a
+    multiple of 4 floats."""
     run = _r4(TT * S) + 4
-    bts = kind == "viterbi" or (kind == "forward" and layout == "bts")
-    tile = run if bts else _r4(TT * S)
-    out = run if kind == "viterbi" else (0 if bts else _r4(TT * S))
-    return 4 * (_r4(2 * S) + 2 * tile + 2 * out + _r4(2 * S + 1) + lt_cap)
+    return 4 * (_r4(2 * S) + 4 * run + _r4(2 * S + 1) + lt_cap)
 
 
-def _wide_block(kind: str, S: int, B: int, layout: str) -> dict:
-    """The block-wide launch shape past LANE_STATES states: one utterance a
-    block, rec = S rounded up to whole warps (at most BLOCK_REC) recursion
-    threads of ceil(S / rec) states each and a memory warp; TT the largest
-    of FORWARD_TILES whose block leaves room for the dense transitions or
-    BLOCK_BAND diagonals, whichever is less (else the largest that fits at
-    all), and lt_cap the floats of transitions the rest of SMEM_LIMIT holds
-    (at most S S rounded up to 4, a multiple of 4): the kernel packs its ranges there when
-    they fit, else reads them through L2."""
+def _viterbi_wide_block(S: int, B: int) -> dict:
+    """The block-wide Viterbi's launch shape past LANE_STATES states: one
+    utterance a block, rec = S rounded up to whole warps (at most BLOCK_REC)
+    recursion threads of ceil(S / rec) states each and a memory warp; TT the
+    largest of FORWARD_TILES whose block leaves room for the dense
+    transitions or BLOCK_BAND diagonals, whichever is less (else the largest
+    that fits at all), and lt_cap the floats of transitions the rest of
+    SMEM_LIMIT holds (at most S S rounded up to 4, a multiple of 4): the
+    kernel packs its ranges there when they fit, else reads them through
+    L2."""
     if not LANE_STATES < S <= MAX_STATES:
-        raise ValueError(f"{kind} kernel: 1 to {MAX_STATES} states, got {S}")
+        raise ValueError(f"viterbi kernel: 1 to {MAX_STATES} states, got {S}")
     rec = min(BLOCK_REC, -(-S // 32) * 32)
     room = 4 * min(S * S, BLOCK_BAND * S)
-    fits = [tt for tt in FORWARD_TILES if block_smem_bytes(kind, S, tt, layout, 0) <= SMEM_LIMIT]
+    fits = [tt for tt in FORWARD_TILES if viterbi_wide_smem_bytes(S, tt, 0) <= SMEM_LIMIT]
     if not fits:
-        raise ValueError(f"{kind} kernel: no tile of S={S} fits {SMEM_LIMIT} bytes")
-    TT = next((tt for tt in fits if block_smem_bytes(kind, S, tt, layout, 0) + room <= SMEM_LIMIT), fits[-1])
-    base = block_smem_bytes(kind, S, TT, layout, 0)
+        raise ValueError(f"viterbi kernel: no tile of S={S} fits {SMEM_LIMIT} bytes")
+    TT = next((tt for tt in fits if viterbi_wide_smem_bytes(S, tt, 0) + room <= SMEM_LIMIT), fits[-1])
+    base = viterbi_wide_smem_bytes(S, TT, 0)
     lt_cap = min(_r4(S * S), (SMEM_LIMIT - base) // 16 * 4)
     return {"mode": "block", "utts_per_warp": 0, "utts": 1, "rec_threads": rec, "states_per_thread": -(-S // rec),
             "tile": TT, "lt_cap": lt_cap, "blocks": B, "smem_bytes": base + 4 * lt_cap}
+
+
+def group_regions(S: int, G: int, C: int, NT: int, KS: int, SP: int) -> dict:
+    """csrc/lattice.cu group_layout: a group-mode block's keys Db (ceil(S /
+    C) rounded up to 4), sources a tile KT = SP KS, owned pairs a
+    thread PO, and its regions in floats: two rows of G utterances at the
+    larger of the pitches (S rounded up to KT for the streamed route, S | 1
+    for the packed), the log b ring (GROUP_RING frames of PO NT floats), the
+    owners' carries (PO NT), the KS partial (max, sum) pairs of every
+    (utterance, key), the ints (lo and cnt of Db keys, the width, the G
+    lengths), and the streamed route's GROUP_STAGES tiles of KT x Db (the
+    least room for the transitions)."""
+    Db = _r4(-(-S // C))
+    KT = SP * KS
+    rp = max(-(-S // KT) * KT, S | 1)
+    PO = -(-G * Db // NT)
+    return {"keys": Db, "tile_sources": KT, "owned": PO, "rows": _r4(2 * G * rp), "ring": GROUP_RING * PO * NT,
+            "carry": PO * NT, "partials": 2 * KS * G * Db, "ints": _r4(2 * Db + 1 + G),
+            "tiles": GROUP_STAGES * KT * Db}
+
+
+def group_shape(S: int, G: int, C: int) -> dict | None:
+    """The group-mode block of G utterances and C blocks a cluster, or None
+    where it does not exist or does not fit.  A cluster block (C > 1, where
+    dense transitions stream): KS the smallest power of two giving the
+    register tiles (UT utterances x 4 keys, (G / UT) (Db / 4) of them) at
+    least GROUP_THREADS threads, NT those threads rounded up to a warp (at
+    most GROUP_STREAM_THREADS).  A one-block group (C = 1, the packed route
+    at these S): NT = the G Db pairs over the fewest owned a thread that
+    keep NT within GROUP_MAX_THREADS, rounded up to a warp, and KS the
+    largest power of two whose register tiles fit NT.  Every block of the
+    cluster owns a key, at most GROUP_MAX_OWNED pairs a thread, SP the
+    largest of GROUP_SHARES whose tiles fit in a cluster block (fewer
+    barriers a frame) and the smallest in one block (the packed route runs
+    there: less shared memory leaves more L1), and lt_cap the floats of
+    transitions: the dense slice S Db (rounded up to 4) where it fits beside
+    the other regions, else what SMEM_LIMIT leaves (a multiple of 4), at
+    least the streamed route's tiles."""
+    Db = _r4(-(-S // C))
+    if (C - 1) * Db >= S:
+        return None
+    UT = 2 if G % 2 == 0 else 1  # csrc/lattice.cu group_utt_tile
+    units = (G // UT) * (Db // 4)
+    if C == 1:
+        owned = -(-G * Db // GROUP_MAX_THREADS)
+        NT = -(-(-(-G * Db // owned)) // 32) * 32
+        if units > NT:
+            return None
+        KS = 1
+        while units * KS * 2 <= NT and KS < 64:
+            KS *= 2
+    else:
+        KS = 1
+        while units * KS < GROUP_THREADS:
+            KS *= 2
+        NT = -(-units * KS // 32) * 32
+        if NT > GROUP_STREAM_THREADS:
+            return None
+    for SP in GROUP_SHARES if C > 1 else GROUP_SHARES[-1:]:
+        reg = group_regions(S, G, C, NT, KS, SP)
+        rest = (SMEM_LIMIT // 4 - reg["rows"] - reg["ring"] - reg["carry"] - reg["partials"] - reg["ints"]) // 4 * 4
+        lt_cap = max(reg["tiles"], min(_r4(S * Db), rest))
+        if reg["owned"] <= GROUP_MAX_OWNED and lt_cap <= rest:
+            break
+    else:
+        return None
+    return {**reg, "utts": G, "cluster": C, "threads": NT, "utt_tile": UT, "splits": KS, "share": SP, "lt_cap": lt_cap,
+            "smem_bytes": 4 * (reg["rows"] + reg["ring"] + reg["carry"] + reg["partials"] + reg["ints"] + lt_cap)}
+
+
+def group_block(S: int, B: int, per_row: bool = False, sms: int = 132) -> dict:
+    """The group-mode launch shape of csrc/lattice.cu's forward and backward
+    past LANE_STATES states: G utterances a cluster of C blocks, each block
+    owning Db keys of all G.  Up to SINGLE_BLOCK_STATES states one block
+    takes every key (C = 1: the whole matrix packs beside the rows); past
+    them C is one of GROUP_CLUSTERS.  For each C, G = ceil(B / n) fills the
+    card in one wave of one block an SM, n the clusters of C the card runs
+    at once (GROUP_CLUSTERS_AT_ONCE, at most sms // C); G = 1 for per-row
+    transitions (nothing is shared); G is lowered while the block does not
+    fit.  The shape kept has the least frame time over its waves, a frame
+    taking the longer of a block's exponentials (G Db S at
+    GROUP_SFU_EXPS_PER_S) and the L2 reads of the groups that run at once
+    (each streams the S x S matrix a frame, at GROUP_L2_BYTES_PER_S: past
+    SINGLE_BLOCK_STATES the rule takes the transitions as dense), then the
+    fewest groups."""
+    if not LANE_STATES < S <= MAX_STATES:
+        raise ValueError(f"lattice group kernel: {LANE_STATES + 1} to {MAX_STATES} states, got {S}")
+    best = None
+    for C in (1,) if S <= SINGLE_BLOCK_STATES else GROUP_CLUSTERS:
+        at_once = max(min(GROUP_CLUSTERS_AT_ONCE[C], sms // C), 1)
+        G = 1 if per_row else max(1, -(-B // at_once))
+        sh = group_shape(S, G, C)
+        while sh is None and G > 1:
+            G -= 1
+            sh = group_shape(S, G, C)
+        if sh is None:
+            continue
+        groups = -(-B // G)
+        frame = max(G * sh["keys"] * S / GROUP_SFU_EXPS_PER_S, min(groups, at_once) * 4 * S * S / GROUP_L2_BYTES_PER_S)
+        cost = (-(-groups // at_once) * frame, groups)
+        if best is None or cost < best[0]:
+            best = (cost, {**sh, "mode": "group", "groups": groups, "blocks": groups * C})
+    if best is None:
+        raise ValueError(f"lattice group kernel: no group of S={S} fits {SMEM_LIMIT} bytes")
+    return best[1]
 
 
 def _lane_block(kernel: str, S: int, B: int, smem, sms: int, memory_warps: int = 1) -> dict:
@@ -244,10 +371,10 @@ def _lane_block(kernel: str, S: int, B: int, smem, sms: int, memory_warps: int =
 
 def forward_block(S: int, B: int, layout: str, per_row: bool = False, sms: int = 132) -> dict:
     """The launch shape of csrc/lattice.cu's forward kernel (_lane_block;
-    past LANE_STATES states _wide_block, whose shared memory does not
-    depend on per-row transitions)."""
+    past LANE_STATES states the group mode, group_block, which keeps one
+    utterance a group for per-row transitions)."""
     if S > LANE_STATES:
-        return _wide_block("forward", S, B, layout)
+        return group_block(S, B, per_row, sms)
     return _lane_block("forward", S, B, lambda U, tt: forward_smem_bytes(S, U, tt, layout, per_row), sms)
 
 
@@ -255,25 +382,30 @@ def backward_block(S: int, B: int, sms: int = 132) -> dict:
     """The launch shape of csrc/lattice.cu's backward kernel (_lane_block):
     its shared memory is the forward lattice's (log b and the lattice in two
     (TT, S, U) slots each, the transitions past 32 states); past
-    LANE_STATES states _wide_block."""
+    LANE_STATES states the group mode, group_block."""
     if S > LANE_STATES:
-        return _wide_block("backward", S, B, "tsb")
+        return group_block(S, B, False, sms)
     return _lane_block("backward", S, B, lambda U, tt: forward_smem_bytes(S, U, tt, "tsb", False), sms)
 
 
 def viterbi_block(S: int, B: int, sms: int = 132) -> dict:
     """The launch shape of csrc/lattice.cu's Viterbi kernel (_lane_block,
     viterbi_smem_bytes, VITERBI_MEMORY_WARPS; past LANE_STATES states
-    _wide_block)."""
+    _viterbi_wide_block)."""
     if S > LANE_STATES:
-        return _wide_block("viterbi", S, B, "bts")
+        return _viterbi_wide_block(S, B)
     return _lane_block("Viterbi", S, B, lambda U, tt: viterbi_smem_bytes(S, U, tt), sms, VITERBI_MEMORY_WARPS)
 
 
 def shape_args(blk: dict, vec: bool) -> list[int]:
-    """The launchers' shape arguments G, U, TT, vec, rec, lt_cap (rec and
-    lt_cap 0 on the lane path)."""
+    """The lane and Viterbi launchers' shape arguments G, U, TT, vec, rec,
+    lt_cap (rec and lt_cap 0 on the lane path)."""
     return [blk["utts_per_warp"], blk["utts"], blk["tile"], int(vec), blk.get("rec_threads", 0), blk.get("lt_cap", 0)]
+
+
+def group_args(blk: dict) -> list[int]:
+    """srhmm_lattice_group's shape arguments G, C, NT, KS, SP, lt_cap."""
+    return [blk["utts"], blk["cluster"], blk["threads"], blk["splits"], blk["share"], blk["lt_cap"]]
 
 
 def forward_copies_16(S: int, T: int, B: int, blk: dict, layout: str) -> bool:
@@ -286,12 +418,23 @@ def forward_copies_16(S: int, T: int, B: int, blk: dict, layout: str) -> bool:
     return T * S % 4 == 0 and blk["tile"] * S % 4 == 0
 
 
+def group_launch(ln: "LatticeLaunch", kind: int, layout: str, log_trans, blk: dict, out, index: int, stream: int):
+    """Launch csrc/lattice.cu's group mode (kind 0 the forward, 1 the
+    backward) on checked operands past LANE_STATES states."""
+    check_launch(ln.name, kernel_library().srhmm_lattice_group(
+        kind, ln.log_b.data_ptr(), log_trans.data_ptr(), ln.per_row, ln.lengths.data_ptr(), out.data_ptr(),
+        int(layout == "bts"), ln.T, ln.S, ln.B, *group_args(blk), index, stream))
+    return out
+
+
 def forward_launch(ln: "LatticeLaunch", layout: str):
     """Launch csrc/lattice.cu's forward kernel on checked operands: the (T,
     S, B) lattice for layout "tsb", the final carries (B, S) for "bts"."""
     index, stream = device_args(ln.dev)
     blk = forward_block(ln.S, ln.B, layout, bool(ln.per_row), sm_count(index))
     out = ln.empty((ln.T, ln.S, ln.B) if layout == "tsb" else (ln.B, ln.S))
+    if ln.S > LANE_STATES:
+        return group_launch(ln, 0, layout, ln.log_trans, blk, out, index, stream)
     vec = forward_copies_16(ln.S, ln.T, ln.B, blk, layout)
     log_b = aligned16(ln.log_b) if vec else ln.log_b
     check_launch(ln.name, kernel_library().srhmm_lattice_forward(
@@ -309,12 +452,13 @@ def _backward_cuda(name, log_b_tsb, log_trans, lengths):
     index, stream = device_args(ln.dev)
     blk = backward_block(ln.S, ln.B, sm_count(index))
     out = ln.empty((ln.T, ln.S, ln.B))
+    if ln.S > LANE_STATES:
+        # the group mode reads a source's row as a column of the transpose
+        return group_launch(ln, 1, "tsb", ln.log_trans.t().contiguous(), blk, out, index, stream)
     vec = forward_copies_16(ln.S, ln.T, ln.B, blk, "tsb")
     log_b = aligned16(ln.log_b) if vec else ln.log_b
-    # the block-wide mode reads a source's row as a column of the transpose
-    lt = ln.log_trans.t().contiguous() if ln.S > LANE_STATES else ln.log_trans
     check_launch(name, kernel_library().srhmm_lattice_backward(
-        log_b.data_ptr(), lt.data_ptr(), ln.lengths.data_ptr(), out.data_ptr(), ln.T, ln.S, ln.B,
+        log_b.data_ptr(), ln.log_trans.data_ptr(), ln.lengths.data_ptr(), out.data_ptr(), ln.T, ln.S, ln.B,
         *shape_args(blk, vec), index, stream))
     return out
 

@@ -876,13 +876,14 @@ def test_bucketed_stats_take_the_composed_kernels(cuda_device):
 
 
 def _lattice_inputs(device, S, kind, lens=_LENS, seed=12):
-    """(T, S, B) log b with a few -inf entries, (S, S) log transitions,
-    int32 lengths, on `device`."""
-    from torch_port_utils import log_trans_np
+    """(T, S, B) log b with a few -inf entries (the spread case's second
+    half of states lower), (S, S) log transitions, int32 lengths, on
+    `device`."""
+    from torch_port_utils import log_trans_np, spread_log_b
 
     rng = np.random.default_rng(seed)
     T, B = max(lens), len(lens)
-    lb = (rng.normal(size=(T, S, B)) * 2).astype(np.float32)
+    lb = spread_log_b((rng.normal(size=(T, S, B)) * 2).astype(np.float32), kind, axis=1)
     lb[rng.integers(0, T, 7), rng.integers(0, S, 7), rng.integers(0, B, 7)] = -np.inf
     lb[5:, 0, lens.index(T)] = -np.inf  # a state impossible from frame 5: carries on the floor
     lt = log_trans_np(S, kind, seed)
@@ -1358,7 +1359,7 @@ def test_timed_waits_for_the_card(cuda_device):
 
 # ---------------------------------------------------------------------------
 # the shapes past the lane path: the lattice kernels past 64 states (the
-# block-wide mode of csrc/lattice.cu), full covariance past D = 16
+# group mode and the block-wide Viterbi of csrc/lattice.cu), full covariance past D = 16
 # (csrc/fused_em.cu, csrc/composed.cu), and the shapes before them bitwise
 # the parent's (tests/torch_lane_digests.py)
 # ---------------------------------------------------------------------------
@@ -1556,8 +1557,9 @@ def test_lane_and_narrow_full_launches_are_the_parents(cuda_device):
     """The lattice lane path (S <= 64), the E-step kernels and the composed
     kernels up to full D = 16 give bitwise the outputs of commit 76f6f1a's
     kernels, the composed kernels at diagonal D = 39 those of commit
-    b91d8b8's and at full D = 39 (the z-GEMM bank kernels) those of commit
-    51f7e05's: tests/torch_lane_digests.py's digests equal the ones saved
+    b91d8b8's, at full D = 39 (the z-GEMM bank kernels) those of commit
+    51f7e05's, and the block-wide Viterbi past 64 states those of commit
+    d778d84's: tests/torch_lane_digests.py's digests equal the ones saved
     in tests/lane_digests.json from those commits' kernels on an H100."""
     import json
     from pathlib import Path

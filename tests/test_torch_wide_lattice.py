@@ -1,9 +1,12 @@
 """The lattice kernels past 64 states against the JAX package, on the CPU.
 
-Past 64 states csrc/lattice.cu runs its block-wide mode (one utterance a
-block); the wrappers run their plain twins here.  The same numpy inputs go
-through srhmm_tpu's Pallas kernels in interpret mode at S = 65, 96 and 130
-(banded and dense, rows of length 0 and 1, -inf entries of log b):
+Past 64 states csrc/lattice.cu runs its group mode (the forward and
+backward: a group of utterances a cluster of blocks) and its block-wide
+Viterbi (one utterance a block); the wrappers run their plain twins here.
+The same numpy inputs go through srhmm_tpu's Pallas kernels in interpret
+mode at S = 65, 96 and 130 (banded, dense and spread: a state whose only
+sources sit more than 100 nats below its row's maximum; rows of length 0
+and 1, -inf entries of log b):
 forward_lattice and its blocked form against forward_lattice_pallas(_blocked),
 backward_lattice(_blocked) against backward_lattice_pallas(_blocked),
 log_forward_batch (shared and per-row transitions) against
@@ -13,10 +16,11 @@ values above NEG_INF/2 (tests/test_pallas_kernels.py's float32 bound for
 these kernels), backpointers and backtraces equal, a duplicated-state tie
 going to the lowest source.  e_step_lane_major(lattices="pallas") at S = 96
 against JAX's (rtol 2e-3, atol 2e-4 max, log prob rtol 1e-5: the fused
-float32 statistics bound of tests/test_pallas_kernels.py).  The
-block-wide launch shape (_wide_block) at every S of
-torch_port_utils.WIDE_LATTICE_CASES and beyond, its shared memory re-derived
-here from csrc/lattice.cu's block_floats; the wrappers' refusal past
+float32 statistics bound of tests/test_pallas_kernels.py).  The launch
+shapes (group_block, _viterbi_wide_block) at every S of
+torch_port_utils.WIDE_LATTICE_CASES and beyond, their shared memory
+re-derived here from csrc/lattice.cu's group_layout and block_floats, every
+key owned by one block of its cluster; the wrappers' refusal past
 MAX_STATES on meta tensors.  The CUDA kernels are held against the twins on
 the card (tests/test_torch_cuda.py, chip_smoke.py).
 """
@@ -41,15 +45,16 @@ from torch_port_utils import (
     lattice_ranges,
     log_trans_np,
     rand_word,
+    spread_log_b,
 )
 
 LENS = (40, 33, 9, 1, 0)
-CASES = [(65, "delta1"), (96, "dense"), (130, "delta2"), (130, "dense")]
+CASES = [(65, "delta1"), (96, "dense"), (130, "delta2"), (130, "dense"), (130, "spread")]
 
 
 def _inputs(S, kind, T=40, seed=0):
     rng = np.random.default_rng(seed + S)
-    lb = (rng.normal(size=(T, S, len(LENS))) * 2).astype(np.float32)
+    lb = spread_log_b((rng.normal(size=(T, S, len(LENS))) * 2).astype(np.float32), kind, axis=1)
     idx = rng.integers(0, [T, S, len(LENS)], size=(5, 3))
     lb[idx[:, 0], idx[:, 1], idx[:, 2]] = -np.inf
     return lb, log_trans_np(S, kind, seed=S), np.asarray(LENS, np.int32)
@@ -137,61 +142,158 @@ def test_lane_major_pallas_lattices_match_jax_past_64_states():
     assert float(got.num_valid) == float(ref.num_valid)
 
 
-def _block_floats(kind, S, TT, layout, lt_cap):
+def _viterbi_floats(S, TT, lt_cap):
     """csrc/lattice.cu block_floats, written out again: rows 2 S, log b two
-    slots, the output two slots, 2 S + 1 ints, each rounded up to 4, and
-    the transitions."""
+    runs, the backpointers two runs, 2 S + 1 ints, each rounded up to 4,
+    and the transitions."""
     r4 = lambda n: -(-n // 4) * 4  # noqa: E731
     run = r4(TT * S) + 4  # forward_run_pitch: a run of TT S floats at a pitch rounded up to 4, + 4
-    if kind == "backward":
-        tile, out = r4(TT * S), r4(TT * S)
-    elif kind == "viterbi":
-        tile, out = run, run
-    else:
-        tile, out = (r4(TT * S), r4(TT * S)) if layout == "tsb" else (run, 0)
-    return r4(2 * S) + 2 * tile + 2 * out + r4(2 * S + 1) + lt_cap
+    return r4(2 * S) + 4 * run + r4(2 * S + 1) + lt_cap
+
+
+def _group_floats(S, G, C, NT, KS, SP, lt_cap):
+    """csrc/lattice.cu group_layout and group_floats, written out again:
+    keys ceil(S / C) rounded up to 4, two rows of G utterances at the
+    larger of S rounded up to the tile's SP KS sources and S | 1, the ring
+    of 8 frames of the owned pairs and their carries, 2 KS G Db partials,
+    2 Db + 1 + G ints, the transitions."""
+    r4 = lambda n: -(-n // 4) * 4  # noqa: E731
+    Db = r4(-(-S // C))
+    rp = max(-(-S // (SP * KS)) * SP * KS, S | 1)
+    owned = -(-G * Db // NT) * NT
+    return r4(2 * G * rp) + 9 * owned + 2 * KS * G * Db + r4(2 * Db + 1 + G) + lt_cap
+
+
+WIDE_S = sorted({65, 66, 95, 96, 127, 128, 129, 130, 257, 511, 512, 513, 1024, 2048, 4095, 4096}
+                | {c[0] for c in WIDE_LATTICE_CASES})
 
 
 def test_wide_block_shapes_mirror_the_kernel():
-    """Every S of 65-4096 the block-wide shapes take: S rounded up to whole
-    warps (at most 512) recursion threads of at most 8 states each, a tile
-    of FORWARD_TILES, lt_cap a multiple of 4 within S S rounded up, shared
-    memory as csrc/lattice.cu computes it and within a block's limit; the
-    dense matrix packs wherever it fits beside the largest tile; past
-    MAX_STATES every rule refuses."""
-    for S in sorted({65, 66, 95, 96, 127, 128, 129, 257, 511, 512, 513, 1024, 2048, 4095, 4096}
-                    | {c[0] for c in WIDE_LATTICE_CASES}):
-        shapes = {("forward", "tsb"): kl.forward_block(S, 37, "tsb"),
-                  ("forward", "bts"): kl.forward_block(S, 37, "bts", per_row=True),
-                  ("backward", "tsb"): kl.backward_block(S, 37),
-                  ("viterbi", "bts"): kl.viterbi_block(S, 37)}
-        for (kind, layout), sh in shapes.items():
-            rec, TT, cap = sh["rec_threads"], sh["tile"], sh["lt_cap"]
-            assert rec == min(512, -(-S // 32) * 32) and sh["states_per_thread"] == -(-S // rec) <= 8
-            assert (sh["utts"], sh["utts_per_warp"], sh["blocks"]) == (1, 0, 37) and TT in kl.FORWARD_TILES
-            assert cap % 4 == 0 and 0 < cap <= -(-S * S // 4) * 4
-            assert sh["smem_bytes"] == 4 * _block_floats(kind, S, TT, layout, cap) <= kl.SMEM_LIMIT
-            if 4 * _block_floats(kind, S, kl.FORWARD_TILES[0], layout, -(-S * S // 4) * 4) <= kl.SMEM_LIMIT:
-                assert TT == kl.FORWARD_TILES[0] and cap >= S * S
+    """Every S of 65-4096 at B = 1, 37 and 2048: the forward's and the
+    backward's group shapes (G utterances, C blocks a cluster, NT threads:
+    the register tiles' towards 512 and at most 640 in a cluster, the pairs
+    over the fewest a thread within 1024 in one block; KS source shares of
+    SP, lt_cap) with shared memory as csrc/lattice.cu computes it and
+    within a block's limit, at least the streamed route's tiles of
+    transitions, one utterance a group for per-row transitions; the
+    Viterbi's block-wide shape as before: S rounded up to whole warps (at
+    most 512) recursion threads of at most 8 states each, a tile of
+    FORWARD_TILES, lt_cap a multiple of 4 within S S rounded up, the dense
+    matrix packed wherever it fits beside the largest tile; past MAX_STATES
+    every rule refuses."""
+    for S in WIDE_S:
+        for B in (1, 37, 2048):
+            shapes = [kl.forward_block(S, B, "tsb"), kl.forward_block(S, B, "bts"), kl.backward_block(S, B),
+                      kl.forward_block(S, B, "bts", per_row=True)]
+            assert shapes[0] == shapes[1] == shapes[2]
+            for i, sh in enumerate(shapes):
+                G, C, NT, KS, SP, cap = (sh[k] for k in ("utts", "cluster", "threads", "splits", "share", "lt_cap"))
+                UT = 2 if G % 2 == 0 else 1
+                units = (G // UT) * (sh["keys"] // 4)
+                assert sh["mode"] == "group" and sh["utt_tile"] == UT and (G == 1 or i < 3)
+                assert KS & (KS - 1) == 0 and NT % 32 == 0
+                if C > 1:  # the register tiles aim at 512 threads, at most 640
+                    assert NT == -(-units * KS // 32) * 32 <= 640 and (units * KS >= 512 or KS == 1)
+                else:  # one block: the pairs over the fewest a thread within 1024 threads
+                    owned = -(-G * sh["keys"] // 1024)
+                    assert NT == -(-(-(-G * sh["keys"] // owned)) // 32) * 32 <= 1024
+                    assert units * KS <= NT and (units * KS * 2 > NT or KS == 64)
+                assert SP in ((32, 16, 8) if C > 1 else (8,)) and sh["tile_sources"] == SP * KS
+                assert sh["owned"] == -(-G * sh["keys"] // NT) <= 16
+                assert cap % 4 == 0 and cap >= 2 * SP * KS * sh["keys"]
+                assert sh["smem_bytes"] == 4 * _group_floats(S, G, C, NT, KS, SP, cap) <= kl.SMEM_LIMIT
+                assert sh["groups"] == -(-B // G) and sh["blocks"] == sh["groups"] * C
+        sh = kl.viterbi_block(S, 37)
+        rec, TT, cap = sh["rec_threads"], sh["tile"], sh["lt_cap"]
+        assert rec == min(512, -(-S // 32) * 32) and sh["states_per_thread"] == -(-S // rec) <= 8
+        assert (sh["utts"], sh["utts_per_warp"], sh["blocks"]) == (1, 0, 37) and TT in kl.FORWARD_TILES
+        assert cap % 4 == 0 and 0 < cap <= -(-S * S // 4) * 4
+        assert sh["smem_bytes"] == 4 * _viterbi_floats(S, TT, cap) <= kl.SMEM_LIMIT
+        if 4 * _viterbi_floats(S, kl.FORWARD_TILES[0], -(-S * S // 4) * 4) <= kl.SMEM_LIMIT:
+            assert TT == kl.FORWARD_TILES[0] and cap >= S * S
     for rule in (lambda S: kl.forward_block(S, 1, "tsb"), lambda S: kl.backward_block(S, 1),
                  lambda S: kl.viterbi_block(S, 1)):
         with pytest.raises(ValueError, match="4096"):
             rule(kl.MAX_STATES + 1)
 
 
+@pytest.mark.parametrize("B", [1, 6, 37, 64, 2048])
+def test_group_keys_are_owned_once_by_a_cluster(B):
+    """Every S of 65-4096: C blocks a cluster, one of 1, 2, 4, 8 or 16 (16
+    only past 8 with the non-portable attribute the launcher sets; one
+    block up to SINGLE_BLOCK_STATES), each owning Db = ceil(S / C) rounded
+    up to 4 keys [rank Db, rank Db + Db) clipped at S: every key owned by
+    exactly one block, no block empty; G utterances a group fill the card
+    in one wave of one block an SM (132 SMs, the clusters an H100 runs at
+    once) where the rows fit, the last group ragged where G does not
+    divide B."""
+    for S in WIDE_S:
+        sh = kl.group_block(S, B)
+        G, C, Db = sh["utts"], sh["cluster"], sh["keys"]
+        assert C in kl.GROUP_CLUSTERS and (C == 1 or S > kl.SINGLE_BLOCK_STATES)
+        owner = np.full(S, -1)
+        for rank in range(C):
+            keys = np.arange(rank * Db, min(rank * Db + Db, S))
+            assert keys.size > 0 and (owner[keys] == -1).all()
+            owner[keys] = rank
+        assert (owner >= 0).all()
+        at_once = min(kl.GROUP_CLUSTERS_AT_ONCE[C], 132 // C)
+        assert G <= max(1, -(-B // at_once))
+        if sh["groups"] <= at_once:
+            assert G == max(1, -(-B // at_once))
+        members = [min(G, B - g * G) for g in range(sh["groups"])]
+        assert sum(members) == B and min(members) >= 1
+
+
 @pytest.mark.parametrize("i", range(len(WIDE_LATTICE_CASES)))
 def test_wide_cases_reach_their_transition_placement(i):
-    """Where each case of WIDE_LATTICE_CASES keeps its transitions: packed in
-    shared memory where the widest range times S fits lt_cap, else read
-    through L2; the set reaches both, banded and dense."""
+    """Where each case of WIDE_LATTICE_CASES keeps its transitions: the
+    group mode packs the ranges of a block's Db keys in shared memory where
+    the widest range of the cluster times Db fits lt_cap, else streams
+    tiles through L2 (S = 1024 and 4096 dense, the S = 1024 spread case's
+    forward;
+    the spread case's backward at S = 1024 packs: a source's destinations
+    span at most half the states and the entry); the block-wide Viterbi
+    packs them where the widest range times S fits
+    its lt_cap, else reads them through L2."""
     S, kind, B, T = WIDE_LATTICE_CASES[i]
     lt = log_trans_np(S, kind, seed=S)
-    for sh, rows in ((kl.forward_block(S, B, "tsb"), False), (kl.backward_block(S, B), True),
-                     (kl.viterbi_block(S, B), False)):
+    W = int(lattice_ranges(lt, False).max())
+    assert W == {"dense": S, "delta1": 2, "delta2": 3}.get(kind, W)
+    for sh, rows in ((kl.forward_block(S, B, "tsb"), False), (kl.backward_block(S, B), True)):
         W = int(lattice_ranges(lt, rows).max())
-        assert W == (S if kind == "dense" else {"delta1": 2, "delta2": 3}[kind])
-        packed = W * S <= sh["lt_cap"]
-        assert packed == (kind != "dense" or S <= 127), (S, kind, W, sh["lt_cap"])
+        packed = W * sh["keys"] <= sh["lt_cap"]
+        streamed = S >= 1024 and (kind == "dense" or kind == "spread" and not rows)
+        assert packed != streamed, (S, kind, W, sh["lt_cap"])
+    sh = kl.viterbi_block(S, B)
+    W = int(lattice_ranges(lt, False).max())
+    packed = W * S <= sh["lt_cap"]
+    assert packed == (kind not in ("dense", "spread") or S <= 130), (S, kind, W, sh["lt_cap"])
+
+
+def test_spread_case_defeats_a_linear_domain_shortcut():
+    """The spread case (torch_port_utils.spread_trans, S = 130): states of
+    the second half past its entry have only sources of that half, and
+    from the second frame on every such source of state 100 sits more than
+    100 nats below the forward row's maximum (and the backward's inner
+    terms the same way for its keys); a float32 sum taken in the linear
+    domain against the row's maximum loses the state (-inf), where the
+    log-domain twin keeps it finite."""
+    lb, lt, lens = _inputs(130, "spread")
+    alpha = kl.forward_lattice(_t(lb), _t(lt), _t(lens)).numpy().astype(np.float64)
+    src = np.flatnonzero(lt[:, 100] > -1e30)
+    assert src.min() >= 65
+    gaps = [alpha[t - 1, :, 0].max() - (alpha[t - 1, src, 0] + lt[src, 100]).max() for t in range(2, 12)]
+    assert min(gaps) > 100, gaps
+    prev = alpha[10, :, 0].astype(np.float32)
+    top = prev.max()
+    with np.errstate(divide="ignore"):
+        lin = np.log(np.exp(prev - top) @ np.exp(lt.astype(np.float32))) + top + lb[11, :, 0]
+    assert np.isneginf(lin[100]) and np.isfinite(alpha[11, 100, 0])
+    beta = kl.backward_lattice(_t(lb), _t(lt), _t(lens)).numpy().astype(np.float64)
+    inner = np.maximum(lb[1:, :, 0], -1e30) + beta[1:, :, 0]  # frame t + 1's terms of row t
+    dst = np.flatnonzero(lt[100] > -1e30)
+    assert dst.min() >= 65 and min(inner[t].max() - (inner[t, dst] + lt[100, dst]).max() for t in range(0, 10)) > 100
 
 
 def test_wrappers_take_past_64_states_and_refuse_past_the_bound():

@@ -171,17 +171,28 @@ MUTANTS += [
 ]
 MUTANTS += [
     # the block-wide lattice mode past 64 states, and full covariance past D = 16
-    ("block_forward_reads_row_being_written", LAT, "const float* prev = row + ((t + 1) & 1) * S;  // frame t-1",
+    ("block_viterbi_reads_row_being_written", LAT, "const float* prev = row + ((t + 1) & 1) * S;  // frame t-1",
      "const float* prev = row + (t & 1) * S;  // frame t-1", "kernel_lattice_wide"),
-    ("block_backward_barrier_dropped", LAT,
-     "            named_barrier(1, nr);\n#pragma unroll\n            for (int r = 0; r < kBlockPerThread; ++r) {",
-     "#pragma unroll\n            for (int r = 0; r < kBlockPerThread; ++r) {", "kernel_lattice_wide"),
     ("block_viterbi_tie_to_highest", LAT, "    if (e == 0 || c > best) {", "    if (e == 0 || c >= best) {",
      "kernel_lattice_wide"),
     ("full_moment_column_off_by_one_d", TILE, "    return {2, r - d * D, d};",
      "    return {2, r - d * D, d + 1 < D ? d + 1 : d};", "kernel_em_wide"),
     ("composed_full_record_stride_one_row_short", WIDE, "    const float* src = rec + (size_t)g * stride;",
      "    const float* src = rec + (size_t)g * (stride - h);", "kernel_composed_wide"),
+]
+MUTANTS += [
+    # the group mode of the lattice forward and backward past 64 states: a
+    # block's slice of the new row not written into its peers, the cluster
+    # barrier a frame dropped, the online sum not rescaled where the running
+    # max rises, a group's shorter utterance stepped past its length
+    ("group_peer_slice_not_written", LAT, "for (int r = 0; r < C; ++r) *cluster.map_shared_rank(dst, r) = xv;",
+     "*dst = xv;", "kernel_lattice_wide"),
+    ("group_cluster_barrier_dropped", LAT, "      cluster.sync();  // the new row is in every block; the old one is read\n",
+     "", "kernel_lattice_wide"),
+    ("group_online_sum_not_rescaled", LAT, "                  acc[uu][c] *= fast_exp2((m[uu][c] - mx) * kLog2e);\n", "",
+     "kernel_lattice_wide"),
+    ("group_steps_past_length", LAT, "v = t < len ? fmaxf(ms.x + logf(ms.y) + lb, kNegInf) : carry[i * NT + tid];",
+     "v = fmaxf(ms.x + logf(ms.y) + lb, kNegInf);", "kernel_lattice_wide"),
 ]
 MUTANTS += [
     # the z-GEMM blocks of the bank kernels at full covariance past D = 16

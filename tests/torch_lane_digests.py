@@ -17,9 +17,12 @@ streams, dense transitions, the accumulators in the partials);
 csrc/composed.cu's four kernels at diagonal and full covariance up to
 D = 16 (two streams, the emission ring and moments batch at two), at
 diagonal D = 39, the frontend's width, and at full D = 39, M = 9 (the
-z-GEMM bank kernels).  tests/lane_digests.json holds the digests of commit
-76f6f1a's kernels (the diagonal D = 39 case's of commit b91d8b8's, the full
-D = 39 case's of commit 51f7e05's); tests/test_torch_cuda.py holds these
+z-GEMM bank kernels); csrc/lattice.cu's block-wide Viterbi (scores and
+backpointers) at three cases of torch_port_utils.WIDE_LATTICE_CASES, S =
+96 banded, 257 and 1024 dense.  tests/lane_digests.json holds the digests
+of commit 76f6f1a's kernels (the diagonal D = 39 case's of commit
+b91d8b8's, the full D = 39 case's of commit 51f7e05's, the block-wide
+Viterbi's of commit d778d84's); tests/test_torch_cuda.py holds these
 kernels to them.
 """
 
@@ -35,11 +38,12 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
-from torch_port_utils import log_trans_np, rand_word  # noqa: E402
+from torch_port_utils import WIDE_LATTICE_CASES, log_trans_np, rand_word, wide_lattice_lengths  # noqa: E402
 
 LATTICE = [(S, kind) for S in (3, 8, 33, 64) for kind in ("delta1", "dense")]
 EM = [("diag", 1, [(3, 9)]), ("full", 1, [(3, 9)]), ("full", None, [(16, 16)]), ("diag", 2, [(3, 9), (2, 3)]),
       ("full", 2, [(2, 12), (1, 4)])]
+VITERBI_WIDE = [1, 4, 5]  # WIDE_LATTICE_CASES: S = 96 delta2, 257 dense, 1024 dense
 BANK = [("full", [(2, 6)]), ("full", [(3, 16)]), ("diag", [(4, 13)]), ("full", [(3, 4), (2, 4)]),
         ("full", [(82, 16)]), ("diag", [(3, 39)]), ("full", [(9, 39)])]
 
@@ -77,6 +81,22 @@ def lattice_digests(dev) -> dict:
         out[f"{tag}_last_row_per_row"] = _digest(kf.log_forward_batch(lb_bts, torch.as_tensor(rows, device=dev),
                                                                       lengths))
         out[f"{tag}_viterbi"] = _digest(*kf.viterbi_batch(lb_bts, lt, lengths))
+    return out
+
+
+def viterbi_wide_digests(dev) -> dict:
+    """The block-wide Viterbi's scores and backpointers at VITERBI_WIDE's
+    cases of WIDE_LATTICE_CASES (their lengths, seeded (B, T, S) log b)."""
+    from srhmm_tpu_torch.ops.kernels import forward as kf
+
+    out = {}
+    for i in VITERBI_WIDE:
+        S, kind, B, T = WIDE_LATTICE_CASES[i]
+        rng = np.random.default_rng(800 + i)
+        lb = (rng.normal(size=(B, T, S)) * 2).astype(np.float32)
+        lt = torch.as_tensor(log_trans_np(S, kind, seed=S), device=dev)
+        lengths = torch.as_tensor(wide_lattice_lengths(i, B, T), dtype=torch.int32, device=dev)
+        out[f"viterbi_wide_S{S}_{kind}"] = _digest(*kf.viterbi_batch(torch.as_tensor(lb, device=dev), lt, lengths))
     return out
 
 
@@ -161,7 +181,7 @@ def bank_digests(dev) -> dict:
 
 def digests(dev="cuda") -> dict:
     dev = torch.device(dev)
-    out = {**lattice_digests(dev), **em_digests(dev), **bank_digests(dev)}
+    out = {**lattice_digests(dev), **viterbi_wide_digests(dev), **em_digests(dev), **bank_digests(dev)}
     torch.cuda.synchronize()
     return out
 

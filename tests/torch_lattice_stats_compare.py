@@ -4,6 +4,7 @@ the emission-moments kernel compared on a CUDA card (not a tier-1 test):
     PYTHONPATH=<checkout> python tests/torch_lattice_stats_compare.py dump OUT.pt
     python tests/torch_lattice_stats_compare.py compare A.pt B.pt
     PYTHONPATH=<checkout> python tests/torch_lattice_stats_compare.py time [call ...]
+    PYTHONPATH=<checkout> python tests/torch_lattice_stats_compare.py time wide
 
 The inputs are made from fixed seeds by this file and by the chip_smoke.py
 beside it (loaded by path), so every checkout sees the same numbers; only
@@ -36,7 +37,14 @@ diagnostic the cuBLAS time of the moments' contraction alone ((N, S M)^T @
 e_step_lane_major("pallas") at em_diag on the host clock (median of 5)
 with the device busy time of one under torch.profiler; with the card's
 name and power limit.  Named calls (substrings of the call names) time
-only those calls (and E-steps), with no cuBLAS diagnostic.
+only those calls (and E-steps), with no cuBLAS diagnostic.  `time wide`
+times the kernels past 64 states instead (wide_cells): forward_lattice,
+forward_lattice_blocked, backward_lattice, backward_lattice_blocked (k_block
+= 4) and log_forward_batch at align_s96 (S = 96, band 1, B = 2048 of
+204-512 frames) and lattice_s1024 (S = 1024 dense, B = 64 of 102-512
+frames), each a CUDA-event median around the call (WIDE_REPS) and its
+device time per launch under torch.profiler (the kernels whose names
+contain "lattice_", WIDE_PROFILE calls), with the card's SM clock.
 """
 
 import importlib.util
@@ -53,6 +61,9 @@ ROOT = Path(__file__).resolve().parents[1]
 LATTICE_KEY = "lattice_forward_kernel"
 BACKWARD_KEY, VITERBI_KEY = "lattice_backward_kernel", "viterbi_kernel"
 STATS_KEYS = ("emission_stats_kernel", "sum_blocks_kernel")
+WIDE_KEY = "lattice_"  # the kernels past 64 states: any tree's forward and backward there
+WIDE_REPS = {"align_s96": (3, 20), "lattice_s1024": (1, 5)}  # (warm-up, CUDA-event reps) a cell
+WIDE_PROFILE = {"align_s96": 5, "lattice_s1024": 2}  # profiled calls a cell
 
 
 def smoke():
@@ -99,6 +110,57 @@ def diag10_rows(cs, B=2048):
     utts = [cs.sample(rng, *words[i % 10], int(rng.integers(400, 501)))[0] for i in range(64)]
     batch = pack_utterances(utts * (B // 64), pad_multiple=1, dtype=torch.float32, device="cuda")
     return cs.vocab_rows(torch, vocab, batch)
+
+
+def wide_cells(cs) -> dict:
+    """The lattice inputs of chip_smoke.py's align_s96 and lattice_s1024
+    cells: {cell: ((B, T, S) log b, its (T, S, B) copy, (S, S) log
+    transitions, lengths)}.  lattice_s1024's are the phase's own (the same
+    seed and draws); align_s96's transitions and lengths are the phase's,
+    its log b drawn from a seed (the phase computes it from sampled
+    utterances: the kernels' work does not depend on the values)."""
+    out = {}
+    units, states, _, _, B, T = cs.ALIGN_S96
+    S = units * states
+    rng = np.random.default_rng(96)
+    lens = [int(n) for n in rng.integers(T * 2 // 5, T + 1, size=B - 1)] + [T]
+    with np.errstate(divide="ignore"):
+        lt = np.log(cs.left_right_trans(S, 1.5)).astype(np.float32)
+    out["align_s96"] = (rng.normal(size=(B, T, S)) * 2).astype(np.float32), lt, lens
+    S, B, T = cs.LATTICE_S1024
+    rng = np.random.default_rng(1024)
+    p = rng.uniform(0.1, 1.0, size=(S, S))
+    p /= p.sum(-1, keepdims=True)
+    cs.rand_stream(rng, S, 1, 4, "diag")
+    lens = [int(n) for n in rng.integers(T // 5, T, size=B - 1)] + [T]
+    rng.normal(size=(B, T, 4))
+    out["lattice_s1024"] = (rng.normal(size=(B, T, S)) * 2).astype(np.float32), np.log(p).astype(np.float32), lens
+    cuda = lambda x: torch.as_tensor(x, device="cuda")  # noqa: E731
+    return {cell: (cuda(lb), cuda(lb).permute(1, 2, 0).contiguous(), cuda(lt),
+                   torch.as_tensor(lens, dtype=torch.int32, device="cuda")) for cell, (lb, lt, lens) in out.items()}
+
+
+def time_wide(cs, card):
+    from srhmm_tpu_torch.ops.kernels import forward as kf
+    from srhmm_tpu_torch.ops.kernels import lattice as kl
+
+    out = {}
+    for cell, (lb_bts, lb_tsb, lt, lengths) in wide_cells(cs).items():
+        warm, reps = WIDE_REPS[cell]
+        calls = {
+            "forward_lattice": lambda: kl.forward_lattice(lb_tsb, lt, lengths),
+            "forward_lattice_blocked": lambda: kl.forward_lattice_blocked(lb_tsb, lt, lengths, k_block=4),
+            "backward_lattice": lambda: kl.backward_lattice(lb_tsb, lt, lengths),
+            "backward_lattice_blocked": lambda: kl.backward_lattice_blocked(lb_tsb, lt, lengths, k_block=4),
+            "log_forward_batch": lambda: kf.log_forward_batch(lb_bts, lt, lengths),
+        }
+        for name, fn in calls.items():
+            out[f"{name}_{cell}_ms"] = cs.median_ms(torch, fn, warmup=warm, reps=reps)
+            out[f"{name}_{cell}_device_ms"] = cs.kernel_device_ms(torch, fn, WIDE_KEY, calls=WIDE_PROFILE[cell])[0]
+        del lb_bts, lb_tsb
+    clocks = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm", "--format=csv,noheader"],
+                            capture_output=True, text=True).stdout.strip()
+    print(json.dumps({**out, "package": kl.__file__, "card": card, "sm_clock_after": clocks}), flush=True)
 
 
 def tried(out, key, fn):
@@ -187,6 +249,8 @@ def time_kernels(only=()):
     cs = smoke()
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()
+    if list(only) == ["wide"]:
+        return time_wide(cs, card)
     model, batch, frames, log_b, gamma, a, b = em_diag_cell(cs)
     lt, lengths = model.log_trans().to(torch.float32), batch.lengths
     lb_tsb = log_b.permute(1, 2, 0).contiguous()

@@ -119,10 +119,12 @@ def entry_without_loop(trans) -> np.ndarray:
 
 def log_trans_np(S, kind, seed=0) -> np.ndarray:
     """(S, S) float32 log transitions: left-right of band 1 ("delta1") or 2
-    ("delta2"), or "dense"; -inf off the band."""
+    ("delta2"), "dense", or "spread" (spread_trans); -inf off the band."""
     rng = np.random.default_rng(seed)
     if kind == "dense":
         t = rng.uniform(0.1, 1.0, size=(S, S))
+    elif kind == "spread":
+        t = spread_trans(rng, S)
     else:
         band = {"delta1": 1, "delta2": 2}[kind]
         t = np.zeros((S, S))
@@ -131,6 +133,40 @@ def log_trans_np(S, kind, seed=0) -> np.ndarray:
     t /= t.sum(-1, keepdims=True)
     with np.errstate(divide="ignore"):
         return np.log(t).astype(np.float32)
+
+
+# the "spread" case's log b: every state SPREAD_BASE lower than the other
+# cases' (its log-alpha falls steadily, as a real model's does, instead of
+# walking about 0 through a dense 65-state half, where the float32 twin
+# itself strays past 1e-5 of float64), the second half SPREAD_GAP lower still
+SPREAD_BASE = 5.0
+SPREAD_GAP = 120.0
+
+
+def spread_trans(rng, S) -> np.ndarray:
+    """(S, S) transition probabilities (rows not yet normalised) of two dense
+    halves [0, S/2) and [S/2, S): the first half enters the second only
+    through its first state S/2, the second never goes back.  With log b
+    SPREAD_GAP lower on the second half (spread_log_b), a state of the
+    second half past S/2 has only sources of that half, which sit more than
+    100 nats below the row's maximum once it is two frames in: a sum taken
+    in the linear domain against the row's maximum loses it in float32."""
+    h = S // 2
+    t = rng.uniform(0.1, 1.0, size=(S, S))
+    t[:h, h + 1:] = 0.0
+    t[h:, :h] = 0.0
+    return t
+
+
+def spread_log_b(lb: np.ndarray, kind: str, axis: int) -> np.ndarray:
+    """lb SPREAD_BASE lower and its second half of states (along axis)
+    SPREAD_GAP lower still where kind is "spread", else lb."""
+    if kind == "spread":
+        idx = [slice(None)] * lb.ndim
+        idx[axis] = slice(lb.shape[axis] // 2, None)
+        lb -= SPREAD_BASE
+        lb[tuple(idx)] -= SPREAD_GAP
+    return lb
 
 
 def assert_log_close(got, want, bound=1e-5, neg_inf=-1e30):
@@ -398,13 +434,18 @@ STATS_CHECK_CASES = [
 ]
 
 
-# csrc/lattice.cu's block-wide mode past 64 states (one utterance a block),
-# (S, transitions, B, T): every S of 65, 96, 127, 128, 257, 1024 and 4096,
-# banded and dense, B of 1 and 37, T of 1 and 95; idle threads (S off a
-# warp), several states a thread (S = 1024, 4096), the packed band and the
-# packed dense matrix in shared memory, dense transitions read through L2
-# (S = 257, 1024, 4096); lengths from wide_lattice_lengths (rows of length
-# 0 and 1 where B >= 4)
+# csrc/lattice.cu past 64 states (the forward and backward's group mode,
+# the block-wide Viterbi), (S, transitions, B, T): every S of 65, 96, 127,
+# 128, 130, 257, 1024 and 4096, banded, dense and spread, B of 1, 6, 8 and
+# 37, T of 1 to 95; clusters of 1, 4, 8 and 16 blocks, groups of 1 to 6
+# utterances (a ragged last group), the packed ranges (a band, a dense
+# matrix whole or a slice) and the streamed tiles (S = 1024, 4096 dense) at
+# register tiles of 1 and 2 utterances, a one-block group past 512 threads
+# (S = 96, B = 800: 7 utterances, 672 pairs),
+# the spread case packed (S = 130) and streamed (S = 1024); for the
+# Viterbi idle threads, several states a thread, its ranges packed or read
+# through L2; lengths from wide_lattice_lengths (rows of length 0 and 1
+# where B >= 4)
 WIDE_LATTICE_CASES = [
     (65, "delta1", 37, 95),
     (96, "delta2", 37, 95),
@@ -416,6 +457,9 @@ WIDE_LATTICE_CASES = [
     (4096, "delta1", 8, 95),
     (4096, "dense", 1, 1),
     (96, "dense", 37, 1),
+    (130, "spread", 37, 95),
+    (1024, "spread", 6, 40),
+    (96, "delta2", 800, 20),
 ]
 
 
