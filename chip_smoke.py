@@ -201,12 +201,13 @@ each (any failure raises, so the exit code is non-zero):
               after); the kernels line's launches_multi sums them
     kernel_lattice_wide / kernel_em_wide / kernel_composed_wide
               the shapes past the lane path vs their twins:
-              csrc/lattice.cu's group mode (#15, #17-#20) and block-wide
-              Viterbi (#16) at torch_port_utils.WIDE_LATTICE_CASES (S = 65
+              csrc/lattice.cu's group mode (#15-#20, the Viterbi its
+              max-plus kind) at torch_port_utils.WIDE_LATTICE_CASES (S = 65
               to 4096, banded, dense and spread, B = 1 to 37, T = 1 to 95,
               rows of length 0 and 1, every shape of WIDE_LATTICE_SHAPES;
-              the Viterbi twin on its first 40000 // S frames,
-              backpointers equal; a duplicated-state tie at S = 96), the
+              the Viterbi's backpointers equal to the twin's; duplicated
+              states that tie at S = 96 packed and at S = 1024 streamed,
+              across the source shares of its tiles), the
               E-step kernels' z-GEMM emission and moments beside their
               recursions (#2-#5) at full covariance EM_FULL_WIDE_CASES
               (D = 17 to 64, two and six streams, M past one n tile, banded
@@ -4606,7 +4607,7 @@ def phase_multi(torch, train_diag: dict, main_full: dict, emb: dict, tied: dict,
 
 # ---------------------------------------------------------------------------
 # the shapes past the lane path: the lattice kernels past 64 states
-# (csrc/lattice.cu's block-wide mode) and full covariance past D = 16 in the
+# (csrc/lattice.cu's group mode) and full covariance past D = 16 in the
 # E-step (csrc/fused_em.cu) and composed (csrc/composed.cu) kernels
 # ---------------------------------------------------------------------------
 
@@ -4615,18 +4616,23 @@ def phase_multi(torch, train_diag: dict, main_full: dict, emb: dict, tied: dict,
 # dense and spread transitions; a cluster of one block, of several, of the
 # non-portable 16; a group of one utterance and of several, a ragged last
 # group; each register tile of the streamed route; a block past 512
-# threads; the per-row route), the
-# block-wide Viterbi's (its ranges packed or read through L2, idle threads,
-# states a thread, tiles walked and ragged, 16- and 4-byte copies, states
-# not yet reachable, a tie) and the inputs' (T = 1, B = 1, rows of length 0
-# and 1, rows that stop early)
+# threads; the per-row route), the Viterbi's (its packed and streamed
+# routes, a cluster of one block and of 16, a group of several utterances
+# and a ragged one, each register tile of the streamed route, states not
+# yet reachable on the packed route, a tie packed and ties across the
+# source shares of the streamed tiles) and the inputs' (T = 1, B = 1, rows
+# of length 0 and 1, rows that stop early)
 WIDE_LATTICE_SHAPES = {"packed_band", "packed_dense", "packed_spread", "streamed_dense", "streamed_spread",
                        "cluster_1", "cluster_n", "cluster_16", "group_1", "group_g", "ragged_group",
                        "streamed_utt_tile_1", "streamed_utt_tile_2", "threads_past_512", "per_row",
-                       "viterbi_packed", "viterbi_l2", "idle_threads", "states_per_thread_2", "states_per_thread_8",
-                       "walks_tiles", "ragged_tile", "copies_16", "copies_4", "unreachable_states", "tie",
+                       "viterbi_packed", "viterbi_streamed", "viterbi_cluster_1", "viterbi_cluster_16",
+                       "viterbi_group_g", "viterbi_ragged_group", "viterbi_utt_tile_1", "viterbi_utt_tile_2",
+                       "unreachable_states", "tie", "ties_across_shares",
                        "T_1", "B_1", "length_0", "length_1", "stops_early"}
-VITERBI_TWIN_STEPS = 40000  # the Viterbi twin loops S sources a frame: compared on its first 40000 // S frames
+# the streamed tie input: S = 1024 dense at lattice_s1024's B (the Viterbi's
+# group and cluster there), T frames; duplicates of state TIE_BASE tie
+TIE_STREAMED = (1024, 64, 24)  # S, B, T
+TIE_BASE = 40
 
 
 def wide_reached(torch, S, kind, B, T, lens, lt_np) -> set:
@@ -4635,11 +4641,10 @@ def wide_reached(torch, S, kind, B, T, lens, lt_np) -> set:
     (torch_port_utils.lattice_ranges; a cluster holds every key, so its
     widest range is the matrix's): the group mode's route (packed where the
     widest range times the block's keys fits lt_cap, else streamed), its
-    cluster, group and register tile; the block-wide Viterbi's placement,
-    idle threads (S off a warp), states a thread, tiles, copies of (B, T,
-    S) log b and a banded chain's states not yet reachable (its loop over
-    every source); T = 1, B = 1, rows of length 0 and 1, a row that stops
-    before T."""
+    cluster, group and register tile, the forward's and backward's and the
+    Viterbi's; a banded chain's states not yet reachable on the Viterbi's
+    packed route (its walk over every source); T = 1, B = 1, rows of length
+    0 and 1, a row that stops before T."""
     from srhmm_tpu_torch.ops.kernels import lattice as kl
 
     pu = port_utils()
@@ -4656,14 +4661,13 @@ def wide_reached(torch, S, kind, B, T, lens, lt_np) -> set:
         out |= {"ragged_group"} if B % sh["utts"] else set()
         out |= {"threads_past_512"} if sh["threads"] > 512 else set()
     vit = kl.viterbi_block(S, B)
-    W = int(pu.lattice_ranges(lt_np, False).max())
-    out.add("viterbi_packed" if W * S <= vit["lt_cap"] else "viterbi_l2")
-    out |= {f"states_per_thread_{vit['states_per_thread']}"} if vit["states_per_thread"] > 1 else set()
-    out |= {"walks_tiles"} if T > vit["tile"] else set()
-    out |= {"ragged_tile"} if T % vit["tile"] else set()
-    out.add(f"copies_{16 if kl.forward_copies_16(S, T, B, vit, 'bts') else 4}")
-    out |= {"idle_threads"} if S % 32 else set()
-    out |= {"unreachable_states"} if kind in ("delta1", "delta2") and T >= 2 else set()
+    vpacked = int(pu.lattice_ranges(lt_np, False).max()) * vit["keys"] <= vit["lt_cap"]
+    out.add("viterbi_packed" if vpacked else "viterbi_streamed")
+    out |= {f"viterbi_utt_tile_{vit['utt_tile']}"} if not vpacked else set()
+    out.add(f"viterbi_cluster_{vit['cluster']}")
+    out |= {"viterbi_group_g"} if vit["utts"] > 1 else set()
+    out |= {"viterbi_ragged_group"} if B % vit["utts"] else set()
+    out |= {"unreachable_states"} if vpacked and kind in ("delta1", "delta2") and T >= 2 else set()
     out |= {"T_1"} if T == 1 else set()
     out |= {"B_1"} if B == 1 else set()
     out |= {f"length_{n}" for n in (0, 1) if n in lens}
@@ -4678,7 +4682,11 @@ def wide_lattice_inputs(torch) -> dict:
     transitions (S, S), per-row transitions (B, S, S: delta 1
     and dense alternating, delta 1 from 1024 states on), lengths, the
     transitions as numpy); "tie" -> ((B, T, S) log b of S = 96 states with
-    states 40 and 41 duplicated, their transitions, None, lengths, None)."""
+    states 40 and 41 duplicated, their transitions, None, lengths, None);
+    "tie_streamed" the same at TIE_STREAMED (dense, streamed), the states
+    of tie_duplicates duplicates of TIE_BASE, 6 higher in log b than the
+    rest (so that they are the best sources of most keys), lengths from 2
+    to T."""
     pu = port_utils()
     rng = np.random.default_rng(2041)
     cuda = lambda x: torch.as_tensor(x, device="cuda")
@@ -4700,15 +4708,48 @@ def wide_lattice_inputs(torch) -> dict:
     lens = [int(n) for n in rng.integers(2, T, size=B - 1)] + [T]
     out["tie"] = (cuda(lb), cuda(np.log(p / p.sum(-1, keepdims=True)).astype(np.float32)), None,
                   torch.as_tensor(lens, dtype=torch.int32, device="cuda"), None)
+    S, B, T = TIE_STREAMED
+    rng = np.random.default_rng(2042)
+    p = rng.uniform(0.1, 1.0, size=(S, S))
+    lb = (rng.normal(size=(B, T, S)) * 2).astype(np.float32)
+    dups = tie_duplicates(S, B)
+    for d in dups:
+        p[d, :], p[:, d], lb[..., d] = p[TIE_BASE, :], p[:, TIE_BASE], lb[..., TIE_BASE]
+    lb[..., [TIE_BASE, *dups]] += 6.0
+    lens = [int(n) for n in rng.integers(2, T, size=B - 1)] + [T]
+    out["tie_streamed"] = (cuda(lb), cuda(np.log(p / p.sum(-1, keepdims=True)).astype(np.float32)), None,
+                           torch.as_tensor(lens, dtype=torch.int32, device="cuda"), None)
     return out
+
+
+def tie_duplicates(S: int, B: int) -> list[int]:
+    """The states that duplicate TIE_BASE in the streamed tie input, from
+    the Viterbi's launch shape (SP sources a share, KT a tile): one in the
+    same chunk, one in the next chunk of its share, one in the next share,
+    one in share 0 of the next tile (a lower share, a higher source: the
+    owner's combine must take the lowest source, not the lowest share) and
+    one in its share two tiles on."""
+    from srhmm_tpu_torch.ops.kernels import lattice as kl
+
+    sh = kl.viterbi_block(S, B)
+    SP, KT = sh["share"], sh["tile_sources"]
+    return sorted({d for d in (TIE_BASE + 1, TIE_BASE + 8, TIE_BASE + SP, KT + 1, 2 * KT + TIE_BASE) if d < S})
+
+
+def tie_shares(S: int, B: int) -> set:
+    """The (tile, share) pairs of TIE_BASE and its duplicates."""
+    from srhmm_tpu_torch.ops.kernels import lattice as kl
+
+    sh = kl.viterbi_block(S, B)
+    return {(d // sh["tile_sources"], d % sh["tile_sources"] // sh["share"]) for d in (TIE_BASE, *tie_duplicates(S, B))}
 
 
 def wide_lattice_check(torch, lb, lt, rows, lengths, what: str) -> dict:
     """The six lattice wrappers vs their twins on one input: forward and
     backward lattices (compare_clamped) and their blocked forms at the
     largest of k_block 19, 5, 1 dividing T (bitwise the unblocked), #15
-    shared and per row, #16 on the first VITERBI_TWIN_STEPS // S frames
-    (scores within BOUND, backpointers equal); every kernel twice, bitwise.
+    shared and per row, #16 (scores within BOUND, backpointers equal);
+    every kernel twice, bitwise.
     Returns {wrapper: compare result}."""
     from srhmm_tpu_torch.ops.kernels import forward as kf
     from srhmm_tpu_torch.ops.kernels import lattice as kl
@@ -4735,40 +4776,37 @@ def wide_lattice_check(torch, lb, lt, rows, lengths, what: str) -> dict:
     return res
 
 
-def viterbi_twin_check(torch, lb_bts, lt, lengths, what: str) -> dict:
-    """viterbi_batch twice (bitwise) and its twin on the first
-    VITERBI_TWIN_STEPS // S frames of (B, T, S) log b: scores within BOUND
-    (compare_clamped), backpointers equal."""
+def viterbi_twin_check(torch, lb_bts, lt, lengths, what: str, got=None) -> dict:
+    """viterbi_batch twice (bitwise; got, where given, is a first launch's
+    (scores, backpointers)) and its twin (vectorized over the sources) on
+    the whole of (B, T, S) log b: scores within BOUND (compare_clamped;
+    max-plus is exact, so they are expected equal), backpointers equal."""
     from srhmm_tpu_torch.ops.kernels import forward as kf
 
-    S = lb_bts.shape[-1]
-    cut = lb_bts[:, : max(1, VITERBI_TWIN_STEPS // S)].contiguous()
-    sc, bp = kf.viterbi_batch(cut, lt, lengths)
-    sc2, bp2 = kf.viterbi_batch(cut, lt, lengths)
-    sc_p, bp_p = kf.viterbi_batch_plain(cut, lt, lengths)
+    sc, bp = kf.viterbi_batch(lb_bts, lt, lengths) if got is None else got
+    sc2, bp2 = kf.viterbi_batch(lb_bts, lt, lengths)
+    sc_p, bp_p = kf.viterbi_batch_plain(lb_bts, lt, lengths)
     torch.cuda.synchronize()
     if not (torch.equal(sc, sc2) and torch.equal(bp, bp2)):
         raise AssertionError(f"{what} viterbi_batch: two launches differ")
     if not torch.equal(bp, bp_p):
         raise AssertionError(f"{what} viterbi_batch: {int((bp != bp_p).sum())} backpointers differ from the twin")
-    return {**compare_clamped(sc, sc_p, f"{what} viterbi_batch"), "frames": int(cut.shape[1])}
+    return {**compare_clamped(sc, sc_p, f"{what} viterbi_batch"), "frames": int(lb_bts.shape[1]),
+            "scores_equal": bool(torch.equal(sc, sc_p))}
 
 
 def phase_kernel_lattice_wide(torch) -> dict:
-    """#15-#20 past 64 states (csrc/lattice.cu's group mode, the Viterbi's block-wide mode) vs their
-    twins at torch_port_utils.WIDE_LATTICE_CASES (wide_lattice_check), and
-    viterbi_batch on S = 96 with two duplicated states (backpointers equal
-    to the twin's, never the higher of the two).  Fails unless every shape
-    of WIDE_LATTICE_SHAPES was reached.  Returns the worst absolute error
-    per wrapper."""
-    from srhmm_tpu_torch.ops.kernels import forward as kf
-
+    """#15-#20 past 64 states (csrc/lattice.cu's group mode) vs their twins
+    at torch_port_utils.WIDE_LATTICE_CASES (wide_lattice_check), and
+    viterbi_batch on duplicated states that tie (viterbi_ties_check).
+    Fails unless every shape of WIDE_LATTICE_SHAPES was reached.  Returns
+    the worst absolute error per wrapper."""
     saved = lane_counts()
     worst = {name: 0.0 for name, *_ in LANE_ROWS[:6]}
     seen = set()
     inputs = wide_lattice_inputs(torch)
     for key, (lb, lt, rows, lengths, lt_np) in inputs.items():
-        if key == "tie":
+        if key in ("tie", "tie_streamed"):
             continue
         S, kind, B, T = key
         what = f"S={S} {kind} B={B} T={T}"
@@ -4781,23 +4819,54 @@ def phase_kernel_lattice_wide(torch) -> dict:
         emit({"phase": "kernel_lattice_wide", "S": S, "trans": kind, "B": B, "T": T, "reached": sorted(got),
               "bitwise_repeat": True, "bptr_equal": True, "viterbi_frames": res["viterbi_batch"]["frames"],
               "s": time.perf_counter() - t0, **{k: v["rel_err"] for k, v in res.items()}})
-    lb, lt, _, lengths, _ = inputs["tie"]
-    sc, bp = kf.viterbi_batch(lb, lt, lengths)
-    sc_p, bp_p = kf.viterbi_batch_plain(lb, lt, lengths)
-    torch.cuda.synchronize()
-    live = torch.arange(lb.shape[1], device="cuda")[None, :] < lengths[:, None].long()
-    live[:, 0] = False
-    if not torch.equal(bp, bp_p) or bool((bp[live] == 41).any()) or not bool((bp[live] == 40).any()):
-        raise AssertionError("kernel_lattice_wide tie: backpointers differ from the twin or take the higher source")
-    r = compare_clamped(sc, sc_p, "kernel_lattice_wide tie")
-    worst["viterbi_batch"] = max(worst["viterbi_batch"], r["max_abs_err"])
-    seen.add("tie")
-    emit({"phase": "kernel_lattice_wide", "config": "viterbi_tie_S96", "bptr_equal": True, "ties_to_lowest": True,
-          "viterbi_batch": r["rel_err"]})
+    err, got = viterbi_ties_check(torch, inputs)
+    worst["viterbi_batch"] = max(worst["viterbi_batch"], err)
+    seen |= got
     set_lane_counts(saved)  # comparison launches
     if seen != WIDE_LATTICE_SHAPES:
         raise AssertionError(f"kernel_lattice_wide reached {sorted(seen)}, not {sorted(WIDE_LATTICE_SHAPES)}")
     return worst
+
+
+def viterbi_ties_check(torch, inputs) -> tuple[float, set]:
+    """viterbi_batch past 64 states on duplicated states whose candidates
+    tie exactly (wide_lattice_inputs "tie": S = 96, the packed route;
+    "tie_streamed": S = 1024 dense, streamed, duplicates in one chunk, in
+    another chunk of the share, in another share of the tile and in lower
+    shares of later tiles): two launches bitwise, backpointers equal to
+    the twin's and never a duplicate above TIE_BASE (40 at S = 96), scores
+    within BOUND.  Returns the worst absolute error and the shapes of
+    WIDE_LATTICE_SHAPES reached (tie; ties_across_shares where the
+    duplicates span two shares and one sits in a lower share of a later
+    tile; the streamed input's launch shape)."""
+    from srhmm_tpu_torch.ops.kernels import forward as kf
+    from srhmm_tpu_torch.ops.kernels import lattice as kl
+
+    worst, seen = 0.0, {"tie"}
+    for key, base, dups in (("tie", 40, [41]), ("tie_streamed", TIE_BASE, tie_duplicates(*TIE_STREAMED[:2]))):
+        lb, lt, _, lengths, _ = inputs[key]
+        B, T, S = lb.shape
+        got = kf.viterbi_batch(lb, lt, lengths)
+        r = viterbi_twin_check(torch, lb, lt, lengths, f"kernel_lattice_wide {key}", got)
+        bp = got[1]
+        live = torch.arange(T, device="cuda")[None, :] < lengths[:, None].long()
+        live[:, 0] = False
+        higher = bool(torch.isin(bp[live], torch.as_tensor(dups, dtype=bp.dtype, device="cuda")).any())
+        if higher or not bool((bp[live] == base).any()):
+            raise AssertionError(f"kernel_lattice_wide {key}: a tie went to a higher duplicate, or none was taken")
+        worst = max(worst, r["max_abs_err"])
+        if key == "tie_streamed":
+            sh = kl.viterbi_block(S, B)
+            pairs = tie_shares(S, B)
+            lower_later = any(tl > 0 and sp < base % sh["tile_sources"] // sh["share"] for tl, sp in pairs)
+            seen |= {"ties_across_shares"} if len({sp for _, sp in pairs}) > 1 and lower_later else set()
+            seen |= wide_reached(torch, S, "dense", B, T, lengths.tolist(), lt.cpu().numpy()) & {
+                "viterbi_streamed", "viterbi_utt_tile_2", "viterbi_cluster_16", "viterbi_group_g",
+                "viterbi_ragged_group"}
+        emit({"phase": "kernel_lattice_wide", "config": f"viterbi_{key}_S{S}", "bptr_equal": True,
+              "ties_to_lowest": True, "duplicates": dups, "viterbi_batch": r["rel_err"],
+              "scores_equal": r["scores_equal"]})
+    return worst, seen
 
 
 # the full-covariance E-step shapes past D = 16 phase_kernel_em_wide must see reached: each
@@ -5009,6 +5078,8 @@ LANE_MAJOR_STAT_BOUND = 2e-4
 # timing_wide's (warm-up, CUDA-event reps, profiler calls) a cell: a dense
 # lattice_s1024 call takes tenths of a second
 WIDE_TIMING = {"align_s96": (3, 20, 5), "lattice_s1024": (1, 3, 2)}
+# the profiler's name of the group mode's Viterbi instances (lattice_group_kernel<kViterbiKind, UT, MAXT>)
+VITERBI_GROUP_KEY = "lattice_group_kernel<2,"
 
 
 def lattice_cell(torch, name: str, model, batch, lb_bts, lt) -> dict:
@@ -5019,8 +5090,8 @@ def lattice_cell(torch, name: str, model, batch, lb_bts, lt) -> dict:
     e_step_lane_major(lattices="pallas") on the first LANE_MAJOR_CUT
     utterances and frames (its plain xi is (T-1, S, S, B) floats); every
     kernel of #15-#20 must launch.  Then each against its twin: #15 within
-    BOUND, #16 on its first VITERBI_TWIN_STEPS // S frames (backpointers
-    equal, the full run's first rows equal to the cut run's), #17-#20
+    BOUND, #16's run of the main path on the whole T (backpointers equal,
+    scores within BOUND; the twin vectorized over the sources), #17-#20
     within BOUND, the lane-major statistics within LANE_MAJOR_STAT_BOUND of
     lattices="scan" (the same function on the plain scans)."""
     from srhmm_tpu_torch.io.dataset import UtteranceBatch
@@ -5053,10 +5124,8 @@ def lattice_cell(torch, name: str, model, batch, lb_bts, lt) -> dict:
     saved = lane_counts()
     res = {"log_forward_batch": compare_clamped(scores, kf.log_forward_batch_plain(lb_bts, lt, lengths),
                                                 f"{name} log_forward_batch")}
-    res["viterbi_batch"] = viterbi_twin_check(torch, lb_bts, lt, lengths, name)
+    res["viterbi_batch"] = viterbi_twin_check(torch, lb_bts, lt, lengths, name, (vit, bptr))
     rows = res["viterbi_batch"]["frames"]
-    if not torch.equal(kf.viterbi_batch(lb_bts[:, :rows].contiguous(), lt, lengths)[1], bptr[:, :rows]):
-        raise AssertionError(f"{name} viterbi_batch: the full run's first {rows} rows differ from the cut run's")
     for n, got, want in (("forward_lattice", la, kl.forward_lattice_plain(lb_tsb, lt, lengths)),
                          ("backward_lattice", lbw, kl.backward_lattice_plain(lb_tsb, lt, lengths))):
         res[n] = res[f"{n}_blocked"] = compare_clamped(got, want, f"{name} {n}")
@@ -5201,10 +5270,9 @@ def phase_timing_wide(torch, cells: dict, smi: str) -> dict:
     """#15-#20 and their twins at align_s96 and lattice_s1024 (CUDA events,
     kernels median of WIDE_TIMING's reps after its warm-up, each twin one
     run, in the order twin, kernel, kernel, twin; the blocked wrappers'
-    twins are the unblocked ones, timed once; the Viterbi twin on its first
-    VITERBI_TWIN_STEPS // S frames, its kernel timed on those too beside
-    the full run), each bound from its inputs (lattice_bound) and each
-    kernel's own device time (torch.profiler over WIDE_TIMING's calls)."""
+    twins are the unblocked ones, timed once), each bound from its inputs
+    (lattice_bound) and each kernel's own device time (torch.profiler over
+    WIDE_TIMING's calls, the Viterbi's window first)."""
     from srhmm_tpu_torch.ops.kernels import forward as kf
     from srhmm_tpu_torch.ops.kernels import lattice as kl
 
@@ -5213,10 +5281,9 @@ def phase_timing_wide(torch, cells: dict, smi: str) -> dict:
     for cell, c in cells.items():
         lb_bts, lb_tsb, lt, lengths = c["lb_bts"], c["lb_tsb"], c["lt"], c["lengths"]
         B, T, S = lb_bts.shape
-        cut = lb_bts[:, : max(1, VITERBI_TWIN_STEPS // S)].contiguous()
         calls = {
             "log_forward_batch": (kf.log_forward_batch_plain, kf.log_forward_batch, (lb_bts, lt, lengths)),
-            "viterbi_batch": (kf.viterbi_batch_plain, kf.viterbi_batch, (cut, lt, lengths)),
+            "viterbi_batch": (kf.viterbi_batch_plain, kf.viterbi_batch, (lb_bts, lt, lengths)),
             "forward_lattice": (kl.forward_lattice_plain, kl.forward_lattice, (lb_tsb, lt, lengths)),
             "backward_lattice": (kl.backward_lattice_plain, kl.backward_lattice, (lb_tsb, lt, lengths)),
             "forward_lattice_blocked": (kl.forward_lattice_plain,
@@ -5238,10 +5305,7 @@ def phase_timing_wide(torch, cells: dict, smi: str) -> dict:
                           "best_plain_ms": min(plain_a, plain_b), **bnd, "share_of_bound": bnd["bound_ms"] / ms}
             if rows[name]["share_of_bound"] > 1.0:
                 raise AssertionError(f"{cell} {name}: {ms} ms is below its bound {bnd['bound_ms']} ms")
-        full_args = (lb_bts, lt, lengths)
-        rows["viterbi_batch"]["full_T_ms"] = median_ms(torch, lambda: kf.viterbi_batch(*full_args), warmup, reps)
-        rows["viterbi_batch"]["full_T_bound"] = lattice_bound("viterbi_batch", lb_bts, lt, lengths)
-        for name, key in (("log_forward_batch", "lattice_group_kernel"), ("viterbi_batch", "viterbi_block_kernel"),
+        for name, key in (("viterbi_batch", VITERBI_GROUP_KEY), ("log_forward_batch", "lattice_group_kernel"),
                           ("forward_lattice", "lattice_group_kernel"), ("backward_lattice", "lattice_group_kernel")):
             _, kernel, args = calls[name]
             rows[name]["kernel_device_ms"], rows[name]["kernel_device_launches"] = kernel_device_ms(
@@ -5515,7 +5579,7 @@ def main() -> int:
             **({"kernel_device_ms": t_lane[name]["kernel_device_ms"]} if "kernel_device_ms" in t_lane[name] else {}),
             **({"kernel_device_ms_diag10": t_lane["log_forward_batch_diag10"]["kernel_device_ms"]}
                if name == "log_forward_batch" else {}),
-            # past 64 states (the block-wide mode): align_s96 and lattice_s1024
+            # past 64 states (the group mode): align_s96 and lattice_s1024
             **({k: v for cell, tag, c in (("align_s96", "s96", s96), ("lattice_s1024", "s1024", s1024))
                 for k, v in wide_fields(t_wide[cell][name], tag, c["launches"][name]).items()}
                if name in t_wide["align_s96"] else {}),

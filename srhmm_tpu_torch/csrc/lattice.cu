@@ -10,10 +10,8 @@
 //   lattice_backward_kernel <- lattice_pallas.py:134 backward_lattice_pallas,
 //                              :253 backward_lattice_pallas_blocked
 //   viterbi_kernel          <- forward_pallas.py:137 viterbi_batch_pallas
-//   lattice_group_kernel    <- the forward and backward ones past 64 states
-//                              (the group mode below)
-//   viterbi_block_kernel    <- viterbi_batch_pallas past 64 states (the
-//                              block-wide mode below)
+//   lattice_group_kernel    <- the three past 64 states (the group mode
+//                              below; the Viterbi its kViterbiKind)
 // The blocked TPU kernels compute the same functions as the unblocked ones:
 // k_block was the TPU's time tiling.  The plain PyTorch twins
 // (ops/kernels/lattice.py, ops/kernels/forward.py *_plain) compute the same
@@ -90,7 +88,8 @@ namespace {
 
 using namespace srhmm;
 
-constexpr int kMaxStates = 64;  // the lane path; the group and block-wide modes take up to kMaxBlockStates
+constexpr int kMaxStates = 64;  // the lane path; the group mode takes up to kMaxBlockStates
+constexpr int kMaxBlockStates = 4096;  // the group mode's states at most
 constexpr size_t kSmemLimit = 232448;  // bytes a block may use (ops/kernels/common.py SMEM_LIMIT)
 
 // ---------------------------------------------------------------------------
@@ -114,7 +113,6 @@ struct Params {
   int G, U, TT;        // utterances a warp and a block, frames a tile
   int vec;             // 16-byte copies and stores
   int* bptr;           // Viterbi: the (B, T, S) backpointers
-  int rec, lt_cap;     // the block-wide Viterbi (S > kMaxStates): recursion threads, floats of the transitions' region
 };
 
 // (B, T, S) tiles: an utterance's TT S floats at a pitch rounded up to 4,
@@ -724,244 +722,13 @@ KernelFn viterbi_kernel_for(int S) {
   return viterbi_kernel<64, 2>;
 }
 
-// ---------------------------------------------------------------------------
-// the block-wide Viterbi: S > kMaxStates
-// ---------------------------------------------------------------------------
-//
-// Past 64 states an utterance's states do not fit a warp's lanes.  Each
-// block takes one utterance; its p.rec recursion threads (S rounded up to
-// whole warps, at most kBlockRec) take the destinations j = tid + r p.rec,
-// r < ceil(S / p.rec) <= kBlockPerThread, and one memory warp stages log b a
-// tile of TT frames ahead and writes the backpointers a tile behind
-// (stage_forward_tile, store_run_tile with U = 1).  The previous row of
-// scores sits double-buffered in shared memory: a frame reads one slot and
-// writes the other, and one barrier of the recursion threads a frame orders
-// them (none past the utterance's length, where the row only repeats).  The
-// transitions: each destination's sources run over the range [lo, lo + cnt)
-// of its column whose clamped log transitions are above NEG_INF, found by
-// the block at its start.  The ranges' columns sit in shared memory, packed
-// W = max cnt wide (a band of W diagonals, or the dense matrix), when W S
-// floats fit p.lt_cap, else they are read from device memory through L2.
-// Where the best in-range score is at or below NEG_INF (a state not yet
-// reachable), sources outside the range (transition NEG_INF) tie with it
-// and the lowest source wins, so that case loops over all S sources.
-// Semantics are the lane path's (the clamp, lengths of 0 and 1, the lower
-// source on a tie).
-constexpr int kBlockRec = 512;                               // recursion threads a block at most
-constexpr int kBlockPerThread = 8;                           // destinations a thread at most
-constexpr int kMaxBlockStates = kBlockRec * kBlockPerThread;  // 4096
-constexpr int kBlockThreads = kBlockRec + 32;                // and one memory warp
-
 __host__ __device__ inline size_t round4(size_t n) { return (n + 3) / 4 * 4; }
 
-__device__ __forceinline__ void named_barrier(int id, int threads) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
-
-// The regions of a block-wide Viterbi block, in floats (ops/kernels/lattice.py
-// viterbi_wide_smem_bytes mirrors it): two rows of S | log b in two slots (a
-// run of TT S at forward_run_pitch) | the backpointers in two slots of the
-// same run | the ranges, lo and cnt of S ints and the width | the
-// transitions, lt_cap floats; each region a multiple of 4 floats.
-struct BlockLayout {
-  size_t rows, in, out, ints;
-};
-
-__host__ __device__ inline BlockLayout block_layout(int S, int TT) {
-  BlockLayout L;
-  L.rows = round4(2 * (size_t)S);
-  L.in = round4(forward_tile_floats(S, 1, TT, 1));
-  L.out = forward_tile_floats(S, 1, TT, 1);
-  L.ints = round4(2 * (size_t)S + 1);
-  return L;
-}
-
-__host__ __device__ inline size_t block_floats(int S, int TT, int lt_cap) {
-  const BlockLayout L = block_layout(S, TT);
-  return L.rows + 2 * L.in + 2 * L.out + L.ints + (size_t)lt_cap;
-}
-
-// The packed transition of destination k and its e-th range entry: from
-// shared memory, or clamped from device memory.
-struct BlockTrans {
-  const float* g;  // the (S, S) log transitions in device memory, destination k's sources column k
-  const float* c;  // the packed ranges in shared memory, or nullptr
-  const int *lo, *cnt;
-  int S, W;
-  __device__ __forceinline__ float at(int k, int e) const {
-    return c ? c[(size_t)k * W + e] : fmaxf(g[(size_t)(lo[k] + e) * S + k], kNegInf);
-  }
-};
-
-// The Viterbi's best source of destination j by a strict > from source 0
-// over all S sources: over the range, unless its best is at or below
-// NEG_INF, where sources outside it (transition NEG_INF) may tie.
-__device__ __forceinline__ float block_best(const BlockTrans& tr, const float* x, int j, int& arg) {
-  const int l0 = tr.lo[j], n = tr.cnt[j];
-  float best = -INFINITY;
-  arg = 0;
-  for (int e = 0; e < n; ++e) {
-    const float c = x[l0 + e] + tr.at(j, e);
-    if (e == 0 || c > best) {
-      best = c;
-      arg = l0 + e;
-    }
-  }
-  if (n > 0 && best > kNegInf) return best;
-  for (int i = 0; i < tr.S; ++i) {
-    const float c = x[i] + (i >= l0 && i < l0 + n ? tr.at(j, i - l0) : kNegInf);
-    if (i == 0 || c > best) {
-      best = c;
-      arg = i;
-    }
-  }
-  return best;
-}
-
-// One utterance a block (blockIdx.x): the Viterbi scores and (B, T, S)
-// backpointers of the lane kernel above, past 64 states.
-__global__ void __launch_bounds__(kBlockThreads) viterbi_block_kernel(const __grid_constant__ Params p) {
-  extern __shared__ float4 smem4[];
-  float* sh = reinterpret_cast<float*>(smem4);
-  const int S = p.S, TT = p.TT, T = p.T, tid = threadIdx.x, nr = p.rec, b = blockIdx.x;
-  const int Q = forward_run_pitch(S, TT);
-  const BlockLayout L = block_layout(S, TT);
-  float* row = sh;                        // slot f & 1 of S floats: frame (row) f
-  float* lb_slots = row + L.rows;         // slot k & 1 holds tile k
-  float* out_slots = lb_slots + 2 * L.in;
-  int* lo = reinterpret_cast<int*>(out_slots + 2 * L.out);
-  int* cnt = lo + S;
-  int* width = cnt + S;
-  float* lt_sh = reinterpret_cast<float*>(lo) + L.ints;
-  const int len = p.lengths[b];
-  const float* ltg = p.lt;
-  const int n_tiles = (T + TT - 1) / TT;
-
-  // the ranges: destination k's entries above NEG_INF (column k)
-  if (tid == 0) *width = 0;
-  __syncthreads();
-  if (tid < nr) {
-    int wmax = 0;
-    for (int k = tid; k < S; k += nr) {
-      int first = S, last = -1;
-      for (int e = 0; e < S; ++e) {
-        const float v = ltg[(size_t)e * S + k];
-        if (v > kNegInf) {
-          first = min(first, e);
-          last = e;
-        }
-      }
-      lo[k] = first <= last ? first : 0;
-      cnt[k] = first <= last ? last - first + 1 : 0;
-      wmax = max(wmax, cnt[k]);
-    }
-    atomicMax(width, wmax);
-  }
-  __syncthreads();
-  const int W = *width;
-  const bool packed = (size_t)W * S <= (size_t)p.lt_cap;
-  BlockTrans tr{ltg, nullptr, lo, cnt, S, W};
-  if (packed && tid < nr) {
-    for (int k = tid; k < S; k += nr)
-      for (int e = 0; e < cnt[k]; ++e) lt_sh[(size_t)k * W + e] = tr.at(k, e);
-  }
-  if (packed) tr.c = lt_sh;
-
-  if (tid >= nr) {
-    // ---- the memory warp ----
-    const int i = tid - nr, count = blockDim.x - nr;
-    auto stage = [&](int k) {
-      const int t_lo = k * TT, t_hi = min(T, t_lo + TT);
-      stage_forward_tile(lb_slots + (k & 1) * L.in, p.log_b, 1, t_lo, t_hi - t_lo, T, S, p.B, b, 1, Q, p.vec, i,
-                         count);
-      cp_async_commit();
-    };
-    auto store = [&](int k) {
-      const int t_lo = k * TT, t_hi = min(T, t_lo + TT);
-      store_run_tile(p.bptr, reinterpret_cast<const int*>(out_slots + (k & 1) * L.out), t_lo, t_hi - t_lo, T, S,
-                     p.B, b, 1, Q, p.vec, i, count);
-    };
-    stage(0);
-    cp_async_wait<0>();
-    __syncthreads();
-    for (int k = 0; k < n_tiles; ++k) {
-      // tile k+1 goes into the slot of tile k-1, read before the last barrier
-      if (k + 1 < n_tiles) stage(k + 1);
-      if (k >= 1) store(k - 1);
-      cp_async_wait<0>();
-      __syncthreads();
-    }
-    store(n_tiles - 1);
-    return;
-  }
-
-  // ---- the recursion threads ----
-  const int K = (S + nr - 1) / nr;
-  float carry[kBlockPerThread];  // the score
-#pragma unroll
-  for (int r = 0; r < kBlockPerThread; ++r) carry[r] = kNegInf;
-  __syncthreads();  // tile 0 (and the packed transitions) are in
-  for (int k = 0; k < n_tiles; ++k) {
-    const float* lbt = lb_slots + (k & 1) * L.in;
-    float* ot = out_slots + (k & 1) * L.out;
-    const int t_lo = k * TT, t_hi = min(T, t_lo + TT);
-    for (int t = t_lo; t < t_hi; ++t) {
-      const int tt = t - t_lo;
-      const float* prev = row + ((t + 1) & 1) * S;  // frame t-1
-      float* cur = row + (t & 1) * S;
-      const bool step = t >= 1 && t < len;
-#pragma unroll
-      for (int r = 0; r < kBlockPerThread; ++r) {
-        const int j = tid + r * nr;
-        if (r >= K || j >= S) continue;
-        const float lb = fmaxf(lbt[(size_t)tt * S + j], kNegInf);
-        int arg = j;
-        if (t == 0) {
-          carry[r] = (j == 0 ? 0.f : kNegInf) + lb;
-        } else if (step) {
-          carry[r] = fmaxf(block_best(tr, prev, j, arg) + lb, kNegInf);
-        }
-        if (t + 1 < len && t + 1 < T) cur[j] = carry[r];  // read by frame t+1 only
-        reinterpret_cast<int*>(ot)[tt * S + j] = step ? arg : j;
-      }
-      if (t + 1 < len && t + 1 < T) named_barrier(1, nr);  // frame t's row, for frame t+1
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int r = 0; r < kBlockPerThread; ++r) {
-    const int j = tid + r * nr;
-    if (r < K && j < S) p.out[(size_t)b * S + j] = carry[r];
-  }
-}
-
-// The block-wide Viterbi's launch: one utterance a block, p.rec recursion
-// threads (S rounded up to whole warps, at most kBlockRec) and a memory
-// warp; 0 or a CUDA error code.
-int launch_viterbi_block(const Params& p, int device, void* stream) {
-  const int S = p.S;
-  const int rec = min(kBlockRec, (S + 31) / 32 * 32);
-  const size_t smem = sizeof(float) * block_floats(S, p.TT, p.lt_cap);
-  if (p.T < 1 || S <= kMaxStates || S > kMaxBlockStates || p.B < 1 || p.TT < 1 || p.G != 0 || p.U != 1 ||
-      p.rec != rec || p.lt_cap < 0 || p.lt_cap % 4 != 0 || smem > kSmemLimit) {
-    return (int)cudaErrorInvalidValue;
-  }
-  KernelFn fn = viterbi_block_kernel;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(reinterpret_cast<const void*>(fn), cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  fn<<<p.B, rec + 32, smem, static_cast<cudaStream_t>(stream)>>>(p);
-  return (int)cudaGetLastError();
-}
-
 // ---------------------------------------------------------------------------
-// the group mode: the forward and backward lattices past kMaxStates
+// the group mode: the forward and backward lattices and the Viterbi past
+// kMaxStates
 // ---------------------------------------------------------------------------
-enum { kForwardKind = 0, kBackwardKind = 1 };
+enum { kForwardKind = 0, kBackwardKind = 1, kViterbiKind = 2 };
 //
 // The forward and the backward compute, for every key k of a row (the
 // forward's destination, the backward's source), a log-sum-exp over the
@@ -1017,6 +784,26 @@ enum { kForwardKind = 0, kBackwardKind = 1 };
 // the SFU (16 a clock an SM): a dense S = 1024 lattice at B = 64 needs 2.1e10;
 // beside each one the streamed route issues an add (v = x + a), an fma (the
 // exponent) and the add of the sum.
+//
+// The Viterbi (kViterbiKind; TPU kernel forward_pallas.py:137
+// viterbi_batch_pallas past 64 states) is the forward's recursion on (B, T,
+// S) log b in the (max, +) semiring, each key's best source taken by a
+// strict > from source 0.  Max-plus rounds once a candidate (x + a) and max
+// is exact, so any order of the sources gives the same best, and a fixed
+// lowest-on-a-tie rule the same source: the kernel is bitwise the plain
+// twin's loop.  Streamed, a thread keeps (best, source) of each pair of its
+// register tile over its share's sources, ascending (an add, a compare, two
+// selects: no SFU work; the transitions clamped at NEG_INF in registers),
+// and the owner takes the KS partial pairs' largest value, the lowest
+// source among equal ones (share_best).  Packed, the owner walks its key's
+// range; where that range's best sits at or below NEG_INF (a state not yet
+// reachable), sources outside it (transition NEG_INF) may tie, so it walks
+// all S (range_best).  The owners write the backpointers of their pairs
+// (keys fastest: a warp's stores coalesce), the identity at frame 0 and past
+// a member's length, whose carry stays; rows past the group's longest
+// member are the identity, the final carries the scores.  Bound: 4
+// instructions a (source, key, utterance, frame) at the issue rate (128
+// lanes a clock an SM), 2.1e10 such steps at S = 1024 dense, B = 64.
 constexpr int kGroupRing = 8;        // frames of log b an owner keeps in flight
 constexpr int kGroupStages = 2;      // transition tiles in flight (the streamed route)
 constexpr int kGroupChunk = 8;       // sources of one max-then-exponentials step (SP a multiple)
@@ -1030,7 +817,9 @@ struct GroupParams {
   const float* log_b;  // (T, S, B) (layout 0) or (B, T, S) (layout 1), contiguous
   const float* lt;     // (S, S) key k's terms column k; (B, S, S) per utterance where per_row (G = 1)
   const int* lengths;  // (B,)
-  float* out;          // the (T, S, B) lattice (layout 0) or the final carries (B, S) (layout 1, forward)
+  float* out;          // the (T, S, B) lattice (layout 0) or the final carries (B, S) (layout 1, forward; the
+                       // Viterbi's scores)
+  int* bptr;           // the Viterbi's (B, T, S) int32 backpointers
   int per_row, layout, T, S, B;
   int G, C, NT, KS;    // utterances a group, blocks a cluster, threads a block, source shares a tile
   int SP;              // sources a share (a multiple of kGroupChunk)
@@ -1091,6 +880,52 @@ __device__ __forceinline__ float2 range_lse(const float* x, const float* a, int 
   return make_float2(m, sum);
 }
 
+// The Viterbi's best source of one key over its packed range [l0, l0 + n)
+// (x the group row, a the key's clamped entries at a stride of Db) by a
+// strict > from the range's first source; where that best is at or below
+// NEG_INF, sources outside the range (transition NEG_INF) may tie with it,
+// so the walk runs over all S sources from source 0.
+__device__ __forceinline__ float range_best(const float* x, const float* a, int Db, int l0, int n, int S, int& arg) {
+  float best = -INFINITY;
+  arg = 0;
+  for (int e = 0; e < n; ++e) {
+    const float c = x[l0 + e] + a[(size_t)e * Db];
+    if (e == 0 || c > best) {
+      best = c;
+      arg = l0 + e;
+    }
+  }
+  if (n > 0 && best > kNegInf) return best;
+  for (int i = 0; i < S; ++i) {
+    const float c = x[i] + (i >= l0 && i < l0 + n ? a[(size_t)(i - l0) * Db] : kNegInf);
+    if (i == 0 || c > best) {
+      best = c;
+      arg = i;
+    }
+  }
+  return best;
+}
+
+// The Viterbi's best of the KS partial (best, source) pairs of owner pair q
+// (values at [r GD + q], sources after them at [KS GD + r GD + q]): the
+// largest value and, among equal values, the lowest source (each share
+// holds the lowest of its own sources; a later share may hold a lower
+// source of a later tile).
+__device__ __forceinline__ float share_best(const float* part, int GD, int KS, int q, int& arg) {
+  const int* src = reinterpret_cast<const int*>(part) + (size_t)KS * GD;
+  float best = part[q];
+  arg = src[q];
+  for (int r = 1; r < KS; ++r) {
+    const float c = part[(size_t)r * GD + q];
+    const int a = src[(size_t)r * GD + q];
+    if (c > best || (c == best && a < arg)) {
+      best = c;
+      arg = a;
+    }
+  }
+  return best;
+}
+
 // The owner pairs of thread tid: pair index q = tid + i NT < G Db, the
 // utterance fastest (ufast) where a group is one block with the (T, S, B)
 // lattice out (G consecutive floats a key), else the key fastest: a warp's
@@ -1113,7 +948,7 @@ __global__ void __launch_bounds__(MAXT) lattice_group_kernel(const __grid_consta
   float* sh = reinterpret_cast<float*>(smem4);
   cg::cluster_group cluster = cg::this_cluster();
   const int S = p.S, T = p.T, B = p.B, G = p.G, C = p.C, NT = p.NT, KS = p.KS, tid = threadIdx.x;
-  const int layout = KIND == kForwardKind ? p.layout : 0;
+  const int layout = KIND == kViterbiKind ? 1 : (KIND == kForwardKind ? p.layout : 0);
   const bool ufast = layout == 0 && C == 1;
   const GroupLayout L = group_layout(S, G, C, NT, KS, p.SP);
   const int Db = L.Db, KT = L.KT, PO = L.PO, GD = G * Db, SP = p.SP;
@@ -1121,7 +956,7 @@ __global__ void __launch_bounds__(MAXT) lattice_group_kernel(const __grid_consta
   float* rows = sh;
   float* ring = rows + L.rows;
   float* carry = ring + L.ring;  // the forward's carries, the backward's log-beta: [i NT + tid]
-  float* part = carry + L.carry;  // max at [s GD + q], sum at [KS GD + s GD + q]
+  float* part = carry + L.carry;  // max at [s GD + q], sum at [KS GD + s GD + q] (the Viterbi: best, source)
   int* lo = reinterpret_cast<int*>(part + L.part);
   int* cnt = lo + Db;
   int* width = cnt + Db;
@@ -1129,11 +964,11 @@ __global__ void __launch_bounds__(MAXT) lattice_group_kernel(const __grid_consta
   float* ltr = reinterpret_cast<float*>(lo) + L.ints;
   const float* g = p.lt + (p.per_row ? (size_t)b0 * S * S : 0);
 
-  // the group's lengths and frames: the forward takes frame 0 always
+  // the group's lengths and frames: the forward and the Viterbi take frame 0 always
   int tg = 0;
   for (int u = 0; u < G; ++u) {
     const int n = b0 + u < B ? min(p.lengths[b0 + u], T) : 0;
-    tg = max(tg, KIND == kForwardKind ? max(1, n) : n);
+    tg = max(tg, KIND != kBackwardKind ? max(1, n) : n);
     if (tid == 0) glen[u] = b0 + u < B ? p.lengths[b0 + u] : 0;
   }
   const int n_steps = tg;  // step s: the forward's frame s; the backward's row tg - 1 - s
@@ -1223,7 +1058,72 @@ __global__ void __launch_bounds__(MAXT) lattice_group_kernel(const __grid_consta
     const int t = frame_of(s);
     const float* x = rows + (size_t)((s + 1) & 1) * G * RP;  // the row step s - 1 wrote
     float* xn = rows + (size_t)(s & 1) * G * RP;
-    if (s >= 1 && !packed) {
+    if constexpr (KIND == kViterbiKind) {
+      if (s >= 1 && !packed) {
+        // the register tile's (best, source) over the share's sources of
+        // every tile, ascending, by a strict >
+        float best[UT][4];
+        int arg[UT][4];
+#pragma unroll
+        for (int a = 0; a < UT; ++a)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) best[a][c] = -INFINITY, arg[a][c] = 0;
+        for (int j = 0; j + 1 < kGroupStages && j < n_tiles; ++j) issue_tile(j);
+        for (int j = 0; j < n_tiles; ++j) {
+          if (j + 1 < n_tiles) {
+            cp_async_wait<kGroupStages - 2>();
+          } else {
+            cp_async_wait<0>();
+          }
+          __syncthreads();  // tile j is in; tile j - 1's slot is free
+          if (j + kGroupStages - 1 < n_tiles) issue_tile(j + kGroupStages - 1);
+          if (!unit) continue;
+          for (int ch = 0; ch < SP; ch += kGroupChunk) {
+            const int r0 = ks * SP + ch, i0 = j * KT + r0;  // the chunk's first source in the tile and in the row
+            const float* st = ltr + (size_t)(j % kGroupStages) * KT * Db + (size_t)r0 * Db + 4 * kg;
+            float4 a[kGroupChunk];
+#pragma unroll
+            for (int q = 0; q < kGroupChunk; ++q) {
+              const float4 w = *reinterpret_cast<const float4*>(st + (size_t)q * Db);
+              a[q] = make_float4(fmaxf(w.x, kNegInf), fmaxf(w.y, kNegInf), fmaxf(w.z, kNegInf), fmaxf(w.w, kNegInf));
+            }
+            float xs[UT][kGroupChunk];
+#pragma unroll
+            for (int uu = 0; uu < UT; ++uu) {
+              const float* xr = x + (size_t)(ut * UT + uu) * RP + i0;
+              const float4 x0 = *reinterpret_cast<const float4*>(xr), x1 = *reinterpret_cast<const float4*>(xr + 4);
+              xs[uu][0] = x0.x, xs[uu][1] = x0.y, xs[uu][2] = x0.z, xs[uu][3] = x0.w;
+              xs[uu][4] = x1.x, xs[uu][5] = x1.y, xs[uu][6] = x1.z, xs[uu][7] = x1.w;
+            }
+#pragma unroll
+            for (int q = 0; q < kGroupChunk; ++q)
+#pragma unroll
+              for (int uu = 0; uu < UT; ++uu)
+#pragma unroll
+                for (int c = 0; c < 4; ++c) {
+                  const float v = xs[uu][q] + lane4(a[q], c);
+                  const bool up = v > best[uu][c];
+                  best[uu][c] = up ? v : best[uu][c];
+                  arg[uu][c] = up ? i0 + q : arg[uu][c];
+                }
+          }
+        }
+        if (unit) {
+          int* part_src = reinterpret_cast<int*>(part) + (size_t)KS * GD;
+#pragma unroll
+          for (int uu = 0; uu < UT; ++uu)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+              const int q = (ut * UT + uu) * Db + 4 * kg + c;
+              part[(size_t)ks * GD + q] = best[uu][c];
+              part_src[(size_t)ks * GD + q] = arg[uu][c];
+            }
+        }
+        __syncthreads();  // the partial pairs are in
+      } else {
+        cp_async_wait<kGroupRing - 1>();  // this thread's log b of step s
+      }
+    } else if (s >= 1 && !packed) {
       float m[UT][4], acc[UT][4];
 #pragma unroll
       for (int a = 0; a < UT; ++a)
@@ -1323,8 +1223,15 @@ __global__ void __launch_bounds__(MAXT) lattice_group_kernel(const __grid_consta
       const float lb = fmaxf(ring[((size_t)(s % kGroupRing) * PO + i) * NT + tid], kNegInf);
       const int len = glen[u];
       float v;
+      int bp = k;  // the Viterbi's backpointer: the identity at frame 0 and past the length
       if (s == 0) {
-        v = KIND == kForwardKind ? (k == 0 ? 0.f : kNegInf) + lb : (k == S - 1 ? 0.f : kNegInf);
+        v = KIND != kBackwardKind ? (k == 0 ? 0.f : kNegInf) + lb : (k == S - 1 ? 0.f : kNegInf);
+      } else if constexpr (KIND == kViterbiKind) {
+        int arg;
+        const float best = packed ? range_best(x + (size_t)u * RP, ltr + kk, Db, lo[kk], cnt[kk], S, arg)
+                                  : share_best(part, GD, KS, q, arg);
+        v = t < len ? fmaxf(best + lb, kNegInf) : carry[i * NT + tid];
+        bp = t < len ? arg : k;
       } else {
         float2 ms;
         if (packed) {
@@ -1345,8 +1252,9 @@ __global__ void __launch_bounds__(MAXT) lattice_group_kernel(const __grid_consta
       }
       carry[i * NT + tid] = v;
       if (layout == 0 && b < B) p.out[((size_t)t * S + k) * B + b] = v;
+      if (KIND == kViterbiKind && b < B) p.bptr[((size_t)b * T + t) * S + k] = bp;
       if (s + 1 < n_steps) {
-        const float xv = KIND == kForwardKind ? v : lb + v;
+        const float xv = KIND != kBackwardKind ? v : lb + v;
         float* dst = xn + (size_t)u * RP + k;
         if (C == 1) {
           *dst = xv;
@@ -1363,7 +1271,8 @@ __global__ void __launch_bounds__(MAXT) lattice_group_kernel(const __grid_consta
   }
 
   // the rows past the group's longest member (the forward repeats its last
-  // row, the backward keeps the initialization), or the final carries
+  // row, the backward keeps the initialization, the Viterbi's backpointers
+  // are the identity), or the final carries
   for (int i = 0; i < PO; ++i) {
     const int q = tid + i * NT;
     if (q >= GD) break;
@@ -1373,6 +1282,9 @@ __global__ void __launch_bounds__(MAXT) lattice_group_kernel(const __grid_consta
     if (k >= S || b >= B) continue;
     if (layout == 1) {
       p.out[(size_t)b * S + k] = carry[i * NT + tid];
+      if (KIND == kViterbiKind) {
+        for (int t = tg; t < T; ++t) p.bptr[((size_t)b * T + t) * S + k] = k;
+      }
       continue;
     }
     const float v = KIND == kForwardKind ? carry[i * NT + tid] : (k == S - 1 ? 0.f : kNegInf);
@@ -1411,7 +1323,9 @@ bool group_shape(int kind, const GroupParams& p, GroupFn& fn, size_t& smem) {
   const GroupLayout L = group_layout(S, G, C, p.NT, KS, p.SP);
   const int UT = group_utt_tile(G), units = (G / UT) * (L.Db / 4);
   smem = sizeof(float) * group_floats(L, p.lt_cap);
-  fn = kind == kForwardKind ? group_kernel_for<kForwardKind>(UT, p.NT) : group_kernel_for<kBackwardKind>(UT, p.NT);
+  fn = kind == kForwardKind    ? group_kernel_for<kForwardKind>(UT, p.NT)
+       : kind == kBackwardKind ? group_kernel_for<kBackwardKind>(UT, p.NT)
+                               : group_kernel_for<kViterbiKind>(UT, p.NT);
   return (C - 1) * L.Db < S && p.NT % 32 == 0 && units * KS <= p.NT && p.NT <= kGroupMaxThreads &&
          L.PO <= kGroupMaxOwned && p.lt_cap % 4 == 0 && (size_t)p.lt_cap >= L.tiles && smem <= kSmemLimit;
 }
@@ -1480,23 +1394,21 @@ extern "C" {
 // Pointers are device pointers; lengths int32 (B,), lt float32 (S, S) or,
 // for the forward with per_row, (B, S, S).  G utterances a warp, U = 4 G a
 // block and TT frames a tile from ops/kernels/lattice.py forward_block /
-// backward_block / viterbi_block (up to kMaxStates states); rec and lt_cap
-// are 0 there.  Past kMaxStates the forward and backward take
-// srhmm_lattice_group, the Viterbi its block-wide mode: G = 0, U = 1, rec
-// recursion threads and lt_cap floats of transitions (block_floats).
+// backward_block / viterbi_block (up to kMaxStates states).  Past
+// kMaxStates the forward and backward take srhmm_lattice_group, the Viterbi
+// the same group mode through srhmm_viterbi.
 
 // The forward kernel, up to kMaxStates states.  layout 0: log b (T, S, B)
 // contiguous, out the (T, S, B) lattice; layout 1: log b (B, T, S)
 // contiguous, out the final carries (B, S).  vec: 16-byte copies (U and
 // B, or T S and TT S, multiples of 4, log b and out 16-byte aligned).
 int srhmm_lattice_forward(const void* log_b, const void* lt, int per_row, const void* lengths, void* out,
-                          int layout, int T, int S, int B, int G, int U, int TT, int vec, int rec, int lt_cap,
-                          int device, void* stream) {
+                          int layout, int T, int S, int B, int G, int U, int TT, int vec, int device, void* stream) {
   if (layout != 0 && layout != 1) return (int)cudaErrorInvalidValue;
   const bool vec_ok = aligned16(log_b, out) && (layout ? (T * S % 4 == 0 && TT * S % 4 == 0) : (U % 4 == 0 && B % 4 == 0));
   const Params p{static_cast<const float*>(log_b), static_cast<const float*>(lt), static_cast<const int*>(lengths),
-                 static_cast<float*>(out), per_row, layout, T, S, B, G, U, TT, vec, nullptr, 0, 0};
-  if (S < 1 || S > kMaxStates || rec != 0 || lt_cap != 0 || (p.vec && !vec_ok)) return (int)cudaErrorInvalidValue;
+                 static_cast<float*>(out), per_row, layout, T, S, B, G, U, TT, vec, nullptr};
+  if (S < 1 || S > kMaxStates || (p.vec && !vec_ok)) return (int)cudaErrorInvalidValue;
   return launch_lanes(forward_kernel_for(S), kFwdThreads, p, forward_floats(S, U, TT, layout, per_row), vec_ok, device, stream);
 }
 
@@ -1504,11 +1416,11 @@ int srhmm_lattice_forward(const void* log_b, const void* lt, int per_row, const 
 // contiguous, out the (T, S, B) lattice; vec: 16-byte copies and stores (U
 // and B multiples of 4, log b and out 16-byte aligned).
 int srhmm_lattice_backward(const void* log_b, const void* lt, const void* lengths, void* out, int T, int S, int B,
-                           int G, int U, int TT, int vec, int rec, int lt_cap, int device, void* stream) {
+                           int G, int U, int TT, int vec, int device, void* stream) {
   const bool vec_ok = aligned16(log_b, out) && U % 4 == 0 && B % 4 == 0;
   const Params p{static_cast<const float*>(log_b), static_cast<const float*>(lt), static_cast<const int*>(lengths),
-                 static_cast<float*>(out), 0, 0, T, S, B, G, U, TT, vec, nullptr, 0, 0};
-  if (S < 1 || S > kMaxStates || rec != 0 || lt_cap != 0 || (p.vec && !vec_ok)) return (int)cudaErrorInvalidValue;
+                 static_cast<float*>(out), 0, 0, T, S, B, G, U, TT, vec, nullptr};
+  if (S < 1 || S > kMaxStates || (p.vec && !vec_ok)) return (int)cudaErrorInvalidValue;
   return launch_lanes(backward_kernel_for(S), kFwdThreads, p, forward_floats(S, U, TT, 0, 0), vec_ok, device, stream);
 }
 
@@ -1527,15 +1439,17 @@ int srhmm_lattice_group(int kind, const void* log_b, const void* lt, int per_row
   }
   const int vec = S % 4 == 0 && reinterpret_cast<uintptr_t>(lt) % 16 == 0;
   const GroupParams p{static_cast<const float*>(log_b), static_cast<const float*>(lt), static_cast<const int*>(lengths),
-                      static_cast<float*>(out), per_row, layout, T, S, B, G, C, NT, KS, SP, lt_cap, vec};
+                      static_cast<float*>(out), nullptr, per_row, layout, T, S, B, G, C, NT, KS, SP, lt_cap, vec};
   return launch_group(kind, p, device, stream);
 }
 
-// Clusters of the group mode's shape that the card runs at once
-// (cudaOccupancyMaxActiveClusters) into *clusters; 0 or a CUDA error code.
+// Clusters of the group mode's shape (kind 0 the forward, 1 the backward,
+// 2 the Viterbi) that the card runs at once (cudaOccupancyMaxActiveClusters)
+// into *clusters; 0 or a CUDA error code.
 int srhmm_lattice_group_clusters(int kind, int S, int B, int G, int C, int NT, int KS, int SP, int lt_cap, int device,
                                  int* clusters) {
-  const GroupParams p{nullptr, nullptr, nullptr, nullptr, 0, 0, 1, S, B, G, C, NT, KS, SP, lt_cap, 0};
+  if (kind != kForwardKind && kind != kBackwardKind && kind != kViterbiKind) return (int)cudaErrorInvalidValue;
+  const GroupParams p{nullptr, nullptr, nullptr, nullptr, nullptr, 0, 0, 1, S, B, G, C, NT, KS, SP, lt_cap, 0};
   GroupFn fn;
   size_t smem;
   if (!group_shape(kind, p, fn, smem)) return (int)cudaErrorInvalidValue;
@@ -1561,16 +1475,29 @@ int srhmm_lattice_group_clusters(int kind, int S, int B, int G, int C, int NT, i
   return (int)cudaOccupancyMaxActiveClusters(clusters, reinterpret_cast<const void*>(fn), &cfg);
 }
 
-// The Viterbi kernel: log b (B, T, S) contiguous, scores (B, S), bptr
-// int32 (B, T, S); vec: 16-byte copies and stores (T S and TT S multiples
-// of 4, log b and bptr 16-byte aligned).
+// The Viterbi: log b (B, T, S) contiguous, scores (B, S), bptr int32 (B,
+// T, S).  Up to kMaxStates states the lane kernel: G, U, TT and vec (16-byte
+// copies and stores: T S and TT S multiples of 4, log b and bptr 16-byte
+// aligned), C, NT, KS, SP and lt_cap 0.  Past them, up to kMaxBlockStates,
+// the group mode's kViterbiKind: G utterances a cluster of C blocks of NT
+// threads, KS source shares of SP a tile, lt_cap floats of transitions
+// (ops/kernels/lattice.py viterbi_block), U, TT and vec 0.
 int srhmm_viterbi(const void* log_b, const void* lt, const void* lengths, void* scores, void* bptr, int T, int S,
-                  int B, int G, int U, int TT, int vec, int rec, int lt_cap, int device, void* stream) {
+                  int B, int G, int U, int TT, int vec, int C, int NT, int KS, int SP, int lt_cap, int device,
+                  void* stream) {
+  if (S < 1 || S > kMaxBlockStates) return (int)cudaErrorInvalidValue;
+  if (S > kMaxStates) {
+    if (U != 0 || TT != 0 || vec != 0) return (int)cudaErrorInvalidValue;
+    const int lt_vec = S % 4 == 0 && reinterpret_cast<uintptr_t>(lt) % 16 == 0;
+    const GroupParams p{static_cast<const float*>(log_b), static_cast<const float*>(lt),
+                        static_cast<const int*>(lengths), static_cast<float*>(scores), static_cast<int*>(bptr),
+                        0, 1, T, S, B, G, C, NT, KS, SP, lt_cap, lt_vec};
+    return launch_group(kViterbiKind, p, device, stream);
+  }
   const bool vec_ok = aligned16(log_b, bptr) && T * S % 4 == 0 && TT * S % 4 == 0;
-  Params p{static_cast<const float*>(log_b), static_cast<const float*>(lt), static_cast<const int*>(lengths),
-           static_cast<float*>(scores), 0, 1, T, S, B, G, U, TT, vec, static_cast<int*>(bptr), rec, lt_cap};
-  if (S < 1 || S > kMaxBlockStates || (p.vec && !vec_ok)) return (int)cudaErrorInvalidValue;
-  if (S > kMaxStates) return launch_viterbi_block(p, device, stream);
+  const Params p{static_cast<const float*>(log_b), static_cast<const float*>(lt), static_cast<const int*>(lengths),
+                 static_cast<float*>(scores), 0, 1, T, S, B, G, U, TT, vec, static_cast<int*>(bptr)};
+  if (C != 0 || NT != 0 || KS != 0 || SP != 0 || lt_cap != 0 || (p.vec && !vec_ok)) return (int)cudaErrorInvalidValue;
   return launch_lanes(viterbi_kernel_for(S), kVitThreads, p, viterbi_floats(S, U, TT), vec_ok, device, stream);
 }
 

@@ -26,8 +26,10 @@ from __future__ import annotations
 import torch
 
 from .common import NEG_INF, aligned16, check_launch, device_args, on_cpu, sm_count
-from .lattice import (LatticeLaunch, _clamped, _start, forward_copies_16, forward_launch, forward_recursion,
-                      kernel_library, shape_args, viterbi_block)
+from .lattice import (LANE_STATES, LatticeLaunch, _clamped, _start, forward_copies_16, forward_launch,
+                      forward_recursion, kernel_library, viterbi_args, viterbi_block)
+
+VITERBI_PLAIN_FLOATS = 1 << 26  # candidates (B x S sources x destinations) the twin forms at once
 
 
 def log_forward_batch_plain(log_b, log_trans, lengths):
@@ -38,10 +40,42 @@ def log_forward_batch_plain(log_b, log_trans, lengths):
     return carry.T.contiguous()
 
 
-def viterbi_batch_plain(log_b, log_trans, lengths):
+def _best_sources_loop(carry, lt):
+    """(B, S) scores and clamped (S, S) log transitions -> each destination's
+    best candidate score + transition and its source, by a strict > from
+    source 0 (ties to the lowest source)."""
+    cand = carry[:, :, None] + lt  # (B, from, to)
+    best = cand[:, 0]
+    arg = torch.zeros(best.shape, dtype=torch.int32, device=carry.device)
+    for i in range(1, lt.shape[0]):
+        better = cand[:, i] > best
+        best = torch.where(better, cand[:, i], best)
+        arg = torch.where(better, i, arg)
+    return best, arg
+
+
+def _best_sources(carry, lt):
+    """_best_sources_loop's values vectorized over the sources: the max, then
+    the lowest source whose candidate equals it (which is the strict >
+    loop's, max-plus rounding once a candidate), in chunks of destinations
+    of at most VITERBI_PLAIN_FLOATS candidates."""
+    B, S = carry.shape
+    src = torch.arange(S, dtype=torch.int32, device=carry.device)[None, :, None]
+    step = max(1, VITERBI_PLAIN_FLOATS // max(B * S, 1))
+    bests, args = [], []
+    for j0 in range(0, S, step):
+        cand = carry[:, :, None] + lt[:, j0:j0 + step]  # (B, from, to)
+        best = cand.amax(1)
+        bests.append(best)
+        args.append(torch.where(cand == best[:, None], src, S).amin(1))
+    return torch.cat(bests, 1), torch.cat(args, 1)
+
+
+def viterbi_batch_plain(log_b, log_trans, lengths, loop: bool = False):
     """The viterbi_batch kernel's function in eager PyTorch: ((B, S)
     scores float32, (B, T, S) int32 backpointers).  The best source is
-    taken by a strict > from source 0, so ties go to the lowest."""
+    taken by a strict > from source 0, so ties go to the lowest: as that
+    loop (loop=True) or, by default, vectorized over the sources."""
     B, T, S = log_b.shape
     lb = _clamped(log_b)
     lt = _clamped(log_trans)
@@ -51,14 +85,9 @@ def viterbi_batch_plain(log_b, log_trans, lengths):
     carry = lb[:, 0] + _start(S, 0, dev)[:, 0]
     bptr = torch.empty((B, T, S), dtype=torch.int32, device=dev)
     bptr[:, 0] = idc
+    best_sources = _best_sources_loop if loop else _best_sources
     for t in range(1, T):
-        cand = carry[:, :, None] + lt  # (B, from, to)
-        best = cand[:, 0]
-        arg = torch.zeros((B, S), dtype=torch.int32, device=dev)
-        for i in range(1, S):
-            better = cand[:, i] > best
-            best = torch.where(better, cand[:, i], best)
-            arg = torch.where(better, i, arg)
+        best, arg = best_sources(carry, lt)
         new = torch.clamp(best + lb[:, t], min=NEG_INF)
         keep = lens > t
         bptr[:, t] = torch.where(keep, arg, idc)
@@ -97,11 +126,11 @@ def viterbi_batch(log_b, log_trans, lengths):
     blk = viterbi_block(ln.S, ln.B, sm_count(index))
     scores = ln.empty((ln.B, ln.S))
     bptr = ln.empty((ln.B, ln.T, ln.S), torch.int32)
-    vec = forward_copies_16(ln.S, ln.T, ln.B, blk, "bts")
+    vec = ln.S <= LANE_STATES and forward_copies_16(ln.S, ln.T, ln.B, blk, "bts")
     lb = aligned16(ln.log_b) if vec else ln.log_b
     check_launch(ln.name, kernel_library().srhmm_viterbi(
         lb.data_ptr(), ln.log_trans.data_ptr(), ln.lengths.data_ptr(), scores.data_ptr(), bptr.data_ptr(), ln.T, ln.S,
-        ln.B, *shape_args(blk, vec), index, stream))
+        ln.B, *viterbi_args(blk, vec), index, stream))
     viterbi_batch.launches += 1
     return scores, bptr
 

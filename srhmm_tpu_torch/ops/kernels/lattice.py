@@ -23,13 +23,12 @@ last-row mode and the Viterbi kernel of ops/kernels/forward.py; the three
 kernels share a launch shape (``_lane_block``: an utterance's states on
 adjacent lanes, four recursion warps and a memory warp a block, two for the
 Viterbi) up to LANE_STATES = 64 states.  Past them, up to MAX_STATES =
-4096 (the wrappers refuse more), the forward and backward run the group
-mode (``group_block``: a group of utterances a cluster of blocks, each
-block owning a slice of the states for the whole group, the previous row
-shared through distributed shared memory, the transitions packed or
-streamed in tiles that serve the whole group), the Viterbi its block-wide
-mode (``_viterbi_wide_block``: one utterance a block, its states spread
-over up to 512 recursion threads).
+4096 (the wrappers refuse more), all three run the group mode
+(``group_block``: a group of utterances a cluster of blocks, each block
+owning a slice of the states for the whole group, the previous row shared
+through distributed shared memory, the transitions packed or streamed in
+tiles that serve the whole group; the Viterbi its max-plus kind, its shape
+from ``viterbi_block``).
 """
 
 from __future__ import annotations
@@ -42,16 +41,18 @@ import torch
 from .common import NEG_INF, SMEM_LIMIT, aligned16, check_launch, device_args, on_cpu, require_float32, sm_count
 
 LANE_STATES = 64  # csrc/lattice.cu kMaxStates: the lane path
-MAX_STATES = 4096  # csrc/lattice.cu kMaxBlockStates: the group and block-wide modes
-BLOCK_REC = 512  # csrc/lattice.cu kBlockRec: a block-wide Viterbi block's recursion threads at most
-BLOCK_BAND = 32  # diagonals the block-wide Viterbi's tile choice leaves room for in shared memory
-# csrc/lattice.cu's group mode (the forward and backward past LANE_STATES)
+MAX_STATES = 4096  # csrc/lattice.cu kMaxBlockStates: the group mode
+# csrc/lattice.cu's group mode (the three kernels past LANE_STATES)
 GROUP_CLUSTERS = (1, 2, 4, 8, 16)  # blocks a cluster (16: the non-portable size)
 # clusters of each size an H100 (132 SMs) runs at once at one block an SM: its
 # GPCs hold 7 of 16, 15 of 8, 30 of 4 (cudaOccupancyMaxActiveClusters through
-# srhmm_lattice_group_clusters, NVIDIA H100 80GB HBM3)
+# srhmm_lattice_group_clusters, NVIDIA H100 80GB HBM3), the same for the
+# forward's instances and the Viterbi's at their shapes
 GROUP_CLUSTERS_AT_ONCE = {1: 132, 2: 66, 4: 30, 8: 15, 16: 7}
 GROUP_SFU_EXPS_PER_S = 16 * 1.755e9  # an SM's exponentials a second (MUFU.EX2, 16 a clock)
+# an SM's Viterbi steps a second: an add, a compare and two selects a (source,
+# key, utterance), at 128 lanes' instructions a clock
+GROUP_MAXPLUS_PER_S = 128 / 4 * 1.755e9
 GROUP_L2_BYTES_PER_S = 5.5e12  # the card's L2 reads a second (an estimate): the dense tiles' source
 GROUP_RING = 8  # kGroupRing: frames of log b an owner keeps in flight
 GROUP_STAGES = 2  # kGroupStages: transition tiles in flight (the streamed route)
@@ -139,14 +140,14 @@ def kernel_library() -> ctypes.CDLL:
     lib = load_library()
     c_int, c_ptr = ctypes.c_int, ctypes.c_void_p
     lib.srhmm_lattice_forward.restype = c_int
-    # log_b lt per_row lengths out, layout T S B G U TT vec rec lt_cap device, stream
-    lib.srhmm_lattice_forward.argtypes = [c_ptr, c_ptr, c_int, c_ptr, c_ptr] + [c_int] * 11 + [c_ptr]
+    # log_b lt per_row lengths out, layout T S B G U TT vec device, stream
+    lib.srhmm_lattice_forward.argtypes = [c_ptr, c_ptr, c_int, c_ptr, c_ptr] + [c_int] * 9 + [c_ptr]
     lib.srhmm_lattice_backward.restype = c_int
-    # log_b lt lengths out, T S B G U TT vec rec lt_cap device, stream
-    lib.srhmm_lattice_backward.argtypes = [c_ptr] * 4 + [c_int] * 10 + [c_ptr]
+    # log_b lt lengths out, T S B G U TT vec device, stream
+    lib.srhmm_lattice_backward.argtypes = [c_ptr] * 4 + [c_int] * 8 + [c_ptr]
     lib.srhmm_viterbi.restype = c_int
-    # log_b lt lengths scores bptr, T S B G U TT vec rec lt_cap device, stream
-    lib.srhmm_viterbi.argtypes = [c_ptr] * 5 + [c_int] * 10 + [c_ptr]
+    # log_b lt lengths scores bptr, T S B G U TT vec C NT KS SP lt_cap device, stream
+    lib.srhmm_viterbi.argtypes = [c_ptr] * 5 + [c_int] * 13 + [c_ptr]
     lib.srhmm_lattice_group.restype = c_int
     # kind, log_b lt, per_row, lengths out, layout T S B G C NT KS SP lt_cap device, stream
     lib.srhmm_lattice_group.argtypes = [c_int, c_ptr, c_ptr, c_int, c_ptr, c_ptr] + [c_int] * 11 + [c_ptr]
@@ -203,40 +204,6 @@ def viterbi_smem_bytes(S: int, U: int, TT: int) -> int:
 
 def _r4(n: int) -> int:
     return -(-n // 4) * 4
-
-
-def viterbi_wide_smem_bytes(S: int, TT: int, lt_cap: int) -> int:
-    """csrc/lattice.cu block_floats: the block-wide Viterbi's shared memory:
-    two rows of S; log b in two slots of a run of TT S at a pitch rounded up
-    to 4, + 4; the backpointers in two slots of the same run; lo, cnt and
-    the width, 2 S + 1 ints; lt_cap floats of transitions; each region a
-    multiple of 4 floats."""
-    run = _r4(TT * S) + 4
-    return 4 * (_r4(2 * S) + 4 * run + _r4(2 * S + 1) + lt_cap)
-
-
-def _viterbi_wide_block(S: int, B: int) -> dict:
-    """The block-wide Viterbi's launch shape past LANE_STATES states: one
-    utterance a block, rec = S rounded up to whole warps (at most BLOCK_REC)
-    recursion threads of ceil(S / rec) states each and a memory warp; TT the
-    largest of FORWARD_TILES whose block leaves room for the dense
-    transitions or BLOCK_BAND diagonals, whichever is less (else the largest
-    that fits at all), and lt_cap the floats of transitions the rest of
-    SMEM_LIMIT holds (at most S S rounded up to 4, a multiple of 4): the
-    kernel packs its ranges there when they fit, else reads them through
-    L2."""
-    if not LANE_STATES < S <= MAX_STATES:
-        raise ValueError(f"viterbi kernel: 1 to {MAX_STATES} states, got {S}")
-    rec = min(BLOCK_REC, -(-S // 32) * 32)
-    room = 4 * min(S * S, BLOCK_BAND * S)
-    fits = [tt for tt in FORWARD_TILES if viterbi_wide_smem_bytes(S, tt, 0) <= SMEM_LIMIT]
-    if not fits:
-        raise ValueError(f"viterbi kernel: no tile of S={S} fits {SMEM_LIMIT} bytes")
-    TT = next((tt for tt in fits if viterbi_wide_smem_bytes(S, tt, 0) + room <= SMEM_LIMIT), fits[-1])
-    base = viterbi_wide_smem_bytes(S, TT, 0)
-    lt_cap = min(_r4(S * S), (SMEM_LIMIT - base) // 16 * 4)
-    return {"mode": "block", "utts_per_warp": 0, "utts": 1, "rec_threads": rec, "states_per_thread": -(-S // rec),
-            "tile": TT, "lt_cap": lt_cap, "blocks": B, "smem_bytes": base + 4 * lt_cap}
 
 
 def group_regions(S: int, G: int, C: int, NT: int, KS: int, SP: int) -> dict:
@@ -307,23 +274,25 @@ def group_shape(S: int, G: int, C: int) -> dict | None:
             "smem_bytes": 4 * (reg["rows"] + reg["ring"] + reg["carry"] + reg["partials"] + reg["ints"] + lt_cap)}
 
 
-def group_block(S: int, B: int, per_row: bool = False, sms: int = 132) -> dict:
-    """The group-mode launch shape of csrc/lattice.cu's forward and backward
-    past LANE_STATES states: G utterances a cluster of C blocks, each block
-    owning Db keys of all G.  Up to SINGLE_BLOCK_STATES states one block
-    takes every key (C = 1: the whole matrix packs beside the rows); past
-    them C is one of GROUP_CLUSTERS.  For each C, G = ceil(B / n) fills the
-    card in one wave of one block an SM, n the clusters of C the card runs
-    at once (GROUP_CLUSTERS_AT_ONCE, at most sms // C); G = 1 for per-row
-    transitions (nothing is shared); G is lowered while the block does not
-    fit.  The shape kept has the least frame time over its waves, a frame
-    taking the longer of a block's exponentials (G Db S at
-    GROUP_SFU_EXPS_PER_S) and the L2 reads of the groups that run at once
+def group_block(S: int, B: int, per_row: bool = False, sms: int = 132, viterbi: bool = False) -> dict:
+    """The group-mode launch shape of csrc/lattice.cu's forward, backward
+    and (viterbi) Viterbi past LANE_STATES states: G utterances a cluster of
+    C blocks, each block owning Db keys of all G.  Up to SINGLE_BLOCK_STATES
+    states one block takes every key (C = 1: the whole matrix packs beside
+    the rows); past them C is one of GROUP_CLUSTERS.  For each C, G = ceil(B
+    / n) fills the card in one wave of one block an SM, n the clusters of C
+    the card runs at once (GROUP_CLUSTERS_AT_ONCE, at most sms // C); G = 1
+    for per-row transitions (nothing is shared); G is lowered while the
+    block does not fit.  The shape kept has the least frame time over its waves, a frame
+    taking the longer of a block's G Db S (source, key, utterance) steps
+    (exponentials at GROUP_SFU_EXPS_PER_S; the Viterbi's max-plus steps at
+    GROUP_MAXPLUS_PER_S) and the L2 reads of the groups that run at once
     (each streams the S x S matrix a frame, at GROUP_L2_BYTES_PER_S: past
     SINGLE_BLOCK_STATES the rule takes the transitions as dense), then the
     fewest groups."""
     if not LANE_STATES < S <= MAX_STATES:
         raise ValueError(f"lattice group kernel: {LANE_STATES + 1} to {MAX_STATES} states, got {S}")
+    rate = GROUP_MAXPLUS_PER_S if viterbi else GROUP_SFU_EXPS_PER_S
     best = None
     for C in (1,) if S <= SINGLE_BLOCK_STATES else GROUP_CLUSTERS:
         at_once = max(min(GROUP_CLUSTERS_AT_ONCE[C], sms // C), 1)
@@ -335,7 +304,7 @@ def group_block(S: int, B: int, per_row: bool = False, sms: int = 132) -> dict:
         if sh is None:
             continue
         groups = -(-B // G)
-        frame = max(G * sh["keys"] * S / GROUP_SFU_EXPS_PER_S, min(groups, at_once) * 4 * S * S / GROUP_L2_BYTES_PER_S)
+        frame = max(G * sh["keys"] * S / rate, min(groups, at_once) * 4 * S * S / GROUP_L2_BYTES_PER_S)
         cost = (-(-groups // at_once) * frame, groups)
         if best is None or cost < best[0]:
             best = (cost, {**sh, "mode": "group", "groups": groups, "blocks": groups * C})
@@ -390,22 +359,31 @@ def backward_block(S: int, B: int, sms: int = 132) -> dict:
 
 def viterbi_block(S: int, B: int, sms: int = 132) -> dict:
     """The launch shape of csrc/lattice.cu's Viterbi kernel (_lane_block,
-    viterbi_smem_bytes, VITERBI_MEMORY_WARPS; past LANE_STATES states
-    _viterbi_wide_block)."""
+    viterbi_smem_bytes, VITERBI_MEMORY_WARPS; past LANE_STATES states the
+    group mode's max-plus kind, group_block(viterbi=True))."""
     if S > LANE_STATES:
-        return _viterbi_wide_block(S, B)
+        return group_block(S, B, False, sms, viterbi=True)
     return _lane_block("Viterbi", S, B, lambda U, tt: viterbi_smem_bytes(S, U, tt), sms, VITERBI_MEMORY_WARPS)
 
 
 def shape_args(blk: dict, vec: bool) -> list[int]:
-    """The lane and Viterbi launchers' shape arguments G, U, TT, vec, rec,
-    lt_cap (rec and lt_cap 0 on the lane path)."""
-    return [blk["utts_per_warp"], blk["utts"], blk["tile"], int(vec), blk.get("rec_threads", 0), blk.get("lt_cap", 0)]
+    """The lane launchers' shape arguments G, U, TT, vec."""
+    return [blk["utts_per_warp"], blk["utts"], blk["tile"], int(vec)]
 
 
 def group_args(blk: dict) -> list[int]:
     """srhmm_lattice_group's shape arguments G, C, NT, KS, SP, lt_cap."""
     return [blk["utts"], blk["cluster"], blk["threads"], blk["splits"], blk["share"], blk["lt_cap"]]
+
+
+def viterbi_args(blk: dict, vec: bool) -> list[int]:
+    """srhmm_viterbi's shape arguments G, U, TT, vec, C, NT, KS, SP, lt_cap:
+    the lane path's first four (shape_args), the group mode's G and the
+    last five past LANE_STATES."""
+    if blk.get("mode") == "group":
+        G, *rest = group_args(blk)
+        return [G, 0, 0, 0, *rest]
+    return [*shape_args(blk, vec), 0, 0, 0, 0, 0]
 
 
 def forward_copies_16(S: int, T: int, B: int, blk: dict, layout: str) -> bool:

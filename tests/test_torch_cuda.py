@@ -1359,7 +1359,7 @@ def test_timed_waits_for_the_card(cuda_device):
 
 # ---------------------------------------------------------------------------
 # the shapes past the lane path: the lattice kernels past 64 states (the
-# group mode and the block-wide Viterbi of csrc/lattice.cu), full covariance past D = 16
+# group mode of csrc/lattice.cu, the Viterbi its max-plus kind), full covariance past D = 16
 # (csrc/fused_em.cu, csrc/composed.cu), and the shapes before them bitwise
 # the parent's (tests/torch_lane_digests.py)
 # ---------------------------------------------------------------------------
@@ -1375,9 +1375,9 @@ from torch_port_utils import (  # noqa: E402
 @pytest.mark.parametrize("i", range(len(WIDE_LATTICE_CASES)))
 def test_wide_lattice_kernels_match_plain(cuda_device, i):
     """#15-#20 at every case of WIDE_LATTICE_CASES against their twins:
-    lattices and scores within 1e-5 (equal masks), backpointers equal (the
-    Viterbi twin on its first 40000 // S frames), two launches bitwise
-    equal, the blocked wrappers bitwise the unblocked."""
+    lattices and scores within 1e-5 (equal masks), backpointers equal over
+    the whole T, two launches bitwise equal, the blocked wrappers bitwise
+    the unblocked."""
     from srhmm_tpu_torch.ops.kernels import forward as kf
     from srhmm_tpu_torch.ops.kernels import lattice as kl
 
@@ -1396,16 +1396,16 @@ def test_wide_lattice_kernels_match_plain(cuda_device, i):
         got = kf.log_forward_batch(lb_bts, trans, lengths)
         assert torch.equal(got, kf.log_forward_batch(lb_bts, trans, lengths))
         _lattice_close(got, kf.log_forward_batch_plain(lb_bts, trans, lengths))
-    cut = lb_bts[:, : max(1, 40000 // S)].contiguous()
-    sc, bp = kf.viterbi_batch(cut, lt, lengths)
-    sc_p, bp_p = kf.viterbi_batch_plain(cut, lt, lengths)
-    assert torch.equal(bp, bp_p) and torch.equal(bp, kf.viterbi_batch(cut, lt, lengths)[1])
+    sc, bp = kf.viterbi_batch(lb_bts, lt, lengths)
+    sc_p, bp_p = kf.viterbi_batch_plain(lb_bts, lt, lengths)
+    assert torch.equal(bp, bp_p) and torch.equal(bp, kf.viterbi_batch(lb_bts, lt, lengths)[1])
     _lattice_close(sc, sc_p)
 
 
 def test_block_viterbi_ties_go_to_the_lowest_source(cuda_device):
     """S = 96 with states 40 and 41 duplicated: the candidates from them tie
-    exactly, and the block-wide kernel keeps the lower, as the twin."""
+    exactly, and the group mode's Viterbi (the packed route) keeps the
+    lower, as the twin."""
     from srhmm_tpu_torch.ops.kernels import forward as kf
 
     S, T = 96, 60
@@ -1424,6 +1424,26 @@ def test_block_viterbi_ties_go_to_the_lowest_source(cuda_device):
     live = torch.arange(T, device=cuda_device)[None, :] < lengths[:, None].long()
     live[:, 0] = False  # row 0 and rows past a length are the identity
     assert bool((bp[live] == 40).any()) and not bool((bp[live] == 41).any())
+
+
+def test_group_viterbi_ties_across_shares_go_to_the_lowest_source(cuda_device):
+    """S = 1024 dense (the streamed route, chip_smoke.TIE_STREAMED: 16-block
+    clusters of 10 utterances, a ragged last group) with state 40
+    duplicated in its chunk, its share, the next share and in lower shares
+    of later tiles (chip_smoke.tie_duplicates), 6 higher in log b: every
+    candidate from them ties exactly, and the kernel keeps state 40 as the
+    twin does, the scores equal."""
+    import chip_smoke as cs
+    from srhmm_tpu_torch.ops.kernels import forward as kf
+
+    lb, lt, _, lengths, _ = cs.wide_lattice_inputs(torch)["tie_streamed"]
+    sc, bp = kf.viterbi_batch(lb, lt, lengths)
+    sc_p, bp_p = kf.viterbi_batch_plain(lb, lt, lengths)
+    assert torch.equal(bp, bp_p) and torch.equal(sc, sc_p)
+    live = torch.arange(lb.shape[1], device=cuda_device)[None, :] < lengths[:, None].long()
+    live[:, 0] = False
+    dups = torch.as_tensor(cs.tie_duplicates(*cs.TIE_STREAMED[:2]), dtype=bp.dtype, device=cuda_device)
+    assert bool((bp[live] == cs.TIE_BASE).any()) and not bool(torch.isin(bp[live], dups).any())
 
 
 @pytest.mark.parametrize("band", [1, None])

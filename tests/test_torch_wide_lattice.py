@@ -1,8 +1,8 @@
 """The lattice kernels past 64 states against the JAX package, on the CPU.
 
-Past 64 states csrc/lattice.cu runs its group mode (the forward and
-backward: a group of utterances a cluster of blocks) and its block-wide
-Viterbi (one utterance a block); the wrappers run their plain twins here.
+Past 64 states csrc/lattice.cu runs its group mode (a group of utterances a
+cluster of blocks; the Viterbi its max-plus kind); the wrappers run their
+plain twins here.
 The same numpy inputs go through srhmm_tpu's Pallas kernels in interpret
 mode at S = 65, 96 and 130 (banded, dense and spread: a state whose only
 sources sit more than 100 nats below its row's maximum; rows of length 0
@@ -17,11 +17,12 @@ these kernels), backpointers and backtraces equal, a duplicated-state tie
 going to the lowest source.  e_step_lane_major(lattices="pallas") at S = 96
 against JAX's (rtol 2e-3, atol 2e-4 max, log prob rtol 1e-5: the fused
 float32 statistics bound of tests/test_pallas_kernels.py).  The launch
-shapes (group_block, _viterbi_wide_block) at every S of
+shapes (group_block, and viterbi_block's max-plus rule) at every S of
 torch_port_utils.WIDE_LATTICE_CASES and beyond, their shared memory
-re-derived here from csrc/lattice.cu's group_layout and block_floats, every
-key owned by one block of its cluster; the wrappers' refusal past
-MAX_STATES on meta tensors.  The CUDA kernels are held against the twins on
+re-derived here from csrc/lattice.cu's group_layout, every key owned by
+one block of its cluster; the wrappers' refusal past MAX_STATES on meta
+tensors.  The Viterbi twin vectorized over the sources (the default)
+bitwise its strict > loop, ties and states not yet reachable included.  The CUDA kernels are held against the twins on
 the card (tests/test_torch_cuda.py, chip_smoke.py).
 """
 
@@ -142,15 +143,6 @@ def test_lane_major_pallas_lattices_match_jax_past_64_states():
     assert float(got.num_valid) == float(ref.num_valid)
 
 
-def _viterbi_floats(S, TT, lt_cap):
-    """csrc/lattice.cu block_floats, written out again: rows 2 S, log b two
-    runs, the backpointers two runs, 2 S + 1 ints, each rounded up to 4,
-    and the transitions."""
-    r4 = lambda n: -(-n // 4) * 4  # noqa: E731
-    run = r4(TT * S) + 4  # forward_run_pitch: a run of TT S floats at a pitch rounded up to 4, + 4
-    return r4(2 * S) + 4 * run + r4(2 * S + 1) + lt_cap
-
-
 def _group_floats(S, G, C, NT, KS, SP, lt_cap):
     """csrc/lattice.cu group_layout and group_floats, written out again:
     keys ceil(S / C) rounded up to 4, two rows of G utterances at the
@@ -169,28 +161,24 @@ WIDE_S = sorted({65, 66, 95, 96, 127, 128, 129, 130, 257, 511, 512, 513, 1024, 2
 
 
 def test_wide_block_shapes_mirror_the_kernel():
-    """Every S of 65-4096 at B = 1, 37 and 2048: the forward's and the
-    backward's group shapes (G utterances, C blocks a cluster, NT threads:
-    the register tiles' towards 512 and at most 640 in a cluster, the pairs
-    over the fewest a thread within 1024 in one block; KS source shares of
-    SP, lt_cap) with shared memory as csrc/lattice.cu computes it and
-    within a block's limit, at least the streamed route's tiles of
-    transitions, one utterance a group for per-row transitions; the
-    Viterbi's block-wide shape as before: S rounded up to whole warps (at
-    most 512) recursion threads of at most 8 states each, a tile of
-    FORWARD_TILES, lt_cap a multiple of 4 within S S rounded up, the dense
-    matrix packed wherever it fits beside the largest tile; past MAX_STATES
-    every rule refuses."""
+    """Every S of 65-4096 at B = 1, 37 and 2048: the forward's, the
+    backward's and the Viterbi's group shapes (G utterances, C blocks a
+    cluster, NT threads: the register tiles' towards 512 and at most 640 in
+    a cluster, the pairs over the fewest a thread within 1024 in one block;
+    KS source shares of SP, lt_cap) with shared memory as csrc/lattice.cu
+    computes it and within a block's limit, at least the streamed route's
+    tiles of transitions, one utterance a group for per-row transitions;
+    past MAX_STATES every rule refuses."""
     for S in WIDE_S:
         for B in (1, 37, 2048):
             shapes = [kl.forward_block(S, B, "tsb"), kl.forward_block(S, B, "bts"), kl.backward_block(S, B),
-                      kl.forward_block(S, B, "bts", per_row=True)]
+                      kl.forward_block(S, B, "bts", per_row=True), kl.viterbi_block(S, B)]
             assert shapes[0] == shapes[1] == shapes[2]
             for i, sh in enumerate(shapes):
                 G, C, NT, KS, SP, cap = (sh[k] for k in ("utts", "cluster", "threads", "splits", "share", "lt_cap"))
                 UT = 2 if G % 2 == 0 else 1
                 units = (G // UT) * (sh["keys"] // 4)
-                assert sh["mode"] == "group" and sh["utt_tile"] == UT and (G == 1 or i < 3)
+                assert sh["mode"] == "group" and sh["utt_tile"] == UT and (G == 1 or i != 3)
                 assert KS & (KS - 1) == 0 and NT % 32 == 0
                 if C > 1:  # the register tiles aim at 512 threads, at most 640
                     assert NT == -(-units * KS // 32) * 32 <= 640 and (units * KS >= 512 or KS == 1)
@@ -203,18 +191,45 @@ def test_wide_block_shapes_mirror_the_kernel():
                 assert cap % 4 == 0 and cap >= 2 * SP * KS * sh["keys"]
                 assert sh["smem_bytes"] == 4 * _group_floats(S, G, C, NT, KS, SP, cap) <= kl.SMEM_LIMIT
                 assert sh["groups"] == -(-B // G) and sh["blocks"] == sh["groups"] * C
-        sh = kl.viterbi_block(S, 37)
-        rec, TT, cap = sh["rec_threads"], sh["tile"], sh["lt_cap"]
-        assert rec == min(512, -(-S // 32) * 32) and sh["states_per_thread"] == -(-S // rec) <= 8
-        assert (sh["utts"], sh["utts_per_warp"], sh["blocks"]) == (1, 0, 37) and TT in kl.FORWARD_TILES
-        assert cap % 4 == 0 and 0 < cap <= -(-S * S // 4) * 4
-        assert sh["smem_bytes"] == 4 * _viterbi_floats(S, TT, cap) <= kl.SMEM_LIMIT
-        if 4 * _viterbi_floats(S, kl.FORWARD_TILES[0], -(-S * S // 4) * 4) <= kl.SMEM_LIMIT:
-            assert TT == kl.FORWARD_TILES[0] and cap >= S * S
     for rule in (lambda S: kl.forward_block(S, 1, "tsb"), lambda S: kl.backward_block(S, 1),
                  lambda S: kl.viterbi_block(S, 1)):
         with pytest.raises(ValueError, match="4096"):
             rule(kl.MAX_STATES + 1)
+
+
+@pytest.mark.parametrize("B", [1, 37, 64, 2048])
+def test_viterbi_group_rule(B):
+    """viterbi_block past 64 states, at every S of WIDE_LATTICE_CASES: the
+    group mode's shape (its shared memory as csrc/lattice.cu's group_layout
+    computes it, within SMEM_LIMIT) of the C whose frame, the longer of a
+    block's G Db S max-plus steps at GROUP_MAXPLUS_PER_S (4 instructions a
+    step at 128 lanes a clock, no exponentials) and the L2 reads of the
+    groups at once, takes the least time over its waves, then the fewest
+    groups; G fills GROUP_CLUSTERS_AT_ONCE (measured alike for the
+    Viterbi's instances) in one wave.  A
+    16-block cluster at S = 1024 for B = 64, one utterance a group at B =
+    1."""
+    for S in sorted({c[0] for c in WIDE_LATTICE_CASES}):
+        sh = kl.viterbi_block(S, B)
+        G, C, NT, KS, SP, cap = (sh[k] for k in ("utts", "cluster", "threads", "splits", "share", "lt_cap"))
+        assert sh["mode"] == "group" and sh["smem_bytes"] == 4 * _group_floats(S, G, C, NT, KS, SP, cap)
+        assert sh["smem_bytes"] <= kl.SMEM_LIMIT and cap >= 2 * SP * KS * sh["keys"]
+        costs = {}
+        for c in (1,) if S <= kl.SINGLE_BLOCK_STATES else kl.GROUP_CLUSTERS:
+            at_once = min(kl.GROUP_CLUSTERS_AT_ONCE[c], 132 // c)
+            g = max(1, -(-B // at_once))
+            while g > 1 and kl.group_shape(S, g, c) is None:
+                g -= 1
+            alt = kl.group_shape(S, g, c)
+            if alt is None:
+                continue
+            groups = -(-B // g)
+            frame = max(g * alt["keys"] * S / (32 * 1.755e9), min(groups, at_once) * 4 * S * S / kl.GROUP_L2_BYTES_PER_S)
+            costs[c] = (-(-groups // at_once) * frame, groups, g)
+        assert costs[C] == min(costs.values()) and costs[C][2] == G, (S, B, costs, C)
+        assert G == 1 or B > 1
+    assert kl.viterbi_block(1024, 64)["cluster"] == 16 and kl.viterbi_block(1024, 1)["utts"] == 1
+    assert kl.GROUP_MAXPLUS_PER_S == 128 / 4 * 1.755e9
 
 
 @pytest.mark.parametrize("B", [1, 6, 37, 64, 2048])
@@ -251,24 +266,64 @@ def test_wide_cases_reach_their_transition_placement(i):
     group mode packs the ranges of a block's Db keys in shared memory where
     the widest range of the cluster times Db fits lt_cap, else streams
     tiles through L2 (S = 1024 and 4096 dense, the S = 1024 spread case's
-    forward;
-    the spread case's backward at S = 1024 packs: a source's destinations
-    span at most half the states and the entry); the block-wide Viterbi
-    packs them where the widest range times S fits
-    its lt_cap, else reads them through L2."""
+    forward and Viterbi; the spread case's backward at S = 1024 packs: a
+    source's destinations span at most half the states and the entry)."""
     S, kind, B, T = WIDE_LATTICE_CASES[i]
     lt = log_trans_np(S, kind, seed=S)
     W = int(lattice_ranges(lt, False).max())
     assert W == {"dense": S, "delta1": 2, "delta2": 3}.get(kind, W)
-    for sh, rows in ((kl.forward_block(S, B, "tsb"), False), (kl.backward_block(S, B), True)):
+    for sh, rows in ((kl.forward_block(S, B, "tsb"), False), (kl.backward_block(S, B), True),
+                     (kl.viterbi_block(S, B), False)):
         W = int(lattice_ranges(lt, rows).max())
         packed = W * sh["keys"] <= sh["lt_cap"]
         streamed = S >= 1024 and (kind == "dense" or kind == "spread" and not rows)
         assert packed != streamed, (S, kind, W, sh["lt_cap"])
-    sh = kl.viterbi_block(S, B)
-    W = int(lattice_ranges(lt, False).max())
-    packed = W * S <= sh["lt_cap"]
-    assert packed == (kind not in ("dense", "spread") or S <= 130), (S, kind, W, sh["lt_cap"])
+
+
+def _viterbi_twin_inputs(case):
+    """(B, T, S) log b, (S, S) log transitions and lengths of one
+    test_viterbi_twin_vectorized_equals_the_loop case."""
+    S, kind, T = {"band": (70, "delta1", 60), "ties": (96, "dense", 30), "spread": (130, "spread", 25),
+                  "floor": (66, "delta2", 30)}[case]
+    rng = np.random.default_rng(90 + S)
+    lens = np.asarray([T, 17, 2, 1, 0, T - 3], np.int32)
+    lb = spread_log_b((rng.normal(size=(len(lens), T, S)) * 2).astype(np.float32), kind, axis=2)
+    lt = log_trans_np(S, kind, seed=S)
+    if case == "ties":  # states 40, 41 and 77 duplicated, their candidates tie exactly, on top most frames
+        for d in (41, 77):
+            lt[d, :], lt[:, d], lb[..., d] = lt[40, :], lt[:, 40], lb[..., 40]
+        lb[..., [40, 41, 77]] += 6.0
+    if case == "floor":  # -inf log b and transitions, and log b on the -1e30 floor
+        lb[rng.integers(0, len(lens), 20), rng.integers(0, T, 20), rng.integers(0, S, 20)] = -np.inf
+        lb[:, 5:9, 10:30] = -1e30
+        lt[3, 4] = -np.inf
+    return lb, lt, lens
+
+
+@pytest.mark.parametrize("case", ["band", "ties", "spread", "floor"])
+def test_viterbi_twin_vectorized_equals_the_loop(case, monkeypatch):
+    """viterbi_batch_plain vectorized over the sources (the max, then the
+    lowest source equal to it; destinations in chunks) against its strict >
+    loop, scores and backpointers bitwise: a banded chain whose states are
+    not yet reachable in its first frames (every candidate on the floor,
+    the lowest source wins), duplicated states whose candidates tie (the
+    lower source wins), the spread case, -inf inputs and log b on the
+    floor, rows of length 0, 1 and 2; at the default chunk and at chunks
+    of 7 destinations."""
+    lb, lt, lens = (_t(x) for x in _viterbi_twin_inputs(case))
+    want = kf.viterbi_batch_plain(lb, lt, lens, loop=True)
+    B, T, S = lb.shape
+    for floats in (kf.VITERBI_PLAIN_FLOATS, 7 * B * S):
+        monkeypatch.setattr(kf, "VITERBI_PLAIN_FLOATS", floats)
+        got = kf.viterbi_batch_plain(lb, lt, lens)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    bp = want[1].numpy()
+    live = np.arange(T)[None, :] < lens.numpy()[:, None]
+    live[:, 0] = False
+    if case == "ties":
+        assert (bp[live] == 40).any() and not np.isin(bp[live], (41, 77)).any()
+    if case == "band":  # states past 5 at frame 5: every candidate on the floor, source 0 wins
+        assert (bp[0, 5, 6:] == 0).all() and (bp[0, 5, 1:6] >= np.arange(5)).all()
 
 
 def test_spread_case_defeats_a_linear_domain_shortcut():

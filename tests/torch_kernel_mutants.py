@@ -170,11 +170,7 @@ MUTANTS += [
     ("viterbi_wide_tie_to_highest", LAT, "if (c > best) {", "if (c >= best) {", "kernel_lattice"),
 ]
 MUTANTS += [
-    # the block-wide lattice mode past 64 states, and full covariance past D = 16
-    ("block_viterbi_reads_row_being_written", LAT, "const float* prev = row + ((t + 1) & 1) * S;  // frame t-1",
-     "const float* prev = row + (t & 1) * S;  // frame t-1", "kernel_lattice_wide"),
-    ("block_viterbi_tie_to_highest", LAT, "    if (e == 0 || c > best) {", "    if (e == 0 || c >= best) {",
-     "kernel_lattice_wide"),
+    # full covariance past D = 16
     ("full_moment_column_off_by_one_d", TILE, "    return {2, r - d * D, d};",
      "    return {2, r - d * D, d + 1 < D ? d + 1 : d};", "kernel_em_wide"),
     ("composed_full_record_stride_one_row_short", WIDE, "    const float* src = rec + (size_t)g * stride;",
@@ -230,6 +226,22 @@ MUTANTS += [
     ("em_wide_scan_drops_last_state_of_group", FEM,
      "        for (int j = 0; j < n_states; ++j) kept |= gm[(size_t)j * p.B] != 0.f;",
      "        for (int j = 0; j + 1 < n_states; ++j) kept |= gm[(size_t)j * p.B] != 0.f;", "kernel_em_wide"),
+]
+MUTANTS += [
+    # the group mode's Viterbi past 64 states: a tie across the source shares
+    # of a tile kept for the higher source, a block's slice of the new row
+    # not written into its peers (the Viterbi's alone), a backpointer past a
+    # member's length not the identity, a state not yet reachable taking the
+    # best of its range alone (the packed route)
+    ("viterbi_group_tie_across_shares_to_higher", LAT, "if (c > best || (c == best && a < arg)) {",
+     "if (c > best || (c == best && a > arg)) {", "kernel_lattice_wide"),
+    ("viterbi_group_peer_slice_not_written", LAT,
+     "for (int r = 0; r < C; ++r) *cluster.map_shared_rank(dst, r) = xv;",
+     "for (int r = 0; r < C; ++r) *cluster.map_shared_rank(dst, KIND == kViterbiKind ? rank : r) = xv;",
+     "kernel_lattice_wide"),
+    ("viterbi_group_pointer_past_length", LAT, "bp = t < len ? arg : k;", "bp = arg;", "kernel_lattice_wide"),
+    ("viterbi_group_unreachable_takes_range", LAT, "  if (n > 0 && best > kNegInf) return best;",
+     "  if (n > 0) return best;", "kernel_lattice_wide"),
 ]
 DRIVER = """
 import sys, torch

@@ -17,13 +17,14 @@ streams, dense transitions, the accumulators in the partials);
 csrc/composed.cu's four kernels at diagonal and full covariance up to
 D = 16 (two streams, the emission ring and moments batch at two), at
 diagonal D = 39, the frontend's width, and at full D = 39, M = 9 (the
-z-GEMM bank kernels); csrc/lattice.cu's block-wide Viterbi (scores and
-backpointers) at three cases of torch_port_utils.WIDE_LATTICE_CASES, S =
-96 banded, 257 and 1024 dense.  tests/lane_digests.json holds the digests
-of commit 76f6f1a's kernels (the diagonal D = 39 case's of commit
-b91d8b8's, the full D = 39 case's of commit 51f7e05's, the block-wide
-Viterbi's of commit d778d84's); tests/test_torch_cuda.py holds these
-kernels to them.
+z-GEMM bank kernels); csrc/lattice.cu's Viterbi past 64 states (scores
+and backpointers; the group mode's max-plus kind, exact, so bitwise the
+block-wide kernel it replaced) at three cases of
+torch_port_utils.WIDE_LATTICE_CASES, S = 96 banded, 257 and 1024 dense.
+tests/lane_digests.json holds the digests of commit 76f6f1a's kernels (the
+diagonal D = 39 case's of commit b91d8b8's, the full D = 39 case's of
+commit 51f7e05's, the Viterbi past 64 states' of commit d778d84's
+block-wide kernel); tests/test_torch_cuda.py holds these kernels to them.
 """
 
 from __future__ import annotations
@@ -85,7 +86,7 @@ def lattice_digests(dev) -> dict:
 
 
 def viterbi_wide_digests(dev) -> dict:
-    """The block-wide Viterbi's scores and backpointers at VITERBI_WIDE's
+    """The Viterbi's scores and backpointers past 64 states at VITERBI_WIDE's
     cases of WIDE_LATTICE_CASES (their lengths, seeded (B, T, S) log b)."""
     from srhmm_tpu_torch.ops.kernels import forward as kf
 

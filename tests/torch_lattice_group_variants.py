@@ -6,9 +6,9 @@ tier-1 test; needs nvcc):
 Each variant is csrc/lattice.cu with one text replacement, built alone by
 nvcc into its own library and loaded in place of the package's for the
 lattice wrappers.  Each is timed (CUDA events, median of 3 after a warm-up)
-on forward_lattice at lattice_s1024 (S = 1024 dense, B = 64 of 102-512
-frames) and align_s96 (S = 96, band 1, B = 2048 of 102-512 frames), log b
-drawn from a seed; "base" also on the backward and the last row, and at
+on forward_lattice and viterbi_batch at lattice_s1024 (S = 1024 dense, B =
+64 of 102-512 frames) and align_s96 (S = 96, band 1, B = 2048 of 102-512
+frames), log b drawn from a seed; "base" also on the backward and the last row, and at
 "forced" shapes beside the rule's (lattice_s1024 with groups of 8 over
 clusters of 16: 8 clusters, one more than the card runs at once).  The
 variants: base (the source as it is), cycles (clock64 counters of threads
@@ -16,8 +16,10 @@ variants: base (the source as it is), cycles (clock64 counters of threads
 or the log b wait, the owners, the frame's barrier; printed by the
 kernel), no_exp (the streamed route's ex2 replaced by its argument),
 no_tiles (the transition tiles not copied), no_push (the new row written
-into the block's own shared memory only).  The timings of no_exp,
-no_tiles and no_push are of wrong results: they show what a part costs.
+into the block's own shared memory only), no_bptr (the Viterbi's
+backpointers not stored in the recursion's frames).  The timings of no_exp,
+no_tiles, no_push and no_bptr are of wrong results: they show what a part
+costs.
 `clusters` prints cudaOccupancyMaxActiveClusters
 (srhmm_lattice_group_clusters) for clusters of 1-16 blocks at
 lattice_s1024's and align_s96's shapes.  Every line is JSON, with the
@@ -73,6 +75,7 @@ VARIANTS = {
                 "                sum += fmaf(xs[uu][q] + lane4(a[q], c), kLog2e, -mref);")],
     "no_tiles": [("  auto issue_tile = [&](int j) {\n", "  auto issue_tile = [&](int j) {\n    cp_async_commit();\n    return;\n")],
     "no_push": [("for (int r = 0; r < C; ++r) *cluster.map_shared_rank(dst, r) = xv;", "*dst = xv;")],
+    "no_bptr": [("      if (KIND == kViterbiKind && b < B) p.bptr[((size_t)b * T + t) * S + k] = bp;\n", "")],
 }
 
 
@@ -101,6 +104,8 @@ def load(lib: Path) -> ctypes.CDLL:
     dll.srhmm_lattice_group.argtypes = [c_int, c_ptr, c_ptr, c_int, c_ptr, c_ptr] + [c_int] * 11 + [c_ptr]
     dll.srhmm_lattice_group_clusters.restype = c_int
     dll.srhmm_lattice_group_clusters.argtypes = [c_int] * 10 + [c_ptr]
+    dll.srhmm_viterbi.restype = c_int
+    dll.srhmm_viterbi.argtypes = [c_ptr] * 5 + [c_int] * 13 + [c_ptr]
     return dll
 
 
@@ -182,6 +187,7 @@ def main(args) -> None:
                         torch.cuda.synchronize()
                     else:
                         row["forward_ms"] = median_ms(lambda: kl.forward_lattice(lb_tsb, lt, lens))
+                        row["viterbi_ms"] = median_ms(lambda: kf.viterbi_batch(lb_bts, lt, lens))
                         if name == "base" and shape is None:
                             row["backward_ms"] = median_ms(lambda: kl.backward_lattice(lb_tsb, lt, lens))
                             row["last_row_ms"] = median_ms(lambda: kf.log_forward_batch(lb_bts, lt, lens))

@@ -40,11 +40,15 @@ name and power limit.  Named calls (substrings of the call names) time
 only those calls (and E-steps), with no cuBLAS diagnostic.  `time wide`
 times the kernels past 64 states instead (wide_cells): forward_lattice,
 forward_lattice_blocked, backward_lattice, backward_lattice_blocked (k_block
-= 4) and log_forward_batch at align_s96 (S = 96, band 1, B = 2048 of
-204-512 frames) and lattice_s1024 (S = 1024 dense, B = 64 of 102-512
-frames), each a CUDA-event median around the call (WIDE_REPS) and its
-device time per launch under torch.profiler (the kernels whose names
-contain "lattice_", WIDE_PROFILE calls), with the card's SM clock.
+= 4), log_forward_batch and viterbi_batch (on the whole T, and cut to its
+first 40000 // S frames as chip_smoke.py timed it before its twin took the
+whole T: 39 at S = 1024) at align_s96 (S = 96, band 1, B = 2048 of 204-512
+frames) and lattice_s1024 (S = 1024 dense, B = 64 of 102-512 frames), each
+a CUDA-event median around the call (WIDE_REPS) and its device time per
+launch under torch.profiler (WIDE_PROFILE calls; the kernels whose names
+contain "lattice_", the Viterbi's VITERBI_KEYS: a block-wide kernel's or
+the group mode's), with the card's SM clock; `time wide NAME ...` only the
+calls whose names contain a NAME.
 """
 
 import importlib.util
@@ -64,6 +68,8 @@ STATS_KEYS = ("emission_stats_kernel", "sum_blocks_kernel")
 WIDE_KEY = "lattice_"  # the kernels past 64 states: any tree's forward and backward there
 WIDE_REPS = {"align_s96": (3, 20), "lattice_s1024": (1, 5)}  # (warm-up, CUDA-event reps) a cell
 WIDE_PROFILE = {"align_s96": 5, "lattice_s1024": 2}  # profiled calls a cell
+# the Viterbi past 64 states: the block-wide kernel of d778d84 and of fd0649c, the group mode's max-plus kind
+VITERBI_KEYS = ("lattice_block_kernel", "viterbi_block_kernel", "lattice_group_kernel<2,")
 
 
 def smoke():
@@ -140,24 +146,35 @@ def wide_cells(cs) -> dict:
                    torch.as_tensor(lens, dtype=torch.int32, device="cuda")) for cell, (lb, lt, lens) in out.items()}
 
 
-def time_wide(cs, card):
+def time_wide(cs, card, only=()):
     from srhmm_tpu_torch.ops.kernels import forward as kf
     from srhmm_tpu_torch.ops.kernels import lattice as kl
 
     out = {}
     for cell, (lb_bts, lb_tsb, lt, lengths) in wide_cells(cs).items():
         warm, reps = WIDE_REPS[cell]
+        cut = lb_bts[:, : max(1, 40000 // lb_bts.shape[2])].contiguous()
         calls = {
             "forward_lattice": lambda: kl.forward_lattice(lb_tsb, lt, lengths),
             "forward_lattice_blocked": lambda: kl.forward_lattice_blocked(lb_tsb, lt, lengths, k_block=4),
             "backward_lattice": lambda: kl.backward_lattice(lb_tsb, lt, lengths),
             "backward_lattice_blocked": lambda: kl.backward_lattice_blocked(lb_tsb, lt, lengths, k_block=4),
             "log_forward_batch": lambda: kf.log_forward_batch(lb_bts, lt, lengths),
+            "viterbi_batch": lambda: kf.viterbi_batch(lb_bts, lt, lengths),
+            "viterbi_batch_cut": lambda: kf.viterbi_batch(cut, lt, lengths),
         }
         for name, fn in calls.items():
+            if only and not any(o in name for o in only):
+                continue
             out[f"{name}_{cell}_ms"] = cs.median_ms(torch, fn, warmup=warm, reps=reps)
-            out[f"{name}_{cell}_device_ms"] = cs.kernel_device_ms(torch, fn, WIDE_KEY, calls=WIDE_PROFILE[cell])[0]
-        del lb_bts, lb_tsb
+            for key in VITERBI_KEYS if name.startswith("viterbi") else (WIDE_KEY,):
+                ms, _ = cs.kernel_device_ms(torch, fn, key, calls=WIDE_PROFILE[cell], windows=2)
+                out[f"{name}_{cell}_device_ms"] = ms
+                if ms is not None:
+                    out[f"{name}_{cell}_device_key"] = key
+                    break
+        out[f"viterbi_{cell}_frames_cut"] = int(cut.shape[1])
+        del lb_bts, lb_tsb, cut
     clocks = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm", "--format=csv,noheader"],
                             capture_output=True, text=True).stdout.strip()
     print(json.dumps({**out, "package": kl.__file__, "card": card, "sm_clock_after": clocks}), flush=True)
@@ -249,8 +266,8 @@ def time_kernels(only=()):
     cs = smoke()
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()
-    if list(only) == ["wide"]:
-        return time_wide(cs, card)
+    if list(only[:1]) == ["wide"]:
+        return time_wide(cs, card, only[1:])
     model, batch, frames, log_b, gamma, a, b = em_diag_cell(cs)
     lt, lengths = model.log_trans().to(torch.float32), batch.lengths
     lb_tsb = log_b.permute(1, 2, 0).contiguous()
