@@ -20,7 +20,14 @@ each (any failure raises, so the exit code is non-zero):
               two and eight warps, constants in device memory, ragged word
               and utterance blocks, T below a tile) within BOUND with equal
               masks, two launches bitwise equal, failing unless every shape
-              of VOCAB_SHAPES was reached.  kernel_em:
+              of VOCAB_SHAPES was reached; then full covariance past D = 16
+              at torch_port_utils.SCORE_FULL_WIDE_CASES (register bounds 24
+              to 64, two streams, M odd, one mixture, several row groups,
+              calls split past a lowered log b cap over utterances and over
+              frames, bitwise the unsplit call): the emission pass
+              (csrc/wide_log_b.cu) against its twin at every stepped column
+              and the final log-alpha against the plain version, failing
+              unless every shape of WIDE_SHAPES was reached.  kernel_em:
               emit_forward and backward_stats (diag/full x band 1, 2, dense x
               one stream D=9/M=3 or two streams D=9/M=3 + D=3/M=2, B=37,
               T=95, a zero-length and a length-1 row): log_b / log_alpha
@@ -63,7 +70,11 @@ each (any failure raises, so the exit code is non-zero):
               max|k-p|/max(|p|,1) <= 1e-5 with equal masks,
               pointer mismatches <= 1e-4 of all pointers, identical
               hypotheses (word ids, spans) through the same backtrace,
-              two kernel runs bitwise equal
+              two kernel runs bitwise equal; then full covariance past
+              D = 16 at torch_port_utils.DECODE_FULL_WIDE_CASES (the same
+              shapes, unigram and bigram, K = 1 to 4, a duplicated word's
+              ties, split calls bitwise the unsplit), failing unless every
+              shape of DECODE_WIDE_SHAPES was reached
   3 decode    continuous decoding at full width: W=200 S=8 M=4 D=13 diag
               (.hmm files), B=128 strings of 4-8 words (.perfil files), a
               bigram LM file: the decode CLI (--batch --n-best 2 --lm
@@ -236,6 +247,17 @@ each (any failure raises, so the exit code is non-zero):
               train_embedded / train_tied at emb_c4's structure with M=8
               full covariance at D=39 (3 EM iterations through #9-#13 vs
               fused=False, as embedded / tied), launches counted
+    full13_d39 / dec_w200_full39
+              #1 and #6-#8 at full covariance D = 39 through the emission
+              pass: score_batch and score_batch_fused (max) on 13 words of
+              em_full39's model shape and 2048 utterances of 103-213
+              frames sampled from them (accuracy >= 0.9), and
+              decode_continuous_batch at K=1 unigram, K=2 and 3 bigram on
+              dec_w200's fixture at D = 39 (WER <= 5 %); launches of each
+              kernel and of the pass counted from 0; the kernels against
+              their twins (log-alpha within BOUND with the same rankings;
+              finals within BOUND, pointer mismatches <= 1e-4, identical
+              hypotheses), two launches bitwise, the pass against its twin
   4 timing    every kernel and its plain version at the main-path shapes, and
               one whole EM iteration through the kernels vs fused=False;
               CUDA events, median of 20 after warm-up (the decode, composed,
@@ -255,6 +277,9 @@ each (any failure raises, so the exit code is non-zero):
               one E-step through e_step_fused, e_step_lane_major("pallas")
               and e_step_fused_lane, with torch.profiler's idle share;
               timing_wide times #15-#20 at align_s96 and lattice_s1024,
+              timing_full39 #1 at full13_d39 and #6-#8 at dec_w200_full39
+              (device time by kernel: the pass and the recursion; the
+              twins at most twice / once),
               timing_em and timing_composed also run at em_full39 and
               emb_full39 / tied_full39, and the `kernels` line carries
               those cells' fields (*_s96, *_s1024, *_full39)
@@ -307,7 +332,15 @@ def sm_clock_hz() -> float:
     return float(sh(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"]).splitlines()[0]) * 1e6
 
 
+T_START = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line also carries the seconds since the
+    script started (t_s), the kernels line and the last line only their
+    own keys."""
+    if not ("kernels" in obj or "ok" in obj):
+        obj = {**obj, "t_s": round(time.perf_counter() - T_START, 1)}
     print(json.dumps(obj), flush=True)
 
 
@@ -643,7 +676,7 @@ def phase_kernel(torch) -> float:
         worst_abs = max(worst_abs, res["max_abs_err"])
         emit({"phase": "kernel", "config": "vocab200_S8_M4_D13", "mode": "total",
               "semiring": semiring, "B": len(lens), "T": max(lens), **res})
-    return max(worst_abs, vocab_check(torch, seen))
+    return max(worst_abs, vocab_check(torch, seen)), vocab_wide_check(torch)
 
 
 # the vocab_scores launch shapes vocab_check must see reached
@@ -708,6 +741,83 @@ def vocab_check(torch, seen: set) -> float:
                   "reached": sorted(got), "bitwise_repeat": True, "log_alpha": res["rel_err"]})
     if seen != VOCAB_SHAPES:
         raise AssertionError(f"vocab_check reached {sorted(seen)}, not {sorted(VOCAB_SHAPES)}")
+    return worst
+
+
+def wide_pass_check(torch, feats, recs, offs, ds, ms, rb, N, lengths, T, uo, t_major, what: str) -> dict:
+    """The emission pass (wide_log_b) against its twin (wide_log_b_plain) on
+    the same inputs at every column a recursion steps, in the recursion's
+    layout: within BOUND with equal masks."""
+    from srhmm_tpu_torch.ops.kernels import wide_emission as we
+
+    B = lengths.shape[0]
+    cols = we.columns(lengths, 0, B, 0, T, T, t_major)
+    layout = (0, 0, uo, T * N * uo, N * uo, uo)
+    buf = torch.empty((-(-B // uo), T, N, uo), device="cuda")
+    twin = torch.empty_like(buf)
+    we.wide_log_b(feats, recs, offs, ds, ms, rb, N, cols, buf, *layout)
+    we.wide_log_b_plain(feats, recs, offs, ds, ms, rb, N, cols, twin, *layout)
+    torch.cuda.synchronize()
+    return compare_lattice(we.gather_columns(buf, cols, N, *layout), we.gather_columns(twin, cols, N, *layout),
+                           f"{what} emission pass")
+
+
+def vocab_launch(args, kw):
+    from srhmm_tpu_torch.ops.kernels import scoring as ks
+
+    return ks._VocabLaunch(*(a if isinstance(a, tuple) else (a,) for a in args[:5]), *args[5:], **kw)
+
+
+def vocab_wide_check(torch) -> float:
+    """vocab_scores at full covariance past D = 16 at every case of
+    torch_port_utils.SCORE_FULL_WIDE_CASES: the emission pass against its
+    twin, the final log-alpha against vocab_scores_plain (both semirings)
+    within BOUND with equal masks, two launches bitwise equal, the split
+    cases (common.WIDE_LOG_B_BYTES lowered) bitwise the unsplit call with a
+    launch a part; fails unless every shape of WIDE_SHAPES was reached.
+    Returns the worst absolute error."""
+    from srhmm_tpu_torch.ops.kernels import common
+    from srhmm_tpu_torch.ops.kernels import scoring as ks
+    from srhmm_tpu_torch.ops.kernels import wide_emission as we
+
+    pu = port_utils()
+    seen, worst = set(), 0.0
+    saved = ks.vocab_scores.launches, we.wide_log_b.launches
+    for i, (S, W, md, B, T, split) in enumerate(pu.SCORE_FULL_WIDE_CASES):
+        vocab, batch, lens = pu.score_wide_case(i, "cuda")
+        args, kw = ks.pack_batch(vocab, batch)
+        ln = vocab_launch(args, kw)
+        U, N = ln.shape["utts"], ln.N
+        cap = pu.wide_cap(split, T, N, U)
+        got_shapes = pu.wide_placements(md, lens, T, N, U, cap)
+        seen |= got_shapes
+        name = f"S{S}_W{W}_" + "_".join(f"M{M}D{D}" for M, D in md) + f"_B{B}_T{T}" + (f"_split_{split}" if split else "")
+        lb = wide_pass_check(torch, ln.feats, ln.recs, ln.rec_offs, ln.ds, ln.ms, ln.rb, N, ln.lengths, T, U, True, name)
+        for semiring in ("sum", "max"):
+            la, again = ks.vocab_scores(*args, **kw, semiring=semiring), ks.vocab_scores(*args, **kw, semiring=semiring)
+            la_p = ks.vocab_scores_plain(*args, **kw, semiring=semiring)
+            torch.cuda.synchronize()
+            res = compare_lattice(la, la_p, f"vocab_wide {name} {semiring}")
+            if not torch.equal(la, again):
+                raise AssertionError(f"vocab_wide {name} {semiring}: two launches differ")
+            parts = 1
+            if cap is not None:
+                old, common.WIDE_LOG_B_BYTES = common.WIDE_LOG_B_BYTES, cap
+                try:
+                    parts, n0 = len(we.plan_parts(B, T, N, U)), ks.vocab_scores.launches
+                    la_s = ks.vocab_scores(*args, **kw, semiring=semiring)
+                    torch.cuda.synchronize()
+                    if ks.vocab_scores.launches - n0 != parts or parts < 2 or not torch.equal(la_s, la):
+                        raise AssertionError(f"vocab_wide {name} {semiring}: the split call ({parts} parts) differs")
+                finally:
+                    common.WIDE_LOG_B_BYTES = old
+            worst = max(worst, res["max_abs_err"], lb["max_abs_err"])
+            emit({"phase": "kernel", "check": "vocab_wide", "config": name, "semiring": semiring, "U": U,
+                  "rb": ln.rb, "parts": parts, "reached": sorted(got_shapes), "bitwise_repeat": True,
+                  "log_alpha": res["rel_err"], "log_b": lb["rel_err"]})
+    ks.vocab_scores.launches, we.wide_log_b.launches = saved  # comparison launches
+    if seen != pu.WIDE_SHAPES:
+        raise AssertionError(f"vocab_wide reached {sorted(seen)}, not {sorted(pu.WIDE_SHAPES)}")
     return worst
 
 
@@ -1521,7 +1631,74 @@ def phase_kernel_decode(torch) -> dict:
             emit({"phase": "kernel_decode", "config": name, "B": len(lens), "T": max(lens),
                   "s_eff": args[7], "final_rel_err": res["rel_err"], "pointer_mismatches": mism,
                   "pointers": bk.numel(), "hyp_score_rel_err": hyp_rel, "bitwise_repeat": bitwise})
+    worst_wide = decode_wide_check(torch)
     set_decode_counts(saved)  # comparison launches are not main-path launches
+    return worst, worst_wide
+
+
+def decode_wide_check(torch) -> dict:
+    """The word-loop kernel at full covariance past D = 16 at every case of
+    torch_port_utils.DECODE_FULL_WIDE_CASES and each of its K: final
+    within BOUND with equal masks, pointer mismatches <= POINTER_BOUND,
+    two runs bitwise equal, identical hypotheses through
+    decode_continuous_batch, the split cases (common.WIDE_LOG_B_BYTES
+    lowered) bitwise the unsplit call with a launch a part; fails unless
+    every shape of DECODE_WIDE_SHAPES was reached.  Returns the worst
+    absolute error per wrapper."""
+    from srhmm_tpu_torch.decode import continuous as dc
+    from srhmm_tpu_torch.ops.kernels import common
+    from srhmm_tpu_torch.ops.kernels import decode as kd
+    from srhmm_tpu_torch.ops.kernels import wide_emission as we
+
+    pu = port_utils()
+    worst = {name: 0.0 for name in DECODE_WRAPPERS.values()}
+    seen = set()
+    passes = we.wide_log_b.launches
+    for i, (W, S, bigram, md, variant, Ks, split) in enumerate(pu.DECODE_FULL_WIDE_CASES):
+        vocab, batches, graph_kw, lens = pu.decode_wide_case(i, "cuda")
+        batch = batches if len(batches) > 1 else batches[0]
+        args, kw = decode_operands(vocab, batches, graph_kw)
+        B, T, N = len(lens), max(lens), W * args[7]
+        cap = pu.wide_cap(split, T, N, 1)
+        got_shapes = pu.wide_placements(md, lens, T, N, 1, cap) | {"bigram" if bigram else "unigram"}
+        got_shapes |= ({"ties"} if variant else set()) | ({"k_4"} if 4 in Ks else set())
+        seen |= got_shapes
+        name0 = f"W{W}_S{S}_{'bigram' if bigram else 'unigram'}_" + "_".join(f"M{M}D{D}" for M, D in md) \
+            + ("_dup" if variant else "") + (f"_split_{split}" if split else "")
+        for K in Ks:
+            fk, bk = decode_kernel(args, kw, K)
+            fk2, bk2 = decode_kernel(args, kw, K)
+            fp, bp = kd.word_loop_decode_plain(*args, n_best=K, **kw)
+            torch.cuda.synchronize()
+            name = f"{name0}_K{K}"
+            res = compare_lattice(fk, fp, f"{name} final")
+            mism = int((bk != bp).sum())
+            if not mism <= POINTER_BOUND * bk.numel():
+                raise AssertionError(f"{name}: {mism} of {bk.numel()} pointers differ from the twin")
+            if not (torch.equal(fk, fk2) and torch.equal(bk, bk2)):
+                raise AssertionError(f"{name}: two kernel runs differ")
+            parts = 1
+            if cap is not None:
+                old, common.WIDE_LOG_B_BYTES = common.WIDE_LOG_B_BYTES, cap
+                try:
+                    parts, n0 = len(we.plan_parts(B, T, N, 1)), decode_counts()[decode_wrapper(K)]
+                    fs, bs = decode_kernel(args, kw, K)
+                    torch.cuda.synchronize()
+                    if decode_counts()[decode_wrapper(K)] - n0 != parts or parts < 2 \
+                            or not (torch.equal(fs, fk) and torch.equal(bs, bk)):
+                        raise AssertionError(f"{name}: the split call ({parts} parts) differs")
+                finally:
+                    common.WIDE_LOG_B_BYTES = old
+            hk = dc.decode_continuous_batch(vocab, batch, n_best=K, **graph_kw)
+            hp = on_decode_twin(lambda: dc.decode_continuous_batch(vocab, batch, n_best=K, **graph_kw))
+            hyp_rel = compare_hyps(hk, hp, K, name)
+            worst[decode_wrapper(K)] = max(worst[decode_wrapper(K)], res["max_abs_err"])
+            emit({"phase": "kernel_decode", "check": "decode_wide", "config": name, "B": B, "T": T, "parts": parts,
+                  "reached": sorted(got_shapes), "final_rel_err": res["rel_err"], "pointer_mismatches": mism,
+                  "pointers": bk.numel(), "hyp_score_rel_err": hyp_rel, "bitwise_repeat": True})
+    we.wide_log_b.launches = passes  # comparison launches
+    if seen != pu.DECODE_WIDE_SHAPES:
+        raise AssertionError(f"decode_wide reached {sorted(seen)}, not {sorted(pu.DECODE_WIDE_SHAPES)}")
     return worst
 
 
@@ -5317,6 +5494,287 @@ def phase_timing_wide(torch, cells: dict, smi: str) -> dict:
     return out
 
 
+FULL13_D39 = (13, 6, 4, 39, 2048, (103, 214))  # W, S, M, D, B, lengths
+DEC_W200_FULL39 = (200, 8, 4, 39, 128)  # W, S, M, D, B: dec_w200's fixture at full D = 39
+
+
+def full13_d39_inputs(torch):
+    """full13_d39 on the card: (vocab, batch, each utterance's word): 13
+    words of em_full39's model shape (S=6, M=4, full D=39, an expected stay
+    of ~26 frames a state) from a seed, 2048 utterances sampled from them
+    (utterance b from word b % 13), lengths drawn in [103, 214)."""
+    from srhmm_tpu_torch.io.dataset import pack_utterances
+
+    W, S, M, D, B, t_range = FULL13_D39
+    words = rand_words(61, W, S, [(M, D)], "full", dur=158 / S)
+    rng = np.random.default_rng(62)
+    utts = [sample(rng, *words[b % W], int(rng.integers(*t_range)))[0] for b in range(B)]
+    vocab = torch_vocab(words).astype(torch.float32).to("cuda")
+    return vocab, pack_utterances(utts, pad_multiple=1, dtype=torch.float32, device="cuda"), np.arange(B) % W
+
+
+def dec_w200_inputs(torch, D: int = 13, cov: str = "diag", W: int = 200, B: int = 128):
+    """phase_decode's main shape without its files, at D and cov: (vocab,
+    batch, references, unigram, bigram) on the card; the draws of
+    write_decode_fixture in its order (W=200 words of S=8, M=4 from
+    rand_words(40), B=128 strings of 4-8 words of 60-124 frames each)."""
+    from srhmm_tpu_torch.io import pack_utterances
+
+    words = rand_words(40, W, 8, [(4, D)], cov, dur=3.0)
+    rng = np.random.default_rng(41)
+    utts, refs = [], []
+    for _ in range(B):
+        seq = [int(w) for w in rng.integers(0, W, size=int(rng.integers(4, 9)))]
+        utts.append(np.concatenate([sample(rng, *words[w], int(rng.integers(60, 125)))[0] for w in seq]))
+        refs.append(seq)
+    lm = np.log(rng.dirichlet(np.ones(W), size=W))
+    uni = np.log(np.random.default_rng(42).dirichlet(np.ones(W)))
+    vocab = torch_vocab(words).astype(torch.float32).to("cuda")
+    return vocab, pack_utterances(utts, pad_multiple=1, dtype=torch.float32, device="cuda"), refs, uni, lm
+
+
+def ranking_mismatches(k, p) -> int:
+    """Utterances whose order of words by the kernel's scores differs from
+    the plain one's at a pair the plain scores part by more than BOUND
+    (a nearer pair is a tie within the tolerance)."""
+    k, p = k.double().cpu().numpy(), p.double().cpu().numpy()
+    bad = 0
+    for kb, pb in zip(k, p):
+        order = np.argsort(-np.where(np.isfinite(kb), kb, -np.inf), kind="stable")
+        ps = np.where(np.isfinite(pb), pb, -np.inf)[order]
+        gap = ps[1:] - ps[:-1]  # > 0 where the kernel's order puts a plainly better word later
+        bad += int((gap > BOUND * np.maximum(np.abs(ps[:-1]), 1.0)).any())
+    return bad
+
+
+def wide_counts() -> dict:
+    from srhmm_tpu_torch.ops.kernels import scoring as ks
+    from srhmm_tpu_torch.ops.kernels import wide_emission as we
+
+    return {"vocab_scores": ks.vocab_scores.launches, "wide_log_b": we.wide_log_b.launches, **decode_counts()}
+
+
+def set_wide_counts(counts: dict) -> None:
+    from srhmm_tpu_torch.ops.kernels import scoring as ks
+    from srhmm_tpu_torch.ops.kernels import wide_emission as we
+
+    ks.vocab_scores.launches, we.wide_log_b.launches = counts["vocab_scores"], counts["wide_log_b"]
+    set_decode_counts({k: counts[k] for k in DECODE_WRAPPERS.values()})
+
+
+def phase_full13_d39(torch) -> dict:
+    """Isolated-word recognition at full covariance D = 39 (full13_d39):
+    score_batch (the recognizer's call, total mode, forward scores) and
+    score_batch_fused with the max semiring, each launch of #1 and of the
+    emission pass counted from 0; accuracy >= 0.9; then, on the same packed
+    tensors, the kernel against vocab_scores_plain (BOUND, equal masks and
+    argmax, no ranking that the plain scores part by more than BOUND
+    reversed), two launches bitwise equal, and the emission pass against
+    its twin at every stepped column."""
+    from srhmm_tpu_torch.decode.scorer import score_batch
+    from srhmm_tpu_torch.ops.kernels import scoring as ks
+
+    vocab, batch, truth = full13_d39_inputs(torch)
+    set_wide_counts({k: 0 for k in wide_counts()})
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    total = score_batch(vocab, batch, mode="total")
+    best = ks.score_batch_fused(vocab, batch, mode="total", semiring="max")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = wide_counts()
+    if launches["vocab_scores"] < 2 or launches["wide_log_b"] < 2:
+        raise AssertionError(f"full13_d39: the main path launched {launches}")
+    acc = float((total.argmax(1).cpu().numpy() == truth).mean())
+    if not acc >= 0.9:
+        raise AssertionError(f"full13_d39: accuracy {acc} < 0.9")
+    args, kw = ks.pack_batch(vocab, batch)
+    out = {"launches": launches, "accuracy": acc, "wall_s": wall}
+    worst = 0.0
+    for semiring, got in (("sum", total), ("max", best)):
+        la, again = ks.vocab_scores(*args, **kw, semiring=semiring), ks.vocab_scores(*args, **kw, semiring=semiring)
+        la_p = ks.vocab_scores_plain(*args, **kw, semiring=semiring)
+        torch.cuda.synchronize()
+        if not torch.equal(la, again):
+            raise AssertionError(f"full13_d39 {semiring}: two launches differ")
+        res = compare_lattice(la, la_p, f"full13_d39 {semiring} log-alpha")
+        plain = ks.scores_from_log_alpha(la_p, kw["s_word"], "total")
+        res_s = compare(got, plain, f"full13_d39 {semiring}")
+        bad = ranking_mismatches(got, plain)
+        if bad:
+            raise AssertionError(f"full13_d39 {semiring}: {bad} utterances rank the words otherwise")
+        worst = max(worst, res["max_abs_err"], res_s["max_abs_err"])
+        out[semiring] = {"log_alpha_rel_err": res["rel_err"], "scores_rel_err": res_s["rel_err"], "rankings": "equal"}
+    ln = vocab_launch(args, kw)
+    lb = wide_pass_check(torch, ln.feats, ln.recs, ln.rec_offs, ln.ds, ln.ms, ln.rb, ln.N, ln.lengths, ln.T,
+                         ln.shape["utts"], True, "full13_d39")
+    out["log_b_rel_err"] = lb["rel_err"]
+    out["worst_abs"] = max(worst, lb["max_abs_err"])
+    set_wide_counts(launches)  # comparison launches are not main-path launches
+    W, S, M, D, B, _ = FULL13_D39
+    emit({"phase": "full13_d39", "W": W, "S": S, "M": M, "D": D, "B": B, "T": batch.max_frames,
+          "frames": int(batch.lengths.sum()), "shape": ln.shape, "rb": ln.rb,
+          **{k: v for k, v in out.items() if k != "worst_abs"}})
+    return {**out, "vocab": vocab, "batch": batch, "args": args, "kw": kw}
+
+
+def phase_dec_w200_full39(torch) -> dict:
+    """Continuous decoding at full covariance D = 39 (dec_w200_full39):
+    decode_continuous_batch at K=1 unigram, K=2 and K=3 bigram, each launch
+    of #6-#8 and of the emission pass counted from 0; WER <= 5 % at each;
+    then on the same operands the kernel against word_loop_decode_plain
+    (final within BOUND, pointer mismatches <= POINTER_BOUND), two launches
+    bitwise equal, identical hypotheses against the twin's, and the
+    emission pass against its twin at every stepped column.  The twin runs
+    twice a K (its final and pointers timed once, plain_ms)."""
+    from srhmm_tpu_torch.decode import continuous as dc
+    from srhmm_tpu_torch.ops.kernels import decode as kd
+    from srhmm_tpu_torch.ops.kernels import wide_emission as we
+
+    vocab, batch, refs, uni, lm = dec_w200_inputs(torch, 39, "full")
+    names = list(range(vocab.trans.shape[0]))
+    set_wide_counts({k: 0 for k in wide_counts()})
+    runs, hyps = {}, {}
+    for K, lm_k in ((1, uni), (2, lm), (3, lm)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hyps[K] = dc.decode_continuous_batch(vocab, batch, lm_logprobs=lm_k, n_best=K)
+        torch.cuda.synchronize()
+        runs[K] = {"decode_continuous_batch_wall_s": time.perf_counter() - t0, "wer": wer_of(hyps[K], refs, names, K)}
+        if not runs[K]["wer"] <= 0.05:
+            raise AssertionError(f"dec_w200_full39 K={K}: WER {runs[K]['wer']} > 5%")
+    launches = wide_counts()
+    for name in DECODE_WRAPPERS.values():
+        if launches[name] < 1:
+            raise AssertionError(f"dec_w200_full39: the main path launched {name} 0 times")
+    if launches["wide_log_b"] < 3:
+        raise AssertionError(f"dec_w200_full39: the emission pass launched {launches['wide_log_b']} times")
+    worst = {}
+    ops = {}
+    for K, lm_k in ((1, uni), (2, lm), (3, lm)):
+        args, kw = decode_operands(vocab, (batch,), {"lm_logprobs": lm_k})
+        ops[K] = (args, kw)
+        fk, bk = decode_kernel(args, kw, K)
+        fk2, bk2 = decode_kernel(args, kw, K)
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fp, bp = kd.word_loop_decode_plain(*args, n_best=K, **kw)
+        end.record()
+        end.synchronize()
+        runs[K]["plain_ms"] = start.elapsed_time(end)
+        res = compare_lattice(fk, fp, f"dec_w200_full39 K={K} final")
+        mism = int((bk != bp).sum())
+        if not mism <= POINTER_BOUND * bk.numel():
+            raise AssertionError(f"dec_w200_full39 K={K}: {mism} of {bk.numel()} pointers differ from the twin")
+        if not (torch.equal(fk, fk2) and torch.equal(bk, bk2)):
+            raise AssertionError(f"dec_w200_full39 K={K}: two kernel runs differ")
+        del fk2, bk2, fp, bp
+        want = on_decode_twin(lambda: dc.decode_continuous_batch(vocab, batch, lm_logprobs=lm_k, n_best=K))
+        runs[K].update({"final_rel_err": res["rel_err"], "pointer_mismatches": mism, "pointers": bk.numel(),
+                        "hyp_score_rel_err": compare_hyps(hyps[K], want, K, f"dec_w200_full39 K={K}")})
+        worst[decode_wrapper(K)] = res["max_abs_err"]
+        del fk, bk
+    args, kw = ops[1]
+    feats, a_s = args[0], args[1]
+    featss, a_s = (feats,) if not isinstance(feats, tuple) else feats, (a_s,) if not isinstance(a_s, tuple) else a_s
+    N, ds = a_s[0].shape[1], [f.shape[1] for f in featss]
+    ms = [a.shape[0] // d for a, d in zip(a_s, ds)]
+    as_t = lambda x: x if isinstance(x, tuple) else (x,)  # noqa: E731
+    recs, offs, rb = we.pack_streams(a_s, as_t(kw["bias_g"]), as_t(args[2]), as_t(kw["logw"]), ds, ms, N)
+    lb = wide_pass_check(torch, featss, recs, offs, ds, ms, rb, N, args[6].to(torch.int32), featss[0].shape[0], 1,
+                         False, "dec_w200_full39")
+    set_wide_counts(launches)  # comparison launches are not main-path launches
+    W, S, M, D, B = DEC_W200_FULL39
+    emit({"phase": "dec_w200_full39", "W": W, "S": S, "M": M, "D": D, "B": B, "T": batch.max_frames,
+          "frames": int(batch.lengths.sum()), "launches": launches, "log_b_rel_err": lb["rel_err"],
+          "runs": {str(k): v for k, v in runs.items()}})
+    return {"vocab": vocab, "batch": batch, "uni": uni, "lm": lm, "ops": ops, "runs": runs, "launches": launches,
+            "worst_abs": worst, "log_b_abs": lb["max_abs_err"]}
+
+
+def device_ms_keys(torch, fn, keys, calls: int = 3, windows: int = 3) -> dict:
+    """Device time per call of fn summed over the kernels whose names hold
+    one of keys (torch.profiler over `calls` calls), and each key's own; a
+    window counts where every key was seen at least `calls` times, else the
+    next is tried.  None where no window counted."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    for _ in range(windows):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        per = {k: [0.0, 0] for k in keys}
+        for ev in prof.key_averages():
+            if ev.device_type != DeviceType.CUDA:
+                continue
+            for k in keys:
+                if k in ev.key:
+                    dt = getattr(ev, "self_device_time_total", None)
+                    per[k][0] += ev.self_cuda_time_total if dt is None else dt
+                    per[k][1] += ev.count
+        if all(n >= calls for _, n in per.values()):
+            return {"kernel_device_ms": sum(t for t, _ in per.values()) / calls / 1e3,
+                    **{f"device_ms_{k}": t / calls / 1e3 for k, (t, _) in per.items()},
+                    **{f"launches_seen_{k}": n for k, (_, n) in per.items()}}
+    return {"kernel_device_ms": None}
+
+
+WIDE_KEYS_SCORE = ("wide_log_b_kernel", "vocab_scores_kernel")
+WIDE_KEYS_DECODE = ("wide_log_b_kernel", "word_loop_decode_kernel")
+
+
+def phase_timing_full39(torch, f13: dict, dec: dict, smi: str) -> dict:
+    """#1 at full13_d39 and #6-#8 at dec_w200_full39 (K=1 unigram, K=2 and
+    K=3 bigram): CUDA events around the call, kernel median of 10 (5 at
+    dec_w200_full39) after warm-up twice; the twin: full13_d39's two runs
+    before and after, dec_w200_full39's one run of the phase (plain_ms,
+    the whole T); each call's device time by kernel (the emission pass and
+    the recursion; torch.profiler over 3 calls); each bound from its
+    inputs (bound(), mixture_ops over L^T's triangle)."""
+    from srhmm_tpu_torch.ops.kernels import scoring as ks
+
+    saved = wide_counts()
+    out = {}
+    args, kw = f13["args"], f13["kw"]
+    call = lambda: ks.vocab_scores(*args, **kw)  # noqa: E731
+    plain_a = median_ms(torch, lambda: ks.vocab_scores_plain(*args, **kw), warmup=0, reps=1)
+    kern = [median_ms(torch, call, warmup=2, reps=10) for _ in range(2)]
+    plain_b = median_ms(torch, lambda: ks.vocab_scores_plain(*args, **kw), warmup=0, reps=1)
+    feats, a, bias_g, bias, logw, diag, lengths = args
+    T, D, B = feats.shape
+    N, M = a.shape[1], a.shape[0] // D
+    frames = valid_frames(lengths.tolist(), T)
+    bnd = bound(4 * frames * D + numel_bytes(a, bias_g, bias, logw, diag, lengths) + 4 * N * B,
+                frames * N * (mixture_ops(D, M, True) + 4 * (kw["band"] + 1) + 4))
+    ms = min(kern)
+    row = {"kernel_ms": kern, "plain_ms": [plain_a, plain_b], "ms": ms, "best_plain_ms": min(plain_a, plain_b),
+           **bnd, **device_ms_keys(torch, call, WIDE_KEYS_SCORE),
+           "audio_s_per_s": frames * FRAME_S / (ms / 1e3)}
+    row["share_of_bound"] = bnd["bound_ms"] / (row["kernel_device_ms"] or ms)
+    out["full13_d39"] = row
+    emit({"phase": "timing_full39", "config": "full13_d39", "B": B, "T": T, "frames": frames, "kernel_reps": 10,
+          "plain_reps": 1, **row, "card": smi})
+    for K in (1, 2, 3):
+        args, kw = dec["ops"][K]
+        call = lambda: decode_kernel(args, kw, K)  # noqa: E731
+        kern = [median_ms(torch, call, warmup=2, reps=5) for _ in range(2)]
+        ms = min(kern)
+        bnd = decode_bound(args, kw, K)
+        row = {"kernel_ms": kern, "plain_ms": [dec["runs"][K]["plain_ms"]], "ms": ms,
+               "best_plain_ms": dec["runs"][K]["plain_ms"], **bnd, **device_ms_keys(torch, call, WIDE_KEYS_DECODE)}
+        row["share_of_bound"] = bnd["bound_ms"] / (row["kernel_device_ms"] or ms)
+        out[K] = row
+        emit({"phase": "timing_full39", "config": f"dec_w200_full39_K{K}", "kernel_reps": 5, "plain_reps": 1,
+              **row, "card": smi})
+    set_wide_counts(saved)  # timing launches are not main-path launches
+    return out
+
+
 def wide_fields(row: dict, cell: str, launches=None) -> dict:
     """A cell's fields of the kernels line: ms, plain_ms, bound_ms,
     bound_by and, where timed, kernel_device_ms, suffixed with the cell;
@@ -5353,9 +5811,9 @@ def main() -> int:
 
     info = phase_device(torch)
     phase_build()
-    worst_abs = phase_kernel(torch)
+    worst_abs, worst_score_wide = phase_kernel(torch)
     worst_em = phase_kernel_em(torch)
-    worst_dec = phase_kernel_decode(torch)
+    worst_dec, worst_dec_wide = phase_kernel_decode(torch)
     worst_comp = phase_kernel_composed(torch)
     worst_mfcc = phase_kernel_mfcc(torch)
     worst_lat = phase_kernel_lattice(torch)
@@ -5409,6 +5867,10 @@ def main() -> int:
         for name, _ in COMPOSED_ROWS:
             if comp39_launches[name] < 1:
                 raise AssertionError(f"the emb_full39 / tied_full39 main path launched {name} 0 times")
+        # #1 and #6-#8 at full covariance D = 39 (the emission pass): each
+        # phase counts its own launches from 0
+        f13 = phase_full13_d39(torch)
+        dec39 = phase_dec_w200_full39(torch)
         # multi-device training on spawned ranks and under torchrun; the
         # ranks count their own launches (phase_multi)
         multi = phase_multi(torch, train_diag, main_full, emb, tied, pipe, tmp / "train_embedded_cli", tmp,
@@ -5426,6 +5888,7 @@ def main() -> int:
         t_em39 = phase_timing_em(torch, em39, info["nvidia_smi"], plain_reps=3)
         t_comp39 = phase_timing_composed(torch, emb39, tied39, info["nvidia_smi"], cells=("emb_full39", "tied_full39"),
                                          plain_reps=3)
+        t_39 = phase_timing_full39(torch, f13, dec39, info["nvidia_smi"])
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     fused_src = "srhmm_tpu_torch/csrc/fused_em.cu"
@@ -5458,6 +5921,11 @@ def main() -> int:
             "kernel_device_ms": t_full["kernel_device_ms"],
             # the same kernel at diag10 (W=10, S=8, M=4, D=13 diagonal)
             **{f"{k}_diag10": t_diag[k] for k in ("ms", "plain_ms", "kernel_device_ms", *bkeys)},
+            # full covariance at D = 39: full13_d39 (the emission pass csrc/wide_log_b.cu, then the
+            # recursion; kernel_device_ms sums both, wide_log_b_launches counts the pass)
+            **wide_fields(t_39["full13_d39"], "full13_d39", f13["launches"]["vocab_scores"]),
+            "wide_log_b_launches_full13_d39": f13["launches"]["wide_log_b"],
+            "max_abs_err_full_wide": max(worst_score_wide, f13["worst_abs"]),
         },
         {
             "name": "emit_forward",
@@ -5515,6 +5983,10 @@ def main() -> int:
             "plain_ms": t_dec[K]["best_plain_ms"],
             **{k: t_dec[K][k] for k in bkeys},
             "library_ms": None,
+            # full covariance at D = 39: dec_w200_full39 (the emission pass, then the recursion)
+            **wide_fields(t_39[K], "dec_w200_full39", dec39["launches"][name]),
+            "wide_log_b_launches_dec_w200_full39": dec39["launches"]["wide_log_b"],
+            "max_abs_err_full_wide": max(worst_dec_wide[name], dec39["worst_abs"][name], dec39["log_b_abs"]),
         }
         for name, K, where in decode_rows
     ] + [

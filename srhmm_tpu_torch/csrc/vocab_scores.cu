@@ -51,6 +51,20 @@
 // flight: one 640-thread block an SM (the emission's registers) holds up to
 // 8 recursion warps.  Later work: registers rebalanced between the kinds of
 // warp (setmaxnreg).
+//
+// Full covariance past D = 16 (the instances FULL at DMAX 32 and 64,
+// kWide).  There the emission, M (D (D + 1) / 2 + D) FMAs a row and frame,
+// is the whole bound, and one column an emission thread ran it as serial
+// chains over all DMAX columns of L^T with a load per 4 FMAs, its records
+// (246 KB a word at D = 39) from device memory.  So csrc/wide_log_b.cu
+// computes log b first, as z-GEMM blocks, into a buffer laid out (ceil(B /
+// U), frames, W S, U) (ops/kernels/scoring.py _vocab_scores_wide), and
+// these instances read it: the emission warps copy each tile's runs of nw S
+// U floats by cp.async (copy_tile), the memory warp stages nothing, the
+// constant blocks hold the diagonals only.  The recursion is the same code
+// on the same log b.  A launch steps the frames [t0, t1): a call whose log
+// b passes common.WIDE_LOG_B_BYTES is split over launches (utterances, or
+// frames, the carry kept in out between them).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -85,7 +99,13 @@ struct Params {
   int rec_warps, em_warps;
   int consts_global;    // the constants read from device memory, not shared memory
   int viterbi;          // the (max, +) semiring, not (logsumexp, +)
-  int sum_dims;         // sum_p D_p
+  int sum_dims;         // sum_p D_p (0 at full covariance past D = 16: no features staged)
+  int ldo;              // floats between two rows of out
+  // full covariance past D = 16 (kWide): csrc/wide_log_b.cu's log b,
+  // (ceil(B / U), lb_frames, W S, U) from frame t0, and the frames [t0, t1)
+  // this launch steps, the carry read from out where t0 > 0
+  const float* lb;
+  int lb_frames, t0, t1;
 };
 
 // The records of a word block follow csrc/emission.cuh (log w folded into
@@ -105,6 +125,22 @@ __host__ __device__ inline size_t vocab_floats(const Params& p) {
 
 __device__ __forceinline__ void named_barrier(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// Full covariance past D = 16: tile k's log b (n frames from t_lo) copied
+// from the emission pass's buffer into lbt, one run of nw S U floats a
+// frame (the tile's (WB, S, U) layout), by 4-byte cp.async; copy thread e
+// of n_em.
+__device__ __forceinline__ void copy_tile(const Params& p, float* lbt, int t_lo, int n, int ub, int w0, int nw,
+                                          int e, int n_em) {
+  const int run = nw * p.S * p.U;
+  const size_t fs = (size_t)p.W * p.S * p.U, row = (size_t)p.S * p.U * p.WB;  // floats a frame: buffer, tile
+  const float* src = p.lb + ((size_t)ub * p.lb_frames + (t_lo - p.t0)) * fs + (size_t)w0 * p.S * p.U;
+  for (int i = e; i < n * run; i += n_em) {
+    const int f = i / run, j = i - f * run;
+    cp_async4(lbt + f * row + j, src + f * fs + j, true);
+  }
+  cp_async_commit();
 }
 
 // log b of one tile (n frames) for the block's nw words: emission thread e
@@ -158,9 +194,13 @@ __device__ __forceinline__ void emission_tile(const Params& p, const float* cst,
 }
 
 // The block's three kinds of warp (see the note at the top); the tiles go
-// up in time, one barrier closes each step and two open the first.
+// up in time, one barrier closes each step and two open the first.  At
+// full covariance past D = 16 (kWide) csrc/wide_log_b.cu has written log b
+// before the launch: the emission warps copy its tiles (copy_tile), the
+// memory warp stages nothing, and the launch steps the frames [t0, t1).
 template <int DMAX, bool FULL, int NSL>
 __global__ void __launch_bounds__(kThreads) vocab_scores_kernel(const __grid_constant__ Params p) {
+  constexpr bool kWide = FULL && DMAX > 16;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int S = p.S, U = p.U, TT = p.TT, P = U * p.WB, tid = threadIdx.x;
@@ -184,53 +224,78 @@ __global__ void __launch_bounds__(kThreads) vocab_scores_kernel(const __grid_con
     *t_blk = m;
   }
   __syncthreads();
-  const int T = *t_blk, n_tiles = (T + TT - 1) / TT;
+  const int t_first = kWide ? p.t0 : 0;
+  const int T = kWide ? min(*t_blk, p.t1) : *t_blk, n_tiles = (T - t_first + TT - 1) / TT;
+  if (kWide && n_tiles <= 0) return;  // the block's utterances end before t0: out holds their carry
 
-  if (tid >= n_rec + n_em) {
-    // ---- the memory warp(s): tile k's features into slot k & 1 ----
-    const int n_mem = blockDim.x - n_rec - n_em;
-    auto stage = [&](int k) {
-      const int t0 = k * TT;
-      float* f = xs + (k & 1) * x_tile;
-      for (int q = 0; q < p.n_streams; ++q) {
-        stage_rows_async(f, p.dims[q] * U, U, p.feats[q], t0, min(TT, T - t0), p.dims[q], p.T, p.B, b0, U,
-                         n_rec + n_em, n_mem);
-        f += (size_t)TT * p.dims[q] * U;
+  if constexpr (kWide) {
+    if (tid >= n_rec + n_em) {
+      for (int k = 0; k < n_tiles + 2; ++k) __syncthreads();  // no features: the block's barriers only
+      return;
+    }
+    if (tid >= n_rec) {
+      // ---- the copy warps: tile k+1's log b while the recursion runs tile k ----
+      const int e = tid - n_rec;
+      __syncthreads();
+      copy_tile(p, lbs, t_first, min(TT, T - t_first), ub, w0, nw, e, n_em);
+      cp_async_wait<0>();
+      __syncthreads();
+      for (int k = 0; k < n_tiles; ++k) {
+        const int t_lo = t_first + (k + 1) * TT;
+        if (k + 1 < n_tiles) {
+          copy_tile(p, lbs + ((k + 1) & 1) * s_tile, t_lo, min(TT, T - t_lo), ub, w0, nw, e, n_em);
+          cp_async_wait<0>();
+        }
+        __syncthreads();
       }
-      cp_async_commit();
-    };
-    stage(0);
-    if (n_tiles > 1) {
-      stage(1);
-      cp_async_wait<1>();
-    } else {
+      return;
+    }
+  } else {
+    if (tid >= n_rec + n_em) {
+      // ---- the memory warp(s): tile k's features into slot k & 1 ----
+      const int n_mem = blockDim.x - n_rec - n_em;
+      auto stage = [&](int k) {
+        const int t0 = k * TT;
+        float* f = xs + (k & 1) * x_tile;
+        for (int q = 0; q < p.n_streams; ++q) {
+          stage_rows_async(f, p.dims[q] * U, U, p.feats[q], t0, min(TT, T - t0), p.dims[q], p.T, p.B, b0, U,
+                           n_rec + n_em, n_mem);
+          f += (size_t)TT * p.dims[q] * U;
+        }
+        cp_async_commit();
+      };
+      stage(0);
+      if (n_tiles > 1) {
+        stage(1);
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();  // tile 0's features are in
       cp_async_wait<0>();
+      __syncthreads();  // tile 0's log b and tile 1's features are in
+      for (int k = 0; k < n_tiles; ++k) {
+        // tile k+2 goes into the slot of tile k, read last step
+        if (k + 2 < n_tiles) stage(k + 2);
+        cp_async_wait<0>();
+        __syncthreads();
+      }
+      return;
     }
-    __syncthreads();  // tile 0's features are in
-    cp_async_wait<0>();
-    __syncthreads();  // tile 0's log b and tile 1's features are in
-    for (int k = 0; k < n_tiles; ++k) {
-      // tile k+2 goes into the slot of tile k, read last step
-      if (k + 2 < n_tiles) stage(k + 2);
-      cp_async_wait<0>();
+    if (tid >= n_rec) {
+      // ---- the emission warps: tile k+1's log b while the recursion runs tile k ----
+      const int e = tid - n_rec;
+      __syncthreads();  // tile 0's features are in
+      emission_tile<DMAX, FULL>(p, cst, xs, lbs, min(TT, T), nw, e, n_em);
       __syncthreads();
+      for (int k = 0; k < n_tiles; ++k) {
+        if (k + 1 < n_tiles)
+          emission_tile<DMAX, FULL>(p, cst, xs + ((k + 1) & 1) * x_tile, lbs + ((k + 1) & 1) * s_tile,
+                                    min(TT, T - (k + 1) * TT), nw, e, n_em);
+        __syncthreads();
+      }
+      return;
     }
-    return;
-  }
-
-  if (tid >= n_rec) {
-    // ---- the emission warps: tile k+1's log b while the recursion runs tile k ----
-    const int e = tid - n_rec;
-    __syncthreads();  // tile 0's features are in
-    emission_tile<DMAX, FULL>(p, cst, xs, lbs, min(TT, T), nw, e, n_em);
-    __syncthreads();
-    for (int k = 0; k < n_tiles; ++k) {
-      if (k + 1 < n_tiles)
-        emission_tile<DMAX, FULL>(p, cst, xs + ((k + 1) & 1) * x_tile, lbs + ((k + 1) & 1) * s_tile,
-                                  min(TT, T - (k + 1) * TT), nw, e, n_em);
-      __syncthreads();
-    }
-    return;
   }
 
   // ---- the recursion warps ----
@@ -262,12 +327,16 @@ __global__ void __launch_bounds__(kThreads) vocab_scores_kernel(const __grid_con
     lt_in[kk] = on ? diag[kk * S + s] : 0.f;
     ok |= on ? 1u << kk : 0u;
   }
+  float carry = kNegInf;
+  if (kWide && t_first > 0) {  // a later launch of one call: the carry from out
+    if (live) carry = p.out[((size_t)(w0 + wl) * S + s) * p.ldo + b];
+    if ((NSL == 0 || Wn > 1) && th) rows[((t_first - 1) & 1) * row + (size_t)s * P + pr] = carry;
+  }
   __syncthreads();  // tile 0's features are in
   __syncthreads();  // tile 0's log b is in
   const int off = (wl * S + sc) * U + u;
-  float carry = kNegInf;
   for (int k = 0; k < n_tiles; ++k) {
-    const int t_lo = k * TT, t_hi = min(T, t_lo + TT);
+    const int t_lo = t_first + k * TT, t_hi = min(T, t_lo + TT);
     const float* lbt = lbs + (k & 1) * s_tile;
     float lbn = lbt[off];
     for (int t = t_lo; t < t_hi; ++t) {
@@ -314,7 +383,7 @@ __global__ void __launch_bounds__(kThreads) vocab_scores_kernel(const __grid_con
     }
     __syncthreads();
   }
-  if (live) p.out[((size_t)(w0 + wl) * S + s) * p.B + b] = carry;
+  if (live) p.out[((size_t)(w0 + wl) * S + s) * p.ldo + b] = carry;
 }
 
 using KernelFn = void (*)(Params);
@@ -361,19 +430,27 @@ extern "C" {
 // (32 / S pairs a warp for S <= 32, else ceil(S / 32) warps a pair),
 // em_warps emission warps and the rest of kThreads memory warps, the
 // constants in device memory (consts_global) or shared memory, nsl
-// transition slots unrolled (2, 4, 8 > band; 0 = the generic loop).
+// transition slots unrolled (2, 4, 8 > band; 0 = the generic loop).  out
+// has rows of ldo floats (>= B).  Full covariance at dmax 32 or 64 (the
+// kernel's wide instances): lb is csrc/wide_log_b.cu's log b, (ceil(B / U),
+// t1 - t0, W S, U), the launch steps the frames [t0, t1) and reads the carry
+// from out where t0 > 0; consts holds the diagonals only, no features are
+// read.  Otherwise lb is null, t0 = 0 and t1 = T.
 int srhmm_vocab_scores(const void* const* feats, const int* dims, const int* mixes,
                        const int* offs, int n_streams, const void* consts, int C,
                        int diag_off, const void* lengths, void* out, int T, int B, int W, int S,
                        int band, int full, int viterbi, int dmax, int U, int WB, int TT, int rec_warps,
-                       int em_warps, int consts_global, int nsl, int device, void* stream) {
+                       int em_warps, int consts_global, int nsl, const void* lb, int t0, int t1, int ldo,
+                       int device, void* stream) {
+  const bool wide = full && dmax > 16;
   const int P = U * WB;
   const int need = S <= 32 ? (P + 32 / S - 1) / (32 / S) : P * ((S + 31) / 32);
   const long long blocks = (long long)((B + U - 1) / max(U, 1)) * ((W + WB - 1) / max(WB, 1));
   if (n_streams < 1 || n_streams > kMaxStreams || C % 4 != 0 || W < 1 || B < 1 || T < 1 || S < 1 ||
       S > kMaxStates || band < 0 || U < 1 || 32 % U != 0 || WB < 1 || TT < 1 || rec_warps != need ||
       em_warps < 1 || 32 * (rec_warps + em_warps) >= kThreads || (nsl > 0 && band >= nsl) ||
-      blocks > 0x7fffffffLL) {
+      blocks > 0x7fffffffLL || ldo < B || (wide != (lb != nullptr)) || t0 < 0 || t1 <= t0 || t1 > T ||
+      (!wide && (t0 != 0 || t1 != T))) {
     return (int)cudaErrorInvalidValue;
   }
   const KernelFn kernel = kernel_for(dmax, full, nsl);
@@ -409,7 +486,12 @@ int srhmm_vocab_scores(const void* const* feats, const int* dims, const int* mix
   p.em_warps = em_warps;
   p.consts_global = consts_global;
   p.viterbi = viterbi;
-  p.sum_dims = sum_dims;
+  p.sum_dims = wide ? 0 : sum_dims;
+  p.ldo = ldo;
+  p.lb = static_cast<const float*>(lb);
+  p.lb_frames = t1 - t0;
+  p.t0 = t0;
+  p.t1 = t1;
   const size_t smem = sizeof(float) * vocab_floats(p);
   if (smem > 48 * 1024) {
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

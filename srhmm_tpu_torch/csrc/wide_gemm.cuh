@@ -1,6 +1,8 @@
 // The z-GEMM of full covariance past D = 16, shared by the Hopper kernels
-// of csrc/composed.cu (bank_emission_wide_kernel, bank_moments_wide_kernel)
-// and csrc/fused_em.cu (em_emission_wide_kernel, em_moments_wide_kernel):
+// of csrc/composed.cu (bank_emission_wide_kernel, bank_moments_wide_kernel),
+// csrc/fused_em.cu (em_emission_wide_kernel, em_moments_wide_kernel) and
+// csrc/wide_log_b.cu (wide_log_b_kernel, the emission pass of the
+// vocabulary scorer and the word-loop decoder):
 // the staged record layout, the record slices streamed by cp.async, the
 // register-blocked fp32 z = c + L^T x of 32 frames a warp (wide_q), and the
 // moment contraction of the lower triangle of x x^T on the tensor cores in
@@ -89,7 +91,18 @@ __device__ __forceinline__ void copy_slice_async(float* dst, const float* rec, i
   }
 }
 
-// The z-GEMM, shared by the four kernels: the weighted log-likelihood of one
+// Start the copies of n mixtures' records that are already in the staged
+// layout (ops/kernels/common.py wide_records: wide_mix_floats(RB) floats a
+// mixture, back to back from rec) into dst: one contiguous run of 16-byte
+// copies, no index arithmetic beyond the offset.
+template <int RB>
+__device__ __forceinline__ void copy_staged_async(float* dst, const float* rec, int n) {
+  constexpr int MF = wide_mix_floats(RB);
+  static_assert(MF % 4 == 0, "a staged record is a whole number of float4");
+  for (int i = threadIdx.x; i < n * (MF / 4); i += blockDim.x) cp_async16(dst + 4 * i, rec + 4 * i);
+}
+
+// The z-GEMM, shared by the kernels: the weighted log-likelihood of one
 // mixture (its staged records w) at the 32 frames of xs, one frame a lane.
 // Lane 4 tau + t holds frames f * 8 + tau (f < 4) and the components
 // d = 4 i + t (i < RB / 4) of z = c + L^T x, each z_d one fmaf chain from

@@ -79,6 +79,15 @@
 // T K N B int32 (0.82 GB at K = 1, 2.46 GB at K = 3), coalesced because an
 // utterance's frame is contiguous in the kernel's (B, T, N, K) layout.
 // B = 128 utterances give 128 blocks on 132 SMs: one wave.
+//
+// Full covariance past D = 16 (the WIDE instances).  The emission is then
+// M (D (D + 1) / 2 + D) FMAs a row and frame (dec_w200_full39: ~1.1e12
+// flops), which one row a thread ran over all dmax columns of L^T with
+// uncoalesced record loads, every block re-reading the vocabulary's records
+// (65.6 MB at W = 200, S = 8, M = 4, D = 39, past the 50 MB L2) each chunk.
+// There csrc/wide_log_b.cu computes log b of every stepped (utterance,
+// frame) first, as z-GEMM blocks, into a (B, T, N) buffer, and each chunk's
+// emission becomes a copy of one contiguous run of it into lbs.
 
 #include <climits>
 #include <cuda_runtime.h>
@@ -118,14 +127,20 @@ struct DecodeParams {
   int* bp;               // (B, T, N, K)
   int T, B, N, S, W, band, bigram, frames;
   int groups;            // bigram: threads a destination (source groups), a power of two <= 32
+  // full covariance past D = 16 (WIDE): csrc/wide_log_b.cu's log b, (B,
+  // t_end - t_begin, N) from frame t_begin, and the frames [t_begin, t_end)
+  // this launch steps, the carry read from final_out where t_begin > 0
+  const float* lb;
+  int t_begin, t_end;
 };
 
 __host__ __device__ inline int r4(int x) { return (x + 3) & ~3; }
 
-// Dynamic shared memory of a block, in floats (ops/kernels/decode.py smem_bytes).
+// Dynamic shared memory of a block, in floats (ops/kernels/decode.py
+// smem_bytes): no features where the emission pass wrote log b (wide).
 __host__ __device__ inline size_t smem_floats(int N, int W, int K, int P, int dmax, int bigram,
-                                              int F) {
-  return (size_t)r4(2 * K * N) + r4(F * N) + (size_t)F * P * dmax + kRedWords +
+                                              int F, bool wide) {
+  return (size_t)r4(2 * K * N) + r4(F * N) + (wide ? 0 : (size_t)F * P * dmax) + kRedWords +
          (bigram ? (size_t)3 * K * W : 0);
 }
 
@@ -737,16 +752,25 @@ __device__ __forceinline__ void decode_step(const DecodeParams& p, const float* 
   __syncthreads();
 }
 
-template <int K, bool FULL>
+// WIDE (full covariance past D = 16): csrc/wide_log_b.cu has written log b
+// before the launch, each chunk's (nf, N) of it is one contiguous run that
+// the block copies into lbs in place of the emission, no features are
+// staged, and the launch steps the frames [t_begin, t_end) of the call
+// (ops/kernels/decode.py splits a call whose log b passes
+// common.WIDE_LOG_B_BYTES), the carry read back from final_out where
+// t_begin > 0.  The recursion, the cross-word merges and the pointers are
+// the same code on the same log b.
+template <int K, bool FULL, bool WIDE>
 __global__ void __launch_bounds__(kMaxThreads) word_loop_decode_kernel(const DecodeParams p) {
+  static_assert(FULL || !WIDE, "the emission pass is full covariance only");
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int N = p.N, W = p.W, P = p.n_streams, dmax = p.dmax, F = p.frames;
   const int nt = blockDim.x, tid = threadIdx.x, b = blockIdx.x;
   float* carry = smem;               // [2][K][N]
   float* lbs = carry + r4(2 * K * N);  // [F][N] log b of the chunk's frames
-  float* xs = lbs + r4(F * N);        // [F][P][dmax] features
-  float* red = xs + F * P * dmax;     // kRedWords
+  float* xs = lbs + r4(F * N);        // [F][P][dmax] features (none when WIDE)
+  float* red = xs + (WIDE ? 0 : F * P * dmax);  // kRedWords
   float* ew = red + kRedWords;        // bigram: [K][W] exit tokens per word
   float* xvw = ew + K * W;            // bigram: [K][W] cross values
   int* xbpw = reinterpret_cast<int*>(xvw + K * W);  // bigram: [K][W] cross pointers
@@ -754,38 +778,56 @@ __global__ void __launch_bounds__(kMaxThreads) word_loop_decode_kernel(const Dec
   const int tend = min(max(p.lengths[b], 1), p.T);  // frames stepped; frame 0 always
   int* bpb = p.bp + (size_t)b * p.T * N * K;
   int round = 0;
-  for (int t0 = 0; t0 < tend; t0 += F) {
-    const int nf = min(F, tend - t0);
-    // the previous chunk's emission has read xs: every thread passed a frame's barrier since
-    for (int i = tid; i < nf * P * dmax; i += nt) {
-      const int e = i % dmax, fq = i / dmax, q = fq % P, f = fq / P;
-      float x = 0.f;
-      if (e < p.dims[q])
-        x = __ldg(p.feats[q] + (t0 + f) * p.fst[q][0] + e * p.fst[q][1] + b * p.fst[q][2]);
-      xs[i] = x;
-    }
-    __syncthreads();
-    // log b = ((0 + s_0) + s_1) + ... over the streams; 0 + s_0 is s_0 (a
-    // logsumexp is never -0.0), so stream 0 is stored as it is
-    for (int r = tid; r < N; r += nt) {
-      for (int q = 0; q < P; ++q) {
-        float mx[kFramesMax], ev[kFramesMax];
+  const int t_first = WIDE ? p.t_begin : 0, t_stop = WIDE ? min(tend, p.t_end) : tend;
+  if (WIDE && t_first > 0 && t_first < t_stop) {  // a later launch of one call: the carry from final_out
+    for (int i = tid; i < K * N; i += nt) carry[((t_first - 1) & 1) * K * N + i] = p.final_out[(size_t)b * K * N + i];
+  }
+  for (int t0 = t_first; t0 < t_stop; t0 += F) {
+    const int nf = min(F, t_stop - t0);
+    if constexpr (WIDE) {
+      // the chunk's log b, one run of nf N floats; the previous chunk's
+      // frames have read lbs: every thread passed a frame's barrier since
+      const float* src = p.lb + ((size_t)b * (p.t_end - p.t_begin) + (t0 - p.t_begin)) * N;
+      if ((N & 3) == 0) {
+        const float4* s4 = reinterpret_cast<const float4*>(src);
+        float4* d4 = reinterpret_cast<float4*>(lbs);
+        for (int i = tid; i < nf * N / 4; i += nt) d4[i] = __ldcs(s4 + i);
+      } else {
+        for (int i = tid; i < nf * N; i += nt) lbs[i] = __ldcs(src + i);
+      }
+      __syncthreads();
+    } else {
+      // the previous chunk's emission has read xs: every thread passed a frame's barrier since
+      for (int i = tid; i < nf * P * dmax; i += nt) {
+        const int e = i % dmax, fq = i / dmax, q = fq % P, f = fq / P;
+        float x = 0.f;
+        if (e < p.dims[q])
+          x = __ldg(p.feats[q] + (t0 + f) * p.fst[q][0] + e * p.fst[q][1] + b * p.fst[q][2]);
+        xs[i] = x;
+      }
+      __syncthreads();
+      // log b = ((0 + s_0) + s_1) + ... over the streams; 0 + s_0 is s_0 (a
+      // logsumexp is never -0.0), so stream 0 is stored as it is
+      for (int r = tid; r < N; r += nt) {
+        for (int q = 0; q < P; ++q) {
+          float mx[kFramesMax], ev[kFramesMax];
 #pragma unroll
-        for (int f = 0; f < kFramesMax; ++f) {
-          mx[f] = kNegInf;
-          ev[f] = 0.f;
-        }
-        stream_log_b<FULL>(p, q, r, xs, nf, mx, ev);
+          for (int f = 0; f < kFramesMax; ++f) {
+            mx[f] = kNegInf;
+            ev[f] = 0.f;
+          }
+          stream_log_b<FULL>(p, q, r, xs, nf, mx, ev);
 #pragma unroll
-        for (int f = 0; f < kFramesMax; ++f) {
-          if (f < nf) {
-            const float s = lse_value(mx[f], ev[f]);
-            lbs[f * N + r] = (q == 0) ? s : lbs[f * N + r] + s;
+          for (int f = 0; f < kFramesMax; ++f) {
+            if (f < nf) {
+              const float s = lse_value(mx[f], ev[f]);
+              lbs[f * N + r] = (q == 0) ? s : lbs[f * N + r] + s;
+            }
           }
         }
       }
+      __syncthreads();
     }
-    __syncthreads();
     for (int f = 0; f < nf; ++f) {
       const int t = t0 + f;
       float* cur = carry + (t & 1) * K * N;
@@ -808,14 +850,16 @@ __global__ void __launch_bounds__(kMaxThreads) word_loop_decode_kernel(const Dec
   }
   // frames past the length: identity pointers, the carry kept
   const int fk = N * K;
-  for (size_t i = (size_t)tend * fk + tid; i < (size_t)p.T * fk; i += nt) bpb[i] = (int)(i % fk);
-  const float* last = carry + ((tend - 1) & 1) * K * N;
+  const int id_lo = WIDE ? max(tend, t_first) : tend, id_hi = WIDE ? p.t_end : p.T;
+  for (size_t i = (size_t)id_lo * fk + tid; i < (size_t)id_hi * fk; i += nt) bpb[i] = (int)(i % fk);
+  if (WIDE && t_first >= t_stop) return;  // no frame stepped: final_out holds the carry
+  const float* last = carry + ((t_stop - 1) & 1) * K * N;
   for (int i = tid; i < K * N; i += nt) p.final_out[(size_t)b * K * N + i] = last[i];
 }
 
-template <int K, bool FULL>
+template <int K, bool FULL, bool WIDE>
 cudaError_t launch(const DecodeParams& p, int threads, size_t smem, cudaStream_t stream) {
-  auto kernel = word_loop_decode_kernel<K, FULL>;
+  auto kernel = word_loop_decode_kernel<K, FULL, WIDE>;
   if (smem > 48 * 1024) {
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -825,13 +869,13 @@ cudaError_t launch(const DecodeParams& p, int threads, size_t smem, cudaStream_t
   return cudaGetLastError();
 }
 
-template <bool FULL>
+template <bool FULL, bool WIDE>
 cudaError_t dispatch(const DecodeParams& p, int K, int threads, size_t smem, cudaStream_t stream) {
   switch (K) {
-    case 1: return launch<1, FULL>(p, threads, smem, stream);
-    case 2: return launch<2, FULL>(p, threads, smem, stream);
-    case 3: return launch<3, FULL>(p, threads, smem, stream);
-    case 4: return launch<4, FULL>(p, threads, smem, stream);
+    case 1: return launch<1, FULL, WIDE>(p, threads, smem, stream);
+    case 2: return launch<2, FULL, WIDE>(p, threads, smem, stream);
+    case 3: return launch<3, FULL, WIDE>(p, threads, smem, stream);
+    case 4: return launch<4, FULL, WIDE>(p, threads, smem, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -845,18 +889,25 @@ extern "C" {
 // are host arrays of n_streams entries; every pointer they hold and every
 // other pointer argument is a device pointer.  groups: threads a bigram
 // destination, a power of two <= 32 with groups * W <= threads (1 for a
-// unigram).
+// unigram).  Full covariance at dmax 32 or 64 (the WIDE instances): lb is
+// csrc/wide_log_b.cu's log b, (B, t_end - t_begin, N), the launch steps the
+// frames [t_begin, t_end) and reads the carry from final_out where t_begin
+// > 0, consts and the features are not read.  Otherwise lb is null,
+// t_begin = 0 and t_end = T.
 int srhmm_word_loop_decode(const void* const* feats, const long long* fstrides, const int* dims,
                            const int* mixes, const int* offs, int n_streams, int dmax,
                            const void* consts, const void* diag, const void* arc, const void* entry,
                            const void* exitc, const void* exit_row, const void* arc_range, const void* lengths,
                            void* final_out, void* bp, int T, int B, int N, int S, int band,
-                           int bigram, int K, int full, int frames, int threads, int groups, int device,
-                           void* stream) {
+                           int bigram, int K, int full, int frames, int threads, int groups, const void* lb,
+                           int t_begin, int t_end, int device, void* stream) {
+  const bool wide = full && dmax > 16;
   if (n_streams < 1 || n_streams > kMaxStreams || threads < 32 || threads > kMaxThreads || (bigram && S < 2) ||
       threads % 32 != 0 || K < 1 || K > kMaxK || frames < 1 || frames > kFramesMax ||
       dmax < 4 || dmax % 4 != 0 || B < 1 || T < 1 || S < 1 || N < S || N % S != 0 || band < 0 ||
-      groups < 1 || groups > 32 || (groups & (groups - 1)) != 0 || (groups > 1 && groups * (N / S) > threads)) {
+      groups < 1 || groups > 32 || (groups & (groups - 1)) != 0 || (groups > 1 && groups * (N / S) > threads) ||
+      wide != (lb != nullptr) || t_begin < 0 || t_end <= t_begin || t_end > T ||
+      (!wide && (t_begin != 0 || t_end != T))) {
     return (int)cudaErrorInvalidValue;
   }
   cudaError_t err = cudaSetDevice(device);
@@ -891,9 +942,13 @@ int srhmm_word_loop_decode(const void* const* feats, const long long* fstrides, 
   p.bigram = bigram;
   p.frames = frames;
   p.groups = groups;
-  const size_t smem = sizeof(float) * smem_floats(N, p.W, K, n_streams, dmax, bigram, frames);
+  p.lb = static_cast<const float*>(lb);
+  p.t_begin = t_begin;
+  p.t_end = t_end;
+  const size_t smem = sizeof(float) * smem_floats(N, p.W, K, n_streams, dmax, bigram, frames, wide);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return (int)(full ? dispatch<true>(p, K, threads, smem, st) : dispatch<false>(p, K, threads, smem, st));
+  if (wide) return (int)dispatch<true, true>(p, K, threads, smem, st);
+  return (int)(full ? dispatch<true, false>(p, K, threads, smem, st) : dispatch<false, false>(p, K, threads, smem, st));
 }
 
 }  // extern "C"

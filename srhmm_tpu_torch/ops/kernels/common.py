@@ -38,6 +38,12 @@ WIDE_THREADS = 256  # threads of a block: 8 warps
 WIDE_FRAMES = 128  # frames (columns) of a z-GEMM tile, 32 a warp
 WIDE_SLICE = 2  # mixtures of a record slice (two slice buffers)
 WIDE_GROUP = 8  # mixtures of a moments block: one mma n tile
+# the log b buffer of the vocabulary scorer's and the word-loop decoder's
+# emission pass (csrc/wide_log_b.cu) at full covariance past D = 16: one
+# launch of the pass and its recursion holds at most this many bytes of it
+# (ops/kernels/wide_emission.py plan_parts splits a call's utterances, and
+# the frames of an utterance past it, over launches)
+WIDE_LOG_B_BYTES = 1 << 30
 
 
 def wide_lift_rows(D: int) -> int:
@@ -139,3 +145,21 @@ def mixture_records(a, bias_g, bias, logw, D: int, M: int, W: int, S: int, full:
         if logw is not None:
             rec[..., 2 * dmax + 1 : 2 * dmax + 2] = logw
     return rec.reshape(W, -1)
+
+
+def wide_records(a, bias_g, bias, logw, D: int, M: int, N: int, rb: int) -> torch.Tensor:
+    """One stream's packed full-covariance constants (pack_vocab_constants:
+    a (M*D, N, D), bias_g (M*D, N, 1), bias and logw (M, N, 1)) in
+    csrc/wide_gemm.cuh's staged layout at register bound rb, flat: N*M
+    records of wide_mix_floats(rb) = (rb + 1) * (rb + 4) floats, row-major
+    (row, mixture), each an (rb + 1, rb + 4) matrix whose rows d < rb are
+    row d of L^T (zeros from D on and past rb) and whose row rb is c = -L^T
+    mu (rb floats, zeros from D on), bias, log w, 0, 0.  A re-layout, no
+    arithmetic: the Cholesky factor was taken on the host in float64."""
+    pitch = rb + 4
+    rec = a.new_zeros((N, M, rb + 1, pitch))
+    rec[:, :, :D, :D] = a.reshape(M, D, N, D).permute(2, 0, 1, 3)
+    rec[:, :, rb, :D] = bias_g.reshape(M, D, N).permute(2, 0, 1)
+    rec[:, :, rb, rb] = bias.reshape(M, N).T
+    rec[:, :, rb, rb + 1] = logw.reshape(M, N).T
+    return rec.reshape(-1)

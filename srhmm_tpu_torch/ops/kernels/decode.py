@@ -19,8 +19,12 @@ output.
   — the JAX signatures without the TPU tiling arguments.  CUDA tensors
   launch the hand-written kernel ``csrc/word_loop_decode.cu`` (one kernel
   templated on K; K = 2 follows the 2-best contract whichever wrapper
-  calls it) and count one in the wrapper's ``.launches``; CPU tensors run
-  the twin.  Nothing falls back from one to the other.
+  calls it) and count one a launch in the wrapper's ``.launches``; CPU
+  tensors run the twin.  Nothing falls back from one to the other.  At
+  full covariance past D = 16 the emission pass (``wide_emission``,
+  ``csrc/wide_log_b.cu``) writes log b first and the kernel copies it; a
+  call whose log b passes ``common.WIDE_LOG_B_BYTES`` launches once a part
+  of ``wide_emission.plan_parts``.
 
 Shapes, as in the JAX package: features (T, D_p, B) per stream (a tuple for
 several streams, any strides); a / bias / bias_g / logw per stream from
@@ -44,6 +48,7 @@ import torch
 
 from .common import NEG_INF, SMEM_LIMIT, dmax_for, mixture_records
 from .scoring import _as_tuple, _plain_stream_log_b, _stream_shapes
+from .wide_emission import columns, is_wide, pack_streams, plan_parts, wide_log_b
 
 MAX_STREAMS = 6
 K_MAX = 4  # csrc/word_loop_decode.cu kMaxK
@@ -56,23 +61,24 @@ def _r4(x: int) -> int:
     return -(-x // 4) * 4
 
 
-def smem_bytes(N: int, W: int, K: int, P: int, dmax: int, bigram: bool, frames: int) -> int:
+def smem_bytes(N: int, W: int, K: int, P: int, dmax: int, bigram: bool, frames: int, wide: bool = False) -> int:
     """csrc/word_loop_decode.cu smem_floats, in bytes: the double-buffered
     (K, N) carry, a chunk of per-frame log b, the chunk's features (x per
-    stream), the reduction scratch, and for a bigram the per-word exit
-    tokens and cross-word candidates."""
-    words = _r4(2 * K * N) + _r4(frames * N) + frames * P * dmax + _RED_WORDS
+    stream; none where the emission pass wrote log b: wide), the reduction
+    scratch, and for a bigram the per-word exit tokens and cross-word
+    candidates."""
+    words = _r4(2 * K * N) + _r4(frames * N) + (0 if wide else frames * P * dmax) + _RED_WORDS
     if bigram:
         words += 3 * K * W
     return 4 * words
 
 
-def frames_per_chunk(N: int, W: int, K: int, P: int, dmax: int, bigram: bool) -> int:
-    """Frames whose emissions the kernel computes together (each mixture
-    record is read once per chunk): the most that fit shared memory, up to
-    16; 0 if not even one does."""
+def frames_per_chunk(N: int, W: int, K: int, P: int, dmax: int, bigram: bool, wide: bool = False) -> int:
+    """Frames whose emissions the kernel computes (or, wide, copies)
+    together (each mixture record is read once per chunk): the most that
+    fit shared memory, up to 16; 0 if not even one does."""
     for f in range(_FRAMES_MAX, 0, -1):
-        if smem_bytes(N, W, K, P, dmax, bigram, f) <= SMEM_LIMIT:
+        if smem_bytes(N, W, K, P, dmax, bigram, f, wide) <= SMEM_LIMIT:
             return f
     return 0
 
@@ -90,7 +96,9 @@ def merge_groups(W: int, threads: int) -> int:
 def fits(N: int, W: int, K: int, dims, bigram: bool) -> bool:
     """Whether the kernel takes this problem: K within its compiled
     maximum, feature dims within its bounds, and one frame's working set
-    in a block's shared memory."""
+    in a block's shared memory, features included (the rule it had before
+    the emission pass: the wide instances, which stage no features, take
+    the same set)."""
     if not 1 <= K <= K_MAX or len(dims) > MAX_STREAMS:
         return False
     try:
@@ -371,7 +379,9 @@ def _kernel_library() -> ctypes.CDLL:
                                                                  # arc_range, lengths
         c_ptr, c_ptr,  # final, bp
         c_int, c_int, c_int, c_int, c_int, c_int,  # T, B, N, S, band, bigram
-        c_int, c_int, c_int, c_int, c_int, c_int, c_ptr,  # K, full, frames, threads, groups, device, stream
+        c_int, c_int, c_int, c_int, c_int,  # K, full, frames, threads, groups
+        c_ptr, c_int, c_int,  # lb, t_begin, t_end
+        c_int, c_ptr,  # device, stream
     ]
     return lib
 
@@ -405,7 +415,12 @@ def _launch(name, feats_tdb, a, bias, diag, arc_col, entry_col, lengths, s_word,
             exit_col, bias_g, logw):
     """Check the operands, pack the mixture records and launch the kernel
     on the current stream.  Returns (final, bp) as views in the JAX
-    layout of the n_best=K contract."""
+    layout of the n_best=K contract, and the number of launches.  At full
+    covariance past D = 16 (wide) every part of wide_emission.plan_parts
+    (runs of utterances, or one utterance's frames in chunks) takes the
+    emission pass into a (B', frames, N) buffer, then the kernel on those
+    utterances' slices of final and bp (the carry in final between the
+    chunks of an utterance's frames)."""
     featss, a_s, bias_s, bias_gs, logws, ds, ms, full = _streams(feats_tdb, a, bias, bias_g, logw)
     P = len(featss)
     if P > MAX_STREAMS:
@@ -437,21 +452,26 @@ def _launch(name, feats_tdb, a, bias, diag, arc_col, entry_col, lengths, s_word,
     if full and any(bg is None or lw is None for bg, lw in zip(bias_gs, logws)):
         raise ValueError(f"{name}: full covariance needs bias_g and logw")
     dmax = dmax_for(ds, name)
-    frames = frames_per_chunk(N, W, K, P, dmax, bigram)
+    wide = is_wide(ds, full)
+    frames = frames_per_chunk(N, W, K, P, dmax, bigram, wide)
     if frames == 0:
         raise ValueError(
             f"{name}: one frame needs {smem_bytes(N, W, K, P, dmax, bigram, 1)} bytes of shared "
             f"memory, above the {SMEM_LIMIT}-byte budget of a block"
         )
-    recs, offs, off = [], [], 0
-    for a_p, bg, bi, lw, D, M in zip(a_s, bias_gs, bias_s, logws, ds, ms):
-        rec = decode_records(mixture_records(a_p, bg, bi, lw if full else None, D, M, 1, N, full, dmax),
-                             N, M, dmax, full)
-        recs.append(rec)
-        offs.append(off)
-        off += rec.numel()
-    # every operand stays referenced here until the launch is queued
-    consts = torch.cat(recs).contiguous()
+    if wide:  # the emission pass's records; the kernel reads no constants of its own
+        wrecs, woffs, rb = pack_streams(a_s, bias_gs, bias_s, logws, ds, ms, N)
+        consts, offs = wrecs, [0] * P
+    else:
+        recs, offs, off = [], [], 0
+        for a_p, bg, bi, lw, D, M in zip(a_s, bias_gs, bias_s, logws, ds, ms):
+            rec = decode_records(mixture_records(a_p, bg, bi, lw if full else None, D, M, 1, N, full, dmax),
+                                 N, M, dmax, full)
+            recs.append(rec)
+            offs.append(off)
+            off += rec.numel()
+        # every operand stays referenced here until the launch is queued
+        consts = torch.cat(recs).contiguous()
     diag_c, arc_c = diag.contiguous(), arc_col.contiguous()
     entry_c, exit_c = entry_col.contiguous(), exit_col.contiguous()
     exit_row = _exit_rows(exit_c, s_word).contiguous()
@@ -465,23 +485,39 @@ def _launch(name, feats_tdb, a, bias, diag, arc_col, entry_col, lengths, s_word,
     threads = min(_MAX_THREADS, -(-N // 32) * 32)  # one thread per row, up to 16 warps
     ints = ctypes.c_int * P
     lib = _kernel_library()
-    err = lib.srhmm_word_loop_decode(
-        (ctypes.c_void_p * P)(*[f.data_ptr() for f in featss]),
-        (ctypes.c_longlong * (3 * P))(*strides),
-        ints(*ds), ints(*ms), ints(*offs), P, dmax,
-        consts.data_ptr(), diag_c.data_ptr(), arc_c.data_ptr(), entry_c.data_ptr(),
-        exit_c.data_ptr(), exit_row.data_ptr(), arc_range.data_ptr(), lens.data_ptr(),
-        final.data_ptr(), bp.data_ptr(),
-        T, B, N, s_word, band, int(bigram), K, int(full), frames, threads, merge_groups(W, threads) if bigram else 1,
-        dev.index if dev.index is not None else torch.cuda.current_device(),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    if err != 0:
-        msg = lib.srhmm_cuda_error_string(err).decode()
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err} ({msg})")
+
+    def launch(b_lo, b_hi, lb, t_lo, t_hi):
+        err = lib.srhmm_word_loop_decode(
+            (ctypes.c_void_p * P)(*[f.data_ptr() for f in featss]),
+            (ctypes.c_longlong * (3 * P))(*strides),
+            ints(*ds), ints(*ms), ints(*offs), P, dmax,
+            consts.data_ptr(), diag_c.data_ptr(), arc_c.data_ptr(), entry_c.data_ptr(),
+            exit_c.data_ptr(), exit_row.data_ptr(), arc_range.data_ptr(), lens[b_lo:].data_ptr(),
+            final[b_lo:].data_ptr(), bp[b_lo:].data_ptr(),
+            T, b_hi - b_lo, N, s_word, band, int(bigram), K, int(full), frames, threads,
+            merge_groups(W, threads) if bigram else 1, None if lb is None else lb.data_ptr(), t_lo, t_hi,
+            dev.index if dev.index is not None else torch.cuda.current_device(),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+        if err != 0:
+            msg = lib.srhmm_cuda_error_string(err).decode()
+            raise RuntimeError(f"{name} kernel launch failed: CUDA error {err} ({msg})")
+
+    n = 0
+    if wide:
+        for b_lo, b_hi, t_lo, t_hi in plan_parts(B, T, N, 1):
+            tc = t_hi - t_lo
+            lb = torch.empty((b_hi - b_lo, tc, N), dtype=torch.float32, device=dev)
+            cols = columns(lens, b_lo, b_hi, t_lo, t_hi, T, t_major=False)
+            wide_log_b(featss, wrecs, woffs, ds, ms, rb, N, cols, lb, b_lo, t_lo, 1, tc * N, N, 1)
+            launch(b_lo, b_hi, lb, t_lo, t_hi)
+            n += 1
+    else:
+        launch(0, B, None, 0, T)
+        n = 1
     if K == 1:
-        return final[:, 0, :].T, bp[..., 0].permute(1, 2, 0)
-    return final.permute(1, 2, 0), bp.permute(1, 3, 2, 0)
+        return final[:, 0, :].T, bp[..., 0].permute(1, 2, 0), n
+    return final.permute(1, 2, 0), bp.permute(1, 3, 2, 0), n
 
 
 def word_loop_decode(
@@ -490,14 +526,14 @@ def word_loop_decode(
 ):
     """1-best word-loop Viterbi (word_loop_decode_pallas): (final (N, B),
     bp (T, N, B) int32 source rows).  CUDA tensors launch the kernel and
-    count one in ``word_loop_decode.launches``; CPU tensors run
+    count one a launch in ``word_loop_decode.launches``; CPU tensors run
     word_loop_decode_plain."""
     args = (feats_tdb, a, bias, diag, arc_col, entry_col, lengths, s_word, band)
     if _on_cpu("word_loop_decode", feats_tdb):
         return word_loop_decode_plain(*args, 1, exit_col, bias_g, logw)
-    out = _launch("word_loop_decode", *args, 1, exit_col, bias_g, logw)
-    word_loop_decode.launches += 1
-    return out
+    *out, n = _launch("word_loop_decode", *args, 1, exit_col, bias_g, logw)
+    word_loop_decode.launches += n
+    return tuple(out)
 
 
 word_loop_decode.launches = 0
@@ -509,13 +545,13 @@ def word_loop_decode_k2(
 ):
     """2-best (word_loop_decode_k2_pallas): (final (2, N, B), bp
     (T, 2, N, B) int32 flat src*2 + k).  CUDA tensors launch the kernel
-    and count one in ``word_loop_decode_k2.launches``."""
+    and count one a launch in ``word_loop_decode_k2.launches``."""
     args = (feats_tdb, a, bias, diag, arc_col, entry_col, lengths, s_word, band)
     if _on_cpu("word_loop_decode_k2", feats_tdb):
         return word_loop_decode_plain(*args, 2, exit_col, bias_g, logw)
-    out = _launch("word_loop_decode_k2", *args, 2, exit_col, bias_g, logw)
-    word_loop_decode_k2.launches += 1
-    return out
+    *out, n = _launch("word_loop_decode_k2", *args, 2, exit_col, bias_g, logw)
+    word_loop_decode_k2.launches += n
+    return tuple(out)
 
 
 word_loop_decode_k2.launches = 0
@@ -527,16 +563,16 @@ def word_loop_decode_kn(
 ):
     """K-best, K >= 2 (word_loop_decode_kn_pallas): (final (K, N, B), bp
     (T, K, N, B) int32 flat src*K + k).  CUDA tensors launch the kernel
-    and count one in ``word_loop_decode_kn.launches``; at K = 2 it computes
+    and count one a launch in ``word_loop_decode_kn.launches``; at K = 2 it computes
     word_loop_decode_k2's result."""
     if n_best < 2:
         raise ValueError("word_loop_decode_kn: n_best >= 2 (word_loop_decode for 1-best)")
     args = (feats_tdb, a, bias, diag, arc_col, entry_col, lengths, s_word, band)
     if _on_cpu("word_loop_decode_kn", feats_tdb):
         return word_loop_decode_plain(*args, n_best, exit_col, bias_g, logw)
-    out = _launch("word_loop_decode_kn", *args, n_best, exit_col, bias_g, logw)
-    word_loop_decode_kn.launches += 1
-    return out
+    *out, n = _launch("word_loop_decode_kn", *args, n_best, exit_col, bias_g, logw)
+    word_loop_decode_kn.launches += n
+    return tuple(out)
 
 
 word_loop_decode_kn.launches = 0

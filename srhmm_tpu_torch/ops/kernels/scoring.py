@@ -10,7 +10,10 @@ Counterpart of ``srhmm_tpu/ops/pallas/scoring_pallas.py``.  Three layers:
   log-alpha.  On CUDA tensors it launches the hand-written kernel
   ``csrc/vocab_scores.cu`` at the launch shape ``vocab_block`` picks; on
   CPU tensors it runs ``vocab_scores_plain``, the same function in eager
-  PyTorch.  ``vocab_scores.launches`` counts kernel launches.
+  PyTorch.  ``vocab_scores.launches`` counts kernel launches.  At full
+  covariance past D = 16 the emission pass (``wide_emission``,
+  ``csrc/wide_log_b.cu``) writes log b first and the kernel copies it, a
+  call whose log b passes ``common.WIDE_LOG_B_BYTES`` split over launches.
 * ``fits`` — the static rule of which vocabularies the kernel takes (at
   most MAX_STREAMS streams, feature dims within the compiled bound of 64,
   at most MAX_STATES states): every refusal of the wrapper's, so
@@ -42,6 +45,7 @@ from .common import (
     mixture_records,
     trans_band,
 )
+from .wide_emission import columns, is_wide, pack_streams, plan_parts, wide_log_b
 
 MAX_STREAMS = 6
 MAX_STATES = 256  # csrc/vocab_scores.cu kMaxStates
@@ -341,15 +345,18 @@ def _kernel_library() -> ctypes.CDLL:
         c_int, c_int, c_int, c_int, c_int,  # T, B, W, S, band
         c_int, c_int, c_int,  # full, viterbi, dmax
         c_int, c_int, c_int, c_int, c_int, c_int, c_int,  # U, WB, TT, rec_warps, em_warps, consts_global, nsl
+        c_ptr, c_int, c_int, c_int,  # lb, t0, t1, ldo
         c_int, c_ptr,  # device, stream
     ]
     return lib
 
 
 class _VocabLaunch:
-    """Checked, packed arguments of one vocab_scores launch: every refusal
+    """Checked, packed arguments of one vocab_scores call: every refusal
     of the CUDA wrapper, and the launch shape (no CUDA call, so the checks
-    also run on tensors of any device)."""
+    also run on tensors of any device).  At full covariance past D = 16
+    (``wide``) the constant blocks hold the diagonals only and ``recs`` the
+    emission pass's records (wide_emission.pack_streams)."""
 
     def __init__(self, featss, a_s, bias_gs, biass, logws, diag, lengths, s_word, band):
         dev = featss[0].device
@@ -372,31 +379,65 @@ class _VocabLaunch:
             raise ValueError("vocab_scores: streams disagree on (T, B)")
         W = N // S
         self.dmax = dmax_for(ds, "vocab_scores")
-        self.consts, self.offs, self.diag_off = _kernel_constants(
-            a_s, bias_gs, biass, logws, diag, ds, ms, W, S, band, full, self.dmax
-        )
-        self.shape = vocab_block(S, W, B, self.consts.shape[1], sum(ds))
+        self.wide = is_wide(ds, full)
+        if self.wide:
+            self.consts, _, self.diag_off = _kernel_constants((), (), (), (), diag, (), (), W, S, band, full,
+                                                              self.dmax)
+            self.offs = [0] * P
+            self.recs, self.rec_offs, self.rb = pack_streams(a_s, bias_gs, biass, logws, ds, ms, N)
+            self.shape = vocab_block(S, W, B, self.consts.shape[1], 0)
+        else:
+            self.consts, self.offs, self.diag_off = _kernel_constants(
+                a_s, bias_gs, biass, logws, diag, ds, ms, W, S, band, full, self.dmax
+            )
+            self.shape = vocab_block(S, W, B, self.consts.shape[1], sum(ds))
         self.dev, self.ds, self.ms, self.full = dev, ds, ms, full
         self.T, self.B, self.W, self.S, self.N, self.band = T, B, W, S, N, band
         self.feats = [f.contiguous() for f in featss]
         self.lengths = lengths.to(torch.int32).contiguous()
 
 
-def _vocab_scores_cuda(featss, a_s, bias_gs, biass, logws, diag, lengths, s_word, band, semiring):
-    ln = _VocabLaunch(featss, a_s, bias_gs, biass, logws, diag, lengths, s_word, band)
-    sh = ln.shape
-    out = torch.empty((ln.N, ln.B), dtype=torch.float32, device=ln.dev)
-    P = len(ln.feats)
+def _launch_recursion(ln, semiring, out, b_lo=0, b_hi=None, lb=None, t0=0, t1=None):
+    """One launch of csrc/vocab_scores.cu over the utterances [b_lo, b_hi)
+    (their lengths and out's columns from b_lo on) and the frames [t0, t1),
+    reading the emission pass's buffer lb where wide."""
+    sh, P = ln.shape, len(ln.feats)
+    b_hi, t1 = ln.B if b_hi is None else b_hi, ln.T if t1 is None else t1
     ints = ctypes.c_int * P
     check_launch("vocab_scores", _kernel_library().srhmm_vocab_scores(
         (ctypes.c_void_p * P)(*[f.data_ptr() for f in ln.feats]),
         ints(*ln.ds), ints(*ln.ms), ints(*ln.offs), P,
-        ln.consts.data_ptr(), ln.consts.shape[1], ln.diag_off, ln.lengths.data_ptr(), out.data_ptr(),
-        ln.T, ln.B, ln.W, ln.S, band, int(ln.full), int(semiring == "max"), ln.dmax,
-        sh["utts"], sh["words"], sh["tile"], sh["rec_warps"], sh["em_warps"], int(sh["consts_global"]),
-        vocab_slots(band), *device_args(ln.dev),
+        ln.consts.data_ptr(), ln.consts.shape[1], ln.diag_off, ln.lengths[b_lo:].data_ptr(),
+        out[:, b_lo:].data_ptr(), ln.T, b_hi - b_lo, ln.W, ln.S, ln.band, int(ln.full), int(semiring == "max"),
+        ln.dmax, sh["utts"], sh["words"], sh["tile"], sh["rec_warps"], sh["em_warps"], int(sh["consts_global"]),
+        vocab_slots(ln.band), None if lb is None else lb.data_ptr(), t0, t1, ln.B, *device_args(ln.dev),
     ))
     vocab_scores.launches += 1
+
+
+def _vocab_scores_wide(ln, semiring, out):
+    """Full covariance past D = 16: per part of wide_emission.plan_parts
+    (whole utterance blocks of U, or one block's frames in chunks), the
+    emission pass writes the part's log b as (ceil(B' / U), frames, W S, U),
+    then the recursion steps the part, its carry in out between the chunks
+    of a block's frames."""
+    U, N = ln.shape["utts"], ln.N
+    for b_lo, b_hi, t_lo, t_hi in plan_parts(ln.B, ln.T, N, U):
+        frames = t_hi - t_lo
+        lb = torch.empty((-(-(b_hi - b_lo) // U), frames, N, U), dtype=torch.float32, device=ln.dev)
+        cols = columns(ln.lengths, b_lo, b_hi, t_lo, t_hi, ln.T, t_major=True)
+        wide_log_b(ln.feats, ln.recs, ln.rec_offs, ln.ds, ln.ms, ln.rb, N, cols, lb, b_lo, t_lo, U,
+                   frames * N * U, N * U, U)
+        _launch_recursion(ln, semiring, out, b_lo, b_hi, lb, t_lo, t_hi)
+
+
+def _vocab_scores_cuda(featss, a_s, bias_gs, biass, logws, diag, lengths, s_word, band, semiring):
+    ln = _VocabLaunch(featss, a_s, bias_gs, biass, logws, diag, lengths, s_word, band)
+    out = torch.empty((ln.N, ln.B), dtype=torch.float32, device=ln.dev)
+    if ln.wide:
+        _vocab_scores_wide(ln, semiring, out)
+    else:
+        _launch_recursion(ln, semiring, out)
     return out
 
 
@@ -410,7 +451,7 @@ def vocab_scores(
     logw, one entry per stream, homogeneous covariance, shared diag.
 
     CUDA tensors launch the hand-written kernel (csrc/vocab_scores.cu) and
-    count one in ``vocab_scores.launches``; CPU tensors run
+    count one a launch in ``vocab_scores.launches``; CPU tensors run
     ``vocab_scores_plain``.  Nothing falls back from one to the other."""
     if semiring not in ("sum", "max"):
         raise ValueError(f"unknown semiring {semiring}")

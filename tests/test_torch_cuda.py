@@ -1072,8 +1072,9 @@ def test_vocab_scores_matches_plain_at_every_launch_shape(cuda_device, i):
 def test_score_batch_scores_full_d39_through_the_kernel(cuda_device):
     """A full-covariance D=39, S=6, M=4 vocabulary: its constants (246 KB a
     word) exceed a block's shared memory, which the scoring kernel before
-    its redesign refused inside score_batch; now the kernel reads them from
-    device memory and score_batch (auto) matches score_batch_log."""
+    its redesign refused inside score_batch; the emission pass
+    (csrc/wide_log_b.cu) and the recursion's wide instance take it, and
+    score_batch (auto) matches score_batch_log."""
     from srhmm_tpu_torch.decode.scorer import score_batch, score_batch_log
 
     vocab = _vocab("full", 3, 6, ((4, 39),)).to(cuda_device)
@@ -1578,9 +1579,11 @@ def test_lane_and_narrow_full_launches_are_the_parents(cuda_device):
     kernels up to full D = 16 give bitwise the outputs of commit 76f6f1a's
     kernels, the composed kernels at diagonal D = 39 those of commit
     b91d8b8's, at full D = 39 (the z-GEMM bank kernels) those of commit
-    51f7e05's, and the block-wide Viterbi past 64 states those of commit
-    d778d84's: tests/torch_lane_digests.py's digests equal the ones saved
-    in tests/lane_digests.json from those commits' kernels on an H100."""
+    51f7e05's, the block-wide Viterbi past 64 states those of commit
+    d778d84's, and the scorer and the word-loop decoder at diagonal and
+    full covariance up to D = 16 those of commit 2b6efac's:
+    tests/torch_lane_digests.py's digests equal the ones saved in
+    tests/lane_digests.json from those commits' kernels on an H100."""
     import json
     from pathlib import Path
 
@@ -1590,3 +1593,113 @@ def test_lane_and_narrow_full_launches_are_the_parents(cuda_device):
     got = torch_lane_digests.digests()
     assert sorted(got) == sorted(want)
     assert [k for k in want if got[k] != want[k]] == []
+
+
+# ---------------------------------------------------------------------------
+# #1 and #6-#8 at full covariance past D = 16: csrc/wide_log_b.cu's emission
+# pass, then the recursions' wide instances
+# ---------------------------------------------------------------------------
+
+from srhmm_tpu_torch.ops.kernels import common as kcommon  # noqa: E402
+from srhmm_tpu_torch.ops.kernels import wide_emission as we  # noqa: E402
+from torch_port_utils import (  # noqa: E402
+    DECODE_FULL_WIDE_CASES,
+    SCORE_FULL_WIDE_CASES,
+    decode_wide_case,
+    score_wide_case,
+    wide_cap,
+)
+
+
+def _vocab_launch(args, kw):
+    return scoring._VocabLaunch(*(a if isinstance(a, tuple) else (a,) for a in args[:5]), *args[5:], **kw)
+
+
+@pytest.mark.parametrize("i", range(len(SCORE_FULL_WIDE_CASES)))
+def test_vocab_scores_matches_plain_past_full_d16(cuda_device, monkeypatch, i):
+    """vocab_scores at each case of SCORE_FULL_WIDE_CASES: the emission
+    pass's log b within 1e-5 of its twin's (wide_log_b_plain) at every
+    stepped column, the final log-alpha within 1e-5 of vocab_scores_plain
+    with equal masks, both semirings, two launches bitwise equal; a call
+    split past a lowered log b cap launches once a part and is bitwise the
+    unsplit call."""
+    S, W, md, B, T, split = SCORE_FULL_WIDE_CASES[i]
+    vocab, batch, _ = score_wide_case(i, cuda_device)
+    args, kw = scoring.pack_batch(vocab, batch)
+    ln = _vocab_launch(args, kw)
+    U, N = ln.shape["utts"], ln.N
+    assert ln.wide
+    cols = we.columns(ln.lengths, 0, B, 0, T, T, t_major=True)
+    layout = (0, 0, U, T * N * U, N * U, U)
+    buf = torch.empty((-(-B // U), T, N, U), device=cuda_device)
+    twin = torch.empty_like(buf)
+    passes = we.wide_log_b.launches
+    we.wide_log_b(ln.feats, ln.recs, ln.rec_offs, ln.ds, ln.ms, ln.rb, N, cols, buf, *layout)
+    assert we.wide_log_b.launches == passes + 1
+    we.wide_log_b_plain(ln.feats, ln.recs, ln.rec_offs, ln.ds, ln.ms, ln.rb, N, cols, twin, *layout)
+    _lattice_close(we.gather_columns(buf, cols, N, *layout), we.gather_columns(twin, cols, N, *layout))
+    for semiring in ("sum", "max"):
+        before = scoring.vocab_scores.launches
+        got = scoring.vocab_scores(*args, **kw, semiring=semiring)
+        again = scoring.vocab_scores(*args, **kw, semiring=semiring)
+        want = scoring.vocab_scores_plain(*args, **kw, semiring=semiring)
+        torch.cuda.synchronize()
+        assert scoring.vocab_scores.launches == before + 2
+        _lattice_close(got, want)
+        assert torch.equal(got, again)
+        cap = wide_cap(split, T, N, U)
+        if cap is not None:
+            monkeypatch.setattr(kcommon, "WIDE_LOG_B_BYTES", cap)
+            parts = we.plan_parts(B, T, N, U)
+            before = scoring.vocab_scores.launches
+            split_la = scoring.vocab_scores(*args, **kw, semiring=semiring)
+            torch.cuda.synchronize()
+            assert len(parts) > 1 and scoring.vocab_scores.launches == before + len(parts)
+            assert torch.equal(split_la, got)
+            monkeypatch.undo()
+
+
+@pytest.mark.parametrize("i", range(len(DECODE_FULL_WIDE_CASES)))
+def test_decode_kernel_matches_plain_past_full_d16(cuda_device, monkeypatch, i):
+    """The word-loop decoder at each case of DECODE_FULL_WIDE_CASES and each
+    of its K: final tokens within 1e-5 of the twin's with equal masks,
+    pointer mismatches <= 1e-4, two runs bitwise equal, a call split past a
+    lowered log b cap bitwise the unsplit one (a launch a part), and
+    identical hypotheses through decode_continuous_batch."""
+    W, S, bigram, md, variant, Ks, split = DECODE_FULL_WIDE_CASES[i]
+    vocab, batches, graph_kw, lens = decode_wide_case(i, cuda_device)
+    batch = batches if len(batches) > 1 else batches[0]
+    args, opt = _decode_operands(vocab, batch, graph_kw)
+    B, T, N = len(lens), max(lens), W * args[7]
+    got_hyps = {}
+    for K in Ks:
+        wrapper = getattr(kd, _WRAPPERS[K])
+        extra = {"n_best": K} if K > 2 else {}
+        before = wrapper.launches
+        fk, bk = wrapper(*args, **opt, **extra)
+        fk2, bk2 = wrapper(*args, **opt, **extra)
+        fp, bpp = kd.word_loop_decode_plain(*args, n_best=K, **opt)
+        torch.cuda.synchronize()
+        assert wrapper.launches == before + 2
+        assert torch.equal(fk, fk2) and torch.equal(bk, bk2)
+        _lattice_close(fk, fp)
+        assert int((bk != bpp).sum()) <= 1e-4 * bk.numel()
+        cap = wide_cap(split, T, N, 1)
+        if cap is not None:
+            monkeypatch.setattr(kcommon, "WIDE_LOG_B_BYTES", cap)
+            parts = we.plan_parts(B, T, N, 1)
+            before = wrapper.launches
+            fs, bs = wrapper(*args, **opt, **extra)
+            torch.cuda.synchronize()
+            assert len(parts) > 1 and wrapper.launches == before + len(parts)
+            assert torch.equal(fs, fk) and torch.equal(bs, bk)
+            monkeypatch.undo()
+        got_hyps[K] = dc.decode_continuous_batch(vocab, batch, n_best=K, **graph_kw)
+    _twins(monkeypatch)
+    for K in Ks:
+        want = dc.decode_continuous_batch(vocab, batch, n_best=K, **graph_kw)
+        for g, w in zip(got_hyps[K], want):
+            g, w = ([g], [w]) if K == 1 else (g, w)
+            assert [h[1:] for h in g] == [h[1:] for h in w]
+            for hg, hw in zip(g, w):
+                assert hg[0] == hw[0] or abs(hg[0] - hw[0]) <= 1e-5 * max(abs(hw[0]), 1.0)

@@ -4,6 +4,7 @@ on a CUDA card (not a tier-1 test):
     PYTHONPATH=<checkout> python tests/torch_forward_decode_compare.py dump OUT.pt
     python tests/torch_forward_decode_compare.py compare A.pt B.pt
     PYTHONPATH=<checkout> python tests/torch_forward_decode_compare.py time
+    PYTHONPATH=<checkout> python tests/torch_forward_decode_compare.py time wide
 
 The inputs are made from fixed seeds by this file and by the chip_smoke.py
 beside it (loaded by path), so every checkout sees the same numbers; only
@@ -22,7 +23,13 @@ the largest difference.  `time` prints the CUDA-event medians of 20
 launches of each kernel at emb_c4, tied_c5 and dec_w200 K = 1, 2, 3, and
 one whole decode_continuous_batch at dec_w200 K=2 on the host clock and
 under torch.profiler (its kernel, device-to-host and idle shares), with the
-card's name and power limit.
+card's name and power limit.  `time wide` prints, at dec_w200_full39
+(chip_smoke.py dec_w200_inputs at full D=39: W=200, S=8, M=4, B=128), the
+CUDA-event median of 5 decode launches at K = 1 unigram, 2 and 3 bigram
+around the call and each call's device time by kernel
+(chip_smoke.device_ms_keys over 3 calls: the emission pass
+wide_log_b_kernel, where the checkout has it, and word_loop_decode_kernel),
+with the card.
 """
 
 import hashlib
@@ -161,11 +168,35 @@ def time_kernels():
     print(json.dumps({**out, "package": kc.__file__, "card": card, "sm_clock_after": clocks}), flush=True)
 
 
+def time_wide():
+    from srhmm_tpu_torch.ops.kernels import decode as kd
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    from torch_scoring_emission_compare import wide_keys
+
+    cs = smoke()
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True).stdout.strip()
+    vocab, batch, _, uni, lm = cs.dec_w200_inputs(torch, 39, "full")
+    out = {}
+    for K, which in DEC_RUNS:
+        args, kw = cs.decode_operands(vocab, (batch,), {"lm_logprobs": uni if which == "uni" else lm})
+        call = lambda: cs.decode_kernel(args, kw, K)  # noqa: E731
+        out[f"word_loop_decode_full39_K{K}_ms"] = cs.median_ms(torch, call, warmup=1, reps=5)
+        out.update({f"word_loop_decode_full39_K{K}_{k}": v for k, v in
+                    cs.device_ms_keys(torch, call, wide_keys("word_loop_decode_kernel")).items()})
+    clocks = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm", "--format=csv,noheader"],
+                            capture_output=True, text=True).stdout.strip()
+    print(json.dumps({**out, "package": kd.__file__, "card": card, "sm_clock_after": clocks}), flush=True)
+
+
 if __name__ == "__main__":
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     if sys.argv[1] == "dump":
         dump(sys.argv[2])
+    elif sys.argv[1] == "time" and sys.argv[2:] == ["wide"]:
+        time_wide()
     elif sys.argv[1] == "time":
         time_kernels()
     else:

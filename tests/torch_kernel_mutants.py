@@ -1,12 +1,13 @@
 """Mutation check of csrc/lattice.cu, csrc/emission_em.cu, csrc/composed.cu,
 csrc/fused_em.cu, csrc/tile_mma.cuh, csrc/emission.cuh, csrc/wide_gemm.cuh,
-csrc/word_loop_decode.cu, csrc/mfcc.cu and csrc/vocab_scores.cu
+csrc/word_loop_decode.cu, csrc/mfcc.cu, csrc/vocab_scores.cu,
+csrc/wide_log_b.cu and the wrappers that pack and split their launches
 (needs a CUDA card and nvcc; not a tier-1 test):
 
     python tests/torch_kernel_mutants.py [mutant ...]
 
 Each mutant is a copy of the tree in a temporary directory with one
-deliberate fault in a kernel source; the chip_smoke.py phase that should
+deliberate fault in a kernel source (or a wrapper); the chip_smoke.py phase that should
 catch it (kernel, kernel_lattice, kernel_emission, kernel_composed,
 kernel_em, kernel_decode, kernel_mfcc, or kernel_lattice_wide,
 kernel_em_wide and kernel_composed_wide, the shapes past 64 states and
@@ -242,6 +243,31 @@ MUTANTS += [
     ("viterbi_group_pointer_past_length", LAT, "bp = t < len ? arg : k;", "bp = arg;", "kernel_lattice_wide"),
     ("viterbi_group_unreachable_takes_range", LAT, "  if (n > 0 && best > kNegInf) return best;",
      "  if (n > 0) return best;", "kernel_lattice_wide"),
+]
+WLB = "srhmm_tpu_torch/csrc/wide_log_b.cu"
+KDEC, KCOM = "srhmm_tpu_torch/ops/kernels/decode.py", "srhmm_tpu_torch/ops/kernels/common.py"
+MUTANTS += [
+    # #1 and #6-#8 at full covariance past D = 16: the emission pass reading
+    # the slice buffer being filled, a later stream's log b not added,
+    # records whose padding is not zero, the scorer's copy warps staging a
+    # tile into the slot the recursion reads, the decoder's later parts
+    # writing their pointers over the first part's, a later chunk of frames
+    # starting from no carry
+    ("wide_pass_slice_read_before_its_wait", WLB,
+     "wide_q<RB>(xs + fg * 32 * P, slices + (i & 1) * G * MF + gw * MF, (p.dims[cur.q] + 3) / 4);",
+     "wide_q<RB>(xs + fg * 32 * P, slices + ((i + 1) & 1) * G * MF + gw * MF, (p.dims[cur.q] + 3) / 4);", "kernel"),
+    ("wide_pass_later_stream_not_added", WLB, "*o = (prev.q == 0) ? v : *o + v;", "*o = (prev.q == 0) ? v : *o;",
+     "kernel"),
+    ("wide_records_padding_not_zero", KCOM, "rec = a.new_zeros((N, M, rb + 1, pitch))",
+     "rec = a.new_ones((N, M, rb + 1, pitch))", "kernel"),
+    ("vocab_wide_tile_copied_into_the_slot_being_read", VOC,
+     "copy_tile(p, lbs + ((k + 1) & 1) * s_tile, t_lo, min(TT, T - t_lo), ub, w0, nw, e, n_em);",
+     "copy_tile(p, lbs + (k & 1) * s_tile, t_lo, min(TT, T - t_lo), ub, w0, nw, e, n_em);", "kernel"),
+    ("decode_wide_later_part_pointers_into_the_first", KDEC, "final[b_lo:].data_ptr(), bp[b_lo:].data_ptr(),",
+     "final[b_lo:].data_ptr(), bp.data_ptr(),", "kernel_decode"),
+    ("decode_wide_chunk_starts_without_the_carry", DEC,
+     "    for (int i = tid; i < K * N; i += nt) carry[((t_first - 1) & 1) * K * N + i] = "
+     "p.final_out[(size_t)b * K * N + i];\n", "", "kernel_decode"),
 ]
 DRIVER = """
 import sys, torch

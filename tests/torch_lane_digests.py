@@ -20,11 +20,17 @@ diagonal D = 39, the frontend's width, and at full D = 39, M = 9 (the
 z-GEMM bank kernels); csrc/lattice.cu's Viterbi past 64 states (scores
 and backpointers; the group mode's max-plus kind, exact, so bitwise the
 block-wide kernel it replaced) at three cases of
-torch_port_utils.WIDE_LATTICE_CASES, S = 96 banded, 257 and 1024 dense.
+torch_port_utils.WIDE_LATTICE_CASES, S = 96 banded, 257 and 1024 dense;
+csrc/vocab_scores.cu's final log-alpha (both semirings) and
+csrc/word_loop_decode.cu's final tokens and pointers (K = 1 unigram, K = 2
+and 3 bigram) at their lane shapes: diagonal and full covariance up to
+D = 16 (the recognizer's full13 and diag10 vocabularies, two streams, the
+decoder's dec_w200 vocabulary and full13 with a bigram).
 tests/lane_digests.json holds the digests of commit 76f6f1a's kernels (the
 diagonal D = 39 case's of commit b91d8b8's, the full D = 39 case's of
 commit 51f7e05's, the Viterbi past 64 states' of commit d778d84's
-block-wide kernel); tests/test_torch_cuda.py holds these kernels to them.
+block-wide kernel, the scorer's and decoder's of commit 2b6efac's);
+tests/test_torch_cuda.py holds these kernels to them.
 """
 
 from __future__ import annotations
@@ -45,6 +51,10 @@ LATTICE = [(S, kind) for S in (3, 8, 33, 64) for kind in ("delta1", "dense")]
 EM = [("diag", 1, [(3, 9)]), ("full", 1, [(3, 9)]), ("full", None, [(16, 16)]), ("diag", 2, [(3, 9), (2, 3)]),
       ("full", 2, [(2, 12), (1, 4)])]
 VITERBI_WIDE = [1, 4, 5]  # WIDE_LATTICE_CASES: S = 96 delta2, 257 dense, 1024 dense
+# (cov, W, S, [(M, D) per stream]) of the scorer and the decoder
+VOCAB = [("full", 13, 6, [(1, 9)]), ("diag", 10, 8, [(4, 13)]), ("full", 5, 6, [(3, 9), (2, 3)]),
+         ("full", 4, 5, [(2, 16)])]
+DECODE = [("diag", 200, 8, [(4, 13)]), ("full", 13, 6, [(1, 9)]), ("full", 5, 8, [(2, 16)])]
 BANK = [("full", [(2, 6)]), ("full", [(3, 16)]), ("diag", [(4, 13)]), ("full", [(3, 4), (2, 4)]),
         ("full", [(82, 16)]), ("diag", [(3, 39)]), ("full", [(9, 39)])]
 
@@ -180,9 +190,76 @@ def bank_digests(dev) -> dict:
     return out
 
 
+def _vocab_case(seed, cov, W, S, md, lens):
+    """A float32 vocabulary (on the CPU) of W words from rand_word(seed + w)
+    and per-stream CPU feature batches of the lengths (normal * 2)."""
+    from srhmm_tpu_torch.io.dataset import pack_utterances
+    from srhmm_tpu_torch.models import gmm_hmm_from_numpy, stack_models
+
+    words = [gmm_hmm_from_numpy(*rand_word(seed + w, S, md, cov, 1), f"w{w}") for w in range(W)]
+    rng = np.random.default_rng(seed)
+    batches = tuple(pack_utterances([rng.normal(size=(n, D)) * 2 for n in lens], pad_multiple=1,
+                                    dtype=torch.float32) for _, D in md)
+    return stack_models(words).astype(torch.float32), batches
+
+
+def _to(x, dev):
+    if isinstance(x, tuple):
+        return tuple(_to(v, dev) for v in x)
+    return x.to(dev) if isinstance(x, torch.Tensor) else x
+
+
+def vocab_digests(dev) -> dict:
+    """vocab_scores' final log-alpha at VOCAB's lane shapes, both
+    semirings (the constants packed on the CPU, then moved)."""
+    from srhmm_tpu_torch.ops.kernels import scoring
+
+    out = {}
+    for i, (cov, W, S, md) in enumerate(VOCAB):
+        lens = _lengths(np.random.default_rng(900 + i), B=67, T=120)
+        vocab, batches = _vocab_case(910 + 20 * i, cov, W, S, md, lens)
+        args, kw = scoring.pack_batch(vocab, batches if len(batches) > 1 else batches[0])
+        args = _to(args, dev)
+        tag = f"vocab_{cov}_W{W}_S{S}_" + "_".join(f"M{M}D{D}" for M, D in md)
+        for semiring in ("sum", "max"):
+            out[f"{tag}_{semiring}"] = _digest(scoring.vocab_scores(*args, **kw, semiring=semiring))
+    return out
+
+
+def decode_digests(dev) -> dict:
+    """The word-loop decoder's final tokens and pointers at DECODE's lane
+    shapes: K = 1 unigram, K = 2 and 3 bigram (operands as
+    decode_continuous_batch builds them, on the CPU, then moved)."""
+    from srhmm_tpu_torch.decode import continuous as dc
+    from srhmm_tpu_torch.ops.kernels import decode as kd
+
+    out = {}
+    for i, (cov, W, S, md) in enumerate(DECODE):
+        rng = np.random.default_rng(950 + i)
+        lens = _lengths(rng, B=19, T=80)
+        vocab, batches = _vocab_case(960 + 300 * i, cov, W, S, md, lens)
+        uni, bi = np.log(rng.dirichlet(np.ones(W))), np.log(rng.dirichlet(np.ones(W), size=W))
+        tag = f"decode_{cov}_W{W}_S{S}_" + "_".join(f"M{M}D{D}" for M, D in md)
+        for K, lm in ((1, uni), (2, bi), (3, bi)):
+            graph = dc.compose_word_loop_blocks(vocab, lm_logprobs=lm)
+            ops = dc._fused_operands(vocab, graph, batches)
+            (feats, a, bias, bias_g, logw, diag, band, arc_col, entry_col, exit_col, lengths, s_eff) = _to(ops, dev)
+            args = (feats, a, bias, diag, arc_col, entry_col, lengths, s_eff, band)
+            kw = {"exit_col": exit_col, "bias_g": bias_g, "logw": logw}
+            if K == 1:
+                res = kd.word_loop_decode(*args, **kw)
+            elif K == 2:
+                res = kd.word_loop_decode_k2(*args, **kw)
+            else:
+                res = kd.word_loop_decode_kn(*args, n_best=K, **kw)
+            out[f"{tag}_K{K}"] = _digest(*res)
+    return out
+
+
 def digests(dev="cuda") -> dict:
     dev = torch.device(dev)
-    out = {**lattice_digests(dev), **viterbi_wide_digests(dev), **em_digests(dev), **bank_digests(dev)}
+    out = {**lattice_digests(dev), **viterbi_wide_digests(dev), **em_digests(dev), **bank_digests(dev),
+           **vocab_digests(dev), **decode_digests(dev)}
     torch.cuda.synchronize()
     return out
 

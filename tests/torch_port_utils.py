@@ -342,7 +342,8 @@ def emit_check_lengths(i: int, B: int, T: int) -> list[int]:
 # block and a ragged last word block, two and six streams, pairs across two
 # and across eight warps (the most states), constants past shared memory,
 # a ragged last utterance block, T shorter than a tile; every case has rows
-# of length 0 and 1 and runs both semirings
+# of length 0 and 1 and runs both semirings (full covariance past D = 16
+# takes the emission pass: SCORE_FULL_WIDE_CASES covers it)
 VOCAB_CHECK_CASES = [
     ("diag", 5, 6, [(2, 6)], 1, 37, 95),  # 2 slots, S not dividing 32, several words a block
     ("full", 6, 13, [(1, 9)], 1, 64, 95),  # full13's word shape: a ragged last word block
@@ -353,7 +354,8 @@ VOCAB_CHECK_CASES = [
     ("diag", 24, 3, [(2, 5)], 12, 37, 95),  # a band past the unrolled slots: the generic loop
     ("diag", 40, 3, [(2, 5)], 1, 37, 95),  # a pair across two warps
     ("diag", 256, 2, [(1, 3)], 2, 9, 30),  # the most states: a pair across eight warps
-    ("full", 6, 3, [(4, 39)], 1, 37, 95),  # constants past shared memory
+    ("full", 6, 3, [(4, 39)], 1, 37, 95),  # full past D = 16: the emission pass, then the recursion's wide instance
+    ("diag", 8, 3, [(24, 64)], 1, 37, 95),  # constants past shared memory
     ("diag", 8, 13, [(3, 9)], 1, 1001, 40),  # a ragged last utterance block
     ("diag", 8, 5, [(3, 9), (2, 3)], 1, 37, 7),  # T shorter than a tile
 ]
@@ -539,3 +541,132 @@ def bank_wide_placements(md) -> set:
 BANK_WIDE_PLACEMENTS = {"rb_24", "rb_32", "rb_40", "rb_48", "rb_64", "two_streams", "one_slice", "several_slices",
                         "partial_slice", "groups_1", "groups_2", "groups_3", "padded_n_tile", "whole_n_tile",
                         "streams_of_different_groups"}
+
+
+# vocab_scores at full covariance past D = 16 (csrc/wide_log_b.cu's emission
+# pass, then the recursion's wide instances), (S, W, [(M, D) per stream], B,
+# T, split): every register bound 24 / 32 / 40 / 48 / 64 (D = 17, 30, 39, 45,
+# 64), two streams of different D, M odd (a partial last record slice), one
+# mixture, columns off the 128-column tile, several row groups (full13_d39's
+# words), rows of length 0 and 1 (every case), and a call split past the log
+# b cap (wide_cap lowers common.WIDE_LOG_B_BYTES) over utterance blocks and
+# over frames
+SCORE_FULL_WIDE_CASES = [
+    (5, 4, [(2, 17)], 37, 95, None),
+    (6, 3, [(3, 30)], 37, 95, None),
+    (6, 13, [(4, 39)], 37, 95, None),
+    (4, 3, [(1, 45)], 37, 95, None),
+    (4, 2, [(2, 64)], 9, 60, None),
+    (6, 4, [(3, 20), (2, 17)], 37, 95, None),
+    (6, 5, [(3, 39)], 37, 95, "utterances"),
+    (6, 5, [(3, 39)], 37, 95, "frames"),
+]
+# the word-loop decoder there, (W, S, bigram, [(M, D) per stream], variant,
+# Ks, split): the same register bounds, streams and splits; unigram and
+# bigram (S = 6 padded to 8 states), K = 1 to 4, and ties through the
+# duplicated word of kernel_decode's ("dup", a, c) variant (word c a copy of
+# word a with the same arcs in and out)
+DECODE_FULL_WIDE_CASES = [
+    (5, 8, False, [(2, 17)], None, (1, 2, 3), None),
+    (5, 8, True, [(3, 30)], None, (1, 2, 3), None),
+    (5, 8, True, [(3, 39)], ("dup", 1, 3), (1, 2, 3, 4), None),
+    (5, 8, False, [(3, 39)], ("dup", 1, 3), (1, 2, 3, 4), None),
+    (4, 6, False, [(1, 45)], None, (1, 2), None),
+    (3, 5, False, [(2, 64)], None, (1, 3), None),
+    (4, 6, True, [(3, 20), (2, 17)], None, (1, 2, 3), None),
+    (5, 8, True, [(3, 39)], None, (1, 2), "utterances"),
+    (13, 8, False, [(3, 39)], None, (1, 3), "frames"),
+]
+WIDE_SHAPES = {"rb_24", "rb_32", "rb_40", "rb_48", "rb_64", "two_streams", "m_odd", "one_mixture",
+               "ragged_columns", "row_groups", "length_0", "length_1", "split_utterances", "split_frames"}
+DECODE_WIDE_SHAPES = WIDE_SHAPES | {"unigram", "bigram", "ties", "k_4"}
+
+
+def wide_lengths(i: int, B: int, T: int) -> list[int]:
+    """B lengths of case i of the wide sets: drawn in [2, T), then T, 0 and 1."""
+    rng = np.random.default_rng(1200 + i)
+    return [int(n) for n in rng.integers(2, T, size=B - 3)] + [T, 0, 1]
+
+
+def wide_cap(split, T: int, N: int, unit: int):
+    """The log b cap (bytes) that splits a call of T frames, N rows and
+    utterance runs of `unit` (the scorer's U, the decoder's 1): two units a
+    part ("utterances"), one unit's frames in chunks of 30 ("frames"), or
+    None (the module's own cap, no split)."""
+    if split == "utterances":
+        return 4 * T * N * unit * 2
+    if split == "frames":
+        return 4 * N * unit * 30
+    return None
+
+
+def wide_placements(mixes_dims, lens, T: int, N: int, unit: int, cap=None) -> set:
+    """The shapes of WIDE_SHAPES one call reaches: its register bound,
+    streams, mixture counts, columns, row groups, rows of length 0 and 1,
+    and its parts under the cap (wide_emission.plan_parts)."""
+    from srhmm_tpu_torch.ops.kernels import common
+    from srhmm_tpu_torch.ops.kernels import wide_emission as we
+    from srhmm_tpu_torch.ops.kernels.composed import register_bound
+
+    ms, ds = [M for M, _ in mixes_dims], [D for _, D in mixes_dims]
+    n_cols = sum(min(max(n, 1), T) for n in lens)
+    out = {f"rb_{register_bound(max(ds))}"}
+    out |= {"two_streams"} if len(ms) == 2 else set()
+    out |= {"m_odd" for M in ms if M % 2} | {"one_mixture" for M in ms if M == 1}
+    out |= {"ragged_columns"} if n_cols % 128 else set()
+    out |= {"row_groups"} if we.rows_per_group(N, ms) < N else set()
+    out |= {f"length_{n}" for n in (0, 1) if n in lens}
+    old = common.WIDE_LOG_B_BYTES
+    common.WIDE_LOG_B_BYTES = old if cap is None else cap
+    try:
+        parts = we.plan_parts(len(lens), T, N, unit)
+    finally:
+        common.WIDE_LOG_B_BYTES = old
+    out |= {"split_frames"} if any(t_lo > 0 for _, _, t_lo, _ in parts) else set()
+    out |= {"split_utterances"} if len(parts) > 1 and all(t_lo == 0 and t_hi == T for _, _, t_lo, t_hi in parts) \
+        else set()
+    return out
+
+
+def score_wide_case(i: int, device):
+    """SCORE_FULL_WIDE_CASES[i] as (float32 vocabulary on device, feature
+    batch or per-stream tuple, lengths): words from rand_word(1300 + 10 i
+    + w), features normal * 2 from a seed."""
+    from srhmm_tpu_torch.io.dataset import pack_utterances
+    from srhmm_tpu_torch.models import stack_models
+
+    S, W, mixes_dims, B, T, _ = SCORE_FULL_WIDE_CASES[i]
+    words = [gmm_hmm_from_numpy(*rand_word(1300 + 10 * i + w, S, mixes_dims, "full")) for w in range(W)]
+    lens = wide_lengths(i, B, T)
+    rng = np.random.default_rng(1400 + i)
+    batch = tuple(pack_utterances([rng.normal(size=(n, D)) * 2 for n in lens], pad_multiple=1,
+                                  dtype=torch.float32, device=device) for _, D in mixes_dims)
+    return stack_models(words).astype(torch.float32).to(device), batch[0] if len(batch) == 1 else batch, lens
+
+
+def decode_wide_case(i: int, device):
+    """DECODE_FULL_WIDE_CASES[i] as (float32 vocabulary on device, per-stream
+    feature batches, decode_continuous_batch's graph keywords, lengths):
+    words from rand_word(1500 + 10 i + w) (the copy of the "dup" variant
+    with its arcs), a Dirichlet bigram for a bigram case."""
+    from srhmm_tpu_torch.io.dataset import pack_utterances
+    from srhmm_tpu_torch.models import stack_models
+
+    W, S, bigram, mixes_dims, variant, _, _ = DECODE_FULL_WIDE_CASES[i]
+    leaves = [rand_word(1500 + 10 * i + w, S, mixes_dims, "full") for w in range(W)]
+    dup = variant[1:] if isinstance(variant, tuple) else None
+    if dup:
+        leaves[dup[1]] = leaves[dup[0]]
+    words = [gmm_hmm_from_numpy(t, st, f"w{w}") for w, (t, st) in enumerate(leaves)]
+    lens = wide_lengths(100 + i, 37, 95)
+    rng = np.random.default_rng(1600 + i)
+    batches = tuple(pack_utterances([rng.normal(size=(n, D)) * 2 for n in lens], pad_multiple=1,
+                                    dtype=torch.float32, device=device) for _, D in mixes_dims)
+    graph_kw = {}
+    if bigram:
+        lm = np.log(rng.dirichlet(np.ones(W), size=W))
+        if dup:
+            lm[:, dup[1]] = lm[:, dup[0]]
+            lm[dup[1]] = lm[dup[0]]
+        graph_kw["lm_logprobs"] = lm
+    return stack_models(words).astype(torch.float32).to(device), batches, graph_kw, lens

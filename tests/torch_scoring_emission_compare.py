@@ -4,6 +4,7 @@ kernel compared on a CUDA card (not a tier-1 test):
     PYTHONPATH=<checkout> python tests/torch_scoring_emission_compare.py dump OUT.pt
     python tests/torch_scoring_emission_compare.py compare A.pt B.pt
     PYTHONPATH=<checkout> python tests/torch_scoring_emission_compare.py time
+    PYTHONPATH=<checkout> python tests/torch_scoring_emission_compare.py time wide
 
 The inputs are made from fixed seeds by this file and by the chip_smoke.py
 beside it (loaded by path), so every checkout sees the same numbers; only
@@ -25,7 +26,12 @@ wrapper's host work included: the constants' re-layout), each kernel's own
 device time under torch.profiler (over five calls, per launch seen), and
 the median of 20 score_batch calls at full13 and diag10 (the recognizer's
 call: packing the vocabulary included); with the card's name and power
-limit.
+limit.  `time wide` prints, at full13_d39 (chip_smoke.py full13_d39_inputs:
+W=13, S=6, M=4, full D=39, B=2048 of 103-213 frames), the CUDA-event median
+of 10 vocab_scores calls around the call and its device time by kernel
+(chip_smoke.device_ms_keys over 3 calls: the emission pass
+wide_log_b_kernel, where the checkout has it, and vocab_scores_kernel),
+with the card.
 """
 
 import importlib.util
@@ -153,11 +159,40 @@ def time_kernels():
     print(json.dumps({**out, "package": ks.__file__, "card": card, "sm_clock_after": clocks}), flush=True)
 
 
+def wide_keys(recursion: str) -> tuple:
+    """The kernels a full-covariance call past D = 16 launches in the
+    srhmm_tpu_torch on the path: the emission pass (where the checkout has
+    it) and the recursion."""
+    import importlib.util
+
+    pass_ = importlib.util.find_spec("srhmm_tpu_torch.ops.kernels.wide_emission") is not None
+    return ("wide_log_b_kernel", recursion) if pass_ else (recursion,)
+
+
+def time_wide():
+    from srhmm_tpu_torch.ops.kernels import scoring as ks
+
+    cs = smoke()
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True).stdout.strip()
+    vocab, batch, _ = cs.full13_d39_inputs(torch)
+    args, kw = ks.pack_batch(vocab, batch)
+    call = lambda: ks.vocab_scores(*args, **kw)  # noqa: E731
+    out = {"vocab_scores_full13_d39_ms": cs.median_ms(torch, call, warmup=2, reps=10),
+           **{f"vocab_scores_full13_d39_{k}": v for k, v in
+              cs.device_ms_keys(torch, call, wide_keys("vocab_scores_kernel")).items()}}
+    clocks = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm", "--format=csv,noheader"],
+                            capture_output=True, text=True).stdout.strip()
+    print(json.dumps({**out, "package": ks.__file__, "card": card, "sm_clock_after": clocks}), flush=True)
+
+
 if __name__ == "__main__":
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     if sys.argv[1] == "dump":
         dump(sys.argv[2])
+    elif sys.argv[1] == "time" and sys.argv[2:] == ["wide"]:
+        time_wide()
     elif sys.argv[1] == "time":
         time_kernels()
     else:
